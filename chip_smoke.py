@@ -5,19 +5,29 @@
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device and build: the card's name and power limit, TF32 off, and the
-   hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``;
+   hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
+   (one ``nvcc`` per source, started together);
 2. each kernel held against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged and large ones (rtol 1e-5, atol
-   1e-5 * D: the kernel sums a row in another order);
-3. the main path at full width -- the ``mnist`` config (n_latents 64, 512
-   wide experts) with seeded random weights: ``eval_elbo`` over the
-   2,000-example synthetic test split, ``generate`` from labels and
-   ``sample`` -- with the launch counts read around it; then the same
-   eval with the plain ``torch`` backend (rel 1e-5) and a CPU reference on
-   a small split (rel 1e-4: CPU and card matmuls round differently);
+   main paths' shapes and at ragged and large ones (rtol 1e-5; atol
+   1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
+   cross-entropy: the kernels sum in another order);
+3. the main paths at full width, with seeded random weights, each with
+   the launch counts set to 0 just before it and read just after:
+   - ``mnist`` (n_latents 64, 512-wide MLP experts): ``eval_elbo`` over
+     the 2,000-example synthetic test split, ``generate`` from labels and
+     ``sample``;
+   - ``multimnist`` (n_latents 256, conv features 32-256 over 50x50, GRU
+     text experts of width 256): ``eval_elbo`` over its 2,000-example
+     split, ``generate`` from text, from images and from nothing, and
+     ``sample``;
+   then each eval again with the plain ``torch`` backend (rel 1e-5) and a
+   CPU reference on a small split (rel 1e-4: CPU and card matmuls round
+   differently; tokens generated at temperature 0 must be equal);
 4. timings: each kernel and its plain version on the device (CUDA-graph
-   replay, median of 50) and eagerly (host overhead included), the wall
-   time of one ``eval_elbo``, and a profile of where its device time goes.
+   replay, median of 50) and eagerly (host overhead included), the
+   library call that computes the same function where there is one, and
+   for each config the wall time of one ``eval_elbo`` and a profile of
+   where its device time goes.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -26,23 +36,28 @@ summary, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from mmvae_torch import api, configs, ops
 from mmvae_torch.data import load_dataset
+from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p.
-OPS_PER_ELEM = {"kl": 5, "bce": 7}
+# Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p; seq CE a
+# compare, a subtract, an add and an exp per logit.
+OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4}
+OPS = ("kl", "bce", "seq_ce")
 META = {
     "kl": {
         "name": "kl_std_normal",
@@ -56,12 +71,44 @@ META = {
         "source": "mmvae_torch/ops/csrc/row_reduce.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:168",
     },
+    "seq_ce": {
+        "name": "masked_seq_ce",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/seq_ce.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:230",
+    },
 }
-# (N, D, n_x, fold) of each kernel at the main path's shape (one eval
-# batch of 100: T=3 terms of KL; 2 member terms of image BCE against one
-# untiled copy of the targets) and at a large shape.
-EVAL_SHAPE = {"kl": (300, 64, 300, None), "bce": (200, 784, 100, kernels.FOLD_T)}
-LARGE_SHAPE = {"kl": (12288, 64, 12288, None), "bce": (8192, 784, 4096, kernels.FOLD_T)}
+# Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
+# of the sequence cross-entropy. One eval batch of 100 gives KL T=3 terms
+# of posteriors, image BCE 2 member terms against one untiled copy of the
+# targets, and text CE 2 member terms of 5 tokens over 13 symbols.
+TIMED_SHAPES = {
+    "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
+           "large": (12288, 64, 12288, None)},
+    "bce": {"mnist_eval": (200, 784, 100, kernels.FOLD_T),
+            "multimnist_eval": (200, 2500, 100, kernels.FOLD_T),
+            "large": (8192, 784, 4096, kernels.FOLD_T)},
+    "seq_ce": {"multimnist_eval": (200, 5, 13), "large": (2048, 8, 5003)},
+}
+CHECKED_SHAPES = {
+    "kl": [(300, 64, 300, None), (300, 256, 300, None), (37, 100, 37, None),
+           (12288, 64, 12288, None)],
+    "bce": [
+        (200, 784, 200, kernels.FOLD_NONE),
+        (200, 784, 100, kernels.FOLD_T),
+        (200, 784, 100, kernels.FOLD_B),
+        (200, 2500, 100, kernels.FOLD_T),
+        (37, 1000, 37, kernels.FOLD_NONE),
+        (8192, 784, 4096, kernels.FOLD_T),
+    ],
+    # MultiMNIST eval; ragged with all-pad rows; the synthetic CUB
+    # vocabulary (3 reserved + 20 words); a large odd vocabulary.
+    "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003)],
+}
+# The config whose eval shapes the final kernel line reports: this
+# slice's main path.
+REPORTED = "multimnist"
+PAD = 0
 
 
 def emit(obj: dict) -> None:
@@ -69,30 +116,69 @@ def emit(obj: dict) -> None:
 
 
 def inputs(op: str, shape, gen: torch.Generator):
-    n, d, n_x, fold = shape
     dev = gen.device
     if op == "kl":
+        n, d = shape[:2]
         return (torch.randn(n, d, generator=gen, device=dev),
                 torch.randn(n, d, generator=gen, device=dev))
-    logits = 3.0 * torch.randn(n, d, generator=gen, device=dev)
-    x = torch.rand(n_x, d, generator=gen, device=dev)
-    return (logits, x, fold)
+    if op == "bce":
+        n, d, n_x, fold = shape
+        logits = 3.0 * torch.randn(n, d, generator=gen, device=dev)
+        x = torch.rand(n_x, d, generator=gen, device=dev)
+        return (logits, x, fold)
+    # Tokens whose rows end in PAD runs of random length; the first rows
+    # are all PAD.
+    n, s, v = shape
+    logits = 3.0 * torch.randn(n, s, v, generator=gen, device=dev)
+    tokens = torch.randint(1, v, (n, s), generator=gen, device=dev, dtype=torch.int32)
+    lengths = torch.randint(0, s + 1, (n,), generator=gen, device=dev)
+    lengths[: max(1, n // 50)] = 0
+    tokens[torch.arange(s, device=dev)[None, :] >= lengths[:, None]] = PAD
+    return (logits, tokens, PAD)
 
 
-def kernel_fn(op):
-    return kernels.kl_std_normal_kernel if op == "kl" else kernels.bernoulli_nll_kernel
+KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_kernel,
+             "seq_ce": kernels.masked_seq_ce_kernel}
+PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
+            "seq_ce": kernels.masked_seq_ce_torch}
 
 
-def plain_fn(op):
-    return kernels.kl_std_normal_torch if op == "kl" else kernels.bernoulli_nll_torch
+def library_fn(op: str):
+    """One PyTorch call that computes the same function, or None. Timed
+    as a yardstick; the port never calls it."""
+    if op != "seq_ce":
+        return None
+
+    def cross_entropy(logits, tokens, pad):
+        n, s, v = logits.shape
+        return F.cross_entropy(
+            logits.view(-1, v), tokens.view(-1).long(), ignore_index=pad,
+            reduction="none",
+        ).view(n, s).sum(-1)
+
+    return cross_entropy
 
 
-def bound(op: str, shape) -> tuple[float, str]:
-    """Least time on the card: each input read once, the output written once."""
-    n, d, n_x, _ = shape
-    n_bytes = 4 * (n * d + n_x * d + n)
+def atol(op: str, shape) -> float:
+    return 1e-5 * (shape[1] * math.log(shape[2]) if op == "seq_ce" else shape[1])
+
+
+def bound(op: str, args) -> tuple[float, str]:
+    """Least time on the card for this call's inputs: each input byte the
+    function needs read once, the output written once, or the operations
+    at the f32 rate. The sequence cross-entropy needs no logit of a pad
+    token, so only the non-pad token rows' logits count."""
+    if op == "seq_ce":
+        logits, tokens, pad = args
+        n, _, v = logits.shape
+        n_elems = int((tokens != pad).sum()) * v
+        n_bytes = 4 * n_elems + tokens.numel() * tokens.element_size() + 4 * n
+    else:
+        n, d = args[0].shape
+        n_elems = n * d
+        n_bytes = 4 * (n * d + args[1].numel() + n)
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = OPS_PER_ELEM[op] * n * d / F32_OPS_PER_S
+    t_ops = OPS_PER_ELEM[op] * n_elems / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -113,13 +199,15 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    so = kernels.build()
-    ptxas = [
-        line.strip() for line in so.with_suffix(".log").read_text().splitlines()
-        if "registers" in line or "spill" in line
-    ]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(so.relative_to(ROOT)), "ptxas": ptxas})
+    libs = kernels.build()
+    seconds = time.perf_counter() - t0
+    for name, so in libs.items():
+        ptxas = [
+            line.strip() for line in so.with_suffix(".log").read_text().splitlines()
+            if "registers" in line or "spill" in line
+        ]
+        emit({"phase": "build", "seconds_all": seconds,
+              "library": str(so.relative_to(ROOT)), "ptxas": ptxas})
     return kind
 
 
@@ -128,94 +216,134 @@ def phase_device() -> str:
 
 def phase_check() -> dict[str, float]:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {
-        "kl": [EVAL_SHAPE["kl"], (37, 100, 37, None), LARGE_SHAPE["kl"]],
-        "bce": [
-            (200, 784, 200, kernels.FOLD_NONE),
-            EVAL_SHAPE["bce"],
-            (200, 784, 100, kernels.FOLD_B),
-            (37, 1000, 37, kernels.FOLD_NONE),
-            LARGE_SHAPE["bce"],
-        ],
-    }
     max_err = {}
-    for op, shapes in cases.items():
+    for op, shapes in CHECKED_SHAPES.items():
         max_err[op] = 0.0
         for shape in shapes:
             args = inputs(op, shape, gen)
-            got = kernel_fn(op)(*args)
-            want = plain_fn(op)(*args)
+            got = KERNEL_FN[op](*args)
+            want = PLAIN_FN[op](*args)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * shape[1])
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=atol(op, shape))
+            if op == "seq_ce" and not torch.all(got[(args[1] == PAD).all(-1)] == 0):
+                raise AssertionError("an all-pad row did not give exactly 0")
             max_err[op] = max(max_err[op], err)
-            emit({"phase": "check", "kernel": META[op]["name"],
-                  "shape": list(shape[:3]), "fold": shape[3], "max_abs_err": err})
+            emit({"phase": "check", "kernel": META[op]["name"], "shape": list(shape[:3]),
+                  "fold": shape[3] if len(shape) > 3 else None, "max_abs_err": err})
     return max_err
 
 
 # ------------------------------------------------------------ phase 3 ----
 
 
-def phase_main_path() -> dict[str, int]:
-    model = configs.build_model("mnist", seed=0)
-    test = load_dataset("mnist", "test")
-    assert test.size == 2000
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    # The main path, as a user calls it, with the "kernel" backend: every
-    # reduction runs in its kernel or raises.
+def drive(config: str, calls) -> tuple[dict, dict[str, int]]:
+    """``config``'s eval over its 2,000-example test split, then ``calls``
+    (name -> function of the model), all with the "kernel" backend (every
+    reduction runs in its kernel or raises) and the launch counts set to 0
+    just before and read just after."""
+    model = configs.build_model(config, seed=0)
+    test = load_dataset(config, "test")
+    if test.size != 2000:
+        raise AssertionError(f"{config}: test split of {test.size}, not 2000")
     ops.set_backend("kernel")
     try:
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
-        elbo = api.eval_elbo("mnist", model=model, dataset=test)
-        gen_out = api.generate("mnist", {"label": [3, 5, 7]}, model=model)
-        samples = api.sample("mnist", n=64, model=model, generator=gen)
+        elbo = api.eval_elbo(config, model=model, dataset=test)
+        outs = {name: call(model) for name, call in calls.items()}
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
     finally:
         ops.set_backend("auto")
-    emit({"phase": "main_path", "eval_elbo": elbo, "launches": launches})
-    if launches != {"kl": 20, "bce": 20}:
-        raise AssertionError(f"expected 20 launches of each kernel, got {launches}")
-
-    for out, n in ((gen_out, 3), (samples, 64)):
-        img, lab = out["image"], out["label"]
-        if img.shape != (n, 28, 28) or lab.shape != (n,):
-            raise AssertionError(f"bad shapes {img.shape} {lab.shape}")
-        if not (torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1):
-            raise AssertionError("generated image not finite or outside [0, 1]")
-        if not (lab.min() >= 0 and lab.max() < 10):
-            raise AssertionError("generated label out of range")
+    emit({"phase": "main_path", "config": config, "eval_elbo": elbo, "launches": launches})
 
     ops.set_backend("torch")
     try:
-        elbo_plain = api.eval_elbo("mnist", model=model, dataset=test)
+        elbo_plain = api.eval_elbo(config, model=model, dataset=test)
     finally:
         ops.set_backend("auto")
     if kernels.LAUNCHES != launches:
         raise AssertionError("the torch backend launched a kernel")
     rel = abs(elbo - elbo_plain) / abs(elbo_plain)
-    emit({"phase": "kernel_vs_torch_backend", "eval_elbo_kernel": elbo,
+    emit({"phase": "kernel_vs_torch_backend", "config": config, "eval_elbo_kernel": elbo,
           "eval_elbo_torch": elbo_plain, "rel": rel})
     if not rel <= 1e-5:
-        raise AssertionError(f"kernel and torch backends differ: rel {rel}")
+        raise AssertionError(f"{config}: kernel and torch backends differ: rel {rel}")
+    return outs, launches
 
-    small = load_dataset("mnist", "test", n=250)
-    cpu_model = configs.build_model("mnist", seed=0, device="cpu")
-    on_card = api.eval_elbo("mnist", model=model, dataset=small)
-    on_cpu = api.eval_elbo("mnist", model=cpu_model, dataset=small, device="cpu")
-    gen_cpu = api.generate("mnist", {"label": [3, 5, 7]}, model=cpu_model, device="cpu")
-    rel_cpu = abs(on_card - on_cpu) / abs(on_cpu)
-    img_err = (gen_out["image"].cpu() - gen_cpu["image"]).abs().max().item()
-    emit({"phase": "card_vs_cpu", "eval_elbo_card": on_card, "eval_elbo_cpu": on_cpu,
-          "rel": rel_cpu, "generate_image_max_abs_err": img_err})
-    if not rel_cpu <= 1e-4 or not img_err <= 1e-4:
-        raise AssertionError(f"card and CPU differ: rel {rel_cpu}, image {img_err}")
-    if not torch.equal(gen_out["label"].cpu(), gen_cpu["label"]):
-        raise AssertionError("generated labels differ between card and CPU")
-    return launches
+
+def check_image(img, n: int, hw: tuple[int, int]) -> None:
+    if img.shape != (n, *hw):
+        raise AssertionError(f"bad image shape {tuple(img.shape)}")
+    if not (torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1):
+        raise AssertionError("generated image not finite or outside [0, 1]")
+
+
+def check_text(text, n: int) -> None:
+    """Digit strings: (n, 5) tokens below 13, PAD after the first STOP."""
+    if text.shape != (n, 5) or text.min() < 0 or text.max() >= 13:
+        raise AssertionError(f"bad text {tuple(text.shape)} {text.min()} {text.max()}")
+    is_stop = (text == STOP).int()
+    after_stop = is_stop.cumsum(1) - is_stop > 0
+    if not torch.all(text[after_stop] == PAD):
+        raise AssertionError("a token after STOP is not PAD")
+
+
+def card_vs_cpu(config: str, n: int, condition: dict, on_card: dict) -> None:
+    """The eval on an ``n``-example split and ``generate`` at temperature 0
+    from ``condition``, on the card and on the CPU, from the same seed."""
+    model = configs.build_model(config, seed=0)
+    cpu_model = configs.build_model(config, seed=0, device="cpu")
+    small = load_dataset(config, "test", n=n)
+    elbo_card = api.eval_elbo(config, model=model, dataset=small)
+    elbo_cpu = api.eval_elbo(config, model=cpu_model, dataset=small, device="cpu")
+    gen_cpu = api.generate(config, condition, model=cpu_model, device="cpu", temperature=0.0)
+    rel = abs(elbo_card - elbo_cpu) / abs(elbo_cpu)
+    img_err = (on_card["image"].cpu() - gen_cpu["image"]).abs().max().item()
+    emit({"phase": "card_vs_cpu", "config": config, "examples": n,
+          "eval_elbo_card": elbo_card, "eval_elbo_cpu": elbo_cpu, "rel": rel,
+          "generate_image_max_abs_err": img_err})
+    if not rel <= 1e-4 or not img_err <= 1e-4:
+        raise AssertionError(f"{config}: card and CPU differ: rel {rel}, image {img_err}")
+    for key in set(gen_cpu) - {"image"}:
+        if not torch.equal(on_card[key].cpu(), gen_cpu[key]):
+            raise AssertionError(f"{config}: generated {key} differs between card and CPU")
+
+
+def phase_main_path() -> dict[str, dict[str, int]]:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    labels = {"label": [3, 5, 7]}
+    outs, mnist = drive("mnist", {
+        "generate": lambda m: api.generate("mnist", labels, model=m),
+        "sample": lambda m: api.sample("mnist", n=64, model=m, generator=gen),
+    })
+    if mnist != {"kl": 20, "bce": 20, "seq_ce": 0}:
+        raise AssertionError(f"mnist: expected 20 launches of K1 and K2, got {mnist}")
+    for out, n in ((outs["generate"], 3), (outs["sample"], 64)):
+        check_image(out["image"], n, (28, 28))
+        if not (out["label"].min() >= 0 and out["label"].max() < 10):
+            raise AssertionError("generated label out of range")
+    card_vs_cpu("mnist", 250, labels, outs["generate"])
+
+    data = load_dataset("multimnist", "test", n=3).arrays
+    text = {"text": data["text"]}
+    outs, multimnist = drive("multimnist", {
+        "from_text": lambda m: api.generate("multimnist", text, model=m, temperature=0.0),
+        "from_image": lambda m: api.generate(
+            "multimnist", {"image": data["image"]}, model=m, generator=gen),
+        "from_nothing": lambda m: api.generate("multimnist", {}, n=8, model=m, generator=gen),
+        "sample": lambda m: api.sample("multimnist", n=64, model=m, generator=gen),
+    })
+    if multimnist != {"kl": 20, "bce": 20, "seq_ce": 20}:
+        raise AssertionError(f"multimnist: expected 20 launches of each kernel, got {multimnist}")
+    for name, n in (("from_text", 3), ("from_image", 3), ("from_nothing", 8), ("sample", 64)):
+        check_image(outs[name]["image"], n, (50, 50))
+        check_text(outs[name]["text"], n)
+    emit({"phase": "generated_text", "from_text": outs["from_text"]["text"].tolist(),
+          "from_image": outs["from_image"]["text"].tolist()})
+    card_vs_cpu("multimnist", 200, text, outs["from_text"])
+    return {"mnist": mnist, "multimnist": multimnist}
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -262,38 +390,39 @@ def eager_ms(fn, reps: int = 50, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def phase_timings(launches: dict[str, int]) -> dict[str, dict]:
+def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    at_eval = {}
-    for op in ("kl", "bce"):
-        for label, shape in (("eval", EVAL_SHAPE[op]), ("large", LARGE_SHAPE[op])):
+    reported = {}
+    for op in OPS:
+        for label, shape in TIMED_SHAPES[op].items():
             args = inputs(op, shape, gen)
-            k, p = kernel_fn(op), plain_fn(op)
+            k, p, lib = KERNEL_FN[op], PLAIN_FN[op], library_fn(op)
             row = {
                 "kernel_ms": device_ms(lambda: k(*args)),
                 "plain_ms": device_ms(lambda: p(*args)),
                 "kernel_eager_ms": eager_ms(lambda: k(*args)),
                 "plain_eager_ms": eager_ms(lambda: p(*args)),
+                "library_ms": None if lib is None else device_ms(lambda: lib(*args)),
             }
-            row["bound_ms"], row["bound_by"] = bound(op, shape)
+            row["bound_ms"], row["bound_by"] = bound(op, args)
             emit({"phase": "timing", "kernel": META[op]["name"], "shape": label,
-                  "n_d_nx": list(shape[:3]), **row,
-                  "launches_per_eval": launches[op]})
-            if label == "eval":
-                at_eval[op] = row
-    return at_eval
+                  "dims": list(shape[:3]), **row,
+                  "launches_per_eval": {c: n[op] for c, n in launches.items()}})
+            if label == f"{REPORTED}_eval":
+                reported[op] = row
+    return reported
 
 
-def phase_eval_wall() -> None:
-    model = configs.build_model("mnist", seed=0)
-    test = load_dataset("mnist", "test")
-    api.eval_elbo("mnist", model=model, dataset=test)  # warm-up
+def phase_eval_wall(config: str) -> None:
+    model = configs.build_model(config, seed=0)
+    test = load_dataset(config, "test")
+    api.eval_elbo(config, model=model, dataset=test)  # warm-up
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        api.eval_elbo("mnist", model=model, dataset=test)  # ends in a sync
+        api.eval_elbo(config, model=model, dataset=test)  # ends in a sync
         walls.append(1e3 * (time.perf_counter() - t0))
-    emit({"phase": "eval_wall", "examples": test.size, "batches": 20,
+    emit({"phase": "eval_wall", "config": config, "examples": test.size, "batches": 20,
           "wall_ms_median": statistics.median(walls), "wall_ms": walls})
 
     from torch.autograd import DeviceType
@@ -301,7 +430,7 @@ def phase_eval_wall() -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.eval_elbo("mnist", model=model, dataset=test)
+        api.eval_elbo(config, model=model, dataset=test)
         wall_us = 1e6 * (time.perf_counter() - t0)
 
     def dev_us(e):
@@ -315,26 +444,27 @@ def phase_eval_wall() -> None:
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
-    emit({"phase": "eval_profile", "wall_us": wall_us,
+    emit({"phase": "eval_profile", "config": config, "wall_us": wall_us,
           "device_busy_us": busy if busy else "not measured",
           "device_idle_share": 1 - busy / wall_us if busy else "not measured",
           "device_events": sum(r[2] for r in rows),
           "top": [{"name": k[:80], "device_us": us, "count": c}
-                  for us, k, c in rows[:10] if us > 0]})
+                  for us, k, c in rows[:12] if us > 0]})
 
 
 def main() -> None:
     kind = phase_device()
     max_err = phase_check()
     launches = phase_main_path()
-    at_eval = phase_timings(launches)
-    phase_eval_wall()
+    reported = phase_timings(launches)
+    for config in ("mnist", "multimnist"):
+        phase_eval_wall(config)
     emit({"kernels": [
-        {**META[op], "launches": launches[op], "max_abs_err": max_err[op],
-         "ms": at_eval[op]["kernel_ms"], "plain_ms": at_eval[op]["plain_ms"],
-         "bound_ms": at_eval[op]["bound_ms"], "bound_by": at_eval[op]["bound_by"],
-         "library_ms": None}
-        for op in ("kl", "bce")
+        {**META[op], "launches": launches[REPORTED][op], "max_abs_err": max_err[op],
+         "ms": reported[op]["kernel_ms"], "plain_ms": reported[op]["plain_ms"],
+         "bound_ms": reported[op]["bound_ms"], "bound_by": reported[op]["bound_by"],
+         "library_ms": reported[op]["library_ms"]}
+        for op in OPS
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -71,9 +71,16 @@ def eval_elbo(
     return float(metrics["loss"].sum()) * batch_size / dataset.size
 
 
-def _postprocess(model, recons: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def _postprocess(
+    model,
+    recons: dict[str, torch.Tensor],
+    z: torch.Tensor,
+    temperature: float,
+    generator: torch.Generator | None,
+) -> dict[str, torch.Tensor]:
     """Decode dict -> user-facing tensors: probabilities for bernoulli
-    modalities, class indices for categorical ones."""
+    modalities, class indices for categorical ones, and for each sequence
+    modality the tokens ``model.generate_text`` draws from ``z``."""
     kinds = model.decode_kinds()
     out = {}
     for key, value in recons.items():
@@ -85,6 +92,9 @@ def _postprocess(model, recons: dict[str, torch.Tensor]) -> dict[str, torch.Tens
             raise NotImplementedError(
                 f"generating {kinds[key]!r} modalities is not yet ported"
             )
+    for spec in model.specs():
+        if spec.kind == "seq":
+            out[spec.name] = model.generate_text(z, temperature, generator)
     return out
 
 
@@ -98,6 +108,7 @@ def generate(
     state_dict: dict[str, torch.Tensor] | None = None,
     device: torch.device | str | None = None,
     sample_z: bool = False,
+    temperature: float = 1.0,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """Cross-modal generation from any modality subset.
@@ -105,7 +116,9 @@ def generate(
     ``condition`` maps modality names to observed values (empty: prior
     sampling). The observed experts are fused with the prior; z is the
     posterior mean, or a draw from ``generator`` (on ``device``) when
-    ``sample_z``; ALL modalities are decoded.
+    ``sample_z``; ALL modalities are decoded. A sequence modality is
+    generated token by token: argmax when ``temperature <= 0``, else a
+    draw at ``temperature`` from ``generator``.
     """
     config, model, device = _resolve(config, model, state_dict, device)
     names = [s.name for s in model.specs()]
@@ -123,7 +136,7 @@ def generate(
         mu_e, lv_e, presence, config.objective, sample=sample_z,
         generator=generator,
     )
-    return _postprocess(model, model.decode(z))
+    return _postprocess(model, model.decode(z), z, temperature, generator)
 
 
 def sample(
@@ -133,10 +146,11 @@ def sample(
     model=None,
     state_dict: dict[str, torch.Tensor] | None = None,
     device: torch.device | str | None = None,
+    temperature: float = 1.0,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """Unconditional samples: z ~ N(0, I) decoded into every modality."""
     return generate(
         config, {}, n=n, model=model, state_dict=state_dict, device=device,
-        sample_z=True, generator=generator,
+        sample_z=True, temperature=temperature, generator=generator,
     )

@@ -1,17 +1,21 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-Only the fields the inference slice reads, and only the ``mnist`` config;
-the other experiments raise until their slice lands.
+Only the fields the inference slices read, and only the ``mnist`` and
+``multimnist`` configs; the other experiments raise until their slice
+lands. The training knobs of the JAX configs (``cross_recon``, the
+``cycle_*`` fields, ``grad_clip``, epochs) are not read by eval or
+generation and are left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
 from mmvae_torch.device import resolve_device
-from mmvae_torch.models import MnistMVAE
+from mmvae_torch.models import MnistMVAE, MultiMnistMVAE
 
 __all__ = ["ExperimentConfig", "CONFIGS", "get_config", "build_model"]
 
@@ -26,15 +30,29 @@ class ExperimentConfig:
     batch_size: int = 100
     test_size: int = 2000
     objective: str = "mvae"
+    # Extra constructor arguments of the config's model.
+    model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 CONFIGS: dict[str, ExperimentConfig] = {
     # MVAE on MNIST image+label: MLP encoders, PoE, full ELBO.
     "mnist": ExperimentConfig(name="mnist", dataset="mnist", n_latents=64),
+    # MultiMNIST image + digit string: conv image expert over the 50x50
+    # canvas, GRU text expert, a text expert limited to the first 128
+    # latent dims (``mmvae_tpu/configs.py:223-234``).
+    "multimnist": ExperimentConfig(
+        name="multimnist", dataset="multimnist", n_latents=256,
+        model_kwargs={
+            "conv_features": (32, 64, 128, 256),
+            "lambda_text": 30.0,
+            "text_hidden": 256,
+            "text_latent_dims": 128,
+        },
+    ),
 }
 
-_MODEL_CLASSES = {"mnist": MnistMVAE}
-_NOT_PORTED = ("deep_mnist", "fashionmnist", "multimnist", "celeba", "cub", "deep_cub")
+_MODEL_CLASSES = {"mnist": MnistMVAE, "multimnist": MultiMnistMVAE}
+_NOT_PORTED = ("deep_mnist", "fashionmnist", "celeba", "cub", "deep_cub")
 
 
 def get_config(name: str) -> ExperimentConfig:
@@ -60,6 +78,8 @@ def build_model(
     if isinstance(config, str):
         config = get_config(config)
     device = resolve_device(device)
-    model = _MODEL_CLASSES[config.name](n_latents=config.n_latents)
+    model = _MODEL_CLASSES[config.name](
+        n_latents=config.n_latents, **config.model_kwargs
+    )
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)

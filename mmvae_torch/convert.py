@@ -1,12 +1,25 @@
 """Flax parameter tree -> PyTorch ``state_dict`` of the port's models.
 
-Each expert's Flax ``Dense_{i}`` layers map in order onto its hidden
-``layers.{i}`` and, for the last one, its ``head``; a Flax Dense ``kernel``
-is ``(in, out)`` and is transposed into ``nn.Linear.weight`` ``(out, in)``.
-``Embed_0.embedding`` ``(n_classes, dim)`` maps as it is onto
-``embed.weight``. For the MNIST model that covers ``image_enc/Dense_{0,1,2}``,
+Each expert's leaves map by name:
+
+  * ``Dense_{i}`` in order onto its hidden ``layers.{i}`` and, for the last
+    one, its ``head``; ``init_proj`` / ``out_proj`` onto the Linear of the
+    same name. A Flax Dense ``kernel`` is ``(in, out)`` and is transposed
+    into ``nn.Linear.weight`` ``(out, in)``.
+  * ``Conv_{i}`` onto ``convs.{i}``: the kernel HWIO -> OIHW.
+  * ``ConvTranspose_{i}`` onto ``deconvs.{i}``: Flax does not flip a
+    transposed conv's kernel and PyTorch does, so the kernel is flipped in
+    H and W, then HWIO -> ``(in, out, kh, kw)``.
+  * ``Embed_0`` / ``embed`` ``(n_classes, dim)`` as it is onto
+    ``embed.weight``.
+  * the GRU weights ``w_in``, ``u_rec``, ``b`` as they are.
+
+For the MNIST model that covers ``image_enc/Dense_{0,1,2}``,
 ``image_dec/Dense_{0,1,2}``, ``label_enc/{Embed_0,Dense_0,Dense_1}`` and
-``label_dec/Dense_{0,1}``.
+``label_dec/Dense_{0,1}``; for MultiMNIST ``image_enc/{Conv_{0..3},
+Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
+``text_enc/{Embed_0, w_in, u_rec, b, Dense_0}`` and ``text_dec/{embed,
+init_proj, w_in, u_rec, b, out_proj}``. A leaf of no such name raises.
 """
 
 from __future__ import annotations
@@ -18,9 +31,24 @@ import torch
 
 __all__ = ["from_flax_params"]
 
+_LINEARS = ("init_proj", "out_proj")
+_EMBEDS = ("Embed_0", "embed")
+_GRU = ("w_in", "u_rec", "b")
 
-def _dense_index(name: str) -> int:
-    return int(name.split("_")[1])
+
+def _index(name: str) -> int:
+    return int(name.rsplit("_", 1)[1])
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _numbered(layers, prefix: str) -> list[str]:
+    return sorted(
+        (k for k in layers if k.startswith(prefix) and k[len(prefix):].isdigit()),
+        key=_index,
+    )
 
 
 def from_flax_params(
@@ -30,17 +58,35 @@ def from_flax_params(
     a ``state_dict`` for ``load_state_dict``."""
     state: dict[str, torch.Tensor] = {}
     for expert, layers in params.items():
-        dense = sorted((k for k in layers if k.startswith("Dense_")), key=_dense_index)
-        for i, name in enumerate(dense):
-            dst = f"{expert}.head" if i == len(dense) - 1 else f"{expert}.layers.{i}"
-            kernel = np.asarray(layers[name]["kernel"], dtype=np.float32)
-            bias = np.asarray(layers[name]["bias"], dtype=np.float32)
-            state[f"{dst}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
-            state[f"{dst}.bias"] = torch.from_numpy(bias.copy())
-        unknown = set(layers) - set(dense) - {"Embed_0"}
+        dense = _numbered(layers, "Dense_")
+        convs = _numbered(layers, "Conv_")
+        deconvs = _numbered(layers, "ConvTranspose_")
+        unknown = (
+            set(layers) - set(dense) - set(convs) - set(deconvs)
+            - set(_LINEARS) - set(_EMBEDS) - set(_GRU)
+        )
         if unknown:
             raise ValueError(f"{expert}: cannot map {sorted(unknown)}")
-        if "Embed_0" in layers:
-            emb = np.asarray(layers["Embed_0"]["embedding"], dtype=np.float32)
-            state[f"{expert}.embed.weight"] = torch.from_numpy(emb.copy())
+        for i, name in enumerate(dense):
+            dst = f"{expert}.head" if i == len(dense) - 1 else f"{expert}.layers.{i}"
+            state[f"{dst}.weight"] = _t(np.asarray(layers[name]["kernel"]).T)
+            state[f"{dst}.bias"] = _t(layers[name]["bias"])
+        for name in _LINEARS:
+            if name in layers:
+                state[f"{expert}.{name}.weight"] = _t(np.asarray(layers[name]["kernel"]).T)
+                state[f"{expert}.{name}.bias"] = _t(layers[name]["bias"])
+        for name in convs:
+            kernel = np.asarray(layers[name]["kernel"]).transpose(3, 2, 0, 1)
+            state[f"{expert}.convs.{_index(name)}.weight"] = _t(kernel)
+            state[f"{expert}.convs.{_index(name)}.bias"] = _t(layers[name]["bias"])
+        for name in deconvs:
+            kernel = np.asarray(layers[name]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+            state[f"{expert}.deconvs.{_index(name)}.weight"] = _t(kernel)
+            state[f"{expert}.deconvs.{_index(name)}.bias"] = _t(layers[name]["bias"])
+        for name in _EMBEDS:
+            if name in layers:
+                state[f"{expert}.embed.weight"] = _t(layers[name]["embedding"])
+        for name in _GRU:
+            if name in layers:
+                state[f"{expert}.{name}"] = _t(layers[name])
     return state

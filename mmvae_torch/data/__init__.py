@@ -1,6 +1,12 @@
-"""Data: the seeded synthetic MNIST generator and eval batching."""
+"""Data: the seeded synthetic generators and eval batching."""
 
 from mmvae_torch.data.pipelines import Dataset, load_dataset, stacked_epoch_padded
-from mmvae_torch.data.synthetic import make_mnist
+from mmvae_torch.data.synthetic import make_mnist, make_multimnist
 
-__all__ = ["Dataset", "load_dataset", "stacked_epoch_padded", "make_mnist"]
+__all__ = [
+    "Dataset",
+    "load_dataset",
+    "stacked_epoch_padded",
+    "make_mnist",
+    "make_multimnist",
+]

@@ -1,16 +1,20 @@
-"""Seeded synthetic MNIST-shaped data (port of ``mmvae_tpu/data/synthetic.py:31-83``).
+"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-170``).
 
-A vectorized numpy generator whose cross-modal structure is learnable: each
-image is a jittered glyph of its paired label plus noise. The same seed
-gives byte-identical arrays to the JAX package's generator; the port keeps
-its own copy so it never imports the JAX package.
+numpy generators whose cross-modal structure is learnable: an MNIST image
+is a jittered glyph of its paired label plus noise; a MultiMNIST canvas
+composites 1-4 glyphs left to right and its text is their digit string.
+The same seed gives byte-identical arrays to the JAX package's
+generators; the port keeps its own copy so it never imports the JAX
+package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_mnist"]
+from mmvae_torch.models.text import PAD, STOP
+
+__all__ = ["make_mnist", "make_multimnist"]
 
 # 5x7 bitmap font for digits 0-9 (rows top->bottom).
 _DIGIT_FONT = np.array(
@@ -64,3 +68,30 @@ def make_mnist(n: int, seed: int = 0) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, 10, size=n).astype(np.int32)
     return {"image": _render_digits(labels, rng), "label": labels}
+
+
+def make_multimnist(n: int, seed: int = 0, hw: int = 50, max_digits: int = 4):
+    """MultiMNIST: 1..max_digits digits composited left to right on an
+    hw x hw canvas; text = token sequence (digit d -> 3+d, then STOP, PAD).
+    image (n, hw, hw) f32 in [0, 1], text (n, max_digits + 1) i32."""
+    rng = np.random.default_rng(seed)
+    glyphs = _digit_glyphs()
+    scale = 2
+    big = np.kron(glyphs, np.ones((scale, scale), np.float32))  # (10,14,10)
+    gh, gw = big.shape[1:]
+    seq_len = max_digits + 1
+    images = np.zeros((n, hw, hw), np.float32)
+    tokens = np.full((n, seq_len), PAD, np.int32)
+    counts = rng.integers(1, max_digits + 1, size=n)
+    for i in range(n):
+        k = counts[i]
+        digits = rng.integers(0, 10, size=k)
+        xs = np.sort(rng.integers(0, hw - gw + 1, size=k))
+        ys = rng.integers(0, hw - gh + 1, size=k)
+        for d, x0, y0 in zip(digits, xs, ys):
+            patch = images[i, y0 : y0 + gh, x0 : x0 + gw]
+            np.maximum(patch, big[d], out=patch)
+        tokens[i, :k] = digits + 3
+        tokens[i, k] = STOP
+    images += rng.normal(0, 0.02, images.shape).astype(np.float32)
+    return {"image": np.clip(images, 0, 1), "text": tokens}

@@ -2,5 +2,6 @@
 
 from mmvae_torch.models.base import ModalitySpec, MVAEBase
 from mmvae_torch.models.mnist import MnistMVAE
+from mmvae_torch.models.multimnist import MultiMnistMVAE
 
-__all__ = ["MVAEBase", "ModalitySpec", "MnistMVAE"]
+__all__ = ["MVAEBase", "ModalitySpec", "MnistMVAE", "MultiMnistMVAE"]

@@ -15,8 +15,16 @@ import torch
 from torch import nn
 
 from mmvae_torch.core import product_of_experts, reparameterize
+from mmvae_torch.models.text import GRUExpert
 
 __all__ = ["ModalitySpec", "MVAEBase"]
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    # Flax's truncated lecun-normal rescales by the std of a unit normal
+    # truncated to [-2, 2].
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 class ModalitySpec(NamedTuple):
@@ -69,7 +77,10 @@ class MVAEBase(nn.Module):
         return None
 
     def decode_one(self, key: str, z: torch.Tensor, batch: dict[str, Any] | None = None):
-        """Decode ONLY ``key`` (the value ``decode(z, batch)[key]`` holds)."""
+        """Decode ONLY ``key`` (the value ``decode(z, batch)[key]`` holds).
+
+        ``batch`` carries the targets a teacher-forced decoder reads (the
+        sequence modalities), with as many rows as ``z``."""
         raise NotImplementedError
 
     def nll_one(self, key: str, recon, batch: dict[str, Any], fold: str = "b"):
@@ -100,22 +111,30 @@ class MVAEBase(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded init with Flax's default distributions for Dense layers:
-        lecun-normal weights (truncated at two standard deviations) and
+        """Seeded init with Flax's default distributions: lecun-normal
+        (truncated at two standard deviations) for Dense and Conv kernels
+        and the GRU input projection, orthogonal GRU recurrent weights,
         zero biases; embeddings N(0, 1). ``generator`` lives on the
         parameters' device."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                # Flax's truncated lecun-normal rescales by the std of a
-                # unit normal truncated to [-2, 2].
-                std = (1.0 / m.in_features) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    m.weight, std=std, a=-2 * std, b=2 * std,
-                    generator=generator,
+                _lecun_normal_(m.weight, m.in_features, generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # Flax's fan-in is kh * kw * input channels: dim 1 of a
+                # Conv2d weight (out, in, kh, kw), dim 0 of a
+                # ConvTranspose2d weight (in, out, kh, kw).
+                fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) else (
+                    m.weight.shape[0] * m.weight[0, 0].numel()
                 )
+                _lecun_normal_(m.weight, fan_in, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
                 nn.init.normal_(m.weight, generator=generator)
+            elif isinstance(m, GRUExpert):
+                _lecun_normal_(m.w_in, m.w_in.shape[0], generator)
+                nn.init.orthogonal_(m.u_rec, generator=generator)
+                nn.init.zeros_(m.b)
 
     def infer(self, batch: dict[str, Any], presence: torch.Tensor | None = None):
         """Fused ``(mu, logvar)`` of the observed subset and the prior, each

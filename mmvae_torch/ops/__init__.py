@@ -7,13 +7,13 @@ CPU tensors; ``"kernel"`` raises on a CPU tensor; ``"torch"`` runs the
 plain version everywhere (the on-card reference the kernels are held
 against).
 
-Term-tiled targets: ``bernoulli_nll`` and ``categorical_nll`` accept
-targets with fewer leading rows than the logits, ``k`` terms of one batch
-folded into the rows in the order ``fold`` names (``"b"``: row
-``b * k + t``, as the JAX ops layer assumes; ``"t"``: row ``t * B + b``,
-the eval t-fold). The BCE kernel reads the untiled targets through its
-row map; the tiled copy is made only on the plain path.
-``masked_seq_ce`` (K3) is not ported yet.
+Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
+``masked_seq_ce`` accept targets with fewer leading rows than the logits,
+``k`` terms of one batch folded into the rows in the order ``fold`` names
+(``"b"``: row ``b * k + t``, as the JAX ops layer assumes; ``"t"``: row
+``t * B + b``, the eval t-fold). The BCE kernel reads the untiled targets
+through its row map; the tiled copy is made only on the plain path. The
+integer label and token rows are small, so they are tiled on both paths.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ __all__ = [
     "kl_std_normal",
     "bernoulli_nll",
     "categorical_nll",
+    "masked_seq_ce",
     "set_backend",
     "get_backend",
 ]
@@ -123,3 +124,26 @@ def categorical_nll(
     mode = _fold(logits.shape[0], labels.shape[0], fold)
     labels = kernels.tile_rows(labels, logits.shape[0], mode)
     return _cat_torch(logits, labels, event_ndims)
+
+
+def masked_seq_ce(
+    logits: torch.Tensor,
+    tokens: torch.Tensor,
+    pad_token: int = 0,
+    fold: str = "b",
+) -> torch.Tensor:
+    """Token cross-entropy summed over the non-pad positions.
+
+    ``logits``: ``(..., S, V)``; ``tokens``: ``(..., S)`` int -> ``(...,)``
+    NLL, the sequence decoders' recon reduction (K3 on the card).
+    Term-tiled logits rows are matched by tiling the token rows in the
+    order ``fold`` names.
+    """
+    mode = _fold(logits.shape[0], tokens.shape[0], fold)
+    tokens = kernels.tile_rows(tokens, logits.shape[0], mode)
+    if not _use_kernel(logits):
+        return kernels.masked_seq_ce_torch(logits, tokens, pad_token)
+    s, v = logits.shape[-2:]
+    rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
+    out = kernels.masked_seq_ce_kernel(rows, tokens.reshape(-1, s).contiguous(), pad_token)
+    return out.reshape(logits.shape[:-2])

@@ -1,23 +1,27 @@
-"""Hand-written CUDA kernels for the two ELBO row reductions, with plain versions.
-
-Both ops are row-wise reductions ``(N, D) -> (N,)`` over f32 rows:
+"""Hand-written CUDA kernels for the ELBO's reductions, with plain versions.
 
   * ``kl_std_normal_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
-    kl_std_normal_pallas`` (K1): ``-0.5 * sum(1 + lv - mu^2 - e^lv)``;
+    kl_std_normal_pallas`` (K1): ``-0.5 * sum(1 + lv - mu^2 - e^lv)``
+    per row of ``(N, D)``;
   * ``bernoulli_nll_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
-    bernoulli_nll_pallas`` (K2): ``sum(max(l,0) - l*x + log1p(e^-|l|))``,
-    reading its targets through a row map (``FOLD_*``) so term-tiled
-    logits are scored against one untiled copy of the targets.
+    bernoulli_nll_pallas`` (K2): ``sum(max(l,0) - l*x + log1p(e^-|l|))``
+    per row, reading its targets through a row map (``FOLD_*``) so
+    term-tiled logits are scored against one untiled copy of the targets;
+  * ``masked_seq_ce_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
+    masked_seq_ce_pallas`` (K3): per example of ``(N, S, V)`` logits, the
+    token cross-entropy ``logsumexp(l) - l[token]`` summed over its
+    non-pad tokens.
 
-The kernels live in ``csrc/row_reduce.cu`` behind a plain C interface.
-:func:`build` compiles it with ``nvcc`` for ``sm_90a`` into
-``mmvae_torch/_build/`` at first use (again whenever the source's hash
-changes) and the library is loaded with ``ctypes``. Each wrapper checks
-its inputs, allocates the output, launches on PyTorch's current stream,
+K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, each
+behind a plain C interface. :func:`build` compiles the sources with
+``nvcc`` for ``sm_90a`` into ``mmvae_torch/_build/`` at first use (again
+whenever a source's hash changes), one ``nvcc`` per source, all started
+together; each library is loaded with ``ctypes``. Each wrapper checks its
+inputs, allocates the output, launches on PyTorch's current stream,
 raises on a failed launch and adds one to ``LAUNCHES``. A wrapper never
-falls back: on anything but f32 CUDA rows it raises. The plain versions
-(``*_torch``) compute the same function with PyTorch ops; the CPU path
-and the on-card checks use them.
+falls back: on anything but the CUDA tensors it takes it raises. The
+plain versions (``*_torch``) compute the same functions with PyTorch
+ops; the CPU path and the on-card checks use them.
 """
 
 from __future__ import annotations
@@ -33,18 +37,22 @@ import torch
 
 from mmvae_torch.core.elbo import kl_std_normal as _kl_plain
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bce_plain
+from mmvae_torch.core.likelihoods import categorical_nll as _cat_plain
 
 __all__ = [
     "FOLD_NONE",
     "FOLD_T",
     "FOLD_B",
     "LAUNCHES",
+    "SOURCES",
     "build",
     "tile_rows",
     "kl_std_normal_kernel",
     "kl_std_normal_torch",
     "bernoulli_nll_kernel",
     "bernoulli_nll_torch",
+    "masked_seq_ce_kernel",
+    "masked_seq_ce_torch",
 ]
 
 # Target-row maps of the BCE kernel: rows match; t-major tiling (row
@@ -52,16 +60,30 @@ __all__ = [
 FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
-LAUNCHES = {"kl": 0, "bce": 0}
+LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "row_reduce.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# Library name -> CUDA source; each library exports ``<name>_error_string``.
+SOURCES = {"row_reduce": _CSRC / "row_reduce.cu", "seq_ce": _CSRC / "seq_ce.cu"}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib: ctypes.CDLL | None = None
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Library name -> {function: argtypes}; every function returns an int
+# (the launch's cudaError_t) and takes the stream last.
+_SIGNATURES = {
+    "row_reduce": {
+        "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
+        "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
+    },
+    "seq_ce": {
+        "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _ptr],
+    },
+}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -72,46 +94,58 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile ``csrc/row_reduce.cu`` unless this source is already built.
+def _target(name: str) -> Path:
+    key = SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    return BUILD_DIR / f"{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
 
-    The library is named by the hash of the source and the flags, so an
-    edited source is rebuilt. ``nvcc``'s output (``-Xptxas -v``: registers
-    and spills per kernel) is kept beside it with the suffix ``.log``.
-    Returns the path of the shared library.
+
+def build(*names: str) -> dict[str, Path]:
+    """Compile the named sources (all of :data:`SOURCES` by default)
+    unless each is already built; the ``nvcc`` runs start together.
+
+    A library is named by the hash of its source and the flags, so an
+    edited source is rebuilt. ``nvcc``'s output (``-Xptxas -v``:
+    registers and spills per kernel) is kept beside it with the suffix
+    ``.log``. Returns each name's shared library.
     """
-    key = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    so = BUILD_DIR / f"row_reduce_{hashlib.sha256(key).hexdigest()[:16]}.so"
-    if so.exists():
-        return so
+    names = names or tuple(SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
+    running = {}
+    for name in names:
+        so = _target(name)
+        if so.exists():
+            continue
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+        running[name] = (proc, tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in running.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed with code "
+                          f"{proc.returncode}:\n{err}")
+            continue
+        so.with_suffix(".log").write_text(out + err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _target(name) for name in names}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.kl_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-        lib.kl_rows.restype = i32
-        lib.bce_rows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.bce_rows.restype = i32
-        lib.row_reduce_error_string.argtypes = [i32]
-        lib.row_reduce_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _library(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)[name]))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _i32
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [_i32]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -127,13 +161,13 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} shape {tuple(t.shape)} exceeds int32")
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = _library()
+def _launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
+    lib = _library(lib_name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
-        msg = lib.row_reduce_error_string(rc).decode()
+        msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} (code {rc})")
 
 
@@ -170,7 +204,7 @@ def kl_std_normal_kernel(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor
     if n == 0:
         return out
     _launch(
-        "kl_rows", mu.device, mu.data_ptr(), logvar.data_ptr(),
+        "row_reduce", "kl_rows", mu.device, mu.data_ptr(), logvar.data_ptr(),
         out.data_ptr(), n, d,
     )
     LAUNCHES["kl"] += 1
@@ -213,7 +247,7 @@ def bernoulli_nll_kernel(
     if n == 0:
         return out
     _launch(
-        "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
+        "row_reduce", "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
         out.data_ptr(), n, d, n_x, fold,
     )
     LAUNCHES["bce"] += 1
@@ -225,3 +259,54 @@ def bernoulli_nll_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`bernoulli_nll_kernel` (tiles ``x``)."""
     return _bce_plain(logits, tile_rows(x, logits.shape[0], fold), 1)
+
+
+# ------------------------------------------------------------ seq CE ----
+
+
+def masked_seq_ce_kernel(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0
+) -> torch.Tensor:
+    """Token cross-entropy of ``(N, S, V)`` f32 CUDA logits against
+    ``(N, S)`` int32 or int64 CUDA tokens, summed over the non-pad
+    tokens of each row -> ``(N,)``. A pad token contributes exactly 0."""
+    if not logits.is_cuda or not tokens.is_cuda:
+        raise ValueError(
+            f"logits and tokens must be CUDA tensors, got {logits.device} "
+            f"and {tokens.device}"
+        )
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits must be float32, got {logits.dtype}")
+    if tokens.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"tokens must be int32 or int64, got {tokens.dtype}")
+    if logits.dim() != 3 or tokens.shape != logits.shape[:2]:
+        raise ValueError(
+            f"logits {tuple(logits.shape)} and tokens {tuple(tokens.shape)} "
+            "are not (N, S, V) and (N, S)"
+        )
+    if tokens.device != logits.device:
+        raise ValueError(f"logits on {logits.device}, tokens on {tokens.device}")
+    if not logits.is_contiguous() or not tokens.is_contiguous():
+        raise ValueError("logits and tokens must be contiguous")
+    if max(logits.shape) >= 2**31:
+        raise ValueError(f"logits shape {tuple(logits.shape)} exceeds int32")
+    n, s, v = logits.shape
+    out = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n == 0:
+        return out
+    _launch(
+        "seq_ce", "seq_ce_rows", logits.device, logits.data_ptr(),
+        tokens.data_ptr(), tokens.element_size(), out.data_ptr(), n, s, v,
+        int(pad_token),
+    )
+    LAUNCHES["seq_ce"] += 1
+    return out
+
+
+def masked_seq_ce_torch(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`masked_seq_ce_kernel` (any leading
+    dims): log-softmax, gather, pad mask, sum over S."""
+    per_tok = _cat_plain(logits.to(torch.float32), tokens)
+    return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)

@@ -10,13 +10,15 @@ single-device eval path, ``step.py:532-578``) with member-pruned decoding
   * each decode key decodes only its possibly-member term rows, folded
     t-major into one ``(tk * B, L)`` batch;
   * the KL of all ``T * B`` posteriors is one ``ops.kl_std_normal`` call
-    and each key's NLL one ``ops`` call, so on the card one eval batch of
-    the MNIST model launches each row-reduce kernel once.
+    and each key's NLL one ``ops`` call, so on the card one eval batch
+    launches each kernel on its path once (MNIST: K1, K2; MultiMNIST: K1,
+    K2, K3).
 
 One difference from the JAX code: the JAX t-fold broadcasts the targets to
 the tiled rows (``_tile_terms_tmajor``, ``step.py:247``) and lets XLA fuse
-the copy. Here the targets go to ``nll_one`` UNTILED with ``fold="t"``; the
-BCE kernel reads target row ``r % B`` and the tiled copy is never made.
+the copy. Here the image and label targets go to ``nll_one`` UNTILED with
+``fold="t"``; the BCE kernel reads target row ``r % B`` and the tiled copy
+is never made. Only the small integer token rows are tiled.
 
 The other folds (``"b"``, ``"st"``), the decode-all pass, random subsets,
 the mixture objectives and the training step are not ported yet and raise.
@@ -37,6 +39,7 @@ from mmvae_torch.core import (
     product_of_experts,
     reparameterize,
 )
+from mmvae_torch.ops.kernels import FOLD_T, tile_rows
 
 __all__ = ["multi_term_loss", "make_eval_step", "make_eval_runner"]
 
@@ -78,17 +81,29 @@ def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tenso
     """Member-only decode+NLL under the t-major fold.
 
     ``z`` is ``(T, B, L)``; returns ``(T, M, B)`` with exact zeros at every
-    entry outside a key's member rows (their recon mask is 0 too).
+    entry outside a key's member rows (their recon mask is 0 too). The
+    sequence targets are tiled t-major to each key's ``tk * B`` rows (the
+    teacher-forced decoders read them, as ``_tile_terms_tmajor`` feeds
+    them in the JAX step); the other targets stay untiled and are read
+    through ``fold="t"``.
     """
     n_terms, b = z.shape[0], z.shape[1]
+    seq_names = [s.name for s in model.specs() if s.kind == "seq"]
     out = z.new_zeros((n_terms, model.n_modalities, b))
+    tiled_by_tk: dict[int, dict] = {}
     for key, (rows, mods) in prune_keys.items():
         tk = len(rows)
+        if tk not in tiled_by_tk:
+            tiled_by_tk[tk] = {
+                **data,
+                **{n: tile_rows(data[n], tk * b, FOLD_T) for n in seq_names},
+            }
+        targets = tiled_by_tk[tk]
         r = _device_index(tuple(rows), z.device)
         m = _device_index(tuple(mods), z.device)
         z_k = z.index_select(0, r).reshape(tk * b, -1)
-        recon = model.decode_one(key, z_k)
-        nll_k = model.nll_one(key, recon, data, fold="t")  # (M_k, tk * b)
+        recon = model.decode_one(key, z_k, targets)
+        nll_k = model.nll_one(key, recon, targets, fold="t")  # (M_k, tk * b)
         val = nll_k.reshape(len(mods), tk, b).transpose(0, 1)  # (tk, M_k, b)
         out[r[:, None], m[None, :]] = val
     return out

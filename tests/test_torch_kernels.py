@@ -1,14 +1,18 @@
-"""The hand-written CUDA row-reduce kernels against their plain versions.
+"""The hand-written CUDA kernels against their plain versions.
 
-Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` with
-``nvcc`` and run on the card; without one they skip. This file imports
-nothing of JAX, so on a machine with a card and no JAX it runs as
+Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2)
+and ``seq_ce.cu`` (K3) with ``nvcc`` and run on the card; without one they
+skip. This file imports nothing of JAX, so on a machine with a card and no
+JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerance: rtol 1e-5, atol 1e-5 * D -- the kernel sums a row in another
-order than PyTorch does.
+Tolerance: rtol 1e-5, atol 1e-5 * D for the row reductions, 1e-5 * S *
+log V for K3 -- the kernels sum in another order than PyTorch does.
 """
+
+import math
+
 
 import pytest
 import torch
@@ -34,12 +38,28 @@ def _rand(gen, *shape, device, scale=1.0):
     return (torch.randn(*shape, generator=gen) * scale).to(device)
 
 
+def _seq_close(got: torch.Tensor, want: torch.Tensor, s: int, v: int) -> None:
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * s * math.log(v))
+
+
+def _seq_inputs(gen, n, s, v, device, dtype=torch.int32):
+    """Logits and tokens whose rows end in PAD runs; rows 0 and 1 all PAD."""
+    logits = (torch.randn(n, s, v, generator=gen) * 3).to(device)
+    tokens = torch.randint(1, v, (n, s), generator=gen, dtype=dtype)
+    lengths = torch.randint(0, s + 1, (n,), generator=gen)
+    lengths[:2] = 0
+    tokens[torch.arange(s)[None, :] >= lengths[:, None]] = 0
+    return logits, tokens.to(device)
+
+
 def test_wrappers_reject_cpu_tensors():
     x = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.kl_std_normal_kernel(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.bernoulli_nll_kernel(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.masked_seq_ce_kernel(x[None], torch.zeros((1, 4), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("fold", FOLDS)
@@ -102,17 +122,28 @@ def test_bce_kernel_matches_plain(cuda, fold, shape):
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     x = torch.zeros((8, 16), device=cuda)
+    tok = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
     before = dict(kernels.LAUNCHES)
+    after = {k: v + 1 for k, v in before.items()}
     kernels.kl_std_normal_kernel(x, x)
     kernels.bernoulli_nll_kernel(x, x[:4], kernels.FOLD_T)
-    assert kernels.LAUNCHES == {"kl": before["kl"] + 1, "bce": before["bce"] + 1}
+    kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok)
+    assert kernels.LAUNCHES == after
     with pytest.raises(TypeError):
         kernels.kl_std_normal_kernel(x.double(), x.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.kl_std_normal_kernel(x.t(), x.t())
     with pytest.raises(ValueError, match="fold"):
         kernels.bernoulli_nll_kernel(x, x[:3], kernels.FOLD_B)
-    assert kernels.LAUNCHES == {"kl": before["kl"] + 1, "bce": before["bce"] + 1}
+    with pytest.raises(TypeError):
+        kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok.to(torch.int16))
+    with pytest.raises(TypeError):
+        kernels.masked_seq_ce_kernel(x.view(8, 4, 4).double(), tok)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.masked_seq_ce_kernel(x.view(8, 4, 4).transpose(0, 1), tok.t())
+    with pytest.raises(ValueError):
+        kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok[:, :3])
+    assert kernels.LAUNCHES == after
 
 
 @pytest.mark.gpu
@@ -130,3 +161,59 @@ def test_ops_auto_backend_runs_the_kernels_on_the_card(cuda):
         ops.set_backend("auto")
     assert kernels.LAUNCHES["bce"] == before["bce"] + 1
     _close(got, want, 784)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape", [(200, 5, 13), (37, 7, 13), (300, 32, 23), (64, 8, 5003), (3, 1, 2)]
+)
+def test_seq_ce_kernel_matches_plain(cuda, shape):
+    """V below a warp (13), the synthetic CUB vocabulary (23), an odd
+    large V (5003), V = 2; all-pad rows give exactly 0."""
+    gen = torch.Generator().manual_seed(4)
+    logits, tokens = _seq_inputs(gen, *shape, device=cuda)
+    got = kernels.masked_seq_ce_kernel(logits, tokens, 0)
+    _seq_close(got, kernels.masked_seq_ce_torch(logits, tokens, 0), *shape[1:])
+    assert torch.all(got[:2] == 0)
+
+
+@pytest.mark.gpu
+def test_seq_ce_kernel_int64_tokens_and_other_pad(cuda):
+    gen = torch.Generator().manual_seed(5)
+    logits, tokens = _seq_inputs(gen, 50, 6, 23, device=cuda, dtype=torch.int64)
+    for pad in (0, 2):
+        _seq_close(
+            kernels.masked_seq_ce_kernel(logits, tokens, pad),
+            kernels.masked_seq_ce_torch(logits, tokens, pad), 6, 23,
+        )
+
+
+@pytest.mark.gpu
+def test_seq_ce_kernel_offset_view(cuda):
+    """Contiguous views that start one element into their storage: no
+    load may assume an aligned row."""
+    gen = torch.Generator().manual_seed(6)
+    n, s, v = 40, 5, 16
+    logits = (torch.randn(n * s * v + 1, generator=gen) * 3).to(cuda)[1:].view(n, s, v)
+    tokens = torch.randint(0, v, (n * s + 1,), generator=gen, dtype=torch.int32)
+    tokens = tokens.to(cuda)[1:].view(n, s)
+    _seq_close(
+        kernels.masked_seq_ce_kernel(logits, tokens),
+        kernels.masked_seq_ce_torch(logits, tokens), s, v,
+    )
+
+
+@pytest.mark.gpu
+def test_ops_masked_seq_ce_runs_the_kernel_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(7)
+    logits, tokens = _seq_inputs(gen, 200, 5, 13, device=cuda)
+    before = kernels.LAUNCHES["seq_ce"]
+    got = ops.masked_seq_ce(logits, tokens[:100], fold="t")
+    assert kernels.LAUNCHES["seq_ce"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.masked_seq_ce(logits, tokens[:100], fold="t")
+    finally:
+        ops.set_backend("auto")
+    assert kernels.LAUNCHES["seq_ce"] == before + 1
+    _seq_close(got, want, 5, 13)

@@ -69,7 +69,7 @@ def test_convert_maps_every_parameter(matched):
         torch.from_numpy(params["image_enc"]["Dense_2"]["kernel"].T.copy()),
     )
     with pytest.raises(ValueError, match="cannot map"):
-        from_flax_params({"image_enc": {"Conv_0": {}}})
+        from_flax_params({"image_enc": {"BatchNorm_0": {}}})
 
 
 @pytest.mark.parametrize("method", ["encode", "decode", "nll_all", "infer"])

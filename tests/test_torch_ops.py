@@ -87,6 +87,59 @@ def test_ops_nll_term_tiled_targets(fold):
     _close(ops.categorical_nll(_t(cl), _t(lab), fold=fold), want)
 
 
+def _seq_inputs(rng, n, s, v):
+    """Logits and tokens whose rows end in PAD runs; some rows all PAD."""
+    logits = (rng.normal(size=(n, s, v)) * 3).astype(np.float32)
+    tokens = rng.integers(1, v, size=(n, s)).astype(np.int32)
+    lengths = rng.integers(0, s + 1, size=n)
+    lengths[0] = 0
+    tokens[np.arange(s)[None, :] >= lengths[:, None]] = 0
+    return logits, tokens
+
+
+@pytest.mark.parametrize("shape", [(37, 5, 13), (8, 7, 600), (200, 5, 13)])
+def test_seq_ce_plain_matches_pallas_interpret_and_jnp(shape):
+    """K3's plain version against the Pallas kernel in interpret mode and
+    the jnp path of ``mmvae_tpu.ops.masked_seq_ce``; pad positions give 0."""
+    logits, tokens = _seq_inputs(np.random.default_rng(11), *shape)
+    assert (tokens == 0).any() and (tokens == 0).all(axis=1).any()
+    got = kernels.masked_seq_ce_torch(_t(logits), _t(tokens), 0)
+    want = jkernels._seq_ce_fwd_impl(
+        jnp.asarray(logits), jnp.asarray(tokens), 0, interpret=True
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+    jops.set_backend("jnp")
+    try:
+        want = jops.masked_seq_ce(jnp.asarray(logits), jnp.asarray(tokens))
+    finally:
+        jops.set_backend("auto")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+    assert torch.all(got[torch.from_numpy((tokens == 0).all(axis=1))] == 0)
+
+
+@pytest.mark.parametrize("fold", ["t", "b"])
+@pytest.mark.parametrize("v", [13, 600])
+def test_ops_masked_seq_ce_term_tiled_tokens(fold, v):
+    """Term-tiled logits rows against untiled tokens in the named order;
+    the JAX reference gets the tokens tiled explicitly. A pad token other
+    than 0 is honoured."""
+    rng = np.random.default_rng(12)
+    k, b, s = 3, 10, 5
+    logits, tokens = _seq_inputs(rng, k * b, s, v)
+    tokens = tokens[:b]
+    tile = (lambda a: _tile_terms_tmajor(a, k)) if fold == "t" else (
+        lambda a: jops._tile_rows(a, k)
+    )
+    for pad in (0, 2):
+        want = jkernels._seq_ce_fwd_impl(
+            jnp.asarray(logits), tile(jnp.asarray(tokens)), pad, interpret=True
+        )
+        got = ops.masked_seq_ce(_t(logits), _t(tokens), pad, fold=fold)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+    batched = ops.masked_seq_ce(_t(logits).view(k, b, s, v), _t(tokens)[None].expand(k, b, s))
+    torch.testing.assert_close(batched, ops.masked_seq_ce(_t(logits), _t(tokens), fold="t").view(k, b))
+
+
 def test_ops_match_jax_ops_with_batch_dims():
     rng = np.random.default_rng(4)
     mu, lv = rng.normal(size=(2, 3, 7, 16)).astype(np.float32)
@@ -116,6 +169,8 @@ def test_backend_dispatch():
             ops.kl_std_normal(mu, mu)
         with pytest.raises(ValueError, match="CUDA"):
             ops.bernoulli_nll(mu, mu)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.masked_seq_ce(torch.zeros((2, 3, 5)), torch.zeros((2, 3), dtype=torch.int32))
     finally:
         ops.set_backend("auto")
 
