@@ -6,11 +6,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device and build: the card's name and power limit, TF32 off, and the
    hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
-   (one ``nvcc`` per source, started together);
+   (three sources, one ``nvcc`` each, started together);
 2. each kernel held against its plain PyTorch version on the card, at the
-   main paths' shapes and at ragged and large ones (rtol 1e-5; atol
+   main paths' shapes and at ragged, odd and large ones (rtol 1e-5; atol
    1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
-   cross-entropy: the kernels sum in another order);
+   cross-entropy, 1e-5 * 16 * C for the f32 conv: the kernels sum in
+   another order; the bf16 conv atol 2e-2, one bf16 rounding of outputs
+   below 4);
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
    - ``mnist`` (n_latents 64, 512-wide MLP experts): ``eval_elbo`` over
@@ -20,9 +22,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      text experts of width 256): ``eval_elbo`` over its 2,000-example
      split, ``generate`` from text, from images and from nothing, and
      ``sample``;
+   - ``celeba`` (n_latents 100, conv features 32-256 over 64x64 RGB, 18
+     attribute experts, 19 experts in the PoE, batch 64): ``eval_elbo``
+     over its 2,000-example split (32 batches), ``generate`` from
+     images, from all 18 attributes, from ``attr_4`` and ``attr_8``
+     alone and from nothing, and ``sample``;
    then each eval again with the plain ``torch`` backend (rel 1e-5) and a
    CPU reference on a small split (rel 1e-4: CPU and card matmuls round
-   differently; tokens generated at temperature 0 must be equal);
+   differently; generated probabilities within 1e-4, tokens and labels
+   generated at temperature 0 equal);
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 50) and eagerly (host overhead included), the
    library call that computes the same function where there is one, and
@@ -51,13 +59,18 @@ from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
 
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores.
+# NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
+# cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p; seq CE a
-# compare, a subtract, an add and an exp per logit.
+# compare, a subtract, an add and an exp per logit. Per conv output: 2
+# flops for each of the 16 * C products, a bias add and the swish's exp,
+# add, divide and multiply.
 OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4}
-OPS = ("kl", "bce", "seq_ce")
+CONV_OPS_PER_OUT = 5
+OPS = ("kl", "bce", "seq_ce", "conv")
+CONFIGS = ("mnist", "multimnist", "celeba")
 META = {
     "kl": {
         "name": "kl_std_normal",
@@ -77,42 +90,80 @@ META = {
         "source": "mmvae_torch/ops/csrc/seq_ce.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:230",
     },
+    "conv": {
+        "name": "conv4x4s2_swish",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/conv_s2.cu",
+        "replaces": "tools/pallas_conv_probe.py:64",
+    },
 }
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
-# of the sequence cross-entropy. One eval batch of 100 gives KL T=3 terms
-# of posteriors, image BCE 2 member terms against one untiled copy of the
-# targets, and text CE 2 member terms of 5 tokens over 13 symbols.
+# of the sequence cross-entropy, (B, H, W, C, dtype) of the conv. One
+# MNIST or MultiMNIST eval batch of 100 gives KL T=3 terms of posteriors,
+# image BCE 2 member terms against one untiled copy of the targets, and
+# text CE 2 member terms of 5 tokens over 13 symbols. One CelebA eval
+# batch of 64 gives KL T=20 terms, image BCE 2 member terms of 64x64x3
+# pixels, attribute BCE 19 member terms x 18 attributes as rows of D = 1
+# against 64 x 18 untiled targets, and the conv over the 64 images.
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
-           "large": (12288, 64, 12288, None)},
+           "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
     "bce": {"mnist_eval": (200, 784, 100, kernels.FOLD_T),
             "multimnist_eval": (200, 2500, 100, kernels.FOLD_T),
+            "celeba_image": (128, 12288, 64, kernels.FOLD_T),
+            "celeba_attrs": (21888, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
     "seq_ce": {"multimnist_eval": (200, 5, 13), "large": (2048, 8, 5003)},
+    "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
+             "probe": (256, 64, 64, 3, torch.bfloat16)},
 }
 CHECKED_SHAPES = {
-    "kl": [(300, 64, 300, None), (300, 256, 300, None), (37, 100, 37, None),
-           (12288, 64, 12288, None)],
+    "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
+           (37, 100, 37, None), (12288, 64, 12288, None)],
     "bce": [
         (200, 784, 200, kernels.FOLD_NONE),
         (200, 784, 100, kernels.FOLD_T),
         (200, 784, 100, kernels.FOLD_B),
         (200, 2500, 100, kernels.FOLD_T),
+        (128, 12288, 64, kernels.FOLD_T),
+        (21888, 1, 1152, kernels.FOLD_T),
         (37, 1000, 37, kernels.FOLD_NONE),
         (8192, 784, 4096, kernels.FOLD_T),
     ],
     # MultiMNIST eval; ragged with all-pad rows; the synthetic CUB
     # vocabulary (3 reserved + 20 words); a large odd vocabulary.
     "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003)],
+    # CelebA eval; the probe's shape and type; a ragged batch; an odd
+    # grayscale size, which pads (1, 2).
+    "conv": [(64, 64, 64, 3, torch.float32), (256, 64, 64, 3, torch.bfloat16),
+             (37, 64, 64, 3, torch.float32), (5, 25, 25, 1, torch.float32)],
 }
-# The config whose eval shapes the final kernel line reports: this
-# slice's main path.
-REPORTED = "multimnist"
+# The (config, timed shape) each kernel's entry of the final line reports:
+# this slice's path (CelebA) for the kernels it runs, else the path that
+# runs the kernel.
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba", "celeba_image"),
+            "seq_ce": ("multimnist", "multimnist_eval"), "conv": ("celeba", "celeba_eval")}
+EXPECTED_LAUNCHES = {
+    "mnist": {"kl": 20, "bce": 20, "seq_ce": 0, "conv": 0},
+    "multimnist": {"kl": 20, "bce": 20, "seq_ce": 20, "conv": 0},
+    # 32 eval batches, each K1 once and K2 twice (image, attributes); K4
+    # once per eval batch and once per generate or sample call.
+    "celeba": {"kl": 32, "bce": 64, "seq_ce": 0, "conv": 37},
+}
+# Names of the hand-written kernels' __global__ functions, to find them
+# in a profile.
+PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "seq_ce_rows_kernel", "conv_s2_kernel")
 PAD = 0
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def describe(op: str, shape) -> dict:
+    if op == "conv":
+        return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
+    return {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
 
 
 def inputs(op: str, shape, gen: torch.Generator):
@@ -126,6 +177,13 @@ def inputs(op: str, shape, gen: torch.Generator):
         logits = 3.0 * torch.randn(n, d, generator=gen, device=dev)
         x = torch.rand(n_x, d, generator=gen, device=dev)
         return (logits, x, fold)
+    if op == "conv":
+        # As the probe draws them: image in [0, 1], weights N(0, 0.01).
+        b, h, w, c, dtype = shape
+        x = torch.rand(b, h, w, c, generator=gen, device=dev)
+        weight = 0.1 * torch.randn(kernels.CONV_OUT, c, 4, 4, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(kernels.CONV_OUT, generator=gen, device=dev)
+        return tuple(t.to(dtype) for t in (x, weight, bias))
     # Tokens whose rows end in PAD runs of random length; the first rows
     # are all PAD.
     n, s, v = shape
@@ -138,36 +196,57 @@ def inputs(op: str, shape, gen: torch.Generator):
 
 
 KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_kernel,
-             "seq_ce": kernels.masked_seq_ce_kernel}
+             "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
-            "seq_ce": kernels.masked_seq_ce_torch}
+            "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch}
 
 
-def library_fn(op: str):
-    """One PyTorch call that computes the same function, or None. Timed
-    as a yardstick; the port never calls it."""
-    if op != "seq_ce":
-        return None
-
-    def cross_entropy(logits, tokens, pad):
+def library_fn(op: str, args):
+    """A call of no arguments that runs one PyTorch call computing the
+    same function on ``args``, or None. Timed as a yardstick; the port
+    never calls it. What the library call needs in another form (tiled
+    targets, an NCHW copy of the image) is made here, before the timing."""
+    if op == "bce":
+        logits, x, fold = args
+        tiled = kernels.tile_rows(x, logits.shape[0], fold)
+        return lambda: F.binary_cross_entropy_with_logits(
+            logits, tiled, reduction="none").sum(-1)
+    if op == "seq_ce":
+        logits, tokens, pad = args
         n, s, v = logits.shape
-        return F.cross_entropy(
-            logits.view(-1, v), tokens.view(-1).long(), ignore_index=pad,
-            reduction="none",
-        ).view(n, s).sum(-1)
+        flat, labels = logits.view(-1, v), tokens.view(-1).long()
+        return lambda: F.cross_entropy(
+            flat, labels, ignore_index=pad, reduction="none").view(n, s).sum(-1)
+    if op == "conv":
+        # padding=1 is XLA's SAME only at even sizes, as timed here.
+        x, weight, bias = args
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
+    return None
 
-    return cross_entropy
 
-
-def atol(op: str, shape) -> float:
-    return 1e-5 * (shape[1] * math.log(shape[2]) if op == "seq_ce" else shape[1])
+def tolerance(op: str, shape) -> tuple[float, float]:
+    """(rtol, atol) of a kernel against its plain version."""
+    if op == "conv":
+        c, dtype = shape[3], shape[4]
+        return (1e-5, 1e-5 * 16 * c) if dtype == torch.float32 else (0.0, 2e-2)
+    return 1e-5, 1e-5 * (shape[1] * math.log(shape[2]) if op == "seq_ce" else shape[1])
 
 
 def bound(op: str, args) -> tuple[float, str]:
     """Least time on the card for this call's inputs: each input byte the
     function needs read once, the output written once, or the operations
-    at the f32 rate. The sequence cross-entropy needs no logit of a pad
-    token, so only the non-pad token rows' logits count."""
+    at the peak rate of their type (f32: 67 TFLOP/s, TF32 off as the path
+    runs; bf16: 989 TFLOP/s). The sequence cross-entropy needs no logit of
+    a pad token, so only the non-pad token rows' logits count."""
+    if op == "conv":
+        x, weight, bias = args
+        b, h, w, c = x.shape
+        n_out = b * kernels.CONV_OUT * -(-h // 2) * -(-w // 2)
+        n_bytes = x.element_size() * (x.numel() + weight.numel() + bias.numel() + n_out)
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = n_out * (2 * 16 * c + CONV_OPS_PER_OUT) / PEAK_OPS_PER_S[x.dtype]
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "seq_ce":
         logits, tokens, pad = args
         n, _, v = logits.shape
@@ -178,7 +257,7 @@ def bound(op: str, args) -> tuple[float, str]:
         n_elems = n * d
         n_bytes = 4 * (n * d + args[1].numel() + n)
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = OPS_PER_ELEM[op] * n_elems / F32_OPS_PER_S
+    t_ops = OPS_PER_ELEM[op] * n_elems / PEAK_OPS_PER_S[torch.float32]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -224,13 +303,14 @@ def phase_check() -> dict[str, float]:
             got = KERNEL_FN[op](*args)
             want = PLAIN_FN[op](*args)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=atol(op, shape))
+            err = (got.float() - want.float()).abs().max().item()
+            rtol, atol = tolerance(op, shape)
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             if op == "seq_ce" and not torch.all(got[(args[1] == PAD).all(-1)] == 0):
                 raise AssertionError("an all-pad row did not give exactly 0")
             max_err[op] = max(max_err[op], err)
-            emit({"phase": "check", "kernel": META[op]["name"], "shape": list(shape[:3]),
-                  "fold": shape[3] if len(shape) > 3 else None, "max_abs_err": err})
+            emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
+                  "max_abs_err": err})
     return max_err
 
 
@@ -273,7 +353,7 @@ def drive(config: str, calls) -> tuple[dict, dict[str, int]]:
     return outs, launches
 
 
-def check_image(img, n: int, hw: tuple[int, int]) -> None:
+def check_image(img, n: int, hw: tuple[int, ...]) -> None:
     if img.shape != (n, *hw):
         raise AssertionError(f"bad image shape {tuple(img.shape)}")
     if not (torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1):
@@ -290,9 +370,17 @@ def check_text(text, n: int) -> None:
         raise AssertionError("a token after STOP is not PAD")
 
 
+def check_probs(probs, shape: tuple[int, ...]) -> None:
+    if probs.shape != shape:
+        raise AssertionError(f"bad shape {tuple(probs.shape)}, not {shape}")
+    if not (torch.isfinite(probs).all() and probs.min() >= 0 and probs.max() <= 1):
+        raise AssertionError("generated probabilities not finite or outside [0, 1]")
+
+
 def card_vs_cpu(config: str, n: int, condition: dict, on_card: dict) -> None:
     """The eval on an ``n``-example split and ``generate`` at temperature 0
-    from ``condition``, on the card and on the CPU, from the same seed."""
+    from ``condition``, on the card and on the CPU, from the same seed:
+    generated probabilities within 1e-4, tokens and labels equal."""
     model = configs.build_model(config, seed=0)
     cpu_model = configs.build_model(config, seed=0, device="cpu")
     small = load_dataset(config, "test", n=n)
@@ -300,13 +388,15 @@ def card_vs_cpu(config: str, n: int, condition: dict, on_card: dict) -> None:
     elbo_cpu = api.eval_elbo(config, model=cpu_model, dataset=small, device="cpu")
     gen_cpu = api.generate(config, condition, model=cpu_model, device="cpu", temperature=0.0)
     rel = abs(elbo_card - elbo_cpu) / abs(elbo_cpu)
-    img_err = (on_card["image"].cpu() - gen_cpu["image"]).abs().max().item()
+    kinds = cpu_model.decode_kinds()
+    probs = [k for k in gen_cpu if kinds.get(k) == "bernoulli"]
+    errs = {k: (on_card[k].cpu() - gen_cpu[k]).abs().max().item() for k in probs}
     emit({"phase": "card_vs_cpu", "config": config, "examples": n,
           "eval_elbo_card": elbo_card, "eval_elbo_cpu": elbo_cpu, "rel": rel,
-          "generate_image_max_abs_err": img_err})
-    if not rel <= 1e-4 or not img_err <= 1e-4:
-        raise AssertionError(f"{config}: card and CPU differ: rel {rel}, image {img_err}")
-    for key in set(gen_cpu) - {"image"}:
+          "generate_max_abs_err": errs})
+    if not rel <= 1e-4 or not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"{config}: card and CPU differ: rel {rel}, generated {errs}")
+    for key in set(gen_cpu) - set(probs):
         if not torch.equal(on_card[key].cpu(), gen_cpu[key]):
             raise AssertionError(f"{config}: generated {key} differs between card and CPU")
 
@@ -318,8 +408,8 @@ def phase_main_path() -> dict[str, dict[str, int]]:
         "generate": lambda m: api.generate("mnist", labels, model=m),
         "sample": lambda m: api.sample("mnist", n=64, model=m, generator=gen),
     })
-    if mnist != {"kl": 20, "bce": 20, "seq_ce": 0}:
-        raise AssertionError(f"mnist: expected 20 launches of K1 and K2, got {mnist}")
+    if mnist != EXPECTED_LAUNCHES["mnist"]:
+        raise AssertionError(f"mnist: expected launches {EXPECTED_LAUNCHES['mnist']}, got {mnist}")
     for out, n in ((outs["generate"], 3), (outs["sample"], 64)):
         check_image(out["image"], n, (28, 28))
         if not (out["label"].min() >= 0 and out["label"].max() < 10):
@@ -335,15 +425,34 @@ def phase_main_path() -> dict[str, dict[str, int]]:
         "from_nothing": lambda m: api.generate("multimnist", {}, n=8, model=m, generator=gen),
         "sample": lambda m: api.sample("multimnist", n=64, model=m, generator=gen),
     })
-    if multimnist != {"kl": 20, "bce": 20, "seq_ce": 20}:
-        raise AssertionError(f"multimnist: expected 20 launches of each kernel, got {multimnist}")
+    if multimnist != EXPECTED_LAUNCHES["multimnist"]:
+        raise AssertionError(
+            f"multimnist: expected launches {EXPECTED_LAUNCHES['multimnist']}, got {multimnist}")
     for name, n in (("from_text", 3), ("from_image", 3), ("from_nothing", 8), ("sample", 64)):
         check_image(outs[name]["image"], n, (50, 50))
         check_text(outs[name]["text"], n)
     emit({"phase": "generated_text", "from_text": outs["from_text"]["text"].tolist(),
           "from_image": outs["from_image"]["text"].tolist()})
     card_vs_cpu("multimnist", 200, text, outs["from_text"])
-    return {"mnist": mnist, "multimnist": multimnist}
+
+    data = load_dataset("celeba", "test", n=3).arrays
+    images = {"image": data["image"]}
+    pair = {"attr_4": [1.0, 0.0, 1.0, 0.0], "attr_8": [0.0, 0.0, 1.0, 1.0]}
+    outs, celeba = drive("celeba", {
+        "from_image": lambda m: api.generate("celeba", images, model=m),
+        "from_attrs": lambda m: api.generate("celeba", {"attrs": data["attrs"]}, model=m),
+        "from_attr_4_8": lambda m: api.generate("celeba", pair, model=m),
+        "from_nothing": lambda m: api.generate("celeba", {}, n=8, model=m),
+        "sample": lambda m: api.sample("celeba", n=64, model=m, generator=gen),
+    })
+    if celeba != EXPECTED_LAUNCHES["celeba"]:
+        raise AssertionError(f"celeba: expected launches {EXPECTED_LAUNCHES['celeba']}, got {celeba}")
+    for name, n in (("from_image", 3), ("from_attrs", 3), ("from_attr_4_8", 4),
+                    ("from_nothing", 8), ("sample", 64)):
+        check_image(outs[name]["image"], n, (64, 64, 3))
+        check_probs(outs[name]["attrs"], (n, 18))
+    card_vs_cpu("celeba", 128, images, outs["from_image"])
+    return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba}
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -396,19 +505,19 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
     for op in OPS:
         for label, shape in TIMED_SHAPES[op].items():
             args = inputs(op, shape, gen)
-            k, p, lib = KERNEL_FN[op], PLAIN_FN[op], library_fn(op)
+            k, p, lib = KERNEL_FN[op], PLAIN_FN[op], library_fn(op, args)
             row = {
                 "kernel_ms": device_ms(lambda: k(*args)),
                 "plain_ms": device_ms(lambda: p(*args)),
                 "kernel_eager_ms": eager_ms(lambda: k(*args)),
                 "plain_eager_ms": eager_ms(lambda: p(*args)),
-                "library_ms": None if lib is None else device_ms(lambda: lib(*args)),
+                "library_ms": None if lib is None else device_ms(lib),
             }
             row["bound_ms"], row["bound_by"] = bound(op, args)
-            emit({"phase": "timing", "kernel": META[op]["name"], "shape": label,
-                  "dims": list(shape[:3]), **row,
-                  "launches_per_eval": {c: n[op] for c, n in launches.items()}})
-            if label == f"{REPORTED}_eval":
+            emit({"phase": "timing", "kernel": META[op]["name"], "label": label,
+                  **describe(op, shape), **row,
+                  "launches_per_config": {c: n[op] for c, n in launches.items()}})
+            if label == REPORTED[op][1]:
                 reported[op] = row
     return reported
 
@@ -416,13 +525,14 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
 def phase_eval_wall(config: str) -> None:
     model = configs.build_model(config, seed=0)
     test = load_dataset(config, "test")
+    batches = -(-test.size // configs.get_config(config).batch_size)
     api.eval_elbo(config, model=model, dataset=test)  # warm-up
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         api.eval_elbo(config, model=model, dataset=test)  # ends in a sync
         walls.append(1e3 * (time.perf_counter() - t0))
-    emit({"phase": "eval_wall", "config": config, "examples": test.size, "batches": 20,
+    emit({"phase": "eval_wall", "config": config, "examples": test.size, "batches": batches,
           "wall_ms_median": statistics.median(walls), "wall_ms": walls})
 
     from torch.autograd import DeviceType
@@ -449,7 +559,9 @@ def phase_eval_wall(config: str) -> None:
           "device_idle_share": 1 - busy / wall_us if busy else "not measured",
           "device_events": sum(r[2] for r in rows),
           "top": [{"name": k[:80], "device_us": us, "count": c}
-                  for us, k, c in rows[:12] if us > 0]})
+                  for us, k, c in rows[:12] if us > 0],
+          "port_kernels": [{"name": k[:80], "device_us": us, "count": c}
+                           for us, k, c in rows if any(n in k for n in PORT_KERNELS)]})
 
 
 def main() -> None:
@@ -457,10 +569,13 @@ def main() -> None:
     max_err = phase_check()
     launches = phase_main_path()
     reported = phase_timings(launches)
-    for config in ("mnist", "multimnist"):
+    for config in CONFIGS:
         phase_eval_wall(config)
     emit({"kernels": [
-        {**META[op], "launches": launches[REPORTED][op], "max_abs_err": max_err[op],
+        {**META[op], "launches": launches[REPORTED[op][0]][op],
+         "config": REPORTED[op][0], "shape": REPORTED[op][1],
+         "launches_per_config": {c: n[op] for c, n in launches.items()},
+         "max_abs_err": max_err[op],
          "ms": reported[op]["kernel_ms"], "plain_ms": reported[op]["plain_ms"],
          "bound_ms": reported[op]["bound_ms"], "bound_by": reported[op]["bound_by"],
          "library_ms": reported[op]["library_ms"]}

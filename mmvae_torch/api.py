@@ -113,24 +113,44 @@ def generate(
 ) -> dict[str, torch.Tensor]:
     """Cross-modal generation from any modality subset.
 
-    ``condition`` maps modality names to observed values (empty: prior
-    sampling). The observed experts are fused with the prior; z is the
-    posterior mean, or a draw from ``generator`` (on ``device``) when
-    ``sample_z``; ALL modalities are decoded. A sequence modality is
-    generated token by token: argmax when ``temperature <= 0``, else a
-    draw at ``temperature`` from ``generator``.
+    ``condition`` maps batch keys or modality names to observed values
+    (empty: prior sampling). A batch key that carries several modalities
+    observes them all (CelebA's ``attrs``, ``(n, 18)``); a modality that
+    is one column of such a key is observed alone (``attr_i``, ``(n,)``),
+    as in the JAX ``generate``. The whole batch is encoded, with absent
+    modalities as zeros that the presence mask leaves out; the observed
+    experts are fused with the prior; z is the posterior mean, or a draw
+    from ``generator`` (on ``device``) when ``sample_z``; ALL modalities
+    are decoded. A sequence modality is generated token by token: argmax
+    when ``temperature <= 0``, else a draw at ``temperature`` from
+    ``generator``.
     """
     config, model, device = _resolve(config, model, state_dict, device)
     names = [s.name for s in model.specs()]
     if n is None:
         n = len(next(iter(condition.values()))) if condition else 1
     batch = model.dummy_batch(n)
+    carried = model.batch_modalities()
+    columns = {m: (key, j) for key, mods in carried.items() if len(mods) > 1
+               for j, m in enumerate(mods)}
     presence = torch.zeros((n, len(names)), device=device)
-    for key, value in condition.items():
-        if key not in batch:
-            raise ValueError(f"unknown modality {key!r}; have {list(batch)}")
-        batch[key] = torch.as_tensor(value, dtype=batch[key].dtype, device=device)
-        presence[:, names.index(key)] = 1.0
+    # Single columns first, so that a whole key given beside them wins,
+    # as in the JAX ``generate``.
+    for key, value in sorted(condition.items(), key=lambda kv: kv[0] not in columns):
+        if key in columns:
+            stacked, j = columns[key]
+            batch[stacked][:, j] = torch.as_tensor(
+                value, dtype=batch[stacked].dtype, device=device
+            )
+            presence[:, names.index(key)] = 1.0
+        elif key in batch:
+            batch[key] = torch.as_tensor(value, dtype=batch[key].dtype, device=device)
+            for m in carried[key]:
+                presence[:, names.index(m)] = 1.0
+        else:
+            raise ValueError(
+                f"unknown modality {key!r}; have {list(batch) + list(columns)}"
+            )
     mu_e, lv_e = model.encode(batch)
     z = fuse_observed_z(
         mu_e, lv_e, presence, config.objective, sample=sample_z,

@@ -1,10 +1,12 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-Only the fields the inference slices read, and only the ``mnist`` and
-``multimnist`` configs; the other experiments raise until their slice
-lands. The training knobs of the JAX configs (``cross_recon``, the
-``cycle_*`` fields, ``grad_clip``, epochs) are not read by eval or
-generation and are left out.
+Only the fields the inference slices read, and only the ``mnist``,
+``multimnist`` and ``celeba`` configs; the other experiments raise until
+their slice lands. The training knobs of the JAX configs
+(``cross_recon``, the ``cycle_*`` fields, ``grad_clip``,
+``n_random_subsets``, epochs) are not read by eval or generation and are
+left out: eval pins ``n_random_subsets=0``
+(``mmvae_tpu/train/step.py:1568``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any
 import torch
 
 from mmvae_torch.device import resolve_device
-from mmvae_torch.models import MnistMVAE, MultiMnistMVAE
+from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
 
 __all__ = ["ExperimentConfig", "CONFIGS", "get_config", "build_model"]
 
@@ -49,10 +51,20 @@ CONFIGS: dict[str, ExperimentConfig] = {
             "text_latent_dims": 128,
         },
     ),
+    # CelebA image + 18 attributes: conv image expert over 64x64 RGB, one
+    # Gaussian expert per attribute, batch 64
+    # (``mmvae_tpu/configs.py:236-239``).
+    "celeba": ExperimentConfig(
+        name="celeba", dataset="celeba", n_latents=100, batch_size=64,
+    ),
 }
 
-_MODEL_CLASSES = {"mnist": MnistMVAE, "multimnist": MultiMnistMVAE}
-_NOT_PORTED = ("deep_mnist", "fashionmnist", "celeba", "cub", "deep_cub")
+_MODEL_CLASSES = {
+    "mnist": MnistMVAE,
+    "multimnist": MultiMnistMVAE,
+    "celeba": CelebAMVAE,
+}
+_NOT_PORTED = ("deep_mnist", "fashionmnist", "cub", "deep_cub")
 
 
 def get_config(name: str) -> ExperimentConfig:

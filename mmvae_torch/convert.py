@@ -11,15 +11,21 @@ Each expert's leaves map by name:
     transposed conv's kernel and PyTorch does, so the kernel is flipped in
     H and W, then HWIO -> ``(in, out, kh, kw)``.
   * ``Embed_0`` / ``embed`` ``(n_classes, dim)`` as it is onto
-    ``embed.weight``.
-  * the GRU weights ``w_in``, ``u_rec``, ``b`` as they are.
+    ``embed.weight``; a bare ``embed`` array (the attribute bank's
+    ``(A, 2, E)`` table, no ``{"embedding": ...}`` around it) onto the
+    parameter ``embed``.
+  * the GRU weights ``w_in``, ``u_rec``, ``b`` and the attribute banks'
+    stacked ``w1``, ``b1``, ``w2``, ``b2`` as they are (bare arrays).
 
 For the MNIST model that covers ``image_enc/Dense_{0,1,2}``,
 ``image_dec/Dense_{0,1,2}``, ``label_enc/{Embed_0,Dense_0,Dense_1}`` and
 ``label_dec/Dense_{0,1}``; for MultiMNIST ``image_enc/{Conv_{0..3},
 Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
 ``text_enc/{Embed_0, w_in, u_rec, b, Dense_0}`` and ``text_dec/{embed,
-init_proj, w_in, u_rec, b, out_proj}``. A leaf of no such name raises.
+init_proj, w_in, u_rec, b, out_proj}``; for CelebA ``image_enc/{Conv_{0..3},
+Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
+``attr_enc/{embed, w1, b1, w2, b2}`` and ``attr_dec/{w1, b1, w2, b2}``. A
+leaf of no such name raises.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ __all__ = ["from_flax_params"]
 
 _LINEARS = ("init_proj", "out_proj")
 _EMBEDS = ("Embed_0", "embed")
-_GRU = ("w_in", "u_rec", "b")
+# Parameters stored as bare arrays, mapped as they are.
+_BARE = ("w_in", "u_rec", "b", "w1", "b1", "w2", "b2")
 
 
 def _index(name: str) -> int:
@@ -63,7 +70,7 @@ def from_flax_params(
         deconvs = _numbered(layers, "ConvTranspose_")
         unknown = (
             set(layers) - set(dense) - set(convs) - set(deconvs)
-            - set(_LINEARS) - set(_EMBEDS) - set(_GRU)
+            - set(_LINEARS) - set(_EMBEDS) - set(_BARE)
         )
         if unknown:
             raise ValueError(f"{expert}: cannot map {sorted(unknown)}")
@@ -84,9 +91,13 @@ def from_flax_params(
             state[f"{expert}.deconvs.{_index(name)}.weight"] = _t(kernel)
             state[f"{expert}.deconvs.{_index(name)}.bias"] = _t(layers[name]["bias"])
         for name in _EMBEDS:
-            if name in layers:
+            if name not in layers:
+                continue
+            if isinstance(layers[name], Mapping):
                 state[f"{expert}.embed.weight"] = _t(layers[name]["embedding"])
-        for name in _GRU:
+            else:
+                state[f"{expert}.embed"] = _t(layers[name])
+        for name in _BARE:
             if name in layers:
                 state[f"{expert}.{name}"] = _t(layers[name])
     return state

@@ -14,8 +14,9 @@ __all__ = ["bernoulli_nll", "categorical_nll", "gaussian_nll"]
 _LOG_2PI = 1.8378770664093453  # log(2*pi)
 
 
-def _event_dims(event_ndims: int) -> tuple[int, ...]:
-    return tuple(range(-event_ndims, 0))
+def _sum_event(t: torch.Tensor, event_ndims: int) -> torch.Tensor:
+    # ``sum(dim=())`` would reduce every dim: event_ndims=0 sums nothing.
+    return torch.sum(t, dim=tuple(range(-event_ndims, 0))) if event_ndims else t
 
 
 def bernoulli_nll(
@@ -32,7 +33,7 @@ def bernoulli_nll(
         - logits * x
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )
-    return torch.sum(per_elem, dim=_event_dims(event_ndims))
+    return _sum_event(per_elem, event_ndims)
 
 
 def categorical_nll(
@@ -46,9 +47,7 @@ def categorical_nll(
     """
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    if event_ndims:
-        nll = torch.sum(nll, dim=_event_dims(event_ndims))
-    return nll
+    return _sum_event(nll, event_ndims)
 
 
 def gaussian_nll(
@@ -60,4 +59,4 @@ def gaussian_nll(
     """Diagonal-Gaussian NLL summed over the trailing ``event_ndims`` dims."""
     logvar = torch.as_tensor(logvar, dtype=mean.dtype, device=mean.device)
     per_elem = 0.5 * (_LOG_2PI + logvar + (x - mean) ** 2 * torch.exp(-logvar))
-    return torch.sum(per_elem, dim=_event_dims(event_ndims))
+    return _sum_event(per_elem, event_ndims)

@@ -1,7 +1,12 @@
 """Data: the seeded synthetic generators and eval batching."""
 
 from mmvae_torch.data.pipelines import Dataset, load_dataset, stacked_epoch_padded
-from mmvae_torch.data.synthetic import make_mnist, make_multimnist
+from mmvae_torch.data.synthetic import (
+    CELEBA_ATTRS,
+    make_celeba,
+    make_mnist,
+    make_multimnist,
+)
 
 __all__ = [
     "Dataset",
@@ -9,4 +14,6 @@ __all__ = [
     "stacked_epoch_padded",
     "make_mnist",
     "make_multimnist",
+    "make_celeba",
+    "CELEBA_ATTRS",
 ]

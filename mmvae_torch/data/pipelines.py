@@ -15,8 +15,12 @@ from mmvae_torch.data import synthetic
 
 __all__ = ["Dataset", "load_dataset", "stacked_epoch_padded"]
 
-_GENERATORS = {"mnist": synthetic.make_mnist, "multimnist": synthetic.make_multimnist}
-_NOT_PORTED = ("fashionmnist", "celeba", "cub")
+_GENERATORS = {
+    "mnist": synthetic.make_mnist,
+    "multimnist": synthetic.make_multimnist,
+    "celeba": synthetic.make_celeba,
+}
+_NOT_PORTED = ("fashionmnist", "cub")
 # Train and test are disjoint draws; the same seeds as the JAX package.
 SPLIT_SEEDS = {"train": 0, "test": 1_000_003}
 SPLIT_SIZES = {"train": 10000, "test": 2000}

@@ -1,8 +1,10 @@
-"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-170``).
+"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-282``).
 
 numpy generators whose cross-modal structure is learnable: an MNIST image
 is a jittered glyph of its paired label plus noise; a MultiMNIST canvas
-composites 1-4 glyphs left to right and its text is their digit string.
+composites 1-4 glyphs left to right and its text is their digit string; a
+CelebA face is drawn procedurally, each of its 18 attributes changing a
+visible feature.
 The same seed gives byte-identical arrays to the JAX package's
 generators; the port keeps its own copy so it never imports the JAX
 package.
@@ -14,7 +16,7 @@ import numpy as np
 
 from mmvae_torch.models.text import PAD, STOP
 
-__all__ = ["make_mnist", "make_multimnist"]
+__all__ = ["make_mnist", "make_multimnist", "make_celeba", "CELEBA_ATTRS"]
 
 # 5x7 bitmap font for digits 0-9 (rows top->bottom).
 _DIGIT_FONT = np.array(
@@ -95,3 +97,115 @@ def make_multimnist(n: int, seed: int = 0, hw: int = 50, max_digits: int = 4):
         tokens[i, k] = STOP
     images += rng.normal(0, 0.02, images.shape).astype(np.float32)
     return {"image": np.clip(images, 0, 1), "text": tokens}
+
+
+# 18 CelebA-style binary attributes; each deterministically drives a
+# visual feature of the procedural 64x64 face.
+CELEBA_ATTRS = [
+    "bangs", "black_hair", "blond_hair", "brown_hair", "bushy_eyebrows",
+    "chubby", "eyeglasses", "heavy_makeup", "male", "mouth_open",
+    "mustache", "no_beard", "pale_skin", "receding_hairline", "smiling",
+    "straight_hair", "wavy_hair", "young",
+]
+
+
+def make_celeba(n: int, seed: int = 0, hw: int = 64):
+    """CelebA-shaped pairs: image (n,64,64,3) f32 [0,1], attrs (n,18) f32.
+
+    Every attribute visibly alters the image (hair color/shape, glasses,
+    mouth, skin tone, face width, ...), so attribute<->image cross-modal
+    inference is learnable.
+    """
+    rng = np.random.default_rng(seed)
+    attrs = rng.integers(0, 2, size=(n, 18)).astype(np.float32)
+    a = attrs.astype(bool)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / (hw - 1)
+    img = np.empty((n, hw, hw, 3), np.float32)
+    # Background hue varies with "young".
+    img[:] = np.where(
+        a[:, 17, None, None, None], [0.45, 0.62, 0.78], [0.35, 0.38, 0.42]
+    )
+    cx = 0.5
+    width = np.where(a[:, 8], 0.30, 0.24) * np.where(a[:, 5], 1.15, 1.0)
+    face = (
+        ((xx[None] - cx) / width[:, None, None]) ** 2
+        + ((yy[None] - 0.55) / 0.33) ** 2
+    ) < 1.0  # (n, hw, hw)
+    skin = np.where(
+        a[:, 12, None], [0.93, 0.85, 0.78], [0.78, 0.62, 0.50]
+    ) + np.where(a[:, 7, None], [0.05, -0.05, 0.0], [0.0, 0.0, 0.0])
+    img[face] = np.repeat(
+        skin[:, None, None, :], hw * hw, axis=1
+    ).reshape(n, hw, hw, 3)[face]
+    # Hair: color from black/blond/brown (priority order), style from
+    # straight/wavy/receding/bangs.
+    hair_color = np.select(
+        [a[:, 1, None], a[:, 2, None], a[:, 3, None]],
+        [
+            np.full((n, 3), [0.08, 0.07, 0.07]),
+            np.full((n, 3), [0.85, 0.72, 0.35]),
+            np.full((n, 3), [0.42, 0.26, 0.13]),
+        ],
+        default=np.full((n, 3), [0.25, 0.2, 0.18]),
+    )
+    hair_bottom = np.where(a[:, 13], 0.22, 0.34) + np.where(
+        a[:, 0], 0.10, 0.0
+    )
+    wave = np.where(a[:, 16], 0.04, 0.0)
+    hair = (yy[None] < hair_bottom[:, None, None] + wave[:, None, None]
+            * np.sin(12 * np.pi * xx)[None]) & face
+    img[hair] = np.repeat(
+        hair_color[:, None, None, :], hw * hw, axis=1
+    ).reshape(n, hw, hw, 3)[hair]
+    # Eyes, eyebrows, glasses.
+    eye_y = (yy[None] > 0.47) & (yy[None] < 0.52)
+    eye_x = (np.abs(xx[None] - 0.38) < 0.05) | (np.abs(xx[None] - 0.62) < 0.05)
+    eyes = eye_y & eye_x & face
+    img[eyes] = 0.05
+    brows = (
+        (yy[None] > 0.42)
+        & (yy[None] < 0.42 + np.where(a[:, 4], 0.035, 0.015)[:, None, None])
+        & eye_x
+        & face
+    )
+    img[brows] = 0.1
+    glasses = (
+        a[:, 6, None, None]
+        & (
+            ((np.abs(xx[None] - 0.38) < 0.09) | (np.abs(xx[None] - 0.62) < 0.09))
+            & (np.abs(yy[None] - 0.495) < 0.06)
+            & ~(
+                ((np.abs(xx[None] - 0.38) < 0.07) | (np.abs(xx[None] - 0.62) < 0.07))
+                & (np.abs(yy[None] - 0.495) < 0.045)
+            )
+        )
+    )
+    img[glasses & face] = 0.02
+    # Mouth: smiling widens, open heightens.
+    mouth_w = np.where(a[:, 14], 0.14, 0.07)
+    mouth_h = np.where(a[:, 9], 0.045, 0.015)
+    mouth = (
+        (np.abs(xx[None] - 0.5) < mouth_w[:, None, None])
+        & (np.abs(yy[None] - 0.75) < mouth_h[:, None, None])
+        & face
+    )
+    mcol = np.where(a[:, 7, None], [0.8, 0.1, 0.2], [0.55, 0.25, 0.25])
+    img[mouth] = np.repeat(
+        mcol[:, None, None, :], hw * hw, axis=1
+    ).reshape(n, hw, hw, 3)[mouth]
+    # Mustache / beard shadow.
+    must = (
+        a[:, 10, None, None]
+        & (np.abs(xx[None] - 0.5) < 0.12)
+        & (np.abs(yy[None] - 0.68) < 0.02)
+        & face
+    )
+    img[must] = 0.1
+    beard = (
+        (~a[:, 11])[:, None, None]
+        & (yy[None] > 0.78)
+        & face
+    )
+    img[beard] = img[beard] * 0.55
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return {"image": np.clip(img, 0, 1), "attrs": attrs}

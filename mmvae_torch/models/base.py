@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from mmvae_torch.core import product_of_experts, reparameterize
+from mmvae_torch.models.experts import AttributeDecoderBank, AttributeEncoderBank
 from mmvae_torch.models.text import GRUExpert
 
 __all__ = ["ModalitySpec", "MVAEBase"]
@@ -25,6 +26,14 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     # truncated to [-2, 2].
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def _flax_fan_in(w: torch.Tensor) -> int:
+    """Flax's fan-in of a parameter kept in the Flax layout (contracting
+    dim second to last, outputs last): ``shape[-2]`` times the product of
+    the leading dims, i.e. ``numel / shape[-1]``. A stacked bank ``(A, E,
+    H)`` has fan-in ``A * E``; a 2-D ``(A, H)`` one has ``A``."""
+    return w.numel() // w.shape[-1]
 
 
 class ModalitySpec(NamedTuple):
@@ -43,7 +52,9 @@ class MVAEBase(nn.Module):
     (``batch -> (mu, logvar)``, each ``(B, M, L)``), ``decode``
     (``z -> {name: recon params}``), ``nll_all`` (``-> (M, N)``),
     ``dummy_batch`` and, for member-pruned decoding, the per-key trio
-    ``decode_key_modalities`` / ``decode_one`` / ``nll_one``.
+    ``decode_key_modalities`` / ``decode_one`` / ``nll_one``; a model
+    whose batch key carries several modalities overrides
+    ``batch_modalities``.
 
     ``fold`` in ``nll_one``: when the recon rows are a term tiling of the
     batch, the order of that tiling (see ``mmvae_torch.ops``); the targets
@@ -70,6 +81,11 @@ class MVAEBase(nn.Module):
     def decode_kinds(self) -> dict[str, str]:
         """Decode-dict key -> likelihood kind, for postprocessing outputs."""
         return {s.name: s.kind for s in self.specs()}
+
+    def batch_modalities(self) -> dict[str, list[str]]:
+        """Batch key -> the modality names it carries, in column order
+        (CelebA's ``attrs`` carries ``attr_0 .. attr_17``)."""
+        return {s.name: [s.name] for s in self.specs()}
 
     def decode_key_modalities(self) -> dict[str, list[int]] | None:
         """Decode-dict key -> the modality indices it covers, or None when
@@ -112,9 +128,12 @@ class MVAEBase(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's default distributions: lecun-normal
-        (truncated at two standard deviations) for Dense and Conv kernels
-        and the GRU input projection, orthogonal GRU recurrent weights,
-        zero biases; embeddings N(0, 1). ``generator`` lives on the
+        (truncated at two standard deviations) for Dense and Conv kernels,
+        the GRU input projection and the attribute banks' weights (Flax's
+        fan-in of stacked parameters), orthogonal GRU recurrent weights,
+        zero biases; ``nn.Embed`` tables N(0, 1/features) (Flax's
+        ``variance_scaling(1, "fan_in", "normal", out_axis=0)``), the
+        attribute embedding N(0, 0.02^2). ``generator`` lives on the
         parameters' device."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
@@ -130,9 +149,16 @@ class MVAEBase(nn.Module):
                 _lecun_normal_(m.weight, fan_in, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
-                nn.init.normal_(m.weight, generator=generator)
+                nn.init.normal_(m.weight, std=m.embedding_dim**-0.5, generator=generator)
+            elif isinstance(m, (AttributeEncoderBank, AttributeDecoderBank)):
+                if isinstance(m, AttributeEncoderBank):
+                    nn.init.normal_(m.embed, std=0.02, generator=generator)
+                for w in (m.w1, m.w2):
+                    _lecun_normal_(w, _flax_fan_in(w), generator)
+                nn.init.zeros_(m.b1)
+                nn.init.zeros_(m.b2)
             elif isinstance(m, GRUExpert):
-                _lecun_normal_(m.w_in, m.w_in.shape[0], generator)
+                _lecun_normal_(m.w_in, _flax_fan_in(m.w_in), generator)
                 nn.init.orthogonal_(m.u_rec, generator=generator)
                 nn.init.zeros_(m.b)
 

@@ -1,4 +1,4 @@
-"""Per-modality encoder/decoder experts (port of ``mmvae_tpu/models/experts.py:40-396``).
+"""Per-modality encoder/decoder experts (port of ``mmvae_tpu/models/experts.py:40-484``).
 
 Encoders return ``(mu, logvar)``; decoders return logits. Each expert's
 dense part is a stack of ``nn.Linear`` layers with swish activations
@@ -7,8 +7,11 @@ dense part is a stack of ``nn.Linear`` layers with swish activations
 onto ``convs.{i}`` / ``deconvs.{i}``. Encoder heads are ONE ``Linear`` to
 ``2 * n_latents`` that is split ``[:L]`` / ``[L:]``, as in the JAX experts.
 
-The conv experts take and give grayscale images in the JAX package's
-layout, ``(B, H, W)``; inside, the convolutions run NCHW.
+The conv experts take and give images in the JAX package's layout:
+grayscale ``(B, H, W)`` or, with ``channels > 1``, NHWC ``(B, H, W, C)``;
+inside, the convolutions run NCHW. The attribute banks keep their
+parameters stacked along a leading attribute axis in the Flax layout and
+contract them with ``einsum``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmvae_torch import ops
+from mmvae_torch.ops.kernels import same_pad
+
 __all__ = [
     "swish",
     "MLPEncoder",
@@ -28,6 +34,8 @@ __all__ = [
     "LabelDecoder",
     "ConvEncoder",
     "DeconvDecoder",
+    "AttributeEncoderBank",
+    "AttributeDecoderBank",
 ]
 
 
@@ -127,18 +135,6 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to mmvae_torch")
 
 
-def _same_pad(hw: Sequence[int], k: int = 4, s: int = 2) -> list[int]:
-    """``F.pad`` widths of XLA's SAME for a k x k stride-s conv. Per dim the
-    total is ``max((ceil(d/s) - 1) * s + k - d, 0)``, the low side gets
-    ``total // 2``: at odd sizes the pad is asymmetric (25 -> 13 pads
-    (1, 2)), which ``Conv2d(padding=)`` cannot express."""
-    pads = []
-    for d in reversed(tuple(hw)):  # F.pad takes (w_lo, w_hi, h_lo, h_hi)
-        total = max((-(-d // s) - 1) * s + k - d, 0)
-        pads += [total // 2, total - total // 2]
-    return pads
-
-
 def _conv_out(d: int, n_stages: int) -> int:
     for _ in range(n_stages):
         d = -(-d // 2)
@@ -150,8 +146,11 @@ class ConvEncoder(nn.Module):
 
     Each stage is a 4x4 stride-2 SAME conv and a swish, halving the
     spatial dims (rounding up); then a ``fc_hidden`` dense layer and the
-    head. Only the reference-shaped grayscale stack is ported:
-    ``space_to_depth=1`` and no bottleneck trunk.
+    head. Only the reference-shaped stack is ported: ``space_to_depth=1``
+    and no bottleneck trunk. With ``channels > 1`` the input is NHWC and
+    stage 0 runs in ``ops.conv4x4s2_swish`` (K4 on the card), which reads
+    the batch as it is and gives NCHW; a grayscale stage 0 stays a
+    ``Conv2d``.
     """
 
     def __init__(
@@ -161,12 +160,14 @@ class ConvEncoder(nn.Module):
         features: Sequence[int] = (32, 64),
         fc_hidden: int = 512,
         space_to_depth: int = 1,
+        channels: int = 1,
     ):
         super().__init__()
         if space_to_depth != 1:
             raise _not_ported(f"space_to_depth={space_to_depth}")
         self.n_latents = n_latents
-        widths = (1, *features)
+        self.channels = channels
+        widths = (channels, *features)
         self.convs = nn.ModuleList(
             nn.Conv2d(a, b, 4, stride=2) for a, b in zip(widths[:-1], widths[1:])
         )
@@ -175,9 +176,14 @@ class ConvEncoder(nn.Module):
         self.head = nn.Linear(fc_hidden, 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
-        h = x[:, None]  # NCHW
-        for conv in self.convs:
-            h = swish(conv(F.pad(h, _same_pad(h.shape[-2:]))))
+        convs = list(self.convs)
+        if self.channels == 1:
+            h = x[:, None]  # NCHW
+        else:
+            stage0 = convs.pop(0)
+            h = ops.conv4x4s2_swish(x, stage0.weight, stage0.bias)  # NCHW
+        for conv in convs:
+            h = swish(conv(F.pad(h, same_pad(h.shape[-2:]))))
         h = h.permute(0, 2, 3, 1).flatten(1)  # Flax flattens NHWC
         return _split_head(self.head(_run(self.layers, h)), self.n_latents)
 
@@ -189,10 +195,11 @@ class DeconvDecoder(nn.Module):
     ``fc_hidden``) and ``head`` (``Dense_1``, to the bottleneck grid of
     ``ceil(out_hw / 2**stages)`` by ``features[0]``), each with a swish;
     then 4x4 stride-2 transposed convs, swish between them, and a last one
-    to one channel. The grid overshoots a non-power-of-two target (50x50
+    to ``channels``. The grid overshoots a non-power-of-two target (50x50
     from 4x4 -> 64x64) and the TOP-LEFT ``out_hw`` is kept, as in the JAX
-    decoder. Only the reference-shaped ``upsample_mode="deconv"`` stack
-    is ported. Flax's ``ConvTranspose`` does not flip its kernel, so
+    decoder. Logits are ``(B, H, W)`` for one channel, else NHWC ``(B, H,
+    W, channels)``. Only the reference-shaped ``upsample_mode="deconv"``
+    stack is ported. Flax's ``ConvTranspose`` does not flip its kernel, so
     ``convert`` flips it into ``deconvs.{i}.weight``.
     """
 
@@ -203,17 +210,19 @@ class DeconvDecoder(nn.Module):
         features: Sequence[int] = (64, 32),
         fc_hidden: int = 512,
         upsample_mode: str = "deconv",
+        channels: int = 1,
     ):
         super().__init__()
         if upsample_mode != "deconv":
             raise _not_ported(f"upsample_mode={upsample_mode!r}")
         self.out_hw = tuple(out_hw)
+        self.channels = channels
         self.features = tuple(features)
         n_stages = len(self.features)
         self.base_hw = tuple(-(-d // 2**n_stages) for d in self.out_hw)
         self.layers = _hidden_layers(n_latents, (fc_hidden,))
         self.head = nn.Linear(fc_hidden, math.prod(self.base_hw) * self.features[0])
-        widths = (*self.features, 1)
+        widths = (*self.features, channels)
         self.deconvs = nn.ModuleList(
             nn.ConvTranspose2d(a, b, 4, stride=2, padding=1)
             for a, b in zip(widths[:-1], widths[1:])
@@ -226,4 +235,51 @@ class DeconvDecoder(nn.Module):
             h = deconv(h)
             if i < len(self.deconvs) - 1:
                 h = swish(h)
-        return h[:, 0, : self.out_hw[0], : self.out_hw[1]]
+        h = h[:, :, : self.out_hw[0], : self.out_hw[1]]
+        return h[:, 0] if self.channels == 1 else h.permute(0, 2, 3, 1)
+
+
+class AttributeEncoderBank(nn.Module):
+    """All binary-attribute experts as one stacked bank: attribute ``a``'s
+    value selects a row of ``embed[a]``, then a swish hidden layer and a
+    head, each one ``einsum`` over the stack.
+
+    ``(B, A)`` attributes in {0, 1} -> ``(mu, logvar)``, each ``(B, A, L)``.
+    Parameters as in Flax: ``embed`` ``(A, 2, E)``, ``w1`` ``(A, E, H)``,
+    ``b1`` ``(A, H)``, ``w2`` ``(A, H, 2L)``, ``b2`` ``(A, 2L)``.
+    """
+
+    def __init__(
+        self, n_latents: int, n_attrs: int = 18, embed_dim: int = 32, hidden: int = 64
+    ):
+        super().__init__()
+        self.n_latents = n_latents
+        self.embed = nn.Parameter(torch.empty(n_attrs, 2, embed_dim))
+        self.w1 = nn.Parameter(torch.empty(n_attrs, embed_dim, hidden))
+        self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
+        self.w2 = nn.Parameter(torch.empty(n_attrs, hidden, 2 * n_latents))
+        self.b2 = nn.Parameter(torch.zeros(n_attrs, 2 * n_latents))
+
+    def forward(self, attrs: torch.Tensor):
+        a = attrs.to(torch.float32)[..., None]  # (B, A, 1)
+        h = self.embed[None, :, 0] * (1.0 - a) + self.embed[None, :, 1] * a
+        h = swish(torch.einsum("bae,aeh->bah", h, self.w1) + self.b1)
+        out = torch.einsum("bah,aho->bao", h, self.w2) + self.b2
+        return out[..., : self.n_latents], out[..., self.n_latents :]
+
+
+class AttributeDecoderBank(nn.Module):
+    """Latent -> ``(B, A)`` per-attribute Bernoulli logits, one stacked
+    bank: ``w1`` ``(A, L, H)``, ``b1`` ``(A, H)``, ``w2`` ``(A, H)``,
+    ``b2`` ``(A,)``."""
+
+    def __init__(self, n_latents: int, n_attrs: int = 18, hidden: int = 64):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.empty(n_attrs, n_latents, hidden))
+        self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
+        self.w2 = nn.Parameter(torch.empty(n_attrs, hidden))
+        self.b2 = nn.Parameter(torch.zeros(n_attrs))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = swish(torch.einsum("bl,alh->bah", z, self.w1) + self.b1)
+        return torch.einsum("bah,ah->ba", h, self.w2) + self.b2

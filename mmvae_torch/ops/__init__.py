@@ -14,6 +14,9 @@ Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``t * B + b``, the eval t-fold). The BCE kernel reads the untiled targets
 through its row map; the tiled copy is made only on the plain path. The
 integer label and token rows are small, so they are tiled on both paths.
+
+``conv4x4s2_swish`` is the first stage of the RGB image encoder (K4 on
+the card): it takes the NHWC batch as it is and gives NCHW.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ __all__ = [
     "bernoulli_nll",
     "categorical_nll",
     "masked_seq_ce",
+    "conv4x4s2_swish",
     "set_backend",
     "get_backend",
 ]
@@ -93,17 +97,23 @@ def bernoulli_nll(
     """Summed BCE-with-logits over the trailing ``event_ndims`` dims.
 
     ``x`` may carry ``1/k`` of the logits' leading rows: a term tiling in
-    the order ``fold`` names (see the module docstring). Tiled targets
-    need exactly one batch dim.
+    the order ``fold`` names (see the module docstring). Under ``"t"`` the
+    tiling of dim 0 is a tiling of the flattened rows too, so any batch
+    dims work, ``event_ndims=0`` included (the CelebA attributes: rows of
+    D = 1). Under ``"b"`` the tiled targets need exactly one batch dim.
     """
     mode = _fold(logits.shape[0], x.shape[0], fold)
     batch_shape = logits.shape[: logits.dim() - event_ndims]
-    if mode != kernels.FOLD_NONE and (
-        len(batch_shape) != 1 or x.shape[1:] != logits.shape[1:]
-    ):
+    if mode != kernels.FOLD_NONE and x.shape[1:] != logits.shape[1:]:
         raise ValueError(
             f"targets {tuple(x.shape)} are not a row tiling of logits "
-            f"{tuple(logits.shape)} with one batch dim"
+            f"{tuple(logits.shape)}"
+        )
+    if mode == kernels.FOLD_B and len(batch_shape) != 1:
+        raise ValueError(
+            f"b-major tiled targets need one batch dim; logits "
+            f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
+            f"{len(batch_shape)} (not yet ported to mmvae_torch)"
         )
     if not _use_kernel(logits):
         x = kernels.tile_rows(x, logits.shape[0], mode)
@@ -147,3 +157,14 @@ def masked_seq_ce(
     rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
     out = kernels.masked_seq_ce_kernel(rows, tokens.reshape(-1, s).contiguous(), pad_token)
     return out.reshape(logits.shape[:-2])
+
+
+def conv4x4s2_swish(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
+    C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
+    ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32."""
+    if not _use_kernel(x):
+        return kernels.conv4x4s2_swish_torch(x, weight, bias)
+    return kernels.conv4x4s2_swish_kernel(x.contiguous(), weight.contiguous(), bias.contiguous())

@@ -10,10 +10,13 @@
   * ``masked_seq_ce_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     masked_seq_ce_pallas`` (K3): per example of ``(N, S, V)`` logits, the
     token cross-entropy ``logsumexp(l) - l[token]`` summed over its
-    non-pad tokens.
+    non-pad tokens;
+  * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
+    pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
+    NHWC image with 1-4 channels into 32 NCHW channels.
 
-K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, each
-behind a plain C interface. :func:`build` compiles the sources with
+K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, K4 in
+``csrc/conv_s2.cu``, each behind a plain C interface. :func:`build` compiles the sources with
 ``nvcc`` for ``sm_90a`` into ``mmvae_torch/_build/`` at first use (again
 whenever a source's hash changes), one ``nvcc`` per source, all started
 together; each library is loaded with ``ctypes``. Each wrapper checks its
@@ -34,6 +37,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from mmvae_torch.core.elbo import kl_std_normal as _kl_plain
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bce_plain
@@ -53,6 +57,9 @@ __all__ = [
     "bernoulli_nll_torch",
     "masked_seq_ce_kernel",
     "masked_seq_ce_torch",
+    "same_pad",
+    "conv4x4s2_swish_kernel",
+    "conv4x4s2_swish_torch",
 ]
 
 # Target-row maps of the BCE kernel: rows match; t-major tiling (row
@@ -60,11 +67,15 @@ __all__ = [
 FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
-LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0}
+LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
-SOURCES = {"row_reduce": _CSRC / "row_reduce.cu", "seq_ce": _CSRC / "seq_ce.cu"}
+SOURCES = {
+    "row_reduce": _CSRC / "row_reduce.cu",
+    "seq_ce": _CSRC / "seq_ce.cu",
+    "conv_s2": _CSRC / "conv_s2.cu",
+}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -81,6 +92,9 @@ _SIGNATURES = {
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _ptr],
+    },
+    "conv_s2": {
+        "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -310,3 +324,82 @@ def masked_seq_ce_torch(
     dims): log-softmax, gather, pad mask, sum over S."""
     per_tok = _cat_plain(logits.to(torch.float32), tokens)
     return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)
+
+
+# -------------------------------------------------------- conv + swish ----
+
+# Output channels of K4 (the CelebA image encoder's first stage).
+CONV_OUT = 32
+_CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def same_pad(hw, k: int = 4, s: int = 2) -> list[int]:
+    """``F.pad`` widths of XLA's SAME for a k x k stride-s conv over the
+    spatial dims ``hw``. Per dim the total is ``max((ceil(d/s) - 1) * s +
+    k - d, 0)`` and the low side gets ``total // 2``: at odd sizes the pad
+    is asymmetric (25 -> 13 pads (1, 2)), which ``Conv2d(padding=)``
+    cannot express."""
+    pads = []
+    for d in reversed(tuple(hw)):  # F.pad takes (w_lo, w_hi, h_lo, h_hi)
+        total = max((-(-d // s) - 1) * s + k - d, 0)
+        pads += [total // 2, total - total // 2]
+    return pads
+
+
+def conv4x4s2_swish_kernel(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """``swish(conv(x, weight, SAME, stride 2) + bias)`` on the card.
+
+    ``x``: ``(B, H, W, C)`` NHWC with 1 <= C <= 4; ``weight``: ``(32, C, 4,
+    4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors of one
+    dtype, float32 or bfloat16. Returns ``(B, 32, ceil(H/2), ceil(W/2))``
+    NCHW in that dtype, accumulated in f32.
+    """
+    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype not in _CONV_DTYPES or t.dtype != x.dtype:
+            raise TypeError(
+                f"x, weight and bias must share a dtype of float32 or bfloat16, "
+                f"got {x.dtype}, {weight.dtype}, {bias.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be (B, H, W, C) with 1 <= C <= 4, got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if weight.shape != (CONV_OUT, c, 4, 4) or bias.shape != (CONV_OUT,):
+        raise ValueError(
+            f"weight {tuple(weight.shape)} and bias {tuple(bias.shape)} are not "
+            f"({CONV_OUT}, {c}, 4, 4) and ({CONV_OUT},)"
+        )
+    if max(x.shape) >= 2**31 or x.numel() >= 2**31:
+        raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
+    out = torch.empty(
+        (b, CONV_OUT, -(-h // 2), -(-w // 2)), dtype=x.dtype, device=x.device
+    )
+    if out.numel() == 0:
+        return out
+    _launch(
+        "conv_s2", "conv4x4s2_swish", x.device, x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[x.dtype],
+    )
+    LAUNCHES["conv"] += 1
+    return out
+
+
+def conv4x4s2_swish_torch(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`conv4x4s2_swish_kernel` (any output
+    channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32, cast
+    to ``x``'s dtype."""
+    h = x.permute(0, 3, 1, 2).to(torch.float32)
+    y = F.conv2d(
+        F.pad(h, same_pad(h.shape[-2:])), weight.to(torch.float32),
+        bias.to(torch.float32), stride=2,
+    )
+    return (y * torch.sigmoid(y)).to(x.dtype)

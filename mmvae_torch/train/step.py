@@ -11,13 +11,15 @@ single-device eval path, ``step.py:532-578``) with member-pruned decoding
     t-major into one ``(tk * B, L)`` batch;
   * the KL of all ``T * B`` posteriors is one ``ops.kl_std_normal`` call
     and each key's NLL one ``ops`` call, so on the card one eval batch
-    launches each kernel on its path once (MNIST: K1, K2; MultiMNIST: K1,
-    K2, K3).
+    launches each kernel on its path once per decode key (MNIST: K1, K2;
+    MultiMNIST: K1, K2, K3; CelebA: K1, K2 for the image and K2 for the 18
+    attributes, and K4 in the image encoder).
 
 One difference from the JAX code: the JAX t-fold broadcasts the targets to
 the tiled rows (``_tile_terms_tmajor``, ``step.py:247``) and lets XLA fuse
-the copy. Here the image and label targets go to ``nll_one`` UNTILED with
-``fold="t"``; the BCE kernel reads target row ``r % B`` and the tiled copy
+the copy. Here the image, label and attribute targets go to ``nll_one``
+UNTILED with ``fold="t"``; the BCE kernel reads target row ``r % B`` (for
+the attributes, row ``r % (B * 18)`` of rows of D = 1) and the tiled copy
 is never made. Only the small integer token rows are tiled.
 
 The other folds (``"b"``, ``"st"``), the decode-all pass, random subsets,

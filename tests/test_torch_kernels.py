@@ -1,14 +1,16 @@
 """The hand-written CUDA kernels against their plain versions.
 
-Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2)
-and ``seq_ce.cu`` (K3) with ``nvcc`` and run on the card; without one they
-skip. This file imports nothing of JAX, so on a machine with a card and no
+Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2),
+``seq_ce.cu`` (K3) and ``conv_s2.cu`` (K4) with ``nvcc`` and run on the
+card; without one they skip. This file imports nothing of JAX, so on a machine with a card and no
 JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: rtol 1e-5, atol 1e-5 * D for the row reductions, 1e-5 * S *
-log V for K3 -- the kernels sum in another order than PyTorch does.
+log V for K3, 1e-5 * 48 for K4 in f32 (48 products per output) -- the
+kernels sum in another order than PyTorch does; K4 in bf16 atol 2e-2, one
+bf16 rounding of an output below 4.
 """
 
 import math
@@ -60,6 +62,22 @@ def test_wrappers_reject_cpu_tensors():
         kernels.bernoulli_nll_kernel(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.masked_seq_ce_kernel(x[None], torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv4x4s2_swish_kernel(
+            torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32)
+        )
+
+
+def test_conv_plain_pads_like_xla_same():
+    """The plain K4 pads (1, 1) at an even size and (1, 2) at 25, and
+    gives ceil(d / 2) outputs."""
+    assert kernels.same_pad((64, 64)) == [1, 1, 1, 1]
+    assert kernels.same_pad((25, 24)) == [1, 1, 1, 2]
+    assert kernels.same_pad((1, 1)) == [1, 2, 1, 2]
+    y = kernels.conv4x4s2_swish_torch(
+        torch.ones((2, 25, 7, 3)), torch.ones((32, 3, 4, 4)), torch.zeros(32)
+    )
+    assert y.shape == (2, 32, 13, 4) and y.dtype == torch.float32
 
 
 @pytest.mark.parametrize("fold", FOLDS)
@@ -123,11 +141,15 @@ def test_bce_kernel_matches_plain(cuda, fold, shape):
 def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     x = torch.zeros((8, 16), device=cuda)
     tok = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    img = torch.zeros((2, 8, 8, 3), device=cuda)
+    cw = torch.zeros((32, 3, 4, 4), device=cuda)
+    cb = torch.zeros(32, device=cuda)
     before = dict(kernels.LAUNCHES)
     after = {k: v + 1 for k, v in before.items()}
     kernels.kl_std_normal_kernel(x, x)
     kernels.bernoulli_nll_kernel(x, x[:4], kernels.FOLD_T)
     kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok)
+    kernels.conv4x4s2_swish_kernel(img, cw, cb)
     assert kernels.LAUNCHES == after
     with pytest.raises(TypeError):
         kernels.kl_std_normal_kernel(x.double(), x.double())
@@ -143,6 +165,16 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
         kernels.masked_seq_ce_kernel(x.view(8, 4, 4).transpose(0, 1), tok.t())
     with pytest.raises(ValueError):
         kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok[:, :3])
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_kernel(img.double(), cw.double(), cb.double())
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_kernel(img, cw.bfloat16(), cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv4x4s2_swish_kernel(img.permute(0, 2, 1, 3), cw, cb)
+    with pytest.raises(ValueError):
+        kernels.conv4x4s2_swish_kernel(torch.zeros((2, 8, 8, 5), device=cuda), cw, cb)
+    with pytest.raises(ValueError):
+        kernels.conv4x4s2_swish_kernel(img, cw[:16], cb[:16])
     assert kernels.LAUNCHES == after
 
 
@@ -217,3 +249,71 @@ def test_ops_masked_seq_ce_runs_the_kernel_on_the_card(cuda):
         ops.set_backend("auto")
     assert kernels.LAUNCHES["seq_ce"] == before + 1
     _seq_close(got, want, 5, 13)
+
+
+def _conv_inputs(gen, shape, dtype, device):
+    """NHWC image in [0, 1], OIHW weights and a bias, as the probe draws them."""
+    x = torch.rand(shape, generator=gen)
+    w = torch.randn((32, shape[-1], 4, 4), generator=gen) * 0.1
+    b = torch.randn(32, generator=gen) * 0.1
+    return tuple(t.to(device=device, dtype=dtype) for t in (x, w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, dtype",
+    [
+        ((64, 64, 64, 3), torch.float32),  # the CelebA eval batch
+        ((256, 64, 64, 3), torch.bfloat16),  # the probe's shape
+        ((37, 64, 64, 3), torch.float32),  # ragged batch
+        ((5, 25, 25, 1), torch.float32),  # odd size: pads (1, 2)
+        ((3, 9, 300, 2), torch.bfloat16),  # a band of one row
+        ((2, 7, 1100, 4), torch.float32),  # shared memory past 48 KB
+    ],
+)
+def test_conv_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator().manual_seed(8)
+    x, w, b = _conv_inputs(gen, shape, dtype, cuda)
+    got = kernels.conv4x4s2_swish_kernel(x, w, b)
+    want = kernels.conv4x4s2_swish_torch(x, w, b)
+    assert got.shape == want.shape == (shape[0], 32, -(-shape[1] // 2), -(-shape[2] // 2))
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * 16 * shape[-1])
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_ops_conv_runs_the_kernel_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(9)
+    x, w, b = _conv_inputs(gen, (4, 64, 64, 3), torch.float32, cuda)
+    before = kernels.LAUNCHES["conv"]
+    got = ops.conv4x4s2_swish(x, w, b)
+    assert kernels.LAUNCHES["conv"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.conv4x4s2_swish(x, w, b)
+    finally:
+        ops.set_backend("auto")
+    assert kernels.LAUNCHES["conv"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * 48)
+
+
+@pytest.mark.gpu
+def test_bce_kernel_attribute_rows(cuda):
+    """The CelebA attribute NLL through ops: (19 * 64, 18) logits at
+    event_ndims=0 against (64, 18) targets, t-fold: rows of D = 1."""
+    gen = torch.Generator().manual_seed(10)
+    logits = _rand(gen, 19 * 64, 18, device=cuda, scale=3.0)
+    x = torch.randint(0, 2, (64, 18), generator=gen).float().to(cuda)
+    before = kernels.LAUNCHES["bce"]
+    got = ops.bernoulli_nll(logits, x, 0, fold="t")
+    assert kernels.LAUNCHES["bce"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.bernoulli_nll(logits, x, 0, fold="t")
+    finally:
+        ops.set_backend("auto")
+    assert got.shape == (19 * 64, 18)
+    _close(got, want, 1)

@@ -238,7 +238,7 @@ def test_entry_points_default_to_the_card(matched):
 
 def test_unported_configs_and_datasets_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("celeba")
+        configs.get_config("cub")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         load_dataset("cub")
     with pytest.raises(ValueError):

@@ -1,15 +1,21 @@
 """The port's ops layer and core math against the JAX package, on the CPU.
 
 Inputs come from numpy seeds and go through both sides. The JAX Pallas
-kernels run in interpret mode, as ``tests/test_pallas.py`` runs them. The
-tolerance is rtol 2e-4 because XLA-CPU transcendentals are approximate
-(docs/DESIGN.md section 7); the atol covers sums that cancel to near 0.
+kernels run in interpret mode, as ``tests/test_pallas.py`` runs them;
+the conv probe's kernel (``tools/pallas_conv_probe.py::pallas_conv0``),
+which takes no ``interpret`` argument, runs under
+``pltpu.force_tpu_interpret_mode()``. The tolerance is rtol 2e-4 because
+XLA-CPU transcendentals are approximate (docs/DESIGN.md section 7); the
+atol covers sums that cancel to near 0.
 """
 
+import flax.linen as flax_nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from mmvae_tpu import core as jcore
 from mmvae_tpu import ops as jops
@@ -17,6 +23,7 @@ from mmvae_tpu.ops import kernels as jkernels
 from mmvae_tpu.train.step import _tile_terms_tmajor
 from mmvae_torch import core, ops
 from mmvae_torch.ops import kernels
+from tools.pallas_conv_probe import pallas_conv0
 
 RTOL = 2e-4
 
@@ -85,6 +92,75 @@ def test_ops_nll_term_tiled_targets(fold):
     lab = rng.integers(0, 10, size=(b,)).astype(np.int32)
     want = jcore.categorical_nll(jnp.asarray(cl), tile(jnp.asarray(lab)))
     _close(ops.categorical_nll(_t(cl), _t(lab), fold=fold), want)
+
+
+def test_ops_bernoulli_nll_event_ndims_0_t_fold():
+    """The CelebA attribute NLL: ``(k * B, A)`` logits at event_ndims=0
+    against untiled ``(B, A)`` targets under the t-fold. The kernel path
+    flattens both to rows of D = 1 and reads target row ``r % (B * A)``;
+    the plain version of that row map gives the same. b-major raises."""
+    rng = np.random.default_rng(13)
+    k, b, a = 19, 6, 18
+    logits = (rng.normal(size=(k * b, a)) * 3).astype(np.float32)
+    x = rng.integers(0, 2, size=(b, a)).astype(np.float32)
+    want = jcore.bernoulli_nll(jnp.asarray(logits), _tile_terms_tmajor(jnp.asarray(x), k), 0)
+    got = ops.bernoulli_nll(_t(logits), _t(x), 0, fold="t")
+    assert got.shape == (k * b, a)
+    _close(got, want)
+    rows = kernels.bernoulli_nll_torch(
+        _t(logits).reshape(-1, 1), _t(x).reshape(-1, 1), kernels.FOLD_T
+    )
+    _close(rows.reshape(k * b, a), want)
+    with pytest.raises(ValueError, match="one batch dim"):
+        ops.bernoulli_nll(_t(logits), _t(x), 0, fold="b")
+
+
+def _conv_inputs(shape, seed: int = 14):
+    """NHWC image in [0, 1], HWIO weights and a bias, as the probe draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=shape).astype(np.float32)
+    w = (rng.normal(size=(4, 4, shape[-1], 32)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(32,)) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+def _conv_plain(x, w_hwio, b, dtype=torch.float32) -> np.ndarray:
+    """K4's plain version on the probe's layouts: NHWC f32 out."""
+    y = kernels.conv4x4s2_swish_torch(
+        _t(x).to(dtype), _t(w_hwio.transpose(3, 2, 0, 1)).to(dtype), _t(b).to(dtype)
+    )
+    assert y.dtype == dtype
+    return y.permute(0, 2, 3, 1).float().numpy()
+
+
+@pytest.mark.parametrize("dtype, atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_conv_plain_matches_pallas_conv0_interpret(dtype, atol):
+    """K4's plain version against the TPU kernel itself at (8, 64, 64, 3).
+    f32: the two sum the 48 products of each output in other orders
+    (1.8e-7 apart as measured). bf16: both accumulate in f32 and round
+    each output once, so they may part by one bf16 rounding, 2^-7 of an
+    output near 2."""
+    x, w, b = _conv_inputs((8, 64, 64, 3))
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_conv0(*(jnp.asarray(a, dtype) for a in (x, w, b)))
+    want = np.asarray(want.astype(jnp.float32))
+    got = _conv_plain(x, w, b, getattr(torch, dtype))
+    assert got.shape == want.shape == (8, 32, 32, 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(5, 25, 25, 1), (3, 25, 22, 3), (2, 1, 7, 4)])
+def test_conv_plain_matches_flax_same_conv(shape):
+    """Odd sizes, where XLA's SAME pads (1, 2): K4's plain version and
+    ``ops.conv4x4s2_swish`` on the CPU against Flax ``nn.Conv`` SAME at
+    stride 2 plus swish."""
+    x, w, b = _conv_inputs(shape)
+    conv = flax_nn.Conv(32, (4, 4), strides=(2, 2), padding="SAME")
+    y = conv.apply({"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(x))
+    want = y * jax.nn.sigmoid(y)
+    _close(torch.from_numpy(_conv_plain(x, w, b)), want, atol=1e-5)
+    got = ops.conv4x4s2_swish(_t(x), _t(w.transpose(3, 2, 0, 1)), _t(b))
+    _close(got.permute(0, 2, 3, 1), want, atol=1e-5)
 
 
 def _seq_inputs(rng, n, s, v):
@@ -171,6 +247,8 @@ def test_backend_dispatch():
             ops.bernoulli_nll(mu, mu)
         with pytest.raises(ValueError, match="CUDA"):
             ops.masked_seq_ce(torch.zeros((2, 3, 5)), torch.zeros((2, 3), dtype=torch.int32))
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.conv4x4s2_swish(torch.zeros((1, 4, 4, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32))
     finally:
         ops.set_backend("auto")
 
