@@ -33,9 +33,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    generated at temperature 0 equal);
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 50) and eagerly (host overhead included), the
-   library call that computes the same function where there is one, and
-   for each config the wall time of one ``eval_elbo`` and a profile of
-   where its device time goes.
+   library call that computes the same function where there is one, the
+   kernel and the library call again L2-cold where the inputs fit in the
+   50 MB L2 (the graph cycles through 6 to 512 copies of the inputs,
+   twice the L2 where that fits), and for each config the wall time of one
+   ``eval_elbo`` and a profile of where its device time goes.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -43,6 +45,7 @@ summary, and as the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -59,9 +62,10 @@ from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
 
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
-# cores and the dense bf16 tensor-core rate.
+# NVIDIA H100 SXM data sheet: HBM3 rate, L2 size, the f32 rate outside the
+# tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p; seq CE a
 # compare, a subtract, an add and an exp per logit. Per conv output: 2
@@ -104,7 +108,9 @@ META = {
 # text CE 2 member terms of 5 tokens over 13 symbols. One CelebA eval
 # batch of 64 gives KL T=20 terms, image BCE 2 member terms of 64x64x3
 # pixels, attribute BCE 19 member terms x 18 attributes as rows of D = 1
-# against 64 x 18 untiled targets, and the conv over the 64 images.
+# against 64 x 18 untiled targets, and the conv over the 64 images. The
+# synthetic CUB vocabulary (3 reserved + 20 words) at 32 tokens and a
+# large odd vocabulary stand for the caption configs.
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
@@ -113,7 +119,8 @@ TIMED_SHAPES = {
             "celeba_image": (128, 12288, 64, kernels.FOLD_T),
             "celeba_attrs": (21888, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
-    "seq_ce": {"multimnist_eval": (200, 5, 13), "large": (2048, 8, 5003)},
+    "seq_ce": {"multimnist_eval": (200, 5, 13), "cub_synthetic": (4096, 32, 23),
+               "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
              "probe": (256, 64, 64, 3, torch.bfloat16)},
 }
@@ -129,10 +136,18 @@ CHECKED_SHAPES = {
         (21888, 1, 1152, kernels.FOLD_T),
         (37, 1000, 37, kernels.FOLD_NONE),
         (8192, 784, 4096, kernels.FOLD_T),
+        # CelebA's image rows in the other folds; fewer rows than SMs at
+        # an odd D (scalar loads, a cluster a row); D not a multiple of 4.
+        (128, 12288, 128, kernels.FOLD_NONE),
+        (128, 12288, 64, kernels.FOLD_B),
+        (16, 50001, 16, kernels.FOLD_NONE),
+        (128, 12290, 128, kernels.FOLD_NONE),
     ],
     # MultiMNIST eval; ragged with all-pad rows; the synthetic CUB
-    # vocabulary (3 reserved + 20 words); a large odd vocabulary.
-    "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003)],
+    # vocabulary (3 reserved + 20 words); a large odd vocabulary; S above
+    # the tokens a block runs at once, at an odd V; V just below a warp.
+    "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003),
+               (3, 40, 1001), (5, 3, 31)],
     # CelebA eval; the probe's shape and type; a ragged batch; an odd
     # grayscale size, which pads (1, 2).
     "conv": [(64, 64, 64, 3, torch.float32), (256, 64, 64, 3, torch.bfloat16),
@@ -152,7 +167,8 @@ EXPECTED_LAUNCHES = {
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
-PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "seq_ce_rows_kernel", "conv_s2_kernel")
+PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
+                "seq_ce_tokens_kernel", "conv_s2_kernel")
 PAD = 0
 
 
@@ -458,19 +474,19 @@ def phase_main_path() -> dict[str, dict[str, int]]:
 # ------------------------------------------------------------ phase 4 ----
 
 
-def device_ms(fn, reps: int = 50, inner: int = 20) -> float:
-    """Device time of one call: CUDA-graph replay of ``inner`` calls,
+def graph_ms(calls, reps: int = 50) -> float:
+    """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for call in calls[:3]:
+            call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
+        for call in calls:
+            call()
     times = []
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -478,8 +494,32 @@ def device_ms(fn, reps: int = 50, inner: int = 20) -> float:
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / len(calls))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 50, inner: int = 20) -> float:
+    """Device time of one call on the same inputs, ``inner`` calls a
+    replay: inputs that fit in the L2 stay there."""
+    return graph_ms([fn] * inner, reps)
+
+
+def cold_copies(args) -> int:
+    """Copies of ``args`` that hold at least twice the L2 together (at
+    least 6, at most 512), or 0 when one copy does not fit in the L2."""
+    n_bytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    if n_bytes >= L2_BYTES:
+        return 0
+    return min(512, max(6, math.ceil(2 * L2_BYTES / n_bytes)))
+
+
+def cold_ms(make_call, args, copies: int) -> float:
+    """Device time of one call L2-cold: the graph cycles through
+    ``copies`` copies of ``args``, so each call finds its inputs evicted
+    by the calls on the others. ``make_call(args)`` gives the call."""
+    sets = [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            for _ in range(copies)]
+    return graph_ms([make_call(a) for a in sets], reps=20)
 
 
 def eager_ms(fn, reps: int = 50, inner: int = 20) -> float:
@@ -513,6 +553,13 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
                 "plain_eager_ms": eager_ms(lambda: p(*args)),
                 "library_ms": None if lib is None else device_ms(lib),
             }
+            copies = cold_copies(args)
+            row["cold_copies"] = copies
+            row["kernel_cold_ms"] = (
+                cold_ms(lambda a: functools.partial(k, *a), args, copies) if copies else None)
+            row["library_cold_ms"] = (
+                cold_ms(lambda a: library_fn(op, a), args, copies)
+                if copies and lib is not None else None)
             row["bound_ms"], row["bound_by"] = bound(op, args)
             emit({"phase": "timing", "kernel": META[op]["name"], "label": label,
                   **describe(op, shape), **row,

@@ -6,11 +6,12 @@
   * ``bernoulli_nll_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     bernoulli_nll_pallas`` (K2): ``sum(max(l,0) - l*x + log1p(e^-|l|))``
     per row, reading its targets through a row map (``FOLD_*``) so
-    term-tiled logits are scored against one untiled copy of the targets;
+    term-tiled logits are scored against one untiled copy of the targets,
+    in the layout :func:`bce_plan` picks from the shape;
   * ``masked_seq_ce_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     masked_seq_ce_pallas`` (K3): per example of ``(N, S, V)`` logits, the
     token cross-entropy ``logsumexp(l) - l[token]`` summed over its
-    non-pad tokens;
+    non-pad tokens, in the layout :func:`seq_ce_plan` picks;
   * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
     NHWC image with 1-4 channels into 32 NCHW channels.
@@ -34,7 +35,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +54,10 @@ __all__ = [
     "SOURCES",
     "build",
     "tile_rows",
+    "BcePlan",
+    "bce_plan",
+    "SeqCePlan",
+    "seq_ce_plan",
     "kl_std_normal_kernel",
     "kl_std_normal_torch",
     "bernoulli_nll_kernel",
@@ -88,10 +95,10 @@ _ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "row_reduce": {
         "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
-        "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
+        "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "seq_ce": {
-        "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _ptr],
+        "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
     },
     "conv_s2": {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr],
@@ -175,6 +182,11 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} shape {tuple(t.shape)} exceeds int32")
 
 
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
     lib = _library(lib_name)
     with torch.cuda.device(device):
@@ -232,15 +244,62 @@ def kl_std_normal_torch(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------- BCE ----
 
+# Layouts of ``bce_rows``: a warp per row; a row split over a cluster of
+# blocks (a block per row at split 1); a thread per row.
+BCE_WARP, BCE_SPLIT, BCE_THREAD = 0, 1, 2
+H100_SMS = 132
+_MAX_BLOCKS = 4096  # grid of the grid-strided layouts
+_MAX_SPLIT = 8  # the portable cluster size
+# Rows of at most THREAD_MAX_D elements take a thread each. Rows shorter
+# than LONG_ROW_D take a warp each when there are at least
+# WARP_MIN_ROWS_PER_SM of them an SM. Other rows take a block each, or a
+# cluster of blocks when few.
+THREAD_MAX_D = 8
+LONG_ROW_D = 2048
+WARP_MIN_ROWS_PER_SM = 8
+
+
+class BcePlan(NamedTuple):
+    """Launch of ``bce_rows``: layout, threads a block, blocks a row
+    (the cluster size of ``BCE_SPLIT``) and blocks in all."""
+
+    layout: int
+    threads: int
+    split: int
+    blocks: int
+
+
+def bce_plan(n: int, d: int, sms: int = H100_SMS) -> BcePlan:
+    """The layout of K2 for ``n`` rows of ``d`` on a card of ``sms`` SMs.
+
+    Rows of a few elements take a thread each, and many short rows a
+    warp each: both fill the card. Fewer rows, or long ones, take a block
+    each, so that every row has hundreds of threads with loads in flight;
+    when the blocks would still leave half the SMs idle a row is split
+    over a cluster of up to 8 blocks, as many as keep one block an SM. A
+    block has 256 threads, 512 when its chunk holds 2048 float4s or more.
+    ``kernel_plans.py`` times the alternatives."""
+    if d <= THREAD_MAX_D:
+        return BcePlan(BCE_THREAD, 256, 1, min(-(-n // 256), _MAX_BLOCKS))
+    if d < LONG_ROW_D and n >= WARP_MIN_ROWS_PER_SM * sms:
+        return BcePlan(BCE_WARP, 256, 1, min(-(-n // 8), _MAX_BLOCKS))
+    split = 1
+    while split < _MAX_SPLIT and n * split * 2 <= sms:
+        split *= 2
+    chunk = -(-d // (4 * split))  # float4s a block, or scalars in fours
+    return BcePlan(BCE_SPLIT, 512 if chunk >= 2048 else 256, split, n * split)
+
 
 def bernoulli_nll_kernel(
-    logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE
+    logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE,
+    plan: BcePlan | None = None,
 ) -> torch.Tensor:
     """Summed BCE-with-logits of each row of ``(N, D)`` f32 CUDA logits.
 
     ``x`` holds ``(n_x, D)`` targets: ``n_x == N`` with ``FOLD_NONE``, or
     one copy of a term tiling of ``N // n_x`` terms in the order ``fold``
-    names -- the tiled copy is never made.
+    names -- the tiled copy is never made. ``plan`` overrides
+    :func:`bce_plan` of the shape and the card.
     """
     _check_rows("logits", logits)
     _check_rows("x", x)
@@ -260,9 +319,10 @@ def bernoulli_nll_kernel(
     out = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n == 0:
         return out
+    plan = plan or bce_plan(n, d, _sm_count(logits.device.index or 0))
     _launch(
         "row_reduce", "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
-        out.data_ptr(), n, d, n_x, fold,
+        out.data_ptr(), n, d, n_x, fold, *plan,
     )
     LAUNCHES["bce"] += 1
     return out
@@ -277,13 +337,46 @@ def bernoulli_nll_torch(
 
 # ------------------------------------------------------------ seq CE ----
 
+# Tokens of a call below which K3 is bound by latency (32 an SM): there a
+# lane holds about SEQ_FEW_LOGITS logits of its token row, elsewhere
+# about SEQ_MANY_LOGITS, so that fewer lanes share the per-token work.
+SEQ_FEW_TOKENS_PER_SM = 32
+SEQ_FEW_LOGITS, SEQ_MANY_LOGITS = 1, 12
+
+
+class SeqCePlan(NamedTuple):
+    """Launch of ``seq_ce_rows``: lanes a token row (32: a warp, float4
+    loads), warps a block, blocks in all (one per example)."""
+
+    lanes: int
+    warps: int
+    blocks: int
+
+
+def seq_ce_plan(n: int, s: int, v: int, sms: int = H100_SMS) -> SeqCePlan:
+    """The layout of K3 for ``(n, s, v)`` logits on a card of ``sms`` SMs.
+
+    A block per example; a token row to the power-of-two group of lanes
+    (up to a warp) that holds about 1 logit a lane when the call has few
+    tokens, about 12 when it has many; enough warps for the example's
+    tokens to run at once, up to 8, or up to 32 when the examples are
+    fewer than the SMs. ``kernel_plans.py`` times the alternatives."""
+    few = n * s < SEQ_FEW_TOKENS_PER_SM * sms
+    per_lane = SEQ_FEW_LOGITS if few else SEQ_MANY_LOGITS
+    lanes = min(32, 1 << max(0, -(-v // per_lane) - 1).bit_length())
+    cap = 32 if n < sms else 8
+    warps = max(1, min(cap, -(-s * lanes // 32)))
+    return SeqCePlan(lanes, warps, n)
+
 
 def masked_seq_ce_kernel(
-    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0,
+    plan: SeqCePlan | None = None,
 ) -> torch.Tensor:
     """Token cross-entropy of ``(N, S, V)`` f32 CUDA logits against
     ``(N, S)`` int32 or int64 CUDA tokens, summed over the non-pad
-    tokens of each row -> ``(N,)``. A pad token contributes exactly 0."""
+    tokens of each row -> ``(N,)``. A pad token contributes exactly 0.
+    ``plan`` overrides :func:`seq_ce_plan` of the shape and the card."""
     if not logits.is_cuda or not tokens.is_cuda:
         raise ValueError(
             f"logits and tokens must be CUDA tensors, got {logits.device} "
@@ -308,10 +401,11 @@ def masked_seq_ce_kernel(
     out = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n == 0:
         return out
+    plan = plan or seq_ce_plan(n, s, v, _sm_count(logits.device.index or 0))
     _launch(
         "seq_ce", "seq_ce_rows", logits.device, logits.data_ptr(),
         tokens.data_ptr(), tokens.element_size(), out.data_ptr(), n, s, v,
-        int(pad_token),
+        int(pad_token), *plan,
     )
     LAUNCHES["seq_ce"] += 1
     return out

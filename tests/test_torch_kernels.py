@@ -317,3 +317,106 @@ def test_bce_kernel_attribute_rows(cuda):
         ops.set_backend("auto")
     assert got.shape == (19 * 64, 18)
     _close(got, want, 1)
+
+
+def _bce_inputs(gen, n, d, fold, device):
+    n_x = n if fold == kernels.FOLD_NONE else n // 2
+    logits = _rand(gen, n, d, device=device, scale=3.0)
+    return logits, torch.rand(n_x, d, generator=gen).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", FOLDS)
+def test_bce_kernel_celeba_image_rows(cuda, fold):
+    """CelebA's image rows, (128, 12288) against 64 targets in a fold:
+    rows split over clusters; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(11)
+    logits, x = _bce_inputs(gen, 128, 12288, fold, cuda)
+    got = kernels.bernoulli_nll_kernel(logits, x, fold)
+    _close(got, kernels.bernoulli_nll_torch(logits, x, fold), 12288)
+    assert torch.equal(got, kernels.bernoulli_nll_kernel(logits, x, fold))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 50001), (128, 12290)])
+def test_bce_kernel_long_rows_scalar_path(cuda, shape):
+    """D not a multiple of 4 takes scalar loads in the split layout; 16
+    rows are fewer than the SMs, so each spans a cluster."""
+    gen = torch.Generator().manual_seed(12)
+    logits, x = _bce_inputs(gen, *shape, kernels.FOLD_NONE, cuda)
+    got = kernels.bernoulli_nll_kernel(logits, x)
+    _close(got, kernels.bernoulli_nll_torch(logits, x), shape[1])
+    assert torch.equal(got, kernels.bernoulli_nll_kernel(logits, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 12288), (200, 784), (21888, 1)])
+def test_bce_kernel_offset_view(cuda, shape):
+    """Contiguous views one element into their storage: every layout
+    takes scalar loads off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(13)
+    n, d = shape
+    logits = _rand(gen, n * d + 1, device=cuda, scale=3.0)[1:].view(n, d)
+    x = torch.rand(n // 2 * d + 1, generator=gen).to(cuda)[1:].view(n // 2, d)
+    _close(
+        kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_T),
+        kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_T), d,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "plan",
+    [
+        kernels.BcePlan(kernels.BCE_WARP, 256, 1, 5),
+        kernels.BcePlan(kernels.BCE_SPLIT, 128, 1, 38),
+        kernels.BcePlan(kernels.BCE_SPLIT, 256, 2, 76),
+        kernels.BcePlan(kernels.BCE_SPLIT, 1024, 8, 304),
+        kernels.BcePlan(kernels.BCE_THREAD, 64, 1, 1),
+    ],
+)
+@pytest.mark.parametrize("d", [4100, 4099])
+def test_bce_kernel_every_layout(cuda, plan, d):
+    """Each layout, forced through ``plan``, at an aligned and an odd D
+    against b-major targets (38 rows onto 19); the same bits from call to
+    call."""
+    gen = torch.Generator().manual_seed(14)
+    logits, x = _bce_inputs(gen, 38, d, kernels.FOLD_B, cuda)
+    got = kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, plan=plan)
+    _close(got, kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_B), d)
+    assert torch.equal(got, kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, plan=plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape", [(2048, 8, 5003), (4096, 32, 23), (37, 7, 13), (3, 40, 1001), (5, 3, 31)]
+)
+def test_seq_ce_kernel_layouts(cuda, shape):
+    """Rows that start off a 16-byte boundary (odd V: a scalar head and
+    tail around the float4 body), S above what a block runs at once (32,
+    40), V below a warp, all-pad rows; the same bits from a second call.
+    Every other group of lanes a token row agrees with the plain version
+    too."""
+    gen = torch.Generator().manual_seed(15)
+    logits, tokens = _seq_inputs(gen, *shape, device=cuda)
+    want = kernels.masked_seq_ce_torch(logits, tokens, 0)
+    got = kernels.masked_seq_ce_kernel(logits, tokens, 0)
+    _seq_close(got, want, *shape[1:])
+    assert torch.all(got[:2] == 0)
+    assert torch.equal(got, kernels.masked_seq_ce_kernel(logits, tokens, 0))
+    n = shape[0]
+    for lanes, warps in ((32, 32), (32, 1), (8, 2), (1, 1)):
+        plan = kernels.SeqCePlan(lanes, warps, n)
+        other = kernels.masked_seq_ce_kernel(logits, tokens, 0, plan=plan)
+        _seq_close(other, want, *shape[1:])
+        assert torch.all(other[:2] == 0)
+
+
+@pytest.mark.gpu
+def test_seq_ce_kernel_large_vocab_int64_tokens_and_other_pad(cuda):
+    gen = torch.Generator().manual_seed(16)
+    logits, tokens = _seq_inputs(gen, 64, 9, 5003, device=cuda, dtype=torch.int64)
+    for pad in (0, 2):
+        got = kernels.masked_seq_ce_kernel(logits, tokens, pad)
+        _seq_close(got, kernels.masked_seq_ce_torch(logits, tokens, pad), 9, 5003)
+        assert torch.equal(got, kernels.masked_seq_ce_kernel(logits, tokens, pad))
