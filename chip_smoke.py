@@ -148,10 +148,17 @@ CHECKED_SHAPES = {
     # the tokens a block runs at once, at an odd V; V just below a warp.
     "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003),
                (3, 40, 1001), (5, 3, 31)],
-    # CelebA eval; the probe's shape and type; a ragged batch; an odd
-    # grayscale size, which pads (1, 2).
+    # CelebA eval; the probe's shape and type (more units than the grid
+    # has warps); a ragged batch; an odd grayscale size, which pads (1, 2)
+    # and takes scalar loads; widths that are not a multiple of the 32
+    # pixels a warp covers (scalar stores at 35 and 45 outputs); C = 1, 2
+    # and 4 in both types; rows wider than a tile (550 outputs).
     "conv": [(64, 64, 64, 3, torch.float32), (256, 64, 64, 3, torch.bfloat16),
-             (37, 64, 64, 3, torch.float32), (5, 25, 25, 1, torch.float32)],
+             (37, 64, 64, 3, torch.float32), (5, 25, 25, 1, torch.float32),
+             (600, 64, 64, 3, torch.float32), (4, 30, 70, 3, torch.float32),
+             (3, 20, 90, 3, torch.bfloat16),
+             *((6, 32, 40, c, dt) for c in (1, 2, 4) for dt in (torch.float32, torch.bfloat16)),
+             (2, 7, 1100, 4, torch.float32)],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
 # this slice's path (CelebA) for the kernels it runs, else the path that
@@ -168,7 +175,7 @@ EXPECTED_LAUNCHES = {
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
-                "seq_ce_tokens_kernel", "conv_s2_kernel")
+                "seq_ce_tokens_kernel", "conv_s2_tiles_kernel")
 PAD = 0
 
 

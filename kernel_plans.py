@@ -1,10 +1,14 @@
-"""Times every launch layout of K2 (``bce_rows``) and K3 (``seq_ce_rows``)
-on one NVIDIA card, at the shapes ``chip_smoke.py`` times and checks.
+"""Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``)
+and K4 (``conv4x4s2_swish``) on one NVIDIA card, at the shapes
+``chip_smoke.py`` times and checks.
 
-    python3 kernel_plans.py
+    python3 kernel_plans.py [bce|seq_ce|conv ...]
 
-``mmvae_torch/ops/kernels.py``'s ``bce_plan`` and ``seq_ce_plan`` pick a
-layout from the shape; this script shows what the others would give.
+``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan`` and
+``conv_plan`` pick a layout from the shape; this script shows what the
+others would give (for K4: warps a block, and blocks an SM from one to
+more than fit at once, or a warp for every unit). The arguments name the
+kernels to time (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
 version, whether two calls gave the same bits, and the device time with
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import json
+import sys
 from pathlib import Path
 
 import torch
@@ -48,6 +53,11 @@ SEQ_SHAPES = {
     "vocab_96": (1024, 16, 96),
     "vocab_200": (1024, 16, 200),
 }
+CONV_SHAPES = {
+    "celeba_eval": (64, 64, 64, 3, torch.float32),
+    "probe": (256, 64, 64, 3, torch.bfloat16),
+    "ragged": (37, 64, 64, 3, torch.float32),
+}
 
 
 def bce_plans(n: int, d: int, sms: int) -> list[K.BcePlan]:
@@ -71,11 +81,23 @@ def seq_plans(n: int, s: int, v: int, sms: int) -> list[K.SeqCePlan]:
     return plans if auto in plans else plans + [auto]
 
 
+def conv_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvPlan]:
+    units = K.conv_units(b, h, w)
+    plans = [K.conv_plan(b, h, w, c, sms, blocks_per_sm, warps)
+             for warps in (2, 4, 8) for blocks_per_sm in (1, 2, 4, 8)]
+    plans += [K.conv_plan(b, h, w, c, sms, units, warps) for warps in (4, 8)]
+    auto = K.conv_plan(b, h, w, c, sms)
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_plans: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
-    K.build("row_reduce", "seq_ce")
+    torch.backends.cudnn.allow_tf32 = False
+    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv"]
+    K.build("row_reduce", "seq_ce", "conv_s2")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
     out_path.parent.mkdir(exist_ok=True)
@@ -85,7 +107,11 @@ def main() -> None:
              for label, shape in BCE_SHAPES.items()]
     cases += [("seq_ce", label, shape, seq_plans(*shape, sms))
               for label, shape in SEQ_SHAPES.items()]
+    cases += [("conv", label, shape, conv_plans(*shape[:4], sms))
+              for label, shape in CONV_SHAPES.items()]
     for op, label, shape, plans in cases:
+        if op not in wanted:
+            continue
         args = cs.inputs(op, shape, gen)
         want = cs.PLAIN_FN[op](*args)
         lib = cs.library_fn(op, args)
@@ -98,12 +124,13 @@ def main() -> None:
             "bound_ms": cs.bound(op, args)[0], "cold_copies": copies,
         }
         auto = (K.bce_plan(shape[0], shape[1], sms) if op == "bce"
-                else K.seq_ce_plan(*shape, sms))
+                else K.seq_ce_plan(*shape, sms) if op == "seq_ce"
+                else K.conv_plan(*shape[:4], sms))
         for plan in plans:
             call = functools.partial(cs.KERNEL_FN[op], *args, plan=plan)
             got = call()
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
             rtol, atol = cs.tolerance(op, shape)
             if not torch.allclose(got, want, rtol=rtol, atol=atol):
                 bad.append((op, label, plan))

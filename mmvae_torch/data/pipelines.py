@@ -1,12 +1,15 @@
 """Datasets and eval batching (port of ``mmvae_tpu/data/pipelines.py``).
 
 A :class:`Dataset` holds host numpy arrays; the entry points move the
-stacked split to the device once. Only the seeded synthetic generator is
-ported; mounted real data (``$MMVAE_DATA_DIR``) is not read yet.
+stacked split to the device once. Only the seeded numpy generators are
+ported. Where the JAX loader would read something else -- mounted data
+under ``$MMVAE_DATA_DIR`` or the C++ generators of ``MMVAE_DATAGEN=native``
+-- :func:`load_dataset` raises rather than score other data.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +24,9 @@ _GENERATORS = {
     "celeba": synthetic.make_celeba,
 }
 _NOT_PORTED = ("fashionmnist", "cub")
+# Datasets the JAX loader draws from its C++ generators under
+# MMVAE_DATAGEN=native (not bit-identical to the numpy ones).
+_NATIVE = ("multimnist", "celeba")
 # Train and test are disjoint draws; the same seeds as the JAX package.
 SPLIT_SEEDS = {"train": 0, "test": 1_000_003}
 SPLIT_SIZES = {"train": 10000, "test": 2000}
@@ -41,7 +47,11 @@ def load_dataset(
 ) -> Dataset:
     """The seeded synthetic split ``split`` of dataset ``name``.
 
-    ``seed`` overrides the split's seed; ``n`` its size.
+    ``seed`` overrides the split's seed; ``n`` its size. Raises
+    ``NotImplementedError`` where the JAX loader would not run its numpy
+    generator: ``$MMVAE_DATA_DIR/<name>/<split>.npz`` exists, or
+    ``$MMVAE_DATA_DIR/<name>/`` is a directory (the distribution formats),
+    or ``MMVAE_DATAGEN=native`` selects the C++ generator of ``name``.
     """
     if name in _NOT_PORTED:
         raise NotImplementedError(f"dataset {name!r} is not yet ported to mmvae_torch")
@@ -49,6 +59,17 @@ def load_dataset(
         raise ValueError(f"unknown dataset {name!r}; have {list(_GENERATORS)}")
     if split not in SPLIT_SEEDS:
         raise ValueError(f"unknown split {split!r}; have {list(SPLIT_SEEDS)}")
+    data_dir = os.environ.get("MMVAE_DATA_DIR", "")
+    if data_dir and (os.path.exists(os.path.join(data_dir, name, f"{split}.npz"))
+                     or os.path.isdir(os.path.join(data_dir, name))):
+        raise NotImplementedError(
+            f"mounted data for {name!r} under MMVAE_DATA_DIR={data_dir!r} is not "
+            "yet ported to mmvae_torch (it would read the numpy generator instead)"
+        )
+    if os.environ.get("MMVAE_DATAGEN") == "native" and name in _NATIVE:
+        raise NotImplementedError(
+            f"MMVAE_DATAGEN=native for {name!r} is not yet ported to mmvae_torch"
+        )
     arrays = _GENERATORS[name](
         n or SPLIT_SIZES[split],
         seed=SPLIT_SEEDS[split] if seed is None else seed,

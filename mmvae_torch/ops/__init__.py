@@ -5,7 +5,8 @@ Port of ``mmvae_tpu/ops/__init__.py``. Backend selection:
 runs the hand-written kernel for CUDA tensors and the plain version for
 CPU tensors; ``"kernel"`` raises on a CPU tensor; ``"torch"`` runs the
 plain version everywhere (the on-card reference the kernels are held
-against).
+against). The kernels have no backward yet: the kernel path raises
+when grad mode is on and an input requires grad.
 
 Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``masked_seq_ce`` accept targets with fewer leading rows than the logits,
@@ -57,14 +58,24 @@ def get_backend() -> str:
     return _backend
 
 
-def _use_kernel(t: torch.Tensor) -> bool:
-    if _backend == "torch":
+def _use_kernel(op: str, t: torch.Tensor, *more: torch.Tensor) -> bool:
+    """Whether ``op`` takes its kernel for inputs ``t, *more``.
+
+    The kernels have no backward yet, so the kernel path raises where
+    autograd would record the op: grad mode on and an input that requires
+    grad. It never falls back to the plain path."""
+    if _backend == "torch" or (_backend == "auto" and not t.is_cuda):
         return False
-    if _backend == "kernel" and not t.is_cuda:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (t, *more)):
+        raise RuntimeError(
+            f"ops.{op}: the kernel's backward is not yet ported to mmvae_torch; "
+            "call it under torch.no_grad() or with set_backend('torch')"
+        )
+    if not t.is_cuda:
         raise ValueError(
             f"ops backend 'kernel' needs CUDA tensors, got one on {t.device}"
         )
-    return t.is_cuda
+    return True
 
 
 def _rows(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -81,7 +92,7 @@ def _fold(rows: int, n_targets: int, fold: str) -> int:
 
 def kl_std_normal(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """KL(N(mu, e^logvar) || N(0, I)) summed over the last dim."""
-    if not _use_kernel(mu):
+    if not _use_kernel("kl_std_normal", mu, logvar):
         return _kl_torch(mu, logvar)
     d = mu.shape[-1]
     out = kernels.kl_std_normal_kernel(_rows(mu, d), _rows(logvar, d))
@@ -115,7 +126,7 @@ def bernoulli_nll(
             f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
             f"{len(batch_shape)} (not yet ported to mmvae_torch)"
         )
-    if not _use_kernel(logits):
+    if not _use_kernel("bernoulli_nll", logits, x):
         x = kernels.tile_rows(x, logits.shape[0], mode)
         return _bern_torch(logits, x, event_ndims)
     d = math.prod(logits.shape[logits.dim() - event_ndims:])
@@ -151,7 +162,7 @@ def masked_seq_ce(
     """
     mode = _fold(logits.shape[0], tokens.shape[0], fold)
     tokens = kernels.tile_rows(tokens, logits.shape[0], mode)
-    if not _use_kernel(logits):
+    if not _use_kernel("masked_seq_ce", logits):
         return kernels.masked_seq_ce_torch(logits, tokens, pad_token)
     s, v = logits.shape[-2:]
     rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
@@ -165,6 +176,6 @@ def conv4x4s2_swish(
     """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
     ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32."""
-    if not _use_kernel(x):
+    if not _use_kernel("conv4x4s2_swish", x, weight, bias):
         return kernels.conv4x4s2_swish_torch(x, weight, bias)
     return kernels.conv4x4s2_swish_kernel(x.contiguous(), weight.contiguous(), bias.contiguous())

@@ -8,9 +8,10 @@
 //                                                * w[o, c, ky, kx]),
 // with XLA's SAME padding: per dim the total pad is
 // max((ceil(d/2) - 1) * 2 + 4 - d, 0), and the low side (pt, pl) gets half
-// of it, rounded down. Out of range input reads as 0. y is (B, 32,
-// ceil(H/2), ceil(W/2)), NCHW, so the next stage (a cuDNN conv) takes it as
-// it is. It is the first stage of the CelebA image encoder.
+// of it, rounded down, which is 1 at every size. Out of range input reads
+// as 0. y is (B, 32, ceil(H/2), ceil(W/2)), NCHW, so the next stage (a
+// cuDNN conv) takes it as it is. It is the first stage of the CelebA image
+// encoder.
 //
 // The TPU kernel padded the input and pre-split it into the four stride
 // parities with XLA, so that every tap read a contiguous window (C = 3
@@ -18,189 +19,360 @@
 // 16 taps x 3 channels of broadcast FMAs per block of 8 images. Here
 // nothing is pre-split: x is read once, straight from the batch.
 //
-// What bounds it: memory. At the CelebA eval shape (64, 64, 64, 3) f32 it
-// reads 3.15 MB and writes 8.39 MB, 3.4 us at 3.35 TB/s; its 2 * 48 FMAs
-// per output (210 MFLOP with the swish) take 3.1 us at 67 TFLOP/s of f32.
+// What bounds it: at the CelebA eval shape (64, 64, 64, 3) f32 it reads
+// 3.15 MB and writes 8.39 MB, 3.4 us at 3.35 TB/s; its 48 FMAs and the
+// swish per output (210 MFLOP) take 3.1 us at 67 TFLOP/s of f32 on the CUDA
+// cores, and the swish's exp and IEEE divide add about a third to the
+// instructions. So the kernel has to overlap its loads, FMAs and stores.
 //
-// Design: one block of 128 threads owns one image and a band of output
-// rows. It stages the band's 2 * rows + 2 input rows (zero-filled where the
-// SAME pad or the image edge falls), the 6 KB of weights (as [tap][c][o], so
-// a thread reads the 32 output channels of one tap as 8 float4) and the
-// bias in shared memory, converted to f32. Each thread then owns one output
-// pixel at a time and keeps its 32 output channels in registers; bias and
-// swish are fused into the one store, and the 32 threads of a warp store
-// neighbouring pixels of one channel plane, so the stores coalesce.
-// Accumulation is f32 for f32 and bf16 inputs; the output is written in the
-// input's type (round to nearest even for bf16).
-// No fast-math: expf tracks the plain PyTorch version to rounding.
+// Design. A unit of work is one output row of one image, 32 output pixels
+// wide (a chunk of the row), all 32 channels: one warp. Its input is 4 rows
+// of 66 columns (2 * 32 + 2, the SAME pad and the image edges zero-filled),
+// staged f32 in the warp's own slice of shared memory as NHWC rows, each
+// shifted by `lead` floats so that the image's 16-byte chunks land on
+// 16-byte boundaries. Lane (t, g) = (lane % 8, lane / 8) owns 4 adjacent
+// output pixels (4t..4t+3) x 8 channels (8g..8g+7): 32 accumulators. Per
+// input row a lane reads its window of 10 columns x C as float4s (the 4
+// pixels' 4 taps), and per (tap, c) the 8 weights of its channels as two
+// float4s: 32 FMAs per weight pair, 12 FMAs per shared-memory load.
+// A block of `warps` warps stages the weights once ([tap][c][o], each
+// thread writing consecutive addresses) and then walks units with the
+// grid's stride, so the grid is sized to the card (a few blocks an SM) and
+// not to the work. Every global load of a unit is issued before the first
+// is used, and a unit's loads are issued into registers before the previous
+// unit is computed: one load latency per warp, not one per element.
+// Bias and swish are fused into the one store; a warp's stores of one
+// channel cover the 128-byte run of its 32 pixels (float4 for f32, 8 bytes
+// for bf16, where the row length allows). Accumulation is f32 FMAs in a
+// fixed order for f32 and bf16 inputs, no atomics: two calls give the same
+// bits. The output is written in the input's type (round to nearest even
+// for bf16). No fast-math: expf tracks the plain PyTorch version to rounding.
 //
-// C interface (bound with ctypes): conv4x4s2_swish launches on `stream`,
+// C interface (bound with ctypes): conv4x4s2_swish launches on `stream`
+// with the plan it is given (warps a block, blocks, dynamic shared memory),
 // does not synchronise, and returns cudaGetLastError() of its launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <algorithm>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kCout = 32;
 constexpr int kTaps = 16;
-constexpr int kThreads = 128;
-constexpr int kMaxBandRows = 8;
+constexpr int kPx = 4;                     // output pixels a lane
+constexpr int kCh = 8;                     // output channels a lane
+constexpr int kTileW = 8 * kPx;            // output pixels a warp
+constexpr int kTileCols = 2 * kTileW + 2;  // input columns a unit reads
+constexpr int kMaxWarps = 8;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
+// Floats before column -1 of a staged row: C + lead is a multiple of 4, so
+// the image's column 0 starts a float4.
+__host__ __device__ constexpr int lead(int c) { return (4 - c % 4) % 4; }
+// Floats of one staged input row.
+__host__ __device__ constexpr int row_floats(int c) {
+  return (lead(c) + kTileCols * c + 3) / 4 * 4;
 }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+size_t smem_of(int c, int warps) {
+  return sizeof(float) * (static_cast<size_t>(kTaps) * c * kCout + kCout +
+                          static_cast<size_t>(warps) * 4 * row_floats(c));
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    conv_s2_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ y, int h,
-                   int wd, int h_out, int w_out, int pad_top, int pad_left,
-                   int band, int n_bands) {
+// A chunk of staged input: 4 elements where rows allow 16-byte (f32) or
+// 8-byte (bf16) loads, else 1. Raw is what a load gives; store converts to
+// f32 (a bf16 is the high half of its f32).
+template <typename T, bool VEC>
+struct Chunk;
+template <>
+struct Chunk<float, true> {
+  static constexpr int kElems = 4;
+  using Raw = float4;
+  __device__ static Raw load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ static Raw zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static void store(float* s, Raw v) { *reinterpret_cast<float4*>(s) = v; }
+};
+template <>
+struct Chunk<float, false> {
+  static constexpr int kElems = 1;
+  using Raw = float;
+  __device__ static Raw load(const float* p) { return __ldg(p); }
+  __device__ static Raw zero() { return 0.0f; }
+  __device__ static void store(float* s, Raw v) { *s = v; }
+};
+template <>
+struct Chunk<__nv_bfloat16, true> {
+  static constexpr int kElems = 4;
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static Raw zero() { return make_uint2(0u, 0u); }
+  __device__ static void store(float* s, Raw v) {
+    *reinterpret_cast<float4*>(s) =
+        make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                    __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+};
+template <>
+struct Chunk<__nv_bfloat16, false> {
+  static constexpr int kElems = 1;
+  using Raw = unsigned short;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static Raw zero() { return 0; }
+  __device__ static void store(float* s, Raw v) {
+    *s = __uint_as_float(static_cast<unsigned>(v) << 16);
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float swish(float v) { return v * (1.0f / (1.0f + expf(-v))); }
+
+// The 4 outputs of a lane for one channel, at `p` (4-aligned when `vec`).
+__device__ __forceinline__ void store4(float* p, const float (&r)[kPx], int valid, bool vec) {
+  if (vec) {
+    if (valid == kPx) *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    if (i < valid) p[i] = r[i];
+  }
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&r)[kPx], int valid,
+                                       bool vec) {
+  unsigned short h[kPx];
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) h[i] = __bfloat16_as_ushort(__float2bfloat16(r[i]));
+  if (vec) {
+    if (valid == kPx) {
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(h[0] | (static_cast<unsigned>(h[1]) << 16),
+                     h[2] | (static_cast<unsigned>(h[3]) << 16));
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    if (i < valid) p[i] = __ushort_as_bfloat16(h[i]);
+  }
+}
+
+template <typename T, int C, bool VEC>
+struct Stage {
+  using Ck = Chunk<T, VEC>;
+  static constexpr int kStride = row_floats(C);
+  static constexpr int kPerRow = kStride / Ck::kElems;
+  static constexpr int kAll = 4 * kPerRow;
+  static constexpr int kPerLane = (kAll + 31) / 32;
+  typename Ck::Raw v[kPerLane];
+
+  // Issue every load of the unit's 4 input rows x 66 columns (zero where
+  // the pad or the image edge falls).
+  __device__ __forceinline__ void load(const T* __restrict__ x, int n, int oy, int chunk, int h,
+                                       int wd, int lane) {
+    const long long row_len = static_cast<long long>(wd) * C;
+    const int g0 = (chunk * 2 * kTileW - 1) * C - lead(C);
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int idx = lane + 32 * k;
+      const int r = idx / kPerRow;
+      const int g = g0 + (idx - r * kPerRow) * Ck::kElems;
+      const int iy = 2 * oy - 1 + r;
+      const bool ok = idx < kAll && iy >= 0 && iy < h && g >= 0 && g + Ck::kElems <= row_len;
+      v[k] = ok ? Ck::load(x + (static_cast<long long>(n) * h + iy) * row_len + g) : Ck::zero();
+    }
+  }
+  __device__ __forceinline__ void store(float* buf, int lane) const {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int idx = lane + 32 * k;
+      if (idx < kAll) Ck::store(buf + idx * Ck::kElems, v[k]);
+    }
+  }
+};
+
+template <typename T, int C, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+    conv_s2_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const T* __restrict__ bias, T* __restrict__ y, int h, int wd,
+                         int h_out, int w_out, int n_chunks, int units, int vec_out) {
+  constexpr int kStride = row_floats(C);
+  constexpr int kW = kTaps * C * kCout;
+  constexpr int kBatch = 8;
   extern __shared__ __align__(16) float smem[];
-  float* s_w = smem;                       // [tap][c][o]
-  float* s_b = s_w + kTaps * C * kCout;    // [o]
-  float* s_x = s_b + kCout;                // [row][col][c]
-  const int n = blockIdx.x / n_bands;
-  const int oy0 = (blockIdx.x % n_bands) * band;
-  const int rows = min(band, h_out - oy0);
-  const int wp = 2 * w_out + 2;
-  const int iy0 = 2 * oy0 - pad_top;
-  const int ix0 = -pad_left;
+  float* s_w = smem;                 // [tap][c][o]
+  float* s_b = s_w + kW;             // [o]
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* buf = s_b + kCout + warp * 4 * kStride;  // [row][lead, col, c]
 
-  for (int i = threadIdx.x; i < kCout * C * kTaps; i += blockDim.x) {
-    const int o = i / (C * kTaps);
-    const int c = (i / kTaps) % C;
-    const int tap = i % kTaps;
-    s_w[(tap * C + c) * kCout + o] = to_f32(w[i]);
+  const int step = gridDim.x * warps;
+  int u = blockIdx.x * warps + warp;
+  Stage<T, C, VEC> st;
+  if (u < units) {
+    const int rest = u / n_chunks;
+    st.load(x, rest / h_out, rest % h_out, u % n_chunks, h, wd, lane);
+  }
+  // The weights, once per block: each thread writes consecutive addresses
+  // of [tap][c][o]; a batch's loads are all issued before its stores.
+  for (int i0 = 0; i0 < kW; i0 += kBatch * blockDim.x) {
+    float v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * blockDim.x + threadIdx.x;
+      const int o = i % kCout, c = (i / kCout) % C, tap = i / (kCout * C);
+      v[j] = i < kW ? to_f32(w[(o * C + c) * kTaps + tap]) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * blockDim.x + threadIdx.x;
+      if (i < kW) s_w[i] = v[j];
+    }
   }
   if (threadIdx.x < kCout) s_b[threadIdx.x] = to_f32(bias[threadIdx.x]);
-  // The band's input rows: consecutive threads read consecutive (col, c)
-  // elements of an NHWC row, which lie next to each other in memory.
-  const T* xn = x + static_cast<size_t>(n) * h * wd * C;
-  const int n_in = (2 * rows + 2) * wp * C;
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x) {
-    const int c = i % C;
-    const int col = (i / C) % wp;
-    const int row = i / (C * wp);
-    const int iy = iy0 + row;
-    const int ix = ix0 + col;
-    float v = 0.0f;
-    if (iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-      v = to_f32(xn[(static_cast<size_t>(iy) * wd + ix) * C + c]);
-    }
-    s_x[i] = v;
-  }
   __syncthreads();
 
+  const int t = lane % 8;
+  const int g = lane / 8;
+  const float4* s_w4 = reinterpret_cast<const float4*>(s_w);
   const size_t plane = static_cast<size_t>(h_out) * w_out;
-  T* yn = y + static_cast<size_t>(n) * kCout * plane;
-  for (int p = threadIdx.x; p < rows * w_out; p += blockDim.x) {
-    const int r = p / w_out;
-    const int ox = p % w_out;
-    float acc[kCout];
+  for (; u < units; u += step) {
+    __syncwarp();  // the previous unit is no longer read
+    st.store(buf, lane);
+    __syncwarp();
+    const int chunk = u % n_chunks;
+    const int rest = u / n_chunks;
+    const int oy = rest % h_out;
+    const int n = rest / h_out;
+    const int next = u + step;
+    if (next < units) {
+      const int nrest = next / n_chunks;
+      st.load(x, nrest / h_out, nrest % h_out, next % n_chunks, h, wd, lane);
+    }
+
+    float acc[kPx][kCh];
 #pragma unroll
-    for (int o = 0; o < kCout; ++o) acc[o] = 0.0f;
-    // The tap loops stay rolled: unrolled, the compiler hoists every
-    // tap's weights into registers (255 of them, and kilobytes of spills).
+    for (int p = 0; p < kPx; ++p) {
+#pragma unroll
+      for (int o = 0; o < kCh; ++o) acc[p][o] = 0.0f;
+    }
+    // The input rows stay rolled: unrolled, the compiler hoists every
+    // row's window and weights into registers.
 #pragma unroll 1
     for (int ky = 0; ky < 4; ++ky) {
-      const float* xrow = s_x + ((2 * r + ky) * wp + 2 * ox) * C;
-#pragma unroll 1
+      constexpr int kNV = (lead(C) + 10 * C + 3) / 4;
+      float xin[4 * kNV];
+      const float4* src = reinterpret_cast<const float4*>(buf + ky * kStride + 8 * C * t);
+#pragma unroll
+      for (int i = 0; i < kNV; ++i) {
+        const float4 v = src[i];
+        xin[4 * i + 0] = v.x;
+        xin[4 * i + 1] = v.y;
+        xin[4 * i + 2] = v.z;
+        xin[4 * i + 3] = v.w;
+      }
+#pragma unroll
       for (int kx = 0; kx < 4; ++kx) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const float xv = xrow[kx * C + c];
-          const float4* w4 =
-              reinterpret_cast<const float4*>(s_w + ((ky * 4 + kx) * C + c) * kCout);
+          const int wi = ((ky * 4 + kx) * C + c) * (kCout / 4) + 2 * g;
+          const float4 w0 = s_w4[wi];
+          const float4 w1 = s_w4[wi + 1];
 #pragma unroll
-          for (int q = 0; q < kCout / 4; ++q) {
-            const float4 wv = w4[q];
-            acc[4 * q + 0] = fmaf(xv, wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(xv, wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(xv, wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(xv, wv.w, acc[4 * q + 3]);
+          for (int p = 0; p < kPx; ++p) {
+            const float xv = xin[lead(C) + (2 * p + kx) * C + c];
+            acc[p][0] = fmaf(xv, w0.x, acc[p][0]);
+            acc[p][1] = fmaf(xv, w0.y, acc[p][1]);
+            acc[p][2] = fmaf(xv, w0.z, acc[p][2]);
+            acc[p][3] = fmaf(xv, w0.w, acc[p][3]);
+            acc[p][4] = fmaf(xv, w1.x, acc[p][4]);
+            acc[p][5] = fmaf(xv, w1.y, acc[p][5]);
+            acc[p][6] = fmaf(xv, w1.z, acc[p][6]);
+            acc[p][7] = fmaf(xv, w1.w, acc[p][7]);
           }
         }
       }
     }
-    const size_t pix = static_cast<size_t>(oy0 + r) * w_out + ox;
+
+    const int ox = chunk * kTileW + kPx * t;
+    const int valid = min(kPx, w_out - ox);
+    T* yo = y + (static_cast<size_t>(n) * kCout + kCh * g) * plane +
+            static_cast<size_t>(oy) * w_out + ox;
 #pragma unroll
-    for (int o = 0; o < kCout; ++o) {
-      const float v = acc[o] + s_b[o];
-      yn[o * plane + pix] = from_f32<T>(v * (1.0f / (1.0f + expf(-v))));
+    for (int o = 0; o < kCh; ++o) {
+      const float b = s_b[kCh * g + o];
+      float r[kPx];
+#pragma unroll
+      for (int p = 0; p < kPx; ++p) r[p] = swish(acc[p][o] + b);
+      if (valid > 0) store4(yo + o * plane, r, valid, vec_out != 0);
     }
   }
 }
 
-size_t smem_bytes(int c, int band, int w_out) {
-  return sizeof(float) *
-         (static_cast<size_t>(kTaps) * c * kCout + kCout +
-          static_cast<size_t>(2 * band + 2) * (2 * static_cast<size_t>(w_out) + 2) * c);
+template <typename T, int C, bool VEC>
+cudaError_t set_smem(int smem) {
+  if (static_cast<size_t>(smem) <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(conv_s2_tiles_kernel<T, C, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <typename T, int C>
-int launch(const void* x, const void* w, const void* b, void* y, int batch,
-           int h, int wd, cudaStream_t stream) {
+int launch(const void* x, const void* w, const void* b, void* y, int batch, int h, int wd,
+           int warps, int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
-  const int pad_h = std::max((h_out - 1) * 2 + 4 - h, 0);
-  const int pad_w = std::max((w_out - 1) * 2 + 4 - wd, 0);
-  // About one output pixel per thread: a band of rows that fills a block.
-  int band = std::min({std::max(kThreads / w_out, 1), kMaxBandRows, h_out});
-  while (band > 1 && smem_bytes(C, band, w_out) > kDefaultSmem) band /= 2;
-  const size_t bytes = smem_bytes(C, band, w_out);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_s2_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+  const int n_chunks = (w_out + kTileW - 1) / kTileW;
+  const long long units = static_cast<long long>(batch) * h_out * n_chunks;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr uintptr_t kAlign = 4 * sizeof(T);  // a chunk of 4 elements
+  const bool vec_in = (static_cast<long long>(wd) * C) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % kAlign == 0;
+  const int vec_out = w_out % 4 == 0 && reinterpret_cast<uintptr_t>(y) % kAlign == 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  T* yt = static_cast<T*>(y);
+  cudaError_t err;
+  if (vec_in) {
+    err = set_smem<T, C, true>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    conv_s2_tiles_kernel<T, C, true><<<blocks, warps * 32, smem, stream>>>(
+        xt, wt, bt, yt, h, wd, h_out, w_out, n_chunks, static_cast<int>(units), vec_out);
+  } else {
+    err = set_smem<T, C, false>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_s2_tiles_kernel<T, C, false><<<blocks, warps * 32, smem, stream>>>(
+        xt, wt, bt, yt, h, wd, h_out, w_out, n_chunks, static_cast<int>(units), vec_out);
   }
-  const int n_bands = (h_out + band - 1) / band;
-  const long long blocks = static_cast<long long>(n_bands) * batch;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  conv_s2_kernel<T, C><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), h, wd, h_out, w_out,
-      pad_h / 2, pad_w / 2, band, n_bands);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_c(const void* x, const void* w, const void* b, void* y,
-               int batch, int h, int wd, int c, cudaStream_t stream) {
+int dispatch_c(const void* x, const void* w, const void* b, void* y, int batch, int h, int wd,
+               int c, int warps, int blocks, int smem, cudaStream_t stream) {
   switch (c) {
-    case 1: return launch<T, 1>(x, w, b, y, batch, h, wd, stream);
-    case 2: return launch<T, 2>(x, w, b, y, batch, h, wd, stream);
-    case 3: return launch<T, 3>(x, w, b, y, batch, h, wd, stream);
-    case 4: return launch<T, 4>(x, w, b, y, batch, h, wd, stream);
+    case 1: return launch<T, 1>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 2: return launch<T, 2>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 3: return launch<T, 3>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 4: return launch<T, 4>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The plan must give at least the shared memory the weights and the
+// warps' rows take.
+bool plan_ok(int c, int warps, int smem) {
+  return c >= 1 && c <= 4 && warps >= 1 && warps <= kMaxWarps && smem >= 0 &&
+         static_cast<size_t>(smem) >= smem_of(c, warps) && static_cast<size_t>(smem) <= kMaxSmem;
 }
 
 }  // namespace
@@ -209,16 +381,19 @@ extern "C" const char* conv_s2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16, for x, w, b and y alike.
-extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b,
-                               void* y, int batch, int h, int wd, int c,
-                               int dtype, cudaStream_t stream) {
-  if (batch <= 0 || h <= 0 || wd <= 0) {
+// dtype: 0 = float32, 1 = bfloat16, for x, w, b and y alike. warps, blocks
+// and smem: the launch plan (kernels.py:conv_plan).
+extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void* y, int batch,
+                               int h, int wd, int c, int dtype, int warps, int blocks, int smem,
+                               cudaStream_t stream) {
+  if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || !plan_ok(c, warps, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) return dispatch_c<float>(x, w, b, y, batch, h, wd, c, stream);
+  if (dtype == 0) {
+    return dispatch_c<float>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
+  }
   if (dtype == 1) {
-    return dispatch_c<__nv_bfloat16>(x, w, b, y, batch, h, wd, c, stream);
+    return dispatch_c<__nv_bfloat16>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

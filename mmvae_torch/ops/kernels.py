@@ -14,7 +14,8 @@
     non-pad tokens, in the layout :func:`seq_ce_plan` picks;
   * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
-    NHWC image with 1-4 channels into 32 NCHW channels.
+    NHWC image with 1-4 channels into 32 NCHW channels, a warp per
+    32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes.
 
 K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, K4 in
 ``csrc/conv_s2.cu``, each behind a plain C interface. :func:`build` compiles the sources with
@@ -58,6 +59,8 @@ __all__ = [
     "bce_plan",
     "SeqCePlan",
     "seq_ce_plan",
+    "ConvPlan",
+    "conv_plan",
     "kl_std_normal_kernel",
     "kl_std_normal_torch",
     "bernoulli_nll_kernel",
@@ -101,7 +104,8 @@ _SIGNATURES = {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
     },
     "conv_s2": {
-        "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
+                            _i32, _i32, _i32, _ptr],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -425,6 +429,66 @@ def masked_seq_ce_torch(
 # Output channels of K4 (the CelebA image encoder's first stage).
 CONV_OUT = 32
 _CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# A warp of K4 computes one unit: 32 output pixels of one output row (8
+# lanes x 4 pixels), all 32 channels (4 lanes x 8), from 4 staged input
+# rows of CONV_TILE_COLS columns.
+CONV_TILE_W = 32
+CONV_TILE_COLS = 2 * CONV_TILE_W + 2
+# The kernel's launch bound, 256 threads and 2 blocks an SM, caps a
+# thread at 128 registers, and a block takes at most 42 KB of shared
+# memory: 2 blocks of CONV_MAX_WARPS always fit on an SM.
+CONV_MAX_WARPS = 8
+CONV_WARPS = CONV_MAX_WARPS
+CONV_BLOCKS_PER_SM = 2
+
+
+class ConvPlan(NamedTuple):
+    """Launch of ``conv4x4s2_swish``: warps a block, blocks (each walks
+    units with the grid's stride), and the block's dynamic shared memory
+    in bytes."""
+
+    warps: int
+    blocks: int
+    smem: int
+
+
+def conv_row_floats(c: int) -> int:
+    """Floats of one staged input row of K4: ``(-c) % 4`` floats of lead
+    (so the image's column 0 starts a float4), then CONV_TILE_COLS
+    columns of ``c``, rounded up to a float4."""
+    return -(-((-c) % 4 + CONV_TILE_COLS * c) // 4) * 4
+
+
+def conv_units(b: int, h: int, w: int) -> int:
+    """Units of K4 for a (b, h, w) batch: b x ceil(h/2) output rows x
+    chunks of CONV_TILE_W output pixels."""
+    w_out = -(-w // 2)
+    return b * -(-h // 2) * -(-w_out // CONV_TILE_W)
+
+
+@lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
+def conv_plan(
+    b: int, h: int, w: int, c: int, sms: int = H100_SMS,
+    blocks_per_sm: int = CONV_BLOCKS_PER_SM, warps: int | None = None,
+) -> ConvPlan:
+    """The launch of K4 for an NHWC ``(b, h, w, c)`` batch on a card of
+    ``sms`` SMs: ``warps`` warps a block, as many blocks as keep
+    ``blocks_per_sm`` an SM busy, or fewer when there are fewer units (a
+    warp a unit); shared memory for the ``[tap][c][o]`` weights, the bias
+    and each warp's 4 staged rows. By default a block has 8 warps; it
+    has half as many, and an SM twice the blocks, when the units fit in
+    one pass of the grid and the smaller blocks leave fewer units on the
+    busiest SM (a ragged or small batch: 37 images take 12 units an SM,
+    not 16). ``kernel_plans.py`` times the alternatives."""
+    units = conv_units(b, h, w)
+    if warps is None:
+        warps, half = CONV_WARPS, CONV_WARPS // 2
+        one_pass = units <= sms * blocks_per_sm * warps
+        if one_pass and half * -(-units // (half * sms)) < warps * -(-units // (warps * sms)):
+            warps, blocks_per_sm = half, 2 * blocks_per_sm
+    blocks = max(1, min(-(-units // warps), sms * blocks_per_sm))
+    smem = 4 * (16 * c * CONV_OUT + CONV_OUT + warps * 4 * conv_row_floats(c))
+    return ConvPlan(warps, blocks, smem)
 
 
 def same_pad(hw, k: int = 4, s: int = 2) -> list[int]:
@@ -441,14 +505,16 @@ def same_pad(hw, k: int = 4, s: int = 2) -> list[int]:
 
 
 def conv4x4s2_swish_kernel(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    plan: ConvPlan | None = None,
 ) -> torch.Tensor:
     """``swish(conv(x, weight, SAME, stride 2) + bias)`` on the card.
 
     ``x``: ``(B, H, W, C)`` NHWC with 1 <= C <= 4; ``weight``: ``(32, C, 4,
     4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors of one
     dtype, float32 or bfloat16. Returns ``(B, 32, ceil(H/2), ceil(W/2))``
-    NCHW in that dtype, accumulated in f32.
+    NCHW in that dtype, accumulated in f32. ``plan`` overrides
+    :func:`conv_plan` of the shape and the card.
     """
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         if not t.is_cuda:
@@ -477,9 +543,10 @@ def conv4x4s2_swish_kernel(
     )
     if out.numel() == 0:
         return out
+    plan = plan or conv_plan(b, h, w, c, _sm_count(x.device.index or 0))
     _launch(
         "conv_s2", "conv4x4s2_swish", x.device, x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[x.dtype],
+        bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[x.dtype], *plan,
     )
     LAUNCHES["conv"] += 1
     return out

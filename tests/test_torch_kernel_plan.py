@@ -1,9 +1,11 @@
-"""The launch plans of K2 (``bce_plan``) and K3 (``seq_ce_plan``), on the CPU.
+"""The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``) and K4
+(``conv_plan``), on the CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
 """
 
+import numpy as np
 import pytest
 
 from mmvae_torch.ops import kernels
@@ -16,6 +18,13 @@ BCE_SHAPES = [(200, 784), (200, 2500), (128, 12288), (21888, 1), (8192, 784),
               (37, 1000), (16, 50001), (128, 12290), (1, 12288), (6, 3), (1, 0)]
 SEQ_SHAPES = [(200, 5, 13), (2048, 8, 5003), (4096, 32, 23), (37, 7, 13),
               (3, 40, 1001), (5, 3, 31), (4, 0, 7), (3, 1, 2), (9, 9, 64), (9, 9, 65)]
+# (B, H, W, C) of K4: CelebA eval, the probe, a ragged batch, an odd
+# grayscale size, a large batch, widths off the 32-pixel tile, every C,
+# long rows, one pixel.
+CONV_SHAPES = [(64, 64, 64, 3), (256, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1),
+               (600, 64, 64, 3), (4, 30, 70, 3), (3, 20, 90, 3), (2, 10, 66, 3),
+               (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4), (3, 9, 300, 2),
+               (2, 7, 1100, 4), (1, 1, 1, 3)]
 
 
 @pytest.mark.parametrize("shape", BCE_SHAPES)
@@ -111,10 +120,78 @@ def test_seq_ce_plan_small_calls_and_small_vocabularies(shape, plan):
     assert kernels.seq_ce_plan(*shape) == kernels.SeqCePlan(*plan)
 
 
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_plan_fits_the_shared_memory_it_asks_for(shape):
+    """The block's shared memory holds the f32 weights and bias and each
+    warp's 4 staged rows, and two blocks fit in the 227 KB of an SM; a
+    staged row holds the lead, the 66 columns, and the last lane's float4
+    window of 10 columns (4 pixels x 4 taps at stride 2)."""
+    b, h, w, c = shape
+    plan = kernels.conv_plan(b, h, w, c)
+    lead, stride = (-c) % 4, kernels.conv_row_floats(c)
+    assert stride % 4 == 0 and stride >= lead + kernels.CONV_TILE_COLS * c
+    last_window_end = 8 * c * 7 + 4 * -(-(lead + 10 * c) // 4)
+    assert last_window_end <= stride
+    need = 4 * (16 * c * kernels.CONV_OUT + kernels.CONV_OUT + plan.warps * 4 * stride)
+    assert plan.smem == need and kernels.CONV_BLOCKS_PER_SM * plan.smem <= 227 * 1024
+    assert 1 <= plan.warps <= kernels.CONV_MAX_WARPS
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+def test_conv_plan_covers_every_output_once(shape, blocks_per_sm):
+    """The units the grid's warps walk (warp i takes units i, i + step, ...,
+    step = blocks x warps; unit u is chunk u % n_chunks of output row
+    (u // n_chunks) % h_out of image u // (n_chunks * h_out), as the kernel
+    decodes it) cover every output pixel exactly once."""
+    b, h, w, c = shape
+    plan = kernels.conv_plan(b, h, w, c, blocks_per_sm=blocks_per_sm)
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    n_chunks = -(-w_out // kernels.CONV_TILE_W)
+    units = kernels.conv_units(b, h, w)
+    assert units == b * h_out * n_chunks
+    assert plan.blocks * plan.warps <= units + plan.warps - 1  # no block without a unit
+    covered = np.zeros((b, h_out, n_chunks * kernels.CONV_TILE_W), dtype=np.int64)
+    step = plan.blocks * plan.warps
+    for first in range(step):
+        for u in range(first, units, step):
+            chunk, rest = u % n_chunks, u // n_chunks
+            lo = chunk * kernels.CONV_TILE_W
+            covered[rest // h_out, rest % h_out, lo:lo + kernels.CONV_TILE_W] += 1
+    assert np.all(covered[..., :w_out] == 1)
+
+
+def test_conv_plan_keeps_every_sm_busy_at_the_celeba_eval_shape():
+    """(64, 64, 64, 3): 2,048 units, a warp each; 256 blocks of 8 warps on
+    the 132 SMs, no SM without a block and none with more than 2, at most
+    16 units an SM (the best split of 2,048 over 132 SMs)."""
+    plan = kernels.conv_plan(64, 64, 64, 3)
+    assert kernels.conv_units(64, 64, 64) == 2048
+    assert H100 <= plan.blocks <= 2 * H100
+    assert plan.warps * -(-plan.blocks // H100) == -(-2048 // H100)
+    small = kernels.conv_plan(64, 64, 64, 3, sms=16)
+    assert small.blocks == 16 * kernels.CONV_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize(
+    "shape, warps, blocks",
+    [((37, 64, 64, 3), 4, 296), ((3, 64, 64, 3), 4, 24), ((256, 64, 64, 3), 8, 264),
+     ((64, 64, 64, 3), 8, 256)],
+)
+def test_conv_plan_spreads_small_batches(shape, warps, blocks):
+    """A ragged batch (1,184 units) takes blocks of 4 warps: 3 blocks, 12
+    units, on the busiest SM, where blocks of 8 put 16 on some SMs and 8
+    on most; 3 images spread over 24 SMs, not 12. A batch of more units
+    than the grid's warps, or one that splits as evenly either way,
+    keeps blocks of 8."""
+    assert kernels.conv_plan(*shape)[:2] == (warps, blocks)
+
+
 @pytest.mark.parametrize(
     "lib, fn, n_args, plan_type",
     [("row_reduce", "bce_rows", 7, kernels.BcePlan),
-     ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan)],
+     ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
+     ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:

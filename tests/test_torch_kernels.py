@@ -8,9 +8,13 @@ JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: rtol 1e-5, atol 1e-5 * D for the row reductions, 1e-5 * S *
-log V for K3, 1e-5 * 48 for K4 in f32 (48 products per output) -- the
-kernels sum in another order than PyTorch does; K4 in bf16 atol 2e-2, one
-bf16 rounding of an output below 4.
+log V for K3, 1e-5 * 16 * C for K4 in f32 (16 * C products per output)
+-- the kernels sum in another order than PyTorch does; K4 in bf16 atol
+2e-2, one bf16 rounding of an output below 4.
+
+The ``ops`` entries refuse the kernel path when autograd would record
+them (the kernels have no backward yet); the CPU half of that check runs
+without a card.
 """
 
 import math
@@ -27,9 +31,15 @@ FOLDS = [kernels.FOLD_NONE, kernels.FOLD_T, kernels.FOLD_B]
 
 @pytest.fixture
 def cuda():
+    """The card, with TF32 off for cuDNN and matmuls, so that the plain
+    versions compute in f32 as the kernels do (cuDNN convs default to
+    TF32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, d: int) -> None:
@@ -267,21 +277,155 @@ def _conv_inputs(gen, shape, dtype, device):
         ((256, 64, 64, 3), torch.bfloat16),  # the probe's shape
         ((37, 64, 64, 3), torch.float32),  # ragged batch
         ((5, 25, 25, 1), torch.float32),  # odd size: pads (1, 2)
-        ((3, 9, 300, 2), torch.bfloat16),  # a band of one row
-        ((2, 7, 1100, 4), torch.float32),  # shared memory past 48 KB
+        ((3, 9, 300, 2), torch.bfloat16),  # 150 outputs a row: 5 chunks
+        ((2, 7, 1100, 4), torch.float32),  # 550 outputs a row: 18 chunks
     ],
 )
 def test_conv_kernel_matches_plain(cuda, shape, dtype):
     gen = torch.Generator().manual_seed(8)
     x, w, b = _conv_inputs(gen, shape, dtype, cuda)
-    got = kernels.conv4x4s2_swish_kernel(x, w, b)
-    want = kernels.conv4x4s2_swish_torch(x, w, b)
+    _conv_check(kernels.conv4x4s2_swish_kernel(x, w, b),
+                kernels.conv4x4s2_swish_torch(x, w, b), shape, dtype)
+
+
+def _conv_check(got, want, shape, dtype):
     assert got.shape == want.shape == (shape[0], 32, -(-shape[1] // 2), -(-shape[2] // 2))
     assert got.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * 16 * shape[-1])
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, plan",
+    [
+        ((600, 64, 64, 3), None),  # 19,200 units for the grid's 2,112 warps
+        ((37, 64, 64, 3), kernels.ConvPlan(2, 3, 4 * (16 * 3 * 32 + 32 + 2 * 4 * 200))),
+        ((5, 25, 25, 1), kernels.ConvPlan(1, 1, 4 * (16 * 32 + 32 + 4 * 72))),
+    ],
+)
+def test_conv_kernel_more_units_than_the_grid(cuda, shape, plan):
+    """Each warp walks several units with the grid's stride: a large batch
+    at the wrapper's plan, and small grids forced through ``plan``."""
+    gen = torch.Generator().manual_seed(17)
+    x, w, b = _conv_inputs(gen, shape, torch.float32, cuda)
+    got = kernels.conv4x4s2_swish_kernel(x, w, b, plan=plan)
+    _conv_check(got, kernels.conv4x4s2_swish_torch(x, w, b), shape, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, dtype",
+    [((4, 30, 70, 3), torch.float32), ((3, 20, 90, 3), torch.bfloat16),
+     ((2, 10, 66, 3), torch.float32), ((2, 64, 130, 4), torch.bfloat16)],
+)
+def test_conv_kernel_widths_off_the_pixel_tile(cuda, shape, dtype):
+    """35, 45, 33 and 65 output columns: a last chunk of a warp's 32 pixels
+    that is partly empty, and scalar stores where a row is not a multiple
+    of 4 outputs."""
+    gen = torch.Generator().manual_seed(18)
+    x, w, b = _conv_inputs(gen, shape, dtype, cuda)
+    _conv_check(kernels.conv4x4s2_swish_kernel(x, w, b),
+                kernels.conv4x4s2_swish_torch(x, w, b), shape, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 2, 4])
+def test_conv_kernel_channels(cuda, c, dtype):
+    """Every channel count but CelebA's 3, in both types: each shifts the
+    staged rows by another lead (3, 2 or 0 floats)."""
+    gen = torch.Generator().manual_seed(19)
+    shape = (6, 32, 40, c)
+    x, w, b = _conv_inputs(gen, shape, dtype, cuda)
+    _conv_check(kernels.conv4x4s2_swish_kernel(x, w, b),
+                kernels.conv4x4s2_swish_torch(x, w, b), shape, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, dtype", [((64, 64, 64, 3), torch.float32), ((256, 64, 64, 3), torch.bfloat16)]
+)
+def test_conv_kernel_same_bits_twice(cuda, shape, dtype):
+    gen = torch.Generator().manual_seed(20)
+    x, w, b = _conv_inputs(gen, shape, dtype, cuda)
+    assert torch.equal(kernels.conv4x4s2_swish_kernel(x, w, b),
+                       kernels.conv4x4s2_swish_kernel(x, w, b))
+
+
+@pytest.mark.gpu
+def test_conv_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """A plan with too little shared memory or too many warps for the
+    kernel is refused at launch and counts no launch."""
+    x, w, b = _conv_inputs(torch.Generator().manual_seed(21), (2, 8, 8, 3), torch.float32, cuda)
+    good = kernels.conv_plan(2, 8, 8, 3)
+    before = kernels.LAUNCHES["conv"]
+    for bad in (good._replace(smem=good.smem - 4), good._replace(smem=228 * 1024),
+                good._replace(warps=kernels.CONV_MAX_WARPS + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.conv4x4s2_swish_kernel(x, w, b, plan=bad)
+    assert kernels.LAUNCHES["conv"] == before
+
+
+def _op_calls(device):
+    """Each ops entry with a kernel, as a function of whether its float
+    inputs require grad."""
+    gen = torch.Generator().manual_seed(22)
+
+    def rand(*shape, grad):
+        return torch.randn(*shape, generator=gen).to(device).requires_grad_(grad)
+
+    tok = torch.randint(1, 13, (8, 5), generator=gen, dtype=torch.int32).to(device)
+    return {
+        "kl_std_normal": lambda g: ops.kl_std_normal(rand(8, 16, grad=g), rand(8, 16, grad=False)),
+        "bernoulli_nll": lambda g: ops.bernoulli_nll(
+            rand(8, 16, grad=False), torch.rand(8, 16, generator=gen).to(device).requires_grad_(g)),
+        "masked_seq_ce": lambda g: ops.masked_seq_ce(rand(8, 5, 13, grad=g), tok),
+        "conv4x4s2_swish": lambda g: ops.conv4x4s2_swish(
+            torch.rand(2, 8, 8, 3, generator=gen).to(device), rand(32, 3, 4, 4, grad=False),
+            rand(32, grad=g)),
+    }
+
+
+OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish"]
+OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", OPS)
+def test_ops_kernel_path_refuses_grad(cuda, op):
+    """With grad on and an input that requires grad (the second target of
+    the BCE, the conv's bias alone), the kernel path raises and launches
+    nothing; under ``torch.no_grad`` it launches the kernel."""
+    call = _op_calls(cuda)[op]
+    before = kernels.LAUNCHES[OP_COUNTERS[op]]
+    with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
+        call(True)
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before
+    with torch.no_grad():
+        call(True)
+    call(False)
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before + 2
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_ops_kernel_backend_refuses_grad_on_the_cpu(op):
+    """The grad check comes before the device check: under the "kernel"
+    backend a CPU input that requires grad gets the grad error, one that
+    does not the CUDA error; the "auto" backend takes the plain path,
+    which autograd differentiates."""
+    call = _op_calls("cpu")[op]
+    ops.set_backend("kernel")
+    try:
+        with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
+            call(True)
+        with pytest.raises(ValueError, match="CUDA"):
+            call(False)
+    finally:
+        ops.set_backend("auto")
+    assert call(True).requires_grad
 
 
 @pytest.mark.gpu
