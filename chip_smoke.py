@@ -6,15 +6,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device and build: the card's name and power limit, TF32 off, and the
    hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
-   (three sources, one ``nvcc`` each, started together);
+   (four sources, one ``nvcc`` each, started together);
 2. each kernel held against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged, odd and large ones (rtol 1e-5; atol
    1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
    cross-entropy, 1e-5 * 16 * C for the f32 conv: the kernels sum in
    another order; the bf16 conv atol 2e-2, one bf16 rounding of outputs
-   below 4);
+   below 4; the fused PoE + KL atol 1e-6 for the posteriors and 1e-5 * L
+   for the KL, whose rows with every expert absent must give exactly 0);
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
+   every eval runs the fused PoE + KL once per batch and K1 no time;
    - ``mnist`` (n_latents 64, 512-wide MLP experts): ``eval_elbo`` over
      the 2,000-example synthetic test split, ``generate`` from labels and
      ``sample``;
@@ -36,8 +38,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    library call that computes the same function where there is one, the
    kernel and the library call again L2-cold where the inputs fit in the
    50 MB L2 (the graph cycles through 6 to 512 copies of the inputs,
-   twice the L2 where that fits), and for each config the wall time of one
-   ``eval_elbo`` and a profile of where its device time goes.
+   twice the L2 where that fits); beside the fused PoE + KL, the chain of
+   launches it replaced (the mask product, ``core.product_of_experts``,
+   then K1); the floor of an empty launch at K1's, K4's and the fused
+   kernel's grids and at one warp, graph-replayed and eager; and for each
+   config the wall time of one ``eval_elbo`` and a profile of where its
+   device time goes.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -57,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from mmvae_torch import api, configs, ops
+from mmvae_torch.core import elbo_subset_masks
 from mmvae_torch.data import load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
@@ -70,10 +77,14 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p; seq CE a
 # compare, a subtract, an add and an exp per logit. Per conv output: 2
 # flops for each of the 16 * C products, a bias add and the swish's exp,
-# add, divide and multiply.
+# add, divide and multiply. The fused PoE + KL: per expert element a clamp,
+# an exp, an add and a divide; per (term, expert element) the weight
+# product and its sum, the mean product and its sum; per output the prior
+# add, a divide, a log, a negation and K1's 5.
 OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4}
 CONV_OPS_PER_OUT = 5
-OPS = ("kl", "bce", "seq_ce", "conv")
+POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
+OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl")
 CONFIGS = ("mnist", "multimnist", "celeba")
 META = {
     "kl": {
@@ -81,6 +92,7 @@ META = {
         "route": "cuda",
         "source": "mmvae_torch/ops/csrc/row_reduce.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:139",
+        "note": "on the ported paths its function runs as poe_kl's epilogue",
     },
     "bce": {
         "name": "bernoulli_nll",
@@ -100,9 +112,16 @@ META = {
         "source": "mmvae_torch/ops/csrc/conv_s2.cu",
         "replaces": "tools/pallas_conv_probe.py:64",
     },
+    "poe_kl": {
+        "name": "poe_kl",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/poe_kl.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:139",
+    },
 }
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
-# of the sequence cross-entropy, (B, H, W, C, dtype) of the conv. One
+# of the sequence cross-entropy, (B, H, W, C, dtype) of the conv, (T, B, M,
+# L, case) of the fused PoE + KL (cases as ``inputs`` makes them). One
 # MNIST or MultiMNIST eval batch of 100 gives KL T=3 terms of posteriors,
 # image BCE 2 member terms against one untiled copy of the targets, and
 # text CE 2 member terms of 5 tokens over 13 symbols. One CelebA eval
@@ -110,7 +129,10 @@ META = {
 # pixels, attribute BCE 19 member terms x 18 attributes as rows of D = 1
 # against 64 x 18 untiled targets, and the conv over the 64 images. The
 # synthetic CUB vocabulary (3 reserved + 20 words) at 32 tokens and a
-# large odd vocabulary stand for the caption configs.
+# large odd vocabulary stand for the caption configs. The fused PoE + KL
+# takes the (B, M, L) expert stack of each eval batch under its (T, M)
+# subset masks: T = 3 terms of 2 experts for MNIST and MultiMNIST, 20
+# terms of 19 experts for CelebA.
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
@@ -123,6 +145,9 @@ TIMED_SHAPES = {
                "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
              "probe": (256, 64, 64, 3, torch.bfloat16)},
+    "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
+               "multimnist_eval": (3, 100, 2, 256, "eval"),
+               "celeba_eval": (20, 64, 19, 100, "eval")},
 }
 CHECKED_SHAPES = {
     "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
@@ -159,23 +184,32 @@ CHECKED_SHAPES = {
              (3, 20, 90, 3, torch.bfloat16),
              *((6, 32, 40, c, dt) for c in (1, 2, 4) for dt in (torch.float32, torch.bfloat16)),
              (2, 7, 1100, 4, torch.float32)],
+    # The three eval batches; CelebA's padded last batch (16 rows present,
+    # 48 absent); no presence mask; log-variances past the +-11 clamp; an
+    # odd L; experts one element into their storage; no prior.
+    "poe_kl": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"), (20, 64, 19, 100, "eval"),
+               (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
+               (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
+               (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "no_prior")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
 # this slice's path (CelebA) for the kernels it runs, else the path that
 # runs the kernel.
 REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba", "celeba_image"),
-            "seq_ce": ("multimnist", "multimnist_eval"), "conv": ("celeba", "celeba_eval")}
+            "seq_ce": ("multimnist", "multimnist_eval"), "conv": ("celeba", "celeba_eval"),
+            "poe_kl": ("celeba", "celeba_eval")}
 EXPECTED_LAUNCHES = {
-    "mnist": {"kl": 20, "bce": 20, "seq_ce": 0, "conv": 0},
-    "multimnist": {"kl": 20, "bce": 20, "seq_ce": 20, "conv": 0},
-    # 32 eval batches, each K1 once and K2 twice (image, attributes); K4
-    # once per eval batch and once per generate or sample call.
-    "celeba": {"kl": 32, "bce": 64, "seq_ce": 0, "conv": 37},
+    "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20},
+    "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20},
+    # 32 eval batches, each the fused PoE + KL once and K2 twice (image,
+    # attributes); K4 once per eval batch and once per generate or sample
+    # call.
+    "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 32},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
-                "seq_ce_tokens_kernel", "conv_s2_tiles_kernel")
+                "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel")
 PAD = 0
 
 
@@ -186,6 +220,8 @@ def emit(obj: dict) -> None:
 def describe(op: str, shape) -> dict:
     if op == "conv":
         return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
+    if op == "poe_kl":
+        return {"shape": list(shape[:4]), "case": shape[4]}
     return {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
 
 
@@ -207,6 +243,8 @@ def inputs(op: str, shape, gen: torch.Generator):
         weight = 0.1 * torch.randn(kernels.CONV_OUT, c, 4, 4, generator=gen, device=dev)
         bias = 0.1 * torch.randn(kernels.CONV_OUT, generator=gen, device=dev)
         return tuple(t.to(dtype) for t in (x, weight, bias))
+    if op == "poe_kl":
+        return poe_inputs(shape, gen)
     # Tokens whose rows end in PAD runs of random length; the first rows
     # are all PAD.
     n, s, v = shape
@@ -218,10 +256,44 @@ def inputs(op: str, shape, gen: torch.Generator):
     return (logits, tokens, PAD)
 
 
+def poe_inputs(shape, gen: torch.Generator):
+    """Expert stack, subset masks, presence, eps and the prior flag of the
+    fused PoE + KL at (T, B, M, L). ``eval``: every modality present;
+    ``ragged``: CelebA's padded last batch, rows from 16 on absent;
+    ``none``: no presence mask; ``wide``: log-variances past the +-11
+    clamp; ``unaligned``: experts one element into their storage (scalar
+    loads); ``no_prior``: the prior left out, every modality present."""
+    t, b, m, l, case = shape
+    dev = gen.device
+    n = b * m * l
+    lo = 1 if case == "unaligned" else 0
+    mu = torch.randn(n + lo, generator=gen, device=dev)[lo:].view(b, m, l)
+    lv = torch.randn(n + lo, generator=gen, device=dev)[lo:].view(b, m, l)
+    if case == "wide":
+        lv = 20.0 * lv
+    masks = elbo_subset_masks(m, device=dev)
+    if masks.shape[0] != t:
+        raise AssertionError(f"{m} experts give {masks.shape[0]} terms, not {t}")
+    presence = torch.ones(b, m, device=dev)
+    if case == "ragged":
+        presence[16:] = 0.0
+    return mu, lv, masks, None if case == "none" else presence, 1e-8, case != "no_prior"
+
+
+def parent_chain(*args):
+    """The launches the eval ran before the fused kernel, as its step ran
+    them: the mask product, ``core.product_of_experts``, then K1."""
+    mu_f, lv_f = kernels.masked_poe_torch(*args)
+    l = mu_f.shape[-1]
+    return kernels.kl_std_normal_kernel(mu_f.reshape(-1, l), lv_f.reshape(-1, l))
+
+
 KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_kernel,
-             "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel}
+             "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel,
+             "poe_kl": kernels.poe_kl_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
-            "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch}
+            "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
+            "poe_kl": kernels.poe_kl_torch}
 
 
 def library_fn(op: str, args):
@@ -249,7 +321,10 @@ def library_fn(op: str, args):
 
 
 def tolerance(op: str, shape) -> tuple[float, float]:
-    """(rtol, atol) of a kernel against its plain version."""
+    """(rtol, atol) of a kernel against its plain version; for the fused
+    PoE + KL, of its KL (its posteriors: atol 1e-6)."""
+    if op == "poe_kl":
+        return 1e-5, 1e-5 * shape[3]
     if op == "conv":
         c, dtype = shape[3], shape[4]
         return (1e-5, 1e-5 * 16 * c) if dtype == torch.float32 else (0.0, 2e-2)
@@ -261,7 +336,19 @@ def bound(op: str, args) -> tuple[float, str]:
     function needs read once, the output written once, or the operations
     at the peak rate of their type (f32: 67 TFLOP/s, TF32 off as the path
     runs; bf16: 989 TFLOP/s). The sequence cross-entropy needs no logit of
-    a pad token, so only the non-pad token rows' logits count."""
+    a pad token, so only the non-pad token rows' logits count. The fused PoE
+    + KL reads the expert stack, the masks and the presence and writes the
+    posteriors and the KLs."""
+    if op == "poe_kl":
+        mu_e, _, masks, presence = args[:4]
+        (b, m, l), t = mu_e.shape, masks.shape[0]
+        n_bytes = 4 * (2 * b * m * l + t * m + (0 if presence is None else b * m)
+                       + 2 * t * b * l + t * b)
+        n_ops = (POE_OPS["expert"] * b * m * l + POE_OPS["term_expert"] * t * b * m * l
+                 + POE_OPS["out"] * t * b * l)
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = n_ops / PEAK_OPS_PER_S[torch.float32]
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv":
         x, weight, bias = args
         b, h, w, c = x.shape
@@ -316,6 +403,21 @@ def phase_device() -> str:
 # ------------------------------------------------------------ phase 2 ----
 
 
+def check_poe_kl(args, got, want, shape) -> float:
+    """The fused PoE + KL against its plain version: the posteriors at
+    rtol 1e-5, atol 1e-6, the KL at ``tolerance``; rows with every expert
+    absent give the prior and exactly 0 KL. Returns the largest error."""
+    rtol, atol = tolerance("poe_kl", shape)
+    for g, w, a in zip(got, want, (1e-6, 1e-6, atol)):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=a)
+    presence = args[3]
+    if presence is not None:
+        absent = presence.sum(-1) == 0
+        if not all(torch.all(g[:, absent] == 0) for g in got):
+            raise AssertionError("a row with no expert did not give the prior and 0 KL")
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
 def phase_check() -> dict[str, float]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {}
@@ -326,9 +428,12 @@ def phase_check() -> dict[str, float]:
             got = KERNEL_FN[op](*args)
             want = PLAIN_FN[op](*args)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            rtol, atol = tolerance(op, shape)
-            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            if op == "poe_kl":
+                err = check_poe_kl(args, got, want, shape)
+            else:
+                err = (got.float() - want.float()).abs().max().item()
+                rtol, atol = tolerance(op, shape)
+                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             if op == "seq_ce" and not torch.all(got[(args[1] == PAD).all(-1)] == 0):
                 raise AssertionError("an all-pad row did not give exactly 0")
             max_err[op] = max(max_err[op], err)
@@ -568,12 +673,35 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
                 cold_ms(lambda a: library_fn(op, a), args, copies)
                 if copies and lib is not None else None)
             row["bound_ms"], row["bound_by"] = bound(op, args)
+            if op == "poe_kl":
+                row["parent_chain_ms"] = device_ms(lambda: parent_chain(*args))
+                row["parent_chain_eager_ms"] = eager_ms(lambda: parent_chain(*args))
             emit({"phase": "timing", "kernel": META[op]["name"], "label": label,
                   **describe(op, shape), **row,
                   "launches_per_config": {c: n[op] for c, n in launches.items()}})
             if label == REPORTED[op][1]:
                 reported[op] = row
     return reported
+
+
+def phase_launch_floor() -> None:
+    """An empty kernel launched through the same ``ctypes`` path as the
+    port's kernels, graph-replayed (``device_ms``) and eager (``eager_ms``,
+    host included), at one warp and at the grids of K1 (CelebA's (1280,
+    100)), K4 (the CelebA eval batch) and the fused PoE + KL (CelebA's eval
+    shape): the floor the small kernels sit on."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    conv = kernels.conv_plan(64, 64, 64, 3, sms)
+    poe = kernels.poe_kl_plan(20, 64, 19, 100, sms)
+    grids = {"one_warp": (1, 32), "kl_rows_celeba": (-(-1280 // 8), 256),
+             "conv_celeba": (conv.blocks, 32 * conv.warps),
+             "poe_kl_celeba": (poe.blocks, 32 * poe.warps)}
+    for label, (blocks, threads) in grids.items():
+        def call(blocks=blocks, threads=threads):
+            kernels._launch("poe_kl", "empty_launch", dev, blocks, threads)
+        emit({"phase": "launch_floor", "label": label, "blocks": blocks, "threads": threads,
+              "device_ms": device_ms(call), "eager_ms": eager_ms(call)})
 
 
 def phase_eval_wall(config: str) -> None:
@@ -623,6 +751,7 @@ def main() -> None:
     max_err = phase_check()
     launches = phase_main_path()
     reported = phase_timings(launches)
+    phase_launch_floor()
     for config in CONFIGS:
         phase_eval_wall(config)
     emit({"kernels": [

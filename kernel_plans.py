@@ -1,14 +1,15 @@
-"""Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``)
-and K4 (``conv4x4s2_swish``) on one NVIDIA card, at the shapes
-``chip_smoke.py`` times and checks.
+"""Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``),
+K4 (``conv4x4s2_swish``) and the fused PoE + KL (``poe_kl``) on one
+NVIDIA card, at the shapes ``chip_smoke.py`` times and checks.
 
-    python3 kernel_plans.py [bce|seq_ce|conv ...]
+    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl ...]
 
-``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan`` and
-``conv_plan`` pick a layout from the shape; this script shows what the
-others would give (for K4: warps a block, and blocks an SM from one to
-more than fit at once, or a warp for every unit). The arguments name the
-kernels to time (all by default).
+``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan``,
+``conv_plan`` and ``poe_kl_plan`` pick a layout from the shape; this
+script shows what the others would give (for K4: warps a block, and
+blocks an SM from one to more than fit at once, or a warp for every unit;
+for the fused PoE + KL: the terms of a batch row split over 1 to T
+blocks). The arguments name the kernels to time (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
 version, whether two calls gave the same bits, and the device time with
@@ -58,6 +59,11 @@ CONV_SHAPES = {
     "probe": (256, 64, 64, 3, torch.bfloat16),
     "ragged": (37, 64, 64, 3, torch.float32),
 }
+POE_SHAPES = {
+    "celeba_eval": (20, 64, 19, 100, "eval"),
+    "multimnist_eval": (3, 100, 2, 256, "eval"),
+    "mnist_eval": (3, 100, 2, 64, "eval"),
+}
 
 
 def bce_plans(n: int, d: int, sms: int) -> list[K.BcePlan]:
@@ -91,13 +97,26 @@ def conv_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvPlan]:
     return plans if auto in plans else plans + [auto]
 
 
+def poe_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlPlan]:
+    plans = [K.poe_kl_plan(t, b, m, l, sms, groups)
+             for groups in (1, 2, 3, 4, 5, 10, 20) if groups <= t]
+    plans = list(dict.fromkeys(plans))
+    auto = K.poe_kl_plan(t, b, m, l, sms)
+    return plans if auto in plans else plans + [auto]
+
+
+def outputs(got):
+    """A kernel's outputs as a tuple (the fused PoE + KL gives three)."""
+    return got if isinstance(got, tuple) else (got,)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_plans: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv"]
-    K.build("row_reduce", "seq_ce", "conv_s2")
+    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl"]
+    K.build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
     out_path.parent.mkdir(exist_ok=True)
@@ -109,6 +128,8 @@ def main() -> None:
               for label, shape in SEQ_SHAPES.items()]
     cases += [("conv", label, shape, conv_plans(*shape[:4], sms))
               for label, shape in CONV_SHAPES.items()]
+    cases += [("poe_kl", label, shape, poe_plans(*shape[:4], sms))
+              for label, shape in POE_SHAPES.items()]
     for op, label, shape, plans in cases:
         if op not in wanted:
             continue
@@ -118,25 +139,32 @@ def main() -> None:
         copies = cs.cold_copies(args)
         common = {
             "kernel": cs.META[op]["name"], "label": label, **cs.describe(op, shape),
-            "library_ms": cs.device_ms(lib),
+            "library_ms": None if lib is None else cs.device_ms(lib),
             "library_cold_ms": cs.cold_ms(lambda a: cs.library_fn(op, a), args, copies)
-            if copies else None,
+            if copies and lib is not None else None,
             "bound_ms": cs.bound(op, args)[0], "cold_copies": copies,
         }
         auto = (K.bce_plan(shape[0], shape[1], sms) if op == "bce"
                 else K.seq_ce_plan(*shape, sms) if op == "seq_ce"
-                else K.conv_plan(*shape[:4], sms))
+                else K.conv_plan(*shape[:4], sms) if op == "conv"
+                else K.poe_kl_plan(*shape[:4], sms))
         for plan in plans:
             call = functools.partial(cs.KERNEL_FN[op], *args, plan=plan)
-            got = call()
+            got = outputs(call())
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, outputs(want)))
             rtol, atol = cs.tolerance(op, shape)
-            if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            # The fused PoE + KL's posteriors at atol 1e-6, its KL at atol.
+            atols = (1e-6, 1e-6, atol) if op == "poe_kl" else (atol,)
+            if not all(torch.allclose(g, w, rtol=rtol, atol=a)
+                       for g, w, a in zip(got, outputs(want), atols)):
                 bad.append((op, label, plan))
+            again = outputs(call())
             line = {
                 **common, "plan": plan._asdict(), "picked": plan == auto,
-                "max_abs_err": err, "same_bits": bool(torch.equal(got, call())),
+                "max_abs_err": err,
+                "same_bits": all(torch.equal(g, a) for g, a in zip(got, again)),
                 "ms": cs.device_ms(call),
                 "cold_ms": cs.cold_ms(
                     lambda a: functools.partial(cs.KERNEL_FN[op], *a, plan=plan), args, copies)

@@ -18,6 +18,10 @@ integer label and token rows are small, so they are tiled on both paths.
 
 ``conv4x4s2_swish`` is the first stage of the RGB image encoder (K4 on
 the card): it takes the NHWC batch as it is and gives NCHW.
+
+``poe_kl`` fuses the encoders' expert stack under the subset masks and
+gives each term's posterior and its KL to the prior in one kernel (K1's
+function as the PoE's epilogue); ``kl_std_normal`` stays K1 alone.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ __all__ = [
     "categorical_nll",
     "masked_seq_ce",
     "conv4x4s2_swish",
+    "poe_kl",
     "set_backend",
     "get_backend",
 ]
@@ -179,3 +184,32 @@ def conv4x4s2_swish(
     if not _use_kernel("conv4x4s2_swish", x, weight, bias):
         return kernels.conv4x4s2_swish_torch(x, weight, bias)
     return kernels.conv4x4s2_swish_kernel(x.contiguous(), weight.contiguous(), bias.contiguous())
+
+
+def poe_kl(
+    mu_e: torch.Tensor,
+    lv_e: torch.Tensor,
+    masks: torch.Tensor,
+    presence: torch.Tensor | None = None,
+    eps: float = 1e-8,
+    include_prior: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked product of experts per subset term, and each fused
+    posterior's KL to N(0, I).
+
+    ``mu_e``, ``lv_e``: ``(B, M, L)`` expert stack; ``masks``: ``(T, M)``
+    subset masks; ``presence``: optional ``(B, M)`` float mask of the
+    observed modalities. Returns ``(mu_f, lv_f, kl)``: ``(T, B, L)``,
+    ``(T, B, L)`` and ``(T, B)``. A row with no expert present gives the
+    prior and a KL of exactly 0."""
+    more = (lv_e, masks) if presence is None else (lv_e, masks, presence)
+    if not _use_kernel("poe_kl", mu_e, *more):
+        return kernels.poe_kl_torch(mu_e, lv_e, masks, presence, eps, include_prior)
+
+    def f32(t):
+        return t.to(torch.float32).contiguous()
+
+    return kernels.poe_kl_kernel(
+        f32(mu_e), f32(lv_e), f32(masks), None if presence is None else f32(presence),
+        eps, include_prior,
+    )

@@ -15,13 +15,15 @@
 //
 // What bounds them: memory. Each element costs about 5 flops and one
 // transcendental against 8 bytes read (KL: mu + lv; BCE: logits + x, where
-// a tiled x is read once per tile from L2). At the eval shapes of the
-// MNIST slice the data is tiny -- KL (300, 64): 154,800 B, 46 ns at
-// 3.35 TB/s; BCE (200, 784) with untiled (100, 784) targets: 941,600 B,
-// 0.28 us -- so both are bound by launch latency, which fusing them into
-// their producers or a CUDA graph over the eval batch would remove. At
-// CelebA's image rows, BCE (128, 12288) against 64 untiled targets, it is
-// 9.4 MB, 2.8 us: there the card has to be kept busy.
+// a tiled x is read once per tile from L2). At the eval shapes the data is
+// tiny -- KL (300, 64): 154,800 B, 46 ns at 3.35 TB/s; BCE (200, 784) with
+// untiled (100, 784) targets: 941,600 B, 0.28 us -- so both sit on the
+// launch floor (an empty launch: about 1.5 us in a CUDA graph). The evals
+// therefore no longer launch kl_rows: the KL runs as the epilogue of the
+// kernel that fuses its inputs (poe_kl.cu), and kl_rows stays the
+// standalone op. At CelebA's image rows, BCE (128, 12288) against 64
+// untiled targets, it is 9.4 MB, 2.8 us: there the card has to be kept
+// busy.
 //
 // KL: one warp per row, rows grid-strided over a fixed number of blocks.
 // Each lane walks the row with stride 32 (16-byte float4 loads when

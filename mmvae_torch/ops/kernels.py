@@ -15,10 +15,17 @@
   * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
     NHWC image with 1-4 channels into 32 NCHW channels, a warp per
-    32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes.
+    32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes;
+  * ``poe_kl_kernel`` is the masked product of experts of the eval with
+    K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
+    a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
+    of each to N(0, I), in one launch, in the grid :func:`poe_kl_plan`
+    sizes. On the ported paths the KL runs here, not in K1.
 
 K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, K4 in
-``csrc/conv_s2.cu``, each behind a plain C interface. :func:`build` compiles the sources with
+``csrc/conv_s2.cu``, the fused PoE and KL in ``csrc/poe_kl.cu`` (with an
+empty kernel, ``empty_launch``, that times the launch floor), each behind
+a plain C interface. :func:`build` compiles the sources with
 ``nvcc`` for ``sm_90a`` into ``mmvae_torch/_build/`` at first use (again
 whenever a source's hash changes), one ``nvcc`` per source, all started
 together; each library is loaded with ``ctypes``. Each wrapper checks its
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 from mmvae_torch.core.elbo import kl_std_normal as _kl_plain
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bce_plain
 from mmvae_torch.core.likelihoods import categorical_nll as _cat_plain
+from mmvae_torch.core.poe import product_of_experts as _poe_plain
 
 __all__ = [
     "FOLD_NONE",
@@ -70,6 +78,11 @@ __all__ = [
     "same_pad",
     "conv4x4s2_swish_kernel",
     "conv4x4s2_swish_torch",
+    "PoeKlPlan",
+    "poe_kl_plan",
+    "poe_kl_kernel",
+    "masked_poe_torch",
+    "poe_kl_torch",
 ]
 
 # Target-row maps of the BCE kernel: rows match; t-major tiling (row
@@ -77,7 +90,7 @@ __all__ = [
 FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
-LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0}
+LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -85,6 +98,7 @@ SOURCES = {
     "row_reduce": _CSRC / "row_reduce.cu",
     "seq_ce": _CSRC / "seq_ce.cu",
     "conv_s2": _CSRC / "conv_s2.cu",
+    "poe_kl": _CSRC / "poe_kl.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -92,7 +106,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ptr, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Library name -> {function: argtypes}; every function returns an int
 # (the launch's cudaError_t) and takes the stream last.
 _SIGNATURES = {
@@ -106,6 +120,11 @@ _SIGNATURES = {
     "conv_s2": {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                             _i32, _i32, _i32, _ptr],
+    },
+    "poe_kl": {
+        "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _f32,
+                   _f32, _i32, _i32, _i32, _i32, _ptr],
+        "empty_launch": [_i32, _i32, _ptr],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -564,3 +583,130 @@ def conv4x4s2_swish_torch(
         bias.to(torch.float32), stride=2,
     )
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+# ------------------------------------------------------- PoE + KL ----
+
+# A block of the fused PoE holds the expert slab of its batch row and the
+# weights of its terms in at most 48 KB of shared memory, and takes a warp
+# a term, at most POE_MAX_WARPS.
+POE_MAX_SMEM = 48 * 1024
+POE_MAX_WARPS = 32
+
+
+class PoeKlPlan(NamedTuple):
+    """Launch of ``poe_kl``: terms a block, warps a block, blocks in all
+    (batch rows x term groups) and the block's dynamic shared memory in
+    bytes."""
+
+    terms: int
+    warps: int
+    blocks: int
+    smem: int
+
+
+def poe_kl_plan(
+    t: int, b: int, m: int, l: int, sms: int = H100_SMS, groups: int | None = None
+) -> PoeKlPlan:
+    """The launch of the fused PoE + KL for ``t`` terms of ``b`` batch
+    rows of ``m`` experts of ``l`` latents, on a card of ``sms`` SMs.
+
+    A block per batch row and group of terms, a warp per term. The terms
+    of a row are split into as many groups as keep one block an SM
+    (CelebA's 64 rows: 2 groups of 10 terms on 128 SMs; 100 rows or more:
+    one group), at most one group a term; ``groups`` overrides the count.
+    Raises where one block's slab exceeds 48 KB of shared memory.
+    ``kernel_plans.py`` times the alternatives."""
+    if groups is None:
+        groups = sms // max(b, 1)
+    groups = max(1, min(t, groups))
+    terms = -(-t // groups)
+    smem = 4 * (2 * m * l + terms * m)  # the mu and precision slabs, the weights
+    if smem > POE_MAX_SMEM:
+        raise ValueError(
+            f"poe_kl: the slab of {m} experts x {l} latents and {terms} terms takes "
+            f"{smem} bytes of shared memory, above {POE_MAX_SMEM}"
+        )
+    return PoeKlPlan(terms, min(terms, POE_MAX_WARPS), b * -(-t // terms), smem)
+
+
+def _check_f32(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} is {tuple(x.shape)}, not {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, mu_e on {device}")
+
+
+def poe_kl_kernel(
+    mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
+    presence: torch.Tensor | None = None, eps: float = 1e-8,
+    include_prior: bool = True, plan: PoeKlPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The PoE of ``(B, M, L)`` f32 CUDA experts under ``(T, M)`` subset
+    masks and an optional ``(B, M)`` presence mask, and the KL of each
+    fused posterior to N(0, I), in one launch.
+
+    Returns ``(mu_f, lv_f, kl)``: ``(T, B, L)``, ``(T, B, L)`` and ``(T,
+    B)``, as :func:`poe_kl_torch`. ``plan`` overrides :func:`poe_kl_plan`
+    of the shape and the card."""
+    if mu_e.dim() != 3:
+        raise ValueError(f"mu_e must be (B, M, L), got shape {tuple(mu_e.shape)}")
+    b, m, l = mu_e.shape
+    _check_f32("mu_e", mu_e, (b, m, l), mu_e.device)
+    _check_f32("lv_e", lv_e, (b, m, l), mu_e.device)
+    if masks.dim() != 2:
+        raise ValueError(f"masks must be (T, M), got shape {tuple(masks.shape)}")
+    t = masks.shape[0]
+    _check_f32("masks", masks, (t, m), mu_e.device)
+    if presence is not None:
+        _check_f32("presence", presence, (b, m), mu_e.device)
+    if max(t * b * l, b * m * l) >= 2**31:
+        raise ValueError(f"poe_kl shape {(t, b, m, l)} exceeds int32")
+    mu_f = torch.empty((t, b, l), dtype=torch.float32, device=mu_e.device)
+    lv_f = torch.empty_like(mu_f)
+    kl = torch.empty((t, b), dtype=torch.float32, device=mu_e.device)
+    if mu_f.numel() == 0:
+        return mu_f, lv_f, kl
+    plan = plan or poe_kl_plan(t, b, m, l, _sm_count(mu_e.device.index or 0))
+    _launch(
+        "poe_kl", "poe_kl", mu_e.device, mu_e.data_ptr(), lv_e.data_ptr(),
+        masks.data_ptr(), None if presence is None else presence.data_ptr(),
+        mu_f.data_ptr(), lv_f.data_ptr(), kl.data_ptr(), t, b, m, l,
+        1.0 if include_prior else 0.0, eps, *plan,
+    )
+    LAUNCHES["poe_kl"] += 1
+    return mu_f, lv_f, kl
+
+
+def masked_poe_torch(
+    mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
+    presence: torch.Tensor | None = None, eps: float = 1e-8,
+    include_prior: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused ``(T, B, L)`` posteriors of :func:`poe_kl_torch`: the term
+    masks times the presence, then the masked PoE of the expert stack
+    against each term."""
+    n_terms, n_mod = masks.shape
+    eff = masks[:, None, :]  # (T, 1, M)
+    if presence is not None:
+        eff = eff * presence[None]  # (T, B, M)
+    else:
+        eff = eff.expand(n_terms, mu_e.shape[0], n_mod)
+    return _poe_plain(mu_e[None], lv_e[None], mask=eff, eps=eps, include_prior=include_prior)
+
+
+def poe_kl_torch(
+    mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
+    presence: torch.Tensor | None = None, eps: float = 1e-8,
+    include_prior: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`poe_kl_kernel`: the masked PoE,
+    then the KL of each fused posterior."""
+    mu_f, lv_f = masked_poe_torch(mu_e, lv_e, masks, presence, eps, include_prior)
+    return mu_f, lv_f, _kl_plain(mu_f, lv_f)

@@ -6,14 +6,16 @@ single-device eval path, ``step.py:532-578``) with member-pruned decoding
 (``_member_prune_keys`` / ``_pruned_nll``) and an optional presence mask.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
-  * masked PoE fusion over the ``(T, M)`` subset masks -> ``(T, B, L)``;
+  * masked PoE fusion over the ``(T, M)`` subset masks -> ``(T, B, L)``,
+    and the KL of all ``T * B`` posteriors, in one ``ops.poe_kl`` call:
+    one kernel on the card, K1's function as the PoE's epilogue (the JAX
+    step leaves the same fusion to XLA);
   * each decode key decodes only its possibly-member term rows, folded
     t-major into one ``(tk * B, L)`` batch;
-  * the KL of all ``T * B`` posteriors is one ``ops.kl_std_normal`` call
-    and each key's NLL one ``ops`` call, so on the card one eval batch
-    launches each kernel on its path once per decode key (MNIST: K1, K2;
-    MultiMNIST: K1, K2, K3; CelebA: K1, K2 for the image and K2 for the 18
-    attributes, and K4 in the image encoder).
+  * each key's NLL is one ``ops`` call, so on the card one eval batch
+    launches the fused PoE + KL once and each NLL kernel once per decode
+    key (MNIST: K2; MultiMNIST: K2, K3; CelebA: K2 for the image and K2
+    for the 18 attributes, and K4 in the image encoder).
 
 One difference from the JAX code: the JAX t-fold broadcasts the targets to
 the tiled rows (``_tile_terms_tmajor``, ``step.py:247``) and lets XLA fuse
@@ -38,7 +40,6 @@ from mmvae_torch.core import (
     OBJECTIVES,
     elbo_subset_masks,
     elbo_terms,
-    product_of_experts,
     reparameterize,
 )
 from mmvae_torch.ops.kernels import FOLD_T, tile_rows
@@ -149,23 +150,14 @@ def multi_term_loss(
     presence = batch.get("presence")
     data = {k: v for k, v in batch.items() if k != "presence"}
     masks = elbo_subset_masks(model.n_modalities, device=model.device)  # (T, M)
-    n_terms, n_mod = masks.shape
 
     mu_e, lv_e = model.encode(data)  # (B, M, L)
-    batch_size = mu_e.shape[0]
-    eff = masks[:, None, :]  # (T, 1, M)
-    if presence is not None:
-        eff = eff * presence[None]  # (T, B, M)
-    else:
-        eff = eff.expand(n_terms, batch_size, n_mod)
-    fused_mu, fused_lv = product_of_experts(
-        mu_e[None], lv_e[None], mask=eff
-    )  # (T, B, L)
+    # (T, B, L) posteriors under the masks times the presence, (T, B) KLs
+    fused_mu, fused_lv, kl = ops.poe_kl(mu_e, lv_e, masks, presence)
     z = reparameterize(
         fused_mu, fused_lv, sample=sample, generator=generator, eps=eps
     )
     nll = _pruned_nll_t(model, z, data, prune_keys)  # (T, M, B)
-    kl = ops.kl_std_normal(fused_mu, fused_lv)  # (T, B)
     if presence is not None:
         nll = nll * presence.T[None]  # unobserved modalities are no targets
     return elbo_terms(nll, kl, masks, model.lambdas(), beta)

@@ -1,5 +1,5 @@
-"""The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``) and K4
-(``conv_plan``), on the CPU.
+"""The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``), K4
+(``conv_plan``) and the fused PoE + KL (``poe_kl_plan``), on the CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
@@ -25,6 +25,11 @@ CONV_SHAPES = [(64, 64, 64, 3), (256, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1
                (600, 64, 64, 3), (4, 30, 70, 3), (3, 20, 90, 3), (2, 10, 66, 3),
                (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4), (3, 9, 300, 2),
                (2, 7, 1100, 4), (1, 1, 1, 3)]
+# (T, B, M, L) of the fused PoE + KL: the CelebA, MultiMNIST and MNIST
+# eval batches, CelebA's ragged check at an odd L, a batch of one, more
+# rows than SMs, one term of one expert, more terms than a block has warps.
+POE_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64), (20, 10, 19, 37),
+              (3, 1, 2, 64), (20, 200, 19, 100), (1, 1, 1, 1), (40, 2, 3, 8)]
 
 
 @pytest.mark.parametrize("shape", BCE_SHAPES)
@@ -191,7 +196,8 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
     "lib, fn, n_args, plan_type",
     [("row_reduce", "bce_rows", 7, kernels.BcePlan),
      ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
-     ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan)],
+     ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
+     ("poe_kl", "poe_kl", 13, kernels.PoeKlPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -199,3 +205,53 @@ def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     sig = kernels._SIGNATURES[lib][fn]
     assert len(sig) == n_args + len(plan_type._fields) + 1
     assert all(t is kernels._i32 for t in sig[n_args:-1])
+
+
+def _poe_covered(t: int, b: int, plan) -> np.ndarray:
+    """How often each (term, batch row) is taken, as the kernel decodes the
+    grid: block i is batch row i // groups and term group i % groups, the
+    group's terms start at (i % groups) * terms, and its warps walk them
+    with a stride of the block's warps."""
+    groups = -(-t // plan.terms)
+    covered = np.zeros((t, b), dtype=np.int64)
+    for block in range(plan.blocks):
+        row, t0 = block // groups, (block % groups) * plan.terms
+        t_end = min(t, t0 + plan.terms)
+        for warp in range(plan.warps):
+            for term in range(t0 + warp, t_end, plan.warps):
+                covered[term, row] += 1
+    return covered
+
+
+@pytest.mark.parametrize("shape", POE_SHAPES)
+@pytest.mark.parametrize("groups", [None, 1, 2, 3, 64])
+def test_poe_kl_plan_covers_every_term_once(shape, groups):
+    """Every (t, b) is taken by exactly one warp of the grid; the block's
+    shared memory is its two slabs and its terms' weights, within 48 KB;
+    a block has a warp a term, up to 32."""
+    t, b, m, l = shape
+    plan = kernels.poe_kl_plan(t, b, m, l, groups=groups)
+    assert np.all(_poe_covered(t, b, plan) == 1)
+    assert plan.smem == 4 * (2 * m * l + plan.terms * m) <= 48 * 1024
+    assert plan.warps == min(plan.terms, 32) and 1 <= plan.terms <= t
+    assert plan.blocks == b * -(-t // plan.terms)
+
+
+@pytest.mark.parametrize(
+    "shape, plan",
+    [((20, 64, 19, 100), (10, 10, 128)), ((3, 100, 2, 256), (3, 3, 100)),
+     ((3, 100, 2, 64), (3, 3, 100)), ((20, 200, 19, 100), (20, 20, 200)),
+     ((20, 10, 19, 37), (2, 2, 100))],
+)
+def test_poe_kl_plan_splits_terms_to_fill_the_card(shape, plan):
+    """CelebA's 64 rows take 2 groups of 10 terms, 128 blocks on 132 SMs;
+    100 rows or more take one group; 10 rows take 10 groups."""
+    assert kernels.poe_kl_plan(*shape)[:3] == plan
+
+
+def test_poe_kl_plan_refuses_a_slab_above_48kb():
+    """40 experts x 200 latents are 64,000 bytes of slab: refused, with no
+    fallback; 30 x 200 fit."""
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.poe_kl_plan(41, 8, 40, 200)
+    assert kernels.poe_kl_plan(31, 8, 30, 200).smem <= 48 * 1024

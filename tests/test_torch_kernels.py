@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions.
 
 Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2),
-``seq_ce.cu`` (K3) and ``conv_s2.cu`` (K4) with ``nvcc`` and run on the
-card; without one they skip. This file imports nothing of JAX, so on a machine with a card and no
+``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4) and ``poe_kl.cu`` (the fused PoE
++ KL) with ``nvcc`` and run on the card; without one they skip. This file imports nothing of JAX, so on a machine with a card and no
 JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -10,7 +10,8 @@ JAX it runs as
 Tolerance: rtol 1e-5, atol 1e-5 * D for the row reductions, 1e-5 * S *
 log V for K3, 1e-5 * 16 * C for K4 in f32 (16 * C products per output)
 -- the kernels sum in another order than PyTorch does; K4 in bf16 atol
-2e-2, one bf16 rounding of an output below 4.
+2e-2, one bf16 rounding of an output below 4. The fused PoE + KL: rtol
+1e-5 and atol 1e-6 for the posteriors, atol 1e-5 * L for the KL.
 
 The ``ops`` entries refuse the kernel path when autograd would record
 them (the kernels have no backward yet); the CPU half of that check runs
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from mmvae_torch import ops
+from mmvae_torch.core import elbo_subset_masks
 from mmvae_torch.ops import kernels
 
 FOLDS = [kernels.FOLD_NONE, kernels.FOLD_T, kernels.FOLD_B]
@@ -76,6 +78,8 @@ def test_wrappers_reject_cpu_tensors():
         kernels.conv4x4s2_swish_kernel(
             torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32)
         )
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.poe_kl_kernel(torch.zeros((4, 2, 8)), torch.zeros((4, 2, 8)), torch.ones((3, 2)))
 
 
 def test_conv_plain_pads_like_xla_same():
@@ -154,12 +158,14 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     img = torch.zeros((2, 8, 8, 3), device=cuda)
     cw = torch.zeros((32, 3, 4, 4), device=cuda)
     cb = torch.zeros(32, device=cuda)
+    experts, masks = x.view(8, 2, 8), elbo_subset_masks(2, device=cuda)
     before = dict(kernels.LAUNCHES)
     after = {k: v + 1 for k, v in before.items()}
     kernels.kl_std_normal_kernel(x, x)
     kernels.bernoulli_nll_kernel(x, x[:4], kernels.FOLD_T)
     kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok)
     kernels.conv4x4s2_swish_kernel(img, cw, cb)
+    kernels.poe_kl_kernel(experts, experts, masks)
     assert kernels.LAUNCHES == after
     with pytest.raises(TypeError):
         kernels.kl_std_normal_kernel(x.double(), x.double())
@@ -185,6 +191,14 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
         kernels.conv4x4s2_swish_kernel(torch.zeros((2, 8, 8, 5), device=cuda), cw, cb)
     with pytest.raises(ValueError):
         kernels.conv4x4s2_swish_kernel(img, cw[:16], cb[:16])
+    with pytest.raises(TypeError):
+        kernels.poe_kl_kernel(experts.double(), experts.double(), masks)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.poe_kl_kernel(experts, experts.transpose(0, 1).contiguous().transpose(0, 1), masks)
+    with pytest.raises(ValueError):
+        kernels.poe_kl_kernel(experts, experts, masks, torch.ones((8, 3), device=cuda))
+    with pytest.raises(ValueError):
+        kernels.poe_kl_kernel(experts, experts, masks[:, :1])
     assert kernels.LAUNCHES == after
 
 
@@ -386,18 +400,22 @@ def _op_calls(device):
         "conv4x4s2_swish": lambda g: ops.conv4x4s2_swish(
             torch.rand(2, 8, 8, 3, generator=gen).to(device), rand(32, 3, 4, 4, grad=False),
             rand(32, grad=g)),
+        "poe_kl": lambda g: ops.poe_kl(
+            rand(8, 2, 16, grad=False), rand(8, 2, 16, grad=False),
+            elbo_subset_masks(2, device=device),
+            torch.ones(8, 2, device=device).requires_grad_(g))[2],
     }
 
 
-OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish"]
-OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv"]))
+OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish", "poe_kl"]
+OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv", "poe_kl"]))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_path_refuses_grad(cuda, op):
     """With grad on and an input that requires grad (the second target of
-    the BCE, the conv's bias alone), the kernel path raises and launches
+    the BCE, the conv's bias alone, the PoE's presence alone), the kernel path raises and launches
     nothing; under ``torch.no_grad`` it launches the kernel."""
     call = _op_calls(cuda)[op]
     before = kernels.LAUNCHES[OP_COUNTERS[op]]
@@ -564,3 +582,98 @@ def test_seq_ce_kernel_large_vocab_int64_tokens_and_other_pad(cuda):
         got = kernels.masked_seq_ce_kernel(logits, tokens, pad)
         _seq_close(got, kernels.masked_seq_ce_torch(logits, tokens, pad), 9, 5003)
         assert torch.equal(got, kernels.masked_seq_ce_kernel(logits, tokens, pad))
+
+
+def _poe_inputs(gen, shape, case, device):
+    """Experts, subset masks and presence of the fused PoE + KL at (T, B,
+    M, L). ``eval``: every modality present; ``ragged``: the rows past the
+    first quarter all absent, as the eval's padded last batch; ``none``: no
+    presence; ``wide``: log-variances past the +-11 clamp; ``unaligned``:
+    expert views one element into their storage (scalar loads);
+    ``no_prior``: the prior left out, every row with an expert."""
+    t, b, m, l = shape
+    n = b * m * l
+    mu = torch.randn(n + 1, generator=gen)
+    lv = torch.randn(n + 1, generator=gen) * (20.0 if case == "wide" else 1.0)
+    lo = 1 if case == "unaligned" else 0
+    mu, lv = (a.to(device)[lo:lo + n].view(b, m, l) for a in (mu, lv))
+    masks = elbo_subset_masks(m, device=device)
+    assert masks.shape == (t, m)
+    presence = (torch.rand(b, m, generator=gen) < 0.7).float().to(device)
+    if case in ("eval", "no_prior"):
+        presence = torch.ones(b, m, device=device)
+    elif case == "ragged":
+        presence[b // 4:] = 0.0
+    return mu, lv, masks, None if case == "none" else presence, 1e-8, case != "no_prior"
+
+
+def _poe_close(got, want, l: int) -> None:
+    for g, w, atol in zip(got, want, (1e-6, 1e-6, 1e-5 * l)):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=atol)
+
+
+# (T, B, M, L) of the CelebA, MultiMNIST and MNIST eval batches, and an odd
+# L with CelebA's experts.
+POE_EVAL_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned", "no_prior"])
+@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)])
+def test_poe_kl_kernel_matches_plain(cuda, shape, case):
+    """Each eval shape and an odd L, in every case; the absent rows of a
+    ragged batch give the prior and exactly 0 KL; two calls give the same
+    bits."""
+    gen = torch.Generator().manual_seed(23)
+    args = _poe_inputs(gen, shape, case, cuda)
+    got = kernels.poe_kl_kernel(*args)
+    _poe_close(got, kernels.poe_kl_torch(*args), shape[3])
+    if case == "ragged":
+        b = shape[1]
+        assert torch.all(got[2][:, b // 4:] == 0)
+        assert torch.all(got[0][:, b // 4:] == 0) and torch.all(got[1][:, b // 4:] == 0)
+    again = kernels.poe_kl_kernel(*args)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2, 3, 7, 20])
+def test_poe_kl_kernel_every_term_grouping(cuda, groups):
+    """CelebA's shape with the terms of a row split over 1 to 20 blocks,
+    forced through ``plan``: the same numbers as the plain version."""
+    gen = torch.Generator().manual_seed(24)
+    shape = (20, 64, 19, 100)
+    args = _poe_inputs(gen, shape, "ragged", cuda)
+    plan = kernels.poe_kl_plan(*shape, groups=groups)
+    _poe_close(kernels.poe_kl_kernel(*args, plan=plan), kernels.poe_kl_torch(*args), 100)
+
+
+@pytest.mark.gpu
+def test_poe_kl_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """Too little shared memory, too many warps or a grid that does not
+    match the terms is refused at launch and counts no launch."""
+    args = _poe_inputs(torch.Generator().manual_seed(25), (3, 8, 2, 64), "eval", cuda)
+    good = kernels.poe_kl_plan(3, 8, 2, 64)
+    before = kernels.LAUNCHES["poe_kl"]
+    for bad in (good._replace(smem=good.smem - 4), good._replace(warps=33),
+                good._replace(blocks=good.blocks + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.poe_kl_kernel(*args, plan=bad)
+    assert kernels.LAUNCHES["poe_kl"] == before
+
+
+@pytest.mark.gpu
+def test_ops_poe_kl_runs_the_kernel_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(26)
+    mu, lv, masks, presence, _, _ = _poe_inputs(gen, (20, 64, 19, 100), "ragged", cuda)
+    before = kernels.LAUNCHES["poe_kl"]
+    got = ops.poe_kl(mu, lv, masks, presence)
+    assert kernels.LAUNCHES["poe_kl"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.poe_kl(mu, lv, masks, presence)
+    finally:
+        ops.set_backend("auto")
+    assert kernels.LAUNCHES["poe_kl"] == before + 1
+    _poe_close(got, want, 100)
