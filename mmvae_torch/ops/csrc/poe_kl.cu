@@ -91,13 +91,15 @@ __device__ __forceinline__ float fuse(float sum_p, float sum_mp, float prior_t,
   return kl_term(*mu, *lv);
 }
 
-// Weight i of a block's terms from t0 on: masks[t, m] * presence[b, m].
-__device__ __forceinline__ float weight(const float* __restrict__ masks,
-                                       const float* __restrict__ presence, int t0,
-                                       int b, int m_experts, int i) {
+// The two factors of weight i of a block's terms from t0 on, masks[t, m]
+// and presence[b, m] (1 without presence); the weight is their product,
+// taken only where it is stored so that the loads stay in flight.
+__device__ __forceinline__ float2 weight_factors(const float* __restrict__ masks,
+                                                 const float* __restrict__ presence,
+                                                 int t0, int b, int m_experts, int i) {
   const int m = i % m_experts;
-  const float mask = masks[(t0 + i / m_experts) * m_experts + m];
-  return presence ? __fmul_rn(mask, presence[b * m_experts + m]) : mask;
+  return make_float2(masks[(t0 + i / m_experts) * m_experts + m],
+                     presence ? presence[b * m_experts + m] : 1.0f);
 }
 
 // Dynamic shared memory: the mu slab (M x L), the precision slab (M x L),
@@ -124,10 +126,11 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
   const size_t base = static_cast<size_t>(b) * ml;
 
   // Every global load of the staging is issued before the first is used:
-  // the thread's first term weight, then kStage float4s (or 4 kStage
-  // scalars) of each slab at a time.
+  // the factors of the thread's first term weight, then kStage float4s (or
+  // 4 kStage scalars) of each slab at a time.
   const int n_w = (t_end - t0) * m_experts;
-  const float w_first = tid < n_w ? weight(masks, presence, t0, b, m_experts, tid) : 0.0f;
+  const float2 w_first =
+      tid < n_w ? weight_factors(masks, presence, t0, b, m_experts, tid) : make_float2(0.0f, 0.0f);
   if (kVec) {
     const float4* m4 = reinterpret_cast<const float4*>(mu_e + base);
     const float4* l4 = reinterpret_cast<const float4*>(lv_e + base);
@@ -175,9 +178,10 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
       }
     }
   }
-  if (tid < n_w) s_w[tid] = w_first;
+  if (tid < n_w) s_w[tid] = __fmul_rn(w_first.x, w_first.y);
   for (int i = tid + threads; i < n_w; i += threads) {
-    s_w[i] = weight(masks, presence, t0, b, m_experts, i);
+    const float2 f = weight_factors(masks, presence, t0, b, m_experts, i);
+    s_w[i] = __fmul_rn(f.x, f.y);
   }
   __syncthreads();
 

@@ -19,9 +19,17 @@ MNIST (3, 100, 2, 64) eval shapes. Variants:
 - ``no_fuse``: the expert sums are stored as they are, without the
   divide, log and exps of the fused posterior and its KL;
 - ``no_stores``: the posteriors are stored only under a condition on
-  their values that never holds.
+  their values that never holds;
+- ``stage_only_no_precision`` and ``no_precision``: as ``stage_only`` and
+  ``today``, with the log-variances staged as they are (no exp, no
+  divide; the results are wrong, the time is the point);
+- ``stage_only_no_weights``: as ``stage_only``, with no load of the masks
+  or the presence;
+- ``small_code``: ``today`` with the per-output math not inlined and the
+  expert loop not unrolled, a smaller kernel.
 
-It prints one JSON line per (variant, shape), with ``-Xptxas -v``'s lines.
+It prints one JSON line per (variant, shape), with ``-Xptxas -v``'s lines
+and the kernel's SASS instruction count (``cuobjdump -sass``).
 ``today`` is held against the plain version. Exits non-zero without a
 card.
 """
@@ -30,7 +38,9 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -48,6 +58,10 @@ FUSE = """        float4 f_mu, f_lv;
         const float kw = fuse(sp.w, smp.w, prior_t, &f_mu.w, &f_lv.w);
 """
 STORES = "        mu4[c] = f_mu;\n        lv4[c] = f_lv;\n"
+PRECISION = """make_float4(precision(v[k].x, eps), precision(v[k].y, eps),
+                               precision(v[k].z, eps), precision(v[k].w, eps))"""
+WEIGHT = ("tid < n_w ? weight_factors(masks, presence, t0, b, m_experts, tid) : "
+          "make_float2(0.0f, 0.0f)")
 
 
 def _replace(src: str, old: str, new: str) -> str:
@@ -57,11 +71,18 @@ def _replace(src: str, old: str, new: str) -> str:
 
 
 def variants(src: str) -> dict[str, str]:
+    stage_only = _replace(src, BARRIER, BARRIER.replace(
+        "\n\n", "\n  if (s_p[tid % ml] == -1.0f) kl[0] = s_mu[tid % ml];\n  return;\n\n"))
     return {
         "today": src,
         "empty": _replace(src, TOP, TOP + "  if (l_dim > 0) return;\n"),
-        "stage_only": _replace(src, BARRIER, BARRIER.replace(
-            "\n\n", "\n  if (s_p[tid % ml] == -1.0f) kl[0] = s_mu[tid % ml];\n  return;\n\n")),
+        "stage_only": stage_only,
+        "stage_only_no_precision": _replace(stage_only, PRECISION, "v[k]"),
+        "stage_only_no_weights": _replace(stage_only, WEIGHT, "make_float2(1.0f, 1.0f)"),
+        "no_precision": _replace(src, PRECISION, "v[k]"),
+        "small_code": _replace(
+            src.replace("#pragma unroll 4", "#pragma unroll 1"),
+            "__device__ __forceinline__ float fuse(", "__device__ __noinline__ float fuse("),
         "one_expert": _replace(src, EXPERT_LOOP, EXPERT_LOOP.replace("m_experts", "1")),
         "no_fuse": _replace(src, FUSE, "        const float4 f_mu = smp, f_lv = sp;\n"
                                        "        const float kx = sp.x, ky = sp.y, kz = sp.z,"
@@ -70,6 +91,20 @@ def variants(src: str) -> dict[str, str]:
                                            "  " + STORES.replace("\n        ", "\n          ")
                                            + "        }\n"),
     }
+
+
+def sass_instructions(so: Path) -> dict[str, int]:
+    """SASS instructions of each kernel in ``so``, by ``cuobjdump -sass``."""
+    sass = subprocess.run([str(Path(K._nvcc()).with_name("cuobjdump")), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    return counts
 
 
 def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, list[str]]]:
@@ -92,7 +127,8 @@ def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, list[str]]]:
         lib.poe_kl.argtypes = K._SIGNATURES["poe_kl"]["poe_kl"]
         lib.poe_kl.restype = ctypes.c_int
         ptxas = [line.strip() for line in err.splitlines() if "registers" in line or "spill" in line]
-        libs[name] = (lib, ptxas)
+        libs[name] = (lib, ptxas + [f"{k}: {n} SASS instructions"
+                                    for k, n in sass_instructions(so).items()])
     return libs
 
 
