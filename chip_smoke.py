@@ -6,7 +6,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device and build: the card's name and power limit, TF32 off, and the
    hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
-   (four sources, one ``nvcc`` each, started together);
+   (the port's four sources and the launch-floor probe, one ``nvcc``
+   each, started together);
 2. each kernel held against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged, odd and large ones (rtol 1e-5; atol
    1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
@@ -43,7 +44,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    then K1); the floor of an empty launch at K1's, K4's and the fused
    kernel's grids and at one warp, graph-replayed and eager; and for each
    config the wall time of one ``eval_elbo`` and a profile of where its
-   device time goes.
+   device time goes (its device busy time with and without the
+   host-to-device copies, whose pageable upload varies run to run).
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -186,11 +188,11 @@ CHECKED_SHAPES = {
              (2, 7, 1100, 4, torch.float32)],
     # The three eval batches; CelebA's padded last batch (16 rows present,
     # 48 absent); no presence mask; log-variances past the +-11 clamp; an
-    # odd L; experts one element into their storage; no prior.
+    # odd L; experts one element into their storage.
     "poe_kl": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"), (20, 64, 19, 100, "eval"),
                (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
                (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
-               (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "no_prior")],
+               (20, 64, 19, 100, "unaligned")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
 # this slice's path (CelebA) for the kernels it runs, else the path that
@@ -257,12 +259,11 @@ def inputs(op: str, shape, gen: torch.Generator):
 
 
 def poe_inputs(shape, gen: torch.Generator):
-    """Expert stack, subset masks, presence, eps and the prior flag of the
-    fused PoE + KL at (T, B, M, L). ``eval``: every modality present;
-    ``ragged``: CelebA's padded last batch, rows from 16 on absent;
-    ``none``: no presence mask; ``wide``: log-variances past the +-11
-    clamp; ``unaligned``: experts one element into their storage (scalar
-    loads); ``no_prior``: the prior left out, every modality present."""
+    """Expert stack, subset masks and presence of the fused PoE + KL at
+    (T, B, M, L). ``eval``: every modality present; ``ragged``: CelebA's
+    padded last batch, rows from 16 on absent; ``none``: no presence mask;
+    ``wide``: log-variances past the +-11 clamp; ``unaligned``: experts one
+    element into their storage (scalar loads)."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -277,7 +278,7 @@ def poe_inputs(shape, gen: torch.Generator):
     presence = torch.ones(b, m, device=dev)
     if case == "ragged":
         presence[16:] = 0.0
-    return mu, lv, masks, None if case == "none" else presence, 1e-8, case != "no_prior"
+    return mu, lv, masks, None if case == "none" else presence
 
 
 def parent_chain(*args):
@@ -340,7 +341,7 @@ def bound(op: str, args) -> tuple[float, str]:
     + KL reads the expert stack, the masks and the presence and writes the
     posteriors and the KLs."""
     if op == "poe_kl":
-        mu_e, _, masks, presence = args[:4]
+        mu_e, _, masks, presence = args
         (b, m, l), t = mu_e.shape, masks.shape[0]
         n_bytes = 4 * (2 * b * m * l + t * m + (0 if presence is None else b * m)
                        + 2 * t * b * l + t * b)
@@ -388,7 +389,7 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = kernels.build()
+    libs = kernels.build(*kernels.SOURCES, *kernels.PROBE_SOURCES)
     seconds = time.perf_counter() - t0
     for name, so in libs.items():
         ptxas = [
@@ -699,7 +700,7 @@ def phase_launch_floor() -> None:
              "poe_kl_celeba": (poe.blocks, 32 * poe.warps)}
     for label, (blocks, threads) in grids.items():
         def call(blocks=blocks, threads=threads):
-            kernels._launch("poe_kl", "empty_launch", dev, blocks, threads)
+            kernels._launch("launch_floor", "empty_launch", dev, blocks, threads)
         emit({"phase": "launch_floor", "label": label, "blocks": blocks, "threads": threads,
               "device_ms": device_ms(call), "eager_ms": eager_ms(call)})
 
@@ -736,8 +737,13 @@ def phase_eval_wall(config: str) -> None:
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
+    # Every host-to-device copy, not only those in the top list: the
+    # profiler counts the pageable upload in some evals and not others.
+    h2d = sum(r[0] for r in rows if "HtoD" in r[1])
     emit({"phase": "eval_profile", "config": config, "wall_us": wall_us,
           "device_busy_us": busy if busy else "not measured",
+          "device_busy_less_h2d_us": busy - h2d if busy else "not measured",
+          "h2d_us": h2d if busy else "not measured",
           "device_idle_share": 1 - busy / wall_us if busy else "not measured",
           "device_events": sum(r[2] for r in rows),
           "top": [{"name": k[:80], "device_us": us, "count": c}

@@ -191,11 +191,9 @@ def poe_kl(
     lv_e: torch.Tensor,
     masks: torch.Tensor,
     presence: torch.Tensor | None = None,
-    eps: float = 1e-8,
-    include_prior: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Masked product of experts per subset term, and each fused
-    posterior's KL to N(0, I).
+    """Masked product of experts per subset term, with the unit-Gaussian
+    prior and eps 1e-8, and each fused posterior's KL to N(0, I).
 
     ``mu_e``, ``lv_e``: ``(B, M, L)`` expert stack; ``masks``: ``(T, M)``
     subset masks; ``presence``: optional ``(B, M)`` float mask of the
@@ -204,12 +202,11 @@ def poe_kl(
     prior and a KL of exactly 0."""
     more = (lv_e, masks) if presence is None else (lv_e, masks, presence)
     if not _use_kernel("poe_kl", mu_e, *more):
-        return kernels.poe_kl_torch(mu_e, lv_e, masks, presence, eps, include_prior)
+        return kernels.poe_kl_torch(mu_e, lv_e, masks, presence)
 
     def f32(t):
         return t.to(torch.float32).contiguous()
 
     return kernels.poe_kl_kernel(
-        f32(mu_e), f32(lv_e), f32(masks), None if presence is None else f32(presence),
-        eps, include_prior,
+        f32(mu_e), f32(lv_e), f32(masks), None if presence is None else f32(presence)
     )

@@ -6,10 +6,11 @@
 // epilogue of the PoE that produces its inputs (mmvae_tpu/train/step.py
 // masked PoE, KL at the end of the t-fold). For the encoders' expert stack
 // mu_e, lv_e (B, M, L), the subset masks (T, M) and an optional presence
-// mask (B, M), per (t, b, l):
+// mask (B, M), per (t, b, l), with the unit-Gaussian prior's precision 1
+// and eps = 1e-8, as the eval's step has always taken them:
 //     p_m  = (1 / (exp(clamp(lv_e[b,m,l], -11, 11)) + eps))
 //            * (masks[t,m] * presence[b,m])
-//     tot  = prior_t + sum_m p_m
+//     tot  = 1 + sum_m p_m
 //     mu_f = (sum_m mu_e[b,m,l] * p_m) / tot,    lv_f = -log(tot)
 // and per (t, b), K1's function:
 //     kl   = -0.5 * sum_l (1 + lv_f - mu_f^2 - exp(lv_f)).
@@ -44,11 +45,8 @@
 // No fast-math: expf, logf and the divides are IEEE, and the products are
 // rounded before they are summed (__fmul_rn), as PyTorch's separate ops do.
 //
-// empty_launch launches an empty kernel: the floor a launch of a given grid
-// costs, which the small kernels of the port are judged against.
-//
-// C interface (bound with ctypes): each function launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() of its launch (or
+// C interface (bound with ctypes): poe_kl launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() of its launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 
 #include <cuda_runtime.h>
@@ -61,6 +59,8 @@ constexpr int kWarp = 32;
 constexpr int kMaxWarps = 32;
 constexpr int kMaxSmem = 48 * 1024;
 constexpr int kStage = 2;  // float4s of each slab a thread has in flight
+constexpr float kPrior = 1.0f;  // the prior expert's precision
+constexpr float kEps = 1e-8f;   // added to each expert's variance
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -71,9 +71,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // An expert's precision. The comparisons keep a NaN, as torch.clamp does.
-__device__ __forceinline__ float precision(float lv, float eps) {
+__device__ __forceinline__ float precision(float lv) {
   const float c = lv < -11.0f ? -11.0f : (lv > 11.0f ? 11.0f : lv);
-  return 1.0f / (expf(c) + eps);
+  return 1.0f / (expf(c) + kEps);
 }
 
 // The summand of KL before the -0.5 scale, in the plain version's order.
@@ -83,9 +83,8 @@ __device__ __forceinline__ float kl_term(float mu, float lv) {
 
 // One (t, b, l): the fused posterior from the sums over the experts, its
 // two outputs, and its KL summand.
-__device__ __forceinline__ float fuse(float sum_p, float sum_mp, float prior_t,
-                                      float* mu, float* lv) {
-  const float tot = prior_t + sum_p;
+__device__ __forceinline__ float fuse(float sum_p, float sum_mp, float* mu, float* lv) {
+  const float tot = kPrior + sum_p;
   *mu = sum_mp / tot;
   *lv = -logf(tot);
   return kl_term(*mu, *lv);
@@ -111,8 +110,7 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
                               const float* __restrict__ presence,
                               float* __restrict__ mu_f, float* __restrict__ lv_f,
                               float* __restrict__ kl, int n_terms, int batch,
-                              int m_experts, int l_dim, float prior_t, float eps,
-                              int terms) {
+                              int m_experts, int l_dim, int terms) {
   extern __shared__ float4 smem4[];
   float* s_mu = reinterpret_cast<float*>(smem4);
   const int ml = m_experts * l_dim;
@@ -151,8 +149,8 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
         const int i = i0 + k * threads;
         if (i < ml / 4) {
           sm4[i] = u[k];
-          sp4[i] = make_float4(precision(v[k].x, eps), precision(v[k].y, eps),
-                               precision(v[k].z, eps), precision(v[k].w, eps));
+          sp4[i] = make_float4(precision(v[k].x), precision(v[k].y),
+                               precision(v[k].z), precision(v[k].w));
         }
       }
     }
@@ -173,7 +171,7 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
         const int i = i0 + k * threads;
         if (i < ml) {
           s_mu[i] = u[k];
-          s_p[i] = precision(v[k], eps);
+          s_p[i] = precision(v[k]);
         }
       }
     }
@@ -215,10 +213,10 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
           smp.w += __fmul_rn(u.w, pw);
         }
         float4 f_mu, f_lv;
-        const float kx = fuse(sp.x, smp.x, prior_t, &f_mu.x, &f_lv.x);
-        const float ky = fuse(sp.y, smp.y, prior_t, &f_mu.y, &f_lv.y);
-        const float kz = fuse(sp.z, smp.z, prior_t, &f_mu.z, &f_lv.z);
-        const float kw = fuse(sp.w, smp.w, prior_t, &f_mu.w, &f_lv.w);
+        const float kx = fuse(sp.x, smp.x, &f_mu.x, &f_lv.x);
+        const float ky = fuse(sp.y, smp.y, &f_mu.y, &f_lv.y);
+        const float kz = fuse(sp.z, smp.z, &f_mu.z, &f_lv.z);
+        const float kw = fuse(sp.w, smp.w, &f_mu.w, &f_lv.w);
         mu4[c] = f_mu;
         lv4[c] = f_lv;
         acc += kx + ky + kz + kw;
@@ -233,7 +231,7 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
           smp += __fmul_rn(s_mu[m * l_dim + l], p);
         }
         float f_mu, f_lv;
-        acc += fuse(sp, smp, prior_t, &f_mu, &f_lv);
+        acc += fuse(sp, smp, &f_mu, &f_lv);
         mu_f[row + l] = f_mu;
         lv_f[row + l] = f_lv;
       }
@@ -242,8 +240,6 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
     if (lane == 0) kl[static_cast<size_t>(t) * batch + b] = -0.5f * acc;
   }
 }
-
-__global__ void empty_kernel() {}
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -263,9 +259,8 @@ extern "C" const char* poe_kl_error_string(int code) {
 // smem the bytes of the two slabs and the group's weights, at most 48 KB.
 extern "C" int poe_kl(const float* mu_e, const float* lv_e, const float* masks,
                       const float* presence, float* mu_f, float* lv_f, float* kl,
-                      int n_terms, int batch, int m_experts, int l_dim,
-                      float prior_t, float eps, int terms, int warps, int blocks,
-                      int smem, cudaStream_t stream) {
+                      int n_terms, int batch, int m_experts, int l_dim, int terms,
+                      int warps, int blocks, int smem, cudaStream_t stream) {
   if (n_terms <= 0 || batch <= 0 || m_experts <= 0 || l_dim <= 0 || terms <= 0 ||
       terms > n_terms || warps <= 0 || warps > kMaxWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -281,20 +276,11 @@ extern "C" int poe_kl(const float* mu_e, const float* lv_e, const float* masks,
   if (vec) {
     poe_kl_kernel<true><<<blocks, warps * kWarp, smem, stream>>>(
         mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch, m_experts,
-        l_dim, prior_t, eps, terms);
+        l_dim, terms);
   } else {
     poe_kl_kernel<false><<<blocks, warps * kWarp, smem, stream>>>(
         mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch, m_experts,
-        l_dim, prior_t, eps, terms);
+        l_dim, terms);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// An empty kernel of `blocks` blocks of `threads` threads.
-extern "C" int empty_launch(int blocks, int threads, cudaStream_t stream) {
-  if (blocks <= 0 || threads <= 0 || threads > 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  empty_kernel<<<blocks, threads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

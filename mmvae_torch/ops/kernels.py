@@ -23,9 +23,10 @@
     sizes. On the ported paths the KL runs here, not in K1.
 
 K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, K4 in
-``csrc/conv_s2.cu``, the fused PoE and KL in ``csrc/poe_kl.cu`` (with an
-empty kernel, ``empty_launch``, that times the launch floor), each behind
-a plain C interface. :func:`build` compiles the sources with
+``csrc/conv_s2.cu``, the fused PoE and KL in ``csrc/poe_kl.cu``, each
+behind a plain C interface; ``csrc/launch_floor.cu``, an empty kernel that
+times the launch floor, is built only when asked for by name
+(:data:`PROBE_SOURCES`). :func:`build` compiles the sources with
 ``nvcc`` for ``sm_90a`` into ``mmvae_torch/_build/`` at first use (again
 whenever a source's hash changes), one ``nvcc`` per source, all started
 together; each library is loaded with ``ctypes``. Each wrapper checks its
@@ -61,6 +62,7 @@ __all__ = [
     "FOLD_B",
     "LAUNCHES",
     "SOURCES",
+    "PROBE_SOURCES",
     "build",
     "tile_rows",
     "BcePlan",
@@ -100,13 +102,16 @@ SOURCES = {
     "conv_s2": _CSRC / "conv_s2.cu",
     "poe_kl": _CSRC / "poe_kl.cu",
 }
+# Built only when named: no ported path loads them.
+PROBE_SOURCES = {"launch_floor": _CSRC / "launch_floor.cu"}
+_ALL_SOURCES = {**SOURCES, **PROBE_SOURCES}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_ptr, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {function: argtypes}; every function returns an int
 # (the launch's cudaError_t) and takes the stream last.
 _SIGNATURES = {
@@ -122,10 +127,10 @@ _SIGNATURES = {
                             _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
-        "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _f32,
-                   _f32, _i32, _i32, _i32, _i32, _ptr],
-        "empty_launch": [_i32, _i32, _ptr],
+        "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
+                   _i32, _i32, _i32, _ptr],
     },
+    "launch_floor": {"empty_launch": [_i32, _i32, _ptr]},
 }
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -139,13 +144,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    key = SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    key = _ALL_SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     return BUILD_DIR / f"{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, Path]:
-    """Compile the named sources (all of :data:`SOURCES` by default)
-    unless each is already built; the ``nvcc`` runs start together.
+    """Compile the named sources (all of :data:`SOURCES` by default; a
+    name of :data:`PROBE_SOURCES` too) unless each is already built; the
+    ``nvcc`` runs start together.
 
     A library is named by the hash of its source and the flags, so an
     edited source is rebuilt. ``nvcc``'s output (``-Xptxas -v``:
@@ -161,7 +167,7 @@ def build(*names: str) -> dict[str, Path]:
             continue
         tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_ALL_SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         running[name] = (proc, tmp, so)
@@ -169,7 +175,7 @@ def build(*names: str) -> dict[str, Path]:
     for name, (proc, tmp, so) in running.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc {SOURCES[name].name} failed with code "
+            failed.append(f"nvcc {_ALL_SOURCES[name].name} failed with code "
                           f"{proc.returncode}:\n{err}")
             continue
         so.with_suffix(".log").write_text(out + err)
@@ -645,12 +651,12 @@ def _check_f32(name: str, x: torch.Tensor, shape: tuple, device) -> None:
 
 def poe_kl_kernel(
     mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
-    presence: torch.Tensor | None = None, eps: float = 1e-8,
-    include_prior: bool = True, plan: PoeKlPlan | None = None,
+    presence: torch.Tensor | None = None, plan: PoeKlPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The PoE of ``(B, M, L)`` f32 CUDA experts under ``(T, M)`` subset
-    masks and an optional ``(B, M)`` presence mask, and the KL of each
-    fused posterior to N(0, I), in one launch.
+    masks and an optional ``(B, M)`` presence mask, with the unit-Gaussian
+    prior and eps 1e-8, and the KL of each fused posterior to N(0, I), in
+    one launch.
 
     Returns ``(mu_f, lv_f, kl)``: ``(T, B, L)``, ``(T, B, L)`` and ``(T,
     B)``, as :func:`poe_kl_torch`. ``plan`` overrides :func:`poe_kl_plan`
@@ -677,8 +683,7 @@ def poe_kl_kernel(
     _launch(
         "poe_kl", "poe_kl", mu_e.device, mu_e.data_ptr(), lv_e.data_ptr(),
         masks.data_ptr(), None if presence is None else presence.data_ptr(),
-        mu_f.data_ptr(), lv_f.data_ptr(), kl.data_ptr(), t, b, m, l,
-        1.0 if include_prior else 0.0, eps, *plan,
+        mu_f.data_ptr(), lv_f.data_ptr(), kl.data_ptr(), t, b, m, l, *plan,
     )
     LAUNCHES["poe_kl"] += 1
     return mu_f, lv_f, kl
@@ -686,8 +691,7 @@ def poe_kl_kernel(
 
 def masked_poe_torch(
     mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
-    presence: torch.Tensor | None = None, eps: float = 1e-8,
-    include_prior: bool = True,
+    presence: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused ``(T, B, L)`` posteriors of :func:`poe_kl_torch`: the term
     masks times the presence, then the masked PoE of the expert stack
@@ -698,15 +702,14 @@ def masked_poe_torch(
         eff = eff * presence[None]  # (T, B, M)
     else:
         eff = eff.expand(n_terms, mu_e.shape[0], n_mod)
-    return _poe_plain(mu_e[None], lv_e[None], mask=eff, eps=eps, include_prior=include_prior)
+    return _poe_plain(mu_e[None], lv_e[None], mask=eff)
 
 
 def poe_kl_torch(
     mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
-    presence: torch.Tensor | None = None, eps: float = 1e-8,
-    include_prior: bool = True,
+    presence: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`poe_kl_kernel`: the masked PoE,
     then the KL of each fused posterior."""
-    mu_f, lv_f = masked_poe_torch(mu_e, lv_e, masks, presence, eps, include_prior)
+    mu_f, lv_f = masked_poe_torch(mu_e, lv_e, masks, presence)
     return mu_f, lv_f, _kl_plain(mu_f, lv_f)

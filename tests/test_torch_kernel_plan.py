@@ -197,7 +197,7 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
     [("row_reduce", "bce_rows", 7, kernels.BcePlan),
      ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
      ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
-     ("poe_kl", "poe_kl", 13, kernels.PoeKlPlan)],
+     ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -205,6 +205,16 @@ def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     sig = kernels._SIGNATURES[lib][fn]
     assert len(sig) == n_args + len(plan_type._fields) + 1
     assert all(t is kernels._i32 for t in sig[n_args:-1])
+
+
+def test_probe_sources_stay_out_of_the_default_build():
+    """Every bound library has a source and every source a binding; the
+    launch-floor probe is no source of the port's own, so ``build()``
+    and the ported paths never compile or load it."""
+    assert set(kernels._SIGNATURES) == set(kernels.SOURCES) | set(kernels.PROBE_SOURCES)
+    assert not set(kernels.SOURCES) & set(kernels.PROBE_SOURCES)
+    assert "empty_launch" in kernels._SIGNATURES["launch_floor"]
+    assert all(src.is_file() for src in kernels._ALL_SOURCES.values())
 
 
 def _poe_covered(t: int, b: int, plan) -> np.ndarray:

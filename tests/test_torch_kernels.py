@@ -589,8 +589,7 @@ def _poe_inputs(gen, shape, case, device):
     M, L). ``eval``: every modality present; ``ragged``: the rows past the
     first quarter all absent, as the eval's padded last batch; ``none``: no
     presence; ``wide``: log-variances past the +-11 clamp; ``unaligned``:
-    expert views one element into their storage (scalar loads);
-    ``no_prior``: the prior left out, every row with an expert."""
+    expert views one element into their storage (scalar loads)."""
     t, b, m, l = shape
     n = b * m * l
     mu = torch.randn(n + 1, generator=gen)
@@ -600,11 +599,11 @@ def _poe_inputs(gen, shape, case, device):
     masks = elbo_subset_masks(m, device=device)
     assert masks.shape == (t, m)
     presence = (torch.rand(b, m, generator=gen) < 0.7).float().to(device)
-    if case in ("eval", "no_prior"):
+    if case == "eval":
         presence = torch.ones(b, m, device=device)
     elif case == "ragged":
         presence[b // 4:] = 0.0
-    return mu, lv, masks, None if case == "none" else presence, 1e-8, case != "no_prior"
+    return mu, lv, masks, None if case == "none" else presence
 
 
 def _poe_close(got, want, l: int) -> None:
@@ -619,7 +618,7 @@ POE_EVAL_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned", "no_prior"])
+@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned"])
 @pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)])
 def test_poe_kl_kernel_matches_plain(cuda, shape, case):
     """Each eval shape and an odd L, in every case; the absent rows of a
@@ -666,7 +665,7 @@ def test_poe_kl_kernel_refuses_a_plan_it_cannot_run(cuda):
 @pytest.mark.gpu
 def test_ops_poe_kl_runs_the_kernel_on_the_card(cuda):
     gen = torch.Generator().manual_seed(26)
-    mu, lv, masks, presence, _, _ = _poe_inputs(gen, (20, 64, 19, 100), "ragged", cuda)
+    mu, lv, masks, presence = _poe_inputs(gen, (20, 64, 19, 100), "ragged", cuda)
     before = kernels.LAUNCHES["poe_kl"]
     got = ops.poe_kl(mu, lv, masks, presence)
     assert kernels.LAUNCHES["poe_kl"] == before + 1

@@ -23,9 +23,9 @@ RTOL = 2e-4
 # 100 latents, an odd L.
 SHAPES = [(3, 10, 2, 64), (20, 6, 19, 100), (3, 5, 2, 37)]
 # presence given (rows 0 and 2 with every modality absent, as the eval's
-# padding rows); presence absent; log-variances past the +-11 clamp; no
-# prior, with a present expert in every term of every row.
-CASES = ["zero_rows", "no_presence", "wide_logvar", "no_prior"]
+# padding rows); presence absent; log-variances past the +-11 clamp; every
+# modality present, as in a full eval batch.
+CASES = ["zero_rows", "no_presence", "wide_logvar", "all_present"]
 
 
 def _inputs(shape, case, seed=0):
@@ -40,17 +40,16 @@ def _inputs(shape, case, seed=0):
     presence[[0, 2]] = 0.0
     if case == "no_presence":
         presence = None
-    elif case == "no_prior":
+    elif case == "all_present":
         presence = np.ones((b, m), np.float32)
-    return mu, lv, masks, presence, case != "no_prior"
+    return mu, lv, masks, presence
 
 
-def _jax_poe_kl(mu, lv, masks, presence, include_prior):
+def _jax_poe_kl(mu, lv, masks, presence):
     eff = masks[:, None, :] if presence is None else masks[:, None, :] * presence[None]
     eff = np.broadcast_to(eff, (masks.shape[0], mu.shape[0], masks.shape[1]))
     mu_f, lv_f = jcore.product_of_experts(
-        jnp.asarray(mu)[None], jnp.asarray(lv)[None], mask=jnp.asarray(eff),
-        include_prior=include_prior,
+        jnp.asarray(mu)[None], jnp.asarray(lv)[None], mask=jnp.asarray(eff)
     )
     kl = jkernels._kl_fwd_impl(mu_f, lv_f, interpret=True)
     return [np.asarray(a) for a in (mu_f, lv_f, kl)]
@@ -63,9 +62,9 @@ def _t(a):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_poe_kl_plain_matches_jax_poe_and_pallas_kl(shape, case):
-    mu, lv, masks, presence, prior = _inputs(shape, case)
-    got = kernels.poe_kl_torch(_t(mu), _t(lv), _t(masks), _t(presence), 1e-8, prior)
-    want = _jax_poe_kl(mu, lv, masks, presence, prior)
+    mu, lv, masks, presence = _inputs(shape, case)
+    got = kernels.poe_kl_torch(_t(mu), _t(lv), _t(masks), _t(presence))
+    want = _jax_poe_kl(mu, lv, masks, presence)
     t, b, _, l = shape
     for g, w, out_shape, atol in zip(got, want, [(t, b, l), (t, b, l), (t, b)],
                                      [1e-6, 1e-6, 1e-5 * l]):
@@ -81,7 +80,7 @@ def test_ops_poe_kl_on_the_cpu_is_the_sequence_it_replaces(case):
     """On the CPU ``ops.poe_kl`` gives the same bits as the eval's earlier
     sequence: the mask product, ``core.product_of_experts``, then
     ``ops.kl_std_normal``."""
-    mu, lv, masks, presence, _ = _inputs((20, 6, 19, 100), case, seed=1)
+    mu, lv, masks, presence = _inputs((20, 6, 19, 100), case, seed=1)
     mu, lv, masks, presence = _t(mu), _t(lv), _t(masks), _t(presence)
     eff = masks[:, None, :]
     if presence is not None:
@@ -98,7 +97,7 @@ def test_ops_poe_kl_on_the_cpu_is_the_sequence_it_replaces(case):
 def test_ops_poe_kl_kernel_backend_raises_on_the_cpu():
     """Under the "kernel" backend CPU tensors raise, and an input that
     requires grad raises first; under "torch" the plain version runs."""
-    mu, lv, masks, presence = (_t(a) for a in _inputs((3, 10, 2, 64), "zero_rows")[:4])
+    mu, lv, masks, presence = (_t(a) for a in _inputs((3, 10, 2, 64), "zero_rows"))
     try:
         ops.set_backend("kernel")
         with pytest.raises(ValueError, match="CUDA"):
