@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cross-entropy, 1e-5 * 16 * C for the f32 conv: the kernels sum in
    another order; the bf16 conv atol 2e-2, one bf16 rounding of outputs
    below 4; the fused PoE + KL atol 1e-6 for the posteriors and 1e-5 * L
-   for the KL, whose rows with every expert absent must give exactly 0);
+   for the KL, whose rows with every expert absent must give exactly 0;
+   the elementwise gradients of K1 and K2 atol 1e-6; the fused PoE + KL's
+   backward atol 1e-5 * T times its largest gradient, as it sums T terms);
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
    every eval runs the fused PoE + KL once per batch and K1 no time;
@@ -34,6 +36,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    CPU reference on a small split (rel 1e-4: CPU and card matmuls round
    differently; generated probabilities within 1e-4, tokens and labels
    generated at temperature 0 equal);
+   - ``mnist`` training: ``api.train`` for one epoch at full width (100
+     steps of batch 100 over the 10,000-example train split, then the test
+     ELBO), launching the fused PoE + KL and K2 forward 120 times each and
+     their backward kernels 100 times each; its first-epoch test ELBO below
+     the untrained model's; three steps of ``make_train_step`` on the card
+     and on the CPU from the same weights, noise and batches (the loss
+     each step at rel 1e-4, every parameter tensor at a relative 2-norm of
+     1e-4); the train samples/s of a timed epoch and a profile of one step;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 50) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -45,7 +55,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel's grids and at one warp, graph-replayed and eager; and for each
    config the wall time of one ``eval_elbo`` and a profile of where its
    device time goes (its device busy time with and without the
-   host-to-device copies, whose pageable upload varies run to run).
+   host-to-device copies, whose pageable upload varies run to run). The
+   backward kernels are timed at MNIST's train shapes beside their plain
+   versions and the autograd backward of the library forward.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -69,6 +81,7 @@ from mmvae_torch.core import elbo_subset_masks
 from mmvae_torch.data import load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
+from mmvae_torch.train import create_train_state, make_epoch_runner, make_train_step
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate, L2 size, the f32 rate outside the
@@ -83,10 +96,19 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # an exp, an add and a divide; per (term, expert element) the weight
 # product and its sum, the mean product and its sum; per output the prior
 # add, a divide, a log, a negation and K1's 5.
-OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4}
+# The gradients: KL's 1 + 4 (a product; a product, an exp, a subtract and
+# a product); BCE's an exp, an add, a divide, a subtract and a product.
+# The PoE's backward: per expert element the precision's 4 and its
+# derivative's 3; per (term, expert element) the weight product, the mean
+# and precision shares (3 products, a subtract, a subtract, 2 adds); per
+# output the total's prior add, K1's VJP (a product, an add; an exp, a
+# subtract, 2 products, an add) and 2 divides.
+OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5}
 CONV_OPS_PER_OUT = 5
 POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
-OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl")
+POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
+OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "poe_kl_bwd")
+BWD_OPS = ("kl_bwd", "bce_bwd", "poe_kl_bwd")
 CONFIGS = ("mnist", "multimnist", "celeba")
 META = {
     "kl": {
@@ -120,6 +142,26 @@ META = {
         "source": "mmvae_torch/ops/csrc/poe_kl.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:139",
     },
+    "kl_bwd": {
+        "name": "kl_rows_grad",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/row_reduce.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:155",
+        "note": "K1's VJP; on the train path it runs inside poe_kl_bwd",
+    },
+    "bce_bwd": {
+        "name": "bce_rows_grad",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/row_reduce.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:312",
+    },
+    "poe_kl_bwd": {
+        "name": "poe_kl_bwd",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/poe_kl.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:155",
+        "note": "K1's VJP carried back through the PoE to the expert stack",
+    },
 }
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
 # of the sequence cross-entropy, (B, H, W, C, dtype) of the conv, (T, B, M,
@@ -150,6 +192,14 @@ TIMED_SHAPES = {
     "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
                "multimnist_eval": (3, 100, 2, 256, "eval"),
                "celeba_eval": (20, 64, 19, 100, "eval")},
+    # One MNIST train step: K1's VJP at the (T * B, L) posteriors (no path
+    # runs it alone), K2's at the image's 2 member terms against 100
+    # untiled targets, the fused PoE + KL's at the batch's expert stack.
+    "kl_bwd": {"mnist_train": (300, 64, 300, None), "celeba_eval": (1280, 100, 1280, None)},
+    "bce_bwd": {"mnist_train": (200, 784, 100, kernels.FOLD_T),
+                "celeba_image": (128, 12288, 64, kernels.FOLD_T)},
+    "poe_kl_bwd": {"mnist_train": (3, 100, 2, 64, "eval"),
+                   "celeba_eval": (20, 64, 19, 100, "eval")},
 }
 CHECKED_SHAPES = {
     "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
@@ -193,25 +243,49 @@ CHECKED_SHAPES = {
                (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
                (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
                (20, 64, 19, 100, "unaligned")],
+    "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
+               (5, 3, 5, None)],
+    "bce_bwd": [
+        (200, 784, 100, kernels.FOLD_T),
+        (200, 784, 200, kernels.FOLD_NONE),
+        (200, 784, 100, kernels.FOLD_B),
+        (128, 12288, 64, kernels.FOLD_T),
+        (21888, 1, 1152, kernels.FOLD_T),
+        (36, 1002, 18, kernels.FOLD_B),
+    ],
+    # The fused PoE + KL's cases, and log-variances at exactly +-11.
+    "poe_kl_bwd": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"),
+                   (20, 64, 19, 100, "eval"), (20, 64, 19, 100, "ragged"),
+                   (3, 100, 2, 64, "none"), (20, 64, 19, 100, "wide"),
+                   (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
 # this slice's path (CelebA) for the kernels it runs, else the path that
 # runs the kernel.
 REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba", "celeba_image"),
             "seq_ce": ("multimnist", "multimnist_eval"), "conv": ("celeba", "celeba_eval"),
-            "poe_kl": ("celeba", "celeba_eval")}
+            "poe_kl": ("celeba", "celeba_eval"), "kl_bwd": ("mnist_train", "mnist_train"),
+            "bce_bwd": ("mnist_train", "mnist_train"),
+            "poe_kl_bwd": ("mnist_train", "mnist_train")}
+_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "poe_kl_bwd": 0}
 EXPECTED_LAUNCHES = {
-    "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20},
-    "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20},
+    "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
     # 32 eval batches, each the fused PoE + KL once and K2 twice (image,
     # attributes); K4 once per eval batch and once per generate or sample
     # call.
-    "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 32},
+    "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 32, **_NO_BWD},
+    # 100 train steps, each the fused PoE + KL and K2 (the image's 2 member
+    # terms) forward and backward once, then the 20 batches of the test
+    # ELBO, forward only.
+    "mnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                    "kl_bwd": 0, "bce_bwd": 100, "poe_kl_bwd": 100},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
-                "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel")
+                "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
+                "kl_rows_grad_kernel", "bce_rows_grad_kernel", "poe_kl_bwd_kernel")
 PAD = 0
 
 
@@ -222,7 +296,7 @@ def emit(obj: dict) -> None:
 def describe(op: str, shape) -> dict:
     if op == "conv":
         return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
-    if op == "poe_kl":
+    if op in ("poe_kl", "poe_kl_bwd"):
         return {"shape": list(shape[:4]), "case": shape[4]}
     return {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
 
@@ -247,6 +321,21 @@ def inputs(op: str, shape, gen: torch.Generator):
         return tuple(t.to(dtype) for t in (x, weight, bias))
     if op == "poe_kl":
         return poe_inputs(shape, gen)
+    if op == "kl_bwd":
+        return (*inputs("kl", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
+    if op == "bce_bwd":
+        logits, x, fold = inputs("bce", shape, gen)
+        return (logits, x, torch.randn(shape[0], generator=gen, device=dev), fold)
+    if op == "poe_kl_bwd":
+        t, b, _, l, case = shape
+        args = poe_inputs((*shape[:4], "wide" if case == "ties" else case), gen)
+        if case == "ties":
+            args[1][:, :, ::3] = 11.0
+            args[1][:, :, 1::3] = -11.0
+        mu_f, lv_f, _ = kernels.poe_kl_torch(*args)
+        return (*args, mu_f, lv_f, torch.randn(t, b, l, generator=gen, device=dev),
+                torch.randn(t, b, l, generator=gen, device=dev),
+                torch.randn(t, b, generator=gen, device=dev))
     # Tokens whose rows end in PAD runs of random length; the first rows
     # are all PAD.
     n, s, v = shape
@@ -291,10 +380,13 @@ def parent_chain(*args):
 
 KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_kernel,
              "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel,
-             "poe_kl": kernels.poe_kl_kernel}
+             "poe_kl": kernels.poe_kl_kernel, "kl_bwd": kernels.kl_rows_grad_kernel,
+             "bce_bwd": kernels.bce_rows_grad_kernel,
+             "poe_kl_bwd": kernels.poe_kl_grad_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
             "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
-            "poe_kl": kernels.poe_kl_torch}
+            "poe_kl": kernels.poe_kl_torch, "kl_bwd": kernels.kl_rows_grad_torch,
+            "bce_bwd": kernels.bce_rows_grad_torch, "poe_kl_bwd": kernels.poe_kl_grad_torch}
 
 
 def library_fn(op: str, args):
@@ -318,12 +410,39 @@ def library_fn(op: str, args):
         x, weight, bias = args
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
+    if op in ("bce_bwd", "poe_kl_bwd"):
+        return autograd_backward(op, args)
     return None
+
+
+def autograd_backward(op: str, args):
+    """The library forward of ``op``'s function run with autograd on, and a
+    call that runs only its backward on ``args``' output gradients (the
+    graph is kept). Autograd runs a backward op on its forward op's stream,
+    so this runs on the stream that will run the call (``graph_ms`` makes
+    it there)."""
+    if op == "bce_bwd":
+        logits, x, g, fold = args
+        leaves = (logits.detach().requires_grad_(True),)
+        tiled = kernels.tile_rows(x, logits.shape[0], fold)
+        outs = (F.binary_cross_entropy_with_logits(leaves[0], tiled, reduction="none").sum(-1),)
+        grads = (g,)
+    else:
+        mu_e, lv_e, masks, presence = args[:4]
+        leaves = (mu_e.detach().requires_grad_(True), lv_e.detach().requires_grad_(True))
+        outs = kernels.poe_kl_torch(*leaves, masks, presence)
+        grads = args[6:]
+    return lambda: torch.autograd.grad(outs, leaves, grads, retain_graph=True)
 
 
 def tolerance(op: str, shape) -> tuple[float, float]:
     """(rtol, atol) of a kernel against its plain version; for the fused
-    PoE + KL, of its KL (its posteriors: atol 1e-6)."""
+    PoE + KL, of its KL (its posteriors: atol 1e-6); for its backward, the
+    atol per unit of the largest gradient."""
+    if op in ("kl_bwd", "bce_bwd"):
+        return 1e-5, 1e-6
+    if op == "poe_kl_bwd":
+        return 1e-5, 1e-5 * shape[0]
     if op == "poe_kl":
         return 1e-5, 1e-5 * shape[3]
     if op == "conv":
@@ -340,13 +459,18 @@ def bound(op: str, args) -> tuple[float, str]:
     a pad token, so only the non-pad token rows' logits count. The fused PoE
     + KL reads the expert stack, the masks and the presence and writes the
     posteriors and the KLs."""
-    if op == "poe_kl":
-        mu_e, _, masks, presence = args
+    if op in ("poe_kl", "poe_kl_bwd"):
+        # The backward also reads the saved posteriors and the three output
+        # gradients and writes two expert-stack gradients.
+        mu_e, _, masks, presence = args[:4]
         (b, m, l), t = mu_e.shape, masks.shape[0]
-        n_bytes = 4 * (2 * b * m * l + t * m + (0 if presence is None else b * m)
-                       + 2 * t * b * l + t * b)
-        n_ops = (POE_OPS["expert"] * b * m * l + POE_OPS["term_expert"] * t * b * m * l
-                 + POE_OPS["out"] * t * b * l)
+        bwd = op == "poe_kl_bwd"
+        n_bytes = 4 * ((4 if bwd else 2) * b * m * l + t * m
+                       + (0 if presence is None else b * m)
+                       + (4 if bwd else 2) * t * b * l + t * b)
+        counts = POE_BWD_OPS if bwd else POE_OPS
+        n_ops = (counts["expert"] * b * m * l + counts["term_expert"] * t * b * m * l
+                 + counts["out"] * t * b * l)
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = n_ops / PEAK_OPS_PER_S[torch.float32]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -363,6 +487,12 @@ def bound(op: str, args) -> tuple[float, str]:
         n, _, v = logits.shape
         n_elems = int((tokens != pad).sum()) * v
         n_bytes = 4 * n_elems + tokens.numel() * tokens.element_size() + 4 * n
+    elif op in ("kl_bwd", "bce_bwd"):
+        # The rows and their partner (lv or the untiled targets) and the
+        # row gradients read, one (KL: two) (N, D) gradients written.
+        n, d = args[0].shape
+        n_elems = n * d
+        n_bytes = 4 * (n * d + args[1].numel() + n + (2 if op == "kl_bwd" else 1) * n * d)
     else:
         n, d = args[0].shape
         n_elems = n * d
@@ -394,7 +524,7 @@ def phase_device() -> str:
     for name, so in libs.items():
         ptxas = [
             line.strip() for line in so.with_suffix(".log").read_text().splitlines()
-            if "registers" in line or "spill" in line
+            if "registers" in line or "spill" in line or "Compiling entry" in line
         ]
         emit({"phase": "build", "seconds_all": seconds,
               "library": str(so.relative_to(ROOT)), "ptxas": ptxas})
@@ -402,6 +532,18 @@ def phase_device() -> str:
 
 
 # ------------------------------------------------------------ phase 2 ----
+
+
+def check_grads(op: str, got, want, shape) -> float:
+    """A backward kernel's gradients against its plain version's (the atol
+    of the fused PoE + KL's per unit of its largest gradient). Returns the
+    largest error."""
+    rtol, atol = tolerance(op, shape)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        scale = w.abs().max().item() if op == "poe_kl_bwd" else 1.0
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol * scale)
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
 def check_poe_kl(args, got, want, shape) -> float:
@@ -431,6 +573,8 @@ def phase_check() -> dict[str, float]:
             torch.cuda.synchronize()
             if op == "poe_kl":
                 err = check_poe_kl(args, got, want, shape)
+            elif op in BWD_OPS:
+                err = check_grads(op, got, want, shape)
             else:
                 err = (got.float() - want.float()).abs().max().item()
                 rtol, atol = tolerance(op, shape)
@@ -584,20 +728,122 @@ def phase_main_path() -> dict[str, dict[str, int]]:
     return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba}
 
 
+def train_batches(n_steps: int, bs: int, device, seed: int = 0) -> dict[str, torch.Tensor]:
+    """``n_steps`` batches of ``bs`` from the head of a seeded permutation of
+    MNIST's train split, stacked on ``device``."""
+    train = load_dataset("mnist", "train", n=max(n_steps * bs, 100))
+    perm = torch.randperm(train.size, generator=torch.Generator().manual_seed(seed))
+    idx = perm[: n_steps * bs].numpy()
+    return {k: torch.as_tensor(v[idx], device=device).reshape((n_steps, bs) + v.shape[1:])
+            for k, v in train.arrays.items()}
+
+
+def phase_train() -> dict[str, int]:
+    """``api.train`` of ``mnist`` for one epoch at full width with the
+    "kernel" backend and the launch counts set to 0 just before and read
+    just after; then a timed epoch, a profiled step and the card against
+    the CPU over three steps."""
+    cfg = configs.get_config("mnist").replace(epochs=1)
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    ops.set_backend("kernel")
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        result = api.train(cfg, seed=0, verbose=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        ops.set_backend("auto")
+    record = result.history[0]
+    emit({"phase": "train", "config": "mnist", "epochs": 1, "steps": result.state.step,
+          "train_loss": record["train_loss"], "test_elbo": record["test_elbo"],
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if launches != EXPECTED_LAUNCHES["mnist_train"]:
+        raise AssertionError(
+            f"mnist_train: expected launches {EXPECTED_LAUNCHES['mnist_train']}, got {launches}")
+    if result.state.step != 100 or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"train: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"train: test ELBO {record['test_elbo']} not below the untrained {untrained}")
+    train_rate(result.state, cfg)
+    train_card_vs_cpu()
+    return launches
+
+
+def train_rate(state, cfg) -> None:
+    """Train samples/s of an epoch of 100 steps of batch 100 (host clock
+    from a sync to a sync, twice), and a profile of one step."""
+    batches = train_batches(100, cfg.batch_size, "cuda", seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runner = make_epoch_runner(state.model, annealing_steps=1000, generator=gen)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = runner(state, batches)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError("train: a non-finite loss in the timed epoch")
+    emit({"phase": "train_rate", "config": "mnist", "steps": 100, "batch": cfg.batch_size,
+          "wall_s": walls, "samples_per_s": [100 * cfg.batch_size / w for w in walls]})
+    step = make_train_step(state.model, annealing_steps=1000, generator=gen)
+    batch = {k: v[0] for k, v in batches.items()}
+    step(state, batch)
+    emit({"phase": "train_step_profile", "config": "mnist",
+          **profile_summary(lambda: step(state, batch))})
+
+
+def train_card_vs_cpu(n_steps: int = 3) -> None:
+    """``n_steps`` of ``make_train_step`` on the card (its kernels) and on
+    the CPU from the same seeded weights, noise and batches: the loss each
+    step at rel 1e-4, and every parameter tensor after at a relative 2-norm
+    of 1e-4 (CPU and card matmuls round differently)."""
+    batches = train_batches(n_steps, 100, "cpu", seed=2)
+    eps = torch.randn((n_steps, 3, 100, 64), generator=torch.Generator().manual_seed(3))
+    init = dict(configs.build_model("mnist", seed=0, device="cpu").named_parameters())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = configs.build_model("mnist", seed=0, device=dev)
+        state = create_train_state(model, 1e-3)
+        step = make_train_step(model, annealing_steps=1000)
+        losses = [step(state, {k: v[i].to(dev) for k, v in batches.items()},
+                       eps=eps[i].to(dev))[1]["loss"].item() for i in range(n_steps)]
+        runs[dev] = (losses, {k: p.detach().cpu() for k, p in model.named_parameters()})
+    (card_l, card_p), (cpu_l, cpu_p) = runs["cuda"], runs["cpu"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)]
+    param_rel = {k: ((card_p[k] - w).norm() / w.norm()).item() for k, w in cpu_p.items()}
+    update_rel = {k: ((card_p[k] - w).norm() / (w - init[k]).norm()).item()
+                  for k, w in cpu_p.items()}
+    emit({"phase": "train_card_vs_cpu", "config": "mnist", "steps": n_steps,
+          "loss_card": card_l, "loss_cpu": cpu_l, "loss_rel": loss_rel,
+          "param_rel_max": max(param_rel.values()), "update_rel_max": max(update_rel.values()),
+          "param_max_abs_err": max((card_p[k] - w).abs().max().item() for k, w in cpu_p.items())})
+    if not (max(loss_rel) <= 1e-4 and max(param_rel.values()) <= 1e-4):
+        raise AssertionError(f"train: card and CPU differ: loss {loss_rel}, params {param_rel}")
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 
 def graph_ms(calls, reps: int = 50) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
-    timed by CUDA events, median over ``reps`` replays."""
+    timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
+    function that makes the list: it runs on the stream the graph is
+    captured on (an autograd backward must be made there)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
+        if callable(calls):
+            calls = calls()
         for call in calls[:3]:
             call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for call in calls:
             call()
     times = []
@@ -632,7 +878,7 @@ def cold_ms(make_call, args, copies: int) -> float:
     by the calls on the others. ``make_call(args)`` gives the call."""
     sets = [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
             for _ in range(copies)]
-    return graph_ms([make_call(a) for a in sets], reps=20)
+    return graph_ms(lambda: [make_call(a) for a in sets], reps=20)
 
 
 def eager_ms(fn, reps: int = 50, inner: int = 20) -> float:
@@ -658,13 +904,14 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
     for op in OPS:
         for label, shape in TIMED_SHAPES[op].items():
             args = inputs(op, shape, gen)
-            k, p, lib = KERNEL_FN[op], PLAIN_FN[op], library_fn(op, args)
+            k, p = KERNEL_FN[op], PLAIN_FN[op]
+            has_lib = library_fn(op, args) is not None
             row = {
                 "kernel_ms": device_ms(lambda: k(*args)),
                 "plain_ms": device_ms(lambda: p(*args)),
                 "kernel_eager_ms": eager_ms(lambda: k(*args)),
                 "plain_eager_ms": eager_ms(lambda: p(*args)),
-                "library_ms": None if lib is None else device_ms(lib),
+                "library_ms": graph_ms(lambda: [library_fn(op, args)] * 20) if has_lib else None,
             }
             copies = cold_copies(args)
             row["cold_copies"] = copies
@@ -672,7 +919,7 @@ def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
                 cold_ms(lambda a: functools.partial(k, *a), args, copies) if copies else None)
             row["library_cold_ms"] = (
                 cold_ms(lambda a: library_fn(op, a), args, copies)
-                if copies and lib is not None else None)
+                if copies and has_lib else None)
             row["bound_ms"], row["bound_by"] = bound(op, args)
             if op == "poe_kl":
                 row["parent_chain_ms"] = device_ms(lambda: parent_chain(*args))
@@ -717,45 +964,58 @@ def phase_eval_wall(config: str) -> None:
         walls.append(1e3 * (time.perf_counter() - t0))
     emit({"phase": "eval_wall", "config": config, "examples": test.size, "batches": batches,
           "wall_ms_median": statistics.median(walls), "wall_ms": walls})
+    emit({"phase": "eval_profile", "config": config,
+          **profile_summary(lambda: api.eval_elbo(config, model=model, dataset=test))})
 
+
+def profile_summary(fn) -> dict:
+    """Where the device time of one call of ``fn`` goes: its wall (to a
+    sync), device busy time with and without every host-to-device copy, the
+    idle share, the device events, the top device ops and the port's
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.eval_elbo(config, model=model, dataset=test)
+        fn()
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
     def dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
     # Device-side events only (kernels, copies): a CPU op's device time
-    # repeats that of the kernels it launched.
+    # repeats that of the kernels it launched, and so does a user
+    # annotation's span on the device (the optimizer step's).
     rows = sorted(
         ((dev_us(e), e.key, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA),
+         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
     # Every host-to-device copy, not only those in the top list: the
     # profiler counts the pageable upload in some evals and not others.
     h2d = sum(r[0] for r in rows if "HtoD" in r[1])
-    emit({"phase": "eval_profile", "config": config, "wall_us": wall_us,
-          "device_busy_us": busy if busy else "not measured",
-          "device_busy_less_h2d_us": busy - h2d if busy else "not measured",
-          "h2d_us": h2d if busy else "not measured",
-          "device_idle_share": 1 - busy / wall_us if busy else "not measured",
-          "device_events": sum(r[2] for r in rows),
-          "top": [{"name": k[:80], "device_us": us, "count": c}
-                  for us, k, c in rows[:12] if us > 0],
-          "port_kernels": [{"name": k[:80], "device_us": us, "count": c}
-                           for us, k, c in rows if any(n in k for n in PORT_KERNELS)]})
+    return {
+        "wall_us": wall_us,
+        "device_busy_us": busy if busy else "not measured",
+        "device_busy_less_h2d_us": busy - h2d if busy else "not measured",
+        "h2d_us": h2d if busy else "not measured",
+        "device_idle_share": 1 - busy / wall_us if busy else "not measured",
+        "device_events": sum(r[2] for r in rows),
+        "top": [{"name": k[:80], "device_us": us, "count": c}
+                for us, k, c in rows[:12] if us > 0],
+        "port_kernels": [{"name": k[:80], "device_us": us, "count": c}
+                         for us, k, c in rows if any(n in k for n in PORT_KERNELS)],
+    }
 
 
 def main() -> None:
     kind = phase_device()
     max_err = phase_check()
     launches = phase_main_path()
+    launches["mnist_train"] = phase_train()
     reported = phase_timings(launches)
     phase_launch_floor()
     for config in CONFIGS:

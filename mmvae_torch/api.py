@@ -1,5 +1,7 @@
-"""User-facing entry points of the inference slice (port of ``mmvae_tpu/api.py``).
+"""User-facing entry points (port of ``mmvae_tpu/api.py``).
 
+  * :func:`train` -- train a config from its seeded init (``api.py:414``),
+    without checkpoints yet;
   * :func:`eval_elbo` -- mean multi-term ELBO over a split (``api.py:1013``);
   * :func:`generate` -- cross-modal generation from any observed subset
     (``api.py:1504``);
@@ -9,23 +11,33 @@ Every entry point runs on ``device``, which defaults to the card
 (``torch.device("cuda")``) and raises when there is none; pass
 ``device="cpu"`` to run on the CPU. Weights come from a ``model`` the
 caller built (``configs.build_model``, or ``convert.from_flax_params``
-loaded into it) or a ``state_dict``; checkpoint loading and training are
-not ported yet.
+loaded into it), a ``state_dict``, or :func:`train`'s result; checkpoints
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
-from mmvae_torch.configs import ExperimentConfig, build_model, get_config
+from mmvae_torch.configs import (
+    UNPORTED_TRAIN_DEFAULTS,
+    ExperimentConfig,
+    build_model,
+    get_config,
+)
 from mmvae_torch.core import fuse_observed_z
 from mmvae_torch.data import Dataset, load_dataset, stacked_epoch_padded
 from mmvae_torch.device import resolve_device
-from mmvae_torch.train import make_eval_runner
+from mmvae_torch.train import (
+    TrainState,
+    create_train_state,
+    make_epoch_runner,
+    make_eval_runner,
+)
 
-__all__ = ["eval_elbo", "generate", "sample"]
+__all__ = ["TrainResult", "train", "eval_elbo", "generate", "sample"]
 
 
 def _resolve(config, model, state_dict, device):
@@ -61,14 +73,129 @@ def eval_elbo(
     if dataset is None:
         dataset = load_dataset(config.dataset, "test", n=config.test_size)
     batch_size = min(batch_size or config.batch_size, dataset.size)
+    stacked = _padded_split(dataset, batch_size, model.n_modalities, device)
+    return _split_elbo(model, config.objective, stacked, dataset.size)
+
+
+def _padded_split(
+    dataset: Dataset, batch_size: int, n_modalities: int, device: torch.device
+) -> dict[str, torch.Tensor]:
+    """The split stacked into whole batches on ``device``, the last padded,
+    with the validity mask as an all-modalities ``presence``."""
     batches, valid = stacked_epoch_padded(dataset, batch_size)
     stacked = {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
     stacked["presence"] = (
-        torch.as_tensor(valid, device=device)[..., None]
-        .expand(-1, -1, model.n_modalities)
+        torch.as_tensor(valid, device=device)[..., None].expand(-1, -1, n_modalities)
     )
-    metrics = make_eval_runner(model, config.objective)(stacked)
-    return float(metrics["loss"].sum()) * batch_size / dataset.size
+    return stacked
+
+
+def _split_elbo(model, objective: str, stacked: dict[str, torch.Tensor], size: int) -> float:
+    """Mean ELBO of a :func:`_padded_split` of ``size`` examples: the pad
+    rows contribute 0, so it is ``sum(batch losses) * bs / size``."""
+    metrics = make_eval_runner(model, objective)(stacked)
+    return float(metrics["loss"].sum()) * stacked["presence"].shape[1] / size
+
+
+class TrainResult(NamedTuple):
+    config: ExperimentConfig
+    model: Any
+    state: TrainState
+    best_test_elbo: float
+    history: list[dict[str, float]]
+
+
+def _check_trainable(config: ExperimentConfig) -> None:
+    """Raise on a config that sets a training feature not ported yet."""
+    set_knobs = sorted(
+        k for k, v in UNPORTED_TRAIN_DEFAULTS.items() if getattr(config, k) != v
+    )
+    if config.n_random_subsets:
+        set_knobs.append("n_random_subsets")
+    if set_knobs:
+        raise NotImplementedError(
+            f"config {config.name!r} sets {set_knobs}: not yet ported to mmvae_torch"
+        )
+
+
+def train(
+    config: str | ExperimentConfig,
+    workdir: str | None = None,
+    *,
+    seed: int = 0,
+    device: torch.device | str | None = None,
+    resume: bool = False,
+    verbose: bool = True,
+    fault_hook=None,
+) -> TrainResult:
+    """Train ``config`` from its seeded init, evaluating the test split
+    after each epoch (``mmvae_tpu/api.py:414``, single device).
+
+    Each epoch takes a fresh permutation of the train split from a
+    ``torch.Generator`` seeded with ``seed`` (what the JAX defaults,
+    ``reshuffle_every=1`` and ``shuffle_granularity=1``, give), in whole
+    batches; beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
+    the posterior noise and any presence dropout come from a generator on
+    ``device`` seeded with ``seed``. The test ELBO is computed on the EMA
+    parameters when they are tracked. Returns the config, the model (the
+    live parameters), the train state, the best test ELBO and one history
+    record per epoch. ``workdir``, ``resume`` and ``fault_hook``
+    (checkpoints, failure recovery) are not ported yet and raise, as does
+    a config that sets a training feature not ported yet.
+    """
+    if isinstance(config, str):
+        config = get_config(config)
+    for name, given in (("workdir", workdir is not None), ("resume", resume),
+                        ("fault_hook", fault_hook is not None)):
+        if given:
+            raise NotImplementedError(f"train({name}=...) is not yet ported to mmvae_torch")
+    _check_trainable(config)
+    device = resolve_device(device)
+    model = build_model(config, seed=seed, device=device)
+    train_ds = load_dataset(config.dataset, "train", n=config.train_size)
+    test_ds = load_dataset(config.dataset, "test", n=config.test_size)
+    bs = config.batch_size
+    steps_per_epoch = train_ds.size // bs
+    if steps_per_epoch == 0:
+        raise ValueError(f"train split of {train_ds.size} holds no batch of {bs}")
+    state = create_train_state(
+        model, config.learning_rate, grad_clip=config.grad_clip,
+        ema_decay=config.ema_decay, accum_steps=config.accum_steps,
+    )
+    runner = make_epoch_runner(
+        model,
+        annealing_steps=config.annealing_epochs * steps_per_epoch,
+        p_modality_drop=config.p_modality_drop,
+        objective=config.objective,
+        member_prune=config.member_prune,
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+    order = torch.Generator().manual_seed(seed)
+    train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
+    test_split = _padded_split(
+        test_ds, min(bs, test_ds.size), model.n_modalities, device
+    )
+    best = float("inf")
+    history: list[dict[str, float]] = []
+    for epoch in range(1, config.epochs + 1):
+        perm = torch.randperm(train_ds.size, generator=order)[: steps_per_epoch * bs]
+        perm = perm.to(device)
+        batches = {
+            k: v[perm].reshape((steps_per_epoch, bs) + v.shape[1:])
+            for k, v in train_arrays.items()
+        }
+        state, metrics = runner(state, batches)
+        train_loss = float(metrics["loss"].mean())
+        test_elbo = _split_elbo(state.eval_model, config.objective, test_split, test_ds.size)
+        is_best = test_elbo < best
+        best = min(best, test_elbo)
+        history.append({"epoch": epoch, "train_loss": train_loss, "test_elbo": test_elbo})
+        if verbose:
+            print(
+                f"[{config.name}] epoch {epoch:3d} train {train_loss:10.2f} "
+                f"test {test_elbo:10.2f}" + (" *best*" if is_best else "")
+            )
+    return TrainResult(config, model, state, best, history)
 
 
 def _postprocess(

@@ -1,12 +1,16 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-Only the fields the inference slices read, and only the ``mnist``,
-``multimnist`` and ``celeba`` configs; the other experiments raise until
-their slice lands. The training knobs of the JAX configs
-(``cross_recon``, the ``cycle_*`` fields, ``grad_clip``,
-``n_random_subsets``, epochs) are not read by eval or generation and are
-left out: eval pins ``n_random_subsets=0``
-(``mmvae_tpu/train/step.py:1568``).
+Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
+experiments raise until their slice lands. The fields are those the
+inference slices and the MNIST training slice read, with the JAX
+defaults (``mmvae_tpu/configs.py:30-175``), and the training knobs of
+features not yet ported, also at their JAX defaults: ``api.train`` raises
+``NotImplementedError`` when one of those differs from its default
+(:data:`UNPORTED_TRAIN_DEFAULTS`), or when ``n_random_subsets`` is not 0.
+The ``multimnist`` and ``celeba`` configs carry the JAX configs' training
+fields (cross_recon and the cycle term, random subsets, clipping), so
+training them raises until their slices land. Eval pins
+``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,13 @@ import torch
 from mmvae_torch.device import resolve_device
 from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
 
-__all__ = ["ExperimentConfig", "CONFIGS", "get_config", "build_model"]
+__all__ = [
+    "ExperimentConfig",
+    "CONFIGS",
+    "UNPORTED_TRAIN_DEFAULTS",
+    "get_config",
+    "build_model",
+]
 
 
 @dataclasses.dataclass
@@ -29,21 +39,74 @@ class ExperimentConfig:
     name: str
     dataset: str
     n_latents: int
+    epochs: int = 20
     batch_size: int = 100
-    test_size: int = 2000
+    learning_rate: float = 1e-3
+    annealing_epochs: int = 10  # beta ramps 0 -> 1 over these epochs
+    n_random_subsets: int = 0  # random modality-subset terms
     objective: str = "mvae"
+    member_prune: bool = True  # decode each key on its member terms only
+    p_modality_drop: float = 0.0  # presence dropout per example and modality
+    grad_clip: float = 0.0  # global-norm gradient clipping (0: off)
+    ema_decay: float = 0.0  # EMA shadow of the parameters (0: off)
+    train_size: int = 10000
+    test_size: int = 2000
+    # Training knobs of features not yet ported, at the JAX defaults.
+    cross_recon: bool = False
+    cross_recon_weight: float = 1.0
+    cross_recon_stopgrad: bool = False
+    unimodal_align_weight: float = 0.0
+    cycle_weight: float = 0.0
+    cycle_render_binarize: bool | str = False
+    cycle_contrast_weight: float = 0.0
+    cycle_render_grad: bool = False
+    nan_rollback: int = 0
+    accum_steps: int = 1
+    lr_schedule: str = "constant"
+    warmup_epochs: int = 0
+    shuffle_granularity: int = 1
+    reshuffle_every: int = 1
+    shuffle_mode: str = "roll"
+    data_backend: str = "device"
+    data_dtype: str = "float32"
+    fsdp: bool = False
+    tp: int = 1
+    pp: int = 1
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# The training knobs ``api.train`` does not take yet, at the values it
+# takes (the JAX defaults). ``data_backend="grain"`` is the grain backend.
+UNPORTED_TRAIN_DEFAULTS = {
+    f.name: f.default
+    for f in dataclasses.fields(ExperimentConfig)
+    if f.name in (
+        "cross_recon", "cross_recon_weight", "cross_recon_stopgrad",
+        "unimodal_align_weight", "cycle_weight", "cycle_render_binarize",
+        "cycle_contrast_weight", "cycle_render_grad", "nan_rollback",
+        "accum_steps", "lr_schedule", "warmup_epochs", "shuffle_granularity",
+        "reshuffle_every", "shuffle_mode", "data_backend", "data_dtype", "fsdp",
+        "tp", "pp",
+    )
+}
 
 
 CONFIGS: dict[str, ExperimentConfig] = {
     # MVAE on MNIST image+label: MLP encoders, PoE, full ELBO.
-    "mnist": ExperimentConfig(name="mnist", dataset="mnist", n_latents=64),
+    "mnist": ExperimentConfig(
+        name="mnist", dataset="mnist", n_latents=64, annealing_epochs=10,
+    ),
     # MultiMNIST image + digit string: conv image expert over the 50x50
     # canvas, GRU text expert, a text expert limited to the first 128
     # latent dims (``mmvae_tpu/configs.py:223-234``).
     "multimnist": ExperimentConfig(
         name="multimnist", dataset="multimnist", n_latents=256,
+        cross_recon=True, grad_clip=500.0, epochs=60, train_size=100000,
+        cycle_weight=1.0, cycle_render_grad=True, cycle_render_binarize="both",
         model_kwargs={
             "conv_features": (32, 64, 128, 256),
             "lambda_text": 30.0,
@@ -56,6 +119,7 @@ CONFIGS: dict[str, ExperimentConfig] = {
     # (``mmvae_tpu/configs.py:236-239``).
     "celeba": ExperimentConfig(
         name="celeba", dataset="celeba", n_latents=100, batch_size=64,
+        n_random_subsets=4, grad_clip=500.0,
     ),
 }
 

@@ -1,5 +1,6 @@
-"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks."""
+"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks, KL annealing."""
 
+from mmvae_torch.core.annealing import annealing_factor
 from mmvae_torch.core.elbo import elbo_terms, kl_gauss_gauss, kl_std_normal
 from mmvae_torch.core.likelihoods import (
     bernoulli_nll,
@@ -12,6 +13,7 @@ from mmvae_torch.core.sampling import reparameterize
 from mmvae_torch.core.subsets import elbo_subset_masks, random_subset_masks
 
 __all__ = [
+    "annealing_factor",
     "product_of_experts",
     "reparameterize",
     "bernoulli_nll",

@@ -31,7 +31,9 @@ def product_of_experts(
     Args:
       mu: ``(..., n_experts, latent)`` expert means (prior NOT included).
       logvar: same shape, expert log-variances; clamped to [-11, 11]
-        before inversion, exactly as the JAX reference does.
+        before inversion as ``jnp.clip`` clamps them in the JAX reference:
+        a NaN stays NaN, and the gradient is 1 inside the range, 0.5 at
+        exactly +-11 (``torch.clamp`` would pass 1 there) and 0 beyond.
       mask: optional ``(..., n_experts)`` presence mask; an expert with
         mask 0 contributes nothing.
       eps: stabilizer added to variances before inversion.
@@ -40,7 +42,9 @@ def product_of_experts(
     Returns:
       ``(mu_fused, logvar_fused)``, each of shape ``(..., latent)``.
     """
-    logvar = torch.clamp(logvar, -11.0, 11.0)
+    logvar = torch.minimum(
+        torch.maximum(logvar, logvar.new_full((), -11.0)), logvar.new_full((), 11.0)
+    )
     precision = 1.0 / (torch.exp(logvar) + eps)
     if mask is not None:
         precision = precision * mask.to(precision.dtype)[..., None]

@@ -5,8 +5,20 @@ Port of ``mmvae_tpu/ops/__init__.py``. Backend selection:
 runs the hand-written kernel for CUDA tensors and the plain version for
 CPU tensors; ``"kernel"`` raises on a CPU tensor; ``"torch"`` runs the
 plain version everywhere (the on-card reference the kernels are held
-against). The kernels have no backward yet: the kernel path raises
-when grad mode is on and an input requires grad.
+against).
+
+Gradients. ``kl_std_normal``, ``bernoulli_nll`` and ``poe_kl`` are
+``torch.autograd.Function``s on both paths: their backward runs the
+backward kernel where the forward ran a kernel (``kl_rows_grad``,
+``bce_rows_grad``, ``poe_kl_bwd``) and its plain version where the forward
+ran the plain one, with the analytic VJPs of the TPU kernels
+(``_kl_bwd``, ``_bce_bwd``: dlogits = g * (sigmoid(l) - x)). The targets of
+``bernoulli_nll`` get dx = -g * l on the plain path only; the kernel path
+raises when they require grad. ``poe_kl`` differentiates the expert stack
+only and raises on both paths when ``masks`` or ``presence`` requires
+grad. ``masked_seq_ce`` and ``conv4x4s2_swish`` have no backward kernel
+yet: their kernel path raises when grad mode is on and an input requires
+grad; their plain path is differentiated by autograd.
 
 Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``masked_seq_ce`` accept targets with fewer leading rows than the logits,
@@ -29,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mmvae_torch.core.elbo import kl_std_normal as _kl_torch
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bern_torch
@@ -63,15 +76,22 @@ def get_backend() -> str:
     return _backend
 
 
-def _use_kernel(op: str, t: torch.Tensor, *more: torch.Tensor) -> bool:
+def _records_grad(*ts: torch.Tensor | None) -> bool:
+    """Whether autograd would record an op on ``ts``."""
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in ts)
+
+
+def _use_kernel(
+    op: str, t: torch.Tensor, *more: torch.Tensor, differentiable: bool = False
+) -> bool:
     """Whether ``op`` takes its kernel for inputs ``t, *more``.
 
-    The kernels have no backward yet, so the kernel path raises where
-    autograd would record the op: grad mode on and an input that requires
-    grad. It never falls back to the plain path."""
+    An op without a backward kernel (``differentiable=False``) raises on
+    the kernel path where autograd would record it: grad mode on and an
+    input that requires grad. It never falls back to the plain path."""
     if _backend == "torch" or (_backend == "auto" and not t.is_cuda):
         return False
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (t, *more)):
+    if not differentiable and _records_grad(t, *more):
         raise RuntimeError(
             f"ops.{op}: the kernel's backward is not yet ported to mmvae_torch; "
             "call it under torch.no_grad() or with set_backend('torch')"
@@ -95,13 +115,84 @@ def _fold(rows: int, n_targets: int, fold: str) -> int:
     return _FOLDS[fold]
 
 
+class _KlStdNormal(torch.autograd.Function):
+    """K1 and its VJP (``_kl_bwd``); ``kernel`` picks the CUDA kernels."""
+
+    @staticmethod
+    def forward(ctx, mu, logvar, kernel: bool):
+        ctx.kernel = kernel
+        if not kernel:
+            ctx.save_for_backward(mu, logvar)
+            return _kl_torch(mu, logvar)
+        d = mu.shape[-1]
+        mu_r, lv_r = _rows(mu, d), _rows(logvar, d)
+        ctx.save_for_backward(mu_r, lv_r)
+        ctx.shapes = (mu.shape, mu.dtype, logvar.dtype)
+        return kernels.kl_std_normal_kernel(mu_r, lv_r).reshape(mu.shape[:-1])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        mu, logvar = ctx.saved_tensors
+        if not ctx.kernel:
+            d_mu, d_lv = kernels.kl_rows_grad_torch(mu, logvar, g)
+            return d_mu.sum_to_size(mu.shape), d_lv.sum_to_size(logvar.shape), None
+        shape, mu_dtype, lv_dtype = ctx.shapes
+        g = g.reshape(-1).to(torch.float32).contiguous()
+        d_mu, d_lv = kernels.kl_rows_grad_kernel(mu, logvar, g)
+        return d_mu.reshape(shape).to(mu_dtype), d_lv.reshape(shape).to(lv_dtype), None
+
+
 def kl_std_normal(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """KL(N(mu, e^logvar) || N(0, I)) summed over the last dim."""
-    if not _use_kernel("kl_std_normal", mu, logvar):
-        return _kl_torch(mu, logvar)
-    d = mu.shape[-1]
-    out = kernels.kl_std_normal_kernel(_rows(mu, d), _rows(logvar, d))
-    return out.reshape(mu.shape[:-1])
+    kernel = _use_kernel("kl_std_normal", mu, logvar, differentiable=True)
+    return _KlStdNormal.apply(mu, logvar, kernel)
+
+
+class _BernoulliNll(torch.autograd.Function):
+    """K2 and its VJP (``_bce_bwd``): dlogits = g * (sigmoid(l) - x), and
+    on the plain path dx = -g * l summed over the rows that read each
+    target row. ``mode`` is the row map; ``kernel`` picks the kernels."""
+
+    @staticmethod
+    def forward(ctx, logits, x, event_ndims: int, mode: int, kernel: bool):
+        ctx.kernel, ctx.mode, ctx.event_ndims = kernel, mode, event_ndims
+        batch_shape = logits.shape[: logits.dim() - event_ndims]
+        if not kernel:
+            ctx.save_for_backward(logits, x)
+            return _bern_torch(logits, kernels.tile_rows(x, logits.shape[0], mode), event_ndims)
+        d = math.prod(logits.shape[logits.dim() - event_ndims:])
+        l_rows, x_rows = _rows(logits, d), _rows(x, d)
+        ctx.save_for_backward(l_rows, x_rows)
+        ctx.shape, ctx.dtype = logits.shape, logits.dtype
+        return kernels.bernoulli_nll_kernel(l_rows, x_rows, mode).reshape(batch_shape)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        logits, x = ctx.saved_tensors
+        if ctx.kernel:
+            g = g.reshape(-1).to(torch.float32).contiguous()
+            d_logits = kernels.bce_rows_grad_kernel(logits, x, g, ctx.mode)
+            return d_logits.reshape(ctx.shape).to(ctx.dtype), None, None, None, None
+        g = g.reshape(g.shape + (1,) * ctx.event_ndims)
+        x_tiled = kernels.tile_rows(x, logits.shape[0], ctx.mode).to(logits.dtype)
+        d_logits = g * (torch.sigmoid(logits) - x_tiled)
+        d_x = None
+        if ctx.needs_input_grad[1]:
+            d_x = _untile_rows(-(g * logits), x.shape[0], ctx.mode).to(x.dtype)
+        return d_logits, d_x, None, None, None
+
+
+def _untile_rows(t: torch.Tensor, n_x: int, mode: int) -> torch.Tensor:
+    """The transpose of ``kernels.tile_rows``: the rows of ``t`` that read
+    each of ``n_x`` target rows, summed."""
+    if mode == kernels.FOLD_NONE:
+        return t
+    k = t.shape[0] // n_x
+    if mode == kernels.FOLD_T:
+        return t.reshape((k, n_x) + t.shape[1:]).sum(0)
+    return t.reshape((n_x, k) + t.shape[1:]).sum(1)
 
 
 def bernoulli_nll(
@@ -131,12 +222,13 @@ def bernoulli_nll(
             f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
             f"{len(batch_shape)} (not yet ported to mmvae_torch)"
         )
-    if not _use_kernel("bernoulli_nll", logits, x):
-        x = kernels.tile_rows(x, logits.shape[0], mode)
-        return _bern_torch(logits, x, event_ndims)
-    d = math.prod(logits.shape[logits.dim() - event_ndims:])
-    out = kernels.bernoulli_nll_kernel(_rows(logits, d), _rows(x, d), mode)
-    return out.reshape(batch_shape)
+    kernel = _use_kernel("bernoulli_nll", logits, x, differentiable=True)
+    if kernel and _records_grad(x):
+        raise RuntimeError(
+            "ops.bernoulli_nll: the kernel path has no gradient in the targets (dx); "
+            "call it with targets that do not require grad, or with set_backend('torch')"
+        )
+    return _BernoulliNll.apply(logits, x, event_ndims, mode, kernel)
 
 
 def categorical_nll(
@@ -200,13 +292,42 @@ def poe_kl(
     observed modalities. Returns ``(mu_f, lv_f, kl)``: ``(T, B, L)``,
     ``(T, B, L)`` and ``(T, B)``. A row with no expert present gives the
     prior and a KL of exactly 0."""
+    if _records_grad(masks, presence):
+        raise RuntimeError(
+            "ops.poe_kl: the backward of masks and presence is not yet ported to "
+            "mmvae_torch (only the expert stack is differentiated)"
+        )
     more = (lv_e, masks) if presence is None else (lv_e, masks, presence)
-    if not _use_kernel("poe_kl", mu_e, *more):
-        return kernels.poe_kl_torch(mu_e, lv_e, masks, presence)
+    kernel = _use_kernel("poe_kl", mu_e, *more, differentiable=True)
+    return _PoeKl.apply(mu_e, lv_e, masks, presence, kernel)
 
-    def f32(t):
-        return t.to(torch.float32).contiguous()
 
-    return kernels.poe_kl_kernel(
-        f32(mu_e), f32(lv_e), f32(masks), None if presence is None else f32(presence)
-    )
+def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+class _PoeKl(torch.autograd.Function):
+    """The fused PoE + KL and its backward in the expert stack; ``kernel``
+    picks the CUDA kernels (``poe_kl``, ``poe_kl_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, mu_e, lv_e, masks, presence, kernel: bool):
+        ctx.kernel = kernel
+        if kernel:
+            ctx.dtypes = (mu_e.dtype, lv_e.dtype)
+            mu_e, lv_e, masks, presence = (_f32(t) for t in (mu_e, lv_e, masks, presence))
+            out = kernels.poe_kl_kernel(mu_e, lv_e, masks, presence)
+        else:
+            out = kernels.poe_kl_torch(mu_e, lv_e, masks, presence)
+        ctx.save_for_backward(mu_e, lv_e, masks, presence, out[0], out[1])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mu, g_lv, g_kl):
+        saved = ctx.saved_tensors
+        if not ctx.kernel:
+            d_mu, d_lv = kernels.poe_kl_grad_torch(*saved, g_mu, g_lv, g_kl)
+            return d_mu, d_lv, None, None, None
+        d_mu, d_lv = kernels.poe_kl_grad_kernel(*saved, *(_f32(g) for g in (g_mu, g_lv, g_kl)))
+        return d_mu.to(ctx.dtypes[0]), d_lv.to(ctx.dtypes[1]), None, None, None

@@ -1,4 +1,5 @@
-// Row reductions (N, D) -> (N,) of the MVAE ELBO, for Hopper (sm_90a).
+// Row reductions (N, D) -> (N,) of the MVAE ELBO and their gradients, for
+// Hopper (sm_90a).
 //
 // kl_rows replaces mmvae_tpu/ops/kernels.py:kl_std_normal_pallas
 // (_kl_kernel through _rowwise_reduce): per row
@@ -48,6 +49,21 @@
 // Every layout sums in a fixed order, so a shape gives the same bits from
 // run to run.
 // No fast-math: expf/log1pf track the plain PyTorch version to rounding.
+//
+// The gradients, the VJPs of the TPU kernels (mmvae_tpu/ops/kernels.py
+// _kl_bwd and _bce_bwd), for an upstream gradient g of one value a row:
+//     kl_rows_grad:  dmu = g * mu,  dlv = 0.5 * g * (exp(lv) - 1);
+//     bce_rows_grad: dlogits = g * (sigmoid(l) - x[target row]),
+// the targets read through the forward's row map, so they stay untiled
+// (d x, -g * l summed over the rows that read a target row, is not
+// computed: no ported loss differentiates the targets). Both are
+// elementwise and bound by memory: they read the (N, D) inputs and write
+// (N, D) gradients once -- KL (1280, 100): 2.05 MB, 0.61 us at 3.35 TB/s;
+// BCE (200, 784) against 100 untiled targets: 1.57 MB, 0.47 us. A thread
+// takes a float4 of each input (scalars when D % 4 != 0 or a pointer is
+// not 16-byte aligned), elements grid-strided over a fixed number of
+// blocks; g[row] is one load a float4, served from L1. No reduction: each
+// element is computed alone, so a shape gives the same bits every run.
 //
 // C interface (bound with ctypes): each function launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() of its launch.
@@ -261,8 +277,94 @@ cudaError_t launch_split(const float* logits, const float* x, float* out,
                             d, n_x, fold, split);
 }
 
+// The summands of the gradients, in the plain version's order.
+__device__ __forceinline__ float kl_dlv(float half_g, float lv) {
+  return half_g * (expf(lv) - 1.0f);
+}
+
+__device__ __forceinline__ float bce_dlogit(float g, float l, float x) {
+  return g * (1.0f / (1.0f + expf(-l)) - x);
+}
+
+// KL's gradient: element i of the (n, d) rows, in float4s when kVec.
+template <bool kVec>
+__global__ void kl_rows_grad_kernel(const float* __restrict__ mu,
+                                    const float* __restrict__ lv,
+                                    const float* __restrict__ g,
+                                    float* __restrict__ dmu,
+                                    float* __restrict__ dlv,
+                                    long long n_elems, int d) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const int d4 = d / 4;
+    const float4* m4 = reinterpret_cast<const float4*>(mu);
+    const float4* l4 = reinterpret_cast<const float4*>(lv);
+    float4* dm4 = reinterpret_cast<float4*>(dmu);
+    float4* dl4 = reinterpret_cast<float4*>(dlv);
+    for (long long i = first; i < n_elems / 4; i += stride) {
+      const float gr = g[i / d4];
+      const float h = 0.5f * gr;
+      const float4 a = m4[i];
+      const float4 b = l4[i];
+      dm4[i] = make_float4(gr * a.x, gr * a.y, gr * a.z, gr * a.w);
+      dl4[i] = make_float4(kl_dlv(h, b.x), kl_dlv(h, b.y), kl_dlv(h, b.z), kl_dlv(h, b.w));
+    }
+  } else {
+    for (long long i = first; i < n_elems; i += stride) {
+      const float gr = g[i / d];
+      dmu[i] = gr * mu[i];
+      dlv[i] = kl_dlv(0.5f * gr, lv[i]);
+    }
+  }
+}
+
+// BCE's gradient in the logits: element i of the (n, d) rows, its target
+// read through the row map.
+template <bool kVec>
+__global__ void bce_rows_grad_kernel(const float* __restrict__ logits,
+                                     const float* __restrict__ x,
+                                     const float* __restrict__ g,
+                                     float* __restrict__ dlogits,
+                                     long long n_elems, int n, int d, int n_x,
+                                     int fold) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const int d4 = d / 4;
+    const float4* l4 = reinterpret_cast<const float4*>(logits);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* dl4 = reinterpret_cast<float4*>(dlogits);
+    for (long long i = first; i < n_elems / 4; i += stride) {
+      const int row = static_cast<int>(i / d4);
+      const long long col = i - static_cast<long long>(row) * d4;
+      const float gr = g[row];
+      const float4 a = l4[i];
+      const float4 b = x4[static_cast<long long>(target_row(row, n, n_x, fold)) * d4 + col];
+      dl4[i] = make_float4(bce_dlogit(gr, a.x, b.x), bce_dlogit(gr, a.y, b.y),
+                           bce_dlogit(gr, a.z, b.z), bce_dlogit(gr, a.w, b.w));
+    }
+  } else {
+    for (long long i = first; i < n_elems; i += stride) {
+      const int row = static_cast<int>(i / d);
+      const long long col = i - static_cast<long long>(row) * d;
+      dlogits[i] = bce_dlogit(
+          g[row], logits[i], x[static_cast<long long>(target_row(row, n, n_x, fold)) * d + col]);
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Blocks of kGradThreads threads for `units` elementwise units, at most
+// kMaxBlocks (the rest are grid-strided).
+constexpr int kGradThreads = 256;
+
+int grad_blocks(long long units) {
+  const long long b = (units + kGradThreads - 1) / kGradThreads;
+  return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
 int n_blocks(int n) {
@@ -318,6 +420,47 @@ extern "C" int bce_rows(const float* logits, const float* x, float* out,
   } else {
     bce_rows_kernel<false><<<blocks, threads, 0, stream>>>(logits, x, out, n, d,
                                                            n_x, fold);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mu, lv, dmu, dlv: (n, d); g: (n,); all f32, contiguous.
+extern "C" int kl_rows_grad(const float* mu, const float* lv, const float* g,
+                            float* dmu, float* dlv, int n, int d,
+                            cudaStream_t stream) {
+  if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_elems = static_cast<long long>(n) * d;
+  const bool vec = d % 4 == 0 && aligned16(mu) && aligned16(lv) && aligned16(dmu) &&
+                   aligned16(dlv);
+  const int blocks = grad_blocks(vec ? n_elems / 4 : n_elems);
+  if (vec) {
+    kl_rows_grad_kernel<true><<<blocks, kGradThreads, 0, stream>>>(mu, lv, g, dmu, dlv,
+                                                                   n_elems, d);
+  } else {
+    kl_rows_grad_kernel<false><<<blocks, kGradThreads, 0, stream>>>(mu, lv, g, dmu, dlv,
+                                                                    n_elems, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// logits, dlogits: (n, d); x: (n_x, d) read through the row map `fold` as
+// in bce_rows; g: (n,); all f32, contiguous.
+extern "C" int bce_rows_grad(const float* logits, const float* x, const float* g,
+                             float* dlogits, int n, int d, int n_x, int fold,
+                             cudaStream_t stream) {
+  if (n <= 0 || d <= 0 || n_x <= 0 || fold < 0 || fold > 2 || (fold == 0 && n_x != n) ||
+      (fold != 0 && n % n_x != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_elems = static_cast<long long>(n) * d;
+  const bool vec = d % 4 == 0 && aligned16(logits) && aligned16(x) && aligned16(dlogits);
+  const int blocks = grad_blocks(vec ? n_elems / 4 : n_elems);
+  if (vec) {
+    bce_rows_grad_kernel<true><<<blocks, kGradThreads, 0, stream>>>(
+        logits, x, g, dlogits, n_elems, n, d, n_x, fold);
+  } else {
+    bce_rows_grad_kernel<false><<<blocks, kGradThreads, 0, stream>>>(
+        logits, x, g, dlogits, n_elems, n, d, n_x, fold);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,10 +20,16 @@
     K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
     a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
     of each to N(0, I), in one launch, in the grid :func:`poe_kl_plan`
-    sizes. On the ported paths the KL runs here, not in K1.
+    sizes. On the ported paths the KL runs here, not in K1;
+  * the backward kernels of training: ``kl_rows_grad_kernel`` (K1's VJP,
+    ``_kl_bwd``), ``bce_rows_grad_kernel`` (K2's VJP in the logits,
+    ``_bce_bwd``, the targets read through the forward's row map) and
+    ``poe_kl_grad_kernel`` (the fused PoE + KL's, K1's VJP carried back
+    through the PoE to the expert stack).
 
-K1 and K2 live in ``csrc/row_reduce.cu``, K3 in ``csrc/seq_ce.cu``, K4 in
-``csrc/conv_s2.cu``, the fused PoE and KL in ``csrc/poe_kl.cu``, each
+K1 and K2 and their gradients live in ``csrc/row_reduce.cu``, K3 in
+``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu``, the fused PoE and KL and its
+backward in ``csrc/poe_kl.cu``, each
 behind a plain C interface; ``csrc/launch_floor.cu``, an empty kernel that
 times the launch floor, is built only when asked for by name
 (:data:`PROBE_SOURCES`). :func:`build` compiles the sources with
@@ -73,8 +79,12 @@ __all__ = [
     "conv_plan",
     "kl_std_normal_kernel",
     "kl_std_normal_torch",
+    "kl_rows_grad_kernel",
+    "kl_rows_grad_torch",
     "bernoulli_nll_kernel",
     "bernoulli_nll_torch",
+    "bce_rows_grad_kernel",
+    "bce_rows_grad_torch",
     "masked_seq_ce_kernel",
     "masked_seq_ce_torch",
     "same_pad",
@@ -85,6 +95,10 @@ __all__ = [
     "poe_kl_kernel",
     "masked_poe_torch",
     "poe_kl_torch",
+    "PoeKlBwdPlan",
+    "poe_kl_bwd_plan",
+    "poe_kl_grad_kernel",
+    "poe_kl_grad_torch",
 ]
 
 # Target-row maps of the BCE kernel: rows match; t-major tiling (row
@@ -92,7 +106,8 @@ __all__ = [
 FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
-LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0}
+LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0,
+            "kl_bwd": 0, "bce_bwd": 0, "poe_kl_bwd": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -118,6 +133,8 @@ _SIGNATURES = {
     "row_reduce": {
         "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "kl_rows_grad": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr],
+        "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
@@ -129,6 +146,8 @@ _SIGNATURES = {
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                    _i32, _i32, _i32, _ptr],
+        "poe_kl_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                       _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "launch_floor": {"empty_launch": [_i32, _i32, _ptr]},
 }
@@ -271,6 +290,51 @@ def kl_std_normal_torch(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     return _kl_plain(mu, logvar)
 
 
+def _check_grad_of(g: torch.Tensor, rows: torch.Tensor) -> None:
+    """``g`` must be the ``(N,)`` f32 contiguous gradient of ``rows``' sums."""
+    if not g.is_cuda or g.device != rows.device:
+        raise ValueError(f"g must be a CUDA tensor on {rows.device}, got {g.device}")
+    if g.dtype != torch.float32 or g.shape != rows.shape[:1] or not g.is_contiguous():
+        raise ValueError(
+            f"g must be contiguous float32 of shape {tuple(rows.shape[:1])}, got "
+            f"{g.dtype} {tuple(g.shape)}"
+        )
+
+
+def kl_rows_grad_kernel(
+    mu: torch.Tensor, logvar: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's VJP on ``(N, D)`` f32 CUDA rows and their ``(N,)`` upstream
+    gradient: ``(g * mu, 0.5 * g * (e^logvar - 1))``, as ``_kl_bwd``."""
+    _check_rows("mu", mu)
+    _check_rows("logvar", logvar)
+    if logvar.shape != mu.shape or logvar.device != mu.device:
+        raise ValueError(
+            f"mu {tuple(mu.shape)} on {mu.device} and logvar "
+            f"{tuple(logvar.shape)} on {logvar.device} differ"
+        )
+    _check_grad_of(g, mu)
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
+    if mu.numel() == 0:
+        return dmu, dlv
+    n, d = mu.shape
+    _launch(
+        "row_reduce", "kl_rows_grad", mu.device, mu.data_ptr(), logvar.data_ptr(),
+        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n, d,
+    )
+    LAUNCHES["kl_bwd"] += 1
+    return dmu, dlv
+
+
+def kl_rows_grad_torch(
+    mu: torch.Tensor, logvar: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`kl_rows_grad_kernel` (any leading
+    dims; ``g`` has ``mu``'s shape without the last dim)."""
+    g = g[..., None]
+    return g * mu, g * 0.5 * (torch.exp(logvar) - 1.0)
+
+
 # --------------------------------------------------------------- BCE ----
 
 # Layouts of ``bce_rows``: a warp per row; a row split over a cluster of
@@ -362,6 +426,48 @@ def bernoulli_nll_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`bernoulli_nll_kernel` (tiles ``x``)."""
     return _bce_plain(logits, tile_rows(x, logits.shape[0], fold), 1)
+
+
+def bce_rows_grad_kernel(
+    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE
+) -> torch.Tensor:
+    """K2's VJP in the logits on ``(N, D)`` f32 CUDA rows: ``g[r] *
+    (sigmoid(logits[r]) - x[map(r)])``, as ``_bce_bwd``, with ``x`` and
+    ``fold`` as :func:`bernoulli_nll_kernel` takes them (the tiled copy is
+    never made) and ``g`` the ``(N,)`` upstream gradient."""
+    _check_rows("logits", logits)
+    _check_rows("x", x)
+    if x.shape[1] != logits.shape[1] or x.device != logits.device:
+        raise ValueError(
+            f"logits {tuple(logits.shape)} on {logits.device} and x "
+            f"{tuple(x.shape)} on {x.device} do not match"
+        )
+    _check_grad_of(g, logits)
+    n, d = logits.shape
+    n_x = x.shape[0]
+    if fold not in (FOLD_NONE, FOLD_T, FOLD_B):
+        raise ValueError(f"unknown fold {fold!r}")
+    if (fold == FOLD_NONE and n_x != n) or (
+        fold != FOLD_NONE and (n_x == 0 or n % n_x)
+    ):
+        raise ValueError(f"{n} logits rows do not fold onto {n_x} target rows")
+    out = torch.empty_like(logits)
+    if out.numel() == 0:
+        return out
+    _launch(
+        "row_reduce", "bce_rows_grad", logits.device, logits.data_ptr(), x.data_ptr(),
+        g.data_ptr(), out.data_ptr(), n, d, n_x, fold,
+    )
+    LAUNCHES["bce_bwd"] += 1
+    return out
+
+
+def bce_rows_grad_torch(
+    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bce_rows_grad_kernel` (tiles ``x``)."""
+    x = tile_rows(x, logits.shape[0], fold).to(logits.dtype)
+    return g[:, None] * (torch.sigmoid(logits) - x)
 
 
 # ------------------------------------------------------------ seq CE ----
@@ -713,3 +819,108 @@ def poe_kl_torch(
     then the KL of each fused posterior."""
     mu_f, lv_f = masked_poe_torch(mu_e, lv_e, masks, presence)
     return mu_f, lv_f, _kl_plain(mu_f, lv_f)
+
+
+# ------------------------------------------------- PoE + KL backward ----
+
+POE_EPS = 1e-8  # added to each expert's variance, as the forward takes it
+POE_BWD_THREADS = 256
+
+
+class PoeKlBwdPlan(NamedTuple):
+    """Launch of ``poe_kl_bwd``: threads a block, blocks (one per batch
+    row) and the block's dynamic shared memory in bytes."""
+
+    threads: int
+    blocks: int
+    smem: int
+
+
+def poe_kl_bwd_plan(t: int, b: int, m: int, l: int) -> PoeKlBwdPlan:
+    """The launch of the fused PoE + KL's backward for ``t`` terms of ``b``
+    batch rows of ``m`` experts of ``l`` latents: a block per batch row,
+    with the row's precisions (m x l), the term weights (t x m) and three
+    (t x l) term arrays in shared memory. Raises above 48 KB."""
+    smem = 4 * (m * l + t * m + 3 * t * l)
+    if smem > POE_MAX_SMEM:
+        raise ValueError(
+            f"poe_kl_bwd: {m} experts x {l} latents and {t} terms take {smem} bytes "
+            f"of shared memory, above {POE_MAX_SMEM}"
+        )
+    return PoeKlBwdPlan(POE_BWD_THREADS, b, smem)
+
+
+def _clamp_grad(lv: torch.Tensor) -> torch.Tensor:
+    """The gradient of the PoE's clamp to [-11, 11], as ``jnp.clip``'s: 1
+    inside, 0.5 at exactly +-11, 0 beyond (and 0 at a NaN)."""
+    a = lv.abs()
+    return torch.where(a < 11.0, 1.0, torch.where(a == 11.0, 0.5, 0.0)).to(lv.dtype)
+
+
+def poe_kl_grad_torch(
+    mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
+    presence: torch.Tensor | None, mu_f: torch.Tensor, lv_f: torch.Tensor,
+    g_mu: torch.Tensor, g_lv: torch.Tensor, g_kl: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`poe_kl_torch`'s expert stack ``(d mu_e, d
+    lv_e)``, ``(B, M, L)`` each, from its inputs, its outputs ``mu_f``,
+    ``lv_f`` and the output gradients ``g_mu``, ``g_lv`` ``(T, B, L)`` and
+    ``g_kl`` ``(T, B)``, written out in the kernel's order: the total
+    precision S of each term recomputed as the forward sums it, K1's VJP
+    added to the posteriors' gradients, then each expert's share summed
+    over the terms."""
+    n_terms, n_mod = masks.shape
+    e = torch.exp(torch.clamp(lv_e, -11.0, 11.0))
+    p = 1.0 / (e + POE_EPS)  # (B, M, L)
+    w = masks[:, None, :]  # (T, 1, M)
+    w = w * presence[None] if presence is not None else w.expand(n_terms, mu_e.shape[0], n_mod)
+    big_p = p[None] * w[..., None]  # (T, B, M, L)
+    tot = 1.0 + torch.sum(big_p, dim=-2)  # (T, B, L)
+    g_kl = g_kl[..., None]
+    a = (g_mu + g_kl * mu_f) / tot
+    q = (g_lv + 0.5 * g_kl * (torch.exp(lv_f) - 1.0)) / tot
+    d_mu = torch.sum(a[:, :, None] * big_p, dim=0)
+    d_p = a[:, :, None] * (mu_e[None] - mu_f[:, :, None]) - q[:, :, None]
+    d_q = torch.sum(w[..., None] * d_p, dim=0)
+    return d_mu, d_q * -(e * p * p) * _clamp_grad(lv_e)
+
+
+def poe_kl_grad_kernel(
+    mu_e: torch.Tensor, lv_e: torch.Tensor, masks: torch.Tensor,
+    presence: torch.Tensor | None, mu_f: torch.Tensor, lv_f: torch.Tensor,
+    g_mu: torch.Tensor, g_lv: torch.Tensor, g_kl: torch.Tensor,
+    plan: PoeKlBwdPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`poe_kl_grad_torch` in one launch of ``poe_kl_bwd``, on f32
+    contiguous CUDA tensors of one device. ``plan`` overrides
+    :func:`poe_kl_bwd_plan` of the shape."""
+    if mu_e.dim() != 3 or masks.dim() != 2:
+        raise ValueError(
+            f"mu_e must be (B, M, L) and masks (T, M), got {tuple(mu_e.shape)} and "
+            f"{tuple(masks.shape)}"
+        )
+    b, m, l = mu_e.shape
+    t = masks.shape[0]
+    dev = mu_e.device
+    for name, x, shape in (
+        ("mu_e", mu_e, (b, m, l)), ("lv_e", lv_e, (b, m, l)), ("masks", masks, (t, m)),
+        ("mu_f", mu_f, (t, b, l)), ("lv_f", lv_f, (t, b, l)), ("g_mu", g_mu, (t, b, l)),
+        ("g_lv", g_lv, (t, b, l)), ("g_kl", g_kl, (t, b)),
+    ):
+        _check_f32(name, x, shape, dev)
+    if presence is not None:
+        _check_f32("presence", presence, (b, m), dev)
+    if max(t * b * l, b * m * l) >= 2**31:
+        raise ValueError(f"poe_kl_bwd shape {(t, b, m, l)} exceeds int32")
+    d_mu, d_lv = torch.empty_like(mu_e), torch.empty_like(lv_e)
+    if d_mu.numel() == 0 or t == 0:
+        return d_mu.zero_(), d_lv.zero_()
+    plan = plan or poe_kl_bwd_plan(t, b, m, l)
+    _launch(
+        "poe_kl", "poe_kl_bwd", dev, mu_e.data_ptr(), lv_e.data_ptr(), masks.data_ptr(),
+        None if presence is None else presence.data_ptr(), mu_f.data_ptr(), lv_f.data_ptr(),
+        g_mu.data_ptr(), g_lv.data_ptr(), g_kl.data_ptr(), d_mu.data_ptr(), d_lv.data_ptr(),
+        t, b, m, l, *plan,
+    )
+    LAUNCHES["poe_kl_bwd"] += 1
+    return d_mu, d_lv

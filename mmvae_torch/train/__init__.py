@@ -1,5 +1,23 @@
-"""The multi-term loss and the eval step (training is not ported yet)."""
+"""The multi-term loss, the train state and step, and the eval step."""
 
-from mmvae_torch.train.step import make_eval_runner, make_eval_step, multi_term_loss
+from mmvae_torch.train.state import TrainState, create_train_state, global_norm
+from mmvae_torch.train.step import (
+    make_epoch_runner,
+    make_eval_runner,
+    make_eval_step,
+    make_train_step,
+    multi_term_loss,
+    presence_from_keep,
+)
 
-__all__ = ["multi_term_loss", "make_eval_step", "make_eval_runner"]
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "global_norm",
+    "multi_term_loss",
+    "make_train_step",
+    "make_epoch_runner",
+    "presence_from_keep",
+    "make_eval_step",
+    "make_eval_runner",
+]

@@ -1,8 +1,9 @@
-"""The multi-term MVAE loss and the eval step, forward only.
+"""The multi-term MVAE loss, the train step and the eval step.
 
-Port of ``mmvae_tpu/train/step.py`` for the inference slice: the
-``"mvae"`` objective under the t-major term fold (``term_fold="t"``, the
-single-device eval path, ``step.py:532-578``) with member-pruned decoding
+Port of ``mmvae_tpu/train/step.py`` for the inference slices and MNIST
+training: the ``"mvae"`` objective under the t-major term fold
+(``term_fold="t"``, the single-device path of both the JAX eval and the
+JAX train step, ``step.py:532-578``) with member-pruned decoding
 (``_member_prune_keys`` / ``_pruned_nll``) and an optional presence mask.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
@@ -24,8 +25,17 @@ UNTILED with ``fold="t"``; the BCE kernel reads target row ``r % B`` (for
 the attributes, row ``r % (B * 18)`` of rows of D = 1) and the tiled copy
 is never made. Only the small integer token rows are tiled.
 
+Training (``make_train_step``, ``make_epoch_runner``) differentiates the
+same loss with ``sample=True``. Its reductions are differentiable on both
+paths (``mmvae_torch.ops``): on the card one MNIST step launches, besides
+the models' own layers, the fused PoE + KL and K2 forward and their
+backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each. K3 and K4
+have no backward kernel yet, so training a config whose loss runs them
+raises on the card (``ops``); no such config trains yet.
+
 The other folds (``"b"``, ``"st"``), the decode-all pass, random subsets,
-the mixture objectives and the training step are not ported yet and raise.
+the mixture objectives, cross-recon, the cycle term and gradient
+accumulation are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,13 +48,22 @@ import torch
 from mmvae_torch import ops
 from mmvae_torch.core import (
     OBJECTIVES,
+    annealing_factor,
     elbo_subset_masks,
     elbo_terms,
     reparameterize,
 )
 from mmvae_torch.ops.kernels import FOLD_T, tile_rows
+from mmvae_torch.train.state import TrainState, global_norm
 
-__all__ = ["multi_term_loss", "make_eval_step", "make_eval_runner"]
+__all__ = [
+    "multi_term_loss",
+    "make_train_step",
+    "make_epoch_runner",
+    "presence_from_keep",
+    "make_eval_step",
+    "make_eval_runner",
+]
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -161,6 +180,92 @@ def multi_term_loss(
     if presence is not None:
         nll = nll * presence.T[None]  # unobserved modalities are no targets
     return elbo_terms(nll, kl, masks, model.lambdas(), beta)
+
+
+def presence_from_keep(keep: torch.Tensor) -> torch.Tensor:
+    """Presence dropout's mask from a ``(B, M)`` keep draw: a row whose
+    every modality was dropped keeps them all (``step.py:1054-1057``)."""
+    keep = keep.to(torch.bool)
+    all_dropped = ~torch.any(keep, dim=-1, keepdim=True)
+    return torch.where(all_dropped, True, keep).to(torch.float32)
+
+
+def make_train_step(
+    model,
+    *,
+    n_random_subsets: int = 0,
+    annealing_steps: int = 0,
+    p_modality_drop: float = 0.0,
+    objective: str = "mvae",
+    member_prune: bool = True,
+    term_fold: str = "t",
+    generator: torch.Generator | None = None,
+) -> Callable:
+    """The train step ``(state, batch, eps=None, keep=None) -> (state,
+    metrics)`` of ``_train_step_impl`` (``step.py:1022-1093``).
+
+    beta is ``annealing_factor(state.step, annealing_steps)``. With
+    ``p_modality_drop > 0`` and no ``"presence"`` in the batch, each
+    example keeps each modality with probability ``1 - p_modality_drop``
+    (``keep``, ``(B, M)``, or a draw from ``generator``), and a row with
+    none kept keeps all. The loss is :func:`multi_term_loss` with
+    ``sample=True``, its noise ``eps`` (``(T, B, L)``) or a draw from
+    ``generator`` (on the model's device). Then one update of ``state``
+    (:meth:`TrainState.apply_gradients`). The metrics are the loss terms,
+    ``beta`` and ``grad_norm``, the global norm of the raw gradients
+    before clipping. Only ``term_fold="t"`` is ported; the others raise.
+    """
+    if term_fold != "t":
+        raise _not_ported(f"term_fold {term_fold!r}")
+    if n_random_subsets:
+        raise _not_ported("n_random_subsets > 0 (random subset terms)")
+
+    def train_step(state: TrainState, batch, eps=None, keep=None):
+        beta = annealing_factor(state.step, annealing_steps)
+        if p_modality_drop > 0.0 and "presence" not in batch:
+            if keep is None:
+                b = next(iter(batch.values())).shape[0]
+                u = torch.rand(
+                    (b, model.n_modalities), generator=generator, device=model.device
+                )
+                keep = u < 1.0 - p_modality_drop
+            batch = dict(batch, presence=presence_from_keep(keep))
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = multi_term_loss(
+            state.model, batch, beta, sample=True, objective=objective,
+            member_prune=member_prune, term_fold=term_fold, generator=generator,
+            eps=eps,
+        )
+        loss.backward()
+        params = list(state.model.parameters())
+        for p in params:  # a parameter the loss does not reach has gradient 0
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm([p.grad for p in params])
+        metrics["beta"] = torch.full((), beta, device=loss.device)
+        state.apply_gradients()
+        return state, metrics
+
+    return train_step
+
+
+def make_epoch_runner(model, **step_kwargs) -> Callable:
+    """An epoch over pre-stacked ``(n_steps, B, ...)`` batches, one
+    :func:`make_train_step` step at a time (the JAX runner's ``lax.scan``,
+    ``step.py:1096``, as a plain loop). Returns ``run(state, batches) ->
+    (state, metrics)`` with every metric stacked over the steps."""
+    train_step = make_train_step(model, **step_kwargs)
+
+    def run(state, batches):
+        n_steps = next(iter(batches.values())).shape[0]
+        per_step = []
+        for i in range(n_steps):
+            state, metrics = train_step(state, {k: v[i] for k, v in batches.items()})
+            per_step.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return run
 
 
 def make_eval_step(

@@ -197,7 +197,8 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
     [("row_reduce", "bce_rows", 7, kernels.BcePlan),
      ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
      ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
-     ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan)],
+     ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan),
+     ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -265,3 +266,25 @@ def test_poe_kl_plan_refuses_a_slab_above_48kb():
     with pytest.raises(ValueError, match="shared memory"):
         kernels.poe_kl_plan(41, 8, 40, 200)
     assert kernels.poe_kl_plan(31, 8, 30, 200).smem <= 48 * 1024
+
+
+@pytest.mark.parametrize(
+    "shape, smem",
+    [((3, 100, 2, 64), 4 * (128 + 6 + 576)), ((3, 100, 2, 256), 4 * (512 + 6 + 2304)),
+     ((20, 64, 19, 100), 4 * (1900 + 380 + 6000))],
+)
+def test_poe_kl_bwd_plan_is_a_block_a_batch_row(shape, smem):
+    """The backward's plan at the MNIST train and the three eval shapes: a
+    block of whole warps per batch row, with the row's precisions, the
+    term weights and three (T x L) term arrays in shared memory."""
+    plan = kernels.poe_kl_bwd_plan(*shape)
+    assert plan.blocks == shape[1] and plan.smem == smem <= 48 * 1024
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+
+
+def test_poe_kl_bwd_plan_refuses_above_48kb():
+    """30 terms of 100 latents take 36 KB of term arrays and 19 experts 7.6
+    KB of precisions, 45,880 bytes: taken; 40 terms are refused."""
+    assert kernels.poe_kl_bwd_plan(30, 8, 19, 100).smem == 45880
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.poe_kl_bwd_plan(40, 8, 19, 100)

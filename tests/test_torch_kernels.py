@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels against their plain versions.
 
-Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2),
-``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4) and ``poe_kl.cu`` (the fused PoE
-+ KL) with ``nvcc`` and run on the card; without one they skip. This file imports nothing of JAX, so on a machine with a card and no
-JAX it runs as
+Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2
+and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4) and
+``poe_kl.cu`` (the fused PoE + KL and its backward) with ``nvcc`` and run
+on the card; without one they skip. This file imports nothing of JAX, so
+on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -11,11 +12,18 @@ Tolerance: rtol 1e-5, atol 1e-5 * D for the row reductions, 1e-5 * S *
 log V for K3, 1e-5 * 16 * C for K4 in f32 (16 * C products per output)
 -- the kernels sum in another order than PyTorch does; K4 in bf16 atol
 2e-2, one bf16 rounding of an output below 4. The fused PoE + KL: rtol
-1e-5 and atol 1e-6 for the posteriors, atol 1e-5 * L for the KL.
+1e-5 and atol 1e-6 for the posteriors, atol 1e-5 * L for the KL. The
+elementwise gradients of K1 and K2: rtol 1e-5, atol 1e-6 (the same
+products, rounded where the plain version's separate ops round them).
+The fused PoE + KL's backward: rtol 1e-5, atol 1e-5 * T times the
+largest gradient (it sums T terms, and the plain version sums the
+experts of a term's precision in another order).
 
-The ``ops`` entries refuse the kernel path when autograd would record
-them (the kernels have no backward yet); the CPU half of that check runs
-without a card.
+``kl_std_normal``, ``bernoulli_nll`` and ``poe_kl`` take their gradients
+from backward kernels on the card; ``masked_seq_ce`` and
+``conv4x4s2_swish`` have none yet and refuse the kernel path when
+autograd would record them. The CPU half of those checks runs without a
+card.
 """
 
 import math
@@ -165,8 +173,18 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     kernels.bernoulli_nll_kernel(x, x[:4], kernels.FOLD_T)
     kernels.masked_seq_ce_kernel(x.view(8, 4, 4), tok)
     kernels.conv4x4s2_swish_kernel(img, cw, cb)
-    kernels.poe_kl_kernel(experts, experts, masks)
+    mu_f, lv_f, kl = kernels.poe_kl_kernel(experts, experts, masks)
+    g = torch.ones(8, device=cuda)
+    kernels.kl_rows_grad_kernel(x, x, g)
+    kernels.bce_rows_grad_kernel(x, x[:4], g, kernels.FOLD_T)
+    kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl)
     assert kernels.LAUNCHES == after
+    with pytest.raises(ValueError, match="g must be"):
+        kernels.kl_rows_grad_kernel(x, x, g[:4])
+    with pytest.raises(ValueError, match="fold"):
+        kernels.bce_rows_grad_kernel(x, x[:3], g, kernels.FOLD_B)
+    with pytest.raises(ValueError):
+        kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl[:1])
     with pytest.raises(TypeError):
         kernels.kl_std_normal_kernel(x.double(), x.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -385,7 +403,8 @@ def test_conv_kernel_refuses_a_plan_it_cannot_run(cuda):
 
 def _op_calls(device):
     """Each ops entry with a kernel, as a function of whether its float
-    inputs require grad."""
+    inputs require grad: K1's mu, K2's logits, K3's logits, K4's bias
+    alone, the fused PoE's expert means."""
     gen = torch.Generator().manual_seed(22)
 
     def rand(*shape, grad):
@@ -395,50 +414,66 @@ def _op_calls(device):
     return {
         "kl_std_normal": lambda g: ops.kl_std_normal(rand(8, 16, grad=g), rand(8, 16, grad=False)),
         "bernoulli_nll": lambda g: ops.bernoulli_nll(
-            rand(8, 16, grad=False), torch.rand(8, 16, generator=gen).to(device).requires_grad_(g)),
+            rand(8, 16, grad=g), torch.rand(4, 16, generator=gen).to(device), fold="t"),
         "masked_seq_ce": lambda g: ops.masked_seq_ce(rand(8, 5, 13, grad=g), tok),
         "conv4x4s2_swish": lambda g: ops.conv4x4s2_swish(
             torch.rand(2, 8, 8, 3, generator=gen).to(device), rand(32, 3, 4, 4, grad=False),
             rand(32, grad=g)),
         "poe_kl": lambda g: ops.poe_kl(
-            rand(8, 2, 16, grad=False), rand(8, 2, 16, grad=False),
-            elbo_subset_masks(2, device=device),
-            torch.ones(8, 2, device=device).requires_grad_(g))[2],
+            rand(8, 2, 16, grad=g), rand(8, 2, 16, grad=False),
+            elbo_subset_masks(2, device=device), torch.ones(8, 2, device=device))[2],
     }
 
 
 OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish", "poe_kl"]
 OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv", "poe_kl"]))
+# The ops with a backward kernel, and its counter.
+GRAD_COUNTERS = {"kl_std_normal": "kl_bwd", "bernoulli_nll": "bce_bwd", "poe_kl": "poe_kl_bwd"}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_path_refuses_grad(cuda, op):
-    """With grad on and an input that requires grad (the second target of
-    the BCE, the conv's bias alone, the PoE's presence alone), the kernel path raises and launches
-    nothing; under ``torch.no_grad`` it launches the kernel."""
+    """With grad on and an input that requires grad, an op without a
+    backward kernel (K3; K4, its bias alone) raises on the kernel path and
+    launches nothing; an op with one (K1, K2, the fused PoE + KL) records
+    the kernel, and its backward launches the backward kernel once.
+    Under ``torch.no_grad`` every op launches its kernel."""
     call = _op_calls(cuda)[op]
-    before = kernels.LAUNCHES[OP_COUNTERS[op]]
-    with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
-        call(True)
-    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before
+    before = dict(kernels.LAUNCHES)
+    if op in GRAD_COUNTERS:
+        out = call(True)
+        assert out.requires_grad
+        out.sum().backward()
+        assert kernels.LAUNCHES[GRAD_COUNTERS[op]] == before[GRAD_COUNTERS[op]] + 1
+        launched = 1
+    else:
+        with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
+            call(True)
+        launched = 0
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + launched
     with torch.no_grad():
         call(True)
     call(False)
-    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before + 2
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + launched + 2
 
 
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_backend_refuses_grad_on_the_cpu(op):
-    """The grad check comes before the device check: under the "kernel"
-    backend a CPU input that requires grad gets the grad error, one that
-    does not the CUDA error; the "auto" backend takes the plain path,
-    which autograd differentiates."""
+    """Under the "kernel" backend: an op without a backward kernel checks
+    grad before the device, so a CPU input that requires grad gets the
+    grad error and one that does not the CUDA error; an op with one gets
+    the CUDA error both ways. The "auto" backend takes the plain path,
+    whose gradient flows."""
     call = _op_calls("cpu")[op]
     ops.set_backend("kernel")
     try:
-        with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
-            call(True)
+        if op in GRAD_COUNTERS:
+            with pytest.raises(ValueError, match="CUDA"):
+                call(True)
+        else:
+            with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
+                call(True)
         with pytest.raises(ValueError, match="CUDA"):
             call(False)
     finally:
@@ -676,3 +711,187 @@ def test_ops_poe_kl_runs_the_kernel_on_the_card(cuda):
         ops.set_backend("auto")
     assert kernels.LAUNCHES["poe_kl"] == before + 1
     _poe_close(got, want, 100)
+
+
+def _grad_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 64), (1280, 100), (37, 100), (5, 3), (3, 1)])
+def test_kl_rows_grad_kernel_matches_plain(cuda, shape):
+    """K1's VJP at the MNIST and CelebA posterior rows, ragged and odd D."""
+    gen = torch.Generator().manual_seed(30)
+    mu, lv = _rand(gen, *shape, device=cuda), _rand(gen, *shape, device=cuda)
+    g = _rand(gen, shape[0], device=cuda)
+    got = kernels.kl_rows_grad_kernel(mu, lv, g)
+    for a, b in zip(got, kernels.kl_rows_grad_torch(mu, lv, g)):
+        _grad_close(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.kl_rows_grad_kernel(mu, lv, g)))
+
+
+@pytest.mark.gpu
+def test_kl_rows_grad_kernel_unaligned_rows(cuda):
+    gen = torch.Generator().manual_seed(31)
+    n, d = 50, 64
+    mu = _rand(gen, n * d + 1, device=cuda)[1:].view(n, d)
+    lv = _rand(gen, n * d + 1, device=cuda)[1:].view(n, d)
+    g = _rand(gen, n, device=cuda)
+    for a, b in zip(kernels.kl_rows_grad_kernel(mu, lv, g), kernels.kl_rows_grad_torch(mu, lv, g)):
+        _grad_close(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", FOLDS)
+@pytest.mark.parametrize(
+    "shape", [(200, 784), (128, 12288), (36, 1002), (21888, 1), (8192, 784), (6, 3)]
+)
+def test_bce_rows_grad_kernel_matches_plain(cuda, fold, shape):
+    """K2's VJP in the logits in every fold: MNIST's train rows (200, 784)
+    against 100 targets, CelebA's image and attribute rows, D not a
+    multiple of 4; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(32)
+    n, d = shape
+    n_x = n if fold == kernels.FOLD_NONE else n // 2
+    logits = _rand(gen, n, d, device=cuda, scale=3.0)
+    x = torch.rand(n_x, d, generator=gen).to(cuda)
+    g = _rand(gen, n, device=cuda)
+    got = kernels.bce_rows_grad_kernel(logits, x, g, fold)
+    _grad_close(got, kernels.bce_rows_grad_torch(logits, x, g, fold))
+    assert torch.equal(got, kernels.bce_rows_grad_kernel(logits, x, g, fold))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 12288), (200, 784), (21888, 1)])
+def test_bce_rows_grad_kernel_offset_view(cuda, shape):
+    """Logits and targets one element into their storage: scalar loads."""
+    gen = torch.Generator().manual_seed(33)
+    n, d = shape
+    logits = _rand(gen, n * d + 1, device=cuda, scale=3.0)[1:].view(n, d)
+    x = torch.rand(n * d // 2 + 1, generator=gen).to(cuda)[1:].view(n // 2, d)
+    g = _rand(gen, n, device=cuda)
+    _grad_close(
+        kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_T),
+        kernels.bce_rows_grad_torch(logits, x, g, kernels.FOLD_T),
+    )
+
+
+def _poe_grads(gen, shape, device):
+    """The forward's outputs and output gradients of the fused PoE + KL."""
+    t, b, _, l = shape
+    return (_rand(gen, t, b, l, device=device), _rand(gen, t, b, l, device=device),
+            _rand(gen, t, b, device=device))
+
+
+def _poe_grad_close(got, want, n_terms: int) -> None:
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-5 * n_terms * w.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned", "ties"])
+@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)])
+def test_poe_kl_grad_kernel_matches_plain(cuda, shape, case):
+    """The backward at the three eval shapes (MNIST's is also its train
+    step's, (3, 100, 2, 64)) and an odd L, in every case, and with
+    log-variances at exactly +-11 (``ties``: half the gradient) and past
+    them; rows with no expert present get 0; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(34)
+    args = _poe_inputs(gen, shape, "wide" if case == "ties" else case, cuda)
+    if case == "ties":
+        lv = args[1]
+        lv[:, :, ::3] = 11.0
+        lv[:, :, 1::3] = -11.0
+    mu_f, lv_f, _ = kernels.poe_kl_kernel(*args)
+    g = _poe_grads(gen, shape, cuda)
+    got = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g)
+    _poe_grad_close(got, kernels.poe_kl_grad_torch(*args, mu_f, lv_f, *g), shape[0])
+    if case == "ragged":
+        assert all(torch.all(d[shape[1] // 4:] == 0) for d in got)
+    again = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_poe_kl_grad_kernel_keeps_nan(cuda):
+    """A NaN log-variance gives NaN gradients, as the forward keeps it."""
+    gen = torch.Generator().manual_seed(35)
+    args = _poe_inputs(gen, (3, 8, 2, 64), "eval", cuda)
+    args[1][2, 0, 5] = float("nan")
+    mu_f, lv_f, _ = kernels.poe_kl_kernel(*args)
+    d_mu, d_lv = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *_poe_grads(gen, (3, 8, 2, 64), cuda))
+    assert torch.isnan(d_lv[2, 0, 5]) and torch.isnan(d_mu[2, :, 5]).all()
+    assert torch.isfinite(d_lv[:2]).all()
+
+
+@pytest.mark.gpu
+def test_poe_kl_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """Too little shared memory, a block of other than whole warps or a
+    grid that is not a block per batch row is refused at launch and
+    counts no launch."""
+    gen = torch.Generator().manual_seed(36)
+    args = _poe_inputs(gen, (3, 8, 2, 64), "eval", cuda)
+    mu_f, lv_f, _ = kernels.poe_kl_kernel(*args)
+    g = _poe_grads(gen, (3, 8, 2, 64), cuda)
+    good = kernels.poe_kl_bwd_plan(3, 8, 2, 64)
+    before = kernels.LAUNCHES["poe_kl_bwd"]
+    for bad in (good._replace(smem=good.smem - 4), good._replace(threads=48),
+                good._replace(blocks=good.blocks + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g, plan=bad)
+    assert kernels.LAUNCHES["poe_kl_bwd"] == before
+
+
+def _grads_both_backends(fn, inputs):
+    """The gradients of ``fn(*inputs)`` weighted by a seeded upstream
+    gradient, on the "auto" backend (the kernels) and on "torch"."""
+    grads = []
+    for backend in ("auto", "torch"):
+        ops.set_backend(backend)
+        try:
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            outs = fn(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            gen = torch.Generator().manual_seed(37)
+            loss = sum((o * _rand(gen, *o.shape, device=o.device)).sum() for o in outs)
+            grads.append(torch.autograd.grad(loss, leaves))
+        finally:
+            ops.set_backend("auto")
+    return grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["kl_std_normal", "bernoulli_nll_t", "bernoulli_nll_b",
+                                "bernoulli_nll_none", "poe_kl", "poe_kl_presence"])
+def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
+    """Each ``autograd.Function`` on the card (forward and backward
+    kernels) against the same op under ``set_backend("torch")``: MNIST's
+    train shapes, the image at event_ndims=2; one backward launch each."""
+    gen = torch.Generator().manual_seed(38)
+    if op == "kl_std_normal":
+        fn, counter = ops.kl_std_normal, "kl_bwd"
+        inputs = [_rand(gen, 3, 100, 64, device=cuda) for _ in range(2)]
+    elif op.startswith("bernoulli_nll"):
+        fold = op.rsplit("_", 1)[1]
+        n_x = 200 if fold == "none" else 100
+        x = torch.rand(n_x, 28, 28, generator=gen).to(cuda)
+
+        def fn(logits):
+            return ops.bernoulli_nll(logits, x, 2, fold="t" if fold == "none" else fold)
+
+        inputs, counter = [_rand(gen, 200, 28, 28, device=cuda, scale=3.0)], "bce_bwd"
+    else:
+        mu, lv, masks, presence = _poe_inputs(
+            gen, (3, 100, 2, 64), "ragged" if op == "poe_kl_presence" else "none", cuda)
+
+        def fn(m, v):
+            return ops.poe_kl(m, v, masks, presence)
+
+        inputs, counter = [mu, lv], "poe_kl_bwd"
+    before = kernels.LAUNCHES[counter]
+    on_card, plain = _grads_both_backends(fn, inputs)
+    assert kernels.LAUNCHES[counter] == before + 1
+    for a, b in zip(on_card, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())

@@ -359,3 +359,74 @@ def test_fuse_observed_z_matches_jax_and_guards_mixtures():
             core.fuse_observed_z(_t(mu), _t(lv), None, objective, sample=False)
     with pytest.raises(ValueError):
         core.fuse_observed_z(_t(mu), _t(lv), None, "vae", sample=False)
+
+
+_FOLD_TILES = {
+    "none": lambda a, k: a,
+    "t": lambda a, k: _tile_terms_tmajor(a, k),
+    "b": lambda a, k: jops._tile_rows(a, k),
+}
+
+
+def _bce_grads(logits, x, g, fold):
+    """d logits and d x of sum(g * ops.bernoulli_nll(logits, x)) on the CPU."""
+    lt, xt = _t(logits).requires_grad_(True), _t(x).requires_grad_(True)
+    out = ops.bernoulli_nll(lt, xt, 1, fold="t" if fold == "none" else fold)
+    return [a.numpy() for a in torch.autograd.grad((out * _t(g)).sum(), (lt, xt))]
+
+
+@pytest.mark.parametrize("fold", ["none", "t", "b"])
+def test_bce_grad_at_zero_logits_is_the_pallas_vjp(fold):
+    """At logits exactly 0 the plain path's gradient is ``_bce_bwd``'s, the
+    VJP of the TPU kernel K2 ports: g * (sigmoid(0) - x) = g * (0.5 - x)
+    (autograd of the plain formula gave g * (1 - x) there), and d x =
+    -g * l summed over the rows that read each target row."""
+    k, b, d = 3, 4, 5
+    rng = np.random.default_rng(15)
+    logits = rng.normal(size=(k * b, d)).astype(np.float32)
+    logits[:, ::2] = 0.0
+    x = rng.uniform(size=(k * b if fold == "none" else b, d)).astype(np.float32)
+    x[0, :3] = (0.0, 1.0, 0.3)
+    g = rng.normal(size=(k * b,)).astype(np.float32)
+    tiled = _FOLD_TILES[fold](jnp.asarray(x), k)
+    d_logits, d_x_tiled = jkernels._bce_bwd(1, (jnp.asarray(logits), tiled), jnp.asarray(g))
+    want_dx = jax.grad(lambda a: jnp.sum(_FOLD_TILES[fold](a, k) * d_x_tiled))(jnp.asarray(x))
+    got = _bce_grads(logits, x, g, fold)
+    np.testing.assert_allclose(got[0], np.asarray(d_logits), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got[1], np.asarray(want_dx), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[0][:, 0], g * (0.5 - _FOLD_TILES[fold](x, k)[:, 0]),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("fold", ["none", "t", "b"])
+def test_bce_grad_matches_jax_grad_away_from_zero(fold):
+    """Away from 0, both gradients of the plain path against ``jax.grad``
+    of the JAX package's jnp BCE on the tiled targets (rtol 1e-5)."""
+    k, b, d = 3, 6, 130
+    rng = np.random.default_rng(16)
+    logits = (rng.normal(size=(k * b, d)) * 3).astype(np.float32)
+    x = rng.uniform(size=(k * b if fold == "none" else b, d)).astype(np.float32)
+    g = rng.normal(size=(k * b,)).astype(np.float32)
+
+    def loss(lg, xs):
+        return jnp.sum(jnp.asarray(g) * jcore.bernoulli_nll(lg, _FOLD_TILES[fold](xs, k), 1))
+
+    want = jax.grad(loss, (0, 1))(jnp.asarray(logits), jnp.asarray(x))
+    for got, w in zip(_bce_grads(logits, x, g, fold), want):
+        np.testing.assert_allclose(got, np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_kl_grad_matches_the_pallas_vjp_and_jax_grad():
+    """K1's gradient on the plain path: ``_kl_bwd`` and ``jax.grad`` of the
+    jnp KL, with batch dims."""
+    rng = np.random.default_rng(17)
+    mu, lv = rng.normal(size=(2, 3, 7, 16)).astype(np.float32)
+    g = rng.normal(size=(3, 7)).astype(np.float32)
+    mu_t, lv_t = _t(mu).requires_grad_(True), _t(lv).requires_grad_(True)
+    got = torch.autograd.grad((ops.kl_std_normal(mu_t, lv_t) * _t(g)).sum(), (mu_t, lv_t))
+    vjp = jkernels._kl_bwd((jnp.asarray(mu), jnp.asarray(lv)), jnp.asarray(g))
+    want = jax.grad(lambda a, v: jnp.sum(jnp.asarray(g) * jcore.kl_std_normal(a, v)), (0, 1))(
+        jnp.asarray(mu), jnp.asarray(lv))
+    for a, v, w in zip(got, vjp, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(v), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=RTOL, atol=1e-6)

@@ -3,11 +3,14 @@ on the CPU.
 
 The JAX side runs the masked PoE (``mmvae_tpu.core.product_of_experts``)
 and then K1's Pallas kernel in interpret mode, as ``tests/test_pallas.py``
-runs it. Inputs come from numpy seeds. The tolerance is rtol 2e-4, because
-XLA-CPU transcendentals are approximate (docs/DESIGN.md section 7); the
-atol covers KLs that cancel to near 0.
+runs it; the gradients are ``jax.grad`` of the PoE followed by
+``mmvae_tpu.core.elbo.kl_std_normal``, as the JAX train step takes them.
+Inputs come from numpy seeds. The tolerance is rtol 2e-4, because XLA-CPU
+transcendentals are approximate (docs/DESIGN.md section 7); the atol
+covers KLs and gradients that cancel to near 0.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,14 +98,17 @@ def test_ops_poe_kl_on_the_cpu_is_the_sequence_it_replaces(case):
 
 
 def test_ops_poe_kl_kernel_backend_raises_on_the_cpu():
-    """Under the "kernel" backend CPU tensors raise, and an input that
-    requires grad raises first; under "torch" the plain version runs."""
+    """Under the "kernel" backend CPU tensors raise, and a presence that
+    requires grad raises first (only the expert stack is differentiated);
+    under "torch" the plain version runs."""
     mu, lv, masks, presence = (_t(a) for a in _inputs((3, 10, 2, 64), "zero_rows"))
     try:
         ops.set_backend("kernel")
         with pytest.raises(ValueError, match="CUDA"):
             ops.poe_kl(mu, lv, masks, presence)
-        with pytest.raises(RuntimeError, match="ops.poe_kl: .*backward is not yet ported"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.poe_kl(mu.requires_grad_(True), lv, masks, presence)
+        with pytest.raises(RuntimeError, match="ops.poe_kl: .*backward .*is not yet ported"):
             ops.poe_kl(mu, lv, masks, presence.requires_grad_(True))
         ops.set_backend("torch")
         assert ops.poe_kl(mu, lv, masks)[2].shape == (3, 10)
@@ -110,3 +116,78 @@ def test_ops_poe_kl_kernel_backend_raises_on_the_cpu():
         ops.set_backend("auto")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.poe_kl_kernel(mu, lv, masks)
+
+
+def _jax_poe_kl_grads(mu, lv, masks, presence, g_mu, g_lv, g_kl):
+    """``jax.grad`` in the expert stack of sum(g_mu * mu_f + g_lv * lv_f +
+    g_kl * kl): the masked PoE then the KL, as the JAX step computes them."""
+    eff = masks[:, None, :] if presence is None else masks[:, None, :] * presence[None]
+    eff = jnp.asarray(np.broadcast_to(eff, (masks.shape[0], mu.shape[0], masks.shape[1])))
+
+    def loss(m, v):
+        mu_f, lv_f = jcore.product_of_experts(m[None], v[None], mask=eff)
+        kl = jcore.kl_std_normal(mu_f, lv_f)
+        return jnp.sum(g_mu * mu_f) + jnp.sum(g_lv * lv_f) + jnp.sum(g_kl * kl)
+
+    return [np.asarray(a) for a in jax.grad(loss, (0, 1))(jnp.asarray(mu), jnp.asarray(lv))]
+
+
+def _torch_poe_kl_grads(mu, lv, masks, presence, g_mu, g_lv, g_kl):
+    """The same gradients through ``ops.poe_kl`` on the CPU (its plain
+    backward, ``kernels.poe_kl_grad_torch``)."""
+    mu_t, lv_t = _t(mu).requires_grad_(True), _t(lv).requires_grad_(True)
+    mu_f, lv_f, kl = ops.poe_kl(mu_t, lv_t, _t(masks), _t(presence))
+    loss = (mu_f * _t(g_mu)).sum() + (lv_f * _t(g_lv)).sum() + (kl * _t(g_kl)).sum()
+    return [a.numpy() for a in torch.autograd.grad(loss, (mu_t, lv_t))]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_poe_kl_plain_grad_matches_jax_grad(shape, case):
+    """d mu_e and d lv_e of ``ops.poe_kl``'s plain backward against
+    ``jax.grad`` of the JAX PoE and KL, with random output gradients."""
+    t, b, _, l = shape
+    mu, lv, masks, presence = _inputs(shape, case, seed=2)
+    rng = np.random.default_rng(3)
+    grads = (rng.normal(size=(t, b, l)).astype(np.float32),
+             rng.normal(size=(t, b, l)).astype(np.float32),
+             rng.normal(size=(t, b)).astype(np.float32))
+    want = _jax_poe_kl_grads(mu, lv, masks, presence, *grads)
+    got = _torch_poe_kl_grads(mu, lv, masks, presence, *grads)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-5 * np.abs(w).max())
+    if case == "zero_rows":
+        assert np.all(got[0][[0, 2]] == 0) and np.all(got[1][[0, 2]] == 0)
+
+
+def test_poe_clamp_ties_take_half_the_gradient_as_jnp_clip():
+    """B = 1, M = 2, the three mvae terms, loss sum(kl) + sum(mu_f) +
+    sum(lv_f). Expert log-variances (11, -11, 3, 15; 0.5, 11, -2, -14):
+    at exactly +-11 ``jnp.clip`` passes half the gradient (``torch.clamp``
+    passed all of it, twice JAX's d lv_e), inside the range all of it,
+    beyond none. Both the fused op and ``core.product_of_experts``."""
+    mu = np.asarray([[[0.3, -0.2, 0.7, 0.1], [-0.4, 0.6, 0.2, -0.5]]], np.float32)
+    lv = np.asarray([[[11.0, -11.0, 3.0, 15.0], [0.5, 11.0, -2.0, -14.0]]], np.float32)
+    masks = np.asarray(jcore.elbo_subset_masks(2))
+    ones = (np.ones((3, 1, 4), np.float32),) * 2 + (np.ones((3, 1), np.float32),)
+    want = _jax_poe_kl_grads(mu, lv, masks, None, *ones)
+    got = _torch_poe_kl_grads(mu, lv, masks, None, *ones)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-8)
+    assert want[1][0, 1, 3] == 0 and got[1][0, 1, 3] == 0  # beyond the clamp
+    lv_t = _t(lv).requires_grad_(True)
+    eff = _t(masks)[:, None, :]
+    mu_f, lv_f = core.product_of_experts(_t(mu)[None], lv_t[None], mask=eff)
+    (core.kl_std_normal(mu_f, lv_f).sum() + mu_f.sum() + lv_f.sum()).backward()
+    np.testing.assert_allclose(lv_t.grad.numpy(), want[1], rtol=RTOL, atol=1e-8)
+
+
+def test_poe_grad_keeps_a_nan_log_variance():
+    """A NaN log-variance stays NaN through the clamp, forward and back."""
+    mu, lv, masks, _ = _inputs((3, 4, 2, 8), "all_present")
+    lv[1, 0, 3] = np.nan
+    mu_t, lv_t = _t(mu).requires_grad_(True), _t(lv).requires_grad_(True)
+    mu_f, lv_f, kl = ops.poe_kl(mu_t, lv_t, _t(masks))
+    assert torch.isnan(lv_f[:2, 1, 3]).all() and torch.isfinite(lv_f[:, 0]).all()
+    kl.sum().backward()
+    assert torch.isnan(lv_t.grad[1, 0, 3]) and torch.isfinite(lv_t.grad[0]).all()
