@@ -22,7 +22,7 @@ from typing import Any, NamedTuple
 import torch
 
 from mmvae_torch.configs import (
-    UNPORTED_TRAIN_DEFAULTS,
+    UNPORTED_TRAIN_FIELDS,
     ExperimentConfig,
     build_model,
     get_config,
@@ -107,11 +107,7 @@ class TrainResult(NamedTuple):
 
 def _check_trainable(config: ExperimentConfig) -> None:
     """Raise on a config that sets a training feature not ported yet."""
-    set_knobs = sorted(
-        k for k, v in UNPORTED_TRAIN_DEFAULTS.items() if getattr(config, k) != v
-    )
-    if config.n_random_subsets:
-        set_knobs.append("n_random_subsets")
+    set_knobs = [k for k in UNPORTED_TRAIN_FIELDS if getattr(config, k)]
     if set_knobs:
         raise NotImplementedError(
             f"config {config.name!r} sets {set_knobs}: not yet ported to mmvae_torch"
@@ -160,7 +156,7 @@ def train(
         raise ValueError(f"train split of {train_ds.size} holds no batch of {bs}")
     state = create_train_state(
         model, config.learning_rate, grad_clip=config.grad_clip,
-        ema_decay=config.ema_decay, accum_steps=config.accum_steps,
+        ema_decay=config.ema_decay,
     )
     runner = make_epoch_runner(
         model,

@@ -3,13 +3,14 @@
 Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
 experiments raise until their slice lands. The fields are those the
 inference slices and the MNIST training slice read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``), and the training knobs of
-features not yet ported, also at their JAX defaults: ``api.train`` raises
-``NotImplementedError`` when one of those differs from its default
-(:data:`UNPORTED_TRAIN_DEFAULTS`), or when ``n_random_subsets`` is not 0.
-The ``multimnist`` and ``celeba`` configs carry the JAX configs' training
-fields (cross_recon and the cycle term, random subsets, clipping), so
-training them raises until their slices land. Eval pins
+defaults (``mmvae_tpu/configs.py:30-175``), and the three training
+features the ``multimnist`` and ``celeba`` configs set that are not ported
+yet (:data:`UNPORTED_TRAIN_FIELDS`: ``cross_recon``, ``cycle_weight``,
+``n_random_subsets``); ``api.train`` raises ``NotImplementedError`` when
+one of those is set, so training those two configs raises until their
+slices land. The JAX configs' other knobs (gradient accumulation, LR
+schedules, shuffle modes, the data backends, mesh layouts, the cycle
+term's render options) are left out until a slice reads them. Eval pins
 ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 """
 
@@ -26,7 +27,7 @@ from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
 __all__ = [
     "ExperimentConfig",
     "CONFIGS",
-    "UNPORTED_TRAIN_DEFAULTS",
+    "UNPORTED_TRAIN_FIELDS",
     "get_config",
     "build_model",
 ]
@@ -51,27 +52,9 @@ class ExperimentConfig:
     ema_decay: float = 0.0  # EMA shadow of the parameters (0: off)
     train_size: int = 10000
     test_size: int = 2000
-    # Training knobs of features not yet ported, at the JAX defaults.
+    # Training features not yet ported (``api.train`` raises when set).
     cross_recon: bool = False
-    cross_recon_weight: float = 1.0
-    cross_recon_stopgrad: bool = False
-    unimodal_align_weight: float = 0.0
     cycle_weight: float = 0.0
-    cycle_render_binarize: bool | str = False
-    cycle_contrast_weight: float = 0.0
-    cycle_render_grad: bool = False
-    nan_rollback: int = 0
-    accum_steps: int = 1
-    lr_schedule: str = "constant"
-    warmup_epochs: int = 0
-    shuffle_granularity: int = 1
-    reshuffle_every: int = 1
-    shuffle_mode: str = "roll"
-    data_backend: str = "device"
-    data_dtype: str = "float32"
-    fsdp: bool = False
-    tp: int = 1
-    pp: int = 1
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -79,20 +62,9 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The training knobs ``api.train`` does not take yet, at the values it
-# takes (the JAX defaults). ``data_backend="grain"`` is the grain backend.
-UNPORTED_TRAIN_DEFAULTS = {
-    f.name: f.default
-    for f in dataclasses.fields(ExperimentConfig)
-    if f.name in (
-        "cross_recon", "cross_recon_weight", "cross_recon_stopgrad",
-        "unimodal_align_weight", "cycle_weight", "cycle_render_binarize",
-        "cycle_contrast_weight", "cycle_render_grad", "nan_rollback",
-        "accum_steps", "lr_schedule", "warmup_epochs", "shuffle_granularity",
-        "reshuffle_every", "shuffle_mode", "data_backend", "data_dtype", "fsdp",
-        "tp", "pp",
-    )
-}
+# The training features ``api.train`` does not take yet: each must be
+# falsy (off) to train.
+UNPORTED_TRAIN_FIELDS = ("cross_recon", "cycle_weight", "n_random_subsets")
 
 
 CONFIGS: dict[str, ExperimentConfig] = {
@@ -106,7 +78,7 @@ CONFIGS: dict[str, ExperimentConfig] = {
     "multimnist": ExperimentConfig(
         name="multimnist", dataset="multimnist", n_latents=256,
         cross_recon=True, grad_clip=500.0, epochs=60, train_size=100000,
-        cycle_weight=1.0, cycle_render_grad=True, cycle_render_binarize="both",
+        cycle_weight=1.0,
         model_kwargs={
             "conv_features": (32, 64, 128, 256),
             "lambda_text": 30.0,

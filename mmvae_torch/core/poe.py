@@ -16,14 +16,27 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["product_of_experts"]
+__all__ = ["LOGVAR_BOUND", "PRECISION_EPS", "clamp_logvar", "product_of_experts"]
+
+LOGVAR_BOUND = 11.0  # expert log-variances are clamped to +-this before inversion
+PRECISION_EPS = 1e-8  # added to each expert's variance before inversion
+
+
+def clamp_logvar(logvar: torch.Tensor) -> torch.Tensor:
+    """``logvar`` clamped to [-LOGVAR_BOUND, LOGVAR_BOUND] as ``jnp.clip``
+    clamps it in the JAX reference: a NaN stays NaN, and the gradient is 1
+    inside the range, 0.5 at exactly the bound (``torch.clamp`` would pass
+    1 there) and 0 beyond."""
+    lo = logvar.new_full((), -LOGVAR_BOUND)
+    hi = logvar.new_full((), LOGVAR_BOUND)
+    return torch.minimum(torch.maximum(logvar, lo), hi)
 
 
 def product_of_experts(
     mu: torch.Tensor,
     logvar: torch.Tensor,
     mask: torch.Tensor | None = None,
-    eps: float = 1e-8,
+    eps: float = PRECISION_EPS,
     include_prior: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fuse Gaussian experts by precision-weighted product.
@@ -31,9 +44,7 @@ def product_of_experts(
     Args:
       mu: ``(..., n_experts, latent)`` expert means (prior NOT included).
       logvar: same shape, expert log-variances; clamped to [-11, 11]
-        before inversion as ``jnp.clip`` clamps them in the JAX reference:
-        a NaN stays NaN, and the gradient is 1 inside the range, 0.5 at
-        exactly +-11 (``torch.clamp`` would pass 1 there) and 0 beyond.
+        before inversion by :func:`clamp_logvar`.
       mask: optional ``(..., n_experts)`` presence mask; an expert with
         mask 0 contributes nothing.
       eps: stabilizer added to variances before inversion.
@@ -42,10 +53,7 @@ def product_of_experts(
     Returns:
       ``(mu_fused, logvar_fused)``, each of shape ``(..., latent)``.
     """
-    logvar = torch.minimum(
-        torch.maximum(logvar, logvar.new_full((), -11.0)), logvar.new_full((), 11.0)
-    )
-    precision = 1.0 / (torch.exp(logvar) + eps)
+    precision = 1.0 / (torch.exp(clamp_logvar(logvar)) + eps)
     if mask is not None:
         precision = precision * mask.to(precision.dtype)[..., None]
     prior_t = 1.0 if include_prior else 0.0

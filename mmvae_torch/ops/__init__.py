@@ -81,6 +81,11 @@ def _records_grad(*ts: torch.Tensor | None) -> bool:
     return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in ts)
 
 
+def _kernel_path(t: torch.Tensor) -> bool:
+    """Whether the backend rule sends an op on ``t`` to its kernel."""
+    return _backend == "kernel" or (_backend == "auto" and t.is_cuda)
+
+
 def _use_kernel(
     op: str, t: torch.Tensor, *more: torch.Tensor, differentiable: bool = False
 ) -> bool:
@@ -89,7 +94,7 @@ def _use_kernel(
     An op without a backward kernel (``differentiable=False``) raises on
     the kernel path where autograd would record it: grad mode on and an
     input that requires grad. It never falls back to the plain path."""
-    if _backend == "torch" or (_backend == "auto" and not t.is_cuda):
+    if not _kernel_path(t):
         return False
     if not differentiable and _records_grad(t, *more):
         raise RuntimeError(
@@ -222,12 +227,13 @@ def bernoulli_nll(
             f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
             f"{len(batch_shape)} (not yet ported to mmvae_torch)"
         )
-    kernel = _use_kernel("bernoulli_nll", logits, x, differentiable=True)
-    if kernel and _records_grad(x):
+    # Checked before the device, as the ops without a backward kernel do.
+    if _kernel_path(logits) and _records_grad(x):
         raise RuntimeError(
             "ops.bernoulli_nll: the kernel path has no gradient in the targets (dx); "
             "call it with targets that do not require grad, or with set_backend('torch')"
         )
+    kernel = _use_kernel("bernoulli_nll", logits, x, differentiable=True)
     return _BernoulliNll.apply(logits, x, event_ndims, mode, kernel)
 
 

@@ -82,8 +82,13 @@ constexpr int kWarp = 32;
 constexpr int kMaxWarps = 32;
 constexpr int kMaxSmem = 48 * 1024;
 constexpr int kStage = 2;  // float4s of each slab a thread has in flight
-constexpr float kPrior = 1.0f;  // the prior expert's precision
-constexpr float kEps = 1e-8f;   // added to each expert's variance
+// The PoE's constants, as mmvae_torch/core/poe.py names them: the prior
+// expert's precision, PRECISION_EPS (added to each expert's variance) and
+// LOGVAR_BOUND (each expert's log-variance is clamped to +-this). Change
+// them there and here together.
+constexpr float kPrior = 1.0f;
+constexpr float kEps = 1e-8f;
+constexpr float kBound = 11.0f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -95,7 +100,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // An expert's precision. The comparisons keep a NaN, as torch.clamp does.
 __device__ __forceinline__ float precision(float lv) {
-  const float c = lv < -11.0f ? -11.0f : (lv > 11.0f ? 11.0f : lv);
+  const float c = lv < -kBound ? -kBound : (lv > kBound ? kBound : lv);
   return 1.0f / (expf(c) + kEps);
 }
 
@@ -267,7 +272,7 @@ __global__ void poe_kl_kernel(const float* __restrict__ mu_e,
 // The clamp's gradient: 1 inside (-11, 11), 0.5 at exactly +-11, 0 beyond
 // (and 0 for a NaN, whose other factor is NaN).
 __device__ __forceinline__ float clamp_grad(float lv) {
-  return (lv > -11.0f && lv < 11.0f) ? 1.0f : ((lv == 11.0f || lv == -11.0f) ? 0.5f : 0.0f);
+  return (lv > -kBound && lv < kBound) ? 1.0f : ((lv == kBound || lv == -kBound) ? 0.5f : 0.0f);
 }
 
 // Dynamic shared memory: the precision slab (M x L), the term weights
@@ -334,7 +339,7 @@ __global__ void poe_kl_bwd_kernel(const float* __restrict__ mu_e,
       d_mu += __fmul_rn(a, __fmul_rn(p, wt));
       d_q += __fmul_rn(wt, __fmul_rn(a, u - s_f[t * l_dim + l]) - s_q[t * l_dim + l]);
     }
-    const float c = v < -11.0f ? -11.0f : (v > 11.0f ? 11.0f : v);
+    const float c = v < -kBound ? -kBound : (v > kBound ? kBound : v);
     const float dp_dc = -__fmul_rn(__fmul_rn(expf(c), p), p);
     d_mu_e[base + i] = d_mu;
     d_lv_e[base + i] = __fmul_rn(__fmul_rn(d_q, dp_dc), clamp_grad(v));

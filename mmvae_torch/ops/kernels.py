@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from mmvae_torch.core.elbo import kl_std_normal as _kl_plain
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bce_plain
 from mmvae_torch.core.likelihoods import categorical_nll as _cat_plain
+from mmvae_torch.core.poe import LOGVAR_BOUND, PRECISION_EPS, clamp_logvar
 from mmvae_torch.core.poe import product_of_experts as _poe_plain
 
 __all__ = [
@@ -823,7 +824,6 @@ def poe_kl_torch(
 
 # ------------------------------------------------- PoE + KL backward ----
 
-POE_EPS = 1e-8  # added to each expert's variance, as the forward takes it
 POE_BWD_THREADS = 256
 
 
@@ -851,10 +851,13 @@ def poe_kl_bwd_plan(t: int, b: int, m: int, l: int) -> PoeKlBwdPlan:
 
 
 def _clamp_grad(lv: torch.Tensor) -> torch.Tensor:
-    """The gradient of the PoE's clamp to [-11, 11], as ``jnp.clip``'s: 1
-    inside, 0.5 at exactly +-11, 0 beyond (and 0 at a NaN)."""
+    """The gradient of the forward's clamp (:func:`clamp_logvar`) at
+    ``lv``, written out as the kernel computes it: 1 inside, 0.5 at
+    exactly the bound, 0 beyond (and 0 at a NaN)."""
     a = lv.abs()
-    return torch.where(a < 11.0, 1.0, torch.where(a == 11.0, 0.5, 0.0)).to(lv.dtype)
+    return torch.where(
+        a < LOGVAR_BOUND, 1.0, torch.where(a == LOGVAR_BOUND, 0.5, 0.0)
+    ).to(lv.dtype)
 
 
 def poe_kl_grad_torch(
@@ -870,8 +873,8 @@ def poe_kl_grad_torch(
     added to the posteriors' gradients, then each expert's share summed
     over the terms."""
     n_terms, n_mod = masks.shape
-    e = torch.exp(torch.clamp(lv_e, -11.0, 11.0))
-    p = 1.0 / (e + POE_EPS)  # (B, M, L)
+    e = torch.exp(clamp_logvar(lv_e))
+    p = 1.0 / (e + PRECISION_EPS)  # (B, M, L)
     w = masks[:, None, :]  # (T, 1, M)
     w = w * presence[None] if presence is not None else w.expand(n_terms, mu_e.shape[0], n_mod)
     big_p = p[None] * w[..., None]  # (T, B, M, L)

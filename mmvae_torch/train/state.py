@@ -16,7 +16,7 @@ does in order what the JAX ``tx`` chain and ``apply_gradients`` do:
     ``ema_decay > 0`` (``state.py:36-57``);
   * ``step + 1``.
 
-``accum_steps > 1`` (``optax.MultiSteps``) is not ported and raises.
+Gradient accumulation (``optax.MultiSteps``) is not ported.
 """
 
 from __future__ import annotations
@@ -90,15 +90,10 @@ def create_train_state(
     learning_rate: float = 1e-3,
     grad_clip: float = 0.0,
     ema_decay: float = 0.0,
-    accum_steps: int = 1,
 ) -> TrainState:
     """Adam over ``model``'s parameters as they are (the model was built
     with its seeded init, or loaded), and the EMA shadow initialised to
     them when ``ema_decay > 0``."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 (optax.MultiSteps) is not yet ported to mmvae_torch"
-        )
     optimizer = torch.optim.Adam(
         model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
     )

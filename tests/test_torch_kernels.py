@@ -481,6 +481,37 @@ def test_ops_kernel_backend_refuses_grad_on_the_cpu(op):
     assert call(True).requires_grad
 
 
+def _bce_with_target_grad(device):
+    gen = torch.Generator().manual_seed(23)
+    logits = torch.randn(8, 16, generator=gen).to(device).requires_grad_(True)
+    x = torch.rand(4, 16, generator=gen).to(device).requires_grad_(True)
+    return ops.bernoulli_nll(logits, x, fold="t")
+
+
+@pytest.mark.gpu
+def test_ops_bce_kernel_path_refuses_target_grad(cuda):
+    """The BCE's backward kernel computes d logits only: targets that
+    require grad raise on the kernel path, before anything launches,
+    rather than take a gradient of zero."""
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match=r"no gradient in the targets \(dx\)"):
+        _bce_with_target_grad(cuda)
+    assert kernels.LAUNCHES == before
+
+
+def test_ops_bce_kernel_backend_refuses_target_grad_on_the_cpu():
+    """Under the "kernel" backend the targets' grad is refused before the
+    device is checked; the "auto" backend takes the plain path, whose dx
+    flows."""
+    ops.set_backend("kernel")
+    try:
+        with pytest.raises(RuntimeError, match=r"no gradient in the targets \(dx\)"):
+            _bce_with_target_grad("cpu")
+    finally:
+        ops.set_backend("auto")
+    assert _bce_with_target_grad("cpu").requires_grad
+
+
 @pytest.mark.gpu
 def test_ops_conv_runs_the_kernel_on_the_card(cuda):
     gen = torch.Generator().manual_seed(9)

@@ -182,6 +182,17 @@ def test_poe_clamp_ties_take_half_the_gradient_as_jnp_clip():
     np.testing.assert_allclose(lv_t.grad.numpy(), want[1], rtol=RTOL, atol=1e-8)
 
 
+def test_plain_backward_clamp_grad_is_the_forward_clamps():
+    """The plain backward's clamp gradient, written out as the kernel's,
+    equals autograd's through ``core.poe.clamp_logvar`` at, inside and beyond
+    the bound, so the forward's clamp and the backward cannot split."""
+    bound = core.poe.LOGVAR_BOUND
+    lv = torch.tensor([-bound - 1, -bound, -bound + 1e-3, 0.0, 2.5, bound, bound + 3])
+    x = lv.clone().requires_grad_(True)
+    core.poe.clamp_logvar(x).sum().backward()
+    torch.testing.assert_close(kernels._clamp_grad(lv), x.grad, rtol=0, atol=0)
+
+
 def test_poe_grad_keeps_a_nan_log_variance():
     """A NaN log-variance stays NaN through the clamp, forward and back."""
     mu, lv, masks, _ = _inputs((3, 4, 2, 8), "all_present")
