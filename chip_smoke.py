@@ -15,8 +15,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    another order; the bf16 conv atol 2e-2, one bf16 rounding of outputs
    below 4; the fused PoE + KL atol 1e-6 for the posteriors and 1e-5 * L
    for the KL, whose rows with every expert absent must give exactly 0;
-   the elementwise gradients of K1 and K2 atol 1e-6; the fused PoE + KL's
-   backward atol 1e-5 * T times its largest gradient, as it sums T terms);
+   the elementwise gradients of K1, K2 and K3 atol 1e-6, a pad token's K3
+   gradient exactly 0; the fused PoE + KL's backward atol 1e-5 * T times
+   its largest gradient, as it sums T terms);
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
    every eval runs the fused PoE + KL once per batch and K1 no time;
@@ -44,6 +45,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and on the CPU from the same weights, noise and batches (the loss
      each step at rel 1e-4, every parameter tensor at a relative 2-norm of
      1e-4); the train samples/s of a timed epoch and a profile of one step;
+   - ``multimnist`` training (cross-recon, the cycle term on the soft and
+     the thresholded render, clipping at 500): ``api.train`` for one epoch
+     at full width over a train split cut to 2,000 examples (20 steps of
+     batch 100, then the test ELBO), launching the fused PoE + KL 80
+     times, K2 40, K3 80 and their backward kernels 60, 20 and 60; its
+     first-epoch test ELBO below the untrained model's; three steps on the
+     card and on the CPU at batch 20 under the same gates, with the render
+     pixels that land on other sides of 0.5 reported; the train samples/s
+     of a timed epoch and a profile of one step;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 50) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -56,8 +66,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    config the wall time of one ``eval_elbo`` and a profile of where its
    device time goes (its device busy time with and without the
    host-to-device copies, whose pageable upload varies run to run). The
-   backward kernels are timed at MNIST's train shapes beside their plain
-   versions and the autograd backward of the library forward.
+   backward kernels are timed at MNIST's and MultiMNIST's train shapes
+   beside their plain versions and the autograd backward of the library
+   forward.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -97,18 +108,21 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # product and its sum, the mean product and its sum; per output the prior
 # add, a divide, a log, a negation and K1's 5.
 # The gradients: KL's 1 + 4 (a product; a product, an exp, a subtract and
-# a product); BCE's an exp, an add, a divide, a subtract and a product.
+# a product); BCE's an exp, an add, a divide, a subtract and a product; the
+# sequence cross-entropy's per logit of a non-pad token the forward's 4
+# (max, subtract, exp, add) and a subtract, an exp, a divide, the one-hot's
+# subtract and the product with g.
 # The PoE's backward: per expert element the precision's 4 and its
 # derivative's 3; per (term, expert element) the weight product, the mean
 # and precision shares (3 products, a subtract, a subtract, 2 adds); per
 # output the total's prior add, K1's VJP (a product, an add; an exp, a
 # subtract, 2 products, an add) and 2 divides.
-OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5}
+OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5, "seq_ce_bwd": 9}
 CONV_OPS_PER_OUT = 5
 POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
 POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
-OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "poe_kl_bwd")
-BWD_OPS = ("kl_bwd", "bce_bwd", "poe_kl_bwd")
+OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd")
+BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd")
 CONFIGS = ("mnist", "multimnist", "celeba")
 META = {
     "kl": {
@@ -155,6 +169,13 @@ META = {
         "source": "mmvae_torch/ops/csrc/row_reduce.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:312",
     },
+    "seq_ce_bwd": {
+        "name": "seq_ce_rows_grad",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/seq_ce.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:295",
+        "note": "K3's VJP",
+    },
     "poe_kl_bwd": {
         "name": "poe_kl_bwd",
         "route": "cuda",
@@ -182,23 +203,33 @@ TIMED_SHAPES = {
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
     "bce": {"mnist_eval": (200, 784, 100, kernels.FOLD_T),
             "multimnist_eval": (200, 2500, 100, kernels.FOLD_T),
+            "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
             "celeba_image": (128, 12288, 64, kernels.FOLD_T),
             "celeba_attrs": (21888, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
-    "seq_ce": {"multimnist_eval": (200, 5, 13), "cub_synthetic": (4096, 32, 23),
-               "large": (2048, 8, 5003)},
+    "seq_ce": {"multimnist_eval": (200, 5, 13), "multimnist_train": (300, 5, 13),
+               "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
              "probe": (256, 64, 64, 3, torch.bfloat16)},
     "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
                "multimnist_eval": (3, 100, 2, 256, "eval"),
+               "multimnist_train": (3, 100, 2, 256, "text"),
                "celeba_eval": (20, 64, 19, 100, "eval")},
     # One MNIST train step: K1's VJP at the (T * B, L) posteriors (no path
     # runs it alone), K2's at the image's 2 member terms against 100
     # untiled targets, the fused PoE + KL's at the batch's expert stack.
+    # One MultiMNIST train step: K2's at the decode-all pass's 3 terms of
+    # images, K3's at its 3 terms of text and at one cycle re-read, the
+    # fused PoE + KL's at the loss's 3 terms and at a re-read's one.
     "kl_bwd": {"mnist_train": (300, 64, 300, None), "celeba_eval": (1280, 100, 1280, None)},
     "bce_bwd": {"mnist_train": (200, 784, 100, kernels.FOLD_T),
+                "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
                 "celeba_image": (128, 12288, 64, kernels.FOLD_T)},
+    "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
+                   "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "poe_kl_bwd": {"mnist_train": (3, 100, 2, 64, "eval"),
+                   "multimnist_train": (3, 100, 2, 256, "text"),
+                   "multimnist_cycle": (1, 100, 2, 256, "cycle"),
                    "celeba_eval": (20, 64, 19, 100, "eval")},
 }
 CHECKED_SHAPES = {
@@ -209,6 +240,7 @@ CHECKED_SHAPES = {
         (200, 784, 100, kernels.FOLD_T),
         (200, 784, 100, kernels.FOLD_B),
         (200, 2500, 100, kernels.FOLD_T),
+        (300, 2500, 100, kernels.FOLD_T),
         (128, 12288, 64, kernels.FOLD_T),
         (21888, 1, 1152, kernels.FOLD_T),
         (37, 1000, 37, kernels.FOLD_NONE),
@@ -220,11 +252,12 @@ CHECKED_SHAPES = {
         (16, 50001, 16, kernels.FOLD_NONE),
         (128, 12290, 128, kernels.FOLD_NONE),
     ],
-    # MultiMNIST eval; ragged with all-pad rows; the synthetic CUB
-    # vocabulary (3 reserved + 20 words); a large odd vocabulary; S above
-    # the tokens a block runs at once, at an odd V; V just below a warp.
-    "seq_ce": [(200, 5, 13), (37, 7, 13), (4096, 32, 23), (2048, 8, 5003),
-               (3, 40, 1001), (5, 3, 31)],
+    # MultiMNIST eval and train (the decode-all pass, a cycle re-read);
+    # ragged with all-pad rows; the synthetic CUB vocabulary (3 reserved +
+    # 20 words); a large odd vocabulary; S above the tokens a block runs at
+    # once, at an odd V; V just below a warp.
+    "seq_ce": [(200, 5, 13), (300, 5, 13), (100, 5, 13), (37, 7, 13), (4096, 32, 23),
+               (2048, 8, 5003), (3, 40, 1001), (5, 3, 31)],
     # CelebA eval; the probe's shape and type (more units than the grid
     # has warps); a ragged batch; an odd grayscale size, which pads (1, 2)
     # and takes scalar loads; widths that are not a multiple of the 32
@@ -242,32 +275,43 @@ CHECKED_SHAPES = {
     "poe_kl": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"), (20, 64, 19, 100, "eval"),
                (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
                (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
-               (20, 64, 19, 100, "unaligned")],
+               (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "text"),
+               (1, 100, 2, 256, "cycle")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     "bce_bwd": [
         (200, 784, 100, kernels.FOLD_T),
+        (300, 2500, 100, kernels.FOLD_T),
         (200, 784, 200, kernels.FOLD_NONE),
         (200, 784, 100, kernels.FOLD_B),
         (128, 12288, 64, kernels.FOLD_T),
         (21888, 1, 1152, kernels.FOLD_T),
         (36, 1002, 18, kernels.FOLD_B),
     ],
-    # The fused PoE + KL's cases, and log-variances at exactly +-11.
+    # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
+    # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
+    # S above the tokens a block runs at once; V just below a warp.
+    "seq_ce_bwd": [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
+                   (3, 40, 1001), (5, 3, 31)],
+    # The fused PoE + KL's cases, log-variances at exactly +-11, and
+    # MultiMNIST's train step: the text expert at exactly +11 on its last
+    # 128 dims (``text``), and a cycle re-read (``cycle``: T = 1, the image
+    # expert alone, the log-variance and KL gradients zero).
     "poe_kl_bwd": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"),
                    (20, 64, 19, 100, "eval"), (20, 64, 19, 100, "ragged"),
                    (3, 100, 2, 64, "none"), (20, 64, 19, 100, "wide"),
-                   (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned")],
+                   (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned"),
+                   (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
-# this slice's path (CelebA) for the kernels it runs, else the path that
-# runs the kernel.
-REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba", "celeba_image"),
-            "seq_ce": ("multimnist", "multimnist_eval"), "conv": ("celeba", "celeba_eval"),
-            "poe_kl": ("celeba", "celeba_eval"), "kl_bwd": ("mnist_train", "mnist_train"),
-            "bce_bwd": ("mnist_train", "mnist_train"),
-            "poe_kl_bwd": ("mnist_train", "mnist_train")}
-_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "poe_kl_bwd": 0}
+# this slice's path (MultiMNIST training) for the kernels it runs, else the
+# path that runs the kernel.
+_MM_TRAIN = ("multimnist_train", "multimnist_train")
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": _MM_TRAIN, "seq_ce": _MM_TRAIN,
+            "conv": ("celeba", "celeba_eval"), "poe_kl": _MM_TRAIN,
+            "kl_bwd": ("mnist_train", "mnist_train"), "bce_bwd": _MM_TRAIN,
+            "seq_ce_bwd": _MM_TRAIN, "poe_kl_bwd": _MM_TRAIN}
+_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0}
 EXPECTED_LAUNCHES = {
     "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
     "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
@@ -279,13 +323,21 @@ EXPECTED_LAUNCHES = {
     # terms) forward and backward once, then the 20 batches of the test
     # ELBO, forward only.
     "mnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
-                    "kl_bwd": 0, "bce_bwd": 100, "poe_kl_bwd": 100},
+                    "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100},
+    # 20 train steps, each the fused PoE + KL 3 times (the loss, the cycle's
+    # soft and hard re-reads), K2 once (the decode-all pass's images) and K3
+    # 3 times (its text, each re-read), and every one's backward kernel as
+    # often; then the 20 batches of the test ELBO, forward only (the fused
+    # PoE + KL, K2 and K3 once each).
+    "multimnist_train": {"kl": 0, "bce": 40, "seq_ce": 80, "conv": 0, "poe_kl": 80,
+                         "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 60, "poe_kl_bwd": 60},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
-                "kl_rows_grad_kernel", "bce_rows_grad_kernel", "poe_kl_bwd_kernel")
+                "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
+                "poe_kl_bwd_kernel")
 PAD = 0
 
 
@@ -326,6 +378,8 @@ def inputs(op: str, shape, gen: torch.Generator):
     if op == "bce_bwd":
         logits, x, fold = inputs("bce", shape, gen)
         return (logits, x, torch.randn(shape[0], generator=gen, device=dev), fold)
+    if op == "seq_ce_bwd":
+        return (*inputs("seq_ce", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
     if op == "poe_kl_bwd":
         t, b, _, l, case = shape
         args = poe_inputs((*shape[:4], "wide" if case == "ties" else case), gen)
@@ -333,9 +387,12 @@ def inputs(op: str, shape, gen: torch.Generator):
             args[1][:, :, ::3] = 11.0
             args[1][:, :, 1::3] = -11.0
         mu_f, lv_f, _ = kernels.poe_kl_torch(*args)
-        return (*args, mu_f, lv_f, torch.randn(t, b, l, generator=gen, device=dev),
-                torch.randn(t, b, l, generator=gen, device=dev),
-                torch.randn(t, b, generator=gen, device=dev))
+        g_mu = torch.randn(t, b, l, generator=gen, device=dev)
+        g_lv = torch.randn(t, b, l, generator=gen, device=dev)
+        g_kl = torch.randn(t, b, generator=gen, device=dev)
+        if case == "cycle":  # a re-read uses only the posterior mean
+            g_lv, g_kl = torch.zeros_like(g_lv), torch.zeros_like(g_kl)
+        return (*args, mu_f, lv_f, g_mu, g_lv, g_kl)
     # Tokens whose rows end in PAD runs of random length; the first rows
     # are all PAD.
     n, s, v = shape
@@ -352,7 +409,10 @@ def poe_inputs(shape, gen: torch.Generator):
     (T, B, M, L). ``eval``: every modality present; ``ragged``: CelebA's
     padded last batch, rows from 16 on absent; ``none``: no presence mask;
     ``wide``: log-variances past the +-11 clamp; ``unaligned``: experts one
-    element into their storage (scalar loads)."""
+    element into their storage (scalar loads); ``text``: MultiMNIST's text
+    expert (the last), its mean 0 and log-variance exactly +11 on the
+    latter half of the dims; ``cycle``: the same experts under a cycle
+    re-read's one mask, every expert but the last, and no presence."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -361,13 +421,19 @@ def poe_inputs(shape, gen: torch.Generator):
     lv = torch.randn(n + lo, generator=gen, device=dev)[lo:].view(b, m, l)
     if case == "wide":
         lv = 20.0 * lv
+    if case in ("text", "cycle"):
+        mu[:, -1, l // 2:] = 0.0
+        lv[:, -1, l // 2:] = 11.0
     masks = elbo_subset_masks(m, device=dev)
+    if case == "cycle":
+        masks = torch.ones(1, m, device=dev)
+        masks[0, -1] = 0.0
     if masks.shape[0] != t:
         raise AssertionError(f"{m} experts give {masks.shape[0]} terms, not {t}")
     presence = torch.ones(b, m, device=dev)
     if case == "ragged":
         presence[16:] = 0.0
-    return mu, lv, masks, None if case == "none" else presence
+    return mu, lv, masks, None if case in ("none", "cycle") else presence
 
 
 def parent_chain(*args):
@@ -382,11 +448,14 @@ KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_ke
              "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel,
              "poe_kl": kernels.poe_kl_kernel, "kl_bwd": kernels.kl_rows_grad_kernel,
              "bce_bwd": kernels.bce_rows_grad_kernel,
+             "seq_ce_bwd": kernels.masked_seq_ce_grad_kernel,
              "poe_kl_bwd": kernels.poe_kl_grad_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
             "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
             "poe_kl": kernels.poe_kl_torch, "kl_bwd": kernels.kl_rows_grad_torch,
-            "bce_bwd": kernels.bce_rows_grad_torch, "poe_kl_bwd": kernels.poe_kl_grad_torch}
+            "bce_bwd": kernels.bce_rows_grad_torch,
+            "seq_ce_bwd": kernels.masked_seq_ce_grad_torch,
+            "poe_kl_bwd": kernels.poe_kl_grad_torch}
 
 
 def library_fn(op: str, args):
@@ -410,7 +479,7 @@ def library_fn(op: str, args):
         x, weight, bias = args
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
-    if op in ("bce_bwd", "poe_kl_bwd"):
+    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd"):
         return autograd_backward(op, args)
     return None
 
@@ -427,6 +496,13 @@ def autograd_backward(op: str, args):
         tiled = kernels.tile_rows(x, logits.shape[0], fold)
         outs = (F.binary_cross_entropy_with_logits(leaves[0], tiled, reduction="none").sum(-1),)
         grads = (g,)
+    elif op == "seq_ce_bwd":
+        logits, tokens, pad, g = args
+        n, s, v = logits.shape
+        leaves = (logits.detach().requires_grad_(True),)
+        outs = (F.cross_entropy(leaves[0].view(-1, v), tokens.view(-1).long(), ignore_index=pad,
+                                reduction="none").view(n, s).sum(-1),)
+        grads = (g,)
     else:
         mu_e, lv_e, masks, presence = args[:4]
         leaves = (mu_e.detach().requires_grad_(True), lv_e.detach().requires_grad_(True))
@@ -439,7 +515,7 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     """(rtol, atol) of a kernel against its plain version; for the fused
     PoE + KL, of its KL (its posteriors: atol 1e-6); for its backward, the
     atol per unit of the largest gradient."""
-    if op in ("kl_bwd", "bce_bwd"):
+    if op in ("kl_bwd", "bce_bwd", "seq_ce_bwd"):
         return 1e-5, 1e-6
     if op == "poe_kl_bwd":
         return 1e-5, 1e-5 * shape[0]
@@ -482,11 +558,15 @@ def bound(op: str, args) -> tuple[float, str]:
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = n_out * (2 * 16 * c + CONV_OPS_PER_OUT) / PEAK_OPS_PER_S[x.dtype]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-    if op == "seq_ce":
-        logits, tokens, pad = args
+    if op in ("seq_ce", "seq_ce_bwd"):
+        # The gradient also reads g and writes every position's gradient,
+        # a pad token's zeros too.
+        logits, tokens, pad = args[:3]
         n, _, v = logits.shape
         n_elems = int((tokens != pad).sum()) * v
         n_bytes = 4 * n_elems + tokens.numel() * tokens.element_size() + 4 * n
+        if op == "seq_ce_bwd":
+            n_bytes += 4 * logits.numel()
     elif op in ("kl_bwd", "bce_bwd"):
         # The rows and their partner (lv or the untiled targets) and the
         # row gradients read, one (KL: two) (N, D) gradients written.
@@ -581,6 +661,8 @@ def phase_check() -> dict[str, float]:
                 torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             if op == "seq_ce" and not torch.all(got[(args[1] == PAD).all(-1)] == 0):
                 raise AssertionError("an all-pad row did not give exactly 0")
+            if op == "seq_ce_bwd" and not torch.all(got[args[1] == PAD] == 0):
+                raise AssertionError("a pad token's gradient is not exactly 0")
             max_err[op] = max(max_err[op], err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
@@ -728,10 +810,11 @@ def phase_main_path() -> dict[str, dict[str, int]]:
     return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba}
 
 
-def train_batches(n_steps: int, bs: int, device, seed: int = 0) -> dict[str, torch.Tensor]:
+def train_batches(n_steps: int, bs: int, device, seed: int = 0,
+                  config: str = "mnist") -> dict[str, torch.Tensor]:
     """``n_steps`` batches of ``bs`` from the head of a seeded permutation of
-    MNIST's train split, stacked on ``device``."""
-    train = load_dataset("mnist", "train", n=max(n_steps * bs, 100))
+    ``config``'s train split, stacked on ``device``."""
+    train = load_dataset(config, "train", n=max(n_steps * bs, 100))
     perm = torch.randperm(train.size, generator=torch.Generator().manual_seed(seed))
     idx = perm[: n_steps * bs].numpy()
     return {k: torch.as_tensor(v[idx], device=device).reshape((n_steps, bs) + v.shape[1:])
@@ -834,6 +917,153 @@ def train_card_vs_cpu(n_steps: int = 3) -> None:
         raise AssertionError(
             f"train: card and CPU differ: loss {loss_rel}, grad norm {grad_norm_rel}, "
             f"params {param_rel}, updates {update_rel}")
+
+
+MULTIMNIST_TRAIN_SIZE = 2000  # one epoch of 20 steps of batch 100
+
+
+def phase_multimnist_train() -> dict[str, int]:
+    """``api.train`` of ``multimnist`` (cross-recon, the cycle term on both
+    render forms, clipping at 500) for one epoch at full width over a train
+    split cut to 2,000 examples, with the "kernel" backend and the launch
+    counts set to 0 just before and read just after; then a timed epoch, a
+    profiled step and the card against the CPU over three steps."""
+    cfg = configs.get_config("multimnist").replace(epochs=1, train_size=MULTIMNIST_TRAIN_SIZE)
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    ops.set_backend("kernel")
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        result = api.train(cfg, seed=0, verbose=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        ops.set_backend("auto")
+    record = result.history[0]
+    steps = MULTIMNIST_TRAIN_SIZE // cfg.batch_size
+    emit({"phase": "train", "config": "multimnist", "epochs": 1, "steps": result.state.step,
+          "train_size": MULTIMNIST_TRAIN_SIZE, "train_loss": record["train_loss"],
+          "cycle_ce": record["cycle_ce"], "test_elbo": record["test_elbo"],
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if launches != EXPECTED_LAUNCHES["multimnist_train"]:
+        raise AssertionError(
+            f"multimnist_train: expected launches {EXPECTED_LAUNCHES['multimnist_train']}, "
+            f"got {launches}")
+    if result.state.step != steps or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"multimnist train: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"multimnist train: test ELBO {record['test_elbo']} not below the untrained "
+            f"{untrained}")
+    batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config="multimnist")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runner = make_epoch_runner(result.state.model, annealing_steps=1000, generator=gen,
+                               **api.step_options(cfg))
+    state, walls = result.state, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = runner(state, batches)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError("multimnist train: a non-finite loss in the timed epoch")
+    emit({"phase": "train_rate", "config": "multimnist", "steps": steps,
+          "batch": cfg.batch_size, "wall_s": walls,
+          "samples_per_s": [steps * cfg.batch_size / w for w in walls]})
+    step = make_train_step(state.model, annealing_steps=1000, generator=gen, **api.step_options(cfg))
+    batch = {k: v[0] for k, v in batches.items()}
+    step(state, batch)
+    emit({"phase": "train_step_profile", "config": "multimnist",
+          **profile_summary(lambda: step(state, batch))})
+    multimnist_card_vs_cpu(cfg)
+    return launches
+
+
+def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
+    """``n_steps`` of the ``multimnist`` step at full width and batch
+    ``bs`` on the card (its kernels) and on the CPU from the same seeded
+    weights, noise and batches, under ``train_card_vs_cpu``'s gates (rel
+    1e-4). The card side runs cuDNN's deterministic algorithms, and the CPU
+    side thresholds the cycle's render with the card's own 0/1 mask (as the
+    noise is fed in): a render pixel within rounding of 0.5 cannot land on
+    different sides, and the reading is the same in every run. Reported
+    beside the gates: the parameters with the largest update error, the
+    render pixels the CPU's own threshold would have put on the other side
+    and the smallest |soft - 0.5|; and two controls, a repeat of the card
+    run and a card run on cuDNN's default algorithms (those ``api.train``
+    takes), each against the gated card run and the CPU."""
+    from mmvae_torch.train import step as step_module
+
+    batches = train_batches(n_steps, bs, "cpu", seed=2, config="multimnist")
+    eps = torch.randn((n_steps, 3, bs, cfg.n_latents), generator=torch.Generator().manual_seed(3))
+    init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
+    straight_through = step_module._straight_through
+
+    def run(dev: str, deterministic: bool, renders: list | None = None, fed=None):
+        """Losses, raw gradient norms and parameters after ``n_steps``; the
+        soft renders go to ``renders``; ``fed`` (soft renders) sets the
+        0/1 mask of each step's threshold."""
+        masks = iter(fed) if fed is not None else None
+
+        def binarize(p):
+            if renders is not None:
+                renders.append(p.detach().cpu())
+            if masks is None:
+                return straight_through(p)
+            hard = (next(masks) > 0.5).to(device=p.device, dtype=p.dtype)
+            return p + (hard - p).detach()
+
+        step_module._straight_through = binarize
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            model = configs.build_model(cfg, seed=0, device=dev)
+            state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+            step = make_train_step(model, annealing_steps=1000, **api.step_options(cfg))
+            metrics = [step(state, {k: v[i].to(dev) for k, v in batches.items()},
+                            eps=eps[i].to(dev))[1] for i in range(n_steps)]
+        finally:
+            step_module._straight_through = straight_through
+            torch.backends.cudnn.deterministic = False
+        return ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
+                {k: p.detach().cpu() for k, p in model.named_parameters()})
+
+    def compare(run_a, run_b) -> dict:
+        (l_a, g_a, p_a), (l_b, g_b, p_b) = run_a, run_b
+        update_rel = {k: ((p_a[k] - w).norm() / (w - init[k]).norm()).item()
+                      for k, w in p_b.items()}
+        return {"loss_rel": [abs(a - b) / abs(b) for a, b in zip(l_a, l_b)],
+                "grad_norm_rel": [abs(a - b) / abs(b) for a, b in zip(g_a, g_b)],
+                "param_rel_max": max(((p_a[k] - w).norm() / w.norm()).item()
+                                     for k, w in p_b.items()),
+                "update_rel_max": max(update_rel.values()),
+                "update_rel_top": sorted(update_rel.items(), key=lambda kv: -kv[1])[:3],
+                "param_max_abs_err": max((p_a[k] - w).abs().max().item()
+                                         for k, w in p_b.items())}
+
+    card_renders, cpu_renders = [], []
+    card = run("cuda", True, card_renders)
+    repeat = run("cuda", True)
+    default = run("cuda", False)
+    cpu = run("cpu", False, cpu_renders, fed=card_renders)
+    gated = compare(card, cpu)
+    flips = [int(((a > 0.5) != (b > 0.5)).sum()) for a, b in zip(card_renders, cpu_renders)]
+    margins = [(b - 0.5).abs().min().item() for b in cpu_renders]
+    emit({"phase": "train_card_vs_cpu", "config": "multimnist", "steps": n_steps, "batch": bs,
+          "loss_card": card[0], "loss_cpu": cpu[0], "grad_norm_card": card[1],
+          "grad_norm_cpu": cpu[1], **gated,
+          "render_pixels": cpu_renders[0].numel(), "render_flips": flips,
+          "render_min_abs_soft_minus_half": margins,
+          "control_repeat_vs_card": compare(repeat, card),
+          "control_default_vs_card": compare(default, card),
+          "control_default_vs_cpu": compare(default, cpu)})
+    worst = max(max(gated["loss_rel"]), max(gated["grad_norm_rel"]), gated["param_rel_max"],
+                gated["update_rel_max"])
+    if not worst <= 1e-4:
+        raise AssertionError(
+            f"multimnist train: card and CPU differ: {gated}, render flips {flips}")
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -1026,6 +1256,7 @@ def main() -> None:
     max_err = phase_check()
     launches = phase_main_path()
     launches["mnist_train"] = phase_train()
+    launches["multimnist_train"] = phase_multimnist_train()
     reported = phase_timings(launches)
     phase_launch_floor()
     for config in CONFIGS:

@@ -37,7 +37,7 @@ from mmvae_torch.train import (
     make_eval_runner,
 )
 
-__all__ = ["TrainResult", "train", "eval_elbo", "generate", "sample"]
+__all__ = ["TrainResult", "train", "step_options", "eval_elbo", "generate", "sample"]
 
 
 def _resolve(config, model, state_dict, device):
@@ -114,6 +114,22 @@ def _check_trainable(config: ExperimentConfig) -> None:
         )
 
 
+def step_options(config: ExperimentConfig) -> dict[str, Any]:
+    """The keywords of ``make_train_step`` (and ``make_epoch_runner``) that
+    ``config`` sets: presence dropout and the loss's options
+    (``mmvae_tpu/api.py:591-613``)."""
+    return dict(
+        p_modality_drop=config.p_modality_drop,
+        cross_recon=config.cross_recon,
+        cross_recon_weight=config.cross_recon_weight,
+        cycle_weight=config.cycle_weight,
+        cycle_render_grad=config.cycle_render_grad,
+        cycle_render_binarize=config.cycle_render_binarize,
+        objective=config.objective,
+        member_prune=config.member_prune,
+    )
+
+
 def train(
     config: str | ExperimentConfig,
     workdir: str | None = None,
@@ -135,9 +151,11 @@ def train(
     ``device`` seeded with ``seed``. The test ELBO is computed on the EMA
     parameters when they are tracked. Returns the config, the model (the
     live parameters), the train state, the best test ELBO and one history
-    record per epoch. ``workdir``, ``resume`` and ``fault_hook``
-    (checkpoints, failure recovery) are not ported yet and raise, as does
-    a config that sets a training feature not ported yet.
+    record per epoch (its mean train loss, its mean ``cycle_ce`` where the
+    config has the cycle term, and its test ELBO). ``workdir``, ``resume``
+    and ``fault_hook`` (checkpoints, failure recovery) are not ported yet
+    and raise, as does a config that sets a training feature not ported
+    yet.
     """
     if isinstance(config, str):
         config = get_config(config)
@@ -161,10 +179,8 @@ def train(
     runner = make_epoch_runner(
         model,
         annealing_steps=config.annealing_epochs * steps_per_epoch,
-        p_modality_drop=config.p_modality_drop,
-        objective=config.objective,
-        member_prune=config.member_prune,
         generator=torch.Generator(device=device).manual_seed(seed),
+        **step_options(config),
     )
     order = torch.Generator().manual_seed(seed)
     train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
@@ -185,7 +201,10 @@ def train(
         test_elbo = _split_elbo(state.eval_model, config.objective, test_split, test_ds.size)
         is_best = test_elbo < best
         best = min(best, test_elbo)
-        history.append({"epoch": epoch, "train_loss": train_loss, "test_elbo": test_elbo})
+        record = {"epoch": epoch, "train_loss": train_loss, "test_elbo": test_elbo}
+        if "cycle_ce" in metrics:
+            record["cycle_ce"] = float(metrics["cycle_ce"].mean())
+        history.append(record)
         if verbose:
             print(
                 f"[{config.name}] epoch {epoch:3d} train {train_loss:10.2f} "

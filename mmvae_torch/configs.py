@@ -2,16 +2,16 @@
 
 Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
 experiments raise until their slice lands. The fields are those the
-inference slices and the MNIST training slice read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``), and the three training
-features the ``multimnist`` and ``celeba`` configs set that are not ported
-yet (:data:`UNPORTED_TRAIN_FIELDS`: ``cross_recon``, ``cycle_weight``,
-``n_random_subsets``); ``api.train`` raises ``NotImplementedError`` when
-one of those is set, so training those two configs raises until their
-slices land. The JAX configs' other knobs (gradient accumulation, LR
-schedules, shuffle modes, the data backends, mesh layouts, the cycle
-term's render options) are left out until a slice reads them. Eval pins
-``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
+inference slices and the MNIST and MultiMNIST training slices read, with
+the JAX defaults (``mmvae_tpu/configs.py:30-175``), and the one training
+feature the ``celeba`` config sets that is not ported yet
+(:data:`UNPORTED_TRAIN_FIELDS`: ``n_random_subsets``); ``api.train``
+raises ``NotImplementedError`` when it is set, so training CelebA raises
+until its slice lands. The JAX configs' other knobs (gradient
+accumulation, LR schedules, shuffle modes, the data backends, mesh
+layouts, ``cross_recon_stopgrad``, ``unimodal_align_weight``,
+``cycle_contrast_weight``) are left out until a slice reads them. Eval
+pins ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 """
 
 from __future__ import annotations
@@ -52,9 +52,18 @@ class ExperimentConfig:
     ema_decay: float = 0.0  # EMA shadow of the parameters (0: off)
     train_size: int = 10000
     test_size: int = 2000
-    # Training features not yet ported (``api.train`` raises when set).
+    # Reconstruct every modality from every subset posterior; cross
+    # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False
+    cross_recon_weight: float = 1.0
+    # The cycle term: the seq posterior rendered into the bernoulli
+    # modalities, re-encoded, and the sequence read back (its CE weighs
+    # cycle_weight); cycle_render_grad lets the render's decoders learn
+    # from it; cycle_render_binarize: False (soft render), True (0/1
+    # straight-through) or "both" (the CE of the two averaged).
     cycle_weight: float = 0.0
+    cycle_render_grad: bool = False
+    cycle_render_binarize: bool | str = False
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -64,7 +73,7 @@ class ExperimentConfig:
 
 # The training features ``api.train`` does not take yet: each must be
 # falsy (off) to train.
-UNPORTED_TRAIN_FIELDS = ("cross_recon", "cycle_weight", "n_random_subsets")
+UNPORTED_TRAIN_FIELDS = ("n_random_subsets",)
 
 
 CONFIGS: dict[str, ExperimentConfig] = {
@@ -78,7 +87,7 @@ CONFIGS: dict[str, ExperimentConfig] = {
     "multimnist": ExperimentConfig(
         name="multimnist", dataset="multimnist", n_latents=256,
         cross_recon=True, grad_clip=500.0, epochs=60, train_size=100000,
-        cycle_weight=1.0,
+        cycle_weight=1.0, cycle_render_grad=True, cycle_render_binarize="both",
         model_kwargs={
             "conv_features": (32, 64, 128, 256),
             "lambda_text": 30.0,

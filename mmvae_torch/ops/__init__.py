@@ -7,18 +7,20 @@ CPU tensors; ``"kernel"`` raises on a CPU tensor; ``"torch"`` runs the
 plain version everywhere (the on-card reference the kernels are held
 against).
 
-Gradients. ``kl_std_normal``, ``bernoulli_nll`` and ``poe_kl`` are
-``torch.autograd.Function``s on both paths: their backward runs the
-backward kernel where the forward ran a kernel (``kl_rows_grad``,
-``bce_rows_grad``, ``poe_kl_bwd``) and its plain version where the forward
-ran the plain one, with the analytic VJPs of the TPU kernels
-(``_kl_bwd``, ``_bce_bwd``: dlogits = g * (sigmoid(l) - x)). The targets of
-``bernoulli_nll`` get dx = -g * l on the plain path only; the kernel path
-raises when they require grad. ``poe_kl`` differentiates the expert stack
-only and raises on both paths when ``masks`` or ``presence`` requires
-grad. ``masked_seq_ce`` and ``conv4x4s2_swish`` have no backward kernel
-yet: their kernel path raises when grad mode is on and an input requires
-grad; their plain path is differentiated by autograd.
+Gradients. ``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce`` and
+``poe_kl`` are ``torch.autograd.Function``s on both paths: their backward
+runs the backward kernel where the forward ran a kernel
+(``kl_rows_grad``, ``bce_rows_grad``, ``seq_ce_rows_grad``,
+``poe_kl_bwd``) and its plain version where the forward ran the plain one,
+with the analytic VJPs of the TPU kernels (``_kl_bwd``; ``_bce_bwd``:
+dlogits = g * (sigmoid(l) - x); ``_seq_ce_bwd``: dlogits = g * (softmax(l)
+- onehot(token)) on the non-pad tokens). The targets of ``bernoulli_nll``
+get dx = -g * l on the plain path only; the kernel path raises when they
+require grad. The tokens of ``masked_seq_ce`` get no gradient. ``poe_kl``
+differentiates the expert stack only and raises on both paths when
+``masks`` or ``presence`` requires grad. ``conv4x4s2_swish`` has no
+backward kernel yet: its kernel path raises when grad mode is on and an
+input requires grad; its plain path is differentiated by autograd.
 
 Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``masked_seq_ce`` accept targets with fewer leading rows than the logits,
@@ -265,12 +267,38 @@ def masked_seq_ce(
     """
     mode = _fold(logits.shape[0], tokens.shape[0], fold)
     tokens = kernels.tile_rows(tokens, logits.shape[0], mode)
-    if not _use_kernel("masked_seq_ce", logits):
-        return kernels.masked_seq_ce_torch(logits, tokens, pad_token)
-    s, v = logits.shape[-2:]
-    rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
-    out = kernels.masked_seq_ce_kernel(rows, tokens.reshape(-1, s).contiguous(), pad_token)
-    return out.reshape(logits.shape[:-2])
+    kernel = _use_kernel("masked_seq_ce", logits, differentiable=True)
+    return _MaskedSeqCe.apply(logits, tokens, pad_token, kernel)
+
+
+class _MaskedSeqCe(torch.autograd.Function):
+    """K3 and its VJP (``_seq_ce_bwd``) on tokens tiled to the logits'
+    rows; ``kernel`` picks the CUDA kernels (``seq_ce_rows``,
+    ``seq_ce_rows_grad``)."""
+
+    @staticmethod
+    def forward(ctx, logits, tokens, pad_token: int, kernel: bool):
+        ctx.kernel, ctx.pad_token = kernel, pad_token
+        if not kernel:
+            ctx.save_for_backward(logits, tokens)
+            return kernels.masked_seq_ce_torch(logits, tokens, pad_token)
+        s, v = logits.shape[-2:]
+        rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
+        tok_rows = tokens.reshape(-1, s).contiguous()
+        ctx.save_for_backward(rows, tok_rows)
+        ctx.shape, ctx.dtype = logits.shape, logits.dtype
+        return kernels.masked_seq_ce_kernel(rows, tok_rows, pad_token).reshape(logits.shape[:-2])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        logits, tokens = ctx.saved_tensors
+        if not ctx.kernel:
+            d_logits = kernels.masked_seq_ce_grad_torch(logits, tokens, ctx.pad_token, g)
+            return d_logits.to(logits.dtype), None, None, None
+        g = g.reshape(-1).to(torch.float32).contiguous()
+        d_logits = kernels.masked_seq_ce_grad_kernel(logits, tokens, ctx.pad_token, g)
+        return d_logits.reshape(ctx.shape).to(ctx.dtype), None, None, None
 
 
 def conv4x4s2_swish(

@@ -23,12 +23,13 @@
     sizes. On the ported paths the KL runs here, not in K1;
   * the backward kernels of training: ``kl_rows_grad_kernel`` (K1's VJP,
     ``_kl_bwd``), ``bce_rows_grad_kernel`` (K2's VJP in the logits,
-    ``_bce_bwd``, the targets read through the forward's row map) and
-    ``poe_kl_grad_kernel`` (the fused PoE + KL's, K1's VJP carried back
-    through the PoE to the expert stack).
+    ``_bce_bwd``, the targets read through the forward's row map),
+    ``masked_seq_ce_grad_kernel`` (K3's VJP, ``_seq_ce_bwd``, in K3's
+    layout) and ``poe_kl_grad_kernel`` (the fused PoE + KL's, K1's VJP
+    carried back through the PoE to the expert stack).
 
-K1 and K2 and their gradients live in ``csrc/row_reduce.cu``, K3 in
-``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu``, the fused PoE and KL and its
+K1 and K2 and their gradients live in ``csrc/row_reduce.cu``, K3 and its
+gradient in ``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu``, the fused PoE and KL and its
 backward in ``csrc/poe_kl.cu``, each
 behind a plain C interface; ``csrc/launch_floor.cu``, an empty kernel that
 times the launch floor, is built only when asked for by name
@@ -88,6 +89,8 @@ __all__ = [
     "bce_rows_grad_torch",
     "masked_seq_ce_kernel",
     "masked_seq_ce_torch",
+    "masked_seq_ce_grad_kernel",
+    "masked_seq_ce_grad_torch",
     "same_pad",
     "conv4x4s2_swish_kernel",
     "conv4x4s2_swish_torch",
@@ -108,7 +111,7 @@ FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
 LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0,
-            "kl_bwd": 0, "bce_bwd": 0, "poe_kl_bwd": 0}
+            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -139,6 +142,8 @@ _SIGNATURES = {
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
+        "seq_ce_rows_grad": [_ptr, _ptr, _i32, _ptr, _ptr, _i32, _i32, _i32, _i64, _i32, _i32,
+                             _i32, _ptr],
     },
     "conv_s2": {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -505,14 +510,9 @@ def seq_ce_plan(n: int, s: int, v: int, sms: int = H100_SMS) -> SeqCePlan:
     return SeqCePlan(lanes, warps, n)
 
 
-def masked_seq_ce_kernel(
-    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0,
-    plan: SeqCePlan | None = None,
-) -> torch.Tensor:
-    """Token cross-entropy of ``(N, S, V)`` f32 CUDA logits against
-    ``(N, S)`` int32 or int64 CUDA tokens, summed over the non-pad
-    tokens of each row -> ``(N,)``. A pad token contributes exactly 0.
-    ``plan`` overrides :func:`seq_ce_plan` of the shape and the card."""
+def _check_seq(logits: torch.Tensor, tokens: torch.Tensor) -> None:
+    """``(N, S, V)`` f32 logits and ``(N, S)`` int32 or int64 tokens, both
+    contiguous on one CUDA device."""
     if not logits.is_cuda or not tokens.is_cuda:
         raise ValueError(
             f"logits and tokens must be CUDA tensors, got {logits.device} "
@@ -533,6 +533,17 @@ def masked_seq_ce_kernel(
         raise ValueError("logits and tokens must be contiguous")
     if max(logits.shape) >= 2**31:
         raise ValueError(f"logits shape {tuple(logits.shape)} exceeds int32")
+
+
+def masked_seq_ce_kernel(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int = 0,
+    plan: SeqCePlan | None = None,
+) -> torch.Tensor:
+    """Token cross-entropy of ``(N, S, V)`` f32 CUDA logits against
+    ``(N, S)`` int32 or int64 CUDA tokens, summed over the non-pad
+    tokens of each row -> ``(N,)``. A pad token contributes exactly 0.
+    ``plan`` overrides :func:`seq_ce_plan` of the shape and the card."""
+    _check_seq(logits, tokens)
     n, s, v = logits.shape
     out = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n == 0:
@@ -554,6 +565,45 @@ def masked_seq_ce_torch(
     dims): log-softmax, gather, pad mask, sum over S."""
     per_tok = _cat_plain(logits.to(torch.float32), tokens)
     return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)
+
+
+def masked_seq_ce_grad_kernel(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int, g: torch.Tensor,
+    plan: SeqCePlan | None = None,
+) -> torch.Tensor:
+    """K3's VJP (``_seq_ce_bwd``) on the arguments of
+    :func:`masked_seq_ce_kernel` and the ``(N,)`` f32 upstream gradient:
+    ``g[n] * (softmax(logits[n, s]) - onehot(tokens[n, s]))`` on the non-pad
+    tokens, 0 on the pad ones -> ``(N, S, V)``, in the layout of
+    :func:`seq_ce_plan` (or ``plan``)."""
+    _check_seq(logits, tokens)
+    _check_grad_of(g, logits)
+    n, s, v = logits.shape
+    out = torch.empty_like(logits)
+    if n == 0:
+        return out
+    plan = plan or seq_ce_plan(n, s, v, _sm_count(logits.device.index or 0))
+    _launch(
+        "seq_ce", "seq_ce_rows_grad", logits.device, logits.data_ptr(),
+        tokens.data_ptr(), tokens.element_size(), g.data_ptr(), out.data_ptr(), n, s, v,
+        int(pad_token), *plan,
+    )
+    LAUNCHES["seq_ce_bwd"] += 1
+    return out
+
+
+def masked_seq_ce_grad_torch(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_token: int, g: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`masked_seq_ce_grad_kernel` (any
+    leading dims; ``g`` has the tokens' shape without S), written as
+    ``_seq_ce_bwd``: softmax less the one-hot of the token (none for a
+    token outside the vocabulary), times the pad mask and ``g``."""
+    logits = logits.to(torch.float32)
+    v = logits.shape[-1]
+    onehot = tokens.long()[..., None] == torch.arange(v, device=logits.device)
+    mask = (tokens != pad_token).to(logits.dtype)[..., None]
+    return g[..., None, None] * (torch.softmax(logits, dim=-1) - onehot.to(logits.dtype)) * mask
 
 
 # -------------------------------------------------------- conv + swish ----

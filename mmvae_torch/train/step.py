@@ -1,22 +1,31 @@
 """The multi-term MVAE loss, the train step and the eval step.
 
-Port of ``mmvae_tpu/train/step.py`` for the inference slices and MNIST
-training: the ``"mvae"`` objective under the t-major term fold
-(``term_fold="t"``, the single-device path of both the JAX eval and the
-JAX train step, ``step.py:532-578``) with member-pruned decoding
-(``_member_prune_keys`` / ``_pruned_nll``) and an optional presence mask.
+Port of ``mmvae_tpu/train/step.py`` for the inference slices and the MNIST
+and MultiMNIST training slices: the ``"mvae"`` objective under the t-major
+term fold (``term_fold="t"``, the single-device path of both the JAX eval
+and the JAX train step, ``step.py:532-578``) with an optional presence
+mask.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
   * masked PoE fusion over the ``(T, M)`` subset masks -> ``(T, B, L)``,
     and the KL of all ``T * B`` posteriors, in one ``ops.poe_kl`` call:
     one kernel on the card, K1's function as the PoE's epilogue (the JAX
     step leaves the same fusion to XLA);
-  * each decode key decodes only its possibly-member term rows, folded
-    t-major into one ``(tk * B, L)`` batch;
+  * member-pruned decoding (``_member_prune_keys`` / ``_pruned_nll``): each
+    decode key decodes only its possibly-member term rows, folded t-major
+    into one ``(tk * B, L)`` batch; or, under ``cross_recon`` or
+    ``member_prune=False``, the decode-all pass: every key decodes all
+    ``T * B`` rows once;
   * each key's NLL is one ``ops`` call, so on the card one eval batch
     launches the fused PoE + KL once and each NLL kernel once per decode
     key (MNIST: K2; MultiMNIST: K2, K3; CelebA: K2 for the image and K2
-    for the 18 attributes, and K4 in the image encoder).
+    for the 18 attributes, and K4 in the image encoder);
+  * ``cross_recon``: every modality is a target of every subset term,
+    cross entries weighed by ``cross_recon_weight`` (``step.py:762-778``);
+  * the cycle term (``cycle_weight > 0``, ``step.py:811-937``): each
+    sequence modality's unimodal z is rendered into the bernoulli
+    modalities, re-encoded with only those observed, and the sequence is
+    read back from the posterior mean; its CE joins the loss.
 
 One difference from the JAX code: the JAX t-fold broadcasts the targets to
 the tiled rows (``_tile_terms_tmajor``, ``step.py:247``) and lets XLA fuse
@@ -29,13 +38,17 @@ Training (``make_train_step``, ``make_epoch_runner``) differentiates the
 same loss with ``sample=True``. Its reductions are differentiable on both
 paths (``mmvae_torch.ops``): on the card one MNIST step launches, besides
 the models' own layers, the fused PoE + KL and K2 forward and their
-backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each. K3 and K4
-have no backward kernel yet, so training a config whose loss runs them
-raises on the card (``ops``); no such config trains yet.
+backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each; one
+``multimnist`` step (cross-recon, the cycle term on both render forms)
+the fused PoE + KL three times (the loss, two re-reads), K2 once and K3
+three times, and each one's backward kernel as often. K4 has no backward
+kernel yet, so training a config whose loss runs it raises on the card
+(``ops``).
 
-The other folds (``"b"``, ``"st"``), the decode-all pass, random subsets,
-the mixture objectives, cross-recon, the cycle term and gradient
-accumulation are not ported yet and raise.
+The other folds (``"b"``, ``"st"``), random subsets and the mixture
+objectives are not ported yet and raise; ``cross_recon_stopgrad``,
+``unimodal_align_weight``, ``cycle_contrast_weight`` and gradient
+accumulation are not taken yet.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.func import functional_call
 
 from mmvae_torch import ops
 from mmvae_torch.core import (
@@ -65,9 +79,21 @@ __all__ = [
     "make_eval_runner",
 ]
 
+_BINARIZE = (False, True, "both")
+
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to mmvae_torch")
+
+
+def _check_ported(objective: str, term_fold: str) -> None:
+    """Raise on an objective or a fold not ported yet."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    if objective != "mvae":
+        raise _not_ported(f"objective {objective!r}")
+    if term_fold != "t":
+        raise _not_ported(f"term_fold {term_fold!r}")
 
 
 def _member_prune_keys(model, n_mod: int, n_terms: int):
@@ -92,11 +118,21 @@ def _member_prune_keys(model, n_mod: int, n_terms: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _device_index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """An index tensor on ``device``, made once. Made from a list on each
+def _device_tensor(
+    values: tuple, device: torch.device, dtype: torch.dtype = torch.int64
+) -> torch.Tensor:
+    """A constant tensor on ``device``, made once. Made from a list on each
     call it would be a pageable host-to-device copy, and such a copy
     waits for the stream to drain."""
-    return torch.tensor(values, device=device)
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _seq_tiled(model, data: dict, n_rows: int) -> dict:
+    """``data`` with each sequence modality's tokens tiled t-major to
+    ``n_rows`` rows: the teacher-forced decoders read them (as
+    ``_tile_terms_tmajor`` feeds them in the JAX step)."""
+    seq_names = [s.name for s in model.specs() if s.kind == "seq"]
+    return {**data, **{n: tile_rows(data[n], n_rows, FOLD_T) for n in seq_names}}
 
 
 def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tensor:
@@ -104,25 +140,19 @@ def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tenso
 
     ``z`` is ``(T, B, L)``; returns ``(T, M, B)`` with exact zeros at every
     entry outside a key's member rows (their recon mask is 0 too). The
-    sequence targets are tiled t-major to each key's ``tk * B`` rows (the
-    teacher-forced decoders read them, as ``_tile_terms_tmajor`` feeds
-    them in the JAX step); the other targets stay untiled and are read
-    through ``fold="t"``.
+    sequence targets are tiled t-major to each key's ``tk * B`` rows; the
+    other targets stay untiled and are read through ``fold="t"``.
     """
     n_terms, b = z.shape[0], z.shape[1]
-    seq_names = [s.name for s in model.specs() if s.kind == "seq"]
     out = z.new_zeros((n_terms, model.n_modalities, b))
     tiled_by_tk: dict[int, dict] = {}
     for key, (rows, mods) in prune_keys.items():
         tk = len(rows)
         if tk not in tiled_by_tk:
-            tiled_by_tk[tk] = {
-                **data,
-                **{n: tile_rows(data[n], tk * b, FOLD_T) for n in seq_names},
-            }
+            tiled_by_tk[tk] = _seq_tiled(model, data, tk * b)
         targets = tiled_by_tk[tk]
-        r = _device_index(tuple(rows), z.device)
-        m = _device_index(tuple(mods), z.device)
+        r = _device_tensor(tuple(rows), z.device)
+        m = _device_tensor(tuple(mods), z.device)
         z_k = z.index_select(0, r).reshape(tk * b, -1)
         recon = model.decode_one(key, z_k, targets)
         nll_k = model.nll_one(key, recon, targets, fold="t")  # (M_k, tk * b)
@@ -131,12 +161,121 @@ def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tenso
     return out
 
 
+def _decode_all_nll_t(model, z: torch.Tensor, data: dict) -> torch.Tensor:
+    """The decode-all pass under the t-major fold (``step.py:565-576``):
+    every decode key decodes all ``T * B`` rows of ``z`` ``(T, B, L)``
+    once, the sequence targets tiled t-major and the others read untiled
+    through ``fold="t"``. Returns ``(T, M, B)``."""
+    n_terms, b = z.shape[0], z.shape[1]
+    targets = _seq_tiled(model, data, n_terms * b)
+    z_flat = z.reshape(n_terms * b, -1)
+    order, rows = [], []
+    for key, mods in model.decode_key_modalities().items():
+        recon = model.decode_one(key, z_flat, targets)
+        rows.append(model.nll_one(key, recon, targets, fold="t"))  # (M_k, T * B)
+        order += mods
+    if order != list(range(model.n_modalities)):
+        raise _not_ported("decode keys out of modality order")
+    return torch.cat(rows).reshape(model.n_modalities, n_terms, b).transpose(0, 1)
+
+
+class _Method(torch.nn.Module):
+    """``model.<method>(*args)`` as the forward of a module that holds the
+    model, so that ``torch.func.functional_call`` can run any method of the
+    model on other parameters."""
+
+    def __init__(self, model, method: str):
+        super().__init__()
+        self.model, self.method = model, method
+
+    def forward(self, *args):
+        return getattr(self.model, self.method)(*args)
+
+
+def _decoders_detached(model, method: str, *args, live: frozenset = frozenset()):
+    """``model.<method>(*args)`` with the parameters of every decoder
+    submodule (a top-level name that contains ``dec``, as
+    ``_sg_decoder_params`` picks them, ``step.py:274-287``) but those named
+    in ``live`` detached. The gradient still flows through the decoders'
+    activations to their inputs and on to the encoders; only the decoders'
+    weights get none of it."""
+    detached = {
+        f"model.{name}": p.detach()
+        for name, p in model.named_parameters()
+        if "dec" in name.split(".", 1)[0] and name.split(".", 1)[0] not in live
+    }
+    return functional_call(_Method(model, method), detached, args)
+
+
+def _straight_through(p: torch.Tensor) -> torch.Tensor:
+    """The cycle render's hard form (``step.py:885-900``): the 0/1
+    threshold at 0.5 forward, the identity backward."""
+    return p + ((p > 0.5).to(p.dtype) - p).detach()
+
+
+def _cycle_ce(
+    model, z: torch.Tensor, data: dict, presence: torch.Tensor | None,
+    render_grad: bool, binarize: bool | str,
+) -> torch.Tensor:
+    """The cycle term's CE (``step.py:811-937``, the mvae objective): for
+    each sequence modality s, its unimodal term's z is rendered into the
+    bernoulli modalities (their decoders live only with ``render_grad``),
+    as the soft render sigmoid(logits), its straight-through 0/1 threshold
+    or both (``binarize`` False, True, "both"). Each form is re-encoded
+    with the bernoulli modalities alone observed (one ``ops.poe_kl`` call,
+    T = 1: only the posterior mean is used) and s is read back,
+    teacher-forced from that mean, with every decoder detached. The CE
+    (the two forms' averaged under "both"), times s's presence where given,
+    is meaned over the batch and weighed by lambda_s."""
+    specs = model.specs()
+    seq_idx = [i for i, s in enumerate(specs) if s.kind == "seq"]
+    ber_idx = [i for i, s in enumerate(specs) if s.kind == "bernoulli"]
+    if not seq_idx or not ber_idx:
+        raise ValueError("cycle_weight needs a seq and a bernoulli modality")
+    # Re-encode presence: only the rendered modalities are observed.
+    ber_mask = _device_tensor(
+        ((tuple(float(i in ber_idx) for i in range(len(specs)))),), z.device, torch.float32)
+    live = frozenset(f"{specs[m].name}_dec" for m in ber_idx) if render_grad else frozenset()
+    key_of = {m: (key, j) for key, mods in model.decode_key_modalities().items()
+              for j, m in enumerate(mods)}
+    lambdas = model.lambdas()
+
+    def re_read_ce(rb: dict, s_i: int) -> torch.Tensor:
+        mu2, lv2 = model.encode(rb)
+        mu_f2 = ops.poe_kl(mu2, lv2, ber_mask)[0][0]  # (B, L); z = posterior mean
+        key, j = key_of[s_i]
+        recon = _decoders_detached(model, "decode_one", key, mu_f2, data)
+        return model.nll_one(key, recon, data)[j]  # (B,)
+
+    cycle_ce = z.new_zeros(())
+    for s_i in seq_idx:
+        z_s = z[1 + s_i]  # the mvae unimodal term of s
+        soft, hard = dict(data), dict(data)
+        for m_i in ber_idx:
+            name = specs[m_i].name
+            p = torch.sigmoid(_decoders_detached(model, "decode_one", name, z_s, data, live=live))
+            soft[name], hard[name] = p, _straight_through(p)
+        if binarize == "both":
+            ce = 0.5 * (re_read_ce(soft, s_i) + re_read_ce(hard, s_i))
+        else:
+            ce = re_read_ce(hard if binarize else soft, s_i)
+        if presence is not None:
+            ce = ce * presence[:, s_i]
+        cycle_ce = cycle_ce + lambdas[s_i] * torch.mean(ce)
+    return cycle_ce
+
+
 def multi_term_loss(
     model,
     batch: dict[str, Any],
     beta: float = 1.0,
     *,
     sample: bool = True,
+    cross_recon: bool = False,
+    cross_recon_weight: float = 1.0,
+    cycle_weight: float = 0.0,
+    cycle_render_grad: bool = False,
+    cycle_render_binarize: bool | str = False,
     objective: str = "mvae",
     member_prune: bool = True,
     term_fold: str = "t",
@@ -153,22 +292,25 @@ def multi_term_loss(
 
     ``sample=False`` takes z = posterior mean (eval). With ``sample=True``
     the noise comes from ``eps`` (``(T, B, L)``) or ``generator``.
+    ``cross_recon``, ``cross_recon_weight``, ``cycle_weight``,
+    ``cycle_render_grad`` and ``cycle_render_binarize`` are those of the
+    JAX loss (module docstring); with ``cycle_weight > 0`` the metrics
+    carry ``cycle_ce``.
     """
-    if objective not in OBJECTIVES:
-        raise ValueError(f"unknown objective {objective!r}")
-    if objective != "mvae":
-        raise _not_ported(f"objective {objective!r}")
-    if term_fold != "t":
-        raise _not_ported(f"term_fold {term_fold!r}")
+    _check_ported(objective, term_fold)
+    if cycle_weight > 0.0 and cycle_render_binarize not in _BINARIZE:
+        raise ValueError(
+            "cycle_render_binarize must be False, True, or 'both'; "
+            f"got {cycle_render_binarize!r}"
+        )
+    n_mod = model.n_modalities
     prune_keys = None
-    if member_prune:
-        prune_keys = _member_prune_keys(model, model.n_modalities, 1 + model.n_modalities)
-    if prune_keys is None:
-        raise _not_ported("the decode-all pass (member_prune=False)")
+    if member_prune and not cross_recon:
+        prune_keys = _member_prune_keys(model, n_mod, 1 + n_mod)
 
     presence = batch.get("presence")
     data = {k: v for k, v in batch.items() if k != "presence"}
-    masks = elbo_subset_masks(model.n_modalities, device=model.device)  # (T, M)
+    masks = elbo_subset_masks(n_mod, device=model.device)  # (T, M)
 
     mu_e, lv_e = model.encode(data)  # (B, M, L)
     # (T, B, L) posteriors under the masks times the presence, (T, B) KLs
@@ -176,10 +318,25 @@ def multi_term_loss(
     z = reparameterize(
         fused_mu, fused_lv, sample=sample, generator=generator, eps=eps
     )
-    nll = _pruned_nll_t(model, z, data, prune_keys)  # (T, M, B)
+    if prune_keys is not None:
+        nll = _pruned_nll_t(model, z, data, prune_keys)  # (T, M, B)
+    else:
+        nll = _decode_all_nll_t(model, z, data)
     if presence is not None:
         nll = nll * presence.T[None]  # unobserved modalities are no targets
-    return elbo_terms(nll, kl, masks, model.lambdas(), beta)
+    recon_masks = masks
+    if cross_recon:
+        # Every modality is a target of every nonempty subset term; cross
+        # entries weigh cross_recon_weight.
+        nonempty = (masks.sum(-1, keepdim=True) > 0).to(masks.dtype)
+        recon_masks = (masks + cross_recon_weight * (1.0 - masks)) * nonempty
+    loss, metrics = elbo_terms(nll, kl, recon_masks, model.lambdas(), beta)
+    if cycle_weight > 0.0:
+        cycle_ce = _cycle_ce(model, z, data, presence, cycle_render_grad,
+                             cycle_render_binarize)
+        loss = loss + cycle_weight * cycle_ce
+        metrics = dict(metrics, loss=loss, cycle_ce=cycle_ce)
+    return loss, metrics
 
 
 def presence_from_keep(keep: torch.Tensor) -> torch.Tensor:
@@ -196,6 +353,11 @@ def make_train_step(
     n_random_subsets: int = 0,
     annealing_steps: int = 0,
     p_modality_drop: float = 0.0,
+    cross_recon: bool = False,
+    cross_recon_weight: float = 1.0,
+    cycle_weight: float = 0.0,
+    cycle_render_grad: bool = False,
+    cycle_render_binarize: bool | str = False,
     objective: str = "mvae",
     member_prune: bool = True,
     term_fold: str = "t",
@@ -209,16 +371,22 @@ def make_train_step(
     example keeps each modality with probability ``1 - p_modality_drop``
     (``keep``, ``(B, M)``, or a draw from ``generator``), and a row with
     none kept keeps all. The loss is :func:`multi_term_loss` with
-    ``sample=True``, its noise ``eps`` (``(T, B, L)``) or a draw from
-    ``generator`` (on the model's device). Then one update of ``state``
-    (:meth:`TrainState.apply_gradients`). The metrics are the loss terms,
-    ``beta`` and ``grad_norm``, the global norm of the raw gradients
-    before clipping. Only ``term_fold="t"`` is ported; the others raise.
+    ``sample=True`` and the loss knobs given here, its noise ``eps``
+    (``(T, B, L)``) or a draw from ``generator`` (on the model's device).
+    Then one update of ``state`` (:meth:`TrainState.apply_gradients`). The
+    metrics are the loss terms, ``beta`` and ``grad_norm``, the global
+    norm of the raw gradients before clipping. Only the mvae objective and
+    ``term_fold="t"`` are ported; the others raise here.
     """
-    if term_fold != "t":
-        raise _not_ported(f"term_fold {term_fold!r}")
+    _check_ported(objective, term_fold)
     if n_random_subsets:
         raise _not_ported("n_random_subsets > 0 (random subset terms)")
+    loss_kwargs = dict(
+        cross_recon=cross_recon, cross_recon_weight=cross_recon_weight,
+        cycle_weight=cycle_weight, cycle_render_grad=cycle_render_grad,
+        cycle_render_binarize=cycle_render_binarize, objective=objective,
+        member_prune=member_prune, term_fold=term_fold,
+    )
 
     def train_step(state: TrainState, batch, eps=None, keep=None):
         beta = annealing_factor(state.step, annealing_steps)
@@ -232,9 +400,8 @@ def make_train_step(
             batch = dict(batch, presence=presence_from_keep(keep))
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
-            state.model, batch, beta, sample=True, objective=objective,
-            member_prune=member_prune, term_fold=term_fold, generator=generator,
-            eps=eps,
+            state.model, batch, beta, sample=True, generator=generator, eps=eps,
+            **loss_kwargs,
         )
         loss.backward()
         params = list(state.model.parameters())

@@ -17,12 +17,14 @@ elementwise gradients of K1 and K2: rtol 1e-5, atol 1e-6 (the same
 products, rounded where the plain version's separate ops round them).
 The fused PoE + KL's backward: rtol 1e-5, atol 1e-5 * T times the
 largest gradient (it sums T terms, and the plain version sums the
-experts of a term's precision in another order).
+experts of a term's precision in another order). K3's gradient: rtol
+1e-5, atol 1e-6 (softmax less the one-hot times g, with the exp-sum in
+another order).
 
-``kl_std_normal``, ``bernoulli_nll`` and ``poe_kl`` take their gradients
-from backward kernels on the card; ``masked_seq_ce`` and
-``conv4x4s2_swish`` have none yet and refuse the kernel path when
-autograd would record them. The CPU half of those checks runs without a
+``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce`` and ``poe_kl``
+take their gradients from backward kernels on the card;
+``conv4x4s2_swish`` has none yet and refuses the kernel path when
+autograd would record it. The CPU half of those checks runs without a
 card.
 """
 
@@ -82,6 +84,9 @@ def test_wrappers_reject_cpu_tensors():
         kernels.bernoulli_nll_kernel(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.masked_seq_ce_kernel(x[None], torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.masked_seq_ce_grad_kernel(
+            x[None], torch.zeros((1, 4), dtype=torch.int32), 0, torch.ones(1))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.conv4x4s2_swish_kernel(
             torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32)
@@ -177,8 +182,13 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     g = torch.ones(8, device=cuda)
     kernels.kl_rows_grad_kernel(x, x, g)
     kernels.bce_rows_grad_kernel(x, x[:4], g, kernels.FOLD_T)
+    kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok, 0, g)
     kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl)
     assert kernels.LAUNCHES == after
+    with pytest.raises(ValueError, match="g must be"):
+        kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok, 0, g[:4])
+    with pytest.raises(TypeError):
+        kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok.to(torch.int16), 0, g)
     with pytest.raises(ValueError, match="g must be"):
         kernels.kl_rows_grad_kernel(x, x, g[:4])
     with pytest.raises(ValueError, match="fold"):
@@ -428,16 +438,17 @@ def _op_calls(device):
 OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish", "poe_kl"]
 OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv", "poe_kl"]))
 # The ops with a backward kernel, and its counter.
-GRAD_COUNTERS = {"kl_std_normal": "kl_bwd", "bernoulli_nll": "bce_bwd", "poe_kl": "poe_kl_bwd"}
+GRAD_COUNTERS = {"kl_std_normal": "kl_bwd", "bernoulli_nll": "bce_bwd",
+                 "masked_seq_ce": "seq_ce_bwd", "poe_kl": "poe_kl_bwd"}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_path_refuses_grad(cuda, op):
     """With grad on and an input that requires grad, an op without a
-    backward kernel (K3; K4, its bias alone) raises on the kernel path and
-    launches nothing; an op with one (K1, K2, the fused PoE + KL) records
-    the kernel, and its backward launches the backward kernel once.
+    backward kernel (K4, its bias alone) raises on the kernel path and
+    launches nothing; an op with one (K1, K2, K3, the fused PoE + KL)
+    records the kernel, and its backward launches the backward kernel once.
     Under ``torch.no_grad`` every op launches its kernel."""
     call = _op_calls(cuda)[op]
     before = dict(kernels.LAUNCHES)
@@ -807,6 +818,53 @@ def test_bce_rows_grad_kernel_offset_view(cuda, shape):
     )
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
+                                   (3, 40, 1001), (5, 3, 31), (3, 1, 2)])
+def test_seq_ce_grad_kernel_matches_plain(cuda, shape):
+    """K3's VJP at MultiMNIST's train shapes (the decode-all pass and a
+    cycle re-read), the synthetic CUB shape, a large odd vocabulary, S above
+    the tokens a block runs at once, V just below a warp and V = 2; pad
+    rows (rows 0 and 1 all pad) give exactly 0; a token row with a NaN
+    logit in the middle, and where the batch has the rows, one with a +inf
+    and one with a NaN at the end (a scalar tail of the warp-a-row layout),
+    give NaN on the whole row, as softmax does, and NaN from the forward
+    too; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(39)
+    n, _, v = shape
+    logits, tokens = _seq_inputs(gen, *shape, device=cuda)
+    for row, col, value in ((2, v // 2, "nan"), (3, v - 1, "inf"), (4, v - 1, "nan")):
+        if row < n:
+            tokens[row, 0] = 1
+            logits[row, 0, col] = float(value)
+    g = _rand(gen, n, device=cuda)
+    got = kernels.masked_seq_ce_grad_kernel(logits, tokens, 0, g)
+    torch.testing.assert_close(got, kernels.masked_seq_ce_grad_torch(logits, tokens, 0, g),
+                               rtol=1e-5, atol=1e-6, equal_nan=True)
+    bad = slice(2, min(n, 5))
+    assert torch.isnan(got[bad, 0]).all()
+    assert torch.isnan(kernels.masked_seq_ce_kernel(logits, tokens, 0)[bad]).all()
+    assert torch.all(got[tokens == 0] == 0)
+    torch.testing.assert_close(got, kernels.masked_seq_ce_grad_kernel(logits, tokens, 0, g),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_seq_ce_grad_kernel_int64_other_pad_offset_view_and_every_layout(cuda):
+    """int64 tokens with pad 2, views one element into their storage, and
+    every lane group the forward's plan can pick."""
+    gen = torch.Generator().manual_seed(40)
+    n, s, v = 40, 6, 23
+    logits = (torch.randn(n * s * v + 1, generator=gen) * 3).to(cuda)[1:].view(n, s, v)
+    tokens = torch.randint(0, v, (n * s + 1,), generator=gen, dtype=torch.int64)
+    tokens = tokens.to(cuda)[1:].view(n, s)
+    g = _rand(gen, n, device=cuda)
+    want = kernels.masked_seq_ce_grad_torch(logits, tokens, 2, g)
+    for lanes in (1, 2, 4, 8, 16, 32):
+        plan = kernels.SeqCePlan(lanes, 4, n)
+        _grad_close(kernels.masked_seq_ce_grad_kernel(logits, tokens, 2, g, plan=plan), want)
+
+
 def _poe_grads(gen, shape, device):
     """The forward's outputs and output gradients of the fused PoE + KL."""
     t, b, _, l = shape
@@ -895,11 +953,13 @@ def _grads_both_backends(fn, inputs):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["kl_std_normal", "bernoulli_nll_t", "bernoulli_nll_b",
-                                "bernoulli_nll_none", "poe_kl", "poe_kl_presence"])
+                                "bernoulli_nll_none", "masked_seq_ce_t", "masked_seq_ce_b",
+                                "poe_kl", "poe_kl_presence"])
 def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
     """Each ``autograd.Function`` on the card (forward and backward
     kernels) against the same op under ``set_backend("torch")``: MNIST's
-    train shapes, the image at event_ndims=2; one backward launch each."""
+    train shapes, the image at event_ndims=2, MultiMNIST's text rows of the
+    decode-all pass in both folds; one backward launch each."""
     gen = torch.Generator().manual_seed(38)
     if op == "kl_std_normal":
         fn, counter = ops.kl_std_normal, "kl_bwd"
@@ -913,6 +973,13 @@ def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
             return ops.bernoulli_nll(logits, x, 2, fold="t" if fold == "none" else fold)
 
         inputs, counter = [_rand(gen, 200, 28, 28, device=cuda, scale=3.0)], "bce_bwd"
+    elif op.startswith("masked_seq_ce"):
+        logits, tokens = _seq_inputs(gen, 300, 5, 13, device=cuda)
+
+        def fn(lg):
+            return ops.masked_seq_ce(lg, tokens[:100], fold=op.rsplit("_", 1)[1])
+
+        inputs, counter = [logits], "seq_ce_bwd"
     else:
         mu, lv, masks, presence = _poe_inputs(
             gen, (3, 100, 2, 64), "ragged" if op == "poe_kl_presence" else "none", cuda)

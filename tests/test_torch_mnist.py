@@ -124,9 +124,26 @@ def test_example_without_modalities_contributes_zero(matched):
     torch.testing.assert_close(full * 12, head * 11, rtol=1e-5, atol=1e-3)
 
 
+def test_decode_all_pass_matches_jax(matched):
+    """``member_prune=False``: every key decodes all T terms (the decode-all
+    pass, ``step.py:565-576``), against the JAX eval step's, with a
+    presence mask that drops modalities and a whole example."""
+    jmodel, params, tmodel, data = matched
+    presence = np.ones((12, 2), np.float32)
+    presence[1, 0] = presence[2, 1] = 0.0
+    presence[3] = 0.0
+    jb = {k: jnp.asarray(v) for k, v in dict(data, presence=presence).items()}
+    want = j_make_eval_step(jmodel, member_prune=False)(params, jb)
+    with torch.no_grad():
+        _, got = multi_term_loss(tmodel, _tbatch(dict(data, presence=presence)), 1.0,
+                                 sample=False, member_prune=False)
+    for k in ("loss", "recon_per_term", "kl_per_term", "elbo_per_term"):
+        _close(got[k], want[k], atol=1e-3)
+
+
 @pytest.mark.parametrize(
     "kw",
-    [{"objective": "mmvae"}, {"term_fold": "b"}, {"member_prune": False}],
+    [{"objective": "mmvae"}, {"term_fold": "b"}, {"term_fold": "st"}],
 )
 def test_unported_loss_paths_raise(matched, kw):
     _, _, tmodel, data = matched

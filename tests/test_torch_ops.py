@@ -430,3 +430,47 @@ def test_kl_grad_matches_the_pallas_vjp_and_jax_grad():
     for a, v, w in zip(got, vjp, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(v), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("fold", ["t", "b"])
+@pytest.mark.parametrize("v", [13, 23])
+def test_seq_ce_grad_matches_the_pallas_vjp_and_jax_grad(fold, v):
+    """K3's gradient on the plain path, for term-tiled logits rows against
+    untiled tokens with pad runs (all-pad rows among them): ``_seq_ce_bwd``,
+    the VJP of the TPU kernel, on the same arrays with the tokens tiled, and
+    ``jax.grad`` of the jnp path of ``mmvae_tpu.ops.masked_seq_ce`` (rtol
+    2e-4). A pad position's gradient is exactly 0; the tokens get none."""
+    k, b, s = 3, 10, 5
+    logits, tokens = _seq_inputs(np.random.default_rng(18), k * b, s, v)
+    tokens = tokens[:b]
+    g = np.random.default_rng(19).normal(size=(k * b,)).astype(np.float32)
+    tiled = _FOLD_TILES[fold](jnp.asarray(tokens), k)
+    lt = _t(logits).requires_grad_(True)
+    out = ops.masked_seq_ce(lt, _t(tokens), 0, fold=fold)
+    got = torch.autograd.grad((out * _t(g)).sum(), lt)[0].numpy()
+    vjp, d_tokens = jkernels._seq_ce_bwd(0, (jnp.asarray(logits), tiled), jnp.asarray(g))
+    assert d_tokens is None
+    jops.set_backend("jnp")
+    try:
+        want = jax.grad(lambda a: jnp.sum(jnp.asarray(g) * jops.masked_seq_ce(a, tiled)))(
+            jnp.asarray(logits))
+    finally:
+        jops.set_backend("auto")
+    np.testing.assert_allclose(got, np.asarray(vjp), rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=1e-6)
+    pad = np.asarray(tiled) == 0
+    assert pad.any() and np.all(got[pad] == 0)
+
+
+def test_seq_ce_grad_plain_version_is_the_vjp_with_batch_dims():
+    """``masked_seq_ce_grad_torch`` with batch dims and another pad token,
+    and a token outside the vocabulary (no one-hot, as ``jax.nn.one_hot``),
+    against ``_seq_ce_bwd``."""
+    rng = np.random.default_rng(20)
+    logits = (rng.normal(size=(2, 4, 6, 13)) * 3).astype(np.float32)
+    tokens = rng.integers(0, 13, size=(2, 4, 6)).astype(np.int32)
+    tokens[0, 0, 0] = 13
+    g = rng.normal(size=(2, 4)).astype(np.float32)
+    got = kernels.masked_seq_ce_grad_torch(_t(logits), _t(tokens), 2, _t(g))
+    want = jkernels._seq_ce_bwd(2, (jnp.asarray(logits), jnp.asarray(tokens)), jnp.asarray(g))[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-6)

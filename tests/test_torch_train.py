@@ -296,8 +296,7 @@ def test_api_train_tracks_ema_for_eval():
     assert result.history[0]["test_elbo"] == pytest.approx(want, rel=1e-6)
 
 
-@pytest.mark.parametrize("knob,value", [("cross_recon", True), ("cycle_weight", 1.0),
-                                         ("n_random_subsets", 2)])
+@pytest.mark.parametrize("knob,value", [("n_random_subsets", 2)])
 def test_api_train_raises_on_unported_knobs(knob, value):
     assert knob in configs.UNPORTED_TRAIN_FIELDS
     cfg = configs.get_config("mnist").replace(**{knob: value})
@@ -306,7 +305,7 @@ def test_api_train_raises_on_unported_knobs(knob, value):
 
 
 @pytest.mark.parametrize("kw", [{"workdir": "w"}, {"resume": True}, {"fault_hook": print},
-                                {"config": "multimnist"}, {"config": "celeba"}])
+                                {"config": "celeba"}])
 def test_api_train_raises_on_unported_entry_options(kw):
     kw = {"config": "mnist", **kw}
     with pytest.raises(NotImplementedError, match="not yet ported"):
