@@ -290,18 +290,23 @@ CHECKED_SHAPES = {
     ],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
-    # S above the tokens a block runs at once; V just below a warp.
+    # S above the tokens a block runs at once; V just below a warp; a last
+    # chunk with fewer examples than the others (7 a chunk); V at the
+    # staged path's limit of 128 and just past it (a warp a token row).
     "seq_ce_bwd": [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
-                   (3, 40, 1001), (5, 3, 31)],
+                   (3, 40, 1001), (5, 3, 31), (1000, 7, 13), (512, 9, 128), (512, 9, 129)],
     # The fused PoE + KL's cases, log-variances at exactly +-11, and
     # MultiMNIST's train step: the text expert at exactly +11 on its last
     # 128 dims (``text``), and a cycle re-read (``cycle``: T = 1, the image
-    # expert alone, the log-variance and KL gradients zero).
+    # expert alone, the log-variance and KL gradients zero). CelebA's L =
+    # 100 and L = 100 at 100 rows end in a narrower latent tile (28, 28,
+    # 28, 16; 32, 32, 32, 4); L = 37 is ragged in scalar tiles of 2.
     "poe_kl_bwd": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"),
                    (20, 64, 19, 100, "eval"), (20, 64, 19, 100, "ragged"),
                    (3, 100, 2, 64, "none"), (20, 64, 19, 100, "wide"),
                    (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned"),
-                   (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle")],
+                   (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle"),
+                   (3, 100, 2, 100, "eval")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
 # this slice's path (MultiMNIST training) for the kernels it runs, else the
@@ -337,7 +342,7 @@ EXPECTED_LAUNCHES = {
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
-                "poe_kl_bwd_kernel")
+                "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel")
 PAD = 0
 
 

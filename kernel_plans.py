@@ -1,15 +1,23 @@
 """Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``),
-K4 (``conv4x4s2_swish``) and the fused PoE + KL (``poe_kl``) on one
-NVIDIA card, at the shapes ``chip_smoke.py`` times and checks.
+K4 (``conv4x4s2_swish``), the fused PoE + KL (``poe_kl``) and the
+backward kernels of K3 (``seq_ce_rows_grad``) and of the fused PoE + KL
+(``poe_kl_bwd``) on one NVIDIA card, at the shapes ``chip_smoke.py``
+times and checks.
 
-    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl ...]
+    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd ...]
 
 ``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan``,
-``conv_plan`` and ``poe_kl_plan`` pick a layout from the shape; this
-script shows what the others would give (for K4: warps a block, and
-blocks an SM from one to more than fit at once, or a warp for every unit;
-for the fused PoE + KL: the terms of a batch row split over 1 to T
-blocks). The arguments name the kernels to time (all by default).
+``conv_plan``, ``poe_kl_plan``, ``seq_ce_grad_plan`` and
+``poe_kl_bwd_plan`` pick a layout from the shape; this script shows what
+the others would give (for K4: warps a block, and blocks an SM from one
+to more than fit at once, or a warp for every unit; for the fused PoE +
+KL: the terms of a batch row split over 1 to T blocks; for K3's VJP: the
+staged path at 1 to 16 examples a block and every lane group, the
+lane-group layout at the forward's lane groups and at a warp a token row,
+and a warp a token row at 4 to 16 warps at 1 or 2 examples a chunk; for
+the fused PoE + KL's backward: latent tiles of 4 to 256 in float4s and in
+scalars, each at 3 block sizes). The arguments name the kernels to time
+(all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
 version, whether two calls gave the same bits, and the device time with
@@ -64,6 +72,22 @@ POE_SHAPES = {
     "multimnist_eval": (3, 100, 2, 256, "eval"),
     "mnist_eval": (3, 100, 2, 64, "eval"),
 }
+SEQ_BWD_SHAPES = {
+    "multimnist_train": (300, 5, 13),
+    "multimnist_cycle": (100, 5, 13),
+    "cub_synthetic": (4096, 32, 23),
+    "large": (2048, 8, 5003),
+    # Where the staged path and a warp a token row cross over.
+    "vocab_64": (2048, 16, 64),
+    "vocab_128": (1024, 16, 128),
+    "vocab_256": (1024, 16, 256),
+}
+POE_BWD_SHAPES = {
+    "mnist_train": (3, 100, 2, 64, "eval"),
+    "multimnist_train": (3, 100, 2, 256, "text"),
+    "multimnist_cycle": (1, 100, 2, 256, "cycle"),
+    "celeba_eval": (20, 64, 19, 100, "eval"),
+}
 
 
 def bce_plans(n: int, d: int, sms: int) -> list[K.BcePlan]:
@@ -105,6 +129,74 @@ def poe_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlPlan]:
     return plans if auto in plans else plans + [auto]
 
 
+def seq_bwd_plans(n: int, s: int, v: int, sms: int) -> list[K.SeqCeGradPlan]:
+    plans = []
+    if K.seq_ce_grad_smem(1, s, v) <= K.SEQ_GRAD_MAX_SMEM:
+        for examples in (1, 2, 4, 8, 16):
+            if examples > n or K.seq_ce_grad_smem(examples, s, v) > K.SEQ_GRAD_MAX_SMEM:
+                continue
+            for lanes in (1, 2, 4, 8, 16, 32):
+                if lanes > 2 * v:
+                    continue
+                warps = max(1, min(K.SEQ_GRAD_MAX_WARPS, -(-examples * s * lanes // 32)))
+                plans.append(K.SeqCeGradPlan(K.SEQ_GRAD_STAGED, lanes, examples, warps,
+                                             -(-n // examples)))
+    fwd = K.seq_ce_plan(n, s, v, sms)
+    for lanes in sorted({fwd.lanes, min(32, 1 << max(0, v - 1).bit_length()), 32}):
+        warps = max(1, min(K.SEQ_GRAD_MAX_WARPS, -(-s * lanes // 32)))
+        plans.append(K.SeqCeGradPlan(K.SEQ_GRAD_GROUPS, lanes, 1, warps, n))
+    for warps in (4, 8, 16):
+        for examples in (1, 2):
+            chunks = -(-n // examples)
+            for blocks in sorted({chunks, min(chunks, 2 * sms)}):
+                plans.append(K.SeqCeGradPlan(K.SEQ_GRAD_WARP, 32, examples, warps, blocks))
+    auto = K.seq_ce_grad_plan(n, s, v, sms)
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
+def poe_bwd_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlBwdPlan]:
+    auto = K.poe_kl_bwd_plan(t, b, m, l, sms)
+    plans = []
+    for tile in sorted({4, 8, 16, 32, 64, 128, 256, auto.tile}):
+        if tile > -(-l // 4) * 4 or K.poe_kl_bwd_smem(t, m, tile) > K.POE_MAX_SMEM:
+            continue
+        for vec in (0, 1):
+            base = K.poe_kl_bwd_plan(t, b, m, l, sms, tile=tile, vec=vec)
+            for threads in sorted({base.threads, 64, 256}):
+                plans.append(base._replace(threads=threads))
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
+def auto_plan(op: str, shape, sms: int):
+    if op == "bce":
+        return K.bce_plan(shape[0], shape[1], sms)
+    if op == "seq_ce":
+        return K.seq_ce_plan(*shape, sms)
+    if op == "conv":
+        return K.conv_plan(*shape[:4], sms)
+    if op == "poe_kl":
+        return K.poe_kl_plan(*shape[:4], sms)
+    if op == "seq_ce_bwd":
+        return K.seq_ce_grad_plan(*shape, sms)
+    return K.poe_kl_bwd_plan(*shape[:4], sms)
+
+
+def agrees(op: str, shape, got, want) -> bool:
+    """The tolerance ``chip_smoke.py`` holds each kernel to: the fused PoE
+    + KL's posteriors at atol 1e-6, its KL at ``tolerance``; its
+    backward's atol per unit of the largest gradient."""
+    rtol, atol = cs.tolerance(op, shape)
+    if op == "poe_kl":
+        atols = (1e-6, 1e-6, atol)
+    elif op == "poe_kl_bwd":
+        atols = tuple(atol * w.abs().max().item() for w in want)
+    else:
+        atols = (atol,) * len(want)
+    return all(torch.allclose(g, w, rtol=rtol, atol=a) for g, w, a in zip(got, want, atols))
+
+
 def outputs(got):
     """A kernel's outputs as a tuple (the fused PoE + KL gives three)."""
     return got if isinstance(got, tuple) else (got,)
@@ -115,7 +207,7 @@ def main() -> None:
         raise SystemExit("kernel_plans: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl"]
+    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl", "seq_ce_bwd", "poe_kl_bwd"]
     K.build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
@@ -130,35 +222,35 @@ def main() -> None:
               for label, shape in CONV_SHAPES.items()]
     cases += [("poe_kl", label, shape, poe_plans(*shape[:4], sms))
               for label, shape in POE_SHAPES.items()]
+    cases += [("seq_ce_bwd", label, shape, seq_bwd_plans(*shape, sms))
+              for label, shape in SEQ_BWD_SHAPES.items()]
+    cases += [("poe_kl_bwd", label, shape, poe_bwd_plans(*shape[:4], sms))
+              for label, shape in POE_BWD_SHAPES.items()]
     for op, label, shape, plans in cases:
         if op not in wanted:
             continue
         args = cs.inputs(op, shape, gen)
         want = cs.PLAIN_FN[op](*args)
-        lib = cs.library_fn(op, args)
+        # An autograd backward is made on the stream that captures it, so
+        # the library call is made inside graph_ms, as chip_smoke.py does.
+        has_lib = cs.library_fn(op, args) is not None
         copies = cs.cold_copies(args)
         common = {
             "kernel": cs.META[op]["name"], "label": label, **cs.describe(op, shape),
-            "library_ms": None if lib is None else cs.device_ms(lib),
+            "library_ms": cs.graph_ms(lambda: [cs.library_fn(op, args)] * 20)
+            if has_lib else None,
             "library_cold_ms": cs.cold_ms(lambda a: cs.library_fn(op, a), args, copies)
-            if copies and lib is not None else None,
+            if copies and has_lib else None,
             "bound_ms": cs.bound(op, args)[0], "cold_copies": copies,
         }
-        auto = (K.bce_plan(shape[0], shape[1], sms) if op == "bce"
-                else K.seq_ce_plan(*shape, sms) if op == "seq_ce"
-                else K.conv_plan(*shape[:4], sms) if op == "conv"
-                else K.poe_kl_plan(*shape[:4], sms))
+        auto = auto_plan(op, shape, sms)
         for plan in plans:
             call = functools.partial(cs.KERNEL_FN[op], *args, plan=plan)
             got = outputs(call())
             torch.cuda.synchronize()
             err = max((g.float() - w.float()).abs().max().item()
                       for g, w in zip(got, outputs(want)))
-            rtol, atol = cs.tolerance(op, shape)
-            # The fused PoE + KL's posteriors at atol 1e-6, its KL at atol.
-            atols = (1e-6, 1e-6, atol) if op == "poe_kl" else (atol,)
-            if not all(torch.allclose(g, w, rtol=rtol, atol=a)
-                       for g, w, a in zip(got, outputs(want), atols)):
+            if not agrees(op, shape, got, outputs(want)):
                 bad.append((op, label, plan))
             again = outputs(call())
             line = {

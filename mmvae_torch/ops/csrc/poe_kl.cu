@@ -60,13 +60,30 @@
 // gradient, which splits a tie) and 0 beyond; a NaN log-variance gives
 // NaN. What bounds it: memory, as the forward -- it reads the expert
 // stack, the saved posteriors and the three gradients and writes two
-// expert-stack gradients: 0.51 MB at MNIST's (3, 100, 2, 64), 0.15 us.
-// Design: a block per batch row. It stages the row's precisions (M x L)
-// and term weights (T x M) in shared memory; then a thread per (t, l)
-// computes S, G_mu / S and G_lv / S and keeps them and mu_f in shared
-// memory (3 T x L); then a thread per (m, l) sums its two gradients over
-// the terms in index order. Scalar loads, no atomics: a shape gives the
-// same bits every run.
+// expert-stack gradients: 0.51 MB at MNIST's (3, 100, 2, 64), 0.15 us; 4.0
+// MB at CelebA's (20, 64, 19, 100), 1.2 us. At MNIST's size the launch and
+// one round of load latency set the time.
+// Design. Every sum runs over t or over m at a fixed (b, l); none runs over
+// l. So a block takes one batch row b and one tile of `tile` latents, with
+// no atomics and no second pass; the block-a-row design it replaces left
+// 68 of 132 SMs idle at CelebA and loaded its inputs in three dependent
+// rounds. Each thread first issues the global loads of its first item of
+// every phase -- its (m, l) expert elements and its (t, l) posteriors and
+// gradients -- and its term weight's factors, before it uses any; the
+// addresses take no integer divide (quotient(), a 2-D grid). Phase 1
+// stages the tile's precisions (M x tile) and the term weights (T x M) in
+// shared memory. Phase 2, a thread per (t, l): S in the forward's order,
+// then G_mu / S, G_lv / S and mu_f into shared memory (3 T x tile). Phase
+// 3, a thread per (m, l): both gradients summed over the terms in index
+// order, from the expert elements it loaded at the start. The plan
+// (kernels.py:poe_kl_bwd_plan) picks float4s along l where the sums are
+// long (CelebA's 20 terms x 19 experts: 4 tiles of 28 latents, 256 blocks,
+// where phase 3's shared-memory reads set the pace) and scalars in tiles
+// of 32 where they are short (MNIST's and MultiMNIST's 3 x 2), so that the
+// few latents spread over more threads; float4s also need L % 4 == 0 and
+// every pointer 16-byte aligned. The sums keep their order and the
+// products their rounding (__fmul_rn), so the result has the bits of the
+// block-a-row design, and a shape gives the same bits every run.
 //
 // C interface (bound with ctypes): poe_kl and poe_kl_bwd launch on
 // `stream`, do not synchronise, and return cudaGetLastError() of their
@@ -82,6 +99,7 @@ constexpr int kWarp = 32;
 constexpr int kMaxWarps = 32;
 constexpr int kMaxSmem = 48 * 1024;
 constexpr int kStage = 2;  // float4s of each slab a thread has in flight
+constexpr int kMaxBwdThreads = 512;  // poe_kl_bwd's block (__launch_bounds__)
 // The PoE's constants, as mmvae_torch/core/poe.py names them: the prior
 // expert's precision, PRECISION_EPS (added to each expert's variance) and
 // LOGVAR_BOUND (each expert's log-variance is clamped to +-this). Change
@@ -275,9 +293,50 @@ __device__ __forceinline__ float clamp_grad(float lv) {
   return (lv > -kBound && lv < kBound) ? 1.0f : ((lv == kBound || lv == -kBound) ? 0.5f : 0.0f);
 }
 
-// Dynamic shared memory: the precision slab (M x L), the term weights
-// (T x M), then G_mu / S, G_lv / S and mu_f of the row's terms (T x L each).
-__global__ void poe_kl_bwd_kernel(const float* __restrict__ mu_e,
+// kW consecutive latents of one array: a float4 (kW == 4) or a scalar.
+template <int kW>
+struct Lanes {
+  float v[kW];
+};
+
+template <int kW>
+__device__ __forceinline__ Lanes<kW> load(const float* p) {
+  Lanes<kW> r;
+  if constexpr (kW == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.v[0] = q.x;
+    r.v[1] = q.y;
+    r.v[2] = q.z;
+    r.v[3] = q.w;
+  } else {
+    r.v[0] = *p;
+  }
+  return r;
+}
+
+template <int kW>
+__device__ __forceinline__ void store(float* p, const Lanes<kW>& r) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  } else {
+    *p = r.v[0];
+  }
+}
+
+// i / d for 0 <= i < 2^20 and 0 < d, from inv ~ 1 / d (__fdividef, within
+// 2 ulp): (i + 0.5) / d lies at least 0.5 / d from an integer, further than
+// the product's rounding reaches, so the loads' addresses wait on no
+// integer divide.
+__device__ __forceinline__ int quotient(int i, float inv) {
+  return __float2int_rz((static_cast<float>(i) + 0.5f) * inv);
+}
+
+// A block per (batch row, latent tile), kW latents a thread (4: float4
+// loads). Dynamic shared memory: the tile's precisions (M x tile), the
+// term weights (T x M, rounded up to a float4), then G_mu / S, G_lv / S
+// and mu_f of the tile's terms (T x tile each).
+template <int kW>
+__global__ void __launch_bounds__(kMaxBwdThreads) poe_kl_bwd_kernel(const float* __restrict__ mu_e,
                                   const float* __restrict__ lv_e,
                                   const float* __restrict__ masks,
                                   const float* __restrict__ presence,
@@ -288,61 +347,142 @@ __global__ void poe_kl_bwd_kernel(const float* __restrict__ mu_e,
                                   const float* __restrict__ g_kl,
                                   float* __restrict__ d_mu_e,
                                   float* __restrict__ d_lv_e, int n_terms,
-                                  int batch, int m_experts, int l_dim) {
+                                  int batch, int m_experts, int l_dim, int tile) {
   extern __shared__ float4 smem4[];
-  const int ml = m_experts * l_dim, tl = n_terms * l_dim;
   float* s_p = reinterpret_cast<float*>(smem4);
-  float* s_w = s_p + ml;
-  float* s_a = s_w + n_terms * m_experts;
-  float* s_q = s_a + tl;
-  float* s_f = s_q + tl;
-  const int b = blockIdx.x;
+  float* s_w = s_p + m_experts * tile;
+  float* s_a = s_w + (n_terms * m_experts + 3) / 4 * 4;  // float4-aligned
+  float* s_q = s_a + n_terms * tile;
+  float* s_f = s_q + n_terms * tile;
+  const int b = blockIdx.y;  // the grid is (tiles, batch)
+  const int l0 = blockIdx.x * tile;
+  const int cols = (min(tile, l_dim - l0)) / kW;  // kW-wide columns of this tile
+  const int n_me = m_experts * cols, n_te = n_terms * cols, n_w = n_terms * m_experts;
   const int tid = threadIdx.x, threads = blockDim.x;
-  const size_t base = static_cast<size_t>(b) * ml;
+  const float inv_cols = __fdividef(1.0f, static_cast<float>(cols));
+  const float inv_m = __fdividef(1.0f, static_cast<float>(m_experts));
+  // Item i of phase 3 (and of the precision staging) is (m, column) =
+  // (i / cols, i % cols); of phase 2, (t, column).
+  auto expert_at = [=](int i) {
+    const int m = quotient(i, inv_cols);
+    return (static_cast<size_t>(b) * m_experts + m) * l_dim + l0 + (i - m * cols) * kW;
+  };
+  auto term_at = [=](int i) {
+    const int t = quotient(i, inv_cols);
+    return (static_cast<size_t>(t) * batch + b) * l_dim + l0 + (i - t * cols) * kW;
+  };
+  auto presence_of = [=](int i) {  // presence[b, m] of weight i = (t, m)
+    return presence ? presence[b * m_experts + i - quotient(i, inv_m) * m_experts] : 1.0f;
+  };
 
-  for (int i = tid; i < ml; i += threads) s_p[i] = precision(lv_e[base + i]);
-  for (int i = tid; i < n_terms * m_experts; i += threads) {
-    const int m = i % m_experts;
-    s_w[i] = __fmul_rn(masks[i], presence ? presence[b * m_experts + m] : 1.0f);
+  // The first item of every phase: all its global loads issued before any
+  // is used.
+  Lanes<kW> u0{}, v0{}, fm0{}, fl0{}, gm0{}, gv0{};
+  float gk0 = 0.0f;
+  float2 w0 = make_float2(0.0f, 0.0f);
+  if (tid < n_me) {
+    u0 = load<kW>(mu_e + expert_at(tid));
+    v0 = load<kW>(lv_e + expert_at(tid));
   }
+  if (tid < n_te) {
+    const size_t row = term_at(tid);
+    fm0 = load<kW>(mu_f + row);
+    fl0 = load<kW>(lv_f + row);
+    gm0 = load<kW>(g_mu + row);
+    gv0 = load<kW>(g_lv + row);
+    gk0 = g_kl[static_cast<size_t>(quotient(tid, inv_cols)) * batch + b];
+  }
+  if (tid < n_w) w0 = make_float2(masks[tid], presence_of(tid));
+
+  // Phase 1: the precisions and the term weights.
+  if (tid < n_me) {
+    Lanes<kW> p;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) p.v[k] = precision(v0.v[k]);
+    const int m = quotient(tid, inv_cols);
+    store<kW>(s_p + m * tile + (tid - m * cols) * kW, p);
+  }
+  for (int i = tid + threads; i < n_me; i += threads) {
+    const Lanes<kW> v = load<kW>(lv_e + expert_at(i));
+    Lanes<kW> p;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) p.v[k] = precision(v.v[k]);
+    const int m = quotient(i, inv_cols);
+    store<kW>(s_p + m * tile + (i - m * cols) * kW, p);
+  }
+  if (tid < n_w) s_w[tid] = __fmul_rn(w0.x, w0.y);
+  for (int i = tid + threads; i < n_w; i += threads) s_w[i] = __fmul_rn(masks[i], presence_of(i));
   __syncthreads();
 
-  // A thread per (t, l): the posterior's total precision in the forward's
-  // order, and the gradients that reach the experts through it.
-  for (int i = tid; i < tl; i += threads) {
-    const int t = i / l_dim, l = i % l_dim;
+  // Phase 2, a thread per (t, l): the posterior's total precision in the
+  // forward's order, and the gradients that reach the experts through it.
+  for (int i = tid; i < n_te; i += threads) {
+    const int t = quotient(i, inv_cols), j = (i - t * cols) * kW;
+    Lanes<kW> fm = fm0, fl = fl0, gm = gm0, gv = gv0;
+    float gk = gk0;
+    if (i != tid) {
+      const size_t row = term_at(i);
+      fm = load<kW>(mu_f + row);
+      fl = load<kW>(lv_f + row);
+      gm = load<kW>(g_mu + row);
+      gv = load<kW>(g_lv + row);
+      gk = g_kl[static_cast<size_t>(t) * batch + b];
+    }
     const float* w = s_w + t * m_experts;
-    float sp = 0.0f;
-    for (int m = 0; m < m_experts; ++m) sp += __fmul_rn(s_p[m * l_dim + l], w[m]);
-    const float tot = kPrior + sp;
-    const size_t row = (static_cast<size_t>(t) * batch + b) * l_dim + l;
-    const float f_mu = mu_f[row];
-    const float gk = g_kl[static_cast<size_t>(t) * batch + b];
-    const float G_mu = g_mu[row] + __fmul_rn(gk, f_mu);
-    const float G_lv = g_lv[row] + __fmul_rn(__fmul_rn(0.5f, gk), expf(lv_f[row]) - 1.0f);
-    s_a[i] = G_mu / tot;
-    s_q[i] = G_lv / tot;
-    s_f[i] = f_mu;
+    Lanes<kW> sp{};
+    for (int m = 0; m < m_experts; ++m) {
+      const Lanes<kW> p = load<kW>(s_p + m * tile + j);
+      const float wm = w[m];
+#pragma unroll
+      for (int k = 0; k < kW; ++k) sp.v[k] += __fmul_rn(p.v[k], wm);
+    }
+    Lanes<kW> a, q;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const float tot = kPrior + sp.v[k];
+      const float G_mu = gm.v[k] + __fmul_rn(gk, fm.v[k]);
+      const float G_lv = gv.v[k] + __fmul_rn(__fmul_rn(0.5f, gk), expf(fl.v[k]) - 1.0f);
+      a.v[k] = G_mu / tot;
+      q.v[k] = G_lv / tot;
+    }
+    store<kW>(s_a + t * tile + j, a);
+    store<kW>(s_q + t * tile + j, q);
+    store<kW>(s_f + t * tile + j, fm);
   }
   __syncthreads();
 
-  // A thread per (m, l): both gradients summed over the terms in order.
-  for (int i = tid; i < ml; i += threads) {
-    const int m = i / l_dim, l = i % l_dim;
-    const float u = mu_e[base + i];
-    const float v = lv_e[base + i];
-    const float p = s_p[i];
-    float d_mu = 0.0f, d_q = 0.0f;
+  // Phase 3, a thread per (m, l): both gradients summed over the terms in
+  // order.
+  for (int i = tid; i < n_me; i += threads) {
+    const int m = quotient(i, inv_cols), j = (i - m * cols) * kW;
+    Lanes<kW> u = u0, v = v0;
+    if (i != tid) {
+      u = load<kW>(mu_e + expert_at(i));
+      v = load<kW>(lv_e + expert_at(i));
+    }
+    const Lanes<kW> p = load<kW>(s_p + m * tile + j);
+    Lanes<kW> d_mu{}, d_q{};
     for (int t = 0; t < n_terms; ++t) {
       const float wt = s_w[t * m_experts + m];
-      const float a = s_a[t * l_dim + l];
-      d_mu += __fmul_rn(a, __fmul_rn(p, wt));
-      d_q += __fmul_rn(wt, __fmul_rn(a, u - s_f[t * l_dim + l]) - s_q[t * l_dim + l]);
+      const Lanes<kW> a = load<kW>(s_a + t * tile + j);
+      const Lanes<kW> q = load<kW>(s_q + t * tile + j);
+      const Lanes<kW> f = load<kW>(s_f + t * tile + j);
+#pragma unroll
+      for (int k = 0; k < kW; ++k) {
+        d_mu.v[k] += __fmul_rn(a.v[k], __fmul_rn(p.v[k], wt));
+        d_q.v[k] += __fmul_rn(wt, __fmul_rn(a.v[k], u.v[k] - f.v[k]) - q.v[k]);
+      }
     }
-    const float c = v < -kBound ? -kBound : (v > kBound ? kBound : v);
-    const float dp_dc = -__fmul_rn(__fmul_rn(expf(c), p), p);
-    d_mu_e[base + i] = d_mu;
-    d_lv_e[base + i] = __fmul_rn(__fmul_rn(d_q, dp_dc), clamp_grad(v));
+    Lanes<kW> d_lv;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const float x = v.v[k];
+      const float c = x < -kBound ? -kBound : (x > kBound ? kBound : x);
+      const float dp_dc = -__fmul_rn(__fmul_rn(expf(c), p.v[k]), p.v[k]);
+      d_lv.v[k] = __fmul_rn(__fmul_rn(d_q.v[k], dp_dc), clamp_grad(x));
+    }
+    store<kW>(d_mu_e + expert_at(i), d_mu);
+    store<kW>(d_lv_e + expert_at(i), d_lv);
   }
 }
 
@@ -392,26 +532,41 @@ extern "C" int poe_kl(const float* mu_e, const float* lv_e, const float* masks,
 
 // The forward's arguments, its outputs mu_f and lv_f (T, B, L), the output
 // gradients g_mu, g_lv (T, B, L) and g_kl (T, B), and the expert-stack
-// gradients d_mu_e, d_lv_e (B, M, L); all f32, contiguous. `blocks` ==
-// batch blocks of `threads` threads; smem the bytes of the precision slab,
-// the weights and the three (T x L) term arrays, at most 48 KB
-// (kernels.py:poe_kl_bwd_plan).
+// gradients d_mu_e, d_lv_e (B, M, L); all f32, contiguous. The launch plan
+// (kernels.py:poe_kl_bwd_plan): `tile` latents a block, `vec4` (1: float4
+// loads where l_dim and tile are multiples of 4 and every pointer is
+// 16-byte aligned, else scalars; 0: scalars), `threads` a block (32-512),
+// `blocks` == batch * ceil(l_dim / tile), smem the bytes of the tile's
+// precisions, the weights (rounded up to a float4) and the three (T x tile)
+// term arrays, at most 48 KB.
 extern "C" int poe_kl_bwd(const float* mu_e, const float* lv_e, const float* masks,
                           const float* presence, const float* mu_f, const float* lv_f,
                           const float* g_mu, const float* g_lv, const float* g_kl,
                           float* d_mu_e, float* d_lv_e, int n_terms, int batch,
-                          int m_experts, int l_dim, int threads, int blocks, int smem,
-                          cudaStream_t stream) {
-  if (n_terms <= 0 || batch <= 0 || m_experts <= 0 || l_dim <= 0 || threads < kWarp ||
-      threads > kMaxWarps * kWarp || threads % kWarp != 0 || blocks != batch) {
+                          int m_experts, int l_dim, int tile, int vec4, int threads,
+                          int blocks, int smem, cudaStream_t stream) {
+  if (n_terms <= 0 || batch <= 0 || batch > 65535 || m_experts <= 0 || l_dim <= 0 ||
+      tile <= 0 || threads < kWarp || threads > kMaxBwdThreads || threads % kWarp != 0 ||
+      static_cast<long long>(blocks) !=
+          static_cast<long long>(batch) * ((l_dim + tile - 1) / tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long need = 4LL * (static_cast<long long>(m_experts) * l_dim +
-                                static_cast<long long>(n_terms) * m_experts +
-                                3LL * n_terms * l_dim);
+  const long long need = 4LL * (static_cast<long long>(m_experts) * tile +
+                                (static_cast<long long>(n_terms) * m_experts + 3) / 4 * 4 +
+                                3LL * n_terms * tile);
   if (smem < need || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  poe_kl_bwd_kernel<<<blocks, threads, smem, stream>>>(
-      mu_e, lv_e, masks, presence, mu_f, lv_f, g_mu, g_lv, g_kl, d_mu_e, d_lv_e, n_terms,
-      batch, m_experts, l_dim);
+  const bool vec = vec4 && l_dim % 4 == 0 && tile % 4 == 0 && aligned16(mu_e) && aligned16(lv_e) &&
+                   aligned16(mu_f) && aligned16(lv_f) && aligned16(g_mu) && aligned16(g_lv) &&
+                   aligned16(d_mu_e) && aligned16(d_lv_e);
+  const dim3 grid(blocks / batch, batch);
+  if (vec) {
+    poe_kl_bwd_kernel<4><<<grid, threads, smem, stream>>>(
+        mu_e, lv_e, masks, presence, mu_f, lv_f, g_mu, g_lv, g_kl, d_mu_e, d_lv_e, n_terms,
+        batch, m_experts, l_dim, tile);
+  } else {
+    poe_kl_bwd_kernel<1><<<grid, threads, smem, stream>>>(
+        mu_e, lv_e, masks, presence, mu_f, lv_f, g_mu, g_lv, g_kl, d_mu_e, d_lv_e, n_terms,
+        batch, m_experts, l_dim, tile);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,9 +24,10 @@
   * the backward kernels of training: ``kl_rows_grad_kernel`` (K1's VJP,
     ``_kl_bwd``), ``bce_rows_grad_kernel`` (K2's VJP in the logits,
     ``_bce_bwd``, the targets read through the forward's row map),
-    ``masked_seq_ce_grad_kernel`` (K3's VJP, ``_seq_ce_bwd``, in K3's
-    layout) and ``poe_kl_grad_kernel`` (the fused PoE + KL's, K1's VJP
-    carried back through the PoE to the expert stack).
+    ``masked_seq_ce_grad_kernel`` (K3's VJP, ``_seq_ce_bwd``, in the
+    layout :func:`seq_ce_grad_plan` picks) and ``poe_kl_grad_kernel``
+    (the fused PoE + KL's, K1's VJP carried back through the PoE to the
+    expert stack, in the tiles :func:`poe_kl_bwd_plan` sizes).
 
 K1 and K2 and their gradients live in ``csrc/row_reduce.cu``, K3 and its
 gradient in ``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu``, the fused PoE and KL and its
@@ -89,6 +90,11 @@ __all__ = [
     "bce_rows_grad_torch",
     "masked_seq_ce_kernel",
     "masked_seq_ce_torch",
+    "SEQ_GRAD_STAGED",
+    "SEQ_GRAD_WARP",
+    "SEQ_GRAD_GROUPS",
+    "SeqCeGradPlan",
+    "seq_ce_grad_plan",
     "masked_seq_ce_grad_kernel",
     "masked_seq_ce_grad_torch",
     "same_pad",
@@ -100,6 +106,7 @@ __all__ = [
     "masked_poe_torch",
     "poe_kl_torch",
     "PoeKlBwdPlan",
+    "poe_kl_bwd_smem",
     "poe_kl_bwd_plan",
     "poe_kl_grad_kernel",
     "poe_kl_grad_torch",
@@ -143,7 +150,7 @@ _SIGNATURES = {
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
         "seq_ce_rows_grad": [_ptr, _ptr, _i32, _ptr, _ptr, _i32, _i32, _i32, _i64, _i32, _i32,
-                             _i32, _ptr],
+                             _i32, _i32, _i32, _ptr],
     },
     "conv_s2": {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -153,7 +160,7 @@ _SIGNATURES = {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                    _i32, _i32, _i32, _ptr],
         "poe_kl_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                       _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+                       _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "launch_floor": {"empty_launch": [_i32, _i32, _ptr]},
 }
@@ -567,22 +574,109 @@ def masked_seq_ce_torch(
     return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)
 
 
+# Paths of ``seq_ce_rows_grad``: a block stages a chunk of examples' logits,
+# pad rows too, in shared memory (STAGED); a warp a token row, read twice
+# (WARP); the lane-group layout, a group of lanes a token row read from
+# device memory, a block an example (GROUPS). Vocabularies up to
+# SEQ_GRAD_SMALL_V take GROUPS in a call of fewer tokens than
+# SEQ_FEW_TOKENS_PER_SM an SM, else STAGED when one example's slab fits in
+# SEQ_GRAD_MAX_SMEM bytes, up to SEQ_GRAD_LOGITS logits a lane (twice that
+# at an odd V); a chunk holds about SEQ_GRAD_SLAB_FLOATS logits, but no
+# fewer chunks than the SMs. Larger vocabularies take a warp a row.
+# ``kernel_plans.py`` measured each limit on the H100 (PERF.md, section 6).
+SEQ_GRAD_STAGED, SEQ_GRAD_WARP, SEQ_GRAD_GROUPS = 0, 1, 2
+SEQ_GRAD_SMALL_V = 128
+SEQ_GRAD_LOGITS = 16
+SEQ_GRAD_SLAB_FLOATS = 1024
+SEQ_GRAD_MAX_SMEM = 48 * 1024
+SEQ_GRAD_MAX_WARPS = 16  # the gradient kernels' __launch_bounds__
+
+
+class SeqCeGradPlan(NamedTuple):
+    """Launch of ``seq_ce_rows_grad``: path, lanes a token row (staged
+    and group paths), examples a chunk, warps a block and blocks (at most
+    the chunks, which they walk with the grid's stride)."""
+
+    path: int
+    lanes: int
+    examples: int
+    warps: int
+    blocks: int
+
+
+def seq_ce_grad_smem(examples: int, s: int, v: int) -> int:
+    """Shared memory of a staged block of ``seq_ce_rows_grad``, in bytes:
+    the chunk's row labels and g rounded up to a float4, its slab, and 3
+    floats of 16-byte phase (rounded to 4), as ``staged_floats`` in
+    ``seq_ce.cu``."""
+    rows = examples * s
+    return 4 * (-(-(rows + examples) // 4) * 4 + rows * v + 4)
+
+
+def seq_ce_grad_plan(
+    n: int, s: int, v: int, sms: int = H100_SMS, path: int | None = None,
+    examples: int | None = None,
+) -> SeqCeGradPlan:
+    """The layout of K3's VJP for ``(n, s, v)`` logits on a card of ``sms``
+    SMs.
+
+    A vocabulary of up to 128 takes, in a call of fewer tokens than 32 an SM
+    (bound by latency), the lane-group layout with the forward's lanes and
+    warps (:func:`seq_ce_plan`: a block an example, a group of lanes a token
+    row; up to 16 warps); otherwise, where its example slab fits in 48 KB,
+    it is staged: a block takes a chunk of examples of about 1,024 logits,
+    or fewer so that the chunks are at least the SMs; a token row goes to
+    the smallest power-of-two group of lanes that holds at most 16 logits a
+    lane, or 32 at an odd V, whose rows start on every bank of shared
+    memory; the warps give each of the chunk's rows a group, up to 16. The
+    others take a warp a token row, a warp for each of the example's rows up
+    to 16. ``path`` and ``examples`` override the choice; ``kernel_plans.py``
+    times the alternatives. Raises where a staged chunk exceeds 48 KB of
+    shared memory."""
+    s1 = max(s, 1)
+    if path is None:
+        small = v <= SEQ_GRAD_SMALL_V and seq_ce_grad_smem(1, s1, v) <= SEQ_GRAD_MAX_SMEM
+        few = n * s < SEQ_FEW_TOKENS_PER_SM * sms
+        path = (SEQ_GRAD_GROUPS if few and v <= SEQ_GRAD_SMALL_V
+                else SEQ_GRAD_STAGED if small else SEQ_GRAD_WARP)
+    if path == SEQ_GRAD_GROUPS:
+        lanes, warps, _ = seq_ce_plan(n, s, v, sms)
+        return SeqCeGradPlan(path, lanes, 1, min(warps, SEQ_GRAD_MAX_WARPS), n)
+    if path == SEQ_GRAD_WARP:
+        examples = examples or 1
+        warps = min(SEQ_GRAD_MAX_WARPS, examples * s1)
+        return SeqCeGradPlan(path, 32, examples, warps, max(1, -(-n // examples)))
+    if examples is None:
+        examples = max(1, min(SEQ_GRAD_SLAB_FLOATS // (s1 * v), n // sms))
+    examples = max(1, min(examples, n))
+    if seq_ce_grad_smem(examples, s1, v) > SEQ_GRAD_MAX_SMEM:
+        raise ValueError(
+            f"seq_ce_rows_grad: {examples} examples of ({s}, {v}) logits take "
+            f"{seq_ce_grad_smem(examples, s1, v)} bytes of shared memory, above "
+            f"{SEQ_GRAD_MAX_SMEM}"
+        )
+    per_lane = SEQ_GRAD_LOGITS * (2 if v % 2 else 1)
+    lanes = min(32, 1 << max(0, -(-v // per_lane) - 1).bit_length())
+    warps = max(1, min(SEQ_GRAD_MAX_WARPS, -(-examples * s1 * lanes // 32)))
+    return SeqCeGradPlan(path, lanes, examples, warps, max(1, -(-n // examples)))
+
+
 def masked_seq_ce_grad_kernel(
     logits: torch.Tensor, tokens: torch.Tensor, pad_token: int, g: torch.Tensor,
-    plan: SeqCePlan | None = None,
+    plan: SeqCeGradPlan | None = None,
 ) -> torch.Tensor:
     """K3's VJP (``_seq_ce_bwd``) on the arguments of
     :func:`masked_seq_ce_kernel` and the ``(N,)`` f32 upstream gradient:
     ``g[n] * (softmax(logits[n, s]) - onehot(tokens[n, s]))`` on the non-pad
     tokens, 0 on the pad ones -> ``(N, S, V)``, in the layout of
-    :func:`seq_ce_plan` (or ``plan``)."""
+    :func:`seq_ce_grad_plan` (or ``plan``)."""
     _check_seq(logits, tokens)
     _check_grad_of(g, logits)
     n, s, v = logits.shape
     out = torch.empty_like(logits)
-    if n == 0:
+    if out.numel() == 0:
         return out
-    plan = plan or seq_ce_plan(n, s, v, _sm_count(logits.device.index or 0))
+    plan = plan or seq_ce_grad_plan(n, s, v, _sm_count(logits.device.index or 0))
     _launch(
         "seq_ce", "seq_ce_rows_grad", logits.device, logits.data_ptr(),
         tokens.data_ptr(), tokens.element_size(), g.data_ptr(), out.data_ptr(), n, s, v,
@@ -874,30 +968,74 @@ def poe_kl_torch(
 
 # ------------------------------------------------- PoE + KL backward ----
 
-POE_BWD_THREADS = 256
+# A block of ``poe_kl_bwd`` has at most 512 threads (its __launch_bounds__).
+# It takes float4s where a term's sums take POE_BWD_VEC_TM terms x experts,
+# else scalars in tiles of POE_BWD_SCALAR_TILE latents.
+POE_BWD_MAX_THREADS = 512
+POE_BWD_VEC_TM = 16
+POE_BWD_SCALAR_TILE = 32
+POE_BWD_VEC_THREADS = 256  # the fewest threads of a float4 block
 
 
 class PoeKlBwdPlan(NamedTuple):
-    """Launch of ``poe_kl_bwd``: threads a block, blocks (one per batch
-    row) and the block's dynamic shared memory in bytes."""
+    """Launch of ``poe_kl_bwd``: latents a tile, float4 loads (1) or
+    scalars (0), threads a block, blocks (batch rows x latent tiles) and
+    the block's dynamic shared memory in bytes."""
 
+    tile: int
+    vec: int
     threads: int
     blocks: int
     smem: int
 
 
-def poe_kl_bwd_plan(t: int, b: int, m: int, l: int) -> PoeKlBwdPlan:
+def poe_kl_bwd_smem(t: int, m: int, tile: int) -> int:
+    """Shared memory of a ``poe_kl_bwd`` block: the tile's precisions (m x
+    tile), the term weights (t x m, rounded up to a float4) and three (t x
+    tile) term arrays, in bytes."""
+    return 4 * (m * tile + -(-t * m // 4) * 4 + 3 * t * tile)
+
+
+def poe_kl_bwd_plan(
+    t: int, b: int, m: int, l: int, sms: int = H100_SMS, tile: int | None = None,
+    vec: bool | None = None,
+) -> PoeKlBwdPlan:
     """The launch of the fused PoE + KL's backward for ``t`` terms of ``b``
-    batch rows of ``m`` experts of ``l`` latents: a block per batch row,
-    with the row's precisions (m x l), the term weights (t x m) and three
-    (t x l) term arrays in shared memory. Raises above 48 KB."""
-    smem = 4 * (m * l + t * m + 3 * t * l)
+    batch rows of ``m`` experts of ``l`` latents, on a card of ``sms`` SMs.
+
+    A block per batch row and tile of latents. Float4s (``vec``) where
+    ``l % 4 == 0`` and a term's sums take at least POE_BWD_VEC_TM terms
+    times experts (CelebA's 380), scalars otherwise, so that a small
+    shape's work spreads over more threads (MNIST's and MultiMNIST's train
+    steps). A row's latents split into as many tiles as keep the blocks
+    within two an SM (CelebA's 64 rows: 4 tiles of 28 latents, 256
+    blocks), a float4 tile a multiple of 4, a scalar tile at most
+    POE_BWD_SCALAR_TILE latents (MNIST's and MultiMNIST's: 32). A tile is
+    halved while the block's shared memory exceeds 48 KB. A thread a
+    (term, column) or (expert, column), a column 4 latents with float4s,
+    up to 512, and at least 256 with float4s. ``tile`` and ``vec``
+    override the choice. Raises where no tile fits. ``kernel_plans.py``
+    times the alternatives."""
+    if vec is None:
+        vec = l % 4 == 0 and t * m >= POE_BWD_VEC_TM
+    vec = bool(vec) and l % 4 == 0
+    if tile is None:
+        step = 4 if vec else 1
+        tile = -(-l // max(1, 2 * sms // max(b, 1)))
+        tile = -(-tile // step) * step if vec else min(tile, POE_BWD_SCALAR_TILE)
+        while tile > step and poe_kl_bwd_smem(t, m, tile) > POE_MAX_SMEM:
+            tile = max(step, -(-(tile // 2) // step) * step)
+    smem = poe_kl_bwd_smem(t, m, tile)
     if smem > POE_MAX_SMEM:
         raise ValueError(
-            f"poe_kl_bwd: {m} experts x {l} latents and {t} terms take {smem} bytes "
-            f"of shared memory, above {POE_MAX_SMEM}"
+            f"poe_kl_bwd: {m} experts and {t} terms take {smem} bytes of shared memory "
+            f"at a tile of {tile} latents, above {POE_MAX_SMEM}"
         )
-    return PoeKlBwdPlan(POE_BWD_THREADS, b, smem)
+    vec = vec and tile % 4 == 0
+    cols = -(-min(tile, l) // (4 if vec else 1))
+    least = POE_BWD_VEC_THREADS if vec else 32
+    threads = min(POE_BWD_MAX_THREADS, max(least, -(-max(t, m) * cols // 32) * 32))
+    return PoeKlBwdPlan(tile, int(vec), threads, b * -(-l // tile), smem)
 
 
 def _clamp_grad(lv: torch.Tensor) -> torch.Tensor:
@@ -945,8 +1083,9 @@ def poe_kl_grad_kernel(
     plan: PoeKlBwdPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`poe_kl_grad_torch` in one launch of ``poe_kl_bwd``, on f32
-    contiguous CUDA tensors of one device. ``plan`` overrides
-    :func:`poe_kl_bwd_plan` of the shape."""
+    contiguous CUDA tensors of one device (scalar loads where a pointer is
+    not 16-byte aligned). ``plan`` overrides :func:`poe_kl_bwd_plan` of the
+    shape and the card."""
     if mu_e.dim() != 3 or masks.dim() != 2:
         raise ValueError(
             f"mu_e must be (B, M, L) and masks (T, M), got {tuple(mu_e.shape)} and "
@@ -968,7 +1107,7 @@ def poe_kl_grad_kernel(
     d_mu, d_lv = torch.empty_like(mu_e), torch.empty_like(lv_e)
     if d_mu.numel() == 0 or t == 0:
         return d_mu.zero_(), d_lv.zero_()
-    plan = plan or poe_kl_bwd_plan(t, b, m, l)
+    plan = plan or poe_kl_bwd_plan(t, b, m, l, _sm_count(dev.index or 0))
     _launch(
         "poe_kl", "poe_kl_bwd", dev, mu_e.data_ptr(), lv_e.data_ptr(), masks.data_ptr(),
         None if presence is None else presence.data_ptr(), mu_f.data_ptr(), lv_f.data_ptr(),

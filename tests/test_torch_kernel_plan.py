@@ -1,5 +1,7 @@
 """The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``), K4
-(``conv_plan``) and the fused PoE + KL (``poe_kl_plan``), on the CPU.
+(``conv_plan``), the fused PoE + KL (``poe_kl_plan``) and the backward
+kernels of K3 (``seq_ce_grad_plan``) and of the fused PoE + KL
+(``poe_kl_bwd_plan``), on the CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
@@ -198,7 +200,8 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
      ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
      ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
      ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan),
-     ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan)],
+     ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan),
+     ("seq_ce", "seq_ce_rows_grad", 9, kernels.SeqCeGradPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -268,23 +271,152 @@ def test_poe_kl_plan_refuses_a_slab_above_48kb():
     assert kernels.poe_kl_plan(31, 8, 30, 200).smem <= 48 * 1024
 
 
+# (T, B, M, L) of the fused PoE + KL's backward: POE_SHAPES, the MNIST
+# and MultiMNIST train steps' (a cycle re-read, T = 1), L = 100 at 100
+# rows, and 40 terms of CelebA's experts (above the block-a-row design's
+# 48 KB).
+POE_BWD_SHAPES = POE_SHAPES + [(1, 100, 2, 256), (3, 100, 2, 100), (40, 8, 19, 100)]
+
+
+def _poe_bwd_covered(b: int, l: int, plan) -> np.ndarray:
+    """How often each (batch row, latent) is taken, as the kernel decodes
+    the grid: block i is batch row i // tiles and the latents
+    [(i % tiles) * tile, + tile) cut at L."""
+    tiles = -(-l // plan.tile)
+    covered = np.zeros((b, l), dtype=np.int64)
+    for block in range(plan.blocks):
+        row, l0 = block // tiles, (block % tiles) * plan.tile
+        covered[row, l0:min(l, l0 + plan.tile)] += 1
+    return covered
+
+
+@pytest.mark.parametrize("shape", POE_BWD_SHAPES)
+@pytest.mark.parametrize("tile", [None, 4, 32])
+def test_poe_kl_bwd_plan_covers_every_latent_once(shape, tile):
+    """Every (b, l) is taken by exactly one block, L = 37 and 100 ragged in
+    the last tile; the block's shared memory is the tile's precisions,
+    the weights rounded up to a float4 and three (T x tile) term arrays,
+    within 48 KB; a float4 tile is a multiple of 4 of a multiple-of-4 L;
+    the threads are whole warps, at most 512, and cover a (term or
+    expert, column) each."""
+    t, b, m, l = shape
+    plan = kernels.poe_kl_bwd_plan(t, b, m, l, tile=tile)
+    assert np.all(_poe_bwd_covered(b, l, plan) == 1)
+    assert plan.smem == 4 * (m * plan.tile + -(-t * m // 4) * 4 + 3 * t * plan.tile)
+    assert plan.smem <= 48 * 1024
+    assert not plan.vec or (l % 4 == 0 and plan.tile % 4 == 0)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    cols = -(-min(plan.tile, l) // (4 if plan.vec else 1))
+    assert plan.threads >= min(512, max(t, m) * cols)
+
+
 @pytest.mark.parametrize(
-    "shape, smem",
-    [((3, 100, 2, 64), 4 * (128 + 6 + 576)), ((3, 100, 2, 256), 4 * (512 + 6 + 2304)),
-     ((20, 64, 19, 100), 4 * (1900 + 380 + 6000))],
+    "shape, plan",
+    [((20, 64, 19, 100), (28, 1, 256, 256)), ((3, 100, 2, 64), (32, 0, 96, 200)),
+     ((3, 100, 2, 256), (32, 0, 96, 800)), ((1, 100, 2, 256), (32, 0, 64, 800)),
+     ((20, 200, 19, 100), (100, 1, 512, 200))],
 )
-def test_poe_kl_bwd_plan_is_a_block_a_batch_row(shape, smem):
-    """The backward's plan at the MNIST train and the three eval shapes: a
-    block of whole warps per batch row, with the row's precisions, the
-    term weights and three (T x L) term arrays in shared memory."""
-    plan = kernels.poe_kl_bwd_plan(*shape)
-    assert plan.blocks == shape[1] and plan.smem == smem <= 48 * 1024
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+def test_poe_kl_bwd_plan_fills_the_card(shape, plan):
+    """CelebA's 64 rows take float4s and split L = 100 into 4 tiles (28,
+    28, 28, 16): 256 blocks on 132 SMs, where a block a row gave 64;
+    MNIST's and MultiMNIST's train steps (6 or 2 terms x experts) take
+    scalars in tiles of 32 latents; 200 CelebA rows one tile each."""
+    got = kernels.poe_kl_bwd_plan(*shape)
+    assert got[:4] == plan and got.blocks >= H100
 
 
-def test_poe_kl_bwd_plan_refuses_above_48kb():
-    """30 terms of 100 latents take 36 KB of term arrays and 19 experts 7.6
-    KB of precisions, 45,880 bytes: taken; 40 terms are refused."""
-    assert kernels.poe_kl_bwd_plan(30, 8, 19, 100).smem == 45880
+def test_poe_kl_bwd_plan_refuses_only_what_no_tile_fits():
+    """40 terms of CelebA's 19 experts, refused by the block-a-row design,
+    fit in tiles of 8; so does a scalar tile of 37 latents. 40 terms of
+    300 experts take 53,760 bytes at a tile of 4: refused, with no
+    fallback."""
+    assert kernels.poe_kl_bwd_plan(40, 8, 19, 100).smem <= 48 * 1024
+    assert kernels.poe_kl_bwd_plan(20, 10, 19, 37).smem <= 48 * 1024
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.poe_kl_bwd_plan(40, 8, 19, 100)
+        kernels.poe_kl_bwd_plan(40, 8, 300, 100)
+
+
+# (N, S, V) of K3's VJP: SEQ_SHAPES, the MultiMNIST train shapes, a last
+# chunk of fewer examples (1000 = 142 x 7 + 6), and V at the staged path's
+# limit and past it.
+SEQ_BWD_SHAPES = SEQ_SHAPES + [(300, 5, 13), (100, 5, 13), (1000, 7, 13), (512, 9, 128),
+                               (512, 9, 129)]
+
+
+def _seq_bwd_covered(n: int, s: int, plan) -> np.ndarray:
+    """How often each (example, token) is taken, as the kernels decode the
+    grid: block i walks the chunks i, i + blocks, ...; chunk c holds the
+    examples [c * examples, + examples) cut at N; on the staged and
+    lane-group paths the block's groups of lanes take its token rows, on the
+    warp path its warps."""
+    chunks = -(-n // plan.examples)
+    groups = plan.warps if plan.path == kernels.SEQ_GRAD_WARP else plan.warps * 32 // plan.lanes
+    covered = np.zeros((n, s), dtype=np.int64)
+    for block in range(plan.blocks):
+        for chunk in range(block, chunks, plan.blocks):
+            n0 = chunk * plan.examples
+            rows = (min(n, n0 + plan.examples) - n0) * s
+            for group in range(groups):
+                for r in range(group, rows, groups):
+                    covered[n0 + r // s, r % s] += 1
+    return covered
+
+
+@pytest.mark.parametrize("shape", SEQ_BWD_SHAPES)
+def test_seq_ce_grad_plan_covers_every_token_once(shape):
+    """Every (n, s) is taken by exactly one group of lanes (staged and
+    lane-group layouts), one warp or one block, over every path and a ragged last
+    chunk; the blocks are at most the chunks (the lane-group layout: a block an
+    example); a staged block's shared memory is within 48 KB and a token
+    row has a power-of-two group of lanes holding at most 32 logits a lane
+    below a whole warp."""
+    n, s, v = shape
+    auto = kernels.seq_ce_grad_plan(n, s, v)
+    plans = [auto]
+    if auto.path != kernels.SEQ_GRAD_GROUPS:
+        plans.append(auto._replace(blocks=min(auto.blocks, 5)))
+    if kernels.seq_ce_grad_smem(1, max(s, 1), v) <= 48 * 1024:
+        plans.append(kernels.seq_ce_grad_plan(n, s, v, path=kernels.SEQ_GRAD_STAGED,
+                                              examples=3))
+    for plan in plans:
+        assert np.all(_seq_bwd_covered(n, s, plan) == 1)
+        assert 1 <= plan.blocks <= -(-n // plan.examples)
+        assert 1 <= plan.warps <= 16
+        if plan.path == kernels.SEQ_GRAD_STAGED:
+            assert kernels.seq_ce_grad_smem(plan.examples, max(s, 1), v) <= 48 * 1024
+            assert plan.lanes in (1, 2, 4, 8, 16, 32)
+            assert plan.lanes == 32 or -(-v // plan.lanes) <= (32 if v % 2 else 16)
+        if plan.path == kernels.SEQ_GRAD_GROUPS:
+            assert plan.examples == 1 and plan.blocks == n
+
+
+@pytest.mark.parametrize(
+    "shape, plan",
+    [((4096, 32, 23), (kernels.SEQ_GRAD_STAGED, 1, 1, 1, 4096)),
+     ((1000, 7, 13), (kernels.SEQ_GRAD_STAGED, 1, 7, 2, 143)),
+     ((2048, 8, 5003), (kernels.SEQ_GRAD_WARP, 32, 1, 8, 2048)),
+     ((300, 5, 13), (kernels.SEQ_GRAD_GROUPS, 16, 1, 3, 300)),
+     ((100, 5, 13), (kernels.SEQ_GRAD_GROUPS, 16, 1, 3, 100)),
+     ((512, 9, 128), (kernels.SEQ_GRAD_STAGED, 8, 1, 3, 512)),
+     ((512, 9, 129), (kernels.SEQ_GRAD_WARP, 32, 1, 9, 512)),
+     ((3, 40, 1001), (kernels.SEQ_GRAD_WARP, 32, 1, 16, 3)),
+     ((8, 600, 23), (kernels.SEQ_GRAD_WARP, 32, 1, 16, 8))],
+)
+def test_seq_ce_grad_plan_paths(shape, plan):
+    """The synthetic CUB shape is staged, an example (736 logits) a block
+    of one warp, a lane a token row (V odd); 1,000 examples of 7 x 13 take 7 a
+    chunk (the last of 6); the large vocabulary takes a warp a token row, a
+    block an example's 8; MultiMNIST's train shapes, under 32 tokens an SM,
+    take the lane-group layout with the forward's 16 lanes a token row; V =
+    128 is staged and V = 129 takes a warp a token row; few tokens of a
+    large vocabulary take a warp a token row; an example of 600 x 23 logits (55 KB) is not
+    staged."""
+    assert kernels.seq_ce_grad_plan(*shape) == kernels.SeqCeGradPlan(*plan)
+
+
+def test_seq_ce_grad_plan_refuses_a_staged_chunk_above_48kb():
+    """A staged path forced on 600 tokens of 23 is refused, with no
+    fallback; the chunk of 2 such examples of 300 tokens fits."""
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.seq_ce_grad_plan(8, 600, 23, path=kernels.SEQ_GRAD_STAGED)
+    assert kernels.seq_ce_grad_plan(8, 300, 23, path=kernels.SEQ_GRAD_STAGED).examples == 1

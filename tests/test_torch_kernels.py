@@ -820,11 +820,14 @@ def test_bce_rows_grad_kernel_offset_view(cuda, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
-                                   (3, 40, 1001), (5, 3, 31), (3, 1, 2)])
+                                   (3, 40, 1001), (5, 3, 31), (3, 1, 2), (1000, 7, 13),
+                                   (512, 9, 128), (512, 9, 129)])
 def test_seq_ce_grad_kernel_matches_plain(cuda, shape):
     """K3's VJP at MultiMNIST's train shapes (the decode-all pass and a
     cycle re-read), the synthetic CUB shape, a large odd vocabulary, S above
-    the tokens a block runs at once, V just below a warp and V = 2; pad
+    the tokens a block runs at once, V just below a warp, V = 2, a last
+    chunk of fewer examples (7 a chunk), V at the staged path's limit and
+    just past it, each in the plan ``seq_ce_grad_plan`` picks; pad
     rows (rows 0 and 1 all pad) give exactly 0; a token row with a NaN
     logit in the middle, and where the batch has the rows, one with a +inf
     and one with a NaN at the end (a scalar tail of the warp-a-row layout),
@@ -849,20 +852,71 @@ def test_seq_ce_grad_kernel_matches_plain(cuda, shape):
                                rtol=0, atol=0, equal_nan=True)
 
 
+def _seq_grad_plans(n: int, s: int, v: int) -> list:
+    """Every path of ``seq_ce_rows_grad`` the shape takes: the staged path
+    at 1 and 3 examples a chunk with each group of lanes from 1 to 32 (when
+    an example's slab fits), fewer blocks than chunks; a warp a token row at
+    1 and 3 examples a block, fewer blocks than chunks; the lane-group
+    layout at every group of lanes from 1 to 32."""
+    plans = []
+    if kernels.seq_ce_grad_smem(3, s, v) <= kernels.SEQ_GRAD_MAX_SMEM:
+        for examples in (1, 3):
+            for lanes in (1, 2, 4, 8, 16, 32):
+                warps = max(1, min(16, -(-examples * s * lanes // 32)))
+                plans.append(kernels.SeqCeGradPlan(kernels.SEQ_GRAD_STAGED, lanes, examples,
+                                                   warps, -(-n // examples)))
+        plans.append(plans[-1]._replace(blocks=2))
+    for examples, warps in ((1, 4), (3, 8)):
+        plans.append(kernels.SeqCeGradPlan(kernels.SEQ_GRAD_WARP, 32, examples, warps,
+                                           -(-n // examples)))
+    plans.append(plans[-1]._replace(blocks=2))
+    for lanes in (1, 2, 4, 8, 16, 32):
+        plans.append(kernels.SeqCeGradPlan(kernels.SEQ_GRAD_GROUPS, lanes, 1, 2, n))
+    return plans
+
+
 @pytest.mark.gpu
-def test_seq_ce_grad_kernel_int64_other_pad_offset_view_and_every_layout(cuda):
-    """int64 tokens with pad 2, views one element into their storage, and
-    every lane group the forward's plan can pick."""
+@pytest.mark.parametrize("shape", [(40, 6, 23), (37, 5, 64), (9, 3, 385)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_seq_ce_grad_kernel_int64_other_pad_offset_view_and_every_layout(cuda, shape, offset):
+    """int64 tokens with pad 2, logits and tokens one element into their
+    storage or not (a slab or row at another 16-byte phase than its
+    gradient: scalar head and tail, scalar shared-memory reads), at an odd
+    V, a V that is a multiple of 4 and one past the staged limit, in every
+    plan of every path; two calls give the same bits."""
     gen = torch.Generator().manual_seed(40)
-    n, s, v = 40, 6, 23
-    logits = (torch.randn(n * s * v + 1, generator=gen) * 3).to(cuda)[1:].view(n, s, v)
-    tokens = torch.randint(0, v, (n * s + 1,), generator=gen, dtype=torch.int64)
-    tokens = tokens.to(cuda)[1:].view(n, s)
+    n, s, v = shape
+    lo = offset
+    logits = (torch.randn(n * s * v + lo, generator=gen) * 3).to(cuda)[lo:].view(n, s, v)
+    tokens = torch.randint(0, v, (n * s + lo,), generator=gen, dtype=torch.int64)
+    tokens = tokens.to(cuda)[lo:].view(n, s)
+    tokens[0] = 2
     g = _rand(gen, n, device=cuda)
     want = kernels.masked_seq_ce_grad_torch(logits, tokens, 2, g)
-    for lanes in (1, 2, 4, 8, 16, 32):
-        plan = kernels.SeqCePlan(lanes, 4, n)
-        _grad_close(kernels.masked_seq_ce_grad_kernel(logits, tokens, 2, g, plan=plan), want)
+    for plan in _seq_grad_plans(n, s, v):
+        got = kernels.masked_seq_ce_grad_kernel(logits, tokens, 2, g, plan=plan)
+        _grad_close(got, want)
+        assert torch.all(got[tokens == 2] == 0)
+        assert torch.equal(got, kernels.masked_seq_ce_grad_kernel(logits, tokens, 2, g, plan=plan))
+
+
+@pytest.mark.gpu
+def test_seq_ce_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """More blocks than chunks, a staged chunk above 48 KB, lanes that are
+    not a power of two, an unknown path, or the lane-group layout at other
+    than a block an example is refused at launch and counts no launch."""
+    gen = torch.Generator().manual_seed(41)
+    logits, tokens = _seq_inputs(gen, 8, 600, 23, device=cuda)
+    g = _rand(gen, 8, device=cuda)
+    good = kernels.seq_ce_grad_plan(8, 600, 23)
+    before = kernels.LAUNCHES["seq_ce_bwd"]
+    groups = kernels.SeqCeGradPlan(kernels.SEQ_GRAD_GROUPS, 16, 1, 2, 8)
+    for bad in (good._replace(blocks=9), good._replace(path=kernels.SEQ_GRAD_STAGED),
+                good._replace(lanes=3), good._replace(path=3), groups._replace(blocks=4),
+                groups._replace(examples=2, blocks=4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.masked_seq_ce_grad_kernel(logits, tokens, 0, g, plan=bad)
+    assert kernels.LAUNCHES["seq_ce_bwd"] == before
 
 
 def _poe_grads(gen, shape, device):
@@ -880,26 +934,38 @@ def _poe_grad_close(got, want, n_terms: int) -> None:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned", "ties"])
-@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)])
-def test_poe_kl_grad_kernel_matches_plain(cuda, shape, case):
+@pytest.mark.parametrize("tile", [None, 4, 32])
+@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned", "ties",
+                                  "cycle"])
+@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37), (3, 100, 2, 100)])
+def test_poe_kl_grad_kernel_matches_plain(cuda, shape, case, tile):
     """The backward at the three eval shapes (MNIST's is also its train
-    step's, (3, 100, 2, 64)) and an odd L, in every case, and with
-    log-variances at exactly +-11 (``ties``: half the gradient) and past
-    them; rows with no expert present get 0; two calls give the same bits."""
+    step's, (3, 100, 2, 64)), an odd L and L = 100 at 100 rows, in every
+    case, with log-variances at exactly +-11 (``ties``: half the gradient)
+    and past them, and as a cycle re-read (``cycle``: the first term alone,
+    zero log-variance and KL gradients), in the tile ``poe_kl_bwd_plan``
+    picks and in tiles of 4 and 32 latents (ragged at L = 37 and 100; with
+    the block's threads fewer than its items in the unaligned case); rows
+    with no expert present get 0; two calls give the same bits."""
     gen = torch.Generator().manual_seed(34)
-    args = _poe_inputs(gen, shape, "wide" if case == "ties" else case, cuda)
+    args = _poe_inputs(gen, shape, {"ties": "wide", "cycle": "none"}.get(case, case), cuda)
     if case == "ties":
         lv = args[1]
         lv[:, :, ::3] = 11.0
         lv[:, :, 1::3] = -11.0
+    if case == "cycle":
+        args = (*args[:2], args[2][:1], None)
     mu_f, lv_f, _ = kernels.poe_kl_kernel(*args)
-    g = _poe_grads(gen, shape, cuda)
-    got = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g)
-    _poe_grad_close(got, kernels.poe_kl_grad_torch(*args, mu_f, lv_f, *g), shape[0])
+    g = _poe_grads(gen, (len(args[2]), *shape[1:]), cuda)
+    if case == "cycle":
+        g = (g[0], torch.zeros_like(g[1]), torch.zeros_like(g[2]))
+    t, b, m, l = len(args[2]), *shape[1:]
+    plan = None if tile is None else kernels.poe_kl_bwd_plan(t, b, m, l, tile=tile)
+    got = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g, plan=plan)
+    _poe_grad_close(got, kernels.poe_kl_grad_torch(*args, mu_f, lv_f, *g), t)
     if case == "ragged":
         assert all(torch.all(d[shape[1] // 4:] == 0) for d in got)
-    again = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g)
+    again = kernels.poe_kl_grad_kernel(*args, mu_f, lv_f, *g, plan=plan)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
