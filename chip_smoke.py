@@ -279,6 +279,9 @@ CHECKED_SHAPES = {
                (1, 100, 2, 256, "cycle")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
+    # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
+    # attribute rows, D not a multiple of 4 (b-major), and more target rows
+    # than a grid axis holds (65,535).
     "bce_bwd": [
         (200, 784, 100, kernels.FOLD_T),
         (300, 2500, 100, kernels.FOLD_T),
@@ -287,6 +290,7 @@ CHECKED_SHAPES = {
         (128, 12288, 64, kernels.FOLD_T),
         (21888, 1, 1152, kernels.FOLD_T),
         (36, 1002, 18, kernels.FOLD_B),
+        (70000, 3, 70000, kernels.FOLD_NONE),
     ],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;

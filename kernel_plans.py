@@ -1,18 +1,21 @@
 """Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``),
 K4 (``conv4x4s2_swish``), the fused PoE + KL (``poe_kl``) and the
-backward kernels of K3 (``seq_ce_rows_grad``) and of the fused PoE + KL
-(``poe_kl_bwd``) on one NVIDIA card, at the shapes ``chip_smoke.py``
-times and checks.
+backward kernels of K2 (``bce_rows_grad``), K3 (``seq_ce_rows_grad``) and
+the fused PoE + KL (``poe_kl_bwd``) on one NVIDIA card, at the shapes
+``chip_smoke.py`` times and checks.
 
-    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd ...]
+    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd|bce_bwd ...]
 
 ``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan``,
-``conv_plan``, ``poe_kl_plan``, ``seq_ce_grad_plan`` and
-``poe_kl_bwd_plan`` pick a layout from the shape; this script shows what
-the others would give (for K4: warps a block, and blocks an SM from one
-to more than fit at once, or a warp for every unit; for the fused PoE +
-KL: the terms of a batch row split over 1 to T blocks; for K3's VJP: the
-staged path at 1 to 16 examples a block and every lane group, the
+``conv_plan``, ``poe_kl_plan``, ``bce_grad_plan``, ``seq_ce_grad_plan``
+and ``poe_kl_bwd_plan`` pick a layout from the shape; this script shows
+what the others would give (for K4: warps a block, and blocks an SM from
+one to more than fit at once, or a warp for every unit; for the fused PoE +
+KL: the terms of a batch row split over 1 to T blocks; for K2's VJP: 128
+to 1,024 threads a block with the rule's lanes, a block a chunk of the
+row and a power of two of lanes, at the path shapes and at D = 1 to 2,500
+with 100 and 21,888 rows; for K3's VJP:
+the staged path at 1 to 16 examples a block and every lane group, the
 lane-group layout at the forward's lane groups and at a warp a token row,
 and a warp a token row at 4 to 16 warps at 1 or 2 examples a chunk; for
 the fused PoE + KL's backward: latent tiles of 4 to 256 in float4s and in
@@ -20,11 +23,13 @@ scalars, each at 3 block sizes). The arguments name the kernels to time
 (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
-version, whether two calls gave the same bits, and the device time with
-the inputs in L2 (``ms``) and L2-cold (``cold_ms``), beside the library
-call's and the bound, as ``chip_smoke.py`` times them. The lines are also
-written to ``chiprun_out/kernel_plans.jsonl``. Exits non-zero without a
-card or when a plan disagrees with the plain version.
+version, whether two calls gave the same bits and whether the plan gave
+the first plan's (every plan of K2's VJP computes each element alone, so
+they must), and the device time with the inputs in L2 (``ms``) and
+L2-cold (``cold_ms``), beside the library call's and the bound, as
+``chip_smoke.py`` times them. The lines are also written to
+``chiprun_out/kernel_plans.jsonl``. Exits non-zero without a card or when
+a plan disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -81,6 +86,16 @@ SEQ_BWD_SHAPES = {
     "vocab_64": (2048, 16, 64),
     "vocab_128": (1024, 16, 128),
     "vocab_256": (1024, 16, 256),
+}
+BCE_BWD_SHAPES = {
+    "mnist_train": (200, 784, 100, K.FOLD_T),
+    "multimnist_train": (300, 2500, 100, K.FOLD_T),
+    "celeba_image": (128, 12288, 64, K.FOLD_T),
+    "celeba_attrs": (21888, 1, 1152, K.FOLD_T),
+    # Where the lanes and the rows a block cross over.
+    **{f"rows_{n}_{d}": (n, d, n, K.FOLD_NONE)
+       for d in (1, 3, 13, 64, 784, 2500) for n in (100, 21888)},
+    "rows_100_1_t": (100, 1, 50, K.FOLD_T),
 }
 POE_BWD_SHAPES = {
     "mnist_train": (3, 100, 2, 64, "eval"),
@@ -155,6 +170,16 @@ def seq_bwd_plans(n: int, s: int, v: int, sms: int) -> list[K.SeqCeGradPlan]:
     return plans if auto in plans else plans + [auto]
 
 
+def bce_bwd_plans(n: int, d: int, n_x: int) -> list[K.BceGradPlan]:
+    pow2 = 1 << max(0, K.bce_grad_units(d) - 1).bit_length()
+    plans = [K.bce_grad_plan(n, d, n_x, threads, lanes)
+             for threads in (128, 256, 512, 1024)
+             for lanes in (None, threads, min(pow2, threads))]
+    auto = K.bce_grad_plan(n, d, n_x)
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
 def poe_bwd_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlBwdPlan]:
     auto = K.poe_kl_bwd_plan(t, b, m, l, sms)
     plans = []
@@ -180,6 +205,8 @@ def auto_plan(op: str, shape, sms: int):
         return K.poe_kl_plan(*shape[:4], sms)
     if op == "seq_ce_bwd":
         return K.seq_ce_grad_plan(*shape, sms)
+    if op == "bce_bwd":
+        return K.bce_grad_plan(*shape[:3])
     return K.poe_kl_bwd_plan(*shape[:4], sms)
 
 
@@ -207,7 +234,8 @@ def main() -> None:
         raise SystemExit("kernel_plans: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl", "seq_ce_bwd", "poe_kl_bwd"]
+    wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl", "seq_ce_bwd", "poe_kl_bwd",
+                              "bce_bwd"]
     K.build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
@@ -226,6 +254,8 @@ def main() -> None:
               for label, shape in SEQ_BWD_SHAPES.items()]
     cases += [("poe_kl_bwd", label, shape, poe_bwd_plans(*shape[:4], sms))
               for label, shape in POE_BWD_SHAPES.items()]
+    cases += [("bce_bwd", label, shape, bce_bwd_plans(*shape[:3]))
+              for label, shape in BCE_BWD_SHAPES.items()]
     for op, label, shape, plans in cases:
         if op not in wanted:
             continue
@@ -244,6 +274,7 @@ def main() -> None:
             "bound_ms": cs.bound(op, args)[0], "cold_copies": copies,
         }
         auto = auto_plan(op, shape, sms)
+        first = None
         for plan in plans:
             call = functools.partial(cs.KERNEL_FN[op], *args, plan=plan)
             got = outputs(call())
@@ -253,10 +284,12 @@ def main() -> None:
             if not agrees(op, shape, got, outputs(want)):
                 bad.append((op, label, plan))
             again = outputs(call())
+            first = first or got
             line = {
                 **common, "plan": plan._asdict(), "picked": plan == auto,
                 "max_abs_err": err,
                 "same_bits": all(torch.equal(g, a) for g, a in zip(got, again)),
+                "bits_of_first_plan": all(torch.equal(g, f) for g, f in zip(got, first)),
                 "ms": cs.device_ms(call),
                 "cold_ms": cs.cold_ms(
                     lambda a: functools.partial(cs.KERNEL_FN[op], *a, plan=plan), args, copies)

@@ -59,11 +59,26 @@
 // computed: no ported loss differentiates the targets). Both are
 // elementwise and bound by memory: they read the (N, D) inputs and write
 // (N, D) gradients once -- KL (1280, 100): 2.05 MB, 0.61 us at 3.35 TB/s;
-// BCE (200, 784) against 100 untiled targets: 1.57 MB, 0.47 us. A thread
-// takes a float4 of each input (scalars when D % 4 != 0 or a pointer is
-// not 16-byte aligned), elements grid-strided over a fixed number of
-// blocks; g[row] is one load a float4, served from L1. No reduction: each
-// element is computed alone, so a shape gives the same bits every run.
+// BCE (200, 784) against 100 untiled targets: 1.57 MB, 0.47 us. Each
+// element is computed alone, so a shape gives the same bits every run and
+// in every launch layout.
+//
+// kl_rows_grad: a thread takes a float4 of each input (scalars when D % 4
+// != 0 or a pointer is not 16-byte aligned), elements grid-strided over a
+// fixed number of blocks.
+//
+// bce_rows_grad takes its launch from the caller (kernels.py's
+// bce_grad_plan). At the train shapes it sits about a microsecond above an
+// empty launch, so what costs is the chain a thread runs before its loads.
+// The grid is 3-D, (chunk of a row, target row, term), so a thread's logits
+// row, target row and g[row] come from blockIdx and threadIdx by one
+// multiply-add: no divide stands before a load (a 64-bit divide in front of
+// each float4 costs about as much as the data at these shapes). A row
+// of more than 128 units takes blocks of 128 threads a chunk; a shorter
+// row takes as many lanes as it has units and a block as many rows as fill
+// whole warps, so CelebA's attribute rows (D = 1) take a thread a row with
+// no idle lane. One unit a thread: at every path shape more blocks beat
+// 2 or 4 units a thread in flight (PERF.md section 6).
 //
 // C interface (bound with ctypes): each function launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() of its launch.
@@ -71,6 +86,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -319,37 +336,43 @@ __global__ void kl_rows_grad_kernel(const float* __restrict__ mu,
   }
 }
 
-// BCE's gradient in the logits: element i of the (n, d) rows, its target
-// read through the row map.
+__device__ __forceinline__ float4 bce_dlogit(float g, float4 l, float4 x) {
+  return make_float4(bce_dlogit(g, l.x, x.x), bce_dlogit(g, l.y, x.y),
+                     bce_dlogit(g, l.z, x.z), bce_dlogit(g, l.w, x.w));
+}
+
 template <bool kVec>
-__global__ void bce_rows_grad_kernel(const float* __restrict__ logits,
-                                     const float* __restrict__ x,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ dlogits,
-                                     long long n_elems, int n, int d, int n_x,
-                                     int fold) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (kVec) {
-    const int d4 = d / 4;
-    const float4* l4 = reinterpret_cast<const float4*>(logits);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* dl4 = reinterpret_cast<float4*>(dlogits);
-    for (long long i = first; i < n_elems / 4; i += stride) {
-      const int row = static_cast<int>(i / d4);
-      const long long col = i - static_cast<long long>(row) * d4;
+using GradUnit = typename std::conditional<kVec, float4, float>::type;
+
+// BCE's gradient in the logits. A unit is a float4 (kVec) or a float of a
+// row of `units` units, one a thread. The grid walks (chunk of a row,
+// target row b, term t): blockIdx.x the chunks of blockDim.x units,
+// blockIdx.y * blockDim.y + threadIdx.y the target rows, blockIdx.z the
+// terms, each axis strided by its grid. The logits row is t * n_x + b
+// (t-major, or no fold at k == 1) or b * k + t (b-major): a multiply, so no
+// divide stands before a load, and a thread issues its three loads (g, the
+// logits, the target) before its first arithmetic.
+template <bool kVec>
+__global__ void __launch_bounds__(1024)
+    bce_rows_grad_kernel(const float* __restrict__ logits, const float* __restrict__ x,
+                         const float* __restrict__ g, float* __restrict__ dlogits,
+                         int units, int n_x, int k, int fold_b) {
+  using Unit = GradUnit<kVec>;
+  const Unit* l = reinterpret_cast<const Unit*>(logits);
+  const Unit* t_rows = reinterpret_cast<const Unit*>(x);
+  Unit* out = reinterpret_cast<Unit*>(dlogits);
+  for (int t = blockIdx.z; t < k; t += gridDim.z) {
+    for (int b = blockIdx.y * blockDim.y + threadIdx.y; b < n_x;
+         b += gridDim.y * blockDim.y) {
+      const int row = fold_b ? b * k + t : t * n_x + b;
       const float gr = g[row];
-      const float4 a = l4[i];
-      const float4 b = x4[static_cast<long long>(target_row(row, n, n_x, fold)) * d4 + col];
-      dl4[i] = make_float4(bce_dlogit(gr, a.x, b.x), bce_dlogit(gr, a.y, b.y),
-                           bce_dlogit(gr, a.z, b.z), bce_dlogit(gr, a.w, b.w));
-    }
-  } else {
-    for (long long i = first; i < n_elems; i += stride) {
-      const int row = static_cast<int>(i / d);
-      const long long col = i - static_cast<long long>(row) * d;
-      dlogits[i] = bce_dlogit(
-          g[row], logits[i], x[static_cast<long long>(target_row(row, n, n_x, fold)) * d + col]);
+      const Unit* lr = l + static_cast<size_t>(row) * units;
+      const Unit* xr = t_rows + static_cast<size_t>(b) * units;
+      Unit* dr = out + static_cast<size_t>(row) * units;
+      for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < units;
+           c += gridDim.x * blockDim.x) {
+        dr[c] = bce_dlogit(gr, lr[c], xr[c]);
+      }
     }
   }
 }
@@ -371,6 +394,9 @@ int n_blocks(int n) {
   const int b = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   return b < kMaxBlocks ? b : kMaxBlocks;
 }
+
+constexpr int kMaxGridYZ = 65535;
+constexpr long long kIntEnd = 1LL << 31;
 
 }  // namespace
 
@@ -444,23 +470,39 @@ extern "C" int kl_rows_grad(const float* mu, const float* lv, const float* g,
 }
 
 // logits, dlogits: (n, d); x: (n_x, d) read through the row map `fold` as
-// in bce_rows; g: (n,); all f32, contiguous.
+// in bce_rows; g: (n,); all f32, contiguous. The plan: blocks of `threads`
+// threads (a multiple of 32, at most 1024), `lanes` of them along a row
+// (threads / lanes rows a block), a unit a thread (units: float4s where d %
+// 4 == 0 and every pointer is 16-byte aligned, else floats), a grid of
+// (grid_x, grid_y, grid_z) blocks (y and z at most 65,535), every axis
+// strided by its grid.
 extern "C" int bce_rows_grad(const float* logits, const float* x, const float* g,
-                             float* dlogits, int n, int d, int n_x, int fold,
+                             float* dlogits, int n, int d, int n_x, int fold, int threads,
+                             int lanes, int grid_x, int grid_y, int grid_z,
                              cudaStream_t stream) {
   if (n <= 0 || d <= 0 || n_x <= 0 || fold < 0 || fold > 2 || (fold == 0 && n_x != n) ||
-      (fold != 0 && n % n_x != 0)) {
+      (fold != 0 && n % n_x != 0) || threads < kWarp || threads > 1024 ||
+      threads % kWarp != 0 || lanes < 1 || threads % lanes != 0 || grid_x < 1 ||
+      grid_y < 1 || grid_y > kMaxGridYZ || grid_z < 1 || grid_z > kMaxGridYZ) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_elems = static_cast<long long>(n) * d;
   const bool vec = d % 4 == 0 && aligned16(logits) && aligned16(x) && aligned16(dlogits);
-  const int blocks = grad_blocks(vec ? n_elems / 4 : n_elems);
+  const int units = vec ? d / 4 : d;
+  const int k = n / n_x;
+  const int rows = threads / lanes;
+  // The indices the kernel strides to stay below 2^31.
+  if (units + static_cast<long long>(grid_x) * lanes >= kIntEnd ||
+      n_x + static_cast<long long>(grid_y) * rows >= kIntEnd ||
+      k + static_cast<long long>(grid_z) >= kIntEnd) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, grid_y, grid_z), block(lanes, rows);
   if (vec) {
-    bce_rows_grad_kernel<true><<<blocks, kGradThreads, 0, stream>>>(
-        logits, x, g, dlogits, n_elems, n, d, n_x, fold);
+    bce_rows_grad_kernel<true><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
+                                                           k, fold == 2);
   } else {
-    bce_rows_grad_kernel<false><<<blocks, kGradThreads, 0, stream>>>(
-        logits, x, g, dlogits, n_elems, n, d, n_x, fold);
+    bce_rows_grad_kernel<false><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
+                                                            k, fold == 2);
   }
   return static_cast<int>(cudaGetLastError());
 }

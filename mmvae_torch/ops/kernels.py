@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -86,6 +87,8 @@ __all__ = [
     "kl_rows_grad_torch",
     "bernoulli_nll_kernel",
     "bernoulli_nll_torch",
+    "BceGradPlan",
+    "bce_grad_plan",
     "bce_rows_grad_kernel",
     "bce_rows_grad_torch",
     "masked_seq_ce_kernel",
@@ -145,7 +148,8 @@ _SIGNATURES = {
         "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
         "kl_rows_grad": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr],
-        "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
+        "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                          _i32, _ptr],
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
@@ -441,13 +445,72 @@ def bernoulli_nll_torch(
     return _bce_plain(logits, tile_rows(x, logits.shape[0], fold), 1)
 
 
+GRID_YZ_MAX = 65535  # gridDim.y and gridDim.z
+# A row of more than BCE_GRAD_LANES units is cut into chunks of that many,
+# a block a chunk; a shorter row takes as many lanes as it has units, and a
+# block of about BCE_GRAD_THREADS threads as many rows as fill whole warps.
+# ``kernel_plans.py`` measured both on the H100 (PERF.md, section 6).
+BCE_GRAD_LANES = 128
+BCE_GRAD_THREADS = 128
+
+
+class BceGradPlan(NamedTuple):
+    """Launch of ``bce_rows_grad``: threads a block, lanes (the threads
+    along a row, a unit each; a block holds threads // lanes rows), and the
+    grid: x the chunks of a row, y the groups of target rows, z the
+    terms."""
+
+    threads: int
+    lanes: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+
+
+def bce_grad_units(d: int) -> int:
+    """Units of a row of ``bce_rows_grad``: float4s where ``d % 4 == 0``,
+    else floats (the kernel takes floats also where a view is not 16-byte
+    aligned)."""
+    return d // 4 if d % 4 == 0 else d
+
+
+def bce_grad_plan(
+    n: int, d: int, n_x: int | None = None, threads: int | None = None,
+    lanes: int | None = None,
+) -> BceGradPlan:
+    """The launch of K2's VJP for ``n`` rows of ``d`` against ``n_x``
+    target rows (``n`` by default).
+
+    A unit a thread. A row of more than 128 units takes blocks of 128
+    lanes, a chunk of the row each (MNIST's 196 float4s: two chunks); a
+    shorter row takes as many lanes as it has units (CelebA's attribute
+    rows: one), and a block the fewest rows of lanes that fill whole warps,
+    repeated up to about 128 threads. The grid is (chunks of a row, groups
+    of target rows up to 65,535, terms ``n // n_x`` up to 65,535); the
+    kernel strides past it. The rule takes no SM count: the grid follows
+    the shape, and the card runs as many blocks at once as it holds.
+    ``threads`` and ``lanes`` override the choice; ``kernel_plans.py``
+    times the alternatives."""
+    n_x = n if n_x is None else n_x
+    units = bce_grad_units(d)
+    if lanes is None:
+        lanes = units if units <= 32 else min(BCE_GRAD_LANES, -(-units // 32) * 32)
+    whole = lanes * 32 // math.gcd(lanes, 32)  # the fewest rows of lanes in whole warps
+    threads = whole * max(1, (threads or BCE_GRAD_THREADS) // whole)
+    rows = threads // lanes
+    return BceGradPlan(threads, lanes, -(-units // lanes), min(-(-n_x // rows), GRID_YZ_MAX),
+                       min(n // n_x, GRID_YZ_MAX))
+
+
 def bce_rows_grad_kernel(
-    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE
+    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE,
+    plan: BceGradPlan | None = None,
 ) -> torch.Tensor:
     """K2's VJP in the logits on ``(N, D)`` f32 CUDA rows: ``g[r] *
     (sigmoid(logits[r]) - x[map(r)])``, as ``_bce_bwd``, with ``x`` and
     ``fold`` as :func:`bernoulli_nll_kernel` takes them (the tiled copy is
-    never made) and ``g`` the ``(N,)`` upstream gradient."""
+    never made) and ``g`` the ``(N,)`` upstream gradient, in the launch
+    :func:`bce_grad_plan` gives the shape (or ``plan``)."""
     _check_rows("logits", logits)
     _check_rows("x", x)
     if x.shape[1] != logits.shape[1] or x.device != logits.device:
@@ -467,9 +530,10 @@ def bce_rows_grad_kernel(
     out = torch.empty_like(logits)
     if out.numel() == 0:
         return out
+    plan = plan or bce_grad_plan(n, d, n_x)
     _launch(
         "row_reduce", "bce_rows_grad", logits.device, logits.data_ptr(), x.data_ptr(),
-        g.data_ptr(), out.data_ptr(), n, d, n_x, fold,
+        g.data_ptr(), out.data_ptr(), n, d, n_x, fold, *plan,
     )
     LAUNCHES["bce_bwd"] += 1
     return out

@@ -1,7 +1,7 @@
 """The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``), K4
 (``conv_plan``), the fused PoE + KL (``poe_kl_plan``) and the backward
-kernels of K3 (``seq_ce_grad_plan``) and of the fused PoE + KL
-(``poe_kl_bwd_plan``), on the CPU.
+kernels of K2 (``bce_grad_plan``), K3 (``seq_ce_grad_plan``) and the
+fused PoE + KL (``poe_kl_bwd_plan``), on the CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
@@ -201,7 +201,8 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
      ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
      ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan),
      ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan),
-     ("seq_ce", "seq_ce_rows_grad", 9, kernels.SeqCeGradPlan)],
+     ("seq_ce", "seq_ce_rows_grad", 9, kernels.SeqCeGradPlan),
+     ("row_reduce", "bce_rows_grad", 8, kernels.BceGradPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -420,3 +421,96 @@ def test_seq_ce_grad_plan_refuses_a_staged_chunk_above_48kb():
     with pytest.raises(ValueError, match="shared memory"):
         kernels.seq_ce_grad_plan(8, 600, 23, path=kernels.SEQ_GRAD_STAGED)
     assert kernels.seq_ce_grad_plan(8, 300, 23, path=kernels.SEQ_GRAD_STAGED).examples == 1
+
+
+# (N, D, n_x) of K2's VJP: every shape ``chip_smoke.py`` times and checks
+# (the MNIST and MultiMNIST train rows, CelebA's image rows in each fold and
+# its attribute rows, D off a multiple of 4, more target rows than a grid
+# axis holds), 70,000 rows of an image, one row.
+BCE_GRAD_SHAPES = [(200, 784, 100), (300, 2500, 100), (128, 12288, 64), (200, 784, 200),
+                   (21888, 1, 1152), (36, 1002, 18), (70000, 3, 70000), (70000, 784, 70000),
+                   (70000, 784, 35000), (128, 12288, 128), (1, 5, 1)]
+
+
+def _bce_grad_plans(n: int, d: int, n_x: int) -> list:
+    """The picked plan and, at 32 threads and at 1,024, the rule's lanes, a
+    block a chunk of the row and a power of two of lanes."""
+    pow2 = 1 << max(0, kernels.bce_grad_units(d) - 1).bit_length()
+    plans = [kernels.bce_grad_plan(n, d, n_x)]
+    plans += [kernels.bce_grad_plan(n, d, n_x, threads, lanes)
+              for threads in (32, 1024) for lanes in (None, threads, min(pow2, threads))]
+    return list(dict.fromkeys(plans))
+
+
+def _axis_count(size: int, grid: int, block: int) -> np.ndarray:
+    """How often each index below ``size`` is taken along one axis of
+    ``bce_rows_grad_kernel``: block i's thread j takes ``i * block + j``,
+    then ``grid * block`` further on while below ``size``."""
+    count = np.zeros(size, dtype=np.int64)
+    first = np.arange(grid * block)
+    for j in range(-(-size // (grid * block))):
+        i = first + j * grid * block
+        np.add.at(count, i[i < size], 1)
+    return count
+
+
+@pytest.mark.parametrize("shape", BCE_GRAD_SHAPES)
+def test_bce_grad_plan_is_a_valid_launch(shape):
+    """Threads whole warps, at most 1,024, a whole number of rows of lanes;
+    grid y and z within 65,535; the indices the kernel strides to stay
+    below 2^31, as the C entry checks."""
+    n, d, n_x = shape
+    for plan in _bce_grad_plans(n, d, n_x):
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+        assert plan.threads % plan.lanes == 0
+        assert plan.grid_x >= 1 and 1 <= plan.grid_y <= 65535 and 1 <= plan.grid_z <= 65535
+        rows = plan.threads // plan.lanes
+        assert d + plan.grid_x * plan.lanes < 2**31
+        assert n_x + plan.grid_y * rows < 2**31 and n // n_x + plan.grid_z < 2**31
+
+
+@pytest.mark.parametrize(
+    "shape, plan",
+    [((200, 784, 100), (128, 128, 2, 100, 2)), ((300, 2500, 100), (128, 128, 5, 100, 3)),
+     ((128, 12288, 64), (128, 128, 24, 64, 2)), ((21888, 1, 1152), (128, 1, 1, 9, 19)),
+     ((36, 1002, 18), (128, 128, 8, 18, 2)), ((70000, 3, 70000), (96, 3, 1, 2188, 1)),
+     ((70000, 784, 70000), (128, 128, 2, 65535, 1)), ((800, 52, 800), (416, 13, 1, 25, 1))],
+)
+def test_bce_grad_plan_picks(shape, plan):
+    """MNIST's 196 float4s a row take two chunks of 128 lanes, MultiMNIST's
+    625 five, CelebA's image rows 24, the terms on grid z; a D off a
+    multiple of 4 counts floats (1,002: 8 chunks); CelebA's attribute rows
+    take a lane each, 128 rows a block; rows of 3 floats take 3 lanes, 32
+    rows in a block of 96; 70,000 rows of a block each stop at 65,535 on
+    grid y (the kernel strides past it); 13 float4s take 13 lanes, 32 rows
+    in 416 threads."""
+    assert kernels.bce_grad_plan(*shape) == kernels.BceGradPlan(*plan)
+
+
+@pytest.mark.parametrize(
+    "shape, fold",
+    [((200, 784, 100), kernels.FOLD_T), ((36, 1002, 18), kernels.FOLD_B),
+     ((36, 1002, 18), kernels.FOLD_T), ((21888, 1, 1152), kernels.FOLD_T),
+     ((70000, 3, 70000), kernels.FOLD_NONE), ((70000, 784, 70000), kernels.FOLD_NONE),
+     ((12, 40, 4), kernels.FOLD_B), ((9, 13, 3), kernels.FOLD_T)],
+)
+@pytest.mark.parametrize("vec", [True, False])
+def test_bce_grad_plan_covers_every_element_once(shape, fold, vec):
+    """Every unit of every row is written exactly once, as the kernel
+    decodes the grid, in float4s and in floats (an unaligned view takes
+    floats at a plan sized for float4s), with each grid axis also cut to a
+    few blocks (the kernel strides past the grid): it walks (term t, target
+    row b, unit) on three independent axes and writes row t * n_x + b (b *
+    k + t b-major), whose target row is the fold's."""
+    n, d, n_x = shape
+    k = n // n_x
+    units = d // 4 if vec and d % 4 == 0 else d
+    for plan in _bce_grad_plans(n, d, n_x):
+        for cut in (plan, plan._replace(grid_x=1, grid_y=min(plan.grid_y, 3), grid_z=1)):
+            assert np.all(_axis_count(units, cut.grid_x, cut.lanes) == 1)
+            assert np.all(_axis_count(n_x, cut.grid_y, cut.threads // cut.lanes) == 1)
+            assert np.all(_axis_count(k, cut.grid_z, 1) == 1)
+    t, b = np.meshgrid(np.arange(k), np.arange(n_x), indexing="ij")
+    row = b * k + t if fold == kernels.FOLD_B else t * n_x + b
+    assert np.array_equal(np.sort(row.ravel()), np.arange(n))
+    assert np.array_equal(row // k if fold == kernels.FOLD_B else row % n_x, b)

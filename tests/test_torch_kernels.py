@@ -818,6 +818,70 @@ def test_bce_rows_grad_kernel_offset_view(cuda, shape):
     )
 
 
+def _bce_grad_family(n: int, d: int, n_x: int) -> list:
+    """Every plan of ``bce_rows_grad``'s family at (n, d) against n_x
+    targets: the picked one; at 32 threads and at 1,024 the rule's lanes, a
+    block a chunk of the row and a power of two of lanes; and each with its
+    grid cut to a block along x and z and to 3 along y, which the kernel
+    strides past."""
+    pow2 = 1 << max(0, kernels.bce_grad_units(d) - 1).bit_length()
+    plans = [kernels.bce_grad_plan(n, d, n_x)]
+    plans += [kernels.bce_grad_plan(n, d, n_x, threads, lanes)
+              for threads in (32, 1024) for lanes in (None, threads, min(pow2, threads))]
+    plans += [p._replace(grid_x=1, grid_y=min(p.grid_y, 3), grid_z=1) for p in plans]
+    return list(dict.fromkeys(plans))
+
+
+# (N, D, terms) of K2's VJP: MNIST's and MultiMNIST's train rows, CelebA's
+# image and attribute rows, (36, 1002) as chip_smoke.py checks it, D off a
+# multiple of 4 and more rows than a grid axis holds (65,535).
+BCE_GRAD_CASES = [(200, 784, 2), (300, 2500, 3), (128, 12288, 2), (36, 1002, 2),
+                  (21888, 1, 19), (38, 1001, 2), (70000, 3, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("fold", FOLDS)
+@pytest.mark.parametrize("case", BCE_GRAD_CASES)
+def test_bce_rows_grad_kernel_every_plan(cuda, case, fold, offset):
+    """Every plan of the family against the plain version in every fold,
+    aligned and as views one element into their storage (scalar units at a
+    plan sized for float4s); two calls give the same bits, and so does
+    every plan: each element is computed alone, in one expression."""
+    gen = torch.Generator().manual_seed(34)
+    n, d, terms = case
+    n_x = n if fold == kernels.FOLD_NONE else n // terms
+    logits = _rand(gen, n * d + offset, device=cuda, scale=3.0)[offset:].view(n, d)
+    x = torch.rand(n_x * d + offset, generator=gen).to(cuda)[offset:].view(n_x, d)
+    g = _rand(gen, n, device=cuda)
+    want = kernels.bce_rows_grad_torch(logits, x, g, fold)
+    first = None
+    for plan in _bce_grad_family(n, d, n_x):
+        got = kernels.bce_rows_grad_kernel(logits, x, g, fold, plan=plan)
+        _grad_close(got, want)
+        assert torch.equal(got, kernels.bce_rows_grad_kernel(logits, x, g, fold, plan=plan))
+        first = got if first is None else first
+        assert torch.equal(got, first), plan
+
+
+@pytest.mark.gpu
+def test_bce_rows_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """Threads off a warp or above 1,024, lanes that do not divide the
+    block, and a grid axis empty or past 65,535 are refused at launch and
+    count no launch."""
+    gen = torch.Generator().manual_seed(35)
+    logits, x = _bce_inputs(gen, 64, 784, kernels.FOLD_T, cuda)
+    g = _rand(gen, 64, device=cuda)
+    good = kernels.bce_grad_plan(64, 784, 32)
+    before = kernels.LAUNCHES["bce_bwd"]
+    for bad in (good._replace(threads=48, lanes=48), good._replace(threads=2048, lanes=2048),
+                good._replace(threads=256, lanes=96), good._replace(lanes=0),
+                good._replace(grid_x=0), good._replace(grid_y=65536), good._replace(grid_z=0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_T, plan=bad)
+    assert kernels.LAUNCHES["bce_bwd"] == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
                                    (3, 40, 1001), (5, 3, 31), (3, 1, 2), (1000, 7, 13),
