@@ -39,23 +39,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
    generated at temperature 0 equal);
    - ``mnist`` training: ``api.train`` for one epoch at full width (100
      steps of batch 100 over the 10,000-example train split, then the test
-     ELBO), launching the fused PoE + KL and K2 forward 120 times each and
-     their backward kernels 100 times each; its first-epoch test ELBO below
-     the untrained model's; three steps of ``make_train_step`` on the card
-     and on the CPU from the same weights, noise and batches (the loss
-     each step at rel 1e-4, every parameter tensor at a relative 2-norm of
-     1e-4); the train samples/s of a timed epoch and a profile of one step;
+     ELBO) on the CUDA-graph runners (each epoch and each eval split
+     replays of one captured step), launching the fused PoE + KL and K2
+     forward 120 times each and their backward kernels 100 times each,
+     counted by the wrappers through the replays; its first-epoch test
+     ELBO below the untrained model's; then the graph runner against the
+     eager loop from the same weights, noise seed and batches over an
+     epoch (loss and gradient norm each step, every parameter: rel 1e-6,
+     and whether the bits are equal), two epochs of each timed in turns
+     (train samples/s; the first calls too; what the capture adds), a profiled graph epoch (its
+     idle share and device events a step; the profiler's count of each
+     kernel's launches equal to the wrappers') and a profiled eager step
+     with the card's capturable Adam and the CPU's plain one; three steps of the graph
+     runner on the card against the eager loop on the CPU from the same
+     weights, noise and batches (the loss each step at rel 1e-4, every
+     parameter tensor at a relative 2-norm of 1e-4);
    - ``multimnist`` training (cross-recon, the cycle term on the soft and
      the thresholded render, clipping at 500): ``api.train`` for one epoch
      at full width over a train split cut to 2,000 examples (20 steps of
-     batch 100, then the test ELBO), launching the fused PoE + KL 80
-     times, K2 40, K3 80 and their backward kernels 60, 20 and 60; its
-     first-epoch test ELBO below the untrained model's; three steps on the
-     card and on the CPU at batch 20 under the same gates, with the render
-     pixels that land on other sides of 0.5 reported; the train samples/s
-     of a timed epoch and a profile of one step;
+     batch 100, then the test ELBO) on the graph runners, launching the
+     fused PoE + KL 80 times, K2 40, K3 80 and
+     their backward kernels 60, 20 and 60; its first-epoch test ELBO below
+     the untrained model's; the graph against the eager loop, timed in
+     turns (one epoch each after the first calls), and profiled, as for
+     ``mnist``; three steps at batch 20 on
+     cuDNN's deterministic algorithms of the graph runner against the
+     eager loop on the card (rel 1e-6) and against the CPU under the same
+     gates as ``mnist`` (rel 1e-4), with the render pixels that land on
+     other sides of 0.5 reported;
+   - a workdir: ``mnist`` at full width over a train split cut to 2,000
+     trained 2 epochs into a temporary workdir and resumed for a third,
+     against an uninterrupted 3-epoch run (rel 1e-6);
+     ``eval_elbo`` from the workdir against the best epoch's recorded test
+     ELBO (rel 1e-6), and ``generate`` and ``sample`` from it;
 4. timings: each kernel and its plain version on the device (CUDA-graph
-   replay, median of 50) and eagerly (host overhead included), the
+   replay, median of 25) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
    kernel and the library call again L2-cold where the inputs fit in the
    50 MB L2 (the graph cycles through 6 to 512 copies of the inputs,
@@ -63,9 +81,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    launches it replaced (the mask product, ``core.product_of_experts``,
    then K1); the floor of an empty launch at K1's, K4's and the fused
    kernel's grids and at one warp, graph-replayed and eager; and for each
-   config the wall time of one ``eval_elbo`` and a profile of where its
-   device time goes (its device busy time with and without the
-   host-to-device copies, whose pageable upload varies run to run). The
+   config the eval wall of its test split through a graph runner built
+   once and through the eager loop, in turns, ``eval_elbo``'s own wall
+   (a capture each call) and a profile of where each runner's device time
+   goes (its device busy time with and without the host-to-device
+   copies). The
    backward kernels are timed at MNIST's and MultiMNIST's train shapes
    beside their plain versions and the autograd backward of the library
    forward.
@@ -76,11 +96,15 @@ summary, and as the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -92,7 +116,12 @@ from mmvae_torch.core import elbo_subset_masks
 from mmvae_torch.data import load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
-from mmvae_torch.train import create_train_state, make_epoch_runner, make_train_step
+from mmvae_torch.train import (
+    create_train_state,
+    make_epoch_runner,
+    make_eval_runner,
+    make_train_step,
+)
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate, L2 size, the f32 rate outside the
@@ -347,10 +376,27 @@ PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_th
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
                 "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel")
+# The launch count each of them adds to: one wrapper call launches one of
+# its kernels.
+KERNEL_OP = {"kl_rows_kernel": "kl", "bce_rows_kernel": "bce", "bce_split_kernel": "bce",
+             "bce_thread_rows_kernel": "bce", "seq_ce_tokens_kernel": "seq_ce",
+             "conv_s2_tiles_kernel": "conv", "poe_kl_kernel": "poe_kl",
+             "kl_rows_grad_kernel": "kl_bwd", "bce_rows_grad_kernel": "bce_bwd",
+             "seq_ce_grad_kernel": "seq_ce_bwd", "seq_ce_grad_staged_kernel": "seq_ce_bwd",
+             "seq_ce_grad_warp_kernel": "seq_ce_bwd", "poe_kl_bwd_kernel": "poe_kl_bwd"}
 PAD = 0
+# Replays (of 20 calls) or eager rounds a kernel timing takes the median of.
+REPS = 25
+
+
+START = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a result line carries ``t_s``, its seconds since the
+    start of the run."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -830,13 +876,10 @@ def train_batches(n_steps: int, bs: int, device, seed: int = 0,
             for k, v in train.arrays.items()}
 
 
-def phase_train() -> dict[str, int]:
-    """``api.train`` of ``mnist`` for one epoch at full width with the
-    "kernel" backend and the launch counts set to 0 just before and read
-    just after; then a timed epoch, a profiled step and the card against
-    the CPU over three steps."""
-    cfg = configs.get_config("mnist").replace(epochs=1)
-    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+def train_counted(cfg) -> tuple:
+    """``api.train`` of ``cfg`` (seed 0) with the "kernel" backend and the
+    launch counts set to 0 just before and read just after (the replays'
+    launches included): the result, the counts and the wall."""
     ops.set_backend("kernel")
     try:
         for k in kernels.LAUNCHES:
@@ -848,66 +891,186 @@ def phase_train() -> dict[str, int]:
         launches = dict(kernels.LAUNCHES)
     finally:
         ops.set_backend("auto")
+    expected = EXPECTED_LAUNCHES[f"{cfg.name}_train"]
+    if launches != expected:
+        raise AssertionError(f"{cfg.name}_train: expected launches {expected}, got {launches}")
+    return result, launches, wall_s
+
+
+def profile_counted(fn, attempts: int = 3) -> tuple[dict, list]:
+    """``profile_summary`` of ``fn`` whose per-kernel launch counts, as the
+    profiler saw them (the replays' kernels are device events too, so the
+    counts are not bookkeeping alone), equal the wrappers' over the same
+    call. The profiler can lose records: an H100 run once saw 97 of 100
+    replays' kernels in a profile, so a mismatch profiles ``fn`` again, up
+    to ``attempts`` times; every attempt's counts are returned, and none
+    matching raises."""
+    seen = []
+    for _ in range(attempts):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        summary = profile_summary(fn)
+        seen.append(summary["port_launches"])
+        if summary["port_launches"] == kernels.LAUNCHES:
+            return summary, seen
+    raise AssertionError(
+        f"the profiler counted {seen}, the wrappers {dict(kernels.LAUNCHES)}")
+
+
+def phase_train() -> dict[str, int]:
+    """``api.train`` of ``mnist`` for one epoch at full width on the graph
+    runners (the launch counts through the replays, and the profiler's);
+    then the graph against the eager loop (``train_rate``), a profiled
+    step and the card against the CPU over three steps."""
+    cfg = configs.get_config("mnist").replace(epochs=1)
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    result, launches, wall_s = train_counted(cfg)
     record = result.history[0]
     emit({"phase": "train", "config": "mnist", "epochs": 1, "steps": result.state.step,
           "train_loss": record["train_loss"], "test_elbo": record["test_elbo"],
           "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
-    if launches != EXPECTED_LAUNCHES["mnist_train"]:
-        raise AssertionError(
-            f"mnist_train: expected launches {EXPECTED_LAUNCHES['mnist_train']}, got {launches}")
     if result.state.step != 100 or not all(map(math.isfinite, record.values())):
         raise AssertionError(f"train: {result.state.step} steps, history {record}")
     if not record["test_elbo"] < untrained:
         raise AssertionError(
             f"train: test ELBO {record['test_elbo']} not below the untrained {untrained}")
-    train_rate(result.state, cfg)
+    train_rate(cfg, 100, rounds=2, profiled_steps=20)
     train_card_vs_cpu()
     return launches
 
 
-def train_rate(state, cfg) -> None:
-    """Train samples/s of an epoch of 100 steps of batch 100 (host clock
-    from a sync to a sync, twice), and a profile of one step."""
-    batches = train_batches(100, cfg.batch_size, "cuda", seed=1)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    runner = make_epoch_runner(state.model, annealing_steps=1000, generator=gen)
-    walls = []
-    for _ in range(2):
+def run_metrics(metrics: dict) -> tuple[list, list]:
+    return metrics["loss"].tolist(), metrics["grad_norm"].tolist()
+
+
+def graph_vs_eager(runs: dict) -> dict:
+    """Graph against eager on the card: the largest relative difference of
+    the loss and the raw gradient norm of any step and of any parameter
+    (its 2-norm), and whether every bit is equal."""
+    (g_metrics, g_model), (e_metrics, e_model) = runs["graph"], runs["eager"]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else (a - b).norm().item()
+
+    step_rel = max(((g_metrics[k] - e_metrics[k]).abs() / e_metrics[k].abs()).max().item()
+                   for k in ("loss", "grad_norm"))
+    param_rel = max(rel(a, b) for a, b in zip(g_model.parameters(), e_model.parameters()))
+    bits = (all(torch.equal(g_metrics[k], e_metrics[k]) for k in e_metrics)
+            and all(torch.equal(a, b) for a, b in zip(g_model.parameters(), e_model.parameters())))
+    return {"step_rel_max": step_rel, "param_rel_max": param_rel, "bits_equal": bits}
+
+
+def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool = True) -> None:
+    """The graph runner and the eager loop from the same seed-0 weights,
+    generator seed and ``n_steps`` batches of the train split: their first
+    epochs compared (gated at rel 1e-6 when ``gate``), then ``rounds``
+    epochs of each timed in turns (train samples/s, host clock from a sync to a
+    sync); the graph's first call (its first step eager, the capture, the
+    replays) less a later call is what the capture adds. Then a profile of
+    a graph epoch of ``profiled_steps`` steps (its idle share, device events
+    a step, and the profiler's kernel counts against the wrappers'), and of
+    one eager step with the card's capturable Adam (for ``mnist`` also with
+    the CPU's plain one)."""
+    name, bs = cfg.name, cfg.batch_size
+    batches = train_batches(n_steps, bs, "cuda", seed=1, config=name)
+    runners, first, runs = {}, {}, {}
+    for kind in ("graph", "eager"):
+        model = configs.build_model(cfg, seed=0)
+        state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip,
+                                   ema_decay=cfg.ema_decay)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        runner = make_epoch_runner(model, graph=kind == "graph", annealing_steps=1000,
+                                   generator=gen, **api.step_options(cfg))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = runner(state, batches)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    if not torch.isfinite(metrics["loss"]).all():
-        raise AssertionError("train: a non-finite loss in the timed epoch")
-    emit({"phase": "train_rate", "config": "mnist", "steps": 100, "batch": cfg.batch_size,
-          "wall_s": walls, "samples_per_s": [100 * cfg.batch_size / w for w in walls]})
-    step = make_train_step(state.model, annealing_steps=1000, generator=gen)
+        first[kind] = time.perf_counter() - t0
+        runners[kind] = (runner, state)
+        runs[kind] = (metrics, model)
+    compared = graph_vs_eager(runs)
+    emit({"phase": "train_graph_vs_eager", "config": name, "steps": n_steps, "batch": bs,
+          "cudnn": "default algorithms", "gated": gate, **compared})
+    if gate and not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
+        raise AssertionError(f"{name}: graph and eager epochs differ: {compared}")
+    walls = {"graph": [], "eager": []}
+    for _ in range(rounds):
+        for kind, (runner, state) in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = runner(state, batches)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            if not torch.isfinite(metrics["loss"]).all():
+                raise AssertionError(f"{name} train: a non-finite loss in a timed epoch")
+    samples = n_steps * bs
+    emit({"phase": "train_rate", "config": name, "steps": n_steps, "batch": bs,
+          "wall_s": walls, "samples_per_s": {k: [samples / w for w in v] for k, v in walls.items()},
+          "first_call_wall_s": first,
+          "first_call_samples_per_s": {k: samples / w for k, w in first.items()},
+          "capture_added_s": first["graph"] - statistics.median(walls["graph"])})
+    # The profile: replays of a graph of the same step over the first
+    # ``profiled_steps`` batches (the profiler's cost grows with its events).
+    _, state = runners["graph"]
+    head = {k: v[:profiled_steps] for k, v in batches.items()}
+    runner = make_epoch_runner(state.model, annealing_steps=1000,
+                               generator=torch.Generator(device="cuda").manual_seed(2),
+                               **api.step_options(cfg))
+    runner(state, head)
+    ops.set_backend("kernel")
+    try:
+        summary, seen = profile_counted(lambda: runner(state, head))
+    finally:
+        ops.set_backend("auto")
+    busy = summary["device_busy_us"]
+    per_step = busy / profiled_steps if busy != "not measured" else busy
+    # The profiler's window carries its own cost (its first replay of a
+    # graph under tracing): the epoch's idle share is also read from the
+    # unprofiled graph epochs' walls against the profiled busy time a step.
+    emit({"phase": "train_graph_profile", "config": name, "steps": profiled_steps,
+          "wrapper_launches": dict(kernels.LAUNCHES), "profiler_launches_by_attempt": seen,
+          "device_busy_us_per_step": per_step,
+          "device_events_per_step": summary["device_events"] / profiled_steps,
+          "epoch_idle_share_unprofiled": (
+              1 - per_step * n_steps / (1e6 * statistics.median(walls["graph"]))
+              if busy != "not measured" else busy),
+          **summary})
+    step = make_train_step(state.model, annealing_steps=1000,
+                           generator=torch.Generator(device="cuda").manual_seed(2),
+                           **api.step_options(cfg))
     batch = {k: v[0] for k, v in batches.items()}
     step(state, batch)
-    emit({"phase": "train_step_profile", "config": "mnist",
+    emit({"phase": "train_step_profile", "config": name, "adam": "capturable",
           **profile_summary(lambda: step(state, batch))})
+    if name == "mnist":
+        # The same eager step with the CPU's Adam (not capturable, its step
+        # counts on the host): what the capturable form costs on the device.
+        plain = dataclasses.replace(state, optimizer=torch.optim.Adam(
+            state.model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8))
+        step(plain, batch)
+        emit({"phase": "train_step_profile", "config": name, "adam": "plain",
+              **profile_summary(lambda: step(plain, batch))})
 
 
 def train_card_vs_cpu(n_steps: int = 3) -> None:
-    """``n_steps`` of ``make_train_step`` on the card (its kernels) and on
-    the CPU from the same seeded weights, noise and batches, each at rel
-    1e-4 (CPU and card matmuls round differently): the loss and the raw
-    gradients' global norm each step (Adam would hide a gradient off by a
-    constant factor; the norm does not), and every parameter tensor after,
-    both its difference against its own 2-norm and against the 2-norm of
-    its update over the run."""
+    """``n_steps`` of the ``mnist`` epoch runner on the card (the graph
+    runner, its kernels) and on the CPU (the eager loop) from the same
+    seeded weights, noise and batches, each at rel 1e-4 (CPU and card
+    matmuls round differently; the card's Adam is the capturable one): the
+    loss and the raw gradients' global norm each step (Adam would hide a
+    gradient off by a constant factor; the norm does not), and every
+    parameter tensor after, both its difference against its own 2-norm
+    and against the 2-norm of its update over the run."""
     batches = train_batches(n_steps, 100, "cpu", seed=2)
-    eps = torch.randn((n_steps, 3, 100, 64), generator=torch.Generator().manual_seed(3))
+    batches["eps"] = torch.randn((n_steps, 3, 100, 64), generator=torch.Generator().manual_seed(3))
     init = dict(configs.build_model("mnist", seed=0, device="cpu").named_parameters())
     runs = {}
     for dev in ("cuda", "cpu"):
         model = configs.build_model("mnist", seed=0, device=dev)
         state = create_train_state(model, 1e-3)
-        step = make_train_step(model, annealing_steps=1000)
-        metrics = [step(state, {k: v[i].to(dev) for k, v in batches.items()},
-                        eps=eps[i].to(dev))[1] for i in range(n_steps)]
-        runs[dev] = ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
+        runner = make_epoch_runner(model, annealing_steps=1000)
+        _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
+        runs[dev] = (*run_metrics(metrics),
                      {k: p.detach().cpu() for k, p in model.named_parameters()})
     (card_l, card_g, card_p), (cpu_l, cpu_g, cpu_p) = runs["cuda"], runs["cpu"]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)]
@@ -916,9 +1079,11 @@ def train_card_vs_cpu(n_steps: int = 3) -> None:
     update_rel = {k: ((card_p[k] - w).norm() / (w - init[k]).norm()).item()
                   for k, w in cpu_p.items()}
     emit({"phase": "train_card_vs_cpu", "config": "mnist", "steps": n_steps,
+          "card": "graph runner", "cpu": "eager loop",
           "loss_card": card_l, "loss_cpu": cpu_l, "loss_rel": loss_rel,
           "grad_norm_card": card_g, "grad_norm_cpu": cpu_g, "grad_norm_rel": grad_norm_rel,
           "param_rel_max": max(param_rel.values()), "update_rel_max": max(update_rel.values()),
+          "update_rel_top": sorted(update_rel.items(), key=lambda kv: -kv[1])[:3],
           "param_max_abs_err": max((card_p[k] - w).abs().max().item() for k, w in cpu_p.items())})
     worst = max(max(loss_rel), max(grad_norm_rel), max(param_rel.values()),
                 max(update_rel.values()))
@@ -934,59 +1099,29 @@ MULTIMNIST_TRAIN_SIZE = 2000  # one epoch of 20 steps of batch 100
 def phase_multimnist_train() -> dict[str, int]:
     """``api.train`` of ``multimnist`` (cross-recon, the cycle term on both
     render forms, clipping at 500) for one epoch at full width over a train
-    split cut to 2,000 examples, with the "kernel" backend and the launch
-    counts set to 0 just before and read just after; then a timed epoch, a
-    profiled step and the card against the CPU over three steps."""
+    split cut to 2,000 examples on the graph runners (the launch counts
+    through the replays, and the profiler's); then the graph against the
+    eager loop (``train_rate``), a profiled step and the card against the
+    CPU over three steps, where the graph is gated against the eager loop
+    on cuDNN's deterministic algorithms."""
     cfg = configs.get_config("multimnist").replace(epochs=1, train_size=MULTIMNIST_TRAIN_SIZE)
     untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
-    ops.set_backend("kernel")
-    try:
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
-        t0 = time.perf_counter()
-        result = api.train(cfg, seed=0, verbose=False)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-    finally:
-        ops.set_backend("auto")
+    result, launches, wall_s = train_counted(cfg)
     record = result.history[0]
     steps = MULTIMNIST_TRAIN_SIZE // cfg.batch_size
     emit({"phase": "train", "config": "multimnist", "epochs": 1, "steps": result.state.step,
           "train_size": MULTIMNIST_TRAIN_SIZE, "train_loss": record["train_loss"],
           "cycle_ce": record["cycle_ce"], "test_elbo": record["test_elbo"],
           "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
-    if launches != EXPECTED_LAUNCHES["multimnist_train"]:
-        raise AssertionError(
-            f"multimnist_train: expected launches {EXPECTED_LAUNCHES['multimnist_train']}, "
-            f"got {launches}")
     if result.state.step != steps or not all(map(math.isfinite, record.values())):
         raise AssertionError(f"multimnist train: {result.state.step} steps, history {record}")
     if not record["test_elbo"] < untrained:
         raise AssertionError(
             f"multimnist train: test ELBO {record['test_elbo']} not below the untrained "
             f"{untrained}")
-    batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config="multimnist")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    runner = make_epoch_runner(result.state.model, annealing_steps=1000, generator=gen,
-                               **api.step_options(cfg))
-    state, walls = result.state, []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = runner(state, batches)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    if not torch.isfinite(metrics["loss"]).all():
-        raise AssertionError("multimnist train: a non-finite loss in the timed epoch")
-    emit({"phase": "train_rate", "config": "multimnist", "steps": steps,
-          "batch": cfg.batch_size, "wall_s": walls,
-          "samples_per_s": [steps * cfg.batch_size / w for w in walls]})
-    step = make_train_step(state.model, annealing_steps=1000, generator=gen, **api.step_options(cfg))
-    batch = {k: v[0] for k, v in batches.items()}
-    step(state, batch)
-    emit({"phase": "train_step_profile", "config": "multimnist",
-          **profile_summary(lambda: step(state, batch))})
+    # cuDNN's default algorithms may sum in another order run to run: the
+    # gate is the deterministic run of multimnist_card_vs_cpu.
+    train_rate(cfg, steps, rounds=1, profiled_steps=5, gate=False)
     multimnist_card_vs_cpu(cfg)
     return launches
 
@@ -995,23 +1130,29 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
     """``n_steps`` of the ``multimnist`` step at full width and batch
     ``bs`` on the card (its kernels) and on the CPU from the same seeded
     weights, noise and batches, under ``train_card_vs_cpu``'s gates (rel
-    1e-4). The card side runs cuDNN's deterministic algorithms, and the CPU
-    side thresholds the cycle's render with the card's own 0/1 mask (as the
+    1e-4). The card runs cuDNN's deterministic algorithms, and the CPU
+    thresholds the cycle's render with the card's own 0/1 mask (as the
     noise is fed in): a render pixel within rounding of 0.5 cannot land on
-    different sides, and the reading is the same in every run. Reported
-    beside the gates: the parameters with the largest update error, the
-    render pixels the CPU's own threshold would have put on the other side
-    and the smallest |soft - 0.5|; and two controls, a repeat of the card
-    run and a card run on cuDNN's default algorithms (those ``api.train``
-    takes), each against the gated card run and the CPU."""
+    different sides, and the reading is the same in every run. The card's
+    render is read from an eager run (a graph cannot hand the host its
+    renders); the gated card run is the graph runner, itself gated against
+    that eager run at rel 1e-6 (graph against eager over the MultiMNIST
+    steps). Reported beside the gates: the parameters with the largest
+    update error, the render pixels the CPU's own threshold would have put
+    on the other side and the smallest |soft - 0.5|; and two controls, a
+    repeat of the eager card run and a card run on cuDNN's default
+    algorithms (those ``api.train`` takes), each against the gated card
+    run and the CPU."""
     from mmvae_torch.train import step as step_module
 
     batches = train_batches(n_steps, bs, "cpu", seed=2, config="multimnist")
-    eps = torch.randn((n_steps, 3, bs, cfg.n_latents), generator=torch.Generator().manual_seed(3))
+    batches["eps"] = torch.randn((n_steps, 3, bs, cfg.n_latents),
+                                 generator=torch.Generator().manual_seed(3))
     init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
     straight_through = step_module._straight_through
 
-    def run(dev: str, deterministic: bool, renders: list | None = None, fed=None):
+    def run(dev: str, deterministic: bool, renders: list | None = None, fed=None,
+            graph: bool = False):
         """Losses, raw gradient norms and parameters after ``n_steps``; the
         soft renders go to ``renders``; ``fed`` (soft renders) sets the
         0/1 mask of each step's threshold."""
@@ -1030,13 +1171,13 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
         try:
             model = configs.build_model(cfg, seed=0, device=dev)
             state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
-            step = make_train_step(model, annealing_steps=1000, **api.step_options(cfg))
-            metrics = [step(state, {k: v[i].to(dev) for k, v in batches.items()},
-                            eps=eps[i].to(dev))[1] for i in range(n_steps)]
+            runner = make_epoch_runner(model, graph=graph, annealing_steps=1000,
+                                       **api.step_options(cfg))
+            _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
         finally:
             step_module._straight_through = straight_through
             torch.backends.cudnn.deterministic = False
-        return ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
+        return (*run_metrics(metrics),
                 {k: p.detach().cpu() for k, p in model.named_parameters()})
 
     def compare(run_a, run_b) -> dict:
@@ -1050,17 +1191,27 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
                 "update_rel_max": max(update_rel.values()),
                 "update_rel_top": sorted(update_rel.items(), key=lambda kv: -kv[1])[:3],
                 "param_max_abs_err": max((p_a[k] - w).abs().max().item()
-                                         for k, w in p_b.items())}
+                                         for k, w in p_b.items()),
+                "bits_equal": l_a == l_b and g_a == g_b
+                and all(torch.equal(p_a[k], w) for k, w in p_b.items())}
 
     card_renders, cpu_renders = [], []
-    card = run("cuda", True, card_renders)
+    eager = run("cuda", True, card_renders)
+    card = run("cuda", True, graph=True)
     repeat = run("cuda", True)
     default = run("cuda", False)
     cpu = run("cpu", False, cpu_renders, fed=card_renders)
+    graph_eager = compare(card, eager)
+    emit({"phase": "train_graph_vs_eager", "config": "multimnist", "steps": n_steps, "batch": bs,
+          "cudnn": "deterministic algorithms", "gated": True, **graph_eager})
+    if not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
+               graph_eager["param_rel_max"]) <= 1e-6:
+        raise AssertionError(f"multimnist: graph and eager steps differ: {graph_eager}")
     gated = compare(card, cpu)
     flips = [int(((a > 0.5) != (b > 0.5)).sum()) for a, b in zip(card_renders, cpu_renders)]
     margins = [(b - 0.5).abs().min().item() for b in cpu_renders]
     emit({"phase": "train_card_vs_cpu", "config": "multimnist", "steps": n_steps, "batch": bs,
+          "card": "graph runner", "cpu": "eager loop",
           "loss_card": card[0], "loss_cpu": cpu[0], "grad_norm_card": card[1],
           "grad_norm_cpu": cpu[1], **gated,
           "render_pixels": cpu_renders[0].numel(), "render_flips": flips,
@@ -1075,10 +1226,52 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
             f"multimnist train: card and CPU differ: {gated}, render flips {flips}")
 
 
+def phase_workdir() -> None:
+    """``mnist`` at full width over a train split cut to 2,000 (20 steps an
+    epoch) trained into a workdir for 2 epochs and resumed for a third,
+    against an uninterrupted 3-epoch run (each epoch's train loss and test
+    ELBO, and every parameter, rel 1e-6 on the card); ``eval_elbo`` from
+    the workdir against the best epoch's recorded test ELBO (rel 1e-6);
+    ``generate`` and ``sample`` from it."""
+    cfg = configs.get_config("mnist").replace(epochs=3, train_size=2000)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = api.train(cfg, f"{tmp}/full", seed=0, verbose=False)
+        first = api.train(cfg.replace(epochs=2), f"{tmp}/split", seed=0, verbose=False)
+        resumed = api.train(cfg, f"{tmp}/split", seed=0, verbose=False, resume=True)
+        history = first.history + resumed.history
+        if [r["epoch"] for r in resumed.history] != [3]:
+            raise AssertionError(f"resume ran epochs {[r['epoch'] for r in resumed.history]}")
+        history_rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(history, full.history)
+                          for k in ("train_loss", "test_elbo"))
+        param_rel = max(((a - b).norm() / b.norm()).item() for a, b in
+                        zip(resumed.model.parameters(), full.model.parameters()))
+        best = min(r["test_elbo"] for r in history)
+        elbo = api.eval_elbo("mnist", workdir=f"{tmp}/split")
+        elbo_rel = abs(elbo - best) / abs(best)
+        gen = api.generate("mnist", {"label": [3, 5, 7]}, workdir=f"{tmp}/split")
+        smp = api.sample("mnist", n=16, workdir=f"{tmp}/split",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        listing = sorted(os.listdir(f"{tmp}/split/ckpt"))
+        with open(f"{tmp}/split/metrics.jsonl") as f:
+            n_records = sum(1 for _ in f)
+    emit({"phase": "workdir", "config": "mnist", "history": history,
+          "uninterrupted_history": full.history, "history_rel_max": history_rel,
+          "param_rel_max": param_rel, "eval_elbo_workdir": elbo, "best_test_elbo": best,
+          "eval_elbo_rel": elbo_rel, "ckpt": listing, "metrics_records": n_records})
+    if not (history_rel <= 1e-6 and param_rel <= 1e-6 and elbo_rel <= 1e-6 and n_records == 3
+            and resumed.best_test_elbo == best):
+        raise AssertionError(f"workdir: resumed run or workdir eval differ: history "
+                             f"{history_rel}, params {param_rel}, eval {elbo_rel}")
+    for out, n in ((gen, 3), (smp, 16)):
+        check_image(out["image"], n, (28, 28))
+        if not (out["label"].min() >= 0 and out["label"].max() < 10):
+            raise AssertionError("generated label out of range")
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 
-def graph_ms(calls, reps: int = 50) -> float:
+def graph_ms(calls, reps: int = REPS) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
     function that makes the list: it runs on the stream the graph is
@@ -1092,9 +1285,15 @@ def graph_ms(calls, reps: int = 50) -> float:
             call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for call in calls:
-            call()
+    # capture_begin/end rather than ``torch.cuda.graph``, which also empties
+    # the allocator's cache and collects garbage at each of these captures.
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for call in calls:
+                call()
+        finally:
+            graph.capture_end()
     times = []
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1106,7 +1305,7 @@ def graph_ms(calls, reps: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 50, inner: int = 20) -> float:
+def device_ms(fn, reps: int = REPS, inner: int = 20) -> float:
     """Device time of one call on the same inputs, ``inner`` calls a
     replay: inputs that fit in the L2 stay there."""
     return graph_ms([fn] * inner, reps)
@@ -1130,7 +1329,7 @@ def cold_ms(make_call, args, copies: int) -> float:
     return graph_ms(lambda: [make_call(a) for a in sets], reps=20)
 
 
-def eager_ms(fn, reps: int = 50, inner: int = 20) -> float:
+def eager_ms(fn, reps: int = REPS, inner: int = 20) -> float:
     """Time of one eager call, host overhead included (median of ``reps``)."""
     for _ in range(3):
         fn()
@@ -1202,26 +1401,51 @@ def phase_launch_floor() -> None:
 
 
 def phase_eval_wall(config: str) -> None:
+    """The eval of ``config``'s 2,000-example test split through a graph
+    runner built once (as ``api.train`` keeps it) and through the eager
+    loop, timed in turns (three each, to a sync); the graph's first call
+    (one batch eager, the capture, the replays); ``api.eval_elbo``'s own
+    wall, which captures anew each call; and a profile of each runner."""
     model = configs.build_model(config, seed=0)
     test = load_dataset(config, "test")
-    batches = -(-test.size // configs.get_config(config).batch_size)
-    api.eval_elbo(config, model=model, dataset=test)  # warm-up
-    walls = []
-    for _ in range(5):
+    batch_size = configs.get_config(config).batch_size
+    stacked = api._padded_split(test, batch_size, model.n_modalities, torch.device("cuda"))
+    runners = {"graph": make_eval_runner(model), "eager": make_eval_runner(model, graph=False)}
+    first = {}
+    for kind, runner in runners.items():
         t0 = time.perf_counter()
-        api.eval_elbo(config, model=model, dataset=test)  # ends in a sync
-        walls.append(1e3 * (time.perf_counter() - t0))
-    emit({"phase": "eval_wall", "config": config, "examples": test.size, "batches": batches,
-          "wall_ms_median": statistics.median(walls), "wall_ms": walls})
-    emit({"phase": "eval_profile", "config": config,
-          **profile_summary(lambda: api.eval_elbo(config, model=model, dataset=test))})
+        float(runner(stacked)["loss"].sum())
+        first[kind] = 1e3 * (time.perf_counter() - t0)
+    walls = {"graph": [], "eager": []}
+    for _ in range(3):
+        for kind, runner in runners.items():
+            t0 = time.perf_counter()
+            float(runner(stacked)["loss"].sum())  # a sync
+            walls[kind].append(1e3 * (time.perf_counter() - t0))
+    entry = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        api.eval_elbo(config, model=model, dataset=test)
+        entry.append(1e3 * (time.perf_counter() - t0))
+    emit({"phase": "eval_wall", "config": config, "examples": test.size,
+          "batches": stacked["presence"].shape[0],
+          "wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
+          "wall_ms": walls, "first_call_ms": first, "eval_elbo_wall_ms": entry})
+    for kind, runner in runners.items():
+        summary = profile_summary(lambda: runner(stacked))
+        busy = summary["device_busy_us"]
+        emit({"phase": "eval_profile", "config": config, "runner": kind,
+              "idle_share_unprofiled": (1 - busy / (1e3 * statistics.median(walls[kind]))
+                                        if busy != "not measured" else busy),
+              **summary})
 
 
 def profile_summary(fn) -> dict:
     """Where the device time of one call of ``fn`` goes: its wall (to a
     sync), device busy time with and without every host-to-device copy, the
-    idle share, the device events, the top device ops and the port's
-    kernels."""
+    idle share, the device events, the top device ops, the port's kernels,
+    and the launches of each kernel as the profiler counted them (a CUDA
+    graph's replays included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1246,6 +1470,11 @@ def profile_summary(fn) -> dict:
     # Every host-to-device copy, not only those in the top list: the
     # profiler counts the pageable upload in some evals and not others.
     h2d = sum(r[0] for r in rows if "HtoD" in r[1])
+    port_launches = {k: 0 for k in kernels.LAUNCHES}
+    for _, key, count in rows:
+        for name, op in KERNEL_OP.items():
+            if re.search(rf"\b{name}\b", key):
+                port_launches[op] += count
     return {
         "wall_us": wall_us,
         "device_busy_us": busy if busy else "not measured",
@@ -1257,19 +1486,30 @@ def profile_summary(fn) -> dict:
                 for us, k, c in rows[:12] if us > 0],
         "port_kernels": [{"name": k[:80], "device_us": us, "count": c}
                          for us, k, c in rows if any(n in k for n in PORT_KERNELS)],
+        "port_launches": port_launches,
     }
 
 
 def main() -> None:
-    kind = phase_device()
-    max_err = phase_check()
-    launches = phase_main_path()
-    launches["mnist_train"] = phase_train()
-    launches["multimnist_train"] = phase_multimnist_train()
-    reported = phase_timings(launches)
-    phase_launch_floor()
+    seconds, t0 = {}, time.perf_counter()
+
+    def timed(name: str, phase, *args):
+        start = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    kind = timed("device_and_build", phase_device)
+    max_err = timed("check", phase_check)
+    launches = timed("main_path", phase_main_path)
+    launches["mnist_train"] = timed("train", phase_train)
+    launches["multimnist_train"] = timed("multimnist_train", phase_multimnist_train)
+    timed("workdir", phase_workdir)
+    reported = timed("timings", phase_timings, launches)
+    timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:
-        phase_eval_wall(config)
+        timed(f"eval_wall_{config}", phase_eval_wall, config)
+    emit({"phase": "phase_seconds", **seconds, "total": time.perf_counter() - t0})
     emit({"kernels": [
         {**META[op], "launches": launches[REPORTED[op][0]][op],
          "config": REPORTED[op][0], "shape": REPORTED[op][1],

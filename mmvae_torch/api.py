@@ -1,7 +1,8 @@
 """User-facing entry points (port of ``mmvae_tpu/api.py``).
 
   * :func:`train` -- train a config from its seeded init (``api.py:414``),
-    without checkpoints yet;
+    into a workdir (``config.json``, ``metrics.jsonl``, checkpoints) when
+    one is given, and resume from it;
   * :func:`eval_elbo` -- mean multi-term ELBO over a split (``api.py:1013``);
   * :func:`generate` -- cross-modal generation from any observed subset
     (``api.py:1504``);
@@ -9,15 +10,20 @@
 
 Every entry point runs on ``device``, which defaults to the card
 (``torch.device("cuda")``) and raises when there is none; pass
-``device="cpu"`` to run on the CPU. Weights come from a ``model`` the
-caller built (``configs.build_model``, or ``convert.from_flax_params``
-loaded into it), a ``state_dict``, or :func:`train`'s result; checkpoints
-are not ported yet.
+``device="cpu"`` to run on the CPU. On the card an epoch and an eval split
+each run as replays of one captured CUDA graph (``train/step.py``). Weights
+come from a ``model`` the caller built (``configs.build_model``, or
+``convert.from_flax_params`` loaded into it), a ``state_dict``,
+:func:`train`'s result, or a ``workdir`` :func:`train` wrote (its best
+checkpoint by default, the EMA weights where they are tracked).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+import json
+import os
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -36,18 +42,80 @@ from mmvae_torch.train import (
     make_epoch_runner,
     make_eval_runner,
 )
+from mmvae_torch.train.checkpoint import latest_epoch, load_checkpoint, save_checkpoint
+from mmvae_torch.train.metrics import AverageMeter, MetricsWriter
 
-__all__ = ["TrainResult", "train", "step_options", "eval_elbo", "generate", "sample"]
+__all__ = [
+    "TrainResult",
+    "train",
+    "step_options",
+    "eval_elbo",
+    "generate",
+    "sample",
+    "load_run_config",
+]
 
 
-def _resolve(config, model, state_dict, device):
-    if isinstance(config, str):
-        config = get_config(config)
+def _save_run_config(workdir: str, config: ExperimentConfig) -> None:
+    """The config beside the checkpoints, so that eval, generate and
+    sample rebuild the model that was trained."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(config), f, indent=2)
+
+
+def _tuplify(obj):
+    """JSON makes tuples lists; the models take tuples (``conv_features``)."""
+    if isinstance(obj, list):
+        return tuple(_tuplify(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _tuplify(v) for k, v in obj.items()}
+    return obj
+
+
+def load_run_config(workdir: str) -> ExperimentConfig | None:
+    """The config :func:`train` saved in ``workdir``, or None if absent."""
+    path = os.path.join(workdir, "config.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        d = json.load(f)
+    d["model_kwargs"] = _tuplify(d.get("model_kwargs", {}))
+    return ExperimentConfig(**d)
+
+
+def _resolve_with_workdir(config, workdir: str | None) -> ExperimentConfig:
+    """The workdir's saved config when the caller names the config it was
+    trained from, else the named or given config."""
+    if isinstance(config, str) and workdir is not None:
+        stored = load_run_config(workdir)
+        if stored is not None and stored.name == config:
+            return stored
+    return get_config(config) if isinstance(config, str) else config
+
+
+def _load_params(config: ExperimentConfig, model, workdir: str, which: str = "best"):
+    """``model`` with the weights of ``workdir``'s checkpoint ``which``:
+    the EMA shadow when the config tracks one (the eval weights), else
+    the trained parameters."""
+    state = create_train_state(
+        model, config.learning_rate, grad_clip=config.grad_clip, ema_decay=config.ema_decay
+    )
+    state, _ = load_checkpoint(workdir, state, which=which)
+    return state.eval_model
+
+
+def _resolve(config, model, state_dict, device, workdir=None, which="best"):
+    """The config, the model with its weights, and the device. With no
+    ``model`` and no ``state_dict`` the weights come from ``workdir``."""
+    config = _resolve_with_workdir(config, workdir)
     device = resolve_device(device)
     if model is None:
-        if state_dict is None:
-            raise ValueError("need a model or a state_dict")
+        if state_dict is None and workdir is None:
+            raise ValueError("need a model, a state_dict or a workdir")
         model = build_model(config, device=device)
+        if state_dict is None:
+            model = _load_params(config, model, workdir, which)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return config, model.to(device), device
@@ -58,23 +126,28 @@ def eval_elbo(
     *,
     model=None,
     state_dict: dict[str, torch.Tensor] | None = None,
+    workdir: str | None = None,
+    which: str = "best",
     dataset: Dataset | None = None,
     batch_size: int | None = None,
     device: torch.device | str | None = None,
 ) -> float:
     """Mean multi-term ELBO over a split, beta = 1 and z = posterior mean.
 
-    ``dataset`` defaults to the config's synthetic test split. The split
-    is padded to whole batches (wrapping to its front); the validity mask
-    is the presence mask, so pad rows contribute 0 and the result is
-    ``sum(batch losses) * bs / size``.
+    The weights are ``model``'s, ``state_dict``'s, or those of
+    ``workdir``'s checkpoint ``which`` ("best", else "last"; the EMA
+    weights where tracked), whose saved config is used when ``config``
+    names it. ``dataset`` defaults to the config's synthetic test split.
+    The split is padded to whole batches (wrapping to its front); the
+    validity mask is the presence mask, so pad rows contribute 0 and the
+    result is ``sum(batch losses) * bs / size``.
     """
-    config, model, device = _resolve(config, model, state_dict, device)
+    config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
         dataset = load_dataset(config.dataset, "test", n=config.test_size)
     batch_size = min(batch_size or config.batch_size, dataset.size)
     stacked = _padded_split(dataset, batch_size, model.n_modalities, device)
-    return _split_elbo(model, config.objective, stacked, dataset.size)
+    return _split_elbo(make_eval_runner(model, config.objective), stacked, dataset.size)
 
 
 def _padded_split(
@@ -90,10 +163,11 @@ def _padded_split(
     return stacked
 
 
-def _split_elbo(model, objective: str, stacked: dict[str, torch.Tensor], size: int) -> float:
-    """Mean ELBO of a :func:`_padded_split` of ``size`` examples: the pad
-    rows contribute 0, so it is ``sum(batch losses) * bs / size``."""
-    metrics = make_eval_runner(model, objective)(stacked)
+def _split_elbo(runner: Callable, stacked: dict[str, torch.Tensor], size: int) -> float:
+    """Mean ELBO of a :func:`_padded_split` of ``size`` examples through an
+    eval ``runner`` (``make_eval_runner``): the pad rows contribute 0, so
+    it is ``sum(batch losses) * bs / size``."""
+    metrics = runner(stacked)
     return float(metrics["loss"].sum()) * stacked["presence"].shape[1] / size
 
 
@@ -138,7 +212,7 @@ def train(
     device: torch.device | str | None = None,
     resume: bool = False,
     verbose: bool = True,
-    fault_hook=None,
+    fault_hook: Callable | None = None,
 ) -> TrainResult:
     """Train ``config`` from its seeded init, evaluating the test split
     after each epoch (``mmvae_tpu/api.py:414``, single device).
@@ -148,23 +222,32 @@ def train(
     ``reshuffle_every=1`` and ``shuffle_granularity=1``, give), in whole
     batches; beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
     the posterior noise and any presence dropout come from a generator on
-    ``device`` seeded with ``seed``. The test ELBO is computed on the EMA
-    parameters when they are tracked. Returns the config, the model (the
-    live parameters), the train state, the best test ELBO and one history
-    record per epoch (its mean train loss, its mean ``cycle_ce`` where the
-    config has the cycle term, and its test ELBO). ``workdir``, ``resume``
-    and ``fault_hook`` (checkpoints, failure recovery) are not ported yet
-    and raise, as does a config that sets a training feature not ported
-    yet.
+    ``device`` seeded with ``seed``. On the card each epoch and each test
+    eval run as replays of a captured CUDA graph (the eval graph is built
+    once a run, on the EMA shadow when one is tracked, which the test ELBO
+    is computed on). ``fault_hook(epoch, state) -> state`` is called after
+    each epoch's train pass.
+
+    With a ``workdir``: ``config.json`` is written first, one
+    ``{"kind": "eval", ...}`` record an epoch goes to ``metrics.jsonl``,
+    and a checkpoint (``train/checkpoint.py``: the state and both
+    generators) is saved every ``config.ckpt_every`` epochs and at the
+    last, the best pointer naming the best saved epoch. ``resume=True``
+    continues from the last checkpoint at the next epoch, with the best
+    test ELBO restored.
+
+    Returns the config, the model (the live parameters), the train state,
+    the best test ELBO and one history record per epoch this call ran (its
+    mean train loss, its mean ``cycle_ce`` where the config has the cycle
+    term, and its test ELBO). A config that sets a training feature not
+    ported yet raises.
     """
     if isinstance(config, str):
         config = get_config(config)
-    for name, given in (("workdir", workdir is not None), ("resume", resume),
-                        ("fault_hook", fault_hook is not None)):
-        if given:
-            raise NotImplementedError(f"train({name}=...) is not yet ported to mmvae_torch")
     _check_trainable(config)
     device = resolve_device(device)
+    if workdir is not None:
+        _save_run_config(workdir, config)
     model = build_model(config, seed=seed, device=device)
     train_ds = load_dataset(config.dataset, "train", n=config.train_size)
     test_ds = load_dataset(config.dataset, "test", n=config.test_size)
@@ -176,40 +259,70 @@ def train(
         model, config.learning_rate, grad_clip=config.grad_clip,
         ema_decay=config.ema_decay,
     )
+    noise = torch.Generator(device=device).manual_seed(seed)
+    order = torch.Generator().manual_seed(seed)
+    generators = {"order": order, "noise": noise}
+    start_epoch, best = 1, float("inf")
+    if resume and workdir is not None and latest_epoch(workdir) is not None:
+        # Before any runner: a CUDA graph holds the addresses of what the
+        # load makes anew (Adam's moments).
+        state, extra = load_checkpoint(workdir, state, which="last", generators=generators)
+        start_epoch = int(extra["epoch"]) + 1
+        best = float(extra["best_test_elbo"])
+    # The best checkpoint pointer can only name an epoch that was saved.
+    best_saved = best
     runner = make_epoch_runner(
         model,
         annealing_steps=config.annealing_epochs * steps_per_epoch,
-        generator=torch.Generator(device=device).manual_seed(seed),
+        generator=noise,
         **step_options(config),
     )
-    order = torch.Generator().manual_seed(seed)
+    evaluate = make_eval_runner(state.eval_model, config.objective)
     train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
     test_split = _padded_split(
         test_ds, min(bs, test_ds.size), model.n_modalities, device
     )
-    best = float("inf")
+    writer = MetricsWriter(workdir) if workdir is not None else None
     history: list[dict[str, float]] = []
-    for epoch in range(1, config.epochs + 1):
-        perm = torch.randperm(train_ds.size, generator=order)[: steps_per_epoch * bs]
-        perm = perm.to(device)
-        batches = {
-            k: v[perm].reshape((steps_per_epoch, bs) + v.shape[1:])
-            for k, v in train_arrays.items()
-        }
-        state, metrics = runner(state, batches)
-        train_loss = float(metrics["loss"].mean())
-        test_elbo = _split_elbo(state.eval_model, config.objective, test_split, test_ds.size)
-        is_best = test_elbo < best
-        best = min(best, test_elbo)
-        record = {"epoch": epoch, "train_loss": train_loss, "test_elbo": test_elbo}
-        if "cycle_ce" in metrics:
-            record["cycle_ce"] = float(metrics["cycle_ce"].mean())
-        history.append(record)
-        if verbose:
-            print(
-                f"[{config.name}] epoch {epoch:3d} train {train_loss:10.2f} "
-                f"test {test_elbo:10.2f}" + (" *best*" if is_best else "")
-            )
+    try:
+        for epoch in range(start_epoch, config.epochs + 1):
+            perm = torch.randperm(train_ds.size, generator=order)[: steps_per_epoch * bs]
+            perm = perm.to(device)
+            batches = {
+                k: v[perm].reshape((steps_per_epoch, bs) + v.shape[1:])
+                for k, v in train_arrays.items()
+            }
+            state, metrics = runner(state, batches)
+            if fault_hook is not None:
+                state = fault_hook(epoch, state)
+            meter = AverageMeter()
+            meter.update(float(metrics["loss"].mean()), steps_per_epoch * bs)
+            test_elbo = _split_elbo(evaluate, test_split, test_ds.size)
+            is_best = test_elbo < best
+            best = min(best, test_elbo)
+            record = {"epoch": epoch, "train_loss": meter.avg, "test_elbo": test_elbo}
+            if "cycle_ce" in metrics:
+                record["cycle_ce"] = float(metrics["cycle_ce"].mean())
+            history.append(record)
+            if writer is not None:
+                writer.write({"kind": "eval", **record})
+            if verbose:
+                print(
+                    f"[{config.name}] epoch {epoch:3d} train {meter.avg:10.2f} "
+                    f"test {test_elbo:10.2f}" + (" *best*" if is_best else "")
+                )
+            if workdir is not None and (
+                epoch % max(config.ckpt_every, 1) == 0 or epoch == config.epochs
+            ):
+                save_checkpoint(
+                    workdir, state, epoch, is_best=test_elbo < best_saved,
+                    extra={"best_test_elbo": best}, keep_epochs=config.keep_epoch_ckpts,
+                    generators=generators,
+                )
+                best_saved = min(best_saved, test_elbo)
+    finally:
+        if writer is not None:
+            writer.close()
     return TrainResult(config, model, state, best, history)
 
 
@@ -248,6 +361,8 @@ def generate(
     n: int | None = None,
     model=None,
     state_dict: dict[str, torch.Tensor] | None = None,
+    workdir: str | None = None,
+    which: str = "best",
     device: torch.device | str | None = None,
     sample_z: bool = False,
     temperature: float = 1.0,
@@ -265,9 +380,10 @@ def generate(
     from ``generator`` (on ``device``) when ``sample_z``; ALL modalities
     are decoded. A sequence modality is generated token by token: argmax
     when ``temperature <= 0``, else a draw at ``temperature`` from
-    ``generator``.
+    ``generator``. The weights come as in :func:`eval_elbo` (``model``,
+    ``state_dict``, or ``workdir``'s checkpoint ``which``).
     """
-    config, model, device = _resolve(config, model, state_dict, device)
+    config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     names = [s.name for s in model.specs()]
     if n is None:
         n = len(next(iter(condition.values()))) if condition else 1
@@ -307,12 +423,15 @@ def sample(
     *,
     model=None,
     state_dict: dict[str, torch.Tensor] | None = None,
+    workdir: str | None = None,
+    which: str = "best",
     device: torch.device | str | None = None,
     temperature: float = 1.0,
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Unconditional samples: z ~ N(0, I) decoded into every modality."""
+    """Unconditional samples: z ~ N(0, I) decoded into every modality
+    (the weights as in :func:`generate`)."""
     return generate(
-        config, {}, n=n, model=model, state_dict=state_dict, device=device,
-        sample_z=True, temperature=temperature, generator=generator,
+        config, {}, n=n, model=model, state_dict=state_dict, workdir=workdir, which=which,
+        device=device, sample_z=True, temperature=temperature, generator=generator,
     )

@@ -2,8 +2,9 @@
 
 Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
 experiments raise until their slice lands. The fields are those the
-inference slices and the MNIST and MultiMNIST training slices read, with
-the JAX defaults (``mmvae_tpu/configs.py:30-175``), and the one training
+inference slices, the MNIST and MultiMNIST training slices and the
+checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
+defaults (``mmvae_tpu/configs.py:30-175``), and the one training
 feature the ``celeba`` config sets that is not ported yet
 (:data:`UNPORTED_TRAIN_FIELDS`: ``n_random_subsets``); ``api.train``
 raises ``NotImplementedError`` when it is set, so training CelebA raises
@@ -52,6 +53,11 @@ class ExperimentConfig:
     ema_decay: float = 0.0  # EMA shadow of the parameters (0: off)
     train_size: int = 10000
     test_size: int = 2000
+    # Checkpoints (with a workdir): every ckpt_every epochs and always at
+    # the last; keep_epoch_ckpts > 0 also keeps that many newest
+    # per-epoch snapshots (0: last and best only).
+    ckpt_every: int = 1
+    keep_epoch_ckpts: int = 0
     # Reconstruct every modality from every subset posterior; cross
     # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False

@@ -14,7 +14,13 @@ does in order what the JAX ``tx`` chain and ``apply_gradients`` do:
     ``torch.optim.Adam``, whose update is optax's up to rounding;
   * the EMA blend ``d * e + (1 - d) * p`` of the updated parameters when
     ``ema_decay > 0`` (``state.py:36-57``);
-  * ``step + 1``.
+  * ``step + 1``, on the host (``step``) and on the device
+    (``device_step``, which beta is read from).
+
+On the card the update runs inside a captured CUDA graph
+(``train/step.py``), so nothing in it may wait for the device: the clip
+factor stays a device tensor, and Adam is built with ``capturable=True``
+(its step counts live on the card). The CPU keeps the plain Adam.
 
 Gradient accumulation (``optax.MultiSteps``) is not ported.
 """
@@ -38,8 +44,10 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the trained ones), the optimizer over
-    them, the count of updates taken, and the EMA shadow (a copy of the
-    model whose parameters are the running average) when tracked."""
+    them, the count of updates taken (``step`` on the host and
+    ``device_step``, an int64 scalar on the model's device), and the EMA
+    shadow (a copy of the model whose parameters are the running average)
+    when tracked."""
 
     step: int
     model: nn.Module
@@ -47,6 +55,13 @@ class TrainState:
     grad_clip: float = 0.0
     ema_model: nn.Module | None = None
     ema_decay: float = 0.0
+    device_step: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.device_step is None:
+            self.device_step = torch.full(
+                (), self.step, dtype=torch.int64, device=next(self.model.parameters()).device
+            )
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -82,6 +97,7 @@ class TrainState:
             d = self.ema_decay
             for e, p in zip(self.ema_model.parameters(), params):
                 e.mul_(d).add_(p, alpha=1.0 - d)
+        self.device_step.add_(1)
         self.step += 1
 
 
@@ -93,9 +109,12 @@ def create_train_state(
 ) -> TrainState:
     """Adam over ``model``'s parameters as they are (the model was built
     with its seeded init, or loaded), and the EMA shadow initialised to
-    them when ``ema_decay > 0``."""
+    them when ``ema_decay > 0``. On the card Adam is ``capturable``, so
+    that a CUDA graph can hold its update."""
+    on_card = next(model.parameters()).device.type == "cuda"
     optimizer = torch.optim.Adam(
-        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
+        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        capturable=on_card,
     )
     ema_model = None
     if ema_decay > 0.0:

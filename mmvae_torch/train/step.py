@@ -35,7 +35,10 @@ the attributes, row ``r % (B * 18)`` of rows of D = 1) and the tiled copy
 is never made. Only the small integer token rows are tiled.
 
 Training (``make_train_step``, ``make_epoch_runner``) differentiates the
-same loss with ``sample=True``. Its reductions are differentiable on both
+same loss with ``sample=True``. On the card an epoch and an eval split
+each run as replays of one captured CUDA graph (``_StepGraph``), the
+counterpart of the JAX runners' one ``lax.scan`` program; the CPU runs
+them as eager loops. Its reductions are differentiable on both
 paths (``mmvae_torch.ops``): on the card one MNIST step launches, besides
 the models' own layers, the fused PoE + KL and K2 forward and their
 backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each; one
@@ -67,6 +70,7 @@ from mmvae_torch.core import (
     elbo_terms,
     reparameterize,
 )
+from mmvae_torch.ops import kernels
 from mmvae_torch.ops.kernels import FOLD_T, tile_rows
 from mmvae_torch.train.state import TrainState, global_norm
 
@@ -366,7 +370,8 @@ def make_train_step(
     """The train step ``(state, batch, eps=None, keep=None) -> (state,
     metrics)`` of ``_train_step_impl`` (``step.py:1022-1093``).
 
-    beta is ``annealing_factor(state.step, annealing_steps)``. With
+    beta is ``annealing_factor(state.device_step, annealing_steps)``, read
+    on the device. With
     ``p_modality_drop > 0`` and no ``"presence"`` in the batch, each
     example keeps each modality with probability ``1 - p_modality_drop``
     (``keep``, ``(B, M)``, or a draw from ``generator``), and a row with
@@ -389,7 +394,7 @@ def make_train_step(
     )
 
     def train_step(state: TrainState, batch, eps=None, keep=None):
-        beta = annealing_factor(state.step, annealing_steps)
+        beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             if keep is None:
                 b = next(iter(batch.values())).shape[0]
@@ -410,29 +415,181 @@ def make_train_step(
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm([p.grad for p in params])
-        metrics["beta"] = torch.full((), beta, device=loss.device)
+        metrics["beta"] = beta
         state.apply_gradients()
         return state, metrics
 
     return train_step
 
 
-def make_epoch_runner(model, **step_kwargs) -> Callable:
-    """An epoch over pre-stacked ``(n_steps, B, ...)`` batches, one
-    :func:`make_train_step` step at a time (the JAX runner's ``lax.scan``,
-    ``step.py:1096``, as a plain loop). Returns ``run(state, batches) ->
-    (state, metrics)`` with every metric stacked over the steps."""
+def _use_graph(model, graph: bool | None) -> bool:
+    """Whether a runner over ``model`` replays a CUDA graph: on the card
+    unless ``graph=False`` asks for the eager loop; never on the CPU."""
+    on_card = model.device.type == "cuda"
+    if graph and not on_card:
+        raise ValueError(f"a CUDA graph runner needs the model on the card, not {model.device}")
+    return on_card if graph is None else graph
+
+
+def _rows(batches: dict[str, torch.Tensor]) -> int:
+    return next(iter(batches.values())).shape[0]
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a train step reads or updates in place besides the
+    batch and the activations: a CUDA graph holds their addresses."""
+    out = [*state.model.parameters(), *state.model.buffers(), state.device_step]
+    if state.ema_model is not None:
+        out += list(state.ema_model.parameters())
+    for per_param in state.optimizer.state.values():
+        out += [v for v in per_param.values() if torch.is_tensor(v)]
+    return out
+
+
+class _StepGraph:
+    """``fn(batch) -> metrics`` over the rows of stacked ``(n, B, ...)``
+    inputs as replays of one CUDA graph: the counterpart of the body of
+    the JAX runners' ``lax.scan`` (``step.py:1096``, ``:1163``, ``:1580``).
+
+    The captured body reads row ``idx`` of static copies of the inputs
+    (``index_select`` by a device index), writes each metric at row
+    ``idx`` of static ``(n, ...)`` outputs and advances ``idx``, all on the
+    device, so one replay follows another with no launch from the host
+    between them. The first call runs row 0 eagerly on a side stream, as
+    a real step: it builds the kernels and makes the cached constants and
+    the optimizer's state, which must exist before capture (a pageable
+    upload or a sync under capture raises). It then captures the body on
+    that stream and replays it for the other rows. A later call copies its
+    inputs into the static ones (one copy each), zeroes ``idx`` and
+    replays every row. A capture that fails raises; nothing falls back to
+    the eager loop.
+
+    ``generator`` (the noise and dropout draws) is registered with the
+    graph, so each replay draws the numbers an eager step would and
+    advances the generator's state as one would. ``kernels.LAUNCHES``
+    counts a launch when Python makes it, so the capture's counts are
+    taken back and each replay adds them again. The graph holds the
+    addresses of the tensors it reads: the tensors ``tensors()`` gives at
+    each call must be those the capture saw, else the call raises.
+    """
+
+    def __init__(self, fn: Callable, generator: torch.Generator | None = None):
+        self._fn, self._generator = fn, generator
+        self._graph = None
+
+    def _body(self) -> None:
+        batch = {k: v.index_select(0, self._idx)[0] for k, v in self._inputs.items()}
+        metrics = self._fn(batch)
+        if self._outputs is None:
+            n = _rows(self._inputs)
+            self._outputs = {k: v.new_empty((n, *v.shape)) for k, v in metrics.items()}
+        for k, v in metrics.items():
+            self._outputs[k].index_copy_(0, self._idx, v.unsqueeze(0))
+        self._idx.add_(1)
+
+    def _capture(self, batches: dict[str, torch.Tensor]) -> int:
+        """Row 0 eagerly, then the capture; returns the rows left."""
+        device = next(iter(batches.values())).device
+        self._inputs = {k: v.clone() for k, v in batches.items()}
+        self._idx = torch.zeros(1, dtype=torch.int64, device=device)
+        self._outputs = None
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._body()
+        graph = torch.cuda.CUDAGraph()
+        if self._generator is not None:
+            graph.register_generator_state(self._generator)
+        counts = dict(kernels.LAUNCHES)
+        constants = _device_tensor.cache_info().currsize
+        # capture_begin/end rather than ``torch.cuda.graph``, which also
+        # empties the allocator's cache and collects garbage at each capture.
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                self._body()
+            finally:
+                graph.capture_end()
+        self._launches = {k: kernels.LAUNCHES[k] - n for k, n in counts.items()}
+        kernels.LAUNCHES.update(counts)
+        if _device_tensor.cache_info().currsize != constants:
+            raise RuntimeError("a constant was made under capture: its upload is not in the graph")
+        torch.cuda.current_stream(device).wait_stream(side)
+        self._graph = graph
+        return _rows(batches) - 1
+
+    def __call__(
+        self, batches: dict[str, torch.Tensor], tensors: Callable[[], list] = list
+    ) -> dict[str, torch.Tensor]:
+        """Every row of ``batches`` through ``fn``; each metric stacked."""
+        if self._graph is None:
+            replays = self._capture(batches)
+            self._addresses = [t.data_ptr() for t in tensors()]
+        else:
+            if [t.data_ptr() for t in tensors()] != self._addresses:
+                raise RuntimeError(
+                    "the state's tensors moved since the graph was captured "
+                    "(a reload with assign=True, a move, a new optimizer): build a new runner")
+            for k, v in batches.items():
+                if v.shape != self._inputs[k].shape:
+                    raise ValueError(
+                        f"{k}: {tuple(v.shape)} is not the captured {tuple(self._inputs[k].shape)}")
+                self._inputs[k].copy_(v)
+            self._idx.zero_()
+            replays = _rows(batches)
+        for _ in range(replays):
+            self._graph.replay()
+        for k, n in self._launches.items():
+            kernels.LAUNCHES[k] += n * replays
+        return {k: v.clone() for k, v in self._outputs.items()}
+
+
+def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Callable:
+    """An epoch over pre-stacked ``(n_steps, B, ...)`` batches of
+    :func:`make_train_step` steps (``step_kwargs``). Returns ``run(state,
+    batches) -> (state, metrics)`` with every metric stacked over the
+    steps.
+
+    On the card the epoch is the JAX runner's one program (``lax.scan``,
+    ``step.py:1096``) as replays of one captured step (:class:`_StepGraph`:
+    the first call's first step runs eagerly, as a real step, before the
+    capture); every call must then pass the same ``state``, its tensors
+    where they were. ``graph=False`` asks for the eager loop on the card,
+    one step at a time, which the CPU always runs.
+
+    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``: each step's
+    posterior noise in place of a draw (how a parity run feeds two devices
+    the same numbers).
+    """
     train_step = make_train_step(model, **step_kwargs)
 
-    def run(state, batches):
-        n_steps = next(iter(batches.values())).shape[0]
-        per_step = []
-        for i in range(n_steps):
-            state, metrics = train_step(state, {k: v[i] for k, v in batches.items()})
-            per_step.append(metrics)
-        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+    def step(state, batch):
+        data = {k: v for k, v in batch.items() if k != "eps"}
+        return train_step(state, data, eps=batch.get("eps"))
 
-    return run
+    if not _use_graph(model, graph):
+        def run(state, batches):
+            per_step = []
+            for i in range(_rows(batches)):
+                state, metrics = step(state, {k: v[i] for k, v in batches.items()})
+                per_step.append(metrics)
+            return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+        return run
+
+    graphed = None
+
+    def run_graph(state, batches):
+        nonlocal graphed
+        if graphed is None:
+            graphed = _StepGraph(lambda batch: step(state, batch)[1],
+                                 step_kwargs.get("generator"))
+        first_step = state.step
+        metrics = graphed(batches, lambda: _state_tensors(state))
+        state.step = first_step + _rows(batches)  # the capture pass also counted one
+        return state, metrics
+
+    return run_graph
 
 
 def make_eval_step(
@@ -454,19 +611,27 @@ def make_eval_step(
 
 
 def make_eval_runner(
-    model, objective: str = "mvae"
+    model, objective: str = "mvae", *, graph: bool | None = None
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
-    """Eval over pre-stacked ``(n_batches, B, ...)`` tensors, one batch at
-    a time. Returns ``run(batches) -> metrics`` with every metric stacked
-    over the batches (the JAX runner's ``lax.scan`` as a plain loop)."""
+    """Eval over pre-stacked ``(n_batches, B, ...)`` tensors. Returns
+    ``run(batches) -> metrics`` with every metric stacked over the
+    batches.
+
+    On the card the split is the JAX runner's one program (``lax.scan``,
+    ``step.py:1580``) as replays of one captured eval batch
+    (:class:`_StepGraph`), which reads ``model``'s parameters where they
+    are: a runner built once serves every later eval of the same model,
+    updated in place. ``graph=False`` asks for the eager loop on the card,
+    one batch at a time, which the CPU always runs.
+    """
     eval_step = make_eval_step(model, objective)
+    if not _use_graph(model, graph):
+        def run(batches):
+            per_step = [eval_step({k: v[i] for k, v in batches.items()})
+                        for i in range(_rows(batches))]
+            return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
-    def run(batches):
-        n_steps = next(iter(batches.values())).shape[0]
-        per_step = [
-            eval_step({k: v[i] for k, v in batches.items()})
-            for i in range(n_steps)
-        ]
-        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        return run
 
-    return run
+    graphed = _StepGraph(eval_step)
+    return lambda batches: graphed(batches, lambda: [*model.parameters(), *model.buffers()])

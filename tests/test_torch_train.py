@@ -304,8 +304,8 @@ def test_api_train_raises_on_unported_knobs(knob, value):
         api.train(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"workdir": "w"}, {"resume": True}, {"fault_hook": print},
-                                {"config": "celeba"}])
+@pytest.mark.parametrize("kw", [{"config": "fashionmnist"}, {"config": "cub"},
+                                {"config": "deep_mnist"}, {"config": "celeba"}])
 def test_api_train_raises_on_unported_entry_options(kw):
     kw = {"config": "mnist", **kw}
     with pytest.raises(NotImplementedError, match="not yet ported"):
