@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    for the KL, whose rows with every expert absent must give exactly 0;
    the elementwise gradients of K1, K2 and K3 atol 1e-6, a pad token's K3
    gradient exactly 0; the fused PoE + KL's backward atol 1e-5 * T times
-   its largest gradient, as it sums T terms);
+   its largest gradient, as it sums T terms; K4's backward atol 1e-6 * N,
+   N = B * ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums,
+   and two of its launches equal to the bit);
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
    every eval runs the fused PoE + KL once per batch and K1 no time;
@@ -46,7 +48,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ELBO below the untrained model's; then the graph runner against the
      eager loop from the same weights, noise seed and batches over an
      epoch (loss and gradient norm each step, every parameter: rel 1e-6,
-     and whether the bits are equal), two epochs of each timed in turns
+     and whether the bits are equal), one epoch of each timed in turns
      (train samples/s; the first calls too; what the capture adds), a profiled graph epoch (its
      idle share and device events a step; the profiler's count of each
      kernel's launches equal to the wrappers') and a profiled eager step
@@ -67,13 +69,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      eager loop on the card (rel 1e-6) and against the CPU under the same
      gates as ``mnist`` (rel 1e-4), with the render pixels that land on
      other sides of 0.5 reported;
+   - ``celeba`` training (4 random subset terms, T = 24, clipping at 500;
+     K4 in stage 0 of the image encoder and its backward kernel):
+     ``api.train`` for one epoch at full width over a train split cut to
+     1,280 examples (20 steps of batch 64, then the 2,000-example test
+     ELBO) on the graph runners, launching the fused PoE + KL 52 times, K2
+     104, K4 52 and their backward kernels 20, 40 and 20; its first-epoch
+     test ELBO below the untrained model's; the graph against the eager
+     loop over an epoch on cuDNN's deterministic algorithms (rel 1e-6, the
+     bits compared), and on its default ones timed in turns (one epoch each
+     after the first calls) and profiled, as for ``mnist``; three steps at
+     batch 16 of the graph runner on the card (cuDNN's deterministic
+     algorithms) against the eager loop on the CPU, the random subset masks
+     and the noise passed in, under the same gates as ``mnist``;
    - a workdir: ``mnist`` at full width over a train split cut to 2,000
      trained 2 epochs into a temporary workdir and resumed for a third,
      against an uninterrupted 3-epoch run (rel 1e-6);
      ``eval_elbo`` from the workdir against the best epoch's recorded test
      ELBO (rel 1e-6), and ``generate`` and ``sample`` from it;
 4. timings: each kernel and its plain version on the device (CUDA-graph
-   replay, median of 25) and eagerly (host overhead included), the
+   replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
    kernel and the library call again L2-cold where the inputs fit in the
    50 MB L2 (the graph cycles through 6 to 512 copies of the inputs,
@@ -86,9 +101,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (a capture each call) and a profile of where each runner's device time
    goes (its device busy time with and without the host-to-device
    copies). The
-   backward kernels are timed at MNIST's and MultiMNIST's train shapes
-   beside their plain versions and the autograd backward of the library
-   forward.
+   backward kernels are timed at MNIST's, MultiMNIST's and CelebA's train
+   shapes beside their plain versions and the autograd backward of the
+   library forward (for K4's backward: cuDNN's wgrad and the silu's
+   backward, for the weight and bias alone).
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -136,6 +152,10 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # an exp, an add and a divide; per (term, expert element) the weight
 # product and its sum, the mean product and its sum; per output the prior
 # add, a divide, a log, a negation and K1's 5.
+# K4's backward, per (output pixel, channel): the recompute's 16 * C
+# products and sums, the accumulation's 16 * C, and about 9 for the bias
+# add, swish' (an exp, an add, a divide, a subtract, 2 products, an add) and
+# the product with g.
 # The gradients: KL's 1 + 4 (a product; a product, an exp, a subtract and
 # a product); BCE's an exp, an add, a divide, a subtract and a product; the
 # sequence cross-entropy's per logit of a non-pad token the forward's 4
@@ -148,10 +168,12 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # subtract, 2 products, an add) and 2 divides.
 OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5, "seq_ce_bwd": 9}
 CONV_OPS_PER_OUT = 5
+CONV_BWD_OPS_PER_OUT = 9
 POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
 POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
-OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd")
-BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd")
+OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd",
+       "conv_bwd")
+BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd")
 CONFIGS = ("mnist", "multimnist", "celeba")
 META = {
     "kl": {
@@ -212,6 +234,15 @@ META = {
         "replaces": "mmvae_tpu/ops/kernels.py:155",
         "note": "K1's VJP carried back through the PoE to the expert stack",
     },
+    "conv_bwd": {
+        "name": "conv4x4s2_swish_bwd",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/conv_s2.cu",
+        "replaces": "mmvae_tpu/models/experts.py:220",
+        "note": "K4's backward in its weight and bias; the TPU side has no Pallas VJP for "
+                "K4 and leaves stage 0's gradient to XLA (tools/pallas_conv_probe.py:55 "
+                "xla_conv0)",
+    },
 }
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
 # of the sequence cross-entropy, (B, H, W, C, dtype) of the conv, (T, B, M,
@@ -226,7 +257,11 @@ META = {
 # large odd vocabulary stand for the caption configs. The fused PoE + KL
 # takes the (B, M, L) expert stack of each eval batch under its (T, M)
 # subset masks: T = 3 terms of 2 experts for MNIST and MultiMNIST, 20
-# terms of 19 experts for CelebA.
+# terms of 19 experts for CelebA. One CelebA train step (4 random subset
+# terms, T = 24) gives the fused PoE + KL at 24 terms of 19 experts, image
+# BCE at the image's 6 member terms (1 + 1 + 4) against the 64 untiled
+# targets, attribute BCE at 23 member terms (1 + 18 + 4) x 64 x 18 rows of D
+# = 1 against 64 x 18 targets, K4 on the 64 images, and each one's backward.
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
@@ -235,6 +270,8 @@ TIMED_SHAPES = {
             "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
             "celeba_image": (128, 12288, 64, kernels.FOLD_T),
             "celeba_attrs": (21888, 1, 1152, kernels.FOLD_T),
+            "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
+            "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
     "seq_ce": {"multimnist_eval": (200, 5, 13), "multimnist_train": (300, 5, 13),
                "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
@@ -243,7 +280,8 @@ TIMED_SHAPES = {
     "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
                "multimnist_eval": (3, 100, 2, 256, "eval"),
                "multimnist_train": (3, 100, 2, 256, "text"),
-               "celeba_eval": (20, 64, 19, 100, "eval")},
+               "celeba_eval": (20, 64, 19, 100, "eval"),
+               "celeba_train": (24, 64, 19, 100, "subsets")},
     # One MNIST train step: K1's VJP at the (T * B, L) posteriors (no path
     # runs it alone), K2's at the image's 2 member terms against 100
     # untiled targets, the fused PoE + KL's at the batch's expert stack.
@@ -253,13 +291,17 @@ TIMED_SHAPES = {
     "kl_bwd": {"mnist_train": (300, 64, 300, None), "celeba_eval": (1280, 100, 1280, None)},
     "bce_bwd": {"mnist_train": (200, 784, 100, kernels.FOLD_T),
                 "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
-                "celeba_image": (128, 12288, 64, kernels.FOLD_T)},
+                "celeba_image": (128, 12288, 64, kernels.FOLD_T),
+                "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
+                "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T)},
     "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
                    "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "poe_kl_bwd": {"mnist_train": (3, 100, 2, 64, "eval"),
                    "multimnist_train": (3, 100, 2, 256, "text"),
                    "multimnist_cycle": (1, 100, 2, 256, "cycle"),
-                   "celeba_eval": (20, 64, 19, 100, "eval")},
+                   "celeba_eval": (20, 64, 19, 100, "eval"),
+                   "celeba_train": (24, 64, 19, 100, "subsets")},
+    "conv_bwd": {"celeba_train": (64, 64, 64, 3)},
 }
 CHECKED_SHAPES = {
     "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
@@ -274,6 +316,8 @@ CHECKED_SHAPES = {
         (21888, 1, 1152, kernels.FOLD_T),
         (37, 1000, 37, kernels.FOLD_NONE),
         (8192, 784, 4096, kernels.FOLD_T),
+        (384, 12288, 64, kernels.FOLD_T),
+        (26496, 1, 1152, kernels.FOLD_T),
         # CelebA's image rows in the other folds; fewer rows than SMs at
         # an odd D (scalar loads, a cluster a row); D not a multiple of 4.
         (128, 12288, 128, kernels.FOLD_NONE),
@@ -300,19 +344,22 @@ CHECKED_SHAPES = {
              (2, 7, 1100, 4, torch.float32)],
     # The three eval batches; CelebA's padded last batch (16 rows present,
     # 48 absent); no presence mask; log-variances past the +-11 clamp; an
-    # odd L; experts one element into their storage.
+    # odd L; experts one element into their storage; a CelebA train step's 24
+    # terms, one random subset row all zero.
     "poe_kl": [(3, 100, 2, 64, "eval"), (3, 100, 2, 256, "eval"), (20, 64, 19, 100, "eval"),
                (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
                (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
                (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "text"),
-               (1, 100, 2, 256, "cycle")],
+               (1, 100, 2, 256, "cycle"), (24, 64, 19, 100, "subsets")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
-    # attribute rows, D not a multiple of 4 (b-major), and more target rows
-    # than a grid axis holds (65,535).
+    # attribute rows (eval and train), D not a multiple of 4 (b-major), and
+    # more target rows than a grid axis holds (65,535).
     "bce_bwd": [
         (200, 784, 100, kernels.FOLD_T),
+        (384, 12288, 64, kernels.FOLD_T),
+        (26496, 1, 1152, kernels.FOLD_T),
         (300, 2500, 100, kernels.FOLD_T),
         (200, 784, 200, kernels.FOLD_NONE),
         (200, 784, 100, kernels.FOLD_B),
@@ -339,17 +386,26 @@ CHECKED_SHAPES = {
                    (3, 100, 2, 64, "none"), (20, 64, 19, 100, "wide"),
                    (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned"),
                    (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle"),
-                   (3, 100, 2, 100, "eval")],
+                   (3, 100, 2, 100, "eval"), (24, 64, 19, 100, "subsets")],
+    # K4's backward (f32): the CelebA train batch; the forward's ragged and
+    # odd cases: 37 images, a 25 x 25 grayscale image that pads (1, 2),
+    # widths off the 32-pixel tile (35 and 33 outputs), C = 1, 2 and 4, rows
+    # wider than a tile (550 outputs).
+    "conv_bwd": [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1), (4, 30, 70, 3),
+                 (2, 10, 66, 3), (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),
+                 (2, 7, 1100, 4)],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
-# this slice's path (MultiMNIST training) for the kernels it runs, else the
-# path that runs the kernel.
+# this slice's path (CelebA training) for the kernels it runs, else the
+# path that runs the kernel. K4's timed shape is the train batch's too.
 _MM_TRAIN = ("multimnist_train", "multimnist_train")
-REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": _MM_TRAIN, "seq_ce": _MM_TRAIN,
-            "conv": ("celeba", "celeba_eval"), "poe_kl": _MM_TRAIN,
-            "kl_bwd": ("mnist_train", "mnist_train"), "bce_bwd": _MM_TRAIN,
-            "seq_ce_bwd": _MM_TRAIN, "poe_kl_bwd": _MM_TRAIN}
-_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0}
+_CELEBA_TRAIN = ("celeba_train", "celeba_train")
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba_train", "celeba_train_image"),
+            "seq_ce": _MM_TRAIN, "conv": ("celeba_train", "celeba_eval"),
+            "poe_kl": _CELEBA_TRAIN, "kl_bwd": ("mnist_train", "mnist_train"),
+            "bce_bwd": ("celeba_train", "celeba_train_image"), "seq_ce_bwd": _MM_TRAIN,
+            "poe_kl_bwd": _CELEBA_TRAIN, "conv_bwd": _CELEBA_TRAIN}
+_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0}
 EXPECTED_LAUNCHES = {
     "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
     "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
@@ -361,32 +417,45 @@ EXPECTED_LAUNCHES = {
     # terms) forward and backward once, then the 20 batches of the test
     # ELBO, forward only.
     "mnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
-                    "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100},
+                    "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
+                    "conv_bwd": 0},
     # 20 train steps, each the fused PoE + KL 3 times (the loss, the cycle's
     # soft and hard re-reads), K2 once (the decode-all pass's images) and K3
     # 3 times (its text, each re-read), and every one's backward kernel as
     # often; then the 20 batches of the test ELBO, forward only (the fused
     # PoE + KL, K2 and K3 once each).
     "multimnist_train": {"kl": 0, "bce": 40, "seq_ce": 80, "conv": 0, "poe_kl": 80,
-                         "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 60, "poe_kl_bwd": 60},
+                         "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 60, "poe_kl_bwd": 60,
+                         "conv_bwd": 0},
+    # 20 train steps (4 random subsets, T = 24), each the fused PoE + KL
+    # once, K2 twice (the image's 6 member terms, the attributes' 23) and K4
+    # once (stage 0 of the image encoder), and every one's backward kernel as
+    # often; then the 32 batches of the test ELBO, forward only (the fused
+    # PoE + KL once, K2 twice, K4 once each).
+    "celeba_train": {"kl": 0, "bce": 104, "seq_ce": 0, "conv": 52, "poe_kl": 52,
+                     "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
+                     "conv_bwd": 20},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
-                "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel")
+                "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel",
+                "conv_s2_bwd_partials_kernel", "conv_s2_bwd_reduce_kernel")
 # The launch count each of them adds to: one wrapper call launches one of
-# its kernels.
+# its kernels (K4's backward two, its partial sums and their reduction: the
+# count follows the first).
 KERNEL_OP = {"kl_rows_kernel": "kl", "bce_rows_kernel": "bce", "bce_split_kernel": "bce",
              "bce_thread_rows_kernel": "bce", "seq_ce_tokens_kernel": "seq_ce",
              "conv_s2_tiles_kernel": "conv", "poe_kl_kernel": "poe_kl",
              "kl_rows_grad_kernel": "kl_bwd", "bce_rows_grad_kernel": "bce_bwd",
              "seq_ce_grad_kernel": "seq_ce_bwd", "seq_ce_grad_staged_kernel": "seq_ce_bwd",
-             "seq_ce_grad_warp_kernel": "seq_ce_bwd", "poe_kl_bwd_kernel": "poe_kl_bwd"}
+             "seq_ce_grad_warp_kernel": "seq_ce_bwd", "poe_kl_bwd_kernel": "poe_kl_bwd",
+             "conv_s2_bwd_partials_kernel": "conv_bwd"}
 PAD = 0
 # Replays (of 20 calls) or eager rounds a kernel timing takes the median of.
-REPS = 25
+REPS = 15
 
 
 START = time.perf_counter()
@@ -401,6 +470,8 @@ def emit(obj: dict) -> None:
 
 
 def describe(op: str, shape) -> dict:
+    if op == "conv_bwd":
+        return {"shape": list(shape)}
     if op == "conv":
         return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
     if op in ("poe_kl", "poe_kl_bwd"):
@@ -428,6 +499,11 @@ def inputs(op: str, shape, gen: torch.Generator):
         return tuple(t.to(dtype) for t in (x, weight, bias))
     if op == "poe_kl":
         return poe_inputs(shape, gen)
+    if op == "conv_bwd":
+        x, weight, bias = inputs("conv", (*shape, torch.float32), gen)
+        b, h, w = shape[:3]
+        g = torch.randn(b, kernels.CONV_OUT, -(-h // 2), -(-w // 2), generator=gen, device=dev)
+        return (x, weight, bias, g)
     if op == "kl_bwd":
         return (*inputs("kl", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
     if op == "bce_bwd":
@@ -467,7 +543,9 @@ def poe_inputs(shape, gen: torch.Generator):
     element into their storage (scalar loads); ``text``: MultiMNIST's text
     expert (the last), its mean 0 and log-variance exactly +11 on the
     latter half of the dims; ``cycle``: the same experts under a cycle
-    re-read's one mask, every expert but the last, and no presence."""
+    re-read's one mask, every expert but the last, and no presence;
+    ``subsets``: a train step's masks, the 1 + M of the eval and T - 1 - M
+    random rows (Bernoulli(0.5)), the first of them all zero."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -480,6 +558,10 @@ def poe_inputs(shape, gen: torch.Generator):
         mu[:, -1, l // 2:] = 0.0
         lv[:, -1, l // 2:] = 11.0
     masks = elbo_subset_masks(m, device=dev)
+    if case == "subsets":
+        rows = (torch.rand(t - 1 - m, m, generator=gen, device=dev) < 0.5).float()
+        rows[0] = 0.0
+        masks = torch.cat([masks, rows])
     if case == "cycle":
         masks = torch.ones(1, m, device=dev)
         masks[0, -1] = 0.0
@@ -504,13 +586,15 @@ KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_ke
              "poe_kl": kernels.poe_kl_kernel, "kl_bwd": kernels.kl_rows_grad_kernel,
              "bce_bwd": kernels.bce_rows_grad_kernel,
              "seq_ce_bwd": kernels.masked_seq_ce_grad_kernel,
-             "poe_kl_bwd": kernels.poe_kl_grad_kernel}
+             "poe_kl_bwd": kernels.poe_kl_grad_kernel,
+             "conv_bwd": kernels.conv4x4s2_swish_grad_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
             "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
             "poe_kl": kernels.poe_kl_torch, "kl_bwd": kernels.kl_rows_grad_torch,
             "bce_bwd": kernels.bce_rows_grad_torch,
             "seq_ce_bwd": kernels.masked_seq_ce_grad_torch,
-            "poe_kl_bwd": kernels.poe_kl_grad_torch}
+            "poe_kl_bwd": kernels.poe_kl_grad_torch,
+            "conv_bwd": kernels.conv4x4s2_swish_grad_torch}
 
 
 def library_fn(op: str, args):
@@ -534,7 +618,7 @@ def library_fn(op: str, args):
         x, weight, bias = args
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
-    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd"):
+    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd"):
         return autograd_backward(op, args)
     return None
 
@@ -550,6 +634,14 @@ def autograd_backward(op: str, args):
         leaves = (logits.detach().requires_grad_(True),)
         tiled = kernels.tile_rows(x, logits.shape[0], fold)
         outs = (F.binary_cross_entropy_with_logits(leaves[0], tiled, reduction="none").sum(-1),)
+        grads = (g,)
+    elif op == "conv_bwd":
+        # cuDNN's wgrad and the silu's backward, for the weight and bias
+        # alone (padding=1 is XLA's SAME at the even sizes timed here).
+        x, weight, bias, g = args
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        leaves = (weight.detach().requires_grad_(True), bias.detach().requires_grad_(True))
+        outs = (F.silu(F.conv2d(x_nchw, *leaves, stride=2, padding=1)),)
         grads = (g,)
     elif op == "seq_ce_bwd":
         logits, tokens, pad, g = args
@@ -569,9 +661,15 @@ def autograd_backward(op: str, args):
 def tolerance(op: str, shape) -> tuple[float, float]:
     """(rtol, atol) of a kernel against its plain version; for the fused
     PoE + KL, of its KL (its posteriors: atol 1e-6); for its backward, the
-    atol per unit of the largest gradient."""
+    atol per unit of the largest gradient; for K4's backward, atol 1e-6
+    times the B * ceil(H/2) * ceil(W/2) terms each entry of dW and db sums
+    (each below 1 in size: an image in [0, 1] times g * swish'), in another
+    order than the plain version's batched product."""
     if op in ("kl_bwd", "bce_bwd", "seq_ce_bwd"):
         return 1e-5, 1e-6
+    if op == "conv_bwd":
+        b, h, w = shape[:3]
+        return 1e-5, 1e-6 * b * -(-h // 2) * -(-w // 2)
     if op == "poe_kl_bwd":
         return 1e-5, 1e-5 * shape[0]
     if op == "poe_kl":
@@ -604,6 +702,16 @@ def bound(op: str, args) -> tuple[float, str]:
                  + counts["out"] * t * b * l)
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = n_ops / PEAK_OPS_PER_S[torch.float32]
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    if op == "conv_bwd":
+        # x, g, the weight and bias read; dW and db written. Per (output
+        # pixel, channel): pre recomputed (16 C products and sums), the
+        # accumulation's 16 C, and CONV_BWD_OPS_PER_OUT.
+        x, weight, bias, g = args
+        c = x.shape[3]
+        n_bytes = 4 * (x.numel() + g.numel() + 2 * (weight.numel() + bias.numel()))
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = g.numel() * (4 * 16 * c + CONV_BWD_OPS_PER_OUT) / PEAK_OPS_PER_S[torch.float32]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv":
         x, weight, bias = args
@@ -718,6 +826,9 @@ def phase_check() -> dict[str, float]:
                 raise AssertionError("an all-pad row did not give exactly 0")
             if op == "seq_ce_bwd" and not torch.all(got[args[1] == PAD] == 0):
                 raise AssertionError("a pad token's gradient is not exactly 0")
+            if op == "conv_bwd" and not all(
+                    torch.equal(a, b) for a, b in zip(got, KERNEL_FN[op](*args))):
+                raise AssertionError("two launches of conv4x4s2_swish_bwd differ")
             max_err[op] = max(max_err[op], err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
@@ -934,7 +1045,7 @@ def phase_train() -> dict[str, int]:
     if not record["test_elbo"] < untrained:
         raise AssertionError(
             f"train: test ELBO {record['test_elbo']} not below the untrained {untrained}")
-    train_rate(cfg, 100, rounds=2, profiled_steps=20)
+    train_rate(cfg, 100, rounds=1, profiled_steps=20)
     train_card_vs_cpu()
     return launches
 
@@ -960,19 +1071,11 @@ def graph_vs_eager(runs: dict) -> dict:
     return {"step_rel_max": step_rel, "param_rel_max": param_rel, "bits_equal": bits}
 
 
-def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool = True) -> None:
-    """The graph runner and the eager loop from the same seed-0 weights,
-    generator seed and ``n_steps`` batches of the train split: their first
-    epochs compared (gated at rel 1e-6 when ``gate``), then ``rounds``
-    epochs of each timed in turns (train samples/s, host clock from a sync to a
-    sync); the graph's first call (its first step eager, the capture, the
-    replays) less a later call is what the capture adds. Then a profile of
-    a graph epoch of ``profiled_steps`` steps (its idle share, device events
-    a step, and the profiler's kernel counts against the wrappers'), and of
-    one eager step with the card's capturable Adam (for ``mnist`` also with
-    the CPU's plain one)."""
-    name, bs = cfg.name, cfg.batch_size
-    batches = train_batches(n_steps, bs, "cuda", seed=1, config=name)
+def first_epochs(cfg, batches: dict) -> tuple[dict, dict, dict]:
+    """A graph runner and an eager loop from the same seed-0 weights and
+    generator seed, each over ``batches`` once: the runners and their
+    states, the first calls' walls (to a sync), and each run's metrics and
+    model."""
     runners, first, runs = {}, {}, {}
     for kind in ("graph", "eager"):
         model = configs.build_model(cfg, seed=0)
@@ -988,6 +1091,23 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
         first[kind] = time.perf_counter() - t0
         runners[kind] = (runner, state)
         runs[kind] = (metrics, model)
+    return runners, first, runs
+
+
+def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool = True) -> None:
+    """The graph runner and the eager loop from the same seed-0 weights,
+    generator seed and ``n_steps`` batches of the train split: their first
+    epochs compared (gated at rel 1e-6 when ``gate``), then ``rounds``
+    epochs of each timed in turns (train samples/s, host clock from a sync to a
+    sync); the graph's first call (its first step eager, the capture, the
+    replays) less a later call is what the capture adds. Then a profile of
+    a graph epoch of ``profiled_steps`` steps (its idle share, device events
+    a step, and the profiler's kernel counts against the wrappers'), and of
+    one eager step with the card's capturable Adam (for ``mnist`` also with
+    the CPU's plain one)."""
+    name, bs = cfg.name, cfg.batch_size
+    batches = train_batches(n_steps, bs, "cuda", seed=1, config=name)
+    runners, first, runs = first_epochs(cfg, batches)
     compared = graph_vs_eager(runs)
     emit({"phase": "train_graph_vs_eager", "config": name, "steps": n_steps, "batch": bs,
           "cudnn": "default algorithms", "gated": gate, **compared})
@@ -1126,6 +1246,27 @@ def phase_multimnist_train() -> dict[str, int]:
     return launches
 
 
+def compare_runs(run_a, run_b, init: dict) -> dict:
+    """Two runs' losses, raw gradient norms and parameters (``run_metrics``
+    and a name -> tensor dict on the CPU each), the second the reference,
+    from the parameters ``init``: the relative errors the card-vs-CPU gates
+    read, the three parameters with the largest update error, and whether
+    every bit is equal."""
+    (l_a, g_a, p_a), (l_b, g_b, p_b) = run_a, run_b
+    update_rel = {k: ((p_a[k] - w).norm() / (w - init[k]).norm()).item()
+                  for k, w in p_b.items()}
+    return {"loss_rel": [abs(a - b) / abs(b) for a, b in zip(l_a, l_b)],
+            "grad_norm_rel": [abs(a - b) / abs(b) for a, b in zip(g_a, g_b)],
+            "param_rel_max": max(((p_a[k] - w).norm() / w.norm()).item()
+                                 for k, w in p_b.items()),
+            "update_rel_max": max(update_rel.values()),
+            "update_rel_top": sorted(update_rel.items(), key=lambda kv: -kv[1])[:3],
+            "param_max_abs_err": max((p_a[k] - w).abs().max().item()
+                                     for k, w in p_b.items()),
+            "bits_equal": l_a == l_b and g_a == g_b
+            and all(torch.equal(p_a[k], w) for k, w in p_b.items())}
+
+
 def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
     """``n_steps`` of the ``multimnist`` step at full width and batch
     ``bs`` on the card (its kernels) and on the CPU from the same seeded
@@ -1181,19 +1322,7 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
                 {k: p.detach().cpu() for k, p in model.named_parameters()})
 
     def compare(run_a, run_b) -> dict:
-        (l_a, g_a, p_a), (l_b, g_b, p_b) = run_a, run_b
-        update_rel = {k: ((p_a[k] - w).norm() / (w - init[k]).norm()).item()
-                      for k, w in p_b.items()}
-        return {"loss_rel": [abs(a - b) / abs(b) for a, b in zip(l_a, l_b)],
-                "grad_norm_rel": [abs(a - b) / abs(b) for a, b in zip(g_a, g_b)],
-                "param_rel_max": max(((p_a[k] - w).norm() / w.norm()).item()
-                                     for k, w in p_b.items()),
-                "update_rel_max": max(update_rel.values()),
-                "update_rel_top": sorted(update_rel.items(), key=lambda kv: -kv[1])[:3],
-                "param_max_abs_err": max((p_a[k] - w).abs().max().item()
-                                         for k, w in p_b.items()),
-                "bits_equal": l_a == l_b and g_a == g_b
-                and all(torch.equal(p_a[k], w) for k, w in p_b.items())}
+        return compare_runs(run_a, run_b, init)
 
     card_renders, cpu_renders = [], []
     eager = run("cuda", True, card_renders)
@@ -1224,6 +1353,103 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
     if not worst <= 1e-4:
         raise AssertionError(
             f"multimnist train: card and CPU differ: {gated}, render flips {flips}")
+
+
+CELEBA_TRAIN_SIZE = 1280  # one epoch of 20 steps of batch 64
+
+
+def phase_celeba_train() -> dict[str, int]:
+    """``api.train`` of ``celeba`` (4 random subsets, T = 24, clipping at
+    500; K4 and its backward kernel in stage 0) for one epoch at full width
+    over a train split cut to 1,280 examples on the graph runners (the
+    launch counts through the replays, and the profiler's); then the graph
+    against the eager loop over an epoch on cuDNN's deterministic
+    algorithms (gated at rel 1e-6), both on its default ones timed in turns
+    (``train_rate``), a profiled step and the card against the CPU over
+    three steps."""
+    cfg = configs.get_config("celeba").replace(epochs=1, train_size=CELEBA_TRAIN_SIZE)
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    result, launches, wall_s = train_counted(cfg)
+    record = result.history[0]
+    steps = CELEBA_TRAIN_SIZE // cfg.batch_size
+    emit({"phase": "train", "config": "celeba", "epochs": 1, "steps": result.state.step,
+          "train_size": CELEBA_TRAIN_SIZE, "n_random_subsets": cfg.n_random_subsets,
+          "train_loss": record["train_loss"], "test_elbo": record["test_elbo"],
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if result.state.step != steps or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"celeba train: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"celeba train: test ELBO {record['test_elbo']} not below the untrained {untrained}")
+    # cuDNN's default algorithms (the deconv decoder's backward) may sum in
+    # another order run to run: the gate is the same epoch on its
+    # deterministic ones, the masks and the noise drawn inside the steps.
+    batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config="celeba")
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, runs = first_epochs(cfg, batches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    compared = graph_vs_eager(runs)
+    emit({"phase": "train_graph_vs_eager", "config": "celeba", "steps": steps,
+          "batch": cfg.batch_size, "cudnn": "deterministic algorithms", "gated": True,
+          **compared})
+    if not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
+        raise AssertionError(f"celeba: graph and eager epochs differ: {compared}")
+    train_rate(cfg, steps, rounds=1, profiled_steps=10, gate=False)
+    celeba_card_vs_cpu(cfg)
+    return launches
+
+
+def celeba_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16) -> None:
+    """``n_steps`` of the ``celeba`` step at full width and batch ``bs`` on
+    the card (the graph runner, its kernels) and on the CPU (the eager
+    loop) from the same seeded weights, batches, random subset masks and
+    noise (passed in), under ``train_card_vs_cpu``'s gates (rel 1e-4). The
+    card runs cuDNN's deterministic algorithms, so the reading repeats.
+    Reported beside the gates: the parameters with the largest update error
+    and, for the worst, how many of its components differ by more than half
+    the learning rate (Adam's sign of a gradient component at its rounding
+    level), the share of its squared error in its 1% largest differences,
+    and the CPU's median update there and over the tensor (whether small or
+    large components carry the error)."""
+    n_mod, k = 19, cfg.n_random_subsets
+    batches = train_batches(n_steps, bs, "cpu", seed=2, config="celeba")
+    gen = torch.Generator().manual_seed(3)
+    batches["subset_masks"] = (torch.rand((n_steps, k, n_mod), generator=gen) < 0.5).float()
+    batches["eps"] = torch.randn((n_steps, 1 + n_mod + k, bs, cfg.n_latents), generator=gen)
+    init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        torch.backends.cudnn.deterministic = dev == "cuda"
+        try:
+            model = configs.build_model(cfg, seed=0, device=dev)
+            state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+            runner = make_epoch_runner(model, graph=dev == "cuda", annealing_steps=1000,
+                                       **api.step_options(cfg))
+            _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
+        finally:
+            torch.backends.cudnn.deterministic = False
+        runs[dev] = (*run_metrics(metrics),
+                     {k: p.detach().cpu() for k, p in model.named_parameters()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    gated = compare_runs(card, cpu, init)
+    worst = gated["update_rel_top"][0][0]
+    diff = (card[2][worst] - cpu[2][worst]).abs().flatten()
+    update = (cpu[2][worst] - init[worst].detach()).abs().flatten()
+    top = diff.argsort(descending=True)[: max(1, diff.numel() // 100)]
+    emit({"phase": "train_card_vs_cpu", "config": "celeba", "steps": n_steps, "batch": bs,
+          "card": "graph runner", "cpu": "eager loop", "loss_card": card[0], "loss_cpu": cpu[0],
+          "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated,
+          "worst_tensor": {
+              "name": worst, "numel": diff.numel(), "max_abs_diff": diff.max().item(),
+              "components_over_half_lr": int((diff > 0.5 * cfg.learning_rate).sum()),
+              "top_1pct_share_of_squared_error": ((diff[top] ** 2).sum() / (diff ** 2).sum()).item(),
+              "update_median_at_top_1pct": update[top].median().item(),
+              "update_median": update.median().item()}})
+    if not max(max(gated["loss_rel"]), max(gated["grad_norm_rel"]), gated["param_rel_max"],
+               gated["update_rel_max"]) <= 1e-4:
+        raise AssertionError(f"celeba train: card and CPU differ: {gated}")
 
 
 def phase_workdir() -> None:
@@ -1504,6 +1730,7 @@ def main() -> None:
     launches = timed("main_path", phase_main_path)
     launches["mnist_train"] = timed("train", phase_train)
     launches["multimnist_train"] = timed("multimnist_train", phase_multimnist_train)
+    launches["celeba_train"] = timed("celeba_train", phase_celeba_train)
     timed("workdir", phase_workdir)
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)

@@ -27,12 +27,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from mmvae_torch.configs import (
-    UNPORTED_TRAIN_FIELDS,
-    ExperimentConfig,
-    build_model,
-    get_config,
-)
+from mmvae_torch.configs import ExperimentConfig, build_model, get_config
 from mmvae_torch.core import fuse_observed_z
 from mmvae_torch.data import Dataset, load_dataset, stacked_epoch_padded
 from mmvae_torch.device import resolve_device
@@ -179,20 +174,12 @@ class TrainResult(NamedTuple):
     history: list[dict[str, float]]
 
 
-def _check_trainable(config: ExperimentConfig) -> None:
-    """Raise on a config that sets a training feature not ported yet."""
-    set_knobs = [k for k in UNPORTED_TRAIN_FIELDS if getattr(config, k)]
-    if set_knobs:
-        raise NotImplementedError(
-            f"config {config.name!r} sets {set_knobs}: not yet ported to mmvae_torch"
-        )
-
-
 def step_options(config: ExperimentConfig) -> dict[str, Any]:
     """The keywords of ``make_train_step`` (and ``make_epoch_runner``) that
-    ``config`` sets: presence dropout and the loss's options
-    (``mmvae_tpu/api.py:591-613``)."""
+    ``config`` sets: the random subset terms, presence dropout and the
+    loss's options (``mmvae_tpu/api.py:591-613``)."""
     return dict(
+        n_random_subsets=config.n_random_subsets,
         p_modality_drop=config.p_modality_drop,
         cross_recon=config.cross_recon,
         cross_recon_weight=config.cross_recon_weight,
@@ -239,12 +226,10 @@ def train(
     Returns the config, the model (the live parameters), the train state,
     the best test ELBO and one history record per epoch this call ran (its
     mean train loss, its mean ``cycle_ce`` where the config has the cycle
-    term, and its test ELBO). A config that sets a training feature not
-    ported yet raises.
+    term, and its test ELBO).
     """
     if isinstance(config, str):
         config = get_config(config)
-    _check_trainable(config)
     device = resolve_device(device)
     if workdir is not None:
         _save_run_config(workdir, config)

@@ -2,13 +2,10 @@
 
 Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
 experiments raise until their slice lands. The fields are those the
-inference slices, the MNIST and MultiMNIST training slices and the
-checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``), and the one training
-feature the ``celeba`` config sets that is not ported yet
-(:data:`UNPORTED_TRAIN_FIELDS`: ``n_random_subsets``); ``api.train``
-raises ``NotImplementedError`` when it is set, so training CelebA raises
-until its slice lands. The JAX configs' other knobs (gradient
+inference slices, the MNIST, MultiMNIST and CelebA training slices and
+the checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
+defaults (``mmvae_tpu/configs.py:30-175``); every config here trains
+with ``api.train``. The JAX configs' other knobs (gradient
 accumulation, LR schedules, shuffle modes, the data backends, mesh
 layouts, ``cross_recon_stopgrad``, ``unimodal_align_weight``,
 ``cycle_contrast_weight``) are left out until a slice reads them. Eval
@@ -28,7 +25,6 @@ from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
 __all__ = [
     "ExperimentConfig",
     "CONFIGS",
-    "UNPORTED_TRAIN_FIELDS",
     "get_config",
     "build_model",
 ]
@@ -75,11 +71,6 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
-
-
-# The training features ``api.train`` does not take yet: each must be
-# falsy (off) to train.
-UNPORTED_TRAIN_FIELDS = ("n_random_subsets",)
 
 
 CONFIGS: dict[str, ExperimentConfig] = {

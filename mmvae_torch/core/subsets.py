@@ -22,19 +22,20 @@ def elbo_subset_masks(
 
 
 def random_subset_masks(
-    generator: torch.Generator,
+    generator: torch.Generator | None,
     n_subsets: int,
     n_modalities: int,
     dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """``k`` random modality-combination masks, ``(k, n_modalities)``.
 
-    Each entry is Bernoulli(0.5), drawn from ``generator`` on its device.
-    The empty subset is allowed: its posterior is the prior, its KL 0 and
-    all its recon terms masked out.
+    Each entry is Bernoulli(0.5), drawn from ``generator`` on ``device``
+    (by default the generator's; with no generator, that device's default
+    one). The empty subset is allowed: its posterior is the prior, its KL 0
+    and all its recon terms masked out.
     """
-    u = torch.rand(
-        (n_subsets, n_modalities), generator=generator,
-        device=generator.device,
-    )
+    if device is None and generator is not None:
+        device = generator.device
+    u = torch.rand((n_subsets, n_modalities), generator=generator, device=device)
     return (u < 0.5).to(dtype)

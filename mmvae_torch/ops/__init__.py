@@ -7,20 +7,21 @@ CPU tensors; ``"kernel"`` raises on a CPU tensor; ``"torch"`` runs the
 plain version everywhere (the on-card reference the kernels are held
 against).
 
-Gradients. ``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce`` and
-``poe_kl`` are ``torch.autograd.Function``s on both paths: their backward
-runs the backward kernel where the forward ran a kernel
-(``kl_rows_grad``, ``bce_rows_grad``, ``seq_ce_rows_grad``,
-``poe_kl_bwd``) and its plain version where the forward ran the plain one,
-with the analytic VJPs of the TPU kernels (``_kl_bwd``; ``_bce_bwd``:
-dlogits = g * (sigmoid(l) - x); ``_seq_ce_bwd``: dlogits = g * (softmax(l)
-- onehot(token)) on the non-pad tokens). The targets of ``bernoulli_nll``
-get dx = -g * l on the plain path only; the kernel path raises when they
-require grad. The tokens of ``masked_seq_ce`` get no gradient. ``poe_kl``
+Gradients. ``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce``,
+``poe_kl`` and ``conv4x4s2_swish`` are ``torch.autograd.Function``s on
+both paths: their backward runs the backward kernel where the forward ran
+a kernel (``kl_rows_grad``, ``bce_rows_grad``, ``seq_ce_rows_grad``,
+``poe_kl_bwd``, ``conv4x4s2_swish_bwd``) and its plain version where the
+forward ran the plain one, with the analytic VJPs of the TPU kernels
+(``_kl_bwd``; ``_bce_bwd``: dlogits = g * (sigmoid(l) - x);
+``_seq_ce_bwd``: dlogits = g * (softmax(l) - onehot(token)) on the non-pad
+tokens) and, for the conv, the gradient XLA takes of stage 0 (dW and db
+from ``g * swish'(pre)``, ``pre`` recomputed). The targets of
+``bernoulli_nll`` get dx = -g * l, and the image of ``conv4x4s2_swish``
+its dx, on the plain path only; the kernel path raises when they require
+grad. The tokens of ``masked_seq_ce`` get no gradient. ``poe_kl``
 differentiates the expert stack only and raises on both paths when
-``masks`` or ``presence`` requires grad. ``conv4x4s2_swish`` has no
-backward kernel yet: its kernel path raises when grad mode is on and an
-input requires grad; its plain path is differentiated by autograd.
+``masks`` or ``presence`` requires grad.
 
 Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``masked_seq_ce`` accept targets with fewer leading rows than the logits,
@@ -88,21 +89,12 @@ def _kernel_path(t: torch.Tensor) -> bool:
     return _backend == "kernel" or (_backend == "auto" and t.is_cuda)
 
 
-def _use_kernel(
-    op: str, t: torch.Tensor, *more: torch.Tensor, differentiable: bool = False
-) -> bool:
-    """Whether ``op`` takes its kernel for inputs ``t, *more``.
-
-    An op without a backward kernel (``differentiable=False``) raises on
-    the kernel path where autograd would record it: grad mode on and an
-    input that requires grad. It never falls back to the plain path."""
+def _use_kernel(t: torch.Tensor) -> bool:
+    """Whether an op on ``t`` takes its kernel: the backend rule, and on
+    the kernel path ``t`` must be a CUDA tensor (it never falls back to the
+    plain path)."""
     if not _kernel_path(t):
         return False
-    if not differentiable and _records_grad(t, *more):
-        raise RuntimeError(
-            f"ops.{op}: the kernel's backward is not yet ported to mmvae_torch; "
-            "call it under torch.no_grad() or with set_backend('torch')"
-        )
     if not t.is_cuda:
         raise ValueError(
             f"ops backend 'kernel' needs CUDA tensors, got one on {t.device}"
@@ -152,7 +144,7 @@ class _KlStdNormal(torch.autograd.Function):
 
 def kl_std_normal(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """KL(N(mu, e^logvar) || N(0, I)) summed over the last dim."""
-    kernel = _use_kernel("kl_std_normal", mu, logvar, differentiable=True)
+    kernel = _use_kernel(mu)
     return _KlStdNormal.apply(mu, logvar, kernel)
 
 
@@ -229,13 +221,13 @@ def bernoulli_nll(
             f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
             f"{len(batch_shape)} (not yet ported to mmvae_torch)"
         )
-    # Checked before the device, as the ops without a backward kernel do.
+    # Refused before the device is checked: no kernel gives dx, on any device.
     if _kernel_path(logits) and _records_grad(x):
         raise RuntimeError(
             "ops.bernoulli_nll: the kernel path has no gradient in the targets (dx); "
             "call it with targets that do not require grad, or with set_backend('torch')"
         )
-    kernel = _use_kernel("bernoulli_nll", logits, x, differentiable=True)
+    kernel = _use_kernel(logits)
     return _BernoulliNll.apply(logits, x, event_ndims, mode, kernel)
 
 
@@ -267,7 +259,7 @@ def masked_seq_ce(
     """
     mode = _fold(logits.shape[0], tokens.shape[0], fold)
     tokens = kernels.tile_rows(tokens, logits.shape[0], mode)
-    kernel = _use_kernel("masked_seq_ce", logits, differentiable=True)
+    kernel = _use_kernel(logits)
     return _MaskedSeqCe.apply(logits, tokens, pad_token, kernel)
 
 
@@ -306,10 +298,46 @@ def conv4x4s2_swish(
 ) -> torch.Tensor:
     """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
-    ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32."""
-    if not _use_kernel("conv4x4s2_swish", x, weight, bias):
-        return kernels.conv4x4s2_swish_torch(x, weight, bias)
-    return kernels.conv4x4s2_swish_kernel(x.contiguous(), weight.contiguous(), bias.contiguous())
+    ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32; its backward
+    kernel gives the weight's and the bias's gradients, f32 only."""
+    # Refused before the device is checked, as the BCE's targets are.
+    if _kernel_path(x) and _records_grad(x):
+        raise RuntimeError(
+            "ops.conv4x4s2_swish: the kernel path has no gradient in the input (dx); "
+            "call it with an input that does not require grad, or with set_backend('torch')"
+        )
+    kernel = _use_kernel(x)
+    return _Conv4x4s2Swish.apply(x, weight, bias, kernel)
+
+
+class _Conv4x4s2Swish(torch.autograd.Function):
+    """K4 and its backward in the weight and bias; ``kernel`` picks the
+    CUDA kernels (``conv4x4s2_swish``, ``conv4x4s2_swish_bwd``). The plain
+    path also gives the input's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kernel: bool):
+        ctx.kernel = kernel
+        if kernel:
+            x, weight, bias = x.contiguous(), weight.contiguous(), bias.contiguous()
+            out = kernels.conv4x4s2_swish_kernel(x, weight, bias)
+        else:
+            out = kernels.conv4x4s2_swish_torch(x, weight, bias)
+        ctx.save_for_backward(x, weight, bias)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        if ctx.kernel:
+            d_w, d_b = kernels.conv4x4s2_swish_grad_kernel(x, weight, bias, g)
+            return None, d_w, d_b, None
+        d_w, d_b = kernels.conv4x4s2_swish_grad_torch(x, weight, bias, g)
+        d_x = None
+        if ctx.needs_input_grad[0]:
+            d_x = kernels.conv4x4s2_swish_input_grad_torch(x, weight, bias, g)
+        return d_x, d_w.to(weight.dtype), d_b.to(bias.dtype), None
 
 
 def poe_kl(
@@ -331,8 +359,7 @@ def poe_kl(
             "ops.poe_kl: the backward of masks and presence is not yet ported to "
             "mmvae_torch (only the expert stack is differentiated)"
         )
-    more = (lv_e, masks) if presence is None else (lv_e, masks, presence)
-    kernel = _use_kernel("poe_kl", mu_e, *more, differentiable=True)
+    kernel = _use_kernel(mu_e)
     return _PoeKl.apply(mu_e, lv_e, masks, presence, kernel)
 
 

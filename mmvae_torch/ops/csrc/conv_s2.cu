@@ -48,10 +48,44 @@
 // bits. The output is written in the input's type (round to nearest even
 // for bf16). No fast-math: expf tracks the plain PyTorch version to rounding.
 //
+// The backward, conv4x4s2_swish_bwd: the gradient of the weight and the
+// bias (not of x) given the upstream gradient g (B, 32, ceil(H/2),
+// ceil(W/2)) of y, f32 only. With pre = b[o] + the conv sum,
+//     dw[o, c, ky, kx] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j])
+//                                     * x[n, 2i+ky-pt, 2j+kx-pl, c],
+//     db[o] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j]),
+// swish'(u) = s(u) * (1 + u * (1 - s(u))), s the logistic sigmoid; the same
+// SAME pad (out of range reads 0). The TPU side has no Pallas VJP for K4:
+// the JAX package leaves stage 0's gradient to XLA (mmvae_tpu/models/
+// experts.py:220-229; tools/pallas_conv_probe.py:xla_conv0 is its form).
+// pre is recomputed from x, w and b rather than written by the forward, so
+// the forward stays as it is.
+//
+// What bounds it: at the CelebA train shape (64, 64, 64, 3) it reads x
+// (3.15 MB) and g (8.39 MB), 3.4 us at 3.35 TB/s; per (output, channel)
+// pair the recompute's 48 FMAs, the swish' and the 49 FMAs of the
+// accumulation, 0.42 GFLOP, 6.3 us at 67 TFLOP/s of f32: it is bound by
+// operations, and its outputs are 32 x 49 sums of 65,536 terms each.
+//
+// Design (the first, simple form). A unit is the forward's: 32 output
+// pixels of one output row of one image, one warp. The warp stages the
+// unit's 4 input rows (66 columns from column -1 on, zero where the pad
+// or the edge falls) and its 32 x 32 tile of g, transposed, in its slice of
+// shared memory. Lane o owns output channel o: its 16 * C weights in
+// registers and 16 * C + 1 running sums (dw's row and db). Per pair of
+// adjacent pixels and input row it reads the pair's window (6 columns x C,
+// float4 broadcasts: every lane reads the same address) once for the
+// recompute and once for the accumulation. A block of `warps` warps walks
+// units with the grid's stride, then sums its warps' sums in a fixed order
+// into its row of a workspace; a second launch sums the rows, in a fixed
+// order (8 chains of every 8th row, then the 8 chains), into dw and db. No atomics: two calls with the same plan give the
+// same bits. No fast-math.
+//
 // C interface (bound with ctypes): conv4x4s2_swish launches on `stream`
 // with the plan it is given (warps a block, blocks, dynamic shared memory),
 // does not synchronise, and returns cudaGetLastError() of its launch (or
-// cudaErrorInvalidValue for arguments it does not take).
+// cudaErrorInvalidValue for arguments it does not take);
+// conv4x4s2_swish_bwd likewise, for its two launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -375,6 +409,248 @@ bool plan_ok(int c, int warps, int smem) {
          static_cast<size_t>(smem) >= smem_of(c, warps) && static_cast<size_t>(smem) <= kMaxSmem;
 }
 
+// ------------------------------------------------------------ backward --
+
+// Float4s of one staged row that a pair of adjacent output pixels reads:
+// 6 columns x c floats.
+__host__ __device__ constexpr int bwd_nv(int c) { return (6 * c + 3) / 4; }
+// Floats of one staged input row of the backward: column -1 at offset 0,
+// 66 columns of c, and room for the last pair's float4 window (from column
+// 60 on), rounded up to a float4.
+__host__ __device__ constexpr int bwd_row_floats(int c) {
+  return ((kTileCols * c > 60 * c + 4 * bwd_nv(c) ? kTileCols * c : 60 * c + 4 * bwd_nv(c)) + 3) /
+         4 * 4;
+}
+constexpr int kGStride = kCout + 1;  // a staged pixel's 32 channels, one float of pad
+// Floats of a warp's slice: the 4 rows and the g tile. It also holds the
+// warp's (16 * c + 1) x 32 sums at the end.
+__host__ __device__ constexpr int bwd_warp_floats(int c) {
+  return 4 * bwd_row_floats(c) + kTileW * kGStride;
+}
+size_t bwd_smem_of(int c, int warps) {
+  return sizeof(float) * static_cast<size_t>(warps) * bwd_warp_floats(c);
+}
+
+// swish'(u) = s (1 + u (1 - s)), s = 1 / (1 + e^-u).
+__device__ __forceinline__ float dswish(float u) {
+  const float s = 1.0f / (1.0f + expf(-u));
+  return s * (1.0f + u * (1.0f - s));
+}
+
+template <int C>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    conv_s2_bwd_partials_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                const float* __restrict__ bias, const float* __restrict__ g,
+                                long long sn, long long so, long long sh, long long sw,
+                                float* __restrict__ ws, int h, int wd, int h_out, int w_out,
+                                int n_chunks, int units) {
+  constexpr int kK = kTaps * C;  // the sums of dw's row: [ky][kx][c]
+  constexpr int kRow = bwd_row_floats(C);
+  constexpr int kNV = bwd_nv(C);
+  constexpr int kSlice = bwd_warp_floats(C);
+  constexpr int kStage = 4 * kRow;
+  constexpr int kPerLane = (kStage + 31) / 32;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* buf = smem + warp * kSlice;  // [row][col -1 .. 64][c]
+  float* sg = buf + kStage;           // [pixel][channel], padded rows
+  const int o = lane;
+
+  float wr[kK];
+#pragma unroll
+  for (int ky = 0; ky < 4; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 4; ++kx) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        wr[(ky * 4 + kx) * C + c] = __ldg(w + ((o * C + c) * 4 + ky) * 4 + kx);
+      }
+    }
+  }
+  const float bo = __ldg(bias + o);
+  float acc[kK + 1];
+#pragma unroll
+  for (int k = 0; k <= kK; ++k) acc[k] = 0.0f;
+
+  const long long row_len = static_cast<long long>(wd) * C;
+  for (int u = blockIdx.x * warps + warp; u < units; u += gridDim.x * warps) {
+    const int chunk = u % n_chunks;
+    const int rest = u / n_chunks;
+    const int oy = rest % h_out;
+    const int n = rest / h_out;
+    // Every load of the unit first: the 4 input rows, then lane q's pixel
+    // of g in each of the 32 channels.
+    float v[kPerLane];
+    const long long c0 = static_cast<long long>(chunk * 2 * kTileW - 1) * C;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int idx = lane + 32 * k;
+      const int r = idx / kRow;
+      const int s = idx - r * kRow;
+      const int iy = 2 * oy - 1 + r;
+      const long long col = c0 + s;
+      const bool ok = idx < kStage && s < kTileCols * C && iy >= 0 && iy < h && col >= 0 &&
+                      col < row_len;
+      v[k] = ok ? __ldg(x + (static_cast<long long>(n) * h + iy) * row_len + col) : 0.0f;
+    }
+    const int ox = chunk * kTileW + lane;
+    const float* gp = g + n * sn + oy * sh + static_cast<long long>(ox) * sw;
+    float gv[kCout];
+#pragma unroll
+    for (int oc = 0; oc < kCout; ++oc) gv[oc] = ox < w_out ? __ldg(gp + oc * so) : 0.0f;
+    __syncwarp();  // the previous unit is no longer read
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int idx = lane + 32 * k;
+      if (idx < kStage) buf[idx] = v[k];
+    }
+#pragma unroll
+    for (int oc = 0; oc < kCout; ++oc) sg[lane * kGStride + oc] = gv[oc];
+    __syncwarp();
+
+#pragma unroll 1
+    for (int p = 0; p < kTileW / 2; ++p) {
+      // The pair's window starts at column 2 * (2p) - 1, float 4 p C of a
+      // row: a float4 boundary.
+      const float4* win4 = reinterpret_cast<const float4*>(buf) + p * C;
+      float part0[4], part1[4];
+#pragma unroll
+      for (int ky = 0; ky < 4; ++ky) {
+        float win[4 * kNV];
+#pragma unroll
+        for (int i = 0; i < kNV; ++i) {
+          const float4 t = win4[ky * (kRow / 4) + i];
+          win[4 * i + 0] = t.x;
+          win[4 * i + 1] = t.y;
+          win[4 * i + 2] = t.z;
+          win[4 * i + 3] = t.w;
+        }
+        float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+        for (int kx = 0; kx < 4; ++kx) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float wv = wr[(ky * 4 + kx) * C + c];
+            a0 = fmaf(wv, win[kx * C + c], a0);
+            a1 = fmaf(wv, win[(kx + 2) * C + c], a1);
+          }
+        }
+        part0[ky] = a0;
+        part1[ky] = a1;
+      }
+      const float u0 = bo + ((part0[0] + part0[1]) + (part0[2] + part0[3]));
+      const float u1 = bo + ((part1[0] + part1[1]) + (part1[2] + part1[3]));
+      const float s0 = sg[(2 * p) * kGStride + o] * dswish(u0);
+      const float s1 = sg[(2 * p + 1) * kGStride + o] * dswish(u1);
+#pragma unroll
+      for (int ky = 0; ky < 4; ++ky) {
+        float win[4 * kNV];
+#pragma unroll
+        for (int i = 0; i < kNV; ++i) {
+          const float4 t = win4[ky * (kRow / 4) + i];
+          win[4 * i + 0] = t.x;
+          win[4 * i + 1] = t.y;
+          win[4 * i + 2] = t.z;
+          win[4 * i + 3] = t.w;
+        }
+#pragma unroll
+        for (int kx = 0; kx < 4; ++kx) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float& a = acc[(ky * 4 + kx) * C + c];
+            a = fmaf(s0, win[kx * C + c], a);
+            a = fmaf(s1, win[(kx + 2) * C + c], a);
+          }
+        }
+      }
+      acc[kK] += s0;
+      acc[kK] += s1;
+    }
+  }
+
+  // The block's sums: each warp's into its slice, then warp 0's + warp 1's
+  // + ... in that order, into the block's row of the workspace.
+  __syncthreads();
+  float* mine = smem + warp * kSlice;
+#pragma unroll
+  for (int k = 0; k <= kK; ++k) mine[k * kCout + lane] = acc[k];
+  __syncthreads();
+  constexpr int kOut = (kK + 1) * kCout;
+  for (int i = threadIdx.x; i < kOut; i += blockDim.x) {
+    float s = 0.0f;
+    for (int wi = 0; wi < warps; ++wi) s += smem[wi * kSlice + i];
+    ws[static_cast<size_t>(blockIdx.x) * kOut + i] = s;
+  }
+}
+
+// dw and db from the blocks' rows of sums, entry t = k * 32 + o, k = (ky *
+// 4 + kx) * c + ch (k = 16 c: the bias). A block takes one k, its 32
+// entries (a 128-byte line of each row) and kReduceRows rows of threads:
+// thread (o, y) sums rows y, y + kReduceRows, ... in order, then thread
+// (o, 0) adds the kReduceRows sums in order. A fixed order throughout.
+constexpr int kReduceRows = 8;
+
+__global__ void __launch_bounds__(kCout * kReduceRows)
+    conv_s2_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
+                              float* __restrict__ db, int c, int parts) {
+  __shared__ float part[kReduceRows][kCout];
+  const int kk = kTaps * c;
+  const int n_out = (kk + 1) * kCout;
+  const int k = blockIdx.x;
+  const int o = threadIdx.x;
+  const int y = threadIdx.y;
+  const float* src = ws + k * kCout + o;
+  float s = 0.0f;
+#pragma unroll 4
+  for (int r = y; r < parts; r += kReduceRows) s += __ldg(src + static_cast<size_t>(r) * n_out);
+  part[y][o] = s;
+  __syncthreads();
+  if (y != 0) return;
+  float total = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kReduceRows; ++i) total += part[i][o];
+  if (k == kk) {
+    db[o] = total;
+    return;
+  }
+  const int ky = k / (4 * c);
+  const int kx = (k / c) % 4;
+  const int ch = k % c;
+  dw[((o * c + ch) * 4 + ky) * 4 + kx] = total;
+}
+
+template <int C>
+int launch_bwd(const float* x, const float* w, const float* b, const float* g, long long sn,
+               long long so, long long sh, long long sw, float* ws, float* dw, float* db,
+               int batch, int h, int wd, int warps, int blocks, int smem, cudaStream_t stream) {
+  const int h_out = (h + 1) / 2;
+  const int w_out = (wd + 1) / 2;
+  const int n_chunks = (w_out + kTileW - 1) / kTileW;
+  const long long units = static_cast<long long>(batch) * h_out * n_chunks;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (static_cast<size_t>(smem) > kDefaultSmem) {
+    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  conv_s2_bwd_partials_kernel<C><<<blocks, warps * 32, smem, stream>>>(
+      x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, static_cast<int>(units));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_s2_bwd_reduce_kernel<<<kTaps * C + 1, dim3(kCout, kReduceRows), 0, stream>>>(
+      ws, dw, db, C, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bwd_plan_ok(int c, int warps, int smem) {
+  return c >= 1 && c <= 4 && warps >= 1 && warps <= kMaxWarps && smem >= 0 &&
+         static_cast<size_t>(smem) >= bwd_smem_of(c, warps) &&
+         static_cast<size_t>(smem) <= kMaxSmem;
+}
+
 }  // namespace
 
 extern "C" const char* conv_s2_error_string(int code) {
@@ -396,4 +672,41 @@ extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void
     return dispatch_c<__nv_bfloat16>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f32 only. g is read through its strides (sn, so, sh, sw, in elements),
+// so a view of the next stage's padded gradient needs no copy; ws holds
+// blocks x (16 c + 1) x 32 floats. warps, blocks and smem: the launch plan
+// (kernels.py:conv_bwd_plan).
+extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, const void* g,
+                                   long long sn, long long so, long long sh, long long sw,
+                                   void* ws, void* dw, void* db, int batch, int h, int wd, int c,
+                                   int warps, int blocks, int smem, cudaStream_t stream) {
+  if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
+      !bwd_plan_ok(c, warps, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  const float* gf = static_cast<const float*>(g);
+  float* wsf = static_cast<float*>(ws);
+  float* dwf = static_cast<float*>(dw);
+  float* dbf = static_cast<float*>(db);
+  switch (c) {
+    case 1:
+      return launch_bwd<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
+                           blocks, smem, stream);
+    case 2:
+      return launch_bwd<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
+                           blocks, smem, stream);
+    case 3:
+      return launch_bwd<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
+                           blocks, smem, stream);
+    case 4:
+      return launch_bwd<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
+                           blocks, smem, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

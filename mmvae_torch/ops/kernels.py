@@ -16,6 +16,9 @@
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
     NHWC image with 1-4 channels into 32 NCHW channels, a warp per
     32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes;
+    ``conv4x4s2_swish_grad_kernel`` is its backward in the weight and the
+    bias (XLA's gradient of stage 0 on the TPU side, which has no Pallas
+    VJP), in the grid :func:`conv_bwd_plan` sizes;
   * ``poe_kl_kernel`` is the masked product of experts of the eval with
     K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
     a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
@@ -103,6 +106,11 @@ __all__ = [
     "same_pad",
     "conv4x4s2_swish_kernel",
     "conv4x4s2_swish_torch",
+    "ConvBwdPlan",
+    "conv_bwd_plan",
+    "conv4x4s2_swish_grad_kernel",
+    "conv4x4s2_swish_grad_torch",
+    "conv4x4s2_swish_input_grad_torch",
     "PoeKlPlan",
     "poe_kl_plan",
     "poe_kl_kernel",
@@ -121,7 +129,7 @@ FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
 LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0,
-            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0}
+            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -159,6 +167,8 @@ _SIGNATURES = {
     "conv_s2": {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                             _i32, _i32, _i32, _ptr],
+        "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
+                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -904,6 +914,146 @@ def conv4x4s2_swish_torch(
         bias.to(torch.float32), stride=2,
     )
     return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+# The backward of K4 keeps a warp a unit (the forward's units) and a lane
+# an output channel, whose 16 * C weights and 16 * C + 1 sums sit in
+# registers: its launch bound, 256 threads and one block an SM, lets a
+# thread take up to 255 registers.
+CONV_BWD_WARPS = CONV_MAX_WARPS
+CONV_BWD_BLOCKS_PER_SM = 1
+CONV_BWD_G_STRIDE = CONV_OUT + 1  # a staged pixel of g: 32 channels and a pad float
+
+
+class ConvBwdPlan(NamedTuple):
+    """Launch of ``conv4x4s2_swish_bwd``: warps a block, blocks (each walks
+    units with the grid's stride and writes one row of partial sums), and
+    the block's dynamic shared memory in bytes."""
+
+    warps: int
+    blocks: int
+    smem: int
+
+
+def conv_bwd_row_floats(c: int) -> int:
+    """Floats of one staged input row of K4's backward: column -1 at
+    offset 0, CONV_TILE_COLS columns of ``c``, and the last pixel pair's
+    float4 window (6 columns from column 60 on), rounded up to a float4."""
+    window = 4 * -(-(6 * c) // 4)
+    return -(-max(CONV_TILE_COLS * c, 60 * c + window) // 4) * 4
+
+
+def conv_bwd_warp_floats(c: int) -> int:
+    """Floats of a warp's slice of shared memory: its 4 staged rows and
+    the 32 x 32 tile of g, one pad float a pixel."""
+    return 4 * conv_bwd_row_floats(c) + CONV_TILE_W * CONV_BWD_G_STRIDE
+
+
+@lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
+def conv_bwd_plan(b: int, h: int, w: int, c: int, sms: int = H100_SMS) -> ConvBwdPlan:
+    """The launch of K4's backward for an NHWC ``(b, h, w, c)`` batch on a
+    card of ``sms`` SMs: blocks of CONV_BWD_WARPS warps, one an SM, or
+    fewer when there are fewer units (a warp a unit, :func:`conv_units`);
+    shared memory for each warp's slice (:func:`conv_bwd_warp_floats`). The
+    blocks' partial sums take ``blocks x (16 c + 1) x 32`` floats of
+    workspace."""
+    units = conv_units(b, h, w)
+    blocks = max(1, min(-(-units // CONV_BWD_WARPS), sms * CONV_BWD_BLOCKS_PER_SM))
+    return ConvBwdPlan(CONV_BWD_WARPS, blocks, 4 * CONV_BWD_WARPS * conv_bwd_warp_floats(c))
+
+
+def conv4x4s2_swish_grad_kernel(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    plan: ConvBwdPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
+    weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
+    ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
+    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x``,
+    ``weight`` and ``bias`` (as the forward takes them, float32 only);
+    ``g`` may be any strided float32 view. The sums over ``B x ceil(H/2) x
+    ceil(W/2)`` are taken in a fixed order (no atomics): the same plan gives
+    the same bits. ``plan`` overrides :func:`conv_bwd_plan`."""
+    for name, t in (("x", x), ("weight", weight), ("bias", bias), ("g", g)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if name != "g" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be (B, H, W, C) with 1 <= C <= 4, got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if weight.shape != (CONV_OUT, c, 4, 4) or bias.shape != (CONV_OUT,):
+        raise ValueError(
+            f"weight {tuple(weight.shape)} and bias {tuple(bias.shape)} are not "
+            f"({CONV_OUT}, {c}, 4, 4) and ({CONV_OUT},)"
+        )
+    out_shape = (b, CONV_OUT, -(-h // 2), -(-w // 2))
+    if tuple(g.shape) != out_shape:
+        raise ValueError(f"g is {tuple(g.shape)}, not the output's {out_shape}")
+    if max(x.shape) >= 2**31 or x.numel() >= 2**31:
+        raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
+    d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=torch.float32, device=x.device)
+    d_b = torch.empty(CONV_OUT, dtype=torch.float32, device=x.device)
+    if g.numel() == 0:
+        return d_w.zero_(), d_b.zero_()
+    plan = plan or conv_bwd_plan(b, h, w, c, _sm_count(x.device.index or 0))
+    ws = torch.empty(plan.blocks * (16 * c + 1) * CONV_OUT, dtype=torch.float32,
+                     device=x.device)
+    _launch(
+        "conv_s2", "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), g.data_ptr(), *g.stride(), ws.data_ptr(), d_w.data_ptr(),
+        d_b.data_ptr(), b, h, w, c, *plan,
+    )
+    LAUNCHES["conv_bwd"] += 1
+    return d_w, d_b
+
+
+def _conv_bwd_terms(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The padded NCHW input, its 4 x 4 / 2 patches ``(B, 16 C, L)`` (in
+    ``(c, ky, kx)`` order, as ``weight`` flattens) and ``g * swish'(pre)``
+    ``(B, F, L)``, all float32, ``L`` the output pixels."""
+    h = x.permute(0, 3, 1, 2).to(torch.float32)
+    padded = F.pad(h, same_pad(h.shape[-2:]))
+    patches = F.unfold(padded, 4, stride=2)
+    w_flat = weight.reshape(weight.shape[0], -1).to(torch.float32)
+    pre = torch.einsum("ok,bkl->bol", w_flat, patches) + bias.to(torch.float32)[:, None]
+    sig = torch.sigmoid(pre)
+    s = g.to(torch.float32).reshape(pre.shape) * sig * (1.0 + pre * (1.0 - sig))
+    return padded, patches, s
+
+
+def conv4x4s2_swish_grad_torch(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`conv4x4s2_swish_grad_kernel` (any
+    output channels), with explicit tensor ops: the SAME-padded patches,
+    ``pre`` from them, ``s = g * swish'(pre)`` with ``swish'(u) = sig(u)
+    (1 + u (1 - sig(u)))``, ``dW = s . patches`` and ``db = sum(s)``, in
+    float32."""
+    _, patches, s = _conv_bwd_terms(x, weight, bias, g)
+    d_w = torch.einsum("bol,bkl->ok", s, patches).reshape(weight.shape)
+    return d_w, s.sum((0, 2))
+
+
+def conv4x4s2_swish_input_grad_torch(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """The gradient of :func:`conv4x4s2_swish_torch`'s output in ``x``,
+    NHWC in ``x``'s dtype: ``s = g * swish'(pre)`` back through the
+    patches (``F.fold`` sums the overlapping taps), the pad cut off. No
+    kernel computes it yet."""
+    padded, _, s = _conv_bwd_terms(x, weight, bias, g)
+    w_flat = weight.reshape(weight.shape[0], -1).to(torch.float32)
+    d_padded = F.fold(torch.einsum("ok,bol->bkl", w_flat, s), padded.shape[-2:], 4, stride=2)
+    w_lo, _, h_lo, _ = same_pad(x.shape[1:3])
+    d_x = d_padded[:, :, h_lo:h_lo + x.shape[1], w_lo:w_lo + x.shape[2]]
+    return d_x.permute(0, 2, 3, 1).to(x.dtype)
 
 
 # ------------------------------------------------------- PoE + KL ----

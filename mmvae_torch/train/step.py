@@ -1,12 +1,14 @@
 """The multi-term MVAE loss, the train step and the eval step.
 
-Port of ``mmvae_tpu/train/step.py`` for the inference slices and the MNIST
-and MultiMNIST training slices: the ``"mvae"`` objective under the t-major
-term fold (``term_fold="t"``, the single-device path of both the JAX eval
-and the JAX train step, ``step.py:532-578``) with an optional presence
-mask.
+Port of ``mmvae_tpu/train/step.py`` for the inference slices and the
+MNIST, MultiMNIST and CelebA training slices: the ``"mvae"`` objective
+under the t-major term fold (``term_fold="t"``, the single-device path of
+both the JAX eval and the JAX train step, ``step.py:532-578``) with an
+optional presence mask.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
+  * the ``(T, M)`` subset masks: the joint, the M unimodal terms and, in
+    training, ``n_random_subsets`` random ones (CelebA: T = 1 + 19 + 4);
   * masked PoE fusion over the ``(T, M)`` subset masks -> ``(T, B, L)``,
     and the KL of all ``T * B`` posteriors, in one ``ops.poe_kl`` call:
     one kernel on the card, K1's function as the PoE's epilogue (the JAX
@@ -44,12 +46,14 @@ the models' own layers, the fused PoE + KL and K2 forward and their
 backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each; one
 ``multimnist`` step (cross-recon, the cycle term on both render forms)
 the fused PoE + KL three times (the loss, two re-reads), K2 once and K3
-three times, and each one's backward kernel as often. K4 has no backward
-kernel yet, so training a config whose loss runs it raises on the card
-(``ops``).
+three times, and each one's backward kernel as often; one ``celeba`` step
+(4 random subsets, T = 24) the fused PoE + KL once, K2 twice (the image's
+6 member terms, the attributes' 23), K4 once (stage 0 of the image
+encoder), and each one's backward kernel as often (K4's in its weight
+and bias).
 
-The other folds (``"b"``, ``"st"``), random subsets and the mixture
-objectives are not ported yet and raise; ``cross_recon_stopgrad``,
+The other folds (``"b"``, ``"st"``) and the mixture objectives are not
+ported yet and raise; ``cross_recon_stopgrad``,
 ``unimodal_align_weight``, ``cycle_contrast_weight`` and gradient
 accumulation are not taken yet.
 """
@@ -68,6 +72,7 @@ from mmvae_torch.core import (
     annealing_factor,
     elbo_subset_masks,
     elbo_terms,
+    random_subset_masks,
     reparameterize,
 )
 from mmvae_torch.ops import kernels
@@ -283,8 +288,10 @@ def multi_term_loss(
     objective: str = "mvae",
     member_prune: bool = True,
     term_fold: str = "t",
+    n_random_subsets: int = 0,
     generator: torch.Generator | None = None,
     eps: torch.Tensor | None = None,
+    subset_masks: torch.Tensor | None = None,
 ):
     """Total multi-term ELBO loss (batch mean) and per-term metrics.
 
@@ -293,6 +300,12 @@ def multi_term_loss(
     example carries. An unobserved modality contributes neither an expert
     nor a recon target; an example with no modality fuses to the prior
     and contributes exactly 0 (how eval masks its padding rows).
+
+    The terms are the joint, the M unimodal ones and ``n_random_subsets``
+    random subsets (``step.py:483-496``): ``subset_masks`` ``(k, M)``, or a
+    Bernoulli(0.5) draw from ``generator`` before the noise's; an empty
+    subset fuses to the prior (KL 0) and reconstructs nothing. ``T = 1 + M
+    + k``.
 
     ``sample=False`` takes z = posterior mean (eval). With ``sample=True``
     the noise comes from ``eps`` (``(T, B, L)``) or ``generator``.
@@ -308,13 +321,18 @@ def multi_term_loss(
             f"got {cycle_render_binarize!r}"
         )
     n_mod = model.n_modalities
+    masks = elbo_subset_masks(n_mod, device=model.device)  # (1 + M, M)
+    if n_random_subsets > 0:
+        if subset_masks is None:
+            subset_masks = random_subset_masks(
+                generator, n_random_subsets, n_mod, device=model.device)
+        masks = torch.cat([masks, subset_masks.to(masks.dtype)])  # (T, M)
     prune_keys = None
     if member_prune and not cross_recon:
-        prune_keys = _member_prune_keys(model, n_mod, 1 + n_mod)
+        prune_keys = _member_prune_keys(model, n_mod, masks.shape[0])
 
     presence = batch.get("presence")
     data = {k: v for k, v in batch.items() if k != "presence"}
-    masks = elbo_subset_masks(n_mod, device=model.device)  # (T, M)
 
     mu_e, lv_e = model.encode(data)  # (B, M, L)
     # (T, B, L) posteriors under the masks times the presence, (T, B) KLs
@@ -367,8 +385,9 @@ def make_train_step(
     term_fold: str = "t",
     generator: torch.Generator | None = None,
 ) -> Callable:
-    """The train step ``(state, batch, eps=None, keep=None) -> (state,
-    metrics)`` of ``_train_step_impl`` (``step.py:1022-1093``).
+    """The train step ``(state, batch, eps=None, keep=None,
+    subset_masks=None) -> (state, metrics)`` of ``_train_step_impl``
+    (``step.py:1022-1093``).
 
     beta is ``annealing_factor(state.device_step, annealing_steps)``, read
     on the device. With
@@ -376,24 +395,24 @@ def make_train_step(
     example keeps each modality with probability ``1 - p_modality_drop``
     (``keep``, ``(B, M)``, or a draw from ``generator``), and a row with
     none kept keeps all. The loss is :func:`multi_term_loss` with
-    ``sample=True`` and the loss knobs given here, its noise ``eps``
-    (``(T, B, L)``) or a draw from ``generator`` (on the model's device).
+    ``sample=True`` and the loss knobs given here, its ``n_random_subsets``
+    masks ``subset_masks`` (``(k, M)``) or a draw from ``generator``, its
+    noise ``eps`` (``(T, B, L)``) or a draw from ``generator`` (on the
+    model's device).
     Then one update of ``state`` (:meth:`TrainState.apply_gradients`). The
     metrics are the loss terms, ``beta`` and ``grad_norm``, the global
     norm of the raw gradients before clipping. Only the mvae objective and
     ``term_fold="t"`` are ported; the others raise here.
     """
     _check_ported(objective, term_fold)
-    if n_random_subsets:
-        raise _not_ported("n_random_subsets > 0 (random subset terms)")
     loss_kwargs = dict(
-        cross_recon=cross_recon, cross_recon_weight=cross_recon_weight,
+        n_random_subsets=n_random_subsets, cross_recon=cross_recon, cross_recon_weight=cross_recon_weight,
         cycle_weight=cycle_weight, cycle_render_grad=cycle_render_grad,
         cycle_render_binarize=cycle_render_binarize, objective=objective,
         member_prune=member_prune, term_fold=term_fold,
     )
 
-    def train_step(state: TrainState, batch, eps=None, keep=None):
+    def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None):
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             if keep is None:
@@ -406,7 +425,7 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
             state.model, batch, beta, sample=True, generator=generator, eps=eps,
-            **loss_kwargs,
+            subset_masks=subset_masks, **loss_kwargs,
         )
         loss.backward()
         params = list(state.model.parameters())
@@ -557,15 +576,18 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
     where they were. ``graph=False`` asks for the eager loop on the card,
     one step at a time, which the CPU always runs.
 
-    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``: each step's
-    posterior noise in place of a draw (how a parity run feeds two devices
-    the same numbers).
+    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``, and
+    ``"subset_masks"``, ``(n_steps, k, M)``: each step's posterior noise and
+    random subset masks in place of a draw (how a parity run feeds two
+    devices the same numbers).
     """
     train_step = make_train_step(model, **step_kwargs)
+    fed = ("eps", "subset_masks")
 
     def step(state, batch):
-        data = {k: v for k, v in batch.items() if k != "eps"}
-        return train_step(state, data, eps=batch.get("eps"))
+        data = {k: v for k, v in batch.items() if k not in fed}
+        return train_step(state, data, eps=batch.get("eps"),
+                          subset_masks=batch.get("subset_masks"))
 
     if not _use_graph(model, graph):
         def run(state, batches):

@@ -100,6 +100,27 @@ def test_graph_epoch_equals_eager_epoch(cuda, name, n_steps, bs):
 
 
 @pytest.mark.gpu
+def test_celeba_graph_epoch_with_random_subsets_equals_eager_to_the_bit(cuda):
+    """``celeba`` at full width (4 random subsets, T = 24, clipping at 500;
+    K4 and its backward kernel in stage 0) at batch 16: two epochs of 3
+    replays against two of the eager loop, on cuDNN's deterministic
+    algorithms. The masks and the noise are drawn inside the captured step
+    from the registered generator, so every metric, parameter and EMA
+    parameter is equal to the bit, and so are the launch counts (K4's
+    backward once a step)."""
+    config = configs.get_config("celeba")
+    torch.backends.cudnn.deterministic = True
+    batches = _batches(config, 3, 16)
+    graph, eager = _train(config, True, batches), _train(config, False, batches)
+    _assert_close_runs(graph, eager)
+    for mg, me in zip(graph[1], eager[1]):
+        assert all(torch.equal(mg[k], me[k]) for k in me)
+    for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters()):
+        assert all(torch.equal(a, b) for a, b in zip(params(graph[0]), params(eager[0])))
+    assert graph[2] == eager[2] and graph[2]["conv_bwd"] == 6 and graph[2]["conv"] == 6
+
+
+@pytest.mark.gpu
 def test_beta_crosses_the_end_of_the_ramp_inside_one_graph_epoch(cuda):
     """A ramp of 5 steps in an epoch of 8: each replay reads its own beta
     from the device step, 1 from the ramp's end on."""

@@ -1,7 +1,8 @@
 """The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``), K4
 (``conv_plan``), the fused PoE + KL (``poe_kl_plan``) and the backward
-kernels of K2 (``bce_grad_plan``), K3 (``seq_ce_grad_plan``) and the
-fused PoE + KL (``poe_kl_bwd_plan``), on the CPU.
+kernels of K2 (``bce_grad_plan``), K3 (``seq_ce_grad_plan``), K4
+(``conv_bwd_plan``) and the fused PoE + KL (``poe_kl_bwd_plan``), on the
+CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
@@ -199,6 +200,7 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
     [("row_reduce", "bce_rows", 7, kernels.BcePlan),
      ("seq_ce", "seq_ce_rows", 8, kernels.SeqCePlan),
      ("conv_s2", "conv4x4s2_swish", 9, kernels.ConvPlan),
+     ("conv_s2", "conv4x4s2_swish_bwd", 15, kernels.ConvBwdPlan),
      ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan),
      ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan),
      ("seq_ce", "seq_ce_rows_grad", 9, kernels.SeqCeGradPlan),
@@ -210,6 +212,62 @@ def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     sig = kernels._SIGNATURES[lib][fn]
     assert len(sig) == n_args + len(plan_type._fields) + 1
     assert all(t is kernels._i32 for t in sig[n_args:-1])
+
+
+def test_conv_bwd_signature_takes_the_gradient_strides_as_64_bits():
+    """K4's backward reads its upstream gradient through four element
+    strides, int64 slots after the four input pointers."""
+    sig = kernels._SIGNATURES["conv_s2"]["conv4x4s2_swish_bwd"]
+    assert sig[:4] == [kernels._ptr] * 4 and sig[4:8] == [kernels._i64] * 4
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_bwd_plan_fits_the_shared_memory_it_asks_for(shape):
+    """Each warp's slice holds its 4 staged rows (66 columns and the last
+    pixel pair's float4 window, from column 60) and the 32 x 32 tile of g
+    with a pad float a pixel, and at the end its 32 x (16 C + 1) sums; one
+    block fits in the 227 KB of an SM."""
+    b, h, w, c = shape
+    plan = kernels.conv_bwd_plan(b, h, w, c)
+    row = kernels.conv_bwd_row_floats(c)
+    assert row % 4 == 0 and row >= kernels.CONV_TILE_COLS * c
+    assert row >= 60 * c + 4 * -(-(6 * c) // 4)  # the last pair's window
+    warp = kernels.conv_bwd_warp_floats(c)
+    assert warp == 4 * row + kernels.CONV_TILE_W * (kernels.CONV_OUT + 1)
+    assert warp >= (16 * c + 1) * kernels.CONV_OUT
+    assert plan.smem == 4 * plan.warps * warp <= 227 * 1024
+    assert 1 <= plan.warps <= kernels.CONV_MAX_WARPS
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_bwd_plan_covers_every_output_once(shape):
+    """The backward's warps walk the forward's units with the grid's
+    stride: every output pixel, each of whose g * swish' terms enters the
+    sums once, is taken exactly once, and no block is without a unit."""
+    b, h, w, c = shape
+    plan = kernels.conv_bwd_plan(b, h, w, c)
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    n_chunks = -(-w_out // kernels.CONV_TILE_W)
+    units = kernels.conv_units(b, h, w)
+    assert plan.blocks * plan.warps <= units + plan.warps - 1
+    covered = np.zeros((b, h_out, n_chunks * kernels.CONV_TILE_W), dtype=np.int64)
+    step = plan.blocks * plan.warps
+    for first in range(step):
+        for u in range(first, units, step):
+            chunk, rest = u % n_chunks, u // n_chunks
+            lo = chunk * kernels.CONV_TILE_W
+            covered[rest // h_out, rest % h_out, lo:lo + kernels.CONV_TILE_W] += 1
+    assert np.all(covered[..., :w_out] == 1)
+
+
+def test_conv_bwd_plan_at_the_celeba_train_shape():
+    """(64, 64, 64, 3): 2,048 units over one block of 8 warps an SM, 132
+    blocks and as many rows of 49 x 32 partial sums; a card of 16 SMs takes
+    16 blocks."""
+    plan = kernels.conv_bwd_plan(64, 64, 64, 3)
+    assert plan.warps == 8 and plan.blocks == H100
+    assert kernels.conv_bwd_plan(64, 64, 64, 3, sms=16).blocks == 16
+    assert kernels.conv_bwd_plan(1, 2, 2, 3).blocks == 1
 
 
 def test_probe_sources_stay_out_of_the_default_build():

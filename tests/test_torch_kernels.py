@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain versions.
 
 Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2
-and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4) and
+and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4 and its
+backward) and
 ``poe_kl.cu`` (the fused PoE + KL and its backward) with ``nvcc`` and run
 on the card; without one they skip. This file imports nothing of JAX, so
 on a machine with a card and no JAX it runs as
@@ -19,12 +20,16 @@ The fused PoE + KL's backward: rtol 1e-5, atol 1e-5 * T times the
 largest gradient (it sums T terms, and the plain version sums the
 experts of a term's precision in another order). K3's gradient: rtol
 1e-5, atol 1e-6 (softmax less the one-hot times g, with the exp-sum in
-another order).
+another order). K4's backward: rtol 1e-5, atol 1e-6 * N, N = B *
+ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums (each term
+below 1 in size here: an image in [0, 1] times g * swish'), summed in
+another order than the plain version's batched product.
 
-``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce`` and ``poe_kl``
-take their gradients from backward kernels on the card;
-``conv4x4s2_swish`` has none yet and refuses the kernel path when
-autograd would record it. The CPU half of those checks runs without a
+``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce``, ``poe_kl`` and
+``conv4x4s2_swish`` take their gradients from backward kernels on the
+card; the targets of ``bernoulli_nll`` and the image of
+``conv4x4s2_swish`` get none there, and the kernel path refuses them when
+autograd would record them. The CPU half of those checks runs without a
 card.
 """
 
@@ -93,6 +98,10 @@ def test_wrappers_reject_cpu_tensors():
         )
     with pytest.raises(ValueError, match="CUDA"):
         kernels.poe_kl_kernel(torch.zeros((4, 2, 8)), torch.zeros((4, 2, 8)), torch.ones((3, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv4x4s2_swish_grad_kernel(
+            torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32),
+            torch.zeros((1, 32, 4, 4)))
 
 
 def test_conv_plain_pads_like_xla_same():
@@ -184,7 +193,16 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     kernels.bce_rows_grad_kernel(x, x[:4], g, kernels.FOLD_T)
     kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok, 0, g)
     kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl)
+    cg = torch.zeros((2, 32, 4, 4), device=cuda)
+    kernels.conv4x4s2_swish_grad_kernel(img, cw, cb, cg)
     assert kernels.LAUNCHES == after
+    with pytest.raises(ValueError, match="g is"):
+        kernels.conv4x4s2_swish_grad_kernel(img, cw, cb, cg[:, :, :3])
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_grad_kernel(img.bfloat16(), cw.bfloat16(), cb.bfloat16(),
+                                            cg.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv4x4s2_swish_grad_kernel(img.permute(0, 2, 1, 3), cw, cb, cg)
     with pytest.raises(ValueError, match="g must be"):
         kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok, 0, g[:4])
     with pytest.raises(TypeError):
@@ -411,6 +429,88 @@ def test_conv_kernel_refuses_a_plan_it_cannot_run(cuda):
     assert kernels.LAUNCHES["conv"] == before
 
 
+def _conv_grad_inputs(gen, shape, device, strided: bool = False):
+    """K4's inputs and an upstream gradient of its output's shape; with
+    ``strided``, the gradient is the interior of a padded one, as the next
+    stage's ``F.pad`` hands it back (a view that is not contiguous)."""
+    x, w, b = _conv_inputs(gen, shape, torch.float32, device)
+    out = (shape[0], 32, -(-shape[1] // 2), -(-shape[2] // 2))
+    if not strided:
+        return x, w, b, torch.randn(out, generator=gen).to(device)
+    padded = torch.randn((*out[:2], out[2] + 2, out[3] + 3), generator=gen).to(device)
+    return x, w, b, padded[:, :, 1:-1, 1:-2]
+
+
+def _conv_grad_close(got, want, shape) -> None:
+    n_terms = shape[0] * -(-shape[1] // 2) * -(-shape[2] // 2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * n_terms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (64, 64, 64, 3),  # the CelebA train batch
+        (37, 64, 64, 3),  # ragged batch
+        (5, 25, 25, 1),  # odd size: pads (1, 2)
+        (4, 30, 70, 3),  # 35 outputs a row: a last chunk of 3 pixels
+        (2, 10, 66, 3),  # 33 outputs a row: a last pair of one pixel
+        (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),  # every C
+        (2, 7, 1100, 4),  # 550 outputs a row: 18 chunks
+        (600, 64, 64, 3),  # 19,200 units for the grid's 1,056 warps
+    ],
+)
+def test_conv_grad_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(40)
+    args = _conv_grad_inputs(gen, shape, cuda)
+    got = kernels.conv4x4s2_swish_grad_kernel(*args)
+    assert got[0].shape == (32, shape[3], 4, 4) and got[1].shape == (32,)
+    _conv_grad_close(got, kernels.conv4x4s2_swish_grad_torch(*args), shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, plan",
+    [
+        ((64, 64, 64, 3), None),
+        ((37, 64, 64, 3), kernels.ConvBwdPlan(2, 3, 4 * 2 * kernels.conv_bwd_warp_floats(3))),
+        ((5, 25, 25, 1), kernels.ConvBwdPlan(1, 1, 4 * kernels.conv_bwd_warp_floats(1))),
+    ],
+)
+def test_conv_grad_kernel_strided_g_and_small_grids(cuda, shape, plan):
+    """The upstream gradient as a strided view, read in place; small grids
+    forced through ``plan`` walk many units a warp."""
+    gen = torch.Generator().manual_seed(41)
+    args = _conv_grad_inputs(gen, shape, cuda, strided=True)
+    assert not args[3].is_contiguous()
+    got = kernels.conv4x4s2_swish_grad_kernel(*args, plan=plan)
+    _conv_grad_close(got, kernels.conv4x4s2_swish_grad_torch(*args), shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64, 64, 3), (37, 64, 64, 3)])
+def test_conv_grad_kernel_same_bits_twice(cuda, shape):
+    """No atomics: two launches with one plan give the same bits."""
+    args = _conv_grad_inputs(torch.Generator().manual_seed(42), shape, cuda)
+    one, two = (kernels.conv4x4s2_swish_grad_kernel(*args) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.gpu
+def test_conv_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """Too little shared memory, more than 227 KB, or too many warps: the
+    launch is refused and counts none."""
+    args = _conv_grad_inputs(torch.Generator().manual_seed(43), (2, 8, 8, 3), cuda)
+    good = kernels.conv_bwd_plan(2, 8, 8, 3)
+    before = kernels.LAUNCHES["conv_bwd"]
+    for bad in (good._replace(smem=good.smem - 4), good._replace(smem=228 * 1024),
+                good._replace(warps=kernels.CONV_MAX_WARPS + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.conv4x4s2_swish_grad_kernel(*args, plan=bad)
+    assert kernels.LAUNCHES["conv_bwd"] == before
+
+
 def _op_calls(device):
     """Each ops entry with a kernel, as a function of whether its float
     inputs require grad: K1's mu, K2's logits, K3's logits, K4's bias
@@ -437,54 +537,43 @@ def _op_calls(device):
 
 OPS = ["kl_std_normal", "bernoulli_nll", "masked_seq_ce", "conv4x4s2_swish", "poe_kl"]
 OP_COUNTERS = dict(zip(OPS, ["kl", "bce", "seq_ce", "conv", "poe_kl"]))
-# The ops with a backward kernel, and its counter.
+# Each op's backward kernel's counter.
 GRAD_COUNTERS = {"kl_std_normal": "kl_bwd", "bernoulli_nll": "bce_bwd",
-                 "masked_seq_ce": "seq_ce_bwd", "poe_kl": "poe_kl_bwd"}
+                 "masked_seq_ce": "seq_ce_bwd", "poe_kl": "poe_kl_bwd",
+                 "conv4x4s2_swish": "conv_bwd"}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_path_refuses_grad(cuda, op):
-    """With grad on and an input that requires grad, an op without a
-    backward kernel (K4, its bias alone) raises on the kernel path and
-    launches nothing; an op with one (K1, K2, K3, the fused PoE + KL)
-    records the kernel, and its backward launches the backward kernel once.
-    Under ``torch.no_grad`` every op launches its kernel."""
+    """With grad on and an input that requires grad (K4: its bias alone),
+    each op records its kernel, and its backward launches the backward
+    kernel once. Under ``torch.no_grad`` every op launches its kernel. The
+    inputs that get no gradient on the kernel path (the BCE's targets,
+    K4's image) are refused by the tests below."""
     call = _op_calls(cuda)[op]
     before = dict(kernels.LAUNCHES)
-    if op in GRAD_COUNTERS:
-        out = call(True)
-        assert out.requires_grad
-        out.sum().backward()
-        assert kernels.LAUNCHES[GRAD_COUNTERS[op]] == before[GRAD_COUNTERS[op]] + 1
-        launched = 1
-    else:
-        with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
-            call(True)
-        launched = 0
-    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + launched
+    out = call(True)
+    assert out.requires_grad
+    out.sum().backward()
+    assert kernels.LAUNCHES[GRAD_COUNTERS[op]] == before[GRAD_COUNTERS[op]] + 1
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + 1
     with torch.no_grad():
         call(True)
     call(False)
-    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + launched + 2
+    assert kernels.LAUNCHES[OP_COUNTERS[op]] == before[OP_COUNTERS[op]] + 3
 
 
 @pytest.mark.parametrize("op", OPS)
 def test_ops_kernel_backend_refuses_grad_on_the_cpu(op):
-    """Under the "kernel" backend: an op without a backward kernel checks
-    grad before the device, so a CPU input that requires grad gets the
-    grad error and one that does not the CUDA error; an op with one gets
-    the CUDA error both ways. The "auto" backend takes the plain path,
+    """Under the "kernel" backend a CPU input gets the CUDA error, whether
+    it requires grad or not. The "auto" backend takes the plain path,
     whose gradient flows."""
     call = _op_calls("cpu")[op]
     ops.set_backend("kernel")
     try:
-        if op in GRAD_COUNTERS:
-            with pytest.raises(ValueError, match="CUDA"):
-                call(True)
-        else:
-            with pytest.raises(RuntimeError, match=f"ops.{op}: .*backward is not yet ported"):
-                call(True)
+        with pytest.raises(ValueError, match="CUDA"):
+            call(True)
         with pytest.raises(ValueError, match="CUDA"):
             call(False)
     finally:
@@ -521,6 +610,39 @@ def test_ops_bce_kernel_backend_refuses_target_grad_on_the_cpu():
     finally:
         ops.set_backend("auto")
     assert _bce_with_target_grad("cpu").requires_grad
+
+
+def _conv_with_input_grad(device):
+    gen = torch.Generator().manual_seed(24)
+    x, w, b = _conv_inputs(gen, (2, 8, 8, 3), torch.float32, device)
+    x.requires_grad_(True)
+    return ops.conv4x4s2_swish(x, w.requires_grad_(True), b), x
+
+
+@pytest.mark.gpu
+def test_ops_conv_kernel_path_refuses_input_grad(cuda):
+    """K4's backward kernel computes dW and db only: an image that
+    requires grad raises on the kernel path, before anything launches,
+    rather than take a gradient of zero."""
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match=r"no gradient in the input \(dx\)"):
+        _conv_with_input_grad(cuda)
+    assert kernels.LAUNCHES == before
+
+
+def test_ops_conv_kernel_backend_refuses_input_grad_on_the_cpu():
+    """Under the "kernel" backend the image's grad is refused before the
+    device is checked; the "auto" backend takes the plain path, whose dx
+    flows into the image."""
+    ops.set_backend("kernel")
+    try:
+        with pytest.raises(RuntimeError, match=r"no gradient in the input \(dx\)"):
+            _conv_with_input_grad("cpu")
+    finally:
+        ops.set_backend("auto")
+    out, x = _conv_with_input_grad("cpu")
+    (d_x,) = torch.autograd.grad(out.sum(), x)
+    assert d_x.shape == x.shape and d_x.abs().sum() > 0
 
 
 @pytest.mark.gpu
@@ -1084,12 +1206,13 @@ def _grads_both_backends(fn, inputs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["kl_std_normal", "bernoulli_nll_t", "bernoulli_nll_b",
                                 "bernoulli_nll_none", "masked_seq_ce_t", "masked_seq_ce_b",
-                                "poe_kl", "poe_kl_presence"])
+                                "poe_kl", "poe_kl_presence", "conv4x4s2_swish"])
 def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
     """Each ``autograd.Function`` on the card (forward and backward
     kernels) against the same op under ``set_backend("torch")``: MNIST's
     train shapes, the image at event_ndims=2, MultiMNIST's text rows of the
-    decode-all pass in both folds; one backward launch each."""
+    decode-all pass in both folds, K4's weight and bias at a CelebA train
+    batch of 16; one backward launch each."""
     gen = torch.Generator().manual_seed(38)
     if op == "kl_std_normal":
         fn, counter = ops.kl_std_normal, "kl_bwd"
@@ -1110,6 +1233,13 @@ def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
             return ops.masked_seq_ce(lg, tokens[:100], fold=op.rsplit("_", 1)[1])
 
         inputs, counter = [logits], "seq_ce_bwd"
+    elif op == "conv4x4s2_swish":
+        image, w, b = _conv_inputs(gen, (16, 64, 64, 3), torch.float32, cuda)
+
+        def fn(weight, bias):
+            return ops.conv4x4s2_swish(image, weight, bias)
+
+        inputs, counter = [w, b], "conv_bwd"
     else:
         mu, lv, masks, presence = _poe_inputs(
             gen, (3, 100, 2, 64), "ragged" if op == "poe_kl_presence" else "none", cuda)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmvae_tpu.core import random_subset_masks as j_random_subset_masks
 from mmvae_tpu.core.annealing import annealing_factor as j_annealing_factor
 from mmvae_tpu.models import MnistMVAE as JMnistMVAE
 from mmvae_tpu.train.state import create_train_state as j_create_train_state
@@ -267,8 +268,6 @@ def test_unported_step_options_raise(init_params):
     model = _tmodel(init_params)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make_train_step(model, term_fold="b")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(model, n_random_subsets=2)
 
 
 def test_api_train_one_epoch_on_the_cpu():
@@ -296,16 +295,47 @@ def test_api_train_tracks_ema_for_eval():
     assert result.history[0]["test_elbo"] == pytest.approx(want, rel=1e-6)
 
 
-@pytest.mark.parametrize("knob,value", [("n_random_subsets", 2)])
-def test_api_train_raises_on_unported_knobs(knob, value):
-    assert knob in configs.UNPORTED_TRAIN_FIELDS
-    cfg = configs.get_config("mnist").replace(**{knob: value})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.train(cfg, device="cpu")
+def test_random_subsets_train_mnist_as_jax_does(jmodel):
+    """``mnist`` with 2 random subset terms (T = 5): ``api.train`` takes the
+    knob and trains on the CPU, and one step from the JAX init, given the
+    masks and the noise JAX's step draws (``step.py:471-496``), gives JAX's
+    loss and raw gradient norm, and every gradient of the JAX loss at that
+    step's key. (Adam's first step is the sign of each gradient component
+    times the learning rate, so the parameters after one step would hold a
+    component at its rounding level to its sign; five steps are held to
+    JAX's parameters above.)"""
+    cfg = configs.get_config("mnist").replace(
+        n_latents=8, epochs=1, train_size=40, test_size=20, batch_size=20, n_random_subsets=2)
+    result = api.train(cfg, device="cpu", verbose=False)
+    assert result.state.step == 2 and math.isfinite(result.history[0]["test_elbo"])
+
+    batch = _batches(1)[0]
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    state = j_create_train_state(jmodel, jbatch, jax.random.key(7), 1e-3)
+    init = _np_tree(state.params)  # before the step, which donates the state
+    rng = jax.random.split(state.rng, 3)[0]
+    rng_subset, rng_z = jax.random.split(rng)
+    masks = torch.from_numpy(np.array(j_random_subset_masks(rng_subset, 2, M)))
+    assert masks.shape == (2, M)
+    eps = torch.from_numpy(np.array(jax.random.normal(rng_z, (T + 2, B, N_LATENTS))))
+    _, j_metrics = j_make_train_step(jmodel, n_random_subsets=2, term_fold="t")(state, jbatch)
+    (_, _), j_grads = jax.value_and_grad(
+        lambda q: j_multi_term_loss(jmodel, q, jbatch, rng, float(j_metrics["beta"]),
+                                    n_random_subsets=2, sample=True, term_fold="t"),
+        has_aux=True)(jax.tree.map(jnp.asarray, init))
+    model = _tmodel(init)
+    _, metrics = make_train_step(model, n_random_subsets=2)(
+        create_train_state(model, 1e-3), _tbatch(batch), eps=eps, subset_masks=masks)
+    assert metrics["elbo_per_term"].shape == (T + 2,)
+    np.testing.assert_allclose(metrics["loss"].item(), float(j_metrics["loss"]), rtol=RTOL)
+    np.testing.assert_allclose(metrics["grad_norm"].item(), float(j_metrics["grad_norm"]),
+                               rtol=1e-4)
+    _grads_close(
+        {k: p.grad for k, p in model.named_parameters()}, from_flax_params(_np_tree(j_grads)))
 
 
 @pytest.mark.parametrize("kw", [{"config": "fashionmnist"}, {"config": "cub"},
-                                {"config": "deep_mnist"}, {"config": "celeba"}])
+                                {"config": "deep_mnist"}, {"config": "deep_cub"}])
 def test_api_train_raises_on_unported_entry_options(kw):
     kw = {"config": "mnist", **kw}
     with pytest.raises(NotImplementedError, match="not yet ported"):
