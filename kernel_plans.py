@@ -1,10 +1,10 @@
 """Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``),
 K4 (``conv4x4s2_swish``), the fused PoE + KL (``poe_kl``) and the
-backward kernels of K2 (``bce_rows_grad``), K3 (``seq_ce_rows_grad``) and
-the fused PoE + KL (``poe_kl_bwd``) on one NVIDIA card, at the shapes
-``chip_smoke.py`` times and checks.
+backward kernels of K2 (``bce_rows_grad``), K3 (``seq_ce_rows_grad``), the
+fused PoE + KL (``poe_kl_bwd``) and K4 (``conv4x4s2_swish_bwd``) on one
+NVIDIA card, at the shapes ``chip_smoke.py`` times and checks.
 
-    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd|bce_bwd ...]
+    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd|bce_bwd|conv_bwd ...]
 
 ``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan``,
 ``conv_plan``, ``poe_kl_plan``, ``bce_grad_plan``, ``seq_ce_grad_plan``
@@ -19,7 +19,10 @@ the staged path at 1 to 16 examples a block and every lane group, the
 lane-group layout at the forward's lane groups and at a warp a token row,
 and a warp a token row at 4 to 16 warps at 1 or 2 examples a chunk; for
 the fused PoE + KL's backward: latent tiles of 4 to 256 in float4s and in
-scalars, each at 3 block sizes). The arguments name the kernels to time
+scalars, each at 3 block sizes; for K4's backward: the products on the
+tensor cores or the CUDA cores, tiles of 2 or 4 output rows, 4 or 8 warps
+a block and 1 to 4 blocks an SM, at CelebA's train shape and at C = 1 and
+4). The arguments name the kernels to time
 (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
@@ -96,6 +99,11 @@ BCE_BWD_SHAPES = {
     **{f"rows_{n}_{d}": (n, d, n, K.FOLD_NONE)
        for d in (1, 3, 13, 64, 784, 2500) for n in (100, 21888)},
     "rows_100_1_t": (100, 1, 50, K.FOLD_T),
+}
+CONV_BWD_SHAPES = {
+    "celeba_train": (64, 64, 64, 3),
+    "c1": (64, 64, 64, 1),
+    "c4": (64, 64, 64, 4),
 }
 POE_BWD_SHAPES = {
     "mnist_train": (3, 100, 2, 64, "eval"),
@@ -194,6 +202,15 @@ def poe_bwd_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlBwdPl
     return plans if auto in plans else plans + [auto]
 
 
+def conv_bwd_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvBwdPlan]:
+    plans = [K.conv_bwd_plan(b, h, w, c, sms, rows, warps, blocks_per_sm, tensor)
+             for tensor in (1, 0) for rows in (2, 4) for warps in (4, 8)
+             for blocks_per_sm in (1, 2, 3, 4)]
+    auto = K.conv_bwd_plan(b, h, w, c, sms)
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
 def auto_plan(op: str, shape, sms: int):
     if op == "bce":
         return K.bce_plan(shape[0], shape[1], sms)
@@ -207,6 +224,8 @@ def auto_plan(op: str, shape, sms: int):
         return K.seq_ce_grad_plan(*shape, sms)
     if op == "bce_bwd":
         return K.bce_grad_plan(*shape[:3])
+    if op == "conv_bwd":
+        return K.conv_bwd_plan(*shape, sms)
     return K.poe_kl_bwd_plan(*shape[:4], sms)
 
 
@@ -235,7 +254,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl", "seq_ce_bwd", "poe_kl_bwd",
-                              "bce_bwd"]
+                              "bce_bwd", "conv_bwd"]
     K.build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
@@ -256,6 +275,8 @@ def main() -> None:
               for label, shape in POE_BWD_SHAPES.items()]
     cases += [("bce_bwd", label, shape, bce_bwd_plans(*shape[:3]))
               for label, shape in BCE_BWD_SHAPES.items()]
+    cases += [("conv_bwd", label, shape, conv_bwd_plans(*shape, sms))
+              for label, shape in CONV_BWD_SHAPES.items()]
     for op, label, shape, plans in cases:
         if op not in wanted:
             continue

@@ -411,24 +411,78 @@ bool plan_ok(int c, int warps, int smem) {
 
 // ------------------------------------------------------------ backward --
 
-// Float4s of one staged row that a pair of adjacent output pixels reads:
-// 6 columns x c floats.
-__host__ __device__ constexpr int bwd_nv(int c) { return (6 * c + 3) / 4; }
-// Floats of one staged input row of the backward: column -1 at offset 0,
-// 66 columns of c, and room for the last pair's float4 window (from column
-// 60 on), rounded up to a float4.
-__host__ __device__ constexpr int bwd_row_floats(int c) {
-  return ((kTileCols * c > 60 * c + 4 * bwd_nv(c) ? kTileCols * c : 60 * c + 4 * bwd_nv(c)) + 3) /
-         4 * 4;
+// The backward walks tiles of kTileW output pixels by TR output rows of one
+// image (P = 32 TR pixels). Its launch bound, kBwdMaxWarps warps and 2
+// blocks an SM, caps a thread at 128 registers.
+constexpr int kBwdMaxWarps = 8;
+
+// Floats between two channels' rows of the staged g tile (S once it is
+// computed in place): P and a pad, 4 for the tensor-core fragments' banks,
+// 1 for the CUDA cores' channel quads.
+__host__ __device__ constexpr int bwd_g_stride(int rows, bool mma) {
+  return kTileW * rows + (mma ? 4 : 1);
 }
-constexpr int kGStride = kCout + 1;  // a staged pixel's 32 channels, one float of pad
-// Floats of a warp's slice: the 4 rows and the g tile. It also holds the
-// warp's (16 * c + 1) x 32 sums at the end.
-__host__ __device__ constexpr int bwd_warp_floats(int c) {
-  return 4 * bwd_row_floats(c) + kTileW * kGStride;
+// Floats of the staged weights: [o][k] split into TF32 hi and lo, rows of
+// 16 c + 4 (mma), or [k][o] (CUDA cores).
+__host__ __device__ constexpr int bwd_w_floats(int c, bool mma) {
+  return mma ? 2 * kCout * (kTaps * c + 4) : kTaps * c * kCout;
 }
-size_t bwd_smem_of(int c, int warps) {
-  return sizeof(float) * static_cast<size_t>(warps) * bwd_warp_floats(c);
+// Floats of one staged input tile: 2 TR + 2 rows of the forward's layout.
+__host__ __device__ constexpr int bwd_x_floats(int c, int rows) {
+  return (2 * rows + 2) * row_floats(c);
+}
+// Slices of a tile's pixels that product 2 splits over the block.
+__host__ __device__ constexpr int bwd_slices(int warps, bool mma) {
+  return mma ? warps / 4 : warps / 2;
+}
+// The weights and two buffers each of the input tile and the g tile; at the
+// end the same memory holds the block's partial sums (each slice's dW, and
+// 4 warps' rows of db).
+size_t bwd_smem_of(int c, int rows, int warps, bool mma) {
+  const size_t staging = static_cast<size_t>(bwd_w_floats(c, mma)) +
+                         2 * static_cast<size_t>(bwd_x_floats(c, rows) +
+                                                 kCout * bwd_g_stride(rows, mma));
+  const size_t red = static_cast<size_t>(bwd_slices(warps, mma) * kTaps * c + 4 * warps) * kCout;
+  return sizeof(float) * (staging > red ? staging : red);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// One float from global to shared memory without a register; 0 when !ok
+// (nothing is read).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = hi + lo, each rounded to TF32 (to nearest, ties away): 3xTF32.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in 3xTF32: the small cross terms first, then hi . hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
 }
 
 // swish'(u) = s (1 + u (1 - s)), s = 1 / (1 + e^-u).
@@ -437,150 +491,292 @@ __device__ __forceinline__ float dswish(float u) {
   return s * (1.0f + u * (1.0f - s));
 }
 
+// Offsets in a staged input tile: px_off of output pixel px of the tile
+// (row px / 32, column px % 32), k_off of patch element k = (ky * 4 + kx)
+// * C + c; their sum addresses input row 2 (px / 32) + ky, column 2 (px %
+// 32) + kx - 1, channel c, of the tile. The kx C + c of k are k % 4C.
 template <int C>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+__device__ __forceinline__ int px_off(int px) {
+  return 2 * (px / kTileW) * row_floats(C) + lead(C) + 2 * (px % kTileW) * C;
+}
+template <int C>
+__host__ __device__ constexpr int k_off(int k) {
+  return k / (4 * C) * row_floats(C) + k % (4 * C);
+}
+
+// Issue the copies of one tile: its 2 TR + 2 input rows (66 columns from
+// column 2 ox0 - 1 on, the forward's layout; zero where the pad or an
+// edge falls) and its g tile [o][pixel] (zero past h_out and w_out), g read
+// through its strides. `threads` is a multiple of the tile's pixels.
+template <int C, int TR, int GS>
+__device__ __forceinline__ void bwd_stage(float* sx, float* sg, const float* __restrict__ x,
+                                          const float* __restrict__ g, long long sn,
+                                          long long so, long long sh, long long sw, int n,
+                                          int oy0, int ox0, int h, long long row_len,
+                                          int h_out, int w_out, int tid, int threads) {
+  constexpr int kRow = row_floats(C);
+  constexpr int kAll = (2 * TR + 2) * kRow;
+  const long long c0 = static_cast<long long>(2 * ox0 - 1) * C - lead(C);
+  const float* xn = x + static_cast<long long>(n) * h * row_len;
+  for (int i = tid; i < kAll; i += threads) {
+    const int r = i / kRow;
+    const long long col = c0 + (i - r * kRow);
+    const int iy = 2 * oy0 - 1 + r;
+    const bool ok = iy >= 0 && iy < h && col >= 0 && col < row_len;
+    cp_async_f32(sx + i, ok ? xn + iy * row_len + col : x, ok);
+  }
+  constexpr int P = kTileW * TR;
+  const int p = tid % P;
+  const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
+  const float* gp = ok ? g + n * sn + (oy0 + p / kTileW) * sh + (ox0 + p % kTileW) * sw : g;
+  for (int o = tid / P; o < kCout; o += threads / P) {
+    cp_async_f32(sg + o * GS + p, ok ? gp + o * so : g, ok);
+  }
+}
+
+template <int C, int TR, bool MMA>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32, 2)
     conv_s2_bwd_partials_kernel(const float* __restrict__ x, const float* __restrict__ w,
                                 const float* __restrict__ bias, const float* __restrict__ g,
                                 long long sn, long long so, long long sh, long long sw,
                                 float* __restrict__ ws, int h, int wd, int h_out, int w_out,
-                                int n_chunks, int units) {
-  constexpr int kK = kTaps * C;  // the sums of dw's row: [ky][kx][c]
-  constexpr int kRow = bwd_row_floats(C);
-  constexpr int kNV = bwd_nv(C);
-  constexpr int kSlice = bwd_warp_floats(C);
-  constexpr int kStage = 4 * kRow;
-  constexpr int kPerLane = (kStage + 31) / 32;
+                                int n_chunks, int row_tiles, int tiles) {
+  constexpr int K = kTaps * C;  // patch elements, dW's columns: [ky][kx][c]
+  constexpr int P = kTileW * TR;
+  constexpr int GS = bwd_g_stride(TR, MMA);
+  constexpr int WS = K + 4;  // a row of the split weights
+  constexpr int kX = bwd_x_floats(C, TR);
+  constexpr int kG = kCout * GS;
   extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* buf = smem + warp * kSlice;  // [row][col -1 .. 64][c]
-  float* sg = buf + kStage;           // [pixel][channel], padded rows
-  const int o = lane;
-
-  float wr[kK];
-#pragma unroll
-  for (int ky = 0; ky < 4; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < 4; ++kx) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        wr[(ky * 4 + kx) * C + c] = __ldg(w + ((o * C + c) * 4 + ky) * 4 + kx);
-      }
-    }
-  }
-  const float bo = __ldg(bias + o);
-  float acc[kK + 1];
-#pragma unroll
-  for (int k = 0; k <= kK; ++k) acc[k] = 0.0f;
-
+  float* s_w = smem;
+  float* s_x = smem + bwd_w_floats(C, MMA);  // 2 buffers of kX
+  float* s_g = s_x + 2 * kX;                 // 2 buffers of kG
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const long long row_len = static_cast<long long>(wd) * C;
-  for (int u = blockIdx.x * warps + warp; u < units; u += gridDim.x * warps) {
-    const int chunk = u % n_chunks;
-    const int rest = u / n_chunks;
-    const int oy = rest % h_out;
-    const int n = rest / h_out;
-    // Every load of the unit first: the 4 input rows, then lane q's pixel
-    // of g in each of the 32 channels.
-    float v[kPerLane];
-    const long long c0 = static_cast<long long>(chunk * 2 * kTileW - 1) * C;
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int idx = lane + 32 * k;
-      const int r = idx / kRow;
-      const int s = idx - r * kRow;
-      const int iy = 2 * oy - 1 + r;
-      const long long col = c0 + s;
-      const bool ok = idx < kStage && s < kTileCols * C && iy >= 0 && iy < h && col >= 0 &&
-                      col < row_len;
-      v[k] = ok ? __ldg(x + (static_cast<long long>(n) * h + iy) * row_len + col) : 0.0f;
-    }
-    const int ox = chunk * kTileW + lane;
-    const float* gp = g + n * sn + oy * sh + static_cast<long long>(ox) * sw;
-    float gv[kCout];
-#pragma unroll
-    for (int oc = 0; oc < kCout; ++oc) gv[oc] = ox < w_out ? __ldg(gp + oc * so) : 0.0f;
-    __syncwarp();  // the previous unit is no longer read
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int idx = lane + 32 * k;
-      if (idx < kStage) buf[idx] = v[k];
-    }
-#pragma unroll
-    for (int oc = 0; oc < kCout; ++oc) sg[lane * kGStride + oc] = gv[oc];
-    __syncwarp();
 
-#pragma unroll 1
-    for (int p = 0; p < kTileW / 2; ++p) {
-      // The pair's window starts at column 2 * (2p) - 1, float 4 p C of a
-      // row: a float4 boundary.
-      const float4* win4 = reinterpret_cast<const float4*>(buf) + p * C;
-      float part0[4], part1[4];
-#pragma unroll
-      for (int ky = 0; ky < 4; ++ky) {
-        float win[4 * kNV];
-#pragma unroll
-        for (int i = 0; i < kNV; ++i) {
-          const float4 t = win4[ky * (kRow / 4) + i];
-          win[4 * i + 0] = t.x;
-          win[4 * i + 1] = t.y;
-          win[4 * i + 2] = t.z;
-          win[4 * i + 3] = t.w;
-        }
-        float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-        for (int kx = 0; kx < 4; ++kx) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float wv = wr[(ky * 4 + kx) * C + c];
-            a0 = fmaf(wv, win[kx * C + c], a0);
-            a1 = fmaf(wv, win[(kx + 2) * C + c], a1);
-          }
-        }
-        part0[ky] = a0;
-        part1[ky] = a1;
-      }
-      const float u0 = bo + ((part0[0] + part0[1]) + (part0[2] + part0[3]));
-      const float u1 = bo + ((part1[0] + part1[1]) + (part1[2] + part1[3]));
-      const float s0 = sg[(2 * p) * kGStride + o] * dswish(u0);
-      const float s1 = sg[(2 * p + 1) * kGStride + o] * dswish(u1);
-#pragma unroll
-      for (int ky = 0; ky < 4; ++ky) {
-        float win[4 * kNV];
-#pragma unroll
-        for (int i = 0; i < kNV; ++i) {
-          const float4 t = win4[ky * (kRow / 4) + i];
-          win[4 * i + 0] = t.x;
-          win[4 * i + 1] = t.y;
-          win[4 * i + 2] = t.z;
-          win[4 * i + 3] = t.w;
-        }
-#pragma unroll
-        for (int kx = 0; kx < 4; ++kx) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            float& a = acc[(ky * 4 + kx) * C + c];
-            a = fmaf(s0, win[kx * C + c], a);
-            a = fmaf(s1, win[(kx + 2) * C + c], a);
-          }
-        }
-      }
-      acc[kK] += s0;
-      acc[kK] += s1;
+  for (int i = tid; i < kCout * K; i += threads) {
+    const int o = i / K;
+    const int k = i - o * K;
+    const int ky = k / (4 * C), kx = (k / C) % 4, c = k % C;
+    const float v = __ldg(w + ((o * C + c) * 4 + ky) * 4 + kx);
+    if constexpr (MMA) {
+      unsigned hi, lo;
+      split_tf32(v, hi, lo);
+      s_w[o * WS + k] = __uint_as_float(hi);
+      s_w[kCout * WS + o * WS + k] = __uint_as_float(lo);
+    } else {
+      s_w[k * kCout + o] = v;
     }
   }
 
-  // The block's sums: each warp's into its slice, then warp 0's + warp 1's
-  // + ... in that order, into the block's row of the workspace.
-  __syncthreads();
-  float* mine = smem + warp * kSlice;
+  // Each thread's roles. Product 1 (pre, then S in place of g) gives a
+  // thread 4 channels, whose bias it keeps and whose S it sums into db;
+  // product 2 (dW += S^T . patches) a fixed block of dW over one slice of
+  // each tile's pixels, summed over the tiles the block walks.
+  const int gq = lane / 4, tq = lane % 4;  // mma fragment coordinates
+  const int q = tid % 8;                   // CUDA cores: channels 4q .. 4q + 3
+  int ch[4];
 #pragma unroll
-  for (int k = 0; k <= kK; ++k) mine[k * kCout + lane] = acc[k];
+  for (int i = 0; i < 4; ++i) {
+    ch[i] = MMA ? (warp % 2) * 16 + (i / 2) * 8 + 2 * tq + i % 2 : 4 * q + i;
+  }
+  float b_r[4], db[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    b_r[i] = __ldg(bias + ch[i]);
+    db[i] = 0.0f;
+  }
+  const int n_sl = bwd_slices(warps, MMA);
+  const int sl = MMA ? warp / 4 : tid / 64;
+  // MMA: m-tile (16 channels) mt2, n-group ng of C n-tiles (8 columns each).
+  const int mt2 = warp % 2, ng = (warp % 4) / 2;
+  // CUDA cores: channels 4 oq .. 4 oq + 3, columns kb 2C .. kb 2C + 2C - 1.
+  const int oq = (tid % 64) % 8, kb = (tid % 64) / 8;
+  // MMA: [n-tile][fragment]; CUDA cores: [channel][column].
+  float acc2[MMA ? C : 4][MMA ? 4 : 2 * C] = {};
+
+  int t = blockIdx.x;
+  int buf = 0;
+  auto stage = [&](int tile, int into) {
+    const int chunk = tile % n_chunks;
+    const int rest = tile / n_chunks;
+    bwd_stage<C, TR, GS>(s_x + into * kX, s_g + into * kG, x, g, sn, so, sh, sw,
+                         rest / row_tiles, (rest % row_tiles) * TR, chunk * kTileW, h, row_len,
+                         h_out, w_out, tid, threads);
+  };
+  if (t < tiles) stage(t, 0);
+  cp_async_commit();
+  for (; t < tiles; t += gridDim.x) {
+    if (t + static_cast<int>(gridDim.x) < tiles) stage(t + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const int oy0 = (t / n_chunks % row_tiles) * TR;
+    const int ox0 = t % n_chunks * kTileW;
+    const float* xb = s_x + buf * kX;
+    float* gb = s_g + buf * kG;
+
+    // Product 1 and S.
+    if constexpr (MMA) {
+      // A warp unit: 16 pixels (m-tile u / 2) x 16 channels (u % 2, the
+      // warp's parity: warps is even).
+      for (int u = warp; u < 2 * (P / 16); u += warps) {
+        const int px = (u / 2) * 16 + gq;
+        const int po0 = px_off<C>(px), po1 = px_off<C>(px + 8);
+        float acc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2 * C; ++ks) {
+          const int k0 = ks * 8 + tq;
+          const int ko0 = k_off<C>(k0), ko1 = k_off<C>(k0 + 4);
+          unsigned ah[4], al[4];
+          split_tf32(xb[po0 + ko0], ah[0], al[0]);
+          split_tf32(xb[po1 + ko0], ah[1], al[1]);
+          split_tf32(xb[po0 + ko1], ah[2], al[2]);
+          split_tf32(xb[po1 + ko1], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float* wr = s_w + ((u % 2) * 16 + j * 8 + gq) * WS + k0;
+            const unsigned bh[2] = {__float_as_uint(wr[0]), __float_as_uint(wr[4])};
+            const unsigned bl[2] = {__float_as_uint(wr[kCout * WS]),
+                                    __float_as_uint(wr[kCout * WS + 4])};
+            mma_3xtf32(acc[j], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = px + 8 * hf;
+          const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float* gv = gb + ch[i] * GS + p;
+            const float s = ok ? *gv * dswish(acc[i / 2][2 * hf + i % 2] + b_r[i]) : 0.0f;
+            *gv = s;
+            db[i] += s;
+          }
+        }
+      }
+    } else {
+      // A thread unit: 2 adjacent pixels x 4 channels (u % 8 == q).
+      for (int u = tid; u < 8 * (P / 2); u += threads) {
+        const int px = 2 * (u / 8);
+        const int po = px_off<C>(px);
+        float acc[2][4] = {};
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float4 wv = reinterpret_cast<const float4*>(s_w)[k * (kCout / 4) + q];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xv = xb[po + 2 * C * e + k_off<C>(k)];
+            acc[e][0] = fmaf(xv, wv.x, acc[e][0]);
+            acc[e][1] = fmaf(xv, wv.y, acc[e][1]);
+            acc[e][2] = fmaf(xv, wv.z, acc[e][2]);
+            acc[e][3] = fmaf(xv, wv.w, acc[e][3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = px + e;
+          const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float* gv = gb + ch[i] * GS + p;
+            const float s = ok ? *gv * dswish(acc[e][i] + b_r[i]) : 0.0f;
+            *gv = s;
+            db[i] += s;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Product 2: the slice's pixels into the thread's block of dW.
+    if constexpr (MMA) {
+      // A = S^T (channels x pixels), B = the patches (pixels x columns).
+      const int kss = (P / 8) / n_sl;
+      for (int i = 0; i < kss; ++i) {
+        const int p0 = (sl * kss + i) * 8 + tq;
+        const float* sr = gb + (mt2 * 16 + gq) * GS + p0;
+        unsigned ah[4], al[4];
+        split_tf32(sr[0], ah[0], al[0]);
+        split_tf32(sr[8 * GS], ah[1], al[1]);
+        split_tf32(sr[4], ah[2], al[2]);
+        split_tf32(sr[8 * GS + 4], ah[3], al[3]);
+        const float* xr = xb + px_off<C>(p0);
+#pragma unroll
+        for (int jn = 0; jn < C; ++jn) {
+          const int ko = k_off<C>((ng * C + jn) * 8 + gq);
+          unsigned bh[2], bl[2];
+          split_tf32(xr[ko], bh[0], bl[0]);
+          split_tf32(xr[ko + 8 * C], bh[1], bl[1]);  // pixel p0 + 4
+          mma_3xtf32(acc2[jn], ah, al, bh, bl);
+        }
+      }
+    } else {
+      const int pps = P / n_sl;
+      const int kob = k_off<C>(kb * 2 * C);
+      for (int i = 0; i < pps; ++i) {
+        const int p = sl * pps + i;
+        float sv[4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) sv[ii] = gb[(4 * oq + ii) * GS + p];
+        const float* xr = xb + px_off<C>(p) + kob;
+#pragma unroll
+        for (int j = 0; j < 2 * C; ++j) {
+          const float xv = xr[j];
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            acc2[ii][j] = fmaf(sv[ii], xv, acc2[ii][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers are no longer read
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
   __syncthreads();
-  constexpr int kOut = (kK + 1) * kCout;
-  for (int i = threadIdx.x; i < kOut; i += blockDim.x) {
+
+  // The block's sums, in a fixed order, into its row of the workspace:
+  // entry k * 32 + o of dW (k < K) the slices' sums in slice order, entry
+  // K * 32 + o of db the 4 * warps rows in order.
+  float* red = smem;                       // [slice][k][o]
+  float* red_b = smem + n_sl * K * kCout;  // [row][o]
+  if constexpr (MMA) {
+#pragma unroll
+    for (int jn = 0; jn < C; ++jn) {
+      const int k = (ng * C + jn) * 8 + 2 * tq;
+      const int o = mt2 * 16 + gq;
+      float* r = red + (sl * K + k) * kCout + o;
+      r[0] = acc2[jn][0];
+      r[kCout] = acc2[jn][1];
+      r[8] = acc2[jn][2];
+      r[kCout + 8] = acc2[jn][3];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red_b[((warp / 2) * 8 + gq) * kCout + ch[i]] = db[i];
+  } else {
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+      for (int j = 0; j < 2 * C; ++j) {
+        red[(sl * K + kb * 2 * C + j) * kCout + 4 * oq + ii] = acc2[ii][j];
+      }
+      red_b[(tid / 8) * kCout + ch[ii]] = db[ii];
+    }
+  }
+  __syncthreads();
+  constexpr int kOut = (K + 1) * kCout;
+  for (int i = tid; i < kOut; i += threads) {
     float s = 0.0f;
-    for (int wi = 0; wi < warps; ++wi) s += smem[wi * kSlice + i];
+    if (i < K * kCout) {
+      for (int r = 0; r < n_sl; ++r) s += red[r * K * kCout + i];
+    } else {
+      for (int r = 0; r < 4 * warps; ++r) s += red_b[r * kCout + i - K * kCout];
+    }
     ws[static_cast<size_t>(blockIdx.x) * kOut + i] = s;
   }
 }
@@ -621,23 +817,25 @@ __global__ void __launch_bounds__(kCout * kReduceRows)
   dw[((o * c + ch) * 4 + ky) * 4 + kx] = total;
 }
 
-template <int C>
+template <int C, int TR, bool MMA>
 int launch_bwd(const float* x, const float* w, const float* b, const float* g, long long sn,
                long long so, long long sh, long long sw, float* ws, float* dw, float* db,
                int batch, int h, int wd, int warps, int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
   const int n_chunks = (w_out + kTileW - 1) / kTileW;
-  const long long units = static_cast<long long>(batch) * h_out * n_chunks;
-  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles = (h_out + TR - 1) / TR;
+  const long long tiles = static_cast<long long>(batch) * row_tiles * n_chunks;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (static_cast<size_t>(smem) > kDefaultSmem) {
-    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C>,
+    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C, TR, MMA>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_bwd_partials_kernel<C><<<blocks, warps * 32, smem, stream>>>(
-      x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, static_cast<int>(units));
+  conv_s2_bwd_partials_kernel<C, TR, MMA><<<blocks, warps * 32, smem, stream>>>(
+      x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, row_tiles,
+      static_cast<int>(tiles));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   conv_s2_bwd_reduce_kernel<<<kTaps * C + 1, dim3(kCout, kReduceRows), 0, stream>>>(
@@ -645,9 +843,33 @@ int launch_bwd(const float* x, const float* w, const float* b, const float* g, l
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bwd_plan_ok(int c, int warps, int smem) {
-  return c >= 1 && c <= 4 && warps >= 1 && warps <= kMaxWarps && smem >= 0 &&
-         static_cast<size_t>(smem) >= bwd_smem_of(c, warps) &&
+template <int C>
+int launch_bwd_rows(const float* x, const float* w, const float* b, const float* g,
+                    long long sn, long long so, long long sh, long long sw, float* ws, float* dw,
+                    float* db, int batch, int h, int wd, int warps, int blocks, int smem,
+                    int rows, int mma, cudaStream_t stream) {
+  if (rows == 2 && mma) {
+    return launch_bwd<C, 2, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
+                                  blocks, smem, stream);
+  }
+  if (rows == 2) {
+    return launch_bwd<C, 2, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
+                                   blocks, smem, stream);
+  }
+  if (mma) {
+    return launch_bwd<C, 4, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
+                                  blocks, smem, stream);
+  }
+  return launch_bwd<C, 4, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
+                                 blocks, smem, stream);
+}
+
+// Tiles of 2 or 4 output rows, 4 or 8 warps a block, and at least the
+// shared memory the tile's buffers and the block's sums take.
+bool bwd_plan_ok(int c, int warps, int smem, int rows, int mma) {
+  return c >= 1 && c <= 4 && (warps == 4 || warps == 8) && (rows == 2 || rows == 4) &&
+         (mma == 0 || mma == 1) && smem >= 0 &&
+         static_cast<size_t>(smem) >= bwd_smem_of(c, rows, warps, mma != 0) &&
          static_cast<size_t>(smem) <= kMaxSmem;
 }
 
@@ -676,14 +898,16 @@ extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void
 
 // f32 only. g is read through its strides (sn, so, sh, sw, in elements),
 // so a view of the next stage's padded gradient needs no copy; ws holds
-// blocks x (16 c + 1) x 32 floats. warps, blocks and smem: the launch plan
-// (kernels.py:conv_bwd_plan).
+// blocks x (16 c + 1) x 32 floats. warps, blocks, smem, rows (a tile's
+// output rows) and tensor (3xTF32 on the tensor cores, else the CUDA
+// cores): the launch plan (kernels.py:conv_bwd_plan).
 extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, const void* g,
                                    long long sn, long long so, long long sh, long long sw,
                                    void* ws, void* dw, void* db, int batch, int h, int wd, int c,
-                                   int warps, int blocks, int smem, cudaStream_t stream) {
+                                   int warps, int blocks, int smem, int rows, int tensor,
+                                   cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
-      !bwd_plan_ok(c, warps, smem)) {
+      !bwd_plan_ok(c, warps, smem, rows, tensor)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* xf = static_cast<const float*>(x);
@@ -695,17 +919,17 @@ extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, 
   float* dbf = static_cast<float*>(db);
   switch (c) {
     case 1:
-      return launch_bwd<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
-                           blocks, smem, stream);
+      return launch_bwd_rows<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, tensor, stream);
     case 2:
-      return launch_bwd<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
-                           blocks, smem, stream);
+      return launch_bwd_rows<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, tensor, stream);
     case 3:
-      return launch_bwd<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
-                           blocks, smem, stream);
+      return launch_bwd_rows<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, tensor, stream);
     case 4:
-      return launch_bwd<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd, warps,
-                           blocks, smem, stream);
+      return launch_bwd_rows<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, tensor, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -168,7 +168,8 @@ _SIGNATURES = {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                             _i32, _i32, _i32, _ptr],
         "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
-                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                                _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -916,50 +917,79 @@ def conv4x4s2_swish_torch(
     return (y * torch.sigmoid(y)).to(x.dtype)
 
 
-# The backward of K4 keeps a warp a unit (the forward's units) and a lane
-# an output channel, whose 16 * C weights and 16 * C + 1 sums sit in
-# registers: its launch bound, 256 threads and one block an SM, lets a
-# thread take up to 255 registers.
-CONV_BWD_WARPS = CONV_MAX_WARPS
-CONV_BWD_BLOCKS_PER_SM = 1
-CONV_BWD_G_STRIDE = CONV_OUT + 1  # a staged pixel of g: 32 channels and a pad float
+# The backward of K4 walks tiles of CONV_TILE_W output pixels by ``rows``
+# output rows of one image, the grid's blocks taking every blocks-th tile.
+# Per tile it forms pre = patches . W^T + b and S = g swish'(pre) (in place
+# of the staged g), then adds S^T . patches to a block's partial dW:
+# 3xTF32 on the tensor cores (``tensor``), or register tiles on the CUDA
+# cores. Its launch bound, 256 threads and 2 blocks an SM, caps a thread at
+# 128 registers, so two blocks of 8 warps always fit on an SM.
+CONV_BWD_MAX_WARPS = 8
+CONV_BWD_WARPS = CONV_BWD_MAX_WARPS
+CONV_BWD_BLOCKS_PER_SM = 2
+CONV_BWD_ROWS = 2
+CONV_BWD_TENSOR = 1
 
 
 class ConvBwdPlan(NamedTuple):
-    """Launch of ``conv4x4s2_swish_bwd``: warps a block, blocks (each walks
-    units with the grid's stride and writes one row of partial sums), and
-    the block's dynamic shared memory in bytes."""
+    """Launch of ``conv4x4s2_swish_bwd``: warps a block (4 or 8), blocks
+    (each walks tiles with the grid's stride and writes one row of partial
+    sums), the block's dynamic shared memory in bytes, the output rows of a
+    tile (2 or 4), and whether the products run on the tensor cores."""
 
     warps: int
     blocks: int
     smem: int
+    rows: int
+    tensor: int
 
 
-def conv_bwd_row_floats(c: int) -> int:
-    """Floats of one staged input row of K4's backward: column -1 at
-    offset 0, CONV_TILE_COLS columns of ``c``, and the last pixel pair's
-    float4 window (6 columns from column 60 on), rounded up to a float4."""
-    window = 4 * -(-(6 * c) // 4)
-    return -(-max(CONV_TILE_COLS * c, 60 * c + window) // 4) * 4
+def conv_bwd_tiles(b: int, h: int, w: int, rows: int = CONV_BWD_ROWS) -> int:
+    """Tiles of K4's backward for a (b, h, w) batch: b x ceil(ceil(h/2) /
+    rows) x chunks of CONV_TILE_W output pixels."""
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    return b * -(-h_out // rows) * -(-w_out // CONV_TILE_W)
 
 
-def conv_bwd_warp_floats(c: int) -> int:
-    """Floats of a warp's slice of shared memory: its 4 staged rows and
-    the 32 x 32 tile of g, one pad float a pixel."""
-    return 4 * conv_bwd_row_floats(c) + CONV_TILE_W * CONV_BWD_G_STRIDE
+def conv_bwd_g_stride(rows: int, tensor: int) -> int:
+    """Floats between two channels' rows of the staged g tile: the tile's
+    pixels and a pad (4 for the tensor-core fragments' banks, 1 for the
+    CUDA cores' channel quads)."""
+    return CONV_TILE_W * rows + (4 if tensor else 1)
+
+
+def conv_bwd_smem(c: int, rows: int, warps: int, tensor: int) -> int:
+    """Bytes of K4's backward's shared memory: the staged weights (split
+    into TF32 hi and lo rows of 16 c + 4 floats, or [k][o]) and two buffers
+    each of the input tile (2 rows + 2 of :func:`conv_row_floats`) and the
+    g tile; or, if more, the block's sums at the end (each slice's dW, 4
+    rows of db a warp)."""
+    k = 16 * c
+    w_floats = 2 * CONV_OUT * (k + 4) if tensor else k * CONV_OUT
+    staging = w_floats + 2 * ((2 * rows + 2) * conv_row_floats(c)
+                              + CONV_OUT * conv_bwd_g_stride(rows, tensor))
+    slices = warps // 4 if tensor else warps // 2
+    return 4 * max(staging, (slices * k + 4 * warps) * CONV_OUT)
+
+
+def conv_bwd_workspace_floats(plan: ConvBwdPlan, c: int) -> int:
+    """The partial sums' workspace: a row of (16 c + 1) x 32 floats a block."""
+    return plan.blocks * (16 * c + 1) * CONV_OUT
 
 
 @lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
-def conv_bwd_plan(b: int, h: int, w: int, c: int, sms: int = H100_SMS) -> ConvBwdPlan:
+def conv_bwd_plan(
+    b: int, h: int, w: int, c: int, sms: int = H100_SMS, rows: int = CONV_BWD_ROWS,
+    warps: int = CONV_BWD_WARPS, blocks_per_sm: int = CONV_BWD_BLOCKS_PER_SM,
+    tensor: int = CONV_BWD_TENSOR,
+) -> ConvBwdPlan:
     """The launch of K4's backward for an NHWC ``(b, h, w, c)`` batch on a
-    card of ``sms`` SMs: blocks of CONV_BWD_WARPS warps, one an SM, or
-    fewer when there are fewer units (a warp a unit, :func:`conv_units`);
-    shared memory for each warp's slice (:func:`conv_bwd_warp_floats`). The
-    blocks' partial sums take ``blocks x (16 c + 1) x 32`` floats of
-    workspace."""
-    units = conv_units(b, h, w)
-    blocks = max(1, min(-(-units // CONV_BWD_WARPS), sms * CONV_BWD_BLOCKS_PER_SM))
-    return ConvBwdPlan(CONV_BWD_WARPS, blocks, 4 * CONV_BWD_WARPS * conv_bwd_warp_floats(c))
+    card of ``sms`` SMs: blocks of ``warps`` warps, ``blocks_per_sm`` an
+    SM, or one a tile when there are fewer tiles (:func:`conv_bwd_tiles`);
+    shared memory by :func:`conv_bwd_smem`. ``kernel_plans.py`` times the
+    alternatives."""
+    blocks = max(1, min(conv_bwd_tiles(b, h, w, rows), sms * blocks_per_sm))
+    return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps, tensor), rows, tensor)
 
 
 def conv4x4s2_swish_grad_kernel(
@@ -1001,8 +1031,7 @@ def conv4x4s2_swish_grad_kernel(
     if g.numel() == 0:
         return d_w.zero_(), d_b.zero_()
     plan = plan or conv_bwd_plan(b, h, w, c, _sm_count(x.device.index or 0))
-    ws = torch.empty(plan.blocks * (16 * c + 1) * CONV_OUT, dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty(conv_bwd_workspace_floats(plan, c), dtype=torch.float32, device=x.device)
     _launch(
         "conv_s2", "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), g.data_ptr(), *g.stride(), ws.data_ptr(), d_w.data_ptr(),

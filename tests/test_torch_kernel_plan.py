@@ -223,51 +223,102 @@ def test_conv_bwd_signature_takes_the_gradient_strides_as_64_bits():
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_bwd_plan_fits_the_shared_memory_it_asks_for(shape):
-    """Each warp's slice holds its 4 staged rows (66 columns and the last
-    pixel pair's float4 window, from column 60) and the 32 x 32 tile of g
-    with a pad float a pixel, and at the end its 32 x (16 C + 1) sums; one
-    block fits in the 227 KB of an SM."""
+    """A block stages the weights (split into TF32 hi and lo rows of 16 C +
+    4 floats, or 16 C x 32) and two buffers each of a tile's 2 rows + 2
+    input rows (the forward's row layout) and its 32-channel g tile (the
+    tile's pixels and a pad a channel); at the end the same memory holds
+    each slice's 16 C x 32 sums and 4 rows of db a warp. It asks for just
+    that, and two blocks fit in the 227 KB of an SM."""
     b, h, w, c = shape
     plan = kernels.conv_bwd_plan(b, h, w, c)
-    row = kernels.conv_bwd_row_floats(c)
-    assert row % 4 == 0 and row >= kernels.CONV_TILE_COLS * c
-    assert row >= 60 * c + 4 * -(-(6 * c) // 4)  # the last pair's window
-    warp = kernels.conv_bwd_warp_floats(c)
-    assert warp == 4 * row + kernels.CONV_TILE_W * (kernels.CONV_OUT + 1)
-    assert warp >= (16 * c + 1) * kernels.CONV_OUT
-    assert plan.smem == 4 * plan.warps * warp <= 227 * 1024
-    assert 1 <= plan.warps <= kernels.CONV_MAX_WARPS
+    assert plan.warps in (4, 8) and plan.rows in (2, 4) and plan.tensor in (0, 1)
+    k = 16 * c
+    pixels = kernels.CONV_TILE_W * plan.rows
+    g_stride = kernels.conv_bwd_g_stride(plan.rows, plan.tensor)
+    assert g_stride >= pixels
+    weights = 2 * 32 * (k + 4) if plan.tensor else k * 32
+    x_tile = (2 * plan.rows + 2) * kernels.conv_row_floats(c)
+    assert kernels.conv_row_floats(c) >= (-c) % 4 + kernels.CONV_TILE_COLS * c
+    slices = plan.warps // 4 if plan.tensor else plan.warps // 2
+    sums = slices * k * 32 + 4 * plan.warps * 32
+    assert plan.smem == 4 * max(weights + 2 * (x_tile + 32 * g_stride), sums)
+    assert 2 * plan.smem <= 227 * 1024
+
+
+def _bwd_tile_origin(t: int, n_chunks: int, row_tiles: int, rows: int) -> tuple[int, int, int]:
+    """Image, first output row and first output column of tile ``t``, as
+    the kernel decodes it."""
+    chunk, rest = t % n_chunks, t // n_chunks
+    return rest // row_tiles, (rest % row_tiles) * rows, chunk * kernels.CONV_TILE_W
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_bwd_plan_covers_every_output_once(shape):
-    """The backward's warps walk the forward's units with the grid's
-    stride: every output pixel, each of whose g * swish' terms enters the
-    sums once, is taken exactly once, and no block is without a unit."""
+    """The blocks walk the tiles with the grid's stride and every block has
+    one; each output pixel, whose g * swish' term enters the sums once, is
+    taken exactly once, ragged row tails and a last tile with fewer rows
+    included; within a tile, product 1's units and product 2's slices each
+    take every pixel once."""
     b, h, w, c = shape
     plan = kernels.conv_bwd_plan(b, h, w, c)
     h_out, w_out = -(-h // 2), -(-w // 2)
     n_chunks = -(-w_out // kernels.CONV_TILE_W)
-    units = kernels.conv_units(b, h, w)
-    assert plan.blocks * plan.warps <= units + plan.warps - 1
-    covered = np.zeros((b, h_out, n_chunks * kernels.CONV_TILE_W), dtype=np.int64)
-    step = plan.blocks * plan.warps
-    for first in range(step):
-        for u in range(first, units, step):
-            chunk, rest = u % n_chunks, u // n_chunks
-            lo = chunk * kernels.CONV_TILE_W
-            covered[rest // h_out, rest % h_out, lo:lo + kernels.CONV_TILE_W] += 1
-    assert np.all(covered[..., :w_out] == 1)
+    row_tiles = -(-h_out // plan.rows)
+    tiles = kernels.conv_bwd_tiles(b, h, w, plan.rows)
+    assert tiles == b * row_tiles * n_chunks and 1 <= plan.blocks <= tiles
+    covered = np.zeros((b, row_tiles * plan.rows, n_chunks * kernels.CONV_TILE_W), np.int64)
+    for block in range(plan.blocks):
+        for t in range(block, tiles, plan.blocks):
+            n, oy0, ox0 = _bwd_tile_origin(t, n_chunks, row_tiles, plan.rows)
+            covered[n, oy0:oy0 + plan.rows, ox0:ox0 + kernels.CONV_TILE_W] += 1
+    assert np.all(covered == 1)
+    pixels = kernels.CONV_TILE_W * plan.rows
+    threads = 32 * plan.warps
+    assert threads % pixels == 0  # the g tile's copies: a pixel a thread
+    if plan.tensor:  # 16 pixels x 16 channels a warp unit; 8 pixels a k-step
+        units = [u // 2 * 16 + p for u in range(2 * (pixels // 16)) for p in range(16)]
+        slices = plan.warps // 4
+        steps = pixels // 8 // slices
+        sliced = [(s * steps + i) * 8 + p for s in range(slices)
+                  for i in range(steps) for p in range(8)]
+        assert sorted(units) == sorted(list(range(pixels)) * 2)  # 2 channel halves
+    else:  # 2 pixels x 4 channels a thread unit
+        units = [2 * (u // 8) + e for u in range(8 * (pixels // 2)) for e in range(2)]
+        slices = threads // 64
+        sliced = list(range(pixels))
+        assert sorted(units) == sorted(list(range(pixels)) * 8)  # 8 channel quads
+    assert sorted(sliced) == list(range(pixels)) and pixels % slices == 0
 
 
 def test_conv_bwd_plan_at_the_celeba_train_shape():
-    """(64, 64, 64, 3): 2,048 units over one block of 8 warps an SM, 132
-    blocks and as many rows of 49 x 32 partial sums; a card of 16 SMs takes
-    16 blocks."""
+    """(64, 64, 64, 3): 1,024 tiles of 2 x 32 pixels over 2 blocks of 8
+    warps an SM, 16 warps, which the launch bound (128 registers a thread)
+    and the shared memory let stay resident together; 264 rows of 49 x 32
+    partial sums. A card of 16 SMs takes 32 blocks, a single pixel one."""
     plan = kernels.conv_bwd_plan(64, 64, 64, 3)
-    assert plan.warps == 8 and plan.blocks == H100
-    assert kernels.conv_bwd_plan(64, 64, 64, 3, sms=16).blocks == 16
+    assert kernels.conv_bwd_tiles(64, 64, 64, plan.rows) == 1024
+    assert plan.blocks == 2 * H100 and plan.warps == 8
+    assert plan.warps * plan.blocks // H100 >= 16
+    assert 65536 // (32 * plan.warps * plan.blocks // H100) >= 128
+    assert plan.blocks // H100 * plan.smem <= 227 * 1024
+    assert kernels.conv_bwd_workspace_floats(plan, 3) == 264 * 49 * 32
+    assert kernels.conv_bwd_plan(64, 64, 64, 3, sms=16).blocks == 32
     assert kernels.conv_bwd_plan(1, 2, 2, 3).blocks == 1
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1),
+                                   (2, 7, 1100, 4), (1, 1, 1, 3)])
+def test_conv_bwd_workspace_is_a_function_of_shape_and_plan(shape):
+    """Inside a captured step the workspace's address is fixed, so its size
+    is a pure function of the shape and the plan: one row of (16 C + 1) x
+    32 floats a block, asked twice the same, whatever the card's SMs."""
+    b, h, w, c = shape
+    for sms in (16, H100):
+        plan = kernels.conv_bwd_plan(b, h, w, c, sms)
+        again = kernels.conv_bwd_plan.__wrapped__(b, h, w, c, sms)
+        assert plan == again
+        assert kernels.conv_bwd_workspace_floats(plan, c) == plan.blocks * (16 * c + 1) * 32
+        assert plan.blocks <= sms * kernels.CONV_BWD_BLOCKS_PER_SM
 
 
 def test_probe_sources_stay_out_of_the_default_build():

@@ -474,13 +474,13 @@ def test_conv_grad_kernel_matches_plain(cuda, shape):
     "shape, plan",
     [
         ((64, 64, 64, 3), None),
-        ((37, 64, 64, 3), kernels.ConvBwdPlan(2, 3, 4 * 2 * kernels.conv_bwd_warp_floats(3))),
-        ((5, 25, 25, 1), kernels.ConvBwdPlan(1, 1, 4 * kernels.conv_bwd_warp_floats(1))),
+        ((37, 64, 64, 3), kernels.conv_bwd_plan(37, 64, 64, 3, rows=4, warps=4)._replace(blocks=3)),
+        ((5, 25, 25, 1), kernels.conv_bwd_plan(5, 25, 25, 1, warps=4)._replace(blocks=1)),
     ],
 )
 def test_conv_grad_kernel_strided_g_and_small_grids(cuda, shape, plan):
     """The upstream gradient as a strided view, read in place; small grids
-    forced through ``plan`` walk many units a warp."""
+    forced through ``plan`` walk many tiles a block."""
     gen = torch.Generator().manual_seed(41)
     args = _conv_grad_inputs(gen, shape, cuda, strided=True)
     assert not args[3].is_contiguous()
@@ -499,13 +499,13 @@ def test_conv_grad_kernel_same_bits_twice(cuda, shape):
 
 @pytest.mark.gpu
 def test_conv_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
-    """Too little shared memory, more than 227 KB, or too many warps: the
-    launch is refused and counts none."""
+    """Too little shared memory, more than 227 KB, too many warps, or a
+    tile of 3 rows: the launch is refused and counts none."""
     args = _conv_grad_inputs(torch.Generator().manual_seed(43), (2, 8, 8, 3), cuda)
     good = kernels.conv_bwd_plan(2, 8, 8, 3)
     before = kernels.LAUNCHES["conv_bwd"]
     for bad in (good._replace(smem=good.smem - 4), good._replace(smem=228 * 1024),
-                good._replace(warps=kernels.CONV_MAX_WARPS + 1)):
+                good._replace(warps=kernels.CONV_BWD_MAX_WARPS + 1), good._replace(rows=3)):
         with pytest.raises(RuntimeError, match="launch failed"):
             kernels.conv4x4s2_swish_grad_kernel(*args, plan=bad)
     assert kernels.LAUNCHES["conv_bwd"] == before
