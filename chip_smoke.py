@@ -145,6 +145,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# The dense TF32 tensor-core rate (K4's backward runs its products there).
+PEAK_TF32_OPS_PER_S = 495e12
 # Per element: KL 4 flops + exp; BCE 5 flops + exp + log1p; seq CE a
 # compare, a subtract, an add and an exp per logit. Per conv output: 2
 # flops for each of the 16 * C products, a bias add and the swish's exp,
@@ -153,9 +155,10 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # product and its sum, the mean product and its sum; per output the prior
 # add, a divide, a log, a negation and K1's 5.
 # K4's backward, per (output pixel, channel): the recompute's 16 * C
-# products and sums, the accumulation's 16 * C, and about 9 for the bias
-# add, swish' (an exp, an add, a divide, a subtract, 2 products, an add) and
-# the product with g.
+# multiply-adds and the accumulation's 16 * C, each taken as three TF32
+# products on the tensor cores (3xTF32), and about 9 on the CUDA cores for
+# the bias add, swish' (an exp, an add, a divide, a subtract, 2 products, an
+# add) and the product with g.
 # The gradients: KL's 1 + 4 (a product; a product, an exp, a subtract and
 # a product); BCE's an exp, an add, a divide, a subtract and a product; the
 # sequence cross-entropy's per logit of a non-pad token the forward's 4
@@ -705,13 +708,15 @@ def bound(op: str, args) -> tuple[float, str]:
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv_bwd":
         # x, g, the weight and bias read; dW and db written. Per (output
-        # pixel, channel): pre recomputed (16 C products and sums), the
-        # accumulation's 16 C, and CONV_BWD_OPS_PER_OUT.
+        # pixel, channel): pre recomputed and the accumulation, 16 C
+        # multiply-adds each as three TF32 products, and CONV_BWD_OPS_PER_OUT
+        # in f32.
         x, weight, bias, g = args
         c = x.shape[3]
         n_bytes = 4 * (x.numel() + g.numel() + 2 * (weight.numel() + bias.numel()))
         t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = g.numel() * (4 * 16 * c + CONV_BWD_OPS_PER_OUT) / PEAK_OPS_PER_S[torch.float32]
+        t_ops = (3 * 2 * 2 * 16 * c * g.numel() / PEAK_TF32_OPS_PER_S
+                 + CONV_BWD_OPS_PER_OUT * g.numel() / PEAK_OPS_PER_S[torch.float32])
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv":
         x, weight, bias = args
@@ -1438,9 +1443,12 @@ def celeba_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16) -> None:
     diff = (card[2][worst] - cpu[2][worst]).abs().flatten()
     update = (cpu[2][worst] - init[worst].detach()).abs().flatten()
     top = diff.argsort(descending=True)[: max(1, diff.numel() // 100)]
+    conv0 = "image_enc.convs.0.weight"  # K4's weight: its gradient is conv4x4s2_swish_bwd's
     emit({"phase": "train_card_vs_cpu", "config": "celeba", "steps": n_steps, "batch": bs,
           "card": "graph runner", "cpu": "eager loop", "loss_card": card[0], "loss_cpu": cpu[0],
           "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated,
+          "update_rel_k4_weight": ((card[2][conv0] - cpu[2][conv0]).norm()
+                                   / (cpu[2][conv0] - init[conv0].detach()).norm()).item(),
           "worst_tensor": {
               "name": worst, "numel": diff.numel(), "max_abs_diff": diff.max().item(),
               "components_over_half_lr": int((diff > 0.5 * cfg.learning_rate).sum()),

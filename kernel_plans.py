@@ -19,10 +19,9 @@ the staged path at 1 to 16 examples a block and every lane group, the
 lane-group layout at the forward's lane groups and at a warp a token row,
 and a warp a token row at 4 to 16 warps at 1 or 2 examples a chunk; for
 the fused PoE + KL's backward: latent tiles of 4 to 256 in float4s and in
-scalars, each at 3 block sizes; for K4's backward: the products on the
-tensor cores or the CUDA cores, tiles of 2 or 4 output rows, 4 or 8 warps
-a block and 1 to 4 blocks an SM, at CelebA's train shape and at C = 1 and
-4). The arguments name the kernels to time
+scalars, each at 3 block sizes; for K4's backward: tiles of 2 or 4
+output rows, 4 or 8 warps a block and 1 to 4 blocks an SM, at CelebA's
+train shape and at C = 1 and 4). The arguments name the kernels to time
 (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
@@ -203,9 +202,8 @@ def poe_bwd_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlBwdPl
 
 
 def conv_bwd_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvBwdPlan]:
-    plans = [K.conv_bwd_plan(b, h, w, c, sms, rows, warps, blocks_per_sm, tensor)
-             for tensor in (1, 0) for rows in (2, 4) for warps in (4, 8)
-             for blocks_per_sm in (1, 2, 3, 4)]
+    plans = [K.conv_bwd_plan(b, h, w, c, sms, rows, warps, blocks_per_sm)
+             for rows in (2, 4) for warps in (4, 8) for blocks_per_sm in (1, 2, 3, 4)]
     auto = K.conv_bwd_plan(b, h, w, c, sms)
     plans = list(dict.fromkeys(plans))
     return plans if auto in plans else plans + [auto]

@@ -62,24 +62,38 @@
 // the forward stays as it is.
 //
 // What bounds it: at the CelebA train shape (64, 64, 64, 3) it reads x
-// (3.15 MB) and g (8.39 MB), 3.4 us at 3.35 TB/s; per (output, channel)
-// pair the recompute's 48 FMAs, the swish' and the 49 FMAs of the
-// accumulation, 0.42 GFLOP, 6.3 us at 67 TFLOP/s of f32: it is bound by
-// operations, and its outputs are 32 x 49 sums of 65,536 terms each.
+// (3.15 MB) and g (8.39 MB), 3.4 us at 3.35 TB/s. Its two products, pre =
+// patches . W^T and dW = S^T . patches, are 2 x 100.7 M multiply-adds: in
+// f32 on the CUDA cores 6.0-6.3 us at 67 TFLOP/s; here in 3xTF32 on the
+// tensor cores, 3 products each, 1.21 GFLOP, 2.4 us at 495 TFLOP/s of dense
+// TF32. So the bytes bound it, at 3.4 us.
 //
-// Design (the first, simple form). A unit is the forward's: 32 output
-// pixels of one output row of one image, one warp. The warp stages the
-// unit's 4 input rows (66 columns from column -1 on, zero where the pad
-// or the edge falls) and its 32 x 32 tile of g, transposed, in its slice of
-// shared memory. Lane o owns output channel o: its 16 * C weights in
-// registers and 16 * C + 1 running sums (dw's row and db). Per pair of
-// adjacent pixels and input row it reads the pair's window (6 columns x C,
-// float4 broadcasts: every lane reads the same address) once for the
-// recompute and once for the accumulation. A block of `warps` warps walks
-// units with the grid's stride, then sums its warps' sums in a fixed order
-// into its row of a workspace; a second launch sums the rows, in a fixed
-// order (8 chains of every 8th row, then the 8 chains), into dw and db. No atomics: two calls with the same plan give the
-// same bits. No fast-math.
+// Design. Both products run on the tensor cores as mma.sync m16n8k8 in
+// 3xTF32: each operand split as hi = tf32(a), lo = tf32(a - hi) (rounded
+// to nearest by integer operations) and each product taken as lo . hi' +
+// hi . lo' + hi . hi', which keeps f32's precision (TF32 alone keeps about
+// three digits). A block walks tiles of 32 output pixels by TR output rows
+// of one image with the grid's stride. A tile's 2 TR + 2 input rows are
+// copied raw into shared memory with cp.async while the previous tile is
+// computed, then split once into hi and lo planes; the weights are staged
+// once a block as the first product's A fragments. A warp takes 16 output
+// channels and groups of 16 pixels, as two n-tiles of 8 (the even pixels,
+// the odd ones, so that at C = 3 its loads fall on distinct banks). Per
+// group: pre^T = W . patches^T into three accumulators (one per product of
+// the split); S = g swish'(pre + b) on the accumulator fragments, g read
+// from global memory through its strides; then S's fragments, taken as the
+// A fragments of dW += S . patches over the pixels in the order 0, 2, 4,
+// 6, 1, 3, 5, 7, go straight into the second product, so S never leaves
+// the registers. dW and db are summed in registers over the tiles, then a
+// block adds its warps' sums in a fixed order into its row of a workspace,
+// and a second launch adds the rows in a fixed order (32 chains of every
+// 32nd row, then the chains) into dw and db. No atomics: two calls with
+// the same plan give the same bits. What holds it at several times its
+// bound is latency: a dependent mma.sync waits about 200 cycles, the warp
+// can keep only a few independent products in flight at 128 registers a
+// thread (16 warps an SM), and the launches and a block's set-up and sums
+// cost several microseconds of their own (conv_bwd_split.py splits the
+// time).
 //
 // C interface (bound with ctypes): conv4x4s2_swish launches on `stream`
 // with the plan it is given (warps a block, blocks, dynamic shared memory),
@@ -411,63 +425,45 @@ bool plan_ok(int c, int warps, int smem) {
 
 // ------------------------------------------------------------ backward --
 
-// The backward walks tiles of kTileW output pixels by TR output rows of one
-// image (P = 32 TR pixels). Its launch bound, kBwdMaxWarps warps and 2
-// blocks an SM, caps a thread at 128 registers.
-constexpr int kBwdMaxWarps = 8;
-
-// Floats between two channels' rows of the staged g tile (S once it is
-// computed in place): P and a pad, 4 for the tensor-core fragments' banks,
-// 1 for the CUDA cores' channel quads.
-__host__ __device__ constexpr int bwd_g_stride(int rows, bool mma) {
-  return kTileW * rows + (mma ? 4 : 1);
+// Floats of one staged input row of the backward: the forward's layout,
+// padded to 4 past a multiple of 32 floats, so that at C = 1 and 3 the
+// second product's B fragments, which may span two rows, fall on distinct
+// banks.
+__host__ __device__ constexpr int bwd_row_floats(int c) {
+  return (row_floats(c) + 27) / 32 * 32 + 4;
 }
-// Floats of the staged weights: [o][k] split into TF32 hi and lo, rows of
-// 16 c + 4 (mma), or [k][o] (CUDA cores).
-__host__ __device__ constexpr int bwd_w_floats(int c, bool mma) {
-  return mma ? 2 * kCout * (kTaps * c + 4) : kTaps * c * kCout;
-}
-// Floats of one staged input tile: 2 TR + 2 rows of the forward's layout.
+// Floats of the staged weights: the A fragments of product 1, [m-tile][k
+// step][lane][a0-a3 hi, a0-a3 lo], two float4s a lane and k step.
+__host__ __device__ constexpr int bwd_w_floats(int c) { return 2 * 2 * c * 32 * 8; }
+// Floats of one plane (hi or lo) of a staged input tile: 2 TR + 2 rows.
 __host__ __device__ constexpr int bwd_x_floats(int c, int rows) {
+  return (2 * rows + 2) * bwd_row_floats(c);
+}
+// Floats of the raw copy of an input tile: 2 TR + 2 rows of the forward's
+// layout, back to back.
+__host__ __device__ constexpr int bwd_raw_floats(int c, int rows) {
   return (2 * rows + 2) * row_floats(c);
 }
-// Slices of a tile's pixels that product 2 splits over the block.
-__host__ __device__ constexpr int bwd_slices(int warps, bool mma) {
-  return mma ? warps / 4 : warps / 2;
-}
-// The weights and two buffers each of the input tile and the g tile; at the
-// end the same memory holds the block's partial sums (each slice's dW, and
-// 4 warps' rows of db).
-size_t bwd_smem_of(int c, int rows, int warps, bool mma) {
-  const size_t staging = static_cast<size_t>(bwd_w_floats(c, mma)) +
-                         2 * static_cast<size_t>(bwd_x_floats(c, rows) +
-                                                 kCout * bwd_g_stride(rows, mma));
-  const size_t red = static_cast<size_t>(bwd_slices(warps, mma) * kTaps * c + 4 * warps) * kCout;
+// The weights, the input tile's hi and lo planes and the next tile's raw
+// copy; at the end the same memory holds the block's partial sums (dW of
+// each pair of warps, db of each of their lane quarters).
+size_t bwd_smem_of(int c, int rows, int warps) {
+  const size_t staging = static_cast<size_t>(bwd_w_floats(c)) +
+                         2 * static_cast<size_t>(bwd_x_floats(c, rows)) +
+                         static_cast<size_t>(bwd_raw_floats(c, rows));
+  const size_t red = static_cast<size_t>(warps / 2 * kTaps * c + 2 * warps) * kCout;
   return sizeof(float) * (staging > red ? staging : red);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// v = hi + lo, each rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds: half of the 13 dropped bits added to the
+// magnitude, then cleared), in integer operations: 3xTF32.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
-// One float from global to shared memory without a register; 0 when !ok
-// (nothing is read).
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = hi + lo, each rounded to TF32 (to nearest, ties away): 3xTF32.
 __device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
 }
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
@@ -476,306 +472,302 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-// d += a b in 3xTF32: the small cross terms first, then hi . hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4],
-                                           const unsigned (&al)[4], const unsigned (&bh)[2],
-                                           const unsigned (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
 
-// swish'(u) = s (1 + u (1 - s)), s = 1 / (1 + e^-u).
+// swish'(u) = s (1 + u (1 - s)), s = 1 / (1 + e^-u): the reciprocal by
+// __fdividef (2 ulp; 0 once e^-u passes 2^126, as s should be).
 __device__ __forceinline__ float dswish(float u) {
-  const float s = 1.0f / (1.0f + expf(-u));
+  const float s = __fdividef(1.0f, 1.0f + expf(-u));
   return s * (1.0f + u * (1.0f - s));
 }
 
-// Offsets in a staged input tile: px_off of output pixel px of the tile
-// (row px / 32, column px % 32), k_off of patch element k = (ky * 4 + kx)
-// * C + c; their sum addresses input row 2 (px / 32) + ky, column 2 (px %
-// 32) + kx - 1, channel c, of the tile. The kx C + c of k are k % 4C.
-template <int C>
-__device__ __forceinline__ int px_off(int px) {
-  return 2 * (px / kTileW) * row_floats(C) + lead(C) + 2 * (px % kTileW) * C;
-}
+// Offset in a staged input row of patch element k = (ky * 4 + kx) * C + c:
+// row ky, float kx C + c = k % 4C of the pixel's window.
 template <int C>
 __host__ __device__ constexpr int k_off(int k) {
-  return k / (4 * C) * row_floats(C) + k % (4 * C);
+  return k / (4 * C) * bwd_row_floats(C) + k % (4 * C);
+}
+// Whether the 8 patch elements from 8 nt on span two rows. 8 nt % 4C is a
+// multiple of 4 (of 8 at even C), so a split leaves exactly 4 in the first
+// row: those from 4 on lie in the next.
+template <int C>
+__host__ __device__ constexpr bool k_split(int nt) {
+  return 4 * C - 8 * nt % (4 * C) < 8;
 }
 
-// Issue the copies of one tile: its 2 TR + 2 input rows (66 columns from
-// column 2 ox0 - 1 on, the forward's layout; zero where the pad or an
-// edge falls) and its g tile [o][pixel] (zero past h_out and w_out), g read
-// through its strides. `threads` is a multiple of the tile's pixels.
-template <int C, int TR, int GS>
-__device__ __forceinline__ void bwd_stage(float* sx, float* sg, const float* __restrict__ x,
-                                          const float* __restrict__ g, long long sn,
-                                          long long so, long long sh, long long sw, int n,
-                                          int oy0, int ox0, int h, long long row_len,
-                                          int h_out, int w_out, int tid, int threads) {
-  constexpr int kRow = row_floats(C);
-  constexpr int kAll = (2 * TR + 2) * kRow;
-  const long long c0 = static_cast<long long>(2 * ox0 - 1) * C - lead(C);
-  const float* xn = x + static_cast<long long>(n) * h * row_len;
-  for (int i = tid; i < kAll; i += threads) {
-    const int r = i / kRow;
-    const long long col = c0 + (i - r * kRow);
-    const int iy = 2 * oy0 - 1 + r;
-    const bool ok = iy >= 0 && iy < h && col >= 0 && col < row_len;
-    cp_async_f32(sx + i, ok ? xn + iy * row_len + col : x, ok);
-  }
-  constexpr int P = kTileW * TR;
-  const int p = tid % P;
-  const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
-  const float* gp = ok ? g + n * sn + (oy0 + p / kTileW) * sh + (ox0 + p % kTileW) * sw : g;
-  for (int o = tid / P; o < kCout; o += threads / P) {
-    cp_async_f32(sg + o * GS + p, ok ? gp + o * so : g, ok);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// E floats (1 or 4) from global to shared memory without a register; zero
+// when !ok (nothing is read).
+template <int E>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
+  if constexpr (E == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
   }
 }
 
-template <int C, int TR, bool MMA>
-__global__ void __launch_bounds__(kBwdMaxWarps * 32, 2)
+// One tile's 2 TR + 2 input rows (66 columns from column 2 ox0 - 1 on, the
+// forward's layout; zero where the pad or an edge falls): copied raw into
+// shared memory (16 bytes a copy where VEC) while the previous tile is
+// computed, then split into TF32 hi and lo planes in one pass.
+template <int C, int TR, int W, bool VEC>
+struct BwdStage {
+  static constexpr int E = VEC ? 4 : 1;
+  static constexpr int kPerRow = row_floats(C) / E;
+  static constexpr int kAll = (2 * TR + 2) * kPerRow;
+  static constexpr int kPer = (kAll + 32 * W - 1) / (32 * W);
+
+  __device__ __forceinline__ static void load(float* raw, const float* __restrict__ x, int n,
+                                              int oy0, int ox0, int h, long long row_len,
+                                              int tid) {
+    const long long c0 = static_cast<long long>(2 * ox0 - 1) * C - lead(C);
+    const float* xn = x + static_cast<long long>(n) * h * row_len;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = tid + 32 * W * k;
+      const int r = i / kPerRow;
+      const int iy = 2 * oy0 - 1 + r;
+      const long long col = c0 + (i - r * kPerRow) * E;
+      const bool ok = iy >= 0 && iy < h && col >= 0 && col + E <= row_len;
+      if (i < kAll) cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  __device__ __forceinline__ static void split(const float* raw, float* xh, float* xl, int tid) {
+    constexpr int kRow = bwd_row_floats(C);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = tid + 32 * W * k;
+      if (i >= kAll) continue;
+      const int r = i / kPerRow;
+      const int at = r * kRow + (i - r * kPerRow) * E;
+      unsigned hi[E], lo[E];
+      if constexpr (VEC) {
+        const float4 f = *reinterpret_cast<const float4*>(raw + i * E);
+        split_tf32(f.x, hi[0], lo[0]);
+        split_tf32(f.y, hi[1], lo[1]);
+        split_tf32(f.z, hi[2], lo[2]);
+        split_tf32(f.w, hi[3], lo[3]);
+        *reinterpret_cast<uint4*>(xh + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(xl + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+        split_tf32(raw[i], hi[0], lo[0]);
+        xh[at] = __uint_as_float(hi[0]);
+        xl[at] = __uint_as_float(lo[0]);
+      }
+    }
+  }
+};
+
+// Per tile, a warp takes one m-tile of 16 channels (warp % 2) and every
+// (W / 2)-th group of 16 pixels from warp / 2 on, as two n-tiles: the even
+// pixels and the odd ones (column n of n-tile e is pixel 16 jg + 2 n + e).
+// For each group: product 1, pre^T (16 x 8, twice) = W (16 x 16C) .
+// patches^T, 3xTF32 on the tensor cores, each of the three products in its
+// own accumulator, so that a dependent mma.sync waits less often; S = g
+// swish'(pre + b) on the accumulator fragments, g read from
+// global memory; product 2, dW (16 x 16C) += S . patches: S's accumulator
+// fragment is product 2's A fragment when an n-tile's 8 pixels are taken
+// in the order 0, 2, 4, 6, 1, 3, 5, 7 (a sum over them in any order), which
+// the B fragments follow, one of the three products at a time over every
+// n-tile of dW's columns. The input tile is split into TF32 planes once, so
+// the fragments are plain loads. dW and db are summed in registers over
+// the tiles.
+template <int C, int TR, int W, bool VEC>
+__global__ void __launch_bounds__(W * 32, 16 / W)
     conv_s2_bwd_partials_kernel(const float* __restrict__ x, const float* __restrict__ w,
                                 const float* __restrict__ bias, const float* __restrict__ g,
                                 long long sn, long long so, long long sh, long long sw,
                                 float* __restrict__ ws, int h, int wd, int h_out, int w_out,
                                 int n_chunks, int row_tiles, int tiles) {
   constexpr int K = kTaps * C;  // patch elements, dW's columns: [ky][kx][c]
+  constexpr int KS = K / 8;     // product 1's k steps, product 2's n-tiles
   constexpr int P = kTileW * TR;
-  constexpr int GS = bwd_g_stride(TR, MMA);
-  constexpr int WS = K + 4;  // a row of the split weights
-  constexpr int kX = bwd_x_floats(C, TR);
-  constexpr int kG = kCout * GS;
+  constexpr int kRow = bwd_row_floats(C);
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem;
-  float* s_x = smem + bwd_w_floats(C, MMA);  // 2 buffers of kX
-  float* s_g = s_x + 2 * kX;                 // 2 buffers of kG
+  float* s_xh = smem + bwd_w_floats(C);
+  float* s_xl = s_xh + bwd_x_floats(C, TR);
+  float* s_raw = s_xl + bwd_x_floats(C, TR);
   const int tid = threadIdx.x;
-  const int threads = blockDim.x;
-  const int warps = threads / 32;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment coordinates
   const long long row_len = static_cast<long long>(wd) * C;
 
-  for (int i = tid; i < kCout * K; i += threads) {
-    const int o = i / K;
-    const int k = i - o * K;
-    const int ky = k / (4 * C), kx = (k / C) % 4, c = k % C;
-    const float v = __ldg(w + ((o * C + c) * 4 + ky) * 4 + kx);
-    if constexpr (MMA) {
-      unsigned hi, lo;
-      split_tf32(v, hi, lo);
-      s_w[o * WS + k] = __uint_as_float(hi);
-      s_w[kCout * WS + o * WS + k] = __uint_as_float(lo);
-    } else {
-      s_w[k * kCout + o] = v;
-    }
-  }
-
-  // Each thread's roles. Product 1 (pre, then S in place of g) gives a
-  // thread 4 channels, whose bias it keeps and whose S it sums into db;
-  // product 2 (dW += S^T . patches) a fixed block of dW over one slice of
-  // each tile's pixels, summed over the tiles the block walks.
-  const int gq = lane / 4, tq = lane % 4;  // mma fragment coordinates
-  const int q = tid % 8;                   // CUDA cores: channels 4q .. 4q + 3
-  int ch[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ch[i] = MMA ? (warp % 2) * 16 + (i / 2) * 8 + 2 * tq + i % 2 : 4 * q + i;
-  }
-  float b_r[4], db[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    b_r[i] = __ldg(bias + ch[i]);
-    db[i] = 0.0f;
-  }
-  const int n_sl = bwd_slices(warps, MMA);
-  const int sl = MMA ? warp / 4 : tid / 64;
-  // MMA: m-tile (16 channels) mt2, n-group ng of C n-tiles (8 columns each).
-  const int mt2 = warp % 2, ng = (warp % 4) / 2;
-  // CUDA cores: channels 4 oq .. 4 oq + 3, columns kb 2C .. kb 2C + 2C - 1.
-  const int oq = (tid % 64) % 8, kb = (tid % 64) / 8;
-  // MMA: [n-tile][fragment]; CUDA cores: [channel][column].
-  float acc2[MMA ? C : 4][MMA ? 4 : 2 * C] = {};
-
+  using Stage = BwdStage<C, TR, W, VEC>;
   int t = blockIdx.x;
-  int buf = 0;
-  auto stage = [&](int tile, int into) {
-    const int chunk = tile % n_chunks;
-    const int rest = tile / n_chunks;
-    bwd_stage<C, TR, GS>(s_x + into * kX, s_g + into * kG, x, g, sn, so, sh, sw,
-                         rest / row_tiles, (rest % row_tiles) * TR, chunk * kTileW, h, row_len,
-                         h_out, w_out, tid, threads);
-  };
-  if (t < tiles) stage(t, 0);
-  cp_async_commit();
-  for (; t < tiles; t += gridDim.x) {
-    if (t + static_cast<int>(gridDim.x) < tiles) stage(t + gridDim.x, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies have landed
-    __syncthreads();
-    const int oy0 = (t / n_chunks % row_tiles) * TR;
-    const int ox0 = t % n_chunks * kTileW;
-    const float* xb = s_x + buf * kX;
-    float* gb = s_g + buf * kG;
+  if (t < tiles) {
+    const int rest = t / n_chunks;
+    Stage::load(s_raw, x, rest / row_tiles, rest % row_tiles * TR, t % n_chunks * kTileW, h,
+                row_len, tid);
+  }
 
-    // Product 1 and S.
-    if constexpr (MMA) {
-      // A warp unit: 16 pixels (m-tile u / 2) x 16 channels (u % 2, the
-      // warp's parity: warps is even).
-      for (int u = warp; u < 2 * (P / 16); u += warps) {
-        const int px = (u / 2) * 16 + gq;
-        const int po0 = px_off<C>(px), po1 = px_off<C>(px + 8);
-        float acc[2][4] = {};
+  // The weights as product 1's A fragments, split once: a_r of lane ln at
+  // k step ks of m-tile mt is W[mt 16 + ln / 4 + 8 (r % 2)][ks 8 + ln % 4 +
+  // 4 (r / 2)].
+  constexpr int kWPer = 2 * KS * 32 * 4 / (32 * W);
+  float wv[kWPer];
 #pragma unroll
-        for (int ks = 0; ks < 2 * C; ++ks) {
-          const int k0 = ks * 8 + tq;
-          const int ko0 = k_off<C>(k0), ko1 = k_off<C>(k0 + 4);
-          unsigned ah[4], al[4];
-          split_tf32(xb[po0 + ko0], ah[0], al[0]);
-          split_tf32(xb[po1 + ko0], ah[1], al[1]);
-          split_tf32(xb[po0 + ko1], ah[2], al[2]);
-          split_tf32(xb[po1 + ko1], ah[3], al[3]);
+  for (int j = 0; j < kWPer; ++j) {
+    const int i = tid + 32 * W * j;
+    const int ln = i / 4 % 32;
+    const int o = i / (128 * KS) * 16 + ln / 4 + 8 * (i % 4 % 2);
+    const int k = i / 128 % KS * 8 + ln % 4 + 4 * (i % 4 / 2);
+    wv[j] = __ldg(w + ((o * C + k % C) * 4 + k / (4 * C)) * 4 + k / C % 4);
+  }
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float* wr = s_w + ((u % 2) * 16 + j * 8 + gq) * WS + k0;
-            const unsigned bh[2] = {__float_as_uint(wr[0]), __float_as_uint(wr[4])};
-            const unsigned bl[2] = {__float_as_uint(wr[kCout * WS]),
-                                    __float_as_uint(wr[kCout * WS + 4])};
-            mma_3xtf32(acc[j], ah, al, bh, bl);
-          }
-        }
+  for (int j = 0; j < kWPer; ++j) {
+    const int i = tid + 32 * W * j;
+    unsigned hi, lo;
+    split_tf32(wv[j], hi, lo);
+    float* f = s_w + i / 4 * 8;  // [m-tile][k step][lane][8]: i / 4 is the lane's slot
+    f[i % 4] = __uint_as_float(hi);
+    f[4 + i % 4] = __uint_as_float(lo);
+  }
+  const int mt = warp % 2;
+  const int o0 = mt * 16 + gq;  // the channels of the thread's rows: o0, o0 + 8
+  const float b0 = __ldg(bias + o0), b1 = __ldg(bias + o0 + 8);
+  const float4* wf = reinterpret_cast<const float4*>(s_w) + (mt * KS * 32 + lane) * 2;
+  // Per-thread offsets in the staged planes: product 1's B at pixel 2 gq,
+  // element tq of a 4-aligned run of k; product 2's B at pixel 4 tq,
+  // element gq of the 8 from 8 nt (adj when those span two rows).
+  const int off1 = lead(C) + 4 * C * gq + tq;
+  const int off2 = lead(C) + 8 * C * tq + gq;
+  const int adj = gq >= 4 ? kRow - 4 * C : 0;
+  const long long g_o = o0 * so;
+  float acc[KS][4] = {};  // dW (o0, o0 + 8) x (nt 8 + 2 tq, + 1)
+  float db0 = 0.0f, db1 = 0.0f;
+
+  for (; t < tiles; t += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's raw copy has landed; the previous tile is no longer read
+    Stage::split(s_raw, s_xh, s_xl, tid);
+    __syncthreads();
+    const int rest = t / n_chunks;
+    const int n = rest / row_tiles;
+    const int oy0 = rest % row_tiles * TR;
+    const int ox0 = t % n_chunks * kTileW;
+    const int next = t + gridDim.x;
+    if (next < tiles) {
+      const int nrest = next / n_chunks;
+      Stage::load(s_raw, x, nrest / row_tiles, nrest % row_tiles * TR,
+                  next % n_chunks * kTileW, h, row_len, tid);
+    }
+    const float* gt = g + n * sn + g_o;
+    for (int jg = warp / 2; jg < P / 16; jg += W / 2) {
+      // The group's pixels start at row jg / 2, column 16 (jg % 2) of the tile.
+      const int base = jg / 2 * 2 * kRow + jg % 2 * 32 * C;
+      // g at the thread's accumulator positions: channels o0, o0 + 8,
+      // pixels 16 jg + 4 tq + i (i = 2 c + e: column 2 tq + c of n-tile e).
+      const int oy = oy0 + jg / 2;
+      const int ox = ox0 + jg % 2 * 16 + 4 * tq;
+      const float* gp = gt + oy * sh + ox * sw;
+      float gv[2][4];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int p = px + 8 * hf;
-          const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* gv = gb + ch[i] * GS + p;
-            const float s = ok ? *gv * dswish(acc[i / 2][2 * hf + i % 2] + b_r[i]) : 0.0f;
-            *gv = s;
-            db[i] += s;
-          }
-        }
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = oy < h_out && ox + i < w_out;
+        gv[0][i] = ok ? __ldg(gp + i * sw) : 0.0f;
+        gv[1][i] = ok ? __ldg(gp + 8 * so + i * sw) : 0.0f;
       }
-    } else {
-      // A thread unit: 2 adjacent pixels x 4 channels (u % 8 == q).
-      for (int u = tid; u < 8 * (P / 2); u += threads) {
-        const int px = 2 * (u / 8);
-        const int po = px_off<C>(px);
-        float acc[2][4] = {};
+      // Product 1: B of n-tile e (k x pixel) = patch(16 jg + 2 gq + e, ks 8
+      // + tq (+ 4)).
+      float pre[3][2][4] = {};
+      const float* ph = s_xh + base + off1;
+      const float* pl = s_xl + base + off1;
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float4 wv = reinterpret_cast<const float4*>(s_w)[k * (kCout / 4) + q];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float xv = xb[po + 2 * C * e + k_off<C>(k)];
-            acc[e][0] = fmaf(xv, wv.x, acc[e][0]);
-            acc[e][1] = fmaf(xv, wv.y, acc[e][1]);
-            acc[e][2] = fmaf(xv, wv.z, acc[e][2]);
-            acc[e][3] = fmaf(xv, wv.w, acc[e][3]);
-          }
-        }
+      for (int ks = 0; ks < KS; ++ks) {
+        const float4 h4 = wf[ks * 64], l4 = wf[ks * 64 + 1];
+        const unsigned ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
+                                __float_as_uint(h4.z), __float_as_uint(h4.w)};
+        const unsigned al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
+                                __float_as_uint(l4.z), __float_as_uint(l4.w)};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int p = px + e;
-          const bool ok = oy0 + p / kTileW < h_out && ox0 + p % kTileW < w_out;
+          const int o_a = e * 2 * C + k_off<C>(ks * 8);
+          const int o_b = e * 2 * C + k_off<C>(ks * 8 + 4);
+          const unsigned bh[2] = {__float_as_uint(ph[o_a]), __float_as_uint(ph[o_b])};
+          const unsigned bl[2] = {__float_as_uint(pl[o_a]), __float_as_uint(pl[o_b])};
+          mma_tf32(pre[0][e], al, bh);
+          mma_tf32(pre[1][e], ah, bl);
+          mma_tf32(pre[2][e], ah, bh);
+        }
+      }
+      // S at (o0, o0 + 8) x pixels 16 jg + 4 tq + e (+ 2), as product 2's A
+      // fragments of n-tile e: A's column tq is its column 2 tq, column tq +
+      // 4 its column 2 tq + 1.
+      unsigned s_hi[2][4], s_lo[2][4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* gv = gb + ch[i] * GS + p;
-            const float s = ok ? *gv * dswish(acc[e][i] + b_r[i]) : 0.0f;
-            *gv = s;
-            db[i] += s;
+      for (int e = 0; e < 2; ++e) {
+        float s[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float u = (pre[0][e][i] + pre[1][e][i]) + pre[2][e][i] + (i < 2 ? b0 : b1);
+          s[i] = gv[i / 2][2 * (i % 2) + e] * dswish(u);
+        }
+        db0 += s[0];
+        db0 += s[1];
+        db1 += s[2];
+        db1 += s[3];
+        split_tf32(s[0], s_hi[e][0], s_lo[e][0]);
+        split_tf32(s[2], s_hi[e][1], s_lo[e][1]);
+        split_tf32(s[1], s_hi[e][2], s_lo[e][2]);
+        split_tf32(s[3], s_hi[e][3], s_lo[e][3]);
+      }
+      // Product 2: B of n-tile e = patch(16 jg + 4 tq + e (+ 2), nt 8 + gq),
+      // one of the three products at a time over every n-tile.
+      const float* qh = s_xh + base + off2;
+      const float* ql = s_xl + base + off2;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        unsigned b[KS][2];
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          const float* q = term == 1 ? ql : qh;
+#pragma unroll
+          for (int nt = 0; nt < KS; ++nt) {
+            const int o_a = e * 2 * C + k_off<C>(nt * 8) + (k_split<C>(nt) ? adj : 0);
+            b[nt][0] = __float_as_uint(q[o_a]);
+            b[nt][1] = __float_as_uint(q[o_a + 4 * C]);  // pixel + 2
           }
+#pragma unroll
+          for (int nt = 0; nt < KS; ++nt) mma_tf32(acc[nt], term == 0 ? s_lo[e] : s_hi[e], b[nt]);
         }
       }
     }
-    __syncthreads();
-
-    // Product 2: the slice's pixels into the thread's block of dW.
-    if constexpr (MMA) {
-      // A = S^T (channels x pixels), B = the patches (pixels x columns).
-      const int kss = (P / 8) / n_sl;
-      for (int i = 0; i < kss; ++i) {
-        const int p0 = (sl * kss + i) * 8 + tq;
-        const float* sr = gb + (mt2 * 16 + gq) * GS + p0;
-        unsigned ah[4], al[4];
-        split_tf32(sr[0], ah[0], al[0]);
-        split_tf32(sr[8 * GS], ah[1], al[1]);
-        split_tf32(sr[4], ah[2], al[2]);
-        split_tf32(sr[8 * GS + 4], ah[3], al[3]);
-        const float* xr = xb + px_off<C>(p0);
-#pragma unroll
-        for (int jn = 0; jn < C; ++jn) {
-          const int ko = k_off<C>((ng * C + jn) * 8 + gq);
-          unsigned bh[2], bl[2];
-          split_tf32(xr[ko], bh[0], bl[0]);
-          split_tf32(xr[ko + 8 * C], bh[1], bl[1]);  // pixel p0 + 4
-          mma_3xtf32(acc2[jn], ah, al, bh, bl);
-        }
-      }
-    } else {
-      const int pps = P / n_sl;
-      const int kob = k_off<C>(kb * 2 * C);
-      for (int i = 0; i < pps; ++i) {
-        const int p = sl * pps + i;
-        float sv[4];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) sv[ii] = gb[(4 * oq + ii) * GS + p];
-        const float* xr = xb + px_off<C>(p) + kob;
-#pragma unroll
-        for (int j = 0; j < 2 * C; ++j) {
-          const float xv = xr[j];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            acc2[ii][j] = fmaf(sv[ii], xv, acc2[ii][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the tile's buffers are no longer read
-    buf ^= 1;
   }
-  cp_async_wait<0>();
   __syncthreads();
 
   // The block's sums, in a fixed order, into its row of the workspace:
-  // entry k * 32 + o of dW (k < K) the slices' sums in slice order, entry
-  // K * 32 + o of db the 4 * warps rows in order.
-  float* red = smem;                       // [slice][k][o]
-  float* red_b = smem + n_sl * K * kCout;  // [row][o]
-  if constexpr (MMA) {
+  // entry k * 32 + o of dW (k < K), the warp pairs' sums in order; entry
+  // K * 32 + o of db, the 2 W rows (pair, tq) in order.
+  float* red = smem;                        // [pair][k][o]
+  float* red_b = smem + W / 2 * K * kCout;  // [pair * 4 + tq][o]
+  const int pair = warp / 2;
 #pragma unroll
-    for (int jn = 0; jn < C; ++jn) {
-      const int k = (ng * C + jn) * 8 + 2 * tq;
-      const int o = mt2 * 16 + gq;
-      float* r = red + (sl * K + k) * kCout + o;
-      r[0] = acc2[jn][0];
-      r[kCout] = acc2[jn][1];
-      r[8] = acc2[jn][2];
-      r[kCout + 8] = acc2[jn][3];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red_b[((warp / 2) * 8 + gq) * kCout + ch[i]] = db[i];
-  } else {
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-      for (int j = 0; j < 2 * C; ++j) {
-        red[(sl * K + kb * 2 * C + j) * kCout + 4 * oq + ii] = acc2[ii][j];
-      }
-      red_b[(tid / 8) * kCout + ch[ii]] = db[ii];
-    }
+  for (int nt = 0; nt < KS; ++nt) {
+    float* r = red + (pair * K + nt * 8 + 2 * tq) * kCout + o0;
+    r[0] = acc[nt][0];
+    r[kCout] = acc[nt][1];
+    r[8] = acc[nt][2];
+    r[kCout + 8] = acc[nt][3];
   }
+  red_b[(pair * 4 + tq) * kCout + o0] = db0;
+  red_b[(pair * 4 + tq) * kCout + o0 + 8] = db1;
   __syncthreads();
   constexpr int kOut = (K + 1) * kCout;
-  for (int i = tid; i < kOut; i += threads) {
+  for (int i = tid; i < kOut; i += 32 * W) {
     float s = 0.0f;
     if (i < K * kCout) {
-      for (int r = 0; r < n_sl; ++r) s += red[r * K * kCout + i];
+      for (int r = 0; r < W / 2; ++r) s += red[r * K * kCout + i];
     } else {
-      for (int r = 0; r < 4 * warps; ++r) s += red_b[r * kCout + i - K * kCout];
+      for (int r = 0; r < 2 * W; ++r) s += red_b[r * kCout + i - K * kCout];
     }
     ws[static_cast<size_t>(blockIdx.x) * kOut + i] = s;
   }
@@ -784,9 +776,11 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32, 2)
 // dw and db from the blocks' rows of sums, entry t = k * 32 + o, k = (ky *
 // 4 + kx) * c + ch (k = 16 c: the bias). A block takes one k, its 32
 // entries (a 128-byte line of each row) and kReduceRows rows of threads:
-// thread (o, y) sums rows y, y + kReduceRows, ... in order, then thread
-// (o, 0) adds the kReduceRows sums in order. A fixed order throughout.
-constexpr int kReduceRows = 8;
+// thread (o, y) sums rows y, y + kReduceRows, ... in order, kReduceBatch
+// loads issued before the first add, then thread (o, 0) adds the
+// kReduceRows sums in order. A fixed order throughout.
+constexpr int kReduceRows = 32;
+constexpr int kReduceBatch = 16;
 
 __global__ void __launch_bounds__(kCout * kReduceRows)
     conv_s2_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
@@ -799,8 +793,16 @@ __global__ void __launch_bounds__(kCout * kReduceRows)
   const int y = threadIdx.y;
   const float* src = ws + k * kCout + o;
   float s = 0.0f;
-#pragma unroll 4
-  for (int r = y; r < parts; r += kReduceRows) s += __ldg(src + static_cast<size_t>(r) * n_out);
+  for (int r0 = y; r0 < parts; r0 += kReduceBatch * kReduceRows) {
+    float v[kReduceBatch];
+#pragma unroll
+    for (int i = 0; i < kReduceBatch; ++i) {
+      const int r = r0 + i * kReduceRows;
+      v[i] = r < parts ? __ldg(src + static_cast<size_t>(r) * n_out) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kReduceBatch; ++i) s += v[i];
+  }
   part[y][o] = s;
   __syncthreads();
   if (y != 0) return;
@@ -817,10 +819,10 @@ __global__ void __launch_bounds__(kCout * kReduceRows)
   dw[((o * c + ch) * 4 + ky) * 4 + kx] = total;
 }
 
-template <int C, int TR, bool MMA>
+template <int C, int TR, int W, bool VEC>
 int launch_bwd(const float* x, const float* w, const float* b, const float* g, long long sn,
                long long so, long long sh, long long sw, float* ws, float* dw, float* db,
-               int batch, int h, int wd, int warps, int blocks, int smem, cudaStream_t stream) {
+               int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
   const int n_chunks = (w_out + kTileW - 1) / kTileW;
@@ -829,11 +831,11 @@ int launch_bwd(const float* x, const float* w, const float* b, const float* g, l
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (static_cast<size_t>(smem) > kDefaultSmem) {
-    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C, TR, MMA>,
+    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C, TR, W, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_bwd_partials_kernel<C, TR, MMA><<<blocks, warps * 32, smem, stream>>>(
+  conv_s2_bwd_partials_kernel<C, TR, W, VEC><<<blocks, W * 32, smem, stream>>>(
       x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, row_tiles,
       static_cast<int>(tiles));
   err = cudaGetLastError();
@@ -843,33 +845,46 @@ int launch_bwd(const float* x, const float* w, const float* b, const float* g, l
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C, int TR, int W>
+int launch_bwd_vec(const float* x, const float* w, const float* b, const float* g, long long sn,
+                   long long so, long long sh, long long sw, float* ws, float* dw, float* db,
+                   int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
+  // 16-byte loads of the input rows where a row is whole float4s and x
+  // starts on 16 bytes.
+  if ((static_cast<long long>(wd) * C) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    return launch_bwd<C, TR, W, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                      blocks, smem, stream);
+  }
+  return launch_bwd<C, TR, W, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                     blocks, smem, stream);
+}
+
 template <int C>
-int launch_bwd_rows(const float* x, const float* w, const float* b, const float* g,
-                    long long sn, long long so, long long sh, long long sw, float* ws, float* dw,
-                    float* db, int batch, int h, int wd, int warps, int blocks, int smem,
-                    int rows, int mma, cudaStream_t stream) {
-  if (rows == 2 && mma) {
-    return launch_bwd<C, 2, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
-                                  blocks, smem, stream);
+int launch_bwd_c(const float* x, const float* w, const float* b, const float* g, long long sn,
+                 long long so, long long sh, long long sw, float* ws, float* dw, float* db,
+                 int batch, int h, int wd, int warps, int blocks, int smem, int rows,
+                 cudaStream_t stream) {
+  if (rows == 2 && warps == 8) {
+    return launch_bwd_vec<C, 2, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
+                                   smem, stream);
   }
   if (rows == 2) {
-    return launch_bwd<C, 2, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
-                                   blocks, smem, stream);
+    return launch_bwd_vec<C, 2, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
+                                   smem, stream);
   }
-  if (mma) {
-    return launch_bwd<C, 4, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
-                                  blocks, smem, stream);
+  if (warps == 8) {
+    return launch_bwd_vec<C, 4, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
+                                   smem, stream);
   }
-  return launch_bwd<C, 4, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, warps,
-                                 blocks, smem, stream);
+  return launch_bwd_vec<C, 4, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
+                                   smem, stream);
 }
 
 // Tiles of 2 or 4 output rows, 4 or 8 warps a block, and at least the
 // shared memory the tile's buffers and the block's sums take.
-bool bwd_plan_ok(int c, int warps, int smem, int rows, int mma) {
+bool bwd_plan_ok(int c, int warps, int smem, int rows) {
   return c >= 1 && c <= 4 && (warps == 4 || warps == 8) && (rows == 2 || rows == 4) &&
-         (mma == 0 || mma == 1) && smem >= 0 &&
-         static_cast<size_t>(smem) >= bwd_smem_of(c, rows, warps, mma != 0) &&
+         smem >= 0 && static_cast<size_t>(smem) >= bwd_smem_of(c, rows, warps) &&
          static_cast<size_t>(smem) <= kMaxSmem;
 }
 
@@ -898,16 +913,15 @@ extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void
 
 // f32 only. g is read through its strides (sn, so, sh, sw, in elements),
 // so a view of the next stage's padded gradient needs no copy; ws holds
-// blocks x (16 c + 1) x 32 floats. warps, blocks, smem, rows (a tile's
-// output rows) and tensor (3xTF32 on the tensor cores, else the CUDA
-// cores): the launch plan (kernels.py:conv_bwd_plan).
+// blocks x (16 c + 1) x 32 floats. warps, blocks, smem and rows (a
+// tile's output rows): the launch plan (kernels.py:conv_bwd_plan).
 extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, const void* g,
                                    long long sn, long long so, long long sh, long long sw,
                                    void* ws, void* dw, void* db, int batch, int h, int wd, int c,
-                                   int warps, int blocks, int smem, int rows, int tensor,
+                                   int warps, int blocks, int smem, int rows,
                                    cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
-      !bwd_plan_ok(c, warps, smem, rows, tensor)) {
+      !bwd_plan_ok(c, warps, smem, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* xf = static_cast<const float*>(x);
@@ -919,17 +933,17 @@ extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, 
   float* dbf = static_cast<float*>(db);
   switch (c) {
     case 1:
-      return launch_bwd_rows<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                                warps, blocks, smem, rows, tensor, stream);
+      return launch_bwd_c<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                             warps, blocks, smem, rows, stream);
     case 2:
-      return launch_bwd_rows<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                                warps, blocks, smem, rows, tensor, stream);
+      return launch_bwd_c<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                             warps, blocks, smem, rows, stream);
     case 3:
-      return launch_bwd_rows<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                                warps, blocks, smem, rows, tensor, stream);
+      return launch_bwd_c<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                             warps, blocks, smem, rows, stream);
     case 4:
-      return launch_bwd_rows<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                                warps, blocks, smem, rows, tensor, stream);
+      return launch_bwd_c<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                             warps, blocks, smem, rows, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

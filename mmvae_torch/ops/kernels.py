@@ -168,8 +168,7 @@ _SIGNATURES = {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                             _i32, _i32, _i32, _ptr],
         "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
-                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-                                _ptr],
+                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -919,29 +918,27 @@ def conv4x4s2_swish_torch(
 
 # The backward of K4 walks tiles of CONV_TILE_W output pixels by ``rows``
 # output rows of one image, the grid's blocks taking every blocks-th tile.
-# Per tile it forms pre = patches . W^T + b and S = g swish'(pre) (in place
-# of the staged g), then adds S^T . patches to a block's partial dW:
-# 3xTF32 on the tensor cores (``tensor``), or register tiles on the CUDA
-# cores. Its launch bound, 256 threads and 2 blocks an SM, caps a thread at
-# 128 registers, so two blocks of 8 warps always fit on an SM.
+# Per tile and per 16 channels and 16 pixels, a warp forms pre^T = W .
+# patches^T and S = g swish'(pre + b) in registers (g read from global
+# memory), then adds S . patches to its partial dW, both products 3xTF32
+# on the tensor cores. Its launch bound, 128 registers a thread, lets 16
+# warps stay on an SM (2 blocks of 8 warps, or 4 of 4).
 CONV_BWD_MAX_WARPS = 8
 CONV_BWD_WARPS = CONV_BWD_MAX_WARPS
 CONV_BWD_BLOCKS_PER_SM = 2
-CONV_BWD_ROWS = 2
-CONV_BWD_TENSOR = 1
+CONV_BWD_ROWS = 4
 
 
 class ConvBwdPlan(NamedTuple):
     """Launch of ``conv4x4s2_swish_bwd``: warps a block (4 or 8), blocks
     (each walks tiles with the grid's stride and writes one row of partial
-    sums), the block's dynamic shared memory in bytes, the output rows of a
-    tile (2 or 4), and whether the products run on the tensor cores."""
+    sums), the block's dynamic shared memory in bytes, and the output rows
+    of a tile (2 or 4)."""
 
     warps: int
     blocks: int
     smem: int
     rows: int
-    tensor: int
 
 
 def conv_bwd_tiles(b: int, h: int, w: int, rows: int = CONV_BWD_ROWS) -> int:
@@ -951,25 +948,26 @@ def conv_bwd_tiles(b: int, h: int, w: int, rows: int = CONV_BWD_ROWS) -> int:
     return b * -(-h_out // rows) * -(-w_out // CONV_TILE_W)
 
 
-def conv_bwd_g_stride(rows: int, tensor: int) -> int:
-    """Floats between two channels' rows of the staged g tile: the tile's
-    pixels and a pad (4 for the tensor-core fragments' banks, 1 for the
-    CUDA cores' channel quads)."""
-    return CONV_TILE_W * rows + (4 if tensor else 1)
+def conv_bwd_row_floats(c: int) -> int:
+    """Floats of one staged input row of K4's backward: the forward's
+    :func:`conv_row_floats`, padded to 4 past a multiple of 32 (at C = 1
+    and 3 the second product's fragment loads, which may span two rows,
+    then fall on distinct banks)."""
+    return (conv_row_floats(c) + 27) // 32 * 32 + 4
 
 
-def conv_bwd_smem(c: int, rows: int, warps: int, tensor: int) -> int:
-    """Bytes of K4's backward's shared memory: the staged weights (split
-    into TF32 hi and lo rows of 16 c + 4 floats, or [k][o]) and two buffers
-    each of the input tile (2 rows + 2 of :func:`conv_row_floats`) and the
-    g tile; or, if more, the block's sums at the end (each slice's dW, 4
-    rows of db a warp)."""
-    k = 16 * c
-    w_floats = 2 * CONV_OUT * (k + 4) if tensor else k * CONV_OUT
-    staging = w_floats + 2 * ((2 * rows + 2) * conv_row_floats(c)
-                              + CONV_OUT * conv_bwd_g_stride(rows, tensor))
-    slices = warps // 4 if tensor else warps // 2
-    return 4 * max(staging, (slices * k + 4 * warps) * CONV_OUT)
+def conv_bwd_smem(c: int, rows: int, warps: int) -> int:
+    """Bytes of K4's backward's shared memory: the weights as the first
+    product's A fragments (hi and lo, 2 m-tiles x 2 c k steps x 32 lanes x
+    8 floats), the input tile (2 rows + 2 of :func:`conv_bwd_row_floats`)
+    split into TF32 hi and lo planes, and the next tile's raw copy (2 rows
+    + 2 of :func:`conv_row_floats`); or, if more, the block's sums at the
+    end
+    (16 c x 32 a pair of warps, 32 for each of 4 lane quarters of a
+    pair)."""
+    staging = (2 * 2 * c * 32 * 8 + 2 * (2 * rows + 2) * conv_bwd_row_floats(c)
+               + (2 * rows + 2) * conv_row_floats(c))
+    return 4 * max(staging, (warps // 2 * 16 * c + 2 * warps) * CONV_OUT)
 
 
 def conv_bwd_workspace_floats(plan: ConvBwdPlan, c: int) -> int:
@@ -981,7 +979,6 @@ def conv_bwd_workspace_floats(plan: ConvBwdPlan, c: int) -> int:
 def conv_bwd_plan(
     b: int, h: int, w: int, c: int, sms: int = H100_SMS, rows: int = CONV_BWD_ROWS,
     warps: int = CONV_BWD_WARPS, blocks_per_sm: int = CONV_BWD_BLOCKS_PER_SM,
-    tensor: int = CONV_BWD_TENSOR,
 ) -> ConvBwdPlan:
     """The launch of K4's backward for an NHWC ``(b, h, w, c)`` batch on a
     card of ``sms`` SMs: blocks of ``warps`` warps, ``blocks_per_sm`` an
@@ -989,7 +986,7 @@ def conv_bwd_plan(
     shared memory by :func:`conv_bwd_smem`. ``kernel_plans.py`` times the
     alternatives."""
     blocks = max(1, min(conv_bwd_tiles(b, h, w, rows), sms * blocks_per_sm))
-    return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps, tensor), rows, tensor)
+    return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps), rows)
 
 
 def conv4x4s2_swish_grad_kernel(

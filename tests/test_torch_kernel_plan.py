@@ -223,25 +223,25 @@ def test_conv_bwd_signature_takes_the_gradient_strides_as_64_bits():
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_bwd_plan_fits_the_shared_memory_it_asks_for(shape):
-    """A block stages the weights (split into TF32 hi and lo rows of 16 C +
-    4 floats, or 16 C x 32) and two buffers each of a tile's 2 rows + 2
-    input rows (the forward's row layout) and its 32-channel g tile (the
-    tile's pixels and a pad a channel); at the end the same memory holds
-    each slice's 16 C x 32 sums and 4 rows of db a warp. It asks for just
-    that, and two blocks fit in the 227 KB of an SM."""
+    """A block stages the weights as the first product's A fragments (hi
+    and lo, 2 m-tiles x 2 C k steps x 32 lanes x 8 floats), a tile's 2
+    rows + 2 input rows split into TF32 hi and lo planes (the forward's
+    row layout, each row padded to 4 past a multiple of 32 floats) and the
+    next tile's raw copy of them; at the end the same memory
+    holds 16 C x 32 sums a pair of warps and 32 for each lane quarter of a
+    pair. It asks for just that, and two blocks fit in the 227 KB of an
+    SM."""
     b, h, w, c = shape
     plan = kernels.conv_bwd_plan(b, h, w, c)
-    assert plan.warps in (4, 8) and plan.rows in (2, 4) and plan.tensor in (0, 1)
+    assert plan.warps in (4, 8) and plan.rows in (2, 4)
     k = 16 * c
-    pixels = kernels.CONV_TILE_W * plan.rows
-    g_stride = kernels.conv_bwd_g_stride(plan.rows, plan.tensor)
-    assert g_stride >= pixels
-    weights = 2 * 32 * (k + 4) if plan.tensor else k * 32
-    x_tile = (2 * plan.rows + 2) * kernels.conv_row_floats(c)
-    assert kernels.conv_row_floats(c) >= (-c) % 4 + kernels.CONV_TILE_COLS * c
-    slices = plan.warps // 4 if plan.tensor else plan.warps // 2
-    sums = slices * k * 32 + 4 * plan.warps * 32
-    assert plan.smem == 4 * max(weights + 2 * (x_tile + 32 * g_stride), sums)
+    row = kernels.conv_bwd_row_floats(c)
+    assert row >= kernels.conv_row_floats(c) >= (-c) % 4 + kernels.CONV_TILE_COLS * c
+    assert row % 32 == 4  # 16-byte copies stay aligned; fragment loads miss no bank
+    weights = 2 * (k // 8) * 32 * 8
+    sums = plan.warps // 2 * k * 32 + 2 * plan.warps * 32
+    raw = (2 * plan.rows + 2) * kernels.conv_row_floats(c)
+    assert plan.smem == 4 * max(weights + 2 * (2 * plan.rows + 2) * row + raw, sums)
     assert 2 * plan.smem <= 227 * 1024
 
 
@@ -257,8 +257,9 @@ def test_conv_bwd_plan_covers_every_output_once(shape):
     """The blocks walk the tiles with the grid's stride and every block has
     one; each output pixel, whose g * swish' term enters the sums once, is
     taken exactly once, ragged row tails and a last tile with fewer rows
-    included; within a tile, product 1's units and product 2's slices each
-    take every pixel once."""
+    included; within a tile, the warps' (m-tile, 16-pixel group) units
+    take every (channel, pixel) once, a group as two n-tiles of its even
+    and its odd pixels."""
     b, h, w, c = shape
     plan = kernels.conv_bwd_plan(b, h, w, c)
     h_out, w_out = -(-h // 2), -(-w // 2)
@@ -273,30 +274,22 @@ def test_conv_bwd_plan_covers_every_output_once(shape):
             covered[n, oy0:oy0 + plan.rows, ox0:ox0 + kernels.CONV_TILE_W] += 1
     assert np.all(covered == 1)
     pixels = kernels.CONV_TILE_W * plan.rows
-    threads = 32 * plan.warps
-    assert threads % pixels == 0  # the g tile's copies: a pixel a thread
-    if plan.tensor:  # 16 pixels x 16 channels a warp unit; 8 pixels a k-step
-        units = [u // 2 * 16 + p for u in range(2 * (pixels // 16)) for p in range(16)]
-        slices = plan.warps // 4
-        steps = pixels // 8 // slices
-        sliced = [(s * steps + i) * 8 + p for s in range(slices)
-                  for i in range(steps) for p in range(8)]
-        assert sorted(units) == sorted(list(range(pixels)) * 2)  # 2 channel halves
-    else:  # 2 pixels x 4 channels a thread unit
-        units = [2 * (u // 8) + e for u in range(8 * (pixels // 2)) for e in range(2)]
-        slices = threads // 64
-        sliced = list(range(pixels))
-        assert sorted(units) == sorted(list(range(pixels)) * 8)  # 8 channel quads
-    assert sorted(sliced) == list(range(pixels)) and pixels % slices == 0
+    units = np.zeros((32, pixels), np.int64)
+    for warp in range(plan.warps):
+        for jg in range(warp // 2, pixels // 16, plan.warps // 2):
+            for e in range(2):  # n-tile e: column n is pixel 16 jg + 2 n + e
+                cols = [16 * jg + 2 * n + e for n in range(8)]
+                units[16 * (warp % 2):16 * (warp % 2) + 16, cols] += 1
+    assert np.all(units == 1)
 
 
 def test_conv_bwd_plan_at_the_celeba_train_shape():
-    """(64, 64, 64, 3): 1,024 tiles of 2 x 32 pixels over 2 blocks of 8
+    """(64, 64, 64, 3): 512 tiles of 4 x 32 pixels over 2 blocks of 8
     warps an SM, 16 warps, which the launch bound (128 registers a thread)
     and the shared memory let stay resident together; 264 rows of 49 x 32
     partial sums. A card of 16 SMs takes 32 blocks, a single pixel one."""
     plan = kernels.conv_bwd_plan(64, 64, 64, 3)
-    assert kernels.conv_bwd_tiles(64, 64, 64, plan.rows) == 1024
+    assert plan.rows == 4 and kernels.conv_bwd_tiles(64, 64, 64, plan.rows) == 512
     assert plan.blocks == 2 * H100 and plan.warps == 8
     assert plan.warps * plan.blocks // H100 >= 16
     assert 65536 // (32 * plan.warps * plan.blocks // H100) >= 128

@@ -474,8 +474,8 @@ def test_conv_grad_kernel_matches_plain(cuda, shape):
     "shape, plan",
     [
         ((64, 64, 64, 3), None),
-        ((37, 64, 64, 3), kernels.conv_bwd_plan(37, 64, 64, 3, rows=4, warps=4)._replace(blocks=3)),
-        ((5, 25, 25, 1), kernels.conv_bwd_plan(5, 25, 25, 1, warps=4)._replace(blocks=1)),
+        ((37, 64, 64, 3), kernels.conv_bwd_plan(37, 64, 64, 3, warps=4)._replace(blocks=3)),
+        ((5, 25, 25, 1), kernels.conv_bwd_plan(5, 25, 25, 1, rows=2)._replace(blocks=1)),
     ],
 )
 def test_conv_grad_kernel_strided_g_and_small_grids(cuda, shape, plan):
