@@ -962,8 +962,7 @@ def conv_bwd_smem(c: int, rows: int, warps: int) -> int:
     8 floats), the input tile (2 rows + 2 of :func:`conv_bwd_row_floats`)
     split into TF32 hi and lo planes, and the next tile's raw copy (2 rows
     + 2 of :func:`conv_row_floats`); or, if more, the block's sums at the
-    end
-    (16 c x 32 a pair of warps, 32 for each of 4 lane quarters of a
+    end (16 c x 32 a pair of warps, 32 for each of 4 lane quarters of a
     pair)."""
     staging = (2 * 2 * c * 32 * 8 + 2 * (2 * rows + 2) * conv_bwd_row_floats(c)
                + (2 * rows + 2) * conv_row_floats(c))
