@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gradient exactly 0; the fused PoE + KL's backward atol 1e-5 * T times
    its largest gradient, as it sums T terms; K4's backward atol 1e-6 * N,
    N = B * ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums,
-   and two of its launches equal to the bit);
+   and two of its launches equal to the bit); among them the IWAE's: K2 on
+   b-major image rows, K2 through its map over examples of 18 attribute
+   rows (``bce_rows_inner``), K3 on b-major tiled tokens and the fused PoE
+   + KL at T = 1;
 3. the main paths at full width, with seeded random weights, each with
    the launch counts set to 0 just before it and read just after:
    every eval runs the fused PoE + KL once per batch and K1 no time;
@@ -35,10 +38,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      over its 2,000-example split (32 batches), ``generate`` from
      images, from all 18 attributes, from ``attr_4`` and ``attr_8``
      alone and from nothing, and ``sample``;
+   - ``cub`` (n_latents 256, conv features 32-256 over 64x64 RGB, GRU
+     caption experts of embed 128 and hidden 256 over the 23-id
+     vocabulary, batch 64): ``eval_elbo`` over its 2,000-example split (32
+     batches), ``generate`` from images, from captions and from nothing,
+     and ``sample``;
    then each eval again with the plain ``torch`` backend (rel 1e-5) and a
    CPU reference on a small split (rel 1e-4: CPU and card matmuls round
    differently; generated probabilities within 1e-4, tokens and labels
    generated at temperature 0 equal);
+   - the IWAE: ``log_likelihood`` at k = 64 of every config over its
+     2,000-example test split (one decode pass of 64 samples an example,
+     folded b-major), launching per batch the fused PoE + KL once, K2 once
+     per bernoulli key, K3 once per token modality and K4 once per RGB
+     encoder; again with the ``torch`` backend from the same generator
+     seed (rel 1e-5), and on a 10-example split at batch 4 on the card
+     against the CPU with the noise passed in (rel 1e-4);
    - ``mnist`` training: ``api.train`` for one epoch at full width (100
      steps of batch 100 over the 10,000-example train split, then the test
      ELBO) on the CUDA-graph runners (each epoch and each eval split
@@ -98,9 +113,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel's grids and at one warp, graph-replayed and eager; and for each
    config the eval wall of its test split through a graph runner built
    once and through the eager loop, in turns, ``eval_elbo``'s own wall
-   (a capture each call) and a profile of where each runner's device time
-   goes (its device busy time with and without the host-to-device
-   copies). The
+   (a capture each call) and a profile of where the graph runner's device
+   time goes (its device busy time with and without the host-to-device
+   copies; each runner's idle share from its walls against that busy
+   time), and the same for each config's ``log_likelihood`` through an
+   IWAE graph runner built once and the eager loop (``iwae_wall``,
+   ``iwae_profile``). The
    backward kernels are timed at MNIST's, MultiMNIST's and CelebA's train
    shapes beside their plain versions and the autograd backward of the
    library forward (for K4's backward: cuDNN's wgrad and the silu's
@@ -136,6 +154,7 @@ from mmvae_torch.train import (
     create_train_state,
     make_epoch_runner,
     make_eval_runner,
+    make_iwae_runner,
     make_train_step,
 )
 
@@ -177,7 +196,9 @@ POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
 OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd",
        "conv_bwd")
 BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd")
-CONFIGS = ("mnist", "multimnist", "celeba")
+CONFIGS = ("mnist", "multimnist", "celeba", "cub")
+# The IWAE's importance samples per example (``api.log_likelihood``'s default).
+IWAE_K = 64
 META = {
     "kl": {
         "name": "kl_std_normal",
@@ -268,7 +289,15 @@ META = {
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
+    # The IWAE folds k = 64 samples of each example b-major: MNIST's and
+    # MultiMNIST's 100 images, CelebA's and CUB's 64 (the same rows), and
+    # CelebA's 18 attributes of 64 examples through the map over examples of
+    # 18 rows (the fifth field).
     "bce": {"mnist_eval": (200, 784, 100, kernels.FOLD_T),
+            "mnist_iwae": (6400, 784, 100, kernels.FOLD_B),
+            "multimnist_iwae": (6400, 2500, 100, kernels.FOLD_B),
+            "celeba_iwae_image": (4096, 12288, 64, kernels.FOLD_B),
+            "celeba_iwae_attrs": (73728, 1, 1152, kernels.FOLD_B, 18),
             "multimnist_eval": (200, 2500, 100, kernels.FOLD_T),
             "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
             "celeba_image": (128, 12288, 64, kernels.FOLD_T),
@@ -276,7 +305,11 @@ TIMED_SHAPES = {
             "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
             "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
+    # A fourth field: the tokens of that many examples tiled b-major to the
+    # rows (the IWAE's); CUB's eval: its 2 member terms of 64 captions.
     "seq_ce": {"multimnist_eval": (200, 5, 13), "multimnist_train": (300, 5, 13),
+               "multimnist_iwae": (6400, 5, 13, 100), "cub_eval": (128, 32, 23),
+               "cub_iwae": (4096, 32, 23, 64),
                "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
              "probe": (256, 64, 64, 3, torch.bfloat16)},
@@ -284,7 +317,13 @@ TIMED_SHAPES = {
                "multimnist_eval": (3, 100, 2, 256, "eval"),
                "multimnist_train": (3, 100, 2, 256, "text"),
                "celeba_eval": (20, 64, 19, 100, "eval"),
-               "celeba_train": (24, 64, 19, 100, "subsets")},
+               "celeba_train": (24, 64, 19, 100, "subsets"),
+               "cub_eval": (3, 64, 2, 256, "eval"),
+               # The IWAE's joint posterior: one all-ones mask, no presence.
+               "mnist_iwae": (1, 100, 2, 64, "joint"),
+               "multimnist_iwae": (1, 100, 2, 256, "joint"),
+               "celeba_iwae": (1, 64, 19, 100, "joint"),
+               "cub_iwae": (1, 64, 2, 256, "joint")},
     # One MNIST train step: K1's VJP at the (T * B, L) posteriors (no path
     # runs it alone), K2's at the image's 2 member terms against 100
     # untiled targets, the fused PoE + KL's at the batch's expert stack.
@@ -327,13 +366,24 @@ CHECKED_SHAPES = {
         (128, 12288, 64, kernels.FOLD_B),
         (16, 50001, 16, kernels.FOLD_NONE),
         (128, 12290, 128, kernels.FOLD_NONE),
+        # The IWAE's b-major image rows; CelebA's attributes through the
+        # map over examples of 18 rows; ragged examples (5 of 3 rows, k =
+        # 7), examples wider than a block (300 rows), rows of D = 7.
+        (6400, 784, 100, kernels.FOLD_B),
+        (6400, 2500, 100, kernels.FOLD_B),
+        (4096, 12288, 64, kernels.FOLD_B),
+        (73728, 1, 1152, kernels.FOLD_B, 18),
+        (105, 1, 15, kernels.FOLD_B, 3),
+        (1800, 1, 900, kernels.FOLD_B, 300),
+        (60, 7, 20, kernels.FOLD_B, 5),
     ],
     # MultiMNIST eval and train (the decode-all pass, a cycle re-read);
     # ragged with all-pad rows; the synthetic CUB vocabulary (3 reserved +
     # 20 words); a large odd vocabulary; S above the tokens a block runs at
     # once, at an odd V; V just below a warp.
     "seq_ce": [(200, 5, 13), (300, 5, 13), (100, 5, 13), (37, 7, 13), (4096, 32, 23),
-               (2048, 8, 5003), (3, 40, 1001), (5, 3, 31)],
+               (2048, 8, 5003), (3, 40, 1001), (5, 3, 31), (6400, 5, 13, 100),
+               (4096, 32, 23, 64), (128, 32, 23)],
     # CelebA eval; the probe's shape and type (more units than the grid
     # has warps); a ragged batch; an odd grayscale size, which pads (1, 2)
     # and takes scalar loads; widths that are not a multiple of the 32
@@ -353,7 +403,9 @@ CHECKED_SHAPES = {
                (20, 64, 19, 100, "ragged"), (3, 100, 2, 64, "none"),
                (20, 64, 19, 100, "wide"), (20, 10, 19, 37, "eval"),
                (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "text"),
-               (1, 100, 2, 256, "cycle"), (24, 64, 19, 100, "subsets")],
+               (1, 100, 2, 256, "cycle"), (24, 64, 19, 100, "subsets"),
+               (3, 64, 2, 256, "eval"), (1, 100, 2, 64, "joint"), (1, 100, 2, 256, "joint"),
+               (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
@@ -399,13 +451,15 @@ CHECKED_SHAPES = {
                  (2, 7, 1100, 4)],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
-# this slice's path (CelebA training) for the kernels it runs, else the
-# path that runs the kernel. K4's timed shape is the train batch's too.
+# this slice's path (the IWAE) for the kernels it runs -- K2 at CelebA's
+# attributes through the new map, K3 at CUB's captions, the fused PoE + KL
+# at CelebA's 19 experts, K4 in CUB's image encoder -- else the path that
+# runs the kernel.
 _MM_TRAIN = ("multimnist_train", "multimnist_train")
 _CELEBA_TRAIN = ("celeba_train", "celeba_train")
-REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba_train", "celeba_train_image"),
-            "seq_ce": _MM_TRAIN, "conv": ("celeba_train", "celeba_eval"),
-            "poe_kl": _CELEBA_TRAIN, "kl_bwd": ("mnist_train", "mnist_train"),
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba_iwae", "celeba_iwae_attrs"),
+            "seq_ce": ("cub_iwae", "cub_iwae"), "conv": ("cub_iwae", "celeba_eval"),
+            "poe_kl": ("celeba_iwae", "celeba_iwae"), "kl_bwd": ("mnist_train", "mnist_train"),
             "bce_bwd": ("celeba_train", "celeba_train_image"), "seq_ce_bwd": _MM_TRAIN,
             "poe_kl_bwd": _CELEBA_TRAIN, "conv_bwd": _CELEBA_TRAIN}
 _NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0}
@@ -416,6 +470,18 @@ EXPECTED_LAUNCHES = {
     # attributes); K4 once per eval batch and once per generate or sample
     # call.
     "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 32, **_NO_BWD},
+    # 32 eval batches, each the fused PoE + KL, K2 (the image), K3 (the
+    # captions) and K4 once; K4 once per generate or sample call.
+    "cub": {"kl": 0, "bce": 32, "seq_ce": 32, "conv": 36, "poe_kl": 32, **_NO_BWD},
+    # ``log_likelihood`` over the 2,000-example test splits, k = 64: per
+    # batch the fused PoE + KL once (the joint posterior), K2 once per
+    # bernoulli decode key (CelebA: the image and the attributes), K3 once
+    # per caption or digit string, K4 once in an RGB image encoder. 20
+    # batches of 100 (MNIST, MultiMNIST), 32 of 64 (CelebA, CUB).
+    "mnist_iwae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "multimnist_iwae": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "celeba_iwae": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 32, "poe_kl": 32, **_NO_BWD},
+    "cub_iwae": {"kl": 0, "bce": 32, "seq_ce": 32, "conv": 32, "poe_kl": 32, **_NO_BWD},
     # 100 train steps, each the fused PoE + KL and K2 (the image's 2 member
     # terms) forward and backward once, then the 20 batches of the test
     # ELBO, forward only.
@@ -442,6 +508,7 @@ EXPECTED_LAUNCHES = {
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
+                "bce_inner_rows_kernel",
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
                 "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel",
@@ -450,7 +517,8 @@ PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_th
 # its kernels (K4's backward two, its partial sums and their reduction: the
 # count follows the first).
 KERNEL_OP = {"kl_rows_kernel": "kl", "bce_rows_kernel": "bce", "bce_split_kernel": "bce",
-             "bce_thread_rows_kernel": "bce", "seq_ce_tokens_kernel": "seq_ce",
+             "bce_thread_rows_kernel": "bce", "bce_inner_rows_kernel": "bce",
+             "seq_ce_tokens_kernel": "seq_ce",
              "conv_s2_tiles_kernel": "conv", "poe_kl_kernel": "poe_kl",
              "kl_rows_grad_kernel": "kl_bwd", "bce_rows_grad_kernel": "bce_bwd",
              "seq_ce_grad_kernel": "seq_ce_bwd", "seq_ce_grad_staged_kernel": "seq_ce_bwd",
@@ -479,7 +547,12 @@ def describe(op: str, shape) -> dict:
         return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
     if op in ("poe_kl", "poe_kl_bwd"):
         return {"shape": list(shape[:4]), "case": shape[4]}
-    return {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
+    if op == "seq_ce":
+        return {"shape": list(shape[:3]), "tiled_b_major_from": shape[3] if len(shape) > 3 else None}
+    out = {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
+    if len(shape) > 4:
+        out["inner"] = shape[4]
+    return out
 
 
 def inputs(op: str, shape, gen: torch.Generator):
@@ -489,10 +562,10 @@ def inputs(op: str, shape, gen: torch.Generator):
         return (torch.randn(n, d, generator=gen, device=dev),
                 torch.randn(n, d, generator=gen, device=dev))
     if op == "bce":
-        n, d, n_x, fold = shape
+        n, d, n_x, fold = shape[:4]
         logits = 3.0 * torch.randn(n, d, generator=gen, device=dev)
         x = torch.rand(n_x, d, generator=gen, device=dev)
-        return (logits, x, fold)
+        return (logits, x, fold, *shape[4:])  # and the rows an example holds
     if op == "conv":
         # As the probe draws them: image in [0, 1], weights N(0, 0.01).
         b, h, w, c, dtype = shape
@@ -528,14 +601,16 @@ def inputs(op: str, shape, gen: torch.Generator):
             g_lv, g_kl = torch.zeros_like(g_lv), torch.zeros_like(g_kl)
         return (*args, mu_f, lv_f, g_mu, g_lv, g_kl)
     # Tokens whose rows end in PAD runs of random length; the first rows
-    # are all PAD.
-    n, s, v = shape
+    # are all PAD. With a fourth field, the tokens of that many examples
+    # tiled b-major to the rows (each example's k rows the same).
+    n, s, v = shape[:3]
+    n_tok = shape[3] if len(shape) > 3 else n
     logits = 3.0 * torch.randn(n, s, v, generator=gen, device=dev)
-    tokens = torch.randint(1, v, (n, s), generator=gen, device=dev, dtype=torch.int32)
-    lengths = torch.randint(0, s + 1, (n,), generator=gen, device=dev)
-    lengths[: max(1, n // 50)] = 0
+    tokens = torch.randint(1, v, (n_tok, s), generator=gen, device=dev, dtype=torch.int32)
+    lengths = torch.randint(0, s + 1, (n_tok,), generator=gen, device=dev)
+    lengths[: max(1, n_tok // 50)] = 0
     tokens[torch.arange(s, device=dev)[None, :] >= lengths[:, None]] = PAD
-    return (logits, tokens, PAD)
+    return (logits, kernels.tile_rows(tokens, n, kernels.FOLD_B), PAD)
 
 
 def poe_inputs(shape, gen: torch.Generator):
@@ -548,7 +623,8 @@ def poe_inputs(shape, gen: torch.Generator):
     latter half of the dims; ``cycle``: the same experts under a cycle
     re-read's one mask, every expert but the last, and no presence;
     ``subsets``: a train step's masks, the 1 + M of the eval and T - 1 - M
-    random rows (Bernoulli(0.5)), the first of them all zero."""
+    random rows (Bernoulli(0.5)), the first of them all zero; ``joint``:
+    the IWAE's joint posterior, one all-ones mask and no presence."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -568,12 +644,14 @@ def poe_inputs(shape, gen: torch.Generator):
     if case == "cycle":
         masks = torch.ones(1, m, device=dev)
         masks[0, -1] = 0.0
+    if case == "joint":
+        masks = torch.ones(1, m, device=dev)
     if masks.shape[0] != t:
         raise AssertionError(f"{m} experts give {masks.shape[0]} terms, not {t}")
     presence = torch.ones(b, m, device=dev)
     if case == "ragged":
         presence[16:] = 0.0
-    return mu, lv, masks, None if case in ("none", "cycle") else presence
+    return mu, lv, masks, None if case in ("none", "cycle", "joint") else presence
 
 
 def parent_chain(*args):
@@ -584,7 +662,13 @@ def parent_chain(*args):
     return kernels.kl_std_normal_kernel(mu_f.reshape(-1, l), lv_f.reshape(-1, l))
 
 
-KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": kernels.bernoulli_nll_kernel,
+def bce_kernel(logits, x, fold, inner=1):
+    """K2 as ``inputs`` gives its arguments (the rows an example holds
+    last)."""
+    return kernels.bernoulli_nll_kernel(logits, x, fold, inner=inner)
+
+
+KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": bce_kernel,
              "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel,
              "poe_kl": kernels.poe_kl_kernel, "kl_bwd": kernels.kl_rows_grad_kernel,
              "bce_bwd": kernels.bce_rows_grad_kernel,
@@ -606,8 +690,8 @@ def library_fn(op: str, args):
     never calls it. What the library call needs in another form (tiled
     targets, an NCHW copy of the image) is made here, before the timing."""
     if op == "bce":
-        logits, x, fold = args
-        tiled = kernels.tile_rows(x, logits.shape[0], fold)
+        logits, x, fold, *inner = args
+        tiled = kernels.tile_rows(x, logits.shape[0], fold, *inner)
         return lambda: F.binary_cross_entropy_with_logits(
             logits, tiled, reduction="none").sum(-1)
     if op == "seq_ce":
@@ -886,9 +970,10 @@ def check_image(img, n: int, hw: tuple[int, ...]) -> None:
         raise AssertionError("generated image not finite or outside [0, 1]")
 
 
-def check_text(text, n: int) -> None:
-    """Digit strings: (n, 5) tokens below 13, PAD after the first STOP."""
-    if text.shape != (n, 5) or text.min() < 0 or text.max() >= 13:
+def check_text(text, n: int, max_len: int = 5, vocab: int = 13) -> None:
+    """Token strings: (n, max_len) tokens below ``vocab``, PAD after the
+    first STOP (MultiMNIST's digit strings by default)."""
+    if text.shape != (n, max_len) or text.min() < 0 or text.max() >= vocab:
         raise AssertionError(f"bad text {tuple(text.shape)} {text.min()} {text.max()}")
     is_stop = (text == STOP).int()
     after_stop = is_stop.cumsum(1) - is_stop > 0
@@ -978,7 +1063,91 @@ def phase_main_path() -> dict[str, dict[str, int]]:
         check_image(outs[name]["image"], n, (64, 64, 3))
         check_probs(outs[name]["attrs"], (n, 18))
     card_vs_cpu("celeba", 128, images, outs["from_image"])
-    return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba}
+
+    data = load_dataset("cub", "test", n=3).arrays
+    captions = {"text": data["text"]}
+    outs, cub = drive("cub", {
+        "from_image": lambda m: api.generate("cub", {"image": data["image"]}, model=m,
+                                             generator=gen),
+        "from_text": lambda m: api.generate("cub", captions, model=m, temperature=0.0),
+        "from_nothing": lambda m: api.generate("cub", {}, n=8, model=m, generator=gen),
+        "sample": lambda m: api.sample("cub", n=64, model=m, generator=gen),
+    })
+    if cub != EXPECTED_LAUNCHES["cub"]:
+        raise AssertionError(f"cub: expected launches {EXPECTED_LAUNCHES['cub']}, got {cub}")
+    vocab = configs.cub_vocab_size()
+    for name, n in (("from_image", 3), ("from_text", 3), ("from_nothing", 8), ("sample", 64)):
+        check_image(outs[name]["image"], n, (64, 64, 3))
+        check_text(outs[name]["text"], n, 32, vocab)
+    emit({"phase": "generated_text", "config": "cub",
+          "from_text": outs["from_text"]["text"].tolist(),
+          "from_image": outs["from_image"]["text"].tolist()})
+    card_vs_cpu("cub", 128, captions, outs["from_text"])
+    return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba, "cub": cub}
+
+
+IWAE_CPU_EXAMPLES, IWAE_CPU_BATCH = 10, 4  # three batches, the last half pad
+
+
+def phase_iwae() -> dict[str, dict[str, int]]:
+    """``api.log_likelihood`` at k = 64 of every config over its
+    2,000-example test split with the "kernel" backend, the launch counts
+    set to 0 just before and read just after (through the graph replays);
+    then with the ``torch`` backend from the same generator seed (rel
+    1e-5), and on a 10-example split at batch 4 (a padded last batch) on
+    the card against the CPU with the noise passed in (rel 1e-4: log w is
+    about -8,000 on CelebA and CUB, so the gate is relative)."""
+    out = {}
+    for config in CONFIGS:
+        model = configs.build_model(config, seed=0)
+        test = load_dataset(config, "test")
+        ops.set_backend("kernel")
+        try:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            ll = api.log_likelihood(config, model=model, dataset=test, k=IWAE_K, seed=0)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            ops.set_backend("auto")
+        emit({"phase": "main_path", "config": config, "log_likelihood": ll, "k": IWAE_K,
+              "examples": test.size, "api_wall_s": wall_s, "launches": launches})
+        expected = EXPECTED_LAUNCHES[f"{config}_iwae"]
+        if launches != expected:
+            raise AssertionError(f"{config} iwae: expected launches {expected}, got {launches}")
+        if not math.isfinite(ll):
+            raise AssertionError(f"{config}: log_likelihood {ll} is not finite")
+        ops.set_backend("torch")
+        try:
+            ll_plain = api.log_likelihood(config, model=model, dataset=test, k=IWAE_K, seed=0)
+        finally:
+            ops.set_backend("auto")
+        if kernels.LAUNCHES != launches:
+            raise AssertionError("the torch backend launched a kernel")
+        rel = abs(ll - ll_plain) / abs(ll_plain)
+        emit({"phase": "kernel_vs_torch_backend", "config": config, "path": "log_likelihood",
+              "log_likelihood_kernel": ll, "log_likelihood_torch": ll_plain, "rel": rel})
+        if not rel <= 1e-5:
+            raise AssertionError(f"{config} iwae: kernel and torch backends differ: rel {rel}")
+
+        cpu_model = configs.build_model(config, seed=0, device="cpu")
+        small = load_dataset(config, "test", n=IWAE_CPU_EXAMPLES)
+        n_batches = -(-IWAE_CPU_EXAMPLES // IWAE_CPU_BATCH)
+        eps = torch.randn((n_batches, IWAE_CPU_BATCH, IWAE_K, model.n_latents),
+                          generator=torch.Generator().manual_seed(5))
+        kw = dict(dataset=small, k=IWAE_K, batch_size=IWAE_CPU_BATCH)
+        ll_card = api.log_likelihood(config, model=model, eps=eps.cuda(), **kw)
+        ll_cpu = api.log_likelihood(config, model=cpu_model, device="cpu", eps=eps, **kw)
+        rel = abs(ll_card - ll_cpu) / abs(ll_cpu)
+        emit({"phase": "card_vs_cpu", "config": config, "path": "log_likelihood",
+              "examples": IWAE_CPU_EXAMPLES, "batch": IWAE_CPU_BATCH,
+              "log_likelihood_card": ll_card, "log_likelihood_cpu": ll_cpu, "rel": rel})
+        if not rel <= 1e-4:
+            raise AssertionError(f"{config} iwae: card and CPU differ: rel {rel}")
+        out[f"{config}_iwae"] = launches
+    return out
 
 
 def train_batches(n_steps: int, bs: int, device, seed: int = 0,
@@ -1639,7 +1808,11 @@ def phase_eval_wall(config: str) -> None:
     runner built once (as ``api.train`` keeps it) and through the eager
     loop, timed in turns (three each, to a sync); the graph's first call
     (one batch eager, the capture, the replays); ``api.eval_elbo``'s own
-    wall, which captures anew each call; and a profile of each runner."""
+    wall, which captures anew each call; and a profile of the graph
+    runner, whose busy time gives each runner's idle share against its
+    unprofiled walls (the eager loop runs the same kernels: its busy time
+    read within 5% of the graph's in every config, and its profile took 20
+    s of the run on CUB's 40,000 events)."""
     model = configs.build_model(config, seed=0)
     test = load_dataset(config, "test")
     batch_size = configs.get_config(config).batch_size
@@ -1665,13 +1838,52 @@ def phase_eval_wall(config: str) -> None:
           "batches": stacked["presence"].shape[0],
           "wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
           "wall_ms": walls, "first_call_ms": first, "eval_elbo_wall_ms": entry})
+    emit_graph_profile("eval_profile", config, runners["graph"], stacked, walls)
+
+
+def emit_graph_profile(phase: str, config: str, runner, stacked: dict, walls: dict) -> None:
+    """A profile of one call of a graph ``runner`` on ``stacked``, with the
+    idle share of each runner's unprofiled walls against its busy time."""
+    summary = profile_summary(lambda: runner(stacked))
+    busy = summary["device_busy_us"]
+    emit({"phase": phase, "config": config, "runner": "graph",
+          "idle_share_unprofiled": {
+              kind: 1 - busy / (1e3 * statistics.median(w)) if busy != "not measured" else busy
+              for kind, w in walls.items()},
+          **summary})
+
+
+def phase_iwae_wall(config: str) -> None:
+    """``log_likelihood`` of ``config``'s 2,000-example test split at k =
+    64 through an IWAE graph runner built once and through the eager loop,
+    timed in turns (two each, to a sync), their first calls, the entry
+    point's own wall (a capture each call), and a profile of the graph
+    runner (as ``phase_eval_wall``'s): where the device time goes and each
+    runner's idle share."""
+    model = configs.build_model(config, seed=0)
+    test = load_dataset(config, "test")
+    stacked = api._valid_split(test, configs.get_config(config).batch_size, torch.device("cuda"))
+    runners = {kind: make_iwae_runner(model, IWAE_K, graph=kind == "graph",
+                                      generator=torch.Generator(device="cuda").manual_seed(0))
+               for kind in ("graph", "eager")}
+    first, walls = {}, {"graph": [], "eager": []}
     for kind, runner in runners.items():
-        summary = profile_summary(lambda: runner(stacked))
-        busy = summary["device_busy_us"]
-        emit({"phase": "eval_profile", "config": config, "runner": kind,
-              "idle_share_unprofiled": (1 - busy / (1e3 * statistics.median(walls[kind]))
-                                        if busy != "not measured" else busy),
-              **summary})
+        t0 = time.perf_counter()
+        float(runner(stacked)["log_likelihood"].sum())
+        first[kind] = 1e3 * (time.perf_counter() - t0)
+    for _ in range(2):
+        for kind, runner in runners.items():
+            t0 = time.perf_counter()
+            float(runner(stacked)["log_likelihood"].sum())  # a sync
+            walls[kind].append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    api.log_likelihood(config, model=model, dataset=test, k=IWAE_K)
+    entry = 1e3 * (time.perf_counter() - t0)
+    emit({"phase": "iwae_wall", "config": config, "examples": test.size, "k": IWAE_K,
+          "batches": stacked["valid"].shape[0],
+          "wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
+          "wall_ms": walls, "first_call_ms": first, "log_likelihood_wall_ms": entry})
+    emit_graph_profile("iwae_profile", config, runners["graph"], stacked, walls)
 
 
 def profile_summary(fn) -> dict:
@@ -1736,6 +1948,7 @@ def main() -> None:
     kind = timed("device_and_build", phase_device)
     max_err = timed("check", phase_check)
     launches = timed("main_path", phase_main_path)
+    launches.update(timed("iwae", phase_iwae))
     launches["mnist_train"] = timed("train", phase_train)
     launches["multimnist_train"] = timed("multimnist_train", phase_multimnist_train)
     launches["celeba_train"] = timed("celeba_train", phase_celeba_train)
@@ -1744,6 +1957,8 @@ def main() -> None:
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:
         timed(f"eval_wall_{config}", phase_eval_wall, config)
+    for config in CONFIGS:
+        timed(f"iwae_wall_{config}", phase_iwae_wall, config)
     emit({"phase": "phase_seconds", **seconds, "total": time.perf_counter() - t0})
     emit({"kernels": [
         {**META[op], "launches": launches[REPORTED[op][0]][op],

@@ -4,9 +4,10 @@ kernels for an NVIDIA H100 (sm_90a).
 A port of ``mmvae_tpu`` (JAX/Flax/Pallas on a TPU), which stays in the
 repository as the reference; this package imports nothing of it. Ported so
 far: inference -- :func:`mmvae_torch.api.eval_elbo`,
+:func:`~mmvae_torch.api.log_likelihood` (the IWAE estimate of log p(x)),
 :func:`~mmvae_torch.api.generate` and :func:`~mmvae_torch.api.sample` --
-of the ``mnist``, ``multimnist`` and ``celeba`` configs, and training of
-``mnist`` (:func:`~mmvae_torch.api.train`). On the card the KL and BCE row
+of the ``mnist``, ``multimnist``, ``celeba`` and ``cub`` configs, and
+training (:func:`~mmvae_torch.api.train`) of all but ``cub``. On the card the KL and BCE row
 reductions and their gradients run in ``ops/csrc/row_reduce.cu``, the
 product of experts with its KL and its backward in ``ops/csrc/poe_kl.cu``,
 the masked sequence cross-entropy in ``ops/csrc/seq_ce.cu`` and the RGB

@@ -1,11 +1,12 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-Only the ``mnist``, ``multimnist`` and ``celeba`` configs; the other
-experiments raise until their slice lands. The fields are those the
+Only the ``mnist``, ``multimnist``, ``celeba`` and ``cub`` configs; the
+other experiments raise until their slice lands. The fields are those the
 inference slices, the MNIST, MultiMNIST and CelebA training slices and
 the checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``); every config here trains
-with ``api.train``. The JAX configs' other knobs (gradient
+defaults (``mmvae_tpu/configs.py:30-175``); every config here but
+``cub`` trains with ``api.train`` (``cub``'s cycle term needs K4's input
+gradient, not ported yet). The JAX configs' other knobs (gradient
 accumulation, LR schedules, shuffle modes, the data backends, mesh
 layouts, ``cross_recon_stopgrad``, ``unimodal_align_weight``,
 ``cycle_contrast_weight``) are left out until a slice reads them. Eval
@@ -15,18 +16,21 @@ pins ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
 
+from mmvae_torch.data.synthetic import cub_vocab
 from mmvae_torch.device import resolve_device
-from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
+from mmvae_torch.models import CelebAMVAE, CubMVAE, MnistMVAE, MultiMnistMVAE
 
 __all__ = [
     "ExperimentConfig",
     "CONFIGS",
     "get_config",
     "build_model",
+    "cub_vocab_size",
 ]
 
 
@@ -99,14 +103,23 @@ CONFIGS: dict[str, ExperimentConfig] = {
         name="celeba", dataset="celeba", n_latents=100, batch_size=64,
         n_random_subsets=4, grad_clip=500.0,
     ),
+    # CUB image + caption: conv image expert over 64x64 RGB, GRU caption
+    # experts, batch 64, cross-recon and a low-weight cycle term
+    # (``mmvae_tpu/configs.py:249-253``). Inference only so far.
+    "cub": ExperimentConfig(
+        name="cub", dataset="cub", n_latents=256, batch_size=64,
+        cross_recon=True, epochs=60, train_size=16000,
+        cycle_weight=0.1, cycle_render_grad=True,
+    ),
 }
 
 _MODEL_CLASSES = {
     "mnist": MnistMVAE,
     "multimnist": MultiMnistMVAE,
     "celeba": CelebAMVAE,
+    "cub": CubMVAE,
 }
-_NOT_PORTED = ("deep_mnist", "fashionmnist", "cub", "deep_cub")
+_NOT_PORTED = ("deep_mnist", "fashionmnist", "deep_cub")
 
 
 def get_config(name: str) -> ExperimentConfig:
@@ -132,8 +145,24 @@ def build_model(
     if isinstance(config, str):
         config = get_config(config)
     device = resolve_device(device)
-    model = _MODEL_CLASSES[config.name](
-        n_latents=config.n_latents, **config.model_kwargs
-    )
+    kwargs = dict(config.model_kwargs)
+    if config.dataset == "cub" and "vocab_size" not in kwargs:
+        kwargs["vocab_size"] = cub_vocab_size()
+    model = _MODEL_CLASSES[config.name](n_latents=config.n_latents, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+def cub_vocab_size() -> int:
+    """The caption experts' vocabulary size: the synthetic vocabulary's
+    (23). The JAX package takes a mounted corpus's vocabulary when
+    ``$MMVAE_DATA_DIR/cub`` is a directory (``mmvae_tpu/configs.py:318-333``);
+    that is not ported, so it raises there rather than build a model of
+    another V."""
+    data_dir = os.environ.get("MMVAE_DATA_DIR", "")
+    if data_dir and os.path.isdir(os.path.join(data_dir, "cub")):
+        raise NotImplementedError(
+            f"a mounted CUB corpus under MMVAE_DATA_DIR={data_dir!r} (its vocabulary) is "
+            "not yet ported to mmvae_torch"
+        )
+    return len(cub_vocab())

@@ -24,8 +24,12 @@ Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
 ``text_enc/{Embed_0, w_in, u_rec, b, Dense_0}`` and ``text_dec/{embed,
 init_proj, w_in, u_rec, b, out_proj}``; for CelebA ``image_enc/{Conv_{0..3},
 Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
-``attr_enc/{embed, w1, b1, w2, b2}`` and ``attr_dec/{w1, b1, w2, b2}``. A
-leaf of no such name raises.
+``attr_enc/{embed, w1, b1, w2, b2}`` and ``attr_dec/{w1, b1, w2, b2}``; for
+CUB the leaf names of MultiMNIST's image and text experts, ``image_enc/
+{Conv_{0..3}, Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``
+(the last to 3 channels), ``text_enc/{Embed_0, w_in, u_rec, b, Dense_0}`` and
+``text_dec/{embed, init_proj, w_in, u_rec, b, out_proj}``. A leaf of no such
+name raises.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks, KL annealing."""
+"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks, KL annealing, IWAE."""
 
 from mmvae_torch.core.annealing import annealing_factor
 from mmvae_torch.core.elbo import elbo_terms, kl_gauss_gauss, kl_std_normal
@@ -11,6 +11,9 @@ from mmvae_torch.core.mixture import OBJECTIVES, fuse_observed_z
 from mmvae_torch.core.poe import product_of_experts
 from mmvae_torch.core.sampling import reparameterize
 from mmvae_torch.core.subsets import elbo_subset_masks, random_subset_masks
+
+# Last: iwae reaches the ops layer, which imports the modules above.
+from mmvae_torch.core.iwae import iwae_bound  # noqa: E402
 
 __all__ = [
     "annealing_factor",
@@ -26,4 +29,5 @@ __all__ = [
     "random_subset_masks",
     "OBJECTIVES",
     "fuse_observed_z",
+    "iwae_bound",
 ]

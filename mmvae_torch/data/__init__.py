@@ -3,10 +3,13 @@
 from mmvae_torch.data.pipelines import Dataset, load_dataset, stacked_epoch_padded
 from mmvae_torch.data.synthetic import (
     CELEBA_ATTRS,
+    cub_vocab,
     make_celeba,
+    make_cub,
     make_mnist,
     make_multimnist,
 )
+from mmvae_torch.data.vocab import Vocab
 
 __all__ = [
     "Dataset",
@@ -15,5 +18,8 @@ __all__ = [
     "make_mnist",
     "make_multimnist",
     "make_celeba",
+    "make_cub",
+    "cub_vocab",
+    "Vocab",
     "CELEBA_ATTRS",
 ]

@@ -22,8 +22,9 @@ _GENERATORS = {
     "mnist": synthetic.make_mnist,
     "multimnist": synthetic.make_multimnist,
     "celeba": synthetic.make_celeba,
+    "cub": synthetic.make_cub,
 }
-_NOT_PORTED = ("fashionmnist", "cub")
+_NOT_PORTED = ("fashionmnist",)
 # Datasets the JAX loader draws from its C++ generators under
 # MMVAE_DATAGEN=native (not bit-identical to the numpy ones).
 _NATIVE = ("multimnist", "celeba")

@@ -1,10 +1,11 @@
-"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-282``).
+"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-356``).
 
 numpy generators whose cross-modal structure is learnable: an MNIST image
 is a jittered glyph of its paired label plus noise; a MultiMNIST canvas
 composites 1-4 glyphs left to right and its text is their digit string; a
 CelebA face is drawn procedurally, each of its 18 attributes changing a
-visible feature.
+visible feature; a CUB bird's color, wing size and beak length are drawn
+and named in its templated caption (23 token ids with the reserved ones).
 The same seed gives byte-identical arrays to the JAX package's
 generators; the port keeps its own copy so it never imports the JAX
 package.
@@ -14,9 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from mmvae_torch.data.vocab import Vocab
 from mmvae_torch.models.text import PAD, STOP
 
-__all__ = ["make_mnist", "make_multimnist", "make_celeba", "CELEBA_ATTRS"]
+__all__ = ["make_mnist", "make_multimnist", "make_celeba", "make_cub", "cub_vocab",
+           "CELEBA_ATTRS"]
 
 # 5x7 bitmap font for digits 0-9 (rows top->bottom).
 _DIGIT_FONT = np.array(
@@ -209,3 +212,76 @@ def make_celeba(n: int, seed: int = 0, hw: int = 64):
     img[beard] = img[beard] * 0.55
     img += rng.normal(0, 0.02, img.shape).astype(np.float32)
     return {"image": np.clip(img, 0, 1), "attrs": attrs}
+
+
+_CUB_COLORS = {
+    "red": (0.85, 0.15, 0.15),
+    "blue": (0.2, 0.3, 0.85),
+    "yellow": (0.9, 0.85, 0.2),
+    "green": (0.2, 0.7, 0.3),
+    "brown": (0.5, 0.33, 0.16),
+    "grey": (0.55, 0.55, 0.55),
+}
+_CUB_SIZES = {"small": 0.16, "medium": 0.24, "large": 0.32}
+_CUB_BEAKS = {"short": 0.05, "long": 0.12}
+
+
+def cub_vocab() -> Vocab:
+    """The synthetic caption vocabulary: 3 reserved ids and 20 words."""
+    words = (
+        "this bird has a body with wings and beak".split()
+        + list(_CUB_COLORS)
+        + list(_CUB_SIZES)
+        + list(_CUB_BEAKS)
+    )
+    return Vocab(words)
+
+
+def make_cub(n: int, seed: int = 0, hw: int = 64, max_len: int = 32):
+    """CUB-shaped pairs: bird image (n, hw, hw, 3) f32 in [0, 1] and its
+    caption (n, max_len) i32, "this bird has a <color> body with <size>
+    wings and a <beak> beak", each named feature visible in the image."""
+    rng = np.random.default_rng(seed)
+    vocab = cub_vocab()
+    colors = list(_CUB_COLORS)
+    sizes = list(_CUB_SIZES)
+    beaks = list(_CUB_BEAKS)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / (hw - 1)
+    images = np.empty((n, hw, hw, 3), np.float32)
+    tokens = np.zeros((n, max_len), np.int32)
+    ci = rng.integers(0, len(colors), size=n)
+    si = rng.integers(0, len(sizes), size=n)
+    bi = rng.integers(0, len(beaks), size=n)
+    bg = rng.uniform(0.55, 0.8, size=(n, 1, 1, 1)).astype(np.float32)
+    images[:] = bg * np.array([0.75, 0.9, 1.0], np.float32)
+    jx = rng.uniform(-0.06, 0.06, size=n)
+    jy = rng.uniform(-0.06, 0.06, size=n)
+    for i in range(n):
+        color = np.array(_CUB_COLORS[colors[ci[i]]], np.float32)
+        body_r = 0.18
+        wing_r = _CUB_SIZES[sizes[si[i]]]
+        beak_len = _CUB_BEAKS[beaks[bi[i]]]
+        cx, cy = 0.5 + jx[i], 0.55 + jy[i]
+        body = ((xx - cx) / body_r) ** 2 + ((yy - cy) / (body_r * 1.2)) ** 2 < 1
+        wing = ((xx - cx + wing_r * 0.7) / wing_r) ** 2 + (
+            (yy - cy - 0.03) / (wing_r * 0.5)
+        ) ** 2 < 1
+        head = ((xx - cx - body_r * 0.9) / 0.08) ** 2 + (
+            (yy - cy + body_r * 1.1) / 0.08
+        ) ** 2 < 1
+        beak = (
+            (xx > cx + body_r * 0.9 + 0.06)
+            & (xx < cx + body_r * 0.9 + 0.06 + beak_len)
+            & (np.abs(yy - (cy - body_r * 1.1)) < 0.015)
+        )
+        images[i][body] = color
+        images[i][wing] = color * 0.6
+        images[i][head] = color
+        images[i][beak] = (0.95, 0.65, 0.1)
+        sent = (
+            f"this bird has a {colors[ci[i]]} body with {sizes[si[i]]} "
+            f"wings and a {beaks[bi[i]]} beak"
+        )
+        tokens[i] = vocab.encode(sent, max_len)
+    images += rng.normal(0, 0.02, images.shape).astype(np.float32)
+    return {"image": np.clip(images, 0, 1), "text": tokens}

@@ -164,7 +164,10 @@ class _BernoulliNll(torch.autograd.Function):
         l_rows, x_rows = _rows(logits, d), _rows(x, d)
         ctx.save_for_backward(l_rows, x_rows)
         ctx.shape, ctx.dtype = logits.shape, logits.dtype
-        return kernels.bernoulli_nll_kernel(l_rows, x_rows, mode).reshape(batch_shape)
+        # b-major over examples of several rows: the rows an example holds.
+        inner = math.prod(batch_shape[1:]) if mode == kernels.FOLD_B else 1
+        return kernels.bernoulli_nll_kernel(l_rows, x_rows, mode, inner=inner).reshape(
+            batch_shape)
 
     @staticmethod
     @once_differentiable
@@ -203,10 +206,13 @@ def bernoulli_nll(
     """Summed BCE-with-logits over the trailing ``event_ndims`` dims.
 
     ``x`` may carry ``1/k`` of the logits' leading rows: a term tiling in
-    the order ``fold`` names (see the module docstring). Under ``"t"`` the
-    tiling of dim 0 is a tiling of the flattened rows too, so any batch
-    dims work, ``event_ndims=0`` included (the CelebA attributes: rows of
-    D = 1). Under ``"b"`` the tiled targets need exactly one batch dim.
+    the order ``fold`` names (see the module docstring). Any batch dims
+    work, ``event_ndims=0`` included (the CelebA attributes: rows of D =
+    1). Under ``"t"`` the tiling of dim 0 is a tiling of the flattened
+    rows too; under ``"b"`` with more than one batch dim the kernel reads
+    the flattened rows through the b-major map over examples of
+    ``prod(batch dims[1:])`` rows (``bce_rows_inner``), whose gradient is
+    not ported: the kernel path raises when autograd would record it.
     """
     mode = _fold(logits.shape[0], x.shape[0], fold)
     batch_shape = logits.shape[: logits.dim() - event_ndims]
@@ -215,17 +221,20 @@ def bernoulli_nll(
             f"targets {tuple(x.shape)} are not a row tiling of logits "
             f"{tuple(logits.shape)}"
         )
-    if mode == kernels.FOLD_B and len(batch_shape) != 1:
-        raise ValueError(
-            f"b-major tiled targets need one batch dim; logits "
-            f"{tuple(logits.shape)} at event_ndims={event_ndims} have "
-            f"{len(batch_shape)} (not yet ported to mmvae_torch)"
-        )
-    # Refused before the device is checked: no kernel gives dx, on any device.
+    # Refused before the device is checked: no kernel gives dx, on any
+    # device, nor the logits' gradient at the b-major map over examples
+    # of several rows.
     if _kernel_path(logits) and _records_grad(x):
         raise RuntimeError(
             "ops.bernoulli_nll: the kernel path has no gradient in the targets (dx); "
             "call it with targets that do not require grad, or with set_backend('torch')"
+        )
+    if (_kernel_path(logits) and mode == kernels.FOLD_B and len(batch_shape) > 1
+            and _records_grad(logits)):
+        raise RuntimeError(
+            "ops.bernoulli_nll: the gradient of the b-major map over examples of several "
+            "rows is not yet ported to mmvae_torch's kernels; call it without grad, or "
+            "with set_backend('torch')"
         )
     kernel = _use_kernel(logits)
     return _BernoulliNll.apply(logits, x, event_ndims, mode, kernel)

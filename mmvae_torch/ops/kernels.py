@@ -5,9 +5,10 @@
     per row of ``(N, D)``;
   * ``bernoulli_nll_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     bernoulli_nll_pallas`` (K2): ``sum(max(l,0) - l*x + log1p(e^-|l|))``
-    per row, reading its targets through a row map (``FOLD_*``) so
-    term-tiled logits are scored against one untiled copy of the targets,
-    in the layout :func:`bce_plan` picks from the shape;
+    per row, reading its targets through a row map (``FOLD_*``; b-major
+    also over examples of several rows, the CelebA attributes' IWAE fold)
+    so term-tiled logits are scored against one untiled copy of the
+    targets, in the layout :func:`bce_plan` picks from the shape;
   * ``masked_seq_ce_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     masked_seq_ce_pallas`` (K3): per example of ``(N, S, V)`` logits, the
     token cross-entropy ``logsumexp(l) - l[token]`` summed over its
@@ -80,6 +81,8 @@ __all__ = [
     "tile_rows",
     "BcePlan",
     "bce_plan",
+    "BceInnerPlan",
+    "bce_inner_plan",
     "SeqCePlan",
     "seq_ce_plan",
     "ConvPlan",
@@ -155,6 +158,8 @@ _SIGNATURES = {
     "row_reduce": {
         "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "bce_rows_inner": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                           _i32, _ptr],
         "kl_rows_grad": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
                           _i32, _ptr],
@@ -272,19 +277,30 @@ def _launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: {msg} (code {rc})")
 
 
-def tile_rows(x: torch.Tensor, n: int, fold: int) -> torch.Tensor:
-    """``x`` tiled along dim 0 to ``n`` rows in the order ``fold`` names."""
+def tile_rows(x: torch.Tensor, n: int, fold: int, inner: int = 1) -> torch.Tensor:
+    """``x`` tiled along dim 0 to ``n`` rows in the order ``fold`` names.
+
+    ``inner > 1`` (b-major only): the rows of ``x`` are examples of
+    ``inner`` rows each, and each example is repeated whole, so row ``(b
+    * k + t) * inner + a`` of the result is row ``b * inner + a`` of
+    ``x``."""
     if fold == FOLD_NONE:
         if x.shape[0] != n:
             raise ValueError(f"rows differ ({x.shape[0]} vs {n}) with no fold")
         return x
     if x.shape[0] == 0 or n % x.shape[0]:
         raise ValueError(f"{n} rows are not a tiling of {x.shape[0]}")
+    if inner != 1 and (fold != FOLD_B or inner < 1 or x.shape[0] % inner):
+        raise ValueError(f"inner={inner} needs the b-major fold and whole examples "
+                         f"of {x.shape[0]} rows")
     k = n // x.shape[0]
     if fold == FOLD_T:
         return x.repeat((k,) + (1,) * (x.dim() - 1))
     if fold == FOLD_B:
-        return x.repeat_interleave(k, dim=0)
+        # A broadcast and a copy, as JAX's ``_tile_terms``: no host sync,
+        # so it can be captured in a CUDA graph.
+        examples = x.reshape((-1, 1, inner) + x.shape[1:])
+        return examples.expand((-1, k, inner) + x.shape[1:]).reshape((n,) + x.shape[1:])
     raise ValueError(f"unknown fold {fold!r}")
 
 
@@ -368,6 +384,7 @@ def kl_rows_grad_torch(
 # blocks (a block per row at split 1); a thread per row.
 BCE_WARP, BCE_SPLIT, BCE_THREAD = 0, 1, 2
 H100_SMS = 132
+GRID_YZ_MAX = 65535  # gridDim.y and gridDim.z
 _MAX_BLOCKS = 4096  # grid of the grid-strided layouts
 _MAX_SPLIT = 8  # the portable cluster size
 # Rows of at most THREAD_MAX_D elements take a thread each. Rows shorter
@@ -410,16 +427,47 @@ def bce_plan(n: int, d: int, sms: int = H100_SMS) -> BcePlan:
     return BcePlan(BCE_SPLIT, 512 if chunk >= 2048 else 256, split, n * split)
 
 
+class BceInnerPlan(NamedTuple):
+    """Launch of ``bce_rows_inner``: a block of ``lanes`` x ``rows``
+    threads, a row each, over a grid of (x: the inner rows, y: the terms,
+    z: the examples)."""
+
+    lanes: int
+    rows: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+
+
+BCE_INNER_THREADS = 256
+
+
+def bce_inner_plan(n_b: int, k: int, inner: int) -> BceInnerPlan:
+    """The launch of K2's b-major map over ``n_b`` examples of ``inner``
+    rows, each tiled ``k`` times: a thread a row, a block ``inner`` lanes
+    wide (at most ``BCE_INNER_THREADS``) and as many terms deep as fill
+    about that many threads, a block row of the grid per example. CelebA's
+    IWAE (64 examples, k = 64, 18 attributes): blocks of 18 x 14 over a
+    (1, 5, 64) grid."""
+    lanes = min(inner, BCE_INNER_THREADS)
+    rows = max(1, min(k, BCE_INNER_THREADS // lanes))
+    return BceInnerPlan(lanes, rows, -(-inner // lanes), min(-(-k // rows), GRID_YZ_MAX),
+                        min(n_b, GRID_YZ_MAX))
+
+
 def bernoulli_nll_kernel(
     logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE,
-    plan: BcePlan | None = None,
+    plan: BcePlan | BceInnerPlan | None = None, inner: int = 1,
 ) -> torch.Tensor:
     """Summed BCE-with-logits of each row of ``(N, D)`` f32 CUDA logits.
 
     ``x`` holds ``(n_x, D)`` targets: ``n_x == N`` with ``FOLD_NONE``, or
     one copy of a term tiling of ``N // n_x`` terms in the order ``fold``
-    names -- the tiled copy is never made. ``plan`` overrides
-    :func:`bce_plan` of the shape and the card.
+    names -- the tiled copy is never made. ``inner > 1`` with ``FOLD_B``:
+    the targets are examples of ``inner`` rows each (as :func:`tile_rows`
+    tiles them), launched as ``bce_rows_inner`` in the grid
+    :func:`bce_inner_plan` sizes. ``plan`` overrides :func:`bce_plan` (or
+    :func:`bce_inner_plan`) of the shape and the card.
     """
     _check_rows("logits", logits)
     _check_rows("x", x)
@@ -436,26 +484,38 @@ def bernoulli_nll_kernel(
         fold != FOLD_NONE and (n_x == 0 or n % n_x)
     ):
         raise ValueError(f"{n} logits rows do not fold onto {n_x} target rows")
+    if inner != 1 and (fold != FOLD_B or inner < 1 or n_x % inner):
+        raise ValueError(f"inner={inner} needs FOLD_B and whole examples of {n_x} rows")
     out = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n == 0:
         return out
-    plan = plan or bce_plan(n, d, _sm_count(logits.device.index or 0))
-    _launch(
-        "row_reduce", "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
-        out.data_ptr(), n, d, n_x, fold, *plan,
-    )
+    if inner != 1:
+        plan = plan or bce_inner_plan(n_x // inner, n // n_x, inner)
+        if not isinstance(plan, BceInnerPlan):
+            raise TypeError(f"inner={inner} takes a BceInnerPlan, got {plan!r}")
+        _launch(
+            "row_reduce", "bce_rows_inner", logits.device, logits.data_ptr(), x.data_ptr(),
+            out.data_ptr(), n_x // inner, n // n_x, inner, d, *plan,
+        )
+    else:
+        plan = plan or bce_plan(n, d, _sm_count(logits.device.index or 0))
+        if not isinstance(plan, BcePlan):
+            raise TypeError(f"bce_rows takes a BcePlan, got {plan!r}")
+        _launch(
+            "row_reduce", "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
+            out.data_ptr(), n, d, n_x, fold, *plan,
+        )
     LAUNCHES["bce"] += 1
     return out
 
 
 def bernoulli_nll_torch(
-    logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE
+    logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE, inner: int = 1
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`bernoulli_nll_kernel` (tiles ``x``)."""
-    return _bce_plain(logits, tile_rows(x, logits.shape[0], fold), 1)
+    return _bce_plain(logits, tile_rows(x, logits.shape[0], fold, inner), 1)
 
 
-GRID_YZ_MAX = 65535  # gridDim.y and gridDim.z
 # A row of more than BCE_GRAD_LANES units is cut into chunks of that many,
 # a block a chunk; a shorter row takes as many lanes as it has units, and a
 # block of about BCE_GRAD_THREADS threads as many rows as fill whole warps.

@@ -1,10 +1,12 @@
-"""The multi-term loss, the train state and step, and the eval step."""
+"""The multi-term loss, the train state and step, the eval step and the IWAE step."""
 
 from mmvae_torch.train.state import TrainState, create_train_state, global_norm
 from mmvae_torch.train.step import (
     make_epoch_runner,
     make_eval_runner,
     make_eval_step,
+    make_iwae_runner,
+    make_iwae_step,
     make_train_step,
     multi_term_loss,
     presence_from_keep,
@@ -20,4 +22,6 @@ __all__ = [
     "presence_from_keep",
     "make_eval_step",
     "make_eval_runner",
+    "make_iwae_step",
+    "make_iwae_runner",
 ]

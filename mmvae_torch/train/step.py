@@ -52,7 +52,15 @@ three times, and each one's backward kernel as often; one ``celeba`` step
 encoder), and each one's backward kernel as often (K4's in its weight
 and bias).
 
-The other folds (``"b"``, ``"st"``) and the mixture objectives are not
+The IWAE runner (``make_iwae_step``, ``make_iwae_runner``) runs
+``core.iwae_bound`` over an eval split, its k samples folded b-major, on
+the same graph machinery; on the card one of its batches launches the
+fused PoE + KL once and each NLL kernel once per decode key through the
+b-major row maps (CelebA: K2 twice, the attributes through the map over
+examples of 18 rows; MultiMNIST and CUB: K2 and K3), and K4 once on
+CelebA and CUB.
+
+The other train folds (``"b"``, ``"st"``) and the mixture objectives are not
 ported yet and raise; ``cross_recon_stopgrad``,
 ``unimodal_align_weight``, ``cycle_contrast_weight`` and gradient
 accumulation are not taken yet.
@@ -72,6 +80,7 @@ from mmvae_torch.core import (
     annealing_factor,
     elbo_subset_masks,
     elbo_terms,
+    iwae_bound,
     random_subset_masks,
     reparameterize,
 )
@@ -86,6 +95,8 @@ __all__ = [
     "presence_from_keep",
     "make_eval_step",
     "make_eval_runner",
+    "make_iwae_step",
+    "make_iwae_runner",
 ]
 
 _BINARIZE = (False, True, "both")
@@ -646,14 +657,61 @@ def make_eval_runner(
     updated in place. ``graph=False`` asks for the eager loop on the card,
     one batch at a time, which the CPU always runs.
     """
-    eval_step = make_eval_step(model, objective)
+    return _split_runner(make_eval_step(model, objective), model, graph)
+
+
+def _split_runner(step: Callable, model, graph: bool | None,
+                  generator: torch.Generator | None = None) -> Callable:
+    """``step`` over the rows of pre-stacked ``(n_batches, B, ...)``
+    tensors, every metric stacked: replays of one captured batch on the
+    card (:class:`_StepGraph`, reading ``model``'s parameters where they
+    are, ``generator`` registered with the graph), else the eager loop."""
     if not _use_graph(model, graph):
         def run(batches):
-            per_step = [eval_step({k: v[i] for k, v in batches.items()})
+            per_step = [step({k: v[i] for k, v in batches.items()})
                         for i in range(_rows(batches))]
             return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
         return run
 
-    graphed = _StepGraph(eval_step)
+    graphed = _StepGraph(step, generator)
     return lambda batches: graphed(batches, lambda: [*model.parameters(), *model.buffers()])
+
+
+def make_iwae_step(
+    model, k: int = 64, generator: torch.Generator | None = None
+) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
+    """IWAE step: ``iwae_step(batch) -> {"log_likelihood": (B,)}``, each
+    example's estimate (``core.iwae_bound``) times its row of the batch's
+    ``valid`` mask, so a pad row gives exactly 0 (the JAX ``scan`` body,
+    ``mmvae_tpu/api.py:1278-1285``). The noise is ``batch["eps"]``
+    ``(B, k, L)`` when the batch carries it, else a draw from
+    ``generator``. Run without autograd."""
+
+    @torch.no_grad()
+    def iwae_step(batch):
+        data = {name: v for name, v in batch.items() if name not in ("valid", "eps")}
+        ll = iwae_bound(model, data, k, generator=generator, eps=batch.get("eps"))
+        return {"log_likelihood": ll * batch["valid"]}
+
+    return iwae_step
+
+
+def make_iwae_runner(
+    model, k: int = 64, *, graph: bool | None = None,
+    generator: torch.Generator | None = None,
+) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
+    """IWAE over pre-stacked ``(n_batches, B, ...)`` tensors with a
+    ``valid`` ``(n_batches, B)`` mask and optionally ``eps`` ``(n_batches,
+    B, k, L)``. Returns ``run(batches) -> {"log_likelihood": (n_batches,
+    B)}``, pad rows 0.
+
+    On the card the split is the JAX ``log_likelihood``'s one program
+    (``lax.scan``, ``mmvae_tpu/api.py:1274-1290``) as replays of one
+    captured batch (:class:`_StepGraph`), which reads ``model``'s
+    parameters where they are; ``generator`` is registered with the
+    graph, so each replay draws the noise an eager batch would.
+    ``graph=False`` asks for the eager loop on the card, one batch at a
+    time, which the CPU always runs.
+    """
+    return _split_runner(make_iwae_step(model, k, generator), model, graph, generator)

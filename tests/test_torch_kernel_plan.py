@@ -1,4 +1,5 @@
-"""The launch plans of K2 (``bce_plan``), K3 (``seq_ce_plan``), K4
+"""The launch plans of K2 (``bce_plan``; ``bce_inner_plan`` and
+``tile_rows`` at its b-major map over examples of several rows), K3 (``seq_ce_plan``), K4
 (``conv_plan``), the fused PoE + KL (``poe_kl_plan``) and the backward
 kernels of K2 (``bce_grad_plan``), K3 (``seq_ce_grad_plan``), K4
 (``conv_bwd_plan``) and the fused PoE + KL (``poe_kl_bwd_plan``), on the
@@ -10,6 +11,7 @@ rules that pick a layout are checked here without a card. Imports no JAX.
 
 import numpy as np
 import pytest
+import torch
 
 from mmvae_torch.ops import kernels
 
@@ -204,7 +206,8 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
      ("poe_kl", "poe_kl", 11, kernels.PoeKlPlan),
      ("poe_kl", "poe_kl_bwd", 15, kernels.PoeKlBwdPlan),
      ("seq_ce", "seq_ce_rows_grad", 9, kernels.SeqCeGradPlan),
-     ("row_reduce", "bce_rows_grad", 8, kernels.BceGradPlan)],
+     ("row_reduce", "bce_rows_grad", 8, kernels.BceGradPlan),
+     ("row_reduce", "bce_rows_inner", 7, kernels.BceInnerPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the plan's fields and the stream:
@@ -616,3 +619,48 @@ def test_bce_grad_plan_covers_every_element_once(shape, fold, vec):
     row = b * k + t if fold == kernels.FOLD_B else t * n_x + b
     assert np.array_equal(np.sort(row.ravel()), np.arange(n))
     assert np.array_equal(row // k if fold == kernels.FOLD_B else row % n_x, b)
+
+
+# (examples, k, rows an example) of K2's b-major map over examples of
+# several rows: CelebA's IWAE attributes, ragged, a row wider than a
+# block, one of each.
+BCE_INNER_SHAPES = [(64, 64, 18), (5, 7, 3), (3, 2, 300), (2, 600, 1), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", BCE_INNER_SHAPES)
+def test_bce_inner_plan_covers_every_row_once(shape):
+    """Every logits row is visited once, as the kernel decodes the grid
+    (with each axis also cut to a few blocks: it strides past the grid),
+    and reads target row ``b * inner + a`` = ``(r / (k * inner)) * inner +
+    r % inner``, the map ``tile_rows`` tiles for the plain version."""
+    n_b, k, inner = shape
+    plan = kernels.bce_inner_plan(n_b, k, inner)
+    assert 1 <= plan.lanes * plan.rows <= 1024 and plan.lanes <= inner
+    assert 1 <= plan.grid_y <= kernels.GRID_YZ_MAX and 1 <= plan.grid_z <= kernels.GRID_YZ_MAX
+    for cut in (plan, plan._replace(grid_x=1, grid_y=min(plan.grid_y, 2), grid_z=1)):
+        assert np.all(_axis_count(inner, cut.grid_x, cut.lanes) == 1)
+        assert np.all(_axis_count(k, cut.grid_y, cut.rows) == 1)
+        assert np.all(_axis_count(n_b, cut.grid_z, 1) == 1)
+    b, t, a = np.meshgrid(np.arange(n_b), np.arange(k), np.arange(inner), indexing="ij")
+    row = (b * k + t) * inner + a
+    n = n_b * k * inner
+    assert np.array_equal(np.sort(row.ravel()), np.arange(n))
+    target = b * inner + a
+    assert np.array_equal(target, (row // (k * inner)) * inner + row % inner)
+    x = torch.arange(n_b * inner)
+    tiled = kernels.tile_rows(x, n, kernels.FOLD_B, inner)
+    assert np.array_equal(tiled.numpy()[row], target)
+
+
+def test_bce_inner_plan_at_the_celeba_iwae_shape():
+    """64 examples of 18 attributes at k = 64: blocks of 18 x 14 threads,
+    a grid of (1, 5, 64)."""
+    assert kernels.bce_inner_plan(64, 64, 18) == kernels.BceInnerPlan(18, 14, 1, 5, 64)
+
+
+def test_tile_rows_refuses_an_inner_map_outside_the_b_fold():
+    x = torch.zeros(6, 1)
+    with pytest.raises(ValueError, match="inner"):
+        kernels.tile_rows(x, 12, kernels.FOLD_T, inner=3)
+    with pytest.raises(ValueError, match="inner"):
+        kernels.tile_rows(x, 12, kernels.FOLD_B, inner=4)

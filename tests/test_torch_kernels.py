@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain versions.
 
 Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2
-and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4 and its
+with its b-major map over examples of several rows, and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4 and its
 backward) and
 ``poe_kl.cu`` (the fused PoE + KL and its backward) with ``nvcc`` and run
 on the card; without one they skip. This file imports nothing of JAX, so
@@ -678,6 +678,122 @@ def test_bce_kernel_attribute_rows(cuda):
         ops.set_backend("auto")
     assert got.shape == (19 * 64, 18)
     _close(got, want, 1)
+
+
+# (examples, k, rows an example, D) of K2's b-major map over examples of
+# several rows: CelebA's IWAE attributes (73,728 rows of D = 1 over 1,152
+# targets), ragged, an example wider than a block, rows of D > 1, one
+# example of two rows.
+BCE_INNER_SHAPES = [(64, 64, 18, 1), (5, 7, 3, 1), (3, 2, 300, 1), (4, 3, 5, 7), (1, 1, 2, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BCE_INNER_SHAPES)
+def test_bce_kernel_inner_map_matches_plain(cuda, shape):
+    """``bce_rows_inner`` against the plain version of its map (the
+    targets tiled example by example), in its plan and in a grid cut to a
+    block an axis (the kernel strides past it); two calls give the same
+    bits."""
+    n_b, k, inner, d = shape
+    gen = torch.Generator().manual_seed(30)
+    logits = _rand(gen, n_b * k * inner, d, device=cuda, scale=3.0)
+    x = torch.rand(n_b * inner, d, generator=gen).to(cuda)
+    want = kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_B, inner)
+    got = kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, inner=inner)
+    _close(got, want, d)
+    assert torch.equal(got, kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, inner=inner))
+    cut = kernels.bce_inner_plan(n_b, k, inner)._replace(grid_x=1, grid_y=1, grid_z=1)
+    _close(kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, cut, inner), want, d)
+
+
+@pytest.mark.gpu
+def test_bce_kernel_inner_map_refuses_bad_calls(cuda):
+    logits = torch.zeros(12, 1, device=cuda)
+    x = torch.zeros(6, 1, device=cuda)
+    with pytest.raises(ValueError, match="inner"):
+        kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_T, inner=3)
+    with pytest.raises(TypeError, match="BceInnerPlan"):
+        kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, kernels.bce_plan(12, 1), 3)
+    with pytest.raises(RuntimeError, match="bce_rows_inner launch failed"):
+        kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B,
+                                     kernels.BceInnerPlan(3, 400, 1, 1, 1), 3)
+
+
+@pytest.mark.gpu
+def test_ops_bce_attribute_rows_b_fold(cuda):
+    """The CelebA attribute NLL of the IWAE through ops: (64 * 64, 18)
+    logits at event_ndims=0 against (64, 18) targets, b-fold: one launch
+    of ``bce_rows_inner``, equal to the ``torch`` backend; with the logits
+    requiring grad the kernel path raises before anything launches."""
+    gen = torch.Generator().manual_seed(31)
+    logits = _rand(gen, 64 * 64, 18, device=cuda, scale=3.0)
+    x = torch.randint(0, 2, (64, 18), generator=gen).float().to(cuda)
+    before = kernels.LAUNCHES["bce"]
+    got = ops.bernoulli_nll(logits, x, 0, fold="b")
+    assert kernels.LAUNCHES["bce"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.bernoulli_nll(logits, x, 0, fold="b")
+    finally:
+        ops.set_backend("auto")
+    assert got.shape == (64 * 64, 18)
+    _close(got, want, 1)
+    with pytest.raises(RuntimeError, match="b-major map over examples"):
+        ops.bernoulli_nll(logits.requires_grad_(True), x, 0, fold="b")
+    assert kernels.LAUNCHES["bce"] == before + 1
+
+
+def test_ops_bce_b_fold_inner_map_refuses_grad_on_the_cpu():
+    """Under the "kernel" backend the gradient at the b-major map over
+    examples of several rows is refused before the device is checked; the
+    "auto" backend takes the plain path, whose gradient flows."""
+    logits = torch.randn(12, 3, requires_grad=True)
+    x = torch.rand(4, 3)
+    ops.set_backend("kernel")
+    try:
+        with pytest.raises(RuntimeError, match="b-major map over examples"):
+            ops.bernoulli_nll(logits, x, 0, fold="b")
+    finally:
+        ops.set_backend("auto")
+    (d_l,) = torch.autograd.grad(ops.bernoulli_nll(logits, x, 0, fold="b").sum(), logits)
+    want = torch.sigmoid(logits) - x.repeat_interleave(3, dim=0)
+    torch.testing.assert_close(d_l, want.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6400, 784, 100), (6400, 2500, 100), (4096, 12288, 64)])
+def test_bce_kernel_iwae_image_rows(cuda, shape):
+    """The IWAE's image rows, k = 64 samples of each example b-major:
+    MNIST's, MultiMNIST's and CelebA's and CUB's."""
+    n, d, n_x = shape
+    gen = torch.Generator().manual_seed(32)
+    logits = _rand(gen, n, d, device=cuda, scale=3.0)
+    x = torch.rand(n_x, d, generator=gen).to(cuda)
+    got = kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B)
+    _close(got, kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_B), d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6400, 5, 13, 100), (4096, 32, 23, 64)])
+def test_ops_masked_seq_ce_b_fold(cuda, shape):
+    """K3 on b-major tiled tokens, the IWAE's: MultiMNIST's digit strings
+    and CUB's captions, k = 64, through ops against the ``torch``
+    backend."""
+    n, s, v, n_x = shape
+    gen = torch.Generator().manual_seed(33)
+    logits, tokens = _seq_inputs(gen, n_x, s, v, cuda)
+    logits = _rand(gen, n, s, v, device=cuda, scale=3.0)
+    before = kernels.LAUNCHES["seq_ce"]
+    got = ops.masked_seq_ce(logits, tokens, fold="b")
+    assert kernels.LAUNCHES["seq_ce"] == before + 1
+    ops.set_backend("torch")
+    try:
+        want = ops.masked_seq_ce(logits, tokens, fold="b")
+    finally:
+        ops.set_backend("auto")
+    _seq_close(got, want, s, v)
+    tiled = tokens.repeat_interleave(n // n_x, dim=0)
+    _seq_close(got, kernels.masked_seq_ce_torch(logits, tiled, 0), s, v)
 
 
 def _bce_inputs(gen, n, d, fold, device):

@@ -255,8 +255,8 @@ def test_entry_points_default_to_the_card(matched):
 
 def test_unported_configs_and_datasets_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("cub")
+        configs.get_config("fashionmnist")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_dataset("cub")
+        load_dataset("fashionmnist")
     with pytest.raises(ValueError):
         configs.get_config("nope")

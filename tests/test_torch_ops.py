@@ -20,7 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mmvae_tpu import core as jcore
 from mmvae_tpu import ops as jops
 from mmvae_tpu.ops import kernels as jkernels
-from mmvae_tpu.train.step import _tile_terms_tmajor
+from mmvae_tpu.train.step import _tile_terms, _tile_terms_tmajor
 from mmvae_torch import core, ops
 from mmvae_torch.ops import kernels
 from tools.pallas_conv_probe import pallas_conv0
@@ -96,9 +96,13 @@ def test_ops_nll_term_tiled_targets(fold):
 
 def test_ops_bernoulli_nll_event_ndims_0_t_fold():
     """The CelebA attribute NLL: ``(k * B, A)`` logits at event_ndims=0
-    against untiled ``(B, A)`` targets under the t-fold. The kernel path
-    flattens both to rows of D = 1 and reads target row ``r % (B * A)``;
-    the plain version of that row map gives the same. b-major raises."""
+    against untiled ``(B, A)`` targets, under the t-fold (the evals') and
+    the b-fold (the IWAE's, against JAX's ``_tile_terms``). The kernel path
+    flattens both to rows of D = 1 and reads target row ``r % (B * A)``,
+    or ``(r / (k * A)) * A + r % A`` (``bce_rows_inner``); the plain
+    versions of those row maps give the same. The plain path's gradient
+    goes through the same tiling; the kernel path refuses to record one at
+    the b-major map, before it looks at the device."""
     rng = np.random.default_rng(13)
     k, b, a = 19, 6, 18
     logits = (rng.normal(size=(k * b, a)) * 3).astype(np.float32)
@@ -111,8 +115,30 @@ def test_ops_bernoulli_nll_event_ndims_0_t_fold():
         _t(logits).reshape(-1, 1), _t(x).reshape(-1, 1), kernels.FOLD_T
     )
     _close(rows.reshape(k * b, a), want)
-    with pytest.raises(ValueError, match="one batch dim"):
-        ops.bernoulli_nll(_t(logits), _t(x), 0, fold="b")
+
+    def jax_b(lg):
+        return jcore.bernoulli_nll(lg, _tile_terms(jnp.asarray(x), k), 0)
+
+    want_b = jax_b(jnp.asarray(logits))
+    lt = _t(logits).requires_grad_(True)
+    got_b = ops.bernoulli_nll(lt, _t(x), 0, fold="b")
+    assert got_b.shape == (k * b, a)
+    _close(got_b.detach(), want_b)
+    assert not np.allclose(np.asarray(want_b), np.asarray(want))  # the folds differ
+    rows_b = kernels.bernoulli_nll_torch(
+        _t(logits).reshape(-1, 1), _t(x).reshape(-1, 1), kernels.FOLD_B, inner=a
+    )
+    _close(rows_b.reshape(k * b, a), want_b)
+    g = rng.normal(size=(k * b, a)).astype(np.float32)
+    got_b.backward(_t(g))
+    _, vjp = jax.vjp(jax_b, jnp.asarray(logits))
+    _close(lt.grad, vjp(jnp.asarray(g))[0])
+    ops.set_backend("kernel")
+    try:
+        with pytest.raises(RuntimeError, match="b-major map over examples"):
+            ops.bernoulli_nll(_t(logits).requires_grad_(True), _t(x), 0, fold="b")
+    finally:
+        ops.set_backend("auto")
 
 
 def _conv_inputs(shape, seed: int = 14):
