@@ -7,11 +7,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device and build: the card's name and power limit, TF32 off, and the
    hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
    (the port's four sources and the launch-floor probe, one ``nvcc``
-   each, started together);
+   each, started together; ``conv_s2.cu`` holds K4, its backward and its
+   input gradient);
 2. each kernel held against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged, odd and large ones (rtol 1e-5; atol
    1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
-   cross-entropy, 1e-5 * 16 * C for the f32 conv: the kernels sum in
+   cross-entropy, 1e-5 * 16 * C for the f32 conv, 1e-6 * 128 for K4's
+   input gradient (4 taps x 32 channels an entry): the kernels sum in
    another order; the bf16 conv atol 2e-2, one bf16 rounding of outputs
    below 4; the fused PoE + KL atol 1e-6 for the posteriors and 1e-5 * L
    for the KL, whose rows with every expert absent must give exactly 0;
@@ -19,7 +21,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gradient exactly 0; the fused PoE + KL's backward atol 1e-5 * T times
    its largest gradient, as it sums T terms; K4's backward atol 1e-6 * N,
    N = B * ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums,
-   and two of its launches equal to the bit); among them the IWAE's: K2 on
+   and two of its launches equal to the bit, as two of K4's input
+   gradient's are, whose upstream gradient is also taken transposed);
+   among them CUB's train step's shapes and the IWAE's: K2 on
    b-major image rows, K2 through its map over examples of 18 attribute
    rows (``bce_rows_inner``), K3 on b-major tiled tokens and the fused PoE
    + KL at T = 1;
@@ -29,6 +33,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    - ``mnist`` (n_latents 64, 512-wide MLP experts): ``eval_elbo`` over
      the 2,000-example synthetic test split, ``generate`` from labels and
      ``sample``;
+   - ``fashionmnist`` (n_latents 64, a conv image expert of features 32,
+     64 over 28x28 grayscale on cuDNN, the label expert): ``eval_elbo``
+     over its 2,000-example split, ``generate`` from labels and from
+     images, and ``sample``;
    - ``multimnist`` (n_latents 256, conv features 32-256 over 50x50, GRU
      text experts of width 256): ``eval_elbo`` over its 2,000-example
      split, ``generate`` from text, from images and from nothing, and
@@ -97,6 +105,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      batch 16 of the graph runner on the card (cuDNN's deterministic
      algorithms) against the eager loop on the CPU, the random subset masks
      and the noise passed in, under the same gates as ``mnist``;
+   - ``cub`` training (cross-recon, the cycle term at weight 0.1 on the
+     soft render, its image decoder live on it; K4 on the encode and on the
+     cycle's re-encode of the render, K4's backward twice and K4's input
+     gradient once a step): ``api.train`` for one epoch at full width over a
+     train split cut to 1,280 examples (20 steps of batch 64, then the
+     2,000-example test ELBO) on the graph runners, launching the fused PoE
+     + KL 72 times, K2 52, K3 72, K4 72 and the backward kernels 40, 20,
+     40, 40 and K4's input gradient 20; its first-epoch test ELBO below the
+     untrained model's; the graph against the eager loop gated as
+     ``celeba``'s, both timed in turns and profiled (the device time split
+     by kernel family); the step's caption experts (the GRUs) forward and
+     backward timed alone; three steps at batch 16 on the card against the
+     CPU with the noise passed in, under ``mnist``'s gates, the CPU's Adam
+     fed the card's gradient components below 9 x Adam's eps (at rounding
+     level, where Adam's normalisation has not saturated; the unfed reading
+     reported beside it);
+   - ``fashionmnist`` training: ``api.train`` for one epoch at full width
+     (100 steps of batch 100, then the test ELBO), launching what
+     ``mnist``'s does, under ``celeba``'s gates, the card against the CPU
+     at batch 100 fed as ``cub``'s;
    - a workdir: ``mnist`` at full width over a train split cut to 2,000
      trained 2 epochs into a temporary workdir and resumed for a third,
      against an uninterrupted 3-epoch run (rel 1e-6);
@@ -122,7 +150,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    backward kernels are timed at MNIST's, MultiMNIST's and CelebA's train
    shapes beside their plain versions and the autograd backward of the
    library forward (for K4's backward: cuDNN's wgrad and the silu's
-   backward, for the weight and bias alone).
+   backward, for the weight and bias alone; for K4's input gradient:
+   cuDNN's dgrad and the silu's backward, for the image alone), K4's input
+   gradient also at an odd size, C = 1 and 4 and a transposed upstream
+   gradient.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
 summary, and as the last line ``{"ok": true, "device": {...}}``.
@@ -130,8 +161,10 @@ summary, and as the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -194,9 +227,9 @@ CONV_BWD_OPS_PER_OUT = 9
 POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
 POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
 OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd",
-       "conv_bwd")
-BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd")
-CONFIGS = ("mnist", "multimnist", "celeba", "cub")
+       "conv_bwd", "conv_dx")
+BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx")
+CONFIGS = ("mnist", "fashionmnist", "multimnist", "celeba", "cub")
 # The IWAE's importance samples per example (``api.log_likelihood``'s default).
 IWAE_K = 64
 META = {
@@ -267,6 +300,14 @@ META = {
                 "K4 and leaves stage 0's gradient to XLA (tools/pallas_conv_probe.py:55 "
                 "xla_conv0)",
     },
+    "conv_dx": {
+        "name": "conv4x4s2_swish_dx",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/conv_s2.cu",
+        "replaces": "tools/pallas_conv_probe.py:55",
+        "note": "K4's backward in its image (dx), the input half of XLA's gradient of "
+                "stage 0 (xla_conv0); the cycle term's re-encode of a render takes it",
+    },
 }
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
 # of the sequence cross-entropy, (B, H, W, C, dtype) of the conv, (T, B, M,
@@ -286,6 +327,13 @@ META = {
 # BCE at the image's 6 member terms (1 + 1 + 4) against the 64 untiled
 # targets, attribute BCE at 23 member terms (1 + 18 + 4) x 64 x 18 rows of D
 # = 1 against 64 x 18 targets, K4 on the 64 images, and each one's backward.
+# One CUB train step (cross-recon, T = 3, the cycle term on the soft render)
+# gives the fused PoE + KL at its 3 terms of 2 experts (no presence) and at
+# the cycle's re-encode (T = 1, the image alone), image BCE at the decode-all
+# pass's 3 terms (192 rows of 64x64x3) against the 64 untiled targets, K3 at
+# its 3 terms of 64 captions (32 tokens, V = 23) and at the cycle's re-read
+# of 64, K4 twice (the encode, the re-encode), each one's backward, and K4's
+# input gradient once (the re-encode's input is the render).
 TIMED_SHAPES = {
     "kl": {"mnist_eval": (300, 64, 300, None), "multimnist_eval": (300, 256, 300, None),
            "celeba_eval": (1280, 100, 1280, None), "large": (12288, 64, 12288, None)},
@@ -304,12 +352,14 @@ TIMED_SHAPES = {
             "celeba_attrs": (21888, 1, 1152, kernels.FOLD_T),
             "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
             "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
+            "cub_train": (192, 12288, 64, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
     # A fourth field: the tokens of that many examples tiled b-major to the
     # rows (the IWAE's); CUB's eval: its 2 member terms of 64 captions.
     "seq_ce": {"multimnist_eval": (200, 5, 13), "multimnist_train": (300, 5, 13),
                "multimnist_iwae": (6400, 5, 13, 100), "cub_eval": (128, 32, 23),
-               "cub_iwae": (4096, 32, 23, 64),
+               "cub_iwae": (4096, 32, 23, 64), "cub_train": (192, 32, 23),
+               "cub_cycle": (64, 32, 23),
                "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
              "probe": (256, 64, 64, 3, torch.bfloat16)},
@@ -319,6 +369,7 @@ TIMED_SHAPES = {
                "celeba_eval": (20, 64, 19, 100, "eval"),
                "celeba_train": (24, 64, 19, 100, "subsets"),
                "cub_eval": (3, 64, 2, 256, "eval"),
+               "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle"),
                # The IWAE's joint posterior: one all-ones mask, no presence.
                "mnist_iwae": (1, 100, 2, 64, "joint"),
                "multimnist_iwae": (1, 100, 2, 256, "joint"),
@@ -335,15 +386,23 @@ TIMED_SHAPES = {
                 "multimnist_train": (300, 2500, 100, kernels.FOLD_T),
                 "celeba_image": (128, 12288, 64, kernels.FOLD_T),
                 "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
-                "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T)},
+                "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
+                "cub_train": (192, 12288, 64, kernels.FOLD_T)},
     "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
+                   "cub_train": (192, 32, 23), "cub_cycle": (64, 32, 23),
                    "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "poe_kl_bwd": {"mnist_train": (3, 100, 2, 64, "eval"),
                    "multimnist_train": (3, 100, 2, 256, "text"),
                    "multimnist_cycle": (1, 100, 2, 256, "cycle"),
                    "celeba_eval": (20, 64, 19, 100, "eval"),
-                   "celeba_train": (24, 64, 19, 100, "subsets")},
+                   "celeba_train": (24, 64, 19, 100, "subsets"),
+                   "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle")},
     "conv_bwd": {"celeba_train": (64, 64, 64, 3)},
+    # K4's input gradient: CUB's train batch (the cycle term's re-encode of
+    # its 64 renders), an odd size, C = 1 and 4, and CUB's batch with a
+    # transposed upstream gradient (the fifth field).
+    "conv_dx": {"cub_train": (64, 64, 64, 3), "odd": (3, 33, 31, 3), "c1": (64, 64, 64, 1),
+                "c4": (64, 64, 64, 4), "transposed_g": (64, 64, 64, 3, "transposed")},
 }
 CHECKED_SHAPES = {
     "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
@@ -376,6 +435,8 @@ CHECKED_SHAPES = {
         (105, 1, 15, kernels.FOLD_B, 3),
         (1800, 1, 900, kernels.FOLD_B, 300),
         (60, 7, 20, kernels.FOLD_B, 5),
+        # CUB's train step: the decode-all pass's image rows.
+        (192, 12288, 64, kernels.FOLD_T),
     ],
     # MultiMNIST eval and train (the decode-all pass, a cycle re-read);
     # ragged with all-pad rows; the synthetic CUB vocabulary (3 reserved +
@@ -383,7 +444,7 @@ CHECKED_SHAPES = {
     # once, at an odd V; V just below a warp.
     "seq_ce": [(200, 5, 13), (300, 5, 13), (100, 5, 13), (37, 7, 13), (4096, 32, 23),
                (2048, 8, 5003), (3, 40, 1001), (5, 3, 31), (6400, 5, 13, 100),
-               (4096, 32, 23, 64), (128, 32, 23)],
+               (4096, 32, 23, 64), (128, 32, 23), (192, 32, 23), (64, 32, 23)],
     # CelebA eval; the probe's shape and type (more units than the grid
     # has warps); a ragged batch; an odd grayscale size, which pads (1, 2)
     # and takes scalar loads; widths that are not a multiple of the 32
@@ -405,7 +466,8 @@ CHECKED_SHAPES = {
                (20, 64, 19, 100, "unaligned"), (3, 100, 2, 256, "text"),
                (1, 100, 2, 256, "cycle"), (24, 64, 19, 100, "subsets"),
                (3, 64, 2, 256, "eval"), (1, 100, 2, 64, "joint"), (1, 100, 2, 256, "joint"),
-               (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint")],
+               (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint"),
+               (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
@@ -422,6 +484,7 @@ CHECKED_SHAPES = {
         (21888, 1, 1152, kernels.FOLD_T),
         (36, 1002, 18, kernels.FOLD_B),
         (70000, 3, 70000, kernels.FOLD_NONE),
+        (192, 12288, 64, kernels.FOLD_T),
     ],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
@@ -429,7 +492,8 @@ CHECKED_SHAPES = {
     # chunk with fewer examples than the others (7 a chunk); V at the
     # staged path's limit of 128 and just past it (a warp a token row).
     "seq_ce_bwd": [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
-                   (3, 40, 1001), (5, 3, 31), (1000, 7, 13), (512, 9, 128), (512, 9, 129)],
+                   (3, 40, 1001), (5, 3, 31), (1000, 7, 13), (512, 9, 128), (512, 9, 129),
+                   (192, 32, 23), (64, 32, 23)],
     # The fused PoE + KL's cases, log-variances at exactly +-11, and
     # MultiMNIST's train step: the text expert at exactly +11 on its last
     # 128 dims (``text``), and a cycle re-read (``cycle``: T = 1, the image
@@ -441,7 +505,8 @@ CHECKED_SHAPES = {
                    (3, 100, 2, 64, "none"), (20, 64, 19, 100, "wide"),
                    (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned"),
                    (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle"),
-                   (3, 100, 2, 100, "eval"), (24, 64, 19, 100, "subsets")],
+                   (3, 100, 2, 100, "eval"), (24, 64, 19, 100, "subsets"),
+                   (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle")],
     # K4's backward (f32): the CelebA train batch; the forward's ragged and
     # odd cases: 37 images, a 25 x 25 grayscale image that pads (1, 2),
     # widths off the 32-pixel tile (35 and 33 outputs), C = 1, 2 and 4, rows
@@ -449,22 +514,31 @@ CHECKED_SHAPES = {
     "conv_bwd": [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1), (4, 30, 70, 3),
                  (2, 10, 66, 3), (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),
                  (2, 7, 1100, 4)],
+    # K4's input gradient (f32): CUB's train batch; odd H and W (bands that
+    # end at the image's last row); a 25 x 25 grayscale image that pads (1,
+    # 2); C = 1, 2 and 4; a second tile of 3 columns; rows of 18 tiles; a
+    # last band of one row; one pixel; the upstream gradient transposed.
+    "conv_dx": [(64, 64, 64, 3), (3, 33, 31, 3), (5, 25, 25, 1), (64, 64, 64, 1),
+                (64, 64, 64, 4), (6, 32, 40, 2), (4, 30, 70, 3), (2, 7, 1100, 4),
+                (2, 18, 10, 3), (1, 1, 1, 3), (64, 64, 64, 3, "transposed"),
+                (3, 33, 31, 3, "transposed")],
 }
 # The (config, timed shape) each kernel's entry of the final line reports:
-# this slice's path (the IWAE) for the kernels it runs -- K2 at CelebA's
-# attributes through the new map, K3 at CUB's captions, the fused PoE + KL
-# at CelebA's 19 experts, K4 in CUB's image encoder -- else the path that
-# runs the kernel.
-_MM_TRAIN = ("multimnist_train", "multimnist_train")
-_CELEBA_TRAIN = ("celeba_train", "celeba_train")
-REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": ("celeba_iwae", "celeba_iwae_attrs"),
-            "seq_ce": ("cub_iwae", "cub_iwae"), "conv": ("cub_iwae", "celeba_eval"),
-            "poe_kl": ("celeba_iwae", "celeba_iwae"), "kl_bwd": ("mnist_train", "mnist_train"),
-            "bce_bwd": ("celeba_train", "celeba_train_image"), "seq_ce_bwd": _MM_TRAIN,
-            "poe_kl_bwd": _CELEBA_TRAIN, "conv_bwd": _CELEBA_TRAIN}
-_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0}
+# this slice's path (CUB training) for the kernels it runs -- K4 and its
+# backward at CUB's train batch, which CelebA's eval and train labels time
+# at the same shape -- else the path that runs the kernel.
+_CUB_TRAIN = ("cub_train", "cub_train")
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": _CUB_TRAIN, "seq_ce": _CUB_TRAIN,
+            "conv": ("cub_train", "celeba_eval"), "poe_kl": _CUB_TRAIN,
+            "kl_bwd": ("mnist_train", "mnist_train"), "bce_bwd": _CUB_TRAIN,
+            "seq_ce_bwd": _CUB_TRAIN, "poe_kl_bwd": _CUB_TRAIN,
+            "conv_bwd": ("cub_train", "celeba_train"), "conv_dx": _CUB_TRAIN}
+_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
+           "conv_dx": 0}
 EXPECTED_LAUNCHES = {
     "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    # As MNIST's: 20 eval batches of 100; the grayscale stage 0 on cuDNN.
+    "fashionmnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
     "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
     # 32 eval batches, each the fused PoE + KL once and K2 twice (image,
     # attributes); K4 once per eval batch and once per generate or sample
@@ -479,6 +553,8 @@ EXPECTED_LAUNCHES = {
     # per caption or digit string, K4 once in an RGB image encoder. 20
     # batches of 100 (MNIST, MultiMNIST), 32 of 64 (CelebA, CUB).
     "mnist_iwae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "fashionmnist_iwae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20,
+                          **_NO_BWD},
     "multimnist_iwae": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
     "celeba_iwae": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 32, "poe_kl": 32, **_NO_BWD},
     "cub_iwae": {"kl": 0, "bce": 32, "seq_ce": 32, "conv": 32, "poe_kl": 32, **_NO_BWD},
@@ -487,7 +563,11 @@ EXPECTED_LAUNCHES = {
     # ELBO, forward only.
     "mnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
                     "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
-                    "conv_bwd": 0},
+                    "conv_bwd": 0, "conv_dx": 0},
+    # As MNIST's: 100 steps of batch 100 (the grayscale convs on cuDNN).
+    "fashionmnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                           "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
+                           "conv_bwd": 0, "conv_dx": 0},
     # 20 train steps, each the fused PoE + KL 3 times (the loss, the cycle's
     # soft and hard re-reads), K2 once (the decode-all pass's images) and K3
     # 3 times (its text, each re-read), and every one's backward kernel as
@@ -495,7 +575,7 @@ EXPECTED_LAUNCHES = {
     # PoE + KL, K2 and K3 once each).
     "multimnist_train": {"kl": 0, "bce": 40, "seq_ce": 80, "conv": 0, "poe_kl": 80,
                          "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 60, "poe_kl_bwd": 60,
-                         "conv_bwd": 0},
+                         "conv_bwd": 0, "conv_dx": 0},
     # 20 train steps (4 random subsets, T = 24), each the fused PoE + KL
     # once, K2 twice (the image's 6 member terms, the attributes' 23) and K4
     # once (stage 0 of the image encoder), and every one's backward kernel as
@@ -503,7 +583,20 @@ EXPECTED_LAUNCHES = {
     # PoE + KL once, K2 twice, K4 once each).
     "celeba_train": {"kl": 0, "bce": 104, "seq_ce": 0, "conv": 52, "poe_kl": 52,
                      "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
-                     "conv_bwd": 20},
+                     "conv_bwd": 20, "conv_dx": 0},
+    # 20 train steps (cross-recon, T = 3, the cycle term on the soft render),
+    # each: the encode (K4 once), the fused PoE + KL at the 3 terms, the
+    # decode-all pass (K2 once on the image, K3 once on the captions), then
+    # the cycle term's render of the caption's unimodal z, its re-encode (K4
+    # again, on the render), the fused PoE + KL at T = 1 and the caption read
+    # back (K3 again): the fused PoE + KL 2, K2 1, K3 2, K4 2. Backward: each
+    # one's backward kernel as often (K4's dW and db twice, the encoders
+    # live on both), and K4's input gradient once, for the re-encode's input
+    # (the encode's input is the data). Then the 32 batches of the test
+    # ELBO, forward only (the fused PoE + KL, K2, K3 and K4 once each).
+    "cub_train": {"kl": 0, "bce": 52, "seq_ce": 72, "conv": 72, "poe_kl": 72,
+                  "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 40, "poe_kl_bwd": 40,
+                  "conv_bwd": 40, "conv_dx": 20},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
@@ -512,7 +605,7 @@ PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_th
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
                 "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel",
-                "conv_s2_bwd_partials_kernel", "conv_s2_bwd_reduce_kernel")
+                "conv_s2_bwd_partials_kernel", "conv_s2_bwd_reduce_kernel", "conv_s2_dx_kernel")
 # The launch count each of them adds to: one wrapper call launches one of
 # its kernels (K4's backward two, its partial sums and their reduction: the
 # count follows the first).
@@ -523,7 +616,7 @@ KERNEL_OP = {"kl_rows_kernel": "kl", "bce_rows_kernel": "bce", "bce_split_kernel
              "kl_rows_grad_kernel": "kl_bwd", "bce_rows_grad_kernel": "bce_bwd",
              "seq_ce_grad_kernel": "seq_ce_bwd", "seq_ce_grad_staged_kernel": "seq_ce_bwd",
              "seq_ce_grad_warp_kernel": "seq_ce_bwd", "poe_kl_bwd_kernel": "poe_kl_bwd",
-             "conv_s2_bwd_partials_kernel": "conv_bwd"}
+             "conv_s2_bwd_partials_kernel": "conv_bwd", "conv_s2_dx_kernel": "conv_dx"}
 PAD = 0
 # Replays (of 20 calls) or eager rounds a kernel timing takes the median of.
 REPS = 15
@@ -543,6 +636,8 @@ def emit(obj: dict) -> None:
 def describe(op: str, shape) -> dict:
     if op == "conv_bwd":
         return {"shape": list(shape)}
+    if op == "conv_dx":
+        return {"shape": list(shape[:4]), "g": shape[4] if len(shape) > 4 else "contiguous"}
     if op == "conv":
         return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
     if op in ("poe_kl", "poe_kl_bwd"):
@@ -575,10 +670,14 @@ def inputs(op: str, shape, gen: torch.Generator):
         return tuple(t.to(dtype) for t in (x, weight, bias))
     if op == "poe_kl":
         return poe_inputs(shape, gen)
-    if op == "conv_bwd":
-        x, weight, bias = inputs("conv", (*shape, torch.float32), gen)
+    if op in ("conv_bwd", "conv_dx"):
+        # K4's input gradient may take its upstream gradient transposed (a
+        # view whose rows are its columns' storage).
+        x, weight, bias = inputs("conv", (*shape[:4], torch.float32), gen)
         b, h, w = shape[:3]
         g = torch.randn(b, kernels.CONV_OUT, -(-h // 2), -(-w // 2), generator=gen, device=dev)
+        if shape[4:] == ("transposed",):
+            g = g.transpose(2, 3).contiguous().transpose(2, 3)
         return (x, weight, bias, g)
     if op == "kl_bwd":
         return (*inputs("kl", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
@@ -674,14 +773,16 @@ KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": bce_kernel,
              "bce_bwd": kernels.bce_rows_grad_kernel,
              "seq_ce_bwd": kernels.masked_seq_ce_grad_kernel,
              "poe_kl_bwd": kernels.poe_kl_grad_kernel,
-             "conv_bwd": kernels.conv4x4s2_swish_grad_kernel}
+             "conv_bwd": kernels.conv4x4s2_swish_grad_kernel,
+             "conv_dx": kernels.conv4x4s2_swish_input_grad_kernel}
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
             "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
             "poe_kl": kernels.poe_kl_torch, "kl_bwd": kernels.kl_rows_grad_torch,
             "bce_bwd": kernels.bce_rows_grad_torch,
             "seq_ce_bwd": kernels.masked_seq_ce_grad_torch,
             "poe_kl_bwd": kernels.poe_kl_grad_torch,
-            "conv_bwd": kernels.conv4x4s2_swish_grad_torch}
+            "conv_bwd": kernels.conv4x4s2_swish_grad_torch,
+            "conv_dx": kernels.conv4x4s2_swish_input_grad_torch}
 
 
 def library_fn(op: str, args):
@@ -705,7 +806,7 @@ def library_fn(op: str, args):
         x, weight, bias = args
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
-    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd"):
+    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx"):
         return autograd_backward(op, args)
     return None
 
@@ -730,6 +831,14 @@ def autograd_backward(op: str, args):
         leaves = (weight.detach().requires_grad_(True), bias.detach().requires_grad_(True))
         outs = (F.silu(F.conv2d(x_nchw, *leaves, stride=2, padding=1)),)
         grads = (g,)
+    elif op == "conv_dx":
+        # cuDNN's dgrad and the silu's backward, for the image alone (XLA's
+        # SAME pad, which is asymmetric at odd sizes, as an F.pad).
+        x, weight, bias, g = args
+        leaves = (x.permute(0, 3, 1, 2).contiguous().requires_grad_(True),)
+        padded = F.pad(leaves[0], kernels.same_pad(x.shape[1:3]))
+        outs = (F.silu(F.conv2d(padded, weight, bias, stride=2)),)
+        grads = (g,)
     elif op == "seq_ce_bwd":
         logits, tokens, pad, g = args
         n, s, v = logits.shape
@@ -751,12 +860,16 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     atol per unit of the largest gradient; for K4's backward, atol 1e-6
     times the B * ceil(H/2) * ceil(W/2) terms each entry of dW and db sums
     (each below 1 in size: an image in [0, 1] times g * swish'), in another
-    order than the plain version's batched product."""
+    order than the plain version's batched product; for K4's input
+    gradient, atol 1e-6 times the 4 taps x 32 channels each entry of dx
+    sums (each below 1 in size: g * swish' times a weight)."""
     if op in ("kl_bwd", "bce_bwd", "seq_ce_bwd"):
         return 1e-5, 1e-6
     if op == "conv_bwd":
         b, h, w = shape[:3]
         return 1e-5, 1e-6 * b * -(-h // 2) * -(-w // 2)
+    if op == "conv_dx":
+        return 1e-5, 1e-6 * 4 * kernels.CONV_OUT
     if op == "poe_kl_bwd":
         return 1e-5, 1e-5 * shape[0]
     if op == "poe_kl":
@@ -789,6 +902,18 @@ def bound(op: str, args) -> tuple[float, str]:
                  + counts["out"] * t * b * l)
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = n_ops / PEAK_OPS_PER_S[torch.float32]
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    if op == "conv_dx":
+        # x, g, the weight and bias read; dx written. Per (output pixel,
+        # channel): pre recomputed and dx's share, 16 C multiply-adds each
+        # in f32 on the CUDA cores, and CONV_BWD_OPS_PER_OUT for swish' and
+        # the product with g.
+        x, weight, bias, g = args
+        c = x.shape[3]
+        n_bytes = 4 * (2 * x.numel() + g.numel() + weight.numel() + bias.numel())
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = ((2 * 2 * 16 * c + CONV_BWD_OPS_PER_OUT) * g.numel()
+                 / PEAK_OPS_PER_S[torch.float32])
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv_bwd":
         # x, g, the weight and bias read; dW and db written. Per (output
@@ -918,6 +1043,8 @@ def phase_check() -> dict[str, float]:
             if op == "conv_bwd" and not all(
                     torch.equal(a, b) for a, b in zip(got, KERNEL_FN[op](*args))):
                 raise AssertionError("two launches of conv4x4s2_swish_bwd differ")
+            if op == "conv_dx" and not torch.equal(got, KERNEL_FN[op](*args)):
+                raise AssertionError("two launches of conv4x4s2_swish_dx differ")
             max_err[op] = max(max_err[op], err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
@@ -1027,6 +1154,21 @@ def phase_main_path() -> dict[str, dict[str, int]]:
             raise AssertionError("generated label out of range")
     card_vs_cpu("mnist", 250, labels, outs["generate"])
 
+    images = {"image": load_dataset("fashionmnist", "test", n=3).arrays["image"]}
+    outs, fashionmnist = drive("fashionmnist", {
+        "from_labels": lambda m: api.generate("fashionmnist", labels, model=m),
+        "from_images": lambda m: api.generate("fashionmnist", images, model=m),
+        "sample": lambda m: api.sample("fashionmnist", n=64, model=m, generator=gen),
+    })
+    if fashionmnist != EXPECTED_LAUNCHES["fashionmnist"]:
+        raise AssertionError(f"fashionmnist: expected launches "
+                             f"{EXPECTED_LAUNCHES['fashionmnist']}, got {fashionmnist}")
+    for out, n in ((outs["from_labels"], 3), (outs["from_images"], 3), (outs["sample"], 64)):
+        check_image(out["image"], n, (28, 28))
+        if not (out["label"].min() >= 0 and out["label"].max() < 10):
+            raise AssertionError("generated label out of range")
+    card_vs_cpu("fashionmnist", 250, images, outs["from_images"])
+
     data = load_dataset("multimnist", "test", n=3).arrays
     text = {"text": data["text"]}
     outs, multimnist = drive("multimnist", {
@@ -1083,7 +1225,8 @@ def phase_main_path() -> dict[str, dict[str, int]]:
           "from_text": outs["from_text"]["text"].tolist(),
           "from_image": outs["from_image"]["text"].tolist()})
     card_vs_cpu("cub", 128, captions, outs["from_text"])
-    return {"mnist": mnist, "multimnist": multimnist, "celeba": celeba, "cub": cub}
+    return {"mnist": mnist, "fashionmnist": fashionmnist, "multimnist": multimnist,
+            "celeba": celeba, "cub": cub}
 
 
 IWAE_CPU_EXAMPLES, IWAE_CPU_BATCH = 10, 4  # three batches, the last half pad
@@ -1530,94 +1673,219 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
 
 
 CELEBA_TRAIN_SIZE = 1280  # one epoch of 20 steps of batch 64
+CUB_TRAIN_SIZE = 1280  # one epoch of 20 steps of batch 64
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (``torch.use_deterministic_algorithms``, warning where
+    an op has none): the caption embedding's gradient is summed with
+    atomics otherwise, and CUB's steps then differ run to run in its
+    last bits."""
+    saved = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+
+
+def train_phase(cfg, profiled_steps: int) -> tuple[dict[str, int], int]:
+    """``api.train`` of ``cfg`` (one epoch) on the graph runners with the
+    launch counts through the replays, its first-epoch test ELBO gated
+    below the untrained model's, and the epoch's graph against its eager
+    loop on deterministic algorithms (``deterministic``; gated at rel 1e-6:
+    cuDNN's default algorithms may sum in another order run to run), the masks,
+    noise and dropout drawn inside the steps; then both on cuDNN's default
+    algorithms timed in turns and profiled (``train_rate``). Returns the
+    counts and the steps of an epoch."""
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    result, launches, wall_s = train_counted(cfg)
+    record = result.history[0]
+    steps = cfg.train_size // cfg.batch_size
+    emit({"phase": "train", "config": cfg.name, "epochs": 1, "steps": result.state.step,
+          "train_size": cfg.train_size, "n_random_subsets": cfg.n_random_subsets,
+          **{k: v for k, v in record.items() if k != "epoch"},
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if result.state.step != steps or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"{cfg.name} train: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"{cfg.name} train: test ELBO {record['test_elbo']} not below the untrained "
+            f"{untrained}")
+    batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config=cfg.dataset)
+    with deterministic():
+        _, _, runs = first_epochs(cfg, batches)
+    compared = graph_vs_eager(runs)
+    emit({"phase": "train_graph_vs_eager", "config": cfg.name, "steps": steps,
+          "batch": cfg.batch_size, "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True,
+          **compared})
+    if not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
+        raise AssertionError(f"{cfg.name}: graph and eager epochs differ: {compared}")
+    train_rate(cfg, steps, rounds=1, profiled_steps=profiled_steps, gate=False)
+    return launches, steps
 
 
 def phase_celeba_train() -> dict[str, int]:
     """``api.train`` of ``celeba`` (4 random subsets, T = 24, clipping at
     500; K4 and its backward kernel in stage 0) for one epoch at full width
-    over a train split cut to 1,280 examples on the graph runners (the
-    launch counts through the replays, and the profiler's); then the graph
-    against the eager loop over an epoch on cuDNN's deterministic
-    algorithms (gated at rel 1e-6), both on its default ones timed in turns
-    (``train_rate``), a profiled step and the card against the CPU over
-    three steps."""
+    over a train split cut to 1,280 examples (``train_phase``), then the
+    card against the CPU over three steps."""
     cfg = configs.get_config("celeba").replace(epochs=1, train_size=CELEBA_TRAIN_SIZE)
-    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
-    result, launches, wall_s = train_counted(cfg)
-    record = result.history[0]
-    steps = CELEBA_TRAIN_SIZE // cfg.batch_size
-    emit({"phase": "train", "config": "celeba", "epochs": 1, "steps": result.state.step,
-          "train_size": CELEBA_TRAIN_SIZE, "n_random_subsets": cfg.n_random_subsets,
-          "train_loss": record["train_loss"], "test_elbo": record["test_elbo"],
-          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
-    if result.state.step != steps or not all(map(math.isfinite, record.values())):
-        raise AssertionError(f"celeba train: {result.state.step} steps, history {record}")
-    if not record["test_elbo"] < untrained:
-        raise AssertionError(
-            f"celeba train: test ELBO {record['test_elbo']} not below the untrained {untrained}")
-    # cuDNN's default algorithms (the deconv decoder's backward) may sum in
-    # another order run to run: the gate is the same epoch on its
-    # deterministic ones, the masks and the noise drawn inside the steps.
-    batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config="celeba")
-    torch.backends.cudnn.deterministic = True
-    try:
-        _, _, runs = first_epochs(cfg, batches)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    compared = graph_vs_eager(runs)
-    emit({"phase": "train_graph_vs_eager", "config": "celeba", "steps": steps,
-          "batch": cfg.batch_size, "cudnn": "deterministic algorithms", "gated": True,
-          **compared})
-    if not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
-        raise AssertionError(f"celeba: graph and eager epochs differ: {compared}")
-    train_rate(cfg, steps, rounds=1, profiled_steps=10, gate=False)
-    celeba_card_vs_cpu(cfg)
+    launches, _ = train_phase(cfg, profiled_steps=10)
+    conv_card_vs_cpu(cfg)
     return launches
 
 
-def celeba_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16) -> None:
-    """``n_steps`` of the ``celeba`` step at full width and batch ``bs`` on
-    the card (the graph runner, its kernels) and on the CPU (the eager
-    loop) from the same seeded weights, batches, random subset masks and
-    noise (passed in), under ``train_card_vs_cpu``'s gates (rel 1e-4). The
-    card runs cuDNN's deterministic algorithms, so the reading repeats.
-    Reported beside the gates: the parameters with the largest update error
-    and, for the worst, how many of its components differ by more than half
-    the learning rate (Adam's sign of a gradient component at its rounding
-    level), the share of its squared error in its 1% largest differences,
-    and the CPU's median update there and over the tensor (whether small or
-    large components carry the error)."""
-    n_mod, k = 19, cfg.n_random_subsets
-    batches = train_batches(n_steps, bs, "cpu", seed=2, config="celeba")
+def phase_cub_train() -> dict[str, int]:
+    """``api.train`` of ``cub`` (cross-recon, the cycle term at weight 0.1
+    on the soft render, its image decoder live on the render; K4 on the
+    encode and on the cycle's re-encode, its backward twice and its input
+    gradient once a step) for one epoch at full width over a train split
+    cut to 1,280 examples (``train_phase``); the step's caption experts
+    (the GRUs) timed alone (``gru_step_ms``); then the card against the CPU
+    over three steps."""
+    cfg = configs.get_config("cub").replace(epochs=1, train_size=CUB_TRAIN_SIZE)
+    launches, _ = train_phase(cfg, profiled_steps=10)
+    model = configs.build_model(cfg, seed=0)
+    batch = {k: v[0] for k, v in train_batches(1, cfg.batch_size, "cuda", config="cub").items()}
+    emit({"phase": "train_gru", "config": "cub", "batch": cfg.batch_size,
+          "gru_device_ms_per_step": gru_step_ms(model, batch, terms=3)})
+    conv_card_vs_cpu(cfg, feed_tail=True)
+    return launches
+
+
+def phase_fashionmnist_train() -> dict[str, int]:
+    """``api.train`` of ``fashionmnist`` for one epoch at full width (100
+    steps of batch 100 over the 10,000-example train split; the grayscale
+    convs on cuDNN), under ``mnist``'s gates (``train_phase``), then the
+    card against the CPU over three steps at batch 100."""
+    cfg = configs.get_config("fashionmnist").replace(epochs=1)
+    launches, _ = train_phase(cfg, profiled_steps=20)
+    conv_card_vs_cpu(cfg, bs=100, feed_tail=True)
+    return launches
+
+
+def gru_step_ms(model, batch: dict, terms: int) -> float:
+    """Device time of the caption experts' work in one CUB train step,
+    forward and backward, graph-replayed: the encoder on the batch's
+    captions twice (the encode and the cycle's re-encode), the decoder
+    teacher-forced on the decode-all pass's ``terms`` x B rows and on the
+    cycle's read-back of B, each gradient in the experts' weights and the
+    decoders' latent inputs taken."""
+    text = batch["text"]
+    b = text.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    z_all = torch.randn(terms * b, model.n_latents, generator=gen, device="cuda")
+    z_one = torch.randn(b, model.n_latents, generator=gen, device="cuda")
+    tiled = kernels.tile_rows(text, terms * b, kernels.FOLD_T)
+    weights = [*model.text_enc.parameters(), *model.text_dec.parameters()]
+
+    def call():
+        leaves = (z_all.requires_grad_(True), z_one.requires_grad_(True))
+        outs = (*model.text_enc(text), *model.text_enc(text),
+                model.text_dec(leaves[0], tiled), model.text_dec(leaves[1], text))
+        torch.autograd.grad(sum(o.sum() for o in outs), [*leaves, *weights])
+
+    return device_ms(call, inner=3)
+
+
+# Adam's eps (``create_train_state``); a gradient component below 9 eps has
+# not saturated Adam's normalisation g / (|g| + eps) (its first update is
+# under 0.9 lr), so its update follows the bits of a gradient at rounding
+# level: ``conv_card_vs_cpu`` feeds the card's value of such a component to
+# the CPU.
+ADAM_EPS = 1e-8
+TAIL_BELOW = 9 * ADAM_EPS
+
+
+def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = False) -> None:
+    """``n_steps`` of ``cfg``'s step at full width and batch ``bs`` on the
+    card (the graph runner, its kernels) and on the CPU (the eager loop)
+    from the same seeded weights, batches, random subset masks (where the
+    config draws them) and noise (passed in), under ``train_card_vs_cpu``'s
+    gates (rel 1e-4). The card runs deterministic algorithms
+    (``deterministic``), so the reading repeats. Reported beside the gates:
+    the parameters with the largest update error and, for the worst, how many of its components
+    differ by more than half the learning rate (Adam's sign of a gradient
+    component at its rounding level), the share of its squared error in its
+    1% largest differences, and the CPU's median update there and over the
+    tensor (whether small or large components carry the error).
+
+    ``feed_tail``: the gradient components the card computes below
+    TAIL_BELOW (CUB's and FashionMNIST's encoder heads hold whole rows of
+    them at the first step, where beta is 0 and a latent dimension's fused
+    variance is tiny: their f32 bits differ between any two summation
+    orders, and Adam's normalisation turns that into up to 0.1 lr) are
+    handed to the CPU's Adam from an eager card run, as the card's render
+    mask is handed to the CPU for MultiMNIST; the graph runner is gated
+    against that eager run at rel 1e-6. Reported: the components fed each
+    step and, ungated, the reading without feeding."""
+    n_mod, k = configs.build_model(cfg, seed=0, device="cpu").n_modalities, cfg.n_random_subsets
+    batches = train_batches(n_steps, bs, "cpu", seed=2, config=cfg.dataset)
     gen = torch.Generator().manual_seed(3)
-    batches["subset_masks"] = (torch.rand((n_steps, k, n_mod), generator=gen) < 0.5).float()
+    if k:
+        batches["subset_masks"] = (torch.rand((n_steps, k, n_mod), generator=gen) < 0.5).float()
     batches["eps"] = torch.randn((n_steps, 1 + n_mod + k, bs, cfg.n_latents), generator=gen)
     init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        torch.backends.cudnn.deterministic = dev == "cuda"
-        try:
+
+    def run(dev: str, graph: bool, record: list | None = None, fed: list | None = None):
+        """Losses, raw gradient norms and parameters after ``n_steps``;
+        each step's gradients go to ``record``; ``fed`` (per step, the
+        card's gradients) sets the components below TAIL_BELOW."""
+        with deterministic(dev == "cuda"):
             model = configs.build_model(cfg, seed=0, device=dev)
             state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
-            runner = make_epoch_runner(model, graph=dev == "cuda", annealing_steps=1000,
+            apply = state.apply_gradients
+            steps = iter(fed) if fed is not None else None
+
+            def apply_gradients():
+                named = list(model.named_parameters())
+                if record is not None:
+                    record.append({n: p.grad.detach().cpu().clone() for n, p in named})
+                if steps is not None:
+                    card = next(steps)
+                    for n, p in named:
+                        tail = card[n].abs() < TAIL_BELOW
+                        p.grad[tail] = card[n][tail]
+                apply()
+
+            state.apply_gradients = apply_gradients
+            runner = make_epoch_runner(model, graph=graph, annealing_steps=1000,
                                        **api.step_options(cfg))
             _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
-        finally:
-            torch.backends.cudnn.deterministic = False
-        runs[dev] = (*run_metrics(metrics),
-                     {k: p.detach().cpu() for k, p in model.named_parameters()})
-    card, cpu = runs["cuda"], runs["cpu"]
+        return (*run_metrics(metrics), {k: p.detach().cpu() for k, p in model.named_parameters()})
+
+    card_grads = []
+    card = run("cuda", graph=True)
+    extra = {}
+    if feed_tail:
+        eager = run("cuda", graph=False, record=card_grads)
+        graph_eager = compare_runs(card, eager, init)
+        emit({"phase": "train_graph_vs_eager", "config": cfg.name, "steps": n_steps, "batch": bs,
+              "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True, **graph_eager})
+        if not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
+                   graph_eager["param_rel_max"]) <= 1e-6:
+            raise AssertionError(f"{cfg.name}: graph and eager steps differ: {graph_eager}")
+        extra = {"tail_fed_per_step": [int(sum((g.abs() < TAIL_BELOW).sum() for g in step.values()))
+                                       for step in card_grads],
+                 "tail_below": TAIL_BELOW,
+                 "unfed_control": compare_runs(card, run("cpu", graph=False), init)}
+    cpu = run("cpu", graph=False, fed=card_grads if feed_tail else None)
     gated = compare_runs(card, cpu, init)
     worst = gated["update_rel_top"][0][0]
     diff = (card[2][worst] - cpu[2][worst]).abs().flatten()
     update = (cpu[2][worst] - init[worst].detach()).abs().flatten()
     top = diff.argsort(descending=True)[: max(1, diff.numel() // 100)]
-    conv0 = "image_enc.convs.0.weight"  # K4's weight: its gradient is conv4x4s2_swish_bwd's
-    emit({"phase": "train_card_vs_cpu", "config": "celeba", "steps": n_steps, "batch": bs,
+    conv0 = "image_enc.convs.0.weight"  # K4's weight on RGB: conv4x4s2_swish_bwd's gradient
+    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "steps": n_steps, "batch": bs,
           "card": "graph runner", "cpu": "eager loop", "loss_card": card[0], "loss_cpu": cpu[0],
-          "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated,
-          "update_rel_k4_weight": ((card[2][conv0] - cpu[2][conv0]).norm()
-                                   / (cpu[2][conv0] - init[conv0].detach()).norm()).item(),
+          "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated, **extra,
+          "update_rel_conv0_weight": ((card[2][conv0] - cpu[2][conv0]).norm()
+                                      / (cpu[2][conv0] - init[conv0].detach()).norm()).item(),
           "worst_tensor": {
               "name": worst, "numel": diff.numel(), "max_abs_diff": diff.max().item(),
               "components_over_half_lr": int((diff > 0.5 * cfg.learning_rate).sum()),
@@ -1626,7 +1894,7 @@ def celeba_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16) -> None:
               "update_median": update.median().item()}})
     if not max(max(gated["loss_rel"]), max(gated["grad_norm_rel"]), gated["param_rel_max"],
                gated["update_rel_max"]) <= 1e-4:
-        raise AssertionError(f"celeba train: card and CPU differ: {gated}")
+        raise AssertionError(f"{cfg.name} train: card and CPU differ: {gated}")
 
 
 def phase_workdir() -> None:
@@ -1886,6 +2154,25 @@ def phase_iwae_wall(config: str) -> None:
     emit_graph_profile("iwae_profile", config, runners["graph"], stacked, walls)
 
 
+# Device events by family, in this order of tests: the port's kernels;
+# cuDNN's convolutions (fprop, dgrad, wgrad and their layout transposes);
+# the matrix products (cuBLAS, the GRU's and the dense layers'); copies and
+# fills; the rest (elementwise, reductions, the optimizer).
+FAMILIES = ("port", "cudnn_conv", "gemm", "copy", "other")
+
+
+def kernel_family(key: str) -> str:
+    if any(n in key for n in PORT_KERNELS):
+        return "port"
+    if re.search(r"fprop|dgrad|wgrad|cudnn|[Cc]onv|nchwToNhwc|nhwcToNchw", key):
+        return "cudnn_conv"
+    if re.search(r"gemm|Gemm|GEMM|cublas|cutlass", key):
+        return "gemm"
+    if re.search(r"Memcpy|Memset", key):
+        return "copy"
+    return "other"
+
+
 def profile_summary(fn) -> dict:
     """Where the device time of one call of ``fn`` goes: its wall (to a
     sync), device busy time with and without every host-to-device copy, the
@@ -1917,6 +2204,9 @@ def profile_summary(fn) -> dict:
     # profiler counts the pageable upload in some evals and not others.
     h2d = sum(r[0] for r in rows if "HtoD" in r[1])
     port_launches = {k: 0 for k in kernels.LAUNCHES}
+    by_family = {family: 0.0 for family in FAMILIES}
+    for us, key, _ in rows:
+        by_family[kernel_family(key)] += us
     for _, key, count in rows:
         for name, op in KERNEL_OP.items():
             if re.search(rf"\b{name}\b", key):
@@ -1933,6 +2223,7 @@ def profile_summary(fn) -> dict:
         "port_kernels": [{"name": k[:80], "device_us": us, "count": c}
                          for us, k, c in rows if any(n in k for n in PORT_KERNELS)],
         "port_launches": port_launches,
+        "device_busy_by_family_us": by_family if busy else "not measured",
     }
 
 
@@ -1942,6 +2233,10 @@ def main() -> None:
     def timed(name: str, phase, *args):
         start = time.perf_counter()
         out = phase(*args)
+        # A phase's runners hold captured graphs in reference cycles; their
+        # private memory pools go back to the card only once collected.
+        gc.collect()
+        torch.cuda.empty_cache()
         seconds[name] = time.perf_counter() - start
         return out
 
@@ -1952,6 +2247,8 @@ def main() -> None:
     launches["mnist_train"] = timed("train", phase_train)
     launches["multimnist_train"] = timed("multimnist_train", phase_multimnist_train)
     launches["celeba_train"] = timed("celeba_train", phase_celeba_train)
+    launches["cub_train"] = timed("cub_train", phase_cub_train)
+    launches["fashionmnist_train"] = timed("fashionmnist_train", phase_fashionmnist_train)
     timed("workdir", phase_workdir)
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)

@@ -6,10 +6,11 @@ repository as the reference; this package imports nothing of it. Ported so
 far: inference -- :func:`mmvae_torch.api.eval_elbo`,
 :func:`~mmvae_torch.api.log_likelihood` (the IWAE estimate of log p(x)),
 :func:`~mmvae_torch.api.generate` and :func:`~mmvae_torch.api.sample` --
-of the ``mnist``, ``multimnist``, ``celeba`` and ``cub`` configs, and
-training (:func:`~mmvae_torch.api.train`) of all but ``cub``. On the card the KL and BCE row
-reductions and their gradients run in ``ops/csrc/row_reduce.cu``, the
-product of experts with its KL and its backward in ``ops/csrc/poe_kl.cu``,
-the masked sequence cross-entropy in ``ops/csrc/seq_ce.cu`` and the RGB
-image encoder's first conv stage in ``ops/csrc/conv_s2.cu``.
+and training (:func:`~mmvae_torch.api.train`) of the ``mnist``,
+``fashionmnist``, ``multimnist``, ``celeba`` and ``cub`` configs. On the
+card the KL and BCE row reductions and their gradients run in
+``ops/csrc/row_reduce.cu``, the product of experts with its KL and its
+backward in ``ops/csrc/poe_kl.cu``, the masked sequence cross-entropy and
+its gradient in ``ops/csrc/seq_ce.cu``, and the RGB image encoder's first
+conv stage with its gradients in ``ops/csrc/conv_s2.cu``.
 """

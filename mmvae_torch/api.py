@@ -286,11 +286,6 @@ def train(
     """
     if isinstance(config, str):
         config = get_config(config)
-    if config.dataset == "cub":
-        raise NotImplementedError(
-            "training the 'cub' config is not yet ported to mmvae_torch (its cycle term "
-            "re-encodes a rendered image, and K4 has no input gradient yet)"
-        )
     device = resolve_device(device)
     if workdir is not None:
         _save_run_config(workdir, config)

@@ -1,14 +1,13 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-Only the ``mnist``, ``multimnist``, ``celeba`` and ``cub`` configs; the
-other experiments raise until their slice lands. The fields are those the
-inference slices, the MNIST, MultiMNIST and CelebA training slices and
-the checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``); every config here but
-``cub`` trains with ``api.train`` (``cub``'s cycle term needs K4's input
-gradient, not ported yet). The JAX configs' other knobs (gradient
-accumulation, LR schedules, shuffle modes, the data backends, mesh
-layouts, ``cross_recon_stopgrad``, ``unimodal_align_weight``,
+The ``mnist``, ``fashionmnist``, ``multimnist``, ``celeba`` and ``cub``
+configs; the ``deep_*`` pipeline variants raise until their slice lands.
+The fields are those the inference slices, the training slices and the
+checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
+defaults (``mmvae_tpu/configs.py:30-175``); every config here trains with
+``api.train``. The JAX configs' other knobs (gradient accumulation, LR
+schedules, shuffle modes, the data backends, mesh layouts,
+``cross_recon_stopgrad``, ``unimodal_align_weight``,
 ``cycle_contrast_weight``) are left out until a slice reads them. Eval
 pins ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 """
@@ -23,7 +22,7 @@ import torch
 
 from mmvae_torch.data.synthetic import cub_vocab
 from mmvae_torch.device import resolve_device
-from mmvae_torch.models import CelebAMVAE, CubMVAE, MnistMVAE, MultiMnistMVAE
+from mmvae_torch.models import CelebAMVAE, CubMVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE
 
 __all__ = [
     "ExperimentConfig",
@@ -82,6 +81,11 @@ CONFIGS: dict[str, ExperimentConfig] = {
     "mnist": ExperimentConfig(
         name="mnist", dataset="mnist", n_latents=64, annealing_epochs=10,
     ),
+    # FashionMNIST image + label: conv image expert (32, 64) over 28x28
+    # grayscale, deconv decoder, label expert (``mmvae_tpu/configs.py:199-201``).
+    "fashionmnist": ExperimentConfig(
+        name="fashionmnist", dataset="fashionmnist", n_latents=64,
+    ),
     # MultiMNIST image + digit string: conv image expert over the 50x50
     # canvas, GRU text expert, a text expert limited to the first 128
     # latent dims (``mmvae_tpu/configs.py:223-234``).
@@ -104,8 +108,8 @@ CONFIGS: dict[str, ExperimentConfig] = {
         n_random_subsets=4, grad_clip=500.0,
     ),
     # CUB image + caption: conv image expert over 64x64 RGB, GRU caption
-    # experts, batch 64, cross-recon and a low-weight cycle term
-    # (``mmvae_tpu/configs.py:249-253``). Inference only so far.
+    # experts, batch 64, cross-recon and a low-weight cycle term with a
+    # live soft render (``mmvae_tpu/configs.py:249-253``).
     "cub": ExperimentConfig(
         name="cub", dataset="cub", n_latents=256, batch_size=64,
         cross_recon=True, epochs=60, train_size=16000,
@@ -115,11 +119,12 @@ CONFIGS: dict[str, ExperimentConfig] = {
 
 _MODEL_CLASSES = {
     "mnist": MnistMVAE,
+    "fashionmnist": FashionMnistMVAE,
     "multimnist": MultiMnistMVAE,
     "celeba": CelebAMVAE,
     "cub": CubMVAE,
 }
-_NOT_PORTED = ("deep_mnist", "fashionmnist", "deep_cub")
+_NOT_PORTED = ("deep_mnist", "deep_cub")
 
 
 def get_config(name: str) -> ExperimentConfig:

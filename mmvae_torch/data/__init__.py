@@ -6,6 +6,7 @@ from mmvae_torch.data.synthetic import (
     cub_vocab,
     make_celeba,
     make_cub,
+    make_fashionmnist,
     make_mnist,
     make_multimnist,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "load_dataset",
     "stacked_epoch_padded",
     "make_mnist",
+    "make_fashionmnist",
     "make_multimnist",
     "make_celeba",
     "make_cub",

@@ -20,11 +20,11 @@ __all__ = ["Dataset", "load_dataset", "stacked_epoch_padded"]
 
 _GENERATORS = {
     "mnist": synthetic.make_mnist,
+    "fashionmnist": synthetic.make_fashionmnist,
     "multimnist": synthetic.make_multimnist,
     "celeba": synthetic.make_celeba,
     "cub": synthetic.make_cub,
 }
-_NOT_PORTED = ("fashionmnist",)
 # Datasets the JAX loader draws from its C++ generators under
 # MMVAE_DATAGEN=native (not bit-identical to the numpy ones).
 _NATIVE = ("multimnist", "celeba")
@@ -54,8 +54,6 @@ def load_dataset(
     ``$MMVAE_DATA_DIR/<name>/`` is a directory (the distribution formats),
     or ``MMVAE_DATAGEN=native`` selects the C++ generator of ``name``.
     """
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"dataset {name!r} is not yet ported to mmvae_torch")
     if name not in _GENERATORS:
         raise ValueError(f"unknown dataset {name!r}; have {list(_GENERATORS)}")
     if split not in SPLIT_SEEDS:

@@ -1,7 +1,8 @@
-"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-83, :146-356``).
+"""Seeded synthetic data (port of ``mmvae_tpu/data/synthetic.py:31-356``).
 
 numpy generators whose cross-modal structure is learnable: an MNIST image
-is a jittered glyph of its paired label plus noise; a MultiMNIST canvas
+is a jittered glyph of its paired label plus noise; a FashionMNIST image
+is its label's garment silhouette, shifted, scaled and noised; a MultiMNIST canvas
 composites 1-4 glyphs left to right and its text is their digit string; a
 CelebA face is drawn procedurally, each of its 18 attributes changing a
 visible feature; a CUB bird's color, wing size and beak length are drawn
@@ -18,8 +19,8 @@ import numpy as np
 from mmvae_torch.data.vocab import Vocab
 from mmvae_torch.models.text import PAD, STOP
 
-__all__ = ["make_mnist", "make_multimnist", "make_celeba", "make_cub", "cub_vocab",
-           "CELEBA_ATTRS"]
+__all__ = ["make_mnist", "make_fashionmnist", "make_multimnist", "make_celeba", "make_cub",
+           "cub_vocab", "CELEBA_ATTRS"]
 
 # 5x7 bitmap font for digits 0-9 (rows top->bottom).
 _DIGIT_FONT = np.array(
@@ -73,6 +74,68 @@ def make_mnist(n: int, seed: int = 0) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, 10, size=n).astype(np.int32)
     return {"image": _render_digits(labels, rng), "label": labels}
+
+
+def _garment_masks(hw: int = 28) -> np.ndarray:
+    """(10, hw, hw) distinct procedural garment-ish silhouettes."""
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / (hw - 1)
+    masks = np.zeros((10, hw, hw), np.float32)
+    masks[0] = ((abs(xx - 0.5) < 0.3) & (yy > 0.2) & (yy < 0.8)).astype(
+        np.float32
+    )  # t-shirt body
+    masks[0] += ((abs(xx - 0.5) < 0.48) & (yy > 0.2) & (yy < 0.35)).astype(
+        np.float32
+    )  # sleeves
+    masks[1] = (
+        ((abs(xx - 0.35) < 0.1) | (abs(xx - 0.65) < 0.1)) & (yy > 0.15)
+    ).astype(np.float32)  # trousers
+    masks[2] = ((abs(xx - 0.5) < 0.35) & (yy > 0.15) & (yy < 0.85)).astype(
+        np.float32
+    )  # pullover (wide)
+    masks[3] = (
+        (abs(xx - 0.5) < 0.15 + 0.3 * yy) & (yy > 0.1) & (yy < 0.9)
+    ).astype(np.float32)  # dress (flared)
+    masks[4] = ((abs(xx - 0.5) < 0.4) & (yy > 0.1) & (yy < 0.95)).astype(
+        np.float32
+    ) * (0.6 + 0.4 * (xx < 0.5))  # coat (asymmetric shading)
+    masks[5] = ((yy > 0.6) & (yy < 0.75) & (xx > 0.1) & (xx < 0.9)).astype(
+        np.float32
+    )  # sandal (flat strip)
+    masks[6] = masks[0] * (0.5 + 0.5 * ((yy * 14).astype(int) % 2))  # shirt
+    masks[7] = (
+        ((yy > 0.55) & (yy < 0.8) & (xx > 0.05) & (xx < 0.85))
+        & ((yy - 0.55) < 0.25 * (1 - xx))
+    ).astype(np.float32) + ((yy > 0.7) & (yy < 0.8)).astype(
+        np.float32
+    ) * 0.5  # sneaker (wedge)
+    masks[8] = ((abs(xx - 0.5) < 0.3) & (abs(yy - 0.6) < 0.25)).astype(
+        np.float32
+    ) + ((abs(xx - 0.5) < 0.15) & (abs(yy - 0.25) < 0.12)).astype(
+        np.float32
+    )  # bag + handle
+    masks[9] = (
+        ((abs(xx - 0.4) < 0.12) & (yy > 0.15) & (yy < 0.8))
+        | ((yy > 0.65) & (yy < 0.8) & (xx > 0.28) & (xx < 0.8))
+    ).astype(np.float32)  # boot
+    return np.clip(masks, 0.0, 1.0)
+
+
+def make_fashionmnist(n: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """FashionMNIST-shaped pairs: one of 10 garment silhouettes, shifted by
+    up to 2 px, scaled in brightness and noised (image (n,28,28) f32 in
+    [0,1]), and its label (n,) i32."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    templates = _garment_masks()
+    imgs = templates[labels]
+    bright = rng.uniform(0.6, 1.0, size=(n, 1, 1)).astype(np.float32)
+    shift_y = rng.integers(-2, 3, size=n)
+    shift_x = rng.integers(-2, 3, size=n)
+    out = np.empty_like(imgs)
+    for i in range(n):
+        out[i] = np.roll(imgs[i], (shift_y[i], shift_x[i]), axis=(0, 1))
+    out = out * bright + rng.normal(0, 0.03, out.shape).astype(np.float32)
+    return {"image": np.clip(out, 0, 1), "label": labels}
 
 
 def make_multimnist(n: int, seed: int = 0, hw: int = 50, max_digits: int = 4):

@@ -9,19 +9,20 @@ against).
 
 Gradients. ``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce``,
 ``poe_kl`` and ``conv4x4s2_swish`` are ``torch.autograd.Function``s on
-both paths: their backward runs the backward kernel where the forward ran
-a kernel (``kl_rows_grad``, ``bce_rows_grad``, ``seq_ce_rows_grad``,
-``poe_kl_bwd``, ``conv4x4s2_swish_bwd``) and its plain version where the
-forward ran the plain one, with the analytic VJPs of the TPU kernels
-(``_kl_bwd``; ``_bce_bwd``: dlogits = g * (sigmoid(l) - x);
-``_seq_ce_bwd``: dlogits = g * (softmax(l) - onehot(token)) on the non-pad
-tokens) and, for the conv, the gradient XLA takes of stage 0 (dW and db
-from ``g * swish'(pre)``, ``pre`` recomputed). The targets of
-``bernoulli_nll`` get dx = -g * l, and the image of ``conv4x4s2_swish``
-its dx, on the plain path only; the kernel path raises when they require
-grad. The tokens of ``masked_seq_ce`` get no gradient. ``poe_kl``
-differentiates the expert stack only and raises on both paths when
-``masks`` or ``presence`` requires grad.
+both paths: their backward runs the backward kernels where the forward
+ran a kernel (``kl_rows_grad``, ``bce_rows_grad``, ``seq_ce_rows_grad``,
+``poe_kl_bwd``, ``conv4x4s2_swish_bwd`` and ``conv4x4s2_swish_dx``) and
+their plain versions where the forward ran the plain one, with the
+analytic VJPs of the TPU kernels (``_kl_bwd``; ``_bce_bwd``: dlogits = g *
+(sigmoid(l) - x); ``_seq_ce_bwd``: dlogits = g * (softmax(l) -
+onehot(token)) on the non-pad tokens) and, for the conv, the gradient XLA
+takes of stage 0 (dW, db and the image's dx from ``g * swish'(pre)``,
+``pre`` recomputed; dx only where the image requires grad, as the cycle
+term's re-encode of a render does). The targets of ``bernoulli_nll`` get
+dx = -g * l on the plain path only; the kernel path raises when they
+require grad. The tokens of ``masked_seq_ce`` get no gradient.
+``poe_kl`` differentiates the expert stack only and raises on both paths
+when ``masks`` or ``presence`` requires grad.
 
 Term-tiled targets: ``bernoulli_nll``, ``categorical_nll`` and
 ``masked_seq_ce`` accept targets with fewer leading rows than the logits,
@@ -308,21 +309,16 @@ def conv4x4s2_swish(
     """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
     ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32; its backward
-    kernel gives the weight's and the bias's gradients, f32 only."""
-    # Refused before the device is checked, as the BCE's targets are.
-    if _kernel_path(x) and _records_grad(x):
-        raise RuntimeError(
-            "ops.conv4x4s2_swish: the kernel path has no gradient in the input (dx); "
-            "call it with an input that does not require grad, or with set_backend('torch')"
-        )
+    kernels give the weight's and the bias's gradients and, when the image
+    requires grad, the image's (dx), f32 only."""
     kernel = _use_kernel(x)
     return _Conv4x4s2Swish.apply(x, weight, bias, kernel)
 
 
 class _Conv4x4s2Swish(torch.autograd.Function):
-    """K4 and its backward in the weight and bias; ``kernel`` picks the
-    CUDA kernels (``conv4x4s2_swish``, ``conv4x4s2_swish_bwd``). The plain
-    path also gives the input's gradient."""
+    """K4 and its backward; ``kernel`` picks the CUDA kernels
+    (``conv4x4s2_swish``; ``conv4x4s2_swish_bwd`` for the weight and bias,
+    ``conv4x4s2_swish_dx`` for the image where it needs a gradient)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, kernel: bool):
@@ -341,7 +337,10 @@ class _Conv4x4s2Swish(torch.autograd.Function):
         x, weight, bias = ctx.saved_tensors
         if ctx.kernel:
             d_w, d_b = kernels.conv4x4s2_swish_grad_kernel(x, weight, bias, g)
-            return None, d_w, d_b, None
+            d_x = None
+            if ctx.needs_input_grad[0]:
+                d_x = kernels.conv4x4s2_swish_input_grad_kernel(x, weight, bias, g)
+            return d_x, d_w, d_b, None
         d_w, d_b = kernels.conv4x4s2_swish_grad_torch(x, weight, bias, g)
         d_x = None
         if ctx.needs_input_grad[0]:

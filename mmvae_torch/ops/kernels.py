@@ -19,7 +19,9 @@
     32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes;
     ``conv4x4s2_swish_grad_kernel`` is its backward in the weight and the
     bias (XLA's gradient of stage 0 on the TPU side, which has no Pallas
-    VJP), in the grid :func:`conv_bwd_plan` sizes;
+    VJP), in the grid :func:`conv_bwd_plan` sizes, and
+    ``conv4x4s2_swish_input_grad_kernel`` its backward in the image (dx),
+    a block a tile of output rows, in the tiles :func:`conv_dx_plan` sizes;
   * ``poe_kl_kernel`` is the masked product of experts of the eval with
     K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
     a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
@@ -113,6 +115,9 @@ __all__ = [
     "conv_bwd_plan",
     "conv4x4s2_swish_grad_kernel",
     "conv4x4s2_swish_grad_torch",
+    "ConvDxPlan",
+    "conv_dx_plan",
+    "conv4x4s2_swish_input_grad_kernel",
     "conv4x4s2_swish_input_grad_torch",
     "PoeKlPlan",
     "poe_kl_plan",
@@ -132,7 +137,8 @@ FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
 LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0,
-            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0}
+            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
+            "conv_dx": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -174,6 +180,8 @@ _SIGNATURES = {
                             _i32, _i32, _i32, _ptr],
         "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
                                 _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "conv4x4s2_swish_dx": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _i32,
+                               _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -275,6 +283,12 @@ def _launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} (code {rc})")
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type a plain version computes in: float32, or float64
+    for a float64 ``t``."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def tile_rows(x: torch.Tensor, n: int, fold: int, inner: int = 1) -> torch.Tensor:
@@ -704,7 +718,7 @@ def masked_seq_ce_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`masked_seq_ce_kernel` (any leading
     dims): log-softmax, gather, pad mask, sum over S."""
-    per_tok = _cat_plain(logits.to(torch.float32), tokens)
+    per_tok = _cat_plain(_wide(logits), tokens)
     return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)
 
 
@@ -827,7 +841,7 @@ def masked_seq_ce_grad_torch(
     leading dims; ``g`` has the tokens' shape without S), written as
     ``_seq_ce_bwd``: softmax less the one-hot of the token (none for a
     token outside the vocabulary), times the pad mask and ``g``."""
-    logits = logits.to(torch.float32)
+    logits = _wide(logits)
     v = logits.shape[-1]
     onehot = tokens.long()[..., None] == torch.arange(v, device=logits.device)
     mask = (tokens != pad_token).to(logits.dtype)[..., None]
@@ -966,12 +980,11 @@ def conv4x4s2_swish_torch(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv4x4s2_swish_kernel` (any output
-    channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32, cast
-    to ``x``'s dtype."""
-    h = x.permute(0, 3, 1, 2).to(torch.float32)
+    channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32 (f64
+    for f64 inputs), cast to ``x``'s dtype."""
+    h = _wide(x.permute(0, 3, 1, 2))
     y = F.conv2d(
-        F.pad(h, same_pad(h.shape[-2:])), weight.to(torch.float32),
-        bias.to(torch.float32), stride=2,
+        F.pad(h, same_pad(h.shape[-2:])), weight.to(h.dtype), bias.to(h.dtype), stride=2,
     )
     return (y * torch.sigmoid(y)).to(x.dtype)
 
@@ -1048,18 +1061,13 @@ def conv_bwd_plan(
     return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps), rows)
 
 
-def conv4x4s2_swish_grad_kernel(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
-    plan: ConvBwdPlan | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
-    weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
-    ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
-    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x``,
-    ``weight`` and ``bias`` (as the forward takes them, float32 only);
-    ``g`` may be any strided float32 view. The sums over ``B x ceil(H/2) x
-    ceil(W/2)`` are taken in a fixed order (no atomics): the same plan gives
-    the same bits. ``plan`` overrides :func:`conv_bwd_plan`."""
+def _check_conv_grad(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
+) -> None:
+    """The arguments K4's backward kernels take: float32 CUDA tensors on
+    one device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4, ``weight`` and
+    ``bias`` of its shapes, contiguous, and ``g`` (any strides) of the
+    output's shape."""
     for name, t in (("x", x), ("weight", weight), ("bias", bias), ("g", g)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -1082,6 +1090,22 @@ def conv4x4s2_swish_grad_kernel(
         raise ValueError(f"g is {tuple(g.shape)}, not the output's {out_shape}")
     if max(x.shape) >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
+
+
+def conv4x4s2_swish_grad_kernel(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    plan: ConvBwdPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
+    weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
+    ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
+    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x``,
+    ``weight`` and ``bias`` (as the forward takes them, float32 only);
+    ``g`` may be any strided float32 view. The sums over ``B x ceil(H/2) x
+    ceil(W/2)`` are taken in a fixed order (no atomics): the same plan gives
+    the same bits. ``plan`` overrides :func:`conv_bwd_plan`."""
+    _check_conv_grad(x, weight, bias, g)
+    b, h, w, c = x.shape
     d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=torch.float32, device=x.device)
     d_b = torch.empty(CONV_OUT, dtype=torch.float32, device=x.device)
     if g.numel() == 0:
@@ -1102,14 +1126,15 @@ def _conv_bwd_terms(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The padded NCHW input, its 4 x 4 / 2 patches ``(B, 16 C, L)`` (in
     ``(c, ky, kx)`` order, as ``weight`` flattens) and ``g * swish'(pre)``
-    ``(B, F, L)``, all float32, ``L`` the output pixels."""
-    h = x.permute(0, 3, 1, 2).to(torch.float32)
+    ``(B, F, L)``, all float32 (float64 for a float64 ``x``), ``L`` the
+    output pixels."""
+    h = _wide(x.permute(0, 3, 1, 2))
     padded = F.pad(h, same_pad(h.shape[-2:]))
     patches = F.unfold(padded, 4, stride=2)
-    w_flat = weight.reshape(weight.shape[0], -1).to(torch.float32)
-    pre = torch.einsum("ok,bkl->bol", w_flat, patches) + bias.to(torch.float32)[:, None]
+    w_flat = weight.reshape(weight.shape[0], -1).to(h.dtype)
+    pre = torch.einsum("ok,bkl->bol", w_flat, patches) + bias.to(h.dtype)[:, None]
     sig = torch.sigmoid(pre)
-    s = g.to(torch.float32).reshape(pre.shape) * sig * (1.0 + pre * (1.0 - sig))
+    s = g.to(h.dtype).reshape(pre.shape) * sig * (1.0 + pre * (1.0 - sig))
     return padded, patches, s
 
 
@@ -1120,21 +1145,91 @@ def conv4x4s2_swish_grad_torch(
     output channels), with explicit tensor ops: the SAME-padded patches,
     ``pre`` from them, ``s = g * swish'(pre)`` with ``swish'(u) = sig(u)
     (1 + u (1 - sig(u)))``, ``dW = s . patches`` and ``db = sum(s)``, in
-    float32."""
+    float32 (float64 for a float64 ``x``)."""
     _, patches, s = _conv_bwd_terms(x, weight, bias, g)
     d_w = torch.einsum("bol,bkl->ok", s, patches).reshape(weight.shape)
     return d_w, s.sum((0, 2))
 
 
+# K4's input gradient takes a block a tile of ``rows`` output rows by
+# CONV_DX_TILE_W output columns of one image: it recomputes S = g swish'(pre)
+# for them and the ring around them into shared memory (CONV_DX_PIXEL_FLOATS
+# a pixel), then gathers dx, a thread a 2 x 2 quad of input pixels.
+CONV_DX_TILE_W = 32
+CONV_DX_PIXEL_FLOATS = CONV_OUT + 4
+CONV_DX_ROWS = 4
+CONV_DX_THREADS = 128
+CONV_DX_MAX_THREADS = 256
+CONV_DX_MAX_ROWS = 16
+
+
+class ConvDxPlan(NamedTuple):
+    """Launch of ``conv4x4s2_swish_dx``: threads a block, output rows a
+    tile, blocks (one a tile) and the block's dynamic shared memory in
+    bytes."""
+
+    threads: int
+    rows: int
+    blocks: int
+    smem: int
+
+
+def conv_dx_smem(c: int, rows: int) -> int:
+    """Bytes of K4's input gradient's shared memory: the weights as float4s
+    over 4 output channels (8 x 16 taps x C), and the S tile of ``rows`` + 2
+    rows of CONV_DX_TILE_W + 2 pixels."""
+    return 4 * (CONV_OUT * 16 * c + (rows + 2) * (CONV_DX_TILE_W + 2) * CONV_DX_PIXEL_FLOATS)
+
+
+def conv_dx_plan(
+    b: int, h: int, w: int, c: int, rows: int = CONV_DX_ROWS, threads: int = CONV_DX_THREADS,
+) -> ConvDxPlan:
+    """The launch of K4's input gradient for an NHWC ``(b, h, w, c)`` batch:
+    a block of ``threads`` (one 2 x 2 input quad each at the default ``rows``
+    of 4) a tile of ``rows`` output rows by CONV_DX_TILE_W output columns,
+    shared memory by :func:`conv_dx_smem`. At CUB's (64, 64, 64, 3): 512
+    blocks of 4 warps."""
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    blocks = b * -(-h_out // rows) * -(-w_out // CONV_DX_TILE_W)
+    return ConvDxPlan(threads, rows, blocks, conv_dx_smem(c, rows))
+
+
+def conv4x4s2_swish_input_grad_kernel(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    plan: ConvDxPlan | None = None,
+) -> torch.Tensor:
+    """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its image,
+    on the card: dx ``(B, H, W, C)`` NHWC for the upstream gradient ``g``
+    ``(B, 32, ceil(H/2), ceil(W/2))`` (any strided float32 view), ``pre``
+    recomputed from ``x``, ``weight`` and ``bias`` (float32, as
+    :func:`conv4x4s2_swish_grad_kernel` takes them). Each entry sums its
+    covering taps in a fixed order (no atomics): two calls give the same
+    bits. ``plan`` overrides :func:`conv_dx_plan`."""
+    _check_conv_grad(x, weight, bias, g)
+    b, h, w, c = x.shape
+    d_x = torch.empty_like(x)
+    if d_x.numel() == 0:
+        return d_x
+    plan = plan or conv_dx_plan(b, h, w, c)
+    _launch(
+        "conv_s2", "conv4x4s2_swish_dx", x.device, x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c,
+        plan.threads, plan.rows, plan.smem,
+    )
+    LAUNCHES["conv_dx"] += 1
+    return d_x
+
+
 def conv4x4s2_swish_input_grad_torch(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
 ) -> torch.Tensor:
-    """The gradient of :func:`conv4x4s2_swish_torch`'s output in ``x``,
-    NHWC in ``x``'s dtype: ``s = g * swish'(pre)`` back through the
-    patches (``F.fold`` sums the overlapping taps), the pad cut off. No
-    kernel computes it yet."""
+    """Plain PyTorch version of :func:`conv4x4s2_swish_input_grad_kernel`
+    (any output channels): the gradient of :func:`conv4x4s2_swish_torch`'s
+    output in ``x``, NHWC in ``x``'s dtype: ``s = g * swish'(pre)`` back
+    through the patches (``F.fold`` sums the overlapping taps), the pad cut
+    off."""
     padded, _, s = _conv_bwd_terms(x, weight, bias, g)
-    w_flat = weight.reshape(weight.shape[0], -1).to(torch.float32)
+    w_flat = weight.reshape(weight.shape[0], -1).to(s.dtype)
     d_padded = F.fold(torch.einsum("ok,bol->bkl", w_flat, s), padded.shape[-2:], 4, stride=2)
     w_lo, _, h_lo, _ = same_pad(x.shape[1:3])
     d_x = d_padded[:, :, h_lo:h_lo + x.shape[1], w_lo:w_lo + x.shape[2]]

@@ -1,7 +1,7 @@
 """The multi-term MVAE loss, the train step and the eval step.
 
 Port of ``mmvae_tpu/train/step.py`` for the inference slices and the
-MNIST, MultiMNIST and CelebA training slices: the ``"mvae"`` objective
+MNIST, FashionMNIST, MultiMNIST, CelebA and CUB training slices: the ``"mvae"`` objective
 under the t-major term fold (``term_fold="t"``, the single-device path of
 both the JAX eval and the JAX train step, ``step.py:532-578``) with an
 optional presence mask.
@@ -50,7 +50,11 @@ three times, and each one's backward kernel as often; one ``celeba`` step
 (4 random subsets, T = 24) the fused PoE + KL once, K2 twice (the image's
 6 member terms, the attributes' 23), K4 once (stage 0 of the image
 encoder), and each one's backward kernel as often (K4's in its weight
-and bias).
+and bias); one ``cub`` step (cross-recon, the cycle term on the soft
+render) the fused PoE + KL twice (the loss, the re-read), K2 once, K3
+twice and K4 twice (the encode, the re-encode of the render), each one's
+backward kernel as often, and K4's input gradient once (the re-encode's
+input is the render).
 
 The IWAE runner (``make_iwae_step``, ``make_iwae_runner``) runs
 ``core.iwae_bound`` over an eval split, its k samples folded b-major, on

@@ -234,12 +234,13 @@ def test_step_options_are_the_jax_runner_options():
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 25, 25, 1), (2, 16, 20, 2),
-                                   (2, 12, 10, 4)])
+                                   (2, 12, 10, 4), (64, 64, 64, 3)])
 def test_conv_plain_grad_matches_jax_vjp(shape):
     """``conv4x4s2_swish_grad_torch`` (dW, db) and the plain input
     gradient against ``jax.vjp`` of ``xla_conv0`` (XLA's SAME 4x4/2 conv +
     swish, NHWC, HWIO): CelebA's 64x64 RGB, a 25x25 grayscale image that
-    pads (1, 2), and C = 2 and 4."""
+    pads (1, 2), C = 2 and 4, and CUB's train batch of 64 (the cycle
+    term's re-encode takes the input gradient there)."""
     rng = np.random.default_rng(sum(shape))
     x = rng.random(shape, dtype=np.float32)
     w = (0.1 * rng.standard_normal((32, shape[3], 4, 4))).astype(np.float32)

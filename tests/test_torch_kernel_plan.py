@@ -2,8 +2,8 @@
 ``tile_rows`` at its b-major map over examples of several rows), K3 (``seq_ce_plan``), K4
 (``conv_plan``), the fused PoE + KL (``poe_kl_plan``) and the backward
 kernels of K2 (``bce_grad_plan``), K3 (``seq_ce_grad_plan``), K4
-(``conv_bwd_plan``) and the fused PoE + KL (``poe_kl_bwd_plan``), on the
-CPU.
+(``conv_bwd_plan``; ``conv_dx_plan``, its input gradient) and the fused
+PoE + KL (``poe_kl_bwd_plan``), on the CPU.
 
 The plans are computed in Python and passed to the CUDA entries, so the
 rules that pick a layout are checked here without a card. Imports no JAX.
@@ -315,6 +315,62 @@ def test_conv_bwd_workspace_is_a_function_of_shape_and_plan(shape):
         assert plan == again
         assert kernels.conv_bwd_workspace_floats(plan, c) == plan.blocks * (16 * c + 1) * 32
         assert plan.blocks <= sms * kernels.CONV_BWD_BLOCKS_PER_SM
+
+
+def test_conv_dx_signature_takes_the_gradient_strides_as_64_bits():
+    """K4's input gradient reads its upstream gradient through four element
+    strides, int64 slots after the four input pointers, then dx, the shape
+    and the plan's threads, rows and shared memory as int32."""
+    sig = kernels._SIGNATURES["conv_s2"]["conv4x4s2_swish_dx"]
+    assert sig[:4] == [kernels._ptr] * 4 and sig[4:8] == [kernels._i64] * 4
+    assert sig[8] == kernels._ptr and sig[9:-1] == [kernels._i32] * 7
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_dx_plan_fits_the_shared_memory_it_asks_for(shape):
+    """A block stages the weights as float4s over 4 output channels (8 x 16
+    taps x C of them) and S for its rows + 2 output rows by 34 columns, 36
+    floats a pixel; it asks for just that, below the 48 KB a launch gets
+    without opting in."""
+    b, h, w, c = shape
+    plan = kernels.conv_dx_plan(b, h, w, c)
+    assert plan.rows == kernels.CONV_DX_ROWS and plan.threads == kernels.CONV_DX_THREADS
+    assert plan.smem == 4 * (8 * 16 * c * 4 + (plan.rows + 2) * 34 * 36)
+    assert plan.smem <= 48 * 1024
+    assert plan.blocks == b * -(-(-(-h // 2)) // plan.rows) * -(-(-(-w // 2)) // 32)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 33, 31, 3), (5, 25, 25, 1),
+                                   (2, 30, 70, 3), (2, 18, 10, 3), (1, 1, 1, 3)])
+@pytest.mark.parametrize("rows", [1, 4, 16])
+def test_conv_dx_plan_covers_every_input_pixel_once(shape, rows):
+    """Decoding each block into its tile as the kernel does, the tiles'
+    2 x 2 quads write every input pixel exactly once (odd H and W: a last
+    quad of one row or column), and every output pixel a written pixel
+    reads (2i + ky - 1 = h, 2j + kx - 1 = w) lies in the tile's staged S
+    ring."""
+    b, h, w, c = shape
+    plan = kernels.conv_dx_plan(b, h, w, c, rows=rows)
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    row_tiles, col_tiles = -(-h_out // rows), -(-w_out // 32)
+    written = np.zeros((b, h, w), np.int64)
+    for block in range(plan.blocks):
+        ct, rest = block % col_tiles, block // col_tiles
+        n, m0, j0 = rest // row_tiles, rest % row_tiles * rows, ct * 32
+        for qd in range(rows * 32):
+            m, q = m0 + qd // 32, j0 + qd % 32
+            for hh in (2 * m, 2 * m + 1):
+                for ww in (2 * q, 2 * q + 1):
+                    if hh >= h or ww >= w:
+                        continue
+                    written[n, hh, ww] += 1
+                    taps = [((hh + 1 - ky) // 2, (ww + 1 - kx) // 2)
+                            for ky in range(4) for kx in range(4)
+                            if (hh + 1 - ky) % 2 == 0 and (ww + 1 - kx) % 2 == 0]
+                    taps = [(i, j) for i, j in taps if 0 <= i < h_out and 0 <= j < w_out]
+                    assert all(m0 - 1 <= i <= m0 + rows and j0 - 1 <= j <= j0 + 32
+                               for i, j in taps)
+    assert np.all(written == 1)
 
 
 def test_probe_sources_stay_out_of_the_default_build():

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain versions.
 
 Tests marked ``gpu`` build ``mmvae_torch/ops/csrc/row_reduce.cu`` (K1, K2
-with its b-major map over examples of several rows, and their gradients), ``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4 and its
-backward) and
+with its b-major map over examples of several rows, and their gradients),
+``seq_ce.cu`` (K3), ``conv_s2.cu`` (K4, its backward and its input
+gradient) and
 ``poe_kl.cu`` (the fused PoE + KL and its backward) with ``nvcc`` and run
 on the card; without one they skip. This file imports nothing of JAX, so
 on a machine with a card and no JAX it runs as
@@ -27,10 +28,10 @@ another order than the plain version's batched product.
 
 ``kl_std_normal``, ``bernoulli_nll``, ``masked_seq_ce``, ``poe_kl`` and
 ``conv4x4s2_swish`` take their gradients from backward kernels on the
-card; the targets of ``bernoulli_nll`` and the image of
-``conv4x4s2_swish`` get none there, and the kernel path refuses them when
-autograd would record them. The CPU half of those checks runs without a
-card.
+card, the image of ``conv4x4s2_swish`` too (``conv4x4s2_swish_dx``); the
+targets of ``bernoulli_nll`` get none there, and the kernel path refuses
+them when autograd would record them. The CPU half of those checks runs
+without a card.
 """
 
 import math
@@ -100,6 +101,10 @@ def test_wrappers_reject_cpu_tensors():
         kernels.poe_kl_kernel(torch.zeros((4, 2, 8)), torch.zeros((4, 2, 8)), torch.ones((3, 2)))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.conv4x4s2_swish_grad_kernel(
+            torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32),
+            torch.zeros((1, 32, 4, 4)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv4x4s2_swish_input_grad_kernel(
             torch.zeros((1, 8, 8, 3)), torch.zeros((32, 3, 4, 4)), torch.zeros(32),
             torch.zeros((1, 32, 4, 4)))
 
@@ -195,7 +200,13 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl)
     cg = torch.zeros((2, 32, 4, 4), device=cuda)
     kernels.conv4x4s2_swish_grad_kernel(img, cw, cb, cg)
+    kernels.conv4x4s2_swish_input_grad_kernel(img, cw, cb, cg)
     assert kernels.LAUNCHES == after
+    with pytest.raises(ValueError, match="g is"):
+        kernels.conv4x4s2_swish_input_grad_kernel(img, cw, cb, cg[:, :, :3])
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_input_grad_kernel(img.bfloat16(), cw.bfloat16(),
+                                                  cb.bfloat16(), cg.bfloat16())
     with pytest.raises(ValueError, match="g is"):
         kernels.conv4x4s2_swish_grad_kernel(img, cw, cb, cg[:, :, :3])
     with pytest.raises(TypeError):
@@ -511,6 +522,91 @@ def test_conv_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
     assert kernels.LAUNCHES["conv_bwd"] == before
 
 
+def _conv_dx_close(got, want) -> None:
+    """dx against its plain version: each entry sums 4 taps x 32 channels
+    of g * swish'(pre) * w (each below 1 in size here), so atol 1e-6 a
+    term, in another order than the plain version's fold."""
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * 4 * 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (64, 64, 64, 3),  # CUB's train batch
+        (3, 33, 31, 3),  # odd H and W: the last band ends at the image's last row
+        (5, 25, 25, 1),  # odd size: pads (1, 2)
+        (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),  # every C
+        (4, 30, 70, 3),  # 35 outputs a row: a second tile of 3 columns
+        (2, 7, 1100, 4),  # 550 outputs a row: 18 tiles
+        (2, 18, 10, 3),  # 9 output rows: a band of one row past two of 4
+        (1, 1, 1, 3),  # one pixel
+    ],
+)
+def test_conv_dx_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(44)
+    args = _conv_grad_inputs(gen, shape, cuda)
+    got = kernels.conv4x4s2_swish_input_grad_kernel(*args)
+    assert got.shape == shape and got.dtype == torch.float32
+    _conv_dx_close(got, kernels.conv4x4s2_swish_input_grad_torch(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape, plan",
+    [
+        ((64, 64, 64, 3), None),
+        ((5, 25, 25, 1), kernels.conv_dx_plan(5, 25, 25, 1, rows=1, threads=32)),
+        ((3, 33, 31, 3), kernels.conv_dx_plan(3, 33, 31, 3, rows=16, threads=256)),
+    ],
+)
+def test_conv_dx_kernel_strided_and_transposed_g_and_other_plans(cuda, shape, plan):
+    """The upstream gradient as a padded view and as a transposed one, read
+    in place; bands of 1 and 16 output rows with 1 and 8 warps."""
+    gen = torch.Generator().manual_seed(45)
+    x, w, b, g = _conv_grad_inputs(gen, shape, cuda, strided=True)
+    transposed = g.transpose(2, 3).contiguous().transpose(2, 3)
+    for view in (g, transposed):
+        assert not view.is_contiguous()
+        got = kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, view, plan=plan)
+        _conv_dx_close(got, kernels.conv4x4s2_swish_input_grad_torch(x, w, b, view))
+
+
+@pytest.mark.gpu
+def test_conv_dx_kernel_empty_batch(cuda):
+    """An empty batch gives an empty dx and launches nothing."""
+    x, w, b, g = _conv_grad_inputs(torch.Generator().manual_seed(46), (0, 8, 8, 3), cuda)
+    before = kernels.LAUNCHES["conv_dx"]
+    assert kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, g).shape == (0, 8, 8, 3)
+    assert kernels.LAUNCHES["conv_dx"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64, 64, 3), (3, 33, 31, 3)])
+def test_conv_dx_kernel_same_bits_twice(cuda, shape):
+    """No atomics: two launches give the same bits."""
+    args = _conv_grad_inputs(torch.Generator().manual_seed(47), shape, cuda)
+    one, two = (kernels.conv4x4s2_swish_input_grad_kernel(*args) for _ in range(2))
+    assert torch.equal(one, two)
+
+
+@pytest.mark.gpu
+def test_conv_dx_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """Too little shared memory, more than 227 KB, threads that are not
+    whole warps or more than 8 warps, or bands past 16 rows: the launch is
+    refused and counts none."""
+    args = _conv_grad_inputs(torch.Generator().manual_seed(48), (2, 8, 8, 3), cuda)
+    good = kernels.conv_dx_plan(2, 8, 8, 3)
+    before = kernels.LAUNCHES["conv_dx"]
+    for bad in (good._replace(smem=good.smem - 4), good._replace(smem=228 * 1024),
+                good._replace(threads=48), good._replace(threads=kernels.CONV_DX_MAX_THREADS + 32),
+                good._replace(rows=kernels.CONV_DX_MAX_ROWS + 1,
+                              smem=kernels.conv_dx_smem(3, kernels.CONV_DX_MAX_ROWS + 1))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.conv4x4s2_swish_input_grad_kernel(*args, plan=bad)
+    assert kernels.LAUNCHES["conv_dx"] == before
+
+
 def _op_calls(device):
     """Each ops entry with a kernel, as a function of whether its float
     inputs require grad: K1's mu, K2's logits, K3's logits, K4's bias
@@ -621,22 +717,34 @@ def _conv_with_input_grad(device):
 
 @pytest.mark.gpu
 def test_ops_conv_kernel_path_refuses_input_grad(cuda):
-    """K4's backward kernel computes dW and db only: an image that
-    requires grad raises on the kernel path, before anything launches,
-    rather than take a gradient of zero."""
+    """An image that requires grad takes K4's input-gradient kernel on the
+    kernel path: one forward launch, and a backward of one
+    ``conv4x4s2_swish_bwd`` and one ``conv4x4s2_swish_dx`` launch, the
+    image's gradient equal to the ``torch`` backend's within the dx
+    tolerance."""
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(RuntimeError, match=r"no gradient in the input \(dx\)"):
-        _conv_with_input_grad(cuda)
-    assert kernels.LAUNCHES == before
+    out, x = _conv_with_input_grad(cuda)
+    assert kernels.LAUNCHES["conv"] == before["conv"] + 1
+    (d_x,) = torch.autograd.grad(out.sum(), x)
+    assert kernels.LAUNCHES["conv_dx"] == before["conv_dx"] + 1
+    assert kernels.LAUNCHES["conv_bwd"] == before["conv_bwd"] + 1
+    ops.set_backend("torch")
+    try:
+        out_t, x_t = _conv_with_input_grad(cuda)
+        (want,) = torch.autograd.grad(out_t.sum(), x_t)
+    finally:
+        ops.set_backend("auto")
+    assert kernels.LAUNCHES["conv_dx"] == before["conv_dx"] + 1
+    _conv_dx_close(d_x, want)
 
 
 def test_ops_conv_kernel_backend_refuses_input_grad_on_the_cpu():
-    """Under the "kernel" backend the image's grad is refused before the
-    device is checked; the "auto" backend takes the plain path, whose dx
-    flows into the image."""
+    """Under the "kernel" backend an image on the CPU that requires grad
+    gets the CUDA error the other ops give; the "auto" backend takes the
+    plain path, whose dx flows into the image."""
     ops.set_backend("kernel")
     try:
-        with pytest.raises(RuntimeError, match=r"no gradient in the input \(dx\)"):
+        with pytest.raises(ValueError, match="CUDA"):
             _conv_with_input_grad("cpu")
     finally:
         ops.set_backend("auto")

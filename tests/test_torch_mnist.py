@@ -253,9 +253,14 @@ def test_entry_points_default_to_the_card(matched):
         ops.set_backend("auto")
 
 
-def test_unported_configs_and_datasets_raise():
+def test_unported_configs_and_datasets_raise(tmp_path, monkeypatch):
+    """The ``deep_mnist`` pipeline config and mounted data under
+    ``$MMVAE_DATA_DIR`` are not ported and raise; an unknown name is a
+    ``ValueError``."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("fashionmnist")
+        configs.get_config("deep_mnist")
+    (tmp_path / "fashionmnist").mkdir()
+    monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         load_dataset("fashionmnist")
     with pytest.raises(ValueError):

@@ -334,9 +334,18 @@ def test_random_subsets_train_mnist_as_jax_does(jmodel):
         {k: p.grad for k, p in model.named_parameters()}, from_flax_params(_np_tree(j_grads)))
 
 
-@pytest.mark.parametrize("kw", [{"config": "fashionmnist"}, {"config": "cub"},
+@pytest.mark.parametrize("kw", [{"objective": "mmvae"}, {"mounted": "mnist"},
                                 {"config": "deep_mnist"}, {"config": "deep_cub"}])
-def test_api_train_raises_on_unported_entry_options(kw):
+def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
+    """A mixture objective, mounted data under ``$MMVAE_DATA_DIR`` and the
+    ``deep_*`` pipeline configs are not ported: ``api.train`` raises."""
     kw = {"config": "mnist", **kw}
+    config = kw.pop("config")
+    if "objective" in kw:
+        config = configs.get_config(config).replace(
+            objective=kw.pop("objective"), train_size=100, test_size=100)
+    if "mounted" in kw:
+        (tmp_path / kw.pop("mounted")).mkdir()
+        monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.train(kw.pop("config"), device="cpu", **kw)
+        api.train(config, device="cpu", **kw)
