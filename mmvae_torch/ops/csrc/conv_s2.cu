@@ -107,9 +107,11 @@
 // MB) and g (8.39 MB) and writes dx (3.15 MB), 14.68 MB, 4.38 us at 3.35
 // TB/s. Its two products, the recompute of pre and dx, are 2 x 100.7 M
 // multiply-adds, 6.0 us at 67 TFLOP/s of f32 on the CUDA cores (6.3 us
-// with swish' and the product with g). In f32 the operations bound it,
-// and this design sits on that bound: it runs both products on the CUDA
-// cores (a 3xTF32 mma.sync form, as the backward's, is later work).
+// with swish' and the product with g). In f32 the operations bound it, and
+// the design aims at that bound: it runs both products on the CUDA cores
+// (a 3xTF32 mma.sync form, as the backward's, is later work). It does not
+// reach it: on an H100 it runs at about 4.6 times the bound, for causes not
+// yet measured (PERF.md has the times, ROADMAP.md the suspects).
 //
 // Design. A block takes a tile of TR output rows by 32 output columns of
 // one image, whose input rows 2 m0 .. 2 m0 + 2 TR - 1 and 64 input columns

@@ -285,12 +285,6 @@ def _launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: {msg} (code {rc})")
 
 
-def _wide(t: torch.Tensor) -> torch.Tensor:
-    """``t`` in the type a plain version computes in: float32, or float64
-    for a float64 ``t``."""
-    return t.to(torch.promote_types(t.dtype, torch.float32))
-
-
 def tile_rows(x: torch.Tensor, n: int, fold: int, inner: int = 1) -> torch.Tensor:
     """``x`` tiled along dim 0 to ``n`` rows in the order ``fold`` names.
 
@@ -718,7 +712,7 @@ def masked_seq_ce_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`masked_seq_ce_kernel` (any leading
     dims): log-softmax, gather, pad mask, sum over S."""
-    per_tok = _cat_plain(_wide(logits), tokens)
+    per_tok = _cat_plain(logits.to(torch.float32), tokens)
     return torch.sum(per_tok * (tokens != pad_token).to(per_tok.dtype), dim=-1)
 
 
@@ -841,7 +835,7 @@ def masked_seq_ce_grad_torch(
     leading dims; ``g`` has the tokens' shape without S), written as
     ``_seq_ce_bwd``: softmax less the one-hot of the token (none for a
     token outside the vocabulary), times the pad mask and ``g``."""
-    logits = _wide(logits)
+    logits = logits.to(torch.float32)
     v = logits.shape[-1]
     onehot = tokens.long()[..., None] == torch.arange(v, device=logits.device)
     mask = (tokens != pad_token).to(logits.dtype)[..., None]
@@ -980,11 +974,12 @@ def conv4x4s2_swish_torch(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv4x4s2_swish_kernel` (any output
-    channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32 (f64
-    for f64 inputs), cast to ``x``'s dtype."""
-    h = _wide(x.permute(0, 3, 1, 2))
+    channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32, cast
+    to ``x``'s dtype."""
+    h = x.permute(0, 3, 1, 2).to(torch.float32)
     y = F.conv2d(
-        F.pad(h, same_pad(h.shape[-2:])), weight.to(h.dtype), bias.to(h.dtype), stride=2,
+        F.pad(h, same_pad(h.shape[-2:])), weight.to(torch.float32),
+        bias.to(torch.float32), stride=2,
     )
     return (y * torch.sigmoid(y)).to(x.dtype)
 
@@ -1126,15 +1121,14 @@ def _conv_bwd_terms(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The padded NCHW input, its 4 x 4 / 2 patches ``(B, 16 C, L)`` (in
     ``(c, ky, kx)`` order, as ``weight`` flattens) and ``g * swish'(pre)``
-    ``(B, F, L)``, all float32 (float64 for a float64 ``x``), ``L`` the
-    output pixels."""
-    h = _wide(x.permute(0, 3, 1, 2))
+    ``(B, F, L)``, all float32, ``L`` the output pixels."""
+    h = x.permute(0, 3, 1, 2).to(torch.float32)
     padded = F.pad(h, same_pad(h.shape[-2:]))
     patches = F.unfold(padded, 4, stride=2)
-    w_flat = weight.reshape(weight.shape[0], -1).to(h.dtype)
-    pre = torch.einsum("ok,bkl->bol", w_flat, patches) + bias.to(h.dtype)[:, None]
+    w_flat = weight.reshape(weight.shape[0], -1).to(torch.float32)
+    pre = torch.einsum("ok,bkl->bol", w_flat, patches) + bias.to(torch.float32)[:, None]
     sig = torch.sigmoid(pre)
-    s = g.to(h.dtype).reshape(pre.shape) * sig * (1.0 + pre * (1.0 - sig))
+    s = g.to(torch.float32).reshape(pre.shape) * sig * (1.0 + pre * (1.0 - sig))
     return padded, patches, s
 
 
@@ -1145,7 +1139,7 @@ def conv4x4s2_swish_grad_torch(
     output channels), with explicit tensor ops: the SAME-padded patches,
     ``pre`` from them, ``s = g * swish'(pre)`` with ``swish'(u) = sig(u)
     (1 + u (1 - sig(u)))``, ``dW = s . patches`` and ``db = sum(s)``, in
-    float32 (float64 for a float64 ``x``)."""
+    float32."""
     _, patches, s = _conv_bwd_terms(x, weight, bias, g)
     d_w = torch.einsum("bol,bkl->ok", s, patches).reshape(weight.shape)
     return d_w, s.sum((0, 2))

@@ -31,6 +31,12 @@ import copy
 import dataclasses
 
 import torch
+# torch.optim imports torch._dynamo the first time an optimizer is built,
+# and that import leaves a frame in a reference cycle that holds every
+# frame below it: made inside api.train, the cycle would keep the run's
+# model, state and captured graphs (GiBs of card memory) until Python's
+# cyclic collector ran. Imported here, it holds import frames only.
+import torch._dynamo  # noqa: F401
 from torch import nn
 
 __all__ = ["TrainState", "create_train_state", "global_norm"]

@@ -480,6 +480,15 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every runner on ``device`` runs its first row and
+    its capture on. One for the process: cuBLAS keeps a workspace for each
+    stream it has run on until the process ends, so a new stream for each
+    runner would leave one behind for each runner built."""
+    return torch.cuda.Stream(device=device)
+
+
 class _StepGraph:
     """``fn(batch) -> metrics`` over the rows of stacked ``(n, B, ...)``
     inputs as replays of one CUDA graph: the counterpart of the body of
@@ -527,7 +536,7 @@ class _StepGraph:
         self._inputs = {k: v.clone() for k, v in batches.items()}
         self._idx = torch.zeros(1, dtype=torch.int64, device=device)
         self._outputs = None
-        side = torch.cuda.Stream(device=device)
+        side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             self._body()
@@ -536,8 +545,12 @@ class _StepGraph:
             graph.register_generator_state(self._generator)
         counts = dict(kernels.LAUNCHES)
         constants = _device_tensor.cache_info().currsize
-        # capture_begin/end rather than ``torch.cuda.graph``, which also
-        # empties the allocator's cache and collects garbage at each capture.
+        # Under capture the allocator takes new memory for the graph's pool
+        # but frees none it has cached (neither free blocks nor the pools of
+        # graphs already gone), so the capture starts with that cache given
+        # back. ``torch.cuda.graph`` would also collect garbage each time;
+        # no runner leaves any.
+        torch.cuda.empty_cache()
         with torch.cuda.stream(side):
             graph.capture_begin()
             try:
