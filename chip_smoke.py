@@ -205,9 +205,10 @@ PEAK_TF32_OPS_PER_S = 495e12
 # an exp, an add and a divide; per (term, expert element) the weight
 # product and its sum, the mean product and its sum; per output the prior
 # add, a divide, a log, a negation and K1's 5.
-# K4's backward, per (output pixel, channel): the recompute's 16 * C
-# multiply-adds and the accumulation's 16 * C, each taken as three TF32
-# products on the tensor cores (3xTF32), and about 9 on the CUDA cores for
+# K4's backward and its input gradient, per (output pixel, channel): the
+# recompute's 16 * C multiply-adds and the second product's 16 * C (dW's
+# accumulation, or dx's T = S W), each taken as three TF32 products on the
+# tensor cores (3xTF32), and about 9 on the CUDA cores for
 # the bias add, swish' (an exp, an add, a divide, a subtract, 2 products, an
 # add) and the product with g.
 # The gradients: KL's 1 + 4 (a product; a product, an exp, a subtract and
@@ -513,10 +514,10 @@ CHECKED_SHAPES = {
     "conv_bwd": [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1), (4, 30, 70, 3),
                  (2, 10, 66, 3), (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),
                  (2, 7, 1100, 4)],
-    # K4's input gradient (f32): CUB's train batch; odd H and W (bands that
+    # K4's input gradient (f32): CUB's train batch; odd H and W (tiles that
     # end at the image's last row); a 25 x 25 grayscale image that pads (1,
     # 2); C = 1, 2 and 4; a second tile of 3 columns; rows of 18 tiles; a
-    # last band of one row; one pixel; the upstream gradient transposed.
+    # last tile of one row; one pixel; the upstream gradient transposed.
     "conv_dx": [(64, 64, 64, 3), (3, 33, 31, 3), (5, 25, 25, 1), (64, 64, 64, 1),
                 (64, 64, 64, 4), (6, 32, 40, 2), (4, 30, 70, 3), (2, 7, 1100, 4),
                 (2, 18, 10, 3), (1, 1, 1, 3), (64, 64, 64, 3, "transposed"),
@@ -902,26 +903,16 @@ def bound(op: str, args) -> tuple[float, str]:
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = n_ops / PEAK_OPS_PER_S[torch.float32]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-    if op == "conv_dx":
-        # x, g, the weight and bias read; dx written. Per (output pixel,
-        # channel): pre recomputed and dx's share, 16 C multiply-adds each
-        # in f32 on the CUDA cores, and CONV_BWD_OPS_PER_OUT for swish' and
-        # the product with g.
+    if op in ("conv_bwd", "conv_dx"):
+        # x, g, the weight and bias read; dW and db written (the backward)
+        # or dx (the input gradient). Per (output pixel, channel): pre
+        # recomputed and the second product (dW's accumulation, or T = S W
+        # of dx), 16 C multiply-adds each as three TF32 products, and
+        # CONV_BWD_OPS_PER_OUT in f32 for swish' and the product with g.
         x, weight, bias, g = args
         c = x.shape[3]
-        n_bytes = 4 * (2 * x.numel() + g.numel() + weight.numel() + bias.numel())
-        t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = ((2 * 2 * 16 * c + CONV_BWD_OPS_PER_OUT) * g.numel()
-                 / PEAK_OPS_PER_S[torch.float32])
-        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-    if op == "conv_bwd":
-        # x, g, the weight and bias read; dW and db written. Per (output
-        # pixel, channel): pre recomputed and the accumulation, 16 C
-        # multiply-adds each as three TF32 products, and CONV_BWD_OPS_PER_OUT
-        # in f32.
-        x, weight, bias, g = args
-        c = x.shape[3]
-        n_bytes = 4 * (x.numel() + g.numel() + 2 * (weight.numel() + bias.numel()))
+        out = x.numel() if op == "conv_dx" else weight.numel() + bias.numel()
+        n_bytes = 4 * (x.numel() + g.numel() + weight.numel() + bias.numel() + out)
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = (3 * 2 * 2 * 16 * c * g.numel() / PEAK_TF32_OPS_PER_S
                  + CONV_BWD_OPS_PER_OUT * g.numel() / PEAK_OPS_PER_S[torch.float32])
@@ -982,9 +973,29 @@ def phase_device() -> str:
             line.strip() for line in so.with_suffix(".log").read_text().splitlines()
             if "registers" in line or "spill" in line or "Compiling entry" in line
         ]
+        extra = {}
+        if name == "conv_s2":
+            # K4's input gradient: the plan at CUB's train batch, and each
+            # instantiation's registers and spills (C, 16-byte input copies).
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            extra["conv_dx_plan"] = kernels.conv_dx_plan(64, 64, 64, 3, sms)._asdict()
+            extra["conv_dx_ptxas"] = dx_ptxas(ptxas)
         emit({"phase": "build", "seconds_all": seconds,
-              "library": str(so.relative_to(ROOT)), "ptxas": ptxas})
+              "library": str(so.relative_to(ROOT)), "ptxas": ptxas, **extra})
     return kind
+
+
+def dx_ptxas(lines: list[str]) -> dict[str, str]:
+    """``-Xptxas -v``'s registers and spills of each instantiation of K4's
+    input gradient, keyed ``C=<c> vec=<0|1>`` from the mangled name."""
+    out, key = {}, None
+    for line in lines:
+        if "Compiling entry" in line:
+            found = re.search(r"conv_s2_dx_kernelILi(\d)ELb(\d)E", line)
+            key = f"C={found.group(1)} vec={found.group(2)}" if found else None
+        elif key:
+            out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
 
 
 # ------------------------------------------------------------ phase 2 ----

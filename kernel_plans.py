@@ -1,10 +1,11 @@
 """Times every launch layout of K2 (``bce_rows``), K3 (``seq_ce_rows``),
 K4 (``conv4x4s2_swish``), the fused PoE + KL (``poe_kl``) and the
 backward kernels of K2 (``bce_rows_grad``), K3 (``seq_ce_rows_grad``), the
-fused PoE + KL (``poe_kl_bwd``) and K4 (``conv4x4s2_swish_bwd``) on one
-NVIDIA card, at the shapes ``chip_smoke.py`` times and checks.
+fused PoE + KL (``poe_kl_bwd``) and K4 (``conv4x4s2_swish_bwd`` and its
+input gradient ``conv4x4s2_swish_dx``) on one NVIDIA card, at the shapes
+``chip_smoke.py`` times and checks.
 
-    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd|bce_bwd|conv_bwd ...]
+    python3 kernel_plans.py [bce|seq_ce|conv|poe_kl|seq_ce_bwd|poe_kl_bwd|bce_bwd|conv_bwd|conv_dx ...]
 
 ``mmvae_torch/ops/kernels.py``'s ``bce_plan``, ``seq_ce_plan``,
 ``conv_plan``, ``poe_kl_plan``, ``bce_grad_plan``, ``seq_ce_grad_plan``
@@ -21,13 +22,15 @@ and a warp a token row at 4 to 16 warps at 1 or 2 examples a chunk; for
 the fused PoE + KL's backward: latent tiles of 4 to 256 in float4s and in
 scalars, each at 3 block sizes; for K4's backward: tiles of 2 or 4
 output rows, 4 or 8 warps a block and 1 to 4 blocks an SM, at CelebA's
-train shape and at C = 1 and 4). The arguments name the kernels to time
-(all by default).
+train shape and at C = 1 and 4; for K4's input gradient: tiles of 1 to 8
+output rows, 4, rows + 2 or 12 warps and 1 or 2 blocks an SM, at CUB's
+train shape, at C = 1 and 4 and at an odd size). The arguments name the
+kernels to time (all by default).
 For each (kernel, shape, plan) it prints one JSON line: whether the plan
 is the one the wrapper picks, the max abs error against the plain
 version, whether two calls gave the same bits and whether the plan gave
-the first plan's (every plan of K2's VJP computes each element alone, so
-they must), and the device time with the inputs in L2 (``ms``) and
+the first plan's (every plan of K2's VJP and of K4's input gradient
+computes each element alone, so they must), and the device time with the inputs in L2 (``ms``) and
 L2-cold (``cold_ms``), beside the library call's and the bound, as
 ``chip_smoke.py`` times them. The lines are also written to
 ``chiprun_out/kernel_plans.jsonl``. Exits non-zero without a card or when
@@ -103,6 +106,12 @@ CONV_BWD_SHAPES = {
     "celeba_train": (64, 64, 64, 3),
     "c1": (64, 64, 64, 1),
     "c4": (64, 64, 64, 4),
+}
+CONV_DX_SHAPES = {
+    "cub_train": (64, 64, 64, 3),
+    "c1": (64, 64, 64, 1),
+    "c4": (64, 64, 64, 4),
+    "odd": (3, 33, 31, 3),
 }
 POE_BWD_SHAPES = {
     "mnist_train": (3, 100, 2, 64, "eval"),
@@ -209,6 +218,16 @@ def conv_bwd_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvBwdPl
     return plans if auto in plans else plans + [auto]
 
 
+def conv_dx_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvDxPlan]:
+    plans = [K.conv_dx_plan(b, h, w, c, sms, rows, warps, blocks_per_sm)
+             for rows in (1, 2, 4, 6, 8)
+             for warps in sorted({4, min(rows + 2, K.CONV_DX_MAX_WARPS), K.CONV_DX_MAX_WARPS})
+             for blocks_per_sm in (1, 2)]
+    auto = K.conv_dx_plan(b, h, w, c, sms)
+    plans = list(dict.fromkeys(plans))
+    return plans if auto in plans else plans + [auto]
+
+
 def auto_plan(op: str, shape, sms: int):
     if op == "bce":
         return K.bce_plan(shape[0], shape[1], sms)
@@ -224,6 +243,8 @@ def auto_plan(op: str, shape, sms: int):
         return K.bce_grad_plan(*shape[:3])
     if op == "conv_bwd":
         return K.conv_bwd_plan(*shape, sms)
+    if op == "conv_dx":
+        return K.conv_dx_plan(*shape, sms)
     return K.poe_kl_bwd_plan(*shape[:4], sms)
 
 
@@ -252,7 +273,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wanted = sys.argv[1:] or ["bce", "seq_ce", "conv", "poe_kl", "seq_ce_bwd", "poe_kl_bwd",
-                              "bce_bwd", "conv_bwd"]
+                              "bce_bwd", "conv_bwd", "conv_dx"]
     K.build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out_path = Path(cs.ROOT) / "chiprun_out" / "kernel_plans.jsonl"
@@ -275,6 +296,8 @@ def main() -> None:
               for label, shape in BCE_BWD_SHAPES.items()]
     cases += [("conv_bwd", label, shape, conv_bwd_plans(*shape, sms))
               for label, shape in CONV_BWD_SHAPES.items()]
+    cases += [("conv_dx", label, shape, conv_dx_plans(*shape, sms))
+              for label, shape in CONV_DX_SHAPES.items()]
     for op, label, shape, plans in cases:
         if op not in wanted:
             continue

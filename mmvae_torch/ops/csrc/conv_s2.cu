@@ -105,29 +105,35 @@
 //
 // What bounds it: at CUB's train shape (64, 64, 64, 3) it reads x (3.15
 // MB) and g (8.39 MB) and writes dx (3.15 MB), 14.68 MB, 4.38 us at 3.35
-// TB/s. Its two products, the recompute of pre and dx, are 2 x 100.7 M
-// multiply-adds, 6.0 us at 67 TFLOP/s of f32 on the CUDA cores (6.3 us
-// with swish' and the product with g). In f32 the operations bound it, and
-// the design aims at that bound: it runs both products on the CUDA cores
-// (a 3xTF32 mma.sync form, as the backward's, is later work). It does not
-// reach it: on an H100 it runs at about 4.6 times the bound, for causes not
-// yet measured (PERF.md has the times, ROADMAP.md the suspects).
+// TB/s. Its two products, the recompute of pre and T = S W (per output
+// pixel the 16 C entries it gives the input), are 2 x 100.7 M
+// multiply-adds: here in 3xTF32 on the tensor cores, 1.21 GFLOP, 2.44 us at
+// 495 TFLOP/s of dense TF32 (6.0 us in f32 on the CUDA cores). So the bytes
+// bound it.
 //
-// Design. A block takes a tile of TR output rows by 32 output columns of
-// one image, whose input rows 2 m0 .. 2 m0 + 2 TR - 1 and 64 input columns
-// it writes dx for. An input row pair (2m, 2m + 1) reads output rows m - 1,
-// m and m + 1, so the block recomputes S for its output pixels and the
-// ring of pixels around them (0 outside the output), which its neighbours
-// also compute, and keeps that S in shared memory: a thread a pixel, its
-// 4 x 4 x C input window in registers, pre 4 channels at a time against
-// the weights staged once as float4s over 4 output channels (broadcast
-// reads, 4 FMAs a load), g read through its strides. Then a thread takes a
-// 2 x 2 quad of input pixels: per 4 channels it reads the 3 x 3 S pixels
-// around it as float4s (a pixel is 36 floats, so 8 adjacent threads hit 8
-// distinct 16-byte bank groups) and gathers each input pixel's 2 x 2
-// covering output pixels, in a fixed order. No atomics: two calls give the
-// same bits. The ring costs (TR + 2) / TR of the recompute (1.5 at TR = 4
-// where the output is 32 wide, as CUB's is).
+// Design, on the backward's route. A block walks tiles of TR output rows
+// by 32 output columns of one image with the grid's stride (TR = 8: one
+// block an SM); a tile writes dx for its input rows 2 m0 .. 2 m0 + 2 TR - 1
+// and columns 2 j0 .. 2 j0 + 63, which read S on the tile's output pixels
+// and the ring around them, so S is recomputed for TR + 2 rows of 34
+// pixels (its neighbours compute the ring too: no block reads another's
+// results, no atomics). The tile's 2 TR + 6 input rows are copied raw with
+// cp.async while the previous tile is computed, then split once into TF32
+// hi and lo planes; the weights are staged once a block as both products'
+// fragments. A warp takes an item of 32 S pixels, a row of S (the ring's
+// columns are one more item where the tile has them): product 1, pre =
+// patches . W^T with the pixels as the M side (two m-tiles, four n-tiles of
+// output channels); S = g swish'(pre + b) on the accumulator fragments, g
+// read through its strides; product 2, T^T = W^T . S^T, whose B fragments
+// are product 1's accumulator fragments when a k step takes the channels
+// in the order 0, 2, 4, 6, 1, 3, 5, 7, so S never leaves the registers.
+// T goes to shared memory; the ring's rows need one tap row of it each,
+// which lies in one m-tile of product 2. Then a thread an input pixel sums
+// its 2 x 2 covering entries of T in a fixed order: two launches give the
+// same bits, whatever the plan. What holds it at several times its bound
+// is, as in the backward, the wait of dependent mma.sync products and the
+// block's phases (copy and split, products, fold) following each other
+// (conv_dx_split.py splits the time; PERF.md has the numbers).
 //
 // C interface (bound with ctypes): conv4x4s2_swish launches on `stream`
 // with the plan it is given (warps a block, blocks, dynamic shared memory),
@@ -925,191 +931,452 @@ bool bwd_plan_ok(int c, int warps, int smem, int rows) {
 
 // ------------------------------------------------------ input gradient --
 
-constexpr int kDxTileW = 32;             // output columns of a tile
-constexpr int kDxCols = kDxTileW + 2;    // S columns a tile stages, its halo with them
-constexpr int kDxPix = kCout + 4;        // floats of a staged S pixel (4 past 32: no conflicts)
-constexpr int kO4 = kCout / 4;           // output channels in float4s
-constexpr int kDxMaxThreads = 256;
-constexpr int kDxMaxRows = 16;
+constexpr int kDxCols = kTileW + 2;         // S columns of a tile: its 32 and one each side
+constexpr int kDxInCols = 2 * kDxCols + 2;  // input columns a tile stages
+constexpr int kDxMaxWarps = 12;  // so that a thread may hold 168 registers
+constexpr int kDxMaxRows = 8;
 
-// The weights as float4s over 4 output channels, [o4][tap][c], then the
-// S tile: TR + 2 rows of kDxCols pixels of kDxPix floats.
+// Floats before input column 2 j0 - 3 of a staged row: 2 j0 C is a multiple
+// of 4, so the image's 16-byte chunks start on 16 bytes.
+__host__ __device__ constexpr int dx_lead(int c) { return (4 - 3 * c % 4) % 4; }
+// Floats of one staged input row (raw, hi or lo): 70 columns from 2 j0 - 3.
+__host__ __device__ constexpr int dx_row_floats(int c) {
+  return (dx_lead(c) + kDxInCols * c + 3) / 4 * 4;
+}
+// Floats of one S pixel's row of T (16 C), padded so that a warp's stores
+// of T fall on distinct banks.
+__host__ __device__ constexpr int dx_t_pitch(int c) { return 16 * c + (c % 2 ? 2 : 4); }
+// Floats of the staged weights: product 1's B fragments and product 2's A
+// fragments, hi and lo, 1024 C floats each.
+__host__ __device__ constexpr int dx_w_floats(int c) { return 2 * 1024 * c; }
+// Floats of one input plane (raw, hi or lo) of a tile: 2 TR + 6 rows.
+__host__ __device__ constexpr int dx_plane_floats(int c, int rows) {
+  return (2 * rows + 6) * dx_row_floats(c);
+}
+// Floats of T: TR + 2 rows of 34 S pixels.
+__host__ __device__ constexpr int dx_t_floats(int c, int rows) {
+  return (rows + 2) * kDxCols * dx_t_pitch(c);
+}
+// The weights' fragments; the raw copy of the next tile's input and its hi
+// and lo planes; and T.
 size_t dx_smem_of(int c, int rows) {
-  return sizeof(float) * (static_cast<size_t>(kO4) * kTaps * c * 4 +
-                          static_cast<size_t>(rows + 2) * kDxCols * kDxPix);
+  return sizeof(float) * (static_cast<size_t>(dx_w_floats(c)) + 3 * dx_plane_floats(c, rows) +
+                          static_cast<size_t>(dx_t_floats(c, rows)));
 }
 
-// One tile: output rows m0 .. m0 + TR - 1 and columns j0 .. j0 + 31 of
-// image n, whose input rows 2 m0 .. 2 m0 + 2 TR - 1 and columns 2 j0 ..
-// 2 j0 + 63 it writes dx for.
+// Offset in a staged row of patch element k = (ky * 4 + kx) * C + c.
 template <int C>
-__global__ void __launch_bounds__(kDxMaxThreads)
+__host__ __device__ constexpr int dx_k_off(int k) {
+  return k / (4 * C) * dx_row_floats(C) + k % (4 * C);
+}
+
+// The S pixel of slot s (0..31) of an item, as row r (0..TR + 1) and column
+// cs (0..33) of the tile's S grid; false for a slot with no pixel. Items 0
+// .. TR + 1 are the grid's rows, columns 1..32: at odd C the m-tile's rows
+// 0-7 are its even pixels and rows 8-15 its odd ones, at even C they are in
+// order (either way a warp's fragment loads and T stores fall on distinct
+// banks, 2-way at C = 4). Item TR + 2 holds the ring's columns 0 and 33.
+template <int C>
+__device__ __forceinline__ bool dx_slot(int item, int s, int s_rows, int& r, int& cs) {
+  if (item < s_rows) {
+    const int rho = s % 16;
+    r = item;
+    cs = 1 + (C % 2 ? s / 16 * 16 + (rho < 8 ? 2 * rho : 2 * rho - 15) : s);
+    return true;
+  }
+  const bool ok = s < 2 * s_rows;
+  r = ok ? s / 2 : 0;
+  cs = ok && s % 2 ? kDxCols - 1 : 0;
+  return ok;
+}
+
+// One tile's 2 TR + 6 input rows, 70 columns from 2 j0 - 3 on (zero where
+// the pad or an edge falls), copied raw into shared memory (16 bytes a copy
+// where VEC) as the backward's BwdStage copies its rows.
+template <int C, bool VEC>
+struct DxStage {
+  static constexpr int E = VEC ? 4 : 1;
+  static constexpr int kPerRow = dx_row_floats(C) / E;
+
+  __device__ __forceinline__ static void load_x(float* raw, const float* __restrict__ x, int n,
+                                                int m0, int j0, int h, long long row_len,
+                                                int rows, int tid, int nthreads) {
+    const long long c0 = static_cast<long long>(2 * j0 - 3) * C - dx_lead(C);
+    const float* xn = x + static_cast<long long>(n) * h * row_len;
+    const int all = (2 * rows + 6) * kPerRow;
+    for (int i = tid; i < all; i += nthreads) {
+      const int r = i / kPerRow;
+      const int iy = 2 * m0 - 3 + r;
+      const long long col = c0 + (i - r * kPerRow) * E;
+      const bool ok = iy >= 0 && iy < h && col >= 0 && col + E <= row_len;
+      cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+};
+
+// dx of one tile from its T: input row 2 (m0 + a) + ph reads S rows r =
+// a + 1 + ph - d at tap row ky = 1 - ph + 2 d (d = 0, 1), and likewise its
+// column; 0 outside the output. Sum ((d, d') = (0, 0) + (0, 1)) + (1, 0) +
+// (1, 1): a fixed order. A thread an input pixel (its C channels), two
+// pixels a stride apart with their loads together.
+template <int C>
+__device__ __forceinline__ void dx_fold(const float* s_t, float* __restrict__ dx, int n, int m0,
+                                        int j0, int h, int wd, int h_out, int w_out, int rows,
+                                        int tid, int nthreads) {
+  constexpr int TP = dx_t_pitch(C);
+  constexpr int kPx = 2 * kTileW;  // input columns of a tile
+  const int row_len = wd * C;
+  float* dxn = dx + static_cast<long long>(n) * h * row_len + 2 * j0 * C;
+  const int n_px = 2 * rows * kPx;
+  for (int p0 = tid; p0 < n_px; p0 += 2 * nthreads) {
+    float v[2][4][C];
+    int at[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int p = p0 + u * nthreads;
+      const int a = p / kPx, wl = p % kPx;
+      const int ph = a % 2, pw = wl % 2;
+      const bool in = p < n_px && 2 * m0 + a < h && 2 * j0 + wl < wd;
+      at[u] = in ? (2 * m0 + a) * row_len + wl * C : -1;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int r = a / 2 + 1 + ph - d;
+        const int i = m0 - 1 + r;
+        const int ky = 1 - ph + 2 * d;
+#pragma unroll
+        for (int d2 = 0; d2 < 2; ++d2) {
+          const int cs = wl / 2 + 1 + pw - d2;
+          const int j = j0 - 1 + cs;
+          const int kx = 1 - pw + 2 * d2;
+          const bool ok = in && i >= 0 && i < h_out && j >= 0 && j < w_out;
+          const float* tp = s_t + (r * kDxCols + cs) * TP + (ky * 4 + kx) * C;
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[u][2 * d + d2][c] = ok ? tp[c] : 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (at[u] < 0) continue;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        dxn[at[u] + c] = ((v[u][0][c] + v[u][1][c]) + v[u][2][c]) + v[u][3][c];
+      }
+    }
+  }
+}
+
+// A block walks tiles of TR output rows by 32 output columns of one image
+// with the grid's stride; it writes dx for the tile's input rows 2 m0 ..
+// 2 m0 + 2 TR - 1 and columns 2 j0 .. 2 j0 + 63, which read S on the tile
+// and the ring around it (rows m0 - 1 .. m0 + TR, columns j0 - 1 .. j0 +
+// 32). The warps take items of 32 S pixels (two m-tiles of 16; the items
+// are the TR + 2 rows of S and, where the tile has them, the ring's
+// columns): product 1, pre (16 pixels x 8 channels, four n-tiles) =
+// patches . W^T; S = g swish'(pre + b) on the accumulator fragments, g read
+// from global memory through its strides; product 2, T^T (16 C x 8 pixels)
+// = W^T . S^T, whose B fragments are product 1's accumulator fragments when
+// its k step takes the channels in the order 0, 2, 4, 6, 1, 3, 5, 7 (so S
+// never leaves the registers); T into shared memory. Both products 3xTF32
+// on the tensor cores. The ring's rows need one tap row of T each (ky = 3
+// above, ky = 0 below), which lies in one m-tile of product 2. Then every
+// warp folds T into dx. The next tile's input is copied meanwhile.
+template <int C, bool VEC>
+__global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
     conv_s2_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ bias, const float* __restrict__ g, long long sn,
                       long long so, long long sh, long long sw, float* __restrict__ dx, int h,
-                      int wd, int h_out, int w_out, int rows, int row_tiles, int col_tiles) {
+                      int wd, int h_out, int w_out, int rows, int row_tiles, int col_tiles,
+                      int tiles) {
+  constexpr int K = kTaps * C;  // patch elements: [ky][kx][c]
+  constexpr int KS = K / 8;     // product 1's k steps
+  constexpr int MT = K / 16;    // product 2's m-tiles
+  constexpr int RF = dx_row_floats(C);
+  constexpr int TP = dx_t_pitch(C);
   extern __shared__ __align__(16) float smem[];
-  float4* s_w = reinterpret_cast<float4*>(smem);  // [o4][tap][c]: w[4 o4 .. 4 o4 + 3, c, tap]
-  float* s_s = smem + kO4 * kTaps * C * 4;         // [row][col][o]
-  const int ct = blockIdx.x % col_tiles;
-  const int rest = blockIdx.x / col_tiles;
-  const int m0 = rest % row_tiles * rows;
-  const int n = rest / row_tiles;
-  const int j0 = ct * kDxTileW;
+  uint4* s_w1 = reinterpret_cast<uint4*>(smem);  // [ks][nt][lane]
+  uint4* s_w2 = s_w1 + KS * 4 * 32;               // [mt][ks][hi, lo][lane]
+  const int plane = dx_plane_floats(C, rows);
+  float* s_raw = smem + dx_w_floats(C);
+  float* s_xh = s_raw + plane;
+  float* s_xl = s_xh + plane;
+  float* s_t = s_xl + plane;  // [r][cs][TP]
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment coordinates
+  const long long row_len = static_cast<long long>(wd) * C;
+  const int s_rows = rows + 2;
 
-  for (int i = threadIdx.x; i < kO4 * kTaps * C; i += blockDim.x) {
-    const int c = i % C, tap = i / C % kTaps, o4 = i / (C * kTaps);
-    const float* src = w + (4 * o4 * C + c) * kTaps + tap;
-    s_w[i] = make_float4(__ldg(src), __ldg(src + C * kTaps), __ldg(src + 2 * C * kTaps),
-                         __ldg(src + 3 * C * kTaps));
+  using Stage = DxStage<C, VEC>;
+  int t = blockIdx.x;
+  if (t < tiles) {
+    const int rest = t / col_tiles;
+    Stage::load_x(s_raw, x, rest / row_tiles, rest % row_tiles * rows, t % col_tiles * kTileW, h,
+                  row_len, rows, tid, nthreads);
   }
-  __syncthreads();
-
-  // S = g swish'(pre) of the tile's output pixels and the ring around
-  // them (0 outside the output), a thread a pixel: its 4 x 4 x C window
-  // in registers, pre recomputed 4 channels at a time.
-  const int s_pixels = (rows + 2) * kDxCols;
-  for (int p = threadIdx.x; p < s_pixels; p += blockDim.x) {
-    const int i = m0 - 1 + p / kDxCols;
-    const int j = j0 - 1 + p % kDxCols;
-    float4* dst = reinterpret_cast<float4*>(s_s + p * kDxPix);
-    if (i < 0 || i >= h_out || j < 0 || j >= w_out) {
+  // The weights, raw into T's memory (a batch of loads before its stores),
+  // then split once into the fragments. Product 1's B fragment of lane ln
+  // at (ks, nt): W[o][k], W[o][k + 4] with o = 8 nt + ln / 4, k = 8 ks + ln
+  // % 4, as {hi, hi, lo, lo}. Product 2's A fragment at (mt, ks): W[o][k],
+  // W[o][k + 8], W[o + 1][k], W[o + 1][k + 8] with o = 8 ks + 2 (ln % 4), k =
+  // 16 mt + ln / 4, hi then lo 32 lanes on. W[o][k] is w[o, c, ky, kx] with
+  // k = (ky * 4 + kx) C + c.
+  for (int i0 = 0; i0 < kCout * K; i0 += 8 * nthreads) {
+    float v[8];
 #pragma unroll
-      for (int o4 = 0; o4 < kO4; ++o4) dst[o4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      continue;
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthreads + tid;
+      v[u] = i < kCout * K ? __ldg(w + i) : 0.0f;
     }
-    float xw[kTaps * C];
 #pragma unroll
-    for (int ky = 0; ky < 4; ++ky) {
-      const int iy = 2 * i - 1 + ky;
-#pragma unroll
-      for (int kx = 0; kx < 4; ++kx) {
-        const int ix = 2 * j - 1 + kx;
-        const bool ok = iy >= 0 && iy < h && ix >= 0 && ix < wd;
-        const float* src = x + ((static_cast<long long>(n) * h + iy) * wd + ix) * C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) xw[(ky * 4 + kx) * C + c] = ok ? __ldg(src + c) : 0.0f;
-      }
-    }
-    const float* gp = g + n * sn + i * sh + j * sw;
-#pragma unroll 1
-    for (int o4 = 0; o4 < kO4; ++o4) {
-      const float4* wv = s_w + o4 * kTaps * C;
-      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int k = 0; k < kTaps * C; ++k) {
-        const float4 wk = wv[k];
-        a[0] = fmaf(xw[k], wk.x, a[0]);
-        a[1] = fmaf(xw[k], wk.y, a[1]);
-        a[2] = fmaf(xw[k], wk.z, a[2]);
-        a[3] = fmaf(xw[k], wk.w, a[3]);
-      }
-      float s[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int o = 4 * o4 + e;
-        s[e] = __ldg(gp + o * so) * dswish(a[e] + __ldg(bias + o));
-      }
-      dst[o4] = make_float4(s[0], s[1], s[2], s[3]);
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthreads + tid;
+      if (i < kCout * K) s_t[i] = v[u];
     }
   }
+  // The bias of the thread's channels 8 nt + 2 tq (+ 1).
+  float bv[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    bv[nt][0] = __ldg(bias + 8 * nt + 2 * tq);
+    bv[nt][1] = __ldg(bias + 8 * nt + 2 * tq + 1);
+  }
   __syncthreads();
+  auto w_at = [&](int o, int k) { return s_t[(o * C + k % C) * kTaps + k / C]; };
+  for (int i = tid; i < KS * 4 * 32; i += nthreads) {
+    const int ln = i % 32;
+    const int o = i / 32 % 4 * 8 + ln / 4;
+    const int k = i / 128 * 8 + ln % 4;
+    unsigned h0, l0, h1, l1;
+    split_tf32(w_at(o, k), h0, l0);
+    split_tf32(w_at(o, k + 4), h1, l1);
+    s_w1[i] = make_uint4(h0, h1, l0, l1);
+  }
+  for (int i = tid; i < MT * 4 * 32; i += nthreads) {
+    const int ln = i % 32;
+    const int o = i / 32 % 4 * 8 + 2 * (ln % 4);
+    const int k = i / 128 * 16 + ln / 4;
+    unsigned hi[4], lo[4];
+    split_tf32(w_at(o, k), hi[0], lo[0]);
+    split_tf32(w_at(o, k + 8), hi[1], lo[1]);
+    split_tf32(w_at(o + 1, k), hi[2], lo[2]);
+    split_tf32(w_at(o + 1, k + 8), hi[3], lo[3]);
+    uint4* f = s_w2 + i / 32 * 64 + ln;
+    f[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    f[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
 
-  // dx, a thread a 2 x 2 quad of input pixels (2m + ph, 2q + pw): each
-  // reads the S pixels (m + di, q + dj) with di in {ph - 1, ph}, dj in
-  // {pw - 1, pw} at tap (ph + 1 - 2 di, pw + 1 - 2 dj); the 3 x 3 S pixels
-  // around (m, q) serve the quad. Sums over o4, then the taps, then the 4
-  // channels: a fixed order.
-  for (int qd = threadIdx.x; qd < rows * kDxTileW; qd += blockDim.x) {
-    const int qm = qd / kDxTileW, qq = qd % kDxTileW;
-    const int m = m0 + qm, q = j0 + qq;
-    if (2 * m >= h || 2 * q >= wd) continue;
-    float acc[2][2][C];
-#pragma unroll
-    for (int ph = 0; ph < 2; ++ph) {
-#pragma unroll
-      for (int pw = 0; pw < 2; ++pw) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[ph][pw][c] = 0.0f;
-      }
+  for (; t < tiles; t += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's input has landed; the previous tile's T is no longer read
+    for (int i = tid; i < plane / 4; i += nthreads) {
+      const float4 f = reinterpret_cast<const float4*>(s_raw)[i];
+      uint4 hi, lo;
+      split_tf32(f.x, hi.x, lo.x);
+      split_tf32(f.y, hi.y, lo.y);
+      split_tf32(f.z, hi.z, lo.z);
+      split_tf32(f.w, hi.w, lo.w);
+      reinterpret_cast<uint4*>(s_xh)[i] = hi;
+      reinterpret_cast<uint4*>(s_xl)[i] = lo;
     }
-    const float* centre = s_s + ((qm + 1) * kDxCols + qq + 1) * kDxPix;
-#pragma unroll 1
-    for (int o4 = 0; o4 < kO4; ++o4) {
-      float4 sv[3][3];
+    __syncthreads();
+    const int rest = t / col_tiles;
+    const int n = rest / row_tiles;
+    const int m0 = rest % row_tiles * rows;
+    const int j0 = t % col_tiles * kTileW;
+    const int next = t + gridDim.x;
+    if (next < tiles) {
+      const int nrest = next / col_tiles;
+      Stage::load_x(s_raw, x, nrest / row_tiles, nrest % row_tiles * rows,
+                    next % col_tiles * kTileW, h, row_len, rows, tid, nthreads);
+    }
+    // The items: the rows of S inside the output, and the ring's columns
+    // where the tile has them.
+    const int items = s_rows + (j0 > 0 || j0 + kTileW < w_out);
+    for (int item = warp; item < items; item += nthreads / 32) {
+      if (item < s_rows && (m0 - 1 + item < 0 || m0 - 1 + item >= h_out)) continue;
+      // Product 1's A rows: slot 16 mi + 8 hf + gq; the thread's offsets in
+      // the planes (tq added) and its g at channels 8 nt + 2 tq (+ 1).
+      int base[2][2];
+      float gv[2][2][4][2];
 #pragma unroll
-      for (int di = 0; di < 3; ++di) {
+      for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-        for (int dj = 0; dj < 3; ++dj) {
-          sv[di][dj] = *reinterpret_cast<const float4*>(
-              centre + ((di - 1) * kDxCols + dj - 1) * kDxPix + 4 * o4);
+        for (int hf = 0; hf < 2; ++hf) {
+          int r, cs;
+          bool ok = dx_slot<C>(item, 16 * mi + 8 * hf + gq, s_rows, r, cs);
+          base[mi][hf] = 2 * r * RF + dx_lead(C) + 2 * cs * C + tq;
+          const int i = m0 - 1 + r, j = j0 - 1 + cs;
+          ok = ok && i >= 0 && i < h_out && j >= 0 && j < w_out;
+          const float* gp = g + (ok ? n * sn + i * sh + j * sw + 2 * tq * so : 0);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            gv[mi][hf][nt][0] = ok ? __ldg(gp + 8 * nt * so) : 0.0f;
+            gv[mi][hf][nt][1] = ok ? __ldg(gp + (8 * nt + 1) * so) : 0.0f;
+          }
         }
       }
-      const float4* wv = s_w + o4 * kTaps * C;
+      // Product 1: pre (slots x channels) = patches . W^T; per k step the
+      // three products of the split, each over all eight accumulators.
+      float pre[2][4][4] = {};
 #pragma unroll
-      for (int ph = 0; ph < 2; ++ph) {
+      for (int ks = 0; ks < KS; ++ks) {
+        const int oa = dx_k_off<C>(8 * ks), ob = dx_k_off<C>(8 * ks + 4);
+        unsigned ah[2][4], al[2][4];
 #pragma unroll
-        for (int pw = 0; pw < 2; ++pw) {
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* h0 = s_xh + base[mi][0];
+          const float* h1 = s_xh + base[mi][1];
+          const float* l0 = s_xl + base[mi][0];
+          const float* l1 = s_xl + base[mi][1];
+          ah[mi][0] = __float_as_uint(h0[oa]);
+          ah[mi][1] = __float_as_uint(h1[oa]);
+          ah[mi][2] = __float_as_uint(h0[ob]);
+          ah[mi][3] = __float_as_uint(h1[ob]);
+          al[mi][0] = __float_as_uint(l0[oa]);
+          al[mi][1] = __float_as_uint(l1[oa]);
+          al[mi][2] = __float_as_uint(l0[ob]);
+          al[mi][3] = __float_as_uint(l1[ob]);
+        }
+        uint4 wb[4];
 #pragma unroll
-          for (int di = ph - 1; di <= ph; ++di) {
+        for (int nt = 0; nt < 4; ++nt) wb[nt] = s_w1[(ks * 4 + nt) * 32 + lane];
 #pragma unroll
-            for (int dj = pw - 1; dj <= pw; ++dj) {
-              const int tap = (ph + 1 - 2 * di) * 4 + pw + 1 - 2 * dj;
-              const float4 s4 = sv[di + 1][dj + 1];
+        for (int term = 0; term < 3; ++term) {
 #pragma unroll
-              for (int c = 0; c < C; ++c) {
-                const float4 wk = wv[tap * C + c];
-                float v = acc[ph][pw][c];
-                v = fmaf(s4.x, wk.x, v);
-                v = fmaf(s4.y, wk.y, v);
-                v = fmaf(s4.z, wk.z, v);
-                acc[ph][pw][c] = fmaf(s4.w, wk.w, v);
-              }
+          for (int nt = 0; nt < 4; ++nt) {
+            const unsigned b[2] = {term == 1 ? wb[nt].z : wb[nt].x,
+                                   term == 1 ? wb[nt].w : wb[nt].y};
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) mma_tf32(pre[mi][nt], term == 0 ? al[mi] : ah[mi], b);
+          }
+        }
+      }
+      // S = g swish'(pre + b): element e of (mi, nt) is slot 16 mi + 8 (e /
+      // 2) + gq, channel 8 nt + 2 tq + e % 2.
+      float sv[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sv[mi][nt][e] = gv[mi][e / 2][nt][e % 2] * dswish(pre[mi][nt][e] + bv[nt][e % 2]);
+          }
+        }
+      }
+      // Where the thread's entries of T go: slot 16 mi + 8 hf + 2 tq + p of
+      // n-tile nb = 2 mi + hf, or -1 for a slot with no pixel.
+      int t_at[4][2];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          int r, cs;
+          const bool ok = dx_slot<C>(item, 8 * nb + 2 * tq + p, s_rows, r, cs);
+          t_at[nb][p] = ok ? (r * kDxCols + cs) * TP + gq : -1;
+        }
+      }
+      // Product 2: T^T (k x slots) = W^T . S^T over kPass m-tiles of 16
+      // patch elements at once (4 n-tiles each), S split per k step; the
+      // ring's rows take only the m-tile of their tap row.
+      const int mt_lo = item == 0 ? MT - 1 : 0;
+      const int mt_hi = item == s_rows - 1 ? 1 : MT;
+      constexpr int kPass = MT == 4 ? 2 : MT;  // 1, 2, 3, 2 at C = 1-4
+#pragma unroll
+      for (int mp = 0; mp < MT; mp += kPass) {
+        if (mp + kPass <= mt_lo || mp >= mt_hi) continue;
+        float acc[kPass][4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          unsigned bh[4][2], bl[4][2];
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            split_tf32(sv[nb / 2][ks][2 * (nb % 2)], bh[nb][0], bl[nb][0]);
+            split_tf32(sv[nb / 2][ks][2 * (nb % 2) + 1], bh[nb][1], bl[nb][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < kPass; ++m) {
+            const int mt = mp + m;
+            if (mt < mt_lo || mt >= mt_hi) continue;
+            const uint4 h4 = s_w2[(mt * 4 + ks) * 64 + lane];
+            const uint4 l4 = s_w2[(mt * 4 + ks) * 64 + 32 + lane];
+            const unsigned ah[4] = {h4.x, h4.y, h4.z, h4.w};
+            const unsigned al[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], al, bh[nb]);
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], ah, bl[nb]);
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], ah, bh[nb]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kPass; ++m) {
+          const int mt = mp + m;
+          if (mt < mt_lo || mt >= mt_hi) continue;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              if (t_at[nb][p] < 0) continue;
+              float* tp = s_t + t_at[nb][p] + 16 * mt;
+              tp[0] = acc[m][nb][p];
+              tp[8] = acc[m][nb][2 + p];
             }
           }
         }
       }
     }
-#pragma unroll
-    for (int ph = 0; ph < 2; ++ph) {
-#pragma unroll
-      for (int pw = 0; pw < 2; ++pw) {
-        const int hh = 2 * m + ph, ww = 2 * q + pw;
-        if (hh >= h || ww >= wd) continue;
-        float* out = dx + ((static_cast<long long>(n) * h + hh) * wd + ww) * C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) out[c] = acc[ph][pw][c];
-      }
-    }
+    __syncthreads();
+    dx_fold<C>(s_t, dx, n, m0, j0, h, wd, h_out, w_out, rows, tid, nthreads);
   }
 }
 
-template <int C>
+template <int C, bool VEC>
 int launch_dx(const float* x, const float* w, const float* b, const float* g, long long sn,
               long long so, long long sh, long long sw, float* dx, int batch, int h, int wd,
-              int threads, int rows, int smem, cudaStream_t stream) {
+              int warps, int blocks, int smem, int rows, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
   const int row_tiles = (h_out + rows - 1) / rows;
-  const int col_tiles = (w_out + kDxTileW - 1) / kDxTileW;
+  const int col_tiles = (w_out + kTileW - 1) / kTileW;
   const long long tiles = static_cast<long long>(batch) * row_tiles * col_tiles;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(smem) > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_s2_dx_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        conv_s2_dx_kernel<C, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_dx_kernel<C><<<static_cast<unsigned>(tiles), threads, smem, stream>>>(
-      x, w, b, g, sn, so, sh, sw, dx, h, wd, h_out, w_out, rows, row_tiles, col_tiles);
+  conv_s2_dx_kernel<C, VEC><<<blocks, warps * 32, smem, stream>>>(
+      x, w, b, g, sn, so, sh, sw, dx, h, wd, h_out, w_out, rows, row_tiles, col_tiles,
+      static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whole warps, at most kDxMaxThreads; 1 to kDxMaxRows output rows a tile;
-// at least the shared memory the weights and the S tile take.
-bool dx_plan_ok(int c, int threads, int rows, int smem) {
-  return c >= 1 && c <= 4 && threads >= 32 && threads <= kDxMaxThreads && threads % 32 == 0 &&
-         rows >= 1 && rows <= kDxMaxRows && smem >= 0 &&
-         static_cast<size_t>(smem) >= dx_smem_of(c, rows) &&
+template <int C>
+int launch_dx_vec(const float* x, const float* w, const float* b, const float* g, long long sn,
+                  long long so, long long sh, long long sw, float* dx, int batch, int h, int wd,
+                  int warps, int blocks, int smem, int rows, cudaStream_t stream) {
+  // 16-byte copies of the input rows where a row is whole float4s and x
+  // starts on 16 bytes.
+  if ((static_cast<long long>(wd) * C) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    return launch_dx<C, true>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks, smem,
+                              rows, stream);
+  }
+  return launch_dx<C, false>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks, smem,
+                             rows, stream);
+}
+
+// Tiles of 1 to kDxMaxRows output rows; 1 to kDxMaxWarps warps (a block's
+// warps take a tile's items in turn); at least the shared memory the
+// weights, the input tile and T take.
+bool dx_plan_ok(int c, int warps, int smem, int rows) {
+  return c >= 1 && c <= 4 && rows >= 1 && rows <= kDxMaxRows && warps >= 1 &&
+         warps <= kDxMaxWarps && smem >= 0 && static_cast<size_t>(smem) >= dx_smem_of(c, rows) &&
          static_cast<size_t>(smem) <= kMaxSmem;
 }
 
@@ -1175,15 +1442,15 @@ extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, 
 }
 
 // f32 only. g is read through its strides (sn, so, sh, sw, in elements);
-// dx is (batch, h, wd, c), NHWC, every element written. threads, rows (a
-// tile's output rows) and smem: the launch plan (kernels.py:conv_dx_plan);
-// the grid is one block a tile.
+// dx is (batch, h, wd, c), NHWC, every element written. warps, blocks,
+// smem and rows (a tile's output rows): the launch plan
+// (kernels.py:conv_dx_plan).
 extern "C" int conv4x4s2_swish_dx(const void* x, const void* w, const void* b, const void* g,
                                   long long sn, long long so, long long sh, long long sw,
-                                  void* dx, int batch, int h, int wd, int c, int threads,
-                                  int rows, int smem, cudaStream_t stream) {
-  if (batch <= 0 || h <= 0 || wd <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
-      !dx_plan_ok(c, threads, rows, smem)) {
+                                  void* dx, int batch, int h, int wd, int c, int warps,
+                                  int blocks, int smem, int rows, cudaStream_t stream) {
+  if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
+      !dx_plan_ok(c, warps, smem, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* xf = static_cast<const float*>(x);
@@ -1193,17 +1460,17 @@ extern "C" int conv4x4s2_swish_dx(const void* x, const void* w, const void* b, c
   float* dxf = static_cast<float*>(dx);
   switch (c) {
     case 1:
-      return launch_dx<1>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, threads, rows,
-                          smem, stream);
+      return launch_dx_vec<1>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
+                              smem, rows, stream);
     case 2:
-      return launch_dx<2>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, threads, rows,
-                          smem, stream);
+      return launch_dx_vec<2>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
+                              smem, rows, stream);
     case 3:
-      return launch_dx<3>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, threads, rows,
-                          smem, stream);
+      return launch_dx_vec<3>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
+                              smem, rows, stream);
     case 4:
-      return launch_dx<4>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, threads, rows,
-                          smem, stream);
+      return launch_dx_vec<4>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
+                              smem, rows, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,7 +21,8 @@
     bias (XLA's gradient of stage 0 on the TPU side, which has no Pallas
     VJP), in the grid :func:`conv_bwd_plan` sizes, and
     ``conv4x4s2_swish_input_grad_kernel`` its backward in the image (dx),
-    a block a tile of output rows, in the tiles :func:`conv_dx_plan` sizes;
+    both products 3xTF32 on the tensor cores, in the grid :func:`conv_dx_plan`
+    sizes;
   * ``poe_kl_kernel`` is the masked product of experts of the eval with
     K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
     a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
@@ -181,7 +182,7 @@ _SIGNATURES = {
         "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
                                 _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
         "conv4x4s2_swish_dx": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _i32,
-                               _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+                               _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -1145,47 +1146,85 @@ def conv4x4s2_swish_grad_torch(
     return d_w, s.sum((0, 2))
 
 
-# K4's input gradient takes a block a tile of ``rows`` output rows by
-# CONV_DX_TILE_W output columns of one image: it recomputes S = g swish'(pre)
-# for them and the ring around them into shared memory (CONV_DX_PIXEL_FLOATS
-# a pixel), then gathers dx, a thread a 2 x 2 quad of input pixels.
-CONV_DX_TILE_W = 32
-CONV_DX_PIXEL_FLOATS = CONV_OUT + 4
-CONV_DX_ROWS = 4
-CONV_DX_THREADS = 128
-CONV_DX_MAX_THREADS = 256
-CONV_DX_MAX_ROWS = 16
+# K4's input gradient walks tiles of ``rows`` output rows by CONV_TILE_W
+# output columns of one image with the grid's stride; its warps take the
+# tile's items of 32 S pixels in turn (the rows + 2 rows of S, and the
+# ring's columns as one more item where the tile has them), both products
+# 3xTF32 on the tensor cores, then fold T into dx. Its launch bound, 168
+# registers a thread, admits 12 warps a block; a block takes at most
+# CONV_DX_MAX_SMEM of shared memory.
+CONV_DX_COLS = CONV_TILE_W + 2
+CONV_DX_MAX_ROWS = 8
+CONV_DX_FEW_ROWS = 2
+CONV_DX_MAX_WARPS = 12
+CONV_DX_BLOCKS_PER_SM = 1
+CONV_DX_MAX_SMEM = 227 * 1024
 
 
 class ConvDxPlan(NamedTuple):
-    """Launch of ``conv4x4s2_swish_dx``: threads a block, output rows a
-    tile, blocks (one a tile) and the block's dynamic shared memory in
-    bytes."""
+    """Launch of ``conv4x4s2_swish_dx``: warps a block (1 to 12), blocks
+    (each walks tiles with the grid's stride), the block's dynamic shared
+    memory in bytes, and the output rows of a tile (1 to 8)."""
 
-    threads: int
-    rows: int
+    warps: int
     blocks: int
     smem: int
+    rows: int
+
+
+def conv_dx_tiles(b: int, h: int, w: int, rows: int) -> int:
+    """Tiles of K4's input gradient for a (b, h, w) batch: b x ceil(ceil(h/2)
+    / rows) x chunks of CONV_TILE_W output columns."""
+    h_out, w_out = -(-h // 2), -(-w // 2)
+    return b * -(-h_out // rows) * -(-w_out // CONV_TILE_W)
+
+
+def conv_dx_row_floats(c: int) -> int:
+    """Floats of one staged input row of K4's input gradient: 2 x 34 + 2 = 70
+    columns from 2 j0 - 3 on, after ``(4 - 3 c % 4) % 4`` floats that put the
+    image's 16-byte chunks on 16 bytes, rounded up to a multiple of 4."""
+    return ((4 - 3 * c % 4) % 4 + (2 * CONV_DX_COLS + 2) * c + 3) // 4 * 4
+
+
+def conv_dx_t_pitch(c: int) -> int:
+    """Floats of one S pixel's entries of T: 16 c, padded by 2 (odd c) or 4
+    (even c) so that a warp's stores fall on distinct banks."""
+    return 16 * c + (2 if c % 2 else 4)
 
 
 def conv_dx_smem(c: int, rows: int) -> int:
-    """Bytes of K4's input gradient's shared memory: the weights as float4s
-    over 4 output channels (8 x 16 taps x C), and the S tile of ``rows`` + 2
-    rows of CONV_DX_TILE_W + 2 pixels."""
-    return 4 * (CONV_OUT * 16 * c + (rows + 2) * (CONV_DX_TILE_W + 2) * CONV_DX_PIXEL_FLOATS)
+    """Bytes of K4's input gradient's shared memory: the weights as both
+    products' fragments (hi and lo, 2 x 1024 c floats); the next tile's raw
+    input and the tile's TF32 hi and lo planes (2 rows + 6 of
+    :func:`conv_dx_row_floats` each); and T, rows + 2 rows of CONV_DX_COLS
+    S pixels of :func:`conv_dx_t_pitch` floats."""
+    t = (rows + 2) * CONV_DX_COLS * conv_dx_t_pitch(c)
+    return 4 * (2 * 1024 * c + 3 * (2 * rows + 6) * conv_dx_row_floats(c) + t)
 
 
+@lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
 def conv_dx_plan(
-    b: int, h: int, w: int, c: int, rows: int = CONV_DX_ROWS, threads: int = CONV_DX_THREADS,
+    b: int, h: int, w: int, c: int, sms: int = H100_SMS, rows: int | None = None,
+    warps: int | None = None, blocks_per_sm: int = CONV_DX_BLOCKS_PER_SM,
 ) -> ConvDxPlan:
-    """The launch of K4's input gradient for an NHWC ``(b, h, w, c)`` batch:
-    a block of ``threads`` (one 2 x 2 input quad each at the default ``rows``
-    of 4) a tile of ``rows`` output rows by CONV_DX_TILE_W output columns,
-    shared memory by :func:`conv_dx_smem`. At CUB's (64, 64, 64, 3): 512
-    blocks of 4 warps."""
-    h_out, w_out = -(-h // 2), -(-w // 2)
-    blocks = b * -(-h_out // rows) * -(-w_out // CONV_DX_TILE_W)
-    return ConvDxPlan(threads, rows, blocks, conv_dx_smem(c, rows))
+    """The launch of K4's input gradient for an NHWC ``(b, h, w, c)`` batch
+    on a card of ``sms`` SMs: tiles of 8 output rows and a warp for each of
+    their 10 rows of S where such tiles fill the SMs (a tile's ring columns
+    then go to warp 0, whose top ring row is the cheapest item); else tiles
+    of CONV_DX_FEW_ROWS rows, for more blocks, and CONV_DX_MAX_WARPS warps,
+    the spare ones sharing the copy, the split and the fold. Blocks:
+    ``blocks_per_sm`` an SM, or one a tile when there are fewer tiles
+    (:func:`conv_dx_tiles`); shared memory by :func:`conv_dx_smem` (at most
+    CONV_DX_MAX_SMEM). ``rows`` and ``warps`` override the rule;
+    ``kernel_plans.py conv_dx`` times the alternatives."""
+    if rows is None:
+        fills = conv_dx_tiles(b, h, w, CONV_DX_MAX_ROWS) >= sms
+        rows = CONV_DX_MAX_ROWS if fills else CONV_DX_FEW_ROWS
+    if warps is None:
+        fills = conv_dx_tiles(b, h, w, rows) >= sms
+        warps = min(rows + 2, CONV_DX_MAX_WARPS) if fills else CONV_DX_MAX_WARPS
+    blocks = max(1, min(conv_dx_tiles(b, h, w, rows), sms * blocks_per_sm))
+    return ConvDxPlan(warps, blocks, conv_dx_smem(c, rows), rows)
 
 
 def conv4x4s2_swish_input_grad_kernel(
@@ -1198,17 +1237,16 @@ def conv4x4s2_swish_input_grad_kernel(
     recomputed from ``x``, ``weight`` and ``bias`` (float32, as
     :func:`conv4x4s2_swish_grad_kernel` takes them). Each entry sums its
     covering taps in a fixed order (no atomics): two calls give the same
-    bits. ``plan`` overrides :func:`conv_dx_plan`."""
+    bits, whatever the plan. ``plan`` overrides :func:`conv_dx_plan`."""
     _check_conv_grad(x, weight, bias, g)
     b, h, w, c = x.shape
     d_x = torch.empty_like(x)
     if d_x.numel() == 0:
         return d_x
-    plan = plan or conv_dx_plan(b, h, w, c)
+    plan = plan or conv_dx_plan(b, h, w, c, _sm_count(x.device.index or 0))
     _launch(
         "conv_s2", "conv4x4s2_swish_dx", x.device, x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c,
-        plan.threads, plan.rows, plan.smem,
+        bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c, *plan,
     )
     LAUNCHES["conv_dx"] += 1
     return d_x

@@ -320,57 +320,122 @@ def test_conv_bwd_workspace_is_a_function_of_shape_and_plan(shape):
 def test_conv_dx_signature_takes_the_gradient_strides_as_64_bits():
     """K4's input gradient reads its upstream gradient through four element
     strides, int64 slots after the four input pointers, then dx, the shape
-    and the plan's threads, rows and shared memory as int32."""
+    and the plan's warps, blocks, shared memory and rows as int32."""
     sig = kernels._SIGNATURES["conv_s2"]["conv4x4s2_swish_dx"]
     assert sig[:4] == [kernels._ptr] * 4 and sig[4:8] == [kernels._i64] * 4
-    assert sig[8] == kernels._ptr and sig[9:-1] == [kernels._i32] * 7
+    assert sig[8] == kernels._ptr and sig[9:-1] == [kernels._i32] * 8
+    assert list(kernels.ConvDxPlan._fields) == ["warps", "blocks", "smem", "rows"]
+
+
+def _dx_row_floats(c: int) -> int:
+    """A staged input row: 70 columns of c floats after a lead that puts
+    the image's 16-byte chunks on 16 bytes (column 2 j0 - 3 starts it)."""
+    lead = (4 - 3 * c % 4) % 4
+    assert (-3 * c - lead) % 4 == 0
+    return -(-(lead + 70 * c) // 4) * 4
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_dx_plan_fits_the_shared_memory_it_asks_for(shape):
-    """A block stages the weights as float4s over 4 output channels (8 x 16
-    taps x C of them) and S for its rows + 2 output rows by 34 columns, 36
-    floats a pixel; it asks for just that, below the 48 KB a launch gets
-    without opting in."""
+    """A block stages both products' weight fragments (hi and lo, 2 x 1024
+    C floats), the tile's raw input and its hi and lo planes (2 rows + 6
+    input rows of 70 columns) and T (rows + 2 rows of 34 S pixels of 16 C
+    floats, padded); it asks for just that, below the 227 KB a block may
+    opt into, at every C. Tiles of 8 rows and a warp a row of S where they
+    fill the SMs, else tiles of 2 rows and 12 warps; one block an SM or
+    one a tile."""
     b, h, w, c = shape
-    plan = kernels.conv_dx_plan(b, h, w, c)
-    assert plan.rows == kernels.CONV_DX_ROWS and plan.threads == kernels.CONV_DX_THREADS
-    assert plan.smem == 4 * (8 * 16 * c * 4 + (plan.rows + 2) * 34 * 36)
-    assert plan.smem <= 48 * 1024
-    assert plan.blocks == b * -(-(-(-h // 2)) // plan.rows) * -(-(-(-w // 2)) // 32)
+    h_out, w_out = -(-h // 2), -(-w // 2)
+
+    def tiles(rows):
+        return b * -(-h_out // rows) * -(-w_out // 32)
+
+    for sms in (16, H100):
+        plan = kernels.conv_dx_plan(b, h, w, c, sms)
+        if tiles(8) >= sms:
+            assert plan.rows == kernels.CONV_DX_MAX_ROWS == 8 and plan.warps == 10
+        else:
+            assert plan.rows == kernels.CONV_DX_FEW_ROWS == 2
+            assert plan.warps == (4 if tiles(2) >= sms else kernels.CONV_DX_MAX_WARPS)
+        t_pitch = 16 * c + (2 if c % 2 else 4)
+        assert plan.smem == 4 * (2048 * c + 3 * (2 * plan.rows + 6) * _dx_row_floats(c)
+                                 + (plan.rows + 2) * 34 * t_pitch)
+        assert plan.smem <= kernels.CONV_DX_MAX_SMEM == 227 * 1024
+        assert plan.blocks == max(1, min(tiles(plan.rows), sms))
+    assert kernels.CONV_DX_MAX_WARPS == 12
+    assert kernels.conv_dx_plan(64, 64, 64, 3) == kernels.ConvDxPlan(10, H100, 149600, 8)
+
+
+def _dx_slot_col(c: int, s: int) -> int:
+    """Column (1..32) of the S grid that slot s of a row item holds, as the
+    kernel's ``dx_slot`` maps it: at odd C an m-tile's rows 0-7 are its even
+    pixels and rows 8-15 its odd ones, at even C they are in order."""
+    rho = s % 16
+    return 1 + (s // 16 * 16 + (2 * rho if rho < 8 else 2 * rho - 15) if c % 2 else s)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_conv_dx_slots_take_every_column_once(c):
+    """A row item's 32 slots hold the 32 columns of its S row once each,
+    and the ring item's first 2 (rows + 2) slots the ring's two columns of
+    every row."""
+    assert sorted(_dx_slot_col(c, s) for s in range(32)) == list(range(1, 33))
+    rows = 8
+    ring = {(s // 2, 33 if s % 2 else 0) for s in range(2 * (rows + 2))}
+    assert ring == {(r, cs) for r in range(rows + 2) for cs in (0, 33)}
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 33, 31, 3), (5, 25, 25, 1),
                                    (2, 30, 70, 3), (2, 18, 10, 3), (1, 1, 1, 3)])
-@pytest.mark.parametrize("rows", [1, 4, 16])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
 def test_conv_dx_plan_covers_every_input_pixel_once(shape, rows):
-    """Decoding each block into its tile as the kernel does, the tiles'
-    2 x 2 quads write every input pixel exactly once (odd H and W: a last
-    quad of one row or column), and every output pixel a written pixel
-    reads (2i + ky - 1 = h, 2j + kx - 1 = w) lies in the tile's staged S
-    ring."""
+    """Walking the tiles as the kernel's blocks do (block k takes tiles k,
+    k + blocks, ... of a grid smaller than the tiles), each tile once, its
+    fold writes every input pixel exactly once (odd H and W: a last row or
+    column of one pixel); every output pixel a written pixel reads (2i + ky
+    - 1 = h, 2j + kx - 1 = w) lies in the tile's S grid (its rows and the
+    ring around them); the ring's rows are read only at their tap row (ky =
+    3 above, ky = 0 below: the one m-tile of product 2 they compute), and
+    the ring's columns only in a tile that has the ring item."""
     b, h, w, c = shape
-    plan = kernels.conv_dx_plan(b, h, w, c, rows=rows)
+    plan = kernels.conv_dx_plan(b, h, w, c, sms=3, rows=rows)
     h_out, w_out = -(-h // 2), -(-w // 2)
     row_tiles, col_tiles = -(-h_out // rows), -(-w_out // 32)
+    tiles = b * row_tiles * col_tiles
+    assert plan.blocks == min(tiles, 3)
+    seen = np.zeros(tiles, np.int64)
     written = np.zeros((b, h, w), np.int64)
+    mt_top, mt_bottom = c - 1, 0  # product 2's m-tile (16 k) of the ring's tap rows
     for block in range(plan.blocks):
-        ct, rest = block % col_tiles, block // col_tiles
-        n, m0, j0 = rest // row_tiles, rest % row_tiles * rows, ct * 32
-        for qd in range(rows * 32):
-            m, q = m0 + qd // 32, j0 + qd % 32
-            for hh in (2 * m, 2 * m + 1):
-                for ww in (2 * q, 2 * q + 1):
+        for t in range(block, tiles, plan.blocks):
+            seen[t] += 1
+            rest, j0 = t // col_tiles, t % col_tiles * 32
+            n, m0 = rest // row_tiles, rest % row_tiles * rows
+            ring_item = j0 > 0 or j0 + 32 < w_out
+            for a in range(2 * rows):
+                for wl in range(64):
+                    hh, ww = 2 * m0 + a, 2 * j0 + wl
                     if hh >= h or ww >= w:
                         continue
                     written[n, hh, ww] += 1
-                    taps = [((hh + 1 - ky) // 2, (ww + 1 - kx) // 2)
-                            for ky in range(4) for kx in range(4)
-                            if (hh + 1 - ky) % 2 == 0 and (ww + 1 - kx) % 2 == 0]
-                    taps = [(i, j) for i, j in taps if 0 <= i < h_out and 0 <= j < w_out]
-                    assert all(m0 - 1 <= i <= m0 + rows and j0 - 1 <= j <= j0 + 32
-                               for i, j in taps)
-    assert np.all(written == 1)
+                    ph, pw = a % 2, wl % 2
+                    for d in range(2):
+                        r, ky = a // 2 + 1 + ph - d, 1 - ph + 2 * d
+                        for d2 in range(2):
+                            cs, kx = wl // 2 + 1 + pw - d2, 1 - pw + 2 * d2
+                            i, j = m0 - 1 + r, j0 - 1 + cs
+                            assert 2 * i + ky - 1 == hh and 2 * j + kx - 1 == ww
+                            assert 0 <= r <= rows + 1 and 0 <= cs <= 33
+                            if not (0 <= i < h_out and 0 <= j < w_out):
+                                continue
+                            k = (ky * 4 + kx) * c  # the first of the c patch elements
+                            if r == 0:
+                                assert ky == 3 and k // 16 == (k + c - 1) // 16 == mt_top
+                            if r == rows + 1:
+                                assert ky == 0 and (k + c - 1) // 16 == mt_bottom
+                            if cs in (0, 33):
+                                assert ring_item
+    assert np.all(seen == 1) and np.all(written == 1)
 
 
 def test_probe_sources_stay_out_of_the_default_build():

@@ -556,13 +556,19 @@ def test_conv_dx_kernel_matches_plain(cuda, shape):
     "shape, plan",
     [
         ((64, 64, 64, 3), None),
-        ((5, 25, 25, 1), kernels.conv_dx_plan(5, 25, 25, 1, rows=1, threads=32)),
-        ((3, 33, 31, 3), kernels.conv_dx_plan(3, 33, 31, 3, rows=16, threads=256)),
+        ((5, 25, 25, 1), kernels.conv_dx_plan(5, 25, 25, 1, rows=1, warps=1)),
+        ((3, 33, 31, 3), kernels.conv_dx_plan(
+            3, 33, 31, 3, rows=kernels.CONV_DX_MAX_ROWS, warps=kernels.CONV_DX_MAX_WARPS)),
+        ((64, 64, 64, 3), kernels.conv_dx_plan(64, 64, 64, 3)._replace(blocks=3)),
+        ((2, 7, 1100, 4), kernels.conv_dx_plan(2, 7, 1100, 4, rows=2, warps=3)),
     ],
 )
 def test_conv_dx_kernel_strided_and_transposed_g_and_other_plans(cuda, shape, plan):
     """The upstream gradient as a padded view and as a transposed one, read
-    in place; bands of 1 and 16 output rows with 1 and 8 warps."""
+    in place; the smallest tile (1 output row, 1 warp taking its 3 rows of
+    S in turn) and the largest (8 rows, 12 warps); more tiles than a grid of
+    3 blocks; rows of 18 tiles, each with the ring's columns, at 2 output
+    rows and 3 warps for 5 items."""
     gen = torch.Generator().manual_seed(45)
     x, w, b, g = _conv_grad_inputs(gen, shape, cuda, strided=True)
     transposed = g.transpose(2, 3).contiguous().transpose(2, 3)
@@ -592,14 +598,15 @@ def test_conv_dx_kernel_same_bits_twice(cuda, shape):
 
 @pytest.mark.gpu
 def test_conv_dx_kernel_refuses_a_plan_it_cannot_run(cuda):
-    """Too little shared memory, more than 227 KB, threads that are not
-    whole warps or more than 8 warps, or bands past 16 rows: the launch is
-    refused and counts none."""
+    """Too little shared memory, more than 227 KB, no warps or more than 12,
+    no blocks, or tiles of no rows or past 8: the launch is refused and
+    counts none."""
     args = _conv_grad_inputs(torch.Generator().manual_seed(48), (2, 8, 8, 3), cuda)
     good = kernels.conv_dx_plan(2, 8, 8, 3)
     before = kernels.LAUNCHES["conv_dx"]
     for bad in (good._replace(smem=good.smem - 4), good._replace(smem=228 * 1024),
-                good._replace(threads=48), good._replace(threads=kernels.CONV_DX_MAX_THREADS + 32),
+                good._replace(warps=0), good._replace(warps=kernels.CONV_DX_MAX_WARPS + 1),
+                good._replace(blocks=0), good._replace(rows=0),
                 good._replace(rows=kernels.CONV_DX_MAX_ROWS + 1,
                               smem=kernels.conv_dx_smem(3, kernels.CONV_DX_MAX_ROWS + 1))):
         with pytest.raises(RuntimeError, match="launch failed"):
