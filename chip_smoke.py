@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    N = B * ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums,
    and two of its launches equal to the bit, as two of K4's input
    gradient's are, whose upstream gradient is also taken transposed);
-   among them CUB's train step's shapes and the IWAE's: K2 on
+   among them CUB's train step's shapes, the mixture objectives' (the
+   fused PoE + KL and its backward at MNIST's 2 mmvae and 3 mopoe
+   components, K2 and its VJP on MNIST mopoe's 300 image rows and CelebA
+   mopoe's 1,280 image and 23,040 attribute rows) and the IWAE's: K2 on
    b-major image rows, K2 through its map over examples of 18 attribute
    rows (``bce_rows_inner``), K3 on b-major tiled tokens and the fused PoE
    + KL at T = 1;
@@ -125,6 +128,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (100 steps of batch 100, then the test ELBO), launching what
      ``mnist``'s does, under ``celeba``'s gates, the card against the CPU
      at batch 100 fed as ``cub``'s;
+   - the mixture objectives (``mixture_train``): ``mnist`` at full width
+     under mmvae, mopoe and mvtcae, each trained one epoch under
+     ``celeba``'s gates (launching what ``mnist``'s does: the decode-all
+     pass of the objective's terms is one K2 launch), its ``eval_elbo``
+     and ``generate`` from the image alone and from the label alone, the
+     mixture's mean and a draw (the fused PoE + KL once a mixture's
+     generate), the eval and generate against the CPU, and three steps on
+     the card against the CPU under ``mnist``'s gates;
+   - ``celeba`` under mopoe (``celeba_mopoe_train``: 19 modalities fall
+     back to the 20 terms of the joint and the unimodal rows, every key
+     decoded on all of them, K2 on 1,280 image rows and 23,040 attribute
+     rows a step), trained one epoch over 1,280 examples under
+     ``celeba``'s gates, its ``eval_elbo`` and ``generate`` from the
+     attributes alone, three steps on the card against the CPU;
+   - ``multimnist`` with the three loss knobs no named config sets
+     (``multimnist_knobs_train``: the cross entries from a second
+     decode-all pass on detached decoders, the unimodal alignment at 0.1,
+     the cycle render's contrast penalty at 1.0), trained one epoch as
+     ``multimnist``'s, launching K2 and K3 once more a step, forward and
+     backward, under its gates;
    - a workdir: ``mnist`` at full width over a train split cut to 2,000
      trained 2 epochs into a temporary workdir and resumed for a third,
      against an uninterrupted 3-epoch run (rel 1e-6);
@@ -144,7 +167,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (a capture each call) and a profile of where the graph runner's device
    time goes (its device busy time with and without the host-to-device
    copies; each runner's idle share from its walls against that busy
-   time), and the same for each config's ``log_likelihood`` through an
+   time), the same for ``mnist`` under each mixture objective and
+   ``celeba`` under mopoe, and the same for each config's ``log_likelihood`` through an
    IWAE graph runner built once and the eager loop (``iwae_wall``,
    ``iwae_profile``). The
    backward kernels are timed at MNIST's, MultiMNIST's and CelebA's train
@@ -178,7 +202,7 @@ import torch
 import torch.nn.functional as F
 
 from mmvae_torch import api, configs, ops
-from mmvae_torch.core import elbo_subset_masks
+from mmvae_torch.core import component_masks, elbo_subset_masks
 from mmvae_torch.data import load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
@@ -230,6 +254,10 @@ OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd
        "conv_bwd", "conv_dx")
 BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx")
 CONFIGS = ("mnist", "fashionmnist", "multimnist", "celeba", "cub")
+MIXTURE_OBJECTIVES = ("mmvae", "mopoe", "mvtcae")
+# The evals of the mixture paths that are timed beside the configs' own.
+MIXTURE_EVALS = (*(configs.get_config("mnist").replace(objective=o) for o in MIXTURE_OBJECTIVES),
+                 configs.get_config("celeba").replace(objective="mopoe", n_random_subsets=0))
 # The IWAE's importance samples per example (``api.log_likelihood``'s default).
 IWAE_K = 64
 META = {
@@ -353,6 +381,11 @@ TIMED_SHAPES = {
             "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
             "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
             "cub_train": (192, 12288, 64, kernels.FOLD_T),
+            # The mixture objectives' decode-all passes: MNIST mopoe's 3
+            # terms of images, CelebA mopoe's 20 of images and attributes.
+            "mnist_mopoe": (300, 784, 100, kernels.FOLD_T),
+            "celeba_mopoe_image": (1280, 12288, 64, kernels.FOLD_T),
+            "celeba_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_T),
             "large": (8192, 784, 4096, kernels.FOLD_T)},
     # A fourth field: the tokens of that many examples tiled b-major to the
     # rows (the IWAE's); CUB's eval: its 2 member terms of 64 captions.
@@ -370,6 +403,8 @@ TIMED_SHAPES = {
                "celeba_train": (24, 64, 19, 100, "subsets"),
                "cub_eval": (3, 64, 2, 256, "eval"),
                "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle"),
+               # MNIST under mmvae (the identity, T = 2) and mopoe (the powerset, T = 3).
+               "mnist_mmvae": (2, 100, 2, 64, "mmvae"), "mnist_mopoe": (3, 100, 2, 64, "mopoe"),
                # The IWAE's joint posterior: one all-ones mask, no presence.
                "mnist_iwae": (1, 100, 2, 64, "joint"),
                "multimnist_iwae": (1, 100, 2, 256, "joint"),
@@ -387,7 +422,10 @@ TIMED_SHAPES = {
                 "celeba_image": (128, 12288, 64, kernels.FOLD_T),
                 "celeba_train_image": (384, 12288, 64, kernels.FOLD_T),
                 "celeba_train_attrs": (26496, 1, 1152, kernels.FOLD_T),
-                "cub_train": (192, 12288, 64, kernels.FOLD_T)},
+                "cub_train": (192, 12288, 64, kernels.FOLD_T),
+                "mnist_mopoe": (300, 784, 100, kernels.FOLD_T),
+                "celeba_mopoe_image": (1280, 12288, 64, kernels.FOLD_T),
+                "celeba_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_T)},
     "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
                    "cub_train": (192, 32, 23), "cub_cycle": (64, 32, 23),
                    "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
@@ -396,7 +434,9 @@ TIMED_SHAPES = {
                    "multimnist_cycle": (1, 100, 2, 256, "cycle"),
                    "celeba_eval": (20, 64, 19, 100, "eval"),
                    "celeba_train": (24, 64, 19, 100, "subsets"),
-                   "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle")},
+                   "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle"),
+                   "mnist_mmvae": (2, 100, 2, 64, "mmvae"),
+                   "mnist_mopoe": (3, 100, 2, 64, "mopoe")},
     "conv_bwd": {"celeba_train": (64, 64, 64, 3)},
     # K4's input gradient: CUB's train batch (the cycle term's re-encode of
     # its 64 renders), an odd size, C = 1 and 4, and CUB's batch with a
@@ -437,6 +477,12 @@ CHECKED_SHAPES = {
         (60, 7, 20, kernels.FOLD_B, 5),
         # CUB's train step: the decode-all pass's image rows.
         (192, 12288, 64, kernels.FOLD_T),
+        # The mixture objectives' decode-all passes: MNIST mopoe's 3 terms
+        # (mmvae's 2 are the mvae eval's rows), CelebA mopoe's 20 terms of
+        # images and of attributes.
+        (300, 784, 100, kernels.FOLD_T),
+        (1280, 12288, 64, kernels.FOLD_T),
+        (23040, 1, 1152, kernels.FOLD_T),
     ],
     # MultiMNIST eval and train (the decode-all pass, a cycle re-read);
     # ragged with all-pad rows; the synthetic CUB vocabulary (3 reserved +
@@ -467,7 +513,8 @@ CHECKED_SHAPES = {
                (1, 100, 2, 256, "cycle"), (24, 64, 19, 100, "subsets"),
                (3, 64, 2, 256, "eval"), (1, 100, 2, 64, "joint"), (1, 100, 2, 256, "joint"),
                (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint"),
-               (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle")],
+               (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle"),
+               (2, 100, 2, 64, "mmvae"), (3, 100, 2, 64, "mopoe")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
@@ -485,6 +532,9 @@ CHECKED_SHAPES = {
         (36, 1002, 18, kernels.FOLD_B),
         (70000, 3, 70000, kernels.FOLD_NONE),
         (192, 12288, 64, kernels.FOLD_T),
+        (300, 784, 100, kernels.FOLD_T),
+        (1280, 12288, 64, kernels.FOLD_T),
+        (23040, 1, 1152, kernels.FOLD_T),
     ],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
@@ -506,7 +556,8 @@ CHECKED_SHAPES = {
                    (20, 64, 19, 100, "ties"), (20, 10, 19, 37, "unaligned"),
                    (3, 100, 2, 256, "text"), (1, 100, 2, 256, "cycle"),
                    (3, 100, 2, 100, "eval"), (24, 64, 19, 100, "subsets"),
-                   (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle")],
+                   (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle"),
+                   (2, 100, 2, 64, "mmvae"), (3, 100, 2, 64, "mopoe")],
     # K4's backward (f32): the CelebA train batch; the forward's ragged and
     # odd cases: 37 images, a 25 x 25 grayscale image that pads (1, 2),
     # widths off the 32-pixel tile (35 and 33 outputs), C = 1, 2 and 4, rows
@@ -523,16 +574,20 @@ CHECKED_SHAPES = {
                 (2, 18, 10, 3), (1, 1, 1, 3), (64, 64, 64, 3, "transposed"),
                 (3, 33, 31, 3, "transposed")],
 }
-# The (config, timed shape) each kernel's entry of the final line reports:
-# this slice's path (CUB training) for the kernels it runs -- K4 and its
-# backward at CUB's train batch, which CelebA's eval and train labels time
-# at the same shape -- else the path that runs the kernel.
-_CUB_TRAIN = ("cub_train", "cub_train")
-REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": _CUB_TRAIN, "seq_ce": _CUB_TRAIN,
-            "conv": ("cub_train", "celeba_eval"), "poe_kl": _CUB_TRAIN,
-            "kl_bwd": ("mnist_train", "mnist_train"), "bce_bwd": _CUB_TRAIN,
-            "seq_ce_bwd": _CUB_TRAIN, "poe_kl_bwd": _CUB_TRAIN,
-            "conv_bwd": ("cub_train", "celeba_train"), "conv_dx": _CUB_TRAIN}
+# The (path, timed shape) each kernel's entry of the final line reports:
+# this slice's paths -- CelebA under mopoe for the kernels it runs (K4 and
+# the fused PoE + KL at CelebA's batch, which the eval labels time at the
+# same shapes), MultiMNIST with the loss knobs for K3 -- else the path that
+# runs the kernel.
+_MOPOE = "celeba_mopoe_train"
+REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image"),
+            "seq_ce": ("multimnist_knobs_train", "multimnist_train"),
+            "conv": (_MOPOE, "celeba_eval"), "poe_kl": (_MOPOE, "celeba_eval"),
+            "kl_bwd": ("mnist_train", "mnist_train"),
+            "bce_bwd": (_MOPOE, "celeba_mopoe_image"),
+            "seq_ce_bwd": ("multimnist_knobs_train", "multimnist_train"),
+            "poe_kl_bwd": (_MOPOE, "celeba_eval"), "conv_bwd": (_MOPOE, "celeba_train"),
+            "conv_dx": ("cub_train", "cub_train")}
 _NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
            "conv_dx": 0}
 EXPECTED_LAUNCHES = {
@@ -597,6 +652,36 @@ EXPECTED_LAUNCHES = {
     "cub_train": {"kl": 0, "bce": 52, "seq_ce": 72, "conv": 72, "poe_kl": 72,
                   "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 40, "poe_kl_bwd": 40,
                   "conv_bwd": 40, "conv_dx": 20},
+    # MNIST under each mixture objective: 100 train steps, each the fused
+    # PoE + KL once (mmvae's 2 components, mopoe's 3, mvtcae's joint and
+    # 2 unimodal rows) and K2 once (the decode-all pass's images), forward
+    # and backward; then the 20 batches of the test ELBO, forward only.
+    **{f"mnist_{o}_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                            "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
+                            "conv_bwd": 0, "conv_dx": 0} for o in MIXTURE_OBJECTIVES},
+    # ``eval_elbo`` (20 batches: the fused PoE + KL and K2 once each) and 4
+    # ``generate`` calls, each of which fuses its mixture's components with
+    # the fused PoE + KL once (mvtcae's generate is the plain PoE).
+    "mnist_mmvae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 24, **_NO_BWD},
+    "mnist_mopoe": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 24, **_NO_BWD},
+    "mnist_mvtcae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    # 20 CelebA mopoe steps (T = 20, every key decoded on all terms), each:
+    # K4 once, the fused PoE + KL once, K2 twice (the image on 1,280 rows,
+    # the attributes on 23,040), and each one's backward kernel as often;
+    # then the 32 batches of the test ELBO, forward only.
+    "celeba_mopoe_train": {"kl": 0, "bce": 104, "seq_ce": 0, "conv": 52, "poe_kl": 52,
+                           "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
+                           "conv_bwd": 20, "conv_dx": 0},
+    # ``eval_elbo`` (32 batches) and ``generate`` from the attributes (K4 on
+    # the placeholder image, the fused PoE + KL for the mixture).
+    "celeba_mopoe": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 33, "poe_kl": 33, **_NO_BWD},
+    # 20 MultiMNIST steps with the three loss knobs: ``multimnist_train``'s
+    # step and a second decode-all pass on detached decoders (K2 and K3
+    # once more, forward and backward); the alignment and the contrast
+    # penalty launch no kernel. Then the 20 batches of the test ELBO.
+    "multimnist_knobs_train": {"kl": 0, "bce": 60, "seq_ce": 100, "conv": 0, "poe_kl": 80,
+                               "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 80, "poe_kl_bwd": 60,
+                               "conv_bwd": 0, "conv_dx": 0},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
@@ -723,7 +808,9 @@ def poe_inputs(shape, gen: torch.Generator):
     re-read's one mask, every expert but the last, and no presence;
     ``subsets``: a train step's masks, the 1 + M of the eval and T - 1 - M
     random rows (Bernoulli(0.5)), the first of them all zero; ``joint``:
-    the IWAE's joint posterior, one all-ones mask and no presence."""
+    the IWAE's joint posterior, one all-ones mask and no presence;
+    ``mmvae`` and ``mopoe``: the mixture objectives' component masks
+    (``core.component_masks``), every modality present."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -745,6 +832,8 @@ def poe_inputs(shape, gen: torch.Generator):
         masks[0, -1] = 0.0
     if case == "joint":
         masks = torch.ones(1, m, device=dev)
+    if case in ("mmvae", "mopoe"):
+        masks = component_masks(case, m, device=dev)
     if masks.shape[0] != t:
         raise AssertionError(f"{m} experts give {masks.shape[0]} terms, not {t}")
     presence = torch.ones(b, m, device=dev)
@@ -1064,39 +1153,42 @@ def phase_check() -> dict[str, float]:
 # ------------------------------------------------------------ phase 3 ----
 
 
-def drive(config: str, calls) -> tuple[dict, dict[str, int]]:
+def drive(config, calls) -> tuple[dict, dict[str, int]]:
     """``config``'s eval over its 2,000-example test split, then ``calls``
     (name -> function of the model), all with the "kernel" backend (every
     reduction runs in its kernel or raises) and the launch counts set to 0
-    just before and read just after."""
-    model = configs.build_model(config, seed=0)
-    test = load_dataset(config, "test")
+    just before and read just after. ``config`` is a name or an
+    ``ExperimentConfig`` (another objective)."""
+    cfg = configs.get_config(config) if isinstance(config, str) else config
+    model = configs.build_model(cfg, seed=0)
+    test = load_dataset(cfg.dataset, "test")
     if test.size != 2000:
-        raise AssertionError(f"{config}: test split of {test.size}, not 2000")
+        raise AssertionError(f"{cfg.name}: test split of {test.size}, not 2000")
     ops.set_backend("kernel")
     try:
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
-        elbo = api.eval_elbo(config, model=model, dataset=test)
+        elbo = api.eval_elbo(cfg, model=model, dataset=test)
         outs = {name: call(model) for name, call in calls.items()}
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
     finally:
         ops.set_backend("auto")
-    emit({"phase": "main_path", "config": config, "eval_elbo": elbo, "launches": launches})
+    emit({"phase": "main_path", "config": cfg.name, "objective": cfg.objective,
+          "eval_elbo": elbo, "launches": launches})
 
     ops.set_backend("torch")
     try:
-        elbo_plain = api.eval_elbo(config, model=model, dataset=test)
+        elbo_plain = api.eval_elbo(cfg, model=model, dataset=test)
     finally:
         ops.set_backend("auto")
     if kernels.LAUNCHES != launches:
         raise AssertionError("the torch backend launched a kernel")
     rel = abs(elbo - elbo_plain) / abs(elbo_plain)
-    emit({"phase": "kernel_vs_torch_backend", "config": config, "eval_elbo_kernel": elbo,
-          "eval_elbo_torch": elbo_plain, "rel": rel})
+    emit({"phase": "kernel_vs_torch_backend", "config": cfg.name, "objective": cfg.objective,
+          "eval_elbo_kernel": elbo, "eval_elbo_torch": elbo_plain, "rel": rel})
     if not rel <= 1e-5:
-        raise AssertionError(f"{config}: kernel and torch backends differ: rel {rel}")
+        raise AssertionError(f"{cfg.name}: kernel and torch backends differ: rel {rel}")
     return outs, launches
 
 
@@ -1125,21 +1217,24 @@ def check_probs(probs, shape: tuple[int, ...]) -> None:
         raise AssertionError("generated probabilities not finite or outside [0, 1]")
 
 
-def card_vs_cpu(config: str, n: int, condition: dict, on_card: dict) -> None:
+def card_vs_cpu(config, n: int, condition: dict, on_card: dict) -> None:
     """The eval on an ``n``-example split and ``generate`` at temperature 0
     from ``condition``, on the card and on the CPU, from the same seed:
-    generated probabilities within 1e-4, tokens and labels equal."""
-    model = configs.build_model(config, seed=0)
-    cpu_model = configs.build_model(config, seed=0, device="cpu")
-    small = load_dataset(config, "test", n=n)
-    elbo_card = api.eval_elbo(config, model=model, dataset=small)
-    elbo_cpu = api.eval_elbo(config, model=cpu_model, dataset=small, device="cpu")
-    gen_cpu = api.generate(config, condition, model=cpu_model, device="cpu", temperature=0.0)
+    generated probabilities within 1e-4, tokens and labels equal.
+    ``config`` is a name or an ``ExperimentConfig``."""
+    cfg = configs.get_config(config) if isinstance(config, str) else config
+    config = cfg.name
+    model = configs.build_model(cfg, seed=0)
+    cpu_model = configs.build_model(cfg, seed=0, device="cpu")
+    small = load_dataset(cfg.dataset, "test", n=n)
+    elbo_card = api.eval_elbo(cfg, model=model, dataset=small)
+    elbo_cpu = api.eval_elbo(cfg, model=cpu_model, dataset=small, device="cpu")
+    gen_cpu = api.generate(cfg, condition, model=cpu_model, device="cpu", temperature=0.0)
     rel = abs(elbo_card - elbo_cpu) / abs(elbo_cpu)
     kinds = cpu_model.decode_kinds()
     probs = [k for k in gen_cpu if kinds.get(k) == "bernoulli"]
     errs = {k: (on_card[k].cpu() - gen_cpu[k]).abs().max().item() for k in probs}
-    emit({"phase": "card_vs_cpu", "config": config, "examples": n,
+    emit({"phase": "card_vs_cpu", "config": config, "objective": cfg.objective, "examples": n,
           "eval_elbo_card": elbo_card, "eval_elbo_cpu": elbo_cpu, "rel": rel,
           "generate_max_abs_err": errs})
     if not rel <= 1e-4 or not all(e <= 1e-4 for e in errs.values()):
@@ -1314,6 +1409,28 @@ def train_batches(n_steps: int, bs: int, device, seed: int = 0,
             for k, v in train.arrays.items()}
 
 
+def train_path(cfg) -> str:
+    """The name of ``cfg``'s train path in ``EXPECTED_LAUNCHES`` and the
+    result lines: ``<config>_train``, ``<config>_<objective>_train`` under
+    another objective than mvae, ``<config>_knobs_train`` with the loss
+    knobs no named config sets."""
+    if cfg.objective != "mvae":
+        return f"{cfg.name}_{cfg.objective}_train"
+    if cfg.cross_recon_stopgrad or cfg.unimodal_align_weight or cfg.cycle_contrast_weight:
+        return f"{cfg.name}_knobs_train"
+    return f"{cfg.name}_train"
+
+
+def n_terms(cfg, n_mod: int) -> int:
+    """The terms T of ``cfg``'s train loss over ``n_mod`` modalities: the
+    rows of a step's posterior noise."""
+    if cfg.objective in ("mmvae", "mopoe"):
+        return component_masks(cfg.objective, n_mod).shape[0]
+    if cfg.objective == "mvtcae":
+        return 1
+    return 1 + n_mod + cfg.n_random_subsets
+
+
 def train_counted(cfg) -> tuple:
     """``api.train`` of ``cfg`` (seed 0) with the "kernel" backend and the
     launch counts set to 0 just before and read just after (the replays'
@@ -1329,9 +1446,10 @@ def train_counted(cfg) -> tuple:
         launches = dict(kernels.LAUNCHES)
     finally:
         ops.set_backend("auto")
-    expected = EXPECTED_LAUNCHES[f"{cfg.name}_train"]
-    if launches != expected:
-        raise AssertionError(f"{cfg.name}_train: expected launches {expected}, got {launches}")
+    path = train_path(cfg)
+    if launches != EXPECTED_LAUNCHES[path]:
+        raise AssertionError(
+            f"{path}: expected launches {EXPECTED_LAUNCHES[path]}, got {launches}")
     return result, launches, wall_s
 
 
@@ -1432,12 +1550,12 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
     a step, and the profiler's kernel counts against the wrappers'), and of
     one eager step with the card's capturable Adam (for ``mnist`` also with
     the CPU's plain one)."""
-    name, bs = cfg.name, cfg.batch_size
-    batches = train_batches(n_steps, bs, "cuda", seed=1, config=name)
+    name, bs, path = cfg.name, cfg.batch_size, train_path(cfg)
+    batches = train_batches(n_steps, bs, "cuda", seed=1, config=cfg.dataset)
     runners, first, runs = first_epochs(cfg, batches)
     compared = graph_vs_eager(runs)
-    emit({"phase": "train_graph_vs_eager", "config": name, "steps": n_steps, "batch": bs,
-          "cudnn": "default algorithms", "gated": gate, **compared})
+    emit({"phase": "train_graph_vs_eager", "config": name, "path": path, "steps": n_steps,
+          "batch": bs, "cudnn": "default algorithms", "gated": gate, **compared})
     if gate and not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
         raise AssertionError(f"{name}: graph and eager epochs differ: {compared}")
     walls = {"graph": [], "eager": []}
@@ -1451,7 +1569,7 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
             if not torch.isfinite(metrics["loss"]).all():
                 raise AssertionError(f"{name} train: a non-finite loss in a timed epoch")
     samples = n_steps * bs
-    emit({"phase": "train_rate", "config": name, "steps": n_steps, "batch": bs,
+    emit({"phase": "train_rate", "config": name, "path": path, "steps": n_steps, "batch": bs,
           "wall_s": walls, "samples_per_s": {k: [samples / w for w in v] for k, v in walls.items()},
           "first_call_wall_s": first,
           "first_call_samples_per_s": {k: samples / w for k, w in first.items()},
@@ -1474,7 +1592,7 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
     # The profiler's window carries its own cost (its first replay of a
     # graph under tracing): the epoch's idle share is also read from the
     # unprofiled graph epochs' walls against the profiled busy time a step.
-    emit({"phase": "train_graph_profile", "config": name, "steps": profiled_steps,
+    emit({"phase": "train_graph_profile", "config": name, "path": path, "steps": profiled_steps,
           "wrapper_launches": dict(kernels.LAUNCHES), "profiler_launches_by_attempt": seen,
           "device_busy_us_per_step": per_step,
           "device_events_per_step": summary["device_events"] / profiled_steps,
@@ -1487,35 +1605,39 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
                            **api.step_options(cfg))
     batch = {k: v[0] for k, v in batches.items()}
     step(state, batch)
-    emit({"phase": "train_step_profile", "config": name, "adam": "capturable",
+    emit({"phase": "train_step_profile", "config": name, "path": path, "adam": "capturable",
           **profile_summary(lambda: step(state, batch))})
-    if name == "mnist":
+    if path == "mnist_train":
         # The same eager step with the CPU's Adam (not capturable, its step
         # counts on the host): what the capturable form costs on the device.
         plain = dataclasses.replace(state, optimizer=torch.optim.Adam(
             state.model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8))
         step(plain, batch)
-        emit({"phase": "train_step_profile", "config": name, "adam": "plain",
+        emit({"phase": "train_step_profile", "config": name, "path": path, "adam": "plain",
               **profile_summary(lambda: step(plain, batch))})
 
 
-def train_card_vs_cpu(n_steps: int = 3) -> None:
-    """``n_steps`` of the ``mnist`` epoch runner on the card (the graph
-    runner, its kernels) and on the CPU (the eager loop) from the same
-    seeded weights, noise and batches, each at rel 1e-4 (CPU and card
-    matmuls round differently; the card's Adam is the capturable one): the
-    loss and the raw gradients' global norm each step (Adam would hide a
-    gradient off by a constant factor; the norm does not), and every
-    parameter tensor after, both its difference against its own 2-norm
-    and against the 2-norm of its update over the run."""
-    batches = train_batches(n_steps, 100, "cpu", seed=2)
-    batches["eps"] = torch.randn((n_steps, 3, 100, 64), generator=torch.Generator().manual_seed(3))
-    init = dict(configs.build_model("mnist", seed=0, device="cpu").named_parameters())
+def train_card_vs_cpu(cfg=None, n_steps: int = 3) -> None:
+    """``n_steps`` of ``cfg``'s epoch runner (the ``mnist`` config's by
+    default, its objective's loss) on the card (the graph runner, its
+    kernels) and on the CPU (the eager loop) from the same seeded weights,
+    noise and batches, each at rel 1e-4 (CPU and card matmuls round
+    differently; the card's Adam is the capturable one): the loss and the
+    raw gradients' global norm each step (Adam would hide a gradient off by
+    a constant factor; the norm does not), and every parameter tensor
+    after, both its difference against its own 2-norm and against the
+    2-norm of its update over the run."""
+    cfg = cfg or configs.get_config("mnist")
+    bs, n_mod = cfg.batch_size, 2
+    batches = train_batches(n_steps, bs, "cpu", seed=2, config=cfg.dataset)
+    batches["eps"] = torch.randn((n_steps, n_terms(cfg, n_mod), bs, cfg.n_latents),
+                                 generator=torch.Generator().manual_seed(3))
+    init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = configs.build_model("mnist", seed=0, device=dev)
-        state = create_train_state(model, 1e-3)
-        runner = make_epoch_runner(model, annealing_steps=1000)
+        model = configs.build_model(cfg, seed=0, device=dev)
+        state = create_train_state(model, cfg.learning_rate)
+        runner = make_epoch_runner(model, annealing_steps=1000, **api.step_options(cfg))
         _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
         runs[dev] = (*run_metrics(metrics),
                      {k: p.detach().cpu() for k, p in model.named_parameters()})
@@ -1525,8 +1647,8 @@ def train_card_vs_cpu(n_steps: int = 3) -> None:
     param_rel = {k: ((card_p[k] - w).norm() / w.norm()).item() for k, w in cpu_p.items()}
     update_rel = {k: ((card_p[k] - w).norm() / (w - init[k]).norm()).item()
                   for k, w in cpu_p.items()}
-    emit({"phase": "train_card_vs_cpu", "config": "mnist", "steps": n_steps,
-          "card": "graph runner", "cpu": "eager loop",
+    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "path": train_path(cfg),
+          "steps": n_steps, "card": "graph runner", "cpu": "eager loop",
           "loss_card": card_l, "loss_cpu": cpu_l, "loss_rel": loss_rel,
           "grad_norm_card": card_g, "grad_norm_cpu": cpu_g, "grad_norm_rel": grad_norm_rel,
           "param_rel_max": max(param_rel.values()), "update_rel_max": max(update_rel.values()),
@@ -1536,36 +1658,43 @@ def train_card_vs_cpu(n_steps: int = 3) -> None:
                 max(update_rel.values()))
     if not worst <= 1e-4:
         raise AssertionError(
-            f"train: card and CPU differ: loss {loss_rel}, grad norm {grad_norm_rel}, "
+            f"{train_path(cfg)}: card and CPU differ: loss {loss_rel}, grad norm {grad_norm_rel}, "
             f"params {param_rel}, updates {update_rel}")
 
 
 MULTIMNIST_TRAIN_SIZE = 2000  # one epoch of 20 steps of batch 100
 
 
-def phase_multimnist_train() -> dict[str, int]:
+# The loss knobs no named config sets, as the ``multimnist_knobs_train``
+# path turns them on.
+LOSS_KNOBS = dict(cross_recon_stopgrad=True, unimodal_align_weight=0.1, cycle_contrast_weight=1.0)
+
+
+def phase_multimnist_train(knobs: dict | None = None) -> dict[str, int]:
     """``api.train`` of ``multimnist`` (cross-recon, the cycle term on both
-    render forms, clipping at 500) for one epoch at full width over a train
-    split cut to 2,000 examples on the graph runners (the launch counts
-    through the replays, and the profiler's); then the graph against the
-    eager loop (``train_rate``), a profiled step and the card against the
-    CPU over three steps, where the graph is gated against the eager loop
-    on cuDNN's deterministic algorithms."""
-    cfg = configs.get_config("multimnist").replace(epochs=1, train_size=MULTIMNIST_TRAIN_SIZE)
+    render forms, clipping at 500; with ``knobs``, ``LOSS_KNOBS`` on top)
+    for one epoch at full width over a train split cut to 2,000 examples on
+    the graph runners (the launch counts through the replays, and the
+    profiler's); then the graph against the eager loop (``train_rate``), a
+    profiled step and the card against the CPU over three steps, where the
+    graph is gated against the eager loop on cuDNN's deterministic
+    algorithms."""
+    cfg = configs.get_config("multimnist").replace(
+        epochs=1, train_size=MULTIMNIST_TRAIN_SIZE, **(knobs or {}))
+    path = train_path(cfg)
     untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
     result, launches, wall_s = train_counted(cfg)
     record = result.history[0]
     steps = MULTIMNIST_TRAIN_SIZE // cfg.batch_size
-    emit({"phase": "train", "config": "multimnist", "epochs": 1, "steps": result.state.step,
-          "train_size": MULTIMNIST_TRAIN_SIZE, "train_loss": record["train_loss"],
-          "cycle_ce": record["cycle_ce"], "test_elbo": record["test_elbo"],
+    emit({"phase": "train", "config": "multimnist", "path": path, "epochs": 1,
+          "steps": result.state.step, "train_size": MULTIMNIST_TRAIN_SIZE,
+          **{k: v for k, v in record.items() if k != "epoch"},
           "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
     if result.state.step != steps or not all(map(math.isfinite, record.values())):
-        raise AssertionError(f"multimnist train: {result.state.step} steps, history {record}")
+        raise AssertionError(f"{path}: {result.state.step} steps, history {record}")
     if not record["test_elbo"] < untrained:
         raise AssertionError(
-            f"multimnist train: test ELBO {record['test_elbo']} not below the untrained "
-            f"{untrained}")
+            f"{path}: test ELBO {record['test_elbo']} not below the untrained {untrained}")
     # cuDNN's default algorithms may sum in another order run to run: the
     # gate is the deterministic run of multimnist_card_vs_cpu.
     train_rate(cfg, steps, rounds=1, profiled_steps=5, gate=False)
@@ -1614,7 +1743,7 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
     from mmvae_torch.train import step as step_module
 
     batches = train_batches(n_steps, bs, "cpu", seed=2, config="multimnist")
-    batches["eps"] = torch.randn((n_steps, 3, bs, cfg.n_latents),
+    batches["eps"] = torch.randn((n_steps, n_terms(cfg, 2), bs, cfg.n_latents),
                                  generator=torch.Generator().manual_seed(3))
     init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
     straight_through = step_module._straight_through
@@ -1658,16 +1787,18 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
     default = run("cuda", False)
     cpu = run("cpu", False, cpu_renders, fed=card_renders)
     graph_eager = compare(card, eager)
-    emit({"phase": "train_graph_vs_eager", "config": "multimnist", "steps": n_steps, "batch": bs,
-          "cudnn": "deterministic algorithms", "gated": True, **graph_eager})
+    path = train_path(cfg)
+    emit({"phase": "train_graph_vs_eager", "config": "multimnist", "path": path,
+          "steps": n_steps, "batch": bs, "cudnn": "deterministic algorithms", "gated": True,
+          **graph_eager})
     if not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
                graph_eager["param_rel_max"]) <= 1e-6:
-        raise AssertionError(f"multimnist: graph and eager steps differ: {graph_eager}")
+        raise AssertionError(f"{path}: graph and eager steps differ: {graph_eager}")
     gated = compare(card, cpu)
     flips = [int(((a > 0.5) != (b > 0.5)).sum()) for a, b in zip(card_renders, cpu_renders)]
     margins = [(b - 0.5).abs().min().item() for b in cpu_renders]
-    emit({"phase": "train_card_vs_cpu", "config": "multimnist", "steps": n_steps, "batch": bs,
-          "card": "graph runner", "cpu": "eager loop",
+    emit({"phase": "train_card_vs_cpu", "config": "multimnist", "path": path,
+          "steps": n_steps, "batch": bs, "card": "graph runner", "cpu": "eager loop",
           "loss_card": card[0], "loss_cpu": cpu[0], "grad_norm_card": card[1],
           "grad_norm_cpu": cpu[1], **gated,
           "render_pixels": cpu_renders[0].numel(), "render_flips": flips,
@@ -1679,7 +1810,7 @@ def multimnist_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 20) -> None:
                 gated["update_rel_max"])
     if not worst <= 1e-4:
         raise AssertionError(
-            f"multimnist train: card and CPU differ: {gated}, render flips {flips}")
+            f"{path}: card and CPU differ: {gated}, render flips {flips}")
 
 
 CELEBA_TRAIN_SIZE = 1280  # one epoch of 20 steps of batch 64
@@ -1712,29 +1843,30 @@ def train_phase(cfg, profiled_steps: int) -> tuple[dict[str, int], int]:
     noise and dropout drawn inside the steps; then both on cuDNN's default
     algorithms timed in turns and profiled (``train_rate``). Returns the
     counts and the steps of an epoch."""
+    path = train_path(cfg)
     untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
     result, launches, wall_s = train_counted(cfg)
     record = result.history[0]
     steps = cfg.train_size // cfg.batch_size
-    emit({"phase": "train", "config": cfg.name, "epochs": 1, "steps": result.state.step,
+    emit({"phase": "train", "config": cfg.name, "path": path, "objective": cfg.objective,
+          "epochs": 1, "steps": result.state.step,
           "train_size": cfg.train_size, "n_random_subsets": cfg.n_random_subsets,
           **{k: v for k, v in record.items() if k != "epoch"},
           "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
     if result.state.step != steps or not all(map(math.isfinite, record.values())):
-        raise AssertionError(f"{cfg.name} train: {result.state.step} steps, history {record}")
+        raise AssertionError(f"{path}: {result.state.step} steps, history {record}")
     if not record["test_elbo"] < untrained:
         raise AssertionError(
-            f"{cfg.name} train: test ELBO {record['test_elbo']} not below the untrained "
-            f"{untrained}")
+            f"{path}: test ELBO {record['test_elbo']} not below the untrained {untrained}")
     batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config=cfg.dataset)
     with deterministic():
         _, _, runs = first_epochs(cfg, batches)
     compared = graph_vs_eager(runs)
-    emit({"phase": "train_graph_vs_eager", "config": cfg.name, "steps": steps,
-          "batch": cfg.batch_size, "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True,
-          **compared})
+    emit({"phase": "train_graph_vs_eager", "config": cfg.name, "path": path, "steps": steps,
+          "batch": cfg.batch_size, "cudnn": "deterministic algorithms, cuDNN and torch",
+          "gated": True, **compared})
     if not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
-        raise AssertionError(f"{cfg.name}: graph and eager epochs differ: {compared}")
+        raise AssertionError(f"{path}: graph and eager epochs differ: {compared}")
     train_rate(cfg, steps, rounds=1, profiled_steps=profiled_steps, gate=False)
     return launches, steps
 
@@ -1777,6 +1909,69 @@ def phase_fashionmnist_train() -> dict[str, int]:
     launches, _ = train_phase(cfg, profiled_steps=20)
     conv_card_vs_cpu(cfg, bs=100, feed_tail=True)
     return launches
+
+
+def phase_mixture_train() -> dict[str, dict[str, int]]:
+    """``mnist`` at full width under each mixture objective (mmvae, mopoe,
+    mvtcae): ``api.train`` for one epoch (100 steps of batch 100, then the
+    test ELBO) on the graph runners under ``mnist``'s gates
+    (``train_phase``: the counts through the replays, the graph against the
+    eager loop at rel 1e-6 on deterministic algorithms, both timed and
+    profiled); ``eval_elbo`` over the 2,000-example test split and
+    ``generate`` from the image alone and from the label alone, each as
+    the mixture's mean and as a draw (``drive``: the counts, the ``torch``
+    backend at rel 1e-5), the eval and the mean's generate on the card
+    against the CPU (``card_vs_cpu``); three steps on the card against the
+    CPU's eager loop, the noise passed in (``train_card_vs_cpu``)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    data = load_dataset("mnist", "test", n=3).arrays
+    conditions = {"image": {"image": data["image"]}, "label": {"label": data["label"]}}
+    out = {}
+    for objective in MIXTURE_OBJECTIVES:
+        cfg = configs.get_config("mnist").replace(epochs=1, objective=objective)
+        out[train_path(cfg)], _ = train_phase(cfg, profiled_steps=20)
+        calls = {f"from_{key}_{'draw' if draw else 'mean'}":
+                 lambda m, c=c, draw=draw: api.generate(cfg, c, model=m, sample_z=draw,
+                                                        generator=gen)
+                 for key, c in conditions.items() for draw in (False, True)}
+        outs, launches = drive(cfg, calls)
+        path = f"mnist_{objective}"
+        if launches != EXPECTED_LAUNCHES[path]:
+            raise AssertionError(
+                f"{path}: expected launches {EXPECTED_LAUNCHES[path]}, got {launches}")
+        for name, generated in outs.items():
+            check_image(generated["image"], 3, (28, 28))
+            if not (generated["label"].min() >= 0 and generated["label"].max() < 10):
+                raise AssertionError(f"{path} {name}: generated label out of range")
+        out[path] = launches
+        card_vs_cpu(cfg, 250, conditions["label"], outs["from_label_mean"])
+        train_card_vs_cpu(cfg)
+    return out
+
+
+def phase_celeba_mopoe_train() -> dict[str, dict[str, int]]:
+    """``celeba`` at full width under mopoe (no random subsets; 19
+    modalities fall back to the 20 terms of the joint and the unimodal
+    rows, every key decoded on all of them): ``api.train`` for one epoch
+    over a train split cut to 1,280 examples (20 steps of 64, then the
+    2,000-example test ELBO) under ``celeba_train``'s gates
+    (``train_phase``: the counts, graph against eager at rel 1e-6 on
+    deterministic algorithms, timed in turns, a profiled epoch and step
+    with their kernel families); ``eval_elbo`` and ``generate`` from the
+    attributes alone (``drive``); three steps at batch 16 on the card
+    against the CPU, the noise passed in (``conv_card_vs_cpu``)."""
+    cfg = configs.get_config("celeba").replace(
+        epochs=1, train_size=CELEBA_TRAIN_SIZE, objective="mopoe", n_random_subsets=0)
+    launches, _ = train_phase(cfg, profiled_steps=10)
+    attrs = {"attrs": load_dataset("celeba", "test", n=3).arrays["attrs"]}
+    outs, ev = drive(cfg, {"from_attrs": lambda m: api.generate(cfg, attrs, model=m)})
+    if ev != EXPECTED_LAUNCHES["celeba_mopoe"]:
+        raise AssertionError(
+            f"celeba_mopoe: expected launches {EXPECTED_LAUNCHES['celeba_mopoe']}, got {ev}")
+    check_image(outs["from_attrs"]["image"], 3, (64, 64, 3))
+    check_probs(outs["from_attrs"]["attrs"], (3, 18))
+    conv_card_vs_cpu(cfg)
+    return {"celeba_mopoe_train": launches, "celeba_mopoe": ev}
 
 
 def gru_step_ms(model, batch: dict, terms: int) -> float:
@@ -1851,7 +2046,7 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     gen = torch.Generator().manual_seed(3)
     if k:
         batches["subset_masks"] = (torch.rand((n_steps, k, n_mod), generator=gen) < 0.5).float()
-    batches["eps"] = torch.randn((n_steps, 1 + n_mod + k, bs, cfg.n_latents), generator=gen)
+    batches["eps"] = torch.randn((n_steps, n_terms(cfg, n_mod), bs, cfg.n_latents), generator=gen)
     init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
 
     def run(dev: str, graph: bool, record: list | None = None, fed: list | None = None,
@@ -1905,11 +2100,12 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     if feed_tail:
         eager = run("cuda", graph=False, record=card_grads)
         graph_eager = compare_runs(card, eager, init)
-        emit({"phase": "train_graph_vs_eager", "config": cfg.name, "steps": n_steps, "batch": bs,
-              "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True, **graph_eager})
+        emit({"phase": "train_graph_vs_eager", "config": cfg.name, "path": train_path(cfg),
+              "steps": n_steps, "batch": bs, "cudnn": "deterministic algorithms, cuDNN and torch",
+              "gated": True, **graph_eager})
         if not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
                    graph_eager["param_rel_max"]) <= 1e-6:
-            raise AssertionError(f"{cfg.name}: graph and eager steps differ: {graph_eager}")
+            raise AssertionError(f"{train_path(cfg)}: graph and eager steps differ: {graph_eager}")
         extra = {"tail_below": TAIL_BELOW,
                  "unfed_control": compare_runs(card, run("cpu", graph=False), init)}
     counts = []
@@ -1920,7 +2116,8 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     update = (cpu[2][worst] - init[worst].detach()).abs().flatten()
     top = diff.argsort(descending=True)[: max(1, diff.numel() // 100)]
     conv0 = "image_enc.convs.0.weight"  # K4's weight on RGB: conv4x4s2_swish_bwd's gradient
-    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "steps": n_steps, "batch": bs,
+    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "path": train_path(cfg),
+          "steps": n_steps, "batch": bs,
           "card": "graph runner", "cpu": "eager loop", "loss_card": card[0], "loss_cpu": cpu[0],
           "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated, **extra,
           "tail_counts_per_step": counts,
@@ -1934,7 +2131,7 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
               "update_median": update.median().item()}})
     if not max(max(gated["loss_rel"]), max(gated["grad_norm_rel"]), gated["param_rel_max"],
                gated["update_rel_max"]) <= 1e-4:
-        raise AssertionError(f"{cfg.name} train: card and CPU differ: {gated}")
+        raise AssertionError(f"{train_path(cfg)}: card and CPU differ: {gated}")
     for i, tally in enumerate(counts):
         one_side = max(tally["card"], tally["cpu"]) - tally["fed"]
         if not one_side <= TAIL_SLACK * tally["cpu"]:
@@ -2118,8 +2315,9 @@ def phase_launch_floor() -> None:
               "device_ms": device_ms(call), "eager_ms": eager_ms(call)})
 
 
-def phase_eval_wall(config: str) -> None:
-    """The eval of ``config``'s 2,000-example test split through a graph
+def phase_eval_wall(config) -> None:
+    """The eval of ``config``'s (a name, or an ``ExperimentConfig`` under
+    another objective) 2,000-example test split through a graph
     runner built once (as ``api.train`` keeps it) and through the eager
     loop, timed in turns (three each, to a sync); the graph's first call
     (one batch eager, the capture, the replays); ``api.eval_elbo``'s own
@@ -2128,11 +2326,12 @@ def phase_eval_wall(config: str) -> None:
     unprofiled walls (the eager loop runs the same kernels: its busy time
     read within 5% of the graph's in every config, and its profile took 20
     s of the run on CUB's 40,000 events)."""
-    model = configs.build_model(config, seed=0)
-    test = load_dataset(config, "test")
-    batch_size = configs.get_config(config).batch_size
-    stacked = api._padded_split(test, batch_size, model.n_modalities, torch.device("cuda"))
-    runners = {"graph": make_eval_runner(model), "eager": make_eval_runner(model, graph=False)}
+    cfg = configs.get_config(config) if isinstance(config, str) else config
+    model = configs.build_model(cfg, seed=0)
+    test = load_dataset(cfg.dataset, "test")
+    stacked = api._padded_split(test, cfg.batch_size, model.n_modalities, torch.device("cuda"))
+    runners = {kind: make_eval_runner(model, cfg.objective, cfg.mvtcae_alpha, graph=kind == "graph")
+               for kind in ("graph", "eager")}
     first = {}
     for kind, runner in runners.items():
         t0 = time.perf_counter()
@@ -2147,8 +2346,9 @@ def phase_eval_wall(config: str) -> None:
     entry = []
     for _ in range(2):
         t0 = time.perf_counter()
-        api.eval_elbo(config, model=model, dataset=test)
+        api.eval_elbo(cfg, model=model, dataset=test)
         entry.append(1e3 * (time.perf_counter() - t0))
+    config = cfg.name if cfg.objective == "mvae" else f"{cfg.name}_{cfg.objective}"
     emit({"phase": "eval_wall", "config": config, "examples": test.size,
           "batches": stacked["presence"].shape[0],
           "wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
@@ -2293,11 +2493,17 @@ def main() -> None:
     launches["celeba_train"] = timed("celeba_train", phase_celeba_train)
     launches["cub_train"] = timed("cub_train", phase_cub_train)
     launches["fashionmnist_train"] = timed("fashionmnist_train", phase_fashionmnist_train)
+    launches.update(timed("mixture_train", phase_mixture_train))
+    launches.update(timed("celeba_mopoe_train", phase_celeba_mopoe_train))
+    launches["multimnist_knobs_train"] = timed(
+        "multimnist_knobs_train", phase_multimnist_train, LOSS_KNOBS)
     timed("workdir", phase_workdir)
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:
         timed(f"eval_wall_{config}", phase_eval_wall, config)
+    for config in MIXTURE_EVALS:
+        timed(f"eval_wall_{config.name}_{config.objective}", phase_eval_wall, config)
     for config in CONFIGS:
         timed(f"iwae_wall_{config}", phase_iwae_wall, config)
     emit({"phase": "phase_seconds", **seconds, "total": time.perf_counter() - t0})

@@ -146,7 +146,8 @@ def eval_elbo(
         dataset = load_dataset(config.dataset, "test", n=config.test_size)
     batch_size = min(batch_size or config.batch_size, dataset.size)
     stacked = _padded_split(dataset, batch_size, model.n_modalities, device)
-    return _split_elbo(make_eval_runner(model, config.objective), stacked, dataset.size)
+    runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
+    return _split_elbo(runner, stacked, dataset.size)
 
 
 def _padded_split(
@@ -196,7 +197,9 @@ def log_likelihood(
 
     The MVAE paper's importance-sampled test log-likelihood (natural log,
     per example; ``core/iwae.py``), with ``k`` samples from the joint PoE
-    posterior. The weights come as in :func:`eval_elbo`; ``dataset``
+    posterior under every objective (``mmvae_tpu/api.py:1234-1238``: for a
+    mixture-trained model still a valid bound, comparable across
+    objectives). The weights come as in :func:`eval_elbo`; ``dataset``
     defaults to the config's synthetic test split. The split is padded to
     whole batches and the pad rows are multiplied out by the validity
     mask, so the result is the sum over the examples / ``dataset.size``.
@@ -239,12 +242,21 @@ def step_options(config: ExperimentConfig) -> dict[str, Any]:
         p_modality_drop=config.p_modality_drop,
         cross_recon=config.cross_recon,
         cross_recon_weight=config.cross_recon_weight,
+        cross_recon_stopgrad=config.cross_recon_stopgrad,
+        unimodal_align_weight=config.unimodal_align_weight,
         cycle_weight=config.cycle_weight,
         cycle_render_grad=config.cycle_render_grad,
+        cycle_contrast_weight=config.cycle_contrast_weight,
         cycle_render_binarize=config.cycle_render_binarize,
         objective=config.objective,
+        mvtcae_alpha=config.mvtcae_alpha,
         member_prune=config.member_prune,
     )
+
+
+# The loss terms besides the ELBO that a train record carries where the
+# config's loss has them.
+_EXTRA_TRAIN_METRICS = ("cycle_ce", "cycle_contrast", "align_kl", "cross_kl")
 
 
 def train(
@@ -281,8 +293,8 @@ def train(
 
     Returns the config, the model (the live parameters), the train state,
     the best test ELBO and one history record per epoch this call ran (its
-    mean train loss, its mean ``cycle_ce`` where the config has the cycle
-    term, and its test ELBO).
+    mean train loss; its mean ``cycle_ce``, ``cycle_contrast``, ``align_kl``
+    and ``cross_kl`` where the config's loss has them; and its test ELBO).
     """
     if isinstance(config, str):
         config = get_config(config)
@@ -318,7 +330,7 @@ def train(
         generator=noise,
         **step_options(config),
     )
-    evaluate = make_eval_runner(state.eval_model, config.objective)
+    evaluate = make_eval_runner(state.eval_model, config.objective, config.mvtcae_alpha)
     train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
     test_split = _padded_split(
         test_ds, min(bs, test_ds.size), model.n_modalities, device
@@ -342,8 +354,9 @@ def train(
             is_best = test_elbo < best
             best = min(best, test_elbo)
             record = {"epoch": epoch, "train_loss": meter.avg, "test_elbo": test_elbo}
-            if "cycle_ce" in metrics:
-                record["cycle_ce"] = float(metrics["cycle_ce"].mean())
+            for key in _EXTRA_TRAIN_METRICS:
+                if key in metrics:
+                    record[key] = float(metrics[key].mean())
             history.append(record)
             if writer is not None:
                 writer.write({"kind": "eval", **record})
@@ -408,6 +421,8 @@ def generate(
     sample_z: bool = False,
     temperature: float = 1.0,
     generator: torch.Generator | None = None,
+    component: torch.Tensor | None = None,
+    eps: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Cross-modal generation from any modality subset.
 
@@ -417,9 +432,14 @@ def generate(
     is one column of such a key is observed alone (``attr_i``, ``(n,)``),
     as in the JAX ``generate``. The whole batch is encoded, with absent
     modalities as zeros that the presence mask leaves out; the observed
-    experts are fused with the prior; z is the posterior mean, or a draw
-    from ``generator`` (on ``device``) when ``sample_z``; ALL modalities
-    are decoded. A sequence modality is generated token by token: argmax
+    experts are fused with the prior under the config's objective
+    (``core.fuse_observed_z``: the PoE for mvae and mvtcae, the mixture over
+    the observed set for mmvae and mopoe); z is the posterior mean (the
+    mixture's mean), or a draw from ``generator`` (on ``device``) when
+    ``sample_z``, or from ``component`` ``(n,)`` and ``eps`` ``(n, L)``
+    when given (a mixture's component index and the noise, for parity with
+    the JAX ``generate``'s draw); a row that observes nothing falls back to
+    the prior. ALL modalities are decoded. A sequence modality is generated token by token: argmax
     when ``temperature <= 0``, else a draw at ``temperature`` from
     ``generator``. The weights come as in :func:`eval_elbo` (``model``,
     ``state_dict``, or ``workdir``'s checkpoint ``which``).
@@ -453,7 +473,7 @@ def generate(
     mu_e, lv_e = model.encode(batch)
     z = fuse_observed_z(
         mu_e, lv_e, presence, config.objective, sample=sample_z,
-        generator=generator,
+        generator=generator, component=component, eps=eps,
     )
     return _postprocess(model, model.decode(z), z, temperature, generator)
 

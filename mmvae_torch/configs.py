@@ -5,11 +5,10 @@ configs; the ``deep_*`` pipeline variants raise until their slice lands.
 The fields are those the inference slices, the training slices and the
 checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
 defaults (``mmvae_tpu/configs.py:30-175``); every config here trains with
-``api.train``. The JAX configs' other knobs (gradient accumulation, LR
-schedules, shuffle modes, the data backends, mesh layouts,
-``cross_recon_stopgrad``, ``unimodal_align_weight``,
-``cycle_contrast_weight``) are left out until a slice reads them. Eval
-pins ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
+``api.train``, under any of the four objectives. The JAX configs' other
+knobs (gradient accumulation, LR schedules, shuffle modes, the data
+backends, mesh layouts) are left out until a slice reads them. Eval pins
+``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
 """
 
 from __future__ import annotations
@@ -45,7 +44,11 @@ class ExperimentConfig:
     learning_rate: float = 1e-3
     annealing_epochs: int = 10  # beta ramps 0 -> 1 over these epochs
     n_random_subsets: int = 0  # random modality-subset terms
+    # "mvae" (PoE joint + subset ELBOs), "mmvae" (mixture of the unimodal
+    # posteriors), "mopoe" (mixture of subset PoEs) or "mvtcae" (the joint
+    # ELBO with its KL mixed with the cross-KLs to the unimodal posteriors).
     objective: str = "mvae"
+    mvtcae_alpha: float = 0.9  # mvtcae's KL mix: (1 - a) to the prior, a cross
     member_prune: bool = True  # decode each key on its member terms only
     p_modality_drop: float = 0.0  # presence dropout per example and modality
     grad_clip: float = 0.0  # global-norm gradient clipping (0: off)
@@ -61,6 +64,11 @@ class ExperimentConfig:
     # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False
     cross_recon_weight: float = 1.0
+    # The cross entries from detached decoders: their gradient reaches the
+    # encoders only (needs cross_recon).
+    cross_recon_stopgrad: bool = False
+    # w * beta * KL(q(z|S) || sg(q(z|joint))) over the non-joint terms S.
+    unimodal_align_weight: float = 0.0
     # The cycle term: the seq posterior rendered into the bernoulli
     # modalities, re-encoded, and the sequence read back (its CE weighs
     # cycle_weight); cycle_render_grad lets the render's decoders learn
@@ -69,6 +77,9 @@ class ExperimentConfig:
     cycle_weight: float = 0.0
     cycle_render_grad: bool = False
     cycle_render_binarize: bool | str = False
+    # The soft render's per-example pixel mean and std matched to the true
+    # image's (needs cycle_weight).
+    cycle_contrast_weight: float = 0.0
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
 

@@ -1,4 +1,5 @@
-"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks, KL annealing, IWAE."""
+"""Core math: PoE fusion, sampling, likelihoods, ELBO, subset masks, KL annealing,
+the mixture objectives' posteriors, IWAE."""
 
 from mmvae_torch.core.annealing import annealing_factor
 from mmvae_torch.core.elbo import elbo_terms, kl_gauss_gauss, kl_std_normal
@@ -7,13 +8,19 @@ from mmvae_torch.core.likelihoods import (
     categorical_nll,
     gaussian_nll,
 )
-from mmvae_torch.core.mixture import OBJECTIVES, fuse_observed_z
 from mmvae_torch.core.poe import product_of_experts
 from mmvae_torch.core.sampling import reparameterize
 from mmvae_torch.core.subsets import elbo_subset_masks, random_subset_masks
 
-# Last: iwae reaches the ops layer, which imports the modules above.
+# Last: iwae and mixture reach the ops layer, which imports the modules above.
 from mmvae_torch.core.iwae import iwae_bound  # noqa: E402
+from mmvae_torch.core.mixture import (  # noqa: E402
+    OBJECTIVES,
+    component_masks,
+    fuse_observed_z,
+    mixture_z,
+    posterior_components,
+)
 
 __all__ = [
     "annealing_factor",
@@ -28,6 +35,9 @@ __all__ = [
     "elbo_subset_masks",
     "random_subset_masks",
     "OBJECTIVES",
+    "component_masks",
+    "posterior_components",
+    "mixture_z",
     "fuse_observed_z",
     "iwae_bound",
 ]

@@ -1,33 +1,47 @@
-"""The multi-term MVAE loss, the train step and the eval step.
+"""The multi-term loss, the train step and the eval step.
 
 Port of ``mmvae_tpu/train/step.py`` for the inference slices and the
-MNIST, FashionMNIST, MultiMNIST, CelebA and CUB training slices: the ``"mvae"`` objective
-under the t-major term fold (``term_fold="t"``, the single-device path of
-both the JAX eval and the JAX train step, ``step.py:532-578``) with an
-optional presence mask.
+MNIST, FashionMNIST, MultiMNIST, CelebA and CUB training slices: all four
+objectives (``"mvae"``, ``"mmvae"``, ``"mopoe"``, ``"mvtcae"``) and every
+loss knob of the JAX ``multi_term_loss``, under the t-major term fold
+(``term_fold="t"``, the single-device path of both the JAX eval and the
+JAX train step, ``step.py:532-578``) with an optional presence mask.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
-  * the ``(T, M)`` subset masks: the joint, the M unimodal terms and, in
-    training, ``n_random_subsets`` random ones (CelebA: T = 1 + 19 + 4);
-  * masked PoE fusion over the ``(T, M)`` subset masks -> ``(T, B, L)``,
-    and the KL of all ``T * B`` posteriors, in one ``ops.poe_kl`` call:
-    one kernel on the card, K1's function as the PoE's epilogue (the JAX
-    step leaves the same fusion to XLA);
-  * member-pruned decoding (``_member_prune_keys`` / ``_pruned_nll``): each
-    decode key decodes only its possibly-member term rows, folded t-major
-    into one ``(tk * B, L)`` batch; or, under ``cross_recon`` or
-    ``member_prune=False``, the decode-all pass: every key decodes all
-    ``T * B`` rows once;
+  * the ``(T, M)`` term masks: under mvae the joint, the M unimodal terms
+    and, in training, ``n_random_subsets`` random ones (CelebA: T = 1 + 19
+    + 4); under mmvae and mopoe the mixture's components
+    (``core.component_masks``: the identity; every nonempty subset, or
+    the joint and the unimodal rows past 8 modalities); under mvtcae the
+    joint (decoded) and the unimodal rows (read by the cross-KLs);
+  * masked PoE fusion over the masks -> ``(T, B, L)``, and the KL of all
+    ``T * B`` posteriors, in one ``ops.poe_kl`` call: one kernel on the
+    card, K1's function as the PoE's epilogue (the JAX step leaves the
+    same fusion to XLA);
+  * member-pruned decoding (``_member_prune_keys`` / ``_pruned_nll``,
+    mvae only): each decode key decodes only its possibly-member term
+    rows, folded t-major into one ``(tk * B, L)`` batch; or, under
+    ``cross_recon``, ``member_prune=False`` or any other objective, the
+    decode-all pass: every key decodes all ``T * B`` rows once;
   * each key's NLL is one ``ops`` call, so on the card one eval batch
     launches the fused PoE + KL once and each NLL kernel once per decode
     key (MNIST: K2; MultiMNIST: K2, K3; CelebA: K2 for the image and K2
     for the 18 attributes, and K4 in the image encoder);
+  * mixture objectives: every modality is a target of every term, and
+    each example's terms are averaged over its valid ones
+    (``step.py:746-761``); mvtcae mixes the KL with the cross-KLs of the
+    joint to each observed unimodal posterior (``step.py:704-726``);
   * ``cross_recon``: every modality is a target of every subset term,
-    cross entries weighed by ``cross_recon_weight`` (``step.py:762-778``);
+    cross entries weighed by ``cross_recon_weight`` (``step.py:762-778``),
+    and with ``cross_recon_stopgrad`` taken from a second decode-all pass
+    on detached decoders (``step.py:731-745``);
+  * ``unimodal_align_weight``: the non-joint posteriors pulled toward the
+    detached joint one (``step.py:787-810``);
   * the cycle term (``cycle_weight > 0``, ``step.py:811-937``): each
     sequence modality's unimodal z is rendered into the bernoulli
     modalities, re-encoded with only those observed, and the sequence is
-    read back from the posterior mean; its CE joins the loss.
+    read back from the posterior mean; its CE joins the loss, and with
+    ``cycle_contrast_weight`` the render's moment gap to the true image.
 
 One difference from the JAX code: the JAX t-fold broadcasts the targets to
 the tiled rows (``_tile_terms_tmajor``, ``step.py:247``) and lets XLA fuse
@@ -40,7 +54,9 @@ Training (``make_train_step``, ``make_epoch_runner``) differentiates the
 same loss with ``sample=True``. On the card an epoch and an eval split
 each run as replays of one captured CUDA graph (``_StepGraph``), the
 counterpart of the JAX runners' one ``lax.scan`` program; the CPU runs
-them as eager loops. Its reductions are differentiable on both
+them as eager loops. Every constant a step makes is made on the device or
+cached before the capture (``_device_tensor``). Its reductions are
+differentiable on both
 paths (``mmvae_torch.ops``): on the card one MNIST step launches, besides
 the models' own layers, the fused PoE + KL and K2 forward and their
 backward kernels ``poe_kl_bwd`` and ``bce_rows_grad`` once each; one
@@ -54,7 +70,11 @@ and bias); one ``cub`` step (cross-recon, the cycle term on the soft
 render) the fused PoE + KL twice (the loss, the re-read), K2 once, K3
 twice and K4 twice (the encode, the re-encode of the render), each one's
 backward kernel as often, and K4's input gradient once (the re-encode's
-input is the render).
+input is the render). A mixture step launches what the decode-all pass
+of its T terms does: one MNIST mmvae, mopoe or mvtcae step the fused PoE
++ KL and K2 once each, forward and backward; one CelebA mopoe step (T =
+20) the fused PoE + KL once, K2 twice (the image and the attributes on
+all 20 terms) and K4 once.
 
 The IWAE runner (``make_iwae_step``, ``make_iwae_runner``) runs
 ``core.iwae_bound`` over an eval split, its k samples folded b-major, on
@@ -62,12 +82,11 @@ the same graph machinery; on the card one of its batches launches the
 fused PoE + KL once and each NLL kernel once per decode key through the
 b-major row maps (CelebA: K2 twice, the attributes through the map over
 examples of 18 rows; MultiMNIST and CUB: K2 and K3), and K4 once on
-CelebA and CUB.
+CelebA and CUB. Its proposal is the joint PoE posterior under every
+objective, as in the JAX package.
 
-The other train folds (``"b"``, ``"st"``) and the mixture objectives are not
-ported yet and raise; ``cross_recon_stopgrad``,
-``unimodal_align_weight``, ``cycle_contrast_weight`` and gradient
-accumulation are not taken yet.
+The other train folds (``"b"``, ``"st"``) are not ported yet and raise;
+gradient accumulation is not taken yet.
 """
 
 from __future__ import annotations
@@ -82,12 +101,15 @@ from mmvae_torch import ops
 from mmvae_torch.core import (
     OBJECTIVES,
     annealing_factor,
+    component_masks,
     elbo_subset_masks,
     elbo_terms,
     iwae_bound,
+    kl_gauss_gauss,
     random_subset_masks,
     reparameterize,
 )
+from mmvae_torch.core.mixture import _MOPOE_POWERSET_MAX
 from mmvae_torch.ops import kernels
 from mmvae_torch.ops.kernels import FOLD_T, tile_rows
 from mmvae_torch.train.state import TrainState, global_norm
@@ -111,11 +133,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(objective: str, term_fold: str) -> None:
-    """Raise on an objective or a fold not ported yet."""
+    """Raise on an unknown objective or a fold not ported yet."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
-    if objective != "mvae":
-        raise _not_ported(f"objective {objective!r}")
     if term_fold != "t":
         raise _not_ported(f"term_fold {term_fold!r}")
 
@@ -204,31 +224,33 @@ def _decode_all_nll_t(model, z: torch.Tensor, data: dict) -> torch.Tensor:
 
 
 class _Method(torch.nn.Module):
-    """``model.<method>(*args)`` as the forward of a module that holds the
-    model, so that ``torch.func.functional_call`` can run any method of the
-    model on other parameters."""
+    """``fn(model, *args)`` (``fn`` a function, or the name of a method of
+    the model) as the forward of a module that holds the model, so that
+    ``torch.func.functional_call`` can run it on other parameters."""
 
-    def __init__(self, model, method: str):
+    def __init__(self, model, fn: str | Callable):
         super().__init__()
-        self.model, self.method = model, method
+        self.model, self.fn = model, fn
 
     def forward(self, *args):
-        return getattr(self.model, self.method)(*args)
+        if callable(self.fn):
+            return self.fn(self.model, *args)
+        return getattr(self.model, self.fn)(*args)
 
 
-def _decoders_detached(model, method: str, *args, live: frozenset = frozenset()):
-    """``model.<method>(*args)`` with the parameters of every decoder
-    submodule (a top-level name that contains ``dec``, as
-    ``_sg_decoder_params`` picks them, ``step.py:274-287``) but those named
-    in ``live`` detached. The gradient still flows through the decoders'
-    activations to their inputs and on to the encoders; only the decoders'
-    weights get none of it."""
+def _decoders_detached(model, fn: str | Callable, *args, live: frozenset = frozenset()):
+    """``fn(model, *args)`` (``fn`` as :class:`_Method` takes it) with the
+    parameters of every decoder submodule (a top-level name that contains
+    ``dec``, as ``_sg_decoder_params`` picks them, ``step.py:274-287``) but
+    those named in ``live`` detached. The gradient still flows through the
+    decoders' activations to their inputs and on to the encoders; only the
+    decoders' weights get none of it."""
     detached = {
         f"model.{name}": p.detach()
         for name, p in model.named_parameters()
         if "dec" in name.split(".", 1)[0] and name.split(".", 1)[0] not in live
     }
-    return functional_call(_Method(model, method), detached, args)
+    return functional_call(_Method(model, fn), detached, args)
 
 
 def _straight_through(p: torch.Tensor) -> torch.Tensor:
@@ -237,28 +259,52 @@ def _straight_through(p: torch.Tensor) -> torch.Tensor:
     return p + ((p > 0.5).to(p.dtype) - p).detach()
 
 
-def _cycle_ce(
-    model, z: torch.Tensor, data: dict, presence: torch.Tensor | None,
-    render_grad: bool, binarize: bool | str,
-) -> torch.Tensor:
-    """The cycle term's CE (``step.py:811-937``, the mvae objective): for
-    each sequence modality s, its unimodal term's z is rendered into the
-    bernoulli modalities (their decoders live only with ``render_grad``),
-    as the soft render sigmoid(logits), its straight-through 0/1 threshold
-    or both (``binarize`` False, True, "both"). Each form is re-encoded
-    with the bernoulli modalities alone observed (one ``ops.poe_kl`` call,
-    T = 1: only the posterior mean is used) and s is read back,
-    teacher-forced from that mean, with every decoder detached. The CE
-    (the two forms' averaged under "both"), times s's presence where given,
-    is meaned over the batch and weighed by lambda_s."""
+def _unimodal_term_row(objective: str, n_mod: int, m_i: int) -> int:
+    """The row of modality ``m_i``'s unimodal term in the objective's masks
+    (``step.py:156-172``): the identity's row under mmvae, the singleton's
+    bit-order row ``2**m_i - 1`` under mopoe's powerset, else ``1 + m_i``
+    (the mvae layout, and mopoe's fallback family past 8 modalities)."""
+    if objective == "mmvae":
+        return m_i
+    if objective == "mopoe" and n_mod <= _MOPOE_POWERSET_MAX:
+        return 2**m_i - 1
+    return 1 + m_i
+
+
+def _moment_gap(render: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The cycle contrast penalty of each example (``step.py:897-913``):
+    the squared gaps between the render's and the true image's pixel mean
+    and population std (``jnp.std``'s, ``correction=0``), ``(B,)``."""
+    x = target.to(render.dtype)
+    dims = tuple(range(1, render.ndim))
+    dm = render.mean(dims) - x.mean(dims)
+    dsd = render.std(dims, correction=0) - x.std(dims, correction=0)
+    return dm * dm + dsd * dsd
+
+
+def _cycle_terms(
+    model, z_of: dict[int, torch.Tensor], data: dict, presence: torch.Tensor | None,
+    render_grad: bool, binarize: bool | str, contrast: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The cycle term's CE and, with ``contrast``, its contrast penalty
+    (``step.py:811-937``): for each sequence modality s, its unimodal z
+    ``z_of[s]`` is rendered into the bernoulli modalities (their decoders
+    live only with ``render_grad``), as the soft render sigmoid(logits),
+    its straight-through 0/1 threshold or both (``binarize`` False, True,
+    "both"). Each form is re-encoded with the bernoulli modalities alone
+    observed (one ``ops.poe_kl`` call, T = 1: only the posterior mean is
+    used) and s is read back, teacher-forced from that mean, with every
+    decoder detached. The CE (the two forms' averaged under "both"), times
+    s's presence where given, is meaned over the batch and weighed by
+    lambda_s. The contrast penalty (:func:`_moment_gap`) is taken on the
+    soft render of each bernoulli modality, times s's presence, meaned
+    over the batch and summed."""
     specs = model.specs()
     seq_idx = [i for i, s in enumerate(specs) if s.kind == "seq"]
     ber_idx = [i for i, s in enumerate(specs) if s.kind == "bernoulli"]
-    if not seq_idx or not ber_idx:
-        raise ValueError("cycle_weight needs a seq and a bernoulli modality")
     # Re-encode presence: only the rendered modalities are observed.
     ber_mask = _device_tensor(
-        ((tuple(float(i in ber_idx) for i in range(len(specs)))),), z.device, torch.float32)
+        ((tuple(float(i in ber_idx) for i in range(len(specs)))),), model.device, torch.float32)
     live = frozenset(f"{specs[m].name}_dec" for m in ber_idx) if render_grad else frozenset()
     key_of = {m: (key, j) for key, mods in model.decode_key_modalities().items()
               for j, m in enumerate(mods)}
@@ -271,14 +317,20 @@ def _cycle_ce(
         recon = _decoders_detached(model, "decode_one", key, mu_f2, data)
         return model.nll_one(key, recon, data)[j]  # (B,)
 
-    cycle_ce = z.new_zeros(())
+    zero = next(iter(z_of.values())).new_zeros(())
+    cycle_ce, cycle_contrast = zero, zero if contrast else None
     for s_i in seq_idx:
-        z_s = z[1 + s_i]  # the mvae unimodal term of s
+        z_s = z_of[s_i]
         soft, hard = dict(data), dict(data)
         for m_i in ber_idx:
             name = specs[m_i].name
             p = torch.sigmoid(_decoders_detached(model, "decode_one", name, z_s, data, live=live))
             soft[name], hard[name] = p, _straight_through(p)
+            if contrast:
+                pen = _moment_gap(p, data[name])
+                if presence is not None:
+                    pen = pen * presence[:, s_i]
+                cycle_contrast = cycle_contrast + torch.mean(pen)
         if binarize == "both":
             ce = 0.5 * (re_read_ce(soft, s_i) + re_read_ce(hard, s_i))
         else:
@@ -286,7 +338,44 @@ def _cycle_ce(
         if presence is not None:
             ce = ce * presence[:, s_i]
         cycle_ce = cycle_ce + lambdas[s_i] * torch.mean(ce)
-    return cycle_ce
+    return cycle_ce, cycle_contrast
+
+
+def _check_knobs(
+    model, objective: str, *, n_random_subsets: int, cross_recon: bool,
+    cross_recon_stopgrad: bool, unimodal_align_weight: float, cycle_weight: float,
+    cycle_render_binarize, cycle_contrast_weight: float,
+) -> None:
+    """The JAX loss's ``ValueError``s on knobs that do not go together
+    (``step.py:473-516``, ``:817-825``, ``:943-947``)."""
+    if objective == "mvae":
+        if cross_recon_stopgrad and not cross_recon:
+            raise ValueError("cross_recon_stopgrad=True requires cross_recon=True")
+    elif n_random_subsets or cross_recon or cross_recon_stopgrad or unimodal_align_weight:
+        raise ValueError(
+            "n_random_subsets/cross_recon*/unimodal_align_weight are mvae term-structure "
+            f"knobs; the {objective!r} objective has its own cross-modal mechanism "
+            "(mixture decode-all / the alpha cross-KLs)")
+    if cycle_weight > 0.0:
+        kinds = [s.kind for s in model.specs()]
+        if "seq" not in kinds or "bernoulli" not in kinds:
+            raise ValueError("cycle_weight needs a seq and a bernoulli modality")
+        if cycle_render_binarize not in _BINARIZE:
+            raise ValueError(
+                "cycle_render_binarize must be False, True, or 'both'; "
+                f"got {cycle_render_binarize!r}")
+    elif cycle_contrast_weight > 0.0:
+        raise ValueError(
+            "cycle_contrast_weight requires cycle_weight > 0 "
+            "(the penalty applies to the cycle term's render)")
+
+
+def _term_present(masks: torch.Tensor, presence: torch.Tensor | None, b: int) -> torch.Tensor:
+    """``(T, B)`` bool: whether term t of example b holds an observed
+    modality (its presence-effective mask is nonempty)."""
+    if presence is None:
+        return (masks.sum(-1) > 0)[:, None].expand(-1, b)
+    return (masks[:, None, :] * presence[None]).sum(-1) > 0
 
 
 def multi_term_loss(
@@ -297,16 +386,21 @@ def multi_term_loss(
     sample: bool = True,
     cross_recon: bool = False,
     cross_recon_weight: float = 1.0,
+    cross_recon_stopgrad: bool = False,
+    unimodal_align_weight: float = 0.0,
     cycle_weight: float = 0.0,
     cycle_render_grad: bool = False,
+    cycle_contrast_weight: float = 0.0,
     cycle_render_binarize: bool | str = False,
     objective: str = "mvae",
+    mvtcae_alpha: float = 0.9,
     member_prune: bool = True,
     term_fold: str = "t",
     n_random_subsets: int = 0,
     generator: torch.Generator | None = None,
     eps: torch.Tensor | None = None,
     subset_masks: torch.Tensor | None = None,
+    cycle_eps: torch.Tensor | None = None,
 ):
     """Total multi-term ELBO loss (batch mean) and per-term metrics.
 
@@ -316,35 +410,62 @@ def multi_term_loss(
     nor a recon target; an example with no modality fuses to the prior
     and contributes exactly 0 (how eval masks its padding rows).
 
-    The terms are the joint, the M unimodal ones and ``n_random_subsets``
-    random subsets (``step.py:483-496``): ``subset_masks`` ``(k, M)``, or a
-    Bernoulli(0.5) draw from ``generator`` before the noise's; an empty
-    subset fuses to the prior (KL 0) and reconstructs nothing. ``T = 1 + M
-    + k``.
+    The terms follow ``objective`` (``step.py:473-516``):
+
+      * ``"mvae"``: the joint, the M unimodal ones and ``n_random_subsets``
+        random subsets (``subset_masks`` ``(k, M)``, or a Bernoulli(0.5)
+        draw from ``generator`` before the noise's; an empty subset fuses
+        to the prior, KL 0, and reconstructs nothing), each reconstructing
+        its own modalities (with ``cross_recon``, every modality); ``T = 1
+        + M + k``;
+      * ``"mmvae"`` / ``"mopoe"``: one term per mixture component
+        (``core.component_masks``), every modality reconstructed from each,
+        and each example's terms averaged over its valid components (those
+        holding an observed modality);
+      * ``"mvtcae"``: one term, the joint posterior reconstructing every
+        modality, its KL ``(1 - a) KL(q_joint || p) + a mean_m KL(q_joint ||
+        q_m)`` over the observed modalities, ``a = mvtcae_alpha``; the
+        metrics carry ``cross_kl``. The joint and the unimodal posteriors
+        come from one ``ops.poe_kl`` call under the mvae masks; only the
+        joint row is decoded.
 
     ``sample=False`` takes z = posterior mean (eval). With ``sample=True``
     the noise comes from ``eps`` (``(T, B, L)``) or ``generator``.
     ``cross_recon``, ``cross_recon_weight``, ``cycle_weight``,
     ``cycle_render_grad`` and ``cycle_render_binarize`` are those of the
     JAX loss (module docstring); with ``cycle_weight > 0`` the metrics
-    carry ``cycle_ce``.
+    carry ``cycle_ce``. The cycle term reads each sequence modality's
+    unimodal term under the objective (``_unimodal_term_row``); under
+    ``"mvtcae"`` it draws z from the unimodal posterior with noise
+    ``cycle_eps`` (``(S, B, L)``, one row per sequence modality in order)
+    or from ``generator``.
+
+    ``cross_recon_stopgrad`` (needs ``cross_recon``): a second decode-all
+    pass on detached decoders gives the cross entries, so their gradient
+    reaches the encoders only. ``unimodal_align_weight``: ``w * beta *
+    KL(q(z|S) || sg(q(z|joint)))`` summed over the non-joint terms S that
+    hold an observed modality and meaned over the batch (metric
+    ``align_kl``). ``cycle_contrast_weight`` (needs ``cycle_weight``): the
+    moment gap of the soft render to the true image (metric
+    ``cycle_contrast``). The mixture objectives refuse ``n_random_subsets``,
+    ``cross_recon*`` and ``unimodal_align_weight`` as the JAX loss does.
     """
     _check_ported(objective, term_fold)
-    if cycle_weight > 0.0 and cycle_render_binarize not in _BINARIZE:
-        raise ValueError(
-            "cycle_render_binarize must be False, True, or 'both'; "
-            f"got {cycle_render_binarize!r}"
-        )
+    _check_knobs(
+        model, objective, n_random_subsets=n_random_subsets, cross_recon=cross_recon,
+        cross_recon_stopgrad=cross_recon_stopgrad, unimodal_align_weight=unimodal_align_weight,
+        cycle_weight=cycle_weight, cycle_render_binarize=cycle_render_binarize,
+        cycle_contrast_weight=cycle_contrast_weight)
     n_mod = model.n_modalities
-    masks = elbo_subset_masks(n_mod, device=model.device)  # (1 + M, M)
+    if objective in ("mvae", "mvtcae"):
+        masks = elbo_subset_masks(n_mod, device=model.device)  # (1 + M, M)
+    else:
+        masks = component_masks(objective, n_mod, device=model.device)  # (K, M)
     if n_random_subsets > 0:
         if subset_masks is None:
             subset_masks = random_subset_masks(
                 generator, n_random_subsets, n_mod, device=model.device)
         masks = torch.cat([masks, subset_masks.to(masks.dtype)])  # (T, M)
-    prune_keys = None
-    if member_prune and not cross_recon:
-        prune_keys = _member_prune_keys(model, n_mod, masks.shape[0])
 
     presence = batch.get("presence")
     data = {k: v for k, v in batch.items() if k != "presence"}
@@ -352,27 +473,84 @@ def multi_term_loss(
     mu_e, lv_e = model.encode(data)  # (B, M, L)
     # (T, B, L) posteriors under the masks times the presence, (T, B) KLs
     fused_mu, fused_lv, kl = ops.poe_kl(mu_e, lv_e, masks, presence)
+    if objective == "mvtcae":
+        # Row 0 (the joint) is the one term; rows 1..M are the unimodal
+        # posteriors the cross-KLs and the cycle term read.
+        uni_mu, uni_lv = fused_mu[1:], fused_lv[1:]  # (M, B, L)
+        fused_mu, fused_lv, kl, masks = fused_mu[:1], fused_lv[:1], kl[:1], masks[:1]
     z = reparameterize(
         fused_mu, fused_lv, sample=sample, generator=generator, eps=eps
     )
+    if member_prune and objective == "mvae" and not cross_recon:
+        prune_keys = _member_prune_keys(model, n_mod, masks.shape[0])
+    else:
+        prune_keys = None
     if prune_keys is not None:
         nll = _pruned_nll_t(model, z, data, prune_keys)  # (T, M, B)
     else:
         nll = _decode_all_nll_t(model, z, data)
     if presence is not None:
         nll = nll * presence.T[None]  # unobserved modalities are no targets
-    recon_masks = masks
-    if cross_recon:
+    if cross_recon_stopgrad:
+        # The cross entries from detached decoders: the same values, a
+        # gradient that reaches the encoders only (``step.py:731-745``).
+        nll_sg = _decoders_detached(model, _decode_all_nll_t, z, data)
+        if presence is not None:
+            nll_sg = nll_sg * presence.T[None]
+        own = masks[:, :, None]
+        nll = own * nll + (1.0 - own) * nll_sg
+    present = _term_present(masks, presence, z.shape[1])  # (T, B)
+    term_weights = None
+    if objective != "mvae":
+        # Every modality is a target of every term, and each example's
+        # terms are averaged over its valid ones (``step.py:746-761``).
+        recon_masks = torch.ones_like(masks)
+        valid = present.to(nll.dtype)
+        term_weights = valid / torch.clamp(valid.sum(0, keepdim=True), min=1.0)
+    elif cross_recon:
         # Every modality is a target of every nonempty subset term; cross
         # entries weigh cross_recon_weight.
         nonempty = (masks.sum(-1, keepdim=True) > 0).to(masks.dtype)
         recon_masks = (masks + cross_recon_weight * (1.0 - masks)) * nonempty
-    loss, metrics = elbo_terms(nll, kl, recon_masks, model.lambdas(), beta)
+    else:
+        recon_masks = masks
+    if objective == "mvtcae":
+        # KL(q_joint || q_m) for each observed m, averaged over them.
+        cross = kl_gauss_gauss(fused_mu, fused_lv, uni_mu, uni_lv)  # (M, B)
+        obs = present.new_ones((n_mod, z.shape[1])) if presence is None else presence.T > 0
+        obs = obs.to(cross.dtype)
+        cross_kl = (cross * obs).sum(0) / torch.clamp(obs.sum(0), min=1.0)  # (B,)
+        kl = (1.0 - mvtcae_alpha) * kl + mvtcae_alpha * cross_kl[None]
+    loss, metrics = elbo_terms(nll, kl, recon_masks, model.lambdas(), beta, term_weights)
+    if objective == "mvtcae":
+        metrics["cross_kl"] = torch.mean(cross_kl)
+    if unimodal_align_weight > 0.0:
+        # Each non-joint term's posterior pulled toward the detached joint
+        # one, ramped by beta (``step.py:787-810``); the metric is the raw KL.
+        align = kl_gauss_gauss(fused_mu[1:], fused_lv[1:],
+                               fused_mu[:1].detach(), fused_lv[:1].detach())  # (T - 1, B)
+        align_kl = torch.mean(torch.sum(align * present[1:].to(align.dtype), dim=0))
+        loss = loss + unimodal_align_weight * beta * align_kl
+        metrics = dict(metrics, loss=loss, align_kl=align_kl)
     if cycle_weight > 0.0:
-        cycle_ce = _cycle_ce(model, z, data, presence, cycle_render_grad,
-                             cycle_render_binarize)
+        seq_idx = [i for i, s in enumerate(model.specs()) if s.kind == "seq"]
+        if objective == "mvtcae":
+            # No unimodal term is decoded: draw the s-only latent from the
+            # unimodal posterior, with its own noise (``step.py:855-865``).
+            z_of = {s_i: reparameterize(
+                uni_mu[s_i], uni_lv[s_i], sample=sample, generator=generator,
+                eps=None if cycle_eps is None else cycle_eps[j])
+                for j, s_i in enumerate(seq_idx)}
+        else:
+            z_of = {s_i: z[_unimodal_term_row(objective, n_mod, s_i)] for s_i in seq_idx}
+        cycle_ce, cycle_contrast = _cycle_terms(
+            model, z_of, data, presence, cycle_render_grad, cycle_render_binarize,
+            cycle_contrast_weight > 0.0)
         loss = loss + cycle_weight * cycle_ce
         metrics = dict(metrics, loss=loss, cycle_ce=cycle_ce)
+        if cycle_contrast is not None:
+            loss = loss + cycle_contrast_weight * cycle_contrast
+            metrics = dict(metrics, loss=loss, cycle_contrast=cycle_contrast)
     return loss, metrics
 
 
@@ -392,17 +570,21 @@ def make_train_step(
     p_modality_drop: float = 0.0,
     cross_recon: bool = False,
     cross_recon_weight: float = 1.0,
+    cross_recon_stopgrad: bool = False,
+    unimodal_align_weight: float = 0.0,
     cycle_weight: float = 0.0,
     cycle_render_grad: bool = False,
+    cycle_contrast_weight: float = 0.0,
     cycle_render_binarize: bool | str = False,
     objective: str = "mvae",
+    mvtcae_alpha: float = 0.9,
     member_prune: bool = True,
     term_fold: str = "t",
     generator: torch.Generator | None = None,
 ) -> Callable:
     """The train step ``(state, batch, eps=None, keep=None,
-    subset_masks=None) -> (state, metrics)`` of ``_train_step_impl``
-    (``step.py:1022-1093``).
+    subset_masks=None, cycle_eps=None) -> (state, metrics)`` of
+    ``_train_step_impl`` (``step.py:1022-1093``).
 
     beta is ``annealing_factor(state.device_step, annealing_steps)``, read
     on the device. With
@@ -412,22 +594,31 @@ def make_train_step(
     none kept keeps all. The loss is :func:`multi_term_loss` with
     ``sample=True`` and the loss knobs given here, its ``n_random_subsets``
     masks ``subset_masks`` (``(k, M)``) or a draw from ``generator``, its
-    noise ``eps`` (``(T, B, L)``) or a draw from ``generator`` (on the
+    noise ``eps`` (``(T, B, L)``) and, for the cycle term under mvtcae,
+    ``cycle_eps`` (``(S, B, L)``) or draws from ``generator`` (on the
     model's device).
     Then one update of ``state`` (:meth:`TrainState.apply_gradients`). The
     metrics are the loss terms, ``beta`` and ``grad_norm``, the global
-    norm of the raw gradients before clipping. Only the mvae objective and
-    ``term_fold="t"`` are ported; the others raise here.
+    norm of the raw gradients before clipping. Every objective is ported;
+    ``term_fold`` other than ``"t"`` raises here.
     """
     _check_ported(objective, term_fold)
+    _check_knobs(
+        model, objective, n_random_subsets=n_random_subsets, cross_recon=cross_recon,
+        cross_recon_stopgrad=cross_recon_stopgrad, unimodal_align_weight=unimodal_align_weight,
+        cycle_weight=cycle_weight, cycle_render_binarize=cycle_render_binarize,
+        cycle_contrast_weight=cycle_contrast_weight)
     loss_kwargs = dict(
-        n_random_subsets=n_random_subsets, cross_recon=cross_recon, cross_recon_weight=cross_recon_weight,
-        cycle_weight=cycle_weight, cycle_render_grad=cycle_render_grad,
+        n_random_subsets=n_random_subsets, cross_recon=cross_recon,
+        cross_recon_weight=cross_recon_weight, cross_recon_stopgrad=cross_recon_stopgrad,
+        unimodal_align_weight=unimodal_align_weight, cycle_weight=cycle_weight,
+        cycle_render_grad=cycle_render_grad, cycle_contrast_weight=cycle_contrast_weight,
         cycle_render_binarize=cycle_render_binarize, objective=objective,
-        member_prune=member_prune, term_fold=term_fold,
+        mvtcae_alpha=mvtcae_alpha, member_prune=member_prune, term_fold=term_fold,
     )
 
-    def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None):
+    def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None,
+                   cycle_eps=None):
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             if keep is None:
@@ -440,7 +631,7 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
             state.model, batch, beta, sample=True, generator=generator, eps=eps,
-            subset_masks=subset_masks, **loss_kwargs,
+            subset_masks=subset_masks, cycle_eps=cycle_eps, **loss_kwargs,
         )
         loss.backward()
         params = list(state.model.parameters())
@@ -604,18 +795,18 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
     where they were. ``graph=False`` asks for the eager loop on the card,
     one step at a time, which the CPU always runs.
 
-    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``, and
-    ``"subset_masks"``, ``(n_steps, k, M)``: each step's posterior noise and
-    random subset masks in place of a draw (how a parity run feeds two
-    devices the same numbers).
+    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``,
+    ``"subset_masks"``, ``(n_steps, k, M)``, and ``"cycle_eps"``,
+    ``(n_steps, S, B, L)``: each step's posterior noise, random subset
+    masks and mvtcae cycle noise in place of a draw (how a parity run feeds
+    two devices the same numbers).
     """
     train_step = make_train_step(model, **step_kwargs)
-    fed = ("eps", "subset_masks")
+    fed = ("eps", "subset_masks", "cycle_eps")
 
     def step(state, batch):
         data = {k: v for k, v in batch.items() if k not in fed}
-        return train_step(state, data, eps=batch.get("eps"),
-                          subset_masks=batch.get("subset_masks"))
+        return train_step(state, data, **{k: batch.get(k) for k in fed})
 
     if not _use_graph(model, graph):
         def run(state, batches):
@@ -643,9 +834,10 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
 
 
 def make_eval_step(
-    model, objective: str = "mvae"
+    model, objective: str = "mvae", mvtcae_alpha: float = 0.9
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
-    """Eval step: full ELBO at beta = 1 with z = posterior mean.
+    """Eval step: full ELBO of ``objective`` at beta = 1 with z = posterior
+    mean (each mixture component's mean for mmvae and mopoe).
 
     Returns ``eval_step(batch) -> metrics``, run without autograd.
     """
@@ -653,7 +845,7 @@ def make_eval_step(
     @torch.no_grad()
     def eval_step(batch):
         _, metrics = multi_term_loss(
-            model, batch, 1.0, sample=False, objective=objective
+            model, batch, 1.0, sample=False, objective=objective, mvtcae_alpha=mvtcae_alpha
         )
         return metrics
 
@@ -661,7 +853,7 @@ def make_eval_step(
 
 
 def make_eval_runner(
-    model, objective: str = "mvae", *, graph: bool | None = None
+    model, objective: str = "mvae", mvtcae_alpha: float = 0.9, *, graph: bool | None = None
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
     """Eval over pre-stacked ``(n_batches, B, ...)`` tensors. Returns
     ``run(batches) -> metrics`` with every metric stacked over the
@@ -674,7 +866,7 @@ def make_eval_runner(
     updated in place. ``graph=False`` asks for the eager loop on the card,
     one batch at a time, which the CPU always runs.
     """
-    return _split_runner(make_eval_step(model, objective), model, graph)
+    return _split_runner(make_eval_step(model, objective, mvtcae_alpha), model, graph)
 
 
 def _split_runner(step: Callable, model, graph: bool | None,

@@ -126,6 +126,37 @@ def test_celeba_graph_epoch_with_random_subsets_equals_eager_to_the_bit(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["mopoe", "mvtcae"])
+def test_mixture_graph_epoch_equals_eager_to_the_bit(cuda, objective):
+    """``mnist`` at full width under mopoe (its 3 powerset components, made
+    on the device inside the step) and mvtcae (the joint and unimodal
+    rows, the cross-KLs) at batch 100: two epochs of 4 replays against two
+    of the eager loop on deterministic algorithms. Every metric (mvtcae's
+    ``cross_kl`` with them), parameter and EMA parameter is equal to the
+    bit, and so are the launch counts. The capture makes no constant:
+    ``_StepGraph`` raises if one is made under it, and the cached
+    constants do not grow over the replays."""
+    config = configs.get_config("mnist").replace(objective=objective)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        batches = _batches(config, 4, 100)
+        graph = _train(config, True, batches)
+        constants = step_module._device_tensor.cache_info().currsize
+        eager = _train(config, False, batches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert step_module._device_tensor.cache_info().currsize == constants
+    _assert_close_runs(graph, eager)
+    for mg, me in zip(graph[1], eager[1]):
+        assert all(torch.equal(mg[k], me[k]) for k in me)
+    assert ("cross_kl" in graph[1][0]) == (objective == "mvtcae")
+    for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters()):
+        assert all(torch.equal(a, b) for a, b in zip(params(graph[0]), params(eager[0])))
+    assert graph[2] == eager[2] and graph[2]["poe_kl"] == graph[2]["bce_bwd"] == 8
+
+
+@pytest.mark.gpu
 def test_beta_crosses_the_end_of_the_ramp_inside_one_graph_epoch(cuda):
     """A ramp of 5 steps in an epoch of 8: each replay reads its own beta
     from the device step, 1 from the ramp's end on."""
@@ -213,8 +244,8 @@ def test_a_step_that_syncs_raises_during_capture(cuda, monkeypatch):
     after it lets the tests that follow draw from them again."""
     make_eval_step = step_module.make_eval_step
 
-    def syncing(model, objective="mvae"):
-        eval_step = make_eval_step(model, objective)
+    def syncing(model, *args, **kwargs):
+        eval_step = make_eval_step(model, *args, **kwargs)
 
         def step(batch):
             metrics = eval_step(batch)

@@ -19,8 +19,11 @@ H100 = kernels.H100_SMS
 # (N, D) of the row reductions the port runs or checks: MNIST, MultiMNIST
 # and CelebA eval rows, the large check, CelebA's image rows in each
 # fold, fewer rows than SMs at an odd D, D not a multiple of 4, one row.
+# The mixture objectives' decode-all rows: MNIST mopoe's (300, 784), CelebA
+# mopoe's image (1280, 12288) and attribute (23040, 1) rows.
 BCE_SHAPES = [(200, 784), (200, 2500), (128, 12288), (21888, 1), (8192, 784),
-              (37, 1000), (16, 50001), (128, 12290), (1, 12288), (6, 3), (1, 0)]
+              (37, 1000), (16, 50001), (128, 12290), (1, 12288), (6, 3), (1, 0),
+              (300, 784), (1280, 12288), (23040, 1)]
 SEQ_SHAPES = [(200, 5, 13), (2048, 8, 5003), (4096, 32, 23), (37, 7, 13),
               (3, 40, 1001), (5, 3, 31), (4, 0, 7), (3, 1, 2), (9, 9, 64), (9, 9, 65)]
 # (B, H, W, C) of K4: CelebA eval, the probe, a ragged batch, an odd
@@ -34,7 +37,8 @@ CONV_SHAPES = [(64, 64, 64, 3), (256, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1
 # eval batches, CelebA's ragged check at an odd L, a batch of one, more
 # rows than SMs, one term of one expert, more terms than a block has warps.
 POE_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64), (20, 10, 19, 37),
-              (3, 1, 2, 64), (20, 200, 19, 100), (1, 1, 1, 1), (40, 2, 3, 8)]
+              (3, 1, 2, 64), (20, 200, 19, 100), (1, 1, 1, 1), (40, 2, 3, 8),
+              (2, 100, 2, 64)]
 
 
 @pytest.mark.parametrize("shape", BCE_SHAPES)
@@ -652,10 +656,12 @@ def test_seq_ce_grad_plan_refuses_a_staged_chunk_above_48kb():
 # (N, D, n_x) of K2's VJP: every shape ``chip_smoke.py`` times and checks
 # (the MNIST and MultiMNIST train rows, CelebA's image rows in each fold and
 # its attribute rows, D off a multiple of 4, more target rows than a grid
-# axis holds), 70,000 rows of an image, one row.
+# axis holds, the mixture objectives' decode-all rows), 70,000 rows of an
+# image, one row.
 BCE_GRAD_SHAPES = [(200, 784, 100), (300, 2500, 100), (128, 12288, 64), (200, 784, 200),
                    (21888, 1, 1152), (36, 1002, 18), (70000, 3, 70000), (70000, 784, 70000),
-                   (70000, 784, 35000), (128, 12288, 128), (1, 5, 1)]
+                   (70000, 784, 35000), (128, 12288, 128), (1, 5, 1),
+                   (300, 784, 100), (1280, 12288, 64), (23040, 1, 1152)]
 
 
 def _bce_grad_plans(n: int, d: int, n_x: int) -> list:

@@ -143,11 +143,17 @@ def test_decode_all_pass_matches_jax(matched):
 
 @pytest.mark.parametrize(
     "kw",
-    [{"objective": "mmvae"}, {"term_fold": "b"}, {"term_fold": "st"}],
+    [{"objective": "mmvae", "cross_recon": True}, {"term_fold": "b"}, {"term_fold": "st"}],
 )
 def test_unported_loss_paths_raise(matched, kw):
+    """The b and st folds are not ported and raise; the mixture objectives
+    are, and refuse the mvae term knobs with the JAX loss's ``ValueError``."""
     _, _, tmodel, data = matched
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    if "term_fold" in kw:
+        error, match = NotImplementedError, "not yet ported"
+    else:
+        error, match = ValueError, "mvae term-structure knobs"
+    with pytest.raises(error, match=match):
         multi_term_loss(tmodel, _tbatch(data), sample=False, **kw)
 
 

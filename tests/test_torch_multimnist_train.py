@@ -326,13 +326,18 @@ def test_step_options_are_the_jax_runner_options(name):
 
 @pytest.mark.parametrize("knob,value", [("objective", "mopoe"), ("term_fold", "b")])
 def test_unported_loss_knobs_raise(init_params, knob, value):
-    """An objective or a fold of the JAX loss that the port does not take
-    yet raises ``NotImplementedError``, from the loss and from the step's
-    builder."""
+    """A fold of the JAX loss that the port does not take yet raises
+    ``NotImplementedError``; a mixture objective is ported and refuses the
+    config's cross-recon with the JAX loss's ``ValueError``. Both from the
+    loss and from the step's builder."""
     model = _tmodel(init_params)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    if knob == "term_fold":
+        error, match = NotImplementedError, "not yet ported"
+    else:
+        error, match = ValueError, "mvae term-structure knobs"
+    with pytest.raises(error, match=match):
         make_train_step(model, **CYCLE, **{knob: value})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(error, match=match):
         multi_term_loss(model, _tbatch(_batches(1)[0]), **CYCLE, **{knob: value})
 
 

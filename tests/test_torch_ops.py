@@ -380,9 +380,13 @@ def test_fuse_observed_z_matches_jax_and_guards_mixtures():
         objective="mvae", sample=False,
     )
     _close(core.fuse_observed_z(_t(mu), _t(lv), _t(presence), sample=False), want)
-    for objective in ("mmvae", "mopoe"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            core.fuse_observed_z(_t(mu), _t(lv), None, objective, sample=False)
+    for objective in ("mmvae", "mopoe"):  # the mixture's mean, a row with nothing at 0
+        want = jcore.fuse_observed_z(
+            None, jnp.asarray(mu), jnp.asarray(lv), jnp.asarray(presence),
+            objective=objective, sample=False,
+        )
+        _close(core.fuse_observed_z(_t(mu), _t(lv), _t(presence), objective, sample=False),
+               want)
     with pytest.raises(ValueError):
         core.fuse_observed_z(_t(mu), _t(lv), None, "vae", sample=False)
 

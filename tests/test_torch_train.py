@@ -337,15 +337,19 @@ def test_random_subsets_train_mnist_as_jax_does(jmodel):
 @pytest.mark.parametrize("kw", [{"objective": "mmvae"}, {"mounted": "mnist"},
                                 {"config": "deep_mnist"}, {"config": "deep_cub"}])
 def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
-    """A mixture objective, mounted data under ``$MMVAE_DATA_DIR`` and the
-    ``deep_*`` pipeline configs are not ported: ``api.train`` raises."""
+    """Mounted data under ``$MMVAE_DATA_DIR`` and the ``deep_*`` pipeline
+    configs are not ported: ``api.train`` raises. A mixture objective is
+    ported; with an mvae term knob (cross-recon) it raises the JAX loss's
+    ``ValueError``."""
     kw = {"config": "mnist", **kw}
     config = kw.pop("config")
+    error, match = NotImplementedError, "not yet ported"
     if "objective" in kw:
         config = configs.get_config(config).replace(
-            objective=kw.pop("objective"), train_size=100, test_size=100)
+            objective=kw.pop("objective"), cross_recon=True, train_size=100, test_size=100)
+        error, match = ValueError, "mvae term-structure knobs"
     if "mounted" in kw:
         (tmp_path / kw.pop("mounted")).mkdir()
         monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(error, match=match):
         api.train(config, device="cpu", **kw)
