@@ -150,9 +150,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      backward, under its gates;
    - a workdir: ``mnist`` at full width over a train split cut to 2,000
      trained 2 epochs into a temporary workdir and resumed for a third,
-     against an uninterrupted 3-epoch run (rel 1e-6);
+     against an uninterrupted 3-epoch run (rel 1e-6), its ``metrics.jsonl``
+     records counted by kind (3 eval records, the JAX loop's train records);
      ``eval_elbo`` from the workdir against the best epoch's recorded test
      ELBO (rel 1e-6), and ``generate`` and ``sample`` from it;
+   - the training extras (``train_extras``): ``mnist`` at full width over
+     a train split cut to 2,000 (20 micro-steps an epoch), 3 epochs of
+     ``accum_steps`` 3 (an update straddles each epoch boundary), the
+     cosine schedule warming up over epoch 1, clipping at 1, EMA 0.999, a
+     train record every 5 steps: the epoch runner's graph (two captured
+     bodies, a micro-step and one that commits the update) against its
+     eager loop over 2 epochs to the bit on deterministic algorithms, the
+     card against the CPU over the first 6 micro-steps (rel 1e-4), a run
+     stopped after epoch 2 and resumed against an uninterrupted one (rel
+     1e-6), ``ckpt_async`` against the synchronous saves to the bit (each
+     stage's and save's wall), a NaN after epoch 2 rolled back to epoch 1
+     and a NaN after every epoch raising, each run's ``metrics.jsonl``
+     records by kind against the JAX loop's, the launches of the
+     uninterrupted run (``mnist_accum_train``), samples/s and busy time a
+     micro-step against the plain step; ``celeba`` with ``accum_steps`` 2
+     (20 micro-steps of 64) graph against eager to the bit, its launches
+     (``celeba_accum_train``: K4, its backward, the fused PoE + KL and its
+     backward once a micro-step, K2 and its VJP twice) and its rate; and
+     the CLI in processes of its own while the untimed gates run
+     (``python -m mmvae_torch.cli train``, then ``eval`` of the test and
+     the train split against ``api.eval_elbo`` (rel 1e-6), ``sample`` to
+     a PNG, ``generate``), each exiting 0;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -194,7 +217,9 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -213,6 +238,8 @@ from mmvae_torch.train import (
     make_iwae_runner,
     make_train_step,
 )
+from mmvae_torch.train.checkpoint import AsyncCheckpointWriter
+from mmvae_torch.train.state import learning_rate
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate, L2 size, the f32 rate outside the
@@ -636,6 +663,19 @@ EXPECTED_LAUNCHES = {
     # once (stage 0 of the image encoder), and every one's backward kernel as
     # often; then the 32 batches of the test ELBO, forward only (the fused
     # PoE + KL once, K2 twice, K4 once each).
+    # ``train_extras`` (PR 19): ``mnist`` with accum_steps 3 over 3 epochs of
+    # 20 micro-steps, each the fused PoE + KL and K2 forward and backward once
+    # (an update launches no kernel of the port), then the 20 batches of the
+    # test ELBO an epoch, forward only.
+    "mnist_accum_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                          "kl_bwd": 0, "bce_bwd": 60, "seq_ce_bwd": 0, "poe_kl_bwd": 60,
+                          "conv_bwd": 0, "conv_dx": 0},
+    # ``celeba`` with accum_steps 2: 20 micro-steps of 64 through the epoch
+    # runner (no eval), each the fused PoE + KL once, K2 twice and K4 once,
+    # and every one's backward kernel as often.
+    "celeba_accum_train": {"kl": 0, "bce": 40, "seq_ce": 0, "conv": 20, "poe_kl": 20,
+                           "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
+                           "conv_bwd": 20, "conv_dx": 0},
     "celeba_train": {"kl": 0, "bce": 104, "seq_ce": 0, "conv": 52, "poe_kl": 52,
                      "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
                      "conv_bwd": 20, "conv_dx": 0},
@@ -1413,7 +1453,10 @@ def train_path(cfg) -> str:
     """The name of ``cfg``'s train path in ``EXPECTED_LAUNCHES`` and the
     result lines: ``<config>_train``, ``<config>_<objective>_train`` under
     another objective than mvae, ``<config>_knobs_train`` with the loss
-    knobs no named config sets."""
+    knobs no named config sets, ``<config>_accum_train`` under gradient
+    accumulation."""
+    if cfg.accum_steps > 1:
+        return f"{cfg.name}_accum_train"
     if cfg.objective != "mvae":
         return f"{cfg.name}_{cfg.objective}_train"
     if cfg.cross_recon_stopgrad or cfg.unimodal_align_weight or cfg.cycle_contrast_weight:
@@ -1619,7 +1662,8 @@ def train_rate(cfg, n_steps: int, rounds: int, profiled_steps: int, gate: bool =
 
 def train_card_vs_cpu(cfg=None, n_steps: int = 3) -> None:
     """``n_steps`` of ``cfg``'s epoch runner (the ``mnist`` config's by
-    default, its objective's loss) on the card (the graph runner, its
+    default, its objective's loss, and its clipping, EMA, gradient
+    accumulation and LR schedule) on the card (the graph runner, its
     kernels) and on the CPU (the eager loop) from the same seeded weights,
     noise and batches, each at rel 1e-4 (CPU and card matmuls round
     differently; the card's Adam is the capturable one): the loss and the
@@ -1636,7 +1680,9 @@ def train_card_vs_cpu(cfg=None, n_steps: int = 3) -> None:
     runs = {}
     for dev in ("cuda", "cpu"):
         model = configs.build_model(cfg, seed=0, device=dev)
-        state = create_train_state(model, cfg.learning_rate)
+        state = create_train_state(
+            model, learning_rate(cfg, cfg.train_size // bs), grad_clip=cfg.grad_clip,
+            ema_decay=cfg.ema_decay, accum_steps=cfg.accum_steps)
         runner = make_epoch_runner(model, annealing_steps=1000, **api.step_options(cfg))
         _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
         runs[dev] = (*run_metrics(metrics),
@@ -2061,7 +2107,7 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
             apply = state.apply_gradients
             steps = iter(fed) if fed is not None else None
 
-            def apply_gradients():
+            def apply_gradients(commit=None):
                 named = list(model.named_parameters())
                 if record is not None:
                     record.append({n: p.grad.detach().cpu().clone() for n, p in named})
@@ -2081,7 +2127,7 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
                                 tally[key] = max(tally[key], other[mask].abs().max().item())
                         p.grad[both] = card[n][both]
                     counts.append(tally)
-                apply()
+                apply(commit)
 
             # The hook is the state's attribute only for this run: it holds
             # the state, and left in place the two would form a cycle.
@@ -2147,7 +2193,8 @@ def phase_workdir() -> None:
     against an uninterrupted 3-epoch run (each epoch's train loss and test
     ELBO, and every parameter, rel 1e-6 on the card); ``eval_elbo`` from
     the workdir against the best epoch's recorded test ELBO (rel 1e-6);
-    ``generate`` and ``sample`` from it."""
+    ``generate`` and ``sample`` from it; ``metrics.jsonl`` holding 3 eval
+    records and exactly the train records the JAX loop writes."""
     cfg = configs.get_config("mnist").replace(epochs=3, train_size=2000)
     with tempfile.TemporaryDirectory() as tmp:
         full = api.train(cfg, f"{tmp}/full", seed=0, verbose=False)
@@ -2167,20 +2214,447 @@ def phase_workdir() -> None:
         smp = api.sample("mnist", n=16, workdir=f"{tmp}/split",
                          generator=torch.Generator(device="cuda").manual_seed(0))
         listing = sorted(os.listdir(f"{tmp}/split/ckpt"))
-        with open(f"{tmp}/split/metrics.jsonl") as f:
-            n_records = sum(1 for _ in f)
+        # By kind: an eval record an epoch, and the train records the JAX
+        # loop writes (one every log_interval = 100 steps of each epoch of
+        # 20: its first step).
+        got = records(f"{tmp}/split")
+    n_records = {kind: len(v) for kind, v in got.items()}
+    train_records = [(r["epoch"], r["step"]) for r in got["train"]]
+    want_train = jax_train_records([(e, 20 * (e - 1)) for e in (1, 2, 3)], 20, cfg.log_interval)
     emit({"phase": "workdir", "config": "mnist", "history": history,
           "uninterrupted_history": full.history, "history_rel_max": history_rel,
           "param_rel_max": param_rel, "eval_elbo_workdir": elbo, "best_test_elbo": best,
-          "eval_elbo_rel": elbo_rel, "ckpt": listing, "metrics_records": n_records})
-    if not (history_rel <= 1e-6 and param_rel <= 1e-6 and elbo_rel <= 1e-6 and n_records == 3
-            and resumed.best_test_elbo == best):
-        raise AssertionError(f"workdir: resumed run or workdir eval differ: history "
-                             f"{history_rel}, params {param_rel}, eval {elbo_rel}")
+          "eval_elbo_rel": elbo_rel, "ckpt": listing, "metrics_records": n_records,
+          "train_records": train_records})
+    if not (history_rel <= 1e-6 and param_rel <= 1e-6 and elbo_rel <= 1e-6
+            and n_records["eval"] == 3 and n_records["event"] == 0
+            and train_records == want_train and resumed.best_test_elbo == best):
+        raise AssertionError(f"workdir: resumed run, workdir eval or records differ: history "
+                             f"{history_rel}, params {param_rel}, eval {elbo_rel}, records "
+                             f"{n_records} {train_records} (the JAX loop's {want_train})")
     for out, n in ((gen, 3), (smp, 16)):
         check_image(out["image"], n, (28, 28))
         if not (out["label"].min() >= 0 and out["label"].max() < 10):
             raise AssertionError("generated label out of range")
+
+
+# The training extras' MNIST run: 20 micro-steps an epoch, an update of 3
+# straddling each epoch boundary (20 % 3 = 2), the cosine schedule warming
+# up over the first epoch, clipping and the EMA on, a train record every 5
+# steps.
+EXTRAS = dict(train_size=2000, epochs=3, accum_steps=3, lr_schedule="cosine", warmup_epochs=1,
+              grad_clip=1.0, ema_decay=0.999, log_interval=5)
+CELEBA_ACCUM = 2
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else (a - b).norm().item()
+
+
+def state_tensors(state) -> dict[str, torch.Tensor]:
+    """Every tensor of a train state by name: the parameters, the EMA
+    shadow, the running mean, Adam's moments and counts, a scheduled
+    rate."""
+    out = {f"param {n}": p for n, p in state.model.named_parameters()}
+    if state.ema_model is not None:
+        out.update({f"ema {n}": p for n, p in state.ema_model.named_parameters()})
+    out.update({f"acc {i}": a for i, a in enumerate(state.acc_grads or [])})
+    for i, p in enumerate(state.model.parameters()):
+        out.update({f"adam {i} {k}": v for k, v in state.optimizer.state.get(p, {}).items()})
+    lr = state.optimizer.param_groups[0]["lr"]
+    if torch.is_tensor(lr):
+        out["lr"] = lr
+    return out
+
+
+def accum_graph_vs_eager(cfg, batches: dict, epochs: int) -> tuple[dict, dict, dict]:
+    """``cfg``'s epoch runner (its accumulation, clipping, EMA and schedule
+    over the split's steps) as replays and as the eager loop from the same
+    seed-0 weights, generator seed and batches, ``epochs`` calls each, on
+    deterministic algorithms: whether every metric, state tensor
+    (``state_tensors``) and the noise generator's state are equal to the
+    bit, the largest relative differences, and each run's launch counts."""
+    n_steps = next(iter(batches.values())).shape[0]
+    runs = {}
+    ops.set_backend("kernel")
+    try:
+        with deterministic():
+            for kind in ("graph", "eager"):
+                model = configs.build_model(cfg, seed=0)
+                state = create_train_state(
+                    model, learning_rate(cfg, n_steps), grad_clip=cfg.grad_clip,
+                    ema_decay=cfg.ema_decay, accum_steps=cfg.accum_steps)
+                gen = torch.Generator(device="cuda").manual_seed(1)
+                runner = make_epoch_runner(model, graph=kind == "graph", annealing_steps=1000,
+                                           generator=gen, **api.step_options(cfg))
+                for k in kernels.LAUNCHES:
+                    kernels.LAUNCHES[k] = 0
+                metrics = [runner(state, batches)[1] for _ in range(epochs)]
+                torch.cuda.synchronize()
+                runs[kind] = (state, metrics, dict(kernels.LAUNCHES), gen.get_state())
+    finally:
+        ops.set_backend("auto")
+    (s_g, m_g, l_g, gen_g), (s_e, m_e, l_e, gen_e) = runs["graph"], runs["eager"]
+    t_g, t_e = state_tensors(s_g), state_tensors(s_e)
+    metric_pairs = [(a[k], b[k]) for a, b in zip(m_g, m_e) for k in b]
+    compared = {
+        "epochs": epochs, "steps_per_epoch": n_steps, "accum_steps": cfg.accum_steps,
+        "micro_steps": s_g.step, "micro_step_at_end": s_g.micro_step,
+        "metric_rel_max": max(_rel_err(a, b) for a, b in metric_pairs),
+        "state_rel_max": max(_rel_err(t_g[k], t_e[k]) for k in t_e),
+        "bits_equal": (t_g.keys() == t_e.keys() and torch.equal(gen_g, gen_e)
+                       and all(torch.equal(a, b) for a, b in metric_pairs)
+                       and all(torch.equal(t_g[k], t_e[k]) for k in t_e)),
+        "launches_equal": l_g == l_e,
+    }
+    return compared, l_g, l_e
+
+
+def accum_rate(cfg, n_steps: int, rounds: int, profiled_steps: int) -> dict:
+    """Graph epochs of ``n_steps`` micro-steps of ``cfg`` with its
+    ``accum_steps`` and with 1 (the plain step: the same clipping, EMA and
+    schedule, an update a step), from the same weights and batches, timed
+    in turns (samples/s and the wall a micro-step, host clock from a sync to
+    a sync), and a profile of ``profiled_steps`` of each (device busy µs a
+    micro-step)."""
+    batches = train_batches(n_steps, cfg.batch_size, "cuda", seed=1, config=cfg.dataset)
+    runners = {}
+    for k in (cfg.accum_steps, 1):
+        model = configs.build_model(cfg, seed=0)
+        state = create_train_state(model, learning_rate(cfg, n_steps), grad_clip=cfg.grad_clip,
+                                   ema_decay=cfg.ema_decay, accum_steps=k)
+        runner = make_epoch_runner(model, annealing_steps=1000,
+                                   generator=torch.Generator(device="cuda").manual_seed(1),
+                                   **api.step_options(cfg))
+        runner(state, batches)  # the first call captures
+        runners[k] = (runner, state)
+    walls = {k: [] for k in runners}
+    for _ in range(rounds):
+        for k, (runner, state) in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(state, batches)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    busy = {}
+    head = {key: v[:profiled_steps] for key, v in batches.items()}
+    for k, (_, state) in runners.items():
+        runner = make_epoch_runner(state.model, annealing_steps=1000,
+                                   generator=torch.Generator(device="cuda").manual_seed(2),
+                                   **api.step_options(cfg))
+        runner(state, head)
+        summary = profile_summary(lambda: runner(state, head))
+        b = summary["device_busy_us"]
+        busy[f"accum_{k}"] = b / profiled_steps if b != "not measured" else b
+    samples = n_steps * cfg.batch_size
+    return {"steps": n_steps, "batch": cfg.batch_size,
+            "wall_s": {f"accum_{k}": w for k, w in walls.items()},
+            "samples_per_s": {f"accum_{k}": [samples / x for x in w] for k, w in walls.items()},
+            "wall_us_per_micro_step": {f"accum_{k}": [1e6 * x / n_steps for x in w]
+                                       for k, w in walls.items()},
+            "profiled_steps": profiled_steps, "device_busy_us_per_micro_step": busy}
+
+
+@contextlib.contextmanager
+def save_walls(walls: dict[str, list]):
+    """The wall (host clock) each synchronous save and each stage of an
+    overlapped one holds ``api.train``'s loop, appended to
+    ``walls["sync"]`` and ``walls["stage"]``."""
+    sync, stage = api.save_checkpoint, AsyncCheckpointWriter.stage
+
+    def timed_sync(*args, **kw):
+        t0 = time.perf_counter()
+        sync(*args, **kw)
+        walls["sync"].append(time.perf_counter() - t0)
+
+    def timed_stage(self, *args, **kw):
+        t0 = time.perf_counter()
+        staged = stage(self, *args, **kw)
+        walls["stage"].append(time.perf_counter() - t0)
+        return staged
+
+    api.save_checkpoint, AsyncCheckpointWriter.stage = timed_sync, timed_stage
+    try:
+        yield walls
+    finally:
+        api.save_checkpoint, AsyncCheckpointWriter.stage = sync, stage
+
+
+def records(workdir: str) -> dict[str, list[dict]]:
+    """``metrics.jsonl``'s records by kind."""
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    kinds = {r["kind"] for r in lines}
+    if not kinds <= {"train", "eval", "event"}:
+        raise AssertionError(f"{workdir}: unknown record kinds {kinds}")
+    return {kind: [r for r in lines if r["kind"] == kind] for kind in ("train", "eval", "event")}
+
+
+def jax_train_records(passes: list[tuple[int, int]], steps: int, log_interval: int) -> list:
+    """The (epoch, step) of each train record the JAX loop writes for epoch
+    passes ``(epoch, micro-steps before it)`` of ``steps`` steps each
+    (``mmvae_tpu/api.py:803-840``: steps ``i`` = 0, ``log_interval``, ...,
+    numbered ``base + i + 1``)."""
+    return [(epoch, base + i + 1) for epoch, base in passes for i in range(0, steps, log_interval)]
+
+
+def check_records(name: str, workdir: str, passes: list, evals: list[int], events: int) -> dict:
+    """``workdir``'s records against the JAX loop's: the train records of
+    ``passes`` exactly, the eval records of ``evals``, ``events`` events."""
+    got = records(workdir)
+    steps = EXTRAS["train_size"] // 100
+    want_train = jax_train_records(passes, steps, EXTRAS["log_interval"])
+    counts = {kind: len(v) for kind, v in got.items()}
+    if ([(r["epoch"], r["step"]) for r in got["train"]] != want_train
+            or [r["epoch"] for r in got["eval"]] != evals or counts["event"] != events):
+        raise AssertionError(f"{name}: records {counts} ({[(r['epoch'], r['step']) for r in got['train']]}),"
+                             f" the JAX loop's train {want_train}, evals {evals}, events {events}")
+    return counts
+
+
+def _poison(every: bool = False, at: int = 2):
+    """A ``fault_hook`` that fills one parameter and its EMA shadow (which
+    the test ELBO reads) with NaN after epoch ``at``'s train pass once (or
+    after every epoch's)."""
+    done = []
+
+    def hook(epoch, state):
+        if every or (epoch == at and not done):
+            done.append(epoch)
+            with torch.no_grad():
+                next(state.model.parameters()).fill_(float("nan"))
+                next(state.ema_model.parameters()).fill_(float("nan"))
+        return state
+
+    return hook
+
+
+class _Preempted(Exception):
+    pass
+
+
+def _stop_after(last_epoch: int):
+    def hook(epoch, state):
+        if epoch > last_epoch:
+            raise _Preempted
+        return state
+
+    return hook
+
+
+class CliRuns(threading.Thread):
+    """``python -m mmvae_torch.cli`` in processes of its own on the card,
+    run from a thread while this process goes on: ``train`` of ``mnist``
+    for 1 epoch over 2,000 examples into a workdir, then together ``eval``
+    (the test and the train split), ``sample`` to a PNG and ``generate``
+    from labels to an npz. The thread only waits for the processes (none
+    outlives it); :meth:`check`, on the main thread, reads what they
+    printed."""
+
+    def __init__(self, tmp: str):
+        super().__init__(daemon=True)
+        self.tmp, self.wd = tmp, f"{tmp}/cli"
+        self.out, self.error, self.walls = {}, None, {}
+
+    def _start(self, *args):
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        return subprocess.Popen([sys.executable, "-m", "mmvae_torch.cli", *args], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    def _finish(self, procs: dict) -> None:
+        try:
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=300)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli {name} exited {proc.returncode}: {stderr[-3000:]}")
+                self.out[name] = json.loads(stdout.strip().splitlines()[-1])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            self._finish({"train": self._start("train", "--config", "mnist", "--epochs", "1",
+                                               "--train-size", "2000", "--workdir", self.wd)})
+            self.walls["train_s"] = time.perf_counter() - t0
+            wd = self.wd
+            self._finish({
+                "eval": self._start("eval", "--config", "mnist", "--workdir", wd),
+                "eval_train": self._start("eval", "--config", "mnist", "--workdir", wd,
+                                          "--split", "train"),
+                "sample": self._start("sample", "--config", "mnist", "--workdir", wd, "--n", "16",
+                                      "--out", f"{self.tmp}/samples.png"),
+                "generate": self._start("generate", "--config", "mnist", "--workdir", wd,
+                                        "--condition-on", "label=[3,5,7]",
+                                        "--out", f"{self.tmp}/gen.npz"),
+            })
+            self.walls["all_s"] = time.perf_counter() - t0
+        except BaseException as e:  # raised again by check, on the main thread
+            self.error = e
+
+    def check(self) -> dict:
+        """Wait for the processes; each must have exited 0, and each eval
+        equal ``api.eval_elbo`` of the same workdir and split (rel 1e-6)."""
+        self.join()
+        if self.error is not None:
+            raise self.error
+        out, wd = self.out, self.wd
+        rel = {split: abs(out[name]["elbo"] - want) / abs(want)
+               for split, name in (("test", "eval"), ("train", "eval_train"))
+               for want in [api.eval_elbo("mnist", workdir=wd, split=split)]}
+        with open(f"{self.tmp}/samples.png", "rb") as f:
+            png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+        if not (max(rel.values()) <= 1e-6 and png and out["eval"]["split"] == "test"
+                and out["eval_train"]["split"] == "train"
+                and out["sample"]["shapes"]["image"] == [16, 28, 28]
+                and out["generate"]["shapes"] == {"image": [3, 28, 28], "label": [3]}
+                and math.isfinite(out["train"]["best_test_elbo"])):
+            raise AssertionError(f"cli: {out}, eval rel {rel}, png header {png}")
+        return {"cli_wall_s": self.walls, "eval_rel": rel, "outputs": out}
+
+
+def phase_train_extras() -> dict[str, dict[str, int]]:
+    """The training extras at full width (``EXTRAS``: ``mnist``, 3 epochs
+    of 20 micro-steps, accum_steps 3, the cosine schedule, clipping, EMA,
+    a train record every 5 steps). While the CLI runs in processes of its
+    own (``CliRuns``), the untimed gates: graph against eager to the bit
+    on deterministic algorithms (2 epochs, an update straddling the
+    boundary; ``celeba`` with accum_steps 2 over 20 micro-steps of 64, and
+    its launches); the card against the CPU over the first 6 micro-steps
+    (2 updates, the first at rate 0; rel 1e-4); a run stopped after epoch
+    2 and resumed; a NaN in one parameter and its EMA shadow after epoch 2
+    rolled back to epoch 1 (``nan_rollback=2``), and a NaN after every
+    epoch raising (``nan_rollback=1``). Then, the CLI checked, the timed
+    runs alone on the card: ``api.train`` with its launches counted and
+    each synchronous save's wall, the resumed run against it (rel 1e-6),
+    ``ckpt_async`` against it to the bit (the history and the last
+    checkpoint) with each stage's wall, every run's records against the
+    JAX loop's, and samples/s and busy time against the plain step."""
+    cfg = configs.get_config("mnist").replace(**EXTRAS)
+    steps = EXTRAS["train_size"] // cfg.batch_size
+    path = train_path(cfg)
+    celeba = configs.get_config("celeba").replace(accum_steps=CELEBA_ACCUM,
+                                                  train_size=CELEBA_TRAIN_SIZE)
+    c_path, c_steps = train_path(celeba), CELEBA_TRAIN_SIZE // celeba.batch_size
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = CliRuns(tmp)
+        cli.start()
+        try:
+            batches = train_batches(steps, cfg.batch_size, "cuda", seed=1, config="mnist")
+            compared, _, _ = accum_graph_vs_eager(cfg, batches, epochs=2)
+            emit({"phase": "train_graph_vs_eager", "config": "mnist", "path": path,
+                  "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True, **compared})
+            if not (compared["bits_equal"] and compared["launches_equal"]):
+                raise AssertionError(f"{path}: graph and eager epochs differ: {compared}")
+            compared, graph_launches, eager_launches = accum_graph_vs_eager(
+                celeba, train_batches(c_steps, celeba.batch_size, "cuda", seed=1,
+                                      config="celeba"), 1)
+            emit({"phase": "train_graph_vs_eager", "config": "celeba", "path": c_path,
+                  "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True,
+                  "launches": graph_launches, **compared})
+            if not compared["bits_equal"]:
+                raise AssertionError(f"{c_path}: graph and eager epochs differ: {compared}")
+            for kind, got in (("graph", graph_launches), ("eager", eager_launches)):
+                if got != EXPECTED_LAUNCHES[c_path]:
+                    raise AssertionError(f"{c_path} {kind}: expected launches "
+                                         f"{EXPECTED_LAUNCHES[c_path]}, got {got}")
+            out[c_path] = graph_launches
+            train_card_vs_cpu(cfg, n_steps=6)
+
+            with contextlib.suppress(_Preempted):
+                api.train(cfg, f"{tmp}/split", seed=0, verbose=False, fault_hook=_stop_after(2))
+            resumed = api.train(cfg, f"{tmp}/split", seed=0, verbose=False, resume=True)
+            counts["resumed"] = check_records(
+                "resumed", f"{tmp}/split", [(e, (e - 1) * steps) for e in (1, 2, 3)], [1, 2, 3], 0)
+            rolled = api.train(cfg.replace(nan_rollback=2), f"{tmp}/rollback", seed=0,
+                               verbose=False, fault_hook=_poison())
+            (event,) = records(f"{tmp}/rollback")["event"]
+            counts["rollback"] = check_records(
+                "rollback", f"{tmp}/rollback", [(1, 0), (2, steps), (2, steps), (3, 2 * steps)],
+                [1, 2, 3], 1)
+            if not ((event["failed_epoch"], event["restored_epoch"], event["rollbacks"])
+                    == (2, 1, 1) and [r["epoch"] for r in rolled.history] == [1, 2, 3]
+                    and all(math.isfinite(r["test_elbo"]) for r in rolled.history)
+                    and rolled.state.step == 3 * steps):
+                raise AssertionError(f"{path}: rollback: event {event}, history {rolled.history}")
+            try:
+                api.train(cfg.replace(nan_rollback=1), f"{tmp}/spent", seed=0, verbose=False,
+                          fault_hook=_poison(every=True))
+                raise AssertionError(f"{path}: a NaN after every epoch did not raise")
+            except RuntimeError as e:
+                if "nan_rollback budget" not in str(e):
+                    raise
+            counts["spent"] = {kind: len(v) for kind, v in records(f"{tmp}/spent").items()}
+            if counts["spent"] != {"train": 2 * len(range(0, steps, EXTRAS["log_interval"])),
+                                   "eval": 0, "event": 1}:
+                raise AssertionError(f"{path}: the spent budget's records {counts['spent']}")
+        finally:
+            cli.join()
+        emit({"phase": "train_extras_cli", **cli.check()})
+
+        walls = {"sync": [], "stage": []}
+        ops.set_backend("kernel")
+        try:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            with deterministic(), save_walls(walls):
+                full = api.train(cfg, f"{tmp}/full", seed=0, verbose=False)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            ops.set_backend("auto")
+        if launches != EXPECTED_LAUNCHES[path]:
+            raise AssertionError(
+                f"{path}: expected launches {EXPECTED_LAUNCHES[path]}, got {launches}")
+        out[path] = launches
+        if not (full.state.step == 3 * steps and [r["epoch"] for r in full.history] == [1, 2, 3]
+                and all(map(math.isfinite, (r[k] for r in full.history for k in r)))):
+            raise AssertionError(f"{path}: {full.state.step} steps, history {full.history}")
+        counts["full"] = check_records(
+            "full", f"{tmp}/full", [(e, (e - 1) * steps) for e in (1, 2, 3)], [1, 2, 3], 0)
+        split_evals = records(f"{tmp}/split")["eval"]
+        resume_rel = max(
+            [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(split_evals, full.history)
+             for k in ("train_loss", "test_elbo")]
+            + [_rel_err(a, b) for a, b in zip(resumed.model.parameters(), full.model.parameters())]
+            + [_rel_err(a, b) for a, b in zip(resumed.state.acc_grads, full.state.acc_grads)])
+        if not (resume_rel <= 1e-6 and [r["epoch"] for r in resumed.history] == [3]):
+            raise AssertionError(f"{path}: the resumed run differs: rel {resume_rel}")
+        sync_walls = list(walls["sync"])
+        with deterministic(), save_walls(walls):
+            overlapped = api.train(cfg.replace(ckpt_async=True), f"{tmp}/async", seed=0,
+                                   verbose=False)
+        trees = [torch.load(f"{tmp}/{d}/ckpt/last_00003/state.pt", weights_only=True)
+                 for d in ("full", "async")]
+        async_bits = (
+            overlapped.history == full.history
+            and all(torch.equal(t, trees[1][key][n]) for key in ("model", "ema_model")
+                    for n, t in trees[0][key].items())
+            and all(torch.equal(a, b) for a, b in zip(trees[0]["acc_grads"], trees[1]["acc_grads"])))
+        async_evals = records(f"{tmp}/async")["eval"]
+        counts["async"] = check_records(
+            "async", f"{tmp}/async", [(e, (e - 1) * steps) for e in (1, 2, 3)], [1, 2, 3], 0)
+        if not (async_bits and all("ckpt_saved" in r and "ckpt_skipped" in r for r in async_evals)):
+            raise AssertionError(f"{path}: ckpt_async differs from the synchronous saves")
+    emit({"phase": "train_extras", "config": "mnist", "path": path, **EXTRAS,
+          "steps_per_epoch": steps, "history": full.history, "launches": launches,
+          "resume_rel_max": resume_rel, "async_bits_equal": async_bits,
+          "save_wall_s": {"sync": sync_walls, "stage": list(walls["stage"]),
+                          "async_last_sync": walls["sync"][len(sync_walls):]},
+          "ckpt_counts": {k: async_evals[-1][k] for k in ("ckpt_saved", "ckpt_skipped")},
+          "rollback_event": {k: event[k] for k in ("failed_epoch", "restored_epoch", "rollbacks")},
+          "rollback_history": rolled.history, "records": counts})
+    emit({"phase": "train_accum_rate", "config": "mnist", "path": path,
+          **accum_rate(cfg.replace(train_size=10000), 100, rounds=3, profiled_steps=21)})
+    emit({"phase": "train_accum_rate", "config": "celeba", "path": c_path,
+          **accum_rate(celeba, c_steps, rounds=2, profiled_steps=c_steps)})
+    return out
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -2498,6 +2972,7 @@ def main() -> None:
     launches["multimnist_knobs_train"] = timed(
         "multimnist_knobs_train", phase_multimnist_train, LOSS_KNOBS)
     timed("workdir", phase_workdir)
+    launches.update(timed("train_extras", phase_train_extras))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -6,8 +6,10 @@ repository as the reference; this package imports nothing of it. Ported so
 far: inference -- :func:`mmvae_torch.api.eval_elbo`,
 :func:`~mmvae_torch.api.log_likelihood` (the IWAE estimate of log p(x)),
 :func:`~mmvae_torch.api.generate` and :func:`~mmvae_torch.api.sample` --
-and training (:func:`~mmvae_torch.api.train`) of the ``mnist``,
-``fashionmnist``, ``multimnist``, ``celeba`` and ``cub`` configs. On the
+and training (:func:`~mmvae_torch.api.train`, with gradient accumulation,
+the cosine LR schedule, ``nan_rollback`` and overlapped checkpoints) of the
+``mnist``, ``fashionmnist``, ``multimnist``, ``celeba`` and ``cub``
+configs, and the command line ``python -m mmvae_torch.cli``. On the
 card the KL and BCE row reductions and their gradients run in
 ``ops/csrc/row_reduce.cu``, the product of experts with its KL and its
 backward in ``ops/csrc/poe_kl.cu``, the masked sequence cross-entropy and

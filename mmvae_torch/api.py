@@ -2,7 +2,9 @@
 
   * :func:`train` -- train a config from its seeded init (``api.py:414``),
     into a workdir (``config.json``, ``metrics.jsonl``, checkpoints) when
-    one is given, and resume from it;
+    one is given, and resume from it; with gradient accumulation, the
+    cosine LR schedule, ``nan_rollback`` and overlapped saves
+    (``ckpt_async``) where the config asks for them;
   * :func:`eval_elbo` -- mean multi-term ELBO over a split (``api.py:1013``);
   * :func:`log_likelihood` -- mean IWAE estimate of log p(x) over a split
     (``api.py:1212``);
@@ -27,6 +29,7 @@ import json
 import os
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from mmvae_torch.configs import ExperimentConfig, build_model, get_config
@@ -40,7 +43,13 @@ from mmvae_torch.train import (
     make_eval_runner,
     make_iwae_runner,
 )
-from mmvae_torch.train.checkpoint import latest_epoch, load_checkpoint, save_checkpoint
+from mmvae_torch.train.checkpoint import (
+    AsyncCheckpointWriter,
+    latest_epoch,
+    load_checkpoint,
+    save_checkpoint,
+)
+from mmvae_torch.train.state import learning_rate
 from mmvae_torch.train.metrics import AverageMeter, MetricsWriter
 
 __all__ = [
@@ -128,6 +137,7 @@ def eval_elbo(
     workdir: str | None = None,
     which: str = "best",
     dataset: Dataset | None = None,
+    split: str = "test",
     batch_size: int | None = None,
     device: torch.device | str | None = None,
 ) -> float:
@@ -136,14 +146,16 @@ def eval_elbo(
     The weights are ``model``'s, ``state_dict``'s, or those of
     ``workdir``'s checkpoint ``which`` ("best", else "last"; the EMA
     weights where tracked), whose saved config is used when ``config``
-    names it. ``dataset`` defaults to the config's synthetic test split.
+    names it. ``dataset`` defaults to the config's synthetic ``split``
+    ("test" or "train") of ``config.test_size`` examples
+    (``mmvae_tpu/api.py:1020``).
     The split is padded to whole batches (wrapping to its front); the
     validity mask is the presence mask, so pad rows contribute 0 and the
     result is ``sum(batch losses) * bs / size``.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
-        dataset = load_dataset(config.dataset, "test", n=config.test_size)
+        dataset = load_dataset(config.dataset, split, n=config.test_size)
     batch_size = min(batch_size or config.batch_size, dataset.size)
     stacked = _padded_split(dataset, batch_size, model.n_modalities, device)
     runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
@@ -187,6 +199,7 @@ def log_likelihood(
     workdir: str | None = None,
     which: str = "best",
     dataset: Dataset | None = None,
+    split: str = "test",
     k: int = 64,
     batch_size: int | None = None,
     seed: int = 0,
@@ -200,7 +213,8 @@ def log_likelihood(
     posterior under every objective (``mmvae_tpu/api.py:1234-1238``: for a
     mixture-trained model still a valid bound, comparable across
     objectives). The weights come as in :func:`eval_elbo`; ``dataset``
-    defaults to the config's synthetic test split. The split is padded to
+    defaults to the config's synthetic ``split`` ("test" or "train") of
+    ``config.test_size`` examples (``mmvae_tpu/api.py:1219``). The split is padded to
     whole batches and the pad rows are multiplied out by the validity
     mask, so the result is the sum over the examples / ``dataset.size``.
     The noise is drawn batch after batch from a generator on ``device``
@@ -211,7 +225,7 @@ def log_likelihood(
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
-        dataset = load_dataset(config.dataset, "test", n=config.test_size)
+        dataset = load_dataset(config.dataset, split, n=config.test_size)
     batch_size = min(batch_size or config.batch_size, dataset.size)
     stacked = _valid_split(dataset, batch_size, device)
     if eps is not None:
@@ -254,9 +268,54 @@ def step_options(config: ExperimentConfig) -> dict[str, Any]:
     )
 
 
-# The loss terms besides the ELBO that a train record carries where the
-# config's loss has them.
+# The loss terms besides the ELBO that an epoch's history record carries
+# where the config's loss has them, and those a train record carries
+# (``mmvae_tpu/api.py:803-840``).
 _EXTRA_TRAIN_METRICS = ("cycle_ce", "cycle_contrast", "align_kl", "cross_kl")
+_TRAIN_RECORD_EXTRAS = ("align_kl", "cycle_ce", "cycle_contrast")
+_TRAIN_RECORD = ("loss", "beta", "grad_norm", "elbo_per_term", "kl_per_term", "recon_per_term")
+
+# Folded into the seeds of a retry after a rollback (with the count of
+# rollbacks), as the JAX loop folds it into its key (``api.py:893``).
+ROLLBACK_TAG = 0xBAD0
+
+
+def _fold(seed: int, tag: int) -> int:
+    """A 63-bit seed from ``seed`` and ``tag``."""
+    return int(np.random.SeedSequence([seed % 2**64, tag]).generate_state(1, np.uint64)[0]) >> 1
+
+
+def _perturb(generator: torch.Generator, tag: int) -> None:
+    """Reseed ``generator`` from a number drawn from it and ``tag``, so a
+    retry does not replay the draws of the epoch that blew up."""
+    drawn = int(torch.randint(2**62, (1,), generator=generator, device=generator.device))
+    generator.manual_seed(_fold(drawn, tag))
+
+
+def _fetch(metrics: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """An epoch's stacked metrics on the host, in one copy from the device."""
+    n = metrics["loss"].shape[0]
+    flat = torch.cat([v.reshape(n, -1).to(torch.float32) for v in metrics.values()], 1)
+    flat, out, at = flat.cpu().numpy(), {}, 0
+    for k, v in metrics.items():
+        width = v[0].numel()
+        out[k] = flat[:, at:at + width].reshape(v.shape)
+        at += width
+    return out
+
+
+def _train_records(metrics: dict[str, np.ndarray], epoch: int, base_step: int,
+                   log_interval: int) -> list[dict[str, Any]]:
+    """One ``{"kind": "train", ...}`` record every ``log_interval`` steps
+    of the epoch, step ``i`` of the epoch numbered ``base_step + i + 1``
+    (``mmvae_tpu/api.py:803-840``)."""
+    records = []
+    for i in range(0, len(metrics["loss"]), log_interval):
+        rec = {"kind": "train", "epoch": epoch, "step": base_step + i + 1}
+        rec.update({k: metrics[k][i] for k in _TRAIN_RECORD})
+        rec.update({k: metrics[k][i] for k in _TRAIN_RECORD_EXTRAS if k in metrics})
+        records.append(rec)
+    return records
 
 
 def train(
@@ -277,19 +336,37 @@ def train(
     ``reshuffle_every=1`` and ``shuffle_granularity=1``, give), in whole
     batches; beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
     the posterior noise and any presence dropout come from a generator on
-    ``device`` seeded with ``seed``. On the card each epoch and each test
-    eval run as replays of a captured CUDA graph (the eval graph is built
-    once a run, on the EMA shadow when one is tracked, which the test ELBO
-    is computed on). ``fault_hook(epoch, state) -> state`` is called after
-    each epoch's train pass.
+    ``device`` seeded with ``seed``. ``accum_steps > 1`` averages the
+    gradients of that many steps before each update (an update may span
+    two epochs); ``lr_schedule="cosine"`` warms the rate up over
+    ``warmup_epochs`` and decays it over the run, in updates of the loaded
+    split (``train/state.py::learning_rate``). On the card each epoch and
+    each test eval run as replays of captured CUDA graphs (the eval graph
+    is built once a run, on the EMA shadow when one is tracked, which the
+    test ELBO is computed on). ``fault_hook(epoch, state) -> state`` is
+    called after each epoch's train pass.
 
-    With a ``workdir``: ``config.json`` is written first, one
-    ``{"kind": "eval", ...}`` record an epoch goes to ``metrics.jsonl``,
-    and a checkpoint (``train/checkpoint.py``: the state and both
-    generators) is saved every ``config.ckpt_every`` epochs and at the
-    last, the best pointer naming the best saved epoch. ``resume=True``
-    continues from the last checkpoint at the next epoch, with the best
-    test ELBO restored.
+    With a ``workdir``: ``config.json`` is written first; ``metrics.jsonl``
+    gets a ``{"kind": "train", ...}`` record every ``log_interval`` steps
+    of each epoch and one ``{"kind": "eval", ...}`` record an epoch (with
+    ``ckpt_saved`` and ``ckpt_skipped`` under ``ckpt_async``); a checkpoint
+    (``train/checkpoint.py``: the state and both generators) is saved
+    every ``config.ckpt_every`` epochs and at the last, the best pointer
+    naming the best saved epoch. ``ckpt_async`` stages every save but the
+    last with an ``AsyncCheckpointWriter`` and saves the last synchronously.
+    ``resume=True`` continues from the last checkpoint at the next epoch,
+    with the best test ELBO restored.
+
+    ``nan_rollback = n > 0`` (needs a workdir, ``mmvae_tpu/api.py:857-933``):
+    an epoch whose train loss is not finite skips its eval, and one whose
+    train loss or test ELBO is not finite is rolled back: the last
+    checkpoint is restored (or, before the first, the model is built anew
+    from a seed folded with ``ROLLBACK_TAG + rollbacks`` and the run starts
+    again at epoch 1), both generators are reseeded with that tag, an
+    ``{"kind": "event", "event": "nan_rollback", ...}`` record is written
+    and the run goes on; the ``n + 1``-th such epoch raises
+    ``RuntimeError``. The runners are built anew after a rollback (the
+    restore makes Adam's moments anew).
 
     Returns the config, the model (the live parameters), the train state,
     the best test ELBO and one history record per epoch this call ran (its
@@ -298,20 +375,28 @@ def train(
     """
     if isinstance(config, str):
         config = get_config(config)
+    if config.nan_rollback > 0 and workdir is None:
+        raise ValueError("nan_rollback needs a workdir: the rollback source is the "
+                         "per-epoch checkpoint")
     device = resolve_device(device)
     if workdir is not None:
         _save_run_config(workdir, config)
-    model = build_model(config, seed=seed, device=device)
     train_ds = load_dataset(config.dataset, "train", n=config.train_size)
     test_ds = load_dataset(config.dataset, "test", n=config.test_size)
     bs = config.batch_size
     steps_per_epoch = train_ds.size // bs
     if steps_per_epoch == 0:
         raise ValueError(f"train split of {train_ds.size} holds no batch of {bs}")
-    state = create_train_state(
-        model, config.learning_rate, grad_clip=config.grad_clip,
-        ema_decay=config.ema_decay,
-    )
+    lr = learning_rate(config, steps_per_epoch)
+
+    def fresh_state(model_seed: int) -> TrainState:
+        return create_train_state(
+            build_model(config, seed=model_seed, device=device), lr,
+            grad_clip=config.grad_clip, ema_decay=config.ema_decay,
+            accum_steps=config.accum_steps,
+        )
+
+    state = fresh_state(seed)
     noise = torch.Generator(device=device).manual_seed(seed)
     order = torch.Generator().manual_seed(seed)
     generators = {"order": order, "noise": noise}
@@ -324,21 +409,27 @@ def train(
         best = float(extra["best_test_elbo"])
     # The best checkpoint pointer can only name an epoch that was saved.
     best_saved = best
-    runner = make_epoch_runner(
-        model,
-        annealing_steps=config.annealing_epochs * steps_per_epoch,
-        generator=noise,
-        **step_options(config),
-    )
-    evaluate = make_eval_runner(state.eval_model, config.objective, config.mvtcae_alpha)
+
+    def runners(state: TrainState) -> tuple[Callable, Callable]:
+        return (
+            make_epoch_runner(
+                state.model, annealing_steps=config.annealing_epochs * steps_per_epoch,
+                generator=noise, **step_options(config)),
+            make_eval_runner(state.eval_model, config.objective, config.mvtcae_alpha),
+        )
+
+    runner, evaluate = runners(state)
     train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
     test_split = _padded_split(
-        test_ds, min(bs, test_ds.size), model.n_modalities, device
+        test_ds, min(bs, test_ds.size), state.model.n_modalities, device
     )
     writer = MetricsWriter(workdir) if workdir is not None else None
+    ckpt_writer = (AsyncCheckpointWriter(workdir)
+                   if config.ckpt_async and workdir is not None else None)
     history: list[dict[str, float]] = []
+    rollbacks, epoch = 0, start_epoch
     try:
-        for epoch in range(start_epoch, config.epochs + 1):
+        while epoch <= config.epochs:
             perm = torch.randperm(train_ds.size, generator=order)[: steps_per_epoch * bs]
             perm = perm.to(device)
             batches = {
@@ -348,36 +439,90 @@ def train(
             state, metrics = runner(state, batches)
             if fault_hook is not None:
                 state = fault_hook(epoch, state)
+            host = _fetch(metrics)
+            losses = host["loss"]
+            if writer is not None:
+                for rec in _train_records(host, epoch, state.step - len(losses),
+                                          config.log_interval):
+                    writer.write(rec)
+            train_finite = bool(np.isfinite(losses).all())
+            test_elbo = float("nan")
+            if train_finite or config.nan_rollback == 0:
+                test_elbo = _split_elbo(evaluate, test_split, test_ds.size)
+            if config.nan_rollback > 0 and not (train_finite and np.isfinite(test_elbo)):
+                if rollbacks >= config.nan_rollback:
+                    raise RuntimeError(
+                        f"[{config.name}] epoch {epoch} went non-finite after {rollbacks} "
+                        f"rollback(s) -- nan_rollback budget exhausted")
+                rollbacks += 1
+                if ckpt_writer is not None:
+                    # The restore reads the pointer and the directories that
+                    # the worker flips and prunes, and should get its newest.
+                    ckpt_writer.drain()
+                tag = ROLLBACK_TAG + rollbacks
+                runner = evaluate = None  # their graphs hold the old tensors
+                restored = latest_epoch(workdir)
+                if restored is None:
+                    state, restored = fresh_state(_fold(seed, tag)), 0
+                else:
+                    state, _ = load_checkpoint(workdir, state, which="last",
+                                               generators=generators)
+                for g in generators.values():
+                    _perturb(g, tag)
+                runner, evaluate = runners(state)
+                writer.write({"kind": "event", "event": "nan_rollback", "failed_epoch": epoch,
+                              "restored_epoch": int(restored), "rollbacks": rollbacks})
+                if verbose:
+                    print(f"[{config.name}] epoch {epoch:3d} non-finite; rolled back to epoch "
+                          f"{int(restored)} ({rollbacks}/{config.nan_rollback})")
+                epoch = int(restored) + 1
+                continue
             meter = AverageMeter()
-            meter.update(float(metrics["loss"].mean()), steps_per_epoch * bs)
-            test_elbo = _split_elbo(evaluate, test_split, test_ds.size)
+            meter.update(float(losses.mean()), len(losses) * bs)
             is_best = test_elbo < best
             best = min(best, test_elbo)
             record = {"epoch": epoch, "train_loss": meter.avg, "test_elbo": test_elbo}
             for key in _EXTRA_TRAIN_METRICS:
-                if key in metrics:
-                    record[key] = float(metrics[key].mean())
+                if key in host:
+                    record[key] = float(host[key].mean())
             history.append(record)
             if writer is not None:
-                writer.write({"kind": "eval", **record})
+                rec = {"kind": "eval", **record}
+                if ckpt_writer is not None:
+                    rec.update(ckpt_saved=ckpt_writer.saved, ckpt_skipped=ckpt_writer.skipped)
+                writer.write(rec)
             if verbose:
                 print(
                     f"[{config.name}] epoch {epoch:3d} train {meter.avg:10.2f} "
                     f"test {test_elbo:10.2f}" + (" *best*" if is_best else "")
                 )
+            if ckpt_writer is not None:
+                ckpt_writer.poll()
             if workdir is not None and (
                 epoch % max(config.ckpt_every, 1) == 0 or epoch == config.epochs
             ):
-                save_checkpoint(
-                    workdir, state, epoch, is_best=test_elbo < best_saved,
-                    extra={"best_test_elbo": best}, keep_epochs=config.keep_epoch_ckpts,
-                    generators=generators,
-                )
-                best_saved = min(best_saved, test_elbo)
+                save = dict(is_best=test_elbo < best_saved, extra={"best_test_elbo": best},
+                            keep_epochs=config.keep_epoch_ckpts, generators=generators)
+                if ckpt_writer is not None and epoch != config.epochs:
+                    if ckpt_writer.stage(state, epoch, **save):
+                        best_saved = min(best_saved, test_elbo)
+                else:
+                    if ckpt_writer is not None:
+                        # The last save's pointer flip is the last word.
+                        ckpt_writer.finalize()
+                        ckpt_writer = None
+                    save_checkpoint(workdir, state, epoch, **save)
+                    best_saved = min(best_saved, test_elbo)
+            epoch += 1
+        if ckpt_writer is not None:  # a resume of a finished run
+            ckpt_writer.finalize()
+            ckpt_writer = None
     finally:
+        if ckpt_writer is not None:  # an exception left the loop
+            ckpt_writer.finalize()
         if writer is not None:
             writer.close()
-    return TrainResult(config, model, state, best, history)
+    return TrainResult(config, state.model, state, best, history)
 
 
 def _postprocess(

@@ -2,13 +2,16 @@
 
 The ``mnist``, ``fashionmnist``, ``multimnist``, ``celeba`` and ``cub``
 configs; the ``deep_*`` pipeline variants raise until their slice lands.
-The fields are those the inference slices, the training slices and the
-checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX
-defaults (``mmvae_tpu/configs.py:30-175``); every config here trains with
+The fields are those the inference slices, the training slices, the
+training extras (gradient accumulation, the cosine LR schedule,
+``nan_rollback``, ``ckpt_async``, ``log_interval``) and the checkpoints
+(``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX defaults
+(``mmvae_tpu/configs.py:30-175``); every config here trains with
 ``api.train``, under any of the four objectives. The JAX configs' other
-knobs (gradient accumulation, LR schedules, shuffle modes, the data
-backends, mesh layouts) are left out until a slice reads them. Eval pins
-``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``).
+knobs (``data_backend``, ``grain_stream_steps``, ``eval_segment_steps``,
+``data_dtype``, the shuffle modes, ``fsdp``, ``tp``, ``pp``) are left out
+until a slice reads them. Eval pins ``n_random_subsets=0``
+(``mmvae_tpu/train/step.py:1568``).
 """
 
 from __future__ import annotations
@@ -53,13 +56,34 @@ class ExperimentConfig:
     p_modality_drop: float = 0.0  # presence dropout per example and modality
     grad_clip: float = 0.0  # global-norm gradient clipping (0: off)
     ema_decay: float = 0.0  # EMA shadow of the parameters (0: off)
+    # Gradient accumulation: the gradients of accum_steps micro-batches
+    # averaged before one update (optax.MultiSteps; the effective batch is
+    # accum_steps * batch_size).
+    accum_steps: int = 1
+    # "constant" (the config's rate) or "cosine" (a linear warmup from 0
+    # over warmup_epochs, then a cosine decay to 0 over the run, counted in
+    # updates).
+    lr_schedule: str = "constant"
+    warmup_epochs: int = 0
+    # At most this many rollbacks a run to the last checkpoint when an
+    # epoch's train loss or test ELBO is not finite (0: off; needs a
+    # workdir).
+    nan_rollback: int = 0
     train_size: int = 10000
     test_size: int = 2000
+    # One train record every log_interval steps of an epoch in
+    # metrics.jsonl.
+    log_interval: int = 100
     # Checkpoints (with a workdir): every ckpt_every epochs and always at
     # the last; keep_epoch_ckpts > 0 also keeps that many newest
     # per-epoch snapshots (0: last and best only).
     ckpt_every: int = 1
     keep_epoch_ckpts: int = 0
+    # Overlapped saves: the state snapshot on the card, copied to the host
+    # and written by a worker thread while training goes on; a save point
+    # that finds the writer busy is skipped; the last epoch saves
+    # synchronously.
+    ckpt_async: bool = False
     # Reconstruct every modality from every subset posterior; cross
     # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False

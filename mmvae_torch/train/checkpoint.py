@@ -23,9 +23,16 @@ Each directory holds one ``state.pt``, a ``torch.save`` dict of CPU
 tensors, numbers and strings that :func:`load_checkpoint` reads with
 ``weights_only=True``: the model's and the EMA shadow's state dicts, the
 optimizer's (Adam's moments and step counts), the host and device steps,
-the states of the caller's named generators (the epoch order and the
-noise draws, so a resumed run continues the same streams, as the JAX
-state carries its rng) and ``extra`` (``epoch``, ``best_test_elbo``).
+under gradient accumulation the running mean of the update in progress
+and its micro-step (optax's ``acc_grads`` and ``mini_step``), the states
+of the caller's named generators (the epoch order and the noise draws, so
+a resumed run continues the same streams, as the JAX state carries its
+rng) and ``extra`` (``epoch``, ``best_test_elbo``).
+
+:class:`AsyncCheckpointWriter` overlaps a save with training
+(``mmvae_tpu/train/checkpoint.py:169-302``): the snapshot is taken in
+order with the card's work, and a worker thread copies it to the host and
+does the disk work in the same order as :func:`save_checkpoint`.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import torch
@@ -41,6 +49,7 @@ from mmvae_torch.train.state import TrainState
 
 __all__ = [
     "save_checkpoint",
+    "AsyncCheckpointWriter",
     "load_checkpoint",
     "latest_epoch",
     "epoch_checkpoints",
@@ -64,6 +73,7 @@ def _cpu(tree):
 def _to_tree(
     state: TrainState, extra: dict[str, Any], generators: dict[str, torch.Generator]
 ) -> dict[str, Any]:
+    """The checkpoint's tree, its tensors where the state holds them."""
     full_extra = {"epoch": 0.0, "best_test_elbo": float("inf")}
     full_extra.update({k: float(v) for k, v in extra.items()})
     tree = {
@@ -76,7 +86,11 @@ def _to_tree(
     }
     if state.ema_model is not None:
         tree["ema_model"] = state.ema_model.state_dict()
-    return _cpu(tree)
+    if state.acc_grads is not None:
+        tree["accum_steps"] = state.accum_steps
+        tree["micro_step"] = state.micro_step
+        tree["acc_grads"] = list(state.acc_grads)
+    return tree
 
 
 def _read_meta(ckpt_dir: str) -> dict[str, Any]:
@@ -132,7 +146,21 @@ def save_checkpoint(
     by state.
     """
     extra = extra or {}
-    tree = _to_tree(state, {"epoch": epoch, **extra}, generators or {})
+    tree = _cpu(_to_tree(state, {"epoch": epoch, **extra}, generators or {}))
+    _serialize_and_flip(workdir, tree, epoch, is_best, extra, keep_epochs)
+
+
+def _serialize_and_flip(
+    workdir: str,
+    tree: dict[str, Any],
+    epoch: int,
+    is_best: bool,
+    extra: dict[str, Any],
+    keep_epochs: int,
+) -> None:
+    """``tree`` (on the host) into the epoch's directories, then the
+    pointer flip, then the pruning: :func:`save_checkpoint`'s disk work,
+    which :class:`AsyncCheckpointWriter`'s worker runs too."""
     ckpt_dir = os.path.join(os.path.abspath(workdir), "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
     prev = _read_meta(ckpt_dir)
@@ -151,6 +179,131 @@ def save_checkpoint(
     if keep_epochs > 0:
         for old in epoch_checkpoints(workdir)[:-keep_epochs]:
             shutil.rmtree(os.path.join(ckpt_dir, f"epoch_{old:05d}"), ignore_errors=True)
+
+
+def _snapshot(tree) -> tuple[Any, torch.cuda.Event | None, torch.device | None]:
+    """``tree`` with each tensor cloned, in order with the work queued on
+    the card so far and safe from what is queued after: a card tensor is
+    cloned on the current stream (the next epoch's replays update the live
+    ones in place, on that stream, after the clone). Returns the clones, an
+    event recorded after them and their card (None, None when nothing is on
+    the card)."""
+    device = None
+
+    def clone(t):
+        nonlocal device
+        if isinstance(t, torch.Tensor):
+            if t.is_cuda:
+                device = t.device
+            return t.detach().clone()
+        if isinstance(t, dict):
+            return {k: clone(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(clone(v) for v in t)
+        return t
+
+    tree = clone(tree)
+    if device is None:
+        return tree, None, None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return tree, done, device
+
+
+def _to_host(tree, done: torch.cuda.Event | None, stream: torch.cuda.Stream | None):
+    """A :func:`_snapshot` on the host: once its clones are made (``done``),
+    copied on ``stream``, a side stream of their card that its current
+    stream does not wait for."""
+    if done is None:
+        return tree
+    done.synchronize()
+    with torch.cuda.stream(stream):
+        return _cpu(tree)
+
+
+class AsyncCheckpointWriter:
+    """Overlapped saves (``mmvae_tpu/train/checkpoint.py:169-302``).
+
+    :meth:`stage` (on the thread that trains) snapshots the checkpoint
+    tree (:func:`_snapshot`: clones on the card's current stream and an
+    event after them) and hands it to a single worker thread, which waits
+    for the event, copies the clones to the host on a side stream of its
+    own (:func:`_to_host`) and then does the disk work of
+    :func:`save_checkpoint` in its order (``torch.save``, the pointer flip,
+    the pruning). The loop is held only for the clones: a copy to pinned
+    memory made on the training thread held it 105-130 ms for MNIST's 36
+    MB on an H100 (``chip_smoke.py``'s ``train_extras``), as pinning is
+    slow. A save point that finds the worker still busy is skipped
+    (coalesced): ``skipped`` counts those, ``saved`` the saves the worker
+    completed.
+    A failed save raises at the next :meth:`poll`, :meth:`drain` or
+    :meth:`finalize`. :meth:`finalize` drains the worker and shuts it
+    down; the caller then saves the last state synchronously."""
+
+    def __init__(self, workdir: str):
+        self._workdir = workdir
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="ckpt-async")
+        self._inflight = None
+        self._stream = None  # the side stream of the copies to the host
+        self.saved = 0
+        self.skipped = 0
+
+    @property
+    def busy(self) -> bool:
+        """A save is still being written."""
+        return self._inflight is not None and not self._inflight.done()
+
+    def stage(
+        self,
+        state: TrainState,
+        epoch: int,
+        is_best: bool = False,
+        extra: dict[str, Any] | None = None,
+        keep_epochs: int = 0,
+        generators: dict[str, torch.Generator] | None = None,
+    ) -> bool:
+        """Snapshot ``state`` for an overlapped save; False when skipped
+        because the worker is still writing the previous one (whose
+        failure, if it failed, raises here)."""
+        if self.busy:
+            self.skipped += 1
+            return False
+        self.poll()
+        extra = dict(extra or {})
+        tree, done, device = _snapshot(
+            _to_tree(state, {"epoch": epoch, **extra}, generators or {}))
+        if device is not None and self._stream is None:
+            self._stream = torch.cuda.Stream(device=device)
+        self._inflight = self._pool.submit(
+            self._write, tree, done, self._stream, int(epoch), bool(is_best), extra,
+            int(keep_epochs))
+        return True
+
+    def _write(self, tree, done, stream, epoch, is_best, extra, keep_epochs) -> None:
+        tree = _to_host(tree, done, stream)
+        _serialize_and_flip(self._workdir, tree, epoch, is_best, extra, keep_epochs)
+        self.saved += 1
+
+    def poll(self) -> None:
+        """Raise a failed save now, without waiting for one in flight."""
+        if self._inflight is not None and self._inflight.done():
+            fut, self._inflight = self._inflight, None
+            fut.result()
+
+    def drain(self) -> None:
+        """Wait for the save in flight (its failure raises here); the
+        writer stays usable. Whoever reads the checkpoints next (a
+        rollback's restore) drains first."""
+        if self._inflight is not None:
+            fut, self._inflight = self._inflight, None
+            fut.result()
+
+    def finalize(self) -> None:
+        """Drain, then shut the worker down."""
+        try:
+            self.drain()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def _resolve_ckpt_path(ckpt_dir: str, which: str) -> str | None:
@@ -198,11 +351,14 @@ def load_checkpoint(
     was written. ``generators`` (name -> generator) get their saved
     states.
 
-    The model's and the EMA shadow's parameters are copied into their
-    tensors; the optimizer's state is replaced (Adam's moments are made
-    anew), so a CUDA graph runner is built after the load. The template
-    keeps its own Adam form (``capturable`` on the card), whatever device
-    saved the checkpoint. A checkpoint saved without an EMA shadow, loaded
+    The model's and the EMA shadow's parameters, and under gradient
+    accumulation the running mean, are copied into their tensors; the
+    optimizer's state is replaced (Adam's moments are made anew), so a CUDA
+    graph runner is built after the load. The template keeps its own Adam
+    form (``capturable`` and ``foreach`` on the card) and its own rate (a
+    schedule's tensor on the card), whatever device saved the checkpoint.
+    A template with gradient accumulation needs a checkpoint saved with
+    the same ``accum_steps``; one without ignores a saved running mean. A checkpoint saved without an EMA shadow, loaded
     into a state that tracks one, starts the shadow from the parameters;
     a saved shadow that the state does not track is dropped. A missing or
     corrupt file raises.
@@ -215,14 +371,26 @@ def load_checkpoint(
         raise FileNotFoundError(f"no checkpoint {which!r} under {ckpt_dir}")
     tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
     state = template_state
+    if state.acc_grads is not None:
+        if tree.get("accum_steps") != state.accum_steps:
+            raise ValueError(
+                f"checkpoint {path} was saved with accum_steps "
+                f"{tree.get('accum_steps', 1)}, not {state.accum_steps}")
+        if tree["micro_step"] != int(tree["step"]) % state.accum_steps:
+            raise ValueError(f"checkpoint {path}: micro-step {tree['micro_step']} "
+                             f"is not step {tree['step']} mod {state.accum_steps}")
     with torch.no_grad():
         state.model.load_state_dict(tree["model"])
         if state.ema_model is not None:
             state.ema_model.load_state_dict(tree.get("ema_model", tree["model"]))
         state.device_step.copy_(tree["device_step"])
+        if state.acc_grads is not None:
+            for acc, saved in zip(state.acc_grads, tree["acc_grads"], strict=True):
+                acc.copy_(saved)
     optimizer = tree["optimizer"]
     for saved, group in zip(optimizer["param_groups"], state.optimizer.param_groups):
-        saved["capturable"] = group["capturable"]
+        for key in ("capturable", "foreach", "lr"):
+            saved[key] = group[key]
     state.optimizer.load_state_dict(optimizer)
     state.step = int(tree["step"])
     for name, g in (generators or {}).items():

@@ -22,13 +22,29 @@ On the card the update runs inside a captured CUDA graph
 factor stays a device tensor, and Adam is built with ``capturable=True``
 (its step counts live on the card). The CPU keeps the plain Adam.
 
-Gradient accumulation (``optax.MultiSteps``) is not ported.
+Gradient accumulation (``accum_steps = k > 1``) is ``optax.MultiSteps(tx,
+k)`` (``mmvae_tpu/train/state.py:33-57``, optax 0.2.6's
+``MultiSteps.update``): every micro-step folds its gradients into a running
+mean, ``acc + (g - acc) / (n + 1)`` at micro-step ``n`` of the update; on
+the last (``n = k - 1``, the commit) the clipping, Adam and the EMA blend
+run once on the mean and the mean goes back to 0; the other micro-steps
+leave the parameters, Adam and the EMA as they are. ``step`` and
+``device_step`` count micro-steps; Adam's count and the schedule's count
+updates (commits).
+
+The learning rate is the config's, or a schedule of the update count
+(:func:`learning_rate`), read as optax reads it: at the count before the
+update. On the card the rate is a 0-d float32 tensor in Adam's param group
+that the update writes from ``device_step`` (so a graph replay needs no
+host value); the CPU sets a float each update.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
+from typing import Callable
 
 import torch
 # torch.optim imports torch._dynamo the first time an optimizer is built,
@@ -39,7 +55,7 @@ import torch
 import torch._dynamo  # noqa: F401
 from torch import nn
 
-__all__ = ["TrainState", "create_train_state", "global_norm"]
+__all__ = ["TrainState", "create_train_state", "global_norm", "learning_rate"]
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -47,13 +63,60 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
+def _cosine_schedule(peak: float, warmup: int, decay: int) -> Callable:
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup, decay)`` over an
+    int64 count tensor, in float32 as optax computes it: ``peak * (1 - (1 -
+    c / warmup))`` below ``warmup`` (``linear_schedule`` from 0), else ``peak
+    * 0.5 * (1 + cos(pi * min(c - warmup, decay - warmup) / (decay -
+    warmup)))``. ``decay`` must exceed ``warmup`` (optax's own
+    ``ValueError`` otherwise)."""
+    if not decay - warmup > 0:
+        raise ValueError(
+            f"the cosine decay needs positive decay steps, got {decay - warmup} "
+            f"(warmup {warmup} of {decay} updates)")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        ramp = torch.clamp(count, 0, warmup).to(torch.float32)
+        linear = (0.0 - peak) * (1 - ramp / warmup) + peak
+        t = torch.clamp(count - warmup, max=decay - warmup).to(torch.float32)
+        cosine = peak * (0.5 * (1 + torch.cos(math.pi * t / float(decay - warmup))))
+        return torch.where(count < warmup, linear, cosine)
+
+    return schedule
+
+
+def learning_rate(config, steps_per_epoch: int | None = None) -> float | Callable:
+    """The rate of ``config`` (``mmvae_tpu/api.py:1392-1434``): a float under
+    ``lr_schedule="constant"``; under ``"cosine"`` a schedule of the update
+    count (an int64 tensor -> a float32 0-d tensor), the linear warmup from 0
+    over ``max(1, warmup_epochs * u)`` updates and the cosine decay to 0 at
+    ``max(1, epochs * u)``, ``u = max(1, steps_per_epoch // accum_steps)``
+    the updates of an epoch (``steps_per_epoch`` is the loaded split's
+    micro-steps; ``train_size // batch_size`` when not given). Another
+    schedule raises ``ValueError``."""
+    if config.lr_schedule == "constant":
+        return config.learning_rate
+    if config.lr_schedule == "cosine":
+        if steps_per_epoch is None:
+            steps_per_epoch = max(1, config.train_size // config.batch_size)
+        updates = max(1, steps_per_epoch // max(1, config.accum_steps))
+        return _cosine_schedule(
+            config.learning_rate, max(1, config.warmup_epochs * updates),
+            max(1, config.epochs * updates))
+    raise ValueError(f"unknown lr_schedule {config.lr_schedule!r} (have: constant, cosine)")
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the trained ones), the optimizer over
-    them, the count of updates taken (``step`` on the host and
-    ``device_step``, an int64 scalar on the model's device), and the EMA
-    shadow (a copy of the model whose parameters are the running average)
-    when tracked."""
+    them, the count of micro-steps taken (``step`` on the host and
+    ``device_step``, an int64 scalar on the model's device; with
+    ``accum_steps = 1`` every micro-step is an update), the EMA shadow (a
+    copy of the model whose parameters are the running average) when
+    tracked, the schedule of the learning rate (None: the optimizer's
+    constant rate) and, with ``accum_steps > 1``, the running mean of the
+    gradients of the update in progress (``acc_grads``, one tensor a
+    parameter)."""
 
     step: int
     model: nn.Module
@@ -62,12 +125,22 @@ class TrainState:
     ema_model: nn.Module | None = None
     ema_decay: float = 0.0
     device_step: torch.Tensor | None = None
+    accum_steps: int = 1
+    schedule: Callable[[torch.Tensor], torch.Tensor] | None = None
+    acc_grads: list[torch.Tensor] | None = None
 
     def __post_init__(self):
         if self.device_step is None:
             self.device_step = torch.full(
                 (), self.step, dtype=torch.int64, device=next(self.model.parameters()).device
             )
+        if self.accum_steps > 1 and self.acc_grads is None:
+            self.acc_grads = [torch.zeros_like(p) for p in self.model.parameters()]
+
+    @property
+    def micro_step(self) -> int:
+        """The micro-step of the update in progress (optax's ``mini_step``)."""
+        return self.step % self.accum_steps
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -84,10 +157,40 @@ class TrainState:
         return self.model if self.ema_model is None else self.ema_model
 
     @torch.no_grad()
-    def apply_gradients(self) -> None:
-        """One update from the gradients in each parameter's ``.grad``
-        (clipped in place when ``grad_clip > 0``)."""
+    def apply_gradients(self, commit: bool | None = None) -> None:
+        """One micro-step from the gradients in each parameter's ``.grad``.
+        With ``accum_steps = 1`` that is an update (the ``.grad`` clipped in
+        place when ``grad_clip > 0``); else the gradients go into the
+        running mean, and ``commit`` (by default whether this is micro-step
+        ``k - 1`` of its update) updates from the mean. A CUDA graph runner
+        names ``commit``, as its host step does not move under capture."""
         params = list(self.model.parameters())
+        k = self.accum_steps
+        if k > 1:
+            grads = [p.grad for p in params]
+            # acc + (g - acc) / (n + 1): optax's running mean, n the
+            # micro-step of the update, read on the device.
+            n1 = (self.device_step % k + 1).to(torch.float32)
+            diff = torch._foreach_sub(grads, self.acc_grads)
+            torch._foreach_div_(diff, n1)
+            torch._foreach_add_(self.acc_grads, diff)
+            if commit is None:
+                commit = self.step % k == k - 1
+            if commit:
+                for p, acc in zip(params, self.acc_grads):
+                    p.grad = acc
+                self._update(params)
+                for p in params:
+                    p.grad = None
+                torch._foreach_zero_(self.acc_grads)
+        else:
+            self._update(params)
+        self.device_step.add_(1)
+        self.step += 1
+
+    def _update(self, params: list[torch.Tensor]) -> None:
+        """Clipping, Adam at the schedule's rate and the EMA blend, from
+        each parameter's ``.grad``."""
         if self.grad_clip > 0.0:
             grads = [p.grad for p in params]
             norm = global_norm(grads)
@@ -98,29 +201,47 @@ class TrainState:
             mul = torch.where(fire, torch.full_like(norm, self.grad_clip), torch.ones_like(norm))
             for g in grads:
                 g.div_(div).mul_(mul)
+        if self.schedule is not None:
+            count = torch.div(self.device_step, self.accum_steps, rounding_mode="floor")
+            group = self.optimizer.param_groups[0]
+            if torch.is_tensor(group["lr"]):
+                group["lr"].copy_(self.schedule(count))
+            else:
+                group["lr"] = float(self.schedule(count))
         self.optimizer.step()
         if self.ema_model is not None:
             d = self.ema_decay
             for e, p in zip(self.ema_model.parameters(), params):
                 e.mul_(d).add_(p, alpha=1.0 - d)
-        self.device_step.add_(1)
-        self.step += 1
 
 
 def create_train_state(
     model: nn.Module,
-    learning_rate: float = 1e-3,
+    learning_rate: float | Callable = 1e-3,
     grad_clip: float = 0.0,
     ema_decay: float = 0.0,
+    accum_steps: int = 1,
 ) -> TrainState:
     """Adam over ``model``'s parameters as they are (the model was built
     with its seeded init, or loaded), and the EMA shadow initialised to
-    them when ``ema_decay > 0``. On the card Adam is ``capturable``, so
-    that a CUDA graph can hold its update."""
-    on_card = next(model.parameters()).device.type == "cuda"
+    them when ``ema_decay > 0``. ``learning_rate`` is a float or a schedule
+    of the update count (:func:`learning_rate`); ``accum_steps > 1``
+    averages the gradients of that many micro-steps before each update. On
+    the card Adam is ``capturable`` (and its multi-tensor form, whose
+    update at a rate of exactly 0 leaves the parameters as they are), so
+    that a CUDA graph can hold its update, and a scheduled rate is a 0-d
+    float32 tensor on the card."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    device = next(model.parameters()).device
+    on_card = device.type == "cuda"
+    schedule = learning_rate if callable(learning_rate) else None
+    lr = learning_rate
+    if schedule is not None:
+        lr = torch.zeros((), dtype=torch.float32, device=device) if on_card else 0.0
     optimizer = torch.optim.Adam(
-        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        capturable=on_card,
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        capturable=on_card, foreach=True if on_card else None,
     )
     ema_model = None
     if ema_decay > 0.0:
@@ -128,5 +249,6 @@ def create_train_state(
         ema_model.requires_grad_(False)
     return TrainState(
         step=0, model=model, optimizer=optimizer, grad_clip=float(grad_clip),
-        ema_model=ema_model, ema_decay=float(ema_decay),
+        ema_model=ema_model, ema_decay=float(ema_decay), accum_steps=int(accum_steps),
+        schedule=schedule,
     )

@@ -583,8 +583,8 @@ def make_train_step(
     generator: torch.Generator | None = None,
 ) -> Callable:
     """The train step ``(state, batch, eps=None, keep=None,
-    subset_masks=None, cycle_eps=None) -> (state, metrics)`` of
-    ``_train_step_impl`` (``step.py:1022-1093``).
+    subset_masks=None, cycle_eps=None, commit=None) -> (state, metrics)``
+    of ``_train_step_impl`` (``step.py:1022-1093``).
 
     beta is ``annealing_factor(state.device_step, annealing_steps)``, read
     on the device. With
@@ -597,9 +597,12 @@ def make_train_step(
     noise ``eps`` (``(T, B, L)``) and, for the cycle term under mvtcae,
     ``cycle_eps`` (``(S, B, L)``) or draws from ``generator`` (on the
     model's device).
-    Then one update of ``state`` (:meth:`TrainState.apply_gradients`). The
-    metrics are the loss terms, ``beta`` and ``grad_norm``, the global
-    norm of the raw gradients before clipping. Every objective is ported;
+    Then one micro-step of ``state`` (:meth:`TrainState.apply_gradients`:
+    an update, or with the state's ``accum_steps > 1`` the gradients into
+    its running mean and an update on the commit micro-step, ``commit``
+    when given). The metrics are the loss terms, ``beta`` and
+    ``grad_norm``, the global norm of the micro-batch's raw gradients
+    before clipping. Every objective is ported;
     ``term_fold`` other than ``"t"`` raises here.
     """
     _check_ported(objective, term_fold)
@@ -618,7 +621,7 @@ def make_train_step(
     )
 
     def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None,
-                   cycle_eps=None):
+                   cycle_eps=None, commit=None):
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             if keep is None:
@@ -641,7 +644,7 @@ def make_train_step(
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm([p.grad for p in params])
         metrics["beta"] = beta
-        state.apply_gradients()
+        state.apply_gradients(commit)
         return state, metrics
 
     return train_step
@@ -666,6 +669,11 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     out = [*state.model.parameters(), *state.model.buffers(), state.device_step]
     if state.ema_model is not None:
         out += list(state.ema_model.parameters())
+    if state.acc_grads is not None:
+        out += state.acc_grads
+    for group in state.optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            out.append(group["lr"])
     for per_param in state.optimizer.state.values():
         out += [v for v in per_param.values() if torch.is_tensor(v)]
     return out
@@ -681,39 +689,49 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class _StepGraph:
-    """``fn(batch) -> metrics`` over the rows of stacked ``(n, B, ...)``
-    inputs as replays of one CUDA graph: the counterpart of the body of
-    the JAX runners' ``lax.scan`` (``step.py:1096``, ``:1163``, ``:1580``).
+    """``fn(batch, body) -> metrics`` over the rows of stacked ``(n, B,
+    ...)`` inputs as replays of captured CUDA graphs, one a body: the
+    counterpart of the body of the JAX runners' ``lax.scan``
+    (``step.py:1096``, ``:1163``, ``:1580``). A runner has one body (an
+    eval batch, a train step), or two (under gradient accumulation, a
+    micro-step and a micro-step that commits the update); each call names
+    the body of each row.
 
-    The captured body reads row ``idx`` of static copies of the inputs
+    A captured body reads row ``idx`` of static copies of the inputs
     (``index_select`` by a device index), writes each metric at row
     ``idx`` of static ``(n, ...)`` outputs and advances ``idx``, all on the
     device, so one replay follows another with no launch from the host
-    between them. The first call runs row 0 eagerly on a side stream, as
-    a real step: it builds the kernels and makes the cached constants and
-    the optimizer's state, which must exist before capture (a pageable
-    upload or a sync under capture raises). It then captures the body on
-    that stream and replays it for the other rows. A later call copies its
+    between them. The bodies share the inputs, ``idx``, the outputs and
+    one memory pool: they are replayed one at a time, and what one leaves
+    alive the other only reads. The first call runs its rows eagerly on a
+    side stream, as real steps, until each body has run once: that builds
+    the kernels and makes the cached constants and the optimizer's state,
+    which must exist before capture (a pageable upload or a sync under
+    capture raises). It then captures each body on that stream and replays
+    them for the other rows (a call whose rows run out first captures
+    nothing, and the next call starts again). A later call copies its
     inputs into the static ones (one copy each), zeroes ``idx`` and
     replays every row. A capture that fails raises; nothing falls back to
     the eager loop.
 
-    ``generator`` (the noise and dropout draws) is registered with the
+    ``generator`` (the noise and dropout draws) is registered with every
     graph, so each replay draws the numbers an eager step would and
     advances the generator's state as one would. ``kernels.LAUNCHES``
-    counts a launch when Python makes it, so the capture's counts are
-    taken back and each replay adds them again. The graph holds the
-    addresses of the tensors it reads: the tensors ``tensors()`` gives at
-    each call must be those the capture saw, else the call raises.
+    counts a launch when Python makes it, so each capture's counts are
+    taken back and each replay of its body adds them again. The graphs
+    hold the addresses of the tensors they read: the tensors ``tensors()``
+    gives at each call must be those the capture saw, else the call
+    raises.
     """
 
-    def __init__(self, fn: Callable, generator: torch.Generator | None = None):
-        self._fn, self._generator = fn, generator
-        self._graph = None
+    def __init__(self, fn: Callable, generator: torch.Generator | None = None,
+                 bodies: int = 1):
+        self._fn, self._generator, self._bodies = fn, generator, bodies
+        self._graphs = None
 
-    def _body(self) -> None:
+    def _body(self, body: int) -> None:
         batch = {k: v.index_select(0, self._idx)[0] for k, v in self._inputs.items()}
-        metrics = self._fn(batch)
+        metrics = self._fn(batch, body)
         if self._outputs is None:
             n = _rows(self._inputs)
             self._outputs = {k: v.new_empty((n, *v.shape)) for k, v in metrics.items()}
@@ -721,19 +739,25 @@ class _StepGraph:
             self._outputs[k].index_copy_(0, self._idx, v.unsqueeze(0))
         self._idx.add_(1)
 
-    def _capture(self, batches: dict[str, torch.Tensor]) -> int:
-        """Row 0 eagerly, then the capture; returns the rows left."""
+    def _capture(self, batches: dict[str, torch.Tensor], which: list[int]) -> int:
+        """Rows eagerly until every body has run, then the captures;
+        returns the rows run eagerly (all of them when no capture)."""
         device = next(iter(batches.values())).device
         self._inputs = {k: v.clone() for k, v in batches.items()}
         self._idx = torch.zeros(1, dtype=torch.int64, device=device)
         self._outputs = None
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
+        ran: set[int] = set()
+        eager = 0
         with torch.cuda.stream(side):
-            self._body()
-        graph = torch.cuda.CUDAGraph()
-        if self._generator is not None:
-            graph.register_generator_state(self._generator)
+            while eager < len(which) and len(ran) < self._bodies:
+                self._body(which[eager])
+                ran.add(which[eager])
+                eager += 1
+        torch.cuda.current_stream(device).wait_stream(side)
+        if len(ran) < self._bodies:
+            return eager
         counts = dict(kernels.LAUNCHES)
         constants = _device_tensor.cache_info().currsize
         # Under capture the allocator takes new memory for the graph's pool
@@ -742,27 +766,40 @@ class _StepGraph:
         # back. ``torch.cuda.graph`` would also collect garbage each time;
         # no runner leaves any.
         torch.cuda.empty_cache()
-        with torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                self._body()
-            finally:
-                graph.capture_end()
-        self._launches = {k: kernels.LAUNCHES[k] - n for k, n in counts.items()}
+        pool = torch.cuda.graph_pool_handle()
+        graphs, self._launches = [], []
+        for body in range(self._bodies):
+            graph = torch.cuda.CUDAGraph()
+            if self._generator is not None:
+                graph.register_generator_state(self._generator)
+            before = dict(kernels.LAUNCHES)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                try:
+                    self._body(body)
+                finally:
+                    graph.capture_end()
+            self._launches.append({k: kernels.LAUNCHES[k] - n for k, n in before.items()})
+            graphs.append(graph)
         kernels.LAUNCHES.update(counts)
         if _device_tensor.cache_info().currsize != constants:
             raise RuntimeError("a constant was made under capture: its upload is not in the graph")
         torch.cuda.current_stream(device).wait_stream(side)
-        self._graph = graph
-        return _rows(batches) - 1
+        self._graphs = graphs
+        return eager
 
     def __call__(
-        self, batches: dict[str, torch.Tensor], tensors: Callable[[], list] = list
+        self, batches: dict[str, torch.Tensor], tensors: Callable[[], list] = list,
+        which: list[int] | None = None,
     ) -> dict[str, torch.Tensor]:
-        """Every row of ``batches`` through ``fn``; each metric stacked."""
-        if self._graph is None:
-            replays = self._capture(batches)
-            self._addresses = [t.data_ptr() for t in tensors()]
+        """Every row of ``batches`` through ``fn``, row ``i`` through body
+        ``which[i]`` (all body 0 by default); each metric stacked."""
+        n = _rows(batches)
+        which = [0] * n if which is None else which
+        if self._graphs is None:
+            start = self._capture(batches, which)
+            if self._graphs is not None:
+                self._addresses = [t.data_ptr() for t in tensors()]
         else:
             if [t.data_ptr() for t in tensors()] != self._addresses:
                 raise RuntimeError(
@@ -774,11 +811,11 @@ class _StepGraph:
                         f"{k}: {tuple(v.shape)} is not the captured {tuple(self._inputs[k].shape)}")
                 self._inputs[k].copy_(v)
             self._idx.zero_()
-            replays = _rows(batches)
-        for _ in range(replays):
-            self._graph.replay()
-        for k, n in self._launches.items():
-            kernels.LAUNCHES[k] += n * replays
+            start = 0
+        for body in which[start:]:
+            self._graphs[body].replay()
+            for k, m in self._launches[body].items():
+                kernels.LAUNCHES[k] += m
         return {k: v.clone() for k, v in self._outputs.items()}
 
 
@@ -793,7 +830,12 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
     the first call's first step runs eagerly, as a real step, before the
     capture); every call must then pass the same ``state``, its tensors
     where they were. ``graph=False`` asks for the eager loop on the card,
-    one step at a time, which the CPU always runs.
+    one step at a time, which the CPU always runs. Under gradient
+    accumulation (the state's ``accum_steps = k > 1``) the card captures
+    two steps, a micro-step and a micro-step that commits the update, and
+    replays each row's in the order the host reads from ``state.step``
+    (row ``i`` commits when ``(state.step + i) % k == k - 1``); an update
+    may straddle two calls.
 
     ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``,
     ``"subset_masks"``, ``(n_steps, k, M)``, and ``"cycle_eps"``,
@@ -804,9 +846,9 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
     train_step = make_train_step(model, **step_kwargs)
     fed = ("eps", "subset_masks", "cycle_eps")
 
-    def step(state, batch):
+    def step(state, batch, commit=None):
         data = {k: v for k, v in batch.items() if k not in fed}
-        return train_step(state, data, **{k: batch.get(k) for k in fed})
+        return train_step(state, data, commit=commit, **{k: batch.get(k) for k in fed})
 
     if not _use_graph(model, graph):
         def run(state, batches):
@@ -822,12 +864,16 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
 
     def run_graph(state, batches):
         nonlocal graphed
+        k = state.accum_steps
         if graphed is None:
-            graphed = _StepGraph(lambda batch: step(state, batch)[1],
-                                 step_kwargs.get("generator"))
+            # Body 1 commits the update (k > 1 only).
+            graphed = _StepGraph(
+                lambda batch, body: step(state, batch, None if k == 1 else body == 1)[1],
+                step_kwargs.get("generator"), bodies=1 if k == 1 else 2)
         first_step = state.step
-        metrics = graphed(batches, lambda: _state_tensors(state))
-        state.step = first_step + _rows(batches)  # the capture pass also counted one
+        which = [int(k > 1 and (first_step + i) % k == k - 1) for i in range(_rows(batches))]
+        metrics = graphed(batches, lambda: _state_tensors(state), which)
+        state.step = first_step + _rows(batches)  # the capture passes also counted
         return state, metrics
 
     return run_graph
@@ -883,7 +929,7 @@ def _split_runner(step: Callable, model, graph: bool | None,
 
         return run
 
-    graphed = _StepGraph(step, generator)
+    graphed = _StepGraph(lambda batch, body: step(batch), generator)
     return lambda batches: graphed(batches, lambda: [*model.parameters(), *model.buffers()])
 
 

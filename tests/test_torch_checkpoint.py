@@ -113,7 +113,11 @@ def test_resume_is_exact_on_the_cpu(tmp_path):
     assert split.state.step == full.state.step == 6
     assert int(split.state.device_step) == 6
     assert _metrics_lines(wd_split) == _metrics_lines(wd_full)
-    assert [r["kind"] for r in _metrics_lines(wd_full)] == ["eval", "eval"]
+    # Three steps an epoch at the default log_interval (100): one train
+    # record an epoch (its first step), then its eval record.
+    lines = _metrics_lines(wd_full)
+    assert [r["kind"] for r in lines] == ["train", "eval", "train", "eval"]
+    assert [r["step"] for r in lines if r["kind"] == "train"] == [1, 4]
 
 
 def test_resume_of_a_finished_run_trains_nothing(tmp_path):

@@ -57,12 +57,16 @@ def _batches(config, n_steps: int, bs: int, seed: int = 1) -> dict[str, torch.Te
             for k, v in train.arrays.items()}
 
 
-def _train(config, graph: bool, batches, epochs: int = 2, annealing_steps: int = 1000):
+def _train(config, graph: bool, batches, epochs: int = 2, annealing_steps: int = 1000,
+           lr=None):
     """``epochs`` runs of an epoch runner over ``batches`` from the seeded
-    init: the state, each epoch's metrics and the launch counts."""
+    init: the state, each epoch's metrics and the launch counts. ``lr``
+    (a rate or a schedule) defaults to the config's rate; the state
+    accumulates ``config.accum_steps`` micro-steps an update."""
     model = configs.build_model(config, seed=0)
-    state = create_train_state(model, config.learning_rate, grad_clip=config.grad_clip,
-                               ema_decay=0.5)
+    state = create_train_state(model, config.learning_rate if lr is None else lr,
+                               grad_clip=config.grad_clip, ema_decay=0.5,
+                               accum_steps=config.accum_steps)
     gen = torch.Generator(device="cuda").manual_seed(5)
     runner = make_epoch_runner(model, graph=graph, annealing_steps=annealing_steps,
                                generator=gen, **api.step_options(config))
@@ -154,6 +158,115 @@ def test_mixture_graph_epoch_equals_eager_to_the_bit(cuda, objective):
     for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters()):
         assert all(torch.equal(a, b) for a, b in zip(params(graph[0]), params(eager[0])))
     assert graph[2] == eager[2] and graph[2]["poe_kl"] == graph[2]["bce_bwd"] == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3])
+def test_accumulated_graph_epochs_equal_eager_to_the_bit(cuda, k):
+    """``mnist`` at full width with ``accum_steps`` k, clipping at 1, EMA
+    and the cosine schedule (its first update at rate 0): two epochs of 5
+    micro-steps, so an update straddles the epoch boundary, as replays of
+    the two captured bodies (a micro-step, a micro-step that commits)
+    against the eager loop. Every metric, parameter, EMA parameter, the
+    running mean, Adam's moments and the scheduled rate are equal to the
+    bit, and so are the launch counts and the noise generator's state (one
+    generator registered with both graphs advances as the eager loop)."""
+    from mmvae_torch.train.state import learning_rate
+
+    config = configs.get_config("mnist").replace(
+        accum_steps=k, grad_clip=1.0, lr_schedule="cosine", warmup_epochs=1, epochs=4)
+    lr = learning_rate(config, 5)
+    batches = _batches(config, 5, 100)
+    graph, eager = _train(config, True, batches, lr=lr), _train(config, False, batches, lr=lr)
+    _assert_close_runs(graph, eager)
+    for mg, me in zip(graph[1], eager[1]):
+        assert all(torch.equal(mg[key], me[key]) for key in me)
+    (s_g, _, launches_g, _), (s_e, _, launches_e, _) = graph, eager
+    for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters(),
+                   lambda s: s.acc_grads):
+        assert all(torch.equal(a, b) for a, b in zip(params(s_g), params(s_e)))
+    for p, q in zip(s_g.model.parameters(), s_e.model.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(s_g.optimizer.state[p][key], s_e.optimizer.state[q][key])
+    assert int(s_g.optimizer.state[next(s_g.model.parameters())]["step"]) == 10 // k
+    lr_g, lr_e = s_g.optimizer.param_groups[0]["lr"], s_e.optimizer.param_groups[0]["lr"]
+    last = torch.tensor(10 // k - 1, device="cuda")  # the count of the last update
+    assert torch.equal(lr_g, lr_e) and torch.equal(lr_g, lr(last))
+    assert s_g.step == 10 and s_g.micro_step == 10 % k
+    assert launches_g == launches_e and launches_g["poe_kl"] == launches_g["bce_bwd"] == 10
+
+
+@pytest.mark.gpu
+def test_an_update_at_rate_0_leaves_the_parameters(cuda):
+    """The cosine schedule's first update on the card: capturable Adam at
+    a rate of exactly 0 leaves every parameter as it was, components of
+    gradient 0 (whose moments stay 0) included, and moves the moments."""
+    from mmvae_torch.train.state import learning_rate
+
+    config = configs.get_config("mnist").replace(lr_schedule="cosine", epochs=2)
+    model = configs.build_model(config, seed=0)
+    state = create_train_state(model, learning_rate(config, 10), ema_decay=0.5)
+    before = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+        p.grad.view(-1)[::3] = 0.0
+    state.apply_gradients()
+    assert state.optimizer.param_groups[0]["lr"].item() == 0.0
+    assert all(torch.equal(p, b) for p, b in zip(model.parameters(), before))
+    assert all(state.optimizer.state[p]["exp_avg"].abs().max() > 0 for p in model.parameters())
+    state.apply_gradients()
+    assert state.optimizer.param_groups[0]["lr"].item() > 0
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+@pytest.mark.gpu
+def test_an_async_snapshot_is_ordered_against_the_next_replays(cuda, tmp_path):
+    """``AsyncCheckpointWriter.stage`` after a graph epoch, then another
+    graph epoch at once (its replays update the parameters, the moments and
+    the running mean in place on the current stream): the checkpoint holds
+    the state as it was at the stage, bit for bit."""
+    from mmvae_torch.train.checkpoint import AsyncCheckpointWriter, load_checkpoint
+
+    config = configs.get_config("mnist").replace(accum_steps=3)
+    batches = _batches(config, 5, 100)
+    model = configs.build_model(config, seed=0)
+    state = create_train_state(model, config.learning_rate, ema_decay=0.5, accum_steps=3)
+    runner = make_epoch_runner(model, annealing_steps=10,
+                               generator=torch.Generator(device="cuda").manual_seed(1))
+    state, _ = runner(state, batches)
+    want = {name: p.detach().clone() for name, p in model.named_parameters()}
+    want_acc = [a.clone() for a in state.acc_grads]
+    writer = AsyncCheckpointWriter(str(tmp_path))
+    assert writer.stage(state, 1)
+    state, _ = runner(state, batches)
+    writer.finalize()
+    assert writer.saved == 1
+    fresh = create_train_state(configs.build_model(config, seed=1), config.learning_rate,
+                               ema_decay=0.5, accum_steps=3)
+    fresh, extra = load_checkpoint(str(tmp_path), fresh, which="last")
+    assert extra["epoch"] == 1 and fresh.step == 5
+    for name, p in fresh.model.named_parameters():
+        assert torch.equal(p, want[name]), name
+    assert all(torch.equal(a, b) for a, b in zip(fresh.acc_grads, want_acc))
+    assert not torch.equal(next(model.parameters()), want[next(iter(want))])
+
+
+@pytest.mark.gpu
+def test_ckpt_async_train_equals_the_synchronous_run(cuda, tmp_path):
+    """``api.train`` with ``ckpt_async`` on the card: the history and the
+    last checkpoint equal the synchronous run's to the bit."""
+    config = configs.get_config("mnist").replace(epochs=3, train_size=500, test_size=300,
+                                                 accum_steps=2)
+    sync = api.train(config, str(tmp_path / "sync"), verbose=False)
+    overlapped = api.train(config.replace(ckpt_async=True), str(tmp_path / "async"),
+                           verbose=False)
+    assert overlapped.history == sync.history
+    trees = [torch.load(tmp_path / d / "ckpt" / "last_00003" / "state.pt", weights_only=True)
+             for d in ("sync", "async")]
+    for name, t in trees[0]["model"].items():
+        assert torch.equal(t, trees[1]["model"][name]), name
+    assert all(torch.equal(a, b) for a, b in zip(trees[0]["acc_grads"], trees[1]["acc_grads"]))
 
 
 @pytest.mark.gpu

@@ -222,7 +222,7 @@ def test_five_train_steps_match_jax(jmodel):
     step = make_train_step(model, annealing_steps=4, **knobs)
     apply, fed = t_state.apply_gradients, []
 
-    def apply_gradients():
+    def apply_gradients(commit=None):
         n_fed = 0
         for name, p in model.named_parameters():
             want = j_grad[name]
@@ -230,7 +230,7 @@ def test_five_train_steps_match_jax(jmodel):
             n_fed += int((tail & (p.grad != want)).sum())
             p.grad[tail] = want[tail]
         fed.append(n_fed)
-        apply()
+        apply(commit)
 
     t_state.apply_gradients = apply_gradients
     n_params = sum(p.numel() for p in model.parameters())
