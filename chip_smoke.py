@@ -176,6 +176,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (``python -m mmvae_torch.cli train``, then ``eval`` of the test and
      the train split against ``api.eval_elbo`` (rel 1e-6), ``sample`` to
      a PNG, ``generate``), each exiting 0;
+   - serving (``serving``): for each config, and ``mnist`` under
+     mopoe, at full width on seed-0 weights, ``generate`` exported on the
+     card with ``torch.export`` as a static batch-8 per-row artifact
+     (``serving.export_generate``) and loaded with ``load_generate``: the
+     loaded graph holds ``mmvae::poe_kl`` (and ``mmvae::conv4x4s2_swish``
+     for CelebA and CUB), one call launches the fused PoE + KL once and K4
+     once where the graph holds it (``serve_<config>``), each op's output
+     inside the artifact (recorded by a dispatch mode) equals its plain
+     version under the check phase's tolerances, the outputs at temperature
+     0 equal ``api.generate``'s on the card (probabilities at rel 1e-6,
+     labels and tokens equal) and the same artifact's loaded on the CPU
+     (rel 1e-4, TF32 off); an artifact that draws z, exported by a process
+     of its own while those gates run, serves requests of 1, 3 and 2 rows
+     coalesced into one call by the host's ``Batcher`` to the bit of each
+     served alone at temperature 1, on cuDNN's deterministic algorithms as
+     the host runs (on its default ones reported, with whether two solo
+     calls agree), and the HTTP host
+     (``serve.make_handler``) on 127.0.0.1:0 answers a JSON and an npz
+     request with equal outputs; the export and load seconds, the artifact's
+     bytes, the call's p50 and p90 and the HTTP round trip of one row are
+     printed. ``mnist`` and ``celeba`` also export a dynamic artifact: its
+     call at batch 1, 8 and 64, and the first row's largest difference
+     between those batches (printed, not gated);
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -223,8 +246,10 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mmvae_torch import api, configs, ops
 from mmvae_torch.core import component_masks, elbo_subset_masks
@@ -422,7 +447,9 @@ TIMED_SHAPES = {
                "cub_cycle": (64, 32, 23),
                "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
-             "probe": (256, 64, 64, 3, torch.bfloat16)},
+             "probe": (256, 64, 64, 3, torch.bfloat16),
+             # A served batch of 8 (CelebA's and CUB's artifacts).
+             "serve": (8, 64, 64, 3, torch.float32)},
     "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
                "multimnist_eval": (3, 100, 2, 256, "eval"),
                "multimnist_train": (3, 100, 2, 256, "text"),
@@ -436,7 +463,11 @@ TIMED_SHAPES = {
                "mnist_iwae": (1, 100, 2, 64, "joint"),
                "multimnist_iwae": (1, 100, 2, 256, "joint"),
                "celeba_iwae": (1, 64, 19, 100, "joint"),
-               "cub_iwae": (1, 64, 2, 256, "joint")},
+               "cub_iwae": (1, 64, 2, 256, "joint"),
+               # A served batch of 8: the PoE of the observed experts, one
+               # all-ones mask under the presence.
+               "serve_mnist": (1, 8, 2, 64, "serve"), "serve_multimnist": (1, 8, 2, 256, "serve"),
+               "serve_celeba": (1, 8, 19, 100, "serve")},
     # One MNIST train step: K1's VJP at the (T * B, L) posteriors (no path
     # runs it alone), K2's at the image's 2 member terms against 100
     # untiled targets, the fused PoE + KL's at the batch's expert stack.
@@ -528,7 +559,7 @@ CHECKED_SHAPES = {
              (600, 64, 64, 3, torch.float32), (4, 30, 70, 3, torch.float32),
              (3, 20, 90, 3, torch.bfloat16),
              *((6, 32, 40, c, dt) for c in (1, 2, 4) for dt in (torch.float32, torch.bfloat16)),
-             (2, 7, 1100, 4, torch.float32)],
+             (2, 7, 1100, 4, torch.float32), (8, 64, 64, 3, torch.float32)],
     # The three eval batches; CelebA's padded last batch (16 rows present,
     # 48 absent); no presence mask; log-variances past the +-11 clamp; an
     # odd L; experts one element into their storage; a CelebA train step's 24
@@ -541,7 +572,8 @@ CHECKED_SHAPES = {
                (3, 64, 2, 256, "eval"), (1, 100, 2, 64, "joint"), (1, 100, 2, 256, "joint"),
                (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint"),
                (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle"),
-               (2, 100, 2, 64, "mmvae"), (3, 100, 2, 64, "mopoe")],
+               (2, 100, 2, 64, "mmvae"), (3, 100, 2, 64, "mopoe"),
+               (1, 8, 2, 64, "serve"), (1, 8, 19, 100, "serve"), (1, 8, 2, 256, "serve")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
@@ -618,17 +650,20 @@ REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image
 _NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
            "conv_dx": 0}
 EXPECTED_LAUNCHES = {
-    "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    # 20 eval batches, each the fused PoE + KL and K2 once; the fused PoE +
+    # KL once per generate or sample call (the mvae fusion).
+    "mnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 22, **_NO_BWD},
     # As MNIST's: 20 eval batches of 100; the grayscale stage 0 on cuDNN.
-    "fashionmnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
-    "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "fashionmnist": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 23, **_NO_BWD},
+    "multimnist": {"kl": 0, "bce": 20, "seq_ce": 20, "conv": 0, "poe_kl": 24, **_NO_BWD},
     # 32 eval batches, each the fused PoE + KL once and K2 twice (image,
-    # attributes); K4 once per eval batch and once per generate or sample
-    # call.
-    "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 32, **_NO_BWD},
+    # attributes); K4 once per eval batch; K4 and the fused PoE + KL once
+    # per generate or sample call.
+    "celeba": {"kl": 0, "bce": 64, "seq_ce": 0, "conv": 37, "poe_kl": 37, **_NO_BWD},
     # 32 eval batches, each the fused PoE + KL, K2 (the image), K3 (the
-    # captions) and K4 once; K4 once per generate or sample call.
-    "cub": {"kl": 0, "bce": 32, "seq_ce": 32, "conv": 36, "poe_kl": 32, **_NO_BWD},
+    # captions) and K4 once; K4 and the fused PoE + KL once per generate or
+    # sample call.
+    "cub": {"kl": 0, "bce": 32, "seq_ce": 32, "conv": 36, "poe_kl": 36, **_NO_BWD},
     # ``log_likelihood`` over the 2,000-example test splits, k = 64: per
     # batch the fused PoE + KL once (the joint posterior), K2 once per
     # bernoulli decode key (CelebA: the image and the attributes), K3 once
@@ -700,11 +735,11 @@ EXPECTED_LAUNCHES = {
                             "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
                             "conv_bwd": 0, "conv_dx": 0} for o in MIXTURE_OBJECTIVES},
     # ``eval_elbo`` (20 batches: the fused PoE + KL and K2 once each) and 4
-    # ``generate`` calls, each of which fuses its mixture's components with
-    # the fused PoE + KL once (mvtcae's generate is the plain PoE).
+    # ``generate`` calls, each of which fuses its mixture's components (or,
+    # under mvtcae, its PoE) with the fused PoE + KL once.
     "mnist_mmvae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 24, **_NO_BWD},
     "mnist_mopoe": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 24, **_NO_BWD},
-    "mnist_mvtcae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 20, **_NO_BWD},
+    "mnist_mvtcae": {"kl": 0, "bce": 20, "seq_ce": 0, "conv": 0, "poe_kl": 24, **_NO_BWD},
     # 20 CelebA mopoe steps (T = 20, every key decoded on all terms), each:
     # K4 once, the fused PoE + KL once, K2 twice (the image on 1,280 rows,
     # the attributes on 23,040), and each one's backward kernel as often;
@@ -722,6 +757,13 @@ EXPECTED_LAUNCHES = {
     "multimnist_knobs_train": {"kl": 0, "bce": 60, "seq_ce": 100, "conv": 0, "poe_kl": 80,
                                "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 80, "poe_kl_bwd": 60,
                                "conv_bwd": 0, "conv_dx": 0},
+    # ``serving``: one call of a loaded batch-8 artifact, the fused
+    # PoE + KL once (the fusion, of the PoE or of a mixture's components)
+    # and K4 once in an RGB image encoder; the decode launches no kernel of
+    # the port (its outputs are postprocessed, not scored).
+    **{f"serve_{name}": {"kl": 0, "bce": 0, "seq_ce": 0, "poe_kl": 1,
+                         "conv": int(name.split("_")[0] in ("celeba", "cub")), **_NO_BWD}
+       for name in ("mnist", "fashionmnist", "multimnist", "celeba", "cub", "mnist_mopoe")},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
@@ -850,7 +892,9 @@ def poe_inputs(shape, gen: torch.Generator):
     random rows (Bernoulli(0.5)), the first of them all zero; ``joint``:
     the IWAE's joint posterior, one all-ones mask and no presence;
     ``mmvae`` and ``mopoe``: the mixture objectives' component masks
-    (``core.component_masks``), every modality present."""
+    (``core.component_masks``), every modality present; ``serve``: a served
+    batch's fusion, one all-ones mask under a presence of Bernoulli(0.5)
+    rows, the first observing nothing."""
     t, b, m, l, case = shape
     dev = gen.device
     n = b * m * l
@@ -870,7 +914,7 @@ def poe_inputs(shape, gen: torch.Generator):
     if case == "cycle":
         masks = torch.ones(1, m, device=dev)
         masks[0, -1] = 0.0
-    if case == "joint":
+    if case in ("joint", "serve"):
         masks = torch.ones(1, m, device=dev)
     if case in ("mmvae", "mopoe"):
         masks = component_masks(case, m, device=dev)
@@ -879,6 +923,9 @@ def poe_inputs(shape, gen: torch.Generator):
     presence = torch.ones(b, m, device=dev)
     if case == "ragged":
         presence[16:] = 0.0
+    if case == "serve":
+        presence = (torch.rand(b, m, generator=gen, device=dev) < 0.5).float()
+        presence[0] = 0.0
     return mu, lv, masks, None if case in ("none", "cycle", "joint") else presence
 
 
@@ -2657,6 +2704,370 @@ def phase_train_extras() -> dict[str, dict[str, int]]:
     return out
 
 
+# ------------------------------------------------------------ serving ----
+
+SERVE_BATCH = 8
+# (config, objective, the batch keys a request observes): each config at
+# full width on seed-0 weights, and MNIST under mopoe.
+SERVED = (("mnist", "mvae", ("label",)), ("fashionmnist", "mvae", ("image",)),
+          ("multimnist", "mvae", ("text",)), ("celeba", "mvae", ("attrs",)),
+          ("cub", "mvae", ("text",)), ("mnist", "mopoe", ("image",)))
+DYNAMIC_SERVED = ("mnist", "celeba")
+SERVE_REPS = 20
+
+
+class OpOutputs(TorchDispatchMode):
+    """The inputs and output of each ``mmvae`` op a call runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "mmvae":
+            self.calls.append((str(func), args, out))
+        return out
+
+
+def check_op_outputs(calls) -> list[dict]:
+    """Each ``mmvae`` op's output inside an artifact against its plain
+    version on the same inputs, under ``phase_check``'s tolerances."""
+    rows = []
+    for name, args, out in calls:
+        if name == "mmvae.conv4x4s2_swish.default":
+            shape = (*args[0].shape, args[0].dtype)
+            want = kernels.conv4x4s2_swish_torch(*args)
+            rtol, atol = tolerance("conv", shape)
+            torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+            err = (out - want).abs().max().item()
+        elif name == "mmvae.poe_kl.default":
+            mu_e, _, masks, _ = args
+            shape = (masks.shape[0], *mu_e.shape, "serve")
+            err = check_poe_kl(args, out, kernels.poe_kl_torch(*args), shape)
+        else:
+            raise AssertionError(f"an artifact ran the unknown op {name}")
+        rows.append({"op": name, "shape": [str(d) for d in shape], "max_abs_err": err})
+    return rows
+
+
+def serve_inputs(cfg, meta: dict, keys, n: int, seed: int = 0):
+    """``n`` rows of ``cfg``'s synthetic test data observing ``keys``: the
+    batch (zeros in the other keys), the presence and ``api.generate``'s
+    condition."""
+    data = load_dataset(cfg.dataset, "test", n=n + seed).arrays
+    batch = {k: np.zeros([n, *shape[1:]], dtype) for k, (shape, dtype) in meta["batch_shapes"].items()}
+    presence = np.zeros((n, len(meta["modalities"])), np.float32)
+    for key in keys:
+        batch[key] = np.asarray(data[key][seed:seed + n], batch[key].dtype)
+        for m in meta["batch_modalities"][key]:
+            presence[:, meta["modalities"].index(m)] = 1.0
+    return batch, presence, {k: batch[k] for k in keys}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.to(got.device)
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def check_outputs(got: dict, want: dict, rtol: float, what: str) -> dict[str, float]:
+    """Probabilities within ``rtol`` of the largest, labels and tokens
+    equal. Returns each float output's relative error."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} and {sorted(want)} differ")
+    errs = {}
+    for k, w in want.items():
+        if w.is_floating_point():
+            errs[k] = rel_err(got[k], w)
+            if not errs[k] <= rtol:
+                raise AssertionError(f"{what}: {k} differs by rel {errs[k]} > {rtol}")
+        elif not torch.equal(got[k].cpu(), w.cpu()):
+            raise AssertionError(f"{what}: {k} differs")
+    return errs
+
+
+def call_ms(call, batch, presence, temperature: float = 0.0) -> dict[str, float]:
+    """p50 and p90 of a call's wall, to a sync, over SERVE_REPS calls after 3."""
+    seeds = np.arange(len(presence))
+    walls = []
+    for i in range(3 + SERVE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(batch, presence, seed=seeds, temperature=temperature)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    q = statistics.quantiles(walls, n=10)
+    return {"p50": statistics.median(walls), "p90": q[-1]}
+
+
+def coalesced_vs_alone(call, meta: dict, cfg, keys, gate: bool = True) -> dict:
+    """Three requests of 1, 3 and 2 rows through one ``Batcher`` (one call)
+    against each served alone, padded to the static batch, at temperature
+    1, and each alone again: whether every output is equal to the bit,
+    raised on when ``gate``. Returns the device calls and the two
+    comparisons."""
+    from mmvae_torch.serve import Batcher
+
+    shapes = {k: (tuple(v[0]), np.dtype(v[1])) for k, v in meta["batch_shapes"].items()}
+    requests = []
+    for i, n in enumerate((1, 3, 2)):
+        batch, presence, _ = serve_inputs(cfg, meta, keys, n, seed=4 * i)
+        requests.append((batch, presence, 100 * i + np.arange(n)))
+    batcher = Batcher(call, shapes, len(meta["modalities"]), static_batch=SERVE_BATCH,
+                      max_wait_ms=500)
+    results = [None] * len(requests)
+
+    def submit(i):
+        batch, presence, seeds = requests[i]
+        results[i] = batcher.submit(batch, presence, seeds, 1.0, len(seeds))
+
+    try:
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a coalesced request did not return")
+    finally:
+        batcher.close(timeout=60)
+    coalesced = repeated = True
+    for (batch, presence, seeds), got in zip(requests, results):
+        n = len(seeds)
+
+        def pad(a, n=n):
+            return np.concatenate([a, np.zeros((SERVE_BATCH - n,) + a.shape[1:], a.dtype)])
+
+        alone, again = (call({k: pad(v) for k, v in batch.items()}, pad(presence),
+                             seed=pad(seeds), temperature=1.0) for _ in range(2))
+        for k, v in alone.items():
+            coalesced &= np.array_equal(got[k], v[:n].cpu().numpy())
+            repeated &= torch.equal(v, again[k])
+    if gate and not coalesced:
+        raise AssertionError(f"{cfg.name}: a coalesced request differs from it served alone")
+    return {"device_calls": batcher.stats["device_calls"], "coalesced_bits_equal": coalesced,
+            "alone_twice_bits_equal": repeated}
+
+
+def http_round_trips(meta: dict, call, cfg, keys) -> dict:
+    """The host (``serve.make_handler``, a ``Batcher``) on 127.0.0.1:0: one
+    JSON and one npz request of the same row, their outputs equal; the
+    JSON round trip of one row, p50 over SERVE_REPS."""
+    import http.client
+    import io
+    from http.server import ThreadingHTTPServer
+
+    from mmvae_torch.serve import Batcher, make_handler
+
+    shapes = {k: (tuple(v[0]), np.dtype(v[1])) for k, v in meta["batch_shapes"].items()}
+    batcher = Batcher(call, shapes, len(meta["modalities"]), static_batch=SERVE_BATCH,
+                      max_wait_ms=1)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(meta, call, batcher))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    batch, _, condition = serve_inputs(cfg, meta, keys, 1)
+
+    def post(body: bytes):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        try:
+            conn.request("POST", "/generate", body=body)
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                raise AssertionError(f"{cfg.name}: the host answered {resp.status}: {data[:200]}")
+            return data
+        finally:
+            conn.close()
+
+    try:
+        body = json.dumps({"condition": {k: v.tolist() for k, v in condition.items()},
+                           "seed": 7, "temperature": 1.0}).encode()
+        reply = json.loads(post(body))["outputs"]
+        buf = io.BytesIO()
+        np.savez(buf, seed=np.int64(7), temperature=np.float32(1.0), **condition)
+        with np.load(io.BytesIO(post(buf.getvalue()))) as z:
+            npz = {k: z[k] for k in z.files if k != "n"}
+        for k, v in npz.items():
+            if not np.array_equal(np.asarray(reply[k], v.dtype), v):
+                raise AssertionError(f"{cfg.name}: the JSON and npz replies differ in {k}")
+        walls = []
+        for _ in range(SERVE_REPS):
+            t0 = time.perf_counter()
+            post(body)
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close(timeout=60)
+    return {"json_equals_npz": True, "round_trip_ms_p50": statistics.median(walls),
+            "round_trip_ms_p90": statistics.quantiles(walls, n=10)[-1]}
+
+
+def served_path(cfg) -> str:
+    return cfg.name if cfg.objective == "mvae" else f"{cfg.name}_{cfg.objective}"
+
+
+def export_drawn(tmp: str) -> None:
+    """Run by ``phase_serving`` in a process of its own (``python -c``), so
+    that these exports overlap the static artifacts' gates: each served
+    config's batch-8 artifact that draws z (``<path>_sample_z.mmvaept`` in
+    ``tmp``) and, for ``DYNAMIC_SERVED``, its dynamic one
+    (``<name>_dynamic.mmvaept``), exported on the card from the same seed-0
+    weights. Prints each export's seconds as one JSON line."""
+    from mmvae_torch import serving
+
+    seconds = {}
+    for name, objective, _ in SERVED:
+        cfg = configs.get_config(name).replace(objective=objective)
+        model = configs.build_model(cfg, seed=0)
+        kinds = {"sample_z": SERVE_BATCH}
+        if objective == "mvae" and name in DYNAMIC_SERVED:
+            kinds["dynamic"] = "dynamic"
+        for kind, batch_size in kinds.items():
+            t0 = time.perf_counter()
+            serving.export_generate(cfg, os.path.join(tmp, f"{served_path(cfg)}_{kind}.mmvaept"),
+                                    batch_size=batch_size, model=model, sample_z=True)
+            seconds[f"{served_path(cfg)}_{kind}"] = time.perf_counter() - t0
+    print(json.dumps(seconds), flush=True)
+
+
+def serve_static(cfg, model, keys, tmp: str) -> dict[str, int]:
+    """``cfg``'s static batch-8 per-row artifact exported on the card and
+    loaded with ``load_generate``: the graph's ops, one call's launches,
+    each op's output against its plain version, the outputs against
+    ``api.generate`` on the card (rel 1e-6) and against the same artifact
+    on the CPU (rel 1e-4), the call's walls."""
+    from mmvae_torch import serving
+
+    path = served_path(cfg)
+    out_path = os.path.join(tmp, f"{path}.mmvaept")
+    t0 = time.perf_counter()
+    serving.export_generate(cfg, out_path, batch_size=SERVE_BATCH, model=model)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta, call = serving.load_generate(out_path)
+    load_s = time.perf_counter() - t0
+    targets = {str(n.target) for n in call.exported.graph.nodes if n.op == "call_function"}
+    want_ops = {"mmvae.poe_kl.default"}
+    if cfg.name in ("celeba", "cub"):
+        want_ops.add("mmvae.conv4x4s2_swish.default")
+    if not want_ops <= targets:
+        raise AssertionError(f"{path}: the graph lacks {sorted(want_ops - targets)}")
+    batch, presence, condition = serve_inputs(cfg, meta, keys, SERVE_BATCH)
+    seeds = np.arange(SERVE_BATCH)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    got = call(batch, presence, seed=seeds, temperature=0.0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches != EXPECTED_LAUNCHES[f"serve_{path}"]:
+        raise AssertionError(f"serve_{path}: expected launches "
+                             f"{EXPECTED_LAUNCHES[f'serve_{path}']}, got {launches}")
+    with OpOutputs() as recorded:
+        call(batch, presence, seed=seeds, temperature=0.0)
+    torch.cuda.synchronize()
+    op_rows = check_op_outputs(recorded.calls)
+    vs_generate = check_outputs(
+        got, api.generate(cfg, condition, model=model, temperature=0.0), 1e-6,
+        f"{path}: artifact vs api.generate")
+    t0 = time.perf_counter()
+    _, cpu_call = serving.load_generate(out_path, device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    vs_cpu = check_outputs(got, cpu_call(batch, presence, seed=seeds, temperature=0.0), 1e-4,
+                           f"{path}: card vs CPU")
+    emit({"phase": "serving", "config": path, "batch_size": SERVE_BATCH,
+          "export_s": export_s, "load_s": load_s, "cpu_load_s": cpu_load_s,
+          "artifact_bytes": os.path.getsize(out_path), "graph_nodes": len(call.exported.graph.nodes),
+          "launches": launches, "op_outputs": op_rows,
+          "rel_vs_api_generate": vs_generate, "rel_card_vs_cpu": vs_cpu,
+          "call_ms_batch8": call_ms(call, batch, presence)})
+    return launches
+
+
+def serve_drawn(cfg, keys, tmp: str, export_s: float) -> None:
+    """``cfg``'s batch-8 artifact that draws z (``export_drawn``'s): requests
+    coalesced through the ``Batcher`` against each served alone, gated on
+    cuDNN's deterministic algorithms as the host runs them (``serve.main``)
+    and reported on its default ones; the HTTP host; the call's walls at
+    temperature 1."""
+    from mmvae_torch import serving
+
+    path = f"{served_path(cfg)}_sample_z"
+    out_path = os.path.join(tmp, f"{path}.mmvaept")
+    t0 = time.perf_counter()
+    meta, call = serving.load_generate(out_path)
+    load_s = time.perf_counter() - t0
+    default_algorithms = coalesced_vs_alone(call, meta, cfg, keys, gate=False)
+    with deterministic():
+        coalescing = coalesced_vs_alone(call, meta, cfg, keys)
+        http = http_round_trips(meta, call, cfg, keys)
+    batch, presence, _ = serve_inputs(cfg, meta, keys, SERVE_BATCH)
+    emit({"phase": "serving_drawn", "config": path, "batch_size": SERVE_BATCH,
+          "export_s": export_s, "load_s": load_s, "artifact_bytes": os.path.getsize(out_path),
+          "graph_nodes": len(call.exported.graph.nodes),
+          "call_ms_batch8": call_ms(call, batch, presence, temperature=1.0),
+          "coalescing_deterministic": coalescing,
+          "coalescing_default_algorithms": default_algorithms, "http": http})
+
+
+def serve_dynamic(cfg, keys, tmp: str, export_s: float) -> None:
+    """``cfg``'s dynamic artifact that draws z (``export_drawn``'s): the
+    call's walls at batch 1, 8 and 64, and the largest difference of the
+    first row's outputs between those batches (reported, not gated: the
+    card's libraries may take another algorithm at another batch)."""
+    from mmvae_torch import serving
+
+    out_path = os.path.join(tmp, f"{cfg.name}_dynamic.mmvaept")
+    meta, call = serving.load_generate(out_path)
+    walls, first = {}, {}
+    for n in (1, 8, 64):
+        batch, presence, _ = serve_inputs(cfg, meta, keys, n)
+        walls[f"batch{n}"] = call_ms(call, batch, presence, temperature=1.0)
+        out = call(batch, presence, seed=np.arange(n), temperature=1.0)
+        first[n] = {k: v[:1] for k, v in out.items()}
+    diff = {f"batch{n}": {k: (first[n][k].double() - first[1][k].double()).abs().max().item()
+                          for k in first[1]} for n in (8, 64)}
+    emit({"phase": "serving_dynamic", "config": cfg.name, "export_s": export_s,
+          "artifact_bytes": os.path.getsize(out_path), "call_ms": walls,
+          "row0_max_abs_diff_vs_batch1": diff})
+
+
+def phase_serving() -> dict[str, dict[str, int]]:
+    """The serving path (``mmvae_torch/serving.py``, ``serve.py``) at full
+    width on seed-0 weights: for each config, and MNIST under mopoe, a
+    static batch-8 per-row artifact (``serve_static``) and one that draws z
+    (``serve_drawn``); for MNIST and CelebA a dynamic one too
+    (``serve_dynamic``). The artifacts that draw are exported by a process
+    of their own (``export_drawn``) while the static ones are gated.
+    Returns the launches of one call of each static artifact."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        worker = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.export_drawn({tmp!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            for name, objective, keys in SERVED:
+                cfg = configs.get_config(name).replace(objective=objective)
+                out[f"serve_{served_path(cfg)}"] = serve_static(
+                    cfg, configs.build_model(cfg, seed=0), keys, tmp)
+            stdout, stderr = worker.communicate(timeout=900)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.communicate()
+        if worker.returncode != 0:
+            raise RuntimeError(f"export_drawn failed ({worker.returncode}):\n{stderr[-4000:]}")
+        seconds = json.loads(stdout.strip().splitlines()[-1])
+        for name, objective, keys in SERVED:
+            cfg = configs.get_config(name).replace(objective=objective)
+            serve_drawn(cfg, keys, tmp, seconds[f"{served_path(cfg)}_sample_z"])
+            if objective == "mvae" and name in DYNAMIC_SERVED:
+                serve_dynamic(cfg, keys, tmp, seconds[f"{name}_dynamic"])
+    return out
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 
@@ -2973,6 +3384,7 @@ def main() -> None:
         "multimnist_knobs_train", phase_multimnist_train, LOSS_KNOBS)
     timed("workdir", phase_workdir)
     launches.update(timed("train_extras", phase_train_extras))
+    launches.update(timed("serving", phase_serving))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -529,12 +529,15 @@ def _postprocess(
     model,
     recons: dict[str, torch.Tensor],
     z: torch.Tensor,
-    temperature: float,
+    temperature: float | torch.Tensor,
     generator: torch.Generator | None,
+    rng=None,
 ) -> dict[str, torch.Tensor]:
     """Decode dict -> user-facing tensors: probabilities for bernoulli
     modalities, class indices for categorical ones, and for each sequence
-    modality the tokens ``model.generate_text`` draws from ``z``."""
+    modality the tokens ``model.generate_text`` draws from ``z`` (from
+    ``generator``, or from the per-row streams of ``rng``, a
+    ``core.rowrng.RowRng``, in the traced decode)."""
     kinds = model.decode_kinds()
     out = {}
     for key, value in recons.items():
@@ -548,7 +551,7 @@ def _postprocess(
             )
     for spec in model.specs():
         if spec.kind == "seq":
-            out[spec.name] = model.generate_text(z, temperature, generator)
+            out[spec.name] = model.generate_text(z, temperature, generator, rng)
     return out
 
 

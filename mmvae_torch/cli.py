@@ -7,9 +7,14 @@ The subcommands and flags are the JAX CLI's: ``train``, ``eval`` (with
 value, ``--sample-z``, ``--temperature``) and ``export``; ``--config-file``
 takes a JSON dict of config fields, flags win over it, and the commands
 other than ``train`` start from the workdir's saved config. Each command
-runs on ``--device`` (the card by default). What the port does not have
-raises ``NotImplementedError`` when asked for: ``export`` (serving),
-``--dtype bfloat16``, ``--multihost``, and the flags of the JAX config
+runs on ``--device`` (the card by default). ``export`` writes the serving
+artifact of ``generate`` (``serving.export_generate``: ``--out``,
+``--batch-size-export`` an int or ``dynamic``, ``--sample-z``,
+``--seed-mode``, ``--platforms`` of ``cuda``, ``gpu`` and ``cpu``), traced
+on ``--device`` from the workdir's best weights, or from the config's
+seeded init with no workdir; ``python -m mmvae_torch.serve`` serves it.
+What the port does not have raises ``NotImplementedError`` when asked
+for: ``--dtype bfloat16``, ``--multihost``, and the flags of the JAX config
 fields the port leaves out (``--data-backend``, ``--grain-stream-steps``,
 ``--eval-segment-steps``, ``--data-dtype``, the shuffle flags, ``--fsdp``,
 ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
@@ -142,7 +147,7 @@ def _build_parser() -> argparse.ArgumentParser:
     pg.add_argument("--out", default=None)
     pg.add_argument("--n-latents", dest="n_latents", type=int)
 
-    px = sub.add_parser("export", help="serving artifact of generate (not yet ported)")
+    px = sub.add_parser("export", help="serving artifact of generate")
     _add_common(px)
     px.add_argument("--out", required=True)
     px.add_argument("--batch-size-export", dest="batch_size_export", default="8")
@@ -150,14 +155,13 @@ def _build_parser() -> argparse.ArgumentParser:
     px.add_argument("--seed-mode", dest="seed_mode", default="per_row",
                     choices=["per_row", "scalar"])
     px.add_argument("--n-latents", dest="n_latents", type=int)
-    px.add_argument("--platforms", default="cpu,tpu")
+    px.add_argument("--platforms", default="cuda,cpu",
+                    help="where the artifact may be served: cuda (or gpu) and cpu")
     return parser
 
 
 def _check_ported(args) -> None:
     """Raise for every option the port does not have that ``args`` sets."""
-    if args.cmd == "export":
-        raise _not_ported("export (serving)")
     if args.dtype != "float32":
         raise _not_ported(f"--dtype {args.dtype}")
     if args.multihost:
@@ -278,6 +282,24 @@ def main(argv=None) -> int:
                            sample_z=args.sample_z, temperature=args.temperature,
                            generator=generator)
         _dump(out, args.out, config.name)
+        return 0
+
+    if args.cmd == "export":
+        from mmvae_torch import serving
+        from mmvae_torch.configs import build_model
+
+        bs = args.batch_size_export
+        model = None
+        if args.workdir is None:
+            model = build_model(config, seed=args.seed, device=device)
+        serving.export_generate(
+            config, args.out, batch_size=bs if bs == "dynamic" else int(bs), model=model,
+            workdir=args.workdir, device=device, sample_z=args.sample_z,
+            platforms=tuple(args.platforms.split(",")), seed_mode=args.seed_mode)
+        meta = serving.read_meta(args.out)
+        print(json.dumps({"written": args.out, "bytes": os.path.getsize(args.out),
+                          "batch_size": meta["batch_size"], "seed_mode": meta["seed_mode"],
+                          "platforms": meta["platforms"]}))
         return 0
     return 1
 

@@ -15,8 +15,9 @@ Each mixture component's mask is multiplied by the observed-modality
 presence (``c AND O``): that maps the powerset onto the powerset of the
 observed set with a constant multiplicity, so the uniform mixture over the
 nonempty effective rows is the uniform mixture over the observed subsets,
-at fixed shapes for any presence. The components' posteriors come from
-one ``ops.poe_kl`` call (its KL unused), so the card runs the fused kernel.
+at fixed shapes for any presence. The components' posteriors, and the
+PoE of mvae and mvtcae (one all-ones term), come from one ``ops.poe_kl``
+call (its KL unused), so the card runs the fused kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from mmvae_torch import ops
-from mmvae_torch.core.poe import product_of_experts
 from mmvae_torch.core.sampling import reparameterize
 
 __all__ = [
@@ -97,6 +97,7 @@ def mixture_z(
     generator: torch.Generator | None = None,
     component: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
+    uniform: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """A draw from, or the mean of, each example's Gaussian mixture, ``(B, L)``.
 
@@ -105,9 +106,10 @@ def mixture_z(
     mean). ``sample=True``: a component drawn uniformly over the valid
     ones, then reparameterized. ``component`` ``(B,)`` and ``eps`` ``(B,
     L)`` pass the index and the noise in (JAX draws them from the two
-    halves of its key); otherwise both come from ``generator``. A row with
-    no valid component takes component 0, as ``jax.random.categorical``
-    over all ``-inf`` does; its posterior is the prior.
+    halves of its key); otherwise both come from ``generator``, or the
+    index from ``uniform`` ``(B,)`` in [0, 1) when given. A row with no
+    valid component takes component 0, as ``jax.random.categorical`` over
+    all ``-inf`` does; its posterior is the prior.
     """
     if not sample:
         total = torch.clamp(weights.sum(-1, keepdim=True), min=1.0)
@@ -116,7 +118,9 @@ def mixture_z(
         # The k-th valid component, k uniform in [0, n_valid): the count of
         # running totals at or below k.
         n_valid = weights.sum(-1)
-        u = torch.rand(n_valid.shape, generator=generator, device=weights.device)
+        u = uniform
+        if u is None:
+            u = torch.rand(n_valid.shape, generator=generator, device=weights.device)
         k = torch.minimum(torch.floor(u * n_valid), torch.clamp(n_valid - 1, min=0))
         idx = (weights.cumsum(-1) <= k[:, None]).sum(-1)
         component = torch.where(n_valid > 0, idx, torch.zeros_like(idx))
@@ -136,18 +140,21 @@ def fuse_observed_z(
     generator: torch.Generator | None = None,
     eps: torch.Tensor | None = None,
     component: torch.Tensor | None = None,
+    uniform: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Posterior draw (or mean) from the observed experts, ``(B, L)``.
 
-    ``"mvae"`` / ``"mvtcae"``: PoE of the observed experts plus the prior,
-    then reparameterize (``component`` unused). ``"mmvae"`` / ``"mopoe"``:
-    the objective's mixture over the observed set (:func:`mixture_z`, which
-    takes ``component`` and ``eps``).
+    ``"mvae"`` / ``"mvtcae"``: PoE of the observed experts plus the prior
+    (``ops.poe_kl`` under one all-ones term), then reparameterize
+    (``component`` and ``uniform`` unused). ``"mmvae"`` / ``"mopoe"``: the
+    objective's mixture over the observed set (:func:`mixture_z`, which
+    takes ``component``, ``eps`` and ``uniform``).
     """
     if objective in ("mvae", "mvtcae"):
-        mu, logvar = product_of_experts(mu_e, lv_e, mask=presence)
+        ones = mu_e.new_ones((1, mu_e.shape[-2]))
+        mu_f, lv_f, _ = ops.poe_kl(mu_e, lv_e, ones, presence)
         return reparameterize(
-            mu, logvar, sample=sample, generator=generator, eps=eps
+            mu_f[0], lv_f[0], sample=sample, generator=generator, eps=eps
         )
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
@@ -155,5 +162,5 @@ def fuse_observed_z(
     mu_c, lv_c, weights = posterior_components(mu_e, lv_e, presence, comp)
     return mixture_z(
         mu_c, lv_c, weights, sample=sample, generator=generator,
-        component=component, eps=eps,
+        component=component, eps=eps, uniform=uniform,
     )

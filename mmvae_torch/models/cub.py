@@ -71,11 +71,12 @@ class CubMVAE(MVAEBase):
     def generate_text(
         self,
         z: torch.Tensor,
-        temperature: float = 1.0,
+        temperature: float | torch.Tensor = 1.0,
         generator: torch.Generator | None = None,
+        rng=None,
     ) -> torch.Tensor:
         """Generated captions ``(B, max_len)``; see ``SeqDecoder.generate``."""
-        return self.text_dec.generate(z, temperature, generator)
+        return self.text_dec.generate(z, temperature, generator, rng)
 
     def nll_all(self, recons, batch):
         return torch.cat(

@@ -19,20 +19,28 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mmvae_torch.core.rowrng import STREAM_TEXT, RowRng, categorical, temperature_terms
+
 __all__ = ["PAD", "START", "STOP", "GRUExpert", "SeqEncoder", "SeqDecoder"]
 
 PAD, START, STOP = 0, 1, 2
 
 
-def _gru_step(h, xw, u, b):
-    """One GRU step. ``xw`` is the precomputed input projection ``(B, 3H)``."""
+def _gates(u, b):
+    """The recurrent weights and bias split into their r, z part and their
+    n part, once, outside a loop over the steps."""
+    hidden = u.shape[0]
+    return u[:, : 2 * hidden], u[:, 2 * hidden :], b[: 2 * hidden], b[2 * hidden :]
+
+
+def _gru_step(h, xw, gates):
+    """One GRU step. ``xw`` is the precomputed input projection ``(B, 3H)``,
+    ``gates`` the split recurrent weights of :func:`_gates`."""
+    u_rz, u_n, b_rz, b_n = gates
     hidden = h.shape[-1]
-    gates = xw[..., : 2 * hidden] + h @ u[:, : 2 * hidden] + b[: 2 * hidden]
-    r = torch.sigmoid(gates[..., :hidden])
-    zg = torch.sigmoid(gates[..., hidden : 2 * hidden])
-    n = torch.tanh(
-        xw[..., 2 * hidden :] + r * (h @ u[:, 2 * hidden :]) + b[2 * hidden :]
-    )
+    rz = torch.sigmoid(xw[..., : 2 * hidden] + h @ u_rz + b_rz)
+    r, zg = rz[..., :hidden], rz[..., hidden:]
+    n = torch.tanh(xw[..., 2 * hidden :] + r * (h @ u_n) + b_n)
     return (1.0 - zg) * n + zg * h
 
 
@@ -67,8 +75,9 @@ class SeqEncoder(GRUExpert):
         xw = self._input_proj(tokens)  # (B, T, 3H)
         mask = (tokens != PAD).to(xw.dtype)[..., None]  # (B, T, 1)
         h = xw.new_zeros((tokens.shape[0], self.hidden))
+        gates = _gates(self.u_rec, self.b)
         for t in range(tokens.shape[1]):
-            h_new = _gru_step(h, xw[:, t], self.u_rec, self.b)
+            h_new = _gru_step(h, xw[:, t], gates)
             h = mask[:, t] * h_new + (1.0 - mask[:, t]) * h
         out = self.head(h)
         return out[:, : self.n_latents], out[:, self.n_latents :]
@@ -102,9 +111,10 @@ class SeqDecoder(GRUExpert):
         )
         xw = self._input_proj(inputs)  # (B, T, 3H)
         h = torch.tanh(self.init_proj(z))
+        gates = _gates(self.u_rec, self.b)
         hs = []
         for t in range(inputs.shape[1]):
-            h = _gru_step(h, xw[:, t], self.u_rec, self.b)
+            h = _gru_step(h, xw[:, t], gates)
             hs.append(h)
         # One output-projection matmul for all timesteps.
         return self.out_proj(torch.stack(hs, dim=1))
@@ -112,11 +122,19 @@ class SeqDecoder(GRUExpert):
     def generate(
         self,
         z: torch.Tensor,
-        temperature: float = 1.0,
+        temperature: float | torch.Tensor = 1.0,
         generator: torch.Generator | None = None,
+        rng: RowRng | None = None,
     ) -> torch.Tensor:
         """Autoregressive decode: argmax when ``temperature <= 0``, else a
         draw at ``temperature`` from ``generator`` (on ``z``'s device).
+
+        With ``rng`` the decode can be traced, in the JAX decoder's form
+        (``mmvae_tpu/models/text.py:156-170``): ``temperature`` may be a
+        0-d tensor, each step takes ``where(t > 0, sampled, greedy)``, and
+        the sampled branch is the Gumbel-max draw on ``rng``'s per-row noise
+        of stream ``STREAM_TEXT`` (``core/rowrng.py``), drawn for every
+        step at once.
 
         Returns ``(B, max_len)`` int64 tokens with everything after the
         first STOP forced to PAD.
@@ -125,11 +143,19 @@ class SeqDecoder(GRUExpert):
         h = torch.tanh(self.init_proj(z))
         tok = torch.full((batch,), START, dtype=torch.long, device=z.device)
         stopped = torch.zeros((batch,), dtype=torch.bool, device=z.device)
+        gates = _gates(self.u_rec, self.b)
+        if rng is not None:
+            terms = temperature_terms(torch.as_tensor(temperature, device=z.device))
+            vocab = self.out_proj.out_features
+            noise = rng.gumbel(STREAM_TEXT, self.max_len * vocab).reshape(
+                -1, self.max_len, vocab)
         out = []
-        for _ in range(self.max_len):
-            h = _gru_step(h, self._input_proj(tok), self.u_rec, self.b)
+        for step in range(self.max_len):
+            h = _gru_step(h, self._input_proj(tok), gates)
             logits = self.out_proj(h)
-            if temperature > 0:
+            if rng is not None:
+                nxt = categorical(logits, noise[:, step], terms)
+            elif temperature > 0:
                 probs = torch.softmax(logits / temperature, dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
             else:

@@ -51,6 +51,7 @@ from mmvae_torch.core.elbo import kl_std_normal as _kl_torch
 from mmvae_torch.core.likelihoods import bernoulli_nll as _bern_torch
 from mmvae_torch.core.likelihoods import categorical_nll as _cat_torch
 from mmvae_torch.ops import kernels
+from mmvae_torch.ops.library import _f32  # the import registers the mmvae ops
 
 __all__ = [
     "kl_std_normal",
@@ -310,9 +311,15 @@ def conv4x4s2_swish(
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
     ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32; its backward
     kernels give the weight's and the bias's gradients and, when the image
-    requires grad, the image's (dx), f32 only."""
+    requires grad, the image's (dx), f32 only. Where autograd records
+    nothing, the kernel path is the op ``mmvae::conv4x4s2_swish``, which a
+    trace keeps (``ops/library.py``)."""
     kernel = _use_kernel(x)
-    return _Conv4x4s2Swish.apply(x, weight, bias, kernel)
+    if _records_grad(x, weight, bias):
+        return _Conv4x4s2Swish.apply(x, weight, bias, kernel)
+    if _backend == "torch":
+        return kernels.conv4x4s2_swish_torch(x, weight, bias)
+    return torch.ops.mmvae.conv4x4s2_swish(x, weight, bias)
 
 
 class _Conv4x4s2Swish(torch.autograd.Function):
@@ -325,7 +332,7 @@ class _Conv4x4s2Swish(torch.autograd.Function):
         ctx.kernel = kernel
         if kernel:
             x, weight, bias = x.contiguous(), weight.contiguous(), bias.contiguous()
-            out = kernels.conv4x4s2_swish_kernel(x, weight, bias)
+            out = torch.ops.mmvae.conv4x4s2_swish(x, weight, bias)
         else:
             out = kernels.conv4x4s2_swish_torch(x, weight, bias)
         ctx.save_for_backward(x, weight, bias)
@@ -361,18 +368,20 @@ def poe_kl(
     subset masks; ``presence``: optional ``(B, M)`` float mask of the
     observed modalities. Returns ``(mu_f, lv_f, kl)``: ``(T, B, L)``,
     ``(T, B, L)`` and ``(T, B)``. A row with no expert present gives the
-    prior and a KL of exactly 0."""
+    prior and a KL of exactly 0. Where autograd records nothing, the
+    kernel path is the op ``mmvae::poe_kl``, which a trace keeps
+    (``ops/library.py``)."""
     if _records_grad(masks, presence):
         raise RuntimeError(
             "ops.poe_kl: the backward of masks and presence is not yet ported to "
             "mmvae_torch (only the expert stack is differentiated)"
         )
     kernel = _use_kernel(mu_e)
-    return _PoeKl.apply(mu_e, lv_e, masks, presence, kernel)
-
-
-def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
-    return None if t is None else t.to(torch.float32).contiguous()
+    if _records_grad(mu_e, lv_e):
+        return _PoeKl.apply(mu_e, lv_e, masks, presence, kernel)
+    if _backend == "torch":
+        return kernels.poe_kl_torch(mu_e, lv_e, masks, presence)
+    return torch.ops.mmvae.poe_kl(mu_e, lv_e, masks, presence)
 
 
 class _PoeKl(torch.autograd.Function):
@@ -385,7 +394,7 @@ class _PoeKl(torch.autograd.Function):
         if kernel:
             ctx.dtypes = (mu_e.dtype, lv_e.dtype)
             mu_e, lv_e, masks, presence = (_f32(t) for t in (mu_e, lv_e, masks, presence))
-            out = kernels.poe_kl_kernel(mu_e, lv_e, masks, presence)
+            out = torch.ops.mmvae.poe_kl(mu_e, lv_e, masks, presence)
         else:
             out = kernels.poe_kl_torch(mu_e, lv_e, masks, presence)
         ctx.save_for_backward(mu_e, lv_e, masks, presence, out[0], out[1])

@@ -237,7 +237,7 @@ def test_unported_config_file_fields_raise(tmp_path, fields):
 
 
 @pytest.mark.parametrize("cmd", [
-    ["export", "--config", "mnist", "--out", "x.bin"],
+    ["export", "--config", "mnist", "--out", "x.bin", "--dtype", "bfloat16"],
     ["eval", "--config", "mnist", "--dtype", "bfloat16"],
     ["sample", "--config", "mnist", "--multihost"],
 ])
