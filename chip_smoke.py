@@ -23,6 +23,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    N = B * ceil(H/2) * ceil(W/2) the terms each entry of dW and db sums,
    and two of its launches equal to the bit, as two of K4's input
    gradient's are, whose upstream gradient is also taken transposed);
+   K2 and its VJP on bf16 targets and K4 and its backward on a bf16 image
+   (the ``data_dtype="bfloat16"`` train splits; f32 tolerances, a bf16
+   value being exact in f32 and TF32), K3 and its VJP at a mounted CUB
+   corpus's V = 2,004;
    among them CUB's train step's shapes, the mixture objectives' (the
    fused PoE + KL and its backward at MNIST's 2 mmvae and 3 mopoe
    components, K2 and its VJP on MNIST mopoe's 300 image rows and CelebA
@@ -198,7 +202,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bytes, the call's p50 and p90 and the HTTP round trip of one row are
      printed. ``mnist`` and ``celeba`` also export a dynamic artifact: its
      call at batch 1, 8 and 64, and the first row's largest difference
-     between those batches (printed, not gated);
+     between those batches (printed, not gated); and, gated, one row
+     through the host's ``Batcher`` served alone and coalesced with 7 and
+     with 63 strangers, the same bits each time (on the card the host calls
+     a dynamic artifact at its ``max_batch`` of 64 always);
+   - the data layer (``data``): in a temporary ``$MMVAE_DATA_DIR`` the
+     phase writes, from the port's generators with fixed seeds, MNIST as
+     the distribution's IDX files (train gzipped, test plain) at their
+     60,000 and 10,000 rows of uint8, a CUB ``.npz`` with captions over a
+     corpus vocabulary of 2,004 ids (``vocab.json``) and a CelebA ``.npz``.
+     ``mnist`` at full width trains 2 epochs of batch 100 on the IDX data
+     under ``data_dtype`` float32, uint8 and bfloat16: the uint8 split
+     dequantized on the card equals the f32 split to the bit, the uint8
+     run's losses equal the f32 run's (rel 1e-6), the launches of the three
+     runs are equal, and the bf16 run's losses and each run's resident
+     train bytes are printed; ``cub`` at full width trains 10 steps on the
+     corpus (its caption decoder has 2,004 outputs), then ``eval_elbo`` and
+     ``generate``; ``celeba`` trains 10 steps under float32, bfloat16 and
+     uint8 with equal launches; K2 and its VJP at bf16 targets, K4 and its
+     backward at a bf16 image and K3 and its VJP at V = 2,004 are held
+     against their plain versions at the runs' shapes; ``eval_elbo`` and
+     ``log_likelihood`` of the mounted MNIST and CelebA test splits whole
+     and in segments of 3 batches are equal to the bit (their walls
+     printed); under ``MMVAE_DATAGEN=native`` the C++ generators, built
+     into ``mmvae_torch/_build/``, give the same arrays twice and a CelebA
+     epoch of 10 steps trains on their data;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -234,11 +262,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gzip
 import json
 import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -438,15 +468,26 @@ TIMED_SHAPES = {
             "mnist_mopoe": (300, 784, 100, kernels.FOLD_T),
             "celeba_mopoe_image": (1280, 12288, 64, kernels.FOLD_T),
             "celeba_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_T),
-            "large": (8192, 784, 4096, kernels.FOLD_T)},
+            "large": (8192, 784, 4096, kernels.FOLD_T),
+            # data_dtype="bfloat16": the train steps' targets in bf16 (the
+            # dtype last), MNIST's and CelebA's.
+            "mnist_train_bf16": (200, 784, 100, kernels.FOLD_T, torch.bfloat16),
+            "celeba_train_image_bf16": (384, 12288, 64, kernels.FOLD_T, torch.bfloat16),
+            "celeba_train_attrs_bf16": (26496, 1, 1152, kernels.FOLD_T, torch.bfloat16)},
     # A fourth field: the tokens of that many examples tiled b-major to the
     # rows (the IWAE's); CUB's eval: its 2 member terms of 64 captions.
     "seq_ce": {"multimnist_eval": (200, 5, 13), "multimnist_train": (300, 5, 13),
                "multimnist_iwae": (6400, 5, 13, 100), "cub_eval": (128, 32, 23),
                "cub_iwae": (4096, 32, 23, 64), "cub_train": (192, 32, 23),
                "cub_cycle": (64, 32, 23),
-               "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
+               "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003),
+               # A mounted CUB corpus's V = 2,004: a train step's decode-all
+               # pass, the cycle's re-read, an eval batch's member terms.
+               "cub_corpus_train": (192, 32, 2004), "cub_corpus_cycle": (64, 32, 2004),
+               "cub_corpus_eval": (128, 32, 2004)},
     "conv": {"celeba_eval": (64, 64, 64, 3, torch.float32),
+             # A bf16 train batch into the f32 encoder ("bf16_x").
+             "celeba_train_bf16_x": (64, 64, 64, 3, "bf16_x"),
              "probe": (256, 64, 64, 3, torch.bfloat16),
              # A served batch of 8 (CelebA's and CUB's artifacts).
              "serve": (8, 64, 64, 3, torch.float32)},
@@ -483,10 +524,15 @@ TIMED_SHAPES = {
                 "cub_train": (192, 12288, 64, kernels.FOLD_T),
                 "mnist_mopoe": (300, 784, 100, kernels.FOLD_T),
                 "celeba_mopoe_image": (1280, 12288, 64, kernels.FOLD_T),
-                "celeba_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_T)},
+                "celeba_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_T),
+                "mnist_train_bf16": (200, 784, 100, kernels.FOLD_T, torch.bfloat16),
+                "celeba_train_image_bf16": (384, 12288, 64, kernels.FOLD_T, torch.bfloat16),
+                "celeba_train_attrs_bf16": (26496, 1, 1152, kernels.FOLD_T, torch.bfloat16)},
     "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
                    "cub_train": (192, 32, 23), "cub_cycle": (64, 32, 23),
-                   "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003)},
+                   "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003),
+                   "cub_corpus_train": (192, 32, 2004), "cub_corpus_cycle": (64, 32, 2004),
+                   "cub_corpus_eval": (128, 32, 2004)},
     "poe_kl_bwd": {"mnist_train": (3, 100, 2, 64, "eval"),
                    "multimnist_train": (3, 100, 2, 256, "text"),
                    "multimnist_cycle": (1, 100, 2, 256, "cycle"),
@@ -495,7 +541,8 @@ TIMED_SHAPES = {
                    "cub_train": (3, 64, 2, 256, "none"), "cub_cycle": (1, 64, 2, 256, "cycle"),
                    "mnist_mmvae": (2, 100, 2, 64, "mmvae"),
                    "mnist_mopoe": (3, 100, 2, 64, "mopoe")},
-    "conv_bwd": {"celeba_train": (64, 64, 64, 3)},
+    "conv_bwd": {"celeba_train": (64, 64, 64, 3),
+                 "celeba_train_bf16": (64, 64, 64, 3, torch.bfloat16)},
     # K4's input gradient: CUB's train batch (the cycle term's re-encode of
     # its 64 renders), an odd size, C = 1 and 4, and CUB's batch with a
     # transposed upstream gradient (the fifth field).
@@ -541,6 +588,14 @@ CHECKED_SHAPES = {
         (300, 784, 100, kernels.FOLD_T),
         (1280, 12288, 64, kernels.FOLD_T),
         (23040, 1, 1152, kernels.FOLD_T),
+        # bf16 targets (data_dtype="bfloat16"): MNIST's and CelebA's train
+        # rows and CUB's, a b-major fold, D not a multiple of 4, the map over
+        # examples of 18 rows, rows split over clusters at an odd D.
+        *((*shape, torch.bfloat16) for shape in (
+            (200, 784, 100, kernels.FOLD_T), (384, 12288, 64, kernels.FOLD_T),
+            (26496, 1, 1152, kernels.FOLD_T), (192, 12288, 64, kernels.FOLD_T),
+            (128, 12288, 64, kernels.FOLD_B), (37, 1002, 37, kernels.FOLD_NONE),
+            (73728, 1, 1152, kernels.FOLD_B, 18), (16, 50001, 16, kernels.FOLD_NONE))),
     ],
     # MultiMNIST eval and train (the decode-all pass, a cycle re-read);
     # ragged with all-pad rows; the synthetic CUB vocabulary (3 reserved +
@@ -548,7 +603,9 @@ CHECKED_SHAPES = {
     # once, at an odd V; V just below a warp.
     "seq_ce": [(200, 5, 13), (300, 5, 13), (100, 5, 13), (37, 7, 13), (4096, 32, 23),
                (2048, 8, 5003), (3, 40, 1001), (5, 3, 31), (6400, 5, 13, 100),
-               (4096, 32, 23, 64), (128, 32, 23), (192, 32, 23), (64, 32, 23)],
+               (4096, 32, 23, 64), (128, 32, 23), (192, 32, 23), (64, 32, 23),
+               # A mounted CUB corpus's V = 2,004.
+               (192, 32, 2004), (64, 32, 2004), (128, 32, 2004)],
     # CelebA eval; the probe's shape and type (more units than the grid
     # has warps); a ragged batch; an odd grayscale size, which pads (1, 2)
     # and takes scalar loads; widths that are not a multiple of the 32
@@ -559,7 +616,9 @@ CHECKED_SHAPES = {
              (600, 64, 64, 3, torch.float32), (4, 30, 70, 3, torch.float32),
              (3, 20, 90, 3, torch.bfloat16),
              *((6, 32, 40, c, dt) for c in (1, 2, 4) for dt in (torch.float32, torch.bfloat16)),
-             (2, 7, 1100, 4, torch.float32), (8, 64, 64, 3, torch.float32)],
+             (2, 7, 1100, 4, torch.float32), (8, 64, 64, 3, torch.float32),
+             # A bf16 image into f32 weights and outputs ("bf16_x").
+             (64, 64, 64, 3, "bf16_x"), (5, 25, 25, 1, "bf16_x"), (4, 30, 70, 3, "bf16_x")],
     # The three eval batches; CelebA's padded last batch (16 rows present,
     # 48 absent); no presence mask; log-variances past the +-11 clamp; an
     # odd L; experts one element into their storage; a CelebA train step's 24
@@ -594,6 +653,11 @@ CHECKED_SHAPES = {
         (300, 784, 100, kernels.FOLD_T),
         (1280, 12288, 64, kernels.FOLD_T),
         (23040, 1, 1152, kernels.FOLD_T),
+        # bf16 targets: MNIST's and CelebA's train rows, an odd D b-major.
+        *((*shape, torch.bfloat16) for shape in (
+            (200, 784, 100, kernels.FOLD_T), (384, 12288, 64, kernels.FOLD_T),
+            (26496, 1, 1152, kernels.FOLD_T), (36, 1002, 18, kernels.FOLD_B),
+            (192, 12288, 64, kernels.FOLD_T))),
     ],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
@@ -602,7 +666,8 @@ CHECKED_SHAPES = {
     # staged path's limit of 128 and just past it (a warp a token row).
     "seq_ce_bwd": [(300, 5, 13), (100, 5, 13), (4096, 32, 23), (2048, 8, 5003),
                    (3, 40, 1001), (5, 3, 31), (1000, 7, 13), (512, 9, 128), (512, 9, 129),
-                   (192, 32, 23), (64, 32, 23)],
+                   (192, 32, 23), (64, 32, 23), (192, 32, 2004), (64, 32, 2004),
+                   (128, 32, 2004)],
     # The fused PoE + KL's cases, log-variances at exactly +-11, and
     # MultiMNIST's train step: the text expert at exactly +11 on its last
     # 128 dims (``text``), and a cycle re-read (``cycle``: T = 1, the image
@@ -623,7 +688,11 @@ CHECKED_SHAPES = {
     # wider than a tile (550 outputs).
     "conv_bwd": [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1), (4, 30, 70, 3),
                  (2, 10, 66, 3), (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 4),
-                 (2, 7, 1100, 4)],
+                 (2, 7, 1100, 4),
+                 # A bf16 image (data_dtype="bfloat16"): the CelebA train
+                 # batch, ragged, odd and off-tile (scalar staging).
+                 (64, 64, 64, 3, torch.bfloat16), (37, 64, 64, 3, torch.bfloat16),
+                 (5, 25, 25, 1, torch.bfloat16), (4, 30, 70, 3, torch.bfloat16)],
     # K4's input gradient (f32): CUB's train batch; odd H and W (tiles that
     # end at the image's last row); a 25 x 25 grayscale image that pads (1,
     # 2); C = 1, 2 and 4; a second tile of 3 columns; rows of 18 tiles; a
@@ -800,9 +869,17 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def data_dtype(shape) -> torch.dtype:
+    """The type of the data a shape of ``CHECKED_SHAPES`` or
+    ``TIMED_SHAPES`` feeds a kernel: its last field where that is a dtype
+    (bf16 targets of K2 and its VJP, a bf16 image of K4's backward), else
+    float32."""
+    return shape[-1] if isinstance(shape[-1], torch.dtype) else torch.float32
+
+
 def describe(op: str, shape) -> dict:
     if op == "conv_bwd":
-        return {"shape": list(shape)}
+        return {"shape": list(shape[:4]), "dtype": str(data_dtype(shape)).removeprefix("torch.")}
     if op == "conv_dx":
         return {"shape": list(shape[:4]), "g": shape[4] if len(shape) > 4 else "contiguous"}
     if op == "conv":
@@ -812,8 +889,11 @@ def describe(op: str, shape) -> dict:
     if op == "seq_ce":
         return {"shape": list(shape[:3]), "tiled_b_major_from": shape[3] if len(shape) > 3 else None}
     out = {"shape": list(shape[:3]), "fold": shape[3] if len(shape) > 3 else None}
-    if len(shape) > 4:
-        out["inner"] = shape[4]
+    inner = [f for f in shape[4:] if isinstance(f, int)]
+    if inner:
+        out["inner"] = inner[0]
+    if op in ("bce", "bce_bwd"):
+        out["dtype"] = str(data_dtype(shape)).removeprefix("torch.")
     return out
 
 
@@ -826,14 +906,18 @@ def inputs(op: str, shape, gen: torch.Generator):
     if op == "bce":
         n, d, n_x, fold = shape[:4]
         logits = 3.0 * torch.randn(n, d, generator=gen, device=dev)
-        x = torch.rand(n_x, d, generator=gen, device=dev)
-        return (logits, x, fold, *shape[4:])  # and the rows an example holds
+        x = torch.rand(n_x, d, generator=gen, device=dev).to(data_dtype(shape))
+        # and the rows an example holds
+        return (logits, x, fold, *(f for f in shape[4:] if isinstance(f, int)))
     if op == "conv":
-        # As the probe draws them: image in [0, 1], weights N(0, 0.01).
+        # As the probe draws them: image in [0, 1], weights N(0, 0.01);
+        # "bf16_x": a bf16 image into f32 weights.
         b, h, w, c, dtype = shape
         x = torch.rand(b, h, w, c, generator=gen, device=dev)
         weight = 0.1 * torch.randn(kernels.CONV_OUT, c, 4, 4, generator=gen, device=dev)
         bias = 0.1 * torch.randn(kernels.CONV_OUT, generator=gen, device=dev)
+        if dtype == "bf16_x":
+            return x.bfloat16(), weight, bias
         return tuple(t.to(dtype) for t in (x, weight, bias))
     if op == "poe_kl":
         return poe_inputs(shape, gen)
@@ -841,6 +925,7 @@ def inputs(op: str, shape, gen: torch.Generator):
         # K4's input gradient may take its upstream gradient transposed (a
         # view whose rows are its columns' storage).
         x, weight, bias = inputs("conv", (*shape[:4], torch.float32), gen)
+        x = x.to(data_dtype(shape))
         b, h, w = shape[:3]
         g = torch.randn(b, kernels.CONV_OUT, -(-h // 2), -(-w // 2), generator=gen, device=dev)
         if shape[4:] == ("transposed",):
@@ -968,7 +1053,7 @@ def library_fn(op: str, args):
     targets, an NCHW copy of the image) is made here, before the timing."""
     if op == "bce":
         logits, x, fold, *inner = args
-        tiled = kernels.tile_rows(x, logits.shape[0], fold, *inner)
+        tiled = kernels.tile_rows(x, logits.shape[0], fold, *inner).float()  # bf16 upcast
         return lambda: F.binary_cross_entropy_with_logits(
             logits, tiled, reduction="none").sum(-1)
     if op == "seq_ce":
@@ -980,7 +1065,7 @@ def library_fn(op: str, args):
     if op == "conv":
         # padding=1 is XLA's SAME only at even sizes, as timed here.
         x, weight, bias = args
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2).to(weight.dtype).contiguous()  # a bf16 image upcast
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
     if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx"):
         return autograd_backward(op, args)
@@ -996,14 +1081,14 @@ def autograd_backward(op: str, args):
     if op == "bce_bwd":
         logits, x, g, fold = args
         leaves = (logits.detach().requires_grad_(True),)
-        tiled = kernels.tile_rows(x, logits.shape[0], fold)
+        tiled = kernels.tile_rows(x, logits.shape[0], fold).float()  # bf16 upcast
         outs = (F.binary_cross_entropy_with_logits(leaves[0], tiled, reduction="none").sum(-1),)
         grads = (g,)
     elif op == "conv_bwd":
         # cuDNN's wgrad and the silu's backward, for the weight and bias
         # alone (padding=1 is XLA's SAME at the even sizes timed here).
         x, weight, bias, g = args
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2).float().contiguous()  # a bf16 image upcast
         leaves = (weight.detach().requires_grad_(True), bias.detach().requires_grad_(True))
         outs = (F.silu(F.conv2d(x_nchw, *leaves, stride=2, padding=1)),)
         grads = (g,)
@@ -1051,8 +1136,9 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     if op == "poe_kl":
         return 1e-5, 1e-5 * shape[3]
     if op == "conv":
+        # A bf16 image into f32 weights is exact in f32: f32's tolerance.
         c, dtype = shape[3], shape[4]
-        return (1e-5, 1e-5 * 16 * c) if dtype == torch.float32 else (0.0, 2e-2)
+        return (1e-5, 1e-5 * 16 * c) if dtype in (torch.float32, "bf16_x") else (0.0, 2e-2)
     return 1e-5, 1e-5 * (shape[1] * math.log(shape[2]) if op == "seq_ce" else shape[1])
 
 
@@ -1088,18 +1174,22 @@ def bound(op: str, args) -> tuple[float, str]:
         x, weight, bias, g = args
         c = x.shape[3]
         out = x.numel() if op == "conv_dx" else weight.numel() + bias.numel()
-        n_bytes = 4 * (x.numel() + g.numel() + weight.numel() + bias.numel() + out)
+        n_bytes = (x.element_size() * x.numel()
+                   + 4 * (g.numel() + weight.numel() + bias.numel() + out))
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = (3 * 2 * 2 * 16 * c * g.numel() / PEAK_TF32_OPS_PER_S
                  + CONV_BWD_OPS_PER_OUT * g.numel() / PEAK_OPS_PER_S[torch.float32])
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv":
+        # The output in the weights' type; the FMAs at the weights' rate (f32
+        # on the CUDA cores for a bf16 image into f32 weights).
         x, weight, bias = args
         b, h, w, c = x.shape
         n_out = b * kernels.CONV_OUT * -(-h // 2) * -(-w // 2)
-        n_bytes = x.element_size() * (x.numel() + weight.numel() + bias.numel() + n_out)
+        n_bytes = (x.element_size() * x.numel()
+                   + weight.element_size() * (weight.numel() + bias.numel() + n_out))
         t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = n_out * (2 * 16 * c + CONV_OPS_PER_OUT) / PEAK_OPS_PER_S[x.dtype]
+        t_ops = n_out * (2 * 16 * c + CONV_OPS_PER_OUT) / PEAK_OPS_PER_S[weight.dtype]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op in ("seq_ce", "seq_ce_bwd"):
         # The gradient also reads g and writes every position's gradient,
@@ -1111,15 +1201,17 @@ def bound(op: str, args) -> tuple[float, str]:
         if op == "seq_ce_bwd":
             n_bytes += 4 * logits.numel()
     elif op in ("kl_bwd", "bce_bwd"):
-        # The rows and their partner (lv or the untiled targets) and the
-        # row gradients read, one (KL: two) (N, D) gradients written.
+        # The rows and their partner (lv or the untiled targets, f32 or
+        # bf16) and the row gradients read, one (KL: two) (N, D) gradients
+        # written.
         n, d = args[0].shape
         n_elems = n * d
-        n_bytes = 4 * (n * d + args[1].numel() + n + (2 if op == "kl_bwd" else 1) * n * d)
+        n_bytes = (4 * (n * d + n + (2 if op == "kl_bwd" else 1) * n * d)
+                   + args[1].element_size() * args[1].numel())
     else:
         n, d = args[0].shape
         n_elems = n * d
-        n_bytes = 4 * (n * d + args[1].numel() + n)
+        n_bytes = 4 * (n * d + n) + args[1].element_size() * args[1].numel()
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = OPS_PER_ELEM[op] * n_elems / PEAK_OPS_PER_S[torch.float32]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -3029,9 +3121,57 @@ def serve_dynamic(cfg, keys, tmp: str, export_s: float) -> None:
         first[n] = {k: v[:1] for k, v in out.items()}
     diff = {f"batch{n}": {k: (first[n][k].double() - first[1][k].double()).abs().max().item()
                           for k in first[1]} for n in (8, 64)}
+    with deterministic():
+        coalescing = coalesced_with_strangers(call, meta, cfg, keys)
     emit({"phase": "serving_dynamic", "config": cfg.name, "export_s": export_s,
           "artifact_bytes": os.path.getsize(out_path), "call_ms": walls,
-          "row0_max_abs_diff_vs_batch1": diff})
+          "row0_max_abs_diff_vs_batch1": diff, "coalescing_fixed_batch": coalescing})
+
+
+def coalesced_with_strangers(call, meta: dict, cfg, keys, strangers=(0, 7, 63)) -> dict:
+    """One request of one row through the host's ``Batcher`` (on the card a
+    dynamic artifact's calls all run at ``max_batch``, 64), served alone
+    and then coalesced into one call with each count of ``strangers``' rows
+    (one request of them, submitted beside it), at temperature 1. Gated:
+    its outputs are the same bits every time. Returns the calls and rows
+    each took."""
+    from mmvae_torch.serve import Batcher
+
+    shapes = {k: (tuple(v[0]), np.dtype(v[1])) for k, v in meta["batch_shapes"].items()}
+    target = serve_inputs(cfg, meta, keys, 1, seed=9)[:2] + (np.array([5]),)
+    replies, stats = [], []
+    for n in strangers:
+        requests = [target]
+        if n:
+            batch, presence, _ = serve_inputs(cfg, meta, keys, n, seed=20)
+            requests.append((batch, presence, 1000 + np.arange(n)))
+        batcher = Batcher(call, shapes, len(meta["modalities"]), static_batch=None,
+                          max_batch=64, max_wait_ms=500)
+        results = [None] * len(requests)
+
+        def submit(i, requests=requests, results=results, batcher=batcher):
+            batch, presence, seeds = requests[i]
+            results[i] = batcher.submit(batch, presence, seeds, 1.0, len(seeds))
+
+        try:
+            threads = [threading.Thread(target=submit, args=(i,)) for i in range(len(requests))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("a coalesced request did not return")
+        finally:
+            batcher.close(timeout=60)
+        replies.append(results[0])
+        stats.append({"strangers": n, "device_calls": batcher.stats["device_calls"],
+                      "padded_rows": batcher.stats["padded_rows"]})
+    equal = all(np.array_equal(r[k], replies[0][k]) for r in replies[1:] for k in replies[0])
+    if not equal:
+        raise AssertionError(f"{cfg.name}: a row coalesced with strangers differs from it alone")
+    if any(s["device_calls"] != 1 for s in stats):
+        raise AssertionError(f"{cfg.name}: the strangers were not coalesced into one call: {stats}")
+    return {"bits_equal": equal, "calls": stats}
 
 
 def phase_serving() -> dict[str, dict[str, int]]:
@@ -3065,6 +3205,287 @@ def phase_serving() -> dict[str, dict[str, int]]:
             serve_drawn(cfg, keys, tmp, seconds[f"{served_path(cfg)}_sample_z"])
             if objective == "mvae" and name in DYNAMIC_SERVED:
                 serve_dynamic(cfg, keys, tmp, seconds[f"{name}_dynamic"])
+    return out
+
+
+# --------------------------------------------------------------- data ----
+
+MNIST_IDX_ROWS = {"train": 60000, "test": 10000}  # the real files' rows
+DATA_STEPS = 10  # train steps of the CUB, CelebA and native runs
+DATA_BATCH = 64
+CUB_CORPUS_V = 2004  # 3 reserved ids, <unk> and 2,000 words
+DATA_SEGMENTS = 3  # batches a segment of the segmented evals
+
+
+def _idx(arr: np.ndarray) -> bytes:
+    """An IDX file of uint8 ``arr``."""
+    return (struct.pack(">HBB", 0, 0x08, arr.ndim) + struct.pack(f">{arr.ndim}I", *arr.shape)
+            + arr.astype(np.uint8).tobytes())
+
+
+def write_data_fixtures(root: Path) -> dict[str, int]:
+    """The data phase's mounted data under ``root`` (``$MMVAE_DATA_DIR``),
+    from the port's generators with fixed seeds: ``mnist/`` as the IDX
+    files of the distribution (train gzipped, test plain) at its 60,000
+    and 10,000 rows of uint8; ``cub/train.npz`` and ``test.npz`` with
+    captions over a corpus vocabulary of 2,004 ids (``cub/vocab.json``);
+    ``celeba/train.npz`` and ``test.npz``. Returns the rows written."""
+    from mmvae_torch.data import make_celeba, make_cub, make_mnist, quantize_uint8
+
+    rows = {}
+    (root / "mnist").mkdir(parents=True)
+    for split, n in MNIST_IDX_ROWS.items():
+        data = make_mnist(n, seed={"train": 11, "test": 12}[split])
+        stems = (("train-images-idx3-ubyte.gz", "train-labels-idx1-ubyte.gz") if split == "train"
+                 else ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"))
+        for stem, arr in zip(stems, (quantize_uint8(data["image"]), data["label"])):
+            blob = _idx(arr)
+            if stem.endswith(".gz"):
+                with gzip.open(root / "mnist" / stem, "wb", compresslevel=1) as f:
+                    f.write(blob)
+            else:
+                (root / "mnist" / stem).write_bytes(blob)
+        rows[f"mnist_{split}"] = n
+    rng = np.random.default_rng(13)
+    (root / "cub").mkdir()
+    itos = ["<pad>", "<start>", "<stop>", "<unk>"] + [f"word{i}" for i in range(CUB_CORPUS_V - 4)]
+    (root / "cub" / "vocab.json").write_text(json.dumps({"itos": itos}))
+    (root / "celeba").mkdir()
+    for split, n, seed in (("train", DATA_STEPS * DATA_BATCH, 14), ("test", 5 * DATA_BATCH, 15)):
+        data = make_cub(n, seed=seed)
+        tokens = rng.integers(3, CUB_CORPUS_V, (n, 32)).astype(np.int32)
+        lengths = rng.integers(4, 31, n)
+        tokens[np.arange(32)[None] == lengths[:, None]] = STOP
+        tokens[np.arange(32)[None] > lengths[:, None]] = PAD
+        np.savez(root / "cub" / f"{split}.npz", image=data["image"], text=tokens)
+        np.savez(root / "celeba" / f"{split}.npz", **make_celeba(n, seed=seed))
+        rows[f"cub_{split}"] = rows[f"celeba_{split}"] = n
+    return rows
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set (None: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def counted_train(cfg) -> tuple[api.TrainResult, dict[str, int], float]:
+    """``api.train(cfg)`` on the card with the launch counts set to 0 just
+    before and read just after; its wall."""
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = api.train(cfg, verbose=False)
+    torch.cuda.synchronize()
+    return result, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def resident_bytes(cfg) -> int:
+    """Bytes of the train split the card holds under ``cfg.data_dtype``
+    (what ``api.train`` stacks each epoch from)."""
+    from mmvae_torch.data import dataset_astype
+
+    ds = dataset_astype(load_dataset(cfg.dataset, "train", n=cfg.train_size), cfg.data_dtype)
+    return sum(torch.as_tensor(v).nbytes for v in ds.arrays.values())
+
+
+def check_at(op: str, shape) -> float:
+    """``op``'s kernel against its plain version at ``shape`` on the card,
+    under ``phase_check``'s tolerance; returns the largest error."""
+    args = inputs(op, shape, torch.Generator(device="cuda").manual_seed(7))
+    got, want = KERNEL_FN[op](*args), PLAIN_FN[op](*args)
+    torch.cuda.synchronize()
+    if op in BWD_OPS:
+        return check_grads(op, got, want, shape)
+    rtol, atol = tolerance(op, shape)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def data_mnist_idx() -> dict[str, dict[str, int]]:
+    """MNIST from the mounted IDX files, ``api.train`` for 2 epochs at full
+    width (batch 100, the 60,000 train rows, the 10,000 test rows) under
+    ``data_dtype`` float32, uint8 and bfloat16. Gated: the uint8 split
+    dequantized on the card equals the float32 split to the bit; the uint8
+    run's train losses and test ELBOs equal the float32 run's at rel 1e-6;
+    every run's launches equal the float32 run's; K2 and its VJP at MNIST's
+    bf16 train targets equal their plain versions."""
+    from mmvae_torch.data import dataset_astype
+    from mmvae_torch.train.step import _dequant_data
+
+    f32 = load_dataset("mnist", "train")
+    if f32.size != MNIST_IDX_ROWS["train"]:
+        raise AssertionError(f"the mounted IDX gave {f32.size} rows")
+    u8 = dataset_astype(f32, "uint8").arrays["image"]
+    on_card = _dequant_data({"image": torch.as_tensor(u8, device="cuda")})["image"]
+    if not torch.equal(on_card, torch.as_tensor(f32.arrays["image"], device="cuda")):
+        raise AssertionError("the uint8 split dequantized on the card differs from the f32 split")
+    cfg = configs.get_config("mnist").replace(epochs=2, train_size=MNIST_IDX_ROWS["train"],
+                                              test_size=MNIST_IDX_ROWS["test"])
+    runs, launches = {}, {}
+    for dtype in ("float32", "uint8", "bfloat16"):
+        result, launches[dtype], wall = counted_train(cfg.replace(data_dtype=dtype))
+        runs[dtype] = result.history
+        emit({"phase": "data", "part": "mnist_idx", "data_dtype": dtype, "history": result.history,
+              "train_wall_s": wall, "resident_train_bytes": resident_bytes(
+                  cfg.replace(data_dtype=dtype)), "launches": launches[dtype]})
+    for key in ("train_loss", "test_elbo"):
+        want = [r[key] for r in runs["float32"]]
+        got = [r[key] for r in runs["uint8"]]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        if not rel <= 1e-6:
+            raise AssertionError(f"mnist: uint8 {key} {got} differ from f32 {want} (rel {rel})")
+    if not launches["uint8"] == launches["bfloat16"] == launches["float32"]:
+        raise AssertionError(f"mnist: launches differ across data dtypes: {launches}")
+    errs = {op: check_at(op, (200, 784, 100, kernels.FOLD_T, torch.bfloat16))
+            for op in ("bce", "bce_bwd")}
+    emit({"phase": "data", "part": "mnist_idx", "uint8_equals_f32_batch": True,
+          "bf16_vs_f32_train_loss_rel": [
+              abs(b["train_loss"] - a["train_loss"]) / abs(a["train_loss"])
+              for a, b in zip(runs["float32"], runs["bfloat16"])],
+          "bf16_targets_max_abs_err": errs})
+    return {f"data_mnist_{d}": n for d, n in launches.items()}
+
+
+def data_cub_corpus() -> dict[str, dict[str, int]]:
+    """CUB from a mounted ``.npz`` with a corpus vocabulary of 2,004 ids:
+    ``api.train`` at full width (n_latents 256, batch 64) for DATA_STEPS
+    steps, then ``eval_elbo`` and ``generate`` from captions (temperature
+    0) from its state. Gated: the caption decoder has 2,004 outputs, the
+    generated tokens lie in the vocabulary, K3 and its VJP at (192, 32,
+    2004), (64, 32, 2004) and (128, 32, 2004) equal their plain versions."""
+    v = configs.cub_vocab_size()
+    cfg = configs.get_config("cub").replace(epochs=1, train_size=DATA_STEPS * DATA_BATCH,
+                                            test_size=5 * DATA_BATCH)
+    result, launches, wall = counted_train(cfg)
+    out_features = result.model.text_dec.out_proj.out_features
+    if not v == out_features == CUB_CORPUS_V:
+        raise AssertionError(f"cub: vocabulary {v}, text decoder outputs {out_features}")
+    t0 = time.perf_counter()
+    elbo = api.eval_elbo(cfg, model=result.model)
+    eval_s = time.perf_counter() - t0
+    captions = load_dataset("cub", "test", n=4).arrays["text"]
+    tokens = api.generate(cfg, {"text": captions}, model=result.model, temperature=0.0)["text"]
+    check_text(tokens, 4, 32, v)
+    errs = {f"{op}_{n}": check_at(op, (n, 32, CUB_CORPUS_V))
+            for op in ("seq_ce", "seq_ce_bwd") for n in (192, 64, 128)}
+    emit({"phase": "data", "part": "cub_corpus", "vocab": v, "history": result.history,
+          "train_wall_s": wall, "eval_elbo": elbo, "eval_s": eval_s,
+          "generated": tokens[:2].tolist(), "launches": launches, "max_abs_err": errs})
+    return {"data_cub_corpus": launches}
+
+
+def data_celeba_npz() -> dict[str, dict[str, int]]:
+    """CelebA from a mounted ``.npz``, DATA_STEPS train steps at full width
+    under ``data_dtype`` float32, bfloat16 and uint8. Gated: every run's
+    launches equal the float32 run's; K4's backward at a bf16 (64, 64, 64,
+    3) image, K4 from it into f32, and K2 at the bf16 image and attribute
+    targets of a train step equal their plain versions."""
+    cfg = configs.get_config("celeba").replace(epochs=1, train_size=DATA_STEPS * DATA_BATCH,
+                                               test_size=5 * DATA_BATCH)
+    launches = {}
+    for dtype in ("float32", "bfloat16", "uint8"):
+        result, launches[dtype], wall = counted_train(cfg.replace(data_dtype=dtype))
+        emit({"phase": "data", "part": "celeba_npz", "data_dtype": dtype,
+              "history": result.history, "train_wall_s": wall, "launches": launches[dtype],
+              "resident_train_bytes": resident_bytes(cfg.replace(data_dtype=dtype))})
+    if not launches["bfloat16"] == launches["uint8"] == launches["float32"]:
+        raise AssertionError(f"celeba: launches differ across data dtypes: {launches}")
+    errs = {"conv_bwd": check_at("conv_bwd", (64, 64, 64, 3, torch.bfloat16)),
+            "conv": check_at("conv", (64, 64, 64, 3, "bf16_x")),
+            "bce_image": check_at("bce", (384, 12288, 64, kernels.FOLD_T, torch.bfloat16)),
+            "bce_attrs": check_at("bce", (26496, 1, 1152, kernels.FOLD_T, torch.bfloat16))}
+    emit({"phase": "data", "part": "celeba_npz", "bf16_max_abs_err": errs})
+    return {f"data_celeba_{d}": n for d, n in launches.items()}
+
+
+def data_native() -> dict[str, dict[str, int]]:
+    """``MMVAE_DATAGEN=native``: the C++ generators built into
+    ``mmvae_torch/_build/``; gated to give the same arrays twice for a
+    seed; a CelebA train epoch of DATA_STEPS steps on their data."""
+    from mmvae_torch.data import native
+
+    t0 = time.perf_counter()
+    library = native.build()
+    build_s = time.perf_counter() - t0
+    for make in (native.make_celeba_native, native.make_multimnist_native):
+        one, two = make(256, seed=3), make(256, seed=3)
+        if not all(np.array_equal(one[k], two[k]) for k in one):
+            raise AssertionError(f"{make.__name__} differs between two calls of one seed")
+    with environ(MMVAE_DATAGEN="native", MMVAE_DATA_DIR=None):
+        t0 = time.perf_counter()
+        data = load_dataset("celeba", "train", n=DATA_STEPS * DATA_BATCH)
+        load_s = time.perf_counter() - t0
+        want = native.make_celeba_native(DATA_STEPS * DATA_BATCH, seed=0)
+        if not np.array_equal(data.arrays["image"], want["image"]):
+            raise AssertionError("load_dataset did not take the native CelebA generator")
+        cfg = configs.get_config("celeba").replace(
+            epochs=1, train_size=DATA_STEPS * DATA_BATCH, test_size=2 * DATA_BATCH)
+        result, launches, wall = counted_train(cfg)
+    emit({"phase": "data", "part": "native", "library": str(library.relative_to(ROOT)),
+          "build_s": build_s, "same_twice": True, "celeba_load_s": load_s,
+          "history": result.history, "train_wall_s": wall, "launches": launches})
+    return {"data_native_celeba": launches}
+
+
+def data_segmented_eval() -> None:
+    """``eval_elbo`` and ``log_likelihood`` (k = 64) of the mounted MNIST
+    (10,000 rows, 100 batches) and CelebA (320, 5 batches) test splits,
+    whole (``segment_steps`` 0) and in segments of DATA_SEGMENTS batches
+    (the last padded): gated equal to the bit; the walls of both."""
+    for name in ("mnist", "celeba"):
+        cfg = configs.get_config(name)
+        model = configs.build_model(cfg, seed=0)
+        dataset = load_dataset(name, "test")
+        row = {"phase": "data", "part": "segmented_eval", "config": name,
+               "examples": dataset.size}
+        for fn in ("eval_elbo", "log_likelihood"):
+            values = {}
+            for segs in (0, DATA_SEGMENTS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                values[segs] = getattr(api, fn)(cfg, model=model, dataset=dataset,
+                                                segment_steps=segs)
+                row[f"{fn}_wall_s_segments_{segs}"] = time.perf_counter() - t0
+            if values[0] != values[DATA_SEGMENTS]:
+                raise AssertionError(f"{name}: {fn} whole {values[0]} and segmented "
+                                     f"{values[DATA_SEGMENTS]} differ")
+            row[fn] = values[0]
+        emit(row)
+
+
+def phase_data() -> dict[str, dict[str, int]]:
+    """The data layer on the card (``mmvae_torch/data``): the fixtures of
+    ``write_data_fixtures`` in a temporary ``$MMVAE_DATA_DIR``, then
+    ``data_mnist_idx``, ``data_cub_corpus``, ``data_celeba_npz``,
+    ``data_segmented_eval`` and ``data_native``. Returns each run's
+    launches."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rows = write_data_fixtures(Path(tmp))
+        emit({"phase": "data", "part": "fixtures", "rows": rows,
+              "seconds": time.perf_counter() - t0})
+        with environ(MMVAE_DATA_DIR=tmp, MMVAE_DATAGEN=None):
+            out.update(data_mnist_idx())
+            out.update(data_cub_corpus())
+            out.update(data_celeba_npz())
+            data_segmented_eval()
+    out.update(data_native())
     return out
 
 
@@ -3385,6 +3806,7 @@ def main() -> None:
     timed("workdir", phase_workdir)
     launches.update(timed("train_extras", phase_train_extras))
     launches.update(timed("serving", phase_serving))
+    launches.update(timed("data", phase_data))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -7,7 +7,8 @@
     (``ckpt_async``) where the config asks for them;
   * :func:`eval_elbo` -- mean multi-term ELBO over a split (``api.py:1013``);
   * :func:`log_likelihood` -- mean IWAE estimate of log p(x) over a split
-    (``api.py:1212``);
+    (``api.py:1212``), both with the split on the device whole or in
+    segments (``segment_steps``);
   * :func:`generate` -- cross-modal generation from any observed subset
     (``api.py:1504``);
   * :func:`sample` -- unconditional samples (``api.py:1474``).
@@ -34,7 +35,7 @@ import torch
 
 from mmvae_torch.configs import ExperimentConfig, build_model, get_config
 from mmvae_torch.core import fuse_observed_z
-from mmvae_torch.data import Dataset, load_dataset, stacked_epoch_padded
+from mmvae_torch.data import Dataset, dataset_astype, load_dataset, stacked_epoch_padded
 from mmvae_torch.device import resolve_device
 from mmvae_torch.train import (
     TrainState,
@@ -61,6 +62,7 @@ __all__ = [
     "generate",
     "sample",
     "load_run_config",
+    "resolve_eval_segments",
 ]
 
 
@@ -89,7 +91,16 @@ def load_run_config(workdir: str) -> ExperimentConfig | None:
     with open(path) as f:
         d = json.load(f)
     d["model_kwargs"] = _tuplify(d.get("model_kwargs", {}))
+    d["data_kwargs"] = _tuplify(d.get("data_kwargs", {}))
     return ExperimentConfig(**d)
+
+
+def resolve_eval_segments(config: ExperimentConfig) -> int:
+    """The eval split's segments of the config: ``eval_segment_steps``, its
+    -1 (auto) resolving to 0, the whole split on the device. (The JAX
+    package resolves -1 to the grain stream's segments on its grain
+    backend, which the port does not have; ``mmvae_tpu/api.py:84-98``.)"""
+    return max(config.eval_segment_steps, 0)
 
 
 def _resolve_with_workdir(config, workdir: str | None) -> ExperimentConfig:
@@ -140,6 +151,7 @@ def eval_elbo(
     split: str = "test",
     batch_size: int | None = None,
     device: torch.device | str | None = None,
+    segment_steps: int = 0,
 ) -> float:
     """Mean multi-term ELBO over a split, beta = 1 and z = posterior mean.
 
@@ -148,47 +160,84 @@ def eval_elbo(
     weights where tracked), whose saved config is used when ``config``
     names it. ``dataset`` defaults to the config's synthetic ``split``
     ("test" or "train") of ``config.test_size`` examples
-    (``mmvae_tpu/api.py:1020``).
+    (``mmvae_tpu/api.py:1020``; mounted data where there is some, the
+    config's ``data_kwargs`` to the generators).
     The split is padded to whole batches (wrapping to its front); the
     validity mask is the presence mask, so pad rows contribute 0 and the
-    result is ``sum(batch losses) * bs / size``.
+    result is ``sum(batch losses) * bs / size``, the batch losses summed in
+    float64 in the order of the batches.
+    ``segment_steps = K > 0`` keeps the padded split on the host and copies
+    it to the device K batches at a time, each segment one call of the
+    runner (the last padded with batches of no example, so one capture
+    serves them all): O(K) batches of device memory, the same result to
+    the bit (``mmvae_tpu/api.py:1114-1145``); 0 puts the whole split on
+    the device.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
-        dataset = load_dataset(config.dataset, split, n=config.test_size)
+        dataset = load_dataset(config.dataset, split, n=config.test_size,
+                               gen_kwargs=config.data_kwargs)
     batch_size = min(batch_size or config.batch_size, dataset.size)
-    stacked = _padded_split(dataset, batch_size, model.n_modalities, device)
+    stacked = _padded_split(dataset, batch_size, model.n_modalities,
+                            device if segment_steps <= 0 else None)
     runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
-    return _split_elbo(runner, stacked, dataset.size)
+    return _split_elbo(runner, stacked, dataset.size, segment_steps, device)
 
 
 def _padded_split(
-    dataset: Dataset, batch_size: int, n_modalities: int, device: torch.device
+    dataset: Dataset, batch_size: int, n_modalities: int, device: torch.device | None
 ) -> dict[str, torch.Tensor]:
-    """The split stacked into whole batches on ``device``, the last padded,
-    with the validity mask as an all-modalities ``presence``."""
+    """The split stacked into whole batches on ``device`` (on the host where
+    it is None), the last padded, with the validity mask as an
+    all-modalities ``presence``."""
     stacked = _valid_split(dataset, batch_size, device)
     stacked["presence"] = stacked.pop("valid")[..., None].expand(-1, -1, n_modalities)
     return stacked
 
 
 def _valid_split(
-    dataset: Dataset, batch_size: int, device: torch.device
+    dataset: Dataset, batch_size: int, device: torch.device | None
 ) -> dict[str, torch.Tensor]:
-    """The split stacked into whole batches on ``device``, the last padded
-    (wrapping to its front), with its ``(n_batches, bs)`` ``valid`` mask."""
+    """The split stacked into whole batches on ``device`` (on the host where
+    it is None), the last padded (wrapping to its front), with its
+    ``(n_batches, bs)`` ``valid`` mask."""
     batches, valid = stacked_epoch_padded(dataset, batch_size)
     stacked = {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
     stacked["valid"] = torch.as_tensor(valid, device=device)
     return stacked
 
 
-def _split_elbo(runner: Callable, stacked: dict[str, torch.Tensor], size: int) -> float:
+def _segment(v: torch.Tensor, start: int, rows: int, device: torch.device) -> torch.Tensor:
+    """Batches ``start .. start + rows`` of a stacked split on ``device``,
+    padded with zero batches past its end."""
+    part = v[start:start + rows]
+    if part.shape[0] < rows:
+        part = torch.cat([part, part.new_zeros((rows - part.shape[0], *part.shape[1:]))])
+    return part.to(device)
+
+
+def _split_values(runner: Callable, key: str, stacked: dict[str, torch.Tensor],
+                  segment_steps: int, device: torch.device) -> torch.Tensor:
+    """``runner(stacked)[key]``, one row a batch, in float64 on the host: the
+    stacked split in one call (``segment_steps <= 0``), or in calls of
+    ``segment_steps`` batches, each segment copied to ``device`` before its
+    call and the last padded with zero batches (all pad: presence and
+    validity 0), whose rows are dropped."""
+    n = next(iter(stacked.values())).shape[0]
+    seg = n if segment_steps <= 0 else min(segment_steps, n)
+    parts = [runner({k: _segment(v, s, seg, device) for k, v in stacked.items()})[key]
+             for s in range(0, n, seg)]
+    return torch.cat([p.double().cpu() for p in parts])[:n]
+
+
+def _split_elbo(runner: Callable, stacked: dict[str, torch.Tensor], size: int,
+                segment_steps: int = 0, device: torch.device | None = None) -> float:
     """Mean ELBO of a :func:`_padded_split` of ``size`` examples through an
-    eval ``runner`` (``make_eval_runner``): the pad rows contribute 0, so
-    it is ``sum(batch losses) * bs / size``."""
-    metrics = runner(stacked)
-    return float(metrics["loss"].sum()) * stacked["presence"].shape[1] / size
+    eval ``runner`` (``make_eval_runner``), whole or in segments
+    (:func:`_split_values`): the pad rows contribute 0, so it is ``sum(batch
+    losses) * bs / size``, summed in float64."""
+    losses = _split_values(runner, "loss", stacked, segment_steps, device)
+    return float(losses.sum()) * stacked["presence"].shape[1] / size
 
 
 def log_likelihood(
@@ -205,6 +254,7 @@ def log_likelihood(
     seed: int = 0,
     device: torch.device | str | None = None,
     eps: torch.Tensor | None = None,
+    segment_steps: int = 0,
 ) -> float:
     """Mean IWAE estimate of the joint marginal log p(x) over a split.
 
@@ -220,23 +270,30 @@ def log_likelihood(
     The noise is drawn batch after batch from a generator on ``device``
     seeded with ``seed``; ``eps`` ``(n_batches, bs, k, L)`` passes it in
     (the JAX ``log_likelihood`` draws batch ``i``'s from
-    ``fold_in(key(seed), i)``, which torch cannot reproduce). The JAX
-    ``mesh`` and ``segment_steps`` are not ported.
+    ``fold_in(key(seed), i)``, which torch cannot reproduce).
+    ``segment_steps`` is :func:`eval_elbo`'s: the split (and ``eps``) on the
+    host, copied to the device a segment at a time, the same result to the
+    bit (the batches draw the generator's noise in the same order; the
+    pad batches of the last segment draw after them). The per-example
+    values are summed in float64. The JAX ``mesh`` is not ported.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
-        dataset = load_dataset(config.dataset, split, n=config.test_size)
+        dataset = load_dataset(config.dataset, split, n=config.test_size,
+                               gen_kwargs=config.data_kwargs)
     batch_size = min(batch_size or config.batch_size, dataset.size)
-    stacked = _valid_split(dataset, batch_size, device)
+    home = device if segment_steps <= 0 else None
+    stacked = _valid_split(dataset, batch_size, home)
     if eps is not None:
-        eps = torch.as_tensor(eps, dtype=torch.float32, device=device)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=home)
         want = (*stacked["valid"].shape, k, model.n_latents)
         if tuple(eps.shape) != want:
             raise ValueError(f"eps must be {want}, got {tuple(eps.shape)}")
         stacked["eps"] = eps
     runner = make_iwae_runner(
         model, k, generator=torch.Generator(device=device).manual_seed(seed))
-    return float(runner(stacked)["log_likelihood"].double().sum()) / dataset.size
+    values = _split_values(runner, "log_likelihood", stacked, segment_steps, device)
+    return float(values.sum()) / dataset.size
 
 
 class TrainResult(NamedTuple):
@@ -336,7 +393,14 @@ def train(
     ``reshuffle_every=1`` and ``shuffle_granularity=1``, give), in whole
     batches; beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
     the posterior noise and any presence dropout come from a generator on
-    ``device`` seeded with ``seed``. ``accum_steps > 1`` averages the
+    ``device`` seeded with ``seed``. The train split is loaded with the
+    config's ``data_kwargs`` (mounted data where there is some) and its
+    float modalities stored once as ``data_dtype`` ("bfloat16" or "uint8":
+    half or a quarter of the bytes the card holds and each step reads; the
+    step dequantizes uint8 in its graph, and bf16 targets go to the BCE
+    kernel as they are); the test split stays float32 and is evaluated
+    whole on the device or in segments of ``resolve_eval_segments(config)``
+    batches (:func:`eval_elbo`). ``accum_steps > 1`` averages the
     gradients of that many steps before each update (an update may span
     two epochs); ``lr_schedule="cosine"`` warms the rate up over
     ``warmup_epochs`` and decays it over the run, in updates of the loaded
@@ -381,8 +445,14 @@ def train(
     device = resolve_device(device)
     if workdir is not None:
         _save_run_config(workdir, config)
-    train_ds = load_dataset(config.dataset, "train", n=config.train_size)
-    test_ds = load_dataset(config.dataset, "test", n=config.test_size)
+    train_ds = load_dataset(config.dataset, "train", n=config.train_size,
+                            gen_kwargs=config.data_kwargs)
+    # The float modalities of the train split stored once as data_dtype (the
+    # test split stays f32, as the model does).
+    train_ds = dataset_astype(train_ds, config.data_dtype)
+    test_ds = load_dataset(config.dataset, "test", n=config.test_size,
+                           gen_kwargs=config.data_kwargs)
+    eval_segs = resolve_eval_segments(config)
     bs = config.batch_size
     steps_per_epoch = train_ds.size // bs
     if steps_per_epoch == 0:
@@ -420,9 +490,8 @@ def train(
 
     runner, evaluate = runners(state)
     train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
-    test_split = _padded_split(
-        test_ds, min(bs, test_ds.size), state.model.n_modalities, device
-    )
+    test_split = _padded_split(test_ds, min(bs, test_ds.size), state.model.n_modalities,
+                               device if eval_segs == 0 else None)
     writer = MetricsWriter(workdir) if workdir is not None else None
     ckpt_writer = (AsyncCheckpointWriter(workdir)
                    if config.ckpt_async and workdir is not None else None)
@@ -448,7 +517,7 @@ def train(
             train_finite = bool(np.isfinite(losses).all())
             test_elbo = float("nan")
             if train_finite or config.nan_rollback == 0:
-                test_elbo = _split_elbo(evaluate, test_split, test_ds.size)
+                test_elbo = _split_elbo(evaluate, test_split, test_ds.size, eval_segs, device)
             if config.nan_rollback > 0 and not (train_finite and np.isfinite(test_elbo)):
                 if rollbacks >= config.nan_rollback:
                     raise RuntimeError(

@@ -7,7 +7,10 @@ The subcommands and flags are the JAX CLI's: ``train``, ``eval`` (with
 value, ``--sample-z``, ``--temperature``) and ``export``; ``--config-file``
 takes a JSON dict of config fields, flags win over it, and the commands
 other than ``train`` start from the workdir's saved config. Each command
-runs on ``--device`` (the card by default). ``export`` writes the serving
+runs on ``--device`` (the card by default). ``train`` takes
+``--data-dtype`` (the train split stored as bf16 or uint8) and
+``--eval-segment-steps``; ``eval --segment-steps K`` delivers the split in
+segments of K batches (by default the config's). ``export`` writes the serving
 artifact of ``generate`` (``serving.export_generate``: ``--out``,
 ``--batch-size-export`` an int or ``dynamic``, ``--sample-z``,
 ``--seed-mode``, ``--platforms`` of ``cuda``, ``gpu`` and ``cpu``), traced
@@ -16,8 +19,7 @@ seeded init with no workdir; ``python -m mmvae_torch.serve`` serves it.
 What the port does not have raises ``NotImplementedError`` when asked
 for: ``--dtype bfloat16``, ``--multihost``, and the flags of the JAX config
 fields the port leaves out (``--data-backend``, ``--grain-stream-steps``,
-``--eval-segment-steps``, ``--data-dtype``, the shuffle flags, ``--fsdp``,
-``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
+the shuffle flags, ``--fsdp``, ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
 device.
 """
 
@@ -35,8 +37,6 @@ import numpy as np
 _UNPORTED_FLAGS = {
     "data_backend": "--data-backend",
     "grain_stream_steps": "--grain-stream-steps",
-    "eval_segment_steps": "--eval-segment-steps",
-    "data_dtype": "--data-dtype",
     "reshuffle_every": "--reshuffle-every",
     "shuffle_mode": "--shuffle-mode",
     "shuffle_granularity": "--shuffle-granularity",
@@ -45,7 +45,7 @@ _UNPORTED_FLAGS = {
     "pp": "--pp",
 }
 # The JAX config's fields the port does not have.
-_UNPORTED_FIELDS = (*_UNPORTED_FLAGS, "data_kwargs")
+_UNPORTED_FIELDS = tuple(_UNPORTED_FLAGS)
 # The config fields a flag of the same name sets (``mmvae_tpu/cli.py:48-76``).
 _FIELDS = (
     "n_latents", "epochs", "batch_size", "annealing_epochs", "log_interval", "train_size",
@@ -53,7 +53,7 @@ _FIELDS = (
     "lr_schedule", "accum_steps", "nan_rollback", "objective", "mvtcae_alpha", "ckpt_every",
     "ckpt_async", "cross_recon_weight", "cross_recon_stopgrad", "unimodal_align_weight",
     "cycle_weight", "cycle_render_grad", "cycle_contrast_weight", "cycle_render_binarize",
-    "p_modality_drop", "cross_recon",
+    "p_modality_drop", "cross_recon", "data_dtype", "eval_segment_steps",
 )
 # Knobs of the mvae term structure a mixture objective clears when the
 # user did not set them (``mmvae_tpu/cli.py:385-409``).
@@ -110,14 +110,19 @@ def _build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--no-mesh", action="store_true",
                     help="no data-parallel mesh (the port runs on one device)")
+    pt.add_argument("--data-dtype", dest="data_dtype",
+                    choices=["float32", "bfloat16", "uint8"],
+                    help="storage dtype of the train split's float modalities (bfloat16 "
+                    "halves the bytes a step reads, uint8 quarters them; eval stays f32)")
+    pt.add_argument("--eval-segment-steps", dest="eval_segment_steps", type=int,
+                    help="the eval split to the device in segments of K batches (0: the "
+                    "whole split resident; -1: 0)")
     # The JAX flags of fields the port does not have: parsed so that they
     # raise, never ignored.
     pt.add_argument("--data-backend", dest="data_backend", choices=["device", "grain"])
-    pt.add_argument("--data-dtype", dest="data_dtype",
-                    choices=["float32", "bfloat16", "uint8"])
     pt.add_argument("--shuffle-mode", dest="shuffle_mode", choices=["roll", "block"])
-    for flag in ("--grain-stream-steps", "--eval-segment-steps", "--reshuffle-every",
-                 "--shuffle-granularity", "--tp", "--pp"):
+    for flag in ("--grain-stream-steps", "--reshuffle-every", "--shuffle-granularity",
+                 "--tp", "--pp"):
         pt.add_argument(flag, dest=flag[2:].replace("-", "_"), type=int)
 
     pe = sub.add_parser("eval", help="ELBO of a split from a checkpoint")
@@ -127,6 +132,9 @@ def _build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--n-latents", dest="n_latents", type=int)
     pe.add_argument("--iwae-k", dest="iwae_k", type=int, default=0,
                     help="also the IWAE estimate of log p(x) with k samples (0: ELBO only)")
+    pe.add_argument("--segment-steps", dest="segment_steps", type=int, default=None,
+                    help="the split to the device in segments of K batches (default: the "
+                    "config's eval_segment_steps)")
 
     ps = sub.add_parser("sample", help="prior samples from a checkpoint")
     _add_common(ps)
@@ -197,8 +205,9 @@ def _config_file(path: str, config):
     unknown = sorted(set(overrides) - known)
     if unknown:
         raise ValueError(f"unknown config fields {unknown}")
-    if "model_kwargs" in overrides:
-        overrides["model_kwargs"] = _tuplify(overrides["model_kwargs"])
+    for field in ("model_kwargs", "data_kwargs"):
+        if field in overrides:
+            overrides[field] = _tuplify(overrides[field])
     return config.replace(**overrides), set(overrides)
 
 
@@ -250,13 +259,15 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "eval":
+        segs = (api.resolve_eval_segments(config) if args.segment_steps is None
+                else args.segment_steps)
         out = {"split": args.split,
                "elbo": api.eval_elbo(config, workdir=args.workdir, split=args.split,
-                                     device=device)}
+                                     device=device, segment_steps=segs)}
         if args.iwae_k > 0:
             out["log_likelihood"] = api.log_likelihood(
                 config, workdir=args.workdir, split=args.split, k=args.iwae_k,
-                seed=args.seed, device=device)
+                seed=args.seed, device=device, segment_steps=segs)
             out["iwae_k"] = args.iwae_k
         print(json.dumps(out))
         return 0
@@ -306,14 +317,12 @@ def main(argv=None) -> int:
 
 def _decode_text(tokens: np.ndarray, config_name: str) -> list[str]:
     """The first 8 generated token sequences as text: CUB's captions in the
-    synthetic vocabulary (the one that sized the model), MultiMNIST's digit
-    strings (token d + 3 is digit d)."""
+    vocabulary that sized the model (a mounted corpus's, else the synthetic
+    one), MultiMNIST's digit strings (token d + 3 is digit d)."""
     if config_name == "cub":
-        from mmvae_torch.configs import cub_vocab_size
-        from mmvae_torch.data import cub_vocab
+        from mmvae_torch.configs import cub_text_vocab
 
-        cub_vocab_size()  # a mounted corpus's vocabulary raises there
-        vocab = cub_vocab()
+        vocab = cub_text_vocab()
         return [vocab.decode(row) for row in tokens[:8]]
     return ["".join(str(int(t) - 3) for t in row if t >= 3) for row in tokens[:8]]
 

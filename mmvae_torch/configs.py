@@ -5,13 +5,15 @@ configs; the ``deep_*`` pipeline variants raise until their slice lands.
 The fields are those the inference slices, the training slices, the
 training extras (gradient accumulation, the cosine LR schedule,
 ``nan_rollback``, ``ckpt_async``, ``log_interval``) and the checkpoints
-(``ckpt_every``, ``keep_epoch_ckpts``) read, with the JAX defaults
+(``ckpt_every``, ``keep_epoch_ckpts``) and the data layer (``data_dtype``,
+``eval_segment_steps``, ``data_kwargs``) read, with the JAX defaults
 (``mmvae_tpu/configs.py:30-175``); every config here trains with
 ``api.train``, under any of the four objectives. The JAX configs' other
-knobs (``data_backend``, ``grain_stream_steps``, ``eval_segment_steps``,
-``data_dtype``, the shuffle modes, ``fsdp``, ``tp``, ``pp``) are left out
-until a slice reads them. Eval pins ``n_random_subsets=0``
-(``mmvae_tpu/train/step.py:1568``).
+knobs (``data_backend``, ``grain_stream_steps``, the shuffle modes,
+``fsdp``, ``tp``, ``pp``) are left out until a slice reads them. Eval pins
+``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``). A CUB model
+takes the vocabulary of a mounted caption corpus where there is one
+(:func:`cub_vocab_size`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from typing import Any
 
 import torch
 
-from mmvae_torch.data.synthetic import cub_vocab
+from mmvae_torch.data.formats import cub_data_vocab
+from mmvae_torch.data.synthetic import cub_vocab as synthetic_cub_vocab
+from mmvae_torch.data.vocab import Vocab
 from mmvae_torch.device import resolve_device
 from mmvae_torch.models import CelebAMVAE, CubMVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE
 
@@ -31,6 +35,7 @@ __all__ = [
     "CONFIGS",
     "get_config",
     "build_model",
+    "cub_text_vocab",
     "cub_vocab_size",
 ]
 
@@ -104,8 +109,22 @@ class ExperimentConfig:
     # The soft render's per-example pixel mean and std matched to the true
     # image's (needs cycle_weight).
     cycle_contrast_weight: float = 0.0
+    # The storage dtype of the train split's float modalities: "float32",
+    # "bfloat16" (half the bytes the device holds and each step reads) or
+    # "uint8" (a quarter, quantized to the 1/255 grid: exact for 8-bit image
+    # data and 0/1 labels; the step dequantizes it). The test split and the
+    # model stay float32.
+    data_dtype: str = "float32"
+    # The eval split delivered to the device in segments of this many
+    # batches (O(1 segment) device memory; the same result to the bit); 0
+    # keeps the whole split on the device; -1 resolves to 0
+    # (``api.resolve_eval_segments``).
+    eval_segment_steps: int = -1
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Extra arguments of the data generators (``hw=128``), and of the
+    # MultiMNIST composite; other mounted data must match the model as it is.
+    data_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -193,16 +212,21 @@ def build_model(
     return model.to(device)
 
 
-def cub_vocab_size() -> int:
-    """The caption experts' vocabulary size: the synthetic vocabulary's
-    (23). The JAX package takes a mounted corpus's vocabulary when
-    ``$MMVAE_DATA_DIR/cub`` is a directory (``mmvae_tpu/configs.py:318-333``);
-    that is not ported, so it raises there rather than build a model of
-    another V."""
+def cub_text_vocab() -> Vocab:
+    """The vocabulary of the CUB caption experts: a mounted corpus's
+    (``data.formats.cub_data_vocab`` of ``$MMVAE_DATA_DIR/cub``: its
+    ``vocab.json``, or the 2,000 most frequent words of its captions, 3
+    reserved ids and ``<unk>``), else the synthetic one (23 ids), as
+    ``mmvae_tpu/configs.py:318-333`` picks it."""
     data_dir = os.environ.get("MMVAE_DATA_DIR", "")
-    if data_dir and os.path.isdir(os.path.join(data_dir, "cub")):
-        raise NotImplementedError(
-            f"a mounted CUB corpus under MMVAE_DATA_DIR={data_dir!r} (its vocabulary) is "
-            "not yet ported to mmvae_torch"
-        )
-    return len(cub_vocab())
+    cub_dir = os.path.join(data_dir, "cub") if data_dir else ""
+    if cub_dir and os.path.isdir(cub_dir):
+        vocab = cub_data_vocab(cub_dir)
+        if vocab is not None:
+            return vocab
+    return synthetic_cub_vocab()
+
+
+def cub_vocab_size() -> int:
+    """The size of :func:`cub_text_vocab`."""
+    return len(cub_text_vocab())

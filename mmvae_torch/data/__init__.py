@@ -1,6 +1,14 @@
-"""Data: the seeded synthetic generators and eval batching."""
+"""Data: mounted datasets and their distribution formats, the seeded
+generators, storage dtypes and eval batching."""
 
-from mmvae_torch.data.pipelines import Dataset, load_dataset, stacked_epoch_padded
+from mmvae_torch.data.formats import cub_data_vocab
+from mmvae_torch.data.pipelines import (
+    Dataset,
+    dataset_astype,
+    load_dataset,
+    quantize_uint8,
+    stacked_epoch_padded,
+)
 from mmvae_torch.data.synthetic import (
     CELEBA_ATTRS,
     cub_vocab,
@@ -15,6 +23,8 @@ from mmvae_torch.data.vocab import Vocab
 __all__ = [
     "Dataset",
     "load_dataset",
+    "dataset_astype",
+    "quantize_uint8",
     "stacked_epoch_padded",
     "make_mnist",
     "make_fashionmnist",
@@ -22,6 +32,7 @@ __all__ = [
     "make_celeba",
     "make_cub",
     "cub_vocab",
+    "cub_data_vocab",
     "Vocab",
     "CELEBA_ATTRS",
 ]

@@ -1,22 +1,37 @@
-"""Datasets and eval batching (port of ``mmvae_tpu/data/pipelines.py``).
+"""Datasets, storage dtypes and eval batching (port of ``mmvae_tpu/data/pipelines.py``).
 
-A :class:`Dataset` holds host numpy arrays; the entry points move the
-stacked split to the device once. Only the seeded numpy generators are
-ported. Where the JAX loader would read something else -- mounted data
-under ``$MMVAE_DATA_DIR`` or the C++ generators of ``MMVAE_DATAGEN=native``
--- :func:`load_dataset` raises rather than score other data.
+:func:`load_dataset` reads what the JAX loader reads, in its order:
+
+  1. ``$MMVAE_DATA_DIR/<name>/<split>.npz``, whose arrays are the
+     modalities, as they are;
+  2. else, where ``$MMVAE_DATA_DIR/<name>/`` is a directory, the dataset's
+     distribution format (``data/formats.py``): MNIST's and
+     FashionMNIST's IDX pairs, the MultiMNIST composite of real MNIST
+     digits (from ``multimnist/`` or the sibling ``mnist/``), raw CelebA
+     and raw CUB;
+  3. else the seeded generators: numpy's (``data/synthetic.py``), or under
+     ``MMVAE_DATAGEN=native`` the C++ ones for ``celeba`` and
+     ``multimnist`` (``data/native.py``; a library that cannot be built
+     raises, where the JAX loader falls back to numpy).
+
+A :class:`Dataset` holds host arrays; the entry points move them to the
+device. :func:`dataset_astype` stores the float modalities in bf16 or
+quantized to uint8 (``data_dtype``); the step dequantizes in its graph
+(``train/step.py::_dequant_data``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
-from mmvae_torch.data import synthetic
+from mmvae_torch.data import formats, synthetic
 
-__all__ = ["Dataset", "load_dataset", "stacked_epoch_padded"]
+__all__ = ["Dataset", "load_dataset", "dataset_astype", "quantize_uint8", "DATA_DTYPES",
+           "stacked_epoch_padded"]
 
 _GENERATORS = {
     "mnist": synthetic.make_mnist,
@@ -25,19 +40,54 @@ _GENERATORS = {
     "celeba": synthetic.make_celeba,
     "cub": synthetic.make_cub,
 }
-# Datasets the JAX loader draws from its C++ generators under
-# MMVAE_DATAGEN=native (not bit-identical to the numpy ones).
-_NATIVE = ("multimnist", "celeba")
 # Train and test are disjoint draws; the same seeds as the JAX package.
 SPLIT_SEEDS = {"train": 0, "test": 1_000_003}
 SPLIT_SIZES = {"train": 10000, "test": 2000}
+# The storage dtypes of ``data_dtype`` for the float modalities.
+DATA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "uint8": torch.uint8}
 
 
 class Dataset(NamedTuple):
-    """A modality dict of host arrays, and its number of examples."""
+    """A modality dict of host arrays, and its number of examples. A
+    modality stored as bf16 (:func:`dataset_astype`) is a host tensor:
+    numpy has no bf16."""
 
     arrays: dict[str, np.ndarray]
     size: int
+
+
+def _mounted(name: str, split: str, n: int | None,
+             gen_kwargs: dict[str, Any]) -> dict[str, np.ndarray] | None:
+    """The mounted arrays of ``name``'s ``split`` under ``$MMVAE_DATA_DIR``:
+    its ``.npz``, else its distribution format; None where neither is."""
+    data_dir = os.environ.get("MMVAE_DATA_DIR", "")
+    if not data_dir:
+        return None
+    d = os.path.join(data_dir, name)
+    path = os.path.join(d, f"{split}.npz")
+    if os.path.exists(path):
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    if not os.path.isdir(d):
+        return None
+    if name in ("mnist", "fashionmnist"):
+        return formats.load_mnist_idx(d, split)
+    if name == "multimnist":
+        # The generator's hw and max_digits apply to the composite.
+        return formats.load_multimnist_composite(data_dir, split, n=n, **gen_kwargs)
+    if name == "celeba":
+        return formats.load_celeba_raw(d, split, n=n)
+    return formats.load_cub_raw(d, split, n=n)
+
+
+def _generator(name: str):
+    """``name``'s generator: numpy's, or the C++ one under
+    ``MMVAE_DATAGEN=native`` where there is one."""
+    if os.environ.get("MMVAE_DATAGEN") == "native" and name in ("celeba", "multimnist"):
+        from mmvae_torch.data import native
+
+        return native.make_celeba_native if name == "celeba" else native.make_multimnist_native
+    return _GENERATORS[name]
 
 
 def load_dataset(
@@ -45,35 +95,61 @@ def load_dataset(
     split: str = "train",
     n: int | None = None,
     seed: int | None = None,
+    gen_kwargs: dict[str, Any] | None = None,
 ) -> Dataset:
-    """The seeded synthetic split ``split`` of dataset ``name``.
+    """Split ``split`` of dataset ``name``: the mounted data (module
+    docstring), else the seeded generator's.
 
-    ``seed`` overrides the split's seed; ``n`` its size. Raises
-    ``NotImplementedError`` where the JAX loader would not run its numpy
-    generator: ``$MMVAE_DATA_DIR/<name>/<split>.npz`` exists, or
-    ``$MMVAE_DATA_DIR/<name>/`` is a directory (the distribution formats),
-    or ``MMVAE_DATAGEN=native`` selects the C++ generator of ``name``.
+    ``n`` cuts the split to its first ``n`` examples, mounted or generated
+    (a generator makes only those). ``seed`` overrides a generator's split
+    seed. ``gen_kwargs`` go to the generators (``hw=128``) and to the
+    MultiMNIST composite (``hw``, ``max_digits``); other mounted data is
+    returned as it is.
     """
     if name not in _GENERATORS:
         raise ValueError(f"unknown dataset {name!r}; have {list(_GENERATORS)}")
     if split not in SPLIT_SEEDS:
         raise ValueError(f"unknown split {split!r}; have {list(SPLIT_SEEDS)}")
-    data_dir = os.environ.get("MMVAE_DATA_DIR", "")
-    if data_dir and (os.path.exists(os.path.join(data_dir, name, f"{split}.npz"))
-                     or os.path.isdir(os.path.join(data_dir, name))):
-        raise NotImplementedError(
-            f"mounted data for {name!r} under MMVAE_DATA_DIR={data_dir!r} is not "
-            "yet ported to mmvae_torch (it would read the numpy generator instead)"
-        )
-    if os.environ.get("MMVAE_DATAGEN") == "native" and name in _NATIVE:
-        raise NotImplementedError(
-            f"MMVAE_DATAGEN=native for {name!r} is not yet ported to mmvae_torch"
-        )
-    arrays = _GENERATORS[name](
-        n or SPLIT_SIZES[split],
-        seed=SPLIT_SEEDS[split] if seed is None else seed,
-    )
+    gen_kwargs = dict(gen_kwargs or {})
+    arrays = _mounted(name, split, n, gen_kwargs)
+    if arrays is None:
+        arrays = _generator(name)(
+            n or SPLIT_SIZES[split], seed=SPLIT_SEEDS[split] if seed is None else seed,
+            **gen_kwargs)
+    if n is not None:
+        arrays = {k: v[:n] for k, v in arrays.items()}
     return Dataset(arrays=arrays, size=len(next(iter(arrays.values()))))
+
+
+def quantize_uint8(v: np.ndarray) -> np.ndarray:
+    """``round(clip(v, 0, 1) * 255)`` as uint8, computed in v's float type
+    (float32 for the datasets), rounding half to even: the JAX quantizer's
+    numpy branch. A uint8 leaf of a batch means quantized [0, 1] data (the
+    step divides it by 255), so integer modalities never pass here."""
+    return np.round(np.clip(v, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def dataset_astype(dataset: Dataset, dtype: str | torch.dtype) -> Dataset:
+    """``dataset`` with its float32 modalities stored as ``dtype``: bf16
+    (half the bytes, round to nearest even) or uint8 (:func:`quantize_uint8`,
+    a quarter; exact for 8-bit image data and 0/1 labels); float32 leaves
+    it as it is. Integer modalities (labels, tokens) stay int32. One cast
+    at load time."""
+    dtype = DATA_DTYPES[dtype] if isinstance(dtype, str) else dtype
+    if dtype == torch.float32:
+        return dataset
+    if dtype == torch.uint8:
+        cast = quantize_uint8
+    elif dtype == torch.bfloat16:
+        # numpy has no bf16: the cast is torch's, kept as a host tensor.
+        def cast(v):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+    else:
+        raise ValueError(f"unknown data dtype {dtype}; have {list(DATA_DTYPES)}")
+    return Dataset(
+        arrays={k: cast(v) if v.dtype == np.float32 else v for k, v in dataset.arrays.items()},
+        size=dataset.size,
+    )
 
 
 def stacked_epoch_padded(
@@ -92,5 +168,6 @@ def stacked_epoch_padded(
     total = n_steps * batch_size
     idx = (np.arange(total) % size).reshape(n_steps, batch_size)
     valid = (np.arange(total) < size).astype(np.float32)
-    out = {k: np.asarray(v)[idx] for k, v in dataset.arrays.items()}
+    out = {k: v[torch.from_numpy(idx)] if torch.is_tensor(v) else np.asarray(v)[idx]
+           for k, v in dataset.arrays.items()}
     return out, valid.reshape(n_steps, batch_size)

@@ -57,6 +57,13 @@ def _run(layers: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _promote(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type both ``x`` and ``weight`` promote to, as Flax's
+    ``promote_dtype`` meets a bf16 batch with f32 parameters: f32 (a bf16
+    value is exact in f32)."""
+    return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
 def _split_head(out: torch.Tensor, n_latents: int):
     return out[:, :n_latents], out[:, n_latents:]
 
@@ -73,7 +80,7 @@ class MLPEncoder(nn.Module):
         self.head = nn.Linear(hidden[-1], 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
-        h = _run(self.layers, x.reshape(x.shape[0], -1))
+        h = _run(self.layers, _promote(x.reshape(x.shape[0], -1), self.head.weight))
         return _split_head(self.head(h), self.n_latents)
 
 
@@ -149,8 +156,9 @@ class ConvEncoder(nn.Module):
     head. Only the reference-shaped stack is ported: ``space_to_depth=1``
     and no bottleneck trunk. With ``channels > 1`` the input is NHWC and
     stage 0 runs in ``ops.conv4x4s2_swish`` (K4 on the card), which reads
-    the batch as it is and gives NCHW; a grayscale stage 0 stays a
-    ``Conv2d``.
+    the batch as it is (a bf16 batch too, into f32 outputs) and gives
+    NCHW; a grayscale stage 0 stays a ``Conv2d``, its input promoted to
+    the weights' type.
     """
 
     def __init__(
@@ -178,7 +186,7 @@ class ConvEncoder(nn.Module):
     def forward(self, x: torch.Tensor):
         convs = list(self.convs)
         if self.channels == 1:
-            h = x[:, None]  # NCHW
+            h = _promote(x[:, None], convs[0].weight)  # NCHW
         else:
             stage0 = convs.pop(0)
             h = ops.conv4x4s2_swish(x, stage0.weight, stage0.bias)  # NCHW

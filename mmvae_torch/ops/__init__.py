@@ -20,7 +20,9 @@ takes of stage 0 (dW, db and the image's dx from ``g * swish'(pre)``,
 ``pre`` recomputed; dx only where the image requires grad, as the cycle
 term's re-encode of a render does). The targets of ``bernoulli_nll`` get
 dx = -g * l on the plain path only; the kernel path raises when they
-require grad. The tokens of ``masked_seq_ce`` get no gradient.
+require grad. bf16 targets (a ``data_dtype="bfloat16"`` train split) reach
+the BCE kernels and their VJP as they are; the kernels upcast them on load,
+and the plain versions upcast them. The tokens of ``masked_seq_ce`` get no gradient.
 ``poe_kl`` differentiates the expert stack only and raises on both paths
 when ``masks`` or ``presence`` requires grad.
 
@@ -108,6 +110,12 @@ def _rows(t: torch.Tensor, d: int) -> torch.Tensor:
     return t.reshape(-1, d).to(torch.float32).contiguous()
 
 
+def _target_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """BCE targets as the kernels read them: bf16 as it is (the kernels
+    upcast it on load), any other type as f32."""
+    return x.reshape(-1, d).contiguous() if x.dtype == torch.bfloat16 else _rows(x, d)
+
+
 def _fold(rows: int, n_targets: int, fold: str) -> int:
     if rows == n_targets:
         return kernels.FOLD_NONE
@@ -163,7 +171,7 @@ class _BernoulliNll(torch.autograd.Function):
             ctx.save_for_backward(logits, x)
             return _bern_torch(logits, kernels.tile_rows(x, logits.shape[0], mode), event_ndims)
         d = math.prod(logits.shape[logits.dim() - event_ndims:])
-        l_rows, x_rows = _rows(logits, d), _rows(x, d)
+        l_rows, x_rows = _rows(logits, d), _target_rows(x, d)
         ctx.save_for_backward(l_rows, x_rows)
         ctx.shape, ctx.dtype = logits.shape, logits.dtype
         # b-major over examples of several rows: the rows an example holds.
@@ -309,11 +317,12 @@ def conv4x4s2_swish(
 ) -> torch.Tensor:
     """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
-    ceil(W/2))`` NCHW. The kernel takes C <= 4 and F = 32; its backward
-    kernels give the weight's and the bias's gradients and, when the image
-    requires grad, the image's (dx), f32 only. Where autograd records
-    nothing, the kernel path is the op ``mmvae::conv4x4s2_swish``, which a
-    trace keeps (``ops/library.py``)."""
+    ceil(W/2))`` NCHW, in the type ``x`` and ``weight`` promote to (a bf16
+    batch and f32 weights give f32). The kernel takes C <= 4 and F = 32;
+    its backward kernels give the weight's and the bias's gradients (from a
+    bf16 or f32 image) and, when the image requires grad, the image's (dx,
+    f32 only). Where autograd records nothing, the kernel path is the op
+    ``mmvae::conv4x4s2_swish``, which a trace keeps (``ops/library.py``)."""
     kernel = _use_kernel(x)
     if _records_grad(x, weight, bias):
         return _Conv4x4s2Swish.apply(x, weight, bias, kernel)

@@ -45,12 +45,16 @@
 // channel cover the 128-byte run of its 32 pixels (float4 for f32, 8 bytes
 // for bf16, where the row length allows). Accumulation is f32 FMAs in a
 // fixed order for f32 and bf16 inputs, no atomics: two calls give the same
-// bits. The output is written in the input's type (round to nearest even
-// for bf16). No fast-math: expf tracks the plain PyTorch version to rounding.
+// bits. The output is written in the weights' type (round to nearest even
+// for bf16): x, w, b and y all f32 or all bf16, or a bf16 x (a
+// data_dtype="bfloat16" batch) with f32 w, b and y, its loads upcast as
+// they are staged. No fast-math: expf tracks the plain PyTorch version to
+// rounding.
 //
 // The backward, conv4x4s2_swish_bwd: the gradient of the weight and the
 // bias (not of x) given the upstream gradient g (B, 32, ceil(H/2),
-// ceil(W/2)) of y, f32 only. With pre = b[o] + the conv sum,
+// ceil(W/2)) of y, all f32 but the image, which may be bf16 (a
+// data_dtype="bfloat16" batch). With pre = b[o] + the conv sum,
 //     dw[o, c, ky, kx] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j])
 //                                     * x[n, 2i+ky-pt, 2j+kx-pl, c],
 //     db[o] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j]),
@@ -146,6 +150,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -288,10 +294,11 @@ struct Stage {
   }
 };
 
-template <typename T, int C, bool VEC>
+// T: x's type; TW: the weight's, the bias's and y's.
+template <typename T, typename TW, int C, bool VEC>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
-    conv_s2_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                         const T* __restrict__ bias, T* __restrict__ y, int h, int wd,
+    conv_s2_tiles_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                         const TW* __restrict__ bias, TW* __restrict__ y, int h, int wd,
                          int h_out, int w_out, int n_chunks, int units, int vec_out) {
   constexpr int kStride = row_floats(C);
   constexpr int kW = kTaps * C * kCout;
@@ -394,7 +401,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 
     const int ox = chunk * kTileW + kPx * t;
     const int valid = min(kPx, w_out - ox);
-    T* yo = y + (static_cast<size_t>(n) * kCout + kCh * g) * plane +
+    TW* yo = y + (static_cast<size_t>(n) * kCout + kCh * g) * plane +
             static_cast<size_t>(oy) * w_out + ox;
 #pragma unroll
     for (int o = 0; o < kCh; ++o) {
@@ -407,14 +414,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   }
 }
 
-template <typename T, int C, bool VEC>
+template <typename T, typename TW, int C, bool VEC>
 cudaError_t set_smem(int smem) {
   if (static_cast<size_t>(smem) <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(conv_s2_tiles_kernel<T, C, VEC>,
+  return cudaFuncSetAttribute(conv_s2_tiles_kernel<T, TW, C, VEC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T, int C>
+template <typename T, typename TW, int C>
 int launch(const void* x, const void* w, const void* b, void* y, int batch, int h, int wd,
            int warps, int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
@@ -422,37 +429,37 @@ int launch(const void* x, const void* w, const void* b, void* y, int batch, int 
   const int n_chunks = (w_out + kTileW - 1) / kTileW;
   const long long units = static_cast<long long>(batch) * h_out * n_chunks;
   if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr uintptr_t kAlign = 4 * sizeof(T);  // a chunk of 4 elements
+  // A chunk of 4 elements of x, and of y.
   const bool vec_in = (static_cast<long long>(wd) * C) % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(x) % kAlign == 0;
-  const int vec_out = w_out % 4 == 0 && reinterpret_cast<uintptr_t>(y) % kAlign == 0;
+                      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  const int vec_out = w_out % 4 == 0 && reinterpret_cast<uintptr_t>(y) % (4 * sizeof(TW)) == 0;
   const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const T* bt = static_cast<const T*>(b);
-  T* yt = static_cast<T*>(y);
+  const TW* wt = static_cast<const TW*>(w);
+  const TW* bt = static_cast<const TW*>(b);
+  TW* yt = static_cast<TW*>(y);
   cudaError_t err;
   if (vec_in) {
-    err = set_smem<T, C, true>(smem);
+    err = set_smem<T, TW, C, true>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    conv_s2_tiles_kernel<T, C, true><<<blocks, warps * 32, smem, stream>>>(
+    conv_s2_tiles_kernel<T, TW, C, true><<<blocks, warps * 32, smem, stream>>>(
         xt, wt, bt, yt, h, wd, h_out, w_out, n_chunks, static_cast<int>(units), vec_out);
   } else {
-    err = set_smem<T, C, false>(smem);
+    err = set_smem<T, TW, C, false>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    conv_s2_tiles_kernel<T, C, false><<<blocks, warps * 32, smem, stream>>>(
+    conv_s2_tiles_kernel<T, TW, C, false><<<blocks, warps * 32, smem, stream>>>(
         xt, wt, bt, yt, h, wd, h_out, w_out, n_chunks, static_cast<int>(units), vec_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename TW>
 int dispatch_c(const void* x, const void* w, const void* b, void* y, int batch, int h, int wd,
                int c, int warps, int blocks, int smem, cudaStream_t stream) {
   switch (c) {
-    case 1: return launch<T, 1>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
-    case 2: return launch<T, 2>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
-    case 3: return launch<T, 3>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
-    case 4: return launch<T, 4>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 1: return launch<T, TW, 1>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 2: return launch<T, TW, 2>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 3: return launch<T, TW, 3>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
+    case 4: return launch<T, TW, 4>(x, w, b, y, batch, h, wd, warps, blocks, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -552,23 +559,35 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) 
                  : "memory");
   }
 }
+// 4 bf16s (8 bytes) from global to shared memory, likewise.
+__device__ __forceinline__ void cp_async8(void* dst, const __nv_bfloat16* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
+               : "memory");
+}
 
 // One tile's 2 TR + 2 input rows (66 columns from column 2 ox0 - 1 on, the
 // forward's layout; zero where the pad or an edge falls): copied raw into
 // shared memory (16 bytes a copy where VEC) while the previous tile is
-// computed, then split into TF32 hi and lo planes in one pass.
-template <int C, int TR, int W, bool VEC>
+// computed, then split into TF32 hi and lo planes in one pass. A bf16 image
+// (T) is copied as it is, 8 bytes a copy where VEC, and upcast at the split,
+// where it is exact in TF32: its hi plane is the value and its lo plane,
+// zero, is not written (kLo), nor are the products that would read it. A
+// bf16 image without VEC is read into registers and staged as f32 (cp.async
+// copies no fewer than 4 bytes).
+template <typename T, int C, int TR, int W, bool VEC>
 struct BwdStage {
+  static constexpr bool kLo = std::is_same<T, float>::value;
   static constexpr int E = VEC ? 4 : 1;
   static constexpr int kPerRow = row_floats(C) / E;
   static constexpr int kAll = (2 * TR + 2) * kPerRow;
   static constexpr int kPer = (kAll + 32 * W - 1) / (32 * W);
 
-  __device__ __forceinline__ static void load(float* raw, const float* __restrict__ x, int n,
+  __device__ __forceinline__ static void load(float* raw, const T* __restrict__ x, int n,
                                               int oy0, int ox0, int h, long long row_len,
                                               int tid) {
     const long long c0 = static_cast<long long>(2 * ox0 - 1) * C - lead(C);
-    const float* xn = x + static_cast<long long>(n) * h * row_len;
+    const T* xn = x + static_cast<long long>(n) * h * row_len;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int i = tid + 32 * W * k;
@@ -576,7 +595,15 @@ struct BwdStage {
       const int iy = 2 * oy0 - 1 + r;
       const long long col = c0 + (i - r * kPerRow) * E;
       const bool ok = iy >= 0 && iy < h && col >= 0 && col + E <= row_len;
-      if (i < kAll) cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+      if (i >= kAll) continue;
+      if constexpr (kLo) {
+        cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+      } else if constexpr (VEC) {
+        cp_async8(reinterpret_cast<__nv_bfloat16*>(raw) + i * E,
+                  ok ? xn + iy * row_len + col : x, ok);
+      } else {
+        raw[i] = ok ? __bfloat162float(xn[iy * row_len + col]) : 0.0f;
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
@@ -589,7 +616,14 @@ struct BwdStage {
       const int r = i / kPerRow;
       const int at = r * kRow + (i - r * kPerRow) * E;
       unsigned hi[E], lo[E];
-      if constexpr (VEC) {
+      if constexpr (!kLo && VEC) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            reinterpret_cast<const __nv_bfloat16*>(raw) + i * E);
+        *reinterpret_cast<uint4*>(xh + at) =
+            make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+      } else if constexpr (!kLo) {
+        xh[at] = raw[i];
+      } else if constexpr (VEC) {
         const float4 f = *reinterpret_cast<const float4*>(raw + i * E);
         split_tf32(f.x, hi[0], lo[0]);
         split_tf32(f.y, hi[1], lo[1]);
@@ -620,9 +654,9 @@ struct BwdStage {
 // n-tile of dW's columns. The input tile is split into TF32 planes once, so
 // the fragments are plain loads. dW and db are summed in registers over
 // the tiles.
-template <int C, int TR, int W, bool VEC>
+template <typename T, int C, int TR, int W, bool VEC>
 __global__ void __launch_bounds__(W * 32, 16 / W)
-    conv_s2_bwd_partials_kernel(const float* __restrict__ x, const float* __restrict__ w,
+    conv_s2_bwd_partials_kernel(const T* __restrict__ x, const float* __restrict__ w,
                                 const float* __restrict__ bias, const float* __restrict__ g,
                                 long long sn, long long so, long long sh, long long sw,
                                 float* __restrict__ ws, int h, int wd, int h_out, int w_out,
@@ -642,7 +676,8 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
   const int gq = lane / 4, tq = lane % 4;  // fragment coordinates
   const long long row_len = static_cast<long long>(wd) * C;
 
-  using Stage = BwdStage<C, TR, W, VEC>;
+  using Stage = BwdStage<T, C, TR, W, VEC>;
+  constexpr bool kLo = Stage::kLo;  // the image has a lo plane (f32, not bf16)
   int t = blockIdx.x;
   if (t < tiles) {
     const int rest = t / n_chunks;
@@ -736,7 +771,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
           const unsigned bh[2] = {__float_as_uint(ph[o_a]), __float_as_uint(ph[o_b])};
           const unsigned bl[2] = {__float_as_uint(pl[o_a]), __float_as_uint(pl[o_b])};
           mma_tf32(pre[0][e], al, bh);
-          mma_tf32(pre[1][e], ah, bl);
+          if constexpr (kLo) mma_tf32(pre[1][e], ah, bl);
           mma_tf32(pre[2][e], ah, bh);
         }
       }
@@ -770,6 +805,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
         unsigned b[KS][2];
 #pragma unroll
         for (int term = 0; term < 3; ++term) {
+          if (!kLo && term == 1) continue;  // hi(S) . lo(x), and lo(x) is 0
           const float* q = term == 1 ? ql : qh;
 #pragma unroll
           for (int nt = 0; nt < KS; ++nt) {
@@ -860,8 +896,8 @@ __global__ void __launch_bounds__(kCout * kReduceRows)
   dw[((o * c + ch) * 4 + ky) * 4 + kx] = total;
 }
 
-template <int C, int TR, int W, bool VEC>
-int launch_bwd(const float* x, const float* w, const float* b, const float* g, long long sn,
+template <typename T, int C, int TR, int W, bool VEC>
+int launch_bwd(const T* x, const float* w, const float* b, const float* g, long long sn,
                long long so, long long sh, long long sw, float* ws, float* dw, float* db,
                int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
@@ -872,11 +908,11 @@ int launch_bwd(const float* x, const float* w, const float* b, const float* g, l
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (static_cast<size_t>(smem) > kDefaultSmem) {
-    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<C, TR, W, VEC>,
+    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<T, C, TR, W, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_bwd_partials_kernel<C, TR, W, VEC><<<blocks, W * 32, smem, stream>>>(
+  conv_s2_bwd_partials_kernel<T, C, TR, W, VEC><<<blocks, W * 32, smem, stream>>>(
       x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, row_tiles,
       static_cast<int>(tiles));
   err = cudaGetLastError();
@@ -886,39 +922,40 @@ int launch_bwd(const float* x, const float* w, const float* b, const float* g, l
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C, int TR, int W>
-int launch_bwd_vec(const float* x, const float* w, const float* b, const float* g, long long sn,
+template <typename T, int C, int TR, int W>
+int launch_bwd_vec(const T* x, const float* w, const float* b, const float* g, long long sn,
                    long long so, long long sh, long long sw, float* ws, float* dw, float* db,
                    int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
-  // 16-byte loads of the input rows where a row is whole float4s and x
-  // starts on 16 bytes.
-  if ((static_cast<long long>(wd) * C) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    return launch_bwd<C, TR, W, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+  // Copies of 4 elements (16 bytes of f32, 8 of bf16) where a row is whole
+  // chunks of 4 and x starts on a chunk.
+  if ((static_cast<long long>(wd) * C) % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0) {
+    return launch_bwd<T, C, TR, W, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                       blocks, smem, stream);
   }
-  return launch_bwd<C, TR, W, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+  return launch_bwd<T, C, TR, W, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                      blocks, smem, stream);
 }
 
-template <int C>
-int launch_bwd_c(const float* x, const float* w, const float* b, const float* g, long long sn,
+template <typename T, int C>
+int launch_bwd_c(const T* x, const float* w, const float* b, const float* g, long long sn,
                  long long so, long long sh, long long sw, float* ws, float* dw, float* db,
                  int batch, int h, int wd, int warps, int blocks, int smem, int rows,
                  cudaStream_t stream) {
   if (rows == 2 && warps == 8) {
-    return launch_bwd_vec<C, 2, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
-                                   smem, stream);
+    return launch_bwd_vec<T, C, 2, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                      blocks, smem, stream);
   }
   if (rows == 2) {
-    return launch_bwd_vec<C, 2, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
-                                   smem, stream);
+    return launch_bwd_vec<T, C, 2, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                      blocks, smem, stream);
   }
   if (warps == 8) {
-    return launch_bwd_vec<C, 4, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
-                                   smem, stream);
+    return launch_bwd_vec<T, C, 4, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                      blocks, smem, stream);
   }
-  return launch_bwd_vec<C, 4, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, blocks,
-                                   smem, stream);
+  return launch_bwd_vec<T, C, 4, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                    blocks, smem, stream);
 }
 
 // Tiles of 2 or 4 output rows, 4 or 8 warps a block, and at least the
@@ -927,6 +964,35 @@ bool bwd_plan_ok(int c, int warps, int smem, int rows) {
   return c >= 1 && c <= 4 && (warps == 4 || warps == 8) && (rows == 2 || rows == 4) &&
          smem >= 0 && static_cast<size_t>(smem) >= bwd_smem_of(c, rows, warps) &&
          static_cast<size_t>(smem) <= kMaxSmem;
+}
+
+template <typename T>
+int dispatch_bwd_c(const T* x, const void* w, const void* b, const void* g, long long sn,
+                   long long so, long long sh, long long sw, void* ws, void* dw, void* db,
+                   int batch, int h, int wd, int c, int warps, int blocks, int smem, int rows,
+                   cudaStream_t stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  const float* gf = static_cast<const float*>(g);
+  float* wsf = static_cast<float*>(ws);
+  float* dwf = static_cast<float*>(dw);
+  float* dbf = static_cast<float*>(db);
+  switch (c) {
+    case 1:
+      return launch_bwd_c<T, 1>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, stream);
+    case 2:
+      return launch_bwd_c<T, 2>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, stream);
+    case 3:
+      return launch_bwd_c<T, 3>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, stream);
+    case 4:
+      return launch_bwd_c<T, 4>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+                                warps, blocks, smem, rows, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ------------------------------------------------------ input gradient --
@@ -1386,8 +1452,10 @@ extern "C" const char* conv_s2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16, for x, w, b and y alike. warps, blocks
-// and smem: the launch plan (kernels.py:conv_plan).
+// dtype: 0 = float32 and 1 = bfloat16, for x, w, b and y alike; 2 = a
+// bfloat16 x with float32 w, b and y (a data_dtype="bfloat16" batch meeting
+// the f32 model). warps, blocks and smem: the launch plan
+// (kernels.py:conv_plan).
 extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void* y, int batch,
                                int h, int wd, int c, int dtype, int warps, int blocks, int smem,
                                cudaStream_t stream) {
@@ -1395,50 +1463,39 @@ extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return dispatch_c<float>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
+    return dispatch_c<float, float>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
   }
   if (dtype == 1) {
-    return dispatch_c<__nv_bfloat16>(x, w, b, y, batch, h, wd, c, warps, blocks, smem, stream);
+    return dispatch_c<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, batch, h, wd, c, warps, blocks,
+                                                    smem, stream);
+  }
+  if (dtype == 2) {
+    return dispatch_c<__nv_bfloat16, float>(x, w, b, y, batch, h, wd, c, warps, blocks, smem,
+                                            stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 only. g is read through its strides (sn, so, sh, sw, in elements),
-// so a view of the next stage's padded gradient needs no copy; ws holds
-// blocks x (16 c + 1) x 32 floats. warps, blocks, smem and rows (a
-// tile's output rows): the launch plan (kernels.py:conv_bwd_plan).
+// x: float32 or bfloat16 (x_dtype 0 or 1); w, b, g, dw, db: float32. g is
+// read through its strides (sn, so, sh, sw, in elements), so a view of the
+// next stage's padded gradient needs no copy; ws holds blocks x (16 c + 1) x
+// 32 floats. warps, blocks, smem and rows (a tile's output rows): the
+// launch plan (kernels.py:conv_bwd_plan).
 extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, const void* g,
                                    long long sn, long long so, long long sh, long long sw,
                                    void* ws, void* dw, void* db, int batch, int h, int wd, int c,
-                                   int warps, int blocks, int smem, int rows,
+                                   int x_dtype, int warps, int blocks, int smem, int rows,
                                    cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
-      !bwd_plan_ok(c, warps, smem, rows)) {
+      x_dtype < 0 || x_dtype > 1 || !bwd_plan_ok(c, warps, smem, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  const float* gf = static_cast<const float*>(g);
-  float* wsf = static_cast<float*>(ws);
-  float* dwf = static_cast<float*>(dw);
-  float* dbf = static_cast<float*>(db);
-  switch (c) {
-    case 1:
-      return launch_bwd_c<1>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                             warps, blocks, smem, rows, stream);
-    case 2:
-      return launch_bwd_c<2>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                             warps, blocks, smem, rows, stream);
-    case 3:
-      return launch_bwd_c<3>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                             warps, blocks, smem, rows, stream);
-    case 4:
-      return launch_bwd_c<4>(xf, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
-                             warps, blocks, smem, rows, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 1) {
+    return dispatch_bwd_c(static_cast<const __nv_bfloat16*>(x), w, b, g, sn, so, sh, sw, ws, dw,
+                          db, batch, h, wd, c, warps, blocks, smem, rows, stream);
   }
+  return dispatch_bwd_c(static_cast<const float*>(x), w, b, g, sn, so, sh, sw, ws, dw, db,
+                        batch, h, wd, c, warps, blocks, smem, rows, stream);
 }
 
 // f32 only. g is read through its strides (sn, so, sh, sw, in elements);

@@ -58,15 +58,23 @@
 // logits, so its loads coalesce.
 // Every layout sums in a fixed order, so a shape gives the same bits from
 // run to run.
+// The targets may be float32 or bfloat16 (the data_dtype="bfloat16" train
+// split, as the Pallas kernel takes them: mmvae_tpu/ops/kernels.py:175-177);
+// a bf16 target is upcast as it is loaded (its bits are the high half of
+// its f32), four at a time in 8 bytes where the float4 path runs, so every
+// layout and row map is the f32 one with the target reads halved. The
+// logits and the sums stay f32. At MNIST's train shape (200, 784) against
+// 100 bf16 targets: 0.79 MB, 0.24 us at 3.35 TB/s.
 // No fast-math: expf/log1pf track the plain PyTorch version to rounding.
 //
 // The gradients, the VJPs of the TPU kernels (mmvae_tpu/ops/kernels.py
 // _kl_bwd and _bce_bwd), for an upstream gradient g of one value a row:
 //     kl_rows_grad:  dmu = g * mu,  dlv = 0.5 * g * (exp(lv) - 1);
 //     bce_rows_grad: dlogits = g * (sigmoid(l) - x[target row]),
-// the targets read through the forward's row map, so they stay untiled
-// (d x, -g * l summed over the rows that read a target row, is not
-// computed: no ported loss differentiates the targets). Both are
+// the targets read through the forward's row map, so they stay untiled, in
+// float32 or bfloat16 as bce_rows reads them (d x, -g * l summed over the
+// rows that read a target row, is not computed: no ported loss
+// differentiates the targets). Both are
 // elementwise and bound by memory: they read the (N, D) inputs and write
 // (N, D) gradients once -- KL (1280, 100): 2.05 MB, 0.61 us at 3.35 TB/s;
 // BCE (200, 784) against 100 untiled targets: 1.57 MB, 0.47 us. Each
@@ -94,6 +102,7 @@
 // does not synchronise, and returns cudaGetLastError() of its launch.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -153,15 +162,30 @@ __global__ void kl_rows_kernel(const float* __restrict__ mu,
   }
 }
 
+// A target as f32: a float, or a bf16 (the high half of its f32).
+__device__ __forceinline__ float load_x(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load_x(const __nv_bfloat16* p, size_t i) {
+  return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(p[i])) << 16);
+}
+// Targets 4c .. 4c + 3 of p as f32: a float4, or 8 bytes of bf16.
+__device__ __forceinline__ float4 load_x4(const float* p, size_t c) {
+  return reinterpret_cast<const float4*>(p)[c];
+}
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p, size_t c) {
+  const uint2 v = reinterpret_cast<const uint2*>(p)[c];
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
 // The target row that logits row `row` is scored against.
 __device__ __forceinline__ int target_row(int row, int n, int n_x, int fold) {
   return fold == 0 ? row : (fold == 1 ? row % n_x : row / (n / n_x));
 }
 
 // Layout 0: one warp per row.
-template <bool kVec>
+template <bool kVec, typename T>
 __global__ void bce_rows_kernel(const float* __restrict__ logits,
-                                const float* __restrict__ x,
+                                const T* __restrict__ x,
                                 float* __restrict__ out, int n, int d,
                                 int n_x, int fold) {
   const int lane = threadIdx.x % kWarp;
@@ -174,16 +198,15 @@ __global__ void bce_rows_kernel(const float* __restrict__ logits,
     float acc = 0.0f;
     if (kVec) {
       const float4* l4 = reinterpret_cast<const float4*>(logits + base);
-      const float4* x4 = reinterpret_cast<const float4*>(x + x_base);
       for (int c = lane; c < d / 4; c += kWarp) {
         const float4 a = l4[c];
-        const float4 b = x4[c];
+        const float4 b = load_x4(x + x_base, c);
         acc += bce_term(a.x, b.x) + bce_term(a.y, b.y) + bce_term(a.z, b.z) +
                bce_term(a.w, b.w);
       }
     } else {
       for (int c = lane; c < d; c += kWarp) {
-        acc += bce_term(logits[base + c], x[x_base + c]);
+        acc += bce_term(logits[base + c], load_x(x, x_base + c));
       }
     }
     acc = warp_sum(acc);
@@ -194,9 +217,9 @@ __global__ void bce_rows_kernel(const float* __restrict__ logits,
 // Layout 1: blocks blockIdx.x = row * split + rank, a cluster of `split`
 // blocks per row, each block a contiguous chunk of the row (in float4s
 // when kVec).
-template <bool kVec>
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(1024) bce_split_kernel(const float* __restrict__ logits,
-                                 const float* __restrict__ x,
+                                 const T* __restrict__ x,
                                  float* __restrict__ out, int n, int d,
                                  int n_x, int fold, int split) {
   __shared__ float warp_sums[1024 / kWarp];
@@ -205,14 +228,13 @@ __global__ void __launch_bounds__(1024) bce_split_kernel(const float* __restrict
   const int rank = blockIdx.x % split;
   const int tid = threadIdx.x, threads = blockDim.x;
   const float* l = logits + static_cast<size_t>(row) * d;
-  const float* t = x + static_cast<size_t>(target_row(row, n, n_x, fold)) * d;
+  const T* t = x + static_cast<size_t>(target_row(row, n, n_x, fold)) * d;
   const int units = kVec ? d / 4 : d;
   const int per = (units + split - 1) / split;
   const int lo = rank * per, hi = min(units, lo + per);
   float acc = 0.0f;
   if (kVec) {
     const float4* l4 = reinterpret_cast<const float4*>(l);
-    const float4* t4 = reinterpret_cast<const float4*>(t);
     for (int c = lo + tid; c < hi; c += kUnroll * threads) {
       float4 a[kUnroll], b[kUnroll];
 #pragma unroll
@@ -220,7 +242,7 @@ __global__ void __launch_bounds__(1024) bce_split_kernel(const float* __restrict
         const int i = c + u * threads;
         if (i < hi) {
           a[u] = l4[i];
-          b[u] = t4[i];
+          b[u] = load_x4(t, i);
         }
       }
 #pragma unroll
@@ -240,7 +262,7 @@ __global__ void __launch_bounds__(1024) bce_split_kernel(const float* __restrict
         const int i = c + u * threads;
         if (i < hi) {
           a[u] = l[i];
-          b[u] = t[i];
+          b[u] = load_x(t, i);
         }
       }
 #pragma unroll
@@ -271,8 +293,9 @@ __global__ void __launch_bounds__(1024) bce_split_kernel(const float* __restrict
 }
 
 // Layout 2: one thread per row.
+template <typename T>
 __global__ void bce_thread_rows_kernel(const float* __restrict__ logits,
-                                       const float* __restrict__ x,
+                                       const T* __restrict__ x,
                                        float* __restrict__ out, int n, int d,
                                        int n_x, int fold) {
   const int stride = gridDim.x * blockDim.x;
@@ -280,7 +303,7 @@ __global__ void bce_thread_rows_kernel(const float* __restrict__ logits,
     const size_t base = static_cast<size_t>(row) * d;
     const size_t x_base = static_cast<size_t>(target_row(row, n, n_x, fold)) * d;
     float acc = 0.0f;
-    for (int c = 0; c < d; ++c) acc += bce_term(logits[base + c], x[x_base + c]);
+    for (int c = 0; c < d; ++c) acc += bce_term(logits[base + c], load_x(x, x_base + c));
     out[row] = acc;
   }
 }
@@ -288,8 +311,9 @@ __global__ void bce_thread_rows_kernel(const float* __restrict__ logits,
 // The b-major map of examples of `inner` rows: (a, t, b) from the grid,
 // each axis strided by its grid (x: the inner rows, y: the terms, z: the
 // examples).
+template <typename T>
 __global__ void bce_inner_rows_kernel(const float* __restrict__ logits,
-                                      const float* __restrict__ x,
+                                      const T* __restrict__ x,
                                       float* __restrict__ out, int n_b, int k,
                                       int inner, int d) {
   for (int b = blockIdx.z; b < n_b; b += gridDim.z) {
@@ -301,7 +325,7 @@ __global__ void bce_inner_rows_kernel(const float* __restrict__ logits,
         const size_t x_row = static_cast<size_t>(b) * inner + a;
         float acc = 0.0f;
         for (int c = 0; c < d; ++c) {
-          acc += bce_term(logits[row * d + c], x[x_row * d + c]);
+          acc += bce_term(logits[row * d + c], load_x(x, x_row * d + c));
         }
         out[row] = acc;
       }
@@ -309,8 +333,8 @@ __global__ void bce_inner_rows_kernel(const float* __restrict__ logits,
   }
 }
 
-template <bool kVec>
-cudaError_t launch_split(const float* logits, const float* x, float* out,
+template <bool kVec, typename T>
+cudaError_t launch_split(const float* logits, const T* x, float* out,
                          int n, int d, int n_x, int fold, int threads,
                          int split, cudaStream_t stream) {
   cudaLaunchConfig_t config = {};
@@ -324,7 +348,7 @@ cudaError_t launch_split(const float* logits, const float* x, float* out,
   cluster[0].val.clusterDim.z = 1;
   config.attrs = cluster;
   config.numAttrs = split > 1 ? 1 : 0;  // a block per row needs no cluster
-  return cudaLaunchKernelEx(&config, bce_split_kernel<kVec>, logits, x, out, n,
+  return cudaLaunchKernelEx(&config, bce_split_kernel<kVec, T>, logits, x, out, n,
                             d, n_x, fold, split);
 }
 
@@ -378,6 +402,16 @@ __device__ __forceinline__ float4 bce_dlogit(float g, float4 l, float4 x) {
 template <bool kVec>
 using GradUnit = typename std::conditional<kVec, float4, float>::type;
 
+// Unit c of a row of targets as f32.
+template <bool kVec, typename T>
+__device__ __forceinline__ GradUnit<kVec> load_unit(const T* row, int c) {
+  if constexpr (kVec) {
+    return load_x4(row, c);
+  } else {
+    return load_x(row, c);
+  }
+}
+
 // BCE's gradient in the logits. A unit is a float4 (kVec) or a float of a
 // row of `units` units, one a thread. The grid walks (chunk of a row,
 // target row b, term t): blockIdx.x the chunks of blockDim.x units,
@@ -386,14 +420,14 @@ using GradUnit = typename std::conditional<kVec, float4, float>::type;
 // (t-major, or no fold at k == 1) or b * k + t (b-major): a multiply, so no
 // divide stands before a load, and a thread issues its three loads (g, the
 // logits, the target) before its first arithmetic.
-template <bool kVec>
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(1024)
-    bce_rows_grad_kernel(const float* __restrict__ logits, const float* __restrict__ x,
+    bce_rows_grad_kernel(const float* __restrict__ logits, const T* __restrict__ x,
                          const float* __restrict__ g, float* __restrict__ dlogits,
                          int units, int n_x, int k, int fold_b) {
   using Unit = GradUnit<kVec>;
+  constexpr int kElems = kVec ? 4 : 1;
   const Unit* l = reinterpret_cast<const Unit*>(logits);
-  const Unit* t_rows = reinterpret_cast<const Unit*>(x);
   Unit* out = reinterpret_cast<Unit*>(dlogits);
   for (int t = blockIdx.z; t < k; t += gridDim.z) {
     for (int b = blockIdx.y * blockDim.y + threadIdx.y; b < n_x;
@@ -401,11 +435,11 @@ __global__ void __launch_bounds__(1024)
       const int row = fold_b ? b * k + t : t * n_x + b;
       const float gr = g[row];
       const Unit* lr = l + static_cast<size_t>(row) * units;
-      const Unit* xr = t_rows + static_cast<size_t>(b) * units;
+      const T* xr = x + static_cast<size_t>(b) * units * kElems;
       Unit* dr = out + static_cast<size_t>(row) * units;
       for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < units;
            c += gridDim.x * blockDim.x) {
-        dr[c] = bce_dlogit(gr, lr[c], xr[c]);
+        dr[c] = bce_dlogit(gr, lr[c], load_unit<kVec>(xr, c));
       }
     }
   }
@@ -413,6 +447,11 @@ __global__ void __launch_bounds__(1024)
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+// Whether the targets at p can be read four at a time.
+template <typename T>
+bool aligned4(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
 }
 
 // Blocks of kGradThreads threads for `units` elementwise units, at most
@@ -432,6 +471,50 @@ int n_blocks(int n) {
 constexpr int kMaxGridYZ = 65535;
 constexpr long long kIntEnd = 1LL << 31;
 
+template <typename T>
+int bce_rows_t(const float* logits, const T* x, float* out, int n, int d, int n_x, int fold,
+               int layout, int threads, int split, int blocks, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && aligned16(logits) && aligned4(x);
+  if (layout == 1) {
+    const cudaError_t rc =
+        vec ? launch_split<true>(logits, x, out, n, d, n_x, fold, threads, split, stream)
+            : launch_split<false>(logits, x, out, n, d, n_x, fold, threads, split, stream);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  } else if (layout == 2) {
+    bce_thread_rows_kernel<<<blocks, threads, 0, stream>>>(logits, x, out, n, d, n_x, fold);
+  } else if (vec) {
+    bce_rows_kernel<true><<<blocks, threads, 0, stream>>>(logits, x, out, n, d, n_x, fold);
+  } else {
+    bce_rows_kernel<false><<<blocks, threads, 0, stream>>>(logits, x, out, n, d, n_x, fold);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bce_rows_grad_t(const float* logits, const T* x, const float* g, float* dlogits, int n,
+                    int d, int n_x, int fold, int threads, int lanes, int grid_x, int grid_y,
+                    int grid_z, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && aligned16(logits) && aligned4(x) && aligned16(dlogits);
+  const int units = vec ? d / 4 : d;
+  const int k = n / n_x;
+  const int rows = threads / lanes;
+  // The indices the kernel strides to stay below 2^31.
+  if (units + static_cast<long long>(grid_x) * lanes >= kIntEnd ||
+      n_x + static_cast<long long>(grid_y) * rows >= kIntEnd ||
+      k + static_cast<long long>(grid_z) >= kIntEnd) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, grid_y, grid_z), block(lanes, rows);
+  if (vec) {
+    bce_rows_grad_kernel<true><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
+                                                           k, fold == 2);
+  } else {
+    bce_rows_grad_kernel<false><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
+                                                            k, fold == 2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* row_reduce_error_string(int code) {
@@ -450,47 +533,39 @@ extern "C" int kl_rows(const float* mu, const float* lv, float* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// layout 0: `blocks` blocks of `threads` (a multiple of 32), a warp per
-// row; layout 1: n * split blocks of `threads` in clusters of `split`
-// (1-8), `blocks` == n * split; layout 2: `blocks` blocks of `threads`, a
-// thread per row.
-extern "C" int bce_rows(const float* logits, const float* x, float* out,
-                        int n, int d, int n_x, int fold, int layout,
+// x_dtype: 0 = float32, 1 = bfloat16, of the targets x alone (the logits
+// and out are f32). layout 0: `blocks` blocks of `threads` (a multiple of
+// 32), a warp per row; layout 1: n * split blocks of `threads` in clusters
+// of `split` (1-8), `blocks` == n * split; layout 2: `blocks` blocks of
+// `threads`, a thread per row.
+extern "C" int bce_rows(const float* logits, const void* x, float* out,
+                        int n, int d, int n_x, int fold, int x_dtype, int layout,
                         int threads, int split, int blocks,
                         cudaStream_t stream) {
   if (n <= 0 || d < 0 || n_x <= 0 || fold < 0 || fold > 2 ||
       (fold == 0 && n_x != n) || (fold != 0 && n % n_x != 0) || layout < 0 ||
       layout > 2 || threads < kWarp || threads > 1024 || threads % kWarp != 0 ||
       blocks < 1 || split < 1 || split > kMaxSplit ||
-      (layout == 1 && static_cast<long long>(n) * split != blocks)) {
+      (layout == 1 && static_cast<long long>(n) * split != blocks) || x_dtype < 0 ||
+      x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = d % 4 == 0 && aligned16(logits) && aligned16(x);
-  if (layout == 1) {
-    const cudaError_t rc =
-        vec ? launch_split<true>(logits, x, out, n, d, n_x, fold, threads, split, stream)
-            : launch_split<false>(logits, x, out, n, d, n_x, fold, threads, split, stream);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  } else if (layout == 2) {
-    bce_thread_rows_kernel<<<blocks, threads, 0, stream>>>(logits, x, out, n, d,
-                                                           n_x, fold);
-  } else if (vec) {
-    bce_rows_kernel<true><<<blocks, threads, 0, stream>>>(logits, x, out, n, d,
-                                                          n_x, fold);
-  } else {
-    bce_rows_kernel<false><<<blocks, threads, 0, stream>>>(logits, x, out, n, d,
-                                                           n_x, fold);
+  if (x_dtype == 1) {
+    return bce_rows_t(logits, static_cast<const __nv_bfloat16*>(x), out, n, d, n_x, fold,
+                      layout, threads, split, blocks, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return bce_rows_t(logits, static_cast<const float*>(x), out, n, d, n_x, fold, layout,
+                    threads, split, blocks, stream);
 }
 
 // logits: (n_b * k * inner, d) and out: (n_b * k * inner,), logits row
 // (b * k + t) * inner + a scored against x row b * inner + a of x:
-// (n_b * inner, d); all f32, contiguous. Blocks of (lanes, rows) threads
-// (at most 1024) over a grid of (grid_x, grid_y, grid_z), y and z at most
-// 65,535, every axis strided by its grid.
-extern "C" int bce_rows_inner(const float* logits, const float* x, float* out,
-                              int n_b, int k, int inner, int d, int lanes,
+// (n_b * inner, d), float32 or bfloat16 (x_dtype 0 or 1); the rest f32; all
+// contiguous. Blocks of (lanes, rows) threads (at most 1024) over a grid of
+// (grid_x, grid_y, grid_z), y and z at most 65,535, every axis strided by
+// its grid.
+extern "C" int bce_rows_inner(const float* logits, const void* x, float* out,
+                              int n_b, int k, int inner, int d, int x_dtype, int lanes,
                               int rows, int grid_x, int grid_y, int grid_z,
                               cudaStream_t stream) {
   if (n_b <= 0 || k <= 0 || inner <= 0 || d < 0 || lanes < 1 || rows < 1 ||
@@ -498,12 +573,17 @@ extern "C" int bce_rows_inner(const float* logits, const float* x, float* out,
       grid_y < 1 || grid_y > kMaxGridYZ || grid_z < 1 || grid_z > kMaxGridYZ ||
       static_cast<long long>(n_b) * k * inner >= kIntEnd ||
       inner + static_cast<long long>(grid_x) * lanes >= kIntEnd ||
-      k + static_cast<long long>(grid_y) * rows >= kIntEnd) {
+      k + static_cast<long long>(grid_y) * rows >= kIntEnd || x_dtype < 0 || x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(grid_x, grid_y, grid_z), block(lanes, rows);
-  bce_inner_rows_kernel<<<grid, block, 0, stream>>>(logits, x, out, n_b, k,
-                                                    inner, d);
+  if (x_dtype == 1) {
+    bce_inner_rows_kernel<<<grid, block, 0, stream>>>(
+        logits, static_cast<const __nv_bfloat16*>(x), out, n_b, k, inner, d);
+  } else {
+    bce_inner_rows_kernel<<<grid, block, 0, stream>>>(logits, static_cast<const float*>(x),
+                                                      out, n_b, k, inner, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -527,39 +607,28 @@ extern "C" int kl_rows_grad(const float* mu, const float* lv, const float* g,
 }
 
 // logits, dlogits: (n, d); x: (n_x, d) read through the row map `fold` as
-// in bce_rows; g: (n,); all f32, contiguous. The plan: blocks of `threads`
-// threads (a multiple of 32, at most 1024), `lanes` of them along a row
-// (threads / lanes rows a block), a unit a thread (units: float4s where d %
-// 4 == 0 and every pointer is 16-byte aligned, else floats), a grid of
-// (grid_x, grid_y, grid_z) blocks (y and z at most 65,535), every axis
-// strided by its grid.
-extern "C" int bce_rows_grad(const float* logits, const float* x, const float* g,
-                             float* dlogits, int n, int d, int n_x, int fold, int threads,
-                             int lanes, int grid_x, int grid_y, int grid_z,
+// in bce_rows, float32 or bfloat16 (x_dtype 0 or 1); g: (n,); the rest f32;
+// all contiguous. The plan: blocks of `threads` threads (a multiple of 32,
+// at most 1024), `lanes` of them along a row (threads / lanes rows a
+// block), a unit a thread (units: 4 elements where d % 4 == 0, the logits
+// and dlogits are 16-byte aligned and x is aligned to 4 of its elements,
+// else 1), a grid of (grid_x, grid_y, grid_z) blocks (y and z at most
+// 65,535), every axis strided by its grid.
+extern "C" int bce_rows_grad(const float* logits, const void* x, const float* g,
+                             float* dlogits, int n, int d, int n_x, int fold, int x_dtype,
+                             int threads, int lanes, int grid_x, int grid_y, int grid_z,
                              cudaStream_t stream) {
   if (n <= 0 || d <= 0 || n_x <= 0 || fold < 0 || fold > 2 || (fold == 0 && n_x != n) ||
       (fold != 0 && n % n_x != 0) || threads < kWarp || threads > 1024 ||
       threads % kWarp != 0 || lanes < 1 || threads % lanes != 0 || grid_x < 1 ||
-      grid_y < 1 || grid_y > kMaxGridYZ || grid_z < 1 || grid_z > kMaxGridYZ) {
+      grid_y < 1 || grid_y > kMaxGridYZ || grid_z < 1 || grid_z > kMaxGridYZ ||
+      x_dtype < 0 || x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = d % 4 == 0 && aligned16(logits) && aligned16(x) && aligned16(dlogits);
-  const int units = vec ? d / 4 : d;
-  const int k = n / n_x;
-  const int rows = threads / lanes;
-  // The indices the kernel strides to stay below 2^31.
-  if (units + static_cast<long long>(grid_x) * lanes >= kIntEnd ||
-      n_x + static_cast<long long>(grid_y) * rows >= kIntEnd ||
-      k + static_cast<long long>(grid_z) >= kIntEnd) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 1) {
+    return bce_rows_grad_t(logits, static_cast<const __nv_bfloat16*>(x), g, dlogits, n, d,
+                           n_x, fold, threads, lanes, grid_x, grid_y, grid_z, stream);
   }
-  const dim3 grid(grid_x, grid_y, grid_z), block(lanes, rows);
-  if (vec) {
-    bce_rows_grad_kernel<true><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
-                                                           k, fold == 2);
-  } else {
-    bce_rows_grad_kernel<false><<<grid, block, 0, stream>>>(logits, x, g, dlogits, units, n_x,
-                                                            k, fold == 2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bce_rows_grad_t(logits, static_cast<const float*>(x), g, dlogits, n, d, n_x, fold,
+                         threads, lanes, grid_x, grid_y, grid_z, stream);
 }

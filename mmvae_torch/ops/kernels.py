@@ -8,7 +8,8 @@
     per row, reading its targets through a row map (``FOLD_*``; b-major
     also over examples of several rows, the CelebA attributes' IWAE fold)
     so term-tiled logits are scored against one untiled copy of the
-    targets, in the layout :func:`bce_plan` picks from the shape;
+    targets (f32, or bf16 upcast on load), in the layout :func:`bce_plan`
+    picks from the shape;
   * ``masked_seq_ce_kernel`` replaces ``mmvae_tpu/ops/kernels.py::
     masked_seq_ce_pallas`` (K3): per example of ``(N, S, V)`` logits, the
     token cross-entropy ``logsumexp(l) - l[token]`` summed over its
@@ -16,10 +17,11 @@
   * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
     NHWC image with 1-4 channels into 32 NCHW channels, a warp per
-    32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes;
+    32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes
+    (f32, bf16, or a bf16 image into f32 weights);
     ``conv4x4s2_swish_grad_kernel`` is its backward in the weight and the
     bias (XLA's gradient of stage 0 on the TPU side, which has no Pallas
-    VJP), in the grid :func:`conv_bwd_plan` sizes, and
+    VJP; the image f32 or bf16), in the grid :func:`conv_bwd_plan` sizes, and
     ``conv4x4s2_swish_input_grad_kernel`` its backward in the image (dx),
     both products 3xTF32 on the tensor cores, in the grid :func:`conv_dx_plan`
     sizes;
@@ -164,12 +166,13 @@ _ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "row_reduce": {
         "kl_rows": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
-        "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "bce_rows": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                     _ptr],
         "bce_rows_inner": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-                           _i32, _ptr],
+                           _i32, _i32, _ptr],
         "kl_rows_grad": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-                          _i32, _ptr],
+                          _i32, _i32, _ptr],
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
@@ -180,7 +183,8 @@ _SIGNATURES = {
         "conv4x4s2_swish": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
                             _i32, _i32, _i32, _ptr],
         "conv4x4s2_swish_bwd": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr,
-                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+                                _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                                _ptr],
         "conv4x4s2_swish_dx": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _i32,
                                _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
@@ -258,11 +262,17 @@ def _library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _check_rows(name: str, t: torch.Tensor) -> None:
+# The types the kernels read data in (K2's and its VJP's targets, the image
+# of K4's backward), and the code each C interface takes for it.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_rows(name: str, t: torch.Tensor, dtypes=(torch.float32,)) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
     if t.dim() != 2:
         raise ValueError(f"{name} must be 2-D rows, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -470,7 +480,8 @@ def bernoulli_nll_kernel(
 ) -> torch.Tensor:
     """Summed BCE-with-logits of each row of ``(N, D)`` f32 CUDA logits.
 
-    ``x`` holds ``(n_x, D)`` targets: ``n_x == N`` with ``FOLD_NONE``, or
+    ``x`` holds ``(n_x, D)`` targets, float32 or bfloat16 (upcast as they
+    are loaded; the sums stay f32): ``n_x == N`` with ``FOLD_NONE``, or
     one copy of a term tiling of ``N // n_x`` terms in the order ``fold``
     names -- the tiled copy is never made. ``inner > 1`` with ``FOLD_B``:
     the targets are examples of ``inner`` rows each (as :func:`tile_rows`
@@ -479,7 +490,7 @@ def bernoulli_nll_kernel(
     :func:`bce_inner_plan`) of the shape and the card.
     """
     _check_rows("logits", logits)
-    _check_rows("x", x)
+    _check_rows("x", x, tuple(_DTYPE_CODES))
     if x.shape[1] != logits.shape[1] or x.device != logits.device:
         raise ValueError(
             f"logits {tuple(logits.shape)} on {logits.device} and x "
@@ -504,7 +515,8 @@ def bernoulli_nll_kernel(
             raise TypeError(f"inner={inner} takes a BceInnerPlan, got {plan!r}")
         _launch(
             "row_reduce", "bce_rows_inner", logits.device, logits.data_ptr(), x.data_ptr(),
-            out.data_ptr(), n_x // inner, n // n_x, inner, d, *plan,
+            out.data_ptr(), n_x // inner, n // n_x, inner, d, _DTYPE_CODES[x.dtype],
+            *plan,
         )
     else:
         plan = plan or bce_plan(n, d, _sm_count(logits.device.index or 0))
@@ -512,7 +524,7 @@ def bernoulli_nll_kernel(
             raise TypeError(f"bce_rows takes a BcePlan, got {plan!r}")
         _launch(
             "row_reduce", "bce_rows", logits.device, logits.data_ptr(), x.data_ptr(),
-            out.data_ptr(), n, d, n_x, fold, *plan,
+            out.data_ptr(), n, d, n_x, fold, _DTYPE_CODES[x.dtype], *plan,
         )
     LAUNCHES["bce"] += 1
     return out
@@ -521,7 +533,8 @@ def bernoulli_nll_kernel(
 def bernoulli_nll_torch(
     logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE, inner: int = 1
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`bernoulli_nll_kernel` (tiles ``x``)."""
+    """Plain PyTorch version of :func:`bernoulli_nll_kernel` (tiles ``x``,
+    a bf16 ``x`` upcast to the logits' type)."""
     return _bce_plain(logits, tile_rows(x, logits.shape[0], fold, inner), 1)
 
 
@@ -586,12 +599,12 @@ def bce_rows_grad_kernel(
     plan: BceGradPlan | None = None,
 ) -> torch.Tensor:
     """K2's VJP in the logits on ``(N, D)`` f32 CUDA rows: ``g[r] *
-    (sigmoid(logits[r]) - x[map(r)])``, as ``_bce_bwd``, with ``x`` and
-    ``fold`` as :func:`bernoulli_nll_kernel` takes them (the tiled copy is
-    never made) and ``g`` the ``(N,)`` upstream gradient, in the launch
-    :func:`bce_grad_plan` gives the shape (or ``plan``)."""
+    (sigmoid(logits[r]) - x[map(r)])``, as ``_bce_bwd``, with ``x`` (float32
+    or bfloat16) and ``fold`` as :func:`bernoulli_nll_kernel` takes them (the
+    tiled copy is never made) and ``g`` the ``(N,)`` upstream gradient, in
+    the launch :func:`bce_grad_plan` gives the shape (or ``plan``)."""
     _check_rows("logits", logits)
-    _check_rows("x", x)
+    _check_rows("x", x, tuple(_DTYPE_CODES))
     if x.shape[1] != logits.shape[1] or x.device != logits.device:
         raise ValueError(
             f"logits {tuple(logits.shape)} on {logits.device} and x "
@@ -612,7 +625,7 @@ def bce_rows_grad_kernel(
     plan = plan or bce_grad_plan(n, d, n_x)
     _launch(
         "row_reduce", "bce_rows_grad", logits.device, logits.data_ptr(), x.data_ptr(),
-        g.data_ptr(), out.data_ptr(), n, d, n_x, fold, *plan,
+        g.data_ptr(), out.data_ptr(), n, d, n_x, fold, _DTYPE_CODES[x.dtype], *plan,
     )
     LAUNCHES["bce_bwd"] += 1
     return out
@@ -847,7 +860,11 @@ def masked_seq_ce_grad_torch(
 
 # Output channels of K4 (the CelebA image encoder's first stage).
 CONV_OUT = 32
-_CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (x's type, the weight's, bias's and output's type) -> K4's dtype code: all
+# f32, all bf16, or a bf16 image into f32 weights and output (a
+# data_dtype="bfloat16" batch meeting the f32 model).
+_CONV_DTYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+                (torch.bfloat16, torch.float32): 2}
 # A warp of K4 computes one unit: 32 output pixels of one output row (8
 # lanes x 4 pixels), all 32 channels (4 lanes x 8), from 4 staged input
 # rows of CONV_TILE_COLS columns.
@@ -930,19 +947,21 @@ def conv4x4s2_swish_kernel(
     """``swish(conv(x, weight, SAME, stride 2) + bias)`` on the card.
 
     ``x``: ``(B, H, W, C)`` NHWC with 1 <= C <= 4; ``weight``: ``(32, C, 4,
-    4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors of one
-    dtype, float32 or bfloat16. Returns ``(B, 32, ceil(H/2), ceil(W/2))``
-    NCHW in that dtype, accumulated in f32. ``plan`` overrides
+    4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors, of one
+    dtype, float32 or bfloat16, or a bfloat16 ``x`` with float32 weight
+    and bias. Returns ``(B, 32, ceil(H/2), ceil(W/2))`` NCHW in the
+    weight's dtype, accumulated in f32. ``plan`` overrides
     :func:`conv_plan` of the shape and the card.
     """
+    dtypes = (x.dtype, weight.dtype)
+    if dtypes not in _CONV_DTYPES or bias.dtype != weight.dtype:
+        raise TypeError(
+            f"x, weight and bias must be all float32, all bfloat16, or a bfloat16 x with "
+            f"float32 weight and bias, got {x.dtype}, {weight.dtype}, {bias.dtype}"
+        )
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype not in _CONV_DTYPES or t.dtype != x.dtype:
-            raise TypeError(
-                f"x, weight and bias must share a dtype of float32 or bfloat16, "
-                f"got {x.dtype}, {weight.dtype}, {bias.dtype}"
-            )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
@@ -958,14 +977,14 @@ def conv4x4s2_swish_kernel(
     if max(x.shape) >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
     out = torch.empty(
-        (b, CONV_OUT, -(-h // 2), -(-w // 2)), dtype=x.dtype, device=x.device
+        (b, CONV_OUT, -(-h // 2), -(-w // 2)), dtype=weight.dtype, device=x.device
     )
     if out.numel() == 0:
         return out
     plan = plan or conv_plan(b, h, w, c, _sm_count(x.device.index or 0))
     _launch(
         "conv_s2", "conv4x4s2_swish", x.device, x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[x.dtype], *plan,
+        bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[dtypes], *plan,
     )
     LAUNCHES["conv"] += 1
     return out
@@ -976,13 +995,13 @@ def conv4x4s2_swish_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv4x4s2_swish_kernel` (any output
     channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32, cast
-    to ``x``'s dtype."""
+    to the type ``x`` and ``weight`` promote to."""
     h = x.permute(0, 3, 1, 2).to(torch.float32)
     y = F.conv2d(
         F.pad(h, same_pad(h.shape[-2:])), weight.to(torch.float32),
         bias.to(torch.float32), stride=2,
     )
-    return (y * torch.sigmoid(y)).to(x.dtype)
+    return (y * torch.sigmoid(y)).to(torch.promote_types(x.dtype, weight.dtype))
 
 
 # The backward of K4 walks tiles of CONV_TILE_W output pixels by ``rows``
@@ -1058,17 +1077,20 @@ def conv_bwd_plan(
 
 
 def _check_conv_grad(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    x_dtypes: tuple[torch.dtype, ...] = (torch.float32,),
 ) -> None:
-    """The arguments K4's backward kernels take: float32 CUDA tensors on
-    one device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4, ``weight`` and
-    ``bias`` of its shapes, contiguous, and ``g`` (any strides) of the
-    output's shape."""
+    """The arguments K4's backward kernels take: CUDA tensors on one
+    device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4 of a type in
+    ``x_dtypes``, float32 ``weight`` and ``bias`` of its shapes, all
+    contiguous, and a float32 ``g`` (any strides) of the output's shape."""
     for name, t in (("x", x), ("weight", weight), ("bias", bias), ("g", g)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        allowed = x_dtypes if name == "x" else (torch.float32,)
+        if t.dtype not in allowed:
+            names = " or ".join(str(d).removeprefix("torch.") for d in allowed)
+            raise TypeError(f"{name} must be {names}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if name != "g" and not t.is_contiguous():
@@ -1095,12 +1117,13 @@ def conv4x4s2_swish_grad_kernel(
     """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
     weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
     ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
-    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x``,
-    ``weight`` and ``bias`` (as the forward takes them, float32 only);
-    ``g`` may be any strided float32 view. The sums over ``B x ceil(H/2) x
-    ceil(W/2)`` are taken in a fixed order (no atomics): the same plan gives
-    the same bits. ``plan`` overrides :func:`conv_bwd_plan`."""
-    _check_conv_grad(x, weight, bias, g)
+    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x`` (float32,
+    or bfloat16, which the kernel upcasts as it stages it), ``weight`` and
+    ``bias`` (float32); ``g`` may be any strided float32 view. The sums over
+    ``B x ceil(H/2) x ceil(W/2)`` are taken in a fixed order (no atomics):
+    the same plan gives the same bits. ``plan`` overrides
+    :func:`conv_bwd_plan`."""
+    _check_conv_grad(x, weight, bias, g, (torch.float32, torch.bfloat16))
     b, h, w, c = x.shape
     d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=torch.float32, device=x.device)
     d_b = torch.empty(CONV_OUT, dtype=torch.float32, device=x.device)
@@ -1111,7 +1134,7 @@ def conv4x4s2_swish_grad_kernel(
     _launch(
         "conv_s2", "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), g.data_ptr(), *g.stride(), ws.data_ptr(), d_w.data_ptr(),
-        d_b.data_ptr(), b, h, w, c, *plan,
+        d_b.data_ptr(), b, h, w, c, _DTYPE_CODES[x.dtype], *plan,
     )
     LAUNCHES["conv_bwd"] += 1
     return d_w, d_b

@@ -7,7 +7,8 @@ each with three registrations:
   * ``mmvae::conv4x4s2_swish(x, weight, bias)`` -- K4
     (``kernels.conv4x4s2_swish_kernel``) for CUDA tensors, its plain version
     (``kernels.conv4x4s2_swish_torch``) for CPU tensors, and a fake that
-    gives ``(B, F, ceil(H/2), ceil(W/2))`` in ``x``'s dtype;
+    gives ``(B, F, ceil(H/2), ceil(W/2))`` in the type ``x`` and the weight
+    promote to;
   * ``mmvae::poe_kl(mu_e, lv_e, masks, presence)`` -- the fused PoE + KL
     (``kernels.poe_kl_kernel``, its inputs made f32 and contiguous) for
     CUDA tensors, ``kernels.poe_kl_torch`` for CPU tensors, and a fake that
@@ -52,7 +53,8 @@ def _conv_cpu(x, weight, bias):
 
 def _conv_fake(x, weight, bias):
     b, h, w, _ = x.shape
-    return x.new_empty((b, weight.shape[0], -(-h // 2), -(-w // 2)))
+    return x.new_empty((b, weight.shape[0], -(-h // 2), -(-w // 2)),
+                       dtype=torch.promote_types(x.dtype, weight.dtype))
 
 
 def _poe_kl_cuda(mu_e, lv_e, masks, presence):

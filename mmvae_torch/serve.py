@@ -38,10 +38,20 @@ batch position (``serving.make_generate_fn``). A request with seed s and
 n rows takes row seeds s..s+n-1, the expansion ``load_generate`` applies.
 Requests coalesce only at equal ``temperature`` (one scalar a call). On
 the card exactness also needs calls that repeat to the bit, so
-:func:`main` selects cuDNN's deterministic algorithms. A dynamic artifact
-is called at power-of-two batches, so that a host sees few distinct
-shapes. A scalar-seed artifact serves one request a call (coalescing
-would change its draws); ``/stats`` says which mode is live.
+:func:`main` selects cuDNN's deterministic algorithms, and it needs ONE
+batch a call: at another batch cuBLAS and cuDNN pick other algorithms,
+which sum in another order, so the same row served at batch 1, 8 and 64
+differs in its last bits (up to 1.19e-7 in MNIST's image on an H100), and
+a reply would depend on the strangers it was coalesced with. So on the
+card a dynamic artifact is called at ``--max-batch`` rows always (a group
+padded to it, a larger request cut into calls of it): a request of one
+row costs a call of ``max_batch``. On the CPU, where a row's output does
+not depend on the batch, a dynamic artifact is called at power-of-two
+batches, so that a host sees few distinct shapes. A direct ``call`` of a
+dynamic artifact at another batch may differ from the host's replies in
+the last bit. A static artifact always runs at its batch. A scalar-seed
+artifact serves one request a call (coalescing would change its draws);
+``/stats`` says which mode is live.
 """
 
 from __future__ import annotations
@@ -119,16 +129,26 @@ class Batcher:
     For ``seed_mode="per_row"`` artifacts only, whose rows do not depend
     on their batch position: splitting a coalesced call's outputs back per
     request is then exact. A worker thread forms the groups; :meth:`close`
-    stops it.
+    stops it. ``device`` is where ``call`` runs (``call.device`` by
+    default, as ``serving.load_generate`` sets it; the CPU when it has
+    none). On the card a dynamic artifact is called at ``max_batch`` rows
+    always, the group padded to it (a group of more rows as several calls
+    of ``max_batch``), because the card's libraries sum in another order at
+    another batch and a row's bits would follow its batch: the module
+    docstring says why and what it costs.
     """
 
     def __init__(self, call, shapes, n_modalities, *, static_batch, max_batch=64,
-                 max_wait_ms=5.0):
+                 max_wait_ms=5.0, device=None):
         self.call = call
         self.shapes = shapes
         self.n_modalities = n_modalities
         self.static_batch = static_batch  # None for a dynamic artifact
         self.max_batch = static_batch or max_batch
+        device = torch.device(device or getattr(call, "device", None) or "cpu")
+        # One batch for every call: a static artifact's, or on the card a
+        # dynamic artifact's max_batch.
+        self.fixed_batch = static_batch or (max_batch if device.type == "cuda" else None)
         self.max_wait = max_wait_ms / 1e3
         self.q: queue.Queue[_Item | None] = queue.Queue()
         self.stats = {"requests": 0, "device_calls": 0, "rows": 0, "padded_rows": 0,
@@ -155,11 +175,12 @@ class Batcher:
         return item.out
 
     def _alloc(self, total):
-        """The batch a call of ``total`` rows runs at: a static artifact's,
-        else the next power of two up to ``max_batch`` (past it, ``total``),
-        so that the program sees few distinct batch sizes."""
-        if self.static_batch:
-            return self.static_batch
+        """The batch a call of ``total`` rows runs at: ``fixed_batch`` where
+        there is one (a group of more rows takes several calls of it), else
+        the next power of two up to ``max_batch`` (past it, ``total``), so
+        that the program sees few distinct batch sizes."""
+        if self.fixed_batch:
+            return self.fixed_batch
         b = 1
         while b < total:
             b *= 2
@@ -192,10 +213,12 @@ class Batcher:
 
     def _run(self, group, total):
         alloc = self._alloc(total)
+        calls = -(-total // alloc)
+        rows = calls * alloc
         try:
-            batch = {k: np.zeros((alloc,) + shp[1:], dt) for k, (shp, dt) in self.shapes.items()}
-            presence = np.zeros((alloc, self.n_modalities), np.float32)
-            seeds = np.zeros((alloc,), np.int64)
+            batch = {k: np.zeros((rows,) + shp[1:], dt) for k, (shp, dt) in self.shapes.items()}
+            presence = np.zeros((rows, self.n_modalities), np.float32)
+            seeds = np.zeros((rows,), np.int64)
             off = 0
             for it in group:
                 for k, v in it.batch.items():
@@ -203,11 +226,14 @@ class Batcher:
                 presence[off:off + it.n] = it.presence
                 seeds[off:off + it.n] = it.seeds
                 off += it.n
-            out = _host(self.call(batch, presence, seed=seeds,
-                                  temperature=group[0].temperature))
+            parts = [_host(self.call({k: v[i:i + alloc] for k, v in batch.items()},
+                                     presence[i:i + alloc], seed=seeds[i:i + alloc],
+                                     temperature=group[0].temperature))
+                     for i in range(0, rows, alloc)]
+            out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
             with self._lock:
-                self.stats["device_calls"] += 1
-                self.stats["padded_rows"] += alloc - total
+                self.stats["device_calls"] += calls
+                self.stats["padded_rows"] += rows - total
                 if len(group) > 1:
                     self.stats["coalesced_calls"] += 1
             off = 0
@@ -399,7 +425,7 @@ def make_server(path, port, *, max_batch=64, max_wait_ms=5.0, batching=True, dev
         dynamic = meta["batch_size"] == "dynamic"
         batcher = Batcher(call, shapes, len(meta["modalities"]),
                           static_batch=None if dynamic else int(meta["batch_size"]),
-                          max_batch=max_batch, max_wait_ms=max_wait_ms)
+                          max_batch=max_batch, max_wait_ms=max_wait_ms, device=call.device)
     server = ThreadingHTTPServer(("127.0.0.1", port), make_handler(meta, call, batcher))
     return server, meta, batcher
 

@@ -284,7 +284,8 @@ def load_generate(path: str, device: torch.device | str | None = None):
     tensors and returns ``{modality: tensor}`` on ``device``. In
     ``per_row`` mode ``seed`` may be a scalar, expanded to ``seed +
     arange(n)`` (each row distinct and deterministic), or an ``(n,)``
-    array of row seeds. ``call.exported`` is the loaded program.
+    array of row seeds. ``call.exported`` is the loaded program and
+    ``call.device`` its device.
     """
     device = resolve_device(device)
     meta, exported = _load_program(path, device)
@@ -304,4 +305,5 @@ def load_generate(path: str, device: torch.device | str | None = None):
             return program(batch, presence, seed, temperature)
 
     call.exported = exported
+    call.device = device
     return meta, call

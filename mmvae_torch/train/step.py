@@ -171,6 +171,24 @@ def _device_tensor(
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def _dequant_data(data: dict) -> dict:
+    """uint8 leaves of a batch (a ``data_dtype="uint8"`` train split:
+    quantized [0, 1] data, ``data/pipelines.py::quantize_uint8``) as f32 in
+    [0, 1], inside the step (``mmvae_tpu/train/step.py:127-152``), so the
+    epoch's gathers move uint8. A division by 255, not a product with its
+    reciprocal, so 255 gives exactly 1 and each value the f32 a division
+    gives; the divisor is a device tensor, because torch on the card takes
+    a CPU scalar divisor as a product with its reciprocal. Other leaves
+    stay as they are: bf16 meets the f32 model as Flax's ``promote_dtype``
+    meets it (``models/experts.py``), and goes to the BCE kernel and K4 as
+    it is."""
+    return {
+        k: v.to(torch.float32) / _device_tensor((255.0,), v.device, torch.float32)
+        if v.dtype == torch.uint8 else v
+        for k, v in data.items()
+    }
+
+
 def _seq_tiled(model, data: dict, n_rows: int) -> dict:
     """``data`` with each sequence modality's tokens tiled t-major to
     ``n_rows`` rows: the teacher-forced decoders read them (as
@@ -404,7 +422,8 @@ def multi_term_loss(
 ):
     """Total multi-term ELBO loss (batch mean) and per-term metrics.
 
-    ``batch`` maps modality names to targets, plus an optional
+    ``batch`` maps modality names to targets (uint8 ones are quantized
+    [0, 1] data, dequantized first: :func:`_dequant_data`), plus an optional
     ``"presence"`` key: a ``(B, M)`` float mask of the modalities each
     example carries. An unobserved modality contributes neither an expert
     nor a recon target; an example with no modality fuses to the prior
@@ -467,8 +486,8 @@ def multi_term_loss(
                 generator, n_random_subsets, n_mod, device=model.device)
         masks = torch.cat([masks, subset_masks.to(masks.dtype)])  # (T, M)
 
-    presence = batch.get("presence")
-    data = {k: v for k, v in batch.items() if k != "presence"}
+    presence = batch.get("presence")  # used as it is, never dequantized
+    data = _dequant_data({k: v for k, v in batch.items() if k != "presence"})
 
     mu_e, lv_e = model.encode(data)  # (B, M, L)
     # (T, B, L) posteriors under the masks times the presence, (T, B) KLs

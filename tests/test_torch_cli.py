@@ -25,7 +25,14 @@ from mmvae_tpu.cli import _overrides as j_overrides
 from mmvae_tpu.configs import get_config as j_get_config
 from mmvae_tpu.models import MnistMVAE as JMnistMVAE
 from mmvae_torch import api, configs
-from mmvae_torch.cli import _UNPORTED_FLAGS, _build_parser, _overrides, main
+from mmvae_torch.cli import (
+    _UNPORTED_FLAGS,
+    _build_parser,
+    _check_ported,
+    _overrides,
+    _resolve_config,
+    main,
+)
 from mmvae_torch.convert import from_flax_params
 from mmvae_torch.models import MnistMVAE
 
@@ -58,7 +65,7 @@ SHARED_ARGV = [
     "--cross-recon-stopgrad", "--unimodal-align-weight", "0.1", "--cycle-weight", "0.5",
     "--cycle-render-grad", "--cycle-render-binarize", "both",
     "--cycle-contrast-weight", "0.3", "--ema-decay", "0.99", "--ckpt-every", "2",
-    "--ckpt-async",
+    "--ckpt-async", "--data-dtype", "uint8", "--eval-segment-steps", "3",
 ]
 
 
@@ -77,7 +84,8 @@ def test_parser_sets_what_the_jax_cli_sets(argv):
         assert getattr(t_cfg, field) == getattr(j_cfg, field), field
     if argv is SHARED_ARGV:
         assert all(getattr(t_cfg, f) != getattr(configs.get_config("mnist"), f)
-                   for f in ("accum_steps", "lr_schedule", "ckpt_async", "objective"))
+                   for f in ("accum_steps", "lr_schedule", "ckpt_async", "objective",
+                             "data_dtype", "eval_segment_steps"))
 
 
 def test_train_writes_the_workdir_and_records(workdir):
@@ -103,6 +111,18 @@ def test_eval_with_iwae(workdir, capsys):
     assert out["iwae_k"] == 3 and np.isfinite(out["log_likelihood"])
     assert out["log_likelihood"] == api.log_likelihood(
         "mnist", workdir=workdir, k=3, seed=4, device="cpu")
+
+
+def test_eval_in_segments(workdir, capsys):
+    """``eval --segment-steps 1``: the ELBO and the IWAE of the split a batch
+    at a time, the same numbers as the split whole."""
+    for segs in ("0", "1"):
+        assert main(["eval", "--config", "mnist", "--workdir", workdir, "--device", "cpu",
+                     "--iwae-k", "2", "--segment-steps", segs]) == 0
+        out = _last_json(capsys)
+        assert out["elbo"] == api.eval_elbo("mnist", workdir=workdir, device="cpu")
+        assert out["log_likelihood"] == api.log_likelihood("mnist", workdir=workdir, k=2,
+                                                           device="cpu")
 
 
 def test_sample_png(workdir, capsys, tmp_path):
@@ -216,24 +236,45 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
     ["--fsdp"], ["--dtype", "bfloat16"], ["--multihost"],
 ])
 def test_unported_train_options_raise(argv):
+    """The flags of what the port does not have raise; ``--eval-segment-steps``
+    and ``--data-dtype`` are ported now and set their fields."""
+    args = ["train", "--config", "mnist", "--device", "cpu", *argv]
+    if argv[0] in _PORTED_DATA_FLAGS:
+        field, value = _PORTED_DATA_FLAGS[argv[0]]
+        parsed = _build_parser().parse_args(args)
+        _check_ported(parsed)
+        assert getattr(_resolve_config(parsed), field) == value
+        return
     with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-        main(["train", "--config", "mnist", "--device", "cpu", *argv])
+        main(args)
+
+
+# The data flags the port took in this slice: flag -> (field, the value above).
+_PORTED_DATA_FLAGS = {"--eval-segment-steps": ("eval_segment_steps", 2),
+                      "--data-dtype": ("data_dtype", "bfloat16")}
 
 
 def test_every_unported_flag_is_covered():
-    covered = {"--data-backend", "--grain-stream-steps", "--eval-segment-steps",
-               "--data-dtype", "--reshuffle-every", "--shuffle-mode", "--shuffle-granularity",
-               "--tp", "--pp", "--fsdp"}
+    covered = {"--data-backend", "--grain-stream-steps", "--reshuffle-every", "--shuffle-mode",
+               "--shuffle-granularity", "--tp", "--pp", "--fsdp"}
     assert set(_UNPORTED_FLAGS.values()) == covered
+    assert not set(_PORTED_DATA_FLAGS) & covered
 
 
 @pytest.mark.parametrize("fields", [{"fsdp": False}, {"data_kwargs": {"hw": 128}},
                                     {"grain_stream_steps": 4}])
 def test_unported_config_file_fields_raise(tmp_path, fields):
+    """Fields the port does not have raise from a config file;
+    ``data_kwargs`` is ported now and is set (its lists as tuples, as the
+    generators take them)."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(fields))
+    argv = ["train", "--config", "mnist", "--device", "cpu", "--config-file", str(path)]
+    if "data_kwargs" in fields:
+        assert _resolve_config(_build_parser().parse_args(argv)).data_kwargs == {"hw": 128}
+        return
     with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-        main(["train", "--config", "mnist", "--device", "cpu", "--config-file", str(path)])
+        main(argv)
 
 
 @pytest.mark.parametrize("cmd", [

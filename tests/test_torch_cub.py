@@ -249,15 +249,32 @@ def test_full_width_config():
 
 
 def test_train_and_a_mounted_corpus_raise(tmp_path, monkeypatch):
-    """A mounted CUB corpus (its vocabulary) is not ported: building the
-    model, training and loading the data raise rather than use the
-    synthetic vocabulary. (``api.train("cub")`` itself trains:
-    ``tests/test_torch_cub_train.py``.)"""
+    """A mounted ``cub/`` with no corpus keeps the synthetic vocabulary
+    (as the JAX config does); a mounted corpus of 6 image-caption pairs
+    sizes the model from its vocabulary, loads (the first caption over it),
+    and ``api.train`` trains on it at a small width (the images at the
+    reader's 64x64)."""
+    from PIL import Image
+
     (tmp_path / "cub").mkdir()
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.train("cub", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.build_model("cub", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_dataset("cub", "test", n=2)
+    assert configs.cub_vocab_size() == V
+    assert load_dataset("cub", "test", n=2).arrays["text"].max() < V
+    rng = np.random.default_rng(0)
+    for j in range(6):
+        (tmp_path / "cub" / "images" / "001.a").mkdir(parents=True, exist_ok=True)
+        (tmp_path / "cub" / "text_c10" / "001.a").mkdir(parents=True, exist_ok=True)
+        Image.fromarray((rng.random((30, 40, 3)) * 255).astype(np.uint8)).save(
+            tmp_path / "cub" / "images" / "001.a" / f"{j}.jpg")
+        (tmp_path / "cub" / "text_c10" / "001.a" / f"{j}.txt").write_text(
+            f"a bird number {j} with {'red blue green'.split()[j % 3]} wings\n")
+    v = configs.cub_vocab_size()
+    assert v == 3 + 1 + 14  # a bird number 0-5 with red blue green wings
+    data = load_dataset("cub", "train")
+    assert data.size == 5 and data.arrays["image"].shape == (5, 64, 64, 3)
+    assert 3 < data.arrays["text"].max() < v
+    cfg = configs.get_config("cub").replace(
+        n_latents=8, epochs=1, batch_size=4, test_size=1,
+        model_kwargs=dict(conv_features=(8, 8)))
+    result = api.train(cfg, device="cpu", verbose=False)
+    assert result.model.vocab_size == v and np.isfinite(result.history[0]["test_elbo"])

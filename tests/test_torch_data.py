@@ -1,11 +1,10 @@
 """The port's ``load_dataset`` against the JAX loader's choice of source.
 
-The port runs only the seeded numpy generators. Wherever the JAX loader
-(``mmvae_tpu/data/pipelines.py::load_dataset``) would read something else
--- a mounted ``$MMVAE_DATA_DIR/<name>/<split>.npz``, a mounted
-``$MMVAE_DATA_DIR/<name>/`` in the distribution formats, or the C++
-generators under ``MMVAE_DATAGEN=native`` -- the port raises rather than
-return other data.
+Both read a mounted ``$MMVAE_DATA_DIR/<name>/<split>.npz`` first, then the
+distribution formats of a mounted ``$MMVAE_DATA_DIR/<name>/`` directory,
+then the seeded generators (the C++ ones under ``MMVAE_DATAGEN=native``
+for ``multimnist`` and ``celeba``), and give the same arrays. The formats
+themselves are ``tests/test_torch_data_formats.py``'s.
 """
 
 import numpy as np
@@ -24,31 +23,45 @@ def _mount_mnist(root, n=5):
     return d
 
 
+def _same(got, want) -> None:
+    assert got.size == want.size and set(got.arrays) == set(want.arrays)
+    for k, v in want.arrays.items():
+        np.testing.assert_array_equal(got.arrays[k], np.asarray(v))
+
+
 def test_mounted_npz_raises_where_the_jax_loader_reads_it(tmp_path, monkeypatch):
+    """A mounted ``test.npz`` is what both loaders read, as it is (its own
+    dtypes and its 4-D image), and ``n`` cuts it."""
     _mount_mnist(tmp_path)
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    assert j_load_dataset("mnist", "test", device_put=False).size == 5
-    with pytest.raises(NotImplementedError, match="MMVAE_DATA_DIR"):
-        load_dataset("mnist", "test")
+    got = load_dataset("mnist", "test")
+    assert got.size == 5 and got.arrays["image"].shape == (5, 28, 28, 1)
+    _same(got, j_load_dataset("mnist", "test", device_put=False))
+    _same(load_dataset("mnist", "test", n=3), j_load_dataset("mnist", "test", n=3,
+                                                             device_put=False))
 
 
 @pytest.mark.parametrize("name", ["mnist", "multimnist", "celeba"])
 def test_mounted_directory_raises(tmp_path, monkeypatch, name):
-    """A directory for the dataset, with no ``<split>.npz``: the JAX loader
-    reads the distribution formats from it."""
+    """A directory for the dataset, with no ``<split>.npz`` and none of its
+    distribution files: both loaders find no format there and generate,
+    and give the same arrays."""
     (tmp_path / name).mkdir()
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_dataset(name, "test", n=4)
+    got = load_dataset(name, "test", n=4)
+    _same(got, j_load_dataset(name, "test", n=4, device_put=False))
+    monkeypatch.setenv("MMVAE_DATA_DIR", "")
+    _same(got, load_dataset(name, "test", n=4))
 
 
 def test_other_split_of_a_mounted_dataset_raises(tmp_path, monkeypatch):
-    """Only ``test.npz`` is mounted: for ``train`` the JAX loader turns to
-    the formats in the same directory, so the port raises too."""
+    """Only ``test.npz`` is mounted: for ``train`` both loaders turn to the
+    formats in the same directory, find no IDX pair and generate."""
     _mount_mnist(tmp_path)
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="MMVAE_DATA_DIR"):
-        load_dataset("mnist", "train", n=4)
+    got = load_dataset("mnist", "train", n=4)
+    _same(got, j_load_dataset("mnist", "train", n=4, device_put=False))
+    assert got.arrays["image"].shape == (4, 28, 28)
 
 
 @pytest.mark.parametrize("name", ["mnist", "multimnist", "celeba"])
@@ -67,9 +80,14 @@ def test_data_dir_without_the_dataset_generates(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["multimnist", "celeba"])
 def test_native_generator_raises(monkeypatch, name):
+    """Under ``MMVAE_DATAGEN=native`` both loaders run the C++ generator of
+    ``name`` (the port its own build of it) and give the same arrays, which
+    are not the numpy generator's."""
+    numpy_data = load_dataset(name, "test", n=4)
     monkeypatch.setenv("MMVAE_DATAGEN", "native")
-    with pytest.raises(NotImplementedError, match="MMVAE_DATAGEN=native"):
-        load_dataset(name, "test", n=4)
+    got = load_dataset(name, "test", n=4)
+    _same(got, j_load_dataset(name, "test", n=4, device_put=False))
+    assert not np.array_equal(got.arrays["image"], numpy_data.arrays["image"])
 
 
 def test_native_generator_leaves_mnist_on_numpy(monkeypatch):

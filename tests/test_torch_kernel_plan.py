@@ -214,11 +214,18 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
      ("row_reduce", "bce_rows_inner", 7, kernels.BceInnerPlan)],
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
-    """The wrapper passes its arguments, the plan's fields and the stream:
-    the ctypes signature has a slot for each, all ints."""
+    """The wrapper passes its arguments, the code of its data's type where
+    it reads f32 or bf16 data (K2's and its VJP's targets, the image of
+    K4's backward), the plan's fields and the stream: the ctypes signature
+    has a slot for each, all ints."""
     sig = kernels._SIGNATURES[lib][fn]
-    assert len(sig) == n_args + len(plan_type._fields) + 1
+    dtype_code = int(fn in _TAKE_A_DTYPE_CODE)
+    assert len(sig) == n_args + dtype_code + len(plan_type._fields) + 1
     assert all(t is kernels._i32 for t in sig[n_args:-1])
+
+
+# The launches that take the code of their data's type before the plan.
+_TAKE_A_DTYPE_CODE = ("bce_rows", "bce_rows_inner", "bce_rows_grad", "conv4x4s2_swish_bwd")
 
 
 def test_conv_bwd_signature_takes_the_gradient_strides_as_64_bits():

@@ -1484,3 +1484,210 @@ def test_ops_gradients_on_the_card_match_the_torch_backend(cuda, op):
     assert kernels.LAUNCHES[counter] == before + 1
     for a, b in zip(on_card, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+
+
+# ------------------------------------------------ bf16 data, V = 2,004 ----
+# A data_dtype="bfloat16" train split reaches K2 and its VJP as bf16
+# targets and K4 (forward, and the backward in its weight and bias) as a
+# bf16 image; the kernels upcast on load, the plain versions upcast, so the
+# tolerances are the f32 ones. MNIST's train rows (200 onto 100, D = 784),
+# CelebA's image and attribute rows, CUB's decode-all pass, and odd and
+# unaligned cases.
+
+
+def _bf16_targets(gen, n, d, fold, device, offset: int = 0):
+    """Logits and bf16 targets (``offset`` elements into their storage, so
+    that 4 of them do not start on 8 bytes)."""
+    n_x = n if fold == kernels.FOLD_NONE else n // 2
+    logits = _rand(gen, n, d, device=device, scale=3.0)
+    x = torch.rand(n_x * d + offset, generator=gen).to(device, torch.bfloat16)
+    return logits, x[offset:].view(n_x, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", FOLDS)
+@pytest.mark.parametrize("shape", [(200, 784), (384, 12288), (192, 12288), (36, 1002),
+                                   (8192, 784), (6, 3), (26496, 1)])
+def test_bce_kernel_bf16_targets_match_plain(cuda, fold, shape):
+    """K2 and its VJP on bf16 targets, in the layout ``bce_plan`` picks
+    (a warp a row, clusters, a thread a row) and in every fold; D = 1002 and
+    3 are not whole float4s."""
+    gen = torch.Generator().manual_seed(60)
+    n, d = shape
+    logits, x = _bf16_targets(gen, n, d, fold, cuda)
+    _close(kernels.bernoulli_nll_kernel(logits, x, fold),
+           kernels.bernoulli_nll_torch(logits, x, fold), d)
+    g = _rand(gen, n, device=cuda)
+    torch.testing.assert_close(kernels.bce_rows_grad_kernel(logits, x, g, fold),
+                               kernels.bce_rows_grad_torch(logits, x, g, fold),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "plan",
+    [
+        kernels.BcePlan(kernels.BCE_WARP, 256, 1, 5),
+        kernels.BcePlan(kernels.BCE_SPLIT, 256, 2, 76),
+        kernels.BcePlan(kernels.BCE_SPLIT, 1024, 8, 304),
+        kernels.BcePlan(kernels.BCE_THREAD, 64, 1, 1),
+    ],
+)
+@pytest.mark.parametrize("d, offset", [(4100, 0), (4099, 0), (4100, 2)])
+def test_bce_kernel_bf16_every_layout(cuda, plan, d, offset):
+    """Each layout of ``bce_rows`` on bf16 targets: aligned, odd D, and
+    targets 2 elements into their storage (scalar loads); the VJP at the
+    same targets; the same bits from call to call."""
+    gen = torch.Generator().manual_seed(61)
+    logits, x = _bf16_targets(gen, 38, d, kernels.FOLD_B, cuda, offset)
+    got = kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, plan=plan)
+    _close(got, kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_B), d)
+    assert torch.equal(got, kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, plan=plan))
+    g = _rand(gen, 38, device=cuda)
+    torch.testing.assert_close(kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B),
+                               kernels.bce_rows_grad_torch(logits, x, g, kernels.FOLD_B),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BCE_INNER_SHAPES)
+def test_bce_kernel_inner_map_bf16_targets(cuda, shape):
+    """``bce_rows_inner`` on bf16 targets against its plain version."""
+    n_b, k, inner, d = shape
+    gen = torch.Generator().manual_seed(62)
+    logits = _rand(gen, n_b * k * inner, d, device=cuda, scale=3.0)
+    x = torch.rand(n_b * inner, d, generator=gen).to(cuda, torch.bfloat16)
+    _close(kernels.bernoulli_nll_kernel(logits, x, kernels.FOLD_B, inner=inner),
+           kernels.bernoulli_nll_torch(logits, x, kernels.FOLD_B, inner), d)
+
+
+@pytest.mark.gpu
+def test_bce_kernels_refuse_bf16_logits_and_other_targets(cuda):
+    """bf16 logits, and targets of another type, raise ``TypeError`` and
+    launch nothing."""
+    logits = torch.zeros(8, 16, device=cuda)
+    x = torch.zeros(4, 16, device=cuda)
+    g = torch.ones(8, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    for bad_logits, bad_x in ((logits.bfloat16(), x), (logits.bfloat16(), x.bfloat16()),
+                              (logits, x.half()), (logits, x.to(torch.uint8))):
+        with pytest.raises(TypeError):
+            kernels.bernoulli_nll_kernel(bad_logits, bad_x, kernels.FOLD_T)
+        with pytest.raises(TypeError):
+            kernels.bce_rows_grad_kernel(bad_logits, bad_x, g, kernels.FOLD_T)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_ops_bernoulli_nll_bf16_targets_on_the_card(cuda):
+    """``ops.bernoulli_nll`` hands bf16 targets to the kernels as they are
+    (MNIST's image at event_ndims=2, CelebA's attributes at 0), forward and
+    backward, against the ``torch`` backend."""
+    gen = torch.Generator().manual_seed(63)
+    for shape, n_x, event in (((200, 28, 28), 100, 2), ((23 * 64, 18), 64, 0)):
+        x = torch.rand(n_x, *shape[1:], generator=gen).to(cuda, torch.bfloat16)
+
+        def fn(logits, x=x, event=event):
+            return ops.bernoulli_nll(logits, x, event, fold="t")
+
+        before = dict(kernels.LAUNCHES)
+        on_card, plain = _grads_both_backends(fn, [_rand(gen, *shape, device=cuda, scale=3.0)])
+        assert kernels.LAUNCHES["bce"] == before["bce"] + 1
+        assert kernels.LAUNCHES["bce_bwd"] == before["bce_bwd"] + 1
+        torch.testing.assert_close(on_card[0], plain[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape", [(64, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1), (4, 30, 70, 3), (6, 32, 40, 2),
+              (6, 32, 40, 4), (2, 7, 1100, 4), (3, 33, 31, 3)])
+def test_conv_kernels_bf16_image_match_plain(cuda, shape):
+    """K4 from a bf16 image into f32 weights (f32 outputs) and its backward
+    in the weight and bias from the same image, against the plain versions
+    (f32 tolerances: a bf16 value is exact in f32 and in TF32); odd sizes
+    and widths off the tile take scalar staging. Two backward launches
+    give the same bits."""
+    gen = torch.Generator().manual_seed(64)
+    x, w, b, g = _conv_grad_inputs(gen, shape, cuda)
+    x = x.bfloat16()
+    y = kernels.conv4x4s2_swish_kernel(x, w, b)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, kernels.conv4x4s2_swish_torch(x, w, b), rtol=1e-5,
+                               atol=1e-5 * 16 * shape[3])
+    got = kernels.conv4x4s2_swish_grad_kernel(x, w, b, g)
+    _conv_grad_close(got, kernels.conv4x4s2_swish_grad_torch(x, w, b, g), shape)
+    _conv_grad_close(got, kernels.conv4x4s2_swish_grad_kernel(x.float(), w, b, g), shape)
+    assert all(torch.equal(p, q) for p, q in zip(got, kernels.conv4x4s2_swish_grad_kernel(
+        x, w, b, g)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [dict(warps=4), dict(rows=2), dict(rows=2, warps=4)])
+def test_conv_grad_kernel_bf16_other_plans(cuda, plan):
+    """K4's backward from a bf16 image in the other tile and block shapes,
+    with a strided upstream gradient."""
+    shape = (37, 64, 64, 3)
+    x, w, b, g = _conv_grad_inputs(torch.Generator().manual_seed(65), shape, cuda, strided=True)
+    x = x.bfloat16()
+    got = kernels.conv4x4s2_swish_grad_kernel(x, w, b, g,
+                                              plan=kernels.conv_bwd_plan(*shape, **plan))
+    _conv_grad_close(got, kernels.conv4x4s2_swish_grad_torch(x, w, b, g), shape)
+
+
+@pytest.mark.gpu
+def test_conv_kernels_refuse_other_bf16_mixes(cuda):
+    """K4's input gradient stays f32; K4 takes no f32 image with bf16
+    weights; K4's backward takes no bf16 weights or upstream gradient."""
+    x, w, b, g = _conv_grad_inputs(torch.Generator().manual_seed(66), (2, 8, 8, 3), cuda)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_input_grad_kernel(x.bfloat16(), w, b, g)
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_kernel(x, w.bfloat16(), b.bfloat16())
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_kernel(x.bfloat16(), w, b.bfloat16())
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_grad_kernel(x.bfloat16(), w, b, g.bfloat16())
+    with pytest.raises(TypeError):
+        kernels.conv4x4s2_swish_grad_kernel(x.bfloat16(), w.bfloat16(), b, g)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_ops_conv_bf16_image_on_the_card(cuda):
+    """``ops.conv4x4s2_swish`` on a bf16 batch with f32 weights: K4 and its
+    backward in the weight and bias, one launch each, against the ``torch``
+    backend."""
+    image, w, b = _conv_inputs(torch.Generator().manual_seed(67), (16, 64, 64, 3),
+                               torch.float32, cuda)
+    image = image.bfloat16()
+
+    def fn(weight, bias):
+        return ops.conv4x4s2_swish(image, weight, bias)
+
+    before = dict(kernels.LAUNCHES)
+    on_card, plain = _grads_both_backends(fn, [w, b])
+    assert kernels.LAUNCHES["conv"] == before["conv"] + 1
+    assert kernels.LAUNCHES["conv_bwd"] == before["conv_bwd"] + 1
+    for a, c in zip(on_card, plain):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5 * c.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(192, 32, 2004), (64, 32, 2004), (128, 32, 2004)])
+def test_seq_ce_kernels_at_a_corpus_vocabulary(cuda, shape):
+    """K3 and its VJP at a mounted CUB corpus's V = 2,004 (3 reserved, the
+    2,000 words, ``<unk>``): a train step's decode-all pass (192 rows), the
+    cycle's re-read (64) and an eval batch's member terms (128); the VJP
+    takes its warp-a-row path above V = 128."""
+    gen = torch.Generator().manual_seed(68)
+    logits, tokens = _seq_inputs(gen, *shape, device=cuda)
+    got = kernels.masked_seq_ce_kernel(logits, tokens, 0)
+    _seq_close(got, kernels.masked_seq_ce_torch(logits, tokens, 0), *shape[1:])
+    assert torch.all(got[:2] == 0)
+    g = _rand(gen, shape[0], device=cuda)
+    assert kernels.seq_ce_grad_plan(*shape).path == kernels.SEQ_GRAD_WARP
+    grad = kernels.masked_seq_ce_grad_kernel(logits, tokens, 0, g)
+    torch.testing.assert_close(grad, kernels.masked_seq_ce_grad_torch(logits, tokens, 0, g),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.all(grad[tokens == 0] == 0)

@@ -260,14 +260,17 @@ def test_entry_points_default_to_the_card(matched):
 
 
 def test_unported_configs_and_datasets_raise(tmp_path, monkeypatch):
-    """The ``deep_mnist`` pipeline config and mounted data under
-    ``$MMVAE_DATA_DIR`` are not ported and raise; an unknown name is a
-    ``ValueError``."""
+    """The ``deep_mnist`` pipeline config is not ported and raises; an
+    unknown name is a ``ValueError``. A mounted ``fashionmnist/`` with no
+    IDX files in it: both loaders find no format there and generate the
+    same split."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         configs.get_config("deep_mnist")
     (tmp_path / "fashionmnist").mkdir()
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_dataset("fashionmnist")
+    got = load_dataset("fashionmnist", n=6)
+    want = j_load_dataset("fashionmnist", n=6, device_put=False)
+    for k, v in want.arrays.items():
+        np.testing.assert_array_equal(got.arrays[k], np.asarray(v))
     with pytest.raises(ValueError):
         configs.get_config("nope")

@@ -3,7 +3,8 @@
 
 The ``Batcher`` coalesces concurrent requests into one call, each request
 getting the bits it gets alone, and splits them by temperature; a dynamic
-artifact is called at power-of-two batches; a scalar-seed artifact is
+artifact is called at power-of-two batches on the CPU and at one batch,
+``max_batch``, on the card; a scalar-seed artifact is
 served a request a call; the JSON and npz wire formats give equal outputs;
 malformed requests get 400 and failures of the program 500; ``python -m
 mmvae_torch.cli export`` writes an artifact that gives ``api.generate``'s
@@ -117,6 +118,40 @@ def test_dynamic_buckets():
     finally:
         dyn.close(timeout=10)
         fixed.close(timeout=10)
+
+
+def test_a_dynamic_artifact_on_the_card_takes_one_batch(exported):
+    """Where the call runs on the card, a dynamic artifact is called at
+    ``max_batch`` rows always: a group padded to it, a request of more rows
+    cut into calls of it; each request's rows as served alone at that
+    batch. (The artifact runs on the CPU here; the Batcher is told the
+    card.)"""
+    meta, call = serving.load_generate(exported["dynamic"], device="cpu")
+    sizes = []
+
+    def logged(batch, presence, seed, temperature):
+        sizes.append(len(seed))
+        return call(batch, presence, seed=seed, temperature=temperature)
+
+    batcher = Batcher(logged, _shapes(meta), 2, static_batch=None, max_batch=8,
+                      max_wait_ms=1, device="cuda")
+    assert {batcher._alloc(n) for n in (1, 5, 8, 20)} == {8}
+    try:
+        small, big = _request(3, 0), _request(19, 1)
+        got_small = batcher.submit(*small, 1.0, 3)
+        got_big = batcher.submit(*big, 1.0, 19)
+    finally:
+        batcher.close(timeout=60)
+    assert sizes == [8, 8, 8, 8]
+    assert batcher.stats["device_calls"] == 4 and batcher.stats["padded_rows"] == 5 + 5
+    want = _alone(call, *small, 1.0, alloc=8)
+    for k in want:
+        np.testing.assert_array_equal(got_small[k], want[k])
+    for i in range(0, 19, 8):
+        part = _alone(call, {k: v[i:i + 8] for k, v in big[0].items()}, big[1][i:i + 8],
+                      big[2][i:i + 8], 1.0, alloc=8)
+        for k in part:
+            np.testing.assert_array_equal(got_big[k][i:i + 8], part[k])
 
 
 class _Host:

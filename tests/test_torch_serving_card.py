@@ -145,3 +145,67 @@ def test_a_static_artifact_coalesces_to_the_bit_on_the_card(cuda, tmp_path):
                      temperature=1.0)
         for k, v in alone.items():
             np.testing.assert_array_equal(got[k], v[:n].cpu().numpy())
+
+
+def _coalesced(batcher, requests):
+    """Each request's reply, all submitted at once through ``batcher``."""
+    results = [None] * len(requests)
+
+    def submit(i):
+        batch, presence, seeds = requests[i]
+        results[i] = batcher.submit(batch, presence, seeds, 1.0, len(seeds))
+
+    threads = [threading.Thread(target=submit, args=(i,)) for i in range(len(requests))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    return results
+
+
+def test_a_dynamic_artifact_coalesces_to_the_bit_on_the_card(cuda, tmp_path):
+    """On the card the host calls a dynamic artifact at ``max_batch`` rows
+    always, so one request served alone, then coalesced with 7 and with 63
+    strangers (one call each), gives the same bits; a request of more rows
+    than ``max_batch`` goes out as several calls of it."""
+    model = configs.build_model(MNIST, seed=0)
+    path = str(tmp_path / "mnist_dynamic.mmvaept")
+    serving.export_generate(MNIST, path, batch_size="dynamic", model=model, sample_z=True)
+    meta, call = serving.load_generate(path)
+    shapes = {k: (tuple(v[0]), np.dtype(v[1])) for k, v in meta["batch_shapes"].items()}
+    rng = np.random.default_rng(1)
+
+    def request(n, first_seed):
+        batch = {"image": rng.random((n, 28, 28)).astype(np.float32),
+                 "label": rng.integers(0, 10, n)}
+        return batch, rng.integers(0, 2, (n, 2)).astype(np.float32), first_seed + np.arange(n)
+
+    target = request(1, 5)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        replies = []
+        for strangers in (0, 7, 63):
+            batcher = Batcher(call, shapes, 2, static_batch=None, max_batch=64, max_wait_ms=500)
+            try:
+                requests = [target] + ([request(strangers, 100)] if strangers else [])
+                replies.append(_coalesced(batcher, requests)[0])
+            finally:
+                batcher.close(timeout=60)
+            assert batcher.stats["device_calls"] == 1
+            assert batcher.stats["padded_rows"] == 63 - strangers
+        for other in replies[1:]:
+            assert set(other) == set(replies[0])
+            for k in replies[0]:
+                np.testing.assert_array_equal(other[k], replies[0][k])
+        big = request(100, 7)
+        batcher = Batcher(call, shapes, 2, static_batch=None, max_batch=64, max_wait_ms=1)
+        try:
+            (got,) = _coalesced(batcher, [big])
+        finally:
+            batcher.close(timeout=60)
+        assert batcher.stats["device_calls"] == 2 and batcher.stats["padded_rows"] == 28
+        assert all(v.shape[0] == 100 for v in got.values())
+    finally:
+        torch.backends.cudnn.deterministic = saved

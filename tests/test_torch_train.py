@@ -337,10 +337,11 @@ def test_random_subsets_train_mnist_as_jax_does(jmodel):
 @pytest.mark.parametrize("kw", [{"objective": "mmvae"}, {"mounted": "mnist"},
                                 {"config": "deep_mnist"}, {"config": "deep_cub"}])
 def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
-    """Mounted data under ``$MMVAE_DATA_DIR`` and the ``deep_*`` pipeline
-    configs are not ported: ``api.train`` raises. A mixture objective is
-    ported; with an mvae term knob (cross-recon) it raises the JAX loss's
-    ``ValueError``."""
+    """The ``deep_*`` pipeline configs are not ported: ``api.train`` raises.
+    A mixture objective is ported; with an mvae term knob (cross-recon) it
+    raises the JAX loss's ``ValueError``. Mounted data is ported: a mounted
+    ``mnist/`` without data files in it leaves the generators' split (as
+    the JAX loader does), so the run equals the unmounted one."""
     kw = {"config": "mnist", **kw}
     config = kw.pop("config")
     error, match = NotImplementedError, "not yet ported"
@@ -349,7 +350,12 @@ def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
             objective=kw.pop("objective"), cross_recon=True, train_size=100, test_size=100)
         error, match = ValueError, "mvae term-structure knobs"
     if "mounted" in kw:
+        small = configs.get_config(config).replace(n_latents=8, epochs=1, train_size=32,
+                                                   test_size=16, batch_size=16)
+        want = api.train(small, device="cpu", verbose=False).history
         (tmp_path / kw.pop("mounted")).mkdir()
         monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
+        assert api.train(small, device="cpu", verbose=False).history == want
+        return
     with pytest.raises(error, match=match):
         api.train(config, device="cpu", **kw)
