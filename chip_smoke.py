@@ -227,6 +227,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
      printed); under ``MMVAE_DATAGEN=native`` the C++ generators, built
      into ``mmvae_torch/_build/``, give the same arrays twice and a CelebA
      epoch of 10 steps trains on their data;
+   - the deep-trunk configs (``deep``): ``deep_mnist`` (residual trunks of
+     4 stages at 256 with ReZero gates in both image experts; 100 steps of
+     100) and ``deep_cub`` (trunks of 4 stages at 512 at both image
+     experts' bottlenecks; 20 steps of 64 over a split cut to 1,280) trained
+     one epoch at full width, launching what ``mnist`` and ``cub`` launch,
+     under ``celeba``'s gates; each step's wall against the shallow
+     config's in turns (``deep_rate``: samples/s, the trunks' share); three
+     steps on the card against the CPU; ``deep_mnist``'s eval and
+     ``generate`` against the CPU; ``deep_cub``'s batch-8 artifact,
+     exported by a process of its own while ``deep`` and ``conv_variants``
+     run, under ``serving``'s gates (``deep_export``);
+   - the conv stack variants (``conv_variants``): CelebA with
+     ``space_to_depth=2`` (stage 0 a 2x2 conv over 12 channels on cuDNN:
+     K4 and its backward launch no time), CelebA and CUB with
+     ``upsample_mode="shuffle"``: eval over 128 examples and ``generate``
+     with their launch counts and against the CPU, 3 ``api.train`` steps
+     with their counts, three steps on the card against the CPU;
+   - the grain backend (``grain``): ``mnist`` for 3 epochs with the train
+     split on the host, whole epochs and segments of 30 steps equal to the
+     bit, ``stream_hit_rate``, epoch walls against the device backend;
+   - the shuffle modes (``shuffle``): ``mnist`` for 5 epochs under
+     ``reshuffle_every`` 4 with rolls and with block orders, and with
+     4-row groups, each run's steps, history and launches;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -267,6 +290,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -275,6 +299,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -833,6 +858,43 @@ EXPECTED_LAUNCHES = {
     **{f"serve_{name}": {"kl": 0, "bce": 0, "seq_ce": 0, "poe_kl": 1,
                          "conv": int(name.split("_")[0] in ("celeba", "cub")), **_NO_BWD}
        for name in ("mnist", "fashionmnist", "multimnist", "celeba", "cub", "mnist_mopoe")},
+    # ``deep`` (PR 22): the trunks sit between dense layers, so each deep
+    # config launches what its shallow one does (``mnist_train``,
+    # ``cub_train``, ``serve_cub``).
+    "deep_mnist_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                         "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
+                         "conv_bwd": 0, "conv_dx": 0},
+    "deep_cub_train": {"kl": 0, "bce": 52, "seq_ce": 72, "conv": 72, "poe_kl": 72,
+                       "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 40, "poe_kl_bwd": 40,
+                       "conv_bwd": 40, "conv_dx": 20},
+    "serve_deep_cub": {"kl": 0, "bce": 0, "seq_ce": 0, "poe_kl": 1, "conv": 1, **_NO_BWD},
+    # ``conv_variants`` (PR 22): 2 eval batches of 64 and one ``generate``
+    # from images. CelebA's ``space_to_depth=2`` stage 0 is a 2x2 conv over
+    # 12 channels on cuDNN, not K4: K4 and its backward launch no time; K2
+    # twice an eval batch, the fused PoE + KL once an eval batch and once
+    # for the generate. A shuffle decoder (CelebA's, CUB's) leaves K4 in
+    # stage 0 (once an eval batch and once for the generate's encode).
+    "celeba_s2d": {"kl": 0, "bce": 4, "seq_ce": 0, "conv": 0, "poe_kl": 3, **_NO_BWD},
+    "celeba_shuffle": {"kl": 0, "bce": 4, "seq_ce": 0, "conv": 3, "poe_kl": 3, **_NO_BWD},
+    "cub_shuffle": {"kl": 0, "bce": 2, "seq_ce": 2, "conv": 3, "poe_kl": 3, **_NO_BWD},
+    # 3 train steps, then the 2 test batches: ``celeba_train``'s and
+    # ``cub_train``'s counts a step and an eval batch, less K4 and its
+    # backward on the space_to_depth encoder.
+    "celeba_s2d_train": {"kl": 0, "bce": 10, "seq_ce": 0, "conv": 0, "poe_kl": 5,
+                         "kl_bwd": 0, "bce_bwd": 6, "seq_ce_bwd": 0, "poe_kl_bwd": 3,
+                         "conv_bwd": 0, "conv_dx": 0},
+    "celeba_shuffle_train": {"kl": 0, "bce": 10, "seq_ce": 0, "conv": 5, "poe_kl": 5,
+                             "kl_bwd": 0, "bce_bwd": 6, "seq_ce_bwd": 0, "poe_kl_bwd": 3,
+                             "conv_bwd": 3, "conv_dx": 0},
+    "cub_shuffle_train": {"kl": 0, "bce": 5, "seq_ce": 8, "conv": 8, "poe_kl": 8,
+                          "kl_bwd": 0, "bce_bwd": 3, "seq_ce_bwd": 6, "poe_kl_bwd": 6,
+                          "conv_bwd": 6, "conv_dx": 3},
+    # ``grain`` and ``shuffle`` (PR 22): 3 and 5 epochs of ``mnist_train``.
+    **{f"mnist_{kind}_train": {"kl": 0, "bce": 120 * n, "seq_ce": 0, "conv": 0,
+                               "poe_kl": 120 * n, "kl_bwd": 0, "bce_bwd": 100 * n,
+                               "seq_ce_bwd": 0, "poe_kl_bwd": 100 * n, "conv_bwd": 0,
+                               "conv_dx": 0}
+       for kind, n in (("grain", 3), ("shuffle", 5))},
 }
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
@@ -1413,7 +1475,8 @@ def card_vs_cpu(config, n: int, condition: dict, on_card: dict) -> None:
     kinds = cpu_model.decode_kinds()
     probs = [k for k in gen_cpu if kinds.get(k) == "bernoulli"]
     errs = {k: (on_card[k].cpu() - gen_cpu[k]).abs().max().item() for k in probs}
-    emit({"phase": "card_vs_cpu", "config": config, "objective": cfg.objective, "examples": n,
+    emit({"phase": "card_vs_cpu", "config": config, "path": variant_label(cfg),
+          "objective": cfg.objective, "examples": n,
           "eval_elbo_card": elbo_card, "eval_elbo_cpu": elbo_cpu, "rel": rel,
           "generate_max_abs_err": errs})
     if not rel <= 1e-4 or not all(e <= 1e-4 for e in errs.values()):
@@ -1600,7 +1663,7 @@ def train_path(cfg) -> str:
         return f"{cfg.name}_{cfg.objective}_train"
     if cfg.cross_recon_stopgrad or cfg.unimodal_align_weight or cfg.cycle_contrast_weight:
         return f"{cfg.name}_knobs_train"
-    return f"{cfg.name}_train"
+    return f"{variant_label(cfg)}_train"
 
 
 def n_terms(cfg, n_mod: int) -> int:
@@ -3025,8 +3088,9 @@ def export_drawn(tmp: str) -> None:
     print(json.dumps(seconds), flush=True)
 
 
-def serve_static(cfg, model, keys, tmp: str) -> dict[str, int]:
-    """``cfg``'s static batch-8 per-row artifact exported on the card and
+def serve_static(cfg, model, keys, tmp: str, export_s: float | None = None) -> dict[str, int]:
+    """``cfg``'s static batch-8 per-row artifact exported on the card (by
+    another process already, where ``export_s`` gives its seconds) and
     loaded with ``load_generate``: the graph's ops, one call's launches,
     each op's output against its plain version, the outputs against
     ``api.generate`` on the card (rel 1e-6) and against the same artifact
@@ -3035,15 +3099,16 @@ def serve_static(cfg, model, keys, tmp: str) -> dict[str, int]:
 
     path = served_path(cfg)
     out_path = os.path.join(tmp, f"{path}.mmvaept")
-    t0 = time.perf_counter()
-    serving.export_generate(cfg, out_path, batch_size=SERVE_BATCH, model=model)
-    export_s = time.perf_counter() - t0
+    if export_s is None:
+        t0 = time.perf_counter()
+        serving.export_generate(cfg, out_path, batch_size=SERVE_BATCH, model=model)
+        export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     meta, call = serving.load_generate(out_path)
     load_s = time.perf_counter() - t0
     targets = {str(n.target) for n in call.exported.graph.nodes if n.op == "call_function"}
     want_ops = {"mmvae.poe_kl.default"}
-    if cfg.name in ("celeba", "cub"):
+    if cfg.dataset in ("celeba", "cub") and cfg.model_kwargs.get("space_to_depth", 1) == 1:
         want_ops.add("mmvae.conv4x4s2_swish.default")
     if not want_ops <= targets:
         raise AssertionError(f"{path}: the graph lacks {sorted(want_ops - targets)}")
@@ -3489,6 +3554,323 @@ def phase_data() -> dict[str, dict[str, int]]:
     return out
 
 
+# ------------------------------------------------- deep trunks (PR 22) ----
+
+DEEP_CONFIGS = {"deep_mnist": {}, "deep_cub": {"train_size": CUB_TRAIN_SIZE}}
+DEEP_TIMED_ROUNDS = 2
+
+
+def graph_epoch_walls(cfg, batches: dict, rounds: int) -> list[float]:
+    """``rounds`` epochs over ``batches`` of a graph runner from ``cfg``'s
+    seed-0 weights, each after its capture, timed from a sync to a sync."""
+    model = configs.build_model(cfg, seed=0)
+    state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+    runner = make_epoch_runner(model, annealing_steps=1000,
+                               generator=torch.Generator(device="cuda").manual_seed(1),
+                               **api.step_options(cfg))
+    runner(state, batches)
+    walls = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = runner(state, batches)
+        float(metrics["loss"].sum())  # a sync
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def deep_train(cfg) -> dict[str, int]:
+    """``api.train`` of a deep-trunk config for one epoch at full width on
+    the graph runners, with the launch counts through the replays
+    (``train_counted``) and its test ELBO below the untrained model's; the
+    epoch's graph against its eager loop on deterministic algorithms (rel
+    1e-6); the step's wall through the graph runner against the shallow
+    config's (``mnist``, ``cub``) over the same batches, in turns (the
+    trunks' share of a step); three steps on the card against the CPU under
+    ``mnist``'s gates (``deep_cub`` at batch 16, fed as ``cub``'s); for
+    ``deep_mnist`` the eval of 200 test examples and ``generate`` from
+    their labels on the card against the CPU (``card_vs_cpu``)."""
+    path = train_path(cfg)
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0))
+    result, launches, wall_s = train_counted(cfg)
+    record = result.history[0]
+    steps, bs = cfg.train_size // cfg.batch_size, cfg.batch_size
+    emit({"phase": "train", "config": cfg.name, "path": path, "epochs": 1,
+          "steps": result.state.step, "train_size": cfg.train_size,
+          **{k: v for k, v in record.items() if k != "epoch"},
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if result.state.step != steps or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"{path}: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"{path}: test ELBO {record['test_elbo']} not below the untrained {untrained}")
+    del result
+    batches = train_batches(steps, bs, "cuda", seed=1, config=cfg.dataset)
+    with deterministic():
+        _, _, runs = first_epochs(cfg, batches)
+    compared = graph_vs_eager(runs)
+    del runs
+    emit({"phase": "train_graph_vs_eager", "config": cfg.name, "path": path, "steps": steps,
+          "batch": bs, "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True,
+          **compared})
+    if not max(compared["step_rel_max"], compared["param_rel_max"]) <= 1e-6:
+        raise AssertionError(f"{path}: graph and eager epochs differ: {compared}")
+    shallow = configs.get_config(cfg.name.removeprefix("deep_")).replace(
+        train_size=cfg.train_size)
+    walls = {"deep": [], "shallow": []}
+    for _ in range(2):
+        walls["deep"] += graph_epoch_walls(cfg, batches, DEEP_TIMED_ROUNDS)
+        walls["shallow"] += graph_epoch_walls(shallow, batches, DEEP_TIMED_ROUNDS)
+    step_ms = {k: 1e3 * statistics.median(v) / steps for k, v in walls.items()}
+    emit({"phase": "deep_rate", "config": cfg.name, "shallow": shallow.name, "steps": steps,
+          "batch": bs, "epoch_wall_s": walls, "step_ms_median": step_ms,
+          "samples_per_s": {k: 1e3 * bs / v for k, v in step_ms.items()},
+          "trunk_share_of_step": 1 - step_ms["shallow"] / step_ms["deep"]})
+    if cfg.dataset == "cub":
+        conv_card_vs_cpu(cfg, feed_tail=True)
+    else:
+        train_card_vs_cpu(cfg)
+        condition = {"label": [3, 5, 7]}
+        card_vs_cpu(cfg, 200, condition, api.generate(cfg, condition, model=configs.build_model(
+            cfg, seed=0), temperature=0.0))
+    return launches
+
+
+def export_deep_cub(tmp: str) -> None:
+    """Run in a process of its own (``python -c``) while ``deep`` and
+    ``conv_variants`` run: ``deep_cub``'s static batch-8 artifact, exported
+    on the card from the seed-0 weights into ``tmp`` (the trace is host
+    work). Prints the export's seconds."""
+    from mmvae_torch import serving
+
+    cfg = configs.get_config("deep_cub")
+    t0 = time.perf_counter()
+    serving.export_generate(cfg, os.path.join(tmp, f"{served_path(cfg)}.mmvaept"),
+                            batch_size=SERVE_BATCH, model=configs.build_model(cfg, seed=0))
+    print(json.dumps({"export_s": time.perf_counter() - t0}), flush=True)
+
+
+def phase_deep() -> tuple[dict[str, dict[str, int]], Callable]:
+    """The deep-trunk configs at full width (``deep_mnist``: trunks of 4
+    stages at 256 in both MNIST image experts, 100 steps of batch 100;
+    ``deep_cub``: trunks of 4 stages at 512 at both CUB image experts'
+    bottlenecks, 20 steps of batch 64 over a train split cut to 1,280):
+    ``deep_train``, with ``export_deep_cub`` started first beside it.
+    Returns the launches and ``finish``, which waits for that process and
+    holds ``deep_cub``'s artifact (``generate`` from the images) against
+    ``api.generate`` (``serve_static``), returning one call's launches."""
+    tmp = tempfile.mkdtemp()
+    worker = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.export_deep_cub({tmp!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    try:
+        for name, cut in DEEP_CONFIGS.items():
+            out[f"{name}_train"] = deep_train(configs.get_config(name).replace(epochs=1, **cut))
+    except BaseException:
+        worker.kill()
+        worker.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+    def finish() -> dict[str, int]:
+        try:
+            stdout, stderr = worker.communicate(timeout=600)
+            if worker.returncode != 0:
+                raise RuntimeError(
+                    f"export_deep_cub failed ({worker.returncode}):\n{stderr[-4000:]}")
+            cfg = configs.get_config("deep_cub")
+            return serve_static(cfg, configs.build_model(cfg, seed=0), ("image",), tmp,
+                                json.loads(stdout.strip().splitlines()[-1])["export_s"])
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.communicate()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    return out, finish
+
+
+# --------------------------------------- the conv stack variants (PR 22) ----
+
+CONV_VARIANTS = {"celeba_s2d": ("celeba", dict(space_to_depth=2)),
+                 "celeba_shuffle": ("celeba", dict(upsample_mode="shuffle")),
+                 "cub_shuffle": ("cub", dict(upsample_mode="shuffle"))}
+VARIANT_EVAL = 128  # 2 test batches of 64
+
+
+def variant_label(cfg) -> str:
+    """``cfg``'s name with its conv stack variant: ``_s2d`` for
+    ``space_to_depth`` > 1, ``_shuffle`` for the pixel-shuffle decoder."""
+    kw = cfg.model_kwargs
+    return (cfg.name + ("_s2d" if kw.get("space_to_depth", 1) > 1 else "")
+            + ("_shuffle" if kw.get("upsample_mode") == "shuffle" else ""))
+
+
+def phase_conv_variants() -> dict[str, dict[str, int]]:
+    """CelebA with ``space_to_depth=2`` (the encoder's stage 0 a 2x2 conv
+    over 12 channels on cuDNN: K4 launches no time), CelebA with
+    ``upsample_mode="shuffle"`` and CUB with ``upsample_mode="shuffle"``
+    (K4 in stage 0), at full width on seed-0 weights: ``eval_elbo`` over
+    128 test examples and ``generate`` from 8 of their images with the
+    launch counts, the card against the CPU (``card_vs_cpu``);
+    ``api.train`` for 3 steps of 64, then the 128-example test ELBO, with
+    the launch counts; three steps at batch 16 on the card against the CPU
+    (``conv_card_vs_cpu``, the CPU's Adam fed the card's gradient
+    components below 9 x eps, as ``cub``'s: unfed, CelebA's ``space_to_depth``
+    and shuffle stacks read 1.52e-4 on the image encoder's head, an Adam
+    step at rounding level). Returns the launches."""
+    out = {}
+    for label, (name, kw) in CONV_VARIANTS.items():
+        cfg = configs.get_config(name).replace(model_kwargs=kw)
+        model = configs.build_model(cfg, seed=0)
+        small = load_dataset(cfg.dataset, "test", n=VARIANT_EVAL)
+        condition = {"image": small.arrays["image"][:8]}
+        ops.set_backend("kernel")
+        try:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            elbo = api.eval_elbo(cfg, model=model, dataset=small)
+            generated = api.generate(cfg, condition, model=model, temperature=0.0)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            ops.set_backend("auto")
+        emit({"phase": "conv_variants", "config": label, "eval_elbo": elbo,
+              "launches": launches})
+        if launches != EXPECTED_LAUNCHES[label]:
+            raise AssertionError(
+                f"{label}: expected launches {EXPECTED_LAUNCHES[label]}, got {launches}")
+        card_vs_cpu(cfg, VARIANT_EVAL, condition, generated)
+        out[label] = launches
+        tcfg = cfg.replace(epochs=1, train_size=3 * cfg.batch_size, test_size=VARIANT_EVAL)
+        result, out[f"{label}_train"], wall_s = train_counted(tcfg)
+        record = result.history[0]
+        emit({"phase": "train", "config": label, "path": train_path(tcfg), "steps": 3,
+              **{k: v for k, v in record.items() if k != "epoch"},
+              "api_train_wall_s": wall_s, "launches": out[f"{label}_train"]})
+        if result.state.step != 3 or not all(map(math.isfinite, record.values())):
+            raise AssertionError(f"{label}: {result.state.step} steps, history {record}")
+        del result
+        conv_card_vs_cpu(cfg, feed_tail=True)
+    return out
+
+
+# --------------------------------------- the grain backend (PR 22) ----
+
+GRAIN_EPOCHS = 3
+GRAIN_SEGMENT = 30  # 100 steps an epoch: segments of 30, 30, 30 and 10
+
+
+def grain_run(cfg, workdir: str) -> tuple:
+    """``api.train`` of ``cfg`` into ``workdir`` with the "kernel" backend,
+    the launch counts set to 0 just before and read just after, and each
+    epoch's wall from the end of its train pass to the next's (the
+    ``fault_hook``, after a sync): the result, the counts, the walls and
+    the eval records."""
+    marks = []
+
+    def hook(epoch, state):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return state
+
+    ops.set_backend("kernel")
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        result = api.train(cfg, workdir, seed=0, verbose=False, fault_hook=hook)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        ops.set_backend("auto")
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+    return result, launches, [b - a for a, b in zip(marks, marks[1:])], evals
+
+
+def phase_grain() -> dict[str, dict[str, int]]:
+    """``mnist`` at full width on the grain backend (the train split on the
+    host, each epoch planned there and gathered by the stream's worker
+    thread), 3 epochs: the whole epoch a segment, and segments of 30 steps
+    (the last of each epoch 10): the two runs' histories and parameters
+    equal to the bit, the launches those of 3 ``mnist`` epochs, each eval
+    record's ``stream_hit_rate``; then the device backend in the same run,
+    and each run's epoch walls after the first (samples/s). Returns the
+    launches."""
+    # One checkpoint, after the last epoch: the epoch walls hold no save.
+    base = configs.get_config("mnist").replace(epochs=GRAIN_EPOCHS, ckpt_every=GRAIN_EPOCHS)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fields in (("grain_whole", dict(data_backend="grain")),
+                              ("grain_segments", dict(data_backend="grain",
+                                                      grain_stream_steps=GRAIN_SEGMENT)),
+                              ("device", {})):
+            runs[label] = grain_run(base.replace(**fields), os.path.join(tmp, label))
+    steps = base.train_size // base.batch_size
+    for label, (result, launches, walls, evals) in runs.items():
+        emit({"phase": "grain", "run": label, "epochs": GRAIN_EPOCHS, "steps": result.state.step,
+              "history": result.history, "launches": launches,
+              "stream_hit_rate": [r.get("stream_hit_rate") for r in evals],
+              "epoch_wall_s": walls,
+              "samples_per_s": [steps * base.batch_size / w for w in walls]})
+        if launches != EXPECTED_LAUNCHES["mnist_grain_train"]:
+            raise AssertionError(f"{label}: expected launches "
+                                 f"{EXPECTED_LAUNCHES['mnist_grain_train']}, got {launches}")
+        if result.state.step != GRAIN_EPOCHS * steps:
+            raise AssertionError(f"{label}: {result.state.step} steps")
+    whole, segs = runs["grain_whole"][0], runs["grain_segments"][0]
+    params_equal = all(torch.equal(a, b) for a, b in zip(whole.model.parameters(),
+                                                          segs.model.parameters()))
+    emit({"phase": "grain_segments_vs_whole", "history_equal": whole.history == segs.history,
+          "params_bits_equal": params_equal})
+    if not (params_equal and whole.history == segs.history):
+        raise AssertionError("grain: the segmented epochs differ from the whole ones")
+    return {"mnist_grain_train": runs["grain_whole"][1]}
+
+
+# ---------------------------------------------- the shuffle modes (PR 22) ----
+
+SHUFFLE_EPOCHS = 5
+SHUFFLE_RUNS = {"roll": dict(reshuffle_every=4, shuffle_mode="roll"),
+                "block": dict(reshuffle_every=4, shuffle_mode="block"),
+                "groups": dict(shuffle_granularity=4)}
+
+
+def phase_shuffle() -> dict[str, dict[str, int]]:
+    """``mnist`` at full width for 5 epochs in each shuffle mode on the
+    device backend: a true reshuffle every 4 epochs with rolls between, or
+    with the batches read in a new order between, and a reshuffle of 4-row
+    groups every epoch: every run's steps those of 5 epochs, its history
+    finite, its launches those of 5 ``mnist`` epochs. Returns them."""
+    out = {}
+    for label, fields in SHUFFLE_RUNS.items():
+        cfg = configs.get_config("mnist").replace(epochs=SHUFFLE_EPOCHS, **fields)
+        ops.set_backend("kernel")
+        try:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            result = api.train(cfg, seed=0, verbose=False)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            ops.set_backend("auto")
+        emit({"phase": "shuffle", "run": label, **fields, "steps": result.state.step,
+              "train_loss": [r["train_loss"] for r in result.history],
+              "test_elbo": [r["test_elbo"] for r in result.history], "api_train_wall_s": wall_s,
+              "launches": launches})
+        losses = [v for r in result.history for v in r.values()]
+        if result.state.step != SHUFFLE_EPOCHS * 100 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"shuffle {label}: {result.state.step} steps, {result.history}")
+        if launches != EXPECTED_LAUNCHES["mnist_shuffle_train"]:
+            raise AssertionError(f"shuffle {label}: expected launches "
+                                 f"{EXPECTED_LAUNCHES['mnist_shuffle_train']}, got {launches}")
+        out[f"mnist_shuffle_{label}_train"] = launches
+    return out
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 
@@ -3807,6 +4189,14 @@ def main() -> None:
     launches.update(timed("train_extras", phase_train_extras))
     launches.update(timed("serving", phase_serving))
     launches.update(timed("data", phase_data))
+    deep, finish_deep_export = timed("deep", phase_deep)
+    launches.update(deep)
+    try:
+        launches.update(timed("conv_variants", phase_conv_variants))
+    finally:
+        launches["serve_deep_cub"] = timed("deep_export", finish_deep_export)
+    launches.update(timed("grain", phase_grain))
+    launches.update(timed("shuffle", phase_shuffle))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -28,6 +28,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -36,12 +39,14 @@ import torch
 from mmvae_torch.configs import ExperimentConfig, build_model, get_config
 from mmvae_torch.core import fuse_observed_z
 from mmvae_torch.data import Dataset, dataset_astype, load_dataset, stacked_epoch_padded
+from mmvae_torch.data.grain_pipeline import epoch_plan, gather_batches
 from mmvae_torch.device import resolve_device
 from mmvae_torch.train import (
     TrainState,
     create_train_state,
     make_epoch_runner,
     make_eval_runner,
+    make_gather_epoch_runner,
     make_iwae_runner,
 )
 from mmvae_torch.train.checkpoint import (
@@ -96,11 +101,15 @@ def load_run_config(workdir: str) -> ExperimentConfig | None:
 
 
 def resolve_eval_segments(config: ExperimentConfig) -> int:
-    """The eval split's segments of the config: ``eval_segment_steps``, its
-    -1 (auto) resolving to 0, the whole split on the device. (The JAX
-    package resolves -1 to the grain stream's segments on its grain
-    backend, which the port does not have; ``mmvae_tpu/api.py:84-98``.)"""
-    return max(config.eval_segment_steps, 0)
+    """The eval split's segments of the config (``mmvae_tpu/api.py:84-98``):
+    ``eval_segment_steps``, its -1 (auto) resolving to ``grain_stream_steps``
+    on the grain backend (a split big enough to stream for training is not
+    put on the device whole for eval either), else to 0, the whole split on
+    the device."""
+    segs = config.eval_segment_steps
+    if segs < 0:
+        segs = config.grain_stream_steps if config.data_backend == "grain" else 0
+    return segs
 
 
 def _resolve_with_workdir(config, workdir: str | None) -> ExperimentConfig:
@@ -296,6 +305,162 @@ def log_likelihood(
     return float(values.sum()) / dataset.size
 
 
+DATA_BACKENDS = ("device", "grain")
+
+
+def _grain_seed(seed: int, epoch: int, rollbacks: int) -> int:
+    """The grain backend's plan seed of an epoch (``mmvae_tpu/api.py:119-128``):
+    epoch-indexed, so a resumed run replays the same orders; a rollback's
+    retry perturbs it. The train loop and the stream's prefetch share it."""
+    return seed * 100003 + epoch + rollbacks * 7919
+
+
+def _cast_source_arrays(arrays: dict[str, Any], data_dtype: str) -> dict[str, Any]:
+    """The source arrays with the ``data_dtype`` cast applied once
+    (``mmvae_tpu/api.py:130-161``), through :func:`~mmvae_torch.data.dataset_astype`,
+    the device backend's cast: a gather of the cast rows equals the cast of
+    the gathered rows, so the batches are those of gather-then-cast. The
+    presence mask is the plan's and stays float32."""
+    if data_dtype == "float32":
+        return arrays
+    size = len(next(iter(arrays.values())))
+    return dataset_astype(Dataset(arrays=arrays, size=size), data_dtype).arrays
+
+
+def _grain_epoch_host(train_ds: Dataset, config: ExperimentConfig, model, seed: int,
+                      arrays: dict[str, Any] | None = None) -> dict[str, Any]:
+    """The host half of a grain epoch (``mmvae_tpu/api.py:163-195``): the plan
+    of ``seed`` (``grain_pipeline.epoch_plan``), then one gather a modality,
+    into ``(steps, B, ...)`` batches with the plan's ``presence`` where
+    ``p_modality_drop > 0``. ``arrays`` passes the source arrays already
+    cast; else the cast applies here."""
+    if arrays is None:
+        arrays = _cast_source_arrays(dict(train_ds.arrays), config.data_dtype)
+    perm, presence = epoch_plan(train_ds.size, config.batch_size, seed,
+                                n_modalities=model.n_modalities, p_drop=config.p_modality_drop)
+    return gather_batches(arrays, perm, presence, config.batch_size)
+
+
+class _GrainStream:
+    """The grain backend's epochs, in segments of ``grain_stream_steps``
+    batches (0: the whole epoch) (``mmvae_tpu/api.py:242-406``).
+
+    One worker thread gathers segment k + 1 on the host (numpy only: a bf16
+    modality is held as its int16 bits) while the device trains segment k;
+    the main thread copies each segment to the device (through pinned
+    memory on the card, so the copy is queued behind segment k's replays
+    and the host goes on) and calls the runner, whose graph copies it into
+    its static inputs in stream order after the replays that read the
+    segment before. The last segment of an epoch that ``grain_stream_steps``
+    does not divide is shorter: the graph runner replays only its rows.
+
+    Every segment is a pure function of ``(seed, k)`` over the epoch's one
+    plan, and the runner over consecutive segments is the runner over the
+    epoch with the state threaded through, so the streamed epoch equals the
+    whole one to the bit. A ``take`` whose key was not scheduled (the first
+    epoch, a rollback's retry) gathers inline: a miss. ``hits`` and
+    ``misses`` count the takes.
+    """
+
+    def __init__(self, train_ds: Dataset, config: ExperimentConfig, model,
+                 device: torch.device):
+        arrays = _cast_source_arrays(dict(train_ds.arrays), config.data_dtype)
+        self._bf16 = {k for k, v in arrays.items() if torch.is_tensor(v)}
+        self._arrays = {k: v.view(torch.int16).numpy() if k in self._bf16 else np.asarray(v)
+                        for k, v in arrays.items()}
+        self._size, self._bs = train_ds.size, config.batch_size
+        self._n_modalities, self._p_drop = model.n_modalities, config.p_modality_drop
+        self._device = device
+        self._steps = train_ds.size // config.batch_size
+        if self._steps == 0:
+            raise ValueError(f"grain epoch yields no batches: train_size {train_ds.size} < "
+                             f"batch_size {config.batch_size}")
+        seg = config.grain_stream_steps
+        self._seg_steps = self._steps if seg <= 0 else min(seg, self._steps)
+        self._n_segs = -(-self._steps // self._seg_steps)
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="grain-stream")
+        self._key: tuple[int, int] | None = None
+        self._fut = None
+        self._plans: dict[int, tuple] = {}
+        self._plan_lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    @property
+    def hit_rate(self) -> float:
+        """The share of takes the worker had gathered (NaN before the first)."""
+        n = self.hits + self.misses
+        return self.hits / n if n else float("nan")
+
+    def _plan(self, seed: int):
+        """The plan of ``seed``, kept for the newest few epochs (the current
+        one and the next one's prefetch)."""
+        with self._plan_lock:
+            if seed not in self._plans:
+                while len(self._plans) > 4:
+                    del self._plans[next(iter(self._plans))]
+                self._plans[seed] = epoch_plan(self._size, self._bs, seed,
+                                               n_modalities=self._n_modalities,
+                                               p_drop=self._p_drop)
+            return self._plans[seed]
+
+    def _host_seg(self, seed: int, k: int) -> dict[str, np.ndarray]:
+        perm, presence = self._plan(seed)
+        lo = k * self._seg_steps * self._bs
+        hi = min((k + 1) * self._seg_steps, self._steps) * self._bs
+        return gather_batches(self._arrays, perm[lo:hi],
+                              None if presence is None else presence[lo:hi], self._bs)
+
+    def schedule(self, key: tuple[int, int]) -> None:
+        if self._fut is not None and self._key == key:
+            return
+        self._key = key
+        self._fut = self._pool.submit(self._host_seg, *key)
+
+    def take(self, key: tuple[int, int]) -> dict[str, np.ndarray]:
+        fut, hit = self._fut, self._key == key
+        self._fut = self._key = None
+        if fut is not None and hit:
+            self.hits += 1
+            return fut.result()
+        if fut is not None:
+            fut.cancel()
+        self.misses += 1
+        return self._host_seg(*key)
+
+    def _upload(self, host: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        out = {}
+        for k, v in host.items():
+            t = torch.from_numpy(v)
+            if k in self._bf16:
+                t = t.view(torch.bfloat16)
+            on_card = self._device.type == "cuda"
+            out[k] = t.pin_memory().to(self._device, non_blocking=True) if on_card else t
+        return out
+
+    def run_epoch(self, state: TrainState, runner: Callable, seed: int,
+                  next_seed: int | None = None):
+        """One epoch through ``runner`` a segment at a time: ``(state,
+        metrics)``, each metric stacked over the epoch's steps. Each
+        segment's take schedules the next one's gather, and the last
+        segment the next epoch's first (``next_seed``)."""
+        parts = []
+        for k in range(self._n_segs):
+            host = self.take((seed, k))
+            if k + 1 < self._n_segs:
+                self.schedule((seed, k + 1))
+            elif next_seed is not None:
+                self.schedule((next_seed, 0))
+            state, metrics = runner(state, self._upload(host))
+            parts.append(metrics)
+        if len(parts) == 1:
+            return state, parts[0]
+        return state, {key: torch.cat([m[key] for m in parts]) for key in parts[0]}
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+
 class TrainResult(NamedTuple):
     config: ExperimentConfig
     model: Any
@@ -388,10 +553,20 @@ def train(
     """Train ``config`` from its seeded init, evaluating the test split
     after each epoch (``mmvae_tpu/api.py:414``, single device).
 
-    Each epoch takes a fresh permutation of the train split from a
-    ``torch.Generator`` seeded with ``seed`` (what the JAX defaults,
-    ``reshuffle_every=1`` and ``shuffle_granularity=1``, give), in whole
-    batches; beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
+    On the device backend (``data_backend="device"``) the train split is
+    on ``device`` and each epoch's order comes from a ``torch.Generator``
+    seeded with ``seed``, in whole batches: a fresh permutation of the split
+    each epoch at the JAX defaults (``reshuffle_every=1``,
+    ``shuffle_granularity=1``), else the JAX runner's persisted order, truly
+    reshuffled every ``reshuffle_every`` epochs (by groups of
+    ``shuffle_granularity`` rows) and between them rolled, or read in a new
+    batch order (``shuffle_mode``; ``train/step.py::epoch_order``). On the
+    grain backend the split stays on the host and each epoch is planned
+    there from ``_grain_seed(seed, epoch, rollbacks)`` (its order and its
+    presence mask, ``data/grain_pipeline.py``) and delivered in segments of
+    ``grain_stream_steps`` batches by :class:`_GrainStream`; its eval
+    records carry ``stream_hit_rate``, and ``reshuffle_every > 1`` warns
+    that it does not apply. Beta ramps over ``annealing_epochs * steps_per_epoch`` steps;
     the posterior noise and any presence dropout come from a generator on
     ``device`` seeded with ``seed``. The train split is loaded with the
     config's ``data_kwargs`` (mounted data where there is some) and its
@@ -442,14 +617,22 @@ def train(
     if config.nan_rollback > 0 and workdir is None:
         raise ValueError("nan_rollback needs a workdir: the rollback source is the "
                          "per-epoch checkpoint")
+    if config.data_backend not in DATA_BACKENDS:
+        raise ValueError(f"unknown data_backend {config.data_backend!r}; have {DATA_BACKENDS}")
+    grain = config.data_backend == "grain"
+    if config.reshuffle_every > 1 and grain:
+        warnings.warn("reshuffle_every>1 only applies to the in-program gather path (device "
+                      "backend); this run shuffles every epoch", stacklevel=2)
     device = resolve_device(device)
     if workdir is not None:
         _save_run_config(workdir, config)
     train_ds = load_dataset(config.dataset, "train", n=config.train_size,
                             gen_kwargs=config.data_kwargs)
-    # The float modalities of the train split stored once as data_dtype (the
-    # test split stays f32, as the model does).
-    train_ds = dataset_astype(train_ds, config.data_dtype)
+    if not grain:
+        # The float modalities of the train split stored once as data_dtype
+        # (the test split stays f32, as the model does); the grain stream
+        # casts its host copy itself.
+        train_ds = dataset_astype(train_ds, config.data_dtype)
     test_ds = load_dataset(config.dataset, "test", n=config.test_size,
                            gen_kwargs=config.data_kwargs)
     eval_segs = resolve_eval_segments(config)
@@ -481,15 +664,30 @@ def train(
     best_saved = best
 
     def runners(state: TrainState) -> tuple[Callable, Callable]:
-        return (
-            make_epoch_runner(
-                state.model, annealing_steps=config.annealing_epochs * steps_per_epoch,
-                generator=noise, **step_options(config)),
-            make_eval_runner(state.eval_model, config.objective, config.mvtcae_alpha),
-        )
+        step_kw = dict(annealing_steps=config.annealing_epochs * steps_per_epoch,
+                       generator=noise, **step_options(config))
+        if grain:
+            train_runner = make_epoch_runner(state.model, **step_kw)
+        else:
+            train_runner = make_gather_epoch_runner(
+                state.model, steps_per_epoch, bs, reshuffle_every=config.reshuffle_every,
+                shuffle_mode=config.shuffle_mode,
+                shuffle_granularity=config.shuffle_granularity, order=order, **step_kw)
+        return train_runner, make_eval_runner(state.eval_model, config.objective,
+                                              config.mvtcae_alpha)
 
     runner, evaluate = runners(state)
-    train_arrays = {k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
+    stream = _GrainStream(train_ds, config, state.model, device) if grain else None
+    train_arrays = None if grain else {
+        k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
+    # The persisted arrangement of the split (None: the loaded order). With
+    # neither a reshuffle period nor groups, each epoch permutes the loaded
+    # order afresh: the same law as permuting the last epoch's, and an
+    # epoch's order then does not depend on the epochs before (a resume
+    # continues it exactly). The first epoch of this call, and a rollback's
+    # retry, shuffle for real (the JAX loop's force_shuffle).
+    persist = config.reshuffle_every > 1 or config.shuffle_granularity > 1
+    pos, force_shuffle = None, True
     test_split = _padded_split(test_ds, min(bs, test_ds.size), state.model.n_modalities,
                                device if eval_segs == 0 else None)
     writer = MetricsWriter(workdir) if workdir is not None else None
@@ -499,13 +697,15 @@ def train(
     rollbacks, epoch = 0, start_epoch
     try:
         while epoch <= config.epochs:
-            perm = torch.randperm(train_ds.size, generator=order)[: steps_per_epoch * bs]
-            perm = perm.to(device)
-            batches = {
-                k: v[perm].reshape((steps_per_epoch, bs) + v.shape[1:])
-                for k, v in train_arrays.items()
-            }
-            state, metrics = runner(state, batches)
+            if grain:
+                state, metrics = stream.run_epoch(
+                    state, runner, _grain_seed(seed, epoch, rollbacks),
+                    next_seed=(_grain_seed(seed, epoch + 1, rollbacks)
+                               if epoch < config.epochs else None))
+            else:
+                state, pos, metrics = runner(state, train_arrays, pos if persist else None,
+                                             force_shuffle)
+            force_shuffle = False
             if fault_hook is not None:
                 state = fault_hook(epoch, state)
             host = _fetch(metrics)
@@ -545,6 +745,7 @@ def train(
                     print(f"[{config.name}] epoch {epoch:3d} non-finite; rolled back to epoch "
                           f"{int(restored)} ({rollbacks}/{config.nan_rollback})")
                 epoch = int(restored) + 1
+                force_shuffle = True
                 continue
             meter = AverageMeter()
             meter.update(float(losses.mean()), len(losses) * bs)
@@ -557,6 +758,8 @@ def train(
             history.append(record)
             if writer is not None:
                 rec = {"kind": "eval", **record}
+                if stream is not None:
+                    rec["stream_hit_rate"] = stream.hit_rate
                 if ckpt_writer is not None:
                     rec.update(ckpt_saved=ckpt_writer.saved, ckpt_skipped=ckpt_writer.skipped)
                 writer.write(rec)
@@ -587,6 +790,8 @@ def train(
             ckpt_writer.finalize()
             ckpt_writer = None
     finally:
+        if stream is not None:
+            stream.close()
         if ckpt_writer is not None:  # an exception left the loop
             ckpt_writer.finalize()
         if writer is not None:

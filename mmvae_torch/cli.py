@@ -8,8 +8,10 @@ value, ``--sample-z``, ``--temperature``) and ``export``; ``--config-file``
 takes a JSON dict of config fields, flags win over it, and the commands
 other than ``train`` start from the workdir's saved config. Each command
 runs on ``--device`` (the card by default). ``train`` takes
-``--data-dtype`` (the train split stored as bf16 or uint8) and
-``--eval-segment-steps``; ``eval --segment-steps K`` delivers the split in
+``--data-dtype`` (the train split stored as bf16 or uint8),
+``--eval-segment-steps``, ``--data-backend grain`` with
+``--grain-stream-steps``, and the shuffle modes (``--reshuffle-every``,
+``--shuffle-mode``, ``--shuffle-granularity``); ``eval --segment-steps K`` delivers the split in
 segments of K batches (by default the config's). ``export`` writes the serving
 artifact of ``generate`` (``serving.export_generate``: ``--out``,
 ``--batch-size-export`` an int or ``dynamic``, ``--sample-z``,
@@ -18,8 +20,7 @@ on ``--device`` from the workdir's best weights, or from the config's
 seeded init with no workdir; ``python -m mmvae_torch.serve`` serves it.
 What the port does not have raises ``NotImplementedError`` when asked
 for: ``--dtype bfloat16``, ``--multihost``, and the flags of the JAX config
-fields the port leaves out (``--data-backend``, ``--grain-stream-steps``,
-the shuffle flags, ``--fsdp``, ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
+fields the port leaves out (``--fsdp``, ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
 device.
 """
 
@@ -35,11 +36,6 @@ import numpy as np
 
 # The JAX CLI's flags of config fields the port does not have (dest -> flag).
 _UNPORTED_FLAGS = {
-    "data_backend": "--data-backend",
-    "grain_stream_steps": "--grain-stream-steps",
-    "reshuffle_every": "--reshuffle-every",
-    "shuffle_mode": "--shuffle-mode",
-    "shuffle_granularity": "--shuffle-granularity",
     "fsdp": "--fsdp",
     "tp": "--tp",
     "pp": "--pp",
@@ -53,7 +49,8 @@ _FIELDS = (
     "lr_schedule", "accum_steps", "nan_rollback", "objective", "mvtcae_alpha", "ckpt_every",
     "ckpt_async", "cross_recon_weight", "cross_recon_stopgrad", "unimodal_align_weight",
     "cycle_weight", "cycle_render_grad", "cycle_contrast_weight", "cycle_render_binarize",
-    "p_modality_drop", "cross_recon", "data_dtype", "eval_segment_steps",
+    "p_modality_drop", "cross_recon", "data_dtype", "eval_segment_steps", "data_backend",
+    "grain_stream_steps", "reshuffle_every", "shuffle_mode", "shuffle_granularity",
 )
 # Knobs of the mvae term structure a mixture objective clears when the
 # user did not set them (``mmvae_tpu/cli.py:385-409``).
@@ -117,12 +114,22 @@ def _build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--eval-segment-steps", dest="eval_segment_steps", type=int,
                     help="the eval split to the device in segments of K batches (0: the "
                     "whole split resident; -1: 0)")
+    pt.add_argument("--data-backend", dest="data_backend", choices=["device", "grain"],
+                    help="device: the train split on the device; grain: on the host, "
+                    "each epoch planned there and streamed")
+    pt.add_argument("--grain-stream-steps", dest="grain_stream_steps", type=int,
+                    help="grain backend: deliver each epoch in segments of K batches "
+                    "(0: the whole epoch)")
+    pt.add_argument("--reshuffle-every", dest="reshuffle_every", type=int,
+                    help="device backend: a true reshuffle every K epochs")
+    pt.add_argument("--shuffle-mode", dest="shuffle_mode", choices=["roll", "block"],
+                    help="the epochs between reshuffles: roll the order, or read its "
+                    "batches in a new order")
+    pt.add_argument("--shuffle-granularity", dest="shuffle_granularity", type=int,
+                    help="shuffle groups of G rows")
     # The JAX flags of fields the port does not have: parsed so that they
     # raise, never ignored.
-    pt.add_argument("--data-backend", dest="data_backend", choices=["device", "grain"])
-    pt.add_argument("--shuffle-mode", dest="shuffle_mode", choices=["roll", "block"])
-    for flag in ("--grain-stream-steps", "--reshuffle-every", "--shuffle-granularity",
-                 "--tp", "--pp"):
+    for flag in ("--tp", "--pp"):
         pt.add_argument(flag, dest=flag[2:].replace("-", "_"), type=int)
 
     pe = sub.add_parser("eval", help="ELBO of a split from a checkpoint")

@@ -1,16 +1,18 @@
 """Experiment configs (port of ``mmvae_tpu/configs.py``).
 
-The ``mnist``, ``fashionmnist``, ``multimnist``, ``celeba`` and ``cub``
-configs; the ``deep_*`` pipeline variants raise until their slice lands.
-The fields are those the inference slices, the training slices, the
-training extras (gradient accumulation, the cosine LR schedule,
-``nan_rollback``, ``ckpt_async``, ``log_interval``) and the checkpoints
-(``ckpt_every``, ``keep_epoch_ckpts``) and the data layer (``data_dtype``,
-``eval_segment_steps``, ``data_kwargs``) read, with the JAX defaults
+The seven configs of the JAX package: ``mnist``, ``deep_mnist``,
+``fashionmnist``, ``multimnist``, ``celeba``, ``cub`` and ``deep_cub``
+(the two ``deep_*`` ones carry residual trunks in their image experts,
+``models/pipeline.py``). The fields are those the inference slices, the
+training slices, the training extras (gradient accumulation, the cosine
+LR schedule, ``nan_rollback``, ``ckpt_async``, ``log_interval``), the
+checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) and the data layer
+(``data_dtype``, ``eval_segment_steps``, ``data_kwargs``, ``data_backend``,
+``grain_stream_steps`` and the shuffle modes) read, with the JAX defaults
 (``mmvae_tpu/configs.py:30-175``); every config here trains with
-``api.train``, under any of the four objectives. The JAX configs' other
-knobs (``data_backend``, ``grain_stream_steps``, the shuffle modes,
-``fsdp``, ``tp``, ``pp``) are left out until a slice reads them. Eval pins
+``api.train``, under any of the four objectives. The JAX configs'
+parallel knobs (``fsdp``, ``tp``, ``pp``) are left out until a slice
+reads them. Eval pins
 ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``). A CUB model
 takes the vocabulary of a mounted caption corpus where there is one
 (:func:`cub_vocab_size`).
@@ -28,7 +30,15 @@ from mmvae_torch.data.formats import cub_data_vocab
 from mmvae_torch.data.synthetic import cub_vocab as synthetic_cub_vocab
 from mmvae_torch.data.vocab import Vocab
 from mmvae_torch.device import resolve_device
-from mmvae_torch.models import CelebAMVAE, CubMVAE, FashionMnistMVAE, MnistMVAE, MultiMnistMVAE
+from mmvae_torch.models import (
+    CelebAMVAE,
+    CubMVAE,
+    DeepCubMVAE,
+    DeepMnistMVAE,
+    FashionMnistMVAE,
+    MnistMVAE,
+    MultiMnistMVAE,
+)
 
 __all__ = [
     "ExperimentConfig",
@@ -120,6 +130,21 @@ class ExperimentConfig:
     # keeps the whole split on the device; -1 resolves to 0
     # (``api.resolve_eval_segments``).
     eval_segment_steps: int = -1
+    # "device" (the train split on the device, each epoch's batches
+    # gathered there) or "grain" (the split on the host; each epoch planned
+    # and gathered there, in segments of grain_stream_steps batches (0: the
+    # whole epoch) by a worker thread while the device trains the one
+    # before; ``data/grain_pipeline.py``).
+    data_backend: str = "device"
+    grain_stream_steps: int = 0
+    # Device backend: a true reshuffle every reshuffle_every epochs; the
+    # epochs between "roll" the persisted order by a random offset or, under
+    # "block", read its batches in a new order. shuffle_granularity = G > 1
+    # permutes G-row groups after a random offset below G (exact rows when G
+    # does not divide the split).
+    reshuffle_every: int = 1
+    shuffle_mode: str = "roll"
+    shuffle_granularity: int = 1
     # Extra constructor arguments of the config's model.
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
     # Extra arguments of the data generators (``hw=128``), and of the
@@ -134,6 +159,11 @@ CONFIGS: dict[str, ExperimentConfig] = {
     # MVAE on MNIST image+label: MLP encoders, PoE, full ELBO.
     "mnist": ExperimentConfig(
         name="mnist", dataset="mnist", n_latents=64, annealing_epochs=10,
+    ),
+    # MNIST with a residual trunk of 4 stages at width 256 in each image
+    # expert (``mmvae_tpu/configs.py:194-197``).
+    "deep_mnist": ExperimentConfig(
+        name="deep_mnist", dataset="mnist", n_latents=64, annealing_epochs=10,
     ),
     # FashionMNIST image + label: conv image expert (32, 64) over 28x28
     # grayscale, deconv decoder, label expert (``mmvae_tpu/configs.py:199-201``).
@@ -169,6 +199,13 @@ CONFIGS: dict[str, ExperimentConfig] = {
         cross_recon=True, epochs=60, train_size=16000,
         cycle_weight=0.1, cycle_render_grad=True,
     ),
+    # The cub experiment with a residual trunk of 4 stages at width 512 at
+    # each image expert's bottleneck (``mmvae_tpu/configs.py:264-270``).
+    "deep_cub": ExperimentConfig(
+        name="deep_cub", dataset="cub", n_latents=256, batch_size=64,
+        cross_recon=True, epochs=60, train_size=16000,
+        cycle_weight=0.1, cycle_render_grad=True,
+    ),
 }
 
 _MODEL_CLASSES = {
@@ -177,13 +214,12 @@ _MODEL_CLASSES = {
     "multimnist": MultiMnistMVAE,
     "celeba": CelebAMVAE,
     "cub": CubMVAE,
+    "deep_mnist": DeepMnistMVAE,
+    "deep_cub": DeepCubMVAE,
 }
-_NOT_PORTED = ("deep_mnist", "deep_cub")
 
 
 def get_config(name: str) -> ExperimentConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"config {name!r} is not yet ported to mmvae_torch")
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r}; have {list(CONFIGS)}")
     return CONFIGS[name]

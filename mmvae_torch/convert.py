@@ -6,10 +6,15 @@ Each expert's leaves map by name:
     one, its ``head``; ``init_proj`` / ``out_proj`` onto the Linear of the
     same name. A Flax Dense ``kernel`` is ``(in, out)`` and is transposed
     into ``nn.Linear.weight`` ``(out, in)``.
-  * ``Conv_{i}`` onto ``convs.{i}``: the kernel HWIO -> OIHW.
+  * ``Conv_{i}`` onto ``convs.{i}``: the kernel HWIO -> OIHW (the 4x4
+    stride-2 stages, a ``space_to_depth`` encoder's 2x2 stage 0 and a
+    ``"shuffle"`` decoder's 2x2 stages).
   * ``ConvTranspose_{i}`` onto ``deconvs.{i}``: Flax does not flip a
     transposed conv's kernel and PyTorch does, so the kernel is flipped in
-    H and W, then HWIO -> ``(in, out, kh, kw)``.
+    H and W, then HWIO -> ``(in, out, kh, kw)`` (the 4x4 stride-2 stages
+    and a ``space_to_depth`` decoder's 2x2 last layer alike).
+  * ``PipelineTrunk_0``'s ``kernels``, ``biases`` and ``alphas`` (the
+    residual trunk of the deep configs) as they are onto ``trunk.*``.
   * ``Embed_0`` / ``embed`` ``(n_classes, dim)`` as it is onto
     ``embed.weight``; a bare ``embed`` array (the attribute bank's
     ``(A, 2, E)`` table, no ``{"embedding": ...}`` around it) onto the
@@ -28,8 +33,13 @@ Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``,
 CUB the leaf names of MultiMNIST's image and text experts, ``image_enc/
 {Conv_{0..3}, Dense_{0,1}}``, ``image_dec/{Dense_{0,1}, ConvTranspose_{0..3}}``
 (the last to 3 channels), ``text_enc/{Embed_0, w_in, u_rec, b, Dense_0}`` and
-``text_dec/{embed, init_proj, w_in, u_rec, b, out_proj}``. A leaf of no such
-name raises.
+``text_dec/{embed, init_proj, w_in, u_rec, b, out_proj}``; for ``deep_mnist``
+``image_enc/{Dense_0, PipelineTrunk_0, Dense_1}``, ``image_dec/{Dense_0,
+PipelineTrunk_0, Dense_1}`` and MNIST's label experts; for ``deep_cub``
+CUB's leaves with ``PipelineTrunk_0`` beside the image experts' ``Dense_*``.
+A ``"shuffle"`` image decoder holds ``Conv_*`` in place of
+``ConvTranspose_*`` (and a ``ConvTranspose_0`` last layer under
+``space_to_depth``). A leaf of no such name raises.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ _LINEARS = ("init_proj", "out_proj")
 _EMBEDS = ("Embed_0", "embed")
 # Parameters stored as bare arrays, mapped as they are.
 _BARE = ("w_in", "u_rec", "b", "w1", "b1", "w2", "b2")
+# The stage-stacked residual trunk, its leaves as they are.
+_TRUNK = "PipelineTrunk_0"
 
 
 def _index(name: str) -> int:
@@ -74,7 +86,7 @@ def from_flax_params(
         deconvs = _numbered(layers, "ConvTranspose_")
         unknown = (
             set(layers) - set(dense) - set(convs) - set(deconvs)
-            - set(_LINEARS) - set(_EMBEDS) - set(_BARE)
+            - set(_LINEARS) - set(_EMBEDS) - set(_BARE) - {_TRUNK}
         )
         if unknown:
             raise ValueError(f"{expert}: cannot map {sorted(unknown)}")
@@ -104,4 +116,6 @@ def from_flax_params(
         for name in _BARE:
             if name in layers:
                 state[f"{expert}.{name}"] = _t(layers[name])
+        for leaf, value in layers.get(_TRUNK, {}).items():
+            state[f"{expert}.trunk.{leaf}"] = _t(value)
     return state

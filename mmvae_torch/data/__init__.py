@@ -1,5 +1,6 @@
 """Data: mounted datasets and their distribution formats, the seeded
-generators, storage dtypes and eval batching."""
+generators, storage dtypes, eval batching, presence dropout and the
+host-planned grain epochs (``data/grain_pipeline.py``)."""
 
 from mmvae_torch.data.formats import cub_data_vocab
 from mmvae_torch.data.pipelines import (
@@ -7,6 +8,7 @@ from mmvae_torch.data.pipelines import (
     dataset_astype,
     load_dataset,
     quantize_uint8,
+    sample_presence,
     stacked_epoch_padded,
 )
 from mmvae_torch.data.synthetic import (
@@ -26,6 +28,7 @@ __all__ = [
     "dataset_astype",
     "quantize_uint8",
     "stacked_epoch_padded",
+    "sample_presence",
     "make_mnist",
     "make_fashionmnist",
     "make_multimnist",

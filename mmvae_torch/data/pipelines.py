@@ -17,7 +17,8 @@
 A :class:`Dataset` holds host arrays; the entry points move them to the
 device. :func:`dataset_astype` stores the float modalities in bf16 or
 quantized to uint8 (``data_dtype``); the step dequantizes in its graph
-(``train/step.py::_dequant_data``).
+(``train/step.py::_dequant_data``). :func:`sample_presence` draws a
+batch's modality-dropout mask.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from mmvae_torch.data import formats, synthetic
 
 __all__ = ["Dataset", "load_dataset", "dataset_astype", "quantize_uint8", "DATA_DTYPES",
-           "stacked_epoch_padded"]
+           "stacked_epoch_padded", "sample_presence", "presence_from_keep"]
 
 _GENERATORS = {
     "mnist": synthetic.make_mnist,
@@ -171,3 +172,35 @@ def stacked_epoch_padded(
     out = {k: v[torch.from_numpy(idx)] if torch.is_tensor(v) else np.asarray(v)[idx]
            for k, v in dataset.arrays.items()}
     return out, valid.reshape(n_steps, batch_size)
+
+
+def presence_from_keep(keep: torch.Tensor) -> torch.Tensor:
+    """Presence dropout's mask from a ``(B, M)`` keep draw: a row whose
+    every modality was dropped keeps them all (``mmvae_tpu/train/step.py:1054-1057``)."""
+    keep = keep.to(torch.bool)
+    all_dropped = ~torch.any(keep, dim=-1, keepdim=True)
+    return torch.where(all_dropped, True, keep).to(torch.float32)
+
+
+def sample_presence(
+    generator: torch.Generator | None,
+    batch_size: int,
+    n_modalities: int,
+    p_drop: float = 0.0,
+    *,
+    keep: torch.Tensor | np.ndarray | None = None,
+    device: torch.device | str | None = None,
+) -> torch.Tensor | None:
+    """Per-example modality-dropout mask ``(batch_size, n_modalities)``
+    (``mmvae_tpu/data/pipelines.py:257-276``): each modality is kept with
+    probability ``1 - p_drop``, drawn from ``generator`` on ``device`` (the
+    generator's by default), or ``keep``, a boolean draw passed in (JAX's
+    ``bernoulli``, for parity); an example that would lose every modality
+    keeps them all. None when ``p_drop == 0``."""
+    if p_drop <= 0.0:
+        return None
+    if keep is None:
+        device = generator.device if device is None and generator is not None else device
+        keep = torch.rand((batch_size, n_modalities), generator=generator, device=device)
+        keep = keep < 1.0 - p_drop
+    return presence_from_keep(torch.as_tensor(keep, device=device))

@@ -129,12 +129,15 @@ class MVAEBase(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's default distributions: lecun-normal
         (truncated at two standard deviations) for Dense and Conv kernels,
-        the GRU input projection and the attribute banks' weights (Flax's
-        fan-in of stacked parameters), orthogonal GRU recurrent weights,
+        the GRU input projection, the attribute banks' weights and the
+        residual trunks' kernels (Flax's fan-in of stacked parameters:
+        ``S * depth * W`` for a trunk), zero trunk gates, orthogonal GRU recurrent weights,
         zero biases; ``nn.Embed`` tables N(0, 1/features) (Flax's
         ``variance_scaling(1, "fan_in", "normal", out_axis=0)``), the
         attribute embedding N(0, 0.02^2). ``generator`` lives on the
         parameters' device."""
+        from mmvae_torch.models.pipeline import PipelineTrunk  # it imports this module
+
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 _lecun_normal_(m.weight, m.in_features, generator)
@@ -157,6 +160,12 @@ class MVAEBase(nn.Module):
                     _lecun_normal_(w, _flax_fan_in(w), generator)
                 nn.init.zeros_(m.b1)
                 nn.init.zeros_(m.b2)
+            elif isinstance(m, PipelineTrunk):
+                # Flax's fan-in of (S, depth, W, W) is S * depth * W.
+                _lecun_normal_(m.kernels, _flax_fan_in(m.kernels), generator)
+                nn.init.zeros_(m.biases)
+                if m.alphas is not None:
+                    nn.init.zeros_(m.alphas)
             elif isinstance(m, GRUExpert):
                 _lecun_normal_(m.w_in, _flax_fan_in(m.w_in), generator)
                 nn.init.orthogonal_(m.u_rec, generator=generator)

@@ -10,8 +10,11 @@ Modality order: ``image, attr_0 .. attr_17``. The batch carries the
 attributes as one ``attrs`` key ``(B, 18)``, and the decode dict as one
 ``attrs`` key of logits. On the card the image encoder's first stage runs
 in K4, the image BCE in K2 and the attribute BCE in K2 at rows of D = 1.
-Only the reference-shaped stacks are ported (``space_to_depth=1``,
-``upsample_mode="deconv"``).
+``space_to_depth=2`` folds 2x2 patches into the channels at the image
+experts' input and output stages (the encoder's stage 0 a 2x2 ``Conv2d``
+over 12 channels then, not K4), and ``upsample_mode="shuffle"`` swaps the
+decoder's transposed convs for 2x2 convs and depth-to-space
+(``mmvae_tpu/models/celeba.py:43-73``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class CelebAMVAE(MVAEBase):
         lambda_image: float = 1.0,
         lambda_attr: float = 10.0,
         conv_features: tuple[int, ...] = (32, 64, 128, 256),
+        space_to_depth: int = 1,
+        upsample_mode: str = "deconv",
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -49,11 +54,11 @@ class CelebAMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_attr = lambda_attr
         self.image_enc = ConvEncoder(
-            n_latents, self.image_hw, conv_features, channels=3
+            n_latents, self.image_hw, conv_features, space_to_depth=space_to_depth, channels=3
         )
         self.image_dec = DeconvDecoder(
             n_latents, self.image_hw, features=tuple(reversed(conv_features)),
-            channels=3,
+            upsample_mode=upsample_mode, channels=3, space_to_depth=space_to_depth,
         )
         self.attr_enc = AttributeEncoderBank(n_latents, n_attrs)
         self.attr_dec = AttributeDecoderBank(n_latents, n_attrs)

@@ -5,8 +5,9 @@ the JAX package keeps them) and a word-level GRU caption encoder and
 autoregressive decoder (embed 128, hidden 256, as in the JAX model), PoE
 fusion. The vocabulary is ``mmvae_torch.data.vocab``'s (the synthetic
 one: 23 ids). On the card the image encoder's first stage runs in K4, the
-image BCE in K2 and the caption cross-entropy in K3. Only the
-reference-shaped image stacks are ported (``upsample_mode="deconv"``).
+image BCE in K2 and the caption cross-entropy in K3. ``upsample_mode``
+picks the image decoder's stack (``"deconv"``, or ``"shuffle"``: 2x2
+convs and depth-to-space; ``mmvae_tpu/models/cub.py:30``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ class CubMVAE(MVAEBase):
         lambda_image: float = 1.0,
         lambda_text: float = 5.0,
         conv_features: tuple[int, ...] = (32, 64, 128, 256),
+        upsample_mode: str = "deconv",
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -45,7 +47,8 @@ class CubMVAE(MVAEBase):
         self.lambda_text = lambda_text
         self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3)
         self.image_dec = DeconvDecoder(
-            n_latents, self.image_hw, features=tuple(reversed(conv_features)), channels=3
+            n_latents, self.image_hw, features=tuple(reversed(conv_features)),
+            upsample_mode=upsample_mode, channels=3,
         )
         self.text_enc = SeqEncoder(n_latents, vocab_size, TEXT_EMBED, TEXT_HIDDEN)
         self.text_dec = SeqDecoder(n_latents, vocab_size, max_len, TEXT_EMBED, TEXT_HIDDEN)

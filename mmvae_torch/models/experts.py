@@ -138,14 +138,58 @@ class LabelDecoder(nn.Module):
         return self.head(_run(self.layers, z))
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to mmvae_torch")
-
-
 def _conv_out(d: int, n_stages: int) -> int:
     for _ in range(n_stages):
         d = -(-d // 2)
     return d
+
+
+def _space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``(B, H, W, C)`` -> ``(B, H/r, W/r, r*r*C)``: each r x r patch folded
+    into the channels, channel ``(ry * r + rx) * C + c`` (C minor), as
+    ``mmvae_tpu/models/experts.py:245-252`` folds it."""
+    b, hh, ww, c = x.shape
+    x = x.reshape(b, hh // r, r, ww // r, r, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hh // r, ww // r, r * r * c)
+
+
+def _depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of :func:`_space_to_depth`: ``(B, H, W, r*r*C)`` -> ``(B,
+    H*r, W*r, C)``, reading channel ``(ry * r + rx) * C + c``. (
+    ``F.pixel_shuffle`` reads ``c * r*r + ry * r + rx``, another order.)"""
+    b, hh, ww, c = x.shape
+    x = x.reshape(b, hh, ww, r, r, c // (r * r))
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hh * r, ww * r, c // (r * r))
+
+
+def _shuffle_up(h: torch.Tensor, r: int) -> torch.Tensor:
+    """:func:`_depth_to_space` of an NCHW activation, giving NCHW."""
+    return _depth_to_space(h.permute(0, 2, 3, 1), r).permute(0, 3, 1, 2)
+
+
+def _conv2x2(conv: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
+    """Flax's ``Conv((2, 2), (1, 1), "SAME")``: padded (0, 1), so output i
+    reads input rows i and i + 1."""
+    return conv(F.pad(h, (0, 1, 0, 1)))
+
+
+def _deconv2x2(deconv: nn.ConvTranspose2d, h: torch.Tensor) -> torch.Tensor:
+    """Flax's ``ConvTranspose((2, 2), (1, 1), "SAME")``, which reads input
+    rows i - 1 and i for output i (a correlation with its unflipped kernel
+    padded (1, 0)): a ``ConvTranspose2d`` with no padding over the kernel
+    ``convert`` flips, its last row and column cut off."""
+    return deconv(h)[..., : h.shape[-2], : h.shape[-1]]
+
+
+def _trunk(width: int, trunk_stages: int, trunk_depth: int, trunk_rezero: bool,
+           pp_mesh, pp_n_micro: int):
+    """The bottleneck trunk of the conv experts (None at 0 stages)."""
+    if trunk_stages <= 0:
+        return None
+    from mmvae_torch.models.pipeline import PipelineTrunk
+
+    return PipelineTrunk(trunk_stages, width, trunk_depth, rezero=trunk_rezero,
+                         pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
 
 
 class ConvEncoder(nn.Module):
@@ -153,12 +197,17 @@ class ConvEncoder(nn.Module):
 
     Each stage is a 4x4 stride-2 SAME conv and a swish, halving the
     spatial dims (rounding up); then a ``fc_hidden`` dense layer and the
-    head. Only the reference-shaped stack is ported: ``space_to_depth=1``
-    and no bottleneck trunk. With ``channels > 1`` the input is NHWC and
-    stage 0 runs in ``ops.conv4x4s2_swish`` (K4 on the card), which reads
-    the batch as it is (a bf16 batch too, into f32 outputs) and gives
-    NCHW; a grayscale stage 0 stays a ``Conv2d``, its input promoted to
-    the weights' type.
+    head. With ``channels > 1`` the input is NHWC and stage 0 runs in
+    ``ops.conv4x4s2_swish`` (K4 on the card), which reads the batch as it
+    is (a bf16 batch too, into f32 outputs) and gives NCHW; a grayscale
+    stage 0 stays a ``Conv2d``, its input promoted to the weights' type.
+
+    ``space_to_depth = r > 1`` folds r x r patches into the channels
+    (:func:`_space_to_depth`) and makes stage 0 a 2x2 stride-1 ``Conv2d``
+    over ``r*r*channels`` (Flax pads it (0, 1)); K4 does not run then.
+    ``trunk_stages > 0`` puts a :class:`~mmvae_torch.models.pipeline.PipelineTrunk`
+    of width ``fc_hidden`` (``trunk``) between the dense layer and the
+    head, as ``mmvae_tpu/models/experts.py:232-239`` does.
     """
 
     def __init__(
@@ -169,23 +218,41 @@ class ConvEncoder(nn.Module):
         fc_hidden: int = 512,
         space_to_depth: int = 1,
         channels: int = 1,
+        trunk_stages: int = 0,
+        trunk_depth: int = 1,
+        trunk_rezero: bool = True,
+        pp_mesh=None,
+        pp_n_micro: int = 4,
     ):
         super().__init__()
-        if space_to_depth != 1:
-            raise _not_ported(f"space_to_depth={space_to_depth}")
+        r = space_to_depth
+        if r > 1 and any(d % r for d in image_hw):
+            raise ValueError(f"space_to_depth={r} does not divide the image {tuple(image_hw)}")
         self.n_latents = n_latents
         self.channels = channels
-        widths = (channels, *features)
+        self.space_to_depth = r
+        widths = (channels * r * r, *features)
         self.convs = nn.ModuleList(
             nn.Conv2d(a, b, 4, stride=2) for a, b in zip(widths[:-1], widths[1:])
         )
-        out_h, out_w = (_conv_out(d, len(features)) for d in image_hw)
+        if r > 1:
+            self.convs[0] = nn.Conv2d(widths[0], widths[1], 2)
+            out_h, out_w = (_conv_out(d // r, len(features) - 1) for d in image_hw)
+        else:
+            out_h, out_w = (_conv_out(d, len(features)) for d in image_hw)
         self.layers = _hidden_layers(out_h * out_w * features[-1], (fc_hidden,))
+        self.trunk = _trunk(fc_hidden, trunk_stages, trunk_depth, trunk_rezero, pp_mesh,
+                            pp_n_micro)
         self.head = nn.Linear(fc_hidden, 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
         convs = list(self.convs)
-        if self.channels == 1:
+        if self.space_to_depth > 1:
+            stage0 = convs.pop(0)
+            h = x[..., None] if self.channels == 1 else x
+            h = _space_to_depth(_promote(h, stage0.weight), self.space_to_depth)
+            h = swish(_conv2x2(stage0, h.permute(0, 3, 1, 2)))  # NCHW
+        elif self.channels == 1:
             h = _promote(x[:, None], convs[0].weight)  # NCHW
         else:
             stage0 = convs.pop(0)
@@ -193,22 +260,34 @@ class ConvEncoder(nn.Module):
         for conv in convs:
             h = swish(conv(F.pad(h, same_pad(h.shape[-2:]))))
         h = h.permute(0, 2, 3, 1).flatten(1)  # Flax flattens NHWC
-        return _split_head(self.head(_run(self.layers, h)), self.n_latents)
+        h = _run(self.layers, h)
+        if self.trunk is not None:
+            h = self.trunk(h)
+        return _split_head(self.head(h), self.n_latents)
 
 
 class DeconvDecoder(nn.Module):
     """Transposed-conv image decoder: latent -> per-pixel logits.
 
     Mirror of :class:`ConvEncoder`: ``layers.0`` (Flax ``Dense_0``, to
-    ``fc_hidden``) and ``head`` (``Dense_1``, to the bottleneck grid of
-    ``ceil(out_hw / 2**stages)`` by ``features[0]``), each with a swish;
-    then 4x4 stride-2 transposed convs, swish between them, and a last one
-    to ``channels``. The grid overshoots a non-power-of-two target (50x50
-    from 4x4 -> 64x64) and the TOP-LEFT ``out_hw`` is kept, as in the JAX
-    decoder. Logits are ``(B, H, W)`` for one channel, else NHWC ``(B, H,
-    W, channels)``. Only the reference-shaped ``upsample_mode="deconv"``
-    stack is ported. Flax's ``ConvTranspose`` does not flip its kernel, so
-    ``convert`` flips it into ``deconvs.{i}.weight``.
+    ``fc_hidden``), the optional ``trunk`` (``PipelineTrunk_0``) and
+    ``head`` (``Dense_1``, to the bottleneck grid of ``ceil(out_hw /
+    2**stages)`` by ``features[0]``), each dense layer with a swish; then
+    the upsampling stages and a last layer to the logits. The grid
+    overshoots a non-power-of-two target (50x50 from 4x4 -> 64x64) and the
+    TOP-LEFT ``out_hw`` is kept, as in the JAX decoder. Logits are ``(B,
+    H, W)`` for one channel, else NHWC ``(B, H, W, channels)``.
+
+    ``upsample_mode="deconv"``: 4x4 stride-2 transposed convs
+    (``deconvs``), swish between them, and a last one to ``channels``;
+    Flax's ``ConvTranspose`` does not flip its kernel, so ``convert`` flips
+    it into ``deconvs.{i}.weight``. ``"shuffle"``: each stage a 2x2
+    stride-1 conv to 4x the features (``convs``, Flax's ``Conv_{i}``),
+    :func:`_depth_to_space` by 2 and a swish, and the last a 2x2 conv to
+    ``4 * channels`` and a depth-to-space. ``space_to_depth = r > 1``: the
+    last layer is a 2x2 stride-1 transposed conv to ``r*r*channels``
+    (the last of ``deconvs``) and a depth-to-space by r, under either mode
+    (``mmvae_tpu/models/experts.py:340-376``).
     """
 
     def __init__(
@@ -219,30 +298,61 @@ class DeconvDecoder(nn.Module):
         fc_hidden: int = 512,
         upsample_mode: str = "deconv",
         channels: int = 1,
+        space_to_depth: int = 1,
+        trunk_stages: int = 0,
+        trunk_depth: int = 1,
+        trunk_rezero: bool = True,
+        pp_mesh=None,
+        pp_n_micro: int = 4,
     ):
         super().__init__()
-        if upsample_mode != "deconv":
-            raise _not_ported(f"upsample_mode={upsample_mode!r}")
+        if upsample_mode not in ("deconv", "shuffle"):
+            raise ValueError(f"unknown upsample_mode {upsample_mode!r}; have 'deconv', 'shuffle'")
         self.out_hw = tuple(out_hw)
         self.channels = channels
         self.features = tuple(features)
+        self.upsample_mode = upsample_mode
+        self.space_to_depth = r = space_to_depth
         n_stages = len(self.features)
         self.base_hw = tuple(-(-d // 2**n_stages) for d in self.out_hw)
         self.layers = _hidden_layers(n_latents, (fc_hidden,))
+        self.trunk = _trunk(fc_hidden, trunk_stages, trunk_depth, trunk_rezero, pp_mesh,
+                            pp_n_micro)
         self.head = nn.Linear(fc_hidden, math.prod(self.base_hw) * self.features[0])
-        widths = (*self.features, channels)
-        self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(a, b, 4, stride=2, padding=1)
-            for a, b in zip(widths[:-1], widths[1:])
-        )
+        pairs = list(zip(self.features[:-1], self.features[1:]))
+        last_in = self.features[-1]
+        self.convs = nn.ModuleList()
+        self.deconvs = nn.ModuleList()
+        if upsample_mode == "shuffle":
+            self.convs.extend(nn.Conv2d(a, 4 * b, 2) for a, b in pairs)
+        else:
+            self.deconvs.extend(nn.ConvTranspose2d(a, b, 4, stride=2, padding=1)
+                                for a, b in pairs)
+        if r > 1:
+            self.deconvs.append(nn.ConvTranspose2d(last_in, channels * r * r, 2))
+        elif upsample_mode == "shuffle":
+            self.convs.append(nn.Conv2d(last_in, 4 * channels, 2))
+        else:
+            self.deconvs.append(nn.ConvTranspose2d(last_in, channels, 4, stride=2, padding=1))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = swish(self.head(_run(self.layers, z)))
+        h = _run(self.layers, z)
+        if self.trunk is not None:
+            h = self.trunk(h)
+        h = swish(self.head(h))
         h = h.reshape(z.shape[0], *self.base_hw, self.features[0]).permute(0, 3, 1, 2)
-        for i, deconv in enumerate(self.deconvs):
-            h = deconv(h)
-            if i < len(self.deconvs) - 1:
-                h = swish(h)
+        up = self.convs if self.upsample_mode == "shuffle" else self.deconvs
+        for layer in up[: len(self.features) - 1]:
+            if self.upsample_mode == "shuffle":
+                h = swish(_shuffle_up(_conv2x2(layer, h), 2))
+            else:
+                h = swish(layer(h))
+        if self.space_to_depth > 1:
+            h = _shuffle_up(_deconv2x2(self.deconvs[-1], h), self.space_to_depth)
+        elif self.upsample_mode == "shuffle":
+            h = _shuffle_up(_conv2x2(self.convs[-1], h), 2)
+        else:
+            h = self.deconvs[-1](h)
         h = h[:, :, : self.out_hw[0], : self.out_hw[1]]
         return h[:, 0] if self.channels == 1 else h.permute(0, 2, 3, 1)
 

@@ -110,6 +110,7 @@ from mmvae_torch.core import (
     reparameterize,
 )
 from mmvae_torch.core.mixture import _MOPOE_POWERSET_MAX
+from mmvae_torch.data.pipelines import presence_from_keep, sample_presence
 from mmvae_torch.ops import kernels
 from mmvae_torch.ops.kernels import FOLD_T, tile_rows
 from mmvae_torch.train.state import TrainState, global_norm
@@ -118,6 +119,8 @@ __all__ = [
     "multi_term_loss",
     "make_train_step",
     "make_epoch_runner",
+    "make_gather_epoch_runner",
+    "epoch_order",
     "presence_from_keep",
     "make_eval_step",
     "make_eval_runner",
@@ -573,14 +576,6 @@ def multi_term_loss(
     return loss, metrics
 
 
-def presence_from_keep(keep: torch.Tensor) -> torch.Tensor:
-    """Presence dropout's mask from a ``(B, M)`` keep draw: a row whose
-    every modality was dropped keeps them all (``step.py:1054-1057``)."""
-    keep = keep.to(torch.bool)
-    all_dropped = ~torch.any(keep, dim=-1, keepdim=True)
-    return torch.where(all_dropped, True, keep).to(torch.float32)
-
-
 def make_train_step(
     model,
     *,
@@ -643,13 +638,10 @@ def make_train_step(
                    cycle_eps=None, commit=None):
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
-            if keep is None:
-                b = next(iter(batch.values())).shape[0]
-                u = torch.rand(
-                    (b, model.n_modalities), generator=generator, device=model.device
-                )
-                keep = u < 1.0 - p_modality_drop
-            batch = dict(batch, presence=presence_from_keep(keep))
+            b = next(iter(batch.values())).shape[0]
+            batch = dict(batch, presence=sample_presence(
+                generator, b, model.n_modalities, p_modality_drop, keep=keep,
+                device=model.device))
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
             state.model, batch, beta, sample=True, generator=generator, eps=eps,
@@ -729,9 +721,12 @@ class _StepGraph:
     capture raises). It then captures each body on that stream and replays
     them for the other rows (a call whose rows run out first captures
     nothing, and the next call starts again). A later call copies its
-    inputs into the static ones (one copy each), zeroes ``idx`` and
-    replays every row. A capture that fails raises; nothing falls back to
-    the eager loop.
+    inputs into the static ones (one copy each, ordered on the stream
+    after the replays that read them before), zeroes ``idx`` and replays
+    every row; a call of fewer rows than the capture's (the short last
+    segment of a streamed epoch) fills the leading rows and replays only
+    those, so no step runs on a row it was not given. A capture that fails
+    raises; nothing falls back to the eager loop.
 
     ``generator`` (the noise and dropout draws) is registered with every
     graph, so each replay draws the numbers an eager step would and
@@ -825,17 +820,19 @@ class _StepGraph:
                     "the state's tensors moved since the graph was captured "
                     "(a reload with assign=True, a move, a new optimizer): build a new runner")
             for k, v in batches.items():
-                if v.shape != self._inputs[k].shape:
+                want = self._inputs[k].shape
+                if v.shape[1:] != want[1:] or v.shape[0] > want[0]:
                     raise ValueError(
-                        f"{k}: {tuple(v.shape)} is not the captured {tuple(self._inputs[k].shape)}")
-                self._inputs[k].copy_(v)
+                        f"{k}: {tuple(v.shape)} is not the captured {tuple(want)} "
+                        "or fewer of its rows")
+                self._inputs[k][:n].copy_(v)
             self._idx.zero_()
             start = 0
         for body in which[start:]:
             self._graphs[body].replay()
             for k, m in self._launches[body].items():
                 kernels.LAUNCHES[k] += m
-        return {k: v.clone() for k, v in self._outputs.items()}
+        return {k: v[:n].clone() for k, v in self._outputs.items()}
 
 
 def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Callable:
@@ -896,6 +893,121 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
         return state, metrics
 
     return run_graph
+
+
+SHUFFLE_MODES = ("roll", "block")
+
+
+def epoch_order(
+    pos: torch.Tensor,
+    epoch_i: int,
+    n_steps: int,
+    batch_size: int,
+    *,
+    reshuffle_every: int = 1,
+    shuffle_mode: str = "roll",
+    shuffle_granularity: int = 1,
+    force_shuffle: bool = False,
+    generator: torch.Generator | None = None,
+    draws: dict[str, Any] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One epoch of ``make_gather_epoch_runner``'s order
+    (``mmvae_tpu/train/step.py:1306-1530``, one shard): ``(pos, rows)``.
+
+    ``pos`` (CPU int64, ``(size,)``) is the persisted arrangement of the
+    split, the rows of the loaded split in the order the JAX runner keeps
+    its donated arrays; the new one is returned, with ``rows`` ``(n_steps,
+    batch_size)``, the loaded rows each step of the epoch reads. Epoch
+    ``epoch_i`` (``state.step // n_steps``) is a true shuffle when
+    ``epoch_i % reshuffle_every == 0`` or ``force_shuffle``: ``pos`` is
+    permuted, by rows, or under ``shuffle_granularity = G > 1`` that divides
+    the size, rolled by an offset below G and permuted by G-row groups. The
+    epochs between ``"roll"`` ``pos`` by an offset in ``[1, size)``, or
+    under ``"block"`` leave it and read batch ``s`` at the block
+    ``block_order[s]``. Every other epoch's steps read ``pos``'s leading
+    ``n_steps * batch_size`` rows in order.
+
+    Each draw is taken from ``generator`` (CPU) when it is needed, or from
+    ``draws`` (how a parity run feeds the JAX runner's ``jax.random``
+    draws): ``"order"`` (a permutation of the rows or the groups),
+    ``"group_offset"``, ``"roll_offset"``, ``"block_order"`` (a permutation
+    of the steps).
+    """
+    if shuffle_mode not in SHUFFLE_MODES:
+        raise ValueError(f"unknown shuffle_mode {shuffle_mode!r}; have {SHUFFLE_MODES}")
+    draws = draws or {}
+    size, gran = pos.shape[0], max(int(shuffle_granularity), 1)
+
+    def draw(key: str, make: Callable[[], Any]):
+        return draws[key] if key in draws else make()
+
+    def randint(lo: int, hi: int) -> int:
+        return int(torch.randint(lo, hi, (1,), generator=generator))
+
+    n_used = n_steps * batch_size
+    if reshuffle_every <= 1 or epoch_i % reshuffle_every == 0 or force_shuffle:
+        if gran <= 1 or size % gran:
+            order = draw("order", lambda: torch.randperm(size, generator=generator))
+            pos = pos[torch.as_tensor(order)]
+        else:
+            order = draw("order", lambda: torch.randperm(size // gran, generator=generator))
+            off = draw("group_offset", lambda: randint(0, gran))
+            groups = torch.roll(pos, int(off)).reshape(size // gran, gran)
+            pos = groups[torch.as_tensor(order)].reshape(size)
+    elif shuffle_mode == "roll":
+        pos = torch.roll(pos, int(draw("roll_offset", lambda: randint(1, size))))
+    else:
+        block = torch.as_tensor(draw("block_order", lambda: torch.randperm(
+            n_steps, generator=generator)))
+        starts = block * batch_size
+        return pos, pos[starts[:, None] + torch.arange(batch_size)]
+    return pos, pos[:n_used].reshape(n_steps, batch_size)
+
+
+def make_gather_epoch_runner(
+    model,
+    n_steps: int,
+    batch_size: int,
+    *,
+    reshuffle_every: int = 1,
+    shuffle_mode: str = "roll",
+    shuffle_granularity: int = 1,
+    order: torch.Generator | None = None,
+    graph: bool | None = None,
+    **step_kwargs,
+) -> Callable:
+    """The JAX ``make_gather_epoch_runner`` on one device
+    (``mmvae_tpu/train/step.py:1163-1543``, ``n_shards = 1``):
+    ``run(state, arrays, pos=None, force_shuffle=False, draws=None) ->
+    (state, pos, metrics)``.
+
+    ``arrays`` is the loaded split on the device, which stays as it is;
+    ``pos`` the persisted arrangement (None: the loaded order), which
+    :func:`epoch_order` advances from ``order``'s draws (or ``draws``) at
+    the epoch ``state.step // n_steps``. The epoch's batches, one gather a
+    modality by the rows it gives, then run through
+    :func:`make_epoch_runner` (``graph``, ``step_kwargs``). The JAX runner
+    moves its donated arrays (a gather, a roll) where the port moves only
+    ``pos``: the rows each step reads are the same.
+    """
+    if shuffle_mode not in SHUFFLE_MODES:
+        raise ValueError(f"unknown shuffle_mode {shuffle_mode!r}; have {SHUFFLE_MODES}")
+    runner = make_epoch_runner(model, graph=graph, **step_kwargs)
+
+    def run(state, arrays, pos=None, force_shuffle=False, draws=None):
+        size = _rows(arrays)
+        if pos is None:
+            pos = torch.arange(size)
+        pos, rows = epoch_order(
+            pos, state.step // n_steps, n_steps, batch_size,
+            reshuffle_every=reshuffle_every, shuffle_mode=shuffle_mode,
+            shuffle_granularity=shuffle_granularity, force_shuffle=force_shuffle,
+            generator=order, draws=draws)
+        rows = rows.to(next(iter(arrays.values())).device)
+        state, metrics = runner(state, {k: v[rows] for k, v in arrays.items()})
+        return state, pos, metrics
+
+    return run
 
 
 def make_eval_step(

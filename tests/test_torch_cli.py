@@ -236,8 +236,9 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
     ["--fsdp"], ["--dtype", "bfloat16"], ["--multihost"],
 ])
 def test_unported_train_options_raise(argv):
-    """The flags of what the port does not have raise; ``--eval-segment-steps``
-    and ``--data-dtype`` are ported now and set their fields."""
+    """The flags of what the port does not have raise; the data flags
+    (``--eval-segment-steps``, ``--data-dtype``, the grain backend and the
+    shuffle modes) are ported now and set their fields."""
     args = ["train", "--config", "mnist", "--device", "cpu", *argv]
     if argv[0] in _PORTED_DATA_FLAGS:
         field, value = _PORTED_DATA_FLAGS[argv[0]]
@@ -249,29 +250,43 @@ def test_unported_train_options_raise(argv):
         main(args)
 
 
-# The data flags the port took in this slice: flag -> (field, the value above).
+# The data flags the port has taken: flag -> (field, the value above).
 _PORTED_DATA_FLAGS = {"--eval-segment-steps": ("eval_segment_steps", 2),
-                      "--data-dtype": ("data_dtype", "bfloat16")}
+                      "--data-dtype": ("data_dtype", "bfloat16"),
+                      "--data-backend": ("data_backend", "grain"),
+                      "--grain-stream-steps": ("grain_stream_steps", 4),
+                      "--reshuffle-every": ("reshuffle_every", 2),
+                      "--shuffle-mode": ("shuffle_mode", "block"),
+                      "--shuffle-granularity": ("shuffle_granularity", 8)}
 
 
 def test_every_unported_flag_is_covered():
-    covered = {"--data-backend", "--grain-stream-steps", "--reshuffle-every", "--shuffle-mode",
-               "--shuffle-granularity", "--tp", "--pp", "--fsdp"}
+    covered = {"--tp", "--pp", "--fsdp"}
     assert set(_UNPORTED_FLAGS.values()) == covered
     assert not set(_PORTED_DATA_FLAGS) & covered
+    # Each ported data flag sets what the JAX CLI sets.
+    argv = ["train", "--config", "mnist"]
+    for flag, (field, value) in _PORTED_DATA_FLAGS.items():
+        args = [*argv, flag, str(value)]
+        want = getattr(j_overrides(j_build_parser().parse_args(args),
+                                   j_get_config("mnist")), field)
+        assert getattr(_resolve_config(_build_parser().parse_args(args)), field) == want == value
 
 
 @pytest.mark.parametrize("fields", [{"fsdp": False}, {"data_kwargs": {"hw": 128}},
                                     {"grain_stream_steps": 4}])
 def test_unported_config_file_fields_raise(tmp_path, fields):
     """Fields the port does not have raise from a config file;
-    ``data_kwargs`` is ported now and is set (its lists as tuples, as the
-    generators take them)."""
+    ``data_kwargs`` (its lists as tuples, as the generators take them) and
+    ``grain_stream_steps`` are ported now and are set."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(fields))
     argv = ["train", "--config", "mnist", "--device", "cpu", "--config-file", str(path)]
     if "data_kwargs" in fields:
         assert _resolve_config(_build_parser().parse_args(argv)).data_kwargs == {"hw": 128}
+        return
+    if "grain_stream_steps" in fields:
+        assert _resolve_config(_build_parser().parse_args(argv)).grain_stream_steps == 4
         return
     with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
         main(argv)

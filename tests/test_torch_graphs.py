@@ -421,3 +421,107 @@ def test_a_finished_train_call_leaves_no_card_memory_behind(cuda):
     assert result["held"] == 0
     assert alloc_2 == alloc_1, result
     assert reserved_2 - reserved_1 < peak_1 / 10, result
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, n_steps, bs", [("deep_mnist", 6, 100), ("deep_cub", 3, 16)])
+def test_deep_trunk_graph_epoch_equals_eager_to_the_bit(cuda, name, n_steps, bs):
+    """The deep configs at full width, their ReZero gates made live (a
+    fresh trunk is the identity): the stage loop captured with the step,
+    two epochs of replays against two of the eager loop on deterministic
+    algorithms, every metric and parameter to the bit, the gates' updates
+    among them, and the launches of the shallow config's step."""
+    config = configs.get_config(name)
+    torch.backends.cudnn.deterministic = True
+    batches = _batches(config, n_steps, bs)
+    runs = []
+    for graph in (True, False):
+        model = configs.build_model(config, seed=0)
+        with torch.no_grad():
+            for expert in (model.image_enc, model.image_dec):
+                expert.trunk.alphas.fill_(0.5)
+        state = create_train_state(model, config.learning_rate, grad_clip=config.grad_clip)
+        runner = make_epoch_runner(model, graph=graph, annealing_steps=1000,
+                                   generator=torch.Generator(device="cuda").manual_seed(5),
+                                   **api.step_options(config))
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        per_epoch = [runner(state, batches)[1] for _ in range(2)]
+        runs.append((state, per_epoch, dict(kernels.LAUNCHES)))
+    (s_g, m_g, l_g), (s_e, m_e, l_e) = runs
+    for mg, me in zip(m_g, m_e):
+        assert all(torch.equal(mg[k], me[k]) for k in me)
+    assert all(torch.equal(a, b) for a, b in zip(s_g.model.parameters(), s_e.model.parameters()))
+    assert not torch.equal(s_g.model.image_enc.trunk.alphas,
+                           torch.full_like(s_g.model.image_enc.trunk.alphas, 0.5))
+    assert l_g == l_e and l_g["poe_kl_bwd"] == 2 * n_steps * (2 if name == "deep_cub" else 1)
+
+
+@pytest.mark.gpu
+def test_a_streamed_grain_epoch_with_a_short_tail_equals_the_whole_one(cuda, tmp_path):
+    """``mnist`` on the grain backend, 2 epochs of 7 steps with presence
+    dropout: segments of 3 (the last of each epoch 1 step, replayed from
+    the 3-step capture's leading row) against the whole epoch: the
+    histories and every parameter to the bit, and the stream's hits."""
+    config = configs.get_config("mnist").replace(
+        epochs=2, train_size=700, test_size=200, data_backend="grain", p_modality_drop=0.3)
+    whole = api.train(config, verbose=False)
+    streamed = api.train(config.replace(grain_stream_steps=3), str(tmp_path), verbose=False)
+    assert streamed.history == whole.history
+    assert all(torch.equal(a, b) for a, b in zip(whole.model.parameters(),
+                                                  streamed.model.parameters()))
+    with open(tmp_path / "metrics.jsonl") as f:
+        rates = [r["stream_hit_rate"] for r in map(json.loads, f) if r["kind"] == "eval"]
+    assert rates == [2 / 3, 5 / 6]
+
+
+@pytest.mark.gpu
+def test_a_graph_runner_replays_a_shorter_call_on_its_leading_rows(cuda):
+    """A call of fewer rows than the capture's replays only those rows: the
+    two calls together equal one eager pass over the rows, and a longer call
+    raises."""
+    config = configs.get_config("mnist")
+    batches = _batches(config, 5, 100)
+    head, tail = ({k: v[:3] for k, v in batches.items()}, {k: v[3:] for k, v in batches.items()})
+    runs = []
+    for graph in (True, False):
+        model = configs.build_model(config, seed=0)
+        state = create_train_state(model, config.learning_rate)
+        runner = make_epoch_runner(model, graph=graph, annealing_steps=1000,
+                                   generator=torch.Generator(device="cuda").manual_seed(5))
+        metrics = [runner(state, part)[1]["loss"] for part in (head, tail)]
+        runs.append((torch.cat(metrics), list(model.parameters()), state, runner))
+    assert torch.equal(runs[0][0], runs[1][0]) and runs[0][0].shape == (5,)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    with pytest.raises(ValueError, match="or fewer of its rows"):
+        runs[0][3](runs[0][2], batches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fields", [dict(reshuffle_every=3, shuffle_mode="roll"),
+                                    dict(reshuffle_every=3, shuffle_mode="block"),
+                                    dict(shuffle_granularity=4)])
+def test_each_shuffle_mode_under_the_graph_runner(cuda, fields):
+    """4 epochs of ``mnist`` at full width over 600 rows in each shuffle
+    mode: the graph runner's epochs equal the eager loop's to the bit (the
+    order is drawn on the host, the same rows each way), 4 epochs of steps."""
+    config = configs.get_config("mnist").replace(n_latents=64, train_size=600, **fields)
+    arrays = {k: torch.as_tensor(v, device="cuda")
+              for k, v in load_dataset("mnist", "train", n=600).arrays.items()}
+    runs = []
+    for graph in (True, False):
+        model = configs.build_model(config, seed=0)
+        state = create_train_state(model, config.learning_rate)
+        runner = step_module.make_gather_epoch_runner(
+            model, 6, 100, reshuffle_every=config.reshuffle_every,
+            shuffle_mode=config.shuffle_mode, shuffle_granularity=config.shuffle_granularity,
+            order=torch.Generator().manual_seed(0), graph=graph, annealing_steps=1000,
+            generator=torch.Generator(device="cuda").manual_seed(5))
+        pos, losses = None, []
+        for epoch in range(4):
+            state, pos, metrics = runner(state, arrays, pos, epoch == 0)
+            losses.append(metrics["loss"])
+        runs.append((torch.cat(losses), list(model.parameters()), state.step))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert runs[0][2] == runs[1][2] == 24

@@ -7,8 +7,8 @@ port's names with ``mmvae_torch.convert``, and every parameter tensor of
 Flax tensor's (the sampling error of a std over 500 draws is about 3%);
 every bias is exactly 0. This pins the two init rules that differ from
 PyTorch's: ``nn.Embed`` tables are N(0, 1/features), and the fan-in of a
-stacked parameter (the CelebA attribute banks) is ``shape[-2]`` times the
-product of its leading dims.
+stacked parameter (the CelebA attribute banks, the deep configs' residual
+trunks) is ``shape[-2]`` times the product of its leading dims.
 """
 
 import dataclasses
@@ -20,11 +20,13 @@ import pytest
 import torch
 
 from mmvae_tpu.models import CelebAMVAE as JCelebAMVAE
+from mmvae_tpu.models import DeepCubMVAE as JDeepCubMVAE
+from mmvae_tpu.models import DeepMnistMVAE as JDeepMnistMVAE
 from mmvae_tpu.models import MnistMVAE as JMnistMVAE
 from mmvae_tpu.models import MultiMnistMVAE as JMultiMnistMVAE
 from mmvae_torch import configs
 from mmvae_torch.convert import from_flax_params
-from mmvae_torch.data import make_celeba, make_mnist, make_multimnist
+from mmvae_torch.data import make_celeba, make_cub, make_mnist, make_multimnist
 
 SMALL = {
     "mnist": (JMnistMVAE, 16, {}, lambda: make_mnist(4)),
@@ -37,8 +39,14 @@ SMALL = {
         JCelebAMVAE, 8, dict(image_hw=(32, 32), conv_features=(32, 16)),
         lambda: make_celeba(4, hw=32),
     ),
+    # The residual trunks' kernels (S, depth, W, W) at Flax's fan-in S * depth * W.
+    "deep_mnist": (JDeepMnistMVAE, 16, dict(trunk_width=64), lambda: make_mnist(4)),
+    "deep_cub": (
+        JDeepCubMVAE, 16, dict(image_hw=(32, 32), conv_features=(8, 16), vocab_size=23),
+        lambda: make_cub(4, hw=32),
+    ),
 }
-BIASES = ("bias", "b", "b1", "b2")
+BIASES = ("bias", "b", "b1", "b2", "biases", "alphas")  # the trunks start at 0 too
 
 
 def _flax_state(name):
@@ -74,6 +82,8 @@ def test_build_model_matches_flax_init_distributions(name):
     assert embeds, "no embedding table was checked"
     if name == "celeba":
         assert {"attr_enc.w1", "attr_dec.w1", "attr_enc.w2", "attr_enc.embed"} <= set(checked)
+    if name.startswith("deep_"):
+        assert {"image_enc.trunk.kernels", "image_dec.trunk.kernels"} <= set(checked)
 
 
 def test_stacked_and_embedding_stds():

@@ -260,12 +260,15 @@ def test_entry_points_default_to_the_card(matched):
 
 
 def test_unported_configs_and_datasets_raise(tmp_path, monkeypatch):
-    """The ``deep_mnist`` pipeline config is not ported and raises; an
-    unknown name is a ``ValueError``. A mounted ``fashionmnist/`` with no
-    IDX files in it: both loaders find no format there and generate the
-    same split."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("deep_mnist")
+    """The ``deep_mnist`` pipeline config is ported now and is the JAX
+    config (its trunks are in ``tests/test_torch_deep.py``); an unknown name
+    is a ``ValueError``. A mounted ``fashionmnist/`` with no IDX files in
+    it: both loaders find no format there and generate the same split."""
+    from mmvae_tpu.configs import get_config as j_get_config
+
+    deep, j_deep = configs.get_config("deep_mnist"), j_get_config("deep_mnist")
+    assert (deep.dataset, deep.n_latents, deep.annealing_epochs, deep.batch_size) == (
+        j_deep.dataset, j_deep.n_latents, j_deep.annealing_epochs, j_deep.batch_size)
     (tmp_path / "fashionmnist").mkdir()
     monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
     got = load_dataset("fashionmnist", n=6)

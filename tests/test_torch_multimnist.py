@@ -230,7 +230,15 @@ def test_full_width_config():
 
 
 def test_unported_expert_options_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ConvEncoder(8, (64, 64), space_to_depth=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeconvDecoder(8, (64, 64), upsample_mode="shuffle")
+    """``space_to_depth`` and ``upsample_mode="shuffle"`` are ported now
+    (``tests/test_torch_conv_variants.py`` holds them against JAX): they
+    build their 2x2 layers; a factor that does not divide the image and an
+    unknown mode raise ``ValueError``."""
+    enc = ConvEncoder(8, (64, 64), space_to_depth=2)
+    assert enc.convs[0].kernel_size == (2, 2) and enc.convs[0].in_channels == 4
+    dec = DeconvDecoder(8, (64, 64), upsample_mode="shuffle")
+    assert [c.out_channels for c in dec.convs] == [4 * 32, 4 * 1] and not len(dec.deconvs)
+    with pytest.raises(ValueError, match="does not divide"):
+        ConvEncoder(8, (50, 50), space_to_depth=4)
+    with pytest.raises(ValueError, match="unknown upsample_mode"):
+        DeconvDecoder(8, (64, 64), upsample_mode="nearest")

@@ -337,8 +337,9 @@ def test_random_subsets_train_mnist_as_jax_does(jmodel):
 @pytest.mark.parametrize("kw", [{"objective": "mmvae"}, {"mounted": "mnist"},
                                 {"config": "deep_mnist"}, {"config": "deep_cub"}])
 def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
-    """The ``deep_*`` pipeline configs are not ported: ``api.train`` raises.
-    A mixture objective is ported; with an mvae term knob (cross-recon) it
+    """The ``deep_*`` pipeline configs are ported now: ``api.train`` trains
+    them at a small width to a finite history (their parity with JAX is in
+    ``tests/test_torch_deep.py``). A mixture objective is ported; with an mvae term knob (cross-recon) it
     raises the JAX loss's ``ValueError``. Mounted data is ported: a mounted
     ``mnist/`` without data files in it leaves the generators' split (as
     the JAX loader does), so the run equals the unmounted one."""
@@ -356,6 +357,14 @@ def test_api_train_raises_on_unported_entry_options(kw, tmp_path, monkeypatch):
         (tmp_path / kw.pop("mounted")).mkdir()
         monkeypatch.setenv("MMVAE_DATA_DIR", str(tmp_path))
         assert api.train(small, device="cpu", verbose=False).history == want
+        return
+    if isinstance(config, str) and config.startswith("deep_"):
+        small = configs.get_config(config).replace(
+            n_latents=8, epochs=1, train_size=16, test_size=8, batch_size=8,
+            model_kwargs=dict(trunk_stages=2, **(
+                dict(conv_features=(8, 8)) if config == "deep_cub" else dict(trunk_width=32))))
+        history = api.train(small, device="cpu", verbose=False).history
+        assert np.isfinite([history[0]["train_loss"], history[0]["test_elbo"]]).all()
         return
     with pytest.raises(error, match=match):
         api.train(config, device="cpu", **kw)
