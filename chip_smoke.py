@@ -250,6 +250,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    - the shuffle modes (``shuffle``): ``mnist`` for 5 epochs under
      ``reshuffle_every`` 4 with rolls and with block orders, and with
      4-row groups, each run's steps, history and launches;
+   - bf16 models (``bf16``): K4, its backward and its input gradient on
+     all-bf16 operands at the path's (64, 64, 64, 3) (K4 also at a served
+     batch of 8) against their plain versions (bf16 outputs; K4 atol 2e-2,
+     the backward kernels rtol 2^-7 beside their f32 atols: each side sums
+     in f32 and rounds once, so one bf16 step apart at most), two launches
+     to the bit, and timed; ``api.train(dtype=bf16)`` of ``celeba`` (20
+     steps of 64 at T = 24, the test ELBO over 2,000 examples, then
+     ``log_likelihood`` at k = 64 over 4 batches), ``cub`` (20 steps, K4's
+     dx on the cycle) and ``mnist`` (100 steps of 100), each launching
+     what its f32 path launches; the graph runner against the eager loop
+     over 5 bf16 steps of ``celeba`` and ``cub`` to the bit; each step's
+     wall at bf16 and at f32 in turns (``bf16_rate``) and its device time
+     by kernel family; the card against the CPU at bf16 (encode and decode
+     within 2^-5 of the CPU's bf16 outputs' largest and, together, nearer
+     them than the CPU's f32 outputs; a loss at rel 2e-3; each gradient
+     within 2^-4 of the f32 control's largest, widened by the CPU's own
+     bf16-to-f32 distance); ``celeba``'s batch-8 artifact with bf16
+     experts, exported by a process of its own meanwhile: its ops, one
+     call's launches, against ``api.generate(dtype=bf16)`` (rel 1e-6) and
+     against itself on the CPU under the same gates;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -277,7 +297,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gradient.
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
-summary, and as the last line ``{"ok": true, "device": {...}}``.
+summary (K4, its backward and its dx twice: at f32, and at all-bf16 with
+the bf16 paths' launches), and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -308,7 +330,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mmvae_torch import api, configs, ops
 from mmvae_torch.core import component_masks, elbo_subset_masks
-from mmvae_torch.data import load_dataset
+from mmvae_torch.data import Dataset, load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
 from mmvae_torch.train import (
@@ -317,6 +339,7 @@ from mmvae_torch.train import (
     make_eval_runner,
     make_iwae_runner,
     make_train_step,
+    multi_term_loss,
 )
 from mmvae_torch.train.checkpoint import AsyncCheckpointWriter
 from mmvae_torch.train.state import learning_rate
@@ -515,7 +538,11 @@ TIMED_SHAPES = {
              "celeba_train_bf16_x": (64, 64, 64, 3, "bf16_x"),
              "probe": (256, 64, 64, 3, torch.bfloat16),
              # A served batch of 8 (CelebA's and CUB's artifacts).
-             "serve": (8, 64, 64, 3, torch.float32)},
+             "serve": (8, 64, 64, 3, torch.float32),
+             # A bf16 model's stage 0 (all operands bf16): the CelebA and
+             # CUB train batch, and a served batch of 8.
+             "celeba_train_bf16": (64, 64, 64, 3, torch.bfloat16),
+             "serve_bf16": (8, 64, 64, 3, torch.bfloat16)},
     "poe_kl": {"mnist_eval": (3, 100, 2, 64, "eval"),
                "multimnist_eval": (3, 100, 2, 256, "eval"),
                "multimnist_train": (3, 100, 2, 256, "text"),
@@ -567,12 +594,14 @@ TIMED_SHAPES = {
                    "mnist_mmvae": (2, 100, 2, 64, "mmvae"),
                    "mnist_mopoe": (3, 100, 2, 64, "mopoe")},
     "conv_bwd": {"celeba_train": (64, 64, 64, 3),
-                 "celeba_train_bf16": (64, 64, 64, 3, torch.bfloat16)},
+                 "celeba_train_bf16": (64, 64, 64, 3, torch.bfloat16),
+                 "celeba_train_all_bf16": (64, 64, 64, 3, "all_bf16")},
     # K4's input gradient: CUB's train batch (the cycle term's re-encode of
     # its 64 renders), an odd size, C = 1 and 4, and CUB's batch with a
     # transposed upstream gradient (the fifth field).
     "conv_dx": {"cub_train": (64, 64, 64, 3), "odd": (3, 33, 31, 3), "c1": (64, 64, 64, 1),
-                "c4": (64, 64, 64, 4), "transposed_g": (64, 64, 64, 3, "transposed")},
+                "c4": (64, 64, 64, 4), "transposed_g": (64, 64, 64, 3, "transposed"),
+                "cub_train_all_bf16": (64, 64, 64, 3, "all_bf16")},
 }
 CHECKED_SHAPES = {
     "kl": [(300, 64, 300, None), (300, 256, 300, None), (1280, 100, 1280, None),
@@ -643,7 +672,9 @@ CHECKED_SHAPES = {
              *((6, 32, 40, c, dt) for c in (1, 2, 4) for dt in (torch.float32, torch.bfloat16)),
              (2, 7, 1100, 4, torch.float32), (8, 64, 64, 3, torch.float32),
              # A bf16 image into f32 weights and outputs ("bf16_x").
-             (64, 64, 64, 3, "bf16_x"), (5, 25, 25, 1, "bf16_x"), (4, 30, 70, 3, "bf16_x")],
+             (64, 64, 64, 3, "bf16_x"), (5, 25, 25, 1, "bf16_x"), (4, 30, 70, 3, "bf16_x"),
+             # A bf16 model's stage 0: the train batch, a served batch of 8.
+             (64, 64, 64, 3, torch.bfloat16), (8, 64, 64, 3, torch.bfloat16)],
     # The three eval batches; CelebA's padded last batch (16 rows present,
     # 48 absent); no presence mask; log-variances past the +-11 clamp; an
     # odd L; experts one element into their storage; a CelebA train step's 24
@@ -717,7 +748,10 @@ CHECKED_SHAPES = {
                  # A bf16 image (data_dtype="bfloat16"): the CelebA train
                  # batch, ragged, odd and off-tile (scalar staging).
                  (64, 64, 64, 3, torch.bfloat16), (37, 64, 64, 3, torch.bfloat16),
-                 (5, 25, 25, 1, torch.bfloat16), (4, 30, 70, 3, torch.bfloat16)],
+                 (5, 25, 25, 1, torch.bfloat16), (4, 30, 70, 3, torch.bfloat16),
+                 # All operands bf16 (a bf16 model's stage 0): the train
+                 # batch, odd H and W.
+                 (64, 64, 64, 3, "all_bf16"), (3, 33, 31, 3, "all_bf16")],
     # K4's input gradient (f32): CUB's train batch; odd H and W (tiles that
     # end at the image's last row); a 25 x 25 grayscale image that pads (1,
     # 2); C = 1, 2 and 4; a second tile of 3 columns; rows of 18 tiles; a
@@ -725,7 +759,9 @@ CHECKED_SHAPES = {
     "conv_dx": [(64, 64, 64, 3), (3, 33, 31, 3), (5, 25, 25, 1), (64, 64, 64, 1),
                 (64, 64, 64, 4), (6, 32, 40, 2), (4, 30, 70, 3), (2, 7, 1100, 4),
                 (2, 18, 10, 3), (1, 1, 1, 3), (64, 64, 64, 3, "transposed"),
-                (3, 33, 31, 3, "transposed")],
+                (3, 33, 31, 3, "transposed"),
+                # All operands bf16: CUB's train batch, odd H and W.
+                (64, 64, 64, 3, "all_bf16"), (3, 33, 31, 3, "all_bf16")],
 }
 # The (path, timed shape) each kernel's entry of the final line reports:
 # this slice's paths -- CelebA under mopoe for the kernels it runs (K4 and
@@ -740,7 +776,15 @@ REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image
             "bce_bwd": (_MOPOE, "celeba_mopoe_image"),
             "seq_ce_bwd": ("multimnist_knobs_train", "multimnist_train"),
             "poe_kl_bwd": (_MOPOE, "celeba_eval"), "conv_bwd": (_MOPOE, "celeba_train"),
-            "conv_dx": ("cub_train", "cub_train")}
+            "conv_dx": ("cub_train", "cub_train"),
+            # K4's all-bf16 forms, on the bf16 paths (``phase_bf16``).
+            "conv_bf16": ("celeba_bf16_train", "celeba_train_bf16"),
+            "conv_bwd_bf16": ("celeba_bf16_train", "celeba_train_all_bf16"),
+            "conv_dx_bf16": ("cub_bf16_train", "cub_train_all_bf16")}
+# The entries of the kernels line -> the op each times: one an op, and K4's
+# forward, backward and input gradient on all-bf16 operands apart.
+ENTRIES = {**{op: op for op in OPS}, "conv_bf16": "conv", "conv_bwd_bf16": "conv_bwd",
+           "conv_dx_bf16": "conv_dx"}
 _NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
            "conv_dx": 0}
 EXPECTED_LAUNCHES = {
@@ -889,6 +933,22 @@ EXPECTED_LAUNCHES = {
     "cub_shuffle_train": {"kl": 0, "bce": 5, "seq_ce": 8, "conv": 8, "poe_kl": 8,
                           "kl_bwd": 0, "bce_bwd": 3, "seq_ce_bwd": 6, "poe_kl_bwd": 6,
                           "conv_bwd": 6, "conv_dx": 3},
+    # ``bf16``: the bf16 paths launch what the f32 ones do (the
+    # experts cast around the same kernels): ``celeba_train``'s,
+    # ``cub_train``'s and ``mnist_train``'s counts; ``log_likelihood`` of
+    # CelebA over 4 batches of 64 at k = 64 (``celeba_iwae``'s a batch), and
+    # one call of the bf16 artifact (``serve_celeba``'s).
+    "celeba_bf16_train": {"kl": 0, "bce": 104, "seq_ce": 0, "conv": 52, "poe_kl": 52,
+                          "kl_bwd": 0, "bce_bwd": 40, "seq_ce_bwd": 0, "poe_kl_bwd": 20,
+                          "conv_bwd": 20, "conv_dx": 0},
+    "cub_bf16_train": {"kl": 0, "bce": 52, "seq_ce": 72, "conv": 72, "poe_kl": 72,
+                       "kl_bwd": 0, "bce_bwd": 20, "seq_ce_bwd": 40, "poe_kl_bwd": 40,
+                       "conv_bwd": 40, "conv_dx": 20},
+    "mnist_bf16_train": {"kl": 0, "bce": 120, "seq_ce": 0, "conv": 0, "poe_kl": 120,
+                         "kl_bwd": 0, "bce_bwd": 100, "seq_ce_bwd": 0, "poe_kl_bwd": 100,
+                         "conv_bwd": 0, "conv_dx": 0},
+    "celeba_bf16_iwae": {"kl": 0, "bce": 8, "seq_ce": 0, "conv": 4, "poe_kl": 4, **_NO_BWD},
+    "serve_celeba_bf16": {"kl": 0, "bce": 0, "seq_ce": 0, "poe_kl": 1, "conv": 1, **_NO_BWD},
     # ``grain`` and ``shuffle`` (PR 22): 3 and 5 epochs of ``mnist_train``.
     **{f"mnist_{kind}_train": {"kl": 0, "bce": 120 * n, "seq_ce": 0, "conv": 0,
                                "poe_kl": 120 * n, "kl_bwd": 0, "bce_bwd": 100 * n,
@@ -939,7 +999,20 @@ def data_dtype(shape) -> torch.dtype:
     return shape[-1] if isinstance(shape[-1], torch.dtype) else torch.float32
 
 
+def entry_of(op: str, shape) -> str:
+    """The entry of the kernels line a shape of ``CHECKED_SHAPES`` or
+    ``TIMED_SHAPES`` belongs to: K4's forward, backward and input gradient
+    on all-bf16 operands (a bf16 model's stage 0) apart from their other
+    forms."""
+    if (op == "conv" and shape[4] == torch.bfloat16) or (
+            op in ("conv_bwd", "conv_dx") and "all_bf16" in shape[4:]):
+        return f"{op}_bf16"
+    return op
+
+
 def describe(op: str, shape) -> dict:
+    if op in ("conv_bwd", "conv_dx") and "all_bf16" in shape[4:]:
+        return {"shape": list(shape[:4]), "dtype": "bfloat16 (all operands)"}
     if op == "conv_bwd":
         return {"shape": list(shape[:4]), "dtype": str(data_dtype(shape)).removeprefix("torch.")}
     if op == "conv_dx":
@@ -986,12 +1059,15 @@ def inputs(op: str, shape, gen: torch.Generator):
     if op in ("conv_bwd", "conv_dx"):
         # K4's input gradient may take its upstream gradient transposed (a
         # view whose rows are its columns' storage).
+        # "all_bf16": every operand bf16 (a bf16 model's stage 0).
         x, weight, bias = inputs("conv", (*shape[:4], torch.float32), gen)
         x = x.to(data_dtype(shape))
         b, h, w = shape[:3]
         g = torch.randn(b, kernels.CONV_OUT, -(-h // 2), -(-w // 2), generator=gen, device=dev)
         if shape[4:] == ("transposed",):
             g = g.transpose(2, 3).contiguous().transpose(2, 3)
+        if "all_bf16" in shape[4:]:
+            return tuple(t.to(torch.bfloat16) for t in (x, weight, bias, g))
         return (x, weight, bias, g)
     if op == "kl_bwd":
         return (*inputs("kl", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
@@ -1150,7 +1226,7 @@ def autograd_backward(op: str, args):
         # cuDNN's wgrad and the silu's backward, for the weight and bias
         # alone (padding=1 is XLA's SAME at the even sizes timed here).
         x, weight, bias, g = args
-        x_nchw = x.permute(0, 3, 1, 2).float().contiguous()  # a bf16 image upcast
+        x_nchw = x.permute(0, 3, 1, 2).to(weight.dtype).contiguous()  # a bf16 image upcast
         leaves = (weight.detach().requires_grad_(True), bias.detach().requires_grad_(True))
         outs = (F.silu(F.conv2d(x_nchw, *leaves, stride=2, padding=1)),)
         grads = (g,)
@@ -1185,14 +1261,21 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     (each below 1 in size: an image in [0, 1] times g * swish'), in another
     order than the plain version's batched product; for K4's input
     gradient, atol 1e-6 times the 4 taps x 32 channels each entry of dx
-    sums (each below 1 in size: g * swish' times a weight)."""
+    sums (each below 1 in size: g * swish' times a weight). Both on
+    all-bf16 operands: rtol 2^-7 beside those atols, the two sides summing
+    in f32 and each rounding once to bf16, so one bf16 step (2^-7 of the
+    value at most) apart where their f32 sums straddle a rounding. K4 on
+    all-bf16 operands: rtol 2^-7 and atol 0, one bf16 step: both sides sum
+    the conv in f32 and round it, the bias add, the sigmoid and the
+    product to bf16, as Flax does."""
     if op in ("kl_bwd", "bce_bwd", "seq_ce_bwd"):
         return 1e-5, 1e-6
+    rtol = 2.0**-7 if "all_bf16" in shape[4:] else 1e-5
     if op == "conv_bwd":
         b, h, w = shape[:3]
-        return 1e-5, 1e-6 * b * -(-h // 2) * -(-w // 2)
+        return rtol, 1e-6 * b * -(-h // 2) * -(-w // 2)
     if op == "conv_dx":
-        return 1e-5, 1e-6 * 4 * kernels.CONV_OUT
+        return rtol, 1e-6 * 4 * kernels.CONV_OUT
     if op == "poe_kl_bwd":
         return 1e-5, 1e-5 * shape[0]
     if op == "poe_kl":
@@ -1200,7 +1283,7 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     if op == "conv":
         # A bf16 image into f32 weights is exact in f32: f32's tolerance.
         c, dtype = shape[3], shape[4]
-        return (1e-5, 1e-5 * 16 * c) if dtype in (torch.float32, "bf16_x") else (0.0, 2e-2)
+        return (1e-5, 1e-5 * 16 * c) if dtype in (torch.float32, "bf16_x") else (2.0**-7, 0.0)
     return 1e-5, 1e-5 * (shape[1] * math.log(shape[2]) if op == "seq_ce" else shape[1])
 
 
@@ -1233,14 +1316,18 @@ def bound(op: str, args) -> tuple[float, str]:
         # recomputed and the second product (dW's accumulation, or T = S W
         # of dx), 16 C multiply-adds each as three TF32 products, and
         # CONV_BWD_OPS_PER_OUT in f32 for swish' and the product with g.
+        # On all-bf16 operands the products are bf16 ones, once each, at the
+        # bf16 tensor-core rate, and every byte is counted at its size.
         x, weight, bias, g = args
         c = x.shape[3]
         out = x.numel() if op == "conv_dx" else weight.numel() + bias.numel()
         n_bytes = (x.element_size() * x.numel()
-                   + 4 * (g.numel() + weight.numel() + bias.numel() + out))
+                   + g.element_size() * (g.numel() + weight.numel() + bias.numel() + out))
         t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = (3 * 2 * 2 * 16 * c * g.numel() / PEAK_TF32_OPS_PER_S
-                 + CONV_BWD_OPS_PER_OUT * g.numel() / PEAK_OPS_PER_S[torch.float32])
+        products = (2 * 2 * 16 * c * g.numel() / PEAK_OPS_PER_S[torch.bfloat16]
+                    if weight.dtype == torch.bfloat16
+                    else 3 * 2 * 2 * 16 * c * g.numel() / PEAK_TF32_OPS_PER_S)
+        t_ops = products + CONV_BWD_OPS_PER_OUT * g.numel() / PEAK_OPS_PER_S[torch.float32]
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if op == "conv":
         # The output in the weights' type; the FMAs at the weights' rate (f32
@@ -1317,12 +1404,14 @@ def phase_device() -> str:
 
 def dx_ptxas(lines: list[str]) -> dict[str, str]:
     """``-Xptxas -v``'s registers and spills of each instantiation of K4's
-    input gradient, keyed ``C=<c> vec=<0|1>`` from the mangled name."""
+    input gradient, keyed ``<f32|bf16> C=<c> vec=<0|1>`` from the mangled
+    name."""
     out, key = {}, None
     for line in lines:
         if "Compiling entry" in line:
-            found = re.search(r"conv_s2_dx_kernelILi(\d)ELb(\d)E", line)
-            key = f"C={found.group(1)} vec={found.group(2)}" if found else None
+            found = re.search(r"conv_s2_dx_kernelI(f|13__nv_bfloat16)Li(\d)ELb(\d)E", line)
+            key = (f"{'f32' if found.group(1) == 'f' else 'bf16'} C={found.group(2)} "
+                   f"vec={found.group(3)}") if found else None
         elif key:
             out[key] = (out.get(key, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
@@ -1359,15 +1448,21 @@ def check_poe_kl(args, got, want, shape) -> float:
 
 
 def phase_check() -> dict[str, float]:
+    """Each kernel against its plain version at every shape of
+    ``CHECKED_SHAPES`` (K4's backward and input gradient twice, to the
+    bit). Returns each entry's largest error (``entry_of``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {}
     for op, shapes in CHECKED_SHAPES.items():
-        max_err[op] = 0.0
         for shape in shapes:
+            entry = entry_of(op, shape)
             args = inputs(op, shape, gen)
             got = KERNEL_FN[op](*args)
             want = PLAIN_FN[op](*args)
             torch.cuda.synchronize()
+            if entry != op and any(t.dtype != torch.bfloat16 for t in
+                                   ((got,) if torch.is_tensor(got) else got)):
+                raise AssertionError(f"{entry}: an output of the kernel is not bf16")
             if op == "poe_kl":
                 err = check_poe_kl(args, got, want, shape)
             elif op in BWD_OPS:
@@ -1385,7 +1480,7 @@ def phase_check() -> dict[str, float]:
                 raise AssertionError("two launches of conv4x4s2_swish_bwd differ")
             if op == "conv_dx" and not torch.equal(got, KERNEL_FN[op](*args)):
                 raise AssertionError("two launches of conv4x4s2_swish_dx differ")
-            max_err[op] = max(max_err[op], err)
+            max_err[entry] = max(max_err.get(entry, 0.0), err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
     return max_err
@@ -1676,22 +1771,24 @@ def n_terms(cfg, n_mod: int) -> int:
     return 1 + n_mod + cfg.n_random_subsets
 
 
-def train_counted(cfg) -> tuple:
-    """``api.train`` of ``cfg`` (seed 0) with the "kernel" backend and the
-    launch counts set to 0 just before and read just after (the replays'
-    launches included): the result, the counts and the wall."""
+def train_counted(cfg, dtype: torch.dtype = torch.float32, path: str | None = None) -> tuple:
+    """``api.train`` of ``cfg`` (seed 0) at the compute ``dtype`` with the
+    "kernel" backend and the launch counts set to 0 just before and read
+    just after (the replays' launches included), held to
+    ``EXPECTED_LAUNCHES[path]`` (by default ``train_path(cfg)``): the
+    result, the counts and the wall."""
     ops.set_backend("kernel")
     try:
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        result = api.train(cfg, seed=0, verbose=False)
+        result = api.train(cfg, seed=0, verbose=False, dtype=dtype)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
     finally:
         ops.set_backend("auto")
-    path = train_path(cfg)
+    path = path or train_path(cfg)
     if launches != EXPECTED_LAUNCHES[path]:
         raise AssertionError(
             f"{path}: expected launches {EXPECTED_LAUNCHES[path]}, got {launches}")
@@ -1761,14 +1858,15 @@ def graph_vs_eager(runs: dict) -> dict:
     return {"step_rel_max": step_rel, "param_rel_max": param_rel, "bits_equal": bits}
 
 
-def first_epochs(cfg, batches: dict) -> tuple[dict, dict, dict]:
+def first_epochs(cfg, batches: dict, dtype: torch.dtype = torch.float32
+                 ) -> tuple[dict, dict, dict]:
     """A graph runner and an eager loop from the same seed-0 weights and
-    generator seed, each over ``batches`` once: the runners and their
-    states, the first calls' walls (to a sync), and each run's metrics and
-    model."""
+    generator seed at the compute ``dtype``, each over ``batches`` once:
+    the runners and their states, the first calls' walls (to a sync), and
+    each run's metrics and model."""
     runners, first, runs = {}, {}, {}
     for kind in ("graph", "eager"):
-        model = configs.build_model(cfg, seed=0)
+        model = configs.build_model(cfg, seed=0, dtype=dtype)
         state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip,
                                    ema_decay=cfg.ema_decay)
         gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3874,6 +3972,320 @@ def phase_shuffle() -> dict[str, dict[str, int]]:
 # ------------------------------------------------------------ phase 4 ----
 
 
+# ------------------------------------------------------------- bf16 models ----
+
+BF16 = torch.bfloat16
+# Each bf16 path's train split, cut to one epoch of these steps at the
+# config's batch (64, 64, 100).
+BF16_STEPS = {"celeba": 20, "cub": 20, "mnist": 100}
+BF16_IWAE_BATCHES = 4
+BF16_GRAPH_STEPS = 5  # the graph-against-eager epochs at bf16
+BF16_TIMED_ROUNDS = 3  # epochs of each dtype timed in turns
+# The steps of each profiled epoch (a shorter call replays the captured
+# step on the leading batches; CUB's 2,000 device events a step make its
+# profile slow).
+BF16_PROFILED_STEPS = {"celeba": 10, "cub": 4, "mnist": 20}
+# The card-against-CPU batch: CelebA's and CUB's 16 (the CPU's share of the
+# phase), MNIST's 100.
+BF16_CPU_BATCH = {"celeba": 16, "cub": 16, "mnist": 100}
+# Card against CPU at bf16 (tests/test_torch_bf16.py's bounds): each
+# output within 2^-5 of the CPU's bf16 output's largest magnitude (a bf16
+# step or two of the largest entries: the two sides round in their own
+# orders), and the outputs together nearer the CPU's bf16 outputs than its
+# f32 ones; a loss at rel 2e-3; each gradient within 2^-4 of the f32
+# control's largest, widened entry by entry by the CPU's own bf16-to-f32
+# distance, and the gradients together nearer the CPU's bf16 gradients
+# than its f32 ones (the sums of absolute differences).
+BF16_TOL = 2.0**-5
+BF16_GRAD_TOL = 2.0**-4
+BF16_LOSS_RTOL = 2e-3
+META.update({entry: {**META[op], "dtype": "bfloat16 (all operands)"}
+             for entry, op in ENTRIES.items() if entry != op})
+
+
+def export_celeba_bf16(tmp: str) -> None:
+    """Run in a process of its own (``python -c``) while ``phase_bf16``
+    trains: ``celeba``'s static batch-8 per-row artifact with bf16 experts,
+    exported on the card from the seed-0 weights into ``tmp``. Prints the
+    export's seconds."""
+    from mmvae_torch import serving
+
+    cfg = configs.get_config("celeba")
+    t0 = time.perf_counter()
+    serving.export_generate(cfg, os.path.join(tmp, "celeba_bf16.mmvaept"),
+                            batch_size=SERVE_BATCH, model=configs.build_model(cfg, seed=0),
+                            dtype=BF16)
+    print(json.dumps({"export_s": time.perf_counter() - t0}), flush=True)
+
+
+def bf16_train(name: str) -> dict[str, dict[str, int]]:
+    """``api.train(dtype=bf16)`` of ``name`` for one epoch at full width over
+    a train split cut to ``BF16_STEPS`` batches (then its test ELBO over the
+    2,000-example split), counted against ``EXPECTED_LAUNCHES``, the
+    parameters f32 and the test ELBO finite and below the untrained
+    model's; for ``celeba`` then ``log_likelihood`` at k = 64 over 4 test
+    batches, counted likewise. Returns each path's launches."""
+    cfg = configs.get_config(name).replace(
+        epochs=1, train_size=BF16_STEPS[name] * configs.get_config(name).batch_size)
+    path = f"{name}_bf16_train"
+    untrained = api.eval_elbo(cfg, model=configs.build_model(cfg, seed=0), dtype=BF16)
+    result, launches, wall_s = train_counted(cfg, BF16, path)
+    record = result.history[0]
+    emit({"phase": "train", "config": name, "path": path, "dtype": "bfloat16", "epochs": 1,
+          "steps": result.state.step, "train_size": cfg.train_size,
+          **{k: v for k, v in record.items() if k != "epoch"},
+          "untrained_test_elbo": untrained, "api_train_wall_s": wall_s, "launches": launches})
+    if result.state.step != BF16_STEPS[name] or not all(map(math.isfinite, record.values())):
+        raise AssertionError(f"{path}: {result.state.step} steps, history {record}")
+    if not record["test_elbo"] < untrained:
+        raise AssertionError(
+            f"{path}: test ELBO {record['test_elbo']} not below the untrained {untrained}")
+    if any(p.dtype != torch.float32 for p in result.model.parameters()):
+        raise AssertionError(f"{path}: a parameter is not f32")
+    if name == "celeba":
+        test = load_dataset("celeba", "test")
+        n = BF16_IWAE_BATCHES * cfg.batch_size
+        subset = Dataset(arrays={k: v[:n] for k, v in test.arrays.items()}, size=n)
+        ops.set_backend("kernel")
+        try:
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            ll = api.log_likelihood(cfg, model=result.model, dataset=subset, k=IWAE_K, dtype=BF16)
+            wall = time.perf_counter() - t0
+            iwae = dict(kernels.LAUNCHES)
+        finally:
+            ops.set_backend("auto")
+        emit({"phase": "iwae", "config": "celeba", "path": "celeba_bf16_iwae", "k": IWAE_K,
+              "examples": n, "log_likelihood": ll, "wall_s": wall, "launches": iwae})
+        if iwae != EXPECTED_LAUNCHES["celeba_bf16_iwae"] or not math.isfinite(ll):
+            raise AssertionError(f"celeba_bf16_iwae: {ll}, launches {iwae}")
+        return {path: launches, "celeba_bf16_iwae": iwae}
+    return {path: launches}
+
+
+def bf16_graph_vs_eager(name: str) -> None:
+    """``BF16_GRAPH_STEPS`` steps of ``name``'s bf16 step through the graph
+    runner and the eager loop from the same weights, generator seed and
+    batches, on deterministic algorithms: every loss, gradient norm and
+    parameter equal to the bit."""
+    cfg = configs.get_config(name)
+    batches = train_batches(BF16_GRAPH_STEPS, cfg.batch_size, "cuda", seed=1, config=cfg.dataset)
+    with deterministic():
+        _, _, runs = first_epochs(cfg, batches, BF16)
+    compared = graph_vs_eager(runs)
+    emit({"phase": "train_graph_vs_eager", "config": name, "path": f"{name}_bf16_train",
+          "dtype": "bfloat16", "steps": BF16_GRAPH_STEPS, "batch": cfg.batch_size,
+          "cudnn": "deterministic algorithms, cuDNN and torch", "gated": True, **compared})
+    if not compared["bits_equal"]:
+        raise AssertionError(f"{name} bf16: graph and eager steps differ: {compared}")
+
+
+def bf16_rate(name: str) -> None:
+    """A graph runner of ``name``'s step at bf16 and one at f32 from the
+    same weights and batches (an epoch of ``BF16_STEPS``), each captured
+    once, then ``BF16_TIMED_ROUNDS`` epochs of each timed in turns (host
+    clock, a sync to a sync): the step's wall at each dtype; then a profile
+    of a call of each over ``BF16_PROFILED_STEPS`` of the batches, its
+    device time a step by kernel family."""
+    cfg = configs.get_config(name)
+    steps, bs = BF16_STEPS[name], cfg.batch_size
+    batches = train_batches(steps, bs, "cuda", seed=1, config=cfg.dataset)
+    runners = {}
+    for label, dtype in (("bf16", BF16), ("f32", torch.float32)):
+        model = configs.build_model(cfg, seed=0, dtype=dtype)
+        state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+        runner = make_epoch_runner(model, annealing_steps=1000,
+                                   generator=torch.Generator(device="cuda").manual_seed(1),
+                                   **api.step_options(cfg))
+        runner(state, batches)  # the capture
+        runners[label] = (runner, state)
+    walls = {k: [] for k in runners}
+    for _ in range(BF16_TIMED_ROUNDS):
+        for label, (runner, state) in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = runner(state, batches)
+            float(metrics["loss"].sum())  # a sync
+            walls[label].append(time.perf_counter() - t0)
+    step_ms = {k: 1e3 * statistics.median(v) / steps for k, v in walls.items()}
+    busy = {}
+    n = BF16_PROFILED_STEPS[name]
+    head = {k: v[:n] for k, v in batches.items()}
+    for label, (runner, state) in runners.items():
+        summary = profile_summary(lambda runner=runner, state=state: runner(state, head))
+        by_family = summary["device_busy_by_family_us"]
+        busy[label] = {
+            "profiled_steps": n,
+            "device_busy_us_per_step": (summary["device_busy_us"] / n
+                                        if by_family != "not measured" else by_family),
+            "by_family_us_per_step": ({k: v / n for k, v in by_family.items()}
+                                      if by_family != "not measured" else by_family),
+            "top": summary["top"][:6]}
+    emit({"phase": "bf16_rate", "config": name, "steps": steps, "batch": bs,
+          "epoch_wall_s": walls, "step_ms_median": step_ms,
+          "bf16_over_f32": step_ms["bf16"] / step_ms["f32"], "profile": busy})
+
+
+def bf16_card_vs_cpu(name: str) -> None:
+    """One batch of ``name``'s test split (``BF16_CPU_BATCH``) at full width
+    on seed-0 weights:
+    ``encode`` and ``decode`` (z from a seeded normal) with bf16 experts on
+    the card against the CPU at bf16 (the reference) and at f32 (the
+    control), under the ``BF16_TOL`` gates; then one loss and its
+    gradients, the random subset masks and the noise passed in, under
+    ``BF16_LOSS_RTOL`` and ``BF16_GRAD_TOL``, the gradients nearer the
+    CPU's bf16 ones than its f32 ones."""
+    cfg = configs.get_config(name)
+    bs = BF16_CPU_BATCH[name]
+    data = load_dataset(cfg.dataset, "test", n=bs).arrays
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn(bs, cfg.n_latents, generator=gen)
+    knobs = {k: v for k, v in api.step_options(cfg).items() if k != "p_modality_drop"}
+    model = configs.build_model(cfg, seed=0, device="cpu")
+    if cfg.n_random_subsets:
+        knobs["subset_masks"] = (torch.rand((cfg.n_random_subsets, model.n_modalities),
+                                            generator=gen) < 0.5).float()
+    eps = torch.randn((n_terms(cfg, model.n_modalities), bs, cfg.n_latents), generator=gen)
+    outs, losses, grads = {}, {}, {}
+    for where, dev, dtype in (("card", "cuda", BF16), ("cpu", "cpu", BF16),
+                              ("cpu_f32", "cpu", torch.float32)):
+        with deterministic(dev == "cuda"):
+            model = configs.build_model(cfg, seed=0, device=dev, dtype=dtype)
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+            with torch.no_grad():
+                mu, lv = model.encode(batch)
+                rec = model.decode(z.to(dev), batch)
+            outs[where] = {k: v.double().cpu() for k, v in {"mu": mu, "logvar": lv, **rec}.items()}
+            loss, _ = multi_term_loss(model, batch, 0.3, eps=eps.to(dev),
+                                      **{k: v.to(dev) if torch.is_tensor(v) else v
+                                         for k, v in knobs.items()})
+            loss.backward()
+            losses[where] = loss.item()
+            grads[where] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+    dist, d16, d32 = {}, 0.0, 0.0
+    for k, ref in outs["cpu"].items():
+        got, scale = outs["card"][k], ref.abs().max().item()
+        err = (got - ref).abs().max().item() / scale
+        dist[k] = {"max_rel": err, "mean_to_bf16": (got - ref).abs().mean().item() / scale,
+                   "mean_to_f32": (got - outs["cpu_f32"][k]).abs().mean().item() / scale}
+        d16, d32 = d16 + dist[k]["mean_to_bf16"], d32 + dist[k]["mean_to_f32"]
+        if not err <= BF16_TOL:
+            raise AssertionError(f"{name} bf16 card vs CPU: {k} at {err} > {BF16_TOL}")
+    over = {}
+    for k, ref in grads["cpu"].items():
+        f32 = grads["cpu_f32"][k]
+        bound_ = BF16_GRAD_TOL * f32.abs().max() + (ref - f32).abs()
+        over[k] = int(((grads["card"][k] - ref).abs() > bound_).sum())
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    g16, g32 = (sum((grads["card"][k] - g).abs().sum().item() for k, g in grads[ref].items())
+                for ref in ("cpu", "cpu_f32"))
+    emit({"phase": "bf16_card_vs_cpu", "config": name, "batch": bs, "outputs": dist,
+          "outputs_mean_to_bf16": d16, "outputs_mean_to_f32": d32, "losses": losses,
+          "loss_rel": loss_rel, "grad_entries_past_bound": sum(over.values()),
+          "grad_abs_diff_sum_to_bf16": g16, "grad_abs_diff_sum_to_f32": g32})
+    if not d16 < d32:
+        raise AssertionError(f"{name} bf16 card vs CPU: nearer the f32 control ({d16}, {d32})")
+    if not g16 < g32:
+        raise AssertionError(f"{name} bf16 card vs CPU: gradients nearer the f32 control "
+                             f"({g16}, {g32})")
+    if not loss_rel <= BF16_LOSS_RTOL or sum(over.values()):
+        raise AssertionError(f"{name} bf16 card vs CPU: loss rel {loss_rel}, gradients past "
+                             f"the bound {over}")
+
+
+def serve_bf16(tmp: str, export_s: float) -> dict[str, int]:
+    """The bf16 CelebA artifact (``export_celeba_bf16``) loaded on the
+    card: the graph holds ``mmvae.conv4x4s2_swish`` on bf16 operands and
+    ``mmvae.poe_kl``; one call's launches; each op's output against its
+    plain version; the outputs at temperature 0 against
+    ``api.generate(dtype=bf16)`` on the card (rel 1e-6) and against the same
+    artifact on the CPU under the ``BF16_TOL`` gates (the CPU's f32
+    ``api.generate`` the control)."""
+    from mmvae_torch import serving
+
+    cfg = configs.get_config("celeba")
+    out_path = os.path.join(tmp, "celeba_bf16.mmvaept")
+    meta, call = serving.load_generate(out_path)
+    convs = [n for n in call.exported.graph.nodes
+             if str(n.target) == "mmvae.conv4x4s2_swish.default"]
+    if not convs or any(a.meta["val"].dtype != BF16 for a in convs[0].args):
+        raise AssertionError("celeba bf16 artifact: no mmvae conv on bf16 operands")
+    batch, presence, condition = serve_inputs(cfg, meta, ("image",), SERVE_BATCH)
+    seeds = np.arange(SERVE_BATCH)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    got = call(batch, presence, seed=seeds, temperature=0.0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches != EXPECTED_LAUNCHES["serve_celeba_bf16"]:
+        raise AssertionError(f"serve_celeba_bf16: launches {launches}")
+    with OpOutputs() as recorded:
+        call(batch, presence, seed=seeds, temperature=0.0)
+    op_rows = check_op_outputs(recorded.calls)
+    model = configs.build_model(cfg, seed=0, dtype=BF16)
+    vs_generate = check_outputs(got, api.generate(cfg, condition, model=model, temperature=0.0),
+                                1e-6, "celeba bf16: artifact vs api.generate")
+    _, cpu_call = serving.load_generate(out_path, device="cpu")
+    cpu = cpu_call(batch, presence, seed=seeds, temperature=0.0)
+    f32 = api.generate(cfg, condition, model=configs.build_model(cfg, seed=0, device="cpu"),
+                       temperature=0.0, device="cpu")
+    vs_cpu = check_outputs(got, cpu, BF16_TOL, "celeba bf16: card vs CPU")
+    d16 = sum((got[k].cpu() - cpu[k]).abs().mean().item() / cpu[k].abs().max().item()
+              for k in cpu if cpu[k].is_floating_point())
+    d32 = sum((got[k].cpu() - f32[k]).abs().mean().item() / cpu[k].abs().max().item()
+              for k in cpu if cpu[k].is_floating_point())
+    emit({"phase": "serving", "config": "celeba_bf16", "dtype": "bfloat16",
+          "batch_size": SERVE_BATCH, "export_s": export_s, "launches": launches,
+          "op_outputs": op_rows, "rel_vs_api_generate": vs_generate, "rel_card_vs_cpu": vs_cpu,
+          "mean_to_cpu_bf16": d16, "mean_to_cpu_f32": d32,
+          "call_ms_batch8": call_ms(call, batch, presence)})
+    if not d16 < d32:
+        raise AssertionError(f"celeba bf16 artifact: nearer the f32 control ({d16}, {d32})")
+    return launches
+
+
+def phase_bf16() -> dict[str, dict[str, int]]:
+    """The bf16 paths at full width (the experts' compute dtype; the
+    parameters and the losses f32): ``celeba`` (20 steps of 64 at T = 24,
+    its test ELBO over 2,000 examples, ``log_likelihood`` at k = 64 over 4
+    batches), ``cub`` (20 steps of 64, K4's input gradient on the cycle's
+    re-encode) and ``mnist`` (100 steps of 100) through ``api.train`` with
+    their launches (K4, its backward and its dx at bf16 are checked and
+    timed with the other kernels, ``entry_of``); graph against eager to the bit
+    (``bf16_graph_vs_eager``); each step's wall against f32's in turns
+    with its busy time by kernel family (``bf16_rate``); the card against
+    the CPU at bf16 (``bf16_card_vs_cpu``); and CelebA's batch-8 bf16
+    artifact, exported by a process of its own meanwhile, served
+    (``serve_bf16``). Returns the launches."""
+    tmp = tempfile.mkdtemp()
+    worker = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.export_celeba_bf16({tmp!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        launches = {}
+        for name in BF16_STEPS:
+            launches.update(bf16_train(name))
+        for name in ("celeba", "cub"):
+            bf16_graph_vs_eager(name)
+        for name in BF16_STEPS:
+            bf16_rate(name)
+        for name in BF16_STEPS:
+            bf16_card_vs_cpu(name)
+        stdout, stderr = worker.communicate(timeout=600)
+        if worker.returncode != 0:
+            raise RuntimeError(f"export_celeba_bf16 failed ({worker.returncode}):\n"
+                               f"{stderr[-4000:]}")
+        export_s = json.loads(stdout.strip().splitlines()[-1])["export_s"]
+        launches["serve_celeba_bf16"] = serve_bf16(tmp, export_s)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def graph_ms(calls, reps: int = REPS) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
@@ -3949,37 +4361,47 @@ def eager_ms(fn, reps: int = REPS, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def timing_row(op: str, args) -> dict:
+    """The times of ``op``'s kernel on ``args``: on the device in the L2
+    and L2-cold, eagerly, its plain version's, the library call's, and the
+    bound."""
+    k, p = KERNEL_FN[op], PLAIN_FN[op]
+    has_lib = library_fn(op, args) is not None
+    row = {
+        "kernel_ms": device_ms(lambda: k(*args)),
+        "plain_ms": device_ms(lambda: p(*args)),
+        "kernel_eager_ms": eager_ms(lambda: k(*args)),
+        "plain_eager_ms": eager_ms(lambda: p(*args)),
+        "library_ms": graph_ms(lambda: [library_fn(op, args)] * 20) if has_lib else None,
+    }
+    copies = cold_copies(args)
+    row["cold_copies"] = copies
+    row["kernel_cold_ms"] = (
+        cold_ms(lambda a: functools.partial(k, *a), args, copies) if copies else None)
+    row["library_cold_ms"] = (
+        cold_ms(lambda a: library_fn(op, a), args, copies) if copies and has_lib else None)
+    row["bound_ms"], row["bound_by"] = bound(op, args)
+    return row
+
+
 def phase_timings(launches: dict[str, dict[str, int]]) -> dict[str, dict]:
+    """Each kernel at every shape of ``TIMED_SHAPES`` (``timing_row``).
+    Returns the rows the kernels line reports, by entry (``REPORTED``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     reported = {}
     for op in OPS:
         for label, shape in TIMED_SHAPES[op].items():
             args = inputs(op, shape, gen)
-            k, p = KERNEL_FN[op], PLAIN_FN[op]
-            has_lib = library_fn(op, args) is not None
-            row = {
-                "kernel_ms": device_ms(lambda: k(*args)),
-                "plain_ms": device_ms(lambda: p(*args)),
-                "kernel_eager_ms": eager_ms(lambda: k(*args)),
-                "plain_eager_ms": eager_ms(lambda: p(*args)),
-                "library_ms": graph_ms(lambda: [library_fn(op, args)] * 20) if has_lib else None,
-            }
-            copies = cold_copies(args)
-            row["cold_copies"] = copies
-            row["kernel_cold_ms"] = (
-                cold_ms(lambda a: functools.partial(k, *a), args, copies) if copies else None)
-            row["library_cold_ms"] = (
-                cold_ms(lambda a: library_fn(op, a), args, copies)
-                if copies and has_lib else None)
-            row["bound_ms"], row["bound_by"] = bound(op, args)
+            row = timing_row(op, args)
             if op == "poe_kl":
                 row["parent_chain_ms"] = device_ms(lambda: parent_chain(*args))
                 row["parent_chain_eager_ms"] = eager_ms(lambda: parent_chain(*args))
             emit({"phase": "timing", "kernel": META[op]["name"], "label": label,
                   **describe(op, shape), **row,
                   "launches_per_config": {c: n[op] for c, n in launches.items()}})
-            if label == REPORTED[op][1]:
-                reported[op] = row
+            for entry, of in ENTRIES.items():
+                if of == op and label == REPORTED[entry][1]:
+                    reported[entry] = row
     return reported
 
 
@@ -4091,9 +4513,11 @@ def phase_iwae_wall(config: str) -> None:
 
 # Device events by family, in this order of tests: the port's kernels;
 # cuDNN's convolutions (fprop, dgrad, wgrad and their layout transposes);
-# the matrix products (cuBLAS, the GRU's and the dense layers'); copies and
-# fills; the rest (elementwise, reductions, the optimizer).
-FAMILIES = ("port", "cudnn_conv", "gemm", "copy", "other")
+# the matrix products (cuBLAS, the GRU's and the dense layers'); casts and
+# copies on the SMs (PyTorch's copy kernel, which casts between types);
+# copies and fills by the copy engines; the rest (elementwise, reductions,
+# the optimizer).
+FAMILIES = ("port", "cudnn_conv", "gemm", "cast", "copy", "other")
 
 
 def kernel_family(key: str) -> str:
@@ -4103,6 +4527,8 @@ def kernel_family(key: str) -> str:
         return "cudnn_conv"
     if re.search(r"gemm|Gemm|GEMM|cublas|cutlass", key):
         return "gemm"
+    if re.search(r"copy_kernel", key):
+        return "cast"
     if re.search(r"Memcpy|Memset", key):
         return "copy"
     return "other"
@@ -4197,6 +4623,7 @@ def main() -> None:
         launches["serve_deep_cub"] = timed("deep_export", finish_deep_export)
     launches.update(timed("grain", phase_grain))
     launches.update(timed("shuffle", phase_shuffle))
+    launches.update(timed("bf16", phase_bf16))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:
@@ -4208,14 +4635,15 @@ def main() -> None:
     emit({"phase": "phase_seconds", **seconds, "total": time.perf_counter() - t0})
     emit({"phase": "phase_allocated_gib", **held})
     emit({"kernels": [
-        {**META[op], "launches": launches[REPORTED[op][0]][op],
-         "config": REPORTED[op][0], "shape": REPORTED[op][1],
-         "launches_per_config": {c: n[op] for c, n in launches.items()},
-         "max_abs_err": max_err[op],
-         "ms": reported[op]["kernel_ms"], "plain_ms": reported[op]["plain_ms"],
-         "bound_ms": reported[op]["bound_ms"], "bound_by": reported[op]["bound_by"],
-         "library_ms": reported[op]["library_ms"]}
-        for op in OPS
+        {**META[entry], "launches": launches[REPORTED[entry][0]][op],
+         "config": REPORTED[entry][0], "shape": REPORTED[entry][1],
+         "launches_per_config": {c: n[op] for c, n in launches.items()
+                                 if entry == op or "bf16" in c},
+         "max_abs_err": max_err[entry],
+         "ms": reported[entry]["kernel_ms"], "plain_ms": reported[entry]["plain_ms"],
+         "bound_ms": reported[entry]["bound_ms"], "bound_by": reported[entry]["bound_by"],
+         "library_ms": reported[entry]["library_ms"]}
+        for entry, op in ENTRIES.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,14 @@ come from a ``model`` the caller built (``configs.build_model``, or
 ``convert.from_flax_params`` loaded into it), a ``state_dict``,
 :func:`train`'s result, or a ``workdir`` :func:`train` wrote (its best
 checkpoint by default, the EMA weights where they are tracked).
+
+``dtype`` (every entry point) is the compute dtype of the experts, as in
+the JAX package: ``torch.float32`` or ``torch.bfloat16``; the parameters
+and the losses stay float32. It is an argument of the call, not a config
+field: a workdir trained at float32 evaluates at bfloat16. ``None`` keeps
+a given model's dtype (float32 for a model built here); a dtype given with
+a ``model`` holds for the call alone (``MVAEBase.at_dtype``), and the
+model keeps its own.
 """
 
 from __future__ import annotations
@@ -134,8 +142,9 @@ def _load_params(config: ExperimentConfig, model, workdir: str, which: str = "be
 
 
 def _resolve(config, model, state_dict, device, workdir=None, which="best"):
-    """The config, the model with its weights, and the device. With no
-    ``model`` and no ``state_dict`` the weights come from ``workdir``."""
+    """The config, the model with its weights (one built here at float32),
+    and the device. With no ``model`` and no ``state_dict`` the weights
+    come from ``workdir``."""
     config = _resolve_with_workdir(config, workdir)
     device = resolve_device(device)
     if model is None:
@@ -161,6 +170,7 @@ def eval_elbo(
     batch_size: int | None = None,
     device: torch.device | str | None = None,
     segment_steps: int = 0,
+    dtype: torch.dtype | None = None,
 ) -> float:
     """Mean multi-term ELBO over a split, beta = 1 and z = posterior mean.
 
@@ -180,7 +190,7 @@ def eval_elbo(
     runner (the last padded with batches of no example, so one capture
     serves them all): O(K) batches of device memory, the same result to
     the bit (``mmvae_tpu/api.py:1114-1145``); 0 puts the whole split on
-    the device.
+    the device. ``dtype``: the compute dtype (see the module docstring).
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
@@ -189,8 +199,9 @@ def eval_elbo(
     batch_size = min(batch_size or config.batch_size, dataset.size)
     stacked = _padded_split(dataset, batch_size, model.n_modalities,
                             device if segment_steps <= 0 else None)
-    runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
-    return _split_elbo(runner, stacked, dataset.size, segment_steps, device)
+    with model.at_dtype(dtype):
+        runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
+        return _split_elbo(runner, stacked, dataset.size, segment_steps, device)
 
 
 def _padded_split(
@@ -264,6 +275,7 @@ def log_likelihood(
     device: torch.device | str | None = None,
     eps: torch.Tensor | None = None,
     segment_steps: int = 0,
+    dtype: torch.dtype | None = None,
 ) -> float:
     """Mean IWAE estimate of the joint marginal log p(x) over a split.
 
@@ -284,7 +296,8 @@ def log_likelihood(
     host, copied to the device a segment at a time, the same result to the
     bit (the batches draw the generator's noise in the same order; the
     pad batches of the last segment draw after them). The per-example
-    values are summed in float64. The JAX ``mesh`` is not ported.
+    values are summed in float64. ``dtype``: the compute dtype (see the
+    module docstring). The JAX ``mesh`` is not ported.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
@@ -299,9 +312,10 @@ def log_likelihood(
         if tuple(eps.shape) != want:
             raise ValueError(f"eps must be {want}, got {tuple(eps.shape)}")
         stacked["eps"] = eps
-    runner = make_iwae_runner(
-        model, k, generator=torch.Generator(device=device).manual_seed(seed))
-    values = _split_values(runner, "log_likelihood", stacked, segment_steps, device)
+    with model.at_dtype(dtype):
+        runner = make_iwae_runner(
+            model, k, generator=torch.Generator(device=device).manual_seed(seed))
+        values = _split_values(runner, "log_likelihood", stacked, segment_steps, device)
     return float(values.sum()) / dataset.size
 
 
@@ -549,6 +563,7 @@ def train(
     resume: bool = False,
     verbose: bool = True,
     fault_hook: Callable | None = None,
+    dtype: torch.dtype | None = None,
 ) -> TrainResult:
     """Train ``config`` from its seeded init, evaluating the test split
     after each epoch (``mmvae_tpu/api.py:414``, single device).
@@ -583,7 +598,10 @@ def train(
     each test eval run as replays of captured CUDA graphs (the eval graph
     is built once a run, on the EMA shadow when one is tracked, which the
     test ELBO is computed on). ``fault_hook(epoch, state) -> state`` is
-    called after each epoch's train pass.
+    called after each epoch's train pass. ``dtype`` is the experts' compute
+    dtype (None: float32; ``mmvae_tpu/api.py:419``): the parameters, Adam's
+    state and the loss stay float32, a uint8 split dequantizes to it, and
+    the checkpoints are the same at either.
 
     With a ``workdir``: ``config.json`` is written first; ``metrics.jsonl``
     gets a ``{"kind": "train", ...}`` record every ``log_interval`` steps
@@ -644,7 +662,8 @@ def train(
 
     def fresh_state(model_seed: int) -> TrainState:
         return create_train_state(
-            build_model(config, seed=model_seed, device=device), lr,
+            build_model(config, seed=model_seed, device=device, dtype=dtype or torch.float32),
+            lr,
             grad_clip=config.grad_clip, ema_decay=config.ema_decay,
             accum_steps=config.accum_steps,
         )
@@ -845,6 +864,7 @@ def generate(
     generator: torch.Generator | None = None,
     component: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
+    dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
     """Cross-modal generation from any modality subset.
 
@@ -864,7 +884,8 @@ def generate(
     the prior. ALL modalities are decoded. A sequence modality is generated token by token: argmax
     when ``temperature <= 0``, else a draw at ``temperature`` from
     ``generator``. The weights come as in :func:`eval_elbo` (``model``,
-    ``state_dict``, or ``workdir``'s checkpoint ``which``).
+    ``state_dict``, or ``workdir``'s checkpoint ``which``), at the compute
+    ``dtype``.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     names = [s.name for s in model.specs()]
@@ -892,12 +913,13 @@ def generate(
             raise ValueError(
                 f"unknown modality {key!r}; have {list(batch) + list(columns)}"
             )
-    mu_e, lv_e = model.encode(batch)
-    z = fuse_observed_z(
-        mu_e, lv_e, presence, config.objective, sample=sample_z,
-        generator=generator, component=component, eps=eps,
-    )
-    return _postprocess(model, model.decode(z), z, temperature, generator)
+    with model.at_dtype(dtype):
+        mu_e, lv_e = model.encode(batch)
+        z = fuse_observed_z(
+            mu_e, lv_e, presence, config.objective, sample=sample_z,
+            generator=generator, component=component, eps=eps,
+        )
+        return _postprocess(model, model.decode(z), z, temperature, generator)
 
 
 def sample(
@@ -911,10 +933,12 @@ def sample(
     device: torch.device | str | None = None,
     temperature: float = 1.0,
     generator: torch.Generator | None = None,
+    dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
     """Unconditional samples: z ~ N(0, I) decoded into every modality
-    (the weights as in :func:`generate`)."""
+    (the weights and ``dtype`` as in :func:`generate`)."""
     return generate(
         config, {}, n=n, model=model, state_dict=state_dict, workdir=workdir, which=which,
         device=device, sample_z=True, temperature=temperature, generator=generator,
+        dtype=dtype,
     )

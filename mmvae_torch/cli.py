@@ -18,8 +18,10 @@ artifact of ``generate`` (``serving.export_generate``: ``--out``,
 ``--seed-mode``, ``--platforms`` of ``cuda``, ``gpu`` and ``cpu``), traced
 on ``--device`` from the workdir's best weights, or from the config's
 seeded init with no workdir; ``python -m mmvae_torch.serve`` serves it.
+``--dtype bfloat16`` (every command) runs the experts in bf16, as the
+JAX CLI passes it to every entry point (``mmvae_tpu/cli.py:362-496``).
 What the port does not have raises ``NotImplementedError`` when asked
-for: ``--dtype bfloat16``, ``--multihost``, and the flags of the JAX config
+for: ``--multihost``, and the flags of the JAX config
 fields the port leaves out (``--fsdp``, ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
 device.
 """
@@ -71,7 +73,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the card, cuda)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype of the experts (bfloat16 not yet ported)")
+                   help="compute dtype of the experts (the parameters stay float32)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-host runs (not yet ported)")
 
@@ -177,8 +179,6 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     """Raise for every option the port does not have that ``args`` sets."""
-    if args.dtype != "float32":
-        raise _not_ported(f"--dtype {args.dtype}")
     if args.multihost:
         raise _not_ported("--multihost")
     for dest, flag in _UNPORTED_FLAGS.items():
@@ -258,10 +258,11 @@ def main(argv=None) -> int:
 
     config = _resolve_config(args)
     device = resolve_device(args.device)
+    dtype = getattr(torch, args.dtype)
 
     if args.cmd == "train":
         result = api.train(config, args.workdir, seed=args.seed, device=device,
-                           resume=args.resume)
+                           resume=args.resume, dtype=dtype)
         print(json.dumps({"best_test_elbo": result.best_test_elbo}))
         return 0
 
@@ -270,11 +271,11 @@ def main(argv=None) -> int:
                 else args.segment_steps)
         out = {"split": args.split,
                "elbo": api.eval_elbo(config, workdir=args.workdir, split=args.split,
-                                     device=device, segment_steps=segs)}
+                                     device=device, segment_steps=segs, dtype=dtype)}
         if args.iwae_k > 0:
             out["log_likelihood"] = api.log_likelihood(
                 config, workdir=args.workdir, split=args.split, k=args.iwae_k,
-                seed=args.seed, device=device, segment_steps=segs)
+                seed=args.seed, device=device, segment_steps=segs, dtype=dtype)
             out["iwae_k"] = args.iwae_k
         print(json.dumps(out))
         return 0
@@ -282,7 +283,7 @@ def main(argv=None) -> int:
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.cmd == "sample":
         out = api.sample(config, n=args.n, workdir=args.workdir, device=device,
-                         temperature=args.temperature, generator=generator)
+                         temperature=args.temperature, generator=generator, dtype=dtype)
         _dump(out, args.out, config.name)
         return 0
 
@@ -298,7 +299,7 @@ def main(argv=None) -> int:
                     condition[key] = condition[key][None]
         out = api.generate(config, condition, n=args.n, workdir=args.workdir, device=device,
                            sample_z=args.sample_z, temperature=args.temperature,
-                           generator=generator)
+                           generator=generator, dtype=dtype)
         _dump(out, args.out, config.name)
         return 0
 
@@ -313,7 +314,7 @@ def main(argv=None) -> int:
         serving.export_generate(
             config, args.out, batch_size=bs if bs == "dynamic" else int(bs), model=model,
             workdir=args.workdir, device=device, sample_z=args.sample_z,
-            platforms=tuple(args.platforms.split(",")), seed_mode=args.seed_mode)
+            platforms=tuple(args.platforms.split(",")), seed_mode=args.seed_mode, dtype=dtype)
         meta = serving.read_meta(args.out)
         print(json.dumps({"written": args.out, "bytes": os.path.getsize(args.out),
                           "batch_size": meta["batch_size"], "seed_mode": meta["seed_mode"],

@@ -230,12 +230,15 @@ def build_model(
     *,
     seed: int = 0,
     device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
 ):
-    """The config's model with seeded random weights, on ``device``.
+    """The config's model with seeded random weights, on ``device``, at the
+    compute dtype ``dtype`` (``mmvae_tpu/configs.py:288``: float32 or
+    bfloat16; the parameters are float32 at either).
 
     The weights are drawn on the CPU from a ``torch.Generator`` seeded with
     ``seed`` and then moved, so one seed gives the same weights on every
-    device.
+    device and at every dtype.
     """
     if isinstance(config, str):
         config = get_config(config)
@@ -243,7 +246,7 @@ def build_model(
     kwargs = dict(config.model_kwargs)
     if config.dataset == "cub" and "vocab_size" not in kwargs:
         kwargs["vocab_size"] = cub_vocab_size()
-    model = _MODEL_CLASSES[config.name](n_latents=config.n_latents, **kwargs)
+    model = _MODEL_CLASSES[config.name](n_latents=config.n_latents, dtype=dtype, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
 

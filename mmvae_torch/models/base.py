@@ -9,7 +9,8 @@ what makes cross-modal generation free.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import contextlib
+from typing import Any, Iterator, NamedTuple
 
 import torch
 from torch import nn
@@ -106,6 +107,22 @@ class MVAEBase(nn.Module):
     @property
     def n_modalities(self) -> int:
         return len(self.specs())
+
+    @contextlib.contextmanager
+    def at_dtype(self, dtype: torch.dtype | None) -> Iterator[MVAEBase]:
+        """Within the block, ``dtype`` (None: the model's own) is the compute
+        dtype of the model and of every expert, as the model classes'
+        ``dtype=`` gives it (the parameters stay as they are); on exit each
+        takes back its own."""
+        held = [(m, m.dtype) for m in self.modules() if "dtype" in vars(m)]
+        if dtype is not None:
+            for m, _ in held:
+                m.dtype = dtype
+        try:
+            yield self
+        finally:
+            for m, own in held:
+                m.dtype = own
 
     @property
     def device(self) -> torch.device:

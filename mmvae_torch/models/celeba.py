@@ -46,6 +46,7 @@ class CelebAMVAE(MVAEBase):
         conv_features: tuple[int, ...] = (32, 64, 128, 256),
         space_to_depth: int = 1,
         upsample_mode: str = "deconv",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -53,15 +54,18 @@ class CelebAMVAE(MVAEBase):
         self.image_hw = tuple(image_hw)
         self.lambda_image = lambda_image
         self.lambda_attr = lambda_attr
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
         self.image_enc = ConvEncoder(
-            n_latents, self.image_hw, conv_features, space_to_depth=space_to_depth, channels=3
+            n_latents, self.image_hw, conv_features, space_to_depth=space_to_depth, channels=3,
+            **kw
         )
         self.image_dec = DeconvDecoder(
             n_latents, self.image_hw, features=tuple(reversed(conv_features)),
-            upsample_mode=upsample_mode, channels=3, space_to_depth=space_to_depth,
+            upsample_mode=upsample_mode, channels=3, space_to_depth=space_to_depth, **kw
         )
-        self.attr_enc = AttributeEncoderBank(n_latents, n_attrs)
-        self.attr_dec = AttributeDecoderBank(n_latents, n_attrs)
+        self.attr_enc = AttributeEncoderBank(n_latents, n_attrs, **kw)
+        self.attr_dec = AttributeDecoderBank(n_latents, n_attrs, **kw)
         self._register_lambdas()
 
     def specs(self):

@@ -37,6 +37,7 @@ class CubMVAE(MVAEBase):
         lambda_text: float = 5.0,
         conv_features: tuple[int, ...] = (32, 64, 128, 256),
         upsample_mode: str = "deconv",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -45,13 +46,16 @@ class CubMVAE(MVAEBase):
         self.image_hw = tuple(image_hw)
         self.lambda_image = lambda_image
         self.lambda_text = lambda_text
-        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3, **kw)
         self.image_dec = DeconvDecoder(
             n_latents, self.image_hw, features=tuple(reversed(conv_features)),
-            upsample_mode=upsample_mode, channels=3,
+            upsample_mode=upsample_mode, channels=3, **kw
         )
-        self.text_enc = SeqEncoder(n_latents, vocab_size, TEXT_EMBED, TEXT_HIDDEN)
-        self.text_dec = SeqDecoder(n_latents, vocab_size, max_len, TEXT_EMBED, TEXT_HIDDEN)
+        self.text_enc = SeqEncoder(n_latents, vocab_size, TEXT_EMBED, TEXT_HIDDEN, **kw)
+        self.text_dec = SeqDecoder(n_latents, vocab_size, max_len, TEXT_EMBED, TEXT_HIDDEN,
+                                   **kw)
         self._register_lambdas()
 
     def specs(self):

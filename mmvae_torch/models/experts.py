@@ -12,6 +12,14 @@ grayscale ``(B, H, W)`` or, with ``channels > 1``, NHWC ``(B, H, W, C)``;
 inside, the convolutions run NCHW. The attribute banks keep their
 parameters stacked along a leading attribute axis in the Flax layout and
 contract them with ``einsum``.
+
+``dtype`` is the compute dtype, as in the JAX experts: the parameters stay
+float32, and at bfloat16 each layer casts its input, its weight and its
+bias to bfloat16, takes the product in bfloat16 and adds the bias after
+it as an op of its own (Flax's ``promote_dtype``, then ``dot_general`` or
+``conv_general_dilated``, then ``+ bias``; :func:`_layer`). Every head
+that feeds a loss casts back to float32 where the JAX expert does, so the
+losses see float32 ``mu``, ``logvar`` and logits at either dtype.
 """
 
 from __future__ import annotations
@@ -51,17 +59,34 @@ def _hidden_layers(in_features: int, hidden: Sequence[int]) -> nn.ModuleList:
     )
 
 
-def _run(layers: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
+def _layer(layer: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` (an ``nn.Linear``, ``nn.Conv2d`` or ``nn.ConvTranspose2d``)
+    on ``h`` at the compute dtype: at float32 the layer as it is; at another,
+    ``h``, the weight and the bias cast to it and the bias added after the
+    product (a fused bias would be added before the product's one rounding,
+    which is not Flax's order)."""
+    if dtype == torch.float32:
+        return layer(h)
+    h, w, b = h.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)
+    if isinstance(layer, nn.Linear):
+        return F.linear(h, w) + b
+    if isinstance(layer, nn.Conv2d):
+        return F.conv2d(h, w, None, layer.stride, layer.padding) + b[:, None, None]
+    return F.conv_transpose2d(h, w, None, layer.stride, layer.padding) + b[:, None, None]
+
+
+def _run(layers: nn.ModuleList, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     for layer in layers:
-        h = swish(layer(h))
+        h = swish(_layer(layer, h, dtype))
     return h
 
 
-def _promote(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``x`` in the type both ``x`` and ``weight`` promote to, as Flax's
-    ``promote_dtype`` meets a bf16 batch with f32 parameters: f32 (a bf16
-    value is exact in f32)."""
-    return x.to(torch.promote_types(x.dtype, weight.dtype))
+def _embed(embed: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of ``embed``'s table cast to ``dtype``, as Flax's
+    ``Embed(dtype=)`` casts the table and then takes its rows."""
+    if dtype == torch.float32:
+        return embed(ids.long())
+    return F.embedding(ids.long(), embed.weight.to(dtype))
 
 
 def _split_head(out: torch.Tensor, n_latents: int):
@@ -72,16 +97,18 @@ class MLPEncoder(nn.Module):
     """Flat-input MLP encoder -> ``(mu, logvar)``; the MNIST image expert."""
 
     def __init__(
-        self, in_features: int, n_latents: int, hidden: Sequence[int] = (512, 512)
+        self, in_features: int, n_latents: int, hidden: Sequence[int] = (512, 512),
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
+        self.dtype = dtype
         self.layers = _hidden_layers(in_features, hidden)
         self.head = nn.Linear(hidden[-1], 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
-        h = _run(self.layers, _promote(x.reshape(x.shape[0], -1), self.head.weight))
-        return _split_head(self.head(h), self.n_latents)
+        h = _run(self.layers, x.reshape(x.shape[0], -1).to(self.dtype), self.dtype)
+        return _split_head(_layer(self.head, h, self.dtype).float(), self.n_latents)
 
 
 class MLPDecoder(nn.Module):
@@ -92,14 +119,17 @@ class MLPDecoder(nn.Module):
         n_latents: int,
         out_shape: tuple[int, ...],
         hidden: Sequence[int] = (512, 512),
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.out_shape = tuple(out_shape)
+        self.dtype = dtype
         self.layers = _hidden_layers(n_latents, hidden)
         self.head = nn.Linear(hidden[-1], math.prod(self.out_shape))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        logits = self.head(_run(self.layers, z))
+        h = _run(self.layers, z.to(self.dtype), self.dtype)
+        logits = _layer(self.head, h, self.dtype).float()
         return logits.reshape((z.shape[0],) + self.out_shape)
 
 
@@ -112,30 +142,35 @@ class LabelEncoder(nn.Module):
         n_classes: int,
         embed_dim: int = 512,
         hidden: Sequence[int] = (512,),
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
+        self.dtype = dtype
         self.embed = nn.Embedding(n_classes, embed_dim)
         self.layers = _hidden_layers(embed_dim, hidden)
         self.head = nn.Linear(hidden[-1], 2 * n_latents)
 
     def forward(self, y: torch.Tensor):
-        h = _run(self.layers, self.embed(y.long()))
-        return _split_head(self.head(h), self.n_latents)
+        h = _run(self.layers, _embed(self.embed, y, self.dtype), self.dtype)
+        return _split_head(_layer(self.head, h, self.dtype).float(), self.n_latents)
 
 
 class LabelDecoder(nn.Module):
     """Latent -> class logits."""
 
     def __init__(
-        self, n_latents: int, n_classes: int, hidden: Sequence[int] = (512,)
+        self, n_latents: int, n_classes: int, hidden: Sequence[int] = (512,),
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         self.layers = _hidden_layers(n_latents, hidden)
         self.head = nn.Linear(hidden[-1], n_classes)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.head(_run(self.layers, z))
+        h = _run(self.layers, z.to(self.dtype), self.dtype)
+        return _layer(self.head, h, self.dtype).float()
 
 
 def _conv_out(d: int, n_stages: int) -> int:
@@ -167,29 +202,29 @@ def _shuffle_up(h: torch.Tensor, r: int) -> torch.Tensor:
     return _depth_to_space(h.permute(0, 2, 3, 1), r).permute(0, 3, 1, 2)
 
 
-def _conv2x2(conv: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
+def _conv2x2(conv: nn.Conv2d, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Flax's ``Conv((2, 2), (1, 1), "SAME")``: padded (0, 1), so output i
     reads input rows i and i + 1."""
-    return conv(F.pad(h, (0, 1, 0, 1)))
+    return _layer(conv, F.pad(h, (0, 1, 0, 1)), dtype)
 
 
-def _deconv2x2(deconv: nn.ConvTranspose2d, h: torch.Tensor) -> torch.Tensor:
+def _deconv2x2(deconv: nn.ConvTranspose2d, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Flax's ``ConvTranspose((2, 2), (1, 1), "SAME")``, which reads input
     rows i - 1 and i for output i (a correlation with its unflipped kernel
     padded (1, 0)): a ``ConvTranspose2d`` with no padding over the kernel
     ``convert`` flips, its last row and column cut off."""
-    return deconv(h)[..., : h.shape[-2], : h.shape[-1]]
+    return _layer(deconv, h, dtype)[..., : h.shape[-2], : h.shape[-1]]
 
 
 def _trunk(width: int, trunk_stages: int, trunk_depth: int, trunk_rezero: bool,
-           pp_mesh, pp_n_micro: int):
+           pp_mesh, pp_n_micro: int, dtype: torch.dtype):
     """The bottleneck trunk of the conv experts (None at 0 stages)."""
     if trunk_stages <= 0:
         return None
     from mmvae_torch.models.pipeline import PipelineTrunk
 
     return PipelineTrunk(trunk_stages, width, trunk_depth, rezero=trunk_rezero,
-                         pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
+                         pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
 
 
 class ConvEncoder(nn.Module):
@@ -198,9 +233,11 @@ class ConvEncoder(nn.Module):
     Each stage is a 4x4 stride-2 SAME conv and a swish, halving the
     spatial dims (rounding up); then a ``fc_hidden`` dense layer and the
     head. With ``channels > 1`` the input is NHWC and stage 0 runs in
-    ``ops.conv4x4s2_swish`` (K4 on the card), which reads the batch as it
-    is (a bf16 batch too, into f32 outputs) and gives NCHW; a grayscale
-    stage 0 stays a ``Conv2d``, its input promoted to the weights' type.
+    ``ops.conv4x4s2_swish`` (K4 on the card), which gives NCHW: at float32
+    it reads the batch as it is (a bf16 batch too, into f32 outputs), at
+    bfloat16 the batch, the weight and the bias all in bf16 (a bf16
+    output); a grayscale stage 0 stays a ``Conv2d``, its input cast to the
+    compute dtype.
 
     ``space_to_depth = r > 1`` folds r x r patches into the channels
     (:func:`_space_to_depth`) and makes stage 0 a 2x2 stride-1 ``Conv2d``
@@ -223,12 +260,14 @@ class ConvEncoder(nn.Module):
         trunk_rezero: bool = True,
         pp_mesh=None,
         pp_n_micro: int = 4,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         r = space_to_depth
         if r > 1 and any(d % r for d in image_hw):
             raise ValueError(f"space_to_depth={r} does not divide the image {tuple(image_hw)}")
         self.n_latents = n_latents
+        self.dtype = dtype
         self.channels = channels
         self.space_to_depth = r
         widths = (channels * r * r, *features)
@@ -242,28 +281,32 @@ class ConvEncoder(nn.Module):
             out_h, out_w = (_conv_out(d, len(features)) for d in image_hw)
         self.layers = _hidden_layers(out_h * out_w * features[-1], (fc_hidden,))
         self.trunk = _trunk(fc_hidden, trunk_stages, trunk_depth, trunk_rezero, pp_mesh,
-                            pp_n_micro)
+                            pp_n_micro, dtype)
         self.head = nn.Linear(fc_hidden, 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
+        dtype = self.dtype
         convs = list(self.convs)
         if self.space_to_depth > 1:
             stage0 = convs.pop(0)
             h = x[..., None] if self.channels == 1 else x
-            h = _space_to_depth(_promote(h, stage0.weight), self.space_to_depth)
-            h = swish(_conv2x2(stage0, h.permute(0, 3, 1, 2)))  # NCHW
+            h = _space_to_depth(h.to(dtype), self.space_to_depth)
+            h = swish(_conv2x2(stage0, h.permute(0, 3, 1, 2), dtype))  # NCHW
         elif self.channels == 1:
-            h = _promote(x[:, None], convs[0].weight)  # NCHW
+            h = x[:, None].to(dtype)  # NCHW
         else:
             stage0 = convs.pop(0)
-            h = ops.conv4x4s2_swish(x, stage0.weight, stage0.bias)  # NCHW
+            w, b = stage0.weight, stage0.bias
+            if dtype != torch.float32:
+                x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+            h = ops.conv4x4s2_swish(x, w, b)  # NCHW
         for conv in convs:
-            h = swish(conv(F.pad(h, same_pad(h.shape[-2:]))))
+            h = swish(_layer(conv, F.pad(h, same_pad(h.shape[-2:])), dtype))
         h = h.permute(0, 2, 3, 1).flatten(1)  # Flax flattens NHWC
-        h = _run(self.layers, h)
+        h = _run(self.layers, h, dtype)
         if self.trunk is not None:
             h = self.trunk(h)
-        return _split_head(self.head(h), self.n_latents)
+        return _split_head(_layer(self.head, h, dtype).float(), self.n_latents)
 
 
 class DeconvDecoder(nn.Module):
@@ -304,11 +347,13 @@ class DeconvDecoder(nn.Module):
         trunk_rezero: bool = True,
         pp_mesh=None,
         pp_n_micro: int = 4,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if upsample_mode not in ("deconv", "shuffle"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}; have 'deconv', 'shuffle'")
         self.out_hw = tuple(out_hw)
+        self.dtype = dtype
         self.channels = channels
         self.features = tuple(features)
         self.upsample_mode = upsample_mode
@@ -317,7 +362,7 @@ class DeconvDecoder(nn.Module):
         self.base_hw = tuple(-(-d // 2**n_stages) for d in self.out_hw)
         self.layers = _hidden_layers(n_latents, (fc_hidden,))
         self.trunk = _trunk(fc_hidden, trunk_stages, trunk_depth, trunk_rezero, pp_mesh,
-                            pp_n_micro)
+                            pp_n_micro, dtype)
         self.head = nn.Linear(fc_hidden, math.prod(self.base_hw) * self.features[0])
         pairs = list(zip(self.features[:-1], self.features[1:]))
         last_in = self.features[-1]
@@ -336,24 +381,25 @@ class DeconvDecoder(nn.Module):
             self.deconvs.append(nn.ConvTranspose2d(last_in, channels, 4, stride=2, padding=1))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = _run(self.layers, z)
+        dtype = self.dtype
+        h = _run(self.layers, z.to(dtype), dtype)
         if self.trunk is not None:
             h = self.trunk(h)
-        h = swish(self.head(h))
+        h = swish(_layer(self.head, h, dtype))
         h = h.reshape(z.shape[0], *self.base_hw, self.features[0]).permute(0, 3, 1, 2)
         up = self.convs if self.upsample_mode == "shuffle" else self.deconvs
         for layer in up[: len(self.features) - 1]:
             if self.upsample_mode == "shuffle":
-                h = swish(_shuffle_up(_conv2x2(layer, h), 2))
+                h = swish(_shuffle_up(_conv2x2(layer, h, dtype), 2))
             else:
-                h = swish(layer(h))
+                h = swish(_layer(layer, h, dtype))
         if self.space_to_depth > 1:
-            h = _shuffle_up(_deconv2x2(self.deconvs[-1], h), self.space_to_depth)
+            h = _shuffle_up(_deconv2x2(self.deconvs[-1], h, dtype), self.space_to_depth)
         elif self.upsample_mode == "shuffle":
-            h = _shuffle_up(_conv2x2(self.convs[-1], h), 2)
+            h = _shuffle_up(_conv2x2(self.convs[-1], h, dtype), 2)
         else:
-            h = self.deconvs[-1](h)
-        h = h[:, :, : self.out_hw[0], : self.out_hw[1]]
+            h = _layer(self.deconvs[-1], h, dtype)
+        h = h[:, :, : self.out_hw[0], : self.out_hw[1]].float()
         return h[:, 0] if self.channels == 1 else h.permute(0, 2, 3, 1)
 
 
@@ -368,10 +414,12 @@ class AttributeEncoderBank(nn.Module):
     """
 
     def __init__(
-        self, n_latents: int, n_attrs: int = 18, embed_dim: int = 32, hidden: int = 64
+        self, n_latents: int, n_attrs: int = 18, embed_dim: int = 32, hidden: int = 64,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
+        self.dtype = dtype
         self.embed = nn.Parameter(torch.empty(n_attrs, 2, embed_dim))
         self.w1 = nn.Parameter(torch.empty(n_attrs, embed_dim, hidden))
         self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
@@ -379,10 +427,11 @@ class AttributeEncoderBank(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(n_attrs, 2 * n_latents))
 
     def forward(self, attrs: torch.Tensor):
+        dt = self.dtype
         a = attrs.to(torch.float32)[..., None]  # (B, A, 1)
-        h = self.embed[None, :, 0] * (1.0 - a) + self.embed[None, :, 1] * a
-        h = swish(torch.einsum("bae,aeh->bah", h, self.w1) + self.b1)
-        out = torch.einsum("bah,aho->bao", h, self.w2) + self.b2
+        h = (self.embed[None, :, 0] * (1.0 - a) + self.embed[None, :, 1] * a).to(dt)
+        h = swish(torch.einsum("bae,aeh->bah", h, self.w1.to(dt)) + self.b1.to(dt))
+        out = (torch.einsum("bah,aho->bao", h, self.w2.to(dt)) + self.b2.to(dt)).float()
         return out[..., : self.n_latents], out[..., self.n_latents :]
 
 
@@ -391,13 +440,16 @@ class AttributeDecoderBank(nn.Module):
     bank: ``w1`` ``(A, L, H)``, ``b1`` ``(A, H)``, ``w2`` ``(A, H)``,
     ``b2`` ``(A,)``."""
 
-    def __init__(self, n_latents: int, n_attrs: int = 18, hidden: int = 64):
+    def __init__(self, n_latents: int, n_attrs: int = 18, hidden: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.w1 = nn.Parameter(torch.empty(n_attrs, n_latents, hidden))
         self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
         self.w2 = nn.Parameter(torch.empty(n_attrs, hidden))
         self.b2 = nn.Parameter(torch.zeros(n_attrs))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = swish(torch.einsum("bl,alh->bah", z, self.w1) + self.b1)
-        return torch.einsum("bah,ah->ba", h, self.w2) + self.b2
+        dt = self.dtype
+        h = swish(torch.einsum("bl,alh->bah", z.to(dt), self.w1.to(dt)) + self.b1.to(dt))
+        return (torch.einsum("bah,ah->ba", h, self.w2.to(dt)) + self.b2.to(dt)).float()

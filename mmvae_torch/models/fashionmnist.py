@@ -33,16 +33,19 @@ class FashionMnistMVAE(MVAEBase):
         image_hw: tuple[int, int] = (28, 28),
         lambda_image: float = 1.0,
         lambda_label: float = 10.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
         self.image_hw = tuple(image_hw)
         self.lambda_image = lambda_image
         self.lambda_label = lambda_label
-        self.image_enc = ConvEncoder(n_latents, self.image_hw, features=(32, 64))
-        self.image_dec = DeconvDecoder(n_latents, self.image_hw, features=(64, 32))
-        self.label_enc = LabelEncoder(n_latents, n_classes)
-        self.label_dec = LabelDecoder(n_latents, n_classes)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.image_enc = ConvEncoder(n_latents, self.image_hw, features=(32, 64), **kw)
+        self.image_dec = DeconvDecoder(n_latents, self.image_hw, features=(64, 32), **kw)
+        self.label_enc = LabelEncoder(n_latents, n_classes, **kw)
+        self.label_dec = LabelDecoder(n_latents, n_classes, **kw)
         self._register_lambdas()
 
     def specs(self):

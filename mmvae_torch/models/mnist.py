@@ -32,16 +32,19 @@ class MnistMVAE(MVAEBase):
         image_hw: tuple[int, int] = (28, 28),
         lambda_image: float = 1.0,
         lambda_label: float = 10.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
         self.image_hw = tuple(image_hw)
         self.lambda_image = lambda_image
         self.lambda_label = lambda_label
-        self.image_enc = MLPEncoder(math.prod(self.image_hw), n_latents)
-        self.image_dec = MLPDecoder(n_latents, self.image_hw)
-        self.label_enc = LabelEncoder(n_latents, n_classes)
-        self.label_dec = LabelDecoder(n_latents, n_classes)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.image_enc = MLPEncoder(math.prod(self.image_hw), n_latents, **kw)
+        self.image_dec = MLPDecoder(n_latents, self.image_hw, **kw)
+        self.label_enc = LabelEncoder(n_latents, n_classes, **kw)
+        self.label_dec = LabelDecoder(n_latents, n_classes, **kw)
         self._register_lambdas()
 
     def specs(self):

@@ -40,6 +40,7 @@ class MultiMnistMVAE(MVAEBase):
         text_embed: int = 64,
         text_hidden: int = 128,
         text_latent_dims: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -48,13 +49,15 @@ class MultiMnistMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_text = lambda_text
         self.text_latent_dims = text_latent_dims
-        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, **kw)
         self.image_dec = DeconvDecoder(
-            n_latents, self.image_hw, features=tuple(reversed(conv_features))
+            n_latents, self.image_hw, features=tuple(reversed(conv_features)), **kw
         )
-        self.text_enc = SeqEncoder(n_latents, DIGIT_VOCAB, text_embed, text_hidden)
+        self.text_enc = SeqEncoder(n_latents, DIGIT_VOCAB, text_embed, text_hidden, **kw)
         self.text_dec = SeqDecoder(
-            n_latents, DIGIT_VOCAB, max_len, text_embed, text_hidden
+            n_latents, DIGIT_VOCAB, max_len, text_embed, text_hidden, **kw
         )
         self._register_lambdas()
         self.register_buffer(

@@ -25,7 +25,7 @@ from mmvae_torch.models.experts import (
     ConvEncoder,
     DeconvDecoder,
     _hidden_layers,
-    _promote,
+    _layer,
     _run,
     _split_head,
     swish,
@@ -45,27 +45,35 @@ class PipelineTrunk(nn.Module):
     ``(S,)``, which start at 0, so that a fresh trunk is the identity
     (``mmvae_tpu/models/pipeline.py:46-115``); ``rezero=False`` drops the
     gates (``h + MLP_depth(h)``). ``pp_mesh`` and ``pp_n_micro`` are
-    accepted at their defaults only: the pipe mesh is not ported.
+    accepted at their defaults only: the pipe mesh is not ported. At a
+    compute ``dtype`` other than float32 the stacked kernels, biases and
+    gates are cast to it once, outside the loop over the stages, and the
+    trunk runs in it (``mmvae_tpu/models/pipeline.py:83-88``).
     """
 
     def __init__(self, n_stages: int, width: int, block_depth: int = 1, *,
-                 rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4):
+                 rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if pp_mesh is not None or pp_n_micro != 4:
             raise NotImplementedError(
                 "a pipelined trunk (pp_mesh, pp_n_micro) is not yet ported to mmvae_torch")
         self.n_stages, self.block_depth, self.rezero = n_stages, block_depth, rezero
+        self.dtype = dtype
         self.kernels = nn.Parameter(torch.empty(n_stages, block_depth, width, width))
         self.biases = nn.Parameter(torch.zeros(n_stages, block_depth, width))
         self.alphas = nn.Parameter(torch.zeros(n_stages)) if rezero else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _promote(x, self.kernels)
+        dt = self.dtype
+        k, b = self.kernels.to(dt), self.biases.to(dt)
+        alphas = self.alphas.to(dt) if self.rezero else None
+        h = x.to(dt)
         for s in range(self.n_stages):
             y = h
             for i in range(self.block_depth):
-                y = swish(y @ self.kernels[s, i] + self.biases[s, i])
-            h = h + (self.alphas[s] * y if self.rezero else y)
+                y = swish(y @ k[s, i] + b[s, i])
+            h = h + (alphas[s] * y if self.rezero else y)
         return h
 
 
@@ -74,17 +82,20 @@ class _TrunkEncoder(nn.Module):
     logvar)``: Flax's ``Dense_0``, ``PipelineTrunk_0``, ``Dense_1``."""
 
     def __init__(self, in_features: int, n_latents: int, width: int, n_stages: int,
-                 block_depth: int, rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4):
+                 block_depth: int, rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_latents = n_latents
+        self.dtype = dtype
         self.layers = _hidden_layers(in_features, (width,))
         self.trunk = PipelineTrunk(n_stages, width, block_depth, rezero=rezero,
-                                   pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
+                                   pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
         self.head = nn.Linear(width, 2 * n_latents)
 
     def forward(self, x: torch.Tensor):
-        h = _run(self.layers, _promote(x.reshape(x.shape[0], -1), self.head.weight))
-        return _split_head(self.head(self.trunk(h)), self.n_latents)
+        h = _run(self.layers, x.reshape(x.shape[0], -1).to(self.dtype), self.dtype)
+        out = _layer(self.head, self.trunk(h), self.dtype).float()
+        return _split_head(out, self.n_latents)
 
 
 class _TrunkDecoder(nn.Module):
@@ -93,16 +104,18 @@ class _TrunkDecoder(nn.Module):
 
     def __init__(self, n_latents: int, out_shape: tuple[int, ...], width: int,
                  n_stages: int, block_depth: int, rezero: bool = True, pp_mesh=None,
-                 pp_n_micro: int = 4):
+                 pp_n_micro: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_shape = tuple(out_shape)
+        self.dtype = dtype
         self.layers = _hidden_layers(n_latents, (width,))
         self.trunk = PipelineTrunk(n_stages, width, block_depth, rezero=rezero,
-                                   pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
+                                   pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
         self.head = nn.Linear(width, math.prod(self.out_shape))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        logits = self.head(self.trunk(_run(self.layers, z)))
+        h = self.trunk(_run(self.layers, z.to(self.dtype), self.dtype))
+        logits = _layer(self.head, h, self.dtype).float()
         return logits.reshape((z.shape[0],) + self.out_shape)
 
 
@@ -124,11 +137,13 @@ class DeepMnistMVAE(MnistMVAE):
         trunk_rezero: bool = True,
         pp_mesh=None,
         pp_n_micro: int = 4,
+        dtype: torch.dtype = torch.float32,
     ):
-        super().__init__(n_latents, n_classes, image_hw, lambda_image, lambda_label)
+        super().__init__(n_latents, n_classes, image_hw, lambda_image, lambda_label,
+                         dtype=dtype)
         self.trunk_stages = trunk_stages
         trunk = dict(width=trunk_width, n_stages=trunk_stages, block_depth=trunk_depth,
-                     rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
+                     rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
         pixels = self.image_hw[0] * self.image_hw[1]
         self.image_enc = _TrunkEncoder(pixels, n_latents, **trunk)
         self.image_dec = _TrunkDecoder(n_latents, self.image_hw, **trunk)
@@ -155,12 +170,14 @@ class DeepCubMVAE(CubMVAE):
         trunk_rezero: bool = True,
         pp_mesh=None,
         pp_n_micro: int = 4,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__(n_latents, vocab_size, max_len, image_hw, lambda_image, lambda_text,
-                         conv_features, upsample_mode)
+                         conv_features, upsample_mode, dtype=dtype)
         self.trunk_stages = trunk_stages
         trunk = dict(trunk_stages=trunk_stages, trunk_depth=trunk_depth,
-                     trunk_rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro)
+                     trunk_rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro,
+                     dtype=dtype)
         self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3,
                                      **trunk)
         self.image_dec = DeconvDecoder(

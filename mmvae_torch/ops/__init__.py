@@ -23,6 +23,10 @@ dx = -g * l on the plain path only; the kernel path raises when they
 require grad. bf16 targets (a ``data_dtype="bfloat16"`` train split) reach
 the BCE kernels and their VJP as they are; the kernels upcast them on load,
 and the plain versions upcast them. The tokens of ``masked_seq_ce`` get no gradient.
+bf16 logits, means and log-variances are read in f32 on both paths, as the
+Pallas wrappers cast them outside their ``pallas_call``
+(``mmvae_tpu/ops/kernels.py:145-146``, ``:175-177``, ``:246``): the values
+are f32, and autograd hands each gradient back in its input's type.
 ``poe_kl`` differentiates the expert stack only and raises on both paths
 when ``masks`` or ``presence`` requires grad.
 
@@ -131,6 +135,7 @@ class _KlStdNormal(torch.autograd.Function):
     def forward(ctx, mu, logvar, kernel: bool):
         ctx.kernel = kernel
         if not kernel:
+            mu, logvar = mu.float(), logvar.float()
             ctx.save_for_backward(mu, logvar)
             return _kl_torch(mu, logvar)
         d = mu.shape[-1]
@@ -168,6 +173,7 @@ class _BernoulliNll(torch.autograd.Function):
         ctx.kernel, ctx.mode, ctx.event_ndims = kernel, mode, event_ndims
         batch_shape = logits.shape[: logits.dim() - event_ndims]
         if not kernel:
+            logits = logits.float()
             ctx.save_for_backward(logits, x)
             return _bern_torch(logits, kernels.tile_rows(x, logits.shape[0], mode), event_ndims)
         d = math.prod(logits.shape[logits.dim() - event_ndims:])
@@ -291,8 +297,8 @@ class _MaskedSeqCe(torch.autograd.Function):
     def forward(ctx, logits, tokens, pad_token: int, kernel: bool):
         ctx.kernel, ctx.pad_token = kernel, pad_token
         if not kernel:
-            ctx.save_for_backward(logits, tokens)
-            return kernels.masked_seq_ce_torch(logits, tokens, pad_token)
+            ctx.save_for_backward(logits.float(), tokens)
+            return kernels.masked_seq_ce_torch(logits.float(), tokens, pad_token)
         s, v = logits.shape[-2:]
         rows = logits.reshape(-1, s, v).to(torch.float32).contiguous()
         tok_rows = tokens.reshape(-1, s).contiguous()
@@ -306,7 +312,7 @@ class _MaskedSeqCe(torch.autograd.Function):
         logits, tokens = ctx.saved_tensors
         if not ctx.kernel:
             d_logits = kernels.masked_seq_ce_grad_torch(logits, tokens, ctx.pad_token, g)
-            return d_logits.to(logits.dtype), None, None, None
+            return d_logits, None, None, None
         g = g.reshape(-1).to(torch.float32).contiguous()
         d_logits = kernels.masked_seq_ce_grad_kernel(logits, tokens, ctx.pad_token, g)
         return d_logits.reshape(ctx.shape).to(ctx.dtype), None, None, None
@@ -318,10 +324,10 @@ def conv4x4s2_swish(
     """``swish(conv(x, weight, SAME, stride 2) + bias)``: ``x`` ``(B, H, W,
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
     ceil(W/2))`` NCHW, in the type ``x`` and ``weight`` promote to (a bf16
-    batch and f32 weights give f32). The kernel takes C <= 4 and F = 32;
-    its backward kernels give the weight's and the bias's gradients (from a
-    bf16 or f32 image) and, when the image requires grad, the image's (dx,
-    f32 only). Where autograd records nothing, the kernel path is the op
+    batch and f32 weights give f32; all bf16, a bf16 model's stage 0, give
+    bf16). The kernel takes C <= 4 and F = 32; its backward kernels give
+    the weight's and the bias's gradients in their types and, when the
+    image requires grad, the image's (dx; f32 or all bf16). Where autograd records nothing, the kernel path is the op
     ``mmvae::conv4x4s2_swish``, which a trace keeps (``ops/library.py``)."""
     kernel = _use_kernel(x)
     if _records_grad(x, weight, bias):

@@ -48,13 +48,19 @@
 // bits. The output is written in the weights' type (round to nearest even
 // for bf16): x, w, b and y all f32 or all bf16, or a bf16 x (a
 // data_dtype="bfloat16" batch) with f32 w, b and y, its loads upcast as
-// they are staged. No fast-math: expf tracks the plain PyTorch version to
+// they are staged. All bf16 (a bf16 model's stage 0), the epilogue rounds
+// where Flax's bf16 conv, bias add and swish round: the conv sum to bf16,
+// then the bias add, the sigmoid and the product. No fast-math: expf tracks the plain PyTorch version to
 // rounding.
 //
 // The backward, conv4x4s2_swish_bwd: the gradient of the weight and the
 // bias (not of x) given the upstream gradient g (B, 32, ceil(H/2),
-// ceil(W/2)) of y, all f32 but the image, which may be bf16 (a
-// data_dtype="bfloat16" batch). With pre = b[o] + the conv sum,
+// ceil(W/2)) of y, in the forward's types: all f32, all bf16 (a bf16
+// model's stage 0: w, b, g, dw and db bf16, dw and db rounded once from
+// f32 sums, as XLA's gradient of a bf16 conv gives them in the weight's
+// type), or a bf16 image with the rest f32 (a data_dtype="bfloat16"
+// batch). Every operand is upcast on load and everything is computed in
+// f32. With pre = b[o] + the conv sum,
 //     dw[o, c, ky, kx] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j])
 //                                     * x[n, 2i+ky-pt, 2j+kx-pl, c],
 //     db[o] = sum_{n,i,j} g[n,o,i,j] * swish'(pre[n,o,i,j]),
@@ -76,11 +82,14 @@
 // 3xTF32: each operand split as hi = tf32(a), lo = tf32(a - hi) (rounded
 // to nearest by integer operations) and each product taken as lo . hi' +
 // hi . lo' + hi . hi', which keeps f32's precision (TF32 alone keeps about
-// three digits). A block walks tiles of 32 output pixels by TR output rows
-// of one image with the grid's stride. A tile's 2 TR + 2 input rows are
-// copied raw into shared memory with cp.async while the previous tile is
-// computed, then split once into hi and lo planes; the weights are staged
-// once a block as the first product's A fragments. A warp takes 16 output
+// three digits). A bf16 operand (the image, or the weights) is exact in
+// TF32: its lo part is 0, and the products that would read it are not
+// taken; S is f32 and keeps its split. A block walks tiles of 32 output
+// pixels by TR output rows of one image with the grid's stride. A tile's 2
+// TR + 2 input rows are copied raw into shared memory with cp.async while
+// the previous tile is computed, then split once into hi and lo planes;
+// the weights are staged once a block as the first product's A fragments.
+// A warp takes 16 output
 // channels and groups of 16 pixels, as two n-tiles of 8 (the even pixels,
 // the odd ones, so that at C = 3 its loads fall on distinct banks). Per
 // group: pre^T = W . patches^T into three accumulators (one per product of
@@ -103,7 +112,8 @@
 // recomputed from x, w and b as the backward above recomputes it,
 //     dx[n, h, w, c] = sum_{o, ky, kx} S[n, o, i, j] * w[o, c, ky, kx]
 // over the output pixels with 2i + ky - 1 = h and 2j + kx - 1 = w (taps
-// that fall into the pad add nothing), f32 only. It is the input half of
+// that fall into the pad add nothing), f32, or all bf16 (x, w, b, g and
+// dx; computed in f32, dx rounded once). It is the input half of
 // XLA's gradient of stage 0 (tools/pallas_conv_probe.py:xla_conv0); only
 // the cycle term's re-encode of a rendered image needs it.
 //
@@ -227,8 +237,41 @@ struct Chunk<__nv_bfloat16, false> {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// One element through the read-only path, as f32 (a bf16 is the high half
+// of its f32).
+__device__ __forceinline__ float ld_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+// An f32 in T, rounded to nearest even for bf16.
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 __device__ __forceinline__ float swish(float v) { return v * (1.0f / (1.0f + expf(-v))); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+// The output of one conv sum `acc` with the bias `b` in the weights' type
+// TW: in f32, swish(acc + b); in bf16, Flax's order with every op rounded
+// to bf16 as XLA rounds it (the conv, then the bias add, the sigmoid and
+// the product, the last by the store).
+template <typename TW>
+__device__ __forceinline__ float epilogue(float acc, float b) {
+  if constexpr (std::is_same<TW, float>::value) {
+    return swish(acc + b);
+  } else {
+    const float u = round_bf16(round_bf16(acc) + b);
+    return u * round_bf16(1.0f / (1.0f + expf(-u)));
+  }
+}
 
 // The 4 outputs of a lane for one channel, at `p` (4-aligned when `vec`).
 __device__ __forceinline__ void store4(float* p, const float (&r)[kPx], int valid, bool vec) {
@@ -408,7 +451,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
       const float b = s_b[kCh * g + o];
       float r[kPx];
 #pragma unroll
-      for (int p = 0; p < kPx; ++p) r[p] = swish(acc[p][o] + b);
+      for (int p = 0; p < kPx; ++p) r[p] = epilogue<TW>(acc[p][o], b);
       if (valid > 0) store4(yo + o * plane, r, valid, vec_out != 0);
     }
   }
@@ -654,10 +697,10 @@ struct BwdStage {
 // n-tile of dW's columns. The input tile is split into TF32 planes once, so
 // the fragments are plain loads. dW and db are summed in registers over
 // the tiles.
-template <typename T, int C, int TR, int W, bool VEC>
+template <typename T, typename TW, int C, int TR, int W, bool VEC>
 __global__ void __launch_bounds__(W * 32, 16 / W)
-    conv_s2_bwd_partials_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                                const float* __restrict__ bias, const float* __restrict__ g,
+    conv_s2_bwd_partials_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                                const TW* __restrict__ bias, const TW* __restrict__ g,
                                 long long sn, long long so, long long sh, long long sw,
                                 float* __restrict__ ws, int h, int wd, int h_out, int w_out,
                                 int n_chunks, int row_tiles, int tiles) {
@@ -678,6 +721,8 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
 
   using Stage = BwdStage<T, C, TR, W, VEC>;
   constexpr bool kLo = Stage::kLo;  // the image has a lo plane (f32, not bf16)
+  // The weights have a lo part (f32, not bf16: a bf16 is exact in TF32).
+  constexpr bool kWLo = std::is_same<TW, float>::value;
   int t = blockIdx.x;
   if (t < tiles) {
     const int rest = t / n_chunks;
@@ -696,7 +741,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
     const int ln = i / 4 % 32;
     const int o = i / (128 * KS) * 16 + ln / 4 + 8 * (i % 4 % 2);
     const int k = i / 128 % KS * 8 + ln % 4 + 4 * (i % 4 / 2);
-    wv[j] = __ldg(w + ((o * C + k % C) * 4 + k / (4 * C)) * 4 + k / C % 4);
+    wv[j] = ld_f32(w + ((o * C + k % C) * 4 + k / (4 * C)) * 4 + k / C % 4);
   }
 #pragma unroll
   for (int j = 0; j < kWPer; ++j) {
@@ -709,7 +754,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
   }
   const int mt = warp % 2;
   const int o0 = mt * 16 + gq;  // the channels of the thread's rows: o0, o0 + 8
-  const float b0 = __ldg(bias + o0), b1 = __ldg(bias + o0 + 8);
+  const float b0 = ld_f32(bias + o0), b1 = ld_f32(bias + o0 + 8);
   const float4* wf = reinterpret_cast<const float4*>(s_w) + (mt * KS * 32 + lane) * 2;
   // Per-thread offsets in the staged planes: product 1's B at pixel 2 gq,
   // element tq of a 4-aligned run of k; product 2's B at pixel 4 tq,
@@ -736,7 +781,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
       Stage::load(s_raw, x, nrest / row_tiles, nrest % row_tiles * TR,
                   next % n_chunks * kTileW, h, row_len, tid);
     }
-    const float* gt = g + n * sn + g_o;
+    const TW* gt = g + n * sn + g_o;
     for (int jg = warp / 2; jg < P / 16; jg += W / 2) {
       // The group's pixels start at row jg / 2, column 16 (jg % 2) of the tile.
       const int base = jg / 2 * 2 * kRow + jg % 2 * 32 * C;
@@ -744,13 +789,13 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
       // pixels 16 jg + 4 tq + i (i = 2 c + e: column 2 tq + c of n-tile e).
       const int oy = oy0 + jg / 2;
       const int ox = ox0 + jg % 2 * 16 + 4 * tq;
-      const float* gp = gt + oy * sh + ox * sw;
+      const TW* gp = gt + oy * sh + ox * sw;
       float gv[2][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool ok = oy < h_out && ox + i < w_out;
-        gv[0][i] = ok ? __ldg(gp + i * sw) : 0.0f;
-        gv[1][i] = ok ? __ldg(gp + 8 * so + i * sw) : 0.0f;
+        gv[0][i] = ok ? ld_f32(gp + i * sw) : 0.0f;
+        gv[1][i] = ok ? ld_f32(gp + 8 * so + i * sw) : 0.0f;
       }
       // Product 1: B of n-tile e (k x pixel) = patch(16 jg + 2 gq + e, ks 8
       // + tq (+ 4)).
@@ -770,7 +815,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
           const int o_b = e * 2 * C + k_off<C>(ks * 8 + 4);
           const unsigned bh[2] = {__float_as_uint(ph[o_a]), __float_as_uint(ph[o_b])};
           const unsigned bl[2] = {__float_as_uint(pl[o_a]), __float_as_uint(pl[o_b])};
-          mma_tf32(pre[0][e], al, bh);
+          if constexpr (kWLo) mma_tf32(pre[0][e], al, bh);
           if constexpr (kLo) mma_tf32(pre[1][e], ah, bl);
           mma_tf32(pre[2][e], ah, bh);
         }
@@ -859,9 +904,10 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
 constexpr int kReduceRows = 32;
 constexpr int kReduceBatch = 16;
 
+template <typename TD>
 __global__ void __launch_bounds__(kCout * kReduceRows)
-    conv_s2_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                              float* __restrict__ db, int c, int parts) {
+    conv_s2_bwd_reduce_kernel(const float* __restrict__ ws, TD* __restrict__ dw,
+                              TD* __restrict__ db, int c, int parts) {
   __shared__ float part[kReduceRows][kCout];
   const int kk = kTaps * c;
   const int n_out = (kk + 1) * kCout;
@@ -887,19 +933,19 @@ __global__ void __launch_bounds__(kCout * kReduceRows)
 #pragma unroll
   for (int i = 0; i < kReduceRows; ++i) total += part[i][o];
   if (k == kk) {
-    db[o] = total;
+    db[o] = from_f32<TD>(total);
     return;
   }
   const int ky = k / (4 * c);
   const int kx = (k / c) % 4;
   const int ch = k % c;
-  dw[((o * c + ch) * 4 + ky) * 4 + kx] = total;
+  dw[((o * c + ch) * 4 + ky) * 4 + kx] = from_f32<TD>(total);
 }
 
-template <typename T, int C, int TR, int W, bool VEC>
-int launch_bwd(const T* x, const float* w, const float* b, const float* g, long long sn,
-               long long so, long long sh, long long sw, float* ws, float* dw, float* db,
-               int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
+template <typename T, typename TW, int C, int TR, int W, bool VEC>
+int launch_bwd(const T* x, const TW* w, const TW* b, const TW* g, long long sn, long long so,
+               long long sh, long long sw, float* ws, TW* dw, TW* db, int batch, int h, int wd,
+               int blocks, int smem, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
   const int n_chunks = (w_out + kTileW - 1) / kTileW;
@@ -908,53 +954,52 @@ int launch_bwd(const T* x, const float* w, const float* b, const float* g, long 
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (static_cast<size_t>(smem) > kDefaultSmem) {
-    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<T, C, TR, W, VEC>,
+    err = cudaFuncSetAttribute(conv_s2_bwd_partials_kernel<T, TW, C, TR, W, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_bwd_partials_kernel<T, C, TR, W, VEC><<<blocks, W * 32, smem, stream>>>(
+  conv_s2_bwd_partials_kernel<T, TW, C, TR, W, VEC><<<blocks, W * 32, smem, stream>>>(
       x, w, b, g, sn, so, sh, sw, ws, h, wd, h_out, w_out, n_chunks, row_tiles,
       static_cast<int>(tiles));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_s2_bwd_reduce_kernel<<<kTaps * C + 1, dim3(kCout, kReduceRows), 0, stream>>>(
+  conv_s2_bwd_reduce_kernel<TW><<<kTaps * C + 1, dim3(kCout, kReduceRows), 0, stream>>>(
       ws, dw, db, C, blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C, int TR, int W>
-int launch_bwd_vec(const T* x, const float* w, const float* b, const float* g, long long sn,
-                   long long so, long long sh, long long sw, float* ws, float* dw, float* db,
-                   int batch, int h, int wd, int blocks, int smem, cudaStream_t stream) {
+template <typename T, typename TW, int C, int TR, int W>
+int launch_bwd_vec(const T* x, const TW* w, const TW* b, const TW* g, long long sn, long long so,
+                   long long sh, long long sw, float* ws, TW* dw, TW* db, int batch, int h,
+                   int wd, int blocks, int smem, cudaStream_t stream) {
   // Copies of 4 elements (16 bytes of f32, 8 of bf16) where a row is whole
   // chunks of 4 and x starts on a chunk.
   if ((static_cast<long long>(wd) * C) % 4 == 0 &&
       reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0) {
-    return launch_bwd<T, C, TR, W, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
-                                      blocks, smem, stream);
+    return launch_bwd<T, TW, C, TR, W, true>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h,
+                                             wd, blocks, smem, stream);
   }
-  return launch_bwd<T, C, TR, W, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
-                                     blocks, smem, stream);
+  return launch_bwd<T, TW, C, TR, W, false>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+                                            blocks, smem, stream);
 }
 
-template <typename T, int C>
-int launch_bwd_c(const T* x, const float* w, const float* b, const float* g, long long sn,
-                 long long so, long long sh, long long sw, float* ws, float* dw, float* db,
-                 int batch, int h, int wd, int warps, int blocks, int smem, int rows,
-                 cudaStream_t stream) {
+template <typename T, typename TW, int C>
+int launch_bwd_c(const T* x, const TW* w, const TW* b, const TW* g, long long sn, long long so,
+                 long long sh, long long sw, float* ws, TW* dw, TW* db, int batch, int h, int wd,
+                 int warps, int blocks, int smem, int rows, cudaStream_t stream) {
   if (rows == 2 && warps == 8) {
-    return launch_bwd_vec<T, C, 2, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+    return launch_bwd_vec<T, TW, C, 2, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                       blocks, smem, stream);
   }
   if (rows == 2) {
-    return launch_bwd_vec<T, C, 2, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+    return launch_bwd_vec<T, TW, C, 2, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                       blocks, smem, stream);
   }
   if (warps == 8) {
-    return launch_bwd_vec<T, C, 4, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+    return launch_bwd_vec<T, TW, C, 4, 8>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                       blocks, smem, stream);
   }
-  return launch_bwd_vec<T, C, 4, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
+  return launch_bwd_vec<T, TW, C, 4, 4>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd,
                                     blocks, smem, stream);
 }
 
@@ -966,29 +1011,30 @@ bool bwd_plan_ok(int c, int warps, int smem, int rows) {
          static_cast<size_t>(smem) <= kMaxSmem;
 }
 
-template <typename T>
-int dispatch_bwd_c(const T* x, const void* w, const void* b, const void* g, long long sn,
+template <typename T, typename TW>
+int dispatch_bwd_c(const void* x_, const void* w, const void* b, const void* g, long long sn,
                    long long so, long long sh, long long sw, void* ws, void* dw, void* db,
                    int batch, int h, int wd, int c, int warps, int blocks, int smem, int rows,
                    cudaStream_t stream) {
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  const float* gf = static_cast<const float*>(g);
+  const T* x = static_cast<const T*>(x_);
+  const TW* wf = static_cast<const TW*>(w);
+  const TW* bf = static_cast<const TW*>(b);
+  const TW* gf = static_cast<const TW*>(g);
   float* wsf = static_cast<float*>(ws);
-  float* dwf = static_cast<float*>(dw);
-  float* dbf = static_cast<float*>(db);
+  TW* dwf = static_cast<TW*>(dw);
+  TW* dbf = static_cast<TW*>(db);
   switch (c) {
     case 1:
-      return launch_bwd_c<T, 1>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+      return launch_bwd_c<T, TW, 1>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
                                 warps, blocks, smem, rows, stream);
     case 2:
-      return launch_bwd_c<T, 2>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+      return launch_bwd_c<T, TW, 2>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
                                 warps, blocks, smem, rows, stream);
     case 3:
-      return launch_bwd_c<T, 3>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+      return launch_bwd_c<T, TW, 3>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
                                 warps, blocks, smem, rows, stream);
     case 4:
-      return launch_bwd_c<T, 4>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
+      return launch_bwd_c<T, TW, 4>(x, wf, bf, gf, sn, so, sh, sw, wsf, dwf, dbf, batch, h, wd,
                                 warps, blocks, smem, rows, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1058,24 +1104,35 @@ __device__ __forceinline__ bool dx_slot(int item, int s, int s_rows, int& r, int
 
 // One tile's 2 TR + 6 input rows, 70 columns from 2 j0 - 3 on (zero where
 // the pad or an edge falls), copied raw into shared memory (16 bytes a copy
-// where VEC) as the backward's BwdStage copies its rows.
-template <int C, bool VEC>
+// where VEC) as the backward's BwdStage copies its rows: a bf16 image as it
+// is, 8 bytes a copy where VEC (kPacked), else read into registers and
+// staged as f32.
+template <typename T, int C, bool VEC>
 struct DxStage {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kPacked = !kF32 && VEC;
   static constexpr int E = VEC ? 4 : 1;
   static constexpr int kPerRow = dx_row_floats(C) / E;
 
-  __device__ __forceinline__ static void load_x(float* raw, const float* __restrict__ x, int n,
+  __device__ __forceinline__ static void load_x(float* raw, const T* __restrict__ x, int n,
                                                 int m0, int j0, int h, long long row_len,
                                                 int rows, int tid, int nthreads) {
     const long long c0 = static_cast<long long>(2 * j0 - 3) * C - dx_lead(C);
-    const float* xn = x + static_cast<long long>(n) * h * row_len;
+    const T* xn = x + static_cast<long long>(n) * h * row_len;
     const int all = (2 * rows + 6) * kPerRow;
     for (int i = tid; i < all; i += nthreads) {
       const int r = i / kPerRow;
       const int iy = 2 * m0 - 3 + r;
       const long long col = c0 + (i - r * kPerRow) * E;
       const bool ok = iy >= 0 && iy < h && col >= 0 && col + E <= row_len;
-      cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+      if constexpr (kF32) {
+        cp_async<E>(raw + i * E, ok ? xn + iy * row_len + col : x, ok);
+      } else if constexpr (VEC) {
+        cp_async8(reinterpret_cast<__nv_bfloat16*>(raw) + i * E, ok ? xn + iy * row_len + col : x,
+                  ok);
+      } else {
+        raw[i] = ok ? to_f32(xn[iy * row_len + col]) : 0.0f;
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
@@ -1086,14 +1143,14 @@ struct DxStage {
 // column; 0 outside the output. Sum ((d, d') = (0, 0) + (0, 1)) + (1, 0) +
 // (1, 1): a fixed order. A thread an input pixel (its C channels), two
 // pixels a stride apart with their loads together.
-template <int C>
-__device__ __forceinline__ void dx_fold(const float* s_t, float* __restrict__ dx, int n, int m0,
+template <typename T, int C>
+__device__ __forceinline__ void dx_fold(const float* s_t, T* __restrict__ dx, int n, int m0,
                                         int j0, int h, int wd, int h_out, int w_out, int rows,
                                         int tid, int nthreads) {
   constexpr int TP = dx_t_pitch(C);
   constexpr int kPx = 2 * kTileW;  // input columns of a tile
   const int row_len = wd * C;
-  float* dxn = dx + static_cast<long long>(n) * h * row_len + 2 * j0 * C;
+  T* dxn = dx + static_cast<long long>(n) * h * row_len + 2 * j0 * C;
   const int n_px = 2 * rows * kPx;
   for (int p0 = tid; p0 < n_px; p0 += 2 * nthreads) {
     float v[2][4][C];
@@ -1127,7 +1184,7 @@ __device__ __forceinline__ void dx_fold(const float* s_t, float* __restrict__ dx
       if (at[u] < 0) continue;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        dxn[at[u] + c] = ((v[u][0][c] + v[u][1][c]) + v[u][2][c]) + v[u][3][c];
+        dxn[at[u] + c] = from_f32<T>(((v[u][0][c] + v[u][1][c]) + v[u][2][c]) + v[u][3][c]);
       }
     }
   }
@@ -1147,12 +1204,14 @@ __device__ __forceinline__ void dx_fold(const float* s_t, float* __restrict__ dx
 // never leaves the registers); T into shared memory. Both products 3xTF32
 // on the tensor cores. The ring's rows need one tap row of T each (ky = 3
 // above, ky = 0 below), which lies in one m-tile of product 2. Then every
-// warp folds T into dx. The next tile's input is copied meanwhile.
-template <int C, bool VEC>
+// warp folds T into dx. The next tile's input is copied meanwhile. T is
+// the type of x, w, bias, g and dx; a bf16 operand is exact in TF32, so at
+// bf16 the products that would read its lo part are not taken.
+template <typename T, int C, bool VEC>
 __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
-    conv_s2_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, const float* __restrict__ g, long long sn,
-                      long long so, long long sh, long long sw, float* __restrict__ dx, int h,
+    conv_s2_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const T* __restrict__ bias, const T* __restrict__ g, long long sn,
+                      long long so, long long sh, long long sw, T* __restrict__ dx, int h,
                       int wd, int h_out, int w_out, int rows, int row_tiles, int col_tiles,
                       int tiles) {
   constexpr int K = kTaps * C;  // patch elements: [ky][kx][c]
@@ -1176,7 +1235,8 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
   const long long row_len = static_cast<long long>(wd) * C;
   const int s_rows = rows + 2;
 
-  using Stage = DxStage<C, VEC>;
+  using Stage = DxStage<T, C, VEC>;
+  constexpr bool kLo = Stage::kF32;  // x and w have lo parts (f32, not bf16)
   int t = blockIdx.x;
   if (t < tiles) {
     const int rest = t / col_tiles;
@@ -1195,7 +1255,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int i = i0 + u * nthreads + tid;
-      v[u] = i < kCout * K ? __ldg(w + i) : 0.0f;
+      v[u] = i < kCout * K ? ld_f32(w + i) : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -1207,8 +1267,8 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
   float bv[4][2];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
-    bv[nt][0] = __ldg(bias + 8 * nt + 2 * tq);
-    bv[nt][1] = __ldg(bias + 8 * nt + 2 * tq + 1);
+    bv[nt][0] = ld_f32(bias + 8 * nt + 2 * tq);
+    bv[nt][1] = ld_f32(bias + 8 * nt + 2 * tq + 1);
   }
   __syncthreads();
   auto w_at = [&](int o, int k) { return s_t[(o * C + k % C) * kTaps + k / C]; };
@@ -1239,14 +1299,22 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // this tile's input has landed; the previous tile's T is no longer read
     for (int i = tid; i < plane / 4; i += nthreads) {
-      const float4 f = reinterpret_cast<const float4*>(s_raw)[i];
-      uint4 hi, lo;
-      split_tf32(f.x, hi.x, lo.x);
-      split_tf32(f.y, hi.y, lo.y);
-      split_tf32(f.z, hi.z, lo.z);
-      split_tf32(f.w, hi.w, lo.w);
-      reinterpret_cast<uint4*>(s_xh)[i] = hi;
-      reinterpret_cast<uint4*>(s_xl)[i] = lo;
+      if constexpr (Stage::kPacked) {
+        const uint2 v = reinterpret_cast<const uint2*>(s_raw)[i];
+        reinterpret_cast<uint4*>(s_xh)[i] =
+            make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+      } else if constexpr (!kLo) {
+        reinterpret_cast<float4*>(s_xh)[i] = reinterpret_cast<const float4*>(s_raw)[i];
+      } else {
+        const float4 f = reinterpret_cast<const float4*>(s_raw)[i];
+        uint4 hi, lo;
+        split_tf32(f.x, hi.x, lo.x);
+        split_tf32(f.y, hi.y, lo.y);
+        split_tf32(f.z, hi.z, lo.z);
+        split_tf32(f.w, hi.w, lo.w);
+        reinterpret_cast<uint4*>(s_xh)[i] = hi;
+        reinterpret_cast<uint4*>(s_xl)[i] = lo;
+      }
     }
     __syncthreads();
     const int rest = t / col_tiles;
@@ -1277,11 +1345,11 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
           base[mi][hf] = 2 * r * RF + dx_lead(C) + 2 * cs * C + tq;
           const int i = m0 - 1 + r, j = j0 - 1 + cs;
           ok = ok && i >= 0 && i < h_out && j >= 0 && j < w_out;
-          const float* gp = g + (ok ? n * sn + i * sh + j * sw + 2 * tq * so : 0);
+          const T* gp = g + (ok ? n * sn + i * sh + j * sw + 2 * tq * so : 0);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
-            gv[mi][hf][nt][0] = ok ? __ldg(gp + 8 * nt * so) : 0.0f;
-            gv[mi][hf][nt][1] = ok ? __ldg(gp + (8 * nt + 1) * so) : 0.0f;
+            gv[mi][hf][nt][0] = ok ? ld_f32(gp + 8 * nt * so) : 0.0f;
+            gv[mi][hf][nt][1] = ok ? ld_f32(gp + (8 * nt + 1) * so) : 0.0f;
           }
         }
       }
@@ -1312,6 +1380,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
         for (int nt = 0; nt < 4; ++nt) wb[nt] = s_w1[(ks * 4 + nt) * 32 + lane];
 #pragma unroll
         for (int term = 0; term < 3; ++term) {
+          if (!kLo && term != 2) continue;  // lo(x) . hi(w), hi(x) . lo(w): both 0
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const unsigned b[2] = {term == 1 ? wb[nt].z : wb[nt].x,
@@ -1372,8 +1441,10 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
             const uint4 l4 = s_w2[(mt * 4 + ks) * 64 + 32 + lane];
             const unsigned ah[4] = {h4.x, h4.y, h4.z, h4.w};
             const unsigned al[4] = {l4.x, l4.y, l4.z, l4.w};
+            if constexpr (kLo) {
 #pragma unroll
-            for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], al, bh[nb]);
+              for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], al, bh[nb]);
+            }
 #pragma unroll
             for (int nb = 0; nb < 4; ++nb) mma_tf32(acc[m][nb], ah, bl[nb]);
 #pragma unroll
@@ -1398,14 +1469,14 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
       }
     }
     __syncthreads();
-    dx_fold<C>(s_t, dx, n, m0, j0, h, wd, h_out, w_out, rows, tid, nthreads);
+    dx_fold<T, C>(s_t, dx, n, m0, j0, h, wd, h_out, w_out, rows, tid, nthreads);
   }
 }
 
-template <int C, bool VEC>
-int launch_dx(const float* x, const float* w, const float* b, const float* g, long long sn,
-              long long so, long long sh, long long sw, float* dx, int batch, int h, int wd,
-              int warps, int blocks, int smem, int rows, cudaStream_t stream) {
+template <typename T, int C, bool VEC>
+int launch_dx(const T* x, const T* w, const T* b, const T* g, long long sn, long long so,
+              long long sh, long long sw, T* dx, int batch, int h, int wd, int warps, int blocks,
+              int smem, int rows, cudaStream_t stream) {
   const int h_out = (h + 1) / 2;
   const int w_out = (wd + 1) / 2;
   const int row_tiles = (h_out + rows - 1) / rows;
@@ -1414,27 +1485,55 @@ int launch_dx(const float* x, const float* w, const float* b, const float* g, lo
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(smem) > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_s2_dx_kernel<C, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        conv_s2_dx_kernel<T, C, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  conv_s2_dx_kernel<C, VEC><<<blocks, warps * 32, smem, stream>>>(
+  conv_s2_dx_kernel<T, C, VEC><<<blocks, warps * 32, smem, stream>>>(
       x, w, b, g, sn, so, sh, sw, dx, h, wd, h_out, w_out, rows, row_tiles, col_tiles,
       static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
-int launch_dx_vec(const float* x, const float* w, const float* b, const float* g, long long sn,
-                  long long so, long long sh, long long sw, float* dx, int batch, int h, int wd,
-                  int warps, int blocks, int smem, int rows, cudaStream_t stream) {
-  // 16-byte copies of the input rows where a row is whole float4s and x
-  // starts on 16 bytes.
-  if ((static_cast<long long>(wd) * C) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    return launch_dx<C, true>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks, smem,
-                              rows, stream);
+template <typename T, int C>
+int launch_dx_vec(const T* x, const T* w, const T* b, const T* g, long long sn, long long so,
+                  long long sh, long long sw, T* dx, int batch, int h, int wd, int warps,
+                  int blocks, int smem, int rows, cudaStream_t stream) {
+  // Copies of 4 elements (16 bytes of f32, 8 of bf16) where a row is whole
+  // chunks of 4 and x starts on a chunk.
+  if ((static_cast<long long>(wd) * C) % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0) {
+    return launch_dx<T, C, true>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks,
+                                 smem, rows, stream);
   }
-  return launch_dx<C, false>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks, smem,
-                             rows, stream);
+  return launch_dx<T, C, false>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, warps, blocks, smem,
+                                rows, stream);
+}
+
+template <typename T>
+int dispatch_dx_c(const void* x, const void* w, const void* b, const void* g, long long sn,
+                  long long so, long long sh, long long sw, void* dx, int batch, int h, int wd,
+                  int c, int warps, int blocks, int smem, int rows, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  switch (c) {
+    case 1:
+      return launch_dx_vec<T, 1>(xt, wt, bt, gt, sn, so, sh, sw, dxt, batch, h, wd, warps, blocks,
+                                 smem, rows, stream);
+    case 2:
+      return launch_dx_vec<T, 2>(xt, wt, bt, gt, sn, so, sh, sw, dxt, batch, h, wd, warps, blocks,
+                                 smem, rows, stream);
+    case 3:
+      return launch_dx_vec<T, 3>(xt, wt, bt, gt, sn, so, sh, sw, dxt, batch, h, wd, warps, blocks,
+                                 smem, rows, stream);
+    case 4:
+      return launch_dx_vec<T, 4>(xt, wt, bt, gt, sn, so, sh, sw, dxt, batch, h, wd, warps, blocks,
+                                 smem, rows, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Tiles of 1 to kDxMaxRows output rows; 1 to kDxMaxWarps warps (a block's
@@ -1476,59 +1575,57 @@ extern "C" int conv4x4s2_swish(const void* x, const void* w, const void* b, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x: float32 or bfloat16 (x_dtype 0 or 1); w, b, g, dw, db: float32. g is
-// read through its strides (sn, so, sh, sw, in elements), so a view of the
-// next stage's padded gradient needs no copy; ws holds blocks x (16 c + 1) x
-// 32 floats. warps, blocks, smem and rows (a tile's output rows): the
-// launch plan (kernels.py:conv_bwd_plan).
+// dtype: as conv4x4s2_swish's: 0 = float32 x, w, b, g, dw and db; 1 = all
+// bfloat16 (dw and db rounded once from their f32 sums); 2 = a bfloat16 x
+// with the rest float32. g is read through its strides (sn, so, sh, sw, in
+// elements), so a view of the next stage's padded gradient needs no copy;
+// ws holds blocks x (16 c + 1) x 32 floats. warps, blocks, smem and rows (a
+// tile's output rows): the launch plan (kernels.py:conv_bwd_plan).
 extern "C" int conv4x4s2_swish_bwd(const void* x, const void* w, const void* b, const void* g,
                                    long long sn, long long so, long long sh, long long sw,
                                    void* ws, void* dw, void* db, int batch, int h, int wd, int c,
-                                   int x_dtype, int warps, int blocks, int smem, int rows,
+                                   int dtype, int warps, int blocks, int smem, int rows,
                                    cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
-      x_dtype < 0 || x_dtype > 1 || !bwd_plan_ok(c, warps, smem, rows)) {
+      !bwd_plan_ok(c, warps, smem, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_dtype == 1) {
-    return dispatch_bwd_c(static_cast<const __nv_bfloat16*>(x), w, b, g, sn, so, sh, sw, ws, dw,
-                          db, batch, h, wd, c, warps, blocks, smem, rows, stream);
+  if (dtype == 0) {
+    return dispatch_bwd_c<float, float>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h, wd, c,
+                                        warps, blocks, smem, rows, stream);
   }
-  return dispatch_bwd_c(static_cast<const float*>(x), w, b, g, sn, so, sh, sw, ws, dw, db,
-                        batch, h, wd, c, warps, blocks, smem, rows, stream);
+  if (dtype == 1) {
+    return dispatch_bwd_c<__nv_bfloat16, __nv_bfloat16>(x, w, b, g, sn, so, sh, sw, ws, dw, db,
+                                                         batch, h, wd, c, warps, blocks, smem,
+                                                         rows, stream);
+  }
+  if (dtype == 2) {
+    return dispatch_bwd_c<__nv_bfloat16, float>(x, w, b, g, sn, so, sh, sw, ws, dw, db, batch, h,
+                                                wd, c, warps, blocks, smem, rows, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 only. g is read through its strides (sn, so, sh, sw, in elements);
-// dx is (batch, h, wd, c), NHWC, every element written. warps, blocks,
-// smem and rows (a tile's output rows): the launch plan
-// (kernels.py:conv_dx_plan).
+// dtype: 0 = float32 and 1 = bfloat16, for x, w, b, g and dx alike (dx
+// rounded once from its f32 sum). g is read through its strides (sn, so,
+// sh, sw, in elements); dx is (batch, h, wd, c), NHWC, every element
+// written. warps, blocks, smem and rows (a tile's output rows): the launch
+// plan (kernels.py:conv_dx_plan).
 extern "C" int conv4x4s2_swish_dx(const void* x, const void* w, const void* b, const void* g,
                                   long long sn, long long so, long long sh, long long sw,
-                                  void* dx, int batch, int h, int wd, int c, int warps,
+                                  void* dx, int batch, int h, int wd, int c, int dtype, int warps,
                                   int blocks, int smem, int rows, cudaStream_t stream) {
   if (batch <= 0 || h <= 0 || wd <= 0 || blocks <= 0 || sn < 0 || so < 0 || sh < 0 || sw < 0 ||
       !dx_plan_ok(c, warps, smem, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  const float* gf = static_cast<const float*>(g);
-  float* dxf = static_cast<float*>(dx);
-  switch (c) {
-    case 1:
-      return launch_dx_vec<1>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
-                              smem, rows, stream);
-    case 2:
-      return launch_dx_vec<2>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
-                              smem, rows, stream);
-    case 3:
-      return launch_dx_vec<3>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
-                              smem, rows, stream);
-    case 4:
-      return launch_dx_vec<4>(xf, wf, bf, gf, sn, so, sh, sw, dxf, batch, h, wd, warps, blocks,
-                              smem, rows, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    return dispatch_dx_c<float>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, c, warps, blocks,
+                                smem, rows, stream);
   }
+  if (dtype == 1) {
+    return dispatch_dx_c<__nv_bfloat16>(x, w, b, g, sn, so, sh, sw, dx, batch, h, wd, c, warps,
+                                        blocks, smem, rows, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

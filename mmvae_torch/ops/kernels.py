@@ -186,7 +186,7 @@ _SIGNATURES = {
                                 _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
                                 _ptr],
         "conv4x4s2_swish_dx": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr, _i32,
-                               _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+                               _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
@@ -262,8 +262,8 @@ def _library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-# The types the kernels read data in (K2's and its VJP's targets, the image
-# of K4's backward), and the code each C interface takes for it.
+# The types the row kernels read data in (K2's and its VJP's targets), and
+# the code each C interface takes for it.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -950,8 +950,10 @@ def conv4x4s2_swish_kernel(
     4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors, of one
     dtype, float32 or bfloat16, or a bfloat16 ``x`` with float32 weight
     and bias. Returns ``(B, 32, ceil(H/2), ceil(W/2))`` NCHW in the
-    weight's dtype, accumulated in f32. ``plan`` overrides
-    :func:`conv_plan` of the shape and the card.
+    weight's dtype, accumulated in f32 (all bf16: the conv, the bias add,
+    the sigmoid and the product each rounded to bf16, as Flax's bf16 conv
+    and swish round). ``plan`` overrides :func:`conv_plan` of the shape and
+    the card.
     """
     dtypes = (x.dtype, weight.dtype)
     if dtypes not in _CONV_DTYPES or bias.dtype != weight.dtype:
@@ -995,13 +997,18 @@ def conv4x4s2_swish_torch(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv4x4s2_swish_kernel` (any output
     channels): SAME pad, ``F.conv2d`` at stride 2 and swish in f32, cast
-    to the type ``x`` and ``weight`` promote to."""
+    to the type ``x`` and ``weight`` promote to. All bf16, in Flax's order
+    with each op rounded to bf16, as the kernel rounds: the conv (summed in
+    f32), then the bias add, the sigmoid and the product."""
     h = x.permute(0, 3, 1, 2).to(torch.float32)
-    y = F.conv2d(
-        F.pad(h, same_pad(h.shape[-2:])), weight.to(torch.float32),
-        bias.to(torch.float32), stride=2,
-    )
-    return (y * torch.sigmoid(y)).to(torch.promote_types(x.dtype, weight.dtype))
+    out_dtype = torch.promote_types(x.dtype, weight.dtype)
+    pad = same_pad(h.shape[-2:])
+    if out_dtype == torch.bfloat16:
+        y = F.conv2d(F.pad(h, pad), weight.to(torch.float32), stride=2).to(out_dtype)
+        y = y + bias.to(out_dtype)[:, None, None]
+        return y * torch.sigmoid(y)
+    y = F.conv2d(F.pad(h, pad), weight.to(torch.float32), bias.to(torch.float32), stride=2)
+    return (y * torch.sigmoid(y)).to(out_dtype)
 
 
 # The backward of K4 walks tiles of CONV_TILE_W output pixels by ``rows``
@@ -1078,19 +1085,24 @@ def conv_bwd_plan(
 
 def _check_conv_grad(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
-    x_dtypes: tuple[torch.dtype, ...] = (torch.float32,),
-) -> None:
+    codes: tuple[int, ...] = (0, 1, 2),
+) -> int:
     """The arguments K4's backward kernels take: CUDA tensors on one
-    device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4 of a type in
-    ``x_dtypes``, float32 ``weight`` and ``bias`` of its shapes, all
-    contiguous, and a float32 ``g`` (any strides) of the output's shape."""
+    device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4, ``weight`` and ``bias``
+    of its shapes, all contiguous, and ``g`` (any strides) of the output's
+    shape, in the forward's types (:data:`_CONV_DTYPES`) whose code is in
+    ``codes``: ``bias`` and ``g`` in the weight's type. Returns the code."""
+    code = _CONV_DTYPES.get((x.dtype, weight.dtype))
+    if code not in codes or bias.dtype != weight.dtype or g.dtype != weight.dtype:
+        allowed = ", ".join(f"{a} x with {w} weight" for (a, w), c in _CONV_DTYPES.items()
+                            if c in codes)
+        raise TypeError(
+            f"x, weight, bias and g must be one of: {allowed} (bias and g in the weight's "
+            f"type), got {x.dtype}, {weight.dtype}, {bias.dtype}, {g.dtype}"
+        )
     for name, t in (("x", x), ("weight", weight), ("bias", bias), ("g", g)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        allowed = x_dtypes if name == "x" else (torch.float32,)
-        if t.dtype not in allowed:
-            names = " or ".join(str(d).removeprefix("torch.") for d in allowed)
-            raise TypeError(f"{name} must be {names}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if name != "g" and not t.is_contiguous():
@@ -1108,6 +1120,7 @@ def _check_conv_grad(
         raise ValueError(f"g is {tuple(g.shape)}, not the output's {out_shape}")
     if max(x.shape) >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
+    return code
 
 
 def conv4x4s2_swish_grad_kernel(
@@ -1117,16 +1130,18 @@ def conv4x4s2_swish_grad_kernel(
     """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
     weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
     ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
-    ceil(W/2))``. ``pre = conv + bias`` is recomputed from ``x`` (float32,
-    or bfloat16, which the kernel upcasts as it stages it), ``weight`` and
-    ``bias`` (float32); ``g`` may be any strided float32 view. The sums over
-    ``B x ceil(H/2) x ceil(W/2)`` are taken in a fixed order (no atomics):
-    the same plan gives the same bits. ``plan`` overrides
+    ceil(W/2))``, in the forward's types: all float32, all bfloat16, or a
+    bfloat16 ``x`` with the rest float32 (``bias`` and ``g`` always in the
+    weight's type). ``pre = conv + bias`` is recomputed in f32 from the
+    operands, which the kernel upcasts on load; ``g`` may be any strided
+    view. ``dW`` and ``db`` come in the weight's type, rounded once from
+    f32 sums over ``B x ceil(H/2) x ceil(W/2)``, taken in a fixed order (no
+    atomics): the same plan gives the same bits. ``plan`` overrides
     :func:`conv_bwd_plan`."""
-    _check_conv_grad(x, weight, bias, g, (torch.float32, torch.bfloat16))
+    code = _check_conv_grad(x, weight, bias, g)
     b, h, w, c = x.shape
-    d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=torch.float32, device=x.device)
-    d_b = torch.empty(CONV_OUT, dtype=torch.float32, device=x.device)
+    d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=weight.dtype, device=x.device)
+    d_b = torch.empty(CONV_OUT, dtype=weight.dtype, device=x.device)
     if g.numel() == 0:
         return d_w.zero_(), d_b.zero_()
     plan = plan or conv_bwd_plan(b, h, w, c, _sm_count(x.device.index or 0))
@@ -1134,7 +1149,7 @@ def conv4x4s2_swish_grad_kernel(
     _launch(
         "conv_s2", "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), g.data_ptr(), *g.stride(), ws.data_ptr(), d_w.data_ptr(),
-        d_b.data_ptr(), b, h, w, c, _DTYPE_CODES[x.dtype], *plan,
+        d_b.data_ptr(), b, h, w, c, code, *plan,
     )
     LAUNCHES["conv_bwd"] += 1
     return d_w, d_b
@@ -1145,7 +1160,8 @@ def _conv_bwd_terms(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The padded NCHW input, its 4 x 4 / 2 patches ``(B, 16 C, L)`` (in
     ``(c, ky, kx)`` order, as ``weight`` flattens) and ``g * swish'(pre)``
-    ``(B, F, L)``, all float32, ``L`` the output pixels."""
+    ``(B, F, L)``, all float32 (from any operand types), ``L`` the output
+    pixels."""
     h = x.permute(0, 3, 1, 2).to(torch.float32)
     padded = F.pad(h, same_pad(h.shape[-2:]))
     patches = F.unfold(padded, 4, stride=2)
@@ -1163,10 +1179,10 @@ def conv4x4s2_swish_grad_torch(
     output channels), with explicit tensor ops: the SAME-padded patches,
     ``pre`` from them, ``s = g * swish'(pre)`` with ``swish'(u) = sig(u)
     (1 + u (1 - sig(u)))``, ``dW = s . patches`` and ``db = sum(s)``, in
-    float32."""
+    float32, then in the weight's type."""
     _, patches, s = _conv_bwd_terms(x, weight, bias, g)
     d_w = torch.einsum("bol,bkl->ok", s, patches).reshape(weight.shape)
-    return d_w, s.sum((0, 2))
+    return d_w.to(weight.dtype), s.sum((0, 2)).to(weight.dtype)
 
 
 # K4's input gradient walks tiles of ``rows`` output rows by CONV_TILE_W
@@ -1256,12 +1272,13 @@ def conv4x4s2_swish_input_grad_kernel(
 ) -> torch.Tensor:
     """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its image,
     on the card: dx ``(B, H, W, C)`` NHWC for the upstream gradient ``g``
-    ``(B, 32, ceil(H/2), ceil(W/2))`` (any strided float32 view), ``pre``
-    recomputed from ``x``, ``weight`` and ``bias`` (float32, as
-    :func:`conv4x4s2_swish_grad_kernel` takes them). Each entry sums its
-    covering taps in a fixed order (no atomics): two calls give the same
-    bits, whatever the plan. ``plan`` overrides :func:`conv_dx_plan`."""
-    _check_conv_grad(x, weight, bias, g)
+    ``(B, 32, ceil(H/2), ceil(W/2))`` (any strided view), ``pre``
+    recomputed from ``x``, ``weight`` and ``bias``: all float32, or all
+    bfloat16 (``g`` too, and dx then bfloat16, computed in f32 and rounded
+    once). Each entry sums its covering taps in a fixed order (no atomics):
+    two calls give the same bits, whatever the plan. ``plan`` overrides
+    :func:`conv_dx_plan`."""
+    code = _check_conv_grad(x, weight, bias, g, codes=(0, 1))
     b, h, w, c = x.shape
     d_x = torch.empty_like(x)
     if d_x.numel() == 0:
@@ -1269,7 +1286,7 @@ def conv4x4s2_swish_input_grad_kernel(
     plan = plan or conv_dx_plan(b, h, w, c, _sm_count(x.device.index or 0))
     _launch(
         "conv_s2", "conv4x4s2_swish_dx", x.device, x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c, *plan,
+        bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c, code, *plan,
     )
     LAUNCHES["conv_dx"] += 1
     return d_x

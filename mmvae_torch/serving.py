@@ -162,7 +162,7 @@ def export_generate(
     device: torch.device | str | None = None,
     sample_z: bool = False,
     platforms=PLATFORMS,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype | None = None,
     seed_mode: str = "per_row",
 ) -> str:
     """Export the generation program of ``config`` to ``out_path``; returns
@@ -179,15 +179,18 @@ def export_generate(
     ``(n,)`` array and each row independent of its batch position, which the
     host's request coalescing relies on; ``"scalar"`` takes one seed that
     the rows share. ``platforms`` names where the artifact may be served
-    (``"cuda"`` or ``"gpu"``, and ``"cpu"``); any other raises, and so does
-    a ``dtype`` other than float32.
+    (``"cuda"`` or ``"gpu"``, and ``"cpu"``); any other raises. ``dtype`` is
+    the experts' compute dtype, as in ``api.generate`` (None: the model's,
+    float32 for one built here; ``mmvae_tpu/serving.py:122``; a given
+    model keeps its own after the call): at bfloat16
+    the graph holds the casts to bf16 and back, and
+    ``mmvae::conv4x4s2_swish`` on bf16 operands; the inputs and outputs
+    keep their types.
     """
     from mmvae_torch import api
 
     if seed_mode not in ("per_row", "scalar"):
         raise ValueError(f"seed_mode must be per_row|scalar: {seed_mode}")
-    if dtype != torch.float32:
-        raise NotImplementedError(f"export at dtype {dtype} is not yet ported to mmvae_torch")
     platforms = _platforms(platforms)
     config, model, device = api._resolve(config, model, state_dict, device, workdir, which)
     per_row = seed_mode == "per_row"
@@ -206,7 +209,7 @@ def export_generate(
     if dynamic:
         n = torch.export.Dim("batch", min=1)
         dynamic_shapes = ({k: {0: n} for k in batch}, {0: n}, {0: n} if per_row else None, None)
-    with torch.no_grad():
+    with torch.no_grad(), model.at_dtype(dtype):
         exported = torch.export.export(program, args, dynamic_shapes=dynamic_shapes)
     blob = io.BytesIO()
     torch.export.save(exported, blob)

@@ -174,19 +174,20 @@ def _device_tensor(
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def _dequant_data(data: dict) -> dict:
+def _dequant_data(data: dict, dtype: torch.dtype = torch.float32) -> dict:
     """uint8 leaves of a batch (a ``data_dtype="uint8"`` train split:
-    quantized [0, 1] data, ``data/pipelines.py::quantize_uint8``) as f32 in
-    [0, 1], inside the step (``mmvae_tpu/train/step.py:127-152``), so the
-    epoch's gathers move uint8. A division by 255, not a product with its
-    reciprocal, so 255 gives exactly 1 and each value the f32 a division
-    gives; the divisor is a device tensor, because torch on the card takes
-    a CPU scalar divisor as a product with its reciprocal. Other leaves
-    stay as they are: bf16 meets the f32 model as Flax's ``promote_dtype``
-    meets it (``models/experts.py``), and goes to the BCE kernel and K4 as
-    it is."""
+    quantized [0, 1] data, ``data/pipelines.py::quantize_uint8``) in [0, 1]
+    in ``dtype``, the model's compute dtype, inside the step
+    (``mmvae_tpu/train/step.py:127-152``, ``:520``), so the epoch's gathers
+    move uint8. A division by 255 in ``dtype``, not a product with its
+    reciprocal, so 255 gives exactly 1 and each value what a division in
+    ``dtype`` gives; the divisor is a device tensor, because torch on the
+    card takes a CPU scalar divisor as a product with its reciprocal. Other
+    leaves stay as they are: bf16 meets an f32 model as Flax's
+    ``promote_dtype`` meets it (``models/experts.py``), and goes to the BCE
+    kernel and K4 as it is."""
     return {
-        k: v.to(torch.float32) / _device_tensor((255.0,), v.device, torch.float32)
+        k: v.to(dtype) / _device_tensor((255.0,), v.device, dtype)
         if v.dtype == torch.uint8 else v
         for k, v in data.items()
     }
@@ -490,7 +491,8 @@ def multi_term_loss(
         masks = torch.cat([masks, subset_masks.to(masks.dtype)])  # (T, M)
 
     presence = batch.get("presence")  # used as it is, never dequantized
-    data = _dequant_data({k: v for k, v in batch.items() if k != "presence"})
+    data = _dequant_data({k: v for k, v in batch.items() if k != "presence"},
+                         getattr(model, "dtype", torch.float32))
 
     mu_e, lv_e = model.encode(data)  # (B, M, L)
     # (T, B, L) posteriors under the masks times the presence, (T, B) KLs

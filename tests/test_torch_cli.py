@@ -238,8 +238,15 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
 def test_unported_train_options_raise(argv):
     """The flags of what the port does not have raise; the data flags
     (``--eval-segment-steps``, ``--data-dtype``, the grain backend and the
-    shuffle modes) are ported now and set their fields."""
+    shuffle modes) are ported now and set their fields, and ``--dtype
+    bfloat16`` is ported and parses as the JAX CLI parses it."""
     args = ["train", "--config", "mnist", "--device", "cpu", *argv]
+    if argv[0] == "--dtype":
+        parsed = _build_parser().parse_args(args)
+        _check_ported(parsed)
+        j_args = j_build_parser().parse_args(["train", "--config", "mnist", *argv])
+        assert parsed.dtype == j_args.dtype == "bfloat16"
+        return
     if argv[0] in _PORTED_DATA_FLAGS:
         field, value = _PORTED_DATA_FLAGS[argv[0]]
         parsed = _build_parser().parse_args(args)
@@ -297,9 +304,36 @@ def test_unported_config_file_fields_raise(tmp_path, fields):
     ["eval", "--config", "mnist", "--dtype", "bfloat16"],
     ["sample", "--config", "mnist", "--multihost"],
 ])
-def test_unported_commands_raise(cmd):
-    with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-        main([*cmd, "--device", "cpu"])
+def test_unported_commands_raise(cmd, workdir, capsys, tmp_path):
+    """``--multihost`` raises. ``--dtype bfloat16`` runs: ``eval`` of the
+    workdir prints the bf16 ELBO of ``api.eval_elbo(dtype=bf16)``, which is
+    not the f32 one; ``export`` writes an artifact of the bf16 program,
+    whose call equals ``api.generate(dtype=bf16)`` on the seeded init. The
+    JAX parser reads the same dtype from the same argv."""
+    if "--dtype" not in cmd:
+        with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
+            main([*cmd, "--device", "cpu"])
+        return
+    assert j_build_parser().parse_args(cmd).dtype == "bfloat16"
+    if cmd[0] == "eval":
+        assert main([*cmd, "--workdir", workdir, "--device", "cpu"]) == 0
+        out = _last_json(capsys)
+        want = api.eval_elbo("mnist", workdir=workdir, device="cpu", dtype=torch.bfloat16)
+        assert out["elbo"] == want != api.eval_elbo("mnist", workdir=workdir, device="cpu")
+        return
+    from mmvae_torch import serving
+
+    path = str(tmp_path / "x.bin")
+    assert main([cmd[0], "--config", "mnist", "--out", path, "--dtype", "bfloat16",
+                 "--n-latents", "8", "--device", "cpu"]) == 0
+    meta, call = serving.load_generate(path, device="cpu")
+    label = np.arange(8) % 10
+    batch = {"image": np.zeros((8, 28, 28), np.float32), "label": label}
+    got = call(batch, np.tile([0.0, 1.0], (8, 1)).astype(np.float32), temperature=0.0)
+    model = configs.build_model(configs.get_config("mnist").replace(n_latents=8), device="cpu")
+    want = api.generate("mnist", {"label": label}, model=model, device="cpu",
+                        temperature=0.0, dtype=torch.bfloat16)
+    torch.testing.assert_close(got["image"], want["image"], rtol=1e-6, atol=1e-6)
 
 
 def test_module_runs_and_refuses_the_card_when_there_is_none(tmp_path):

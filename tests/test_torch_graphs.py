@@ -58,12 +58,13 @@ def _batches(config, n_steps: int, bs: int, seed: int = 1) -> dict[str, torch.Te
 
 
 def _train(config, graph: bool, batches, epochs: int = 2, annealing_steps: int = 1000,
-           lr=None):
+           lr=None, dtype=torch.float32):
     """``epochs`` runs of an epoch runner over ``batches`` from the seeded
-    init: the state, each epoch's metrics and the launch counts. ``lr``
-    (a rate or a schedule) defaults to the config's rate; the state
-    accumulates ``config.accum_steps`` micro-steps an update."""
-    model = configs.build_model(config, seed=0)
+    init at the compute ``dtype``: the state, each epoch's metrics and the
+    launch counts. ``lr`` (a rate or a schedule) defaults to the config's
+    rate; the state accumulates ``config.accum_steps`` micro-steps an
+    update."""
+    model = configs.build_model(config, seed=0, dtype=dtype)
     state = create_train_state(model, config.learning_rate if lr is None else lr,
                                grad_clip=config.grad_clip, ema_decay=0.5,
                                accum_steps=config.accum_steps)
@@ -127,6 +128,31 @@ def test_celeba_graph_epoch_with_random_subsets_equals_eager_to_the_bit(cuda):
     for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters()):
         assert all(torch.equal(a, b) for a, b in zip(params(graph[0]), params(eager[0])))
     assert graph[2] == eager[2] and graph[2]["conv_bwd"] == 6 and graph[2]["conv"] == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["celeba", "cub"])
+def test_bf16_graph_epoch_equals_eager_to_the_bit(cuda, name):
+    """``celeba`` and ``cub`` at full width with bf16 experts (stage 0 in K4
+    at all-bf16, its backward kernel, and on CUB's cycle term its input
+    gradient, all at bf16) at batch 16: two epochs of 3 replays against
+    two of the eager loop on cuDNN's deterministic algorithms, every
+    metric, parameter and EMA parameter and the launch counts equal to the
+    bit; the parameters stay f32."""
+    config = configs.get_config(name)
+    torch.backends.cudnn.deterministic = True
+    batches = _batches(config, 3, 16)
+    graph, eager = (_train(config, g, batches, dtype=torch.bfloat16) for g in (True, False))
+    _assert_close_runs(graph, eager)
+    for mg, me in zip(graph[1], eager[1]):
+        assert all(torch.equal(mg[k], me[k]) for k in me)
+    for params in (lambda s: s.model.parameters(), lambda s: s.ema_model.parameters()):
+        assert all(torch.equal(a, b) for a, b in zip(params(graph[0]), params(eager[0])))
+    assert all(p.dtype == torch.float32 for p in graph[0].model.parameters())
+    assert graph[2] == eager[2]
+    per_step = {"celeba": (1, 1, 0), "cub": (2, 2, 1)}[name]
+    assert (graph[2]["conv"], graph[2]["conv_bwd"], graph[2]["conv_dx"]) == tuple(
+        6 * n for n in per_step)
 
 
 @pytest.mark.gpu

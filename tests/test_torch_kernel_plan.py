@@ -215,7 +215,7 @@ def test_conv_plan_spreads_small_batches(shape, warps, blocks):
 )
 def test_plans_fill_the_c_signatures(lib, fn, n_args, plan_type):
     """The wrapper passes its arguments, the code of its data's type where
-    it reads f32 or bf16 data (K2's and its VJP's targets, the image of
+    it reads f32 or bf16 data (K2's and its VJP's targets, the operands of
     K4's backward), the plan's fields and the stream: the ctypes signature
     has a slot for each, all ints."""
     sig = kernels._SIGNATURES[lib][fn]
@@ -330,11 +330,12 @@ def test_conv_bwd_workspace_is_a_function_of_shape_and_plan(shape):
 
 def test_conv_dx_signature_takes_the_gradient_strides_as_64_bits():
     """K4's input gradient reads its upstream gradient through four element
-    strides, int64 slots after the four input pointers, then dx, the shape
-    and the plan's warps, blocks, shared memory and rows as int32."""
+    strides, int64 slots after the four input pointers, then dx, the shape,
+    the code of its operands' type (f32 or all bf16) and the plan's warps,
+    blocks, shared memory and rows as int32."""
     sig = kernels._SIGNATURES["conv_s2"]["conv4x4s2_swish_dx"]
     assert sig[:4] == [kernels._ptr] * 4 and sig[4:8] == [kernels._i64] * 4
-    assert sig[8] == kernels._ptr and sig[9:-1] == [kernels._i32] * 8
+    assert sig[8] == kernels._ptr and sig[9:-1] == [kernels._i32] * 9
     assert list(kernels.ConvDxPlan._fields) == ["warps", "blocks", "smem", "rows"]
 
 

@@ -205,13 +205,11 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="g is"):
         kernels.conv4x4s2_swish_input_grad_kernel(img, cw, cb, cg[:, :, :3])
     with pytest.raises(TypeError):
-        kernels.conv4x4s2_swish_input_grad_kernel(img.bfloat16(), cw.bfloat16(),
-                                                  cb.bfloat16(), cg.bfloat16())
+        kernels.conv4x4s2_swish_input_grad_kernel(img.bfloat16(), cw, cb, cg)
     with pytest.raises(ValueError, match="g is"):
         kernels.conv4x4s2_swish_grad_kernel(img, cw, cb, cg[:, :, :3])
     with pytest.raises(TypeError):
-        kernels.conv4x4s2_swish_grad_kernel(img.bfloat16(), cw.bfloat16(), cb.bfloat16(),
-                                            cg.bfloat16())
+        kernels.conv4x4s2_swish_grad_kernel(img, cw.bfloat16(), cb.bfloat16(), cg.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.conv4x4s2_swish_grad_kernel(img.permute(0, 2, 1, 3), cw, cb, cg)
     with pytest.raises(ValueError, match="g must be"):
@@ -360,12 +358,16 @@ def test_conv_kernel_matches_plain(cuda, shape, dtype):
 
 
 def _conv_check(got, want, shape, dtype):
+    """All bf16: the kernel and its plain version round the conv (each
+    summed in f32 from the same bf16 operands), the bias add, the sigmoid
+    and the product to bf16, as Flax does, so they agree to one bf16 step
+    (2^-7 of the value at most) where their f32 sums straddle a rounding."""
     assert got.shape == want.shape == (shape[0], 32, -(-shape[1] // 2), -(-shape[2] // 2))
     assert got.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * 16 * shape[-1])
     else:
-        torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=0)
 
 
 @pytest.mark.gpu
@@ -522,6 +524,15 @@ def test_conv_grad_kernel_refuses_a_plan_it_cannot_run(cuda):
     assert kernels.LAUNCHES["conv_bwd"] == before
 
 
+def _conv_bf16_close(got, want, atol: float) -> None:
+    """A bf16 output of a K4 kernel against its plain version: both sum in
+    f32 from the same bf16 operands (in another order, ``atol`` as in f32)
+    and round once to bf16, so they may land one bf16 step apart (2^-7 of
+    the value at most)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=atol)
+
+
 def _conv_dx_close(got, want) -> None:
     """dx against its plain version: each entry sums 4 taps x 32 channels
     of g * swish'(pre) * w (each below 1 in size here), so atol 1e-6 a
@@ -576,6 +587,38 @@ def test_conv_dx_kernel_strided_and_transposed_g_and_other_plans(cuda, shape, pl
         assert not view.is_contiguous()
         got = kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, view, plan=plan)
         _conv_dx_close(got, kernels.conv4x4s2_swish_input_grad_torch(x, w, b, view))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (64, 64, 64, 3),  # the CelebA and CUB train batch
+        (3, 33, 31, 3),  # odd H and W
+        (6, 32, 40, 1), (6, 32, 40, 2), (6, 32, 40, 3), (6, 32, 40, 4),  # every C
+    ],
+)
+def test_conv_bwd_and_dx_kernels_all_bf16_match_plain(cuda, shape):
+    """A bf16 model's stage 0: K4's backward (dW, db) and its input gradient
+    from a bf16 image, weight, bias and upstream gradient, each in bf16,
+    against the plain versions on the same operands (``_conv_bf16_close``);
+    a strided upstream gradient too; two launches of each give the same
+    bits."""
+    gen = torch.Generator().manual_seed(67)
+    x, w, b, g = (t.bfloat16() for t in _conv_grad_inputs(gen, shape, cuda, strided=True))
+    n_terms = shape[0] * -(-shape[1] // 2) * -(-shape[2] // 2)
+    for view in (g, g.contiguous()):
+        got = kernels.conv4x4s2_swish_grad_kernel(x, w, b, view)
+        want = kernels.conv4x4s2_swish_grad_torch(x, w, b, view)
+        for a, c in zip(got, want):
+            _conv_bf16_close(a, c, 1e-6 * n_terms)
+        again = kernels.conv4x4s2_swish_grad_kernel(x, w, b, view)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        dx = kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, view)
+        assert dx.shape == shape
+        _conv_bf16_close(dx, kernels.conv4x4s2_swish_input_grad_torch(x, w, b, view),
+                         1e-6 * 4 * 32)
+        assert torch.equal(dx, kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, view))
 
 
 @pytest.mark.gpu
@@ -1636,8 +1679,9 @@ def test_conv_grad_kernel_bf16_other_plans(cuda, plan):
 
 @pytest.mark.gpu
 def test_conv_kernels_refuse_other_bf16_mixes(cuda):
-    """K4's input gradient stays f32; K4 takes no f32 image with bf16
-    weights; K4's backward takes no bf16 weights or upstream gradient."""
+    """K4's input gradient takes no bf16 image with f32 weights; K4 takes no
+    f32 image with bf16 weights; K4's backward takes no upstream gradient or
+    bias in another type than the weight's."""
     x, w, b, g = _conv_grad_inputs(torch.Generator().manual_seed(66), (2, 8, 8, 3), cuda)
     before = dict(kernels.LAUNCHES)
     with pytest.raises(TypeError):

@@ -7,7 +7,8 @@ weights (``convert.from_flax_params``): MNIST under mvae, mopoe and
 mvtcae, MultiMNIST with its tokens, and a narrow CelebA conditioned on the
 stacked ``attrs`` and on one ``attr_i``. Tolerance rtol 2e-4 (XLA-CPU
 transcendentals are approximate, docs/DESIGN.md section 7); labels and
-tokens equal. Beside them: the mvae fusion through ``ops.poe_kl`` against
+tokens equal; the CelebA artifact with bf16 experts against the JAX program
+at bf16. Beside them: the mvae fusion through ``ops.poe_kl`` against
 the JAX ``product_of_experts``, and ``torch.library.opcheck`` of the two
 ``mmvae`` ops on the CPU.
 """
@@ -135,6 +136,45 @@ def test_artifact_matches_jax_generate(models, artifacts, case):
             np.testing.assert_allclose(got[k].numpy(), w, rtol=RTOL, atol=1e-5, err_msg=k)
         else:
             np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+
+
+def test_bf16_artifact_matches_jax_generate_at_bf16(models, tmp_path):
+    """The narrow CelebA with bf16 experts (stage 0 the ``mmvae`` conv op on
+    bf16 operands) exported on the CPU, conditioned on the stacked
+    ``attrs``, against the JAX program of the same model at
+    ``dtype=jnp.bfloat16`` under ``jax.jit``: the probabilities within 2^-5
+    of their largest (``tests/test_torch_bf16.py``'s tolerance: a bf16 step
+    or two) and, the two outputs together, nearer it than the JAX program
+    at f32 (the sum of their mean distances relative to their largest)."""
+    jm, params, tm, data = models["celeba"]
+    model = CelebAMVAE(n_latents=N_LATENTS, **CELEBA, dtype=torch.bfloat16)
+    model.load_state_dict(tm.state_dict())
+    cfg = configs.get_config("celeba").replace(n_latents=N_LATENTS)
+    path = str(tmp_path / "celeba_bf16.mmvaept")
+    serving.export_generate(cfg, path, batch_size=B, model=model, device="cpu",
+                            dtype=torch.bfloat16)
+    meta, call = serving.load_generate(path, device="cpu")
+    convs = [n for n in call.exported.graph.nodes
+             if str(n.target) == "mmvae.conv4x4s2_swish.default"]
+    assert convs and all(a.meta["val"].dtype == torch.bfloat16 for a in convs[0].args)
+    presence = _presence(meta, ["attrs"])
+    seeds = np.arange(B, dtype=np.int32)
+    got = call(data, presence, seed=seeds, temperature=0.0)
+    want = {}
+    for dtype in (jnp.bfloat16, jnp.float32):
+        jmodel = JCelebAMVAE(n_latents=N_LATENTS, **CELEBA, dtype=dtype)
+        fn = jax.jit(jserving.make_generate_fn(jmodel, params, per_row_seed=True))
+        want[dtype] = fn(_jbatch(data), jnp.asarray(presence), jnp.asarray(seeds),
+                         jnp.float32(0.0))
+    d16 = d32 = 0.0
+    for k in ("image", "attrs"):
+        w16, w32 = (np.asarray(want[d][k], np.float64) for d in (jnp.bfloat16, jnp.float32))
+        g, scale = got[k].numpy().astype(np.float64), np.abs(w16).max()
+        assert got[k].dtype == torch.float32
+        np.testing.assert_allclose(g, w16, rtol=0, atol=2.0**-5 * scale, err_msg=k)
+        d16 += np.abs(g - w16).mean() / scale
+        d32 += np.abs(g - w32).mean() / scale
+    assert d16 < d32, (d16, d32)
 
 
 def test_graph_holds_the_mmvae_ops(artifacts):

@@ -3,8 +3,8 @@
 The artifact's structure (``mmvae_torch/serving.py``): the header read
 without deserializing the program, a wrong magic refused, a fresh process
 that imports only ``mmvae_torch.serving`` loading and calling it, a
-dynamic batch serving 1 and 5 rows, the platforms and dtypes refused, and
-the card asked for by default. The draws (``mmvae_torch/core/rowrng.py``):
+dynamic batch serving 1 and 5 rows, the platforms refused, a bf16 export
+equal to ``api.generate(dtype=bf16)``, and the card asked for by default. The draws (``mmvae_torch/core/rowrng.py``):
 Philox-4x32-10 against Random123's known answers and a pure-Python
 Philox, a row's outputs independent of its batch position, a scalar seed
 expanding to ``seed + arange(n)``, and tokens drawn at a temperature
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from mmvae_torch import configs, serving
+from mmvae_torch import api, configs, serving
 from mmvae_torch.core import rowrng
 from mmvae_torch.core.rowrng import RowRng
 
@@ -88,12 +88,33 @@ def test_loading_asks_for_the_card_unless_told_cpu(artifact, monkeypatch):
 
 
 def test_platforms_and_dtypes_the_port_cannot_serve_raise(mnist, tmp_path):
+    """A platform the port cannot serve raises. bf16 experts export: the
+    graph holds the casts to bf16, the inputs and outputs keep their types,
+    and at temperature 0 the artifact on the CPU gives what
+    ``api.generate(dtype=bf16)`` gives to rel 1e-6 (the same ops on the same
+    inputs; ``tests/test_torch_serving.py`` holds it against the JAX program
+    at bf16)."""
     path = str(tmp_path / "x.mmvaept")
     with pytest.raises(ValueError, match="cannot be served"):
         serving.export_generate(MNIST, path, model=mnist, device="cpu", platforms=("tpu",))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.export_generate(MNIST, path, model=mnist, device="cpu", dtype=torch.bfloat16)
     assert serving._platforms(("gpu", "cpu", "cuda")) == ["cuda", "cpu"]
+    model = configs.build_model(MNIST, seed=0, device="cpu")
+    serving.export_generate(MNIST, path, batch_size=B, model=model, device="cpu",
+                            dtype=torch.bfloat16)
+    assert model.dtype == torch.float32  # the dtype held for the call alone
+    meta, call = serving.load_generate(path, device="cpu")
+    assert meta["batch_shapes"]["image"][1] == "float32"
+    casts = [n for n in call.exported.graph.nodes
+             if n.op == "call_function" and n.kwargs.get("dtype") == torch.bfloat16]
+    assert casts
+    batch, presence = _inputs(meta, B)
+    want = api.generate(MNIST, {"image": batch["image"]}, model=model, device="cpu",
+                        temperature=0.0, dtype=torch.bfloat16)
+    presence[:] = [1.0, 0.0]
+    got = call(batch, presence, temperature=0.0)
+    assert got["image"].dtype == torch.float32
+    torch.testing.assert_close(got["image"], want["image"], rtol=1e-6, atol=1e-6)
+    assert torch.equal(got["label"], want["label"])
 
 
 def test_a_fresh_process_loads_it_with_serving_alone(artifact):
