@@ -270,6 +270,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      experts, exported by a process of its own meanwhile: its ops, one
      call's launches, against ``api.generate(dtype=bf16)`` (rel 1e-6) and
      against itself on the CPU under the same gates;
+   - ``dp`` (data parallelism): 20 ``celeba`` steps of 64 under the "b"
+     fold on the graph runner, launching K2's VJP at its map over
+     examples of 18 attribute rows (``bce_rows_grad_inner``) 20 times
+     with the other counts of ``EXPECTED_LAUNCHES["celeba_b_train"]``,
+     timed against the "t" fold in turns with the ``(T, B, L) -> (B, T,
+     L)`` copy of its posteriors alone, and three steps of the card
+     against the CPU under the "b" fold (the "t" gate's noise in the fold's
+     layout, the tails fed); a one-rank NCCL group, 5 ``mnist`` and
+     ``celeba`` steps under "st" with the all-reduce in each: the graph
+     runner (the collective captured) equal to the eager loop to the bit,
+     and the eager loop given the noise ``(B, T, L)`` equal to the
+     single-process "t" loop given it as ``(T, B, L)`` to the bit, on
+     deterministic algorithms, then each step's wall on the mesh against
+     the single-process one in turns; two processes on the one card over
+     gloo's CUDA all-reduce (NCCL refuses two ranks on a device), started
+     with torchrun's variables: 3 ``mnist`` and ``celeba`` steps (the
+     loss against world 1 at rel 1e-4, the parameters within rtol 2e-3 and
+     atol 1e-5), ``eval_elbo`` and ``log_likelihood`` with the mesh on a
+     333-example split (rel 1e-5), and one ``mnist`` epoch through
+     ``python -m mmvae_torch.cli train --multihost`` (its history against
+     world 1's at rel 1e-4; rank 1 writes nothing); with two cards or
+     more the same world-2 runs on NCCL across cards;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -333,10 +355,12 @@ from mmvae_torch.core import component_masks, elbo_subset_masks
 from mmvae_torch.data import Dataset, load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
+from mmvae_torch.parallel import make_mesh, multihost, shard_batch
 from mmvae_torch.train import (
     create_train_state,
     make_epoch_runner,
     make_eval_runner,
+    make_gather_epoch_runner,
     make_iwae_runner,
     make_train_step,
     multi_term_loss,
@@ -375,14 +399,16 @@ PEAK_TF32_OPS_PER_S = 495e12
 # and precision shares (3 products, a subtract, a subtract, 2 adds); per
 # output the total's prior add, K1's VJP (a product, an add; an exp, a
 # subtract, 2 products, an add) and 2 divides.
-OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5, "seq_ce_bwd": 9}
+OPS_PER_ELEM = {"kl": 5, "bce": 7, "seq_ce": 4, "kl_bwd": 5, "bce_bwd": 5, "bce_bwd_inner": 5,
+                "seq_ce_bwd": 9}
 CONV_OPS_PER_OUT = 5
 CONV_BWD_OPS_PER_OUT = 9
 POE_OPS = {"expert": 4, "term_expert": 4, "out": 9}
 POE_BWD_OPS = {"expert": 7, "term_expert": 9, "out": 11}
-OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd",
-       "conv_bwd", "conv_dx")
-BWD_OPS = ("kl_bwd", "bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx")
+OPS = ("kl", "bce", "seq_ce", "conv", "poe_kl", "kl_bwd", "bce_bwd", "bce_bwd_inner",
+       "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx")
+BWD_OPS = ("kl_bwd", "bce_bwd", "bce_bwd_inner", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd",
+           "conv_dx")
 CONFIGS = ("mnist", "fashionmnist", "multimnist", "celeba", "cub")
 MIXTURE_OBJECTIVES = ("mmvae", "mopoe", "mvtcae")
 # The evals of the mixture paths that are timed beside the configs' own.
@@ -434,6 +460,14 @@ META = {
         "route": "cuda",
         "source": "mmvae_torch/ops/csrc/row_reduce.cu",
         "replaces": "mmvae_tpu/ops/kernels.py:312",
+    },
+    "bce_bwd_inner": {
+        "name": "bce_rows_grad_inner",
+        "route": "cuda",
+        "source": "mmvae_torch/ops/csrc/row_reduce.cu",
+        "replaces": "mmvae_tpu/ops/kernels.py:312",
+        "note": "K2's VJP at its b-major map over examples of several rows (CelebA's 18 "
+                "attribute rows under the \"b\" fold)",
     },
     "seq_ce_bwd": {
         "name": "seq_ce_rows_grad",
@@ -580,6 +614,15 @@ TIMED_SHAPES = {
                 "mnist_train_bf16": (200, 784, 100, kernels.FOLD_T, torch.bfloat16),
                 "celeba_train_image_bf16": (384, 12288, 64, kernels.FOLD_T, torch.bfloat16),
                 "celeba_train_attrs_bf16": (26496, 1, 1152, kernels.FOLD_T, torch.bfloat16)},
+    # K2's VJP at the map over examples of 18 attribute rows: CelebA's
+    # train step under the "b" fold (64 examples, the attributes' 23 member
+    # terms), one rank's 32 examples at world 2, CelebA mopoe's 20 terms,
+    # and the train step on bf16 targets.
+    "bce_bwd_inner": {"celeba_b_train_attrs": (26496, 1, 1152, kernels.FOLD_B, 18),
+                      "celeba_b_world2_attrs": (13248, 1, 576, kernels.FOLD_B, 18),
+                      "celeba_b_mopoe_attrs": (23040, 1, 1152, kernels.FOLD_B, 18),
+                      "celeba_b_train_attrs_bf16": (26496, 1, 1152, kernels.FOLD_B, 18,
+                                                    torch.bfloat16)},
     "seq_ce_bwd": {"multimnist_train": (300, 5, 13), "multimnist_cycle": (100, 5, 13),
                    "cub_train": (192, 32, 23), "cub_cycle": (64, 32, 23),
                    "cub_synthetic": (4096, 32, 23), "large": (2048, 8, 5003),
@@ -715,6 +758,18 @@ CHECKED_SHAPES = {
             (26496, 1, 1152, kernels.FOLD_T), (36, 1002, 18, kernels.FOLD_B),
             (192, 12288, 64, kernels.FOLD_T))),
     ],
+    # K2's VJP at the map over examples of several rows: the timed shapes,
+    # a ragged example of 5 rows (k = 7), rows of D = 7 (off the float4
+    # width), examples wider than a block (300 rows), one example of two
+    # rows, and bf16 targets at CelebA's shape, ragged and at D = 7.
+    "bce_bwd_inner": [
+        (26496, 1, 1152, kernels.FOLD_B, 18), (13248, 1, 576, kernels.FOLD_B, 18),
+        (23040, 1, 1152, kernels.FOLD_B, 18), (175, 1, 25, kernels.FOLD_B, 5),
+        (60, 7, 20, kernels.FOLD_B, 5), (1800, 1, 900, kernels.FOLD_B, 300),
+        (2, 1, 2, kernels.FOLD_B, 2),
+        *((*shape, torch.bfloat16) for shape in (
+            (26496, 1, 1152, kernels.FOLD_B, 18), (175, 1, 25, kernels.FOLD_B, 5),
+            (60, 7, 20, kernels.FOLD_B, 5)))],
     # MultiMNIST's train shapes (the decode-all pass, a cycle re-read)
     # with pad runs; the synthetic CUB vocabulary; a large odd vocabulary;
     # S above the tokens a block runs at once; V just below a warp; a last
@@ -774,6 +829,7 @@ REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image
             "conv": (_MOPOE, "celeba_eval"), "poe_kl": (_MOPOE, "celeba_eval"),
             "kl_bwd": ("mnist_train", "mnist_train"),
             "bce_bwd": (_MOPOE, "celeba_mopoe_image"),
+            "bce_bwd_inner": ("celeba_b_train", "celeba_b_train_attrs"),
             "seq_ce_bwd": ("multimnist_knobs_train", "multimnist_train"),
             "poe_kl_bwd": (_MOPOE, "celeba_eval"), "conv_bwd": (_MOPOE, "celeba_train"),
             "conv_dx": ("cub_train", "cub_train"),
@@ -785,8 +841,8 @@ REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image
 # forward, backward and input gradient on all-bf16 operands apart.
 ENTRIES = {**{op: op for op in OPS}, "conv_bf16": "conv", "conv_bwd_bf16": "conv_bwd",
            "conv_dx_bf16": "conv_dx"}
-_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
-           "conv_dx": 0}
+_NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "bce_bwd_inner": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0,
+           "conv_bwd": 0, "conv_dx": 0}
 EXPECTED_LAUNCHES = {
     # 20 eval batches, each the fused PoE + KL and K2 once; the fused PoE +
     # KL once per generate or sample call (the mvae fusion).
@@ -955,11 +1011,23 @@ EXPECTED_LAUNCHES = {
                                "seq_ce_bwd": 0, "poe_kl_bwd": 100 * n, "conv_bwd": 0,
                                "conv_dx": 0}
        for kind, n in (("grain", 3), ("shuffle", 5))},
+    # ``dp``: 20 CelebA steps of 64 under the "b" fold, each the
+    # fused PoE + KL once, K2 twice (the image's 6 member terms b-major, the
+    # attributes' 23 through the map over examples of 18 rows) and K4 once,
+    # and each one's backward: the image's through bce_rows_grad, the
+    # attributes' through bce_rows_grad_inner. No eval.
+    "celeba_b_train": {"kl": 0, "bce": 40, "seq_ce": 0, "conv": 20, "poe_kl": 20,
+                       "kl_bwd": 0, "bce_bwd": 20, "bce_bwd_inner": 20, "seq_ce_bwd": 0,
+                       "poe_kl_bwd": 20, "conv_bwd": 20, "conv_dx": 0},
 }
+# K2's VJP at the map over examples of several rows runs on the "b" fold's
+# CelebA step alone: every other path launches it no time.
+for _expected in EXPECTED_LAUNCHES.values():
+    _expected.setdefault("bce_bwd_inner", 0)
 # Names of the hand-written kernels' __global__ functions, to find them
 # in a profile.
 PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_thread_rows_kernel",
-                "bce_inner_rows_kernel",
+                "bce_inner_rows_kernel", "bce_inner_grad_rows_kernel",
                 "seq_ce_tokens_kernel", "conv_s2_tiles_kernel", "poe_kl_kernel",
                 "kl_rows_grad_kernel", "bce_rows_grad_kernel", "seq_ce_grad_kernel",
                 "seq_ce_grad_staged_kernel", "seq_ce_grad_warp_kernel", "poe_kl_bwd_kernel",
@@ -969,6 +1037,7 @@ PORT_KERNELS = ("kl_rows_kernel", "bce_rows_kernel", "bce_split_kernel", "bce_th
 # count follows the first).
 KERNEL_OP = {"kl_rows_kernel": "kl", "bce_rows_kernel": "bce", "bce_split_kernel": "bce",
              "bce_thread_rows_kernel": "bce", "bce_inner_rows_kernel": "bce",
+             "bce_inner_grad_rows_kernel": "bce_bwd_inner",
              "seq_ce_tokens_kernel": "seq_ce",
              "conv_s2_tiles_kernel": "conv", "poe_kl_kernel": "poe_kl",
              "kl_rows_grad_kernel": "kl_bwd", "bce_rows_grad_kernel": "bce_bwd",
@@ -1027,7 +1096,7 @@ def describe(op: str, shape) -> dict:
     inner = [f for f in shape[4:] if isinstance(f, int)]
     if inner:
         out["inner"] = inner[0]
-    if op in ("bce", "bce_bwd"):
+    if op in ("bce", "bce_bwd", "bce_bwd_inner"):
         out["dtype"] = str(data_dtype(shape)).removeprefix("torch.")
     return out
 
@@ -1071,9 +1140,9 @@ def inputs(op: str, shape, gen: torch.Generator):
         return (x, weight, bias, g)
     if op == "kl_bwd":
         return (*inputs("kl", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
-    if op == "bce_bwd":
-        logits, x, fold = inputs("bce", shape, gen)
-        return (logits, x, torch.randn(shape[0], generator=gen, device=dev), fold)
+    if op in ("bce_bwd", "bce_bwd_inner"):
+        logits, x, fold, *inner = inputs("bce", shape, gen)
+        return (logits, x, torch.randn(shape[0], generator=gen, device=dev), fold, *inner)
     if op == "seq_ce_bwd":
         return (*inputs("seq_ce", shape, gen), torch.randn(shape[0], generator=gen, device=dev))
     if op == "poe_kl_bwd":
@@ -1166,10 +1235,16 @@ def bce_kernel(logits, x, fold, inner=1):
     return kernels.bernoulli_nll_kernel(logits, x, fold, inner=inner)
 
 
+def bce_grad_inner_kernel(logits, x, g, fold, inner):
+    """K2's VJP at the map over examples of ``inner`` rows, as ``inputs``
+    gives its arguments."""
+    return kernels.bce_rows_grad_kernel(logits, x, g, fold, inner=inner)
+
+
 KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": bce_kernel,
              "seq_ce": kernels.masked_seq_ce_kernel, "conv": kernels.conv4x4s2_swish_kernel,
              "poe_kl": kernels.poe_kl_kernel, "kl_bwd": kernels.kl_rows_grad_kernel,
-             "bce_bwd": kernels.bce_rows_grad_kernel,
+             "bce_bwd": kernels.bce_rows_grad_kernel, "bce_bwd_inner": bce_grad_inner_kernel,
              "seq_ce_bwd": kernels.masked_seq_ce_grad_kernel,
              "poe_kl_bwd": kernels.poe_kl_grad_kernel,
              "conv_bwd": kernels.conv4x4s2_swish_grad_kernel,
@@ -1177,7 +1252,7 @@ KERNEL_FN = {"kl": kernels.kl_std_normal_kernel, "bce": bce_kernel,
 PLAIN_FN = {"kl": kernels.kl_std_normal_torch, "bce": kernels.bernoulli_nll_torch,
             "seq_ce": kernels.masked_seq_ce_torch, "conv": kernels.conv4x4s2_swish_torch,
             "poe_kl": kernels.poe_kl_torch, "kl_bwd": kernels.kl_rows_grad_torch,
-            "bce_bwd": kernels.bce_rows_grad_torch,
+            "bce_bwd": kernels.bce_rows_grad_torch, "bce_bwd_inner": kernels.bce_rows_grad_torch,
             "seq_ce_bwd": kernels.masked_seq_ce_grad_torch,
             "poe_kl_bwd": kernels.poe_kl_grad_torch,
             "conv_bwd": kernels.conv4x4s2_swish_grad_torch,
@@ -1205,7 +1280,7 @@ def library_fn(op: str, args):
         x, weight, bias = args
         x_nchw = x.permute(0, 3, 1, 2).to(weight.dtype).contiguous()  # a bf16 image upcast
         return lambda: F.silu(F.conv2d(x_nchw, weight, bias, stride=2, padding=1))
-    if op in ("bce_bwd", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx"):
+    if op in ("bce_bwd", "bce_bwd_inner", "seq_ce_bwd", "poe_kl_bwd", "conv_bwd", "conv_dx"):
         return autograd_backward(op, args)
     return None
 
@@ -1216,10 +1291,11 @@ def autograd_backward(op: str, args):
     graph is kept). Autograd runs a backward op on its forward op's stream,
     so this runs on the stream that will run the call (``graph_ms`` makes
     it there)."""
-    if op == "bce_bwd":
-        logits, x, g, fold = args
+    if op in ("bce_bwd", "bce_bwd_inner"):
+        # The targets tiled first (at the inner map, example by example).
+        logits, x, g, fold, *inner = args
         leaves = (logits.detach().requires_grad_(True),)
-        tiled = kernels.tile_rows(x, logits.shape[0], fold).float()  # bf16 upcast
+        tiled = kernels.tile_rows(x, logits.shape[0], fold, *inner).float()  # bf16 upcast
         outs = (F.binary_cross_entropy_with_logits(leaves[0], tiled, reduction="none").sum(-1),)
         grads = (g,)
     elif op == "conv_bwd":
@@ -1268,7 +1344,7 @@ def tolerance(op: str, shape) -> tuple[float, float]:
     all-bf16 operands: rtol 2^-7 and atol 0, one bf16 step: both sides sum
     the conv in f32 and round it, the bias add, the sigmoid and the
     product to bf16, as Flax does."""
-    if op in ("kl_bwd", "bce_bwd", "seq_ce_bwd"):
+    if op in ("kl_bwd", "bce_bwd", "bce_bwd_inner", "seq_ce_bwd"):
         return 1e-5, 1e-6
     rtol = 2.0**-7 if "all_bf16" in shape[4:] else 1e-5
     if op == "conv_bwd":
@@ -1349,7 +1425,7 @@ def bound(op: str, args) -> tuple[float, str]:
         n_bytes = 4 * n_elems + tokens.numel() * tokens.element_size() + 4 * n
         if op == "seq_ce_bwd":
             n_bytes += 4 * logits.numel()
-    elif op in ("kl_bwd", "bce_bwd"):
+    elif op in ("kl_bwd", "bce_bwd", "bce_bwd_inner"):
         # The rows and their partner (lv or the untiled targets, f32 or
         # bf16) and the row gradients read, one (KL: two) (N, D) gradients
         # written.
@@ -1480,6 +1556,8 @@ def phase_check() -> dict[str, float]:
                 raise AssertionError("two launches of conv4x4s2_swish_bwd differ")
             if op == "conv_dx" and not torch.equal(got, KERNEL_FN[op](*args)):
                 raise AssertionError("two launches of conv4x4s2_swish_dx differ")
+            if op == "bce_bwd_inner" and not torch.equal(got, KERNEL_FN[op](*args)):
+                raise AssertionError("two launches of bce_rows_grad_inner differ")
             max_err[entry] = max(max_err.get(entry, 0.0), err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
@@ -2360,7 +2438,9 @@ TAIL_BELOW = 9 * ADAM_EPS
 TAIL_SLACK = 0.05
 
 
-def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = False) -> None:
+def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = False,
+                     term_fold: str = "t", path: str | None = None, draw: str | None = None,
+                     gate: bool = True) -> None:
     """``n_steps`` of ``cfg``'s step at full width and batch ``bs`` on the
     card (the graph runner, its kernels) and on the CPU (the eager loop)
     from the same seeded weights, batches, random subset masks (where the
@@ -2386,13 +2466,25 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     CPU's own count below TAIL_BELOW: a card gradient that comes out tiny
     where the CPU's is not (a zeroed or unwritten slice) fails that gate as
     well as the update gate. Reported: the counts each step and, ungated,
-    the reading without feeding."""
+    the reading without feeding.
+
+    ``term_fold`` is the steps' fold, ``draw`` the fold whose layout the
+    noise is drawn in (``(T, B, L)`` for "t", ``(B, T, L)`` for "b"; the
+    fold's own by default), handed over in the steps' layout, and ``path``
+    the label of the result line (``train_path(cfg)`` by default).
+    ``gate=False`` reads and reports without raising."""
+    path = path or train_path(cfg)
     n_mod, k = configs.build_model(cfg, seed=0, device="cpu").n_modalities, cfg.n_random_subsets
     batches = train_batches(n_steps, bs, "cpu", seed=2, config=cfg.dataset)
     gen = torch.Generator().manual_seed(3)
     if k:
         batches["subset_masks"] = (torch.rand((n_steps, k, n_mod), generator=gen) < 0.5).float()
-    batches["eps"] = torch.randn((n_steps, n_terms(cfg, n_mod), bs, cfg.n_latents), generator=gen)
+    t_major = (draw or term_fold) == "t"
+    eps = torch.randn((n_steps, *((n_terms(cfg, n_mod), bs) if t_major
+                                  else (bs, n_terms(cfg, n_mod))), cfg.n_latents), generator=gen)
+    if t_major != (term_fold == "t"):  # the same draws in the steps' layout
+        eps = eps.transpose(1, 2).contiguous()
+    batches["eps"] = eps
     init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
 
     def run(dev: str, graph: bool, record: list | None = None, fed: list | None = None,
@@ -2434,7 +2526,7 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
             state.apply_gradients = apply_gradients
             try:
                 runner = make_epoch_runner(model, graph=graph, annealing_steps=1000,
-                                           **api.step_options(cfg))
+                                           term_fold=term_fold, **api.step_options(cfg))
                 _, metrics = runner(state, {k: v.to(dev) for k, v in batches.items()})
             finally:
                 del state.apply_gradients
@@ -2446,12 +2538,12 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     if feed_tail:
         eager = run("cuda", graph=False, record=card_grads)
         graph_eager = compare_runs(card, eager, init)
-        emit({"phase": "train_graph_vs_eager", "config": cfg.name, "path": train_path(cfg),
+        emit({"phase": "train_graph_vs_eager", "config": cfg.name, "path": path,
               "steps": n_steps, "batch": bs, "cudnn": "deterministic algorithms, cuDNN and torch",
-              "gated": True, **graph_eager})
-        if not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
-                   graph_eager["param_rel_max"]) <= 1e-6:
-            raise AssertionError(f"{train_path(cfg)}: graph and eager steps differ: {graph_eager}")
+              "gated": gate, **graph_eager})
+        if gate and not max(max(graph_eager["loss_rel"]), max(graph_eager["grad_norm_rel"]),
+                            graph_eager["param_rel_max"]) <= 1e-6:
+            raise AssertionError(f"{path}: graph and eager steps differ: {graph_eager}")
         extra = {"tail_below": TAIL_BELOW,
                  "unfed_control": compare_runs(card, run("cpu", graph=False), init)}
     counts = []
@@ -2462,8 +2554,9 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
     update = (cpu[2][worst] - init[worst].detach()).abs().flatten()
     top = diff.argsort(descending=True)[: max(1, diff.numel() // 100)]
     conv0 = "image_enc.convs.0.weight"  # K4's weight on RGB: conv4x4s2_swish_bwd's gradient
-    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "path": train_path(cfg),
-          "steps": n_steps, "batch": bs,
+    emit({"phase": "train_card_vs_cpu", "config": cfg.name, "path": path,
+          "steps": n_steps, "batch": bs, "term_fold": term_fold, "draw": draw or term_fold,
+          "gated": gate,
           "card": "graph runner", "cpu": "eager loop", "loss_card": card[0], "loss_cpu": cpu[0],
           "grad_norm_card": card[1], "grad_norm_cpu": cpu[1], **gated, **extra,
           "tail_counts_per_step": counts,
@@ -2475,9 +2568,11 @@ def conv_card_vs_cpu(cfg, n_steps: int = 3, bs: int = 16, feed_tail: bool = Fals
               "top_1pct_share_of_squared_error": ((diff[top] ** 2).sum() / (diff ** 2).sum()).item(),
               "update_median_at_top_1pct": update[top].median().item(),
               "update_median": update.median().item()}})
+    if not gate:
+        return
     if not max(max(gated["loss_rel"]), max(gated["grad_norm_rel"]), gated["param_rel_max"],
                gated["update_rel_max"]) <= 1e-4:
-        raise AssertionError(f"{train_path(cfg)}: card and CPU differ: {gated}")
+        raise AssertionError(f"{path}: card and CPU differ: {gated}")
     for i, tally in enumerate(counts):
         one_side = max(tally["card"], tally["cpu"]) - tally["fed"]
         if not one_side <= TAIL_SLACK * tally["cpu"]:
@@ -4286,6 +4381,539 @@ def phase_bf16() -> dict[str, dict[str, int]]:
     return launches
 
 
+# ---------------------------------------------------------------- dp ----
+
+DP_STEPS = 5  # world 1 on NCCL: steps of each config
+DP_W2_STEPS = 3  # world 2: steps of each config
+DP_EVAL_N = 333  # the eval split of world 2 (does not divide the batches or the ranks)
+DP_TRAIN_SIZE = 2000  # the CLI's one MNIST epoch at world 2: 20 steps of 100
+DP_CONFIGS = ("mnist", "celeba")
+
+
+@contextlib.contextmanager
+def native_convs():
+    """Deterministic algorithms (``deterministic``) and PyTorch's own
+    convolutions in place of cuDNN's: cuDNN picks its algorithm by the
+    shape, so a rank's half batch and the whole batch round a conv's
+    gradient differently (FFT, Winograd), where PyTorch's im2col and GEMM
+    sum the same products; the world-2 gates compare under it."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with deterministic():
+            yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def free_port() -> int:
+    """A free TCP port on this machine's loopback."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_batches(cfg, n_steps: int, seed: int) -> dict[str, torch.Tensor]:
+    """``n_steps`` global batches of ``cfg`` on the card, with its random
+    subset masks: every rank makes the same ones."""
+    batches = train_batches(n_steps, cfg.batch_size, "cuda", seed=seed, config=cfg.dataset)
+    if cfg.n_random_subsets:
+        n_mod = configs.build_model(cfg, seed=0, device="cpu").n_modalities
+        gen = torch.Generator().manual_seed(seed)
+        batches["subset_masks"] = (torch.rand(
+            (n_steps, cfg.n_random_subsets, n_mod), generator=gen) < 0.5).float().cuda()
+    return batches
+
+
+def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None = None,
+             record: list | None = None, fed: list | None = None):
+    """``cfg``'s steps over ``batches`` (this rank's rows where a ``mesh``
+    is given) from the seed-0 weights and a noise generator seeded 6:
+    the metrics, the model, the wall of the call (to a sync) and the runner
+    with its state. Each step's gradients, as the update reads them (the
+    mesh's all-reduced), go to ``record``; ``fed`` (a step's gradients of
+    another run, each) sets the components both runs compute below
+    TAIL_BELOW to the other run's value before the update (``conv_card_vs_
+    cpu``'s feeding: Adam turns a component's rounding at eps into up to a
+    step of lr), and each step's tail counts, the components above it whose
+    signs differ and the three tensors with the largest difference relative
+    to the other run's largest component are the last item returned."""
+    model = configs.build_model(cfg, seed=0)
+    state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    apply, steps, counts = state.apply_gradients, iter(fed or ()), []
+
+    def apply_gradients(commit=None):
+        named = list(model.named_parameters())
+        if record is not None:
+            record.append({n: p.grad.detach().cpu().clone() for n, p in named})
+        if fed is not None:
+            other, tally = next(steps), dict.fromkeys(("this", "other", "fed", "signs"), 0)
+            tally["rel_top"] = []
+            for n, p in named:
+                o = other[n].to(p.device)
+                here, there = p.grad.abs() < TAIL_BELOW, o.abs() < TAIL_BELOW
+                both = here & there
+                for key, mask in (("this", here), ("other", there), ("fed", both)):
+                    tally[key] += int(mask.sum())
+                tally["signs"] += int(((p.grad * o < 0) & ~here & ~there).sum())
+                scale = o.abs().max().item()
+                tally["rel_top"].append(
+                    (n, ((p.grad - o).abs().max().item() / scale) if scale else 0.0))
+                p.grad[both] = o[both]
+            tally["rel_top"] = sorted(tally["rel_top"], key=lambda kv: -kv[1])[:3]
+            counts.append(tally)
+        apply(commit)
+
+    if record is not None or fed is not None:
+        state.apply_gradients = apply_gradients
+    try:
+        runner = make_epoch_runner(model, graph=graph, annealing_steps=1000, generator=gen,
+                                   term_fold=term_fold, mesh=mesh, **api.step_options(cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = runner(state, batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if "apply_gradients" in vars(state):
+            del state.apply_gradients
+    return metrics, model, wall, (runner, state), counts
+
+
+def steady_step_ms(runner, state, batches: dict, rounds: int = 3) -> float:
+    """The median wall (to a sync) of ``rounds`` more calls of a runner
+    over ``batches``, a step's share."""
+    walls = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(state, batches)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0) / _rows(batches))
+    return statistics.median(walls)
+
+
+def _rows(batches: dict) -> int:
+    return next(iter(batches.values())).shape[0]
+
+
+def dp_reference_epoch(cfg) -> dict:
+    """World 1 of ``api.train``'s data-parallel epoch at 2 ranks (the
+    ``--multihost`` CLI run's): the split host-shuffled with
+    ``default_rng(seed ^ 0x5EED)``, one epoch of 2-shard orders
+    (``make_gather_epoch_runner(n_shards=2)``, the "b" fold over the whole
+    batch, which draws the noise in the layout the ranks' "st" fold draws
+    it), then the test ELBO."""
+    steps = cfg.train_size // cfg.batch_size
+    model = configs.build_model(cfg, seed=0)
+    state = create_train_state(model, learning_rate(cfg, steps), grad_clip=cfg.grad_clip,
+                               ema_decay=cfg.ema_decay, accum_steps=cfg.accum_steps)
+    train = load_dataset(cfg.dataset, "train", n=cfg.train_size)
+    perm = torch.as_tensor(np.random.default_rng(0 ^ 0x5EED).permutation(train.size))
+    arrays = {k: torch.as_tensor(v)[perm].cuda() for k, v in train.arrays.items()}
+    runner = make_gather_epoch_runner(
+        model, steps, cfg.batch_size, n_shards=2, order=torch.Generator().manual_seed(0),
+        generator=torch.Generator(device="cuda").manual_seed(0),
+        annealing_steps=cfg.annealing_epochs * steps, **api.step_options(cfg))
+    state, _, metrics = runner(state, arrays, None, True)
+    test = load_dataset(cfg.dataset, "test", n=cfg.test_size)
+    return {"train_loss": float(metrics["loss"].double().mean()),
+            "test_elbo": api.eval_elbo(cfg, model=state.eval_model, dataset=test)}
+
+
+def dp_worker(out: str, fed: str, backend: str) -> None:
+    """One rank of the world-2 runs (``phase_dp``), its group on
+    ``backend`` from the environment (torchrun's variables): 3 steps of ``mnist`` and
+    ``celeba`` under the "st" fold on its rows of each global batch (the
+    subset masks whole), on native convolutions as world 1's, the
+    gradients' tails fed from world 1's (``fed``, ``dp_steps``), a step's
+    steady wall over 3 more calls, then
+    ``eval_elbo`` and ``log_likelihood`` with the mesh on a split of 333.
+    Rank 0 writes what it got to ``out``."""
+    multihost.initialize(backend=backend)
+    mesh = make_mesh()
+    res = {"backend": mesh.backend, "size": mesh.size}
+    w1_grads = torch.load(fed, weights_only=False)
+    for name in DP_CONFIGS:
+        cfg = configs.get_config(name)
+        batches = dp_batches(cfg, DP_W2_STEPS, seed=5)
+        local = {**shard_batch({k: v for k, v in batches.items() if k != "subset_masks"}, mesh,
+                               dim=1),
+                 **{k: v for k, v in batches.items() if k == "subset_masks"}}
+        # The gated steps run eagerly (the feeding reads the gradients on
+        # the host) on deterministic algorithms, as world 1's; the timed ones
+        # on cuDNN's default algorithms and the runner the backend takes (a
+        # graph holding the collective on NCCL, the eager loop on gloo).
+        with native_convs():
+            metrics, model, wall, _, counts = dp_steps(cfg, local, "st", mesh, graph=False,
+                                                       fed=w1_grads[name])
+        _, _, _, (runner, state), _ = dp_steps(cfg, local, "st", mesh)
+        res[name] = {"loss": metrics["loss"].tolist(), "grad_norm": metrics["grad_norm"].tolist(),
+                     "wall_s": wall, "graph": mesh.backend == "nccl", "tail_counts": counts,
+                     "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                     "step_ms": steady_step_ms(runner, state, local)}
+        test = load_dataset(cfg.dataset, "test", n=DP_EVAL_N)
+        fresh = configs.build_model(cfg, seed=0)
+        res[name]["eval_elbo"] = api.eval_elbo(cfg, model=fresh, dataset=test, mesh=mesh)
+        res[name]["log_likelihood"] = api.log_likelihood(
+            cfg, model=fresh, dataset=test, k=IWAE_K, seed=0, mesh=mesh)
+    if mesh.rank == 0:
+        torch.save(res, out)
+    multihost.sync()
+
+
+def run_ranks(argvs: list[list[str]], envs: list[dict], timeout: float) -> list[str]:
+    """Processes, one a rank, started together; each one's standard
+    output. A rank that fails raises, and every other is stopped."""
+    procs = [subprocess.Popen(argv, cwd=ROOT, env={**os.environ, **env}, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for argv, env in zip(argvs, envs)]
+    outs = []
+    try:
+        for i, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"rank {i} of {argvs[i][-6:]} failed ({proc.returncode}):\n"
+                                   f"{stderr[-4000:]}")
+            outs.append(stdout)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's variables for ``rank`` of one host. Under NCCL rank ``r``
+    takes card ``r``; gloo's ranks stay on the current card, card 0."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def dp_world2(backend: str, tmp: str) -> dict:
+    """``dp_worker`` at 2 ranks on ``backend``: its rank 0's results."""
+    out = os.path.join(tmp, f"w2_{backend}.pt")
+    fed = os.path.join(tmp, "w1_grads.pt")
+    port = free_port()
+    argv = [sys.executable, "-c",
+            f"import chip_smoke; chip_smoke.dp_worker({out!r}, {fed!r}, {backend!r})"]
+    t0 = time.perf_counter()
+    run_ranks([argv, argv], [rank_env(r, 2, port) for r in range(2)], timeout=600)
+    res = torch.load(out, weights_only=False)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def dp_cli(tmp: str, backend: str) -> dict:
+    """One MNIST epoch (20 steps of 100, the 2,000-example test ELBO)
+    through the CLI's ``train --multihost`` at 2 ranks under torchrun's
+    variables, rank r writing to its own ``--workdir``: rank 0's history,
+    and the files each workdir holds. Each rank forms its group on
+    ``backend`` first (``multihost.initialize``, which the CLI's own call
+    then finds formed), as two ranks on one card cannot be NCCL's."""
+    port = free_port()
+    dirs = [os.path.join(tmp, f"cli_rank{r}") for r in range(2)]
+    argvs = [[sys.executable, "-c",
+              "import sys; from mmvae_torch import cli; from mmvae_torch.parallel import "
+              f"multihost; multihost.initialize(backend={backend!r}); sys.exit(cli.main(["
+              f"'train', '--config', 'mnist', '--multihost', '--workdir', {d!r}, "
+              f"'--epochs', '1', '--train-size', '{DP_TRAIN_SIZE}']))"] for d in dirs]
+    t0 = time.perf_counter()
+    outs = run_ranks(argvs, [rank_env(r, 2, port) for r in range(2)], timeout=600)
+    wall = time.perf_counter() - t0
+    files = [sorted(str(p.relative_to(d)) for p in Path(d).rglob("*")) if os.path.isdir(d)
+             else [] for d in dirs]
+    history = [json.loads(line) for line in Path(dirs[0], "metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in history if r.get("kind") == "eval"]
+    return {"wall_s": wall, "files": files, "eval": evals,
+            "best": json.loads(outs[0].strip().splitlines()[-1])}
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def param_excess(got: dict, want: dict, init: dict) -> tuple[float, dict]:
+    """The largest excess of a parameter's difference over rtol 2e-3 of the
+    reference, and where: the tensor, the elements past atol 1e-5, and the
+    worst element's values and its update from ``init``."""
+    worst, where = -math.inf, {}
+    for n, w in want.items():
+        excess = (got[n] - w).abs() - 2e-3 * w.abs()
+        i = int(excess.flatten().argmax())
+        if excess.flatten()[i].item() > worst:
+            worst = excess.flatten()[i].item()
+            where = {"tensor": n, "past_atol": int((excess > 1e-5).sum()),
+                     "got": got[n].flatten()[i].item(), "want": w.flatten()[i].item(),
+                     "update_want": (w.flatten()[i] - init[n].flatten()[i]).item()}
+    return worst, where
+
+
+def check_world2(res: dict, ref: dict, backend: str) -> list[str]:
+    """World 2's steps, evals and IWAE against world 1's: the loss at rel
+    1e-4, the parameters within rtol 2e-3 and atol 1e-5 (the JAX DP test's
+    ``tests/test_dp.py:57-60``), the ELBO and the IWAE at rel 1e-5. Returns
+    the failures."""
+    failures = []
+    for name in DP_CONFIGS:
+        got, want = res[name], ref[name]
+        loss_rel = max(rel(a, b) for a, b in zip(got["loss"], want["loss"]))
+        init = dict(configs.build_model(configs.get_config(name), seed=0,
+                                        device="cpu").named_parameters())
+        param_err, where = param_excess(got["params"], want["params"], init)
+        elbo_rel = rel(got["eval_elbo"], want["eval_elbo"])
+        ll_rel = rel(got["log_likelihood"], want["log_likelihood"])
+        emit({"phase": "dp_world2", "backend": backend, "config": name, "steps": DP_W2_STEPS,
+              "loss_w2": got["loss"], "loss_w1": want["loss"], "loss_rel_max": loss_rel,
+              "param_excess_over_rtol_max": param_err, "param_worst": where,
+              "eval_elbo_w2": got["eval_elbo"],
+              "eval_elbo_w1": want["eval_elbo"], "eval_elbo_rel": elbo_rel,
+              "log_likelihood_w2": got["log_likelihood"],
+              "log_likelihood_w1": want["log_likelihood"], "log_likelihood_rel": ll_rel,
+              "steps_wall_s_w2": got["wall_s"], "steps_wall_s_w1": want["wall_s"],
+              "step_ms_w2": got["step_ms"], "step_ms_w1": want["step_ms"],
+              "tail_below": TAIL_BELOW, "tail_counts_per_step": got["tail_counts"],
+              "w2_graph": got["graph"], "eval_n": DP_EVAL_N})
+        for i, tally in enumerate(got["tail_counts"]):
+            one_side = max(tally["this"], tally["other"]) - tally["fed"]
+            if not one_side <= TAIL_SLACK * tally["other"]:
+                failures.append(f"dp world 2 ({backend}) {name} step {i}: {one_side} gradient "
+                                f"components below {TAIL_BELOW} on one side only: {tally}")
+        if not (loss_rel <= 1e-4 and param_err <= 1e-5 and elbo_rel <= 1e-5
+                and ll_rel <= 1e-5):
+            failures.append(f"dp world 2 ({backend}) {name}: loss rel {loss_rel}, "
+                            f"param excess {param_err} at {where}, ELBO rel {elbo_rel}, "
+                            f"IWAE rel {ll_rel}")
+    return failures
+
+
+def dp_bits(runs: dict) -> dict:
+    """Two runs' metrics and parameters: the largest relative difference
+    and whether every bit is equal."""
+    (m_a, model_a), (m_b, model_b) = runs
+    step_rel = max(((m_a[k] - m_b[k]).abs() / m_b[k].abs()).max().item()
+                   for k in ("loss", "grad_norm"))
+    bits = (all(torch.equal(m_a[k], m_b[k]) for k in ("loss", "grad_norm"))
+            and all(torch.equal(a, b) for a, b in zip(model_a.parameters(), model_b.parameters())))
+    return {"step_rel_max": step_rel, "bits_equal": bits}
+
+
+def dp_world1(name: str, mesh) -> dict:
+    """``name``'s 5 steps on the one-rank NCCL mesh under "st" (the
+    all-reduce in each step): the graph runner (the collective captured)
+    against the eager loop, and the eager loop given the noise ``(B, T,
+    L)`` against the single-process "t" loop given it as ``(T, B, L)``,
+    both to the bit on cuDNN's deterministic algorithms; then each step's
+    wall of the graph runner on the mesh against the single-process one,
+    in turns."""
+    cfg = configs.get_config(name)
+    batches = dp_batches(cfg, DP_STEPS, seed=4)
+    n_mod = configs.build_model(cfg, seed=0, device="cpu").n_modalities
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    eps = torch.randn((DP_STEPS, cfg.batch_size, n_terms(cfg, n_mod), cfg.n_latents),
+                      generator=gen, device="cuda")
+    with deterministic():
+        g_m, g_model, _, _, _ = dp_steps(cfg, {**batches, "eps": eps}, "st", mesh, True)
+        e_m, e_model, _, _, _ = dp_steps(cfg, {**batches, "eps": eps}, "st", mesh, False)
+        t_m, t_model, _, _, _ = dp_steps(
+            cfg, {**batches, "eps": eps.transpose(1, 2).contiguous()}, "t", None, False)
+    graph_eager = dp_bits([(g_m, g_model), (e_m, e_model)])
+    st_t = dp_bits([(e_m, e_model), (t_m, t_model)])
+    # Walls in turns, both graphs captured on cuDNN's default algorithms:
+    # the mesh's graph epoch (the collective in each step) against the
+    # single-process "t" graph epoch, the same 5 batches.
+    graph_run = dp_steps(cfg, {**batches, "eps": eps}, "st", mesh, True)[3]
+    single_run = dp_steps(cfg, {**batches, "eps": eps.transpose(1, 2).contiguous()},
+                          "t", None, True)[3]
+    walls = {"mesh_st": [], "single_t": []}
+    for _ in range(3):
+        for kind, (runner, state), feed in (
+                ("mesh_st", graph_run, {**batches, "eps": eps}),
+                ("single_t", single_run, {**batches, "eps": eps.transpose(1, 2).contiguous()})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(state, feed)
+            torch.cuda.synchronize()
+            walls[kind].append(1e3 * (time.perf_counter() - t0) / DP_STEPS)
+    step_ms = {k: statistics.median(v) for k, v in walls.items()}
+    runner, state = graph_run
+    prof = profile_summary(lambda: runner(state, {**batches, "eps": eps}))
+    out = {"phase": "dp_world1_nccl", "config": name, "steps": DP_STEPS,
+           "mesh_epoch_profile": {k: prof[k] for k in ("wall_us", "device_busy_us",
+                                                       "device_events", "top")},
+           "graph_vs_eager": graph_eager, "st_vs_t": st_t,
+           "step_ms_median": step_ms, "step_ms_rounds": walls,
+           "collective_ms_per_step": step_ms["mesh_st"] - step_ms["single_t"]}
+    emit(out)
+    if not (graph_eager["bits_equal"] and st_t["bits_equal"]):
+        raise AssertionError(f"dp world 1 {name}: graph vs eager {graph_eager}, "
+                             f"st vs t {st_t}")
+    return out
+
+
+def celeba_b_train() -> dict[str, int]:
+    """20 CelebA steps of 64 under the "b" fold on the graph runner with
+    the "kernel" backend and the launch counts (K2's VJP at the map over
+    examples of 18 attribute rows 20 times), then the graph epoch against
+    the "t" one in turns (what the fold's layout costs a step), the
+    ``(T, B, L) -> (B, T, L)`` copies of a step's posteriors timed alone,
+    and three steps of the card against the CPU under the "b" fold."""
+    cfg = configs.get_config("celeba")
+    batches = dp_batches(cfg, 20, seed=1)
+    ops.set_backend("kernel")
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        metrics, _, first_s, b_run, _ = dp_steps(cfg, batches, "b", None, True)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        ops.set_backend("auto")
+    if launches != EXPECTED_LAUNCHES["celeba_b_train"]:
+        raise AssertionError(f"celeba_b_train: expected launches "
+                             f"{EXPECTED_LAUNCHES['celeba_b_train']}, got {launches}")
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError(f"celeba_b_train: loss {metrics['loss'].tolist()}")
+    t_run = dp_steps(cfg, batches, "t", None, True)[3]
+    walls = {"b": [], "t": []}
+    for _ in range(3):
+        for kind, (runner, state) in (("b", b_run), ("t", t_run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner(state, batches)
+            torch.cuda.synchronize()
+            walls[kind].append(1e3 * (time.perf_counter() - t0) / 20)
+    t, b, l = n_terms(cfg, 19), cfg.batch_size, cfg.n_latents
+    mu = torch.randn(t, b, l, device="cuda")
+    copy_ms = device_ms(lambda: mu.transpose(0, 1).contiguous())
+    emit({"phase": "celeba_b_train", "steps": 20, "batch": b, "terms": t, "launches": launches,
+          "first_call_s": first_s, "loss": metrics["loss"].tolist(),
+          "step_ms_median": {k: statistics.median(v) for k, v in walls.items()},
+          "step_ms_rounds": walls, "tb_to_bt_copy_ms": copy_ms,
+          "tb_to_bt_copies_per_step": "2 forward (mu, log-variance), 2 backward"})
+    # The first steps' tails (beta 0): as for CUB and FashionMNIST, the
+    # components both sides compute below TAIL_BELOW take the card's value.
+    # The noise is the "t" gate's draw (``fold_draw_witness``).
+    conv_card_vs_cpu(cfg, feed_tail=True, term_fold="b", path="celeba_b_train", draw="t")
+    return launches
+
+
+def fold_draw_witness() -> None:
+    """CelebA's card against the CPU (``conv_card_vs_cpu``, tails fed,
+    ungated) under the "b" and the "t" fold, each on the "b" fold's own
+    ``(B, T, L)`` draw and on the "t" gate's ``(T, B, L)`` one, the same
+    values for both folds: whether an update reading over the gate's 1e-4
+    follows the draw or the fold. Run after ``phase_device``:
+    ``python3 -c 'import chip_smoke as c; c.phase_device(); c.fold_draw_witness()'``."""
+    cfg = configs.get_config("celeba")
+    for draw in ("b", "t"):
+        for fold in ("b", "t"):
+            conv_card_vs_cpu(cfg, feed_tail=True, term_fold=fold, draw=draw, gate=False,
+                             path=f"witness_{fold}_fold_{draw}_draw")
+
+
+def phase_dp() -> dict[str, dict[str, int]]:
+    """Data parallelism on the card: CelebA's step under the "b" fold
+    (``celeba_b_train``: K2's VJP at the map over examples of several rows
+    on the path); a one-rank NCCL group, MNIST's and CelebA's "st" steps
+    with the all-reduce in each (``dp_world1``); two processes on the one
+    card over gloo's CUDA all-reduce (NCCL refuses two ranks on one
+    device) -- 3 steps of MNIST and CelebA, ``eval_elbo`` and
+    ``log_likelihood`` with the mesh, each against world 1
+    (``check_world2``), and one MNIST epoch through the CLI's
+    ``--multihost``, its history against world 1's (``dp_reference_epoch``)
+    at rel 1e-4 with only rank 0 writing; with two cards or more, the same
+    world-2 runs on NCCL across cards. Returns the launches."""
+    import torch.distributed as dist
+
+    tmp, world2 = tempfile.mkdtemp(), None
+    try:
+        launches = {"celeba_b_train": celeba_b_train()}
+        multihost.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
+        try:
+            mesh = make_mesh()
+            for name in DP_CONFIGS:
+                dp_world1(name, mesh)
+        finally:
+            dist.destroy_process_group()
+        # World 1's steps (eager, as world 2's over gloo) and their
+        # gradients, which world 2 feeds its tails from; then world 2 in
+        # processes of its own while this one makes the eval references.
+        ref, grads = {}, {}
+        for name in DP_CONFIGS:
+            cfg = configs.get_config(name)
+            batches = dp_batches(cfg, DP_W2_STEPS, seed=5)
+            grads[name] = []
+            with native_convs():
+                metrics, model, wall, _, _ = dp_steps(cfg, batches, "b", graph=False,
+                                                      record=grads[name])
+            runner, state = dp_steps(cfg, batches, "b", graph=False)[3]
+            ref[name] = {"loss": metrics["loss"].tolist(), "wall_s": wall,
+                         "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                         "step_ms": steady_step_ms(runner, state, batches)}
+        torch.save(grads, os.path.join(tmp, "w1_grads.pt"))
+        del grads
+        world2 = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_world2_main({tmp!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in DP_CONFIGS:
+            cfg = configs.get_config(name)
+            test = load_dataset(cfg.dataset, "test", n=DP_EVAL_N)
+            fresh = configs.build_model(cfg, seed=0)
+            ref[name].update(
+                eval_elbo=api.eval_elbo(cfg, model=fresh, dataset=test),
+                log_likelihood=api.log_likelihood(cfg, model=fresh, dataset=test, k=IWAE_K,
+                                                  seed=0))
+        cli_ref = dp_reference_epoch(
+            configs.get_config("mnist").replace(epochs=1, train_size=DP_TRAIN_SIZE))
+        _, stderr = world2.communicate(timeout=900)
+        if world2.returncode != 0:
+            raise RuntimeError(f"dp world 2 failed ({world2.returncode}):\n{stderr[-6000:]}")
+        results = torch.load(os.path.join(tmp, "world2.pt"), weights_only=False)
+        failures = []  # every gate of world 2 read before any raises
+        for backend, res in results["steps"].items():
+            failures += check_world2(res, ref, backend)
+        for backend, cli in results["cli"].items():
+            (record,) = cli["eval"]
+            train_rel = rel(record["train_loss"], cli_ref["train_loss"])
+            test_rel = rel(record["test_elbo"], cli_ref["test_elbo"])
+            rank1_files = cli["files"][1]
+            emit({"phase": "dp_cli", "backend": backend, "wall_s": cli["wall_s"],
+                  "world2_steps_wall_s": results["steps"][backend]["wall_s"],
+                  "history_w2": record, "history_w1": cli_ref, "train_loss_rel": train_rel,
+                  "test_elbo_rel": test_rel, "rank0_files": cli["files"][0],
+                  "rank1_files": rank1_files})
+            if not (train_rel <= 1e-4 and test_rel <= 1e-4):
+                failures.append(f"dp cli ({backend}): train rel {train_rel}, "
+                                f"test rel {test_rel}")
+            if rank1_files or "metrics.jsonl" not in cli["files"][0]:
+                failures.append(f"dp cli ({backend}): rank 0 wrote {cli['files'][0]}, "
+                                f"rank 1 {rank1_files}")
+        if failures:
+            raise AssertionError("; ".join(failures))
+    finally:
+        if world2 is not None and world2.poll() is None:
+            world2.kill()
+            world2.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def dp_world2_main(tmp: str) -> None:
+    """The world-2 runs of ``phase_dp`` in a process of their own (the
+    ranks' processes under it): gloo on the one card, NCCL across cards
+    where there are two. Writes ``world2.pt`` to ``tmp``."""
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    steps, cli = {}, {}
+    for backend in backends:
+        steps[backend] = dp_world2(backend, tmp)
+        cli[backend] = dp_cli(tmp, backend)
+    torch.save({"steps": steps, "cli": cli}, os.path.join(tmp, "world2.pt"))
+
+
 def graph_ms(calls, reps: int = REPS) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
@@ -4624,6 +5252,7 @@ def main() -> None:
     launches.update(timed("grain", phase_grain))
     launches.update(timed("shuffle", phase_shuffle))
     launches.update(timed("bf16", phase_bf16))
+    launches.update(timed("dp", phase_dp))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -9,7 +9,8 @@ far: inference -- :func:`mmvae_torch.api.eval_elbo`,
 and training (:func:`~mmvae_torch.api.train`, with gradient accumulation,
 the cosine LR schedule, ``nan_rollback`` and overlapped checkpoints) of the
 ``mnist``, ``fashionmnist``, ``multimnist``, ``celeba`` and ``cub``
-configs, and the command line ``python -m mmvae_torch.cli``. On the
+configs, and the command line ``python -m mmvae_torch.cli``, on one card
+or data parallel over a process group (``mmvae_torch.parallel``). On the
 card the KL and BCE row reductions and their gradients run in
 ``ops/csrc/row_reduce.cu``, the product of experts with its KL and its
 backward in ``ops/csrc/poe_kl.cu``, the masked sequence cross-entropy and

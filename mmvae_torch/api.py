@@ -49,6 +49,7 @@ from mmvae_torch.core import fuse_observed_z
 from mmvae_torch.data import Dataset, dataset_astype, load_dataset, stacked_epoch_padded
 from mmvae_torch.data.grain_pipeline import epoch_plan, gather_batches
 from mmvae_torch.device import resolve_device
+from mmvae_torch.parallel import make_mesh, multihost, replicate, shard_batch
 from mmvae_torch.train import (
     TrainState,
     create_train_state,
@@ -171,6 +172,7 @@ def eval_elbo(
     device: torch.device | str | None = None,
     segment_steps: int = 0,
     dtype: torch.dtype | None = None,
+    mesh=None,
 ) -> float:
     """Mean multi-term ELBO over a split, beta = 1 and z = posterior mean.
 
@@ -191,17 +193,31 @@ def eval_elbo(
     serves them all): O(K) batches of device memory, the same result to
     the bit (``mmvae_tpu/api.py:1114-1145``); 0 puts the whole split on
     the device. ``dtype``: the compute dtype (see the module docstring).
+    ``mesh`` (``parallel.make_mesh``, every rank calling): the batch size
+    is rounded up to the ranks (``mmvae_tpu/api.py:1069-1111``; the pad
+    rows are masked, so the ELBO is exact at any size), each rank
+    evaluates its rows of every batch under the ``"b"`` fold, and the
+    batch losses are averaged over the ranks once: every rank returns the
+    same value, the single-process one up to the order of the sums.
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
         dataset = load_dataset(config.dataset, split, n=config.test_size,
                                gen_kwargs=config.data_kwargs)
-    batch_size = min(batch_size or config.batch_size, dataset.size)
+    batch_size = _mesh_batch(min(batch_size or config.batch_size, dataset.size), mesh)
     stacked = _padded_split(dataset, batch_size, model.n_modalities,
                             device if segment_steps <= 0 else None)
+    if mesh is not None:
+        stacked = shard_batch(stacked, mesh, dim=1)
     with model.at_dtype(dtype):
-        runner = make_eval_runner(model, config.objective, config.mvtcae_alpha)
-        return _split_elbo(runner, stacked, dataset.size, segment_steps, device)
+        runner = make_eval_runner(model, config.objective, config.mvtcae_alpha, mesh=mesh)
+        return _split_elbo(runner, stacked, dataset.size, segment_steps, device, batch_size)
+
+
+def _mesh_batch(batch_size: int, mesh) -> int:
+    """``batch_size`` rounded up to a multiple of the mesh's ranks (itself
+    without a mesh)."""
+    return batch_size if mesh is None else -(-batch_size // mesh.size) * mesh.size
 
 
 def _padded_split(
@@ -251,13 +267,15 @@ def _split_values(runner: Callable, key: str, stacked: dict[str, torch.Tensor],
 
 
 def _split_elbo(runner: Callable, stacked: dict[str, torch.Tensor], size: int,
-                segment_steps: int = 0, device: torch.device | None = None) -> float:
+                segment_steps: int = 0, device: torch.device | None = None,
+                batch_size: int | None = None) -> float:
     """Mean ELBO of a :func:`_padded_split` of ``size`` examples through an
     eval ``runner`` (``make_eval_runner``), whole or in segments
     (:func:`_split_values`): the pad rows contribute 0, so it is ``sum(batch
-    losses) * bs / size``, summed in float64."""
+    losses) * bs / size``, summed in float64. ``batch_size`` is the global
+    batch's where ``stacked`` holds one rank's rows of it."""
     losses = _split_values(runner, "loss", stacked, segment_steps, device)
-    return float(losses.sum()) * stacked["presence"].shape[1] / size
+    return float(losses.sum()) * (batch_size or stacked["presence"].shape[1]) / size
 
 
 def log_likelihood(
@@ -276,6 +294,7 @@ def log_likelihood(
     eps: torch.Tensor | None = None,
     segment_steps: int = 0,
     dtype: torch.dtype | None = None,
+    mesh=None,
 ) -> float:
     """Mean IWAE estimate of the joint marginal log p(x) over a split.
 
@@ -297,13 +316,19 @@ def log_likelihood(
     bit (the batches draw the generator's noise in the same order; the
     pad batches of the last segment draw after them). The per-example
     values are summed in float64. ``dtype``: the compute dtype (see the
-    module docstring). The JAX ``mesh`` is not ported.
+    module docstring). ``mesh`` (every rank calling): the batch size is
+    rounded up to the ranks as in :func:`eval_elbo`, each rank takes its
+    rows of every batch (and of ``eps``, whose batch axis is then the
+    rounded one) with the noise drawn at the global shape, and the
+    per-example values are gathered over the ranks once: every rank
+    returns the same value, the single-process one up to the order of the
+    sums (``mmvae_tpu/api.py:1240-1244``).
     """
     config, model, device = _resolve(config, model, state_dict, device, workdir, which)
     if dataset is None:
         dataset = load_dataset(config.dataset, split, n=config.test_size,
                                gen_kwargs=config.data_kwargs)
-    batch_size = min(batch_size or config.batch_size, dataset.size)
+    batch_size = _mesh_batch(min(batch_size or config.batch_size, dataset.size), mesh)
     home = device if segment_steps <= 0 else None
     stacked = _valid_split(dataset, batch_size, home)
     if eps is not None:
@@ -312,9 +337,11 @@ def log_likelihood(
         if tuple(eps.shape) != want:
             raise ValueError(f"eps must be {want}, got {tuple(eps.shape)}")
         stacked["eps"] = eps
+    if mesh is not None:
+        stacked = shard_batch(stacked, mesh, dim=1)
     with model.at_dtype(dtype):
         runner = make_iwae_runner(
-            model, k, generator=torch.Generator(device=device).manual_seed(seed))
+            model, k, generator=torch.Generator(device=device).manual_seed(seed), mesh=mesh)
         values = _split_values(runner, "log_likelihood", stacked, segment_steps, device)
     return float(values.sum()) / dataset.size
 
@@ -377,14 +404,14 @@ class _GrainStream:
     """
 
     def __init__(self, train_ds: Dataset, config: ExperimentConfig, model,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         arrays = _cast_source_arrays(dict(train_ds.arrays), config.data_dtype)
         self._bf16 = {k for k, v in arrays.items() if torch.is_tensor(v)}
         self._arrays = {k: v.view(torch.int16).numpy() if k in self._bf16 else np.asarray(v)
                         for k, v in arrays.items()}
         self._size, self._bs = train_ds.size, config.batch_size
         self._n_modalities, self._p_drop = model.n_modalities, config.p_modality_drop
-        self._device = device
+        self._device, self._mesh = device, mesh
         self._steps = train_ds.size // config.batch_size
         if self._steps == 0:
             raise ValueError(f"grain epoch yields no batches: train_size {train_ds.size} < "
@@ -443,11 +470,15 @@ class _GrainStream:
         return self._host_seg(*key)
 
     def _upload(self, host: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """A segment on the device; with a mesh, this rank's rows of each of
+        its global batches."""
         out = {}
         for k, v in host.items():
             t = torch.from_numpy(v)
             if k in self._bf16:
                 t = t.view(torch.bfloat16)
+            if self._mesh is not None:
+                t = self._mesh.rows(t, 1).contiguous()
             on_card = self._device.type == "cuda"
             out[k] = t.pin_memory().to(self._device, non_blocking=True) if on_card else t
         return out
@@ -564,9 +595,10 @@ def train(
     verbose: bool = True,
     fault_hook: Callable | None = None,
     dtype: torch.dtype | None = None,
+    use_mesh: bool = True,
 ) -> TrainResult:
     """Train ``config`` from its seeded init, evaluating the test split
-    after each epoch (``mmvae_tpu/api.py:414``, single device).
+    after each epoch (``mmvae_tpu/api.py:414``).
 
     On the device backend (``data_backend="device"``) the train split is
     on ``device`` and each epoch's order comes from a ``torch.Generator``
@@ -625,6 +657,29 @@ def train(
     ``RuntimeError``. The runners are built anew after a rollback (the
     restore makes Adam's moments anew).
 
+    Data parallelism (``use_mesh``, ``mmvae_tpu/api.py:505``): where the
+    process group (``parallel.multihost.initialize``) has more than one
+    rank, every rank runs this call and the mesh (``parallel.make_mesh``)
+    engages. Each rank holds the parameters, the optimizer state and the
+    generators (seeded alike, so their draws stay in lockstep), and each
+    step reduces the gradient once over the ranks (``train/step.py``). On
+    the device backend the split is shuffled once on the host with
+    ``np.random.default_rng(seed ^ 0x5EED)`` and each rank keeps its
+    contiguous block (``mmvae_tpu/api.py:650-665``): the size and the batch
+    must divide over the ranks, and the epochs take the per-shard orders
+    and the ``"st"`` fold (``make_gather_epoch_runner``); on the grain
+    backend each rank uploads its rows of every batch of the global plan,
+    under the ``"b"`` fold. The test eval runs sharded (``eval_elbo``'s
+    ``mesh``), every rank getting the same all-reduced ELBO, which the
+    best tracking reads (the JAX multi-process run evaluates
+    process-locally instead, ``:702``: the same value up to the order of
+    the sums). Only rank 0 writes the config, the metrics and the
+    checkpoints (each save fenced by a barrier; ``ckpt_async`` saves
+    synchronously there, as the JAX multi-host run does), and every rank
+    reads on resume and rollback. On the card the NCCL group's collective
+    is captured in the epoch's graph; a gloo group runs the eager loop.
+    ``use_mesh=False`` runs each process alone.
+
     Returns the config, the model (the live parameters), the train state,
     the best test ELBO and one history record per epoch this call ran (its
     mean train loss; its mean ``cycle_ce``, ``cycle_contrast``, ``align_kl``
@@ -642,7 +697,9 @@ def train(
         warnings.warn("reshuffle_every>1 only applies to the in-program gather path (device "
                       "backend); this run shuffles every epoch", stacklevel=2)
     device = resolve_device(device)
-    if workdir is not None:
+    mesh = make_mesh() if use_mesh and multihost.process_count() > 1 else None
+    primary = multihost.is_primary()
+    if workdir is not None and primary:
         _save_run_config(workdir, config)
     train_ds = load_dataset(config.dataset, "train", n=config.train_size,
                             gen_kwargs=config.data_kwargs)
@@ -668,7 +725,12 @@ def train(
             accum_steps=config.accum_steps,
         )
 
-    state = fresh_state(seed)
+    def replicated(state: TrainState) -> TrainState:
+        if mesh is not None:
+            replicate(state.tensors(), mesh)
+        return state
+
+    state = replicated(fresh_state(seed))
     noise = torch.Generator(device=device).manual_seed(seed)
     order = torch.Generator().manual_seed(seed)
     generators = {"order": order, "noise": noise}
@@ -677,6 +739,7 @@ def train(
         # Before any runner: a CUDA graph holds the addresses of what the
         # load makes anew (Adam's moments).
         state, extra = load_checkpoint(workdir, state, which="last", generators=generators)
+        state = replicated(state)
         start_epoch = int(extra["epoch"]) + 1
         best = float(extra["best_test_elbo"])
     # The best checkpoint pointer can only name an epoch that was saved.
@@ -686,19 +749,31 @@ def train(
         step_kw = dict(annealing_steps=config.annealing_epochs * steps_per_epoch,
                        generator=noise, **step_options(config))
         if grain:
-            train_runner = make_epoch_runner(state.model, **step_kw)
+            train_runner = make_epoch_runner(state.model, mesh=mesh,
+                                             term_fold="t" if mesh is None else "b", **step_kw)
         else:
             train_runner = make_gather_epoch_runner(
                 state.model, steps_per_epoch, bs, reshuffle_every=config.reshuffle_every,
                 shuffle_mode=config.shuffle_mode,
-                shuffle_granularity=config.shuffle_granularity, order=order, **step_kw)
+                shuffle_granularity=config.shuffle_granularity, order=order, mesh=mesh,
+                **step_kw)
         return train_runner, make_eval_runner(state.eval_model, config.objective,
-                                              config.mvtcae_alpha)
+                                              config.mvtcae_alpha, mesh=mesh)
 
+    if mesh is not None and (bs % mesh.size or (not grain and train_ds.size % mesh.size)):
+        raise ValueError(f"batch size {bs} and train size {train_ds.size} must divide over "
+                         f"{mesh.size} ranks")
     runner, evaluate = runners(state)
-    stream = _GrainStream(train_ds, config, state.model, device) if grain else None
-    train_arrays = None if grain else {
-        k: torch.as_tensor(v, device=device) for k, v in train_ds.arrays.items()}
+    stream = _GrainStream(train_ds, config, state.model, device, mesh) if grain else None
+    train_arrays = None
+    if not grain:
+        train_arrays = {k: torch.as_tensor(v) for k, v in train_ds.arrays.items()}
+        if mesh is not None:
+            # One host shuffle, so each rank's block is a random shard.
+            perm = torch.as_tensor(np.random.default_rng(seed ^ 0x5EED).permutation(
+                train_ds.size))
+            train_arrays = shard_batch({k: v[perm] for k, v in train_arrays.items()}, mesh)
+        train_arrays = {k: v.to(device) for k, v in train_arrays.items()}
     # The persisted arrangement of the split (None: the loaded order). With
     # neither a reshuffle period nor groups, each epoch permutes the loaded
     # order afresh: the same law as permuting the last epoch's, and an
@@ -707,11 +782,19 @@ def train(
     # retry, shuffle for real (the JAX loop's force_shuffle).
     persist = config.reshuffle_every > 1 or config.shuffle_granularity > 1
     pos, force_shuffle = None, True
-    test_split = _padded_split(test_ds, min(bs, test_ds.size), state.model.n_modalities,
+    eval_bs = _mesh_batch(min(bs, test_ds.size), mesh)
+    test_split = _padded_split(test_ds, eval_bs, state.model.n_modalities,
                                device if eval_segs == 0 else None)
-    writer = MetricsWriter(workdir) if workdir is not None else None
-    ckpt_writer = (AsyncCheckpointWriter(workdir)
-                   if config.ckpt_async and workdir is not None else None)
+    if mesh is not None:
+        test_split = shard_batch(test_split, mesh, dim=1)
+    writer = MetricsWriter(workdir) if workdir is not None and primary else None
+    ckpt_writer = None
+    if config.ckpt_async and workdir is not None:
+        if multihost.process_count() == 1:
+            ckpt_writer = AsyncCheckpointWriter(workdir)
+        elif verbose and primary:
+            print(f"[{config.name}] ckpt_async requested but this is a multi-process run; "
+                  "saves are synchronous")
     history: list[dict[str, float]] = []
     rollbacks, epoch = 0, start_epoch
     try:
@@ -736,7 +819,8 @@ def train(
             train_finite = bool(np.isfinite(losses).all())
             test_elbo = float("nan")
             if train_finite or config.nan_rollback == 0:
-                test_elbo = _split_elbo(evaluate, test_split, test_ds.size, eval_segs, device)
+                test_elbo = _split_elbo(evaluate, test_split, test_ds.size, eval_segs, device,
+                                        eval_bs)
             if config.nan_rollback > 0 and not (train_finite and np.isfinite(test_elbo)):
                 if rollbacks >= config.nan_rollback:
                     raise RuntimeError(
@@ -755,12 +839,15 @@ def train(
                 else:
                     state, _ = load_checkpoint(workdir, state, which="last",
                                                generators=generators)
+                state = replicated(state)
                 for g in generators.values():
                     _perturb(g, tag)
                 runner, evaluate = runners(state)
-                writer.write({"kind": "event", "event": "nan_rollback", "failed_epoch": epoch,
-                              "restored_epoch": int(restored), "rollbacks": rollbacks})
-                if verbose:
+                if writer is not None:
+                    writer.write({"kind": "event", "event": "nan_rollback",
+                                  "failed_epoch": epoch, "restored_epoch": int(restored),
+                                  "rollbacks": rollbacks})
+                if verbose and primary:
                     print(f"[{config.name}] epoch {epoch:3d} non-finite; rolled back to epoch "
                           f"{int(restored)} ({rollbacks}/{config.nan_rollback})")
                 epoch = int(restored) + 1
@@ -782,7 +869,7 @@ def train(
                 if ckpt_writer is not None:
                     rec.update(ckpt_saved=ckpt_writer.saved, ckpt_skipped=ckpt_writer.skipped)
                 writer.write(rec)
-            if verbose:
+            if verbose and primary:
                 print(
                     f"[{config.name}] epoch {epoch:3d} train {meter.avg:10.2f} "
                     f"test {test_elbo:10.2f}" + (" *best*" if is_best else "")

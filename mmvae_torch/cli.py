@@ -20,10 +20,14 @@ on ``--device`` from the workdir's best weights, or from the config's
 seeded init with no workdir; ``python -m mmvae_torch.serve`` serves it.
 ``--dtype bfloat16`` (every command) runs the experts in bf16, as the
 JAX CLI passes it to every entry point (``mmvae_tpu/cli.py:362-496``).
-What the port does not have raises ``NotImplementedError`` when asked
-for: ``--multihost``, and the flags of the JAX config
-fields the port leaves out (``--fsdp``, ``--tp``, ``--pp``). ``--no-mesh`` is accepted: the port runs on one
-device.
+``--multihost`` (every command) joins the process group first
+(``parallel.multihost.initialize``, before any CUDA use, from JAX's
+``MMVAE_*`` trio or torchrun's variables: ``torchrun --nproc_per_node N
+-m mmvae_torch.cli train --multihost ...``); ``train`` then runs data
+parallel over the group's ranks unless ``--no-mesh`` asks each process to
+run alone (``api.train(use_mesh=False)``). What the port does not have
+raises ``NotImplementedError`` when asked for: the flags of the JAX config
+fields the port leaves out (``--fsdp``, ``--tp``, ``--pp``).
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype of the experts (the parameters stay float32)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host runs (not yet ported)")
+                   help="join the process group first (MMVAE_COORDINATOR/MMVAE_NUM_PROCESSES/"
+                   "MMVAE_PROCESS_ID, or torchrun's variables); train runs data parallel")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -108,7 +113,7 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="JSON dict of config fields applied over --config (flags win)")
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--no-mesh", action="store_true",
-                    help="no data-parallel mesh (the port runs on one device)")
+                    help="disable the data-parallel mesh even with >1 process")
     pt.add_argument("--data-dtype", dest="data_dtype",
                     choices=["float32", "bfloat16", "uint8"],
                     help="storage dtype of the train split's float modalities (bfloat16 "
@@ -179,8 +184,6 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     """Raise for every option the port does not have that ``args`` sets."""
-    if args.multihost:
-        raise _not_ported("--multihost")
     for dest, flag in _UNPORTED_FLAGS.items():
         if getattr(args, dest, None) is not None:
             raise _not_ported(flag)
@@ -250,6 +253,11 @@ def _resolve_config(args):
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     _check_ported(args)
+    if args.multihost:
+        # Before any CUDA use: the group binds each rank to its card.
+        from mmvae_torch.parallel.multihost import initialize
+
+        initialize()
 
     import torch
 
@@ -262,7 +270,7 @@ def main(argv=None) -> int:
 
     if args.cmd == "train":
         result = api.train(config, args.workdir, seed=args.seed, device=device,
-                           resume=args.resume, dtype=dtype)
+                           resume=args.resume, dtype=dtype, use_mesh=not args.no_mesh)
         print(json.dumps({"best_test_elbo": result.best_test_elbo}))
         return 0
 

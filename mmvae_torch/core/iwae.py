@@ -39,6 +39,7 @@ def iwae_bound(
     *,
     generator: torch.Generator | None = None,
     eps: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Per-example IWAE estimate of log p(x) of the joint batch, ``(B,)``.
 
@@ -48,6 +49,9 @@ def iwae_bound(
     noise is drawn from ``generator`` (on the model's device). The raw
     modality NLLs are summed (no lambdas: those weigh the training loss,
     not the likelihood). ``k=1`` is the single-sample ELBO estimator.
+    With a ``mesh`` (``parallel.make_mesh``) ``batch`` is this rank's rows
+    of the global batch, and the drawn noise is the global batch's, of
+    which the rank keeps its rows.
     """
     data = {name: v for name, v in batch.items() if name != "presence"}
     mu_e, lv_e = model.encode(data)  # (B, M, L)
@@ -56,8 +60,12 @@ def iwae_bound(
     mu, logvar = mu_f[0], lv_f[0]  # the joint posterior, (B, L)
     b = mu.shape[0]
     if eps is None:
-        eps = torch.randn((b, k, mu.shape[1]), generator=generator, device=mu.device,
+        # With a mesh, the global batch's noise and this rank's rows of it.
+        ranks = 1 if mesh is None else mesh.size
+        eps = torch.randn((b * ranks, k, mu.shape[1]), generator=generator, device=mu.device,
                           dtype=mu.dtype)
+        if ranks > 1:
+            eps = mesh.rows(eps)
     z = mu[:, None] + torch.exp(0.5 * logvar)[:, None] * eps  # (B, k, L)
     log_q = _diag_normal_logpdf(z, mu[:, None], logvar[:, None])  # (B, k)
     log_prior = _diag_normal_logpdf(

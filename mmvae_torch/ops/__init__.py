@@ -181,8 +181,8 @@ class _BernoulliNll(torch.autograd.Function):
         ctx.save_for_backward(l_rows, x_rows)
         ctx.shape, ctx.dtype = logits.shape, logits.dtype
         # b-major over examples of several rows: the rows an example holds.
-        inner = math.prod(batch_shape[1:]) if mode == kernels.FOLD_B else 1
-        return kernels.bernoulli_nll_kernel(l_rows, x_rows, mode, inner=inner).reshape(
+        ctx.inner = math.prod(batch_shape[1:]) if mode == kernels.FOLD_B else 1
+        return kernels.bernoulli_nll_kernel(l_rows, x_rows, mode, inner=ctx.inner).reshape(
             batch_shape)
 
     @staticmethod
@@ -191,7 +191,7 @@ class _BernoulliNll(torch.autograd.Function):
         logits, x = ctx.saved_tensors
         if ctx.kernel:
             g = g.reshape(-1).to(torch.float32).contiguous()
-            d_logits = kernels.bce_rows_grad_kernel(logits, x, g, ctx.mode)
+            d_logits = kernels.bce_rows_grad_kernel(logits, x, g, ctx.mode, inner=ctx.inner)
             return d_logits.reshape(ctx.shape).to(ctx.dtype), None, None, None, None
         g = g.reshape(g.shape + (1,) * ctx.event_ndims)
         x_tiled = kernels.tile_rows(x, logits.shape[0], ctx.mode).to(logits.dtype)
@@ -227,30 +227,21 @@ def bernoulli_nll(
     1). Under ``"t"`` the tiling of dim 0 is a tiling of the flattened
     rows too; under ``"b"`` with more than one batch dim the kernel reads
     the flattened rows through the b-major map over examples of
-    ``prod(batch dims[1:])`` rows (``bce_rows_inner``), whose gradient is
-    not ported: the kernel path raises when autograd would record it.
+    ``prod(batch dims[1:])`` rows (``bce_rows_inner``), and its gradient
+    through the same map (``bce_rows_grad_inner``).
     """
     mode = _fold(logits.shape[0], x.shape[0], fold)
-    batch_shape = logits.shape[: logits.dim() - event_ndims]
     if mode != kernels.FOLD_NONE and x.shape[1:] != logits.shape[1:]:
         raise ValueError(
             f"targets {tuple(x.shape)} are not a row tiling of logits "
             f"{tuple(logits.shape)}"
         )
     # Refused before the device is checked: no kernel gives dx, on any
-    # device, nor the logits' gradient at the b-major map over examples
-    # of several rows.
+    # device.
     if _kernel_path(logits) and _records_grad(x):
         raise RuntimeError(
             "ops.bernoulli_nll: the kernel path has no gradient in the targets (dx); "
             "call it with targets that do not require grad, or with set_backend('torch')"
-        )
-    if (_kernel_path(logits) and mode == kernels.FOLD_B and len(batch_shape) > 1
-            and _records_grad(logits)):
-        raise RuntimeError(
-            "ops.bernoulli_nll: the gradient of the b-major map over examples of several "
-            "rows is not yet ported to mmvae_torch's kernels; call it without grad, or "
-            "with set_backend('torch')"
         )
     kernel = _use_kernel(logits)
     return _BernoulliNll.apply(logits, x, event_ndims, mode, kernel)

@@ -71,7 +71,8 @@
 // _kl_bwd and _bce_bwd), for an upstream gradient g of one value a row:
 //     kl_rows_grad:  dmu = g * mu,  dlv = 0.5 * g * (exp(lv) - 1);
 //     bce_rows_grad: dlogits = g * (sigmoid(l) - x[target row]),
-// the targets read through the forward's row map, so they stay untiled, in
+// the targets read through the forward's row map, so they stay untiled
+// (bce_rows_grad_inner: bce_rows_inner's map, in its grid), in
 // float32 or bfloat16 as bce_rows reads them (d x, -g * l summed over the
 // rows that read a target row, is not computed: no ported loss
 // differentiates the targets). Both are
@@ -445,6 +446,32 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// BCE's gradient in the logits at bce_rows_inner's map: the same grid of
+// (inner row a, term t, example b), a thread a row. Logits row (b * k + t)
+// * inner + a reads g at that row and x row b * inner + a, and writes its
+// d elements of dlogits.
+template <typename T>
+__global__ void bce_inner_grad_rows_kernel(const float* __restrict__ logits,
+                                           const T* __restrict__ x,
+                                           const float* __restrict__ g,
+                                           float* __restrict__ dlogits, int n_b, int k,
+                                           int inner, int d) {
+  for (int b = blockIdx.z; b < n_b; b += gridDim.z) {
+    for (int t = blockIdx.y * blockDim.y + threadIdx.y; t < k;
+         t += gridDim.y * blockDim.y) {
+      for (int a = blockIdx.x * blockDim.x + threadIdx.x; a < inner;
+           a += gridDim.x * blockDim.x) {
+        const size_t row = (static_cast<size_t>(b) * k + t) * inner + a;
+        const size_t x_row = static_cast<size_t>(b) * inner + a;
+        const float gr = g[row];
+        for (int c = 0; c < d; ++c) {
+          dlogits[row * d + c] = bce_dlogit(gr, logits[row * d + c], load_x(x, x_row * d + c));
+        }
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -631,4 +658,32 @@ extern "C" int bce_rows_grad(const float* logits, const void* x, const float* g,
   }
   return bce_rows_grad_t(logits, static_cast<const float*>(x), g, dlogits, n, d, n_x, fold,
                          threads, lanes, grid_x, grid_y, grid_z, stream);
+}
+
+// logits, dlogits: (n_b * k * inner, d); g: (n_b * k * inner,); x: (n_b *
+// inner, d), float32 or bfloat16 (x_dtype 0 or 1), read through
+// bce_rows_inner's map; the rest f32; all contiguous. The launch is
+// bce_rows_inner's: blocks of (lanes, rows) threads over a grid of (grid_x,
+// grid_y, grid_z), every axis strided by its grid.
+extern "C" int bce_rows_grad_inner(const float* logits, const void* x, const float* g,
+                                   float* dlogits, int n_b, int k, int inner, int d,
+                                   int x_dtype, int lanes, int rows, int grid_x, int grid_y,
+                                   int grid_z, cudaStream_t stream) {
+  if (n_b <= 0 || k <= 0 || inner <= 0 || d <= 0 || lanes < 1 || rows < 1 ||
+      lanes > 1024 || rows > 1024 || lanes * rows > 1024 || grid_x < 1 ||
+      grid_y < 1 || grid_y > kMaxGridYZ || grid_z < 1 || grid_z > kMaxGridYZ ||
+      static_cast<long long>(n_b) * k * inner >= kIntEnd ||
+      inner + static_cast<long long>(grid_x) * lanes >= kIntEnd ||
+      k + static_cast<long long>(grid_y) * rows >= kIntEnd || x_dtype < 0 || x_dtype > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, grid_y, grid_z), block(lanes, rows);
+  if (x_dtype == 1) {
+    bce_inner_grad_rows_kernel<<<grid, block, 0, stream>>>(
+        logits, static_cast<const __nv_bfloat16*>(x), g, dlogits, n_b, k, inner, d);
+  } else {
+    bce_inner_grad_rows_kernel<<<grid, block, 0, stream>>>(
+        logits, static_cast<const float*>(x), g, dlogits, n_b, k, inner, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -88,6 +88,7 @@ __all__ = [
     "bce_plan",
     "BceInnerPlan",
     "bce_inner_plan",
+    "bce_grad_inner_plan",
     "SeqCePlan",
     "seq_ce_plan",
     "ConvPlan",
@@ -140,8 +141,8 @@ FOLD_NONE, FOLD_T, FOLD_B = 0, 1, 2
 
 # Kernel launches per wrapper, counted where each launch is made.
 LAUNCHES = {"kl": 0, "bce": 0, "seq_ce": 0, "conv": 0, "poe_kl": 0,
-            "kl_bwd": 0, "bce_bwd": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0, "conv_bwd": 0,
-            "conv_dx": 0}
+            "kl_bwd": 0, "bce_bwd": 0, "bce_bwd_inner": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0,
+            "conv_bwd": 0, "conv_dx": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # Library name -> CUDA source; each library exports ``<name>_error_string``.
@@ -173,6 +174,8 @@ _SIGNATURES = {
         "kl_rows_grad": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr],
         "bce_rows_grad": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
                           _i32, _i32, _ptr],
+        "bce_rows_grad_inner": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32,
+                                _i32, _i32, _i32, _i32, _ptr],
     },
     "seq_ce": {
         "seq_ce_rows": [_ptr, _ptr, _i32, _ptr, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _ptr],
@@ -474,6 +477,15 @@ def bce_inner_plan(n_b: int, k: int, inner: int) -> BceInnerPlan:
                         min(n_b, GRID_YZ_MAX))
 
 
+def bce_grad_inner_plan(n_b: int, k: int, inner: int) -> BceInnerPlan:
+    """The launch of K2's VJP at the b-major map over ``n_b`` examples of
+    ``inner`` rows (``bce_rows_grad_inner``): the forward's grid, a thread
+    a row (:func:`bce_inner_plan`). CelebA's train step under the ``"b"``
+    fold (64 examples, 23 attribute terms, 18 rows): blocks of 18 x 14
+    over a (1, 2, 64) grid."""
+    return bce_inner_plan(n_b, k, inner)
+
+
 def bernoulli_nll_kernel(
     logits: torch.Tensor, x: torch.Tensor, fold: int = FOLD_NONE,
     plan: BcePlan | BceInnerPlan | None = None, inner: int = 1,
@@ -596,13 +608,16 @@ def bce_grad_plan(
 
 def bce_rows_grad_kernel(
     logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE,
-    plan: BceGradPlan | None = None,
+    plan: BceGradPlan | BceInnerPlan | None = None, inner: int = 1,
 ) -> torch.Tensor:
     """K2's VJP in the logits on ``(N, D)`` f32 CUDA rows: ``g[r] *
     (sigmoid(logits[r]) - x[map(r)])``, as ``_bce_bwd``, with ``x`` (float32
-    or bfloat16) and ``fold`` as :func:`bernoulli_nll_kernel` takes them (the
-    tiled copy is never made) and ``g`` the ``(N,)`` upstream gradient, in
-    the launch :func:`bce_grad_plan` gives the shape (or ``plan``)."""
+    or bfloat16), ``fold`` and ``inner`` as :func:`bernoulli_nll_kernel`
+    takes them (the tiled copy is never made) and ``g`` the ``(N,)``
+    upstream gradient, in the launch :func:`bce_grad_plan` gives the shape
+    (or ``plan``). ``inner > 1`` with ``FOLD_B`` launches
+    ``bce_rows_grad_inner`` in the grid :func:`bce_grad_inner_plan` sizes,
+    counted as ``LAUNCHES["bce_bwd_inner"]``."""
     _check_rows("logits", logits)
     _check_rows("x", x, tuple(_DTYPE_CODES))
     if x.shape[1] != logits.shape[1] or x.device != logits.device:
@@ -619,10 +634,25 @@ def bce_rows_grad_kernel(
         fold != FOLD_NONE and (n_x == 0 or n % n_x)
     ):
         raise ValueError(f"{n} logits rows do not fold onto {n_x} target rows")
+    if inner != 1 and (fold != FOLD_B or inner < 1 or n_x % inner):
+        raise ValueError(f"inner={inner} needs FOLD_B and whole examples of {n_x} rows")
     out = torch.empty_like(logits)
     if out.numel() == 0:
         return out
+    if inner != 1:
+        plan = plan or bce_grad_inner_plan(n_x // inner, n // n_x, inner)
+        if not isinstance(plan, BceInnerPlan):
+            raise TypeError(f"inner={inner} takes a BceInnerPlan, got {plan!r}")
+        _launch(
+            "row_reduce", "bce_rows_grad_inner", logits.device, logits.data_ptr(),
+            x.data_ptr(), g.data_ptr(), out.data_ptr(), n_x // inner, n // n_x, inner, d,
+            _DTYPE_CODES[x.dtype], *plan,
+        )
+        LAUNCHES["bce_bwd_inner"] += 1
+        return out
     plan = plan or bce_grad_plan(n, d, n_x)
+    if not isinstance(plan, BceGradPlan):
+        raise TypeError(f"bce_rows_grad takes a BceGradPlan, got {plan!r}")
     _launch(
         "row_reduce", "bce_rows_grad", logits.device, logits.data_ptr(), x.data_ptr(),
         g.data_ptr(), out.data_ptr(), n, d, n_x, fold, _DTYPE_CODES[x.dtype], *plan,
@@ -632,10 +662,11 @@ def bce_rows_grad_kernel(
 
 
 def bce_rows_grad_torch(
-    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE
+    logits: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fold: int = FOLD_NONE,
+    inner: int = 1,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`bce_rows_grad_kernel` (tiles ``x``)."""
-    x = tile_rows(x, logits.shape[0], fold).to(logits.dtype)
+    x = tile_rows(x, logits.shape[0], fold, inner).to(logits.dtype)
     return g[:, None] * (torch.sigmoid(logits) - x)
 
 

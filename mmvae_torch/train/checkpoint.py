@@ -45,6 +45,7 @@ from typing import Any
 
 import torch
 
+from mmvae_torch.parallel.multihost import is_primary, process_count, sync
 from mmvae_torch.train.state import TrainState
 
 __all__ = [
@@ -144,10 +145,16 @@ def save_checkpoint(
     ``keep_epochs > 0`` also writes ``ckpt/epoch_<k>`` and keeps the newest
     ``keep_epochs`` of them. ``generators`` (name -> generator) are saved
     by state.
+
+    In a multi-process run every rank calls it: rank 0 writes (the state
+    is replicated), and a barrier after the write holds every rank until
+    the checkpoint is complete, so any rank may read it next.
     """
-    extra = extra or {}
-    tree = _cpu(_to_tree(state, {"epoch": epoch, **extra}, generators or {}))
-    _serialize_and_flip(workdir, tree, epoch, is_best, extra, keep_epochs)
+    if is_primary():
+        extra = extra or {}
+        tree = _cpu(_to_tree(state, {"epoch": epoch, **extra}, generators or {}))
+        _serialize_and_flip(workdir, tree, epoch, is_best, extra, keep_epochs)
+    sync()
 
 
 def _serialize_and_flip(
@@ -238,9 +245,14 @@ class AsyncCheckpointWriter:
     completed.
     A failed save raises at the next :meth:`poll`, :meth:`drain` or
     :meth:`finalize`. :meth:`finalize` drains the worker and shuts it
-    down; the caller then saves the last state synchronously."""
+    down; the caller then saves the last state synchronously. One process
+    alone: a multi-process run saves synchronously (rank 0 writing,
+    :func:`save_checkpoint`), as the JAX multi-host run does."""
 
     def __init__(self, workdir: str):
+        if process_count() > 1:
+            raise ValueError("AsyncCheckpointWriter writes from one process; a multi-process "
+                             "run saves with save_checkpoint")
         self._workdir = workdir
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="ckpt-async")
         self._inflight = None

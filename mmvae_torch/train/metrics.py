@@ -15,6 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from mmvae_torch.parallel.multihost import is_primary
+
 __all__ = ["AverageMeter", "MetricsWriter"]
 
 
@@ -48,17 +50,24 @@ def _plain(v):
 
 class MetricsWriter:
     """Append-only JSONL metrics sink: one record per call, each with the
-    host's ``time`` unless the record carries one."""
+    host's ``time`` unless the record carries one. In a multi-process run
+    only rank 0 writes; on the other ranks it opens nothing and drops the
+    records."""
 
     def __init__(self, workdir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, filename)
-        self._fh = open(self.path, "a", buffering=1)
+        self._fh = None
+        if is_primary():
+            os.makedirs(workdir, exist_ok=True)
+            self._fh = open(self.path, "a", buffering=1)
 
     def write(self, record: dict[str, Any]) -> None:
+        if self._fh is None:
+            return
         rec = {k: _plain(v) for k, v in record.items()}
         rec.setdefault("time", time.time())
         self._fh.write(json.dumps(rec) + "\n")
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()

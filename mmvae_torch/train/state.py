@@ -137,6 +137,24 @@ class TrainState:
         if self.accum_steps > 1 and self.acc_grads is None:
             self.acc_grads = [torch.zeros_like(p) for p in self.model.parameters()]
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the state that a train step reads or updates in
+        place: the model's parameters and buffers, ``device_step``, the EMA
+        shadow's, ``acc_grads``, a tensor learning rate and Adam's moments.
+        A CUDA graph holds their addresses; a data-parallel run makes them
+        equal on every rank."""
+        out = [*self.model.parameters(), *self.model.buffers(), self.device_step]
+        if self.ema_model is not None:
+            out += [*self.ema_model.parameters(), *self.ema_model.buffers()]
+        if self.acc_grads is not None:
+            out += self.acc_grads
+        for group in self.optimizer.param_groups:
+            if torch.is_tensor(group["lr"]):
+                out.append(group["lr"])
+        for per_param in self.optimizer.state.values():
+            out += [v for v in per_param.values() if torch.is_tensor(v)]
+        return out
+
     @property
     def micro_step(self) -> int:
         """The micro-step of the update in progress (optax's ``mini_step``)."""

@@ -1,11 +1,13 @@
 """The multi-term loss, the train step and the eval step.
 
-Port of ``mmvae_tpu/train/step.py`` for the inference slices and the
-MNIST, FashionMNIST, MultiMNIST, CelebA and CUB training slices: all four
-objectives (``"mvae"``, ``"mmvae"``, ``"mopoe"``, ``"mvtcae"``) and every
-loss knob of the JAX ``multi_term_loss``, under the t-major term fold
-(``term_fold="t"``, the single-device path of both the JAX eval and the
-JAX train step, ``step.py:532-578``) with an optional presence mask.
+Port of ``mmvae_tpu/train/step.py``: all four objectives (``"mvae"``,
+``"mmvae"``, ``"mopoe"``, ``"mvtcae"``) and every loss knob of the JAX
+``multi_term_loss``, with an optional presence mask, under its three term
+folds: t-major (``term_fold="t"``, the single-device path of both the JAX
+eval and the JAX train step, ``step.py:532-578``), b-major (``"b"``,
+``:579-631``) and shard-local t-major (``"st"``, ``:632-697``), and data
+parallel over a mesh of processes (``parallel.make_mesh``): each rank
+runs its rows of the global batch, and the step reduces the gradient once.
 
   * encoders run ONCE per modality -> ``(B, M, L)`` expert stack;
   * the ``(T, M)`` term masks: under mvae the joint, the M unimodal terms
@@ -85,8 +87,15 @@ examples of 18 rows; MultiMNIST and CUB: K2 and K3), and K4 once on
 CelebA and CUB. Its proposal is the joint PoE posterior under every
 objective, as in the JAX package.
 
-The other train folds (``"b"``, ``"st"``) are not ported yet and raise;
-gradient accumulation is not taken yet.
+Under ``"b"`` the decoders read rows ``b * T + t``, and the NLL kernels
+read the untiled targets through their b-major maps (CelebA's attributes
+through K2's map over examples of 18 rows, forward and backward); under
+``"st"`` each rank folds its own rows t-major, as ``"t"`` does. Both take
+the fused PoE + KL's ``(T, B, L)`` posteriors through a ``(B, T, L)``
+view and draw the noise in that layout. With a mesh the step all-reduces
+one flat buffer of every gradient and loss metric (a graph on the card
+holds the NCCL collective), and the eval and IWAE runners reduce their
+stacked values once after the split.
 """
 
 from __future__ import annotations
@@ -95,6 +104,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from mmvae_torch import ops
@@ -112,7 +122,7 @@ from mmvae_torch.core import (
 from mmvae_torch.core.mixture import _MOPOE_POWERSET_MAX
 from mmvae_torch.data.pipelines import presence_from_keep, sample_presence
 from mmvae_torch.ops import kernels
-from mmvae_torch.ops.kernels import FOLD_T, tile_rows
+from mmvae_torch.ops.kernels import FOLD_B, FOLD_T, tile_rows
 from mmvae_torch.train.state import TrainState, global_norm
 
 __all__ = [
@@ -129,18 +139,38 @@ __all__ = [
 ]
 
 _BINARIZE = (False, True, "both")
+TERM_FOLDS = ("t", "b", "st")
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to mmvae_torch")
 
 
-def _check_ported(objective: str, term_fold: str) -> None:
-    """Raise on an unknown objective or a fold not ported yet."""
+def _check_fold(objective: str, term_fold: str, mesh) -> None:
+    """Raise on an unknown objective or fold, and on ``"st"`` without a
+    mesh (``step.py:641-642``)."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
-    if term_fold != "t":
-        raise _not_ported(f"term_fold {term_fold!r}")
+    if term_fold not in TERM_FOLDS:
+        raise ValueError(f"unknown term_fold {term_fold!r}; have {TERM_FOLDS}")
+    if term_fold == "st" and mesh is None:
+        raise ValueError("term_fold='st' requires a mesh")
+
+
+def _draw(make: Callable, shape: tuple, mesh, dim: int = 0) -> torch.Tensor:
+    """``make(shape)``, a draw whose axis ``dim`` is the batch: with a mesh
+    drawn at the global shape (that axis times the ranks) and this rank's
+    rows kept, so every world size draws the same numbers from a generator
+    kept in lockstep (``mmvae_tpu/train/step.py:579-598``)."""
+    if mesh is None or mesh.size == 1:
+        return make(shape)
+    glob = list(shape)
+    glob[dim] *= mesh.size
+    return mesh.rows(make(tuple(glob)), dim)
+
+
+def _randn(generator, device, dtype) -> Callable:
+    return lambda shape: torch.randn(shape, generator=generator, device=device, dtype=dtype)
 
 
 def _member_prune_keys(model, n_mod: int, n_terms: int):
@@ -193,12 +223,13 @@ def _dequant_data(data: dict, dtype: torch.dtype = torch.float32) -> dict:
     }
 
 
-def _seq_tiled(model, data: dict, n_rows: int) -> dict:
-    """``data`` with each sequence modality's tokens tiled t-major to
-    ``n_rows`` rows: the teacher-forced decoders read them (as
-    ``_tile_terms_tmajor`` feeds them in the JAX step)."""
+def _seq_tiled(model, data: dict, n_rows: int, fold: int = FOLD_T) -> dict:
+    """``data`` with each sequence modality's tokens tiled to ``n_rows``
+    rows, t-major (``FOLD_T``, as ``_tile_terms_tmajor`` feeds them in the
+    JAX step) or b-major (``FOLD_B``, ``_tile_terms``): the teacher-forced
+    decoders read them."""
     seq_names = [s.name for s in model.specs() if s.kind == "seq"]
-    return {**data, **{n: tile_rows(data[n], n_rows, FOLD_T) for n in seq_names}}
+    return {**data, **{n: tile_rows(data[n], n_rows, fold) for n in seq_names}}
 
 
 def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tensor:
@@ -225,6 +256,65 @@ def _pruned_nll_t(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tenso
         val = nll_k.reshape(len(mods), tk, b).transpose(0, 1)  # (tk, M_k, b)
         out[r[:, None], m[None, :]] = val
     return out
+
+
+def _pruned_nll_b(model, z: torch.Tensor, data: dict, prune_keys) -> torch.Tensor:
+    """Member-only decode+NLL under the b-major fold (``_pruned_nll``'s
+    ``"b"`` layout, ``step.py:205-272``): ``z`` is ``(B, T, L)``, each
+    key's member rows folded b-major into ``B * tk`` rows, the sequence
+    targets tiled b-major and the others read untiled through ``fold="b"``
+    (CelebA's attributes through the map over examples of 18 rows).
+    Returns ``(T, M, B)``, exact zeros outside the member rows."""
+    b, n_terms = z.shape[0], z.shape[1]
+    out = z.new_zeros((n_terms, model.n_modalities, b))
+    tiled_by_tk: dict[int, dict] = {}
+    for key, (rows, mods) in prune_keys.items():
+        tk = len(rows)
+        if tk not in tiled_by_tk:
+            tiled_by_tk[tk] = _seq_tiled(model, data, b * tk, FOLD_B)
+        targets = tiled_by_tk[tk]
+        r = _device_tensor(tuple(rows), z.device)
+        m = _device_tensor(tuple(mods), z.device)
+        z_k = z.index_select(1, r).reshape(b * tk, -1)
+        recon = model.decode_one(key, z_k, targets)
+        nll_k = model.nll_one(key, recon, targets, fold="b")  # (M_k, b * tk)
+        val = nll_k.reshape(len(mods), b, tk).permute(2, 0, 1)  # (tk, M_k, b)
+        out[r[:, None], m[None, :]] = val
+    return out
+
+
+def _decode_all_nll_b(model, z: torch.Tensor, data: dict) -> torch.Tensor:
+    """The decode-all pass under the b-major fold (``step.py:602-631``):
+    every decode key decodes all ``B * T`` rows of ``z`` ``(B, T, L)``
+    once, row ``b * T + t``. Returns ``(T, M, B)``."""
+    b, n_terms = z.shape[0], z.shape[1]
+    targets = _seq_tiled(model, data, b * n_terms, FOLD_B)
+    z_flat = z.reshape(b * n_terms, -1)
+    order, rows = [], []
+    for key, mods in model.decode_key_modalities().items():
+        recon = model.decode_one(key, z_flat, targets)
+        rows.append(model.nll_one(key, recon, targets, fold="b"))  # (M_k, B * T)
+        order += mods
+    if order != list(range(model.n_modalities)):
+        raise _not_ported("decode keys out of modality order")
+    return torch.cat(rows).reshape(model.n_modalities, b, n_terms).permute(2, 0, 1)
+
+
+def _pruned_nll(model, z: torch.Tensor, data: dict, prune_keys, term_fold: str) -> torch.Tensor:
+    """The member-only pass of ``term_fold`` on ``z`` in its layout (as
+    :func:`_decode_all_nll` takes it). Returns ``(T, M, B)``."""
+    if term_fold == "b":
+        return _pruned_nll_b(model, z, data, prune_keys)
+    return _pruned_nll_t(model, z if term_fold == "t" else z.transpose(0, 1), data, prune_keys)
+
+
+def _decode_all_nll(model, z: torch.Tensor, data: dict, term_fold: str) -> torch.Tensor:
+    """The decode-all pass of ``term_fold`` on ``z`` in its layout: ``(T,
+    B, L)`` under ``"t"``, ``(B, T, L)`` under ``"b"`` and ``"st"`` (whose
+    rank-local rows fold t-major). Returns ``(T, M, B)``."""
+    if term_fold == "b":
+        return _decode_all_nll_b(model, z, data)
+    return _decode_all_nll_t(model, z if term_fold == "t" else z.transpose(0, 1), data)
 
 
 def _decode_all_nll_t(model, z: torch.Tensor, data: dict) -> torch.Tensor:
@@ -423,6 +513,7 @@ def multi_term_loss(
     eps: torch.Tensor | None = None,
     subset_masks: torch.Tensor | None = None,
     cycle_eps: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Total multi-term ELBO loss (batch mean) and per-term metrics.
 
@@ -453,7 +544,23 @@ def multi_term_loss(
         joint row is decoded.
 
     ``sample=False`` takes z = posterior mean (eval). With ``sample=True``
-    the noise comes from ``eps`` (``(T, B, L)``) or ``generator``.
+    the noise comes from ``eps`` or ``generator``, in the layout of the
+    fold's posteriors: ``(T, B, L)`` under ``term_fold="t"``, ``(B, T,
+    L)`` under ``"b"`` and ``"st"`` (JAX's layouts, so a parity run can
+    pass JAX's noise in).
+
+    ``term_fold`` (``step.py:532-697``) folds the terms into the decoders'
+    rows: ``"t"`` t-major (row ``t * B + b``), ``"b"`` b-major (row ``b *
+    T + t``; the targets stay untiled and the NLL kernels read them through
+    their b-major maps), ``"st"`` (needs ``mesh``) the posteriors and the
+    draw in the ``"b"`` layout and each rank's own rows folded t-major.
+    The fused PoE + KL is one ``ops.poe_kl`` call under every fold; ``"b"``
+    and ``"st"`` read its ``(T, B, L)`` posteriors through a ``(B, T, L)``
+    view. ``mesh`` (``parallel.make_mesh``): ``batch`` holds this rank's
+    rows of the global batch, and every draw (the noise, the mvtcae cycle
+    noise) is made at the global shape and this rank's rows kept; the
+    loss is this rank's mean, which the train step averages over the
+    ranks. ``eps`` and ``cycle_eps`` passed in are this rank's rows.
     ``cross_recon``, ``cross_recon_weight``, ``cycle_weight``,
     ``cycle_render_grad`` and ``cycle_render_binarize`` are those of the
     JAX loss (module docstring); with ``cycle_weight > 0`` the metrics
@@ -473,7 +580,7 @@ def multi_term_loss(
     ``cycle_contrast``). The mixture objectives refuse ``n_random_subsets``,
     ``cross_recon*`` and ``unimodal_align_weight`` as the JAX loss does.
     """
-    _check_ported(objective, term_fold)
+    _check_fold(objective, term_fold, mesh)
     _check_knobs(
         model, objective, n_random_subsets=n_random_subsets, cross_recon=cross_recon,
         cross_recon_stopgrad=cross_recon_stopgrad, unimodal_align_weight=unimodal_align_weight,
@@ -502,28 +609,36 @@ def multi_term_loss(
         # posteriors the cross-KLs and the cycle term read.
         uni_mu, uni_lv = fused_mu[1:], fused_lv[1:]  # (M, B, L)
         fused_mu, fused_lv, kl, masks = fused_mu[:1], fused_lv[:1], kl[:1], masks[:1]
-    z = reparameterize(
-        fused_mu, fused_lv, sample=sample, generator=generator, eps=eps
-    )
+    b = fused_mu.shape[1]
+    if term_fold == "t":
+        q_mu, q_lv = fused_mu, fused_lv  # (T, B, L)
+    else:
+        # (B, T, L), the layout of the JAX fusion under "b" and "st"
+        # (``step.py:579-598``): the kernel's (T, B, L) through a view.
+        q_mu, q_lv = fused_mu.transpose(0, 1), fused_lv.transpose(0, 1)
+    if sample and eps is None:
+        eps = _draw(_randn(generator, q_mu.device, q_mu.dtype), tuple(q_mu.shape), mesh,
+                    1 if term_fold == "t" else 0)
+    z = reparameterize(q_mu, q_lv, sample=sample, eps=eps)
     if member_prune and objective == "mvae" and not cross_recon:
         prune_keys = _member_prune_keys(model, n_mod, masks.shape[0])
     else:
         prune_keys = None
     if prune_keys is not None:
-        nll = _pruned_nll_t(model, z, data, prune_keys)  # (T, M, B)
+        nll = _pruned_nll(model, z, data, prune_keys, term_fold)  # (T, M, B)
     else:
-        nll = _decode_all_nll_t(model, z, data)
+        nll = _decode_all_nll(model, z, data, term_fold)
     if presence is not None:
         nll = nll * presence.T[None]  # unobserved modalities are no targets
     if cross_recon_stopgrad:
         # The cross entries from detached decoders: the same values, a
         # gradient that reaches the encoders only (``step.py:731-745``).
-        nll_sg = _decoders_detached(model, _decode_all_nll_t, z, data)
+        nll_sg = _decoders_detached(model, _decode_all_nll, z, data, term_fold)
         if presence is not None:
             nll_sg = nll_sg * presence.T[None]
         own = masks[:, :, None]
         nll = own * nll + (1.0 - own) * nll_sg
-    present = _term_present(masks, presence, z.shape[1])  # (T, B)
+    present = _term_present(masks, presence, b)  # (T, B)
     term_weights = None
     if objective != "mvae":
         # Every modality is a target of every term, and each example's
@@ -541,7 +656,7 @@ def multi_term_loss(
     if objective == "mvtcae":
         # KL(q_joint || q_m) for each observed m, averaged over them.
         cross = kl_gauss_gauss(fused_mu, fused_lv, uni_mu, uni_lv)  # (M, B)
-        obs = present.new_ones((n_mod, z.shape[1])) if presence is None else presence.T > 0
+        obs = present.new_ones((n_mod, b)) if presence is None else presence.T > 0
         obs = obs.to(cross.dtype)
         cross_kl = (cross * obs).sum(0) / torch.clamp(obs.sum(0), min=1.0)  # (B,)
         kl = (1.0 - mvtcae_alpha) * kl + mvtcae_alpha * cross_kl[None]
@@ -561,12 +676,16 @@ def multi_term_loss(
         if objective == "mvtcae":
             # No unimodal term is decoded: draw the s-only latent from the
             # unimodal posterior, with its own noise (``step.py:855-865``).
-            z_of = {s_i: reparameterize(
-                uni_mu[s_i], uni_lv[s_i], sample=sample, generator=generator,
-                eps=None if cycle_eps is None else cycle_eps[j])
-                for j, s_i in enumerate(seq_idx)}
+            z_of = {}
+            for j, s_i in enumerate(seq_idx):
+                c_eps = None if cycle_eps is None else cycle_eps[j]
+                if sample and c_eps is None:
+                    c_eps = _draw(_randn(generator, uni_mu.device, uni_mu.dtype),
+                                  tuple(uni_mu[s_i].shape), mesh)
+                z_of[s_i] = reparameterize(uni_mu[s_i], uni_lv[s_i], sample=sample, eps=c_eps)
         else:
-            z_of = {s_i: z[_unimodal_term_row(objective, n_mod, s_i)] for s_i in seq_idx}
+            rows = {s_i: _unimodal_term_row(objective, n_mod, s_i) for s_i in seq_idx}
+            z_of = {s_i: z[r] if term_fold == "t" else z[:, r] for s_i, r in rows.items()}
         cycle_ce, cycle_contrast = _cycle_terms(
             model, z_of, data, presence, cycle_render_grad, cycle_render_binarize,
             cycle_contrast_weight > 0.0)
@@ -597,6 +716,7 @@ def make_train_step(
     member_prune: bool = True,
     term_fold: str = "t",
     generator: torch.Generator | None = None,
+    mesh=None,
 ) -> Callable:
     """The train step ``(state, batch, eps=None, keep=None,
     subset_masks=None, cycle_eps=None, commit=None) -> (state, metrics)``
@@ -610,18 +730,28 @@ def make_train_step(
     none kept keeps all. The loss is :func:`multi_term_loss` with
     ``sample=True`` and the loss knobs given here, its ``n_random_subsets``
     masks ``subset_masks`` (``(k, M)``) or a draw from ``generator``, its
-    noise ``eps`` (``(T, B, L)``) and, for the cycle term under mvtcae,
-    ``cycle_eps`` (``(S, B, L)``) or draws from ``generator`` (on the
-    model's device).
+    noise ``eps`` (in the fold's layout, :func:`multi_term_loss`) and, for
+    the cycle term under mvtcae, ``cycle_eps`` (``(S, B, L)``) or draws
+    from ``generator`` (on the model's device).
     Then one micro-step of ``state`` (:meth:`TrainState.apply_gradients`:
     an update, or with the state's ``accum_steps > 1`` the gradients into
     its running mean and an update on the commit micro-step, ``commit``
     when given). The metrics are the loss terms, ``beta`` and
     ``grad_norm``, the global norm of the micro-batch's raw gradients
-    before clipping. Every objective is ported;
-    ``term_fold`` other than ``"t"`` raises here.
+    before clipping.
+
+    With a ``mesh`` (``parallel.make_mesh``) the batch is this rank's rows
+    of the global batch and the step is one rank's part of the JAX step on
+    a data mesh: the dropout ``keep`` and every noise are drawn at the
+    global shape and this rank's rows kept (``generator`` in lockstep on
+    every rank), and after the backward every gradient and every loss
+    metric goes into one flat buffer, all-reduced once (a sum, then a
+    division by the ranks: the mean of the ranks' means is the global
+    batch's mean, as GSPMD's reduction gives it). ``grad_norm``, clipping,
+    the EMA and each micro-step of accumulation then read the averaged
+    gradient on every rank.
     """
-    _check_ported(objective, term_fold)
+    _check_fold(objective, term_fold, mesh)
     _check_knobs(
         model, objective, n_random_subsets=n_random_subsets, cross_recon=cross_recon,
         cross_recon_stopgrad=cross_recon_stopgrad, unimodal_align_weight=unimodal_align_weight,
@@ -633,7 +763,7 @@ def make_train_step(
         unimodal_align_weight=unimodal_align_weight, cycle_weight=cycle_weight,
         cycle_render_grad=cycle_render_grad, cycle_contrast_weight=cycle_contrast_weight,
         cycle_render_binarize=cycle_render_binarize, objective=objective,
-        mvtcae_alpha=mvtcae_alpha, member_prune=member_prune, term_fold=term_fold,
+        mvtcae_alpha=mvtcae_alpha, member_prune=member_prune, term_fold=term_fold, mesh=mesh,
     )
 
     def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None,
@@ -641,9 +771,14 @@ def make_train_step(
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             b = next(iter(batch.values())).shape[0]
-            batch = dict(batch, presence=sample_presence(
-                generator, b, model.n_modalities, p_modality_drop, keep=keep,
-                device=model.device))
+            if keep is None:
+                presence = _draw(lambda shape: sample_presence(
+                    generator, shape[0], shape[1], p_modality_drop, device=model.device),
+                    (b, model.n_modalities), mesh)
+            else:
+                presence = sample_presence(generator, b, model.n_modalities, p_modality_drop,
+                                           keep=keep, device=model.device)
+            batch = dict(batch, presence=presence)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
             state.model, batch, beta, sample=True, generator=generator, eps=eps,
@@ -655,6 +790,8 @@ def make_train_step(
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = _all_reduce_mean([p.grad for p in params], metrics, mesh)
         metrics["grad_norm"] = global_norm([p.grad for p in params])
         metrics["beta"] = beta
         state.apply_gradients(commit)
@@ -663,33 +800,42 @@ def make_train_step(
     return train_step
 
 
-def _use_graph(model, graph: bool | None) -> bool:
+def _all_reduce_mean(grads: list[torch.Tensor], metrics: dict[str, torch.Tensor],
+                     mesh) -> dict[str, torch.Tensor]:
+    """``grads`` (in place) and ``metrics`` averaged over the mesh's ranks
+    in one all-reduce of one flat f32 buffer: a sum, then a division by the
+    ranks (gloo has no average). Returns the averaged metrics."""
+    parts = [*grads, *metrics.values()]
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
+    dist.all_reduce(flat, group=mesh.group)
+    flat = flat / _device_tensor((float(mesh.size),), flat.device, torch.float32)
+    out, at = {}, 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    for k, v in metrics.items():
+        out[k] = flat[at:at + v.numel()].view_as(v).to(v.dtype)
+        at += v.numel()
+    return out
+
+
+def _use_graph(model, graph: bool | None, mesh=None) -> bool:
     """Whether a runner over ``model`` replays a CUDA graph: on the card
-    unless ``graph=False`` asks for the eager loop; never on the CPU."""
+    unless ``graph=False`` asks for the eager loop; never on the CPU. With a
+    mesh whose group is not NCCL's (gloo syncs the host in each collective,
+    which a graph cannot hold) the card runs the eager loop, and
+    ``graph=True`` raises."""
     on_card = model.device.type == "cuda"
     if graph and not on_card:
         raise ValueError(f"a CUDA graph runner needs the model on the card, not {model.device}")
-    return on_card if graph is None else graph
+    capturable = mesh is None or mesh.backend == "nccl"
+    if graph and not capturable:
+        raise ValueError(f"a CUDA graph runner cannot hold a {mesh.backend} collective")
+    return on_card and capturable if graph is None else graph
 
 
 def _rows(batches: dict[str, torch.Tensor]) -> int:
     return next(iter(batches.values())).shape[0]
-
-
-def _state_tensors(state: TrainState) -> list[torch.Tensor]:
-    """Every tensor a train step reads or updates in place besides the
-    batch and the activations: a CUDA graph holds their addresses."""
-    out = [*state.model.parameters(), *state.model.buffers(), state.device_step]
-    if state.ema_model is not None:
-        out += list(state.ema_model.parameters())
-    if state.acc_grads is not None:
-        out += state.acc_grads
-    for group in state.optimizer.param_groups:
-        if torch.is_tensor(group["lr"]):
-            out.append(group["lr"])
-    for per_param in state.optimizer.state.values():
-        out += [v for v in per_param.values() if torch.is_tensor(v)]
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -855,20 +1001,24 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
     (row ``i`` commits when ``(state.step + i) % k == k - 1``); an update
     may straddle two calls.
 
-    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)``,
-    ``"subset_masks"``, ``(n_steps, k, M)``, and ``"cycle_eps"``,
-    ``(n_steps, S, B, L)``: each step's posterior noise, random subset
-    masks and mvtcae cycle noise in place of a draw (how a parity run feeds
-    two devices the same numbers).
+    ``batches`` may carry ``"eps"``, ``(n_steps, T, B, L)`` (``(n_steps,
+    B, T, L)`` under the ``"b"`` and ``"st"`` folds), ``"subset_masks"``,
+    ``(n_steps, k, M)``, ``"cycle_eps"``, ``(n_steps, S, B, L)``, and
+    ``"keep"``, ``(n_steps, B, M)``: each step's posterior noise, random
+    subset masks, mvtcae cycle noise and dropout draw in place of a draw
+    (how a parity run feeds two devices the same numbers). With a ``mesh``
+    in ``step_kwargs`` every batch is this rank's rows, and the card
+    replays a graph with the step's all-reduce inside where the group is
+    NCCL's (``_use_graph``).
     """
     train_step = make_train_step(model, **step_kwargs)
-    fed = ("eps", "subset_masks", "cycle_eps")
+    fed = ("eps", "subset_masks", "cycle_eps", "keep")
 
     def step(state, batch, commit=None):
         data = {k: v for k, v in batch.items() if k not in fed}
         return train_step(state, data, commit=commit, **{k: batch.get(k) for k in fed})
 
-    if not _use_graph(model, graph):
+    if not _use_graph(model, graph, step_kwargs.get("mesh")):
         def run(state, batches):
             per_step = []
             for i in range(_rows(batches)):
@@ -890,7 +1040,7 @@ def make_epoch_runner(model, *, graph: bool | None = None, **step_kwargs) -> Cal
                 step_kwargs.get("generator"), bodies=1 if k == 1 else 2)
         first_step = state.step
         which = [int(k > 1 and (first_step + i) % k == k - 1) for i in range(_rows(batches))]
-        metrics = graphed(batches, lambda: _state_tensors(state), which)
+        metrics = graphed(batches, state.tensors, which)
         state.step = first_step + _rows(batches)  # the capture passes also counted
         return state, metrics
 
@@ -912,9 +1062,10 @@ def epoch_order(
     force_shuffle: bool = False,
     generator: torch.Generator | None = None,
     draws: dict[str, Any] | None = None,
+    n_shards: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One epoch of ``make_gather_epoch_runner``'s order
-    (``mmvae_tpu/train/step.py:1306-1530``, one shard): ``(pos, rows)``.
+    (``mmvae_tpu/train/step.py:1306-1530``): ``(pos, rows)``.
 
     ``pos`` (CPU int64, ``(size,)``) is the persisted arrangement of the
     split, the rows of the loaded split in the order the JAX runner keeps
@@ -934,6 +1085,18 @@ def epoch_order(
     draws): ``"order"`` (a permutation of the rows or the groups),
     ``"group_offset"``, ``"roll_offset"``, ``"block_order"`` (a permutation
     of the steps).
+
+    ``n_shards > 1`` (``step.py:1339-1450``): ``pos`` is ``n_shards``
+    contiguous shards, and everything happens within each: a true shuffle
+    permutes each shard by its own order (``"order"`` ``(n_shards,
+    n_groups)``; by groups of G rows where G divides the shard, after a
+    roll of every shard by one ``"group_offset"``), the epochs between roll
+    each shard by one ``"roll_offset"`` in ``[1, per)`` or, under
+    ``"block"``, read block ``block_order[s]`` of every shard, and batch
+    ``s`` is ``batch_size / n_shards`` rows of each shard, shard-major (the
+    JAX runner's stratified batches). A rank of a mesh of ``n_shards``
+    ranks keeps its shard's block of each batch (``Mesh.rows`` along dim
+    1). The size and ``batch_size`` must divide over the shards.
     """
     if shuffle_mode not in SHUFFLE_MODES:
         raise ValueError(f"unknown shuffle_mode {shuffle_mode!r}; have {SHUFFLE_MODES}")
@@ -946,6 +1109,9 @@ def epoch_order(
     def randint(lo: int, hi: int) -> int:
         return int(torch.randint(lo, hi, (1,), generator=generator))
 
+    if n_shards > 1:
+        return _sharded_order(pos, epoch_i, n_steps, batch_size, n_shards, reshuffle_every,
+                              shuffle_mode, gran, force_shuffle, draw, randint, generator)
     n_used = n_steps * batch_size
     if reshuffle_every <= 1 or epoch_i % reshuffle_every == 0 or force_shuffle:
         if gran <= 1 or size % gran:
@@ -966,6 +1132,40 @@ def epoch_order(
     return pos, pos[:n_used].reshape(n_steps, batch_size)
 
 
+def _sharded_order(pos, epoch_i, n_steps, batch_size, n_shards, reshuffle_every,
+                   shuffle_mode, gran, force_shuffle, draw, randint, generator):
+    """:func:`epoch_order` over ``n_shards`` shards (its docstring)."""
+    size = pos.shape[0]
+    if size % n_shards or batch_size % n_shards:
+        raise ValueError(f"dataset size {size} and batch size {batch_size} must both divide "
+                         f"over {n_shards} shards")
+    per, b_local = size // n_shards, batch_size // n_shards
+    shards = pos.reshape(n_shards, per)
+    is_shuffle = reshuffle_every <= 1 or epoch_i % reshuffle_every == 0 or force_shuffle
+    if is_shuffle:
+        g = gran if per % gran == 0 else 1
+        n_groups = per // g
+        order = torch.as_tensor(draw("order", lambda: torch.stack(
+            [torch.randperm(n_groups, generator=generator) for _ in range(n_shards)])))
+        if g > 1:
+            shards = torch.roll(shards, int(draw("group_offset", lambda: randint(0, g))), 1)
+        groups = shards.reshape(n_shards, n_groups, g)
+        idx = order.reshape(n_shards, n_groups, 1).expand(-1, -1, g)
+        shards = torch.gather(groups, 1, idx).reshape(n_shards, per)
+    if shuffle_mode == "block" and reshuffle_every > 1:
+        if is_shuffle:
+            starts = torch.arange(n_steps) * b_local
+        else:
+            starts = torch.as_tensor(draw("block_order", lambda: torch.randperm(
+                n_steps, generator=generator))) * b_local
+        rows = shards[:, starts[:, None] + torch.arange(b_local)]  # (n_shards, n_steps, b_local)
+    else:
+        if not is_shuffle:
+            shards = torch.roll(shards, int(draw("roll_offset", lambda: randint(1, per))), 1)
+        rows = shards[:, :n_steps * b_local].reshape(n_shards, n_steps, b_local)
+    return shards.reshape(size), rows.permute(1, 0, 2).reshape(n_steps, batch_size)
+
+
 def make_gather_epoch_runner(
     model,
     n_steps: int,
@@ -976,12 +1176,14 @@ def make_gather_epoch_runner(
     shuffle_granularity: int = 1,
     order: torch.Generator | None = None,
     graph: bool | None = None,
+    n_shards: int = 1,
+    mesh=None,
+    term_fold: str | None = None,
     **step_kwargs,
 ) -> Callable:
-    """The JAX ``make_gather_epoch_runner`` on one device
-    (``mmvae_tpu/train/step.py:1163-1543``, ``n_shards = 1``):
-    ``run(state, arrays, pos=None, force_shuffle=False, draws=None) ->
-    (state, pos, metrics)``.
+    """The JAX ``make_gather_epoch_runner`` (``mmvae_tpu/train/step.py:
+    1163-1543``): ``run(state, arrays, pos=None, force_shuffle=False,
+    draws=None) -> (state, pos, metrics)``.
 
     ``arrays`` is the loaded split on the device, which stays as it is;
     ``pos`` the persisted arrangement (None: the loaded order), which
@@ -991,20 +1193,42 @@ def make_gather_epoch_runner(
     :func:`make_epoch_runner` (``graph``, ``step_kwargs``). The JAX runner
     moves its donated arrays (a gather, a roll) where the port moves only
     ``pos``: the rows each step reads are the same.
+
+    ``n_shards > 1`` takes :func:`epoch_order`'s per-shard order; a
+    ``mesh`` whose ranks divide ``batch_size`` is the shard count. With a
+    mesh, ``arrays`` is this rank's contiguous block of the split (shard
+    ``mesh.rank``), ``pos`` the whole split's arrangement (the same on
+    every rank: each draws every shard's order from ``order`` in lockstep
+    and keeps its own), and each step reads the rank's rows of the global
+    batch. ``term_fold`` (None) follows JAX (``step.py:1269-1277``):
+    ``"t"`` at one shard (the mesh dropped), ``"st"`` with a mesh in
+    hand, ``"b"`` with only ``n_shards``.
     """
     if shuffle_mode not in SHUFFLE_MODES:
         raise ValueError(f"unknown shuffle_mode {shuffle_mode!r}; have {SHUFFLE_MODES}")
-    runner = make_epoch_runner(model, graph=graph, **step_kwargs)
+    if mesh is not None and n_shards <= 1 and batch_size % mesh.size == 0:
+        n_shards = mesh.size
+    if term_fold is None:
+        term_fold = "t" if n_shards <= 1 else ("st" if mesh is not None else "b")
+    if mesh is not None and mesh.size == 1 and term_fold == "t":
+        mesh = None
+    if mesh is not None and n_shards != mesh.size:
+        raise ValueError(f"batch size {batch_size} in {n_shards} shards on a mesh of "
+                         f"{mesh.size} ranks: the shards must be the ranks")
+    runner = make_epoch_runner(model, graph=graph, term_fold=term_fold, mesh=mesh, **step_kwargs)
 
     def run(state, arrays, pos=None, force_shuffle=False, draws=None):
-        size = _rows(arrays)
+        local = _rows(arrays)
+        size = local * (1 if mesh is None else mesh.size)
         if pos is None:
             pos = torch.arange(size)
         pos, rows = epoch_order(
             pos, state.step // n_steps, n_steps, batch_size,
             reshuffle_every=reshuffle_every, shuffle_mode=shuffle_mode,
             shuffle_granularity=shuffle_granularity, force_shuffle=force_shuffle,
-            generator=order, draws=draws)
+            generator=order, draws=draws, n_shards=n_shards)
+        if mesh is not None:
+            rows = mesh.rows(rows, 1) - mesh.rank * local
         rows = rows.to(next(iter(arrays.values())).device)
         state, metrics = runner(state, {k: v[rows] for k, v in arrays.items()})
         return state, pos, metrics
@@ -1013,10 +1237,11 @@ def make_gather_epoch_runner(
 
 
 def make_eval_step(
-    model, objective: str = "mvae", mvtcae_alpha: float = 0.9
+    model, objective: str = "mvae", mvtcae_alpha: float = 0.9, term_fold: str = "t",
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
     """Eval step: full ELBO of ``objective`` at beta = 1 with z = posterior
-    mean (each mixture component's mean for mmvae and mopoe).
+    mean (each mixture component's mean for mmvae and mopoe), under
+    ``term_fold`` (``"t"`` or ``"b"``).
 
     Returns ``eval_step(batch) -> metrics``, run without autograd.
     """
@@ -1024,15 +1249,29 @@ def make_eval_step(
     @torch.no_grad()
     def eval_step(batch):
         _, metrics = multi_term_loss(
-            model, batch, 1.0, sample=False, objective=objective, mvtcae_alpha=mvtcae_alpha
+            model, batch, 1.0, sample=False, objective=objective, mvtcae_alpha=mvtcae_alpha,
+            term_fold=term_fold,
         )
         return metrics
 
     return eval_step
 
 
+def _mesh_gather_rows(values: torch.Tensor, mesh) -> torch.Tensor:
+    """``(n_batches, b)`` per-example values of this rank's rows into the
+    ``(n_batches, b * size)`` global batches, in one all-reduce of a buffer
+    that holds each rank's block and zeros elsewhere (exact: each entry
+    adds one value to zeros)."""
+    n, b = values.shape
+    out = values.new_zeros((n, b * mesh.size))
+    out[:, mesh.rank * b:(mesh.rank + 1) * b] = values
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
 def make_eval_runner(
-    model, objective: str = "mvae", mvtcae_alpha: float = 0.9, *, graph: bool | None = None
+    model, objective: str = "mvae", mvtcae_alpha: float = 0.9, *, graph: bool | None = None,
+    mesh=None,
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
     """Eval over pre-stacked ``(n_batches, B, ...)`` tensors. Returns
     ``run(batches) -> metrics`` with every metric stacked over the
@@ -1044,8 +1283,18 @@ def make_eval_runner(
     are: a runner built once serves every later eval of the same model,
     updated in place. ``graph=False`` asks for the eager loop on the card,
     one batch at a time, which the CPU always runs.
+
+    With a ``mesh`` each batch is this rank's rows of the global batch,
+    evaluated under the ``"b"`` fold (``step.py:1580-1615``), and the
+    stacked metrics are averaged over the ranks once, after the split:
+    every rank returns the global batches' metrics.
     """
-    return _split_runner(make_eval_step(model, objective, mvtcae_alpha), model, graph)
+    if mesh is None:
+        return _split_runner(make_eval_step(model, objective, mvtcae_alpha), model, graph)
+    run = _split_runner(make_eval_step(model, objective, mvtcae_alpha, "b"), model, graph)
+    # A rank's batch mean of its equal share of each batch: the mean over
+    # the ranks is the global batch's.
+    return lambda batches: _all_reduce_mean([], run(batches), mesh)
 
 
 def _split_runner(step: Callable, model, graph: bool | None,
@@ -1067,19 +1316,20 @@ def _split_runner(step: Callable, model, graph: bool | None,
 
 
 def make_iwae_step(
-    model, k: int = 64, generator: torch.Generator | None = None
+    model, k: int = 64, generator: torch.Generator | None = None, mesh=None,
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
     """IWAE step: ``iwae_step(batch) -> {"log_likelihood": (B,)}``, each
     example's estimate (``core.iwae_bound``) times its row of the batch's
     ``valid`` mask, so a pad row gives exactly 0 (the JAX ``scan`` body,
     ``mmvae_tpu/api.py:1278-1285``). The noise is ``batch["eps"]``
     ``(B, k, L)`` when the batch carries it, else a draw from
-    ``generator``. Run without autograd."""
+    ``generator`` (with a ``mesh``, the global batch's noise and this
+    rank's rows of it). Run without autograd."""
 
     @torch.no_grad()
     def iwae_step(batch):
         data = {name: v for name, v in batch.items() if name not in ("valid", "eps")}
-        ll = iwae_bound(model, data, k, generator=generator, eps=batch.get("eps"))
+        ll = iwae_bound(model, data, k, generator=generator, eps=batch.get("eps"), mesh=mesh)
         return {"log_likelihood": ll * batch["valid"]}
 
     return iwae_step
@@ -1087,7 +1337,7 @@ def make_iwae_step(
 
 def make_iwae_runner(
     model, k: int = 64, *, graph: bool | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, mesh=None,
 ) -> Callable[[dict[str, Any]], dict[str, torch.Tensor]]:
     """IWAE over pre-stacked ``(n_batches, B, ...)`` tensors with a
     ``valid`` ``(n_batches, B)`` mask and optionally ``eps`` ``(n_batches,
@@ -1101,5 +1351,14 @@ def make_iwae_runner(
     graph, so each replay draws the noise an eager batch would.
     ``graph=False`` asks for the eager loop on the card, one batch at a
     time, which the CPU always runs.
+
+    With a ``mesh`` each batch (and ``eps``) is this rank's rows of the
+    global batch (its IWAE samples b-major, as on one device), and the
+    per-example values come back as the global batches', gathered once
+    after the split (``mmvae_tpu/api.py:1240-1244``).
     """
-    return _split_runner(make_iwae_step(model, k, generator), model, graph, generator)
+    run = _split_runner(make_iwae_step(model, k, generator, mesh), model, graph, generator)
+    if mesh is None:
+        return run
+    return lambda batches: {"log_likelihood": _mesh_gather_rows(
+        run(batches)["log_likelihood"], mesh)}

@@ -235,12 +235,25 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
         ("--shuffle-granularity", "8"), ("--tp", "2"), ("--pp", "2"))),
     ["--fsdp"], ["--dtype", "bfloat16"], ["--multihost"],
 ])
-def test_unported_train_options_raise(argv):
+def test_unported_train_options_raise(argv, monkeypatch, tmp_path, capsys):
     """The flags of what the port does not have raise; the data flags
     (``--eval-segment-steps``, ``--data-dtype``, the grain backend and the
-    shuffle modes) are ported now and set their fields, and ``--dtype
-    bfloat16`` is ported and parses as the JAX CLI parses it."""
+    shuffle modes) are ported now and set their fields, ``--dtype
+    bfloat16`` is ported and parses as the JAX CLI parses it, and
+    ``--multihost`` parses and joins a one-rank gloo group from JAX's
+    ``MMVAE_*`` variables before it trains (one process: no mesh)."""
     args = ["train", "--config", "mnist", "--device", "cpu", *argv]
+    if argv[0] == "--multihost":
+        _multihost_env(monkeypatch)
+        try:
+            assert main([*args, "--n-latents", "8", "--epochs", "1", "--train-size", "16",
+                         "--test-size", "8", "--batch-size", "8",
+                         "--workdir", str(tmp_path / "wd")]) == 0
+            assert _one_rank_gloo_group()
+        finally:
+            _leave_group()
+        assert "best_test_elbo" in _last_json(capsys)
+        return
     if argv[0] == "--dtype":
         parsed = _build_parser().parse_args(args)
         _check_ported(parsed)
@@ -299,20 +312,61 @@ def test_unported_config_file_fields_raise(tmp_path, fields):
         main(argv)
 
 
+def _multihost_env(monkeypatch) -> None:
+    """JAX's ``MMVAE_*`` variables of a one-process group on a free port of
+    this machine's loopback; torchrun's unset."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("MMVAE_COORDINATOR", f"localhost:{port}")
+    monkeypatch.setenv("MMVAE_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MMVAE_PROCESS_ID", "0")
+
+
+def _one_rank_gloo_group() -> bool:
+    import torch.distributed as dist
+
+    return (dist.is_initialized() and dist.get_world_size() == 1
+            and dist.get_backend() == "gloo")
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("cmd", [
     ["export", "--config", "mnist", "--out", "x.bin", "--dtype", "bfloat16"],
     ["eval", "--config", "mnist", "--dtype", "bfloat16"],
     ["sample", "--config", "mnist", "--multihost"],
 ])
-def test_unported_commands_raise(cmd, workdir, capsys, tmp_path):
-    """``--multihost`` raises. ``--dtype bfloat16`` runs: ``eval`` of the
-    workdir prints the bf16 ELBO of ``api.eval_elbo(dtype=bf16)``, which is
-    not the f32 one; ``export`` writes an artifact of the bf16 program,
-    whose call equals ``api.generate(dtype=bf16)`` on the seeded init. The
-    JAX parser reads the same dtype from the same argv."""
+def test_unported_commands_raise(cmd, workdir, capsys, tmp_path, monkeypatch):
+    """``--multihost`` joins a one-rank gloo group first and the command
+    runs: ``sample`` of the workdir writes its npz, equal to a run without
+    the flag. ``--dtype bfloat16`` runs: ``eval`` of the workdir prints the
+    bf16 ELBO of ``api.eval_elbo(dtype=bf16)``, which is not the f32 one;
+    ``export`` writes an artifact of the bf16 program, whose call equals
+    ``api.generate(dtype=bf16)`` on the seeded init. The JAX parser reads
+    the same dtype from the same argv."""
     if "--dtype" not in cmd:
-        with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-            main([*cmd, "--device", "cpu"])
+        _multihost_env(monkeypatch)
+        outs = [str(tmp_path / f"s{i}.npz") for i in range(2)]
+        try:
+            assert main([*cmd, "--workdir", workdir, "--device", "cpu", "--n", "4",
+                         "--out", outs[0]]) == 0
+            assert _one_rank_gloo_group()
+        finally:
+            _leave_group()
+        assert main([*cmd[:-1], "--workdir", workdir, "--device", "cpu", "--n", "4",
+                     "--out", outs[1]]) == 0
+        got, want = np.load(outs[0]), np.load(outs[1])
+        assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
         return
     assert j_build_parser().parse_args(cmd).dtype == "bfloat16"
     if cmd[0] == "eval":

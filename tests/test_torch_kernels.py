@@ -196,6 +196,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     g = torch.ones(8, device=cuda)
     kernels.kl_rows_grad_kernel(x, x, g)
     kernels.bce_rows_grad_kernel(x, x[:4], g, kernels.FOLD_T)
+    kernels.bce_rows_grad_kernel(x, x[:4], g, kernels.FOLD_B, inner=2)
     kernels.masked_seq_ce_grad_kernel(x.view(8, 4, 4), tok, 0, g)
     kernels.poe_kl_grad_kernel(experts, experts, masks, None, mu_f, lv_f, mu_f, lv_f, kl)
     cg = torch.zeros((2, 32, 4, 4), device=cuda)
@@ -882,40 +883,103 @@ def test_ops_bce_attribute_rows_b_fold(cuda):
     """The CelebA attribute NLL of the IWAE through ops: (64 * 64, 18)
     logits at event_ndims=0 against (64, 18) targets, b-fold: one launch
     of ``bce_rows_inner``, equal to the ``torch`` backend; with the logits
-    requiring grad the kernel path raises before anything launches."""
+    requiring grad the backward is one launch of ``bce_rows_grad_inner``,
+    equal to the ``torch`` backend's gradient."""
     gen = torch.Generator().manual_seed(31)
     logits = _rand(gen, 64 * 64, 18, device=cuda, scale=3.0)
     x = torch.randint(0, 2, (64, 18), generator=gen).float().to(cuda)
-    before = kernels.LAUNCHES["bce"]
+    g = _rand(gen, 64 * 64, 18, device=cuda)
+    before = dict(kernels.LAUNCHES)
     got = ops.bernoulli_nll(logits, x, 0, fold="b")
-    assert kernels.LAUNCHES["bce"] == before + 1
+    assert kernels.LAUNCHES["bce"] == before["bce"] + 1
     ops.set_backend("torch")
     try:
         want = ops.bernoulli_nll(logits, x, 0, fold="b")
+        lt = logits.clone().requires_grad_(True)
+        (want_d,) = torch.autograd.grad(ops.bernoulli_nll(lt, x, 0, fold="b"), lt, g)
     finally:
         ops.set_backend("auto")
     assert got.shape == (64 * 64, 18)
     _close(got, want, 1)
-    with pytest.raises(RuntimeError, match="b-major map over examples"):
-        ops.bernoulli_nll(logits.requires_grad_(True), x, 0, fold="b")
-    assert kernels.LAUNCHES["bce"] == before + 1
+    lk = logits.clone().requires_grad_(True)
+    (got_d,) = torch.autograd.grad(ops.bernoulli_nll(lk, x, 0, fold="b"), lk, g)
+    assert kernels.LAUNCHES["bce"] == before["bce"] + 2
+    assert kernels.LAUNCHES["bce_bwd_inner"] == before["bce_bwd_inner"] + 1
+    assert kernels.LAUNCHES["bce_bwd"] == before["bce_bwd"]
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-6)
 
 
 def test_ops_bce_b_fold_inner_map_refuses_grad_on_the_cpu():
-    """Under the "kernel" backend the gradient at the b-major map over
-    examples of several rows is refused before the device is checked; the
-    "auto" backend takes the plain path, whose gradient flows."""
-    logits = torch.randn(12, 3, requires_grad=True)
-    x = torch.rand(4, 3)
+    """The gradient at the b-major map over examples of several rows:
+    under the "kernel" backend a CPU tensor is refused for its device
+    (the map itself is ported); the "auto" backend takes the plain path,
+    whose gradient is ``bce_rows_grad_torch`` at the inner map and
+    ``sigmoid(l) - x`` of the tiled targets."""
+    gen = torch.Generator().manual_seed(32)
+    logits = torch.randn(12, 3, generator=gen).requires_grad_(True)
+    x = torch.rand(4, 3, generator=gen)
+    g = torch.randn(12, 3, generator=gen)
     ops.set_backend("kernel")
     try:
-        with pytest.raises(RuntimeError, match="b-major map over examples"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
             ops.bernoulli_nll(logits, x, 0, fold="b")
     finally:
         ops.set_backend("auto")
-    (d_l,) = torch.autograd.grad(ops.bernoulli_nll(logits, x, 0, fold="b").sum(), logits)
-    want = torch.sigmoid(logits) - x.repeat_interleave(3, dim=0)
+    (d_l,) = torch.autograd.grad(ops.bernoulli_nll(logits, x, 0, fold="b"), logits, g)
+    want = g * (torch.sigmoid(logits) - x.repeat_interleave(3, dim=0))
     torch.testing.assert_close(d_l, want.detach())
+    plain = kernels.bce_rows_grad_torch(
+        logits.detach().reshape(-1, 1), x.reshape(-1, 1), g.reshape(-1), kernels.FOLD_B, 3)
+    torch.testing.assert_close(plain.reshape(12, 3), d_l, rtol=0, atol=0)
+
+
+# (examples, k, rows an example, D) of K2's VJP at the b-major map over
+# examples of several rows: CelebA's train step under the "b" fold (64
+# examples, 23 attribute terms) and its mopoe step (20 terms), one rank's
+# rows at world 2, a ragged example of 5 rows, D > 1 off the float4 width,
+# an example wider than a block, one example of two rows.
+BCE_GRAD_INNER_SHAPES = [(64, 23, 18, 1), (64, 20, 18, 1), (32, 23, 18, 1), (5, 7, 5, 1),
+                         (4, 3, 5, 7), (3, 2, 300, 1), (1, 1, 2, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BCE_GRAD_INNER_SHAPES)
+def test_bce_rows_grad_kernel_inner_map_matches_plain(cuda, shape, dtype):
+    """``bce_rows_grad_inner`` against ``bce_rows_grad_torch`` at the same
+    map, f32 and bf16 targets, in its plan and in a grid cut to a block an
+    axis; two launches give the same bits, each counted as
+    ``bce_bwd_inner``."""
+    n_b, k, inner, d = shape
+    gen = torch.Generator().manual_seed(33)
+    logits = _rand(gen, n_b * k * inner, d, device=cuda, scale=3.0)
+    x = torch.rand(n_b * inner, d, generator=gen).to(cuda, dtype)
+    g = _rand(gen, n_b * k * inner, device=cuda)
+    want = kernels.bce_rows_grad_torch(logits, x, g, kernels.FOLD_B, inner)
+    before = kernels.LAUNCHES["bce_bwd_inner"]
+    got = kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B, inner=inner)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B,
+                                                         inner=inner))
+    assert kernels.LAUNCHES["bce_bwd_inner"] == before + 2
+    cut = kernels.bce_grad_inner_plan(n_b, k, inner)._replace(grid_x=1, grid_y=1, grid_z=1)
+    assert torch.equal(kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B, cut, inner),
+                       got)
+
+
+@pytest.mark.gpu
+def test_bce_rows_grad_kernel_inner_map_refuses_bad_calls(cuda):
+    logits = torch.zeros(12, 1, device=cuda)
+    x = torch.zeros(6, 1, device=cuda)
+    g = torch.zeros(12, device=cuda)
+    with pytest.raises(ValueError, match="inner"):
+        kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_T, inner=3)
+    with pytest.raises(TypeError, match="BceInnerPlan"):
+        kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B, kernels.bce_grad_plan(12, 1),
+                                     3)
+    with pytest.raises(RuntimeError, match="bce_rows_grad_inner launch failed"):
+        kernels.bce_rows_grad_kernel(logits, x, g, kernels.FOLD_B,
+                                     kernels.BceInnerPlan(3, 400, 1, 1, 1), 3)
 
 
 @pytest.mark.gpu

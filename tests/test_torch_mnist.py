@@ -146,11 +146,18 @@ def test_decode_all_pass_matches_jax(matched):
     [{"objective": "mmvae", "cross_recon": True}, {"term_fold": "b"}, {"term_fold": "st"}],
 )
 def test_unported_loss_paths_raise(matched, kw):
-    """The b and st folds are not ported and raise; the mixture objectives
-    are, and refuse the mvae term knobs with the JAX loss's ``ValueError``."""
+    """The b fold is ported and gives the t fold's eval loss (rel 1e-5); the
+    st fold without a mesh raises JAX's ``ValueError``; the mixture
+    objectives refuse the mvae term knobs with the JAX loss's
+    ``ValueError``."""
     _, _, tmodel, data = matched
+    if kw.get("term_fold") == "b":
+        got, _ = multi_term_loss(tmodel, _tbatch(data), sample=False, **kw)
+        want, _ = multi_term_loss(tmodel, _tbatch(data), sample=False)
+        assert got.item() == pytest.approx(want.item(), rel=1e-5)
+        return
     if "term_fold" in kw:
-        error, match = NotImplementedError, "not yet ported"
+        error, match = ValueError, "requires a mesh"
     else:
         error, match = ValueError, "mvae term-structure knobs"
     with pytest.raises(error, match=match):

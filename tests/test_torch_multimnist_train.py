@@ -326,15 +326,21 @@ def test_step_options_are_the_jax_runner_options(name):
 
 @pytest.mark.parametrize("knob,value", [("objective", "mopoe"), ("term_fold", "b")])
 def test_unported_loss_knobs_raise(init_params, knob, value):
-    """A fold of the JAX loss that the port does not take yet raises
-    ``NotImplementedError``; a mixture objective is ported and refuses the
-    config's cross-recon with the JAX loss's ``ValueError``. Both from the
-    loss and from the step's builder."""
+    """The b fold is ported: the step builds and the loss under it equals
+    the t fold's on the same noise (rel 1e-5). A mixture objective is
+    ported and refuses the config's cross-recon with the JAX loss's
+    ``ValueError``, from the loss and from the step's builder."""
     model = _tmodel(init_params)
     if knob == "term_fold":
-        error, match = NotImplementedError, "not yet ported"
-    else:
-        error, match = ValueError, "mvae term-structure knobs"
+        make_train_step(model, **CYCLE, **{knob: value})
+        batch = _tbatch(_batches(1)[0])
+        eps = torch.randn((T, B, N_LATENTS), generator=torch.Generator().manual_seed(0))
+        got, _ = multi_term_loss(model, batch, **CYCLE, **{knob: value},
+                                 eps=eps.transpose(0, 1).contiguous())
+        want, _ = multi_term_loss(model, batch, **CYCLE, eps=eps)
+        assert got.item() == pytest.approx(want.item(), rel=1e-5)
+        return
+    error, match = ValueError, "mvae term-structure knobs"
     with pytest.raises(error, match=match):
         make_train_step(model, **CYCLE, **{knob: value})
     with pytest.raises(error, match=match):

@@ -101,8 +101,10 @@ def test_ops_bernoulli_nll_event_ndims_0_t_fold():
     flattens both to rows of D = 1 and reads target row ``r % (B * A)``,
     or ``(r / (k * A)) * A + r % A`` (``bce_rows_inner``); the plain
     versions of those row maps give the same. The plain path's gradient
-    goes through the same tiling; the kernel path refuses to record one at
-    the b-major map, before it looks at the device."""
+    goes through the same tiling, and so does ``bce_rows_grad_torch`` at the
+    b-major map (the plain version of the kernel path's
+    ``bce_rows_grad_inner``); the kernel backend refuses a CPU tensor for
+    its device."""
     rng = np.random.default_rng(13)
     k, b, a = 19, 6, 18
     logits = (rng.normal(size=(k * b, a)) * 3).astype(np.float32)
@@ -132,10 +134,14 @@ def test_ops_bernoulli_nll_event_ndims_0_t_fold():
     g = rng.normal(size=(k * b, a)).astype(np.float32)
     got_b.backward(_t(g))
     _, vjp = jax.vjp(jax_b, jnp.asarray(logits))
-    _close(lt.grad, vjp(jnp.asarray(g))[0])
+    want_g = vjp(jnp.asarray(g))[0]
+    _close(lt.grad, want_g)
+    grad_rows = kernels.bce_rows_grad_torch(
+        _t(logits).reshape(-1, 1), _t(x).reshape(-1, 1), _t(g).reshape(-1), kernels.FOLD_B, a)
+    _close(grad_rows.reshape(k * b, a), want_g)
     ops.set_backend("kernel")
     try:
-        with pytest.raises(RuntimeError, match="b-major map over examples"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
             ops.bernoulli_nll(_t(logits).requires_grad_(True), _t(x), 0, fold="b")
     finally:
         ops.set_backend("auto")

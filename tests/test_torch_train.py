@@ -265,9 +265,14 @@ def test_epoch_runner_stacks_the_steps(init_params):
 
 
 def test_unported_step_options_raise(init_params):
+    """Every fold of the JAX step is ported: ``"st"`` without a mesh and an
+    unknown fold raise JAX's ``ValueError``, and ``"b"`` builds."""
     model = _tmodel(init_params)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(model, term_fold="b")
+    with pytest.raises(ValueError, match="term_fold='st' requires a mesh"):
+        make_train_step(model, term_fold="st")
+    with pytest.raises(ValueError, match="unknown term_fold"):
+        make_train_step(model, term_fold="x")
+    assert callable(make_train_step(model, term_fold="b"))
 
 
 def test_api_train_one_epoch_on_the_cpu():
