@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    hand-written kernels built from ``mmvae_torch/ops/csrc`` with ``nvcc``
    (the port's four sources and the launch-floor probe, one ``nvcc``
    each, started together; ``conv_s2.cu`` holds K4, its backward and its
-   input gradient);
+   input gradient, and is compiled three times, at 32, 16 and 8 output
+   channels);
 2. each kernel held against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged, odd and large ones (rtol 1e-5; atol
    1e-5 * D for the row reductions, 1e-5 * S * log V for the sequence
@@ -292,6 +293,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ``python -m mmvae_torch.cli train --multihost`` (its history against
      world 1's at rel 1e-4; rank 1 writes nothing); with two cards or
      more the same world-2 runs on NCCL across cards;
+   - ``tp_fsdp`` (FSDP and tensor parallelism): ``celeba``'s 3
+     steps of 64 at T = 24 under the "b" fold at world 1 (eager, native
+     convolutions, the gradients recorded), then two processes on the one
+     card over gloo: ``celeba`` under TP (one model group of 2: each
+     rank's stage 0 is K4 at 16 channels, its backward too, the attribute
+     banks 9 of 18 a rank) and under FSDP (ZeRO-3: the parameters
+     gathered each step, the gradients reduce-scattered), each against
+     world 1 under the world-2 gates with the tails fed, each rank's
+     persistent state bytes against world 1's less the blocks it does not
+     hold, and ``cub`` under TP (K4, its backward and its input gradient at
+     16 channels); four processes for ``cub`` under TP at tp = 4 (all three
+     at 8 channels); each path's launches against ``EXPECTED_LAUNCHES``;
+     with two cards or more the world-2 runs again on NCCL across cards,
+     in the graph;
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -316,12 +331,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    backward, for the weight and bias alone; for K4's input gradient:
    cuDNN's dgrad and the silu's backward, for the image alone), K4's input
    gradient also at an odd size, C = 1 and 4 and a transposed upstream
-   gradient.
+   gradient; K4, its backward and its dx at 16 and 8 output channels at
+   the batch of 64 (a rank's stage 0 at tp = 2 and 4).
 
 It prints one JSON line per result, the ``nvidia-smi`` line, the kernel
-summary (K4, its backward and its dx twice: at f32, and at all-bf16 with
-the bf16 paths' launches), and as the last line ``{"ok": true, "device":
-{...}}``.
+summary (K4, its backward and its dx four times: at f32, at all-bf16 with
+the bf16 paths' launches, and at 16 and 8 channels with the
+tensor-parallel paths' launches), and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -355,7 +372,15 @@ from mmvae_torch.core import component_masks, elbo_subset_masks
 from mmvae_torch.data import Dataset, load_dataset
 from mmvae_torch.models.text import STOP
 from mmvae_torch.ops import kernels
-from mmvae_torch.parallel import make_mesh, multihost, shard_batch
+from mmvae_torch.parallel import (
+    fsdp_shard,
+    make_mesh,
+    make_mesh_2d,
+    multihost,
+    shard_batch,
+    state_bytes,
+    tp_shard,
+)
 from mmvae_torch.train import (
     create_train_state,
     make_epoch_runner,
@@ -501,6 +526,16 @@ META = {
                 "stage 0 (xla_conv0); the cycle term's re-encode of a render takes it",
     },
 }
+# K4, its backward and its input gradient at a rank's F = 32 / tp output
+# channels of stage 0 under tensor parallelism: conv_s2.cu compiled with
+# CONV_F = 16 and 8 (libraries conv_s2_f16 and conv_s2_f8).
+for _f, _tp in ((16, 2), (8, 4)):
+    for _op in ("conv", "conv_bwd", "conv_dx"):
+        META[f"{_op}_f{_f}"] = {
+            **{k: v for k, v in META[_op].items() if k != "note"},
+            "out_channels": _f,
+            "note": f"at F = {_f}: a rank's block of stage 0's 32 channels under tensor "
+                    f"parallelism at tp = {_tp} (column-parallel, parallel/tp.py)"}
 # Shapes of each kernel: (N, D, n_x, fold) of the row reductions, (N, S, V)
 # of the sequence cross-entropy, (B, H, W, C, dtype) of the conv, (T, B, M,
 # L, case) of the fused PoE + KL (cases as ``inputs`` makes them). One
@@ -818,6 +853,27 @@ CHECKED_SHAPES = {
                 # All operands bf16: CUB's train batch, odd H and W.
                 (64, 64, 64, 3, "all_bf16"), (3, 33, 31, 3, "all_bf16")],
 }
+# K4, its backward and its input gradient at F = 16 and 8 (a rank's stage 0
+# at tp = 2 and 4): timed at the CelebA and CUB batch of 64 (the
+# column-parallel stage 0 of both), checked there and at ragged, odd,
+# grayscale and bf16 shapes; the marker ("f16", "f8") before a dtype.
+for _f in ("f16", "f8"):
+    _tp = {"f16": "tp2", "f8": "tp4"}[_f]
+    TIMED_SHAPES["conv"][f"stage0_{_tp}"] = (64, 64, 64, 3, torch.float32, _f)
+    TIMED_SHAPES["conv_bwd"][f"stage0_{_tp}_train"] = (64, 64, 64, 3, _f)
+    TIMED_SHAPES["conv_dx"][f"stage0_{_tp}_dx"] = (64, 64, 64, 3, _f)
+    CHECKED_SHAPES["conv"] += [
+        (64, 64, 64, 3, torch.float32, _f), (37, 64, 64, 3, torch.float32, _f),
+        (3, 33, 31, 3, torch.float32, _f), (5, 25, 25, 1, torch.float32, _f),
+        (6, 32, 40, 4, torch.float32, _f), (64, 64, 64, 3, "bf16_x", _f),
+        (64, 64, 64, 3, torch.bfloat16, _f), (3, 33, 31, 3, torch.bfloat16, _f)]
+    CHECKED_SHAPES["conv_bwd"] += [
+        (64, 64, 64, 3, _f), (37, 64, 64, 3, _f), (3, 33, 31, 3, _f), (5, 25, 25, 1, _f),
+        (6, 32, 40, 2, _f), (64, 64, 64, 3, _f, torch.bfloat16),
+        (64, 64, 64, 3, _f, "all_bf16"), (3, 33, 31, 3, _f, "all_bf16")]
+    CHECKED_SHAPES["conv_dx"] += [
+        (64, 64, 64, 3, _f), (3, 33, 31, 3, _f), (5, 25, 25, 1, _f), (6, 32, 40, 4, _f),
+        (64, 64, 64, 3, _f, "transposed"), (64, 64, 64, 3, _f, "all_bf16")]
 # The (path, timed shape) each kernel's entry of the final line reports:
 # this slice's paths -- CelebA under mopoe for the kernels it runs (K4 and
 # the fused PoE + KL at CelebA's batch, which the eval labels time at the
@@ -836,11 +892,20 @@ REPORTED = {"kl": ("celeba", "celeba_eval"), "bce": (_MOPOE, "celeba_mopoe_image
             # K4's all-bf16 forms, on the bf16 paths (``phase_bf16``).
             "conv_bf16": ("celeba_bf16_train", "celeba_train_bf16"),
             "conv_bwd_bf16": ("celeba_bf16_train", "celeba_train_all_bf16"),
-            "conv_dx_bf16": ("cub_bf16_train", "cub_train_all_bf16")}
+            "conv_dx_bf16": ("cub_bf16_train", "cub_train_all_bf16"),
+            # K4 at a rank's 16 and 8 channels, on the tensor-parallel paths
+            # (``phase_tp_fsdp``): CelebA's and CUB's at tp = 2, CUB's at 4.
+            "conv_f16": ("celeba_tp_train", "stage0_tp2"),
+            "conv_bwd_f16": ("celeba_tp_train", "stage0_tp2_train"),
+            "conv_dx_f16": ("cub_tp_train", "stage0_tp2_dx"),
+            "conv_f8": ("cub_tp4_train", "stage0_tp4"),
+            "conv_bwd_f8": ("cub_tp4_train", "stage0_tp4_train"),
+            "conv_dx_f8": ("cub_tp4_train", "stage0_tp4_dx")}
 # The entries of the kernels line -> the op each times: one an op, and K4's
 # forward, backward and input gradient on all-bf16 operands apart.
 ENTRIES = {**{op: op for op in OPS}, "conv_bf16": "conv", "conv_bwd_bf16": "conv_bwd",
-           "conv_dx_bf16": "conv_dx"}
+           "conv_dx_bf16": "conv_dx",
+           **{f"{op}_f{f}": op for f in (16, 8) for op in ("conv", "conv_bwd", "conv_dx")}}
 _NO_BWD = {"kl_bwd": 0, "bce_bwd": 0, "bce_bwd_inner": 0, "seq_ce_bwd": 0, "poe_kl_bwd": 0,
            "conv_bwd": 0, "conv_dx": 0}
 EXPECTED_LAUNCHES = {
@@ -1019,6 +1084,20 @@ EXPECTED_LAUNCHES = {
     "celeba_b_train": {"kl": 0, "bce": 40, "seq_ce": 0, "conv": 20, "poe_kl": 20,
                        "kl_bwd": 0, "bce_bwd": 20, "bce_bwd_inner": 20, "seq_ce_bwd": 0,
                        "poe_kl_bwd": 20, "conv_bwd": 20, "conv_dx": 0},
+    # ``tp_fsdp``: rank 0's 3 steps under the "b" fold, as
+    # ``celeba_b_train``'s a step: CelebA under TP at 2 ranks (K4 at 16
+    # channels) and under FSDP (K4 at 32, the whole gathered weights).
+    **{path: {"kl": 0, "bce": 6, "seq_ce": 0, "conv": 3, "poe_kl": 3, "kl_bwd": 0,
+              "bce_bwd": 3, "bce_bwd_inner": 3, "seq_ce_bwd": 0, "poe_kl_bwd": 3,
+              "conv_bwd": 3, "conv_dx": 0}
+       for path in ("celeba_tp_train", "celeba_fsdp_train")},
+    # CUB's 3 steps under TP at 2 ranks (K4 at 16) and at 4 (K4 at 8), as
+    # ``cub_train``'s a step: the encode and the cycle's re-encode of the
+    # render, K4's input gradient once.
+    **{path: {"kl": 0, "bce": 3, "seq_ce": 6, "conv": 6, "poe_kl": 6, "kl_bwd": 0,
+              "bce_bwd": 3, "bce_bwd_inner": 0, "seq_ce_bwd": 6, "poe_kl_bwd": 6,
+              "conv_bwd": 6, "conv_dx": 3}
+       for path in ("cub_tp_train", "cub_tp4_train")},
 }
 # K2's VJP at the map over examples of several rows runs on the "b" fold's
 # CelebA step alone: every other path launches it no time.
@@ -1068,26 +1147,43 @@ def data_dtype(shape) -> torch.dtype:
     return shape[-1] if isinstance(shape[-1], torch.dtype) else torch.float32
 
 
+def conv_out(shape) -> int:
+    """K4's output channels F at a conv shape: 16 or 8 where it names
+    ``"f16"`` or ``"f8"`` past its (B, H, W, C), else 32."""
+    return next((int(f[1:]) for f in shape[4:] if f in ("f16", "f8")), kernels.CONV_OUT)
+
+
 def entry_of(op: str, shape) -> str:
     """The entry of the kernels line a shape of ``CHECKED_SHAPES`` or
     ``TIMED_SHAPES`` belongs to: K4's forward, backward and input gradient
     on all-bf16 operands (a bf16 model's stage 0) apart from their other
-    forms."""
+    forms, and at F = 16 and 8 (``conv_out``) apart from F = 32."""
     if (op == "conv" and shape[4] == torch.bfloat16) or (
             op in ("conv_bwd", "conv_dx") and "all_bf16" in shape[4:]):
         return f"{op}_bf16"
+    if op in ("conv", "conv_bwd", "conv_dx") and conv_out(shape) != kernels.CONV_OUT:
+        return f"{op}_f{conv_out(shape)}"
     return op
 
 
 def describe(op: str, shape) -> dict:
+    if op in ("conv", "conv_bwd", "conv_dx"):
+        return {**_describe_conv(op, shape), "out_channels": conv_out(shape)}
+    return _describe(op, shape)
+
+
+def _describe_conv(op: str, shape) -> dict:
     if op in ("conv_bwd", "conv_dx") and "all_bf16" in shape[4:]:
         return {"shape": list(shape[:4]), "dtype": "bfloat16 (all operands)"}
     if op == "conv_bwd":
         return {"shape": list(shape[:4]), "dtype": str(data_dtype(shape)).removeprefix("torch.")}
     if op == "conv_dx":
-        return {"shape": list(shape[:4]), "g": shape[4] if len(shape) > 4 else "contiguous"}
-    if op == "conv":
-        return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
+        g = [f for f in shape[4:] if f == "transposed"]
+        return {"shape": list(shape[:4]), "g": g[0] if g else "contiguous"}
+    return {"shape": list(shape[:4]), "dtype": str(shape[4]).removeprefix("torch.")}
+
+
+def _describe(op: str, shape) -> dict:
     if op in ("poe_kl", "poe_kl_bwd"):
         return {"shape": list(shape[:4]), "case": shape[4]}
     if op == "seq_ce":
@@ -1116,10 +1212,11 @@ def inputs(op: str, shape, gen: torch.Generator):
     if op == "conv":
         # As the probe draws them: image in [0, 1], weights N(0, 0.01);
         # "bf16_x": a bf16 image into f32 weights.
-        b, h, w, c, dtype = shape
+        b, h, w, c, dtype = shape[:5]
+        f = conv_out(shape)
         x = torch.rand(b, h, w, c, generator=gen, device=dev)
-        weight = 0.1 * torch.randn(kernels.CONV_OUT, c, 4, 4, generator=gen, device=dev)
-        bias = 0.1 * torch.randn(kernels.CONV_OUT, generator=gen, device=dev)
+        weight = 0.1 * torch.randn(f, c, 4, 4, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(f, generator=gen, device=dev)
         if dtype == "bf16_x":
             return x.bfloat16(), weight, bias
         return tuple(t.to(dtype) for t in (x, weight, bias))
@@ -1129,11 +1226,12 @@ def inputs(op: str, shape, gen: torch.Generator):
         # K4's input gradient may take its upstream gradient transposed (a
         # view whose rows are its columns' storage).
         # "all_bf16": every operand bf16 (a bf16 model's stage 0).
-        x, weight, bias = inputs("conv", (*shape[:4], torch.float32), gen)
+        f = conv_out(shape)
+        x, weight, bias = inputs("conv", (*shape[:4], torch.float32, f"f{f}"), gen)
         x = x.to(data_dtype(shape))
         b, h, w = shape[:3]
-        g = torch.randn(b, kernels.CONV_OUT, -(-h // 2), -(-w // 2), generator=gen, device=dev)
-        if shape[4:] == ("transposed",):
+        g = torch.randn(b, f, -(-h // 2), -(-w // 2), generator=gen, device=dev)
+        if "transposed" in shape[4:]:
             g = g.transpose(2, 3).contiguous().transpose(2, 3)
         if "all_bf16" in shape[4:]:
             return tuple(t.to(torch.bfloat16) for t in (x, weight, bias, g))
@@ -1351,7 +1449,7 @@ def tolerance(op: str, shape) -> tuple[float, float]:
         b, h, w = shape[:3]
         return rtol, 1e-6 * b * -(-h // 2) * -(-w // 2)
     if op == "conv_dx":
-        return rtol, 1e-6 * 4 * kernels.CONV_OUT
+        return rtol, 1e-6 * 4 * conv_out(shape)
     if op == "poe_kl_bwd":
         return 1e-5, 1e-5 * shape[0]
     if op == "poe_kl":
@@ -1410,7 +1508,7 @@ def bound(op: str, args) -> tuple[float, str]:
         # on the CUDA cores for a bf16 image into f32 weights).
         x, weight, bias = args
         b, h, w, c = x.shape
-        n_out = b * kernels.CONV_OUT * -(-h // 2) * -(-w // 2)
+        n_out = b * weight.shape[0] * -(-h // 2) * -(-w // 2)
         n_bytes = (x.element_size() * x.numel()
                    + weight.element_size() * (weight.numel() + bias.numel() + n_out))
         t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -1536,8 +1634,8 @@ def phase_check() -> dict[str, float]:
             got = KERNEL_FN[op](*args)
             want = PLAIN_FN[op](*args)
             torch.cuda.synchronize()
-            if entry != op and any(t.dtype != torch.bfloat16 for t in
-                                   ((got,) if torch.is_tensor(got) else got)):
+            if entry.endswith("_bf16") and any(t.dtype != torch.bfloat16 for t in
+                                               ((got,) if torch.is_tensor(got) else got)):
                 raise AssertionError(f"{entry}: an output of the kernel is not bf16")
             if op == "poe_kl":
                 err = check_poe_kl(args, got, want, shape)
@@ -3704,7 +3802,11 @@ def data_segmented_eval() -> None:
     """``eval_elbo`` and ``log_likelihood`` (k = 64) of the mounted MNIST
     (10,000 rows, 100 batches) and CelebA (320, 5 batches) test splits,
     whole (``segment_steps`` 0) and in segments of DATA_SEGMENTS batches
-    (the last padded): gated equal to the bit; the walls of both."""
+    (the last padded): gated equal to the bit; the walls of both. Both on
+    PyTorch's own convolutions (``native_convs``): cuDNN picks an algorithm
+    a call from the memory it finds free: CelebA's IWAE has read
+    -8619.264276123047 whole and -8619.264273071289 segmented in one run on
+    the same input, and either value in other runs."""
     for name in ("mnist", "celeba"):
         cfg = configs.get_config(name)
         model = configs.build_model(cfg, seed=0)
@@ -3716,8 +3818,9 @@ def data_segmented_eval() -> None:
             for segs in (0, DATA_SEGMENTS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                values[segs] = getattr(api, fn)(cfg, model=model, dataset=dataset,
-                                                segment_steps=segs)
+                with native_convs():
+                    values[segs] = getattr(api, fn)(cfg, model=model, dataset=dataset,
+                                                    segment_steps=segs)
                 row[f"{fn}_wall_s_segments_{segs}"] = time.perf_counter() - t0
             if values[0] != values[DATA_SEGMENTS]:
                 raise AssertionError(f"{name}: {fn} whole {values[0]} and segmented "
@@ -4095,7 +4198,7 @@ BF16_TOL = 2.0**-5
 BF16_GRAD_TOL = 2.0**-4
 BF16_LOSS_RTOL = 2e-3
 META.update({entry: {**META[op], "dtype": "bfloat16 (all operands)"}
-             for entry, op in ENTRIES.items() if entry != op})
+             for entry, op in ENTRIES.items() if entry.endswith("_bf16")})
 
 
 def export_celeba_bf16(tmp: str) -> None:
@@ -4428,7 +4531,7 @@ def dp_batches(cfg, n_steps: int, seed: int) -> dict[str, torch.Tensor]:
 
 
 def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None = None,
-             record: list | None = None, fed: list | None = None):
+             record: list | None = None, fed: list | None = None, mode: str | None = None):
     """``cfg``'s steps over ``batches`` (this rank's rows where a ``mesh``
     is given) from the seed-0 weights and a noise generator seeded 6:
     the metrics, the model, the wall of the call (to a sync) and the runner
@@ -4439,9 +4542,15 @@ def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None =
     cpu``'s feeding: Adam turns a component's rounding at eps into up to a
     step of lr), and each step's tail counts, the components above it whose
     signs differ and the three tensors with the largest difference relative
-    to the other run's largest component are the last item returned."""
-    model = configs.build_model(cfg, seed=0)
+    to the other run's largest component are the last item returned.
+    ``mode`` ``"tp"`` or ``"fsdp"`` shards the state over ``mesh``
+    (``parallel.tp_shard`` on a model built with it, ``parallel.fsdp_
+    shard``): the model holds this rank's blocks, and ``fed`` is cut to
+    them."""
+    model = configs.build_model(cfg, seed=0, tp_mesh=mesh if mode == "tp" else None)
     state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
+    if mode is not None:
+        state = (tp_shard if mode == "tp" else fsdp_shard)(state, mesh)
     gen = torch.Generator(device="cuda").manual_seed(6)
     apply, steps, counts = state.apply_gradients, iter(fed or ()), []
 
@@ -4454,6 +4563,8 @@ def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None =
             tally["rel_top"] = []
             for n, p in named:
                 o = other[n].to(p.device)
+                if state.layout is not None:
+                    o = state.layout.shard(n, o)
                 here, there = p.grad.abs() < TAIL_BELOW, o.abs() < TAIL_BELOW
                 both = here & there
                 for key, mask in (("this", here), ("other", there), ("fed", both)):
@@ -4470,8 +4581,9 @@ def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None =
     if record is not None or fed is not None:
         state.apply_gradients = apply_gradients
     try:
-        runner = make_epoch_runner(model, graph=graph, annealing_steps=1000, generator=gen,
-                                   term_fold=term_fold, mesh=mesh, **api.step_options(cfg))
+        runner = make_epoch_runner(state.compute_model, graph=graph, annealing_steps=1000,
+                                   generator=gen, term_fold=term_fold, mesh=mesh,
+                                   **api.step_options(cfg))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = runner(state, batches)
@@ -4914,6 +5026,181 @@ def dp_world2_main(tmp: str) -> None:
     torch.save({"steps": steps, "cli": cli}, os.path.join(tmp, "world2.pt"))
 
 
+TP_STEPS = 3  # the gated steps of each sharded run
+
+
+def sharded_worker(out: str, fed: str, backend: str, tp: int) -> None:
+    """One rank of ``phase_tp_fsdp``'s runs over ``backend`` (its group from
+    torchrun's variables). At ``tp = 2`` (two ranks, one model group):
+    CelebA's 3 steps under the "b" fold on a state sharded by tensor
+    parallelism (stage 0's K4 at 16 channels) and by FSDP, each eager on
+    native convolutions with the gradients' tails fed from world 1's
+    (``fed``), then a step's steady wall on the runner the backend takes (a
+    graph holding the collectives on NCCL, the eager loop on gloo), the
+    whole parameters after, the launch counts of the gated steps and the
+    state's bytes; then CUB's 3 steps under TP (K4 at 16, its backward and
+    its input gradient). At ``tp = 4`` (four ranks): CUB's 3 steps under TP
+    (K4 at 8). Rank 0 writes what it got to ``out``."""
+    multihost.initialize(backend=backend)
+    res = {"backend": backend, "world": torch.distributed.get_world_size()}
+    runs = [("celeba", "tp"), ("celeba", "fsdp"), ("cub", "tp")] if tp == 2 else [("cub", "tp")]
+    w1 = torch.load(fed, weights_only=False)
+    mesh_tp, mesh_dp = make_mesh_2d(tp), make_mesh()
+    for name, mode in runs:
+        cfg = configs.get_config(name)
+        mesh = mesh_tp if mode == "tp" else mesh_dp
+        batches = dp_batches(cfg, TP_STEPS, seed=5)
+        local = {**shard_batch({k: v for k, v in batches.items() if k != "subset_masks"}, mesh,
+                               dim=1),
+                 **{k: v for k, v in batches.items() if k == "subset_masks"}}
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        with native_convs():
+            metrics, model, wall, (_, state), counts = dp_steps(
+                cfg, local, "b", mesh, graph=False, fed=w1.get(name), mode=mode)
+        launches = dict(kernels.LAUNCHES)
+        whole = {n: state.layout.gather(n, p.detach()).cpu() for n, p in model.named_parameters()}
+        key = f"{name}_{mode}" + ("4" if tp == 4 else "")
+        res[key] = {
+            "loss": metrics["loss"].tolist(), "grad_norm": metrics["grad_norm"].tolist(),
+            "wall_s": wall, "tail_counts": counts, "launches": launches, "params": whole,
+            "stage0_out_channels": state.model.image_enc.convs[0].weight.shape[0],
+            "bytes": state_bytes(state),
+            "sharded_numel": sum(p.numel() * state.layout.size
+                                 for n, p in model.named_parameters()
+                                 if state.layout.sharded(n)),
+            "copies": 3, "layout_size": state.layout.size}
+        if name == "celeba":
+            runner, state = dp_steps(cfg, local, "b", mesh, mode=mode)[3]
+            res[key].update(step_ms=steady_step_ms(runner, state, local),
+                            graph=mesh.backend == "nccl")
+    if torch.distributed.get_rank() == 0:
+        torch.save(res, out)
+    multihost.sync()
+
+
+def phase_tp_fsdp() -> dict[str, dict[str, int]]:
+    """FSDP and tensor parallelism on the card (``parallel/fsdp.py``,
+    ``parallel/tp.py``): CelebA's 3 steps at world 1 under the "b" fold
+    (eager, native convolutions, the gradients recorded), then two
+    processes on the one card over gloo -- CelebA under TP (one model group
+    of 2: each rank's stage 0 is K4 at 16 channels, its attribute banks 9
+    of the 18) and under FSDP, each held to world 1 under the world-2 gates
+    (``check_world2``'s loss at rel 1e-4 and parameters within rtol 2e-3
+    and atol 1e-5, the tails fed), each rank's persistent state against an
+    unsharded one's by the layout, CUB's 3 steps under TP (K4 at 16, its
+    backward and input gradient) -- and four processes for CUB under TP at
+    tp = 4 (K4 at 8); each path's launches against ``EXPECTED_LAUNCHES``.
+    With two cards or more the world-2 runs again on NCCL across cards, in
+    the graph. Returns the launches."""
+    tmp = tempfile.mkdtemp()
+    procs = []
+    try:
+        cfg = configs.get_config("celeba")
+        batches = dp_batches(cfg, TP_STEPS, seed=5)
+        grads = []
+        with native_convs():
+            metrics, model, wall, (_, state), _ = dp_steps(cfg, batches, "b", graph=False,
+                                                           record=grads)
+        ref = {"loss": metrics["loss"].tolist(), "wall_s": wall, "bytes": state_bytes(state),
+               "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        runner, state = dp_steps(cfg, batches, "b", graph=False)[3]  # eager, as gloo's
+        ref["step_ms"] = steady_step_ms(runner, state, batches)
+        fed = os.path.join(tmp, "w1_grads.pt")
+        torch.save({"celeba": grads}, fed)
+        del grads, runner, state
+        backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+        worlds = [(b, 2) for b in backends] + [("gloo", 4)]
+        for backend, world in worlds:
+            out = os.path.join(tmp, f"{backend}_{world}.pt")
+            port = free_port()
+            argv = [sys.executable, "-c", f"import chip_smoke; chip_smoke.sharded_worker("
+                    f"{out!r}, {fed!r}, {backend!r}, {world})"]
+            procs.append((backend, world, out, [subprocess.Popen(
+                argv, cwd=ROOT, env={**os.environ, **rank_env(r, world, port)}, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(world)]))
+            if backend == "nccl":  # one NCCL world at a time on the cards
+                _wait_ranks(procs[-1][3])
+        failures, launches = [], {}
+        for backend, world, out, ranks in procs:
+            _wait_ranks(ranks)
+            res = torch.load(out, weights_only=False)
+            for key, got in res.items():
+                if not isinstance(got, dict):
+                    continue
+                path = {"celeba_tp": "celeba_tp_train", "celeba_fsdp": "celeba_fsdp_train",
+                        "cub_tp": "cub_tp_train", "cub_tp4": "cub_tp4_train"}[key]
+                if backend == "gloo":
+                    launches[path] = got["launches"]
+                failures += check_sharded(key, path, got, ref, backend, world)
+        if failures:
+            raise AssertionError("; ".join(failures))
+    finally:
+        for *_, ranks in procs:
+            for proc in ranks:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _wait_ranks(ranks: list, timeout: float = 600) -> None:
+    for i, proc in enumerate(ranks):
+        _, stderr = proc.communicate(timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"rank {i} of a sharded run failed ({proc.returncode}):\n"
+                               f"{stderr[-4000:]}")
+
+
+def check_sharded(key: str, path: str, got: dict, ref: dict, backend: str,
+                  world: int) -> list[str]:
+    """A sharded run's gates: its launches against ``EXPECTED_LAUNCHES`` and
+    stage 0's K4 at 32 / tp channels (FSDP: 32, the whole gathered
+    weight); CelebA's steps against world 1's (the world-2 gates and the
+    tails), and its state's bytes against world 1's less the blocks it does
+    not hold (``copies`` f32 tensors a parameter: itself and Adam's two
+    moments); CUB's loss finite. Returns the failures."""
+    failures = []
+    tp = world if key.startswith("cub") or key.endswith("_tp") else 1
+    want_f = kernels.CONV_OUT // (tp if "_tp" in key else 1)
+    if got["launches"] != EXPECTED_LAUNCHES[path] or got["stage0_out_channels"] != want_f:
+        failures.append(f"{path} ({backend}): launches {got['launches']}, stage 0 at "
+                        f"{got['stage0_out_channels']} channels, want "
+                        f"{EXPECTED_LAUNCHES[path]} at {want_f}")
+    row = {"phase": "tp_fsdp", "path": path, "backend": backend, "world": world,
+           "steps": TP_STEPS, "loss": got["loss"], "stage0_out_channels": want_f,
+           "launches": got["launches"], "bytes_per_rank": got["bytes"]}
+    if key.startswith("celeba"):
+        loss_rel = max(rel(a, b) for a, b in zip(got["loss"], ref["loss"]))
+        init = dict(configs.build_model(configs.get_config("celeba"), seed=0,
+                                        device="cpu").named_parameters())
+        param_err, where = param_excess(got["params"], ref["params"], init)
+        shed = got["copies"] * 4 * got["sharded_numel"] * (got["layout_size"] - 1) \
+            // got["layout_size"]
+        row.update(loss_w1=ref["loss"], loss_rel_max=loss_rel,
+                   param_excess_over_rtol_max=param_err, param_worst=where,
+                   tail_below=TAIL_BELOW, tail_counts_per_step=got["tail_counts"],
+                   bytes_per_rank_w1=ref["bytes"], bytes_expected=ref["bytes"] - shed,
+                   step_ms=got["step_ms"], step_ms_w1=ref["step_ms"], graph=got["graph"],
+                   steps_wall_s=got["wall_s"], steps_wall_s_w1=ref["wall_s"])
+        if not (loss_rel <= 1e-4 and param_err <= 1e-5):
+            failures.append(f"{path} ({backend}): loss rel {loss_rel}, param excess "
+                            f"{param_err} at {where}")
+        for i, tally in enumerate(got["tail_counts"]):
+            one_side = max(tally["this"], tally["other"]) - tally["fed"]
+            if not one_side <= TAIL_SLACK * tally["other"]:
+                failures.append(f"{path} ({backend}) step {i}: {one_side} gradient "
+                                f"components below {TAIL_BELOW} on one side only: {tally}")
+        if got["bytes"] != ref["bytes"] - shed:
+            failures.append(f"{path} ({backend}): {got['bytes']} state bytes a rank, want "
+                            f"{ref['bytes'] - shed}")
+    elif not all(math.isfinite(v) for v in got["loss"]):
+        failures.append(f"{path} ({backend}): loss {got['loss']}")
+    emit(row)
+    return failures
+
+
 def graph_ms(calls, reps: int = REPS) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
@@ -5253,6 +5540,7 @@ def main() -> None:
     launches.update(timed("shuffle", phase_shuffle))
     launches.update(timed("bf16", phase_bf16))
     launches.update(timed("dp", phase_dp))
+    launches.update(timed("tp_fsdp", phase_tp_fsdp))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:
@@ -5267,7 +5555,8 @@ def main() -> None:
         {**META[entry], "launches": launches[REPORTED[entry][0]][op],
          "config": REPORTED[entry][0], "shape": REPORTED[entry][1],
          "launches_per_config": {c: n[op] for c, n in launches.items()
-                                 if entry == op or "bf16" in c},
+                                 if entry == op or ("bf16" if entry.endswith("bf16")
+                                                    else "_tp") in c},
          "max_abs_err": max_err[entry],
          "ms": reported[entry]["kernel_ms"], "plain_ms": reported[entry]["plain_ms"],
          "bound_ms": reported[entry]["bound_ms"], "bound_by": reported[entry]["bound_by"],

@@ -46,10 +46,24 @@ import torch
 
 from mmvae_torch.configs import ExperimentConfig, build_model, get_config
 from mmvae_torch.core import fuse_observed_z
-from mmvae_torch.data import Dataset, dataset_astype, load_dataset, stacked_epoch_padded
+from mmvae_torch.data import (
+    Dataset,
+    dataset_astype,
+    load_dataset,
+    stacked_epoch,
+    stacked_epoch_padded,
+)
 from mmvae_torch.data.grain_pipeline import epoch_plan, gather_batches
 from mmvae_torch.device import resolve_device
-from mmvae_torch.parallel import make_mesh, multihost, replicate, shard_batch
+from mmvae_torch.parallel import (
+    fsdp_shard,
+    make_mesh,
+    make_mesh_2d,
+    multihost,
+    replicate,
+    shard_batch,
+    tp_shard,
+)
 from mmvae_torch.train import (
     TrainState,
     create_train_state,
@@ -680,6 +694,25 @@ def train(
     is captured in the epoch's graph; a gloo group runs the eager loop.
     ``use_mesh=False`` runs each process alone.
 
+    FSDP and tensor parallelism (``config.fsdp``, ``config.tp``,
+    ``mmvae_tpu/api.py:454-470``, ``:565-583``): ``tp < 1`` raises
+    ``ValueError``, as do ``tp > 1`` with ``fsdp``, and ``tp > 1`` without
+    ``use_mesh`` or with ranks that ``tp`` does not divide. ``fsdp`` on a
+    multi-process mesh shards the state over it (``parallel.fsdp_shard``);
+    ``tp > 1`` folds the ranks into a ``(data, model)`` mesh
+    (``parallel.make_mesh_2d``), builds the model with it and shards the
+    state over its model groups (``parallel.tp_shard``). The state is made
+    equal on every rank first (rank 0's init), then cut; a resume and a
+    rollback restore cut the whole checkpoint again. Both take JAX's
+    pre-stacked epochs (``data.stacked_epoch``, shuffled by
+    ``np.random.default_rng(seed)``, each rank its data shard's rows) under
+    the ``"b"`` fold (the grain backend streams as under DP). The test eval
+    runs on a model of the whole parameters, gathered from the blocks before
+    each eval, sharded over every rank as a DP eval of those parameters;
+    the checkpoints hold the whole tree (rank 0 writes), and the returned
+    ``model`` holds the whole live parameters (the ``state`` keeps the
+    blocks).
+
     Returns the config, the model (the live parameters), the train state,
     the best test ELBO and one history record per epoch this call ran (its
     mean train loss; its mean ``cycle_ce``, ``cycle_contrast``, ``align_kl``
@@ -697,7 +730,20 @@ def train(
         warnings.warn("reshuffle_every>1 only applies to the in-program gather path (device "
                       "backend); this run shuffles every epoch", stacklevel=2)
     device = resolve_device(device)
-    mesh = make_mesh() if use_mesh and multihost.process_count() > 1 else None
+    tp = config.tp
+    world = multihost.process_count()
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > 1 and config.fsdp:
+        raise ValueError("tp>1 and fsdp are mutually exclusive")
+    if tp > 1 and (not use_mesh or world % tp):
+        raise ValueError(f"tp={tp} needs use_mesh and a device count divisible by tp "
+                         f"(have {world})")
+    # The eval's (and DP's) mesh: every rank a data shard.
+    mesh = eval_mesh = make_mesh() if use_mesh and world > 1 else None
+    if tp > 1:
+        mesh = make_mesh_2d(tp)
+    sharded = mesh is not None and (config.fsdp or tp > 1)
     primary = multihost.is_primary()
     if workdir is not None and primary:
         _save_run_config(workdir, config)
@@ -717,16 +763,23 @@ def train(
         raise ValueError(f"train split of {train_ds.size} holds no batch of {bs}")
     lr = learning_rate(config, steps_per_epoch)
 
+    dtype = dtype or torch.float32
+
     def fresh_state(model_seed: int) -> TrainState:
-        return create_train_state(
-            build_model(config, seed=model_seed, device=device, dtype=dtype or torch.float32),
+        state = create_train_state(
+            build_model(config, seed=model_seed, device=device, dtype=dtype,
+                        tp_mesh=mesh if tp > 1 else None),
             lr,
             grad_clip=config.grad_clip, ema_decay=config.ema_decay,
             accum_steps=config.accum_steps,
         )
+        if not sharded:
+            return state
+        replicate(state.tensors(), eval_mesh)
+        return fsdp_shard(state, mesh) if config.fsdp else tp_shard(state, mesh)
 
     def replicated(state: TrainState) -> TrainState:
-        if mesh is not None:
+        if mesh is not None and not sharded:
             replicate(state.tensors(), mesh)
         return state
 
@@ -744,12 +797,20 @@ def train(
         best = float(extra["best_test_elbo"])
     # The best checkpoint pointer can only name an epoch that was saved.
     best_saved = best
+    # The pre-stacked epochs' orders: epoch e takes the e-th permutation,
+    # a resumed run too.
+    np_rng = np.random.default_rng(seed)
+    for _ in range(start_epoch - 1 if sharded else 0):
+        np_rng.permutation(train_ds.size)
+
+    # A sharded run evaluates (and returns) a model of the whole parameters.
+    whole = build_model(config, seed=seed, device=device, dtype=dtype) if sharded else None
 
     def runners(state: TrainState) -> tuple[Callable, Callable]:
         step_kw = dict(annealing_steps=config.annealing_epochs * steps_per_epoch,
                        generator=noise, **step_options(config))
-        if grain:
-            train_runner = make_epoch_runner(state.model, mesh=mesh,
+        if grain or sharded:
+            train_runner = make_epoch_runner(state.compute_model, mesh=mesh,
                                              term_fold="t" if mesh is None else "b", **step_kw)
         else:
             train_runner = make_gather_epoch_runner(
@@ -757,16 +818,18 @@ def train(
                 shuffle_mode=config.shuffle_mode,
                 shuffle_granularity=config.shuffle_granularity, order=order, mesh=mesh,
                 **step_kw)
-        return train_runner, make_eval_runner(state.eval_model, config.objective,
-                                              config.mvtcae_alpha, mesh=mesh)
+        evaluated = state.eval_model if whole is None else whole
+        return train_runner, make_eval_runner(evaluated, config.objective,
+                                              config.mvtcae_alpha, mesh=eval_mesh)
 
-    if mesh is not None and (bs % mesh.size or (not grain and train_ds.size % mesh.size)):
+    if mesh is not None and (bs % mesh.n_shards or (not grain and not sharded
+                                                    and train_ds.size % mesh.n_shards)):
         raise ValueError(f"batch size {bs} and train size {train_ds.size} must divide over "
-                         f"{mesh.size} ranks")
+                         f"{mesh.n_shards} ranks")
     runner, evaluate = runners(state)
     stream = _GrainStream(train_ds, config, state.model, device, mesh) if grain else None
     train_arrays = None
-    if not grain:
+    if not grain and not sharded:
         train_arrays = {k: torch.as_tensor(v) for k, v in train_ds.arrays.items()}
         if mesh is not None:
             # One host shuffle, so each rank's block is a random shard.
@@ -782,11 +845,11 @@ def train(
     # retry, shuffle for real (the JAX loop's force_shuffle).
     persist = config.reshuffle_every > 1 or config.shuffle_granularity > 1
     pos, force_shuffle = None, True
-    eval_bs = _mesh_batch(min(bs, test_ds.size), mesh)
+    eval_bs = _mesh_batch(min(bs, test_ds.size), eval_mesh)
     test_split = _padded_split(test_ds, eval_bs, state.model.n_modalities,
                                device if eval_segs == 0 else None)
-    if mesh is not None:
-        test_split = shard_batch(test_split, mesh, dim=1)
+    if eval_mesh is not None:
+        test_split = shard_batch(test_split, eval_mesh, dim=1)
     writer = MetricsWriter(workdir) if workdir is not None and primary else None
     ckpt_writer = None
     if config.ckpt_async and workdir is not None:
@@ -804,6 +867,9 @@ def train(
                     state, runner, _grain_seed(seed, epoch, rollbacks),
                     next_seed=(_grain_seed(seed, epoch + 1, rollbacks)
                                if epoch < config.epochs else None))
+            elif sharded:  # JAX's pre-stacked mesh epochs
+                batches = shard_batch(stacked_epoch(train_ds, bs, np_rng), mesh, dim=1)
+                state, metrics = runner(state, {k: v.to(device) for k, v in batches.items()})
             else:
                 state, pos, metrics = runner(state, train_arrays, pos if persist else None,
                                              force_shuffle)
@@ -819,6 +885,8 @@ def train(
             train_finite = bool(np.isfinite(losses).all())
             test_elbo = float("nan")
             if train_finite or config.nan_rollback == 0:
+                if whole is not None:
+                    state.layout.gather_into(state.eval_model, whole)
                 test_elbo = _split_elbo(evaluate, test_split, test_ds.size, eval_segs, device,
                                         eval_bs)
             if config.nan_rollback > 0 and not (train_finite and np.isfinite(test_elbo)):
@@ -902,7 +970,11 @@ def train(
             ckpt_writer.finalize()
         if writer is not None:
             writer.close()
-    return TrainResult(config, state.model, state, best, history)
+    model = state.model
+    if whole is not None:
+        model = state.layout.gather_into(
+            state.model, build_model(config, seed=seed, device=device, dtype=dtype))
+    return TrainResult(config, model, state, best, history)
 
 
 def _postprocess(

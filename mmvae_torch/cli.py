@@ -25,9 +25,11 @@ JAX CLI passes it to every entry point (``mmvae_tpu/cli.py:362-496``).
 ``MMVAE_*`` trio or torchrun's variables: ``torchrun --nproc_per_node N
 -m mmvae_torch.cli train --multihost ...``); ``train`` then runs data
 parallel over the group's ranks unless ``--no-mesh`` asks each process to
-run alone (``api.train(use_mesh=False)``). What the port does not have
-raises ``NotImplementedError`` when asked for: the flags of the JAX config
-fields the port leaves out (``--fsdp``, ``--tp``, ``--pp``).
+run alone (``api.train(use_mesh=False)``); ``--fsdp`` shards the state
+over the ranks and ``--tp N`` runs tensor parallel over model groups of N
+(``api.train``: ``config.fsdp``, ``config.tp``). What the port does not
+have raises ``NotImplementedError`` when asked for: the flag of the JAX
+config field the port leaves out (``--pp``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ import numpy as np
 
 # The JAX CLI's flags of config fields the port does not have (dest -> flag).
 _UNPORTED_FLAGS = {
-    "fsdp": "--fsdp",
-    "tp": "--tp",
     "pp": "--pp",
 }
 # The JAX config's fields the port does not have.
@@ -57,6 +57,7 @@ _FIELDS = (
     "cycle_weight", "cycle_render_grad", "cycle_contrast_weight", "cycle_render_binarize",
     "p_modality_drop", "cross_recon", "data_dtype", "eval_segment_steps", "data_backend",
     "grain_stream_steps", "reshuffle_every", "shuffle_mode", "shuffle_granularity",
+    "fsdp", "tp",
 )
 # Knobs of the mvae term structure a mixture objective clears when the
 # user did not set them (``mmvae_tpu/cli.py:385-409``).
@@ -134,10 +135,12 @@ def _build_parser() -> argparse.ArgumentParser:
                     "batches in a new order")
     pt.add_argument("--shuffle-granularity", dest="shuffle_granularity", type=int,
                     help="shuffle groups of G rows")
-    # The JAX flags of fields the port does not have: parsed so that they
-    # raise, never ignored.
-    for flag in ("--tp", "--pp"):
-        pt.add_argument(flag, dest=flag[2:].replace("-", "_"), type=int)
+    pt.add_argument("--tp", dest="tp", type=int,
+                    help="tensor parallelism: fold the ranks into a (data, model) mesh of "
+                    "TP-rank model groups (needs --multihost and ranks divisible by TP)")
+    # The JAX flag of a field the port does not have: parsed so that it
+    # raises, never ignored.
+    pt.add_argument("--pp", dest="pp", type=int)
 
     pe = sub.add_parser("eval", help="ELBO of a split from a checkpoint")
     _add_common(pe)

@@ -10,9 +10,9 @@ checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) and the data layer
 (``data_dtype``, ``eval_segment_steps``, ``data_kwargs``, ``data_backend``,
 ``grain_stream_steps`` and the shuffle modes) read, with the JAX defaults
 (``mmvae_tpu/configs.py:30-175``); every config here trains with
-``api.train``, under any of the four objectives. The JAX configs'
-parallel knobs (``fsdp``, ``tp``, ``pp``) are left out until a slice
-reads them. Eval pins
+``api.train``, under any of the four objectives; ``fsdp`` and ``tp`` are
+JAX's parallel knobs (``mmvae_tpu/configs.py:146``, ``:165``), and ``pp``
+is left out until pipeline parallelism is ported. Eval pins
 ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``). A CUB model
 takes the vocabulary of a mounted caption corpus where there is one
 (:func:`cub_vocab_size`).
@@ -99,6 +99,13 @@ class ExperimentConfig:
     # that finds the writer busy is skipped; the last epoch saves
     # synchronously.
     ckpt_async: bool = False
+    # Shard the parameters, Adam's moments and the EMA shadow over the data
+    # mesh (ZeRO-3, parallel/fsdp.py; a multi-process run).
+    fsdp: bool = False
+    # Tensor parallelism: the ranks fold into a (data, model) mesh of
+    # tp-rank model groups, column/row-parallel layers and sharded
+    # attribute banks (parallel/tp.py); exclusive with fsdp.
+    tp: int = 1
     # Reconstruct every modality from every subset posterior; cross
     # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False
@@ -231,6 +238,7 @@ def build_model(
     seed: int = 0,
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
+    tp_mesh=None,
 ):
     """The config's model with seeded random weights, on ``device``, at the
     compute dtype ``dtype`` (``mmvae_tpu/configs.py:288``: float32 or
@@ -238,7 +246,10 @@ def build_model(
 
     The weights are drawn on the CPU from a ``torch.Generator`` seeded with
     ``seed`` and then moved, so one seed gives the same weights on every
-    device and at every dtype.
+    device and at every dtype. ``tp_mesh`` (``parallel.make_mesh_2d``)
+    builds the tensor-parallel variant (``mmvae_tpu/configs.py:289-314``):
+    the same parameters, whole until ``parallel.tp_shard`` cuts them, and
+    experts that run on the mesh's model group (``models/experts.py``).
     """
     if isinstance(config, str):
         config = get_config(config)
@@ -246,6 +257,8 @@ def build_model(
     kwargs = dict(config.model_kwargs)
     if config.dataset == "cub" and "vocab_size" not in kwargs:
         kwargs["vocab_size"] = cub_vocab_size()
+    if tp_mesh is not None:
+        kwargs["tp_mesh"] = tp_mesh
     model = _MODEL_CLASSES[config.name](n_latents=config.n_latents, dtype=dtype, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -48,8 +48,9 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["from_flax_params"]
+__all__ = ["from_flax_params", "flax_axes"]
 
 _LINEARS = ("init_proj", "out_proj")
 _EMBEDS = ("Embed_0", "embed")
@@ -119,3 +120,26 @@ def from_flax_params(
         for leaf, value in layers.get(_TRUNK, {}).items():
             state[f"{expert}.trunk.{leaf}"] = _t(value)
     return state
+
+
+# The port's dim of each dim of the Flax kernel a layer's weight comes from:
+# Dense (in, out) -> Linear (out, in); Conv HWIO -> OIHW; ConvTranspose
+# HWIO -> (in, out, kh, kw), its H and W flipped.
+_KERNEL_AXES = {nn.Linear: (1, 0), nn.Conv2d: (2, 3, 1, 0), nn.ConvTranspose2d: (2, 3, 0, 1)}
+
+
+def flax_axes(module: nn.Module) -> dict[str, tuple[int, ...]]:
+    """For each parameter of ``module`` (by name), the dims of the port's
+    tensor that the Flax leaf's dims map onto, in Flax's order (the Flax
+    shape is ``tuple(p.shape[a] for a in axes)``): a layer's weight as
+    :func:`from_flax_params` transposes it, every other leaf as it is. A
+    rule stated on Flax's shapes (the FSDP and TP layouts) reads them. A
+    transposed conv's kernel is also flipped in H and W, so a block of its
+    H or W holds other elements than Flax's block (no config's kernel is
+    cut there: its channels are larger and divide)."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            axes = _KERNEL_AXES.get(type(mod)) if leaf == "weight" else None
+            out[f"{mod_name}.{leaf}" if mod_name else leaf] = axes or tuple(range(p.dim()))
+    return out

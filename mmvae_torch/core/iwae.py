@@ -61,7 +61,7 @@ def iwae_bound(
     b = mu.shape[0]
     if eps is None:
         # With a mesh, the global batch's noise and this rank's rows of it.
-        ranks = 1 if mesh is None else mesh.size
+        ranks = 1 if mesh is None else mesh.n_shards
         eps = torch.randn((b * ranks, k, mu.shape[1]), generator=generator, device=mu.device,
                           dtype=mu.dtype)
         if ranks > 1:

@@ -9,6 +9,7 @@ from mmvae_torch.data.pipelines import (
     load_dataset,
     quantize_uint8,
     sample_presence,
+    stacked_epoch,
     stacked_epoch_padded,
 )
 from mmvae_torch.data.synthetic import (
@@ -27,6 +28,7 @@ __all__ = [
     "load_dataset",
     "dataset_astype",
     "quantize_uint8",
+    "stacked_epoch",
     "stacked_epoch_padded",
     "sample_presence",
     "make_mnist",

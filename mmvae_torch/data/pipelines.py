@@ -32,7 +32,7 @@ import torch
 from mmvae_torch.data import formats, synthetic
 
 __all__ = ["Dataset", "load_dataset", "dataset_astype", "quantize_uint8", "DATA_DTYPES",
-           "stacked_epoch_padded", "sample_presence", "presence_from_keep"]
+           "stacked_epoch", "stacked_epoch_padded", "sample_presence", "presence_from_keep"]
 
 _GENERATORS = {
     "mnist": synthetic.make_mnist,
@@ -151,6 +151,21 @@ def dataset_astype(dataset: Dataset, dtype: str | torch.dtype) -> Dataset:
         arrays={k: cast(v) if v.dtype == np.float32 else v for k, v in dataset.arrays.items()},
         size=dataset.size,
     )
+
+
+def stacked_epoch(
+    dataset: Dataset, batch_size: int, rng: np.random.Generator | None = None
+) -> dict[str, np.ndarray | torch.Tensor]:
+    """One shuffled epoch stacked to ``(n_steps, batch, ...)`` (``stacked_epoch``,
+    ``mmvae_tpu/data/pipelines.py:193-218``): the rows in the order of
+    ``rng.permutation(size)`` (the loaded order without ``rng``), the
+    remainder past ``n_steps * batch`` dropped. The epochs of a sharded
+    (FSDP or tensor-parallel) run, as JAX's mesh epochs."""
+    order = rng.permutation(dataset.size) if rng is not None else np.arange(dataset.size)
+    n_steps = dataset.size // batch_size
+    idx = order[: n_steps * batch_size].reshape(n_steps, batch_size)
+    return {k: v[torch.from_numpy(idx)] if torch.is_tensor(v) else np.asarray(v)[idx]
+            for k, v in dataset.arrays.items()}
 
 
 def stacked_epoch_padded(

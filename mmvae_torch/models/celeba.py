@@ -47,6 +47,7 @@ class CelebAMVAE(MVAEBase):
         space_to_depth: int = 1,
         upsample_mode: str = "deconv",
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -55,7 +56,8 @@ class CelebAMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_attr = lambda_attr
         self.dtype = dtype
-        kw = dict(dtype=dtype)
+        self.tp_mesh = tp_mesh
+        kw = dict(dtype=dtype, tp_mesh=tp_mesh)
         self.image_enc = ConvEncoder(
             n_latents, self.image_hw, conv_features, space_to_depth=space_to_depth, channels=3,
             **kw

@@ -38,6 +38,7 @@ class CubMVAE(MVAEBase):
         conv_features: tuple[int, ...] = (32, 64, 128, 256),
         upsample_mode: str = "deconv",
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -47,11 +48,13 @@ class CubMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_text = lambda_text
         self.dtype = dtype
+        self.tp_mesh = tp_mesh
         kw = dict(dtype=dtype)
-        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3, **kw)
+        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3,
+                                     tp_mesh=tp_mesh, **kw)
         self.image_dec = DeconvDecoder(
             n_latents, self.image_hw, features=tuple(reversed(conv_features)),
-            upsample_mode=upsample_mode, channels=3, **kw
+            upsample_mode=upsample_mode, channels=3, tp_mesh=tp_mesh, **kw
         )
         self.text_enc = SeqEncoder(n_latents, vocab_size, TEXT_EMBED, TEXT_HIDDEN, **kw)
         self.text_dec = SeqDecoder(n_latents, vocab_size, max_len, TEXT_EMBED, TEXT_HIDDEN,

@@ -20,6 +20,23 @@ it as an op of its own (Flax's ``promote_dtype``, then ``dot_general`` or
 ``conv_general_dilated``, then ``+ bias``; :func:`_layer`). Every head
 that feeds a loss casts back to float32 where the JAX expert does, so the
 losses see float32 ``mu``, ``logvar`` and logits at either dtype.
+
+``tp_mesh`` (a ``(data, model)`` mesh, ``parallel.make_mesh_2d``) builds an
+expert that runs tensor-parallel over the mesh's model group on the
+parameters ``parallel.tp_shard`` leaves the rank (``mmvae_tpu/models/
+experts.py:45-90``, where GSPMD runs the same layout): each Dense and conv
+layer is column-parallel, row-parallel or replicated by
+``parallel.tp.expert_kinds`` (``tp_kind``), and :func:`_layer` moves the
+activation between its whole and its channel blocks with the
+``parallel.tp`` collectives as the kinds require (a column-parallel layer's
+input enters by ``copy_in``; a row-parallel layer's partial product is
+summed by ``reduce_out`` before its bias). Where an op reads every channel
+(the flatten between the conv and the Dense chain, a trunk, a
+depth-to-space, the expert's output) the activation is made whole first
+(:func:`_whole`). Stage 0 of an RGB encoder runs K4 on the rank's 32 / tp
+channels. An attribute bank whose attributes divide over the group runs
+the rank's attributes and gathers the outputs. Without ``tp_mesh`` nothing
+changes.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from torch import nn
 
 from mmvae_torch import ops
 from mmvae_torch.ops.kernels import same_pad
+from mmvae_torch.parallel.tp import TPGroup, copy_in, gather_out, is_bank, plan_expert, reduce_out
 
 __all__ = [
     "swish",
@@ -59,20 +77,73 @@ def _hidden_layers(in_features: int, hidden: Sequence[int]) -> nn.ModuleList:
     )
 
 
+def _product(layer: nn.Module, h: torch.Tensor, w: torch.Tensor,
+             b: torch.Tensor | None = None) -> torch.Tensor:
+    """``layer``'s op on ``h`` with the weight ``w`` and the bias ``b``."""
+    if isinstance(layer, nn.Linear):
+        return F.linear(h, w, b)
+    if isinstance(layer, nn.Conv2d):
+        return F.conv2d(h, w, b, layer.stride, layer.padding)
+    return F.conv_transpose2d(h, w, b, layer.stride, layer.padding)
+
+
+def _add_bias(layer: nn.Module, y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return y + (b if isinstance(layer, nn.Linear) else b[:, None, None])
+
+
 def _layer(layer: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` (an ``nn.Linear``, ``nn.Conv2d`` or ``nn.ConvTranspose2d``)
     on ``h`` at the compute dtype: at float32 the layer as it is; at another,
     ``h``, the weight and the bias cast to it and the bias added after the
     product (a fused bias would be added before the product's one rounding,
-    which is not Flax's order)."""
+    which is not Flax's order). A layer of a tensor-parallel expert runs
+    by its ``tp_kind`` (:func:`_tp_layer`)."""
+    if getattr(layer, "tp_kind", None) is not None:
+        return _tp_layer(layer, h, dtype)
     if dtype == torch.float32:
         return layer(h)
-    h, w, b = h.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)
-    if isinstance(layer, nn.Linear):
-        return F.linear(h, w) + b
-    if isinstance(layer, nn.Conv2d):
-        return F.conv2d(h, w, None, layer.stride, layer.padding) + b[:, None, None]
-    return F.conv_transpose2d(h, w, None, layer.stride, layer.padding) + b[:, None, None]
+    return _add_bias(layer, _product(layer, h.to(dtype), layer.weight.to(dtype)),
+                     layer.bias.to(dtype))
+
+
+def _tp_layer(layer: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A layer on the rank's parameters: ``"col"`` takes the whole input
+    (``copy_in``) and gives the rank's block of the output channels;
+    ``"row"`` takes the rank's block of the input channels and sums the
+    group's partial products (``reduce_out``), then adds the bias;
+    ``"rep"`` computes the whole. The expert's ``TPGroup`` tracks whether
+    the activation is in blocks, and gathers or splits it on the way in."""
+    tp: TPGroup = layer.tp_group
+    kind, dim = layer.tp_kind, -1 if isinstance(layer, nn.Linear) else 1
+    if kind == "row":
+        h = tp.sharded_in(h, dim)
+    else:
+        h = tp.replicated(h, dim)
+        if kind == "col":
+            h = copy_in(h, tp)
+    w, b = layer.weight, layer.bias
+    if dtype != torch.float32:
+        h, w, b = h.to(dtype), w.to(dtype), b.to(dtype)
+    if kind == "row":
+        y = _add_bias(layer, reduce_out(_product(layer, h, w), tp), b)
+    elif dtype == torch.float32:
+        y = _product(layer, h, w, b)
+    else:
+        y = _add_bias(layer, _product(layer, h, w), b)
+    tp.sharded = kind == "col"
+    return y
+
+
+def _tp_start(expert: nn.Module) -> None:
+    """A forward of a tensor-parallel expert starts on a whole input."""
+    if expert.tp is not None:
+        expert.tp.sharded = False
+
+
+def _whole(expert: nn.Module, h: torch.Tensor, dim: int) -> torch.Tensor:
+    """``h`` whole along its channel dim ``dim``: gathered where a
+    tensor-parallel expert holds it in blocks, else as it is."""
+    return h if expert.tp is None else expert.tp.replicated(h, dim)
 
 
 def _run(layers: nn.ModuleList, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -98,17 +169,20 @@ class MLPEncoder(nn.Module):
 
     def __init__(
         self, in_features: int, n_latents: int, hidden: Sequence[int] = (512, 512),
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
         self.dtype = dtype
         self.layers = _hidden_layers(in_features, hidden)
         self.head = nn.Linear(hidden[-1], 2 * n_latents)
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, x: torch.Tensor):
+        _tp_start(self)
         h = _run(self.layers, x.reshape(x.shape[0], -1).to(self.dtype), self.dtype)
-        return _split_head(_layer(self.head, h, self.dtype).float(), self.n_latents)
+        out = _whole(self, _layer(self.head, h, self.dtype), -1)
+        return _split_head(out.float(), self.n_latents)
 
 
 class MLPDecoder(nn.Module):
@@ -120,16 +194,19 @@ class MLPDecoder(nn.Module):
         out_shape: tuple[int, ...],
         hidden: Sequence[int] = (512, 512),
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.out_shape = tuple(out_shape)
         self.dtype = dtype
         self.layers = _hidden_layers(n_latents, hidden)
         self.head = nn.Linear(hidden[-1], math.prod(self.out_shape))
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
+        _tp_start(self)
         h = _run(self.layers, z.to(self.dtype), self.dtype)
-        logits = _layer(self.head, h, self.dtype).float()
+        logits = _whole(self, _layer(self.head, h, self.dtype), -1).float()
         return logits.reshape((z.shape[0],) + self.out_shape)
 
 
@@ -143,6 +220,7 @@ class LabelEncoder(nn.Module):
         embed_dim: int = 512,
         hidden: Sequence[int] = (512,),
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -150,10 +228,13 @@ class LabelEncoder(nn.Module):
         self.embed = nn.Embedding(n_classes, embed_dim)
         self.layers = _hidden_layers(embed_dim, hidden)
         self.head = nn.Linear(hidden[-1], 2 * n_latents)
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, y: torch.Tensor):
+        _tp_start(self)
         h = _run(self.layers, _embed(self.embed, y, self.dtype), self.dtype)
-        return _split_head(_layer(self.head, h, self.dtype).float(), self.n_latents)
+        out = _whole(self, _layer(self.head, h, self.dtype), -1)
+        return _split_head(out.float(), self.n_latents)
 
 
 class LabelDecoder(nn.Module):
@@ -161,16 +242,18 @@ class LabelDecoder(nn.Module):
 
     def __init__(
         self, n_latents: int, n_classes: int, hidden: Sequence[int] = (512,),
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, tp_mesh=None,
     ):
         super().__init__()
         self.dtype = dtype
         self.layers = _hidden_layers(n_latents, hidden)
         self.head = nn.Linear(hidden[-1], n_classes)
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
+        _tp_start(self)
         h = _run(self.layers, z.to(self.dtype), self.dtype)
-        return _layer(self.head, h, self.dtype).float()
+        return _whole(self, _layer(self.head, h, self.dtype), -1).float()
 
 
 def _conv_out(d: int, n_stages: int) -> int:
@@ -261,6 +344,7 @@ class ConvEncoder(nn.Module):
         pp_mesh=None,
         pp_n_micro: int = 4,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         r = space_to_depth
@@ -283,8 +367,10 @@ class ConvEncoder(nn.Module):
         self.trunk = _trunk(fc_hidden, trunk_stages, trunk_depth, trunk_rezero, pp_mesh,
                             pp_n_micro, dtype)
         self.head = nn.Linear(fc_hidden, 2 * n_latents)
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, x: torch.Tensor):
+        _tp_start(self)
         dtype = self.dtype
         convs = list(self.convs)
         if self.space_to_depth > 1:
@@ -299,14 +385,20 @@ class ConvEncoder(nn.Module):
             w, b = stage0.weight, stage0.bias
             if dtype != torch.float32:
                 x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+            col = getattr(stage0, "tp_kind", None) == "col"
+            if col:  # K4 on the rank's 32 / tp channels
+                x = copy_in(x, self.tp)
             h = ops.conv4x4s2_swish(x, w, b)  # NCHW
+            if col:
+                self.tp.sharded = True
         for conv in convs:
             h = swish(_layer(conv, F.pad(h, same_pad(h.shape[-2:])), dtype))
-        h = h.permute(0, 2, 3, 1).flatten(1)  # Flax flattens NHWC
+        h = _whole(self, h, 1).permute(0, 2, 3, 1).flatten(1)  # Flax flattens NHWC
         h = _run(self.layers, h, dtype)
         if self.trunk is not None:
-            h = self.trunk(h)
-        return _split_head(_layer(self.head, h, dtype).float(), self.n_latents)
+            h = self.trunk(_whole(self, h, -1))
+        out = _whole(self, _layer(self.head, h, dtype), -1)
+        return _split_head(out.float(), self.n_latents)
 
 
 class DeconvDecoder(nn.Module):
@@ -348,6 +440,7 @@ class DeconvDecoder(nn.Module):
         pp_mesh=None,
         pp_n_micro: int = 4,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         if upsample_mode not in ("deconv", "shuffle"):
@@ -379,28 +472,41 @@ class DeconvDecoder(nn.Module):
             self.convs.append(nn.Conv2d(last_in, 4 * channels, 2))
         else:
             self.deconvs.append(nn.ConvTranspose2d(last_in, channels, 4, stride=2, padding=1))
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
+        _tp_start(self)
         dtype = self.dtype
         h = _run(self.layers, z.to(dtype), dtype)
         if self.trunk is not None:
-            h = self.trunk(h)
-        h = swish(_layer(self.head, h, dtype))
+            h = self.trunk(_whole(self, h, -1))
+        h = _whole(self, swish(_layer(self.head, h, dtype)), -1)
         h = h.reshape(z.shape[0], *self.base_hw, self.features[0]).permute(0, 3, 1, 2)
         up = self.convs if self.upsample_mode == "shuffle" else self.deconvs
         for layer in up[: len(self.features) - 1]:
             if self.upsample_mode == "shuffle":
-                h = swish(_shuffle_up(_conv2x2(layer, h, dtype), 2))
+                h = swish(_shuffle_up(_whole(self, _conv2x2(layer, h, dtype), 1), 2))
             else:
                 h = swish(_layer(layer, h, dtype))
         if self.space_to_depth > 1:
-            h = _shuffle_up(_deconv2x2(self.deconvs[-1], h, dtype), self.space_to_depth)
+            h = _deconv2x2(self.deconvs[-1], h, dtype)
+            h = _shuffle_up(_whole(self, h, 1), self.space_to_depth)
         elif self.upsample_mode == "shuffle":
-            h = _shuffle_up(_conv2x2(self.convs[-1], h, dtype), 2)
+            h = _shuffle_up(_whole(self, _conv2x2(self.convs[-1], h, dtype), 1), 2)
         else:
-            h = _layer(self.deconvs[-1], h, dtype)
+            h = _whole(self, _layer(self.deconvs[-1], h, dtype), 1)
         h = h[:, :, : self.out_hw[0], : self.out_hw[1]].float()
         return h[:, 0] if self.channels == 1 else h.permute(0, 2, 3, 1)
+
+
+def _bank_group(bank: nn.Module, tp_mesh) -> TPGroup | None:
+    """The model group a bank's attributes are cut over: where ``tp_mesh``
+    has one of more than one rank and the attributes divide over it
+    (``parallel.tp.is_bank``; CelebA's 18 split 9 and 9 at tp = 2 and stay
+    whole at tp = 4)."""
+    if tp_mesh is None or tp_mesh.model_size <= 1 or not is_bank(bank, tp_mesh.model_size):
+        return None
+    return TPGroup(tp_mesh)
 
 
 class AttributeEncoderBank(nn.Module):
@@ -415,7 +521,7 @@ class AttributeEncoderBank(nn.Module):
 
     def __init__(
         self, n_latents: int, n_attrs: int = 18, embed_dim: int = 32, hidden: int = 64,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -425,13 +531,19 @@ class AttributeEncoderBank(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
         self.w2 = nn.Parameter(torch.empty(n_attrs, hidden, 2 * n_latents))
         self.b2 = nn.Parameter(torch.zeros(n_attrs, 2 * n_latents))
+        self.tp = _bank_group(self, tp_mesh)
 
     def forward(self, attrs: torch.Tensor):
         dt = self.dtype
+        if self.tp is not None:  # this rank's attributes
+            k = self.embed.shape[0]
+            attrs = attrs[:, self.tp.rank * k:(self.tp.rank + 1) * k]
         a = attrs.to(torch.float32)[..., None]  # (B, A, 1)
         h = (self.embed[None, :, 0] * (1.0 - a) + self.embed[None, :, 1] * a).to(dt)
         h = swish(torch.einsum("bae,aeh->bah", h, self.w1.to(dt)) + self.b1.to(dt))
         out = (torch.einsum("bah,aho->bao", h, self.w2.to(dt)) + self.b2.to(dt)).float()
+        if self.tp is not None:
+            out = gather_out(out, self.tp, 1)
         return out[..., : self.n_latents], out[..., self.n_latents :]
 
 
@@ -441,15 +553,19 @@ class AttributeDecoderBank(nn.Module):
     ``b2`` ``(A,)``."""
 
     def __init__(self, n_latents: int, n_attrs: int = 18, hidden: int = 64,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_mesh=None):
         super().__init__()
         self.dtype = dtype
         self.w1 = nn.Parameter(torch.empty(n_attrs, n_latents, hidden))
         self.b1 = nn.Parameter(torch.zeros(n_attrs, hidden))
         self.w2 = nn.Parameter(torch.empty(n_attrs, hidden))
         self.b2 = nn.Parameter(torch.zeros(n_attrs))
+        self.tp = _bank_group(self, tp_mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.tp is not None:
+            z = copy_in(z, self.tp)
         h = swish(torch.einsum("bl,alh->bah", z.to(dt), self.w1.to(dt)) + self.b1.to(dt))
-        return (torch.einsum("bah,ah->ba", h, self.w2.to(dt)) + self.b2.to(dt)).float()
+        out = (torch.einsum("bah,ah->ba", h, self.w2.to(dt)) + self.b2.to(dt)).float()
+        return out if self.tp is None else gather_out(out, self.tp, 1)

@@ -34,6 +34,7 @@ class FashionMnistMVAE(MVAEBase):
         lambda_image: float = 1.0,
         lambda_label: float = 10.0,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -41,7 +42,8 @@ class FashionMnistMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_label = lambda_label
         self.dtype = dtype
-        kw = dict(dtype=dtype)
+        self.tp_mesh = tp_mesh
+        kw = dict(dtype=dtype, tp_mesh=tp_mesh)
         self.image_enc = ConvEncoder(n_latents, self.image_hw, features=(32, 64), **kw)
         self.image_dec = DeconvDecoder(n_latents, self.image_hw, features=(64, 32), **kw)
         self.label_enc = LabelEncoder(n_latents, n_classes, **kw)

@@ -33,6 +33,7 @@ class MnistMVAE(MVAEBase):
         lambda_image: float = 1.0,
         lambda_label: float = 10.0,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -40,7 +41,8 @@ class MnistMVAE(MVAEBase):
         self.lambda_image = lambda_image
         self.lambda_label = lambda_label
         self.dtype = dtype
-        kw = dict(dtype=dtype)
+        self.tp_mesh = tp_mesh
+        kw = dict(dtype=dtype, tp_mesh=tp_mesh)
         self.image_enc = MLPEncoder(math.prod(self.image_hw), n_latents, **kw)
         self.image_dec = MLPDecoder(n_latents, self.image_hw, **kw)
         self.label_enc = LabelEncoder(n_latents, n_classes, **kw)

@@ -41,6 +41,7 @@ class MultiMnistMVAE(MVAEBase):
         text_hidden: int = 128,
         text_latent_dims: int = 0,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__()
         self.n_latents = n_latents
@@ -50,10 +51,13 @@ class MultiMnistMVAE(MVAEBase):
         self.lambda_text = lambda_text
         self.text_latent_dims = text_latent_dims
         self.dtype = dtype
+        self.tp_mesh = tp_mesh
         kw = dict(dtype=dtype)
-        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, **kw)
+        self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, tp_mesh=tp_mesh,
+                                     **kw)
         self.image_dec = DeconvDecoder(
-            n_latents, self.image_hw, features=tuple(reversed(conv_features)), **kw
+            n_latents, self.image_hw, features=tuple(reversed(conv_features)), tp_mesh=tp_mesh,
+            **kw
         )
         self.text_enc = SeqEncoder(n_latents, DIGIT_VOCAB, text_embed, text_hidden, **kw)
         self.text_dec = SeqDecoder(

@@ -28,9 +28,12 @@ from mmvae_torch.models.experts import (
     _layer,
     _run,
     _split_head,
+    _tp_start,
+    _whole,
     swish,
 )
 from mmvae_torch.models.mnist import MnistMVAE
+from mmvae_torch.parallel.tp import plan_expert
 
 __all__ = ["PipelineTrunk", "DeepMnistMVAE", "DeepCubMVAE"]
 
@@ -83,7 +86,7 @@ class _TrunkEncoder(nn.Module):
 
     def __init__(self, in_features: int, n_latents: int, width: int, n_stages: int,
                  block_depth: int, rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_mesh=None):
         super().__init__()
         self.n_latents = n_latents
         self.dtype = dtype
@@ -91,11 +94,13 @@ class _TrunkEncoder(nn.Module):
         self.trunk = PipelineTrunk(n_stages, width, block_depth, rezero=rezero,
                                    pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
         self.head = nn.Linear(width, 2 * n_latents)
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, x: torch.Tensor):
+        _tp_start(self)
         h = _run(self.layers, x.reshape(x.shape[0], -1).to(self.dtype), self.dtype)
-        out = _layer(self.head, self.trunk(h), self.dtype).float()
-        return _split_head(out, self.n_latents)
+        out = _layer(self.head, self.trunk(_whole(self, h, -1)), self.dtype)
+        return _split_head(_whole(self, out, -1).float(), self.n_latents)
 
 
 class _TrunkDecoder(nn.Module):
@@ -104,7 +109,7 @@ class _TrunkDecoder(nn.Module):
 
     def __init__(self, n_latents: int, out_shape: tuple[int, ...], width: int,
                  n_stages: int, block_depth: int, rezero: bool = True, pp_mesh=None,
-                 pp_n_micro: int = 4, dtype: torch.dtype = torch.float32):
+                 pp_n_micro: int = 4, dtype: torch.dtype = torch.float32, tp_mesh=None):
         super().__init__()
         self.out_shape = tuple(out_shape)
         self.dtype = dtype
@@ -112,10 +117,12 @@ class _TrunkDecoder(nn.Module):
         self.trunk = PipelineTrunk(n_stages, width, block_depth, rezero=rezero,
                                    pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
         self.head = nn.Linear(width, math.prod(self.out_shape))
+        self.tp = plan_expert(self, tp_mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.trunk(_run(self.layers, z.to(self.dtype), self.dtype))
-        logits = _layer(self.head, h, self.dtype).float()
+        _tp_start(self)
+        h = self.trunk(_whole(self, _run(self.layers, z.to(self.dtype), self.dtype), -1))
+        logits = _whole(self, _layer(self.head, h, self.dtype), -1).float()
         return logits.reshape((z.shape[0],) + self.out_shape)
 
 
@@ -138,12 +145,14 @@ class DeepMnistMVAE(MnistMVAE):
         pp_mesh=None,
         pp_n_micro: int = 4,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__(n_latents, n_classes, image_hw, lambda_image, lambda_label,
-                         dtype=dtype)
+                         dtype=dtype, tp_mesh=tp_mesh)
         self.trunk_stages = trunk_stages
         trunk = dict(width=trunk_width, n_stages=trunk_stages, block_depth=trunk_depth,
-                     rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype)
+                     rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype,
+                     tp_mesh=tp_mesh)
         pixels = self.image_hw[0] * self.image_hw[1]
         self.image_enc = _TrunkEncoder(pixels, n_latents, **trunk)
         self.image_dec = _TrunkDecoder(n_latents, self.image_hw, **trunk)
@@ -171,13 +180,14 @@ class DeepCubMVAE(CubMVAE):
         pp_mesh=None,
         pp_n_micro: int = 4,
         dtype: torch.dtype = torch.float32,
+        tp_mesh=None,
     ):
         super().__init__(n_latents, vocab_size, max_len, image_hw, lambda_image, lambda_text,
-                         conv_features, upsample_mode, dtype=dtype)
+                         conv_features, upsample_mode, dtype=dtype, tp_mesh=tp_mesh)
         self.trunk_stages = trunk_stages
         trunk = dict(trunk_stages=trunk_stages, trunk_depth=trunk_depth,
                      trunk_rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro,
-                     dtype=dtype)
+                     dtype=dtype, tp_mesh=tp_mesh)
         self.image_enc = ConvEncoder(n_latents, self.image_hw, conv_features, channels=3,
                                      **trunk)
         self.image_dec = DeconvDecoder(

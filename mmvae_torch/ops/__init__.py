@@ -316,7 +316,8 @@ def conv4x4s2_swish(
     C)`` NHWC, ``weight`` ``(F, C, 4, 4)`` OIHW -> ``(B, F, ceil(H/2),
     ceil(W/2))`` NCHW, in the type ``x`` and ``weight`` promote to (a bf16
     batch and f32 weights give f32; all bf16, a bf16 model's stage 0, give
-    bf16). The kernel takes C <= 4 and F = 32; its backward kernels give
+    bf16). The kernel takes C <= 4 and F = 32, 16 or 8 (a rank's share of
+    stage 0's 32 channels under tensor parallelism); its backward kernels give
     the weight's and the bias's gradients in their types and, when the
     image requires grad, the image's (dx; f32 or all bf16). Where autograd records nothing, the kernel path is the op
     ``mmvae::conv4x4s2_swish``, which a trace keeps (``ops/library.py``)."""

@@ -3,15 +3,19 @@
 //
 // conv4x4s2_swish replaces tools/pallas_conv_probe.py:pallas_conv0 (the
 // kernel through its pallas_call): for an image x (B, H, W, C) in NHWC, a
-// weight w (32, C, 4, 4) in PyTorch's OIHW and a bias b (32,),
+// weight w (F, C, 4, 4) in PyTorch's OIHW and a bias b (F,),
 //     y[n, o, i, j] = swish(b[o] + sum_{ky,kx,c} x[n, 2i+ky-pt, 2j+kx-pl, c]
 //                                                * w[o, c, ky, kx]),
 // with XLA's SAME padding: per dim the total pad is
 // max((ceil(d/2) - 1) * 2 + 4 - d, 0), and the low side (pt, pl) gets half
 // of it, rounded down, which is 1 at every size. Out of range input reads
-// as 0. y is (B, 32, ceil(H/2), ceil(W/2)), NCHW, so the next stage (a
+// as 0. y is (B, F, ceil(H/2), ceil(W/2)), NCHW, so the next stage (a
 // cuDNN conv) takes it as it is. It is the first stage of the CelebA image
-// encoder.
+// encoder: F = 32, or under tensor parallelism a rank's 32 / tp channels of
+// the column-parallel stage (F = 16 at tp = 2, 8 at tp = 4). F is fixed when
+// the source is compiled (CONV_F), one library for each F; the numbers
+// below are F = 32's, and the designs at 16 and 8 are said where they
+// differ.
 //
 // The TPU kernel padded the input and pre-split it into the four stride
 // parities with XLA, so that every tap read a contiguous window (C = 3
@@ -26,7 +30,7 @@
 // instructions. So the kernel has to overlap its loads, FMAs and stores.
 //
 // Design. A unit of work is one output row of one image, 32 output pixels
-// wide (a chunk of the row), all 32 channels: one warp. Its input is 4 rows
+// wide (a chunk of the row), all F channels: one warp. Its input is 4 rows
 // of 66 columns (2 * 32 + 2, the SAME pad and the image edges zero-filled),
 // staged f32 in the warp's own slice of shared memory as NHWC rows, each
 // shifted by `lead` floats so that the image's 16-byte chunks land on
@@ -34,7 +38,11 @@
 // output pixels (4t..4t+3) x 8 channels (8g..8g+7): 32 accumulators. Per
 // input row a lane reads its window of 10 columns x C as float4s (the 4
 // pixels' 4 taps), and per (tap, c) the 8 weights of its channels as two
-// float4s: 32 FMAs per weight pair, 12 FMAs per shared-memory load.
+// float4s: 32 FMAs per weight pair, 12 FMAs per shared-memory load. At F =
+// 16 and 8 the warp keeps its 32 pixels and every lane stays busy with
+// fewer channels: lane (t, g) owns F / 4 channels (4 from one float4, or 2
+// from one float2), so the staging, the loads of x and the stores are
+// F = 32's, and a lane does F / 2 FMAs per weight load.
 // A block of `warps` warps stages the weights once ([tap][c][o], each
 // thread writing consecutive addresses) and then walks units with the
 // grid's stride, so the grid is sized to the card (a few blocks an SM) and
@@ -91,7 +99,11 @@
 // the weights are staged once a block as the first product's A fragments.
 // A warp takes 16 output
 // channels and groups of 16 pixels, as two n-tiles of 8 (the even pixels,
-// the odd ones, so that at C = 3 its loads fall on distinct banks). Per
+// the odd ones, so that at C = 3 its loads fall on distinct banks). At F =
+// 16 one m-tile holds every channel, so each warp takes its own groups of
+// pixels; F = 8 is below mma.sync's m16, and its one m-tile is padded: rows
+// 8-15 take zero weights and a zero g, so their S is 0, and they are not
+// stored. Per
 // group: pre^T = W . patches^T into three accumulators (one per product of
 // the split); S = g swish'(pre + b) on the accumulator fragments, g read
 // from global memory through its strides; then S's fragments, taken as the
@@ -136,12 +148,13 @@
 // hi and lo planes; the weights are staged once a block as both products'
 // fragments. A warp takes an item of 32 S pixels, a row of S (the ring's
 // columns are one more item where the tile has them): product 1, pre =
-// patches . W^T with the pixels as the M side (two m-tiles, four n-tiles of
-// output channels); S = g swish'(pre + b) on the accumulator fragments, g
+// patches . W^T with the pixels as the M side (two m-tiles, F / 8 n-tiles
+// of output channels); S = g swish'(pre + b) on the accumulator fragments, g
 // read through its strides; product 2, T^T = W^T . S^T, whose B fragments
 // are product 1's accumulator fragments when a k step takes the channels
-// in the order 0, 2, 4, 6, 1, 3, 5, 7, so S never leaves the registers.
-// T goes to shared memory; the ring's rows need one tap row of it each,
+// in the order 0, 2, 4, 6, 1, 3, 5, 7, so S never leaves the registers
+// (F / 8 k steps: at F = 8 one k8 step of m16n8k8). T goes to shared
+// memory; the ring's rows need one tap row of it each,
 // which lies in one m-tile of product 2. Then a thread an input pixel sums
 // its 2 x 2 covering entries of T in a fixed order: two launches give the
 // same bits, whatever the plan. What holds it at several times its bound
@@ -165,10 +178,17 @@
 
 namespace {
 
-constexpr int kCout = 32;
+// The output channels F, fixed when a library is compiled (-DCONV_F=16 or
+// -DCONV_F=8; 32 by default), one library each: a rank's share of stage 0's
+// 32 channels under tensor parallelism (32 / tp, tp = 1, 2 or 4).
+#ifndef CONV_F
+#define CONV_F 32
+#endif
+static_assert(CONV_F == 32 || CONV_F == 16 || CONV_F == 8, "K4 takes F = 32, 16 or 8");
+constexpr int kCout = CONV_F;
 constexpr int kTaps = 16;
 constexpr int kPx = 4;                     // output pixels a lane
-constexpr int kCh = 8;                     // output channels a lane
+constexpr int kCh = kCout / 4;             // output channels a lane (8, 4 or 2)
 constexpr int kTileW = 8 * kPx;            // output pixels a warp
 constexpr int kTileCols = 2 * kTileW + 2;  // input columns a unit reads
 constexpr int kMaxWarps = 8;
@@ -303,6 +323,25 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&r)[kPx], 
   }
 }
 
+// The kCh weights of a lane's channels at one (tap, c), from 16-byte (kCh =
+// 8 or 4) or 8-byte (kCh = 2) aligned shared memory.
+__device__ __forceinline__ void load_w(const float* p, float (&v)[kCh]) {
+  if constexpr (kCh % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kCh / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q + 0] = f.x;
+      v[4 * q + 1] = f.y;
+      v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+}
+
 template <typename T, int C, bool VEC>
 struct Stage {
   using Ck = Chunk<T, VEC>;
@@ -382,7 +421,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 
   const int t = lane % 8;
   const int g = lane / 8;
-  const float4* s_w4 = reinterpret_cast<const float4*>(s_w);
   const size_t plane = static_cast<size_t>(h_out) * w_out;
   for (; u < units; u += step) {
     __syncwarp();  // the previous unit is no longer read
@@ -423,20 +461,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
       for (int kx = 0; kx < 4; ++kx) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const int wi = ((ky * 4 + kx) * C + c) * (kCout / 4) + 2 * g;
-          const float4 w0 = s_w4[wi];
-          const float4 w1 = s_w4[wi + 1];
+          float wv[kCh];
+          load_w(s_w + ((ky * 4 + kx) * C + c) * kCout + kCh * g, wv);
 #pragma unroll
           for (int p = 0; p < kPx; ++p) {
             const float xv = xin[lead(C) + (2 * p + kx) * C + c];
-            acc[p][0] = fmaf(xv, w0.x, acc[p][0]);
-            acc[p][1] = fmaf(xv, w0.y, acc[p][1]);
-            acc[p][2] = fmaf(xv, w0.z, acc[p][2]);
-            acc[p][3] = fmaf(xv, w0.w, acc[p][3]);
-            acc[p][4] = fmaf(xv, w1.x, acc[p][4]);
-            acc[p][5] = fmaf(xv, w1.y, acc[p][5]);
-            acc[p][6] = fmaf(xv, w1.z, acc[p][6]);
-            acc[p][7] = fmaf(xv, w1.w, acc[p][7]);
+#pragma unroll
+            for (int o = 0; o < kCh; ++o) acc[p][o] = fmaf(xv, wv[o], acc[p][o]);
           }
         }
       }
@@ -523,9 +554,15 @@ bool plan_ok(int c, int warps, int smem) {
 __host__ __device__ constexpr int bwd_row_floats(int c) {
   return (row_floats(c) + 27) / 32 * 32 + 4;
 }
+// The backward's m-tiles of 16 output channels: 2 at F = 32, 1 at F = 16,
+// and 1 at F = 8, whose rows 8-15 are padding (zero weights, zero g, not
+// stored); and the warps of a block that take the same pixels (one an
+// m-tile).
+constexpr int kMTiles = kCout >= 16 ? kCout / 16 : 1;
+constexpr bool kHiRows = kCout >= 16;  // the m-tile's rows 8-15 are channels
 // Floats of the staged weights: the A fragments of product 1, [m-tile][k
 // step][lane][a0-a3 hi, a0-a3 lo], two float4s a lane and k step.
-__host__ __device__ constexpr int bwd_w_floats(int c) { return 2 * 2 * c * 32 * 8; }
+__host__ __device__ constexpr int bwd_w_floats(int c) { return kMTiles * 2 * c * 32 * 8; }
 // Floats of one plane (hi or lo) of a staged input tile: 2 TR + 2 rows.
 __host__ __device__ constexpr int bwd_x_floats(int c, int rows) {
   return (2 * rows + 2) * bwd_row_floats(c);
@@ -542,7 +579,7 @@ size_t bwd_smem_of(int c, int rows, int warps) {
   const size_t staging = static_cast<size_t>(bwd_w_floats(c)) +
                          2 * static_cast<size_t>(bwd_x_floats(c, rows)) +
                          static_cast<size_t>(bwd_raw_floats(c, rows));
-  const size_t red = static_cast<size_t>(warps / 2 * kTaps * c + 2 * warps) * kCout;
+  const size_t red = static_cast<size_t>(warps / kMTiles * (kTaps * c + 4)) * kCout;
   return sizeof(float) * (staging > red ? staging : red);
 }
 
@@ -683,8 +720,9 @@ struct BwdStage {
   }
 };
 
-// Per tile, a warp takes one m-tile of 16 channels (warp % 2) and every
-// (W / 2)-th group of 16 pixels from warp / 2 on, as two n-tiles: the even
+// Per tile, a warp takes one m-tile of 16 channels (warp % kMTiles) and
+// every (W / kMTiles)-th group of 16 pixels from warp / kMTiles on, as two
+// n-tiles: the even
 // pixels and the odd ones (column n of n-tile e is pixel 16 jg + 2 n + e).
 // For each group: product 1, pre^T (16 x 8, twice) = W (16 x 16C) .
 // patches^T, 3xTF32 on the tensor cores, each of the three products in its
@@ -732,8 +770,9 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
 
   // The weights as product 1's A fragments, split once: a_r of lane ln at
   // k step ks of m-tile mt is W[mt 16 + ln / 4 + 8 (r % 2)][ks 8 + ln % 4 +
-  // 4 (r / 2)].
-  constexpr int kWPer = 2 * KS * 32 * 4 / (32 * W);
+  // 4 (r / 2)], 0 for a padding row.
+  constexpr int kWPer = kMTiles * KS * 32 * 4 / (32 * W);
+  static_assert(kMTiles * KS * 32 * 4 % (32 * W) == 0, "the fragments split over the block");
   float wv[kWPer];
 #pragma unroll
   for (int j = 0; j < kWPer; ++j) {
@@ -741,7 +780,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
     const int ln = i / 4 % 32;
     const int o = i / (128 * KS) * 16 + ln / 4 + 8 * (i % 4 % 2);
     const int k = i / 128 % KS * 8 + ln % 4 + 4 * (i % 4 / 2);
-    wv[j] = ld_f32(w + ((o * C + k % C) * 4 + k / (4 * C)) * 4 + k / C % 4);
+    wv[j] = o < kCout ? ld_f32(w + ((o * C + k % C) * 4 + k / (4 * C)) * 4 + k / C % 4) : 0.0f;
   }
 #pragma unroll
   for (int j = 0; j < kWPer; ++j) {
@@ -752,9 +791,9 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
     f[i % 4] = __uint_as_float(hi);
     f[4 + i % 4] = __uint_as_float(lo);
   }
-  const int mt = warp % 2;
+  const int mt = warp % kMTiles;
   const int o0 = mt * 16 + gq;  // the channels of the thread's rows: o0, o0 + 8
-  const float b0 = ld_f32(bias + o0), b1 = ld_f32(bias + o0 + 8);
+  const float b0 = ld_f32(bias + o0), b1 = kHiRows ? ld_f32(bias + o0 + 8) : 0.0f;
   const float4* wf = reinterpret_cast<const float4*>(s_w) + (mt * KS * 32 + lane) * 2;
   // Per-thread offsets in the staged planes: product 1's B at pixel 2 gq,
   // element tq of a 4-aligned run of k; product 2's B at pixel 4 tq,
@@ -782,7 +821,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
                   next % n_chunks * kTileW, h, row_len, tid);
     }
     const TW* gt = g + n * sn + g_o;
-    for (int jg = warp / 2; jg < P / 16; jg += W / 2) {
+    for (int jg = warp / kMTiles; jg < P / 16; jg += W / kMTiles) {
       // The group's pixels start at row jg / 2, column 16 (jg % 2) of the tile.
       const int base = jg / 2 * 2 * kRow + jg % 2 * 32 * C;
       // g at the thread's accumulator positions: channels o0, o0 + 8,
@@ -795,7 +834,7 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
       for (int i = 0; i < 4; ++i) {
         const bool ok = oy < h_out && ox + i < w_out;
         gv[0][i] = ok ? ld_f32(gp + i * sw) : 0.0f;
-        gv[1][i] = ok ? ld_f32(gp + 8 * so + i * sw) : 0.0f;
+        gv[1][i] = ok && kHiRows ? ld_f32(gp + 8 * so + i * sw) : 0.0f;
       }
       // Product 1: B of n-tile e (k x pixel) = patch(16 jg + 2 gq + e, ks 8
       // + tq (+ 4)).
@@ -867,29 +906,33 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
   __syncthreads();
 
   // The block's sums, in a fixed order, into its row of the workspace:
-  // entry k * 32 + o of dW (k < K), the warp pairs' sums in order; entry
-  // K * 32 + o of db, the 2 W rows (pair, tq) in order.
-  float* red = smem;                        // [pair][k][o]
-  float* red_b = smem + W / 2 * K * kCout;  // [pair * 4 + tq][o]
-  const int pair = warp / 2;
+  // entry k * F + o of dW (k < K), the warp groups' sums in order (a group:
+  // the kMTiles warps that take the same pixels); entry K * F + o of db, the
+  // 4 rows (group, tq) of each group in order.
+  constexpr int kGroups = W / kMTiles;
+  float* red = smem;                           // [group][k][o]
+  float* red_b = smem + kGroups * K * kCout;  // [group * 4 + tq][o]
+  const int grp = warp / kMTiles;
 #pragma unroll
   for (int nt = 0; nt < KS; ++nt) {
-    float* r = red + (pair * K + nt * 8 + 2 * tq) * kCout + o0;
+    float* r = red + (grp * K + nt * 8 + 2 * tq) * kCout + o0;
     r[0] = acc[nt][0];
     r[kCout] = acc[nt][1];
-    r[8] = acc[nt][2];
-    r[kCout + 8] = acc[nt][3];
+    if (kHiRows) {
+      r[8] = acc[nt][2];
+      r[kCout + 8] = acc[nt][3];
+    }
   }
-  red_b[(pair * 4 + tq) * kCout + o0] = db0;
-  red_b[(pair * 4 + tq) * kCout + o0 + 8] = db1;
+  red_b[(grp * 4 + tq) * kCout + o0] = db0;
+  if (kHiRows) red_b[(grp * 4 + tq) * kCout + o0 + 8] = db1;
   __syncthreads();
   constexpr int kOut = (K + 1) * kCout;
   for (int i = tid; i < kOut; i += 32 * W) {
     float s = 0.0f;
     if (i < K * kCout) {
-      for (int r = 0; r < W / 2; ++r) s += red[r * K * kCout + i];
+      for (int r = 0; r < kGroups; ++r) s += red[r * K * kCout + i];
     } else {
-      for (int r = 0; r < 2 * W; ++r) s += red_b[r * kCout + i - K * kCout];
+      for (int r = 0; r < 4 * kGroups; ++r) s += red_b[r * kCout + i - K * kCout];
     }
     ws[static_cast<size_t>(blockIdx.x) * kOut + i] = s;
   }
@@ -1058,9 +1101,12 @@ __host__ __device__ constexpr int dx_row_floats(int c) {
 // Floats of one S pixel's row of T (16 C), padded so that a warp's stores
 // of T fall on distinct banks.
 __host__ __device__ constexpr int dx_t_pitch(int c) { return 16 * c + (c % 2 ? 2 : 4); }
+// The input gradient's n-tiles of 8 output channels in product 1, its k
+// steps in product 2: 4, 2 or 1.
+constexpr int kNT = kCout / 8;
 // Floats of the staged weights: product 1's B fragments and product 2's A
-// fragments, hi and lo, 1024 C floats each.
-__host__ __device__ constexpr int dx_w_floats(int c) { return 2 * 1024 * c; }
+// fragments, hi and lo, 32 C F floats each.
+__host__ __device__ constexpr int dx_w_floats(int c) { return 64 * c * kCout; }
 // Floats of one input plane (raw, hi or lo) of a tile: 2 TR + 6 rows.
 __host__ __device__ constexpr int dx_plane_floats(int c, int rows) {
   return (2 * rows + 6) * dx_row_floats(c);
@@ -1221,7 +1267,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
   constexpr int TP = dx_t_pitch(C);
   extern __shared__ __align__(16) float smem[];
   uint4* s_w1 = reinterpret_cast<uint4*>(smem);  // [ks][nt][lane]
-  uint4* s_w2 = s_w1 + KS * 4 * 32;               // [mt][ks][hi, lo][lane]
+  uint4* s_w2 = s_w1 + KS * kNT * 32;             // [mt][ks][hi, lo][lane]
   const int plane = dx_plane_floats(C, rows);
   float* s_raw = smem + dx_w_floats(C);
   float* s_xh = s_raw + plane;
@@ -1264,27 +1310,27 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
     }
   }
   // The bias of the thread's channels 8 nt + 2 tq (+ 1).
-  float bv[4][2];
+  float bv[kNT][2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     bv[nt][0] = ld_f32(bias + 8 * nt + 2 * tq);
     bv[nt][1] = ld_f32(bias + 8 * nt + 2 * tq + 1);
   }
   __syncthreads();
   auto w_at = [&](int o, int k) { return s_t[(o * C + k % C) * kTaps + k / C]; };
-  for (int i = tid; i < KS * 4 * 32; i += nthreads) {
+  for (int i = tid; i < KS * kNT * 32; i += nthreads) {
     const int ln = i % 32;
-    const int o = i / 32 % 4 * 8 + ln / 4;
-    const int k = i / 128 * 8 + ln % 4;
+    const int o = i / 32 % kNT * 8 + ln / 4;
+    const int k = i / (32 * kNT) * 8 + ln % 4;
     unsigned h0, l0, h1, l1;
     split_tf32(w_at(o, k), h0, l0);
     split_tf32(w_at(o, k + 4), h1, l1);
     s_w1[i] = make_uint4(h0, h1, l0, l1);
   }
-  for (int i = tid; i < MT * 4 * 32; i += nthreads) {
+  for (int i = tid; i < MT * kNT * 32; i += nthreads) {
     const int ln = i % 32;
-    const int o = i / 32 % 4 * 8 + 2 * (ln % 4);
-    const int k = i / 128 * 16 + ln / 4;
+    const int o = i / 32 % kNT * 8 + 2 * (ln % 4);
+    const int k = i / (32 * kNT) * 16 + ln / 4;
     unsigned hi[4], lo[4];
     split_tf32(w_at(o, k), hi[0], lo[0]);
     split_tf32(w_at(o, k + 8), hi[1], lo[1]);
@@ -1335,7 +1381,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
       // Product 1's A rows: slot 16 mi + 8 hf + gq; the thread's offsets in
       // the planes (tq added) and its g at channels 8 nt + 2 tq (+ 1).
       int base[2][2];
-      float gv[2][2][4][2];
+      float gv[2][2][kNT][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -1347,7 +1393,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
           ok = ok && i >= 0 && i < h_out && j >= 0 && j < w_out;
           const T* gp = g + (ok ? n * sn + i * sh + j * sw + 2 * tq * so : 0);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             gv[mi][hf][nt][0] = ok ? ld_f32(gp + 8 * nt * so) : 0.0f;
             gv[mi][hf][nt][1] = ok ? ld_f32(gp + (8 * nt + 1) * so) : 0.0f;
           }
@@ -1355,7 +1401,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
       }
       // Product 1: pre (slots x channels) = patches . W^T; per k step the
       // three products of the split, each over all eight accumulators.
-      float pre[2][4][4] = {};
+      float pre[2][kNT][4] = {};
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const int oa = dx_k_off<C>(8 * ks), ob = dx_k_off<C>(8 * ks + 4);
@@ -1375,14 +1421,14 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
           al[mi][2] = __float_as_uint(l0[ob]);
           al[mi][3] = __float_as_uint(l1[ob]);
         }
-        uint4 wb[4];
+        uint4 wb[kNT];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) wb[nt] = s_w1[(ks * 4 + nt) * 32 + lane];
+        for (int nt = 0; nt < kNT; ++nt) wb[nt] = s_w1[(ks * kNT + nt) * 32 + lane];
 #pragma unroll
         for (int term = 0; term < 3; ++term) {
           if (!kLo && term != 2) continue;  // lo(x) . hi(w), hi(x) . lo(w): both 0
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             const unsigned b[2] = {term == 1 ? wb[nt].z : wb[nt].x,
                                    term == 1 ? wb[nt].w : wb[nt].y};
 #pragma unroll
@@ -1392,11 +1438,11 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
       }
       // S = g swish'(pre + b): element e of (mi, nt) is slot 16 mi + 8 (e /
       // 2) + gq, channel 8 nt + 2 tq + e % 2.
-      float sv[2][4][4];
+      float sv[2][kNT][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
+        for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             sv[mi][nt][e] = gv[mi][e / 2][nt][e % 2] * dswish(pre[mi][nt][e] + bv[nt][e % 2]);
@@ -1426,7 +1472,7 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
         if (mp + kPass <= mt_lo || mp >= mt_hi) continue;
         float acc[kPass][4][4] = {};
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+        for (int ks = 0; ks < kNT; ++ks) {
           unsigned bh[4][2], bl[4][2];
 #pragma unroll
           for (int nb = 0; nb < 4; ++nb) {
@@ -1437,8 +1483,8 @@ __global__ void __launch_bounds__(kDxMaxWarps * 32, 1)
           for (int m = 0; m < kPass; ++m) {
             const int mt = mp + m;
             if (mt < mt_lo || mt >= mt_hi) continue;
-            const uint4 h4 = s_w2[(mt * 4 + ks) * 64 + lane];
-            const uint4 l4 = s_w2[(mt * 4 + ks) * 64 + 32 + lane];
+            const uint4 h4 = s_w2[(mt * kNT + ks) * 64 + lane];
+            const uint4 l4 = s_w2[(mt * kNT + ks) * 64 + 32 + lane];
             const unsigned ah[4] = {h4.x, h4.y, h4.z, h4.w};
             const unsigned al[4] = {l4.x, l4.y, l4.z, l4.w};
             if constexpr (kLo) {
@@ -1547,7 +1593,18 @@ bool dx_plan_ok(int c, int warps, int smem, int rows) {
 
 }  // namespace
 
-extern "C" const char* conv_s2_error_string(int code) {
+// Each F is a library of its own (kernels.py builds conv_s2.cu once for each),
+// named conv_s2, conv_s2_f16 and conv_s2_f8: the error string takes the
+// library's name.
+#if CONV_F == 32
+#define CONV_S2_ERROR_STRING conv_s2_error_string
+#elif CONV_F == 16
+#define CONV_S2_ERROR_STRING conv_s2_f16_error_string
+#else
+#define CONV_S2_ERROR_STRING conv_s2_f8_error_string
+#endif
+
+extern "C" const char* CONV_S2_ERROR_STRING(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

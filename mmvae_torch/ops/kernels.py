@@ -16,7 +16,8 @@
     non-pad tokens, in the layout :func:`seq_ce_plan` picks;
   * ``conv4x4s2_swish_kernel`` replaces ``tools/pallas_conv_probe.py::
     pallas_conv0`` (K4): ``swish(conv(x, w, SAME, stride 2) + b)`` of an
-    NHWC image with 1-4 channels into 32 NCHW channels, a warp per
+    NHWC image with 1-4 channels into F = 32 NCHW channels (or a rank's 16
+    or 8 under tensor parallelism, each F a library of its own), a warp per
     32-pixel chunk of an output row, in the grid :func:`conv_plan` sizes
     (f32, bf16, or a bf16 image into f32 weights);
     ``conv4x4s2_swish_grad_kernel`` is its backward in the weight and the
@@ -39,7 +40,8 @@
     expert stack, in the tiles :func:`poe_kl_bwd_plan` sizes).
 
 K1 and K2 and their gradients live in ``csrc/row_reduce.cu``, K3 and its
-gradient in ``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu``, the fused PoE and KL and its
+gradient in ``csrc/seq_ce.cu``, K4 in ``csrc/conv_s2.cu`` (built three
+times, with ``-DCONV_F`` of 32, 16 and 8), the fused PoE and KL and its
 backward in ``csrc/poe_kl.cu``, each
 behind a plain C interface; ``csrc/launch_floor.cu``, an empty kernel that
 times the launch floor, is built only when asked for by name
@@ -150,8 +152,14 @@ SOURCES = {
     "row_reduce": _CSRC / "row_reduce.cu",
     "seq_ce": _CSRC / "seq_ce.cu",
     "conv_s2": _CSRC / "conv_s2.cu",
+    # K4 at 16 and 8 output channels (a rank's stage 0 under tensor
+    # parallelism): the same source, compiled with CONV_F of each.
+    "conv_s2_f16": _CSRC / "conv_s2.cu",
+    "conv_s2_f8": _CSRC / "conv_s2.cu",
     "poe_kl": _CSRC / "poe_kl.cu",
 }
+# Flags of a library beside NVCC_FLAGS (its compile-time parameters).
+_DEFINES = {"conv_s2_f16": ("-DCONV_F=16",), "conv_s2_f8": ("-DCONV_F=8",)}
 # Built only when named: no ported path loads them.
 PROBE_SOURCES = {"launch_floor": _CSRC / "launch_floor.cu"}
 _ALL_SOURCES = {**SOURCES, **PROBE_SOURCES}
@@ -199,6 +207,7 @@ _SIGNATURES = {
     },
     "launch_floor": {"empty_launch": [_i32, _i32, _ptr]},
 }
+_SIGNATURES["conv_s2_f16"] = _SIGNATURES["conv_s2_f8"] = _SIGNATURES["conv_s2"]
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -210,8 +219,12 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *_DEFINES.get(name, ()))
+
+
 def _target(name: str) -> Path:
-    key = _ALL_SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    key = _ALL_SOURCES[name].read_bytes() + " ".join(_flags(name)).encode()
     return BUILD_DIR / f"{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
@@ -234,7 +247,7 @@ def build(*names: str) -> dict[str, Path]:
             continue
         tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_ALL_SOURCES[name])],
+            [_nvcc(), *_flags(name), "-o", str(tmp), str(_ALL_SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         running[name] = (proc, tmp, so)
@@ -889,15 +902,19 @@ def masked_seq_ce_grad_torch(
 
 # -------------------------------------------------------- conv + swish ----
 
-# Output channels of K4 (the CelebA image encoder's first stage).
+# Output channels of K4 (the CelebA image encoder's first stage), and all
+# the output channels it takes: a rank's 32 / tp under tensor parallelism
+# (tp = 1, 2, 4), each F a library of its own (``_CONV_LIBS``).
 CONV_OUT = 32
+CONV_OUTS = (32, 16, 8)
+_CONV_LIBS = {32: "conv_s2", 16: "conv_s2_f16", 8: "conv_s2_f8"}
 # (x's type, the weight's, bias's and output's type) -> K4's dtype code: all
 # f32, all bf16, or a bf16 image into f32 weights and output (a
 # data_dtype="bfloat16" batch meeting the f32 model).
 _CONV_DTYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
                 (torch.bfloat16, torch.float32): 2}
 # A warp of K4 computes one unit: 32 output pixels of one output row (8
-# lanes x 4 pixels), all 32 channels (4 lanes x 8), from 4 staged input
+# lanes x 4 pixels), all F channels (4 lanes x F / 4), from 4 staged input
 # rows of CONV_TILE_COLS columns.
 CONV_TILE_W = 32
 CONV_TILE_COLS = 2 * CONV_TILE_W + 2
@@ -936,7 +953,7 @@ def conv_units(b: int, h: int, w: int) -> int:
 @lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
 def conv_plan(
     b: int, h: int, w: int, c: int, sms: int = H100_SMS,
-    blocks_per_sm: int = CONV_BLOCKS_PER_SM, warps: int | None = None,
+    blocks_per_sm: int = CONV_BLOCKS_PER_SM, warps: int | None = None, f: int = CONV_OUT,
 ) -> ConvPlan:
     """The launch of K4 for an NHWC ``(b, h, w, c)`` batch on a card of
     ``sms`` SMs: ``warps`` warps a block, as many blocks as keep
@@ -946,7 +963,8 @@ def conv_plan(
     has half as many, and an SM twice the blocks, when the units fit in
     one pass of the grid and the smaller blocks leave fewer units on the
     busiest SM (a ragged or small batch: 37 images take 12 units an SM,
-    not 16). ``kernel_plans.py`` times the alternatives."""
+    not 16). ``f`` is the output channels. ``kernel_plans.py`` times the
+    alternatives."""
     units = conv_units(b, h, w)
     if warps is None:
         warps, half = CONV_WARPS, CONV_WARPS // 2
@@ -954,7 +972,7 @@ def conv_plan(
         if one_pass and half * -(-units // (half * sms)) < warps * -(-units // (warps * sms)):
             warps, blocks_per_sm = half, 2 * blocks_per_sm
     blocks = max(1, min(-(-units // warps), sms * blocks_per_sm))
-    smem = 4 * (16 * c * CONV_OUT + CONV_OUT + warps * 4 * conv_row_floats(c))
+    smem = 4 * (16 * c * f + f + warps * 4 * conv_row_floats(c))
     return ConvPlan(warps, blocks, smem)
 
 
@@ -971,20 +989,36 @@ def same_pad(hw, k: int = 4, s: int = 2) -> list[int]:
     return pads
 
 
+def _check_conv_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> int:
+    """K4's shapes: ``x`` ``(B, H, W, C)`` with 1 <= C <= 4, ``weight`` ``(F,
+    C, 4, 4)`` and ``bias`` ``(F,)`` with F one of :data:`CONV_OUTS`.
+    Returns F."""
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be (B, H, W, C) with 1 <= C <= 4, got {tuple(x.shape)}")
+    c, f = x.shape[3], weight.shape[0] if weight.dim() else 0
+    if f not in CONV_OUTS or weight.shape != (f, c, 4, 4) or bias.shape != (f,):
+        raise ValueError(
+            f"weight {tuple(weight.shape)} and bias {tuple(bias.shape)} are not "
+            f"(F, {c}, 4, 4) and (F,) with F in {CONV_OUTS}"
+        )
+    return f
+
+
 def conv4x4s2_swish_kernel(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     plan: ConvPlan | None = None,
 ) -> torch.Tensor:
     """``swish(conv(x, weight, SAME, stride 2) + bias)`` on the card.
 
-    ``x``: ``(B, H, W, C)`` NHWC with 1 <= C <= 4; ``weight``: ``(32, C, 4,
-    4)`` OIHW; ``bias``: ``(32,)``; all contiguous CUDA tensors, of one
-    dtype, float32 or bfloat16, or a bfloat16 ``x`` with float32 weight
-    and bias. Returns ``(B, 32, ceil(H/2), ceil(W/2))`` NCHW in the
+    ``x``: ``(B, H, W, C)`` NHWC with 1 <= C <= 4; ``weight``: ``(F, C, 4,
+    4)`` OIHW, F one of :data:`CONV_OUTS` (32, or a rank's 16 or 8 under
+    tensor parallelism); ``bias``: ``(F,)``; all contiguous CUDA tensors,
+    of one dtype, float32 or bfloat16, or a bfloat16 ``x`` with float32
+    weight and bias. Returns ``(B, F, ceil(H/2), ceil(W/2))`` NCHW in the
     weight's dtype, accumulated in f32 (all bf16: the conv, the bias add,
     the sigmoid and the product each rounded to bf16, as Flax's bf16 conv
-    and swish round). ``plan`` overrides :func:`conv_plan` of the shape and
-    the card.
+    and swish round). Another F raises. ``plan`` overrides
+    :func:`conv_plan` of the shape and the card.
     """
     dtypes = (x.dtype, weight.dtype)
     if dtypes not in _CONV_DTYPES or bias.dtype != weight.dtype:
@@ -999,24 +1033,18 @@ def conv4x4s2_swish_kernel(
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
-        raise ValueError(f"x must be (B, H, W, C) with 1 <= C <= 4, got {tuple(x.shape)}")
+    f = _check_conv_shapes(x, weight, bias)
     b, h, w, c = x.shape
-    if weight.shape != (CONV_OUT, c, 4, 4) or bias.shape != (CONV_OUT,):
-        raise ValueError(
-            f"weight {tuple(weight.shape)} and bias {tuple(bias.shape)} are not "
-            f"({CONV_OUT}, {c}, 4, 4) and ({CONV_OUT},)"
-        )
     if max(x.shape) >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
     out = torch.empty(
-        (b, CONV_OUT, -(-h // 2), -(-w // 2)), dtype=weight.dtype, device=x.device
+        (b, f, -(-h // 2), -(-w // 2)), dtype=weight.dtype, device=x.device
     )
     if out.numel() == 0:
         return out
-    plan = plan or conv_plan(b, h, w, c, _sm_count(x.device.index or 0))
+    plan = plan or conv_plan(b, h, w, c, _sm_count(x.device.index or 0), f=f)
     _launch(
-        "conv_s2", "conv4x4s2_swish", x.device, x.data_ptr(), weight.data_ptr(),
+        _CONV_LIBS[f], "conv4x4s2_swish", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, h, w, c, _CONV_DTYPES[dtypes], *plan,
     )
     LAUNCHES["conv"] += 1
@@ -1082,28 +1110,37 @@ def conv_bwd_row_floats(c: int) -> int:
     return (conv_row_floats(c) + 27) // 32 * 32 + 4
 
 
-def conv_bwd_smem(c: int, rows: int, warps: int) -> int:
+def conv_bwd_m_tiles(f: int = CONV_OUT) -> int:
+    """m-tiles of 16 output channels of K4's backward: 2 at F = 32, 1 at 16,
+    and 1 at 8 (padded: rows 8-15 zero); the warps of a group, which take
+    the same pixels."""
+    return max(1, f // 16)
+
+
+def conv_bwd_smem(c: int, rows: int, warps: int, f: int = CONV_OUT) -> int:
     """Bytes of K4's backward's shared memory: the weights as the first
-    product's A fragments (hi and lo, 2 m-tiles x 2 c k steps x 32 lanes x
-    8 floats), the input tile (2 rows + 2 of :func:`conv_bwd_row_floats`)
-    split into TF32 hi and lo planes, and the next tile's raw copy (2 rows
-    + 2 of :func:`conv_row_floats`); or, if more, the block's sums at the
-    end (16 c x 32 a pair of warps, 32 for each of 4 lane quarters of a
-    pair)."""
-    staging = (2 * 2 * c * 32 * 8 + 2 * (2 * rows + 2) * conv_bwd_row_floats(c)
+    product's A fragments (hi and lo, :func:`conv_bwd_m_tiles` x 2 c k steps
+    x 32 lanes x 8 floats), the input tile (2 rows + 2 of
+    :func:`conv_bwd_row_floats`) split into TF32 hi and lo planes, and the
+    next tile's raw copy (2 rows + 2 of :func:`conv_row_floats`); or, if
+    more, the block's sums at the end (16 c x F a group of warps, F for each
+    of 4 lane quarters of a group)."""
+    mt = conv_bwd_m_tiles(f)
+    staging = (mt * 2 * c * 32 * 8 + 2 * (2 * rows + 2) * conv_bwd_row_floats(c)
                + (2 * rows + 2) * conv_row_floats(c))
-    return 4 * max(staging, (warps // 2 * 16 * c + 2 * warps) * CONV_OUT)
+    return 4 * max(staging, warps // mt * (16 * c + 4) * f)
 
 
-def conv_bwd_workspace_floats(plan: ConvBwdPlan, c: int) -> int:
-    """The partial sums' workspace: a row of (16 c + 1) x 32 floats a block."""
-    return plan.blocks * (16 * c + 1) * CONV_OUT
+def conv_bwd_workspace_floats(plan: ConvBwdPlan, c: int, f: int = CONV_OUT) -> int:
+    """The partial sums' workspace: a row of (16 c + 1) x F floats a block."""
+    return plan.blocks * (16 * c + 1) * f
 
 
 @lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
 def conv_bwd_plan(
     b: int, h: int, w: int, c: int, sms: int = H100_SMS, rows: int = CONV_BWD_ROWS,
     warps: int = CONV_BWD_WARPS, blocks_per_sm: int = CONV_BWD_BLOCKS_PER_SM,
+    f: int = CONV_OUT,
 ) -> ConvBwdPlan:
     """The launch of K4's backward for an NHWC ``(b, h, w, c)`` batch on a
     card of ``sms`` SMs: blocks of ``warps`` warps, ``blocks_per_sm`` an
@@ -1111,18 +1148,18 @@ def conv_bwd_plan(
     shared memory by :func:`conv_bwd_smem`. ``kernel_plans.py`` times the
     alternatives."""
     blocks = max(1, min(conv_bwd_tiles(b, h, w, rows), sms * blocks_per_sm))
-    return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps), rows)
+    return ConvBwdPlan(warps, blocks, conv_bwd_smem(c, rows, warps, f), rows)
 
 
 def _check_conv_grad(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
     codes: tuple[int, ...] = (0, 1, 2),
-) -> int:
+) -> tuple[int, int]:
     """The arguments K4's backward kernels take: CUDA tensors on one
     device, ``x`` ``(B, H, W, C)`` with 1 <= C <= 4, ``weight`` and ``bias``
-    of its shapes, all contiguous, and ``g`` (any strides) of the output's
+    of its shapes (F in :data:`CONV_OUTS`), all contiguous, and ``g`` (any strides) of the output's
     shape, in the forward's types (:data:`_CONV_DTYPES`) whose code is in
-    ``codes``: ``bias`` and ``g`` in the weight's type. Returns the code."""
+    ``codes``: ``bias`` and ``g`` in the weight's type. Returns the code and F."""
     code = _CONV_DTYPES.get((x.dtype, weight.dtype))
     if code not in codes or bias.dtype != weight.dtype or g.dtype != weight.dtype:
         allowed = ", ".join(f"{a} x with {w} weight" for (a, w), c in _CONV_DTYPES.items()
@@ -1138,20 +1175,14 @@ def _check_conv_grad(
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if name != "g" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
-        raise ValueError(f"x must be (B, H, W, C) with 1 <= C <= 4, got {tuple(x.shape)}")
+    f = _check_conv_shapes(x, weight, bias)
     b, h, w, c = x.shape
-    if weight.shape != (CONV_OUT, c, 4, 4) or bias.shape != (CONV_OUT,):
-        raise ValueError(
-            f"weight {tuple(weight.shape)} and bias {tuple(bias.shape)} are not "
-            f"({CONV_OUT}, {c}, 4, 4) and ({CONV_OUT},)"
-        )
-    out_shape = (b, CONV_OUT, -(-h // 2), -(-w // 2))
+    out_shape = (b, f, -(-h // 2), -(-w // 2))
     if tuple(g.shape) != out_shape:
         raise ValueError(f"g is {tuple(g.shape)}, not the output's {out_shape}")
     if max(x.shape) >= 2**31 or x.numel() >= 2**31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32")
-    return code
+    return code, f
 
 
 def conv4x4s2_swish_grad_kernel(
@@ -1159,9 +1190,9 @@ def conv4x4s2_swish_grad_kernel(
     plan: ConvBwdPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its
-    weight and bias, on the card: ``(dW, db)``, ``(32, C, 4, 4)`` and
-    ``(32,)``, for the upstream gradient ``g`` ``(B, 32, ceil(H/2),
-    ceil(W/2))``, in the forward's types: all float32, all bfloat16, or a
+    weight and bias, on the card: ``(dW, db)``, ``(F, C, 4, 4)`` and
+    ``(F,)``, for the upstream gradient ``g`` ``(B, F, ceil(H/2),
+    ceil(W/2))`` (F = 32, 16 or 8), in the forward's types: all float32, all bfloat16, or a
     bfloat16 ``x`` with the rest float32 (``bias`` and ``g`` always in the
     weight's type). ``pre = conv + bias`` is recomputed in f32 from the
     operands, which the kernel upcasts on load; ``g`` may be any strided
@@ -1169,16 +1200,17 @@ def conv4x4s2_swish_grad_kernel(
     f32 sums over ``B x ceil(H/2) x ceil(W/2)``, taken in a fixed order (no
     atomics): the same plan gives the same bits. ``plan`` overrides
     :func:`conv_bwd_plan`."""
-    code = _check_conv_grad(x, weight, bias, g)
+    code, f = _check_conv_grad(x, weight, bias, g)
     b, h, w, c = x.shape
-    d_w = torch.empty((CONV_OUT, c, 4, 4), dtype=weight.dtype, device=x.device)
-    d_b = torch.empty(CONV_OUT, dtype=weight.dtype, device=x.device)
+    d_w = torch.empty((f, c, 4, 4), dtype=weight.dtype, device=x.device)
+    d_b = torch.empty(f, dtype=weight.dtype, device=x.device)
     if g.numel() == 0:
         return d_w.zero_(), d_b.zero_()
-    plan = plan or conv_bwd_plan(b, h, w, c, _sm_count(x.device.index or 0))
-    ws = torch.empty(conv_bwd_workspace_floats(plan, c), dtype=torch.float32, device=x.device)
+    plan = plan or conv_bwd_plan(b, h, w, c, _sm_count(x.device.index or 0), f=f)
+    ws = torch.empty(conv_bwd_workspace_floats(plan, c, f), dtype=torch.float32,
+                     device=x.device)
     _launch(
-        "conv_s2", "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
+        _CONV_LIBS[f], "conv4x4s2_swish_bwd", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), g.data_ptr(), *g.stride(), ws.data_ptr(), d_w.data_ptr(),
         d_b.data_ptr(), b, h, w, c, code, *plan,
     )
@@ -1262,20 +1294,21 @@ def conv_dx_t_pitch(c: int) -> int:
     return 16 * c + (2 if c % 2 else 4)
 
 
-def conv_dx_smem(c: int, rows: int) -> int:
+def conv_dx_smem(c: int, rows: int, f: int = CONV_OUT) -> int:
     """Bytes of K4's input gradient's shared memory: the weights as both
-    products' fragments (hi and lo, 2 x 1024 c floats); the next tile's raw
+    products' fragments (hi and lo, 2 x 32 c F floats); the next tile's raw
     input and the tile's TF32 hi and lo planes (2 rows + 6 of
     :func:`conv_dx_row_floats` each); and T, rows + 2 rows of CONV_DX_COLS
     S pixels of :func:`conv_dx_t_pitch` floats."""
     t = (rows + 2) * CONV_DX_COLS * conv_dx_t_pitch(c)
-    return 4 * (2 * 1024 * c + 3 * (2 * rows + 6) * conv_dx_row_floats(c) + t)
+    return 4 * (64 * c * f + 3 * (2 * rows + 6) * conv_dx_row_floats(c) + t)
 
 
 @lru_cache(maxsize=256)  # the wrapper asks once a call; the shapes repeat
 def conv_dx_plan(
     b: int, h: int, w: int, c: int, sms: int = H100_SMS, rows: int | None = None,
     warps: int | None = None, blocks_per_sm: int = CONV_DX_BLOCKS_PER_SM,
+    f: int = CONV_OUT,
 ) -> ConvDxPlan:
     """The launch of K4's input gradient for an NHWC ``(b, h, w, c)`` batch
     on a card of ``sms`` SMs: tiles of 8 output rows and a warp for each of
@@ -1294,7 +1327,7 @@ def conv_dx_plan(
         fills = conv_dx_tiles(b, h, w, rows) >= sms
         warps = min(rows + 2, CONV_DX_MAX_WARPS) if fills else CONV_DX_MAX_WARPS
     blocks = max(1, min(conv_dx_tiles(b, h, w, rows), sms * blocks_per_sm))
-    return ConvDxPlan(warps, blocks, conv_dx_smem(c, rows), rows)
+    return ConvDxPlan(warps, blocks, conv_dx_smem(c, rows, f), rows)
 
 
 def conv4x4s2_swish_input_grad_kernel(
@@ -1303,20 +1336,21 @@ def conv4x4s2_swish_input_grad_kernel(
 ) -> torch.Tensor:
     """The gradient of :func:`conv4x4s2_swish_kernel`'s output in its image,
     on the card: dx ``(B, H, W, C)`` NHWC for the upstream gradient ``g``
-    ``(B, 32, ceil(H/2), ceil(W/2))`` (any strided view), ``pre``
+    ``(B, F, ceil(H/2), ceil(W/2))`` (any strided view; F = 32, 16 or 8),
+    ``pre``
     recomputed from ``x``, ``weight`` and ``bias``: all float32, or all
     bfloat16 (``g`` too, and dx then bfloat16, computed in f32 and rounded
     once). Each entry sums its covering taps in a fixed order (no atomics):
     two calls give the same bits, whatever the plan. ``plan`` overrides
     :func:`conv_dx_plan`."""
-    code = _check_conv_grad(x, weight, bias, g, codes=(0, 1))
+    code, f = _check_conv_grad(x, weight, bias, g, codes=(0, 1))
     b, h, w, c = x.shape
     d_x = torch.empty_like(x)
     if d_x.numel() == 0:
         return d_x
-    plan = plan or conv_dx_plan(b, h, w, c, _sm_count(x.device.index or 0))
+    plan = plan or conv_dx_plan(b, h, w, c, _sm_count(x.device.index or 0), f=f)
     _launch(
-        "conv_s2", "conv4x4s2_swish_dx", x.device, x.data_ptr(), weight.data_ptr(),
+        _CONV_LIBS[f], "conv4x4s2_swish_dx", x.device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), g.data_ptr(), *g.stride(), d_x.data_ptr(), b, h, w, c, code, *plan,
     )
     LAUNCHES["conv_dx"] += 1

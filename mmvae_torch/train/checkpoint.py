@@ -33,6 +33,13 @@ rng) and ``extra`` (``epoch``, ``best_test_elbo``).
 (``mmvae_tpu/train/checkpoint.py:169-302``): the snapshot is taken in
 order with the card's work, and a worker thread copies it to the host and
 does the disk work in the same order as :func:`save_checkpoint`.
+
+A sharded state (FSDP or tensor parallelism, ``state.layout``) is saved
+whole: every rank gathers each sharded tensor (the parameters, the EMA
+shadow's, Adam's moments, the running mean), and rank 0 writes the same
+tree as a one-card or DP run, which any of them loads. A load into a
+sharded state cuts the whole tree to the rank's blocks (a resume, a
+``nan_rollback`` restore).
 """
 
 from __future__ import annotations
@@ -71,10 +78,31 @@ def _cpu(tree):
     return tree
 
 
+def _per_param(state: TrainState, tree: dict[str, Any], fn) -> dict[str, Any]:
+    """``tree`` (a checkpoint tree of ``state``'s model) with ``fn(name,
+    tensor)`` applied to every tensor that has the shape of a parameter:
+    the model's and the EMA shadow's parameters, Adam's moments (by the
+    parameter's index) and the running mean."""
+    names = [n for n, _ in state.model.named_parameters()]
+    out = dict(tree)
+    for key in ("model", "ema_model"):
+        if key in tree:
+            out[key] = {k: fn(k, v) if k in names else v for k, v in tree[key].items()}
+    opt = dict(tree["optimizer"])
+    opt["state"] = {i: {k: fn(names[i], v) if torch.is_tensor(v) and v.dim() else v
+                        for k, v in per.items()}
+                    for i, per in tree["optimizer"]["state"].items()}
+    out["optimizer"] = opt
+    if "acc_grads" in tree:
+        out["acc_grads"] = [fn(n, v) for n, v in zip(names, tree["acc_grads"], strict=True)]
+    return out
+
+
 def _to_tree(
     state: TrainState, extra: dict[str, Any], generators: dict[str, torch.Generator]
 ) -> dict[str, Any]:
-    """The checkpoint's tree, its tensors where the state holds them."""
+    """The checkpoint's tree, its tensors where the state holds them (a
+    sharded state's gathered whole: a collective, which every rank runs)."""
     full_extra = {"epoch": 0.0, "best_test_elbo": float("inf")}
     full_extra.update({k: float(v) for k, v in extra.items()})
     tree = {
@@ -91,6 +119,8 @@ def _to_tree(
         tree["accum_steps"] = state.accum_steps
         tree["micro_step"] = state.micro_step
         tree["acc_grads"] = list(state.acc_grads)
+    if state.layout is not None:
+        tree = _per_param(state, tree, state.layout.gather)
     return tree
 
 
@@ -147,13 +177,15 @@ def save_checkpoint(
     by state.
 
     In a multi-process run every rank calls it: rank 0 writes (the state
-    is replicated), and a barrier after the write holds every rank until
-    the checkpoint is complete, so any rank may read it next.
+    is replicated, or a sharded state's tree is gathered on every rank
+    first), and a barrier after the write holds every rank until the
+    checkpoint is complete, so any rank may read it next.
     """
+    extra = extra or {}
+    if state.layout is not None or is_primary():
+        tree = _to_tree(state, {"epoch": epoch, **extra}, generators or {})
     if is_primary():
-        extra = extra or {}
-        tree = _cpu(_to_tree(state, {"epoch": epoch, **extra}, generators or {}))
-        _serialize_and_flip(workdir, tree, epoch, is_best, extra, keep_epochs)
+        _serialize_and_flip(workdir, _cpu(tree), epoch, is_best, extra, keep_epochs)
     sync()
 
 
@@ -372,8 +404,9 @@ def load_checkpoint(
     A template with gradient accumulation needs a checkpoint saved with
     the same ``accum_steps``; one without ignores a saved running mean. A checkpoint saved without an EMA shadow, loaded
     into a state that tracks one, starts the shadow from the parameters;
-    a saved shadow that the state does not track is dropped. A missing or
-    corrupt file raises.
+    a saved shadow that the state does not track is dropped. A sharded
+    template (``state.layout``) takes its blocks of the whole tree. A
+    missing or corrupt file raises.
     """
     ckpt_dir = os.path.join(os.path.abspath(workdir), "ckpt")
     path = _resolve_ckpt_path(ckpt_dir, which)
@@ -383,6 +416,8 @@ def load_checkpoint(
         raise FileNotFoundError(f"no checkpoint {which!r} under {ckpt_dir}")
     tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
     state = template_state
+    if state.layout is not None:
+        tree = _per_param(state, tree, state.layout.shard)
     if state.acc_grads is not None:
         if tree.get("accum_steps") != state.accum_steps:
             raise ValueError(

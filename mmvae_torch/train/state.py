@@ -37,6 +37,17 @@ The learning rate is the config's, or a schedule of the update count
 update. On the card the rate is a 0-d float32 tensor in Adam's param group
 that the update writes from ``device_step`` (so a graph replay needs no
 host value); the CPU sets a float each update.
+
+A sharded state (FSDP or tensor parallelism, ``parallel.fsdp_shard`` /
+``parallel.tp_shard``) holds this rank's blocks of the parameters, of the
+EMA shadow's and of Adam's moments, and its ``layout``
+(``parallel.layout.Layout``); the update, the EMA blend and the
+accumulation are elementwise and run on the blocks as they are, and the
+global norm of the clipping and of ``grad_norm`` is the whole tree's
+(:meth:`TrainState.grad_norm`: a sharded leaf's squares summed over its
+group, a replicated one counted once), as ``optax.clip_by_global_norm``
+of GSPMD arrays is exact. Under FSDP the step computes on
+``compute_model``, the layout's working copy of the whole parameters.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 # torch.optim imports torch._dynamo the first time an optimizer is built,
@@ -128,6 +139,7 @@ class TrainState:
     accum_steps: int = 1
     schedule: Callable[[torch.Tensor], torch.Tensor] | None = None
     acc_grads: list[torch.Tensor] | None = None
+    layout: Any = None
 
     def __post_init__(self):
         if self.device_step is None:
@@ -153,7 +165,28 @@ class TrainState:
                 out.append(group["lr"])
         for per_param in self.optimizer.state.values():
             out += [v for v in per_param.values() if torch.is_tensor(v)]
+        if self.layout is not None and self.layout.work is not None:
+            out += list(self.layout.work.parameters())
         return out
+
+    @property
+    def compute_model(self) -> nn.Module:
+        """The module a train step computes on: the model, or under FSDP the
+        working copy of its whole parameters (``layout.work``)."""
+        if self.layout is not None and self.layout.work is not None:
+            return self.layout.work
+        return self.model
+
+    def grad_norm(self, grads: list[torch.Tensor] | None = None) -> torch.Tensor:
+        """The global norm of ``grads`` (by default each parameter's
+        ``.grad``), in the model's parameter order: :func:`global_norm`, or
+        of a sharded state the whole tree's (``layout.norm``)."""
+        if grads is None:
+            grads = [p.grad for p in self.model.parameters()]
+        if self.layout is None:
+            return global_norm(grads)
+        names = [n for n, _ in self.model.named_parameters()]
+        return self.layout.norm(zip(names, grads))
 
     @property
     def micro_step(self) -> int:
@@ -211,7 +244,7 @@ class TrainState:
         each parameter's ``.grad``."""
         if self.grad_clip > 0.0:
             grads = [p.grad for p in params]
-            norm = global_norm(grads)
+            norm = self.grad_norm(grads)
             # (g / norm) * max when norm >= max, g / 1 * 1 (the same bits)
             # when not: no host sync on the card.
             fire = norm >= self.grad_clip

@@ -95,7 +95,11 @@ the fused PoE + KL's ``(T, B, L)`` posteriors through a ``(B, T, L)``
 view and draw the noise in that layout. With a mesh the step all-reduces
 one flat buffer of every gradient and loss metric (a graph on the card
 holds the NCCL collective), and the eval and IWAE runners reduce their
-stacked values once after the split.
+stacked values once after the split. A sharded state steps on its blocks
+(FSDP: an all-gather of the parameters before the forward and a
+reduce-scatter of the gradients after the backward; tensor parallelism:
+the model group's collectives inside the layers, the all-reduce over the
+data group), on the same runners (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -123,7 +127,7 @@ from mmvae_torch.core.mixture import _MOPOE_POWERSET_MAX
 from mmvae_torch.data.pipelines import presence_from_keep, sample_presence
 from mmvae_torch.ops import kernels
 from mmvae_torch.ops.kernels import FOLD_B, FOLD_T, tile_rows
-from mmvae_torch.train.state import TrainState, global_norm
+from mmvae_torch.train.state import TrainState
 
 __all__ = [
     "multi_term_loss",
@@ -161,11 +165,12 @@ def _draw(make: Callable, shape: tuple, mesh, dim: int = 0) -> torch.Tensor:
     """``make(shape)``, a draw whose axis ``dim`` is the batch: with a mesh
     drawn at the global shape (that axis times the ranks) and this rank's
     rows kept, so every world size draws the same numbers from a generator
-    kept in lockstep (``mmvae_tpu/train/step.py:579-598``)."""
-    if mesh is None or mesh.size == 1:
+    kept in lockstep (``mmvae_tpu/train/step.py:579-598``); on a ``(data,
+    model)`` mesh the ranks of a model group keep the same rows."""
+    if mesh is None or mesh.n_shards == 1:
         return make(shape)
     glob = list(shape)
-    glob[dim] *= mesh.size
+    glob[dim] *= mesh.n_shards
     return mesh.rows(make(tuple(glob)), dim)
 
 
@@ -750,6 +755,17 @@ def make_train_step(
     batch's mean, as GSPMD's reduction gives it). ``grad_norm``, clipping,
     the EMA and each micro-step of accumulation then read the averaged
     gradient on every rank.
+
+    A sharded state (``state.layout``) takes the same step on its blocks.
+    Under FSDP (a data ``mesh``) the step first gathers the blocks into the
+    working copy of the whole parameters (``state.compute_model``, one
+    all-gather), computes the loss and the backward on it, reduces each
+    sharded gradient to this rank's block (one reduce-scatter, a mean over
+    the ranks) and the replicated ones with the metrics in the all-reduce.
+    Under tensor parallelism (a ``(data, model)`` ``mesh`` and a model built
+    with it) the model's layers run their model-group collectives inside
+    the forward and the backward, and the all-reduce spans the data group
+    only. ``grad_norm`` and the clipping read the whole tree's norm.
     """
     _check_fold(objective, term_fold, mesh)
     _check_knobs(
@@ -768,6 +784,13 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, eps=None, keep=None, subset_masks=None,
                    cycle_eps=None, commit=None):
+        layout = state.layout
+        fsdp = layout is not None and layout.work is not None
+        compute = state.compute_model
+        if fsdp:  # the whole parameters from every rank's blocks
+            layout.gather_into(state.model, compute)
+            for p in compute.parameters():
+                p.grad = None
         beta = annealing_factor(state.device_step, annealing_steps)
         if p_modality_drop > 0.0 and "presence" not in batch:
             b = next(iter(batch.values())).shape[0]
@@ -781,18 +804,24 @@ def make_train_step(
             batch = dict(batch, presence=presence)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = multi_term_loss(
-            state.model, batch, beta, sample=True, generator=generator, eps=eps,
+            compute, batch, beta, sample=True, generator=generator, eps=eps,
             subset_masks=subset_masks, cycle_eps=cycle_eps, **loss_kwargs,
         )
         loss.backward()
-        params = list(state.model.parameters())
-        for p in params:  # a parameter the loss does not reach has gradient 0
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is not None:
-            metrics = _all_reduce_mean([p.grad for p in params], metrics, mesh)
-        metrics["grad_norm"] = global_norm([p.grad for p in params])
+        if fsdp:
+            # The sharded gradients to the blocks (a reduce-scatter); the
+            # replicated ones with the metrics in the all-reduce.
+            rest = layout.reduce_scatter_grads(compute, state.model)
+            metrics = _all_reduce_mean(rest, metrics, mesh)
+        else:
+            params = list(state.model.parameters())
+            for p in params:  # a parameter the loss does not reach has gradient 0
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                metrics = _all_reduce_mean([p.grad for p in params], metrics, mesh)
+        metrics["grad_norm"] = state.grad_norm()
         metrics["beta"] = beta
         state.apply_gradients(commit)
         return state, metrics
@@ -802,13 +831,14 @@ def make_train_step(
 
 def _all_reduce_mean(grads: list[torch.Tensor], metrics: dict[str, torch.Tensor],
                      mesh) -> dict[str, torch.Tensor]:
-    """``grads`` (in place) and ``metrics`` averaged over the mesh's ranks
-    in one all-reduce of one flat f32 buffer: a sum, then a division by the
-    ranks (gloo has no average). Returns the averaged metrics."""
+    """``grads`` (in place) and ``metrics`` averaged over the mesh's batch
+    shards in one all-reduce of one flat f32 buffer over its data group: a
+    sum, then a division by the shards (gloo has no average). Returns the
+    averaged metrics."""
     parts = [*grads, *metrics.values()]
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
-    dist.all_reduce(flat, group=mesh.group)
-    flat = flat / _device_tensor((float(mesh.size),), flat.device, torch.float32)
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat = flat / _device_tensor((float(mesh.n_shards),), flat.device, torch.float32)
     out, at = {}, 0
     for g in grads:
         g.copy_(flat[at:at + g.numel()].view_as(g))

@@ -236,9 +236,10 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
     ["--fsdp"], ["--dtype", "bfloat16"], ["--multihost"],
 ])
 def test_unported_train_options_raise(argv, monkeypatch, tmp_path, capsys):
-    """The flags of what the port does not have raise; the data flags
-    (``--eval-segment-steps``, ``--data-dtype``, the grain backend and the
-    shuffle modes) are ported now and set their fields, ``--dtype
+    """The flags of what the port does not have raise (``--pp``); the data
+    flags (``--eval-segment-steps``, ``--data-dtype``, the grain backend and
+    the shuffle modes) and the parallel ones (``--tp``, ``--fsdp``) are
+    ported now and set their fields as the JAX CLI sets them, ``--dtype
     bfloat16`` is ported and parses as the JAX CLI parses it, and
     ``--multihost`` parses and joins a one-rank gloo group from JAX's
     ``MMVAE_*`` variables before it trains (one process: no mesh)."""
@@ -266,6 +267,15 @@ def test_unported_train_options_raise(argv, monkeypatch, tmp_path, capsys):
         _check_ported(parsed)
         assert getattr(_resolve_config(parsed), field) == value
         return
+    if argv[0] in _PORTED_PARALLEL_FLAGS:
+        field, value = _PORTED_PARALLEL_FLAGS[argv[0]]
+        parsed = _build_parser().parse_args(args)
+        _check_ported(parsed)
+        want = getattr(j_overrides(j_build_parser().parse_args(["train", "--config", "mnist",
+                                                                *argv]),
+                                   j_get_config("mnist")), field)
+        assert getattr(_resolve_config(parsed), field) == want == value
+        return
     with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
         main(args)
 
@@ -278,12 +288,14 @@ _PORTED_DATA_FLAGS = {"--eval-segment-steps": ("eval_segment_steps", 2),
                       "--reshuffle-every": ("reshuffle_every", 2),
                       "--shuffle-mode": ("shuffle_mode", "block"),
                       "--shuffle-granularity": ("shuffle_granularity", 8)}
+# The parallel flags the port has taken: flag -> (field, the value above).
+_PORTED_PARALLEL_FLAGS = {"--tp": ("tp", 2), "--fsdp": ("fsdp", True)}
 
 
 def test_every_unported_flag_is_covered():
-    covered = {"--tp", "--pp", "--fsdp"}
+    covered = {"--pp"}
     assert set(_UNPORTED_FLAGS.values()) == covered
-    assert not set(_PORTED_DATA_FLAGS) & covered
+    assert not (set(_PORTED_DATA_FLAGS) | set(_PORTED_PARALLEL_FLAGS)) & covered
     # Each ported data flag sets what the JAX CLI sets.
     argv = ["train", "--config", "mnist"]
     for flag, (field, value) in _PORTED_DATA_FLAGS.items():
@@ -294,14 +306,17 @@ def test_every_unported_flag_is_covered():
 
 
 @pytest.mark.parametrize("fields", [{"fsdp": False}, {"data_kwargs": {"hw": 128}},
-                                    {"grain_stream_steps": 4}])
+                                    {"grain_stream_steps": 4}, {"pp": 2}])
 def test_unported_config_file_fields_raise(tmp_path, fields):
-    """Fields the port does not have raise from a config file;
-    ``data_kwargs`` (its lists as tuples, as the generators take them) and
-    ``grain_stream_steps`` are ported now and are set."""
+    """Fields the port does not have raise from a config file (``pp``);
+    ``fsdp``, ``data_kwargs`` (its lists as tuples, as the generators take
+    them) and ``grain_stream_steps`` are ported now and are set."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(fields))
     argv = ["train", "--config", "mnist", "--device", "cpu", "--config-file", str(path)]
+    if "fsdp" in fields:
+        assert _resolve_config(_build_parser().parse_args(argv)).fsdp is False
+        return
     if "data_kwargs" in fields:
         assert _resolve_config(_build_parser().parse_args(argv)).data_kwargs == {"hw": 128}
         return

@@ -245,8 +245,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
         kernels.conv4x4s2_swish_kernel(img.permute(0, 2, 1, 3), cw, cb)
     with pytest.raises(ValueError):
         kernels.conv4x4s2_swish_kernel(torch.zeros((2, 8, 8, 5), device=cuda), cw, cb)
-    with pytest.raises(ValueError):
-        kernels.conv4x4s2_swish_kernel(img, cw[:16], cb[:16])
+    with pytest.raises(ValueError):  # F = 16 and 8 are K4's too; 24 is not
+        kernels.conv4x4s2_swish_kernel(img, cw[:24], cb[:24])
     with pytest.raises(TypeError):
         kernels.poe_kl_kernel(experts.double(), experts.double(), masks)
     with pytest.raises(ValueError, match="contiguous"):
@@ -802,6 +802,86 @@ def test_ops_conv_kernel_backend_refuses_input_grad_on_the_cpu():
     out, x = _conv_with_input_grad("cpu")
     (d_x,) = torch.autograd.grad(out.sum(), x)
     assert d_x.shape == x.shape and d_x.abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [16, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bf16_x", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (64, 64, 64, 3),  # CelebA's batch on a rank of tp = 2 (16) or 4 (8)
+        (37, 64, 64, 3),  # ragged batch
+        (3, 33, 31, 3),  # odd H and W
+        (5, 25, 25, 1),  # odd size: pads (1, 2)
+        (6, 32, 40, 2), (6, 32, 40, 4),  # other C
+    ],
+)
+def test_conv_kernels_at_tp_channels_match_plain(cuda, f, dtype, shape):
+    """K4, its backward and its input gradient at F = 16 and 8 output
+    channels (a rank's block of stage 0 under tensor parallelism), each a
+    library of its own: all f32, a bf16 image into f32 weights (no input
+    gradient: the image is data), and all bf16, against the plain versions
+    under the F = 32 tolerances (the backward's atol a term, the input
+    gradient's 4 taps x F channels); the upstream gradient strided; two
+    launches of each give the same bits; each launch counted once."""
+    gen = torch.Generator().manual_seed(f + shape[0])
+    x, w, b = _conv_inputs(gen, shape, torch.float32, cuda)
+    w, b = w[:f].contiguous(), b[:f].contiguous()
+    out = (shape[0], f, -(-shape[1] // 2), -(-shape[2] // 2))
+    padded = torch.randn((*out[:2], out[2] + 2, out[3] + 3), generator=gen).to(cuda)
+    g = padded[:, :, 1:-1, 1:-2]
+    if dtype == "bf16_x":
+        x = x.bfloat16()
+    elif dtype == "bfloat16":
+        x, w, b, g = (t.bfloat16() for t in (x, w, b, g))
+    before = dict(kernels.LAUNCHES)
+    y = kernels.conv4x4s2_swish_kernel(x, w, b)
+    assert y.shape == out and y.dtype == w.dtype
+    want = kernels.conv4x4s2_swish_torch(x, w, b)
+    if w.dtype == torch.float32:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5 * 16 * shape[-1])
+    else:
+        torch.testing.assert_close(y.float(), want.float(), rtol=2**-7, atol=0)
+    n_terms = shape[0] * out[2] * out[3]
+    got = kernels.conv4x4s2_swish_grad_kernel(x, w, b, g)
+    assert got[0].shape == (f, shape[3], 4, 4) and got[1].shape == (f,)
+    for a, c in zip(got, kernels.conv4x4s2_swish_grad_torch(x, w, b, g)):
+        torch.testing.assert_close(a.float(), c.float(), atol=1e-6 * n_terms,
+                                   rtol=1e-5 if w.dtype == torch.float32 else 2**-7)
+    assert all(torch.equal(p, q) for p, q in zip(got, kernels.conv4x4s2_swish_grad_kernel(
+        x, w, b, g)))
+    dx_launches = 0
+    if dtype != "bf16_x":
+        dx = kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, g)
+        assert dx.shape == shape and dx.dtype == x.dtype
+        torch.testing.assert_close(
+            dx.float(), kernels.conv4x4s2_swish_input_grad_torch(x, w, b, g).float(),
+            rtol=1e-5 if dtype == "float32" else 2**-7, atol=1e-6 * 4 * f)
+        assert torch.equal(dx, kernels.conv4x4s2_swish_input_grad_kernel(x, w, b, g))
+        dx_launches = 2
+    assert kernels.LAUNCHES["conv"] == before["conv"] + 1
+    assert kernels.LAUNCHES["conv_bwd"] == before["conv_bwd"] + 2
+    assert kernels.LAUNCHES["conv_dx"] == before["conv_dx"] + dx_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [24, 4, 64, 1])
+def test_conv_kernels_refuse_other_channels(cuda, f):
+    """An F outside 32, 16 and 8 raises before any launch: K4, its backward
+    and its input gradient never route it elsewhere."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((2, 8, 8, 3), generator=gen).to(cuda)
+    w = torch.randn((f, 3, 4, 4), generator=gen).to(cuda)
+    b = torch.randn(f, generator=gen).to(cuda)
+    g = torch.randn((2, f, 4, 4), generator=gen).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="F in"):
+        kernels.conv4x4s2_swish_kernel(x, w, b)
+    for fn in (kernels.conv4x4s2_swish_grad_kernel, kernels.conv4x4s2_swish_input_grad_kernel):
+        with pytest.raises(ValueError, match="F in"):
+            fn(x, w, b, g)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.gpu

@@ -23,7 +23,7 @@ from mmvae_tpu.ops import kernels as jkernels
 from mmvae_tpu.train.step import _tile_terms, _tile_terms_tmajor
 from mmvae_torch import core, ops
 from mmvae_torch.ops import kernels
-from tools.pallas_conv_probe import pallas_conv0
+from tools.pallas_conv_probe import pallas_conv0, xla_conv0
 
 RTOL = 2e-4
 
@@ -193,6 +193,65 @@ def test_conv_plain_matches_flax_same_conv(shape):
     _close(torch.from_numpy(_conv_plain(x, w, b)), want, atol=1e-5)
     got = ops.conv4x4s2_swish(_t(x), _t(w.transpose(3, 2, 0, 1)), _t(b))
     _close(got.permute(0, 2, 3, 1), want, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def conv0_full():
+    """``pallas_conv0`` in interpret mode at (8, 64, 64, 3), f32 and bf16:
+    all 32 channels, which a rank's block of 16 or 8 is held to."""
+    x, w, b = _conv_inputs((8, 64, 64, 3))
+    out = {}
+    with pltpu.force_tpu_interpret_mode():
+        for dtype in ("float32", "bfloat16"):
+            y = pallas_conv0(*(jnp.asarray(a, dtype) for a in (x, w, b)))
+            out[dtype] = np.asarray(y.astype(jnp.float32))
+    return (x, w, b), out
+
+
+@pytest.mark.parametrize("f", [16, 8])
+@pytest.mark.parametrize("dtype, atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_conv_plain_on_a_channel_block_matches_pallas_conv0(conv0_full, f, dtype, atol):
+    """K4 at F = 16 and 8 (a rank's stage 0 under tensor parallelism): the
+    plain version on each block of F output channels of the weight equals
+    that block of the TPU kernel's 32 (interpret mode) and of ``xla_conv0``
+    on the block, at f32 and all bf16 (one bf16 rounding apart, as at 32)."""
+    (x, w, b), full = conv0_full
+    for r in range(32 // f):
+        blk = slice(r * f, (r + 1) * f)
+        got = _conv_plain(x, w[..., blk], b[blk], getattr(torch, dtype))
+        assert got.shape == (8, 32, 32, f)
+        np.testing.assert_allclose(got, full[dtype][..., blk], rtol=0, atol=atol)
+        want = xla_conv0(*(jnp.asarray(a, dtype) for a in (x, w[..., blk], b[blk])))
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("f", [16, 8])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_conv_grads_on_a_channel_block_match_jax_vjp(f, x_dtype):
+    """The autograd gradients of ``ops.conv4x4s2_swish`` at F = 16 and 8 on
+    the CPU (K4's backward and input gradient, plain) against ``jax.vjp`` of
+    ``xla_conv0`` on the same block: the weight's, the bias's and, for an
+    f32 image, the image's; a bf16 image (a bf16 train split) into f32
+    weights, the weight's and the bias's; odd 19x17 images that pad (1, 2)."""
+    x, w, b = _conv_inputs((3, 19, 17, 3), seed=f)
+    w, b = w[..., :f], b[:f]
+    x = np.asarray(jnp.asarray(x, x_dtype).astype(jnp.float32))  # the bf16 values
+    out, vjp = jax.vjp(xla_conv0, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    g = np.random.default_rng(f).standard_normal(out.shape).astype(np.float32)
+    j_dx, j_dw, j_db = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tx = _t(x).to(getattr(torch, x_dtype)).requires_grad_(x_dtype == "float32")
+    tw = _t(w.transpose(3, 2, 0, 1)).requires_grad_(True)
+    tb = _t(b).requires_grad_(True)
+    y = ops.conv4x4s2_swish(tx, tw, tb)
+    _close(y.detach().permute(0, 2, 3, 1), out, atol=1e-5)
+    y.backward(_t(g).permute(0, 3, 1, 2))
+    grads = [(tw.grad, j_dw.transpose(3, 2, 0, 1)), (tb.grad, j_db)]
+    if x_dtype == "float32":
+        grads.append((tx.grad, j_dx))
+    for got, want in grads:
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=2e-4 * np.abs(want).max())
 
 
 def _seq_inputs(rng, n, s, v):
