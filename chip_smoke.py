@@ -307,6 +307,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at 8 channels); each path's launches against ``EXPECTED_LAUNCHES``;
      with two cards or more the world-2 runs again on NCCL across cards,
      in the graph;
+   - ``pp`` (pipeline parallelism): ``deep_cub`` at full width (trunks of
+     4 stages at 512) and ``deep_mnist`` (trunks cut to 2 stages at 256),
+     3 steps of each at world 1 under the "b" fold (eager, native
+     convolutions, the gradients recorded), then four processes on the one
+     card over gloo: ``deep_cub`` on one pipe group of 4 (4 microbatches
+     of 16) and ``deep_mnist`` on data 2 x pipe 2 (2 of 25), each against
+     world 1 under the world-2 gates with the tails fed, the replicated
+     parameters equal to the bit in each pipe group, each rank's launches
+     against ``EXPECTED_LAUNCHES`` and its state bytes against world 1's
+     less the trunk stages it does not hold; a step's wall against world
+     1's (``utils.measure_samples_per_sec``), the bubble share and a trace
+     of one step (``utils.trace``: its bytes and CUDA kernel events);
 4. timings: each kernel and its plain version on the device (CUDA-graph
    replay, median of 15) and eagerly (host overhead included), the
    library call that computes the same function where there is one, the
@@ -323,8 +335,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    copies; each runner's idle share from its walls against that busy
    time), the same for ``mnist`` under each mixture objective and
    ``celeba`` under mopoe, and the same for each config's ``log_likelihood`` through an
-   IWAE graph runner built once and the eager loop (``iwae_wall``,
-   ``iwae_profile``). The
+   IWAE graph runner built once, one captured on cuDNN's deterministic
+   algorithms (what the entry point captures on) and the eager loop
+   (``iwae_wall``, ``iwae_profile``). The
    backward kernels are timed at MNIST's, MultiMNIST's and CelebA's train
    shapes beside their plain versions and the autograd backward of the
    library forward (for K4's backward: cuDNN's wgrad and the silu's
@@ -347,6 +360,7 @@ import contextlib
 import dataclasses
 import functools
 import gzip
+import hashlib
 import json
 import math
 import os
@@ -376,7 +390,10 @@ from mmvae_torch.parallel import (
     fsdp_shard,
     make_mesh,
     make_mesh_2d,
+    make_mesh_pp,
     multihost,
+    pp_shard,
+    pp_shard_batch,
     shard_batch,
     state_bytes,
     tp_shard,
@@ -392,6 +409,8 @@ from mmvae_torch.train import (
 )
 from mmvae_torch.train.checkpoint import AsyncCheckpointWriter
 from mmvae_torch.train.state import learning_rate
+from mmvae_torch.utils import measure_samples_per_sec, trace
+from mmvae_torch.utils.profiling import device_barrier
 
 ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate, L2 size, the f32 rate outside the
@@ -1098,6 +1117,16 @@ EXPECTED_LAUNCHES = {
               "bce_bwd": 3, "bce_bwd_inner": 0, "seq_ce_bwd": 6, "poe_kl_bwd": 6,
               "conv_bwd": 6, "conv_dx": 3}
        for path in ("cub_tp_train", "cub_tp4_train")},
+    # ``pp``: each rank's 3 steps under the "b" fold, its trunk stage
+    # pipelined and the rest of the model replicated, so each rank launches
+    # world 1's kernels: ``deep_cub`` (pipe 4) as ``cub_train``'s a step,
+    # ``deep_mnist`` (data 2 x pipe 2) as ``mnist_train``'s.
+    "deep_cub_pp4_train": {"kl": 0, "bce": 3, "seq_ce": 6, "conv": 6, "poe_kl": 6,
+                           "kl_bwd": 0, "bce_bwd": 3, "bce_bwd_inner": 0, "seq_ce_bwd": 6,
+                           "poe_kl_bwd": 6, "conv_bwd": 6, "conv_dx": 3},
+    "deep_mnist_pp2_train": {"kl": 0, "bce": 3, "seq_ce": 0, "conv": 0, "poe_kl": 3,
+                             "kl_bwd": 0, "bce_bwd": 3, "bce_bwd_inner": 0, "seq_ce_bwd": 0,
+                             "poe_kl_bwd": 3, "conv_bwd": 0, "conv_dx": 0},
 }
 # K2's VJP at the map over examples of several rows runs on the "b" fold's
 # CelebA step alone: every other path launches it no time.
@@ -3802,11 +3831,9 @@ def data_segmented_eval() -> None:
     """``eval_elbo`` and ``log_likelihood`` (k = 64) of the mounted MNIST
     (10,000 rows, 100 batches) and CelebA (320, 5 batches) test splits,
     whole (``segment_steps`` 0) and in segments of DATA_SEGMENTS batches
-    (the last padded): gated equal to the bit; the walls of both. Both on
-    PyTorch's own convolutions (``native_convs``): cuDNN picks an algorithm
-    a call from the memory it finds free: CelebA's IWAE has read
-    -8619.264276123047 whole and -8619.264273071289 segmented in one run on
-    the same input, and either value in other runs."""
+    (the last padded): gated equal to the bit; the walls of both. On cuDNN,
+    whose algorithms both entry points pin to deterministic ones, the
+    fastest a shape (``api.deterministic_convs``)."""
     for name in ("mnist", "celeba"):
         cfg = configs.get_config(name)
         model = configs.build_model(cfg, seed=0)
@@ -3818,9 +3845,8 @@ def data_segmented_eval() -> None:
             for segs in (0, DATA_SEGMENTS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with native_convs():
-                    values[segs] = getattr(api, fn)(cfg, model=model, dataset=dataset,
-                                                    segment_steps=segs)
+                values[segs] = getattr(api, fn)(cfg, model=model, dataset=dataset,
+                                                segment_steps=segs)
                 row[f"{fn}_wall_s_segments_{segs}"] = time.perf_counter() - t0
             if values[0] != values[DATA_SEGMENTS]:
                 raise AssertionError(f"{name}: {fn} whole {values[0]} and segmented "
@@ -4543,14 +4569,15 @@ def dp_steps(cfg, batches: dict, term_fold: str, mesh=None, graph: bool | None =
     step of lr), and each step's tail counts, the components above it whose
     signs differ and the three tensors with the largest difference relative
     to the other run's largest component are the last item returned.
-    ``mode`` ``"tp"`` or ``"fsdp"`` shards the state over ``mesh``
-    (``parallel.tp_shard`` on a model built with it, ``parallel.fsdp_
-    shard``): the model holds this rank's blocks, and ``fed`` is cut to
-    them."""
-    model = configs.build_model(cfg, seed=0, tp_mesh=mesh if mode == "tp" else None)
+    ``mode`` ``"tp"``, ``"fsdp"`` or ``"pp"`` shards the state over ``mesh``
+    (``parallel.tp_shard`` or ``pp_shard`` on a model built with it,
+    ``parallel.fsdp_shard``): the model holds this rank's blocks, and
+    ``fed`` is cut to them."""
+    model = configs.build_model(cfg, seed=0, tp_mesh=mesh if mode == "tp" else None,
+                                pp_mesh=mesh if mode == "pp" else None)
     state = create_train_state(model, cfg.learning_rate, grad_clip=cfg.grad_clip)
     if mode is not None:
-        state = (tp_shard if mode == "tp" else fsdp_shard)(state, mesh)
+        state = {"tp": tp_shard, "fsdp": fsdp_shard, "pp": pp_shard}[mode](state, mesh)
     gen = torch.Generator(device="cuda").manual_seed(6)
     apply, steps, counts = state.apply_gradients, iter(fed or ()), []
 
@@ -5201,6 +5228,237 @@ def check_sharded(key: str, path: str, got: dict, ref: dict, backend: str,
     return failures
 
 
+# ------------------------------------------------- pipeline parallelism ----
+
+PP_STEPS = 3  # the gated steps of each pipelined run
+PP_RATE_ROUNDS = 5  # the calls of measure_samples_per_sec a step's wall is the median of
+PP_WORLD = 4  # the ranks of both runs, four gloo processes on the one card
+# path -> (config, pipe ranks, model kwargs over the config's): deep_cub at
+# its own depth on one pipe group of 4 (16 rows a microbatch), deep_mnist
+# cut to 2 stages on data 2 x pipe 2 (25 rows a microbatch).
+PP_RUNS = {"deep_cub_pp4_train": ("deep_cub", 4, {"pp_n_micro": 4}),
+           "deep_mnist_pp2_train": ("deep_mnist", 2, {"trunk_stages": 2, "pp_n_micro": 2})}
+
+
+def pp_config(path: str):
+    """The config of a pipelined run: its ``pp`` and its model kwargs."""
+    name, pp, kw = PP_RUNS[path]
+    cfg = configs.get_config(name)
+    return cfg.replace(pp=pp, model_kwargs={**cfg.model_kwargs, **kw})
+
+
+def one_step_rate(runner, state, batches: dict, bs: int) -> list[float]:
+    """A step's wall in ms on a runner over the first of ``batches``, from
+    each of PP_RATE_ROUNDS calls of ``utils.measure_samples_per_sec`` (1
+    step of warm-up, 3 timed, to a fetch of the last metrics); the runner
+    updates ``state`` in place."""
+    one = {k: v[:1] for k, v in batches.items()}
+    return [1e3 * bs / measure_samples_per_sec(runner, state, lambda: iter([one] * 3), bs,
+                                               warmup=1, n_chips=1)
+            for _ in range(PP_RATE_ROUNDS)]
+
+
+def replicated_digest(state) -> str:
+    """A digest of the bits of every replicated parameter of a sharded
+    state and of its EMA shadow where it keeps one."""
+    h = hashlib.sha256()
+    for module in [m for m in (state.model, state.ema_model) if m is not None]:
+        for n, p in module.named_parameters():
+            if not state.layout.sharded(n):
+                h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def pp_run(path: str, fed: list) -> dict:
+    """One rank's part of the pipelined run ``path``: 3 steps under the "b"
+    fold from the seed-0 weights, each rank its stage of the trunks
+    (``parallel.pp_shard``) and its data shard's rows of each global batch,
+    eager on native convolutions with the gradients' tails fed from world
+    1's (``fed``); the launches of those steps; the parameters after (the
+    trunks gathered) and the state's bytes; a step's wall on the eager loop
+    (``one_step_rate``) and a trace of one more step (``utils.trace``): its
+    bytes and its CUDA kernel events; after those steps, which ran on
+    cuDNN's default algorithms, a digest of the replicated parameters
+    (``replicated_digest``)."""
+    cfg = pp_config(path)
+    mesh = make_mesh_pp(cfg.pp)
+    batches = dp_batches(cfg, PP_STEPS, seed=5)
+    local = {**pp_shard_batch({k: v for k, v in batches.items() if k != "subset_masks"}, mesh,
+                              dim=1),
+             **{k: v for k, v in batches.items() if k == "subset_masks"}}
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    with native_convs():
+        metrics, model, wall, (runner, state), counts = dp_steps(
+            cfg, local, "b", mesh, graph=False, fed=fed, mode="pp")
+    launches = dict(kernels.LAUNCHES)
+    whole = {n: state.layout.gather(n, p.detach()).cpu() for n, p in model.named_parameters()}
+    res = {"loss": metrics["loss"].tolist(), "wall_s": wall, "tail_counts": counts,
+           "launches": launches, "params": whole, "coords": dict(mesh.coords),
+           "bytes": state_bytes(state), "copies": 3,
+           "sharded_numel": sum(p.numel() * state.layout.size
+                                for n, p in model.named_parameters()
+                                if state.layout.sharded(n)),
+           "local_trunk": tuple(model.image_enc.trunk.kernels.shape),
+           "step_ms_rounds": one_step_rate(runner, state, local, cfg.batch_size)}
+    logdir = tempfile.mkdtemp()
+    try:
+        with trace(logdir):
+            device_barrier(runner(state, {k: v[:1] for k, v in local.items()})[1])
+        files = list(Path(logdir).glob("*.pt.trace.json"))
+        res["trace_bytes"] = sum(f.stat().st_size for f in files)
+        res["trace_kernel_events"] = sum(
+            e.get("cat") == "kernel" for f in files for e in json.loads(f.read_text())["traceEvents"])
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    res["cudnn_steps"] = PP_RATE_ROUNDS * 4 + 1
+    res["replicated_digest_cudnn"] = replicated_digest(state)
+    return res
+
+
+def pp_worker(out: str, fed: str) -> None:
+    """One rank of ``phase_pp``'s world over gloo on the one card (its group
+    from torchrun's variables): ``pp_run`` of each run of PP_RUNS in turn.
+    Each rank writes what it got to ``out.<rank>``."""
+    multihost.initialize(backend="gloo")
+    grads = torch.load(fed, weights_only=False)
+    res = {path: pp_run(path, grads[path]) for path in PP_RUNS}
+    torch.save(res, f"{out}.{torch.distributed.get_rank()}")
+    multihost.sync()
+
+
+def pp_world1(path: str) -> tuple[dict, list]:
+    """World 1 of a pipelined run: its 3 steps under the "b" fold, eager on
+    native convolutions, the gradients recorded (to feed the ranks' tails),
+    with their launches; a step's wall on the eager loop; the state's
+    bytes."""
+    cfg = pp_config(path)
+    batches = dp_batches(cfg, PP_STEPS, seed=5)
+    grads = []
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    with native_convs():
+        metrics, model, wall, (_, state), _ = dp_steps(cfg, batches, "b", graph=False,
+                                                       record=grads)
+    ref = {"loss": metrics["loss"].tolist(), "wall_s": wall, "bytes": state_bytes(state),
+           "launches": dict(kernels.LAUNCHES),
+           "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    runner, state = dp_steps(cfg, batches, "b", graph=False)[3]  # eager, as gloo's
+    ref["step_ms_rounds"] = one_step_rate(runner, state, batches, cfg.batch_size)
+    return ref, grads
+
+
+def phase_pp() -> dict[str, dict[str, int]]:
+    """Pipeline parallelism on the card (``parallel/pp.py``): ``deep_cub`` at
+    full width with its trunks of 4 stages on one pipe group of 4 (4
+    microbatches of 16), and ``deep_mnist`` at full width, its trunks cut to
+    2 stages, on data 2 x pipe 2 (2 microbatches of 25 a data shard): each
+    first at world 1 (``pp_world1``), then both in turn on four gloo
+    processes on the one card (``pp_worker``; NCCL refuses two ranks on a
+    device), each held to world 1 under the world-2 gates
+    (``check_world2``'s loss at rel 1e-4 and parameters within rtol 2e-3
+    and atol 1e-5, the tails fed), the replicated parameters equal on every
+    rank of a pipe group, each rank's launches equal to world 1's and to
+    ``EXPECTED_LAUNCHES``, and each rank's state bytes world 1's less the
+    trunk stages it does not hold; a step's wall against world 1's, the
+    bubble share (S - 1) / T and a trace of one step are printed. Returns
+    the launches of rank 0 of each run."""
+    tmp = tempfile.mkdtemp()
+    fed, out = os.path.join(tmp, "w1_grads.pt"), os.path.join(tmp, "pp")
+    procs = []
+    try:
+        refs, grads = {}, {}
+        for path in PP_RUNS:
+            refs[path], grads[path] = pp_world1(path)
+        torch.save(grads, fed)
+        del grads
+        port = free_port()
+        argv = [sys.executable, "-c", f"import chip_smoke; chip_smoke.pp_worker({out!r}, {fed!r})"]
+        procs = [subprocess.Popen(argv, cwd=ROOT, env={**os.environ,
+                                                       **rank_env(r, PP_WORLD, port)},
+                                  text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for r in range(PP_WORLD)]
+        _wait_ranks(procs)
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(PP_WORLD)]
+        failures = []
+        for path in PP_RUNS:
+            failures += check_pp(path, [r[path] for r in ranks], refs[path])
+        if failures:
+            raise AssertionError("; ".join(failures))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {path: ranks[0][path]["launches"] for path in PP_RUNS}
+
+
+def check_pp(path: str, ranks: list[dict], ref: dict) -> list[str]:
+    """A pipelined run's gates (``phase_pp``). Returns the failures."""
+    cfg = pp_config(path)
+    world, pp = PP_WORLD, cfg.pp
+    n_micro = cfg.model_kwargs["pp_n_micro"]
+    got = ranks[0]
+    failures = []
+    loss_rel = max(rel(a, b) for a, b in zip(got["loss"], ref["loss"]))
+    init = dict(configs.build_model(cfg, seed=0, device="cpu").named_parameters())
+    param_err, where = param_excess(got["params"], ref["params"], init)
+    shed = got["copies"] * 4 * got["sharded_numel"] * (pp - 1) // pp
+    replicated_equal = all(
+        torch.equal(o["params"][n], ranks[(r // pp) * pp]["params"][n])
+        for r, o in enumerate(ranks) for n in o["params"])
+    replicated_equal_cudnn = all(o["replicated_digest_cudnn"] ==
+                                 ranks[(r // pp) * pp]["replicated_digest_cudnn"]
+                                 for r, o in enumerate(ranks))
+    step_ms = [statistics.median(o["step_ms_rounds"]) for o in ranks]
+    step_ms_w1 = statistics.median(ref["step_ms_rounds"])
+    emit({"phase": "pp", "path": path, "config": cfg.name, "backend": "gloo", "world": world,
+          "pipe": pp, "data": world // pp, "n_micro": n_micro,
+          "rows_per_micro": cfg.batch_size // (world // pp) // n_micro,
+          "bubble_share": (pp - 1) / (n_micro + pp - 1), "steps": PP_STEPS,
+          "coords": [o["coords"] for o in ranks], "local_trunk_kernels": got["local_trunk"],
+          "loss": got["loss"], "loss_w1": ref["loss"], "loss_rel_max": loss_rel,
+          "param_excess_over_rtol_max": param_err, "param_worst": where,
+          "replicated_equal_in_pipe_groups": replicated_equal,
+          "replicated_equal_in_pipe_groups_cudnn": replicated_equal_cudnn,
+          "cudnn_steps": got["cudnn_steps"],
+          "tail_below": TAIL_BELOW, "tail_counts_per_step": got["tail_counts"],
+          "bytes_per_rank": [o["bytes"] for o in ranks], "bytes_per_rank_w1": ref["bytes"],
+          "bytes_expected": ref["bytes"] - shed,
+          "step_ms_per_rank": step_ms, "step_ms_w1": step_ms_w1,
+          "step_ms_rounds_rank0": got["step_ms_rounds"], "step_ms_rounds_w1": ref["step_ms_rounds"],
+          "step_ratio_median": step_ms[0] / step_ms_w1,
+          "step_ratio_range": [min(got["step_ms_rounds"]) / max(ref["step_ms_rounds"]),
+                               max(got["step_ms_rounds"]) / min(ref["step_ms_rounds"])],
+          "steps_wall_s": got["wall_s"], "steps_wall_s_w1": ref["wall_s"],
+          "trace_bytes": got["trace_bytes"], "trace_kernel_events": got["trace_kernel_events"],
+          "launches": got["launches"], "launches_w1": ref["launches"], "graph": False})
+    for r, o in enumerate(ranks):
+        if o["launches"] != EXPECTED_LAUNCHES[path] or o["bytes"] != ref["bytes"] - shed:
+            failures.append(f"{path} rank {r}: launches {o['launches']}, want "
+                            f"{EXPECTED_LAUNCHES[path]}; {o['bytes']} state bytes, want "
+                            f"{ref['bytes'] - shed}")
+        if o["loss"] != got["loss"]:
+            failures.append(f"{path} rank {r}: loss {o['loss']} against rank 0's {got['loss']}")
+    if ref["launches"] != EXPECTED_LAUNCHES[path]:
+        failures.append(f"{path} world 1: launches {ref['launches']}, want "
+                        f"{EXPECTED_LAUNCHES[path]}")
+    if not (loss_rel <= 1e-4 and param_err <= 1e-5 and replicated_equal
+            and replicated_equal_cudnn):
+        failures.append(f"{path}: loss rel {loss_rel}, param excess {param_err} at {where}, "
+                        f"replicated equal in the pipe groups {replicated_equal} "
+                        f"(after the steps on cuDNN {replicated_equal_cudnn})")
+    for i, tally in enumerate(got["tail_counts"]):
+        one_side = max(tally["this"], tally["other"]) - tally["fed"]
+        if not one_side <= TAIL_SLACK * tally["other"]:
+            failures.append(f"{path} step {i}: {one_side} gradient components below "
+                            f"{TAIL_BELOW} on one side only: {tally}")
+    if got["trace_kernel_events"] <= 0:
+        failures.append(f"{path}: the trace of a step holds no CUDA kernel event")
+    return failures
+
+
 def graph_ms(calls, reps: int = REPS) -> float:
     """Device time of one call: CUDA-graph replay of ``calls`` in turn,
     timed by CUDA events, median over ``reps`` replays. ``calls`` may be a
@@ -5396,20 +5654,25 @@ def emit_graph_profile(phase: str, config: str, runner, stacked: dict, walls: di
 def phase_iwae_wall(config: str) -> None:
     """``log_likelihood`` of ``config``'s 2,000-example test split at k =
     64 through an IWAE graph runner built once and through the eager loop,
-    timed in turns (two each, to a sync), their first calls, the entry
-    point's own wall (a capture each call), and a profile of the graph
-    runner (as ``phase_eval_wall``'s): where the device time goes and each
-    runner's idle share."""
+    and through a graph runner captured on cuDNN's deterministic algorithms,
+    the fastest a shape (``api.deterministic_convs``, what the entry point
+    captures on), timed
+    in turns (two each, to a sync), their first calls, the entry point's
+    own wall (a capture each call), and a profile of the graph runner (as
+    ``phase_eval_wall``'s): where the device time goes and each runner's
+    idle share."""
     model = configs.build_model(config, seed=0)
     test = load_dataset(config, "test")
     stacked = api._valid_split(test, configs.get_config(config).batch_size, torch.device("cuda"))
-    runners = {kind: make_iwae_runner(model, IWAE_K, graph=kind == "graph",
+    runners = {kind: make_iwae_runner(model, IWAE_K, graph=kind != "eager",
                                       generator=torch.Generator(device="cuda").manual_seed(0))
-               for kind in ("graph", "eager")}
-    first, walls = {}, {"graph": [], "eager": []}
+               for kind in ("graph", "eager", "graph_deterministic")}
+    first, walls = {}, {kind: [] for kind in runners}
     for kind, runner in runners.items():
         t0 = time.perf_counter()
-        float(runner(stacked)["log_likelihood"].sum())
+        with api.deterministic_convs() if kind == "graph_deterministic" else \
+                contextlib.nullcontext():
+            float(runner(stacked)["log_likelihood"].sum())  # the capture
         first[kind] = 1e3 * (time.perf_counter() - t0)
     for _ in range(2):
         for kind, runner in runners.items():
@@ -5541,6 +5804,7 @@ def main() -> None:
     launches.update(timed("bf16", phase_bf16))
     launches.update(timed("dp", phase_dp))
     launches.update(timed("tp_fsdp", phase_tp_fsdp))
+    launches.update(timed("pp", phase_pp))
     reported = timed("timings", phase_timings, launches)
     timed("launch_floor", phase_launch_floor)
     for config in CONFIGS:

@@ -33,6 +33,7 @@ model keeps its own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -59,7 +60,9 @@ from mmvae_torch.parallel import (
     fsdp_shard,
     make_mesh,
     make_mesh_2d,
+    make_mesh_pp,
     multihost,
+    pp_shard,
     replicate,
     shard_batch,
     tp_shard,
@@ -87,6 +90,7 @@ __all__ = [
     "step_options",
     "eval_elbo",
     "log_likelihood",
+    "deterministic_convs",
     "generate",
     "sample",
     "load_run_config",
@@ -173,6 +177,24 @@ def _resolve(config, model, state_dict, device, workdir=None, which="best"):
     return config, model.to(device), device
 
 
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms while the context is open, each
+    convolution on the fastest of them that cuDNN finds for its shape
+    (``cudnn.benchmark``; the pick is kept for the process), the caller's
+    settings restored after. cuDNN's default plans for the decoders'
+    transposed convolutions sum in another order from one run to the next,
+    even replayed from one capture, and an eval must not change in its last
+    bits with the way its split is delivered; its default deterministic
+    plans are slower (``eval_conv_algos.py``)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def eval_elbo(
     config: str | ExperimentConfig,
     *,
@@ -207,6 +229,9 @@ def eval_elbo(
     serves them all): O(K) batches of device memory, the same result to
     the bit (``mmvae_tpu/api.py:1114-1145``); 0 puts the whole split on
     the device. ``dtype``: the compute dtype (see the module docstring).
+    The runner captures and runs on cuDNN's deterministic algorithms, the
+    fastest a shape (:func:`deterministic_convs`), so the whole and the
+    segmented split give the same bits on the card too.
     ``mesh`` (``parallel.make_mesh``, every rank calling): the batch size
     is rounded up to the ranks (``mmvae_tpu/api.py:1069-1111``; the pad
     rows are masked, so the ELBO is exact at any size), each rank
@@ -223,7 +248,7 @@ def eval_elbo(
                             device if segment_steps <= 0 else None)
     if mesh is not None:
         stacked = shard_batch(stacked, mesh, dim=1)
-    with model.at_dtype(dtype):
+    with model.at_dtype(dtype), deterministic_convs():
         runner = make_eval_runner(model, config.objective, config.mvtcae_alpha, mesh=mesh)
         return _split_elbo(runner, stacked, dataset.size, segment_steps, device, batch_size)
 
@@ -328,7 +353,8 @@ def log_likelihood(
     ``segment_steps`` is :func:`eval_elbo`'s: the split (and ``eps``) on the
     host, copied to the device a segment at a time, the same result to the
     bit (the batches draw the generator's noise in the same order; the
-    pad batches of the last segment draw after them). The per-example
+    pad batches of the last segment draw after them; cuDNN's deterministic
+    algorithms, as in :func:`eval_elbo`). The per-example
     values are summed in float64. ``dtype``: the compute dtype (see the
     module docstring). ``mesh`` (every rank calling): the batch size is
     rounded up to the ranks as in :func:`eval_elbo`, each rank takes its
@@ -353,7 +379,7 @@ def log_likelihood(
         stacked["eps"] = eps
     if mesh is not None:
         stacked = shard_batch(stacked, mesh, dim=1)
-    with model.at_dtype(dtype):
+    with model.at_dtype(dtype), deterministic_convs():
         runner = make_iwae_runner(
             model, k, generator=torch.Generator(device=device).manual_seed(seed), mesh=mesh)
         values = _split_values(runner, "log_likelihood", stacked, segment_steps, device)
@@ -694,14 +720,20 @@ def train(
     is captured in the epoch's graph; a gloo group runs the eager loop.
     ``use_mesh=False`` runs each process alone.
 
-    FSDP and tensor parallelism (``config.fsdp``, ``config.tp``,
-    ``mmvae_tpu/api.py:454-470``, ``:565-583``): ``tp < 1`` raises
-    ``ValueError``, as do ``tp > 1`` with ``fsdp``, and ``tp > 1`` without
-    ``use_mesh`` or with ranks that ``tp`` does not divide. ``fsdp`` on a
-    multi-process mesh shards the state over it (``parallel.fsdp_shard``);
-    ``tp > 1`` folds the ranks into a ``(data, model)`` mesh
-    (``parallel.make_mesh_2d``), builds the model with it and shards the
-    state over its model groups (``parallel.tp_shard``). The state is made
+    FSDP, tensor and pipeline parallelism (``config.fsdp``, ``config.tp``,
+    ``config.pp``, ``mmvae_tpu/api.py:454-503``, ``:565-583``): ``tp < 1``
+    or ``pp < 1`` raises ``ValueError``, as do ``tp > 1`` with ``fsdp``,
+    ``pp > 1`` with ``fsdp`` or ``tp > 1``, ``tp > 1`` or ``pp > 1`` without
+    ``use_mesh`` or with ranks that it does not divide, ``pp`` other than
+    the model's ``trunk_stages`` (a model without trunks too), and a batch
+    that does not split into ``pp_n_micro`` microbatches a data shard.
+    ``fsdp`` on a multi-process mesh shards the state over it
+    (``parallel.fsdp_shard``); ``tp > 1`` folds the ranks into a ``(data,
+    model)`` mesh (``parallel.make_mesh_2d``), builds the model with it and
+    shards the state over its model groups (``parallel.tp_shard``); ``pp >
+    1`` folds them into a ``(data, pipe)`` mesh (``parallel.make_mesh_pp``),
+    builds the model with its trunks pipelined and gives each rank its
+    stage of them (``parallel.pp_shard``). The state is made
     equal on every rank first (rank 0's init), then cut; a resume and a
     rollback restore cut the whole checkpoint again. Both take JAX's
     pre-stacked epochs (``data.stacked_epoch``, shuffled by
@@ -730,20 +762,39 @@ def train(
         warnings.warn("reshuffle_every>1 only applies to the in-program gather path (device "
                       "backend); this run shuffles every epoch", stacklevel=2)
     device = resolve_device(device)
-    tp = config.tp
+    tp, pp = config.tp, config.pp
     world = multihost.process_count()
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
+    if pp < 1:
+        raise ValueError(f"pp must be >= 1, got {pp}")
     if tp > 1 and config.fsdp:
         raise ValueError("tp>1 and fsdp are mutually exclusive")
-    if tp > 1 and (not use_mesh or world % tp):
-        raise ValueError(f"tp={tp} needs use_mesh and a device count divisible by tp "
-                         f"(have {world})")
+    if pp > 1 and (config.fsdp or tp > 1):
+        raise ValueError("pp>1 is mutually exclusive with fsdp/tp")
+    for name, n in (("tp", tp), ("pp", pp)):
+        if n > 1 and (not use_mesh or world % n):
+            raise ValueError(f"{name}={n} needs use_mesh and a device count divisible by "
+                             f"{name} (have {world})")
+    dtype = dtype or torch.float32
     # The eval's (and DP's) mesh: every rank a data shard.
     mesh = eval_mesh = make_mesh() if use_mesh and world > 1 else None
     if tp > 1:
         mesh = make_mesh_2d(tp)
-    sharded = mesh is not None and (config.fsdp or tp > 1)
+    if pp > 1:
+        mesh = make_mesh_pp(pp)
+    sharded = mesh is not None and (config.fsdp or tp > 1 or pp > 1)
+    # A sharded run evaluates (and returns) a model of the whole parameters.
+    whole = build_model(config, seed=seed, device=device, dtype=dtype) if sharded else None
+    if pp > 1:
+        if getattr(whole, "trunk_stages", None) != pp:
+            raise ValueError(f"pp={pp} needs a trunk model with trunk_stages == pp (got "
+                             f"{getattr(whole, 'trunk_stages', None)!r}; use the deep_cub or "
+                             "deep_mnist config)")
+        n_data, micro = world // pp, whole.pp_n_micro
+        if config.batch_size % (n_data * micro):
+            raise ValueError(f"batch_size={config.batch_size} must divide into {micro} "
+                             f"microbatches per {n_data}-way data shard")
     primary = multihost.is_primary()
     if workdir is not None and primary:
         _save_run_config(workdir, config)
@@ -763,12 +814,10 @@ def train(
         raise ValueError(f"train split of {train_ds.size} holds no batch of {bs}")
     lr = learning_rate(config, steps_per_epoch)
 
-    dtype = dtype or torch.float32
-
     def fresh_state(model_seed: int) -> TrainState:
         state = create_train_state(
             build_model(config, seed=model_seed, device=device, dtype=dtype,
-                        tp_mesh=mesh if tp > 1 else None),
+                        tp_mesh=mesh if tp > 1 else None, pp_mesh=mesh if pp > 1 else None),
             lr,
             grad_clip=config.grad_clip, ema_decay=config.ema_decay,
             accum_steps=config.accum_steps,
@@ -776,7 +825,9 @@ def train(
         if not sharded:
             return state
         replicate(state.tensors(), eval_mesh)
-        return fsdp_shard(state, mesh) if config.fsdp else tp_shard(state, mesh)
+        if config.fsdp:
+            return fsdp_shard(state, mesh)
+        return (tp_shard if tp > 1 else pp_shard)(state, mesh)
 
     def replicated(state: TrainState) -> TrainState:
         if mesh is not None and not sharded:
@@ -802,9 +853,6 @@ def train(
     np_rng = np.random.default_rng(seed)
     for _ in range(start_epoch - 1 if sharded else 0):
         np_rng.permutation(train_ds.size)
-
-    # A sharded run evaluates (and returns) a model of the whole parameters.
-    whole = build_model(config, seed=seed, device=device, dtype=dtype) if sharded else None
 
     def runners(state: TrainState) -> tuple[Callable, Callable]:
         step_kw = dict(annealing_steps=config.annealing_epochs * steps_per_epoch,

@@ -27,9 +27,11 @@ JAX CLI passes it to every entry point (``mmvae_tpu/cli.py:362-496``).
 parallel over the group's ranks unless ``--no-mesh`` asks each process to
 run alone (``api.train(use_mesh=False)``); ``--fsdp`` shards the state
 over the ranks and ``--tp N`` runs tensor parallel over model groups of N
-(``api.train``: ``config.fsdp``, ``config.tp``). What the port does not
-have raises ``NotImplementedError`` when asked for: the flag of the JAX
-config field the port leaves out (``--pp``).
+(``api.train``: ``config.fsdp``, ``config.tp``), and ``--pp N`` runs the
+deep configs' trunks as a pipeline of N stages (``config.pp``: ``deep_mnist``
+or ``deep_cub`` with ``trunk_stages == N``). Every flag and config field of
+the JAX CLI is ported; ``_UNPORTED_FLAGS`` would name one that is not, which
+would raise ``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -43,9 +45,7 @@ import sys
 import numpy as np
 
 # The JAX CLI's flags of config fields the port does not have (dest -> flag).
-_UNPORTED_FLAGS = {
-    "pp": "--pp",
-}
+_UNPORTED_FLAGS: dict[str, str] = {}
 # The JAX config's fields the port does not have.
 _UNPORTED_FIELDS = tuple(_UNPORTED_FLAGS)
 # The config fields a flag of the same name sets (``mmvae_tpu/cli.py:48-76``).
@@ -57,7 +57,7 @@ _FIELDS = (
     "cycle_weight", "cycle_render_grad", "cycle_contrast_weight", "cycle_render_binarize",
     "p_modality_drop", "cross_recon", "data_dtype", "eval_segment_steps", "data_backend",
     "grain_stream_steps", "reshuffle_every", "shuffle_mode", "shuffle_granularity",
-    "fsdp", "tp",
+    "fsdp", "tp", "pp",
 )
 # Knobs of the mvae term structure a mixture objective clears when the
 # user did not set them (``mmvae_tpu/cli.py:385-409``).
@@ -138,9 +138,10 @@ def _build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--tp", dest="tp", type=int,
                     help="tensor parallelism: fold the ranks into a (data, model) mesh of "
                     "TP-rank model groups (needs --multihost and ranks divisible by TP)")
-    # The JAX flag of a field the port does not have: parsed so that it
-    # raises, never ignored.
-    pt.add_argument("--pp", dest="pp", type=int)
+    pt.add_argument("--pp", dest="pp", type=int,
+                    help="pipeline parallelism: fold the ranks into a (data, pipe) mesh; the "
+                    "trunks run the GPipe schedule (deep_mnist or deep_cub with trunk_stages "
+                    "== PP; needs --multihost and ranks divisible by PP)")
 
     pe = sub.add_parser("eval", help="ELBO of a split from a checkpoint")
     _add_common(pe)

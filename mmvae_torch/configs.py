@@ -11,8 +11,8 @@ checkpoints (``ckpt_every``, ``keep_epoch_ckpts``) and the data layer
 ``grain_stream_steps`` and the shuffle modes) read, with the JAX defaults
 (``mmvae_tpu/configs.py:30-175``); every config here trains with
 ``api.train``, under any of the four objectives; ``fsdp`` and ``tp`` are
-JAX's parallel knobs (``mmvae_tpu/configs.py:146``, ``:165``), and ``pp``
-is left out until pipeline parallelism is ported. Eval pins
+JAX's parallel knobs (``mmvae_tpu/configs.py:146``, ``:165``), as is
+``pp`` (``:169-173``). Eval pins
 ``n_random_subsets=0`` (``mmvae_tpu/train/step.py:1568``). A CUB model
 takes the vocabulary of a mounted caption corpus where there is one
 (:func:`cub_vocab_size`).
@@ -21,6 +21,7 @@ takes the vocabulary of a mounted caption corpus where there is one
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from typing import Any
 
@@ -106,6 +107,11 @@ class ExperimentConfig:
     # tp-rank model groups, column/row-parallel layers and sharded
     # attribute banks (parallel/tp.py); exclusive with fsdp.
     tp: int = 1
+    # Pipeline parallelism: the ranks fold into a (data, pipe) mesh and the
+    # model's stage-stacked trunks run the GPipe schedule (parallel/pp.py);
+    # needs a trunk model (deep_mnist, deep_cub) with trunk_stages == pp,
+    # exclusive with fsdp and tp.
+    pp: int = 1
     # Reconstruct every modality from every subset posterior; cross
     # entries (modality m from a subset without m) weigh cross_recon_weight.
     cross_recon: bool = False
@@ -239,6 +245,7 @@ def build_model(
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
     tp_mesh=None,
+    pp_mesh=None,
 ):
     """The config's model with seeded random weights, on ``device``, at the
     compute dtype ``dtype`` (``mmvae_tpu/configs.py:288``: float32 or
@@ -250,6 +257,10 @@ def build_model(
     builds the tensor-parallel variant (``mmvae_tpu/configs.py:289-314``):
     the same parameters, whole until ``parallel.tp_shard`` cuts them, and
     experts that run on the mesh's model group (``models/experts.py``).
+    ``pp_mesh`` (``parallel.make_mesh_pp``) builds the pipelined variant
+    (``:300-310``): the same parameters, whole until ``parallel.pp_shard``
+    cuts them, and trunks that run the GPipe schedule; a config without
+    trunks raises ``ValueError``.
     """
     if isinstance(config, str):
         config = get_config(config)
@@ -259,6 +270,11 @@ def build_model(
         kwargs["vocab_size"] = cub_vocab_size()
     if tp_mesh is not None:
         kwargs["tp_mesh"] = tp_mesh
+    if pp_mesh is not None:
+        if "pp_mesh" not in inspect.signature(_MODEL_CLASSES[config.name]).parameters:
+            raise ValueError(f"config {config.name!r} has no pipeline trunks; pp>1 needs a "
+                             "trunk model (deep_cub or deep_mnist)")
+        kwargs["pp_mesh"] = pp_mesh
     model = _MODEL_CLASSES[config.name](n_latents=config.n_latents, dtype=dtype, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)

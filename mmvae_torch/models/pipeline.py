@@ -10,7 +10,10 @@ conv experts' ``trunk_stages`` hook, width ``fc_hidden`` = 512).
 The JAX trunk runs as a ``lax.scan`` over the stage axis on one device,
 or as a GPipe schedule over a ``(data, pipe)`` mesh (``pp_mesh``). The
 port runs the scan as a loop over the leading axis, with no host sync, so
-that a CUDA graph captures it; the pipe mesh is not ported.
+that a CUDA graph captures it; with ``pp_mesh`` it runs
+``parallel.pp.pipeline_apply``, each rank its stage of the same stacked
+parameters (``parallel.pp_shard`` cuts them), so a state or checkpoint of
+one mode runs in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from mmvae_torch.models.experts import (
     swish,
 )
 from mmvae_torch.models.mnist import MnistMVAE
+from mmvae_torch.parallel.pp import pipeline_apply
 from mmvae_torch.parallel.tp import plan_expert
 
 __all__ = ["PipelineTrunk", "DeepMnistMVAE", "DeepCubMVAE"]
@@ -47,36 +51,45 @@ class PipelineTrunk(nn.Module):
     W)`` and, with ``rezero`` (the default), the residual gates ``alphas``
     ``(S,)``, which start at 0, so that a fresh trunk is the identity
     (``mmvae_tpu/models/pipeline.py:46-115``); ``rezero=False`` drops the
-    gates (``h + MLP_depth(h)``). ``pp_mesh`` and ``pp_n_micro`` are
-    accepted at their defaults only: the pipe mesh is not ported. At a
-    compute ``dtype`` other than float32 the stacked kernels, biases and
-    gates are cast to it once, outside the loop over the stages, and the
-    trunk runs in it (``mmvae_tpu/models/pipeline.py:83-88``).
+    gates (``h + MLP_depth(h)``). With ``pp_mesh``
+    (``parallel.make_mesh_pp``, its pipe axis as long as the stages) the
+    trunk runs the GPipe schedule over ``pp_n_micro`` microbatches
+    (``parallel.pipeline_apply``), on the whole stacked parameters or on
+    this rank's stage of them (``parallel.pp_shard``). At a compute
+    ``dtype`` other than float32 the stacked kernels, biases and gates are
+    cast to it once, outside the loop over the stages, and the trunk runs in
+    it (``mmvae_tpu/models/pipeline.py:83-88``).
     """
 
     def __init__(self, n_stages: int, width: int, block_depth: int = 1, *,
                  rezero: bool = True, pp_mesh=None, pp_n_micro: int = 4,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pp_mesh is not None or pp_n_micro != 4:
-            raise NotImplementedError(
-                "a pipelined trunk (pp_mesh, pp_n_micro) is not yet ported to mmvae_torch")
         self.n_stages, self.block_depth, self.rezero = n_stages, block_depth, rezero
-        self.dtype = dtype
+        self.pp_mesh, self.pp_n_micro, self.dtype = pp_mesh, pp_n_micro, dtype
         self.kernels = nn.Parameter(torch.empty(n_stages, block_depth, width, width))
         self.biases = nn.Parameter(torch.zeros(n_stages, block_depth, width))
         self.alphas = nn.Parameter(torch.zeros(n_stages)) if rezero else None
 
+    def _stage(self, p, h: torch.Tensor) -> torch.Tensor:
+        """One stage on ``h``: ``p`` its kernels ``(depth, W, W)``, biases
+        ``(depth, W)`` and, with ReZero, its gate."""
+        y = h
+        for i in range(self.block_depth):
+            y = swish(y @ p[0][i] + p[1][i])
+        return h + (p[2] * y if self.rezero else y)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        k, b = self.kernels.to(dt), self.biases.to(dt)
-        alphas = self.alphas.to(dt) if self.rezero else None
+        params = [self.kernels.to(dt), self.biases.to(dt)]
+        if self.rezero:
+            params.append(self.alphas.to(dt))
         h = x.to(dt)
+        if self.pp_mesh is not None:
+            return pipeline_apply(self._stage, params, h, mesh=self.pp_mesh,
+                                  n_micro=self.pp_n_micro)
         for s in range(self.n_stages):
-            y = h
-            for i in range(self.block_depth):
-                y = swish(y @ k[s, i] + b[s, i])
-            h = h + (alphas[s] * y if self.rezero else y)
+            h = self._stage([t[s] for t in params], h)
         return h
 
 
@@ -149,7 +162,7 @@ class DeepMnistMVAE(MnistMVAE):
     ):
         super().__init__(n_latents, n_classes, image_hw, lambda_image, lambda_label,
                          dtype=dtype, tp_mesh=tp_mesh)
-        self.trunk_stages = trunk_stages
+        self.trunk_stages, self.pp_n_micro = trunk_stages, pp_n_micro
         trunk = dict(width=trunk_width, n_stages=trunk_stages, block_depth=trunk_depth,
                      rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro, dtype=dtype,
                      tp_mesh=tp_mesh)
@@ -184,7 +197,7 @@ class DeepCubMVAE(CubMVAE):
     ):
         super().__init__(n_latents, vocab_size, max_len, image_hw, lambda_image, lambda_text,
                          conv_features, upsample_mode, dtype=dtype, tp_mesh=tp_mesh)
-        self.trunk_stages = trunk_stages
+        self.trunk_stages, self.pp_n_micro = trunk_stages, pp_n_micro
         trunk = dict(trunk_stages=trunk_stages, trunk_depth=trunk_depth,
                      trunk_rezero=trunk_rezero, pp_mesh=pp_mesh, pp_n_micro=pp_n_micro,
                      dtype=dtype, tp_mesh=tp_mesh)

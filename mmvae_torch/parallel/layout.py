@@ -1,6 +1,7 @@
 """Sharded train state: which parameters a rank holds a slice of, and the
 collectives that move between the slices and the whole (shared by FSDP,
-``fsdp.py``, and tensor parallelism, ``tp.py``).
+``fsdp.py``, tensor parallelism, ``tp.py``, and pipeline parallelism,
+``pp.py``).
 
 A :class:`Layout` maps each parameter name to the dim it is sharded along
 over a process group (None: replicated), rank ``r`` of ``n`` holding the
@@ -57,7 +58,7 @@ class Layout:
     """The sharding of a model's parameters over ``group`` (``size`` ranks,
     this one ``rank``): ``dims[name]`` the dim of parameter ``name`` that is
     cut into ``size`` blocks, or None where every rank holds it whole.
-    ``kind`` is ``"fsdp"`` or ``"tp"``; under FSDP ``work`` is the module
+    ``kind`` is ``"fsdp"``, ``"tp"`` or ``"pp"``; under FSDP ``work`` is the module
     the step computes on, whose parameters are whole (:meth:`gather_into`
     fills them each step)."""
 

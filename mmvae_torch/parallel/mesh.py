@@ -1,7 +1,9 @@
 """The data-parallel mesh, the ``(data, model)`` mesh of tensor parallelism,
 and the placement of batches and state on them (port of
 ``mmvae_tpu/parallel/mesh.py`` and of ``make_mesh_2d``,
-``mmvae_tpu/parallel/tp.py:86-106``).
+``mmvae_tpu/parallel/tp.py:86-106``); the ``(data, pipe)`` mesh of pipeline
+parallelism is the same fold with the minor axis named ``"pipe"``
+(``pp.py``).
 
 JAX's DP is GSPMD: one process holds the global batch sharded over its
 devices, and XLA inserts the gradient ``psum``. In PyTorch the idiom is one
@@ -17,7 +19,9 @@ gradient once a step over the mesh's group (``train/step.py``). FSDP
 data ``r // tp`` and model ``r % tp`` (the model axis minor, as JAX's), with
 a process group along each axis. The ranks of one model group hold the same
 rows of every batch and shards of the same parameters (``tp.py``); the
-gradient is reduced over the data group.
+gradient is reduced over the data group. A ``"pipe"`` axis in the minor
+place is read the same way: the ranks of one pipe group hold the same rows
+and each its stage of the trunks (``pp.py``).
 
 The rule that keeps a run equal at any world size is the JAX package's:
 every rank draws each random tensor at its global shape from a generator
@@ -44,6 +48,10 @@ __all__ = [
 
 
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+# The axes the batch is not sharded over: each rank of a group along one
+# holds the same rows.
+_INNER_AXES = (MODEL_AXIS, PIPE_AXIS)
 
 
 class Mesh:
@@ -54,13 +62,16 @@ class Mesh:
     them and ``backend`` the group's (``"nccl"`` or ``"gloo"``);
     :attr:`device_mesh` is for the layers that place DTensors on the mesh.
 
-    The batch is sharded over every axis but ``"model"``: ``n_shards``
-    shards, this rank's ``shard`` of them (the rank on a data mesh, its
-    data coordinate on a ``(data, model)`` mesh), and the gradient is
-    reduced over ``data_group``. A mesh with a ``"model"`` axis has a group
-    along each axis (``groups``) and this rank's coordinate on each
-    (``coords``); ``model_group``, ``model_size`` and ``model_rank`` are
-    the model axis's (None, 1 and 0 without one)."""
+    The batch is sharded over every axis but ``"model"`` and ``"pipe"``:
+    ``n_shards`` shards, this rank's ``shard`` of them (the rank on a data
+    mesh, its data coordinate on a ``(data, model)`` or ``(data, pipe)``
+    mesh), and the gradient is reduced over ``data_group``. A mesh with a
+    ``"model"`` or ``"pipe"`` axis has a group along each axis (``groups``)
+    and this rank's coordinate on each (``coords``) and its ranks in order
+    (``members``, ranks of the default group); ``model_group``,
+    ``model_size`` and ``model_rank`` are the model axis's, ``pipe_group``,
+    ``pipe_size`` and ``pipe_rank`` the pipe axis's (None, 1 and 0 without
+    one)."""
 
     def __init__(self, ranks: list[int], axis_names: tuple[str, ...], shape: tuple[int, ...]):
         world = dist.get_world_size()
@@ -71,10 +82,12 @@ class Mesh:
         self.group = None if self.ranks == list(range(world)) else dist.new_group(self.ranks)
         self.rank = dist.get_rank(self.group)
         self.backend = dist.get_backend(self.group)
-        self.groups, self.coords = {}, {}
-        if MODEL_AXIS in self.axis_names:
-            if len(self.axis_names) != 2:
-                raise ValueError(f"a mesh with a model axis is 2-D, got {self.axis_names}")
+        self.groups, self.coords, self.members = {}, {}, {}
+        inner = [a for a in self.axis_names if a in _INNER_AXES]
+        if inner:
+            if len(self.axis_names) != 2 or len(inner) != 1:
+                raise ValueError(f"a mesh with a {inner[0]} axis is 2-D (data, {inner[0]}), "
+                                 f"got {self.axis_names}")
             grid = torch.tensor(self.ranks).reshape(tuple(shape))
             for axis_i, axis in enumerate(self.axis_names):
                 lines = grid.movedim(axis_i, -1).reshape(-1, grid.shape[axis_i]).tolist()
@@ -82,7 +95,7 @@ class Mesh:
                 for line in lines:
                     group = dist.new_group(line)
                     if self.ranks[self.rank] in line:
-                        self.groups[axis] = group
+                        self.groups[axis], self.members[axis] = group, line
                         self.coords[axis] = line.index(self.ranks[self.rank])
 
     def __deepcopy__(self, memo):
@@ -101,20 +114,37 @@ class Mesh:
         return self.groups.get(MODEL_AXIS)
 
     @property
+    def pipe_size(self) -> int:
+        return self.shape.get(PIPE_AXIS, 1)
+
+    @property
+    def pipe_rank(self) -> int:
+        return self.coords.get(PIPE_AXIS, 0)
+
+    @property
+    def pipe_group(self):
+        return self.groups.get(PIPE_AXIS)
+
+    @property
+    def _inner_size(self) -> int:
+        return self.model_size * self.pipe_size
+
+    @property
     def n_shards(self) -> int:
-        """The shards of the batch: the ranks over the model axis."""
-        return self.size // self.model_size
+        """The shards of the batch: the ranks over the model or pipe axis."""
+        return self.size // self._inner_size
 
     @property
     def shard(self) -> int:
         """This rank's shard of the batch (its data coordinate)."""
-        return self.rank // self.model_size
+        return self.rank // self._inner_size
 
     @property
     def data_group(self):
         """The group the gradient is reduced over: the ranks of this rank's
-        model coordinate (every rank on a mesh without a model axis)."""
-        (data_axis,) = [a for a in self.axis_names if a != MODEL_AXIS] or [None]
+        model or pipe coordinate (every rank on a mesh without such an
+        axis)."""
+        (data_axis,) = [a for a in self.axis_names if a not in _INNER_AXES] or [None]
         return self.groups[data_axis] if self.groups else self.group
 
     @functools.cached_property
@@ -130,7 +160,7 @@ class Mesh:
     def rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's contiguous block of ``t`` along ``dim`` (a global
         batch axis): block ``shard`` of ``n_shards`` equal blocks (the
-        ranks of one model group get the same rows)."""
+        ranks of one model or pipe group get the same rows)."""
         n = t.shape[dim]
         if n % self.n_shards:
             raise ValueError(f"{n} rows do not divide over {self.n_shards} ranks")
@@ -167,26 +197,27 @@ def make_mesh_2d(tp: int, devices=None, data_axis: str = "data",
     (rank ``r`` at data ``r // tp``, model ``r % tp``; under NCCL adjacent
     ranks are a host's cards, whose NVLink carries each layer's model-group
     collective). ``devices`` are ranks of the default group (all of them
-    by default)."""
+    by default). ``model_axis="pipe"`` names the minor axis as pipeline
+    parallelism does (``pp.make_mesh_pp``)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh_2d needs a process group: call "
                            "mmvae_torch.parallel.multihost.initialize() first")
     ranks = list(range(dist.get_world_size())) if devices is None else [int(d) for d in devices]
     if tp < 1 or len(ranks) % tp:
         raise ValueError(f"{len(ranks)} devices not divisible by tp={tp}")
-    if model_axis != MODEL_AXIS:
-        raise ValueError(f"the model axis is named {MODEL_AXIS!r}")
+    if model_axis not in _INNER_AXES:
+        raise ValueError(f"the minor axis is named {MODEL_AXIS!r} or {PIPE_AXIS!r}")
     return Mesh(ranks, (data_axis, model_axis), (len(ranks) // tp, tp))
 
 
 def batch_sharding(mesh: Mesh) -> list:
     """The batch's placement on ``mesh.device_mesh``: its leading axis
-    sharded over every mesh axis but the model axis (``Shard(0)`` on each,
-    as ``P(batch axes)``; ``Replicate()`` on the model axis), the rows
+    sharded over every mesh axis but the model and pipe axes (``Shard(0)``
+    on each, as ``P(batch axes)``; ``Replicate()`` on those), the rows
     :func:`shard_batch` gives a rank."""
     from torch.distributed.tensor import Replicate, Shard
 
-    return [Replicate() if a == MODEL_AXIS else Shard(0) for a in mesh.axis_names]
+    return [Replicate() if a in _INNER_AXES else Shard(0) for a in mesh.axis_names]
 
 
 def replicated_sharding(mesh: Mesh) -> list:

@@ -127,6 +127,7 @@ from mmvae_torch.core.mixture import _MOPOE_POWERSET_MAX
 from mmvae_torch.data.pipelines import presence_from_keep, sample_presence
 from mmvae_torch.ops import kernels
 from mmvae_torch.ops.kernels import FOLD_B, FOLD_T, tile_rows
+from mmvae_torch.parallel.pp import is_pipelined
 from mmvae_torch.train.state import TrainState
 
 __all__ = [
@@ -765,7 +766,14 @@ def make_train_step(
     Under tensor parallelism (a ``(data, model)`` ``mesh`` and a model built
     with it) the model's layers run their model-group collectives inside
     the forward and the backward, and the all-reduce spans the data group
-    only. ``grad_norm`` and the clipping read the whole tree's norm.
+    only. Under pipeline parallelism (a ``(data, pipe)`` ``mesh``) the
+    trunks run the schedule over the pipe group and each rank holds its
+    stages, whose gradients are averaged over the data group; the rest and
+    the metrics are averaged over every rank of the mesh, so that the ranks
+    of a pipe group, which hold the same rows, keep their copies of the
+    replicated parameters equal to the bit whatever algorithm each rank's
+    convolutions took. ``grad_norm`` and the clipping read the whole tree's
+    norm.
     """
     _check_fold(objective, term_fold, mesh)
     _check_knobs(
@@ -815,12 +823,15 @@ def make_train_step(
             rest = layout.reduce_scatter_grads(compute, state.model)
             metrics = _all_reduce_mean(rest, metrics, mesh)
         else:
-            params = list(state.model.parameters())
-            for p in params:  # a parameter the loss does not reach has gradient 0
+            named = list(state.model.named_parameters())
+            for _, p in named:  # a parameter the loss does not reach has gradient 0
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if mesh is not None:
-                metrics = _all_reduce_mean([p.grad for p in params], metrics, mesh)
+                staged = layout is not None and layout.kind == "pp"
+                own = {n for n, _ in named if staged and layout.sharded(n)}
+                metrics = _all_reduce_mean([p.grad for n, p in named if n not in own], metrics,
+                                           mesh, staged=[p.grad for n, p in named if n in own])
         metrics["grad_norm"] = state.grad_norm()
         metrics["beta"] = beta
         state.apply_gradients(commit)
@@ -829,24 +840,35 @@ def make_train_step(
     return train_step
 
 
-def _all_reduce_mean(grads: list[torch.Tensor], metrics: dict[str, torch.Tensor],
-                     mesh) -> dict[str, torch.Tensor]:
-    """``grads`` (in place) and ``metrics`` averaged over the mesh's batch
-    shards in one all-reduce of one flat f32 buffer over its data group: a
-    sum, then a division by the shards (gloo has no average). Returns the
-    averaged metrics."""
-    parts = [*grads, *metrics.values()]
+def _mean_over(parts: list[torch.Tensor], group, n: int) -> list[torch.Tensor]:
+    """``parts`` averaged over the ``n`` ranks of ``group`` in one
+    all-reduce of one flat f32 buffer (a sum, then a division: gloo has no
+    average): flat views of the means, in order."""
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
-    dist.all_reduce(flat, group=mesh.data_group)
-    flat = flat / _device_tensor((float(mesh.n_shards),), flat.device, torch.float32)
-    out, at = {}, 0
-    for g in grads:
-        g.copy_(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
-    for k, v in metrics.items():
-        out[k] = flat[at:at + v.numel()].view_as(v).to(v.dtype)
-        at += v.numel()
-    return out
+    dist.all_reduce(flat, group=group)
+    flat = flat / _device_tensor((float(n),), flat.device, torch.float32)
+    return list(flat.split([t.numel() for t in parts]))
+
+
+def _all_reduce_mean(grads: list[torch.Tensor], metrics: dict[str, torch.Tensor],
+                     mesh, staged: list[torch.Tensor] = ()) -> dict[str, torch.Tensor]:
+    """``grads`` (in place) and ``metrics`` averaged over the mesh's batch
+    shards in one all-reduce over its data group. Returns the averaged
+    metrics. With ``staged`` (pipeline parallelism: the gradients of this
+    rank's stages, which the other ranks of its pipe group do not hold)
+    those are averaged over the data group, and ``grads`` and ``metrics``
+    over every rank of the mesh: each pipe group's ranks hold the same
+    rows, so that is the same mean, and every rank reads the same bits."""
+    group, n = mesh.data_group, mesh.n_shards
+    if staged:
+        if n > 1:
+            for g, m in zip(staged, _mean_over(staged, group, n)):
+                g.copy_(m.view_as(g))
+        group, n = mesh.group, mesh.size
+    means = _mean_over([*grads, *metrics.values()], group, n)
+    for g, m in zip(grads, means):
+        g.copy_(m.view_as(g))
+    return {k: m.view_as(v).to(v.dtype) for (k, v), m in zip(metrics.items(), means[len(grads):])}
 
 
 def _use_graph(model, graph: bool | None, mesh=None) -> bool:
@@ -854,13 +876,19 @@ def _use_graph(model, graph: bool | None, mesh=None) -> bool:
     unless ``graph=False`` asks for the eager loop; never on the CPU. With a
     mesh whose group is not NCCL's (gloo syncs the host in each collective,
     which a graph cannot hold) the card runs the eager loop, and
-    ``graph=True`` raises."""
+    ``graph=True`` raises. So does a model whose trunks run the pipeline
+    schedule (``parallel.pp``): whether a graph holds NCCL's sends and
+    receives has not been tried on cards."""
     on_card = model.device.type == "cuda"
     if graph and not on_card:
         raise ValueError(f"a CUDA graph runner needs the model on the card, not {model.device}")
     capturable = mesh is None or mesh.backend == "nccl"
     if graph and not capturable:
         raise ValueError(f"a CUDA graph runner cannot hold a {mesh.backend} collective")
+    if is_pipelined(model):
+        if graph:
+            raise ValueError("a CUDA graph runner does not hold the pipeline schedule's sends")
+        return False
     return on_card and capturable if graph is None else graph
 
 

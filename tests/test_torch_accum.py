@@ -46,6 +46,7 @@ from mmvae_torch.data import make_mnist
 from mmvae_torch.models import MnistMVAE
 from mmvae_torch.train import create_train_state, make_epoch_runner, make_train_step
 from mmvae_torch.train.state import learning_rate
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, T = 16, 8, 3
 RTOL = 2e-4

@@ -108,6 +108,7 @@ from mmvae_torch.ops import kernels
 from mmvae_torch.train import multi_term_loss
 from mmvae_torch.train.step import _dequant_data
 from tools.pallas_conv_probe import xla_conv0
+from torch_threads import _one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 BF16_TOL = 2.0**-5
@@ -141,17 +142,6 @@ VARIANTS = {"s2d": dict(CELEBA, space_to_depth=2), "shuffle": dict(CELEBA, upsam
 # trunk (mean distance 1.55e-3 of the largest from the bf16 reference,
 # 1.42e-3 from the f32 control; its ``mu`` is nearer the bf16 reference).
 NOT_NEARER = {"deep_cub": ("logvar",)}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread a test: these ops are small, and the suite's
-    parallel workers, each with a pool of every core's threads, slow them
-    down by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jbatch(data):

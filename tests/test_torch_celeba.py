@@ -29,6 +29,7 @@ from mmvae_torch.models import CelebAMVAE
 from mmvae_torch.models.experts import swish
 from mmvae_torch.ops.kernels import same_pad
 from mmvae_torch.train import multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 N_LATENTS = 8

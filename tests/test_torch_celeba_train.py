@@ -45,6 +45,7 @@ from mmvae_torch.models import CelebAMVAE
 from mmvae_torch.ops import kernels
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
 from tools.pallas_conv_probe import xla_conv0
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M, K = 8, 4, 19, 4
 T = 1 + M + K

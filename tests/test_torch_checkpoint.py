@@ -28,6 +28,7 @@ from mmvae_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TINY = dict(n_latents=8, train_size=60, test_size=30, batch_size=20)
 

@@ -26,6 +26,7 @@ from mmvae_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _state(seed: int = 0, **kw):

@@ -35,6 +35,7 @@ from mmvae_torch.cli import (
 )
 from mmvae_torch.convert import from_flax_params
 from mmvae_torch.models import MnistMVAE
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 2e-4
@@ -236,13 +237,13 @@ def test_mixture_objective_clears_mvae_only_defaults(tmp_path, capsys):
     ["--fsdp"], ["--dtype", "bfloat16"], ["--multihost"],
 ])
 def test_unported_train_options_raise(argv, monkeypatch, tmp_path, capsys):
-    """The flags of what the port does not have raise (``--pp``); the data
-    flags (``--eval-segment-steps``, ``--data-dtype``, the grain backend and
-    the shuffle modes) and the parallel ones (``--tp``, ``--fsdp``) are
-    ported now and set their fields as the JAX CLI sets them, ``--dtype
-    bfloat16`` is ported and parses as the JAX CLI parses it, and
-    ``--multihost`` parses and joins a one-rank gloo group from JAX's
-    ``MMVAE_*`` variables before it trains (one process: no mesh)."""
+    """Every flag that once raised is ported: the data flags
+    (``--eval-segment-steps``, ``--data-dtype``, the grain backend and the
+    shuffle modes) and the parallel ones (``--tp``, ``--fsdp``, ``--pp``) set
+    their fields as the JAX CLI sets them, ``--dtype bfloat16`` parses as
+    the JAX CLI parses it, and ``--multihost`` parses and joins a one-rank
+    gloo group from JAX's ``MMVAE_*`` variables before it trains (one
+    process: no mesh)."""
     args = ["train", "--config", "mnist", "--device", "cpu", *argv]
     if argv[0] == "--multihost":
         _multihost_env(monkeypatch)
@@ -276,8 +277,7 @@ def test_unported_train_options_raise(argv, monkeypatch, tmp_path, capsys):
                                    j_get_config("mnist")), field)
         assert getattr(_resolve_config(parsed), field) == want == value
         return
-    with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-        main(args)
+    raise AssertionError(f"{argv} is neither ported nor raising")
 
 
 # The data flags the port has taken: flag -> (field, the value above).
@@ -289,11 +289,11 @@ _PORTED_DATA_FLAGS = {"--eval-segment-steps": ("eval_segment_steps", 2),
                       "--shuffle-mode": ("shuffle_mode", "block"),
                       "--shuffle-granularity": ("shuffle_granularity", 8)}
 # The parallel flags the port has taken: flag -> (field, the value above).
-_PORTED_PARALLEL_FLAGS = {"--tp": ("tp", 2), "--fsdp": ("fsdp", True)}
+_PORTED_PARALLEL_FLAGS = {"--tp": ("tp", 2), "--fsdp": ("fsdp", True), "--pp": ("pp", 2)}
 
 
 def test_every_unported_flag_is_covered():
-    covered = {"--pp"}
+    covered = set()  # every flag of the JAX CLI is ported
     assert set(_UNPORTED_FLAGS.values()) == covered
     assert not (set(_PORTED_DATA_FLAGS) | set(_PORTED_PARALLEL_FLAGS)) & covered
     # Each ported data flag sets what the JAX CLI sets.
@@ -308,9 +308,10 @@ def test_every_unported_flag_is_covered():
 @pytest.mark.parametrize("fields", [{"fsdp": False}, {"data_kwargs": {"hw": 128}},
                                     {"grain_stream_steps": 4}, {"pp": 2}])
 def test_unported_config_file_fields_raise(tmp_path, fields):
-    """Fields the port does not have raise from a config file (``pp``);
+    """Every field of the JAX config is ported and set from a config file:
     ``fsdp``, ``data_kwargs`` (its lists as tuples, as the generators take
-    them) and ``grain_stream_steps`` are ported now and are set."""
+    them), ``grain_stream_steps`` and ``pp``, which the JAX CLI's
+    ``--config-file`` sets as well."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(fields))
     argv = ["train", "--config", "mnist", "--device", "cpu", "--config-file", str(path)]
@@ -323,8 +324,7 @@ def test_unported_config_file_fields_raise(tmp_path, fields):
     if "grain_stream_steps" in fields:
         assert _resolve_config(_build_parser().parse_args(argv)).grain_stream_steps == 4
         return
-    with pytest.raises(NotImplementedError, match="not yet ported to mmvae_torch"):
-        main(argv)
+    assert _resolve_config(_build_parser().parse_args(argv)).pp == 2
 
 
 def _multihost_env(monkeypatch) -> None:

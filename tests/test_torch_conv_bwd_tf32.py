@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from mmvae_torch.ops import kernels
+from torch_threads import _one_torch_thread  # noqa: F401
 
 CELEBA_TRAIN = (64, 64, 64, 3)
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from mmvae_torch.ops import kernels
+from torch_threads import _one_torch_thread  # noqa: F401
 
 CUB_TRAIN = (64, 64, 64, 3)
 

@@ -33,6 +33,7 @@ from mmvae_torch.models import CelebAMVAE, CubMVAE
 from mmvae_torch.models.experts import _depth_to_space, _space_to_depth
 from mmvae_torch.models.text import STOP
 from mmvae_torch.train import multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 L, B = 8, 4
@@ -58,17 +59,6 @@ VARIANTS = {
                     dict(NARROW, vocab_size=23, image_hw=(16, 16), upsample_mode="shuffle"),
                     lambda n, s: make_cub(n, seed=s, hw=16)),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread a test: these ops are small, and the suite's
-    parallel workers, each with a pool of every core's threads, slow them
-    down by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jbatch(data):

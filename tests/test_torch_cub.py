@@ -31,6 +31,7 @@ from mmvae_torch.data import Dataset, Vocab, cub_vocab, load_dataset, make_cub
 from mmvae_torch.models import CubMVAE
 from mmvae_torch.models.text import PAD, STOP
 from mmvae_torch.train import multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 N_LATENTS = 16

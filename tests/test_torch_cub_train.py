@@ -40,6 +40,7 @@ from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import make_cub
 from mmvae_torch.models import CubMVAE
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M, T = 16, 4, 2, 3
 HW = 16

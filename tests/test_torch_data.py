@@ -12,6 +12,7 @@ import pytest
 
 from mmvae_torch.data import load_dataset
 from mmvae_tpu.data import load_dataset as j_load_dataset
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _mount_mnist(root, n=5):

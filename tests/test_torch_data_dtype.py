@@ -51,6 +51,7 @@ from mmvae_torch.ops import kernels
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
 from mmvae_torch.train.step import _dequant_data
 from tools.pallas_conv_probe import xla_conv0
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 STEP_ATOL = 1e-4

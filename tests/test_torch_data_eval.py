@@ -25,6 +25,7 @@ from mmvae_torch import api
 from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import Dataset, make_celeba, make_mnist
 from mmvae_torch.models import CelebAMVAE, MnistMVAE
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 HW = 16
@@ -75,3 +76,36 @@ def test_segmented_eval_equals_the_whole_split_and_jax(name):
         want = japi.log_likelihood(name, model=jmodel, params=params, k=k, batch_size=bs,
                                    seed=seed, dataset=jds, segment_steps=2)
         np.testing.assert_allclose(ll[0], want, rtol=RTOL)
+
+
+@pytest.mark.parametrize("caller", [False, True])
+def test_evals_run_on_deterministic_algorithms_and_restore_the_callers(monkeypatch, caller):
+    """``eval_elbo`` and ``log_likelihood`` build and run their runners with
+    cuDNN's deterministic algorithms on, the fastest a shape kept for the
+    process (``cudnn.benchmark``; what makes the segmented eval equal the
+    whole one on the card at the default's speed), and leave the caller's
+    settings as they were."""
+    seen = []
+
+    def flags():
+        return torch.backends.cudnn.deterministic and torch.backends.cudnn.benchmark
+
+    def spy(make):
+        def made(*a, **k):
+            seen.append(flags())
+            runner = make(*a, **k)
+            return lambda *ra: (seen.append(flags()), runner(*ra))[1]
+        return made
+
+    monkeypatch.setattr(api, "make_eval_runner", spy(api.make_eval_runner))
+    monkeypatch.setattr(api, "make_iwae_runner", spy(api.make_iwae_runner))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", caller)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", caller)
+    tmodel = MnistMVAE(n_latents=8)
+    ds = Dataset(make_mnist(6, seed=3), 6)
+    api.eval_elbo("mnist", model=tmodel, dataset=ds, batch_size=4, device="cpu",
+                  segment_steps=1)
+    api.log_likelihood("mnist", model=tmodel, dataset=ds, k=2, batch_size=4, device="cpu")
+    assert seen and all(seen)
+    assert torch.backends.cudnn.deterministic is caller
+    assert torch.backends.cudnn.benchmark is caller

@@ -36,6 +36,7 @@ from mmvae_tpu import configs as j_configs
 from mmvae_tpu.data import load_dataset as j_load_dataset
 from mmvae_tpu.data import native as j_native
 from mmvae_tpu.data.formats import cub_data_vocab as j_cub_data_vocab
+from torch_threads import _one_torch_thread  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
 RTOL = 2e-4

@@ -17,6 +17,7 @@ tokens equal.
 
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from mmvae_torch.models import DeepCubMVAE, DeepMnistMVAE, PipelineTrunk
 from mmvae_torch.models.text import STOP
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
 from mmvae_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 L, B = 8, 4
@@ -59,17 +61,6 @@ CASES = {
 }
 # Both configs carry a trunk in each image expert.
 TRUNKED = ("image_enc", "image_dec")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread a test: these ops are small, and the suite's
-    parallel workers, each with a pool of every core's threads, slow them
-    down by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):
@@ -145,14 +136,21 @@ def test_trunk_matches_jax(rezero):
 
 
 def test_a_fresh_rezero_trunk_is_the_identity_and_the_pipe_mesh_raises():
+    """A fresh trunk is the identity; a pipe mesh and ``pp_n_micro`` reach
+    both image experts' trunks, and a trunk of 4 stages on a pipe of 2
+    raises ``pipeline_apply``'s stage mismatch (the schedule itself runs in
+    ``tests/test_torch_pp.py``)."""
     model = configs.build_model(
         configs.get_config("deep_mnist").replace(n_latents=L), seed=0, device="cpu")
     h = torch.randn(3, 256, generator=torch.Generator().manual_seed(0))
     assert torch.equal(model.image_enc.trunk(h), h)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PipelineTrunk(4, 8, pp_mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeepMnistMVAE(pp_n_micro=2)
+    mesh = types.SimpleNamespace(pipe_size=2, n_shards=1)
+    with pytest.raises(ValueError, match="one stage per pipe device"):
+        PipelineTrunk(4, 8, pp_mesh=mesh)(torch.zeros(4, 8))
+    piped = DeepMnistMVAE(pp_mesh=mesh, pp_n_micro=2)
+    assert piped.pp_n_micro == 2
+    for expert in (piped.image_enc, piped.image_dec):
+        assert expert.trunk.pp_mesh is mesh and expert.trunk.pp_n_micro == 2
 
 
 def test_convert_maps_every_parameter(matched):

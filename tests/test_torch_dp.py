@@ -52,6 +52,7 @@ from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import make_mnist
 from mmvae_torch.parallel import multihost
 from mmvae_torch.train import epoch_order, step as tstep
+from torch_threads import _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 N_LATENTS, B, M = 8, 8, 2

@@ -44,6 +44,7 @@ from mmvae_torch.data import Dataset, load_dataset, make_fashionmnist
 from mmvae_torch.data.synthetic import _garment_masks
 from mmvae_torch.models import FashionMnistMVAE
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M, T = 16, 8, 2, 3
 RTOL = 2e-4

@@ -39,6 +39,7 @@ from mmvae_torch.data import make_celeba, make_cub, make_mnist, make_multimnist
 from mmvae_torch.models import CelebAMVAE, CubMVAE, MnistMVAE, MultiMnistMVAE
 from mmvae_torch.ops import kernels
 from mmvae_torch.train import multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 B = 4

@@ -35,6 +35,7 @@ from mmvae_tpu.parallel import fsdp_sharding as j_fsdp_sharding
 from mmvae_tpu.parallel import make_mesh as j_make_mesh
 from mmvae_torch.parallel import fsdp_layout, fsdp_sharding
 from torch_sharded_ref import MODELS, check_steps, flax_shapes, port_model, same_blocks, worlds
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _mesh(n: int):

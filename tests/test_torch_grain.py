@@ -31,19 +31,9 @@ from mmvae_torch import api, configs
 from mmvae_torch.data import Dataset, load_dataset, make_celeba, sample_presence
 from mmvae_torch.data import grain_pipeline
 from mmvae_torch.models import MnistMVAE
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N, BS = 70, 16  # 4 batches, 6 rows dropped
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread a test: these ops are small, and the suite's
-    parallel workers, each with a pool of every core's threads, slow them
-    down by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(v) -> np.ndarray:

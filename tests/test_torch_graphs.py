@@ -28,6 +28,7 @@ from mmvae_torch.data import load_dataset
 from mmvae_torch.ops import kernels
 from mmvae_torch.train import create_train_state, make_epoch_runner, make_eval_runner
 from mmvae_torch.train import step as step_module
+from torch_threads import _one_torch_thread  # noqa: F401
 
 REL = 1e-6
 

@@ -27,6 +27,7 @@ from mmvae_tpu.models import MultiMnistMVAE as JMultiMnistMVAE
 from mmvae_torch import configs
 from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import make_celeba, make_cub, make_mnist, make_multimnist
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SMALL = {
     "mnist": (JMnistMVAE, 16, {}, lambda: make_mnist(4)),

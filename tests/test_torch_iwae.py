@@ -29,6 +29,7 @@ from mmvae_torch.convert import from_flax_params
 from mmvae_torch.core import iwae_bound
 from mmvae_torch.data import Dataset, make_celeba, make_cub, make_mnist, make_multimnist
 from mmvae_torch.train import make_iwae_runner
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 HW = 16

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from mmvae_torch.ops import kernels
+from torch_threads import _one_torch_thread  # noqa: F401
 
 H100 = kernels.H100_SMS
 # (N, D) of the row reductions the port runs or checks: MNIST, MultiMNIST

@@ -43,6 +43,7 @@ import torch
 from mmvae_torch import ops
 from mmvae_torch.core import elbo_subset_masks
 from mmvae_torch.ops import kernels
+from torch_threads import _one_torch_thread  # noqa: F401
 
 FOLDS = [kernels.FOLD_NONE, kernels.FOLD_T, kernels.FOLD_B]
 

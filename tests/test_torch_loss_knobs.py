@@ -39,6 +39,7 @@ from mmvae_torch.data import make_multimnist
 from mmvae_torch.models import MultiMnistMVAE
 from mmvae_torch.train import make_train_step, multi_term_loss
 from mmvae_torch.train import step as step_module
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M = 8, 8, 2
 SMALL = dict(conv_features=(4, 8), text_embed=8, text_hidden=16, text_latent_dims=4,

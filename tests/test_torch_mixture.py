@@ -40,6 +40,7 @@ from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import Dataset, load_dataset, make_celeba, make_mnist
 from mmvae_torch.models import CelebAMVAE, MnistMVAE
 from mmvae_torch.train import make_train_step, multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 N_LATENTS, B, M = 16, 8, 2

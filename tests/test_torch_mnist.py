@@ -29,6 +29,7 @@ from mmvae_torch.data import load_dataset, make_mnist, stacked_epoch_padded
 from mmvae_torch.device import resolve_device
 from mmvae_torch.models import MnistMVAE
 from mmvae_torch.train import multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 REPO = Path(__file__).resolve().parent.parent

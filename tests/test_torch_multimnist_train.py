@@ -49,6 +49,7 @@ from mmvae_torch.models import MultiMnistMVAE
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
 from mmvae_torch.train import step as step_module
 from mmvae_torch.train.step import _straight_through
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M, T = 8, 8, 2, 3
 SMALL = dict(conv_features=(4, 8), text_embed=8, text_hidden=16, text_latent_dims=4,

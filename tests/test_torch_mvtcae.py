@@ -36,6 +36,7 @@ from mmvae_torch.core import kl_std_normal, product_of_experts
 from mmvae_torch.data import make_mnist, make_multimnist
 from mmvae_torch.models import MnistMVAE, MultiMnistMVAE
 from mmvae_torch.train import create_train_state, make_train_step, multi_term_loss
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 STEP_ATOL = 1e-4

@@ -24,6 +24,7 @@ from mmvae_tpu.train.step import _tile_terms, _tile_terms_tmajor
 from mmvae_torch import core, ops
 from mmvae_torch.ops import kernels
 from tools.pallas_conv_probe import pallas_conv0, xla_conv0
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 

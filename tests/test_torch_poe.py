@@ -20,6 +20,7 @@ from mmvae_tpu import core as jcore
 from mmvae_tpu.ops import kernels as jkernels
 from mmvae_torch import core, ops
 from mmvae_torch.ops import kernels
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 # (T, B, M, L): the MNIST slice at a narrow width, CelebA's 19 experts and

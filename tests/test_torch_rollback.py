@@ -16,6 +16,7 @@ import torch
 
 from mmvae_torch import api, configs
 from mmvae_torch.train.checkpoint import latest_epoch
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _tiny(**kw):

@@ -17,6 +17,7 @@ from mmvae_torch.core import annealing_factor
 from mmvae_torch.data import make_mnist
 from mmvae_torch.models import MnistMVAE
 from mmvae_torch.train import create_train_state, make_epoch_runner, make_train_step
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _steps(annealing_steps: int) -> list[int]:

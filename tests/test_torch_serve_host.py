@@ -23,6 +23,7 @@ import torch
 from mmvae_torch import api, configs, serving
 from mmvae_torch.cli import main
 from mmvae_torch.serve import Batcher, make_handler, make_server
+from torch_threads import _one_torch_thread  # noqa: F401
 
 B = 4
 MNIST = configs.get_config("mnist").replace(n_latents=8)

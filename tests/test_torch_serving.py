@@ -29,6 +29,7 @@ from mmvae_torch.convert import from_flax_params
 from mmvae_torch.data import make_celeba, make_multimnist
 from mmvae_torch.models import CelebAMVAE, MnistMVAE, MultiMnistMVAE
 from mmvae_torch.models.text import STOP
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 N_LATENTS, B = 8, 4

@@ -26,6 +26,7 @@ import torch
 from mmvae_torch import api, configs, serving
 from mmvae_torch.ops import kernels
 from mmvae_torch.serve import Batcher
+from torch_threads import _one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

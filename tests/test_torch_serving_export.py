@@ -24,6 +24,7 @@ import torch
 from mmvae_torch import api, configs, serving
 from mmvae_torch.core import rowrng
 from mmvae_torch.core.rowrng import RowRng
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 B = 4

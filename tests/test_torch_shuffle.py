@@ -29,21 +29,11 @@ from flax import struct
 from mmvae_tpu.train import step as jstep
 from mmvae_torch import api, configs
 from mmvae_torch.train import epoch_order, step as tstep
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SIZE, BS = 60, 8
 N_STEPS = SIZE // BS  # 7 steps; 4 rows left out
 EPOCHS = 4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread a test: these ops are small, and the suite's
-    parallel workers, each with a pool of every core's threads, slow them
-    down by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @struct.dataclass

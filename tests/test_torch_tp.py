@@ -33,6 +33,7 @@ from mmvae_tpu.parallel.tp import tp_param_specs as j_tp_param_specs
 from mmvae_torch import api, configs
 from mmvae_torch.parallel import chain_assignments, tp_param_specs
 from torch_sharded_ref import MODELS, check_steps, flax_shapes, port_model, same_blocks, worlds
+from torch_threads import _one_torch_thread  # noqa: F401
 
 CHAINS = [
     [], [(512, 784)], [(512, 784), (512, 512), (128, 512)], [(512, 64), (784, 512)],

@@ -47,6 +47,7 @@ from mmvae_torch.train import (
     multi_term_loss,
     presence_from_keep,
 )
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_LATENTS, B, M, T = 16, 8, 2, 3
 RTOL = 2e-4

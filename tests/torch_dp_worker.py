@@ -1,7 +1,9 @@
 """One rank of the gloo runs on the CPU of ``tests/test_torch_dp.py`` (two
-ranks, data parallel), ``tests/test_torch_fsdp.py`` (two ranks, FSDP) and
+ranks, data parallel), ``tests/test_torch_fsdp.py`` (two ranks, FSDP),
 ``tests/test_torch_tp.py`` (two ranks of one model group on the same two
-ranks, and four as a data 2 x model 2 mesh).
+ranks, and four as a data 2 x model 2 mesh) and ``tests/test_torch_pp.py``
+(one pipe group of two on the same two ranks, and four as one pipe group of
+four and as a data 2 x pipe 2 mesh).
 
     python tests/torch_dp_worker.py SPEC OUT
 
@@ -28,13 +30,15 @@ import torch.distributed as dist  # noqa: E402
 
 from mmvae_torch import api, configs, models  # noqa: E402
 from mmvae_torch.data import Dataset  # noqa: E402
-from mmvae_torch.models import MnistMVAE  # noqa: E402
+from mmvae_torch.models import MnistMVAE, PipelineTrunk  # noqa: E402
 from mmvae_torch.parallel import (  # noqa: E402
     batch_sharding,
     fsdp_shard,
     make_mesh,
     make_mesh_2d,
+    make_mesh_pp,
     multihost,
+    pp_shard,
     replicate,
     replicated_sharding,
     shard_batch,
@@ -167,15 +171,18 @@ class _Counts:
                 "reduce_scatter": self.calls.get("reduce_scatter", 0)}
 
 
+_SHARD = {"fsdp": fsdp_shard, "tp": tp_shard, "pp": pp_shard}
+
+
 def _sharded_state(spec: dict, name: str, mesh, kind: str, grad_clip: float | None = None):
     """``name``'s model from the JAX init, its train state, sharded."""
     m = spec["models"][name]
     cls = getattr(models, m["cls"])
-    model = cls(**m["kwargs"], tp_mesh=mesh if kind == "tp" else None)
+    model = cls(**m["kwargs"], **({f"{kind}_mesh": mesh} if kind != "fsdp" else {}))
     model.load_state_dict(m["init"])
     state = create_train_state(model, 1e-3, ema_decay=spec["ema_decay"],
                                grad_clip=spec["grad_clip"] if grad_clip is None else grad_clip)
-    return fsdp_shard(state, mesh) if kind == "fsdp" else tp_shard(state, mesh)
+    return _SHARD[kind](state, mesh)
 
 
 def _whole(state, module) -> dict[str, torch.Tensor]:
@@ -239,37 +246,121 @@ def tp_forwards(spec: dict, mesh) -> dict:
 
 
 def sharded_workdirs(spec: dict, rank: int) -> dict:
-    """``api.train`` at world 2 (``fsdp`` or ``tp`` set): two epochs into a
-    workdir of this rank's own, then one epoch into a shared workdir resumed
-    for the second (the resume cuts the checkpoint again); the checkpoint
-    loaded into a one-process state (what a DP run or one card loads)."""
+    """``api.train`` at world 2 (``fsdp``, ``tp`` or ``pp`` set): two epochs
+    into a workdir of this rank's own, then one epoch into a shared workdir
+    resumed for the second (the resume cuts the checkpoint again); the
+    checkpoint loaded into a one-process state (what a DP run or one card
+    loads); the shapes of the blocks the run's state holds. Under ``pp``
+    also the ELBO of the run's whole EMA shadow evaluated alone, and the
+    ``ValueError`` of each invalid combination that needs ranks ``pp``
+    divides."""
     cfg = spec["train_config"]
     root = Path(spec["root"])
     whole = api.train(cfg, str(root / f"own_{rank}"), device="cpu", verbose=False)
     shared = str(root / "shared")
     api.train(cfg.replace(epochs=1), shared, device="cpu", verbose=False)
     resumed = api.train(cfg, shared, device="cpu", verbose=False, resume=True)
-    plain = configs.build_model(cfg.replace(fsdp=False, tp=1), seed=1, device="cpu")
+    plain = configs.build_model(cfg.replace(fsdp=False, tp=1, pp=1), seed=1, device="cpu")
     loaded, _ = load_checkpoint(shared, create_train_state(plain, 1e-3), which="last")
-    return {"whole": whole.history, "resumed": resumed.history,
-            "params": dict(whole.model.state_dict()),
-            "resumed_params": dict(resumed.model.state_dict()),
-            "loaded": {n: p.detach().clone() for n, p in loaded.model.named_parameters()}}
+    out = {"whole": whole.history, "resumed": resumed.history,
+           "params": dict(whole.model.state_dict()),
+           "resumed_params": dict(resumed.model.state_dict()),
+           "loaded": {n: p.detach().clone() for n, p in loaded.model.named_parameters()},
+           "local_shapes": {n: tuple(p.shape) for n, p in whole.state.model.named_parameters()}}
+    if cfg.pp > 1:
+        # The last test ELBO against the whole EMA shadow's, evaluated alone;
+        # then each invalid combination on these ranks (pp divides them).
+        shadow = whole.state.layout.gather_into(whole.state.ema_model,
+                                                configs.build_model(cfg, seed=1, device="cpu"))
+        out["shadow_elbo"] = api.eval_elbo(cfg, model=shadow, device="cpu")
+        out["errors"] = {}
+        for key, bad in {"fsdp": cfg.replace(fsdp=True),
+                         "stages": cfg.replace(model_kwargs={**cfg.model_kwargs,
+                                                             "trunk_stages": 4}),
+                         "mnist": configs.get_config("mnist").replace(pp=2, train_size=64),
+                         "micro": cfg.replace(batch_size=7)}.items():
+            try:
+                api.train(bad, None, device="cpu", verbose=False)
+            except ValueError as e:
+                out["errors"][key] = str(e)
+    return out
+
+
+def pp_apply(n_pipe: int) -> dict:
+    """A ``PipelineTrunk`` of ``n_pipe`` stages of 2 layers 16 wide, its
+    gates drawn, on a pipe mesh of ``n_pipe`` ranks (``tests/test_pp.py:41-
+    72``): this rank's rows of a 16-row batch through the schedule (4
+    microbatches at pipe 4, else 2), the gradients of ``(out * r).sum()``
+    with respect to them and the stacked parameters summed over every rank
+    (each rank's covers its stage and its rows), beside the sequential
+    trunk's of the whole batch in this process; and a fresh ReZero trunk's
+    output pipelined."""
+    mesh = make_mesh_pp(n_pipe)
+    g = torch.Generator().manual_seed(0)
+    seq = PipelineTrunk(n_pipe, 16, 2)
+    with torch.no_grad():
+        for p in seq.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1 + (0.5 if p.dim() == 1 else 0))
+    piped = PipelineTrunk(n_pipe, 16, 2, pp_mesh=mesh, pp_n_micro=4 if n_pipe == 4 else 2)
+    piped.load_state_dict(seq.state_dict())
+    x, r = torch.randn((16, 16), generator=g), torch.randn((16, 16), generator=g)
+    xs = x.clone().requires_grad_()
+    want = seq(xs)
+    (want * r).sum().backward()
+    xl = mesh.rows(x).clone().requires_grad_()
+    out = piped(xl)
+    (out * mesh.rows(r)).sum().backward()
+    grads = {n: p.grad.clone() for n, p in piped.named_parameters()}
+    for t in grads.values():
+        dist.all_reduce(t)
+    with torch.no_grad():
+        piped.alphas.zero_()
+        identity = torch.equal(piped(mesh.rows(x)), mesh.rows(x))
+    return {"out": out.detach(), "want": mesh.rows(want.detach()), "dx": xl.grad,
+            "want_dx": mesh.rows(xs.grad), "grads": grads,
+            "want_grads": {n: p.grad for n, p in seq.named_parameters()},
+            "identity": identity, "coords": dict(mesh.coords)}
+
+
+def pp_skewed_step(spec: dict, mesh) -> dict:
+    """One step of ``deep_mnist`` on a pipe mesh with each rank's gradient
+    of every replicated parameter scaled by its own factor before the
+    reduction, as when the ranks' convolutions take different algorithms:
+    the replicated parameters and EMA shadow after it."""
+    m = spec["models"]["deep_mnist"]
+    local = shard_batch({**m["batches"], "eps": m["eps"]}, mesh, dim=1)
+    state = _sharded_state(spec, "deep_mnist", mesh, "pp")
+    skew = 1.0 + 1e-3 * dist.get_rank()
+    for n, p in state.compute_model.named_parameters():
+        if not state.layout.sharded(n):
+            p.register_hook(lambda g: g * skew)
+    step = make_train_step(state.compute_model, annealing_steps=spec["annealing_steps"],
+                           term_fold="b", mesh=mesh)
+    step(state, {k: v[0] for k, v in local.items() if k != "eps"}, eps=local["eps"][0])
+    return {key: {n: p.detach().clone() for n, p in module.named_parameters()
+                  if not state.layout.sharded(n)}
+            for key, module in (("params", state.model), ("ema", state.ema_model))}
 
 
 def sharded_main(spec: dict, out_path: str) -> None:
     """The sharded scenarios of each kind of ``spec["kinds"]`` (``"fsdp"``
-    over every rank, ``"tp"`` over model groups of its ``tp``) on the same
-    ranks: the steps (and under TP the expert forwards) of ``spec``'s
-    ``models``, then ``api.train`` of the kind's ``train_config`` where it
-    has one."""
+    over every rank, ``"tp"`` over model groups of its ``tp``, ``"pp"`` over
+    pipe groups of its ``pp``) on the same ranks: the steps (and under TP
+    the expert forwards, under PP the schedule at each pipe size of its
+    ``apply``) of the kind's ``models`` (``spec``'s by default), then
+    ``api.train`` of the kind's ``train_config`` where it has one."""
     out = {"rank": dist.get_rank()}
     for kind, own in spec["kinds"].items():
-        mesh = make_mesh() if kind == "fsdp" else make_mesh_2d(own["tp"])
+        mesh = {"fsdp": make_mesh, "tp": lambda: make_mesh_2d(own["tp"]),
+                "pp": lambda: make_mesh_pp(own["pp"])}[kind]()
+        models = {**spec, "models": own.get("models", spec["models"])}
         res = {"shard": mesh.shard, "coords": dict(mesh.coords),
-               "steps": sharded_steps(spec, mesh, kind)}
+               "steps": sharded_steps(models, mesh, kind)}
         if kind == "tp":
             res["forwards"] = tp_forwards(spec, mesh)
+        if kind == "pp":
+            res["apply"] = {n: pp_apply(n) for n in own["apply"]}
+            res["skewed"] = pp_skewed_step(models, mesh)
         if own.get("train_config") is not None:
             res["workdirs"] = sharded_workdirs(own, dist.get_rank())
         out[kind] = res

@@ -1,4 +1,5 @@
-"""What ``tests/test_torch_fsdp.py`` and ``tests/test_torch_tp.py`` share:
+"""What ``tests/test_torch_fsdp.py``, ``tests/test_torch_tp.py`` and
+``tests/test_torch_pp.py`` share:
 the JAX package's single-device steps that the port's sharded steps are
 held to, the element ids that compare a layout with JAX's leaf by leaf,
 and the gloo worlds of ``tests/torch_dp_worker.py`` ranks whose results
@@ -11,7 +12,10 @@ other file loads them.
 The JAX steps are ``_train_step_impl``'s (``mmvae_tpu/train/step.py``)
 under the ``"b"`` fold from a seeded init (MNIST at n_latents 8; CelebA at
 n_latents 8 over 16x16 images with conv features (32, 8), so that stage 0
-keeps K4's 32 channels and its banks their 18 attributes), with clipping at
+keeps K4's 32 channels and its banks their 18 attributes; for pipeline
+parallelism ``deep_mnist`` with a trunk of 2 stages 32 wide and ``deep_cub``
+over 16x16 images with conv features (32, 8), 2-stage trunks and captions of
+8 tokens), with clipping at
 ``GRAD_CLIP`` (it fires) and an EMA shadow, spelled out as that step takes
 it: the rng split in three, beta of the step count, ``jax.value_and_grad``
 of the JAX loss (one jit a model, the steps' only compile), then
@@ -41,12 +45,14 @@ from mmvae_tpu.configs import get_config as j_get_config
 from mmvae_tpu.core import annealing_factor
 from mmvae_tpu.data import load_dataset as j_load_dataset
 from mmvae_tpu.models import CelebAMVAE as JCelebAMVAE
+from mmvae_tpu.models import DeepCubMVAE as JDeepCubMVAE
+from mmvae_tpu.models import DeepMnistMVAE as JDeepMnistMVAE
 from mmvae_tpu.models import MnistMVAE as JMnistMVAE
 from mmvae_tpu.train import step as jstep
 from mmvae_tpu.train.state import create_train_state as j_create_train_state
 from mmvae_torch import configs, models
 from mmvae_torch.convert import from_flax_params
-from mmvae_torch.data import make_celeba, make_mnist
+from mmvae_torch.data import make_celeba, make_cub, make_mnist
 
 REPO = Path(__file__).resolve().parent.parent
 N_LATENTS, B, STEPS, ANNEALING = 8, 8, 3, 10
@@ -62,19 +68,30 @@ MODELS = {
     "mnist": (JMnistMVAE, "MnistMVAE", {}, lambda n: make_mnist(n, seed=5), 3),
     "celeba": (JCelebAMVAE, "CelebAMVAE", CELEBA, lambda n: make_celeba(n, seed=5, hw=16), 20),
 }
+# The trunk models the pipelined steps take, as MODELS; 2 microbatches.
+PP_MODELS = {
+    "deep_mnist": (JDeepMnistMVAE, "DeepMnistMVAE",
+                   dict(trunk_stages=2, trunk_width=32, pp_n_micro=2),
+                   lambda n: make_mnist(n, seed=5), 3),
+    "deep_cub": (JDeepCubMVAE, "DeepCubMVAE",
+                 dict(image_hw=(16, 16), conv_features=(32, 8), vocab_size=23, max_len=8,
+                      trunk_stages=2, pp_n_micro=2),
+                 lambda n: make_cub(n, seed=5, hw=16, max_len=8), 3),
+}
+ALL_MODELS = {**MODELS, **PP_MODELS}
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def jax_inputs(names=tuple(MODELS)) -> dict:
+def jax_inputs(names=tuple(ALL_MODELS)) -> dict:
     """Each model's JAX init, batches and the noise of its 3 steps (the rng
     chain does not depend on the parameters), and the state to step from:
     what the port's ranks need, before the JAX steps compile."""
     runs = {}
     for name in names:
-        jcls, _, kwargs, make, t = MODELS[name]
+        jcls, _, kwargs, make, t = ALL_MODELS[name]
         jm = jcls(n_latents=N_LATENTS, **kwargs)
         data = make(STEPS * B)
         batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()} for i in range(STEPS)]
@@ -121,20 +138,26 @@ def jax_steps(runs: dict) -> dict:
     return runs
 
 
-# The ``api.train`` runs at world 2: two epochs of MNIST at small widths.
+# The ``api.train`` runs at world 2: two epochs of MNIST at small widths
+# (of deep_mnist with PP_MODELS' trunk under pipeline parallelism).
 TRAIN = dict(n_latents=N_LATENTS, epochs=2, train_size=32, test_size=18, batch_size=8,
              grad_clip=GRAD_CLIP, ema_decay=EMA_DECAY)
+PP_TRAIN = dict(TRAIN, pp=2, model_kwargs=dict(trunk_stages=2, trunk_width=32, pp_n_micro=2))
 _WORLDS: dict = {}
 
 
 def worlds(tmp_path_factory) -> dict:
-    """JAX's steps of both models (``"jax"``) and the ranks' results: two
-    ranks that take, one after the other, FSDP over both (``"fsdp"``: both
-    models' steps and ``api.train(fsdp=True)``) and TP as one model group
-    (``"tp"``: the steps, the experts' forwards and ``api.train(tp=2)``);
-    four ranks as data 2 x model 2 (``"tp4"``: MNIST's steps).
-    ``"dirs"`` holds each kind's directory (its workdirs). Run once a run
-    (see the module docstring)."""
+    """JAX's steps of every model (``"jax"``) and the ranks' results: two
+    ranks that take, one after the other, FSDP over MNIST and CelebA
+    (``"fsdp"``: their steps and ``api.train(fsdp=True)``), TP as one model
+    group (``"tp"``: the steps, the experts' forwards and
+    ``api.train(tp=2)``) and PP as one pipe group (``"pp"``: the trunk
+    models' steps, the schedule at pipe 2 and ``api.train(pp=2)``); four
+    ranks as data 2 x model 2 (``"tp4"``: MNIST's steps) and for PP
+    (``"pp4"``: the schedule at pipe 4 and at data 2 x pipe 2, and
+    deep_mnist's steps at data 2 x pipe 2). ``"dirs"`` holds each kind's
+    directory (its workdirs). Run once a run (see the module
+    docstring)."""
     uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
     if uid is None:
         if not _WORLDS:
@@ -156,31 +179,38 @@ def worlds(tmp_path_factory) -> dict:
 def _run_worlds(root: Path) -> dict:
     runs = jax_inputs()
     models = worker_models(runs)
+    pp_models = {k: models.pop(k) for k in PP_MODELS}
     common = {"annealing_steps": ANNEALING, "grad_clip": GRAD_CLIP, "ema_decay": EMA_DECAY}
     mnist = configs.get_config("mnist")
-    dirs = {k: root / k for k in ("fsdp", "tp", "two", "four")}
+    dirs = {k: root / k for k in ("fsdp", "tp", "pp", "two", "four")}
     for d in dirs.values():
         d.mkdir()
     two = start({"models": models, **common, "kinds": {
         "fsdp": {"train_config": mnist.replace(**TRAIN, fsdp=True), "root": str(dirs["fsdp"])},
         "tp": {"tp": 2, "train_config": mnist.replace(**TRAIN, tp=2), "root": str(dirs["tp"])},
+        "pp": {"pp": 2, "models": pp_models, "apply": [2], "root": str(dirs["pp"]),
+               "train_config": configs.get_config("deep_mnist").replace(**PP_TRAIN)},
     }}, dirs["two"], 2)
-    four = start({"models": {"mnist": models["mnist"]}, **common, "kinds": {"tp": {"tp": 2}}},
-                 dirs["four"], 4)
+    four = start({"models": {"mnist": models["mnist"]}, **common, "kinds": {
+        "tp": {"tp": 2},
+        "pp": {"pp": 2, "models": {"deep_mnist": pp_models["deep_mnist"]}, "apply": [4, 2]},
+    }}, dirs["four"], 4)
     jax_steps(runs)
     for run in runs.values():
         del run["model"], run["state"]
     two, four = finish(two), finish(four)
     return {"jax": runs, "fsdp": [o["fsdp"] for o in two], "tp": [o["tp"] for o in two],
-            "tp4": [o["tp"] for o in four],
-            "dirs": {k: str(dirs[k]) for k in ("fsdp", "tp")}}
+            "pp": [o["pp"] for o in two], "tp4": [o["tp"] for o in four],
+            "pp4": [o["pp"] for o in four],
+            "dirs": {k: str(dirs[k]) for k in ("fsdp", "tp", "pp")}}
 
 
 def worker_models(runs: dict) -> dict:
     """The models part of a worker's spec: each model's class, kwargs, the
     converted init, the stacked batches and JAX's noise (of
     :func:`jax_inputs`)."""
-    return {name: {"cls": MODELS[name][1], "kwargs": {"n_latents": N_LATENTS, **MODELS[name][2]},
+    return {name: {"cls": ALL_MODELS[name][1],
+                   "kwargs": {"n_latents": N_LATENTS, **ALL_MODELS[name][2]},
                    "init": from_flax_params(run["init"]),
                    "batches": {k: torch.from_numpy(np.stack([b[k] for b in run["batches"]]))
                                for k in run["batches"][0]},
@@ -271,7 +301,8 @@ def port_model(name: str):
     kwargs = dict(cfg.model_kwargs)
     if cfg.dataset == "cub":
         kwargs["vocab_size"] = configs.cub_vocab_size()
-    cls = {"mnist": models.MnistMVAE, "celeba": models.CelebAMVAE, "cub": models.CubMVAE}[name]
+    cls = {"mnist": models.MnistMVAE, "celeba": models.CelebAMVAE, "cub": models.CubMVAE,
+           "deep_mnist": models.DeepMnistMVAE, "deep_cub": models.DeepCubMVAE}[name]
     with torch.device("meta"):
         return cls(n_latents=cfg.n_latents, **kwargs)
 
