@@ -785,7 +785,10 @@ CHECKED_SHAPES = {
                (1, 64, 19, 100, "joint"), (1, 64, 2, 256, "joint"),
                (3, 64, 2, 256, "none"), (1, 64, 2, 256, "cycle"),
                (2, 100, 2, 64, "mmvae"), (3, 100, 2, 64, "mopoe"),
-               (1, 8, 2, 64, "serve"), (1, 8, 19, 100, "serve"), (1, 8, 2, 256, "serve")],
+               (1, 8, 2, 64, "serve"), (1, 8, 19, 100, "serve"), (1, 8, 2, 256, "serve"),
+               # Slabs above 48 KB: one tile of 64.5 KB (41 terms of 40
+               # experts), and one that walks 3 tiles.
+               (41, 8, 40, 200, "eval"), (1, 8, 40, 2000, "serve")],
     "kl_bwd": [(300, 64, 300, None), (1280, 100, 1280, None), (37, 100, 37, None),
                (5, 3, 5, None)],
     # The MNIST and MultiMNIST train rows in every fold, CelebA's image and
@@ -1652,8 +1655,9 @@ def check_poe_kl(args, got, want, shape) -> float:
 
 def phase_check() -> dict[str, float]:
     """Each kernel against its plain version at every shape of
-    ``CHECKED_SHAPES`` (K4's backward and input gradient twice, to the
-    bit). Returns each entry's largest error (``entry_of``)."""
+    ``CHECKED_SHAPES`` (K4's backward and input gradient, K2's VJP at
+    the map over examples and the fused PoE + KL twice, to the bit).
+    Returns each entry's largest error (``entry_of``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {}
     for op, shapes in CHECKED_SHAPES.items():
@@ -1685,6 +1689,9 @@ def phase_check() -> dict[str, float]:
                 raise AssertionError("two launches of conv4x4s2_swish_dx differ")
             if op == "bce_bwd_inner" and not torch.equal(got, KERNEL_FN[op](*args)):
                 raise AssertionError("two launches of bce_rows_grad_inner differ")
+            if op == "poe_kl" and not all(
+                    torch.equal(a, b) for a, b in zip(got, KERNEL_FN[op](*args))):
+                raise AssertionError("two launches of poe_kl differ")
             max_err[entry] = max(max_err.get(entry, 0.0), err)
             emit({"phase": "check", "kernel": META[op]["name"], **describe(op, shape),
                   "max_abs_err": err})
@@ -5590,7 +5597,7 @@ def phase_launch_floor() -> None:
     poe = kernels.poe_kl_plan(20, 64, 19, 100, sms)
     grids = {"one_warp": (1, 32), "kl_rows_celeba": (-(-1280 // 8), 256),
              "conv_celeba": (conv.blocks, 32 * conv.warps),
-             "poe_kl_celeba": (poe.blocks, 32 * poe.warps)}
+             "poe_kl_celeba": (poe.blocks, poe.threads)}
     for label, (blocks, threads) in grids.items():
         def call(blocks=blocks, threads=threads):
             kernels._launch("launch_floor", "empty_launch", dev, blocks, threads)

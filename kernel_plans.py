@@ -12,7 +12,9 @@ input gradient ``conv4x4s2_swish_dx``) on one NVIDIA card, at the shapes
 and ``poe_kl_bwd_plan`` pick a layout from the shape; this script shows
 what the others would give (for K4: warps a block, and blocks an SM from
 one to more than fit at once, or a warp for every unit; for the fused PoE +
-KL: the terms of a batch row split over 1 to T blocks; for K2's VJP: 128
+KL: a batch row's terms in 1, 2 or 4 groups and its latents in 1, 2 or
+4 tiles a block walks, in float4s and in scalars, a term on a warp's
+lanes or on the lanes that cover a tile, each at 2 block sizes; for K2's VJP: 128
 to 1,024 threads a block with the rule's lanes, a block a chunk of the
 row and a power of two of lanes, at the path shapes and at D = 1 to 2,500
 with 100 and 21,888 rows; for K3's VJP:
@@ -81,6 +83,17 @@ POE_SHAPES = {
     "celeba_eval": (20, 64, 19, 100, "eval"),
     "multimnist_eval": (3, 100, 2, 256, "eval"),
     "mnist_eval": (3, 100, 2, 64, "eval"),
+    # T = 1: the IWAE's joint posterior and a served batch of 8.
+    "celeba_iwae": (1, 64, 19, 100, "joint"),
+    "serve_celeba": (1, 8, 19, 100, "serve"),
+    "serve_mnist": (1, 8, 2, 64, "serve"),
+    "serve_multimnist": (1, 8, 2, 256, "serve"),
+    "cub_iwae": (1, 64, 2, 256, "joint"),
+    "cub_eval": (3, 64, 2, 256, "eval"),
+    "mnist_iwae": (1, 100, 2, 64, "joint"),
+    "celeba_train": (24, 64, 19, 100, "subsets"),
+    # A slab above 48 KB: 41 terms of 40 experts x 200 latents.
+    "large_slab": (41, 8, 40, 200, "eval"),
 }
 SEQ_BWD_SHAPES = {
     "multimnist_train": (300, 5, 13),
@@ -153,8 +166,20 @@ def conv_plans(b: int, h: int, w: int, c: int, sms: int) -> list[K.ConvPlan]:
 
 
 def poe_plans(t: int, b: int, m: int, l: int, sms: int) -> list[K.PoeKlPlan]:
-    plans = [K.poe_kl_plan(t, b, m, l, sms, groups)
-             for groups in (1, 2, 3, 4, 5, 10, 20) if groups <= t]
+    plans = []
+    for vec in (0, 1):
+        for groups in (None, 1, 2, 4):
+            for tiles in (1, 2, 4):
+                base = K.poe_kl_plan(t, b, m, l, sms, tiles=tiles, vec=vec, groups=groups)
+                cover = 1 << max(0, base.tile // (4 if base.vec else 1) - 1).bit_length()
+                for lanes in sorted({base.lanes, min(32, cover), min(K.POE_MAX_THREADS, cover)}):
+                    one = K.poe_kl_plan(t, b, m, l, sms, tiles=tiles, vec=vec, lanes=lanes,
+                                        groups=groups)
+                    for threads in sorted({one.threads, 256}):
+                        if threads % max(32, lanes) == 0:
+                            plans.append(one._replace(
+                                threads=threads,
+                                smem=K.poe_kl_smem(one.terms, m, one.tile, threads)))
     plans = list(dict.fromkeys(plans))
     auto = K.poe_kl_plan(t, b, m, l, sms)
     return plans if auto in plans else plans + [auto]

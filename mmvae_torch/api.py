@@ -1034,21 +1034,21 @@ def _postprocess(
     rng=None,
 ) -> dict[str, torch.Tensor]:
     """Decode dict -> user-facing tensors: probabilities for bernoulli
-    modalities, class indices for categorical ones, and for each sequence
-    modality the tokens ``model.generate_text`` draws from ``z`` (from
-    ``generator``, or from the per-row streams of ``rng``, a
+    modalities (a key ``decode_kinds`` does not name is one), class indices
+    for categorical ones, any other kind's decode as it is, and for each
+    sequence modality the tokens ``model.generate_text`` draws from ``z``
+    (from ``generator``, or from the per-row streams of ``rng``, a
     ``core.rowrng.RowRng``, in the traced decode)."""
     kinds = model.decode_kinds()
     out = {}
     for key, value in recons.items():
-        if kinds[key] == "bernoulli":
+        kind = kinds.get(key, "bernoulli")
+        if kind == "bernoulli":
             out[key] = torch.sigmoid(value)
-        elif kinds[key] == "categorical":
+        elif kind == "categorical":
             out[key] = torch.argmax(value, dim=-1)
         else:
-            raise NotImplementedError(
-                f"generating {kinds[key]!r} modalities is not yet ported"
-            )
+            out[key] = value
     for spec in model.specs():
         if spec.kind == "seq":
             out[spec.name] = model.generate_text(z, temperature, generator, rng)

@@ -30,20 +30,39 @@
 // f32 rate. At these sizes a launch takes longer than the bytes, so the
 // design keeps the work to one launch with one round of load latency.
 //
-// Design. A block takes one batch row b and a group of `terms` terms. It
-// stages mu_e[b] and p = 1 / (exp(clamp(lv)) + eps) for its M x L slab in
-// shared memory (15.2 KB at CelebA), so each expert element is read from
-// device memory once and its exp and divide run once, not once a term; and
-// the term weights masks[t,m] * presence[b,m] of its group. Every load of
-// the staging is issued before the first is used. Then a warp
-// takes a term: its lanes walk L in float4s (25 lanes at L = 100; scalars
-// when L % 4 != 0 or a pointer is not 16-byte aligned), sum over the
-// experts in index order, write mu_f and lv_f coalesced, and reduce the KL
-// with shuffles in a fixed order. No atomics: a shape gives the same bits
-// from run to run. The grid (kernels.py:poe_kl_plan) splits the terms of a
-// row over several blocks when the batch rows alone would leave SMs idle.
-// No fast-math: expf, logf and the divides are IEEE, and the products are
-// rounded before they are summed (__fmul_rn), as PyTorch's separate ops do.
+// Design. A block takes a batch row and a group of its terms (the plan
+// splits a row's terms into groups where the rows alone leave SMs idle)
+// and walks the row's latents in tiles: one, unless the row's slab passes
+// the 227 KB of shared memory a block may hold, each tile staged after the
+// last. For a tile the block stages mu_e[b] and p = 1 / (exp(clamp(lv)) +
+// eps) for M x tile latents, so each expert element is read from device
+// memory once and its exp and divide run once, not once a term; and, once,
+// its group's term weights masks[t,m] * presence[b,m]. All its threads
+// stage, every global load is issued before the first is used, and the
+// plan gives a thread to each staged column so that one round covers the
+// tile at the path shapes. Then the threads take (term, latent column)
+// items, a column 4 latents (float4s) or one (scalars): a segment of
+// `lanes` consecutive threads (a power of two, the plan's: those that
+// cover the tile's columns, at most the block) takes a term, and each item
+// sums over the experts in index order and writes mu_f and lv_f. The KL of
+// (t, b) is reduced without atomics, in a fixed order: each lane sums its
+// columns in order, a warp's lanes by shuffles (xor 16, 8, ..., 1), a
+// segment's warps in order through shared memory where it spans more than
+// one (MultiMNIST's 64 float4 columns, a T = 1 row of 256 scalars), and
+// the tiles in order, the running sum kept in shared memory by the thread
+// that adds each tile's. A shape gives the same bits from run to run. The
+// block-a-row design this replaces gave a block a warp a term: at T = 1
+// (the IWAE's joint posterior, every served call) its block was one warp,
+// which staged CelebA's 19 x 100 slab in about 7 dependent rounds. A row's
+// tiles as a thread block cluster, their partials summed through
+// distributed shared memory, was timed no faster at any shape (a
+// cluster's launch and barrier cost more than its tiles save; PERF.md
+// section 6). No fast-math: expf, logf and the divides are IEEE, and the
+// products are rounded before they are summed (__fmul_rn), as PyTorch's
+// separate ops do; poe_kl_bwd recomputes the total precision in the same
+// order. A one-tile row on a warp's lanes a term (CelebA's) has the
+// block-a-row design's lanes and shuffle tree, so it keeps that design's
+// bits.
 //
 // poe_kl_bwd is its backward for training: K1's VJP (mmvae_tpu/ops/
 // kernels.py _kl_bwd) carried back through the PoE, the chain rule that
@@ -96,9 +115,13 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 32;
-constexpr int kMaxSmem = 48 * 1024;
-constexpr int kStage = 2;  // float4s of each slab a thread has in flight
+constexpr int kMaxSmem = 48 * 1024;  // poe_kl_bwd's shared memory
+// poe_kl's shared memory: up to 48 KB as launched, up to 227 KB of the
+// SM's 256 KB after cudaFuncSetAttribute.
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmemOptIn = 232448;
+constexpr int kStage = 2;  // staging items of each array a thread has in flight
+constexpr int kMaxThreads = 512;  // poe_kl's block (__launch_bounds__)
 constexpr int kMaxBwdThreads = 512;  // poe_kl_bwd's block (__launch_bounds__)
 // The PoE's constants, as mmvae_torch/core/poe.py names them: the prior
 // expert's precision, PRECISION_EPS (added to each expert's variance) and
@@ -107,14 +130,6 @@ constexpr int kMaxBwdThreads = 512;  // poe_kl_bwd's block (__launch_bounds__)
 constexpr float kPrior = 1.0f;
 constexpr float kEps = 1e-8f;
 constexpr float kBound = 11.0f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 // An expert's precision. The comparisons keep a NaN, as torch.clamp does.
 __device__ __forceinline__ float precision(float lv) {
@@ -134,157 +149,6 @@ __device__ __forceinline__ float fuse(float sum_p, float sum_mp, float* mu, floa
   *mu = sum_mp / tot;
   *lv = -logf(tot);
   return kl_term(*mu, *lv);
-}
-
-// The two factors of weight i of a block's terms from t0 on, masks[t, m]
-// and presence[b, m] (1 without presence); the weight is their product,
-// taken only where it is stored so that the loads stay in flight.
-__device__ __forceinline__ float2 weight_factors(const float* __restrict__ masks,
-                                                 const float* __restrict__ presence,
-                                                 int t0, int b, int m_experts, int i) {
-  const int m = i % m_experts;
-  return make_float2(masks[(t0 + i / m_experts) * m_experts + m],
-                     presence ? presence[b * m_experts + m] : 1.0f);
-}
-
-// Dynamic shared memory: the mu slab (M x L), the precision slab (M x L),
-// the group's term weights (terms x M).
-template <bool kVec>
-__global__ void poe_kl_kernel(const float* __restrict__ mu_e,
-                              const float* __restrict__ lv_e,
-                              const float* __restrict__ masks,
-                              const float* __restrict__ presence,
-                              float* __restrict__ mu_f, float* __restrict__ lv_f,
-                              float* __restrict__ kl, int n_terms, int batch,
-                              int m_experts, int l_dim, int terms) {
-  extern __shared__ float4 smem4[];
-  float* s_mu = reinterpret_cast<float*>(smem4);
-  const int ml = m_experts * l_dim;
-  float* s_p = s_mu + ml;
-  float* s_w = s_p + ml;
-  const int groups = (n_terms + terms - 1) / terms;
-  const int b = blockIdx.x / groups;
-  const int t0 = (blockIdx.x % groups) * terms;
-  const int t_end = min(n_terms, t0 + terms);
-  const int tid = threadIdx.x, threads = blockDim.x;
-  const size_t base = static_cast<size_t>(b) * ml;
-
-  // Every global load of the staging is issued before the first is used:
-  // the factors of the thread's first term weight, then kStage float4s (or
-  // 4 kStage scalars) of each slab at a time.
-  const int n_w = (t_end - t0) * m_experts;
-  const float2 w_first =
-      tid < n_w ? weight_factors(masks, presence, t0, b, m_experts, tid) : make_float2(0.0f, 0.0f);
-  if (kVec) {
-    const float4* m4 = reinterpret_cast<const float4*>(mu_e + base);
-    const float4* l4 = reinterpret_cast<const float4*>(lv_e + base);
-    float4* sm4 = reinterpret_cast<float4*>(s_mu);
-    float4* sp4 = reinterpret_cast<float4*>(s_p);
-    for (int i0 = tid; i0 < ml / 4; i0 += kStage * threads) {
-      float4 u[kStage], v[kStage];
-#pragma unroll
-      for (int k = 0; k < kStage; ++k) {
-        const int i = i0 + k * threads;
-        if (i < ml / 4) {
-          u[k] = m4[i];
-          v[k] = l4[i];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kStage; ++k) {
-        const int i = i0 + k * threads;
-        if (i < ml / 4) {
-          sm4[i] = u[k];
-          sp4[i] = make_float4(precision(v[k].x), precision(v[k].y),
-                               precision(v[k].z), precision(v[k].w));
-        }
-      }
-    }
-  } else {
-    constexpr int kScalar = 4 * kStage;
-    for (int i0 = tid; i0 < ml; i0 += kScalar * threads) {
-      float u[kScalar], v[kScalar];
-#pragma unroll
-      for (int k = 0; k < kScalar; ++k) {
-        const int i = i0 + k * threads;
-        if (i < ml) {
-          u[k] = mu_e[base + i];
-          v[k] = lv_e[base + i];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kScalar; ++k) {
-        const int i = i0 + k * threads;
-        if (i < ml) {
-          s_mu[i] = u[k];
-          s_p[i] = precision(v[k]);
-        }
-      }
-    }
-  }
-  if (tid < n_w) s_w[tid] = __fmul_rn(w_first.x, w_first.y);
-  for (int i = tid + threads; i < n_w; i += threads) {
-    const float2 f = weight_factors(masks, presence, t0, b, m_experts, i);
-    s_w[i] = __fmul_rn(f.x, f.y);
-  }
-  __syncthreads();
-
-  const int lane = tid % kWarp;
-  for (int t = t0 + tid / kWarp; t < t_end; t += threads / kWarp) {
-    const float* w = s_w + (t - t0) * m_experts;
-    const size_t row = (static_cast<size_t>(t) * batch + b) * l_dim;
-    float acc = 0.0f;
-    if (kVec) {
-      const int l4 = l_dim / 4;
-      const float4* sm4 = reinterpret_cast<const float4*>(s_mu);
-      const float4* sp4 = reinterpret_cast<const float4*>(s_p);
-      float4* mu4 = reinterpret_cast<float4*>(mu_f + row);
-      float4* lv4 = reinterpret_cast<float4*>(lv_f + row);
-      for (int c = lane; c < l4; c += kWarp) {
-        float4 sp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), smp = sp;
-#pragma unroll 4
-        for (int m = 0; m < m_experts; ++m) {
-          const float wm = w[m];
-          const float4 p = sp4[m * l4 + c];
-          const float4 u = sm4[m * l4 + c];
-          const float px = __fmul_rn(p.x, wm), py = __fmul_rn(p.y, wm);
-          const float pz = __fmul_rn(p.z, wm), pw = __fmul_rn(p.w, wm);
-          sp.x += px;
-          sp.y += py;
-          sp.z += pz;
-          sp.w += pw;
-          smp.x += __fmul_rn(u.x, px);
-          smp.y += __fmul_rn(u.y, py);
-          smp.z += __fmul_rn(u.z, pz);
-          smp.w += __fmul_rn(u.w, pw);
-        }
-        float4 f_mu, f_lv;
-        const float kx = fuse(sp.x, smp.x, &f_mu.x, &f_lv.x);
-        const float ky = fuse(sp.y, smp.y, &f_mu.y, &f_lv.y);
-        const float kz = fuse(sp.z, smp.z, &f_mu.z, &f_lv.z);
-        const float kw = fuse(sp.w, smp.w, &f_mu.w, &f_lv.w);
-        mu4[c] = f_mu;
-        lv4[c] = f_lv;
-        acc += kx + ky + kz + kw;
-      }
-    } else {
-      for (int l = lane; l < l_dim; l += kWarp) {
-        float sp = 0.0f, smp = 0.0f;
-#pragma unroll 4
-        for (int m = 0; m < m_experts; ++m) {
-          const float p = __fmul_rn(s_p[m * l_dim + l], w[m]);
-          sp += p;
-          smp += __fmul_rn(s_mu[m * l_dim + l], p);
-        }
-        float f_mu, f_lv;
-        acc += fuse(sp, smp, &f_mu, &f_lv);
-        mu_f[row + l] = f_mu;
-        lv_f[row + l] = f_lv;
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) kl[static_cast<size_t>(t) * batch + b] = -0.5f * acc;
-  }
 }
 
 // The clamp's gradient: 1 inside (-11, 11), 0.5 at exactly +-11, 0 beyond
@@ -329,6 +193,173 @@ __device__ __forceinline__ void store(float* p, const Lanes<kW>& r) {
 // integer divide.
 __device__ __forceinline__ int quotient(int i, float inv) {
   return __float2int_rz((static_cast<float>(i) + 0.5f) * inv);
+}
+
+// The sum of v over the `lanes` lanes (a power of two, at most a warp) of
+// each aligned segment of the warp, in a fixed tree (a warp's: xor 16, 8,
+// ..., 1); every lane of the warp calls it.
+__device__ __forceinline__ float segment_sum(float v, int lanes) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    if (off < lanes) v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The same over segments of `lanes` threads (a power of two, at most the
+// block), given to each segment's first thread: a warp's tree, then, where
+// a segment spans warps, its warps' sums in order through `s_warp` (a
+// float a warp). Every thread of the block calls it.
+__device__ __forceinline__ float lanes_sum(float v, int lanes, float* s_warp) {
+  v = segment_sum(v, lanes);
+  if (lanes <= kWarp) return v;
+  const int tid = threadIdx.x, warp = tid / kWarp;
+  __syncthreads();  // every thread has read the last call's sums
+  if (tid % kWarp == 0) s_warp[warp] = v;
+  __syncthreads();
+  float sum = 0.0f;
+  if ((tid & (lanes - 1)) == 0) {
+    for (int w = 0; w < lanes / kWarp; ++w) sum += s_warp[warp + w];
+  }
+  return sum;
+}
+
+// A block per (batch row, term group): blockIdx.x = b * groups + g, the
+// group's terms [g * terms, + terms) cut at T. It walks the row's latents
+// in `tiles` tiles [k * tile, + tile) cut at L, kW latents a column (4:
+// float4 loads), 1 << lane_shift lanes a term. Dynamic shared memory: the
+// tile's mu (M x tile) and precisions (M x tile), the group's term weights
+// (terms x M), each term's KL summed over the tiles so far (terms) and a
+// float a warp for lanes_sum.
+template <int kW>
+__global__ void __launch_bounds__(kMaxThreads) poe_kl_kernel(const float* __restrict__ mu_e,
+                              const float* __restrict__ lv_e,
+                              const float* __restrict__ masks,
+                              const float* __restrict__ presence,
+                              float* __restrict__ mu_f, float* __restrict__ lv_f,
+                              float* __restrict__ kl, int n_terms, int batch,
+                              int m_experts, int l_dim, int terms, int groups, int tile,
+                              int tiles, int lane_shift) {
+  extern __shared__ float4 smem4[];
+  float* s_mu = reinterpret_cast<float*>(smem4);
+  float* s_p = s_mu + m_experts * tile;
+  float* s_w = s_p + m_experts * tile;
+  float* s_kl = s_w + terms * m_experts;
+  float* s_warp = s_kl + terms;
+  int b = blockIdx.x, t0 = 0;
+  if (groups > 1) {
+    b = blockIdx.x / groups;
+    t0 = (blockIdx.x - b * groups) * terms;
+  }
+  const int n_t = min(terms, n_terms - t0);  // this block's terms
+  const int n_w = n_t * m_experts;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const float inv_m = __fdividef(1.0f, static_cast<float>(m_experts));
+  // Weight i is (t0 + i / M, i % M).
+  auto factors = [=](int i) {
+    return make_float2(masks[t0 * m_experts + i],
+                       presence ? presence[b * m_experts + i - quotient(i, inv_m) * m_experts]
+                                : 1.0f);
+  };
+  // A segment of `lanes` lanes a term (the plan's); the segments walk the
+  // block's terms.
+  const int lanes = 1 << lane_shift;
+  const int seg = tid >> lane_shift, lane = tid & (lanes - 1), n_seg = threads >> lane_shift;
+  const float2 w0 = tid < n_w ? factors(tid) : make_float2(0.0f, 0.0f);
+
+  for (int k = 0; k < tiles; ++k) {  // the same trip count for every thread
+    const int l0 = k * tile;
+    const int cols = min(tile, l_dim - l0) / kW;  // kW-wide columns of this tile
+    const int n_me = m_experts * cols;
+    const float inv_cols = __fdividef(1.0f, static_cast<float>(cols));
+    const size_t base = static_cast<size_t>(b) * m_experts * l_dim + l0;
+    // Staging item i is (m, column) = (i / cols, i % cols).
+    auto expert_at = [=](int i) {
+      const int m = quotient(i, inv_cols);
+      return base + static_cast<size_t>(m) * l_dim + (i - m * cols) * kW;
+    };
+    auto staged_at = [=](int i) {
+      const int m = quotient(i, inv_cols);
+      return m * tile + (i - m * cols) * kW;
+    };
+    if (k > 0) __syncthreads();  // every thread is done with the last tile
+
+    // Every global load of the staging is issued before the first is used:
+    // the factors of the thread's first weight (above), then kStage items
+    // of each array at a time (one round where the plan gives a thread an
+    // item).
+    for (int i0 = tid; i0 < n_me; i0 += kStage * threads) {
+      Lanes<kW> u[kStage], v[kStage];
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int i = i0 + j * threads;
+        if (i < n_me) {
+          u[j] = load<kW>(mu_e + expert_at(i));
+          v[j] = load<kW>(lv_e + expert_at(i));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int i = i0 + j * threads;
+        if (i < n_me) {
+          Lanes<kW> p;
+#pragma unroll
+          for (int q = 0; q < kW; ++q) p.v[q] = precision(v[j].v[q]);
+          store<kW>(s_mu + staged_at(i), u[j]);
+          store<kW>(s_p + staged_at(i), p);
+        }
+      }
+    }
+    if (k == 0) {
+      if (tid < n_w) s_w[tid] = __fmul_rn(w0.x, w0.y);
+      for (int i = tid + threads; i < n_w; i += threads) {
+        const float2 f = factors(i);
+        s_w[i] = __fmul_rn(f.x, f.y);
+      }
+    }
+    __syncthreads();
+
+    for (int i0 = 0; i0 < n_t; i0 += n_seg) {  // the same trip count for every thread
+      const int tl = i0 + seg;  // the term's index in the block
+      float acc = 0.0f;
+      if (tl < n_t) {
+        const float* w = s_w + tl * m_experts;
+        const size_t out = (static_cast<size_t>(t0 + tl) * batch + b) * l_dim + l0;
+        for (int c = lane; c < cols; c += lanes) {
+          Lanes<kW> sp{}, smp{};
+#pragma unroll 4
+          for (int m = 0; m < m_experts; ++m) {
+            const float wm = w[m];
+            const Lanes<kW> p = load<kW>(s_p + m * tile + c * kW);
+            const Lanes<kW> u = load<kW>(s_mu + m * tile + c * kW);
+#pragma unroll
+            for (int q = 0; q < kW; ++q) {
+              const float pw = __fmul_rn(p.v[q], wm);
+              sp.v[q] += pw;
+              smp.v[q] += __fmul_rn(u.v[q], pw);
+            }
+          }
+          Lanes<kW> f_mu, f_lv;
+          float k_sum = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kW; ++q) k_sum += fuse(sp.v[q], smp.v[q], &f_mu.v[q], &f_lv.v[q]);
+          store<kW>(mu_f + out + c * kW, f_mu);
+          store<kW>(lv_f + out + c * kW, f_lv);
+          acc += k_sum;
+        }
+      }
+      acc = lanes_sum(acc, lanes, s_warp);
+      if (lane == 0 && tl < n_t) {
+        // The tiles in order; only this thread reads or writes s_kl[tl].
+        const float total = k == 0 ? acc : s_kl[tl] + acc;
+        if (k + 1 < tiles) {
+          s_kl[tl] = total;
+        } else {
+          kl[static_cast<size_t>(t0 + tl) * batch + b] = -0.5f * total;
+        }
+      }
+    }
+  }
 }
 
 // A block per (batch row, latent tile), kW latents a thread (4: float4
@@ -490,6 +521,24 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <int kW>
+cudaError_t launch_poe_kl(const float* mu_e, const float* lv_e, const float* masks,
+                          const float* presence, float* mu_f, float* lv_f, float* kl,
+                          int n_terms, int batch, int m_experts, int l_dim, int terms,
+                          int tile, int tiles, int lane_shift, int threads, int blocks,
+                          int smem, cudaStream_t stream) {
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        poe_kl_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int groups = (n_terms + terms - 1) / terms;
+  poe_kl_kernel<kW><<<blocks, threads, smem, stream>>>(mu_e, lv_e, masks, presence, mu_f, lv_f,
+                                                       kl, n_terms, batch, m_experts, l_dim,
+                                                       terms, groups, tile, tiles, lane_shift);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" const char* poe_kl_error_string(int code) {
@@ -498,36 +547,45 @@ extern "C" const char* poe_kl_error_string(int code) {
 
 // mu_e, lv_e: (batch, m_experts, l_dim); masks: (n_terms, m_experts);
 // presence: (batch, m_experts) or null; mu_f, lv_f: (n_terms, batch,
-// l_dim); kl: (n_terms, batch); all f32, contiguous. terms, warps, blocks
-// and smem: the launch plan (kernels.py:poe_kl_plan): `terms` terms a
-// block, `warps` warps a block, blocks == batch * ceil(n_terms / terms),
-// smem the bytes of the two slabs and the group's weights, at most 48 KB.
+// l_dim); kl: (n_terms, batch); all f32, contiguous. The launch plan
+// (kernels.py:poe_kl_plan): `terms` terms a block (a group), `tile`
+// latents a tile and `tiles` tiles a block, which together cover l_dim
+// and leave no tile empty; `lanes` lanes a term (a power of two that
+// divides `threads`); `threads` a block (whole warps, at most 512); blocks
+// == batch * ceil(n_terms / terms); smem the bytes of the tile's two
+// slabs, the group's weights, its terms' KLs and a float a warp, at most
+// 227 KB; `vec4` (1: float4 loads where l_dim and tile are multiples of 4
+// and every pointer is 16-byte aligned, else scalars; 0: scalars).
 extern "C" int poe_kl(const float* mu_e, const float* lv_e, const float* masks,
                       const float* presence, float* mu_f, float* lv_f, float* kl,
-                      int n_terms, int batch, int m_experts, int l_dim, int terms,
-                      int warps, int blocks, int smem, cudaStream_t stream) {
+                      int n_terms, int batch, int m_experts, int l_dim, int terms, int tile,
+                      int tiles, int lanes, int threads, int blocks, int smem, int vec4,
+                      cudaStream_t stream) {
   if (n_terms <= 0 || batch <= 0 || m_experts <= 0 || l_dim <= 0 || terms <= 0 ||
-      terms > n_terms || warps <= 0 || warps > kMaxWarps) {
+      terms > n_terms || tile <= 0 || tiles < 1 || threads < kWarp ||
+      threads > kMaxThreads || threads % kWarp != 0 || lanes < 1 || threads % lanes != 0 ||
+      (lanes & (lanes - 1)) != 0 || static_cast<long long>(tile) * tiles < l_dim ||
+      static_cast<long long>(tile) * (tiles - 1) >= l_dim ||
+      static_cast<long long>(blocks) !=
+          static_cast<long long>(batch) * ((n_terms + terms - 1) / terms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long groups = (n_terms + terms - 1) / terms;
-  const long long need =
-      4LL * (2LL * m_experts * l_dim + static_cast<long long>(terms) * m_experts);
-  if (static_cast<long long>(blocks) != batch * groups || smem < need || smem > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool vec = l_dim % 4 == 0 && aligned16(mu_e) && aligned16(lv_e) &&
-                   aligned16(mu_f) && aligned16(lv_f);
-  if (vec) {
-    poe_kl_kernel<true><<<blocks, warps * kWarp, smem, stream>>>(
-        mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch, m_experts,
-        l_dim, terms);
-  } else {
-    poe_kl_kernel<false><<<blocks, warps * kWarp, smem, stream>>>(
-        mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch, m_experts,
-        l_dim, terms);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const long long need = 4LL * (2LL * m_experts * tile + static_cast<long long>(terms) * m_experts +
+                                terms + threads / kWarp);
+  if (smem < need || smem > kMaxSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = vec4 && l_dim % 4 == 0 && tile % 4 == 0 && aligned16(mu_e) &&
+                   aligned16(lv_e) && aligned16(mu_f) && aligned16(lv_f);
+  int lane_shift = 0;
+  while ((1 << lane_shift) < lanes) ++lane_shift;
+  const cudaError_t err =
+      vec ? launch_poe_kl<4>(mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch,
+                             m_experts, l_dim, terms, tile, tiles, lane_shift, threads, blocks,
+                             smem, stream)
+          : launch_poe_kl<1>(mu_e, lv_e, masks, presence, mu_f, lv_f, kl, n_terms, batch,
+                             m_experts, l_dim, terms, tile, tiles, lane_shift, threads, blocks,
+                             smem, stream);
+  const cudaError_t last = cudaGetLastError();  // read (and clear) either way
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // The forward's arguments, its outputs mu_f and lv_f (T, B, L), the output

@@ -30,7 +30,9 @@
     K1's function as its epilogue: the fused ``(T, B, L)`` posteriors of
     a ``(B, M, L)`` expert stack under ``(T, M)`` subset masks, and the KL
     of each to N(0, I), in one launch, in the grid :func:`poe_kl_plan`
-    sizes. On the ported paths the KL runs here, not in K1;
+    sizes (a block a batch row's group of terms, walking the row's
+    latents in tiles: one, unless its slab passes 48 KB). On the ported
+    paths the KL runs here, not in K1;
   * the backward kernels of training: ``kl_rows_grad_kernel`` (K1's VJP,
     ``_kl_bwd``), ``bce_rows_grad_kernel`` (K2's VJP in the logits,
     ``_bce_bwd``, the targets read through the forward's row map),
@@ -126,6 +128,7 @@ __all__ = [
     "conv4x4s2_swish_input_grad_kernel",
     "conv4x4s2_swish_input_grad_torch",
     "PoeKlPlan",
+    "poe_kl_smem",
     "poe_kl_plan",
     "poe_kl_kernel",
     "masked_poe_torch",
@@ -201,7 +204,7 @@ _SIGNATURES = {
     },
     "poe_kl": {
         "poe_kl": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32,
-                   _i32, _i32, _i32, _ptr],
+                   _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
         "poe_kl_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                        _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
     },
@@ -1375,47 +1378,104 @@ def conv4x4s2_swish_input_grad_torch(
 
 # ------------------------------------------------------- PoE + KL ----
 
-# A block of the fused PoE holds the expert slab of its batch row and the
-# weights of its terms in at most 48 KB of shared memory, and takes a warp
-# a term, at most POE_MAX_WARPS.
+# A block of the fused PoE takes a batch row's group of terms and walks the
+# row's latents in tiles, up to POE_MAX_THREADS threads (its
+# __launch_bounds__) and up to POE_SMEM_LIMIT bytes of dynamic shared
+# memory (227 KB of the SM's 256; above 48 KB the launch raises the
+# kernel's limit first). A row takes more than one tile only where one
+# would pass POE_SMEM_LIMIT. The backward's blocks keep to POE_MAX_SMEM.
 POE_MAX_SMEM = 48 * 1024
-POE_MAX_WARPS = 32
+POE_SMEM_LIMIT = 232448
+POE_MAX_THREADS = 512
 
 
 class PoeKlPlan(NamedTuple):
-    """Launch of ``poe_kl``: terms a block, warps a block, blocks in all
-    (batch rows x term groups) and the block's dynamic shared memory in
-    bytes."""
+    """Launch of ``poe_kl``: terms a block (a group of a row's terms),
+    latents a tile, tiles a block walks in turn, lanes a term, threads a
+    block, blocks in all (batch rows x term groups), the block's dynamic
+    shared memory in bytes, and float4 loads (1) or scalars (0)."""
 
     terms: int
-    warps: int
+    tile: int
+    tiles: int
+    lanes: int
+    threads: int
     blocks: int
     smem: int
+    vec: int
+
+
+def poe_kl_smem(terms: int, m: int, tile: int, threads: int) -> int:
+    """Shared memory of a ``poe_kl`` block: the tile's means and
+    precisions (m x tile each), the group's term weights (terms x m), each
+    term's KL over the tiles so far (terms) and a float a warp, in
+    bytes."""
+    return 4 * (2 * m * tile + terms * m + terms + threads // 32)
 
 
 def poe_kl_plan(
-    t: int, b: int, m: int, l: int, sms: int = H100_SMS, groups: int | None = None
+    t: int, b: int, m: int, l: int, sms: int = H100_SMS, tiles: int | None = None,
+    vec: bool | None = None, lanes: int | None = None, groups: int | None = None,
 ) -> PoeKlPlan:
     """The launch of the fused PoE + KL for ``t`` terms of ``b`` batch
     rows of ``m`` experts of ``l`` latents, on a card of ``sms`` SMs.
 
-    A block per batch row and group of terms, a warp per term. The terms
-    of a row are split into as many groups as keep one block an SM
-    (CelebA's 64 rows: 2 groups of 10 terms on 128 SMs; 100 rows or more:
-    one group), at most one group a term; ``groups`` overrides the count.
-    Raises where one block's slab exceeds 48 KB of shared memory.
+    A block per batch row and group of terms. The terms of a row are
+    split into as many groups as keep one block an SM (CelebA's 64 rows: 2
+    groups of 10 terms, 128 blocks; 100 rows or more, or one term: one
+    group). A block takes all its row's latents in one tile where its
+    shared memory fits POE_SMEM_LIMIT, and else walks them in as few tiles
+    as fit; the plan raises only where a tile of one column does not.
+    Scalars where the block's threads give every staged element of the row
+    (m x l) and every (term, latent) item of the group a thread of its own
+    (MNIST's 2 x 64 latents, a T = 1 row of 2 x 256); float4s (``vec``)
+    otherwise where ``l % 4 == 0``, a tile then a multiple of 4. A term
+    takes the lanes that cover a tile's columns (a power of two, at most
+    the block: MultiMNIST's 64 float4s take 64, CelebA's 25 take 32).
+    Threads: a thread per staging item of the tile (m x its columns) and
+    per lane of a pass over the group's terms, whole warps and a multiple
+    of the lanes, at most POE_MAX_THREADS: CelebA's 19 x 25 float4s take
+    480. ``tiles``, ``vec``, ``lanes`` and ``groups`` override the choice.
     ``kernel_plans.py`` times the alternatives."""
     if groups is None:
         groups = sms // max(b, 1)
-    groups = max(1, min(t, groups))
-    terms = -(-t // groups)
-    smem = 4 * (2 * m * l + terms * m)  # the mu and precision slabs, the weights
-    if smem > POE_MAX_SMEM:
+    terms = -(-t // max(1, min(t, groups)))
+    groups = -(-t // terms)
+
+    def cover(cols: int) -> int:
+        return min(POE_MAX_THREADS, 1 << max(0, cols - 1).bit_length())
+
+    if vec is None:
+        vec = max(m * l, terms * cover(l)) > POE_MAX_THREADS
+    vec = bool(vec) and l % 4 == 0
+    step = 4 if vec else 1
+    units = max(1, -(-l // step))  # columns of a row
+
+    def tile_of(j: int) -> int:
+        return -(-units // j) * step
+
+    def threads_of(tile: int, lanes: int) -> int:
+        whole = max(32, lanes)
+        return min(POE_MAX_THREADS, -(-max(m * (tile // step), terms * lanes) // whole) * whole)
+
+    def smem_of(tile: int, lanes: int | None) -> int:
+        return poe_kl_smem(terms, m, tile, threads_of(tile, lanes or cover(tile // step)))
+
+    if tiles is None:
+        tiles = 1
+        while tiles < units and smem_of(tile_of(tiles), lanes) > POE_SMEM_LIMIT:
+            tiles += 1
+    tile = tile_of(max(1, min(tiles, units)))
+    tiles = max(1, -(-l // tile))
+    lanes = lanes or cover(tile // step)
+    threads = threads_of(tile, lanes)
+    smem = poe_kl_smem(terms, m, tile, threads)
+    if smem > POE_SMEM_LIMIT:
         raise ValueError(
-            f"poe_kl: the slab of {m} experts x {l} latents and {terms} terms takes "
-            f"{smem} bytes of shared memory, above {POE_MAX_SMEM}"
+            f"poe_kl: {m} experts x {tile} latents a tile and {terms} terms take {smem} bytes "
+            f"of shared memory, above {POE_SMEM_LIMIT}"
         )
-    return PoeKlPlan(terms, min(terms, POE_MAX_WARPS), b * -(-t // terms), smem)
+    return PoeKlPlan(terms, tile, tiles, lanes, threads, b * groups, smem, int(vec))
 
 
 def _check_f32(name: str, x: torch.Tensor, shape: tuple, device) -> None:

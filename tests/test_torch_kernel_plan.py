@@ -36,10 +36,13 @@ CONV_SHAPES = [(64, 64, 64, 3), (256, 64, 64, 3), (37, 64, 64, 3), (5, 25, 25, 1
                (2, 7, 1100, 4), (1, 1, 1, 3)]
 # (T, B, M, L) of the fused PoE + KL: the CelebA, MultiMNIST and MNIST
 # eval batches, CelebA's ragged check at an odd L, a batch of one, more
-# rows than SMs, one term of one expert, more terms than a block has warps.
+# rows than SMs, one term of one expert, more terms than a block has warps,
+# MNIST under mmvae; the IWAE's joint posterior of CelebA and MNIST (T = 1),
+# a served CelebA batch of 8 and CelebA's train step (T = 24).
 POE_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64), (20, 10, 19, 37),
               (3, 1, 2, 64), (20, 200, 19, 100), (1, 1, 1, 1), (40, 2, 3, 8),
-              (2, 100, 2, 64)]
+              (2, 100, 2, 64), (1, 64, 19, 100), (1, 8, 19, 100), (1, 100, 2, 64),
+              (24, 64, 19, 100)]
 
 
 @pytest.mark.parametrize("shape", BCE_SHAPES)
@@ -461,54 +464,148 @@ def test_probe_sources_stay_out_of_the_default_build():
     assert all(src.is_file() for src in kernels._ALL_SOURCES.values())
 
 
-def _poe_covered(t: int, b: int, plan) -> np.ndarray:
-    """How often each (term, batch row) is taken, as the kernel decodes the
-    grid: block i is batch row i // groups and term group i % groups, the
-    group's terms start at (i % groups) * terms, and its warps walk them
-    with a stride of the block's warps."""
+def _poe_covered(t: int, b: int, l: int, plan, step: int) -> tuple[np.ndarray, np.ndarray]:
+    """How often each (term, batch row, latent) is written, and each
+    (term, batch row)'s KL, as the kernel decodes the grid with columns of
+    ``step`` latents (4: float4s; 1: scalars, also where the pointers of a
+    float4 plan are not aligned): block i is (batch row, term group) =
+    divmod(i, groups), the group's terms [g * terms, + terms) cut at T; it
+    walks ``tiles`` tiles, the latents [k * tile, + tile) cut at L; a
+    segment of ``lanes`` lanes takes a term, the segments walk the group's
+    terms with a stride of their count and a lane walks the tile's columns
+    with a stride of ``lanes``; a segment's first lane writes the KL after
+    the last tile."""
+    out = np.zeros((t, b, l), dtype=np.int64)
+    kl = np.zeros((t, b), dtype=np.int64)
     groups = -(-t // plan.terms)
-    covered = np.zeros((t, b), dtype=np.int64)
+    lanes = plan.lanes
+    tids = np.arange(plan.threads)
+    seg, lane, n_seg = tids // lanes, tids % lanes, plan.threads // lanes
     for block in range(plan.blocks):
-        row, t0 = block // groups, (block % groups) * plan.terms
-        t_end = min(t, t0 + plan.terms)
-        for warp in range(plan.warps):
-            for term in range(t0 + warp, t_end, plan.warps):
-                covered[term, row] += 1
-    return covered
+        row, g = divmod(block, groups)
+        t0 = g * plan.terms
+        n_t = min(plan.terms, t - t0)
+        for k in range(plan.tiles):
+            l0 = k * plan.tile
+            cols = min(plan.tile, l - l0) // step
+            for i0 in range(0, n_t, n_seg):
+                term = i0 + seg
+                for c0 in range(0, max(cols, 1), lanes):
+                    c = c0 + lane
+                    ok = (term < n_t) & (c < cols)
+                    for j in range(step):
+                        np.add.at(out, (t0 + term[ok], row, l0 + c[ok] * step + j), 1)
+                if k == plan.tiles - 1:
+                    heads = (lane == 0) & (term < n_t)
+                    np.add.at(kl, (t0 + term[heads], row), 1)
+    return out, kl
 
 
 @pytest.mark.parametrize("shape", POE_SHAPES)
-@pytest.mark.parametrize("groups", [None, 1, 2, 3, 64])
-def test_poe_kl_plan_covers_every_term_once(shape, groups):
-    """Every (t, b) is taken by exactly one warp of the grid; the block's
-    shared memory is its two slabs and its terms' weights, within 48 KB;
-    a block has a warp a term, up to 32."""
+@pytest.mark.parametrize("layout", [(None, None, None), (1, 1, None), (2, None, None),
+                                    (3, 2, None), (8, 64, None), (1, 3, None),
+                                    (None, None, 512), (2, 1, 64)])
+def test_poe_kl_plan_covers_every_term_once(shape, layout):
+    """Every (t, b, l) is written by exactly one thread of the grid, in
+    float4s and in scalars, and every (t, b)'s KL exactly once, for the
+    plan's layout and for tiles, term groups and lanes forced; the tiles a
+    block walks cover L, each holding a latent, and the grid is a block a
+    (batch row, term group); a float4 tile is a multiple of 4 of a
+    multiple-of-4 L; the block's shared memory is its tile's two slabs,
+    its group's weights and KLs and a float a warp, within 227 KB; the
+    threads are whole warps, at most 512, and a multiple of the lanes, a
+    power of two."""
     t, b, m, l = shape
-    plan = kernels.poe_kl_plan(t, b, m, l, groups=groups)
-    assert np.all(_poe_covered(t, b, plan) == 1)
-    assert plan.smem == 4 * (2 * m * l + plan.terms * m) <= 48 * 1024
-    assert plan.warps == min(plan.terms, 32) and 1 <= plan.terms <= t
-    assert plan.blocks == b * -(-t // plan.terms)
+    tiles, groups, lanes = layout
+    plan = kernels.poe_kl_plan(t, b, m, l, tiles=tiles, groups=groups, lanes=lanes)
+    n_groups = -(-t // plan.terms)
+    assert 1 <= plan.terms <= t and plan.tiles >= 1
+    assert plan.blocks == b * n_groups
+    assert (plan.tiles - 1) * plan.tile < l <= plan.tiles * plan.tile
+    assert not plan.vec or (l % 4 == 0 and plan.tile % 4 == 0)
+    assert plan.smem == 4 * (2 * m * plan.tile + plan.terms * (m + 1) + plan.threads // 32)
+    assert plan.smem <= 232448
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.threads % plan.lanes == 0
+    for step in {4 if plan.vec else 1, 1}:
+        out, kl = _poe_covered(t, b, l, plan, step)
+        assert np.all(out == 1) and np.all(kl == 1)
 
 
 @pytest.mark.parametrize(
     "shape, plan",
-    [((20, 64, 19, 100), (10, 10, 128)), ((3, 100, 2, 256), (3, 3, 100)),
-     ((3, 100, 2, 64), (3, 3, 100)), ((20, 200, 19, 100), (20, 20, 200)),
-     ((20, 10, 19, 37), (2, 2, 100))],
+    [((20, 64, 19, 100), (10, 100, 1, 32, 480)), ((1, 64, 19, 100), (1, 100, 1, 32, 480)),
+     ((1, 8, 19, 100), (1, 100, 1, 32, 480)), ((24, 64, 19, 100), (12, 100, 1, 32, 480)),
+     ((1, 64, 2, 256), (1, 256, 1, 256, 512)), ((3, 100, 2, 64), (3, 64, 1, 64, 192)),
+     ((3, 100, 2, 256), (3, 256, 1, 64, 192)), ((20, 200, 19, 100), (20, 100, 1, 32, 512)),
+     ((20, 10, 19, 37), (2, 37, 1, 64, 512)), ((1, 8, 2, 256), (1, 256, 1, 256, 512))],
 )
 def test_poe_kl_plan_splits_terms_to_fill_the_card(shape, plan):
-    """CelebA's 64 rows take 2 groups of 10 terms, 128 blocks on 132 SMs;
-    100 rows or more take one group; 10 rows take 10 groups."""
-    assert kernels.poe_kl_plan(*shape)[:3] == plan
+    """CelebA's 64 rows (the eval, the train step) take 2 groups of their
+    terms, 128 blocks on 132 SMs; 100 rows or more one group; one term one
+    group. A row takes one tile, and a term the lanes that cover it:
+    CelebA's 25 float4s 32, MultiMNIST's 64 float4s 64 and, where a
+    thread can take each element and each (term, latent) item, scalars,
+    MNIST's 64 latents 64 and a T = 1 row of 2 x 256 latents 256. Threads:
+    a thread per staged column (CelebA's 19 x 25 float4s: 480) or per lane
+    of a pass over the terms (20 terms x 32 lanes: 512)."""
+    assert kernels.poe_kl_plan(*shape)[:5] == plan
 
 
-def test_poe_kl_plan_refuses_a_slab_above_48kb():
-    """40 experts x 200 latents are 64,000 bytes of slab: refused, with no
-    fallback; 30 x 200 fit."""
+@pytest.mark.parametrize("shape", [(1, 64, 19, 100), (1, 8, 19, 100), (1, 64, 2, 256),
+                                   (1, 100, 2, 64), (1, 8, 2, 64)])
+def test_poe_kl_plan_stages_a_row_in_one_round(shape):
+    """At T = 1 (the IWAE's joint posterior, a served batch) a block has a
+    thread for each staged column of each array (float4s, or scalars where
+    a row's elements are at most the block's 512 threads: MNIST's 2 x 64
+    latents, CUB's 2 x 256), so every load of its slab is in flight at
+    once; the block-a-row design gave such a block one warp."""
+    t, b, m, l = shape
+    plan = kernels.poe_kl_plan(*shape)
+    cols = plan.tile // (4 if plan.vec else 1)
+    assert plan.tiles == 1
+    assert plan.threads >= m * cols and plan.threads > 32 or m * cols <= 32
+    assert plan.vec == int(l % 4 == 0 and m * l > 512)
+
+
+def test_poe_kl_plan_tiles_a_slab_above_48kb():
+    """40 experts x 200 latents are 64,000 bytes of slab, which the
+    block-a-row design refused above 48 KB: one tile of 64,556 bytes a
+    block (timed faster than 2 tiles, walked or as a cluster). 40 experts
+    x 2,000 latents, whose one tile would pass 227 KB, walk 3 tiles of
+    668."""
+    plan = kernels.poe_kl_plan(41, 8, 40, 200)
+    assert (plan.terms, plan.tile, plan.tiles, plan.smem) == (3, 200, 1, 64556)
+    big = kernels.poe_kl_plan(1, 8, 40, 2000)
+    assert big.smem <= 232448 and (big.tile, big.tiles) == (668, 3)
+
+
+def test_poe_kl_plan_refuses_only_what_no_tile_fits():
+    """20,000 experts: a tile of one latent takes 240,068 bytes a block,
+    above 227 KB: refused, with no fallback. A slab that one tile cannot
+    hold plans by walking more tiles (100 x 4,096 latents: 15 tiles of
+    276; 40 x 1,500: 3 of 500)."""
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.poe_kl_plan(41, 8, 40, 200)
-    assert kernels.poe_kl_plan(31, 8, 30, 200).smem <= 48 * 1024
+        kernels.poe_kl_plan(1, 8, 20000, 1)
+    for shape in ((1, 8, 100, 4096), (1, 200, 40, 1500)):
+        plan = kernels.poe_kl_plan(*shape)
+        assert plan.smem <= 232448 and plan.tiles > 1
+
+
+@pytest.mark.parametrize("m", [1, 2, 19, 40])
+def test_poe_kl_plan_takes_every_shape_the_block_a_row_plan_took(m):
+    """The block-a-row plan took a shape whose slab of both arrays and a
+    term group's weights fit 48 KB (a group of ceil(T / min(T, 132 // B))
+    terms). Every such shape over a grid of T, B and L plans now."""
+    for t in (1, 2, 3, 20, 24, 41, 64, 255):
+        for b in (1, 8, 64, 100, 200):
+            for l in (1, 8, 37, 64, 100, 256, 600):
+                groups = max(1, min(t, 132 // b))
+                if 4 * (2 * m * l + -(-t // groups) * m) > 48 * 1024:
+                    continue
+                plan = kernels.poe_kl_plan(t, b, m, l)
+                assert plan.smem <= 232448
+                assert plan.blocks == b * -(-t // plan.terms)
 
 
 # (T, B, M, L) of the fused PoE + KL's backward: POE_SHAPES, the MNIST

@@ -1204,17 +1204,19 @@ def test_seq_ce_kernel_large_vocab_int64_tokens_and_other_pad(cuda):
 
 def _poe_inputs(gen, shape, case, device):
     """Experts, subset masks and presence of the fused PoE + KL at (T, B,
-    M, L). ``eval``: every modality present; ``ragged``: the rows past the
-    first quarter all absent, as the eval's padded last batch; ``none``: no
-    presence; ``wide``: log-variances past the +-11 clamp; ``unaligned``:
-    expert views one element into their storage (scalar loads)."""
+    M, L): the eval's subset masks, or at T = 1 the joint mask of the
+    IWAE and of a served call. ``eval``: every modality present;
+    ``ragged``: the rows past the first quarter all absent, as the eval's
+    padded last batch; ``none``: no presence; ``wide``: log-variances past
+    the +-11 clamp; ``unaligned``: expert views one element into their
+    storage (scalar loads)."""
     t, b, m, l = shape
     n = b * m * l
     mu = torch.randn(n + 1, generator=gen)
     lv = torch.randn(n + 1, generator=gen) * (20.0 if case == "wide" else 1.0)
     lo = 1 if case == "unaligned" else 0
     mu, lv = (a.to(device)[lo:lo + n].view(b, m, l) for a in (mu, lv))
-    masks = elbo_subset_masks(m, device=device)
+    masks = elbo_subset_masks(m, device=device) if t > 1 else torch.ones(1, m, device=device)
     assert masks.shape == (t, m)
     presence = (torch.rand(b, m, generator=gen) < 0.7).float().to(device)
     if case == "eval":
@@ -1233,15 +1235,18 @@ def _poe_close(got, want, l: int) -> None:
 # (T, B, M, L) of the CelebA, MultiMNIST and MNIST eval batches, and an odd
 # L with CelebA's experts.
 POE_EVAL_SHAPES = [(20, 64, 19, 100), (3, 100, 2, 256), (3, 100, 2, 64)]
+# T = 1: the IWAE's joint posterior of CelebA and MNIST, a served CelebA
+# batch of 8.
+POE_JOINT_SHAPES = [(1, 64, 19, 100), (1, 8, 19, 100), (1, 100, 2, 64)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide", "unaligned"])
-@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)])
+@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + [(20, 10, 19, 37)] + POE_JOINT_SHAPES)
 def test_poe_kl_kernel_matches_plain(cuda, shape, case):
-    """Each eval shape and an odd L, in every case; the absent rows of a
-    ragged batch give the prior and exactly 0 KL; two calls give the same
-    bits."""
+    """Each eval shape, an odd L and the T = 1 shapes, in every case; the
+    absent rows of a ragged batch give the prior and exactly 0 KL; two
+    calls give the same bits."""
     gen = torch.Generator().manual_seed(23)
     args = _poe_inputs(gen, shape, case, cuda)
     got = kernels.poe_kl_kernel(*args)
@@ -1267,17 +1272,110 @@ def test_poe_kl_kernel_every_term_grouping(cuda, groups):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [None, 256])
+@pytest.mark.parametrize("vec", [0, 1])
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("shape", [(20, 64, 19, 100), (1, 8, 19, 100), (20, 10, 19, 37),
+                                   (1, 8, 2, 256)])
+def test_poe_kl_kernel_every_tile_count(cuda, shape, tiles, vec, lanes):
+    """A row's latents walked in 1 to 8 tiles, forced through ``plan``, in
+    float4s and in scalars (every count exactly in scalars; float4 tiles
+    round it), on the plan's lanes and on 256 lanes a term (a segment over
+    8 warps), at CelebA's eval shape, a served CelebA and MultiMNIST batch
+    of 8 and an odd L: the same numbers as the plain version, the prior and
+    0 KL on the absent rows, and the same bits from two launches."""
+    gen = torch.Generator().manual_seed(24)
+    args = _poe_inputs(gen, shape, "ragged", cuda)
+    plan = kernels.poe_kl_plan(*shape, tiles=tiles, vec=vec, lanes=lanes)
+    if not vec:
+        assert plan.tiles == tiles
+    got = kernels.poe_kl_kernel(*args, plan=plan)
+    _poe_close(got, kernels.poe_kl_torch(*args), shape[3])
+    b = shape[1]
+    assert all(torch.all(g[:, b // 4:] == 0) for g in got)
+    again = kernels.poe_kl_kernel(*args, plan=plan)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(41, 8, 40, 200), (1, 8, 40, 2000)])
+def test_poe_kl_kernel_tiles_a_large_slab(cuda, shape):
+    """A slab the block-a-row design refused (40 experts x 200 latents,
+    41 terms), in one tile of 64,556 bytes (above 48 KB: the launch raises
+    the kernel's limit first) and walked in 2; and one whose tile would
+    pass 227 KB, walked in 3 of 213,988 bytes."""
+    gen = torch.Generator().manual_seed(27)
+    t, b, m, l = shape
+    mu, lv = _rand(gen, b, m, l, device=cuda), _rand(gen, b, m, l, device=cuda)
+    masks = (torch.rand(t, m, generator=gen) < 0.5).float().to(cuda)
+    presence = (torch.rand(b, m, generator=gen) < 0.7).float().to(cuda)
+    plan = kernels.poe_kl_plan(*shape)
+    assert plan.smem > 48 * 1024 and (plan.tiles == 1) == (t == 41)
+    want = kernels.poe_kl_torch(mu, lv, masks, presence)
+    _poe_close(kernels.poe_kl_kernel(mu, lv, masks, presence), want, l)
+    if t == 41:
+        two = kernels.poe_kl_plan(*shape, tiles=2)
+        _poe_close(kernels.poe_kl_kernel(mu, lv, masks, presence, plan=two), want, l)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [None, 4])
+def test_poe_kl_kernel_keeps_nan(cuda, tiles):
+    """A NaN log-variance gives NaN in the posteriors of every term it is
+    in and in their KL, in one tile and in the last of 4."""
+    gen = torch.Generator().manual_seed(28)
+    args = _poe_inputs(gen, (1, 8, 19, 100), "eval", cuda)
+    args[1][3, 5, 90] = float("nan")
+    plan = kernels.poe_kl_plan(1, 8, 19, 100, tiles=tiles)
+    mu_f, lv_f, kl = kernels.poe_kl_kernel(*args, plan=plan)
+    assert torch.isnan(mu_f[0, 3, 90]) and torch.isnan(lv_f[0, 3, 90])
+    assert torch.isnan(kl[0, 3]) and torch.isfinite(kl[0, :3]).all()
+    assert torch.isfinite(mu_f[0, 3, :90]).all()
+
+
+@pytest.mark.gpu
 def test_poe_kl_kernel_refuses_a_plan_it_cannot_run(cuda):
-    """Too little shared memory, too many warps or a grid that does not
-    match the terms is refused at launch and counts no launch."""
-    args = _poe_inputs(torch.Generator().manual_seed(25), (3, 8, 2, 64), "eval", cuda)
-    good = kernels.poe_kl_plan(3, 8, 2, 64)
+    """Too little shared memory, a block of other than whole warps or above
+    512 threads, a grid that is not a block a (batch row, term group),
+    tiles that do not cover L (or leave one empty), lanes that are not a
+    power of two or do not divide the block, or more terms a group than
+    there are is refused at launch and counts no launch."""
+    args = _poe_inputs(torch.Generator().manual_seed(25), (20, 64, 19, 100), "eval", cuda)
+    good = kernels.poe_kl_plan(20, 64, 19, 100, tiles=2)
+    assert (good.terms, good.tile, good.tiles, good.blocks) == (10, 52, 2, 128)
+    kernels.poe_kl_kernel(*args, plan=good)
     before = kernels.LAUNCHES["poe_kl"]
-    for bad in (good._replace(smem=good.smem - 4), good._replace(warps=33),
-                good._replace(blocks=good.blocks + 1)):
+    for bad in (good._replace(smem=good.smem - 4), good._replace(threads=48),
+                good._replace(threads=544), good._replace(tiles=3),
+                good._replace(tiles=1), good._replace(blocks=good.blocks + 1),
+                good._replace(blocks=good.blocks * 2), good._replace(lanes=3),
+                good._replace(lanes=512), good._replace(terms=21)):
         with pytest.raises(RuntimeError, match="launch failed"):
             kernels.poe_kl_kernel(*args, plan=bad)
     assert kernels.LAUNCHES["poe_kl"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["eval", "ragged", "none", "wide"])
+@pytest.mark.parametrize("shape", POE_EVAL_SHAPES + POE_JOINT_SHAPES + [(24, 64, 19, 100)])
+def test_poe_kl_grad_kernel_on_the_tiled_forward(cuda, shape, case):
+    """``poe_kl_bwd`` fed the tiled forward's ``mu_f`` and ``lv_f``: the
+    same gradients as ``poe_kl_grad_torch`` fed the same, at the eval, T =
+    1 and train shapes; the forward's posteriors within the plain
+    version's tolerance of the plain ones."""
+    gen = torch.Generator().manual_seed(29)
+    if shape[0] == 24:  # the eval's 20 terms and 4 random subsets, one of them empty
+        args = _poe_inputs(gen, (20, *shape[1:]), case, cuda)
+        subsets = (torch.rand(4, 19, generator=gen) < 0.5).float().to(cuda)
+        subsets[2] = 0.0
+        args = (*args[:2], torch.cat([args[2], subsets]), args[3])
+    else:
+        args = _poe_inputs(gen, shape, case, cuda)
+    fwd = kernels.poe_kl_kernel(*args)
+    _poe_close(fwd, kernels.poe_kl_torch(*args), shape[3])
+    g = _poe_grads(gen, shape, cuda)
+    got = kernels.poe_kl_grad_kernel(*args, fwd[0], fwd[1], *g)
+    _poe_grad_close(got, kernels.poe_kl_grad_torch(*args, fwd[0], fwd[1], *g), shape[0])
 
 
 @pytest.mark.gpu
